@@ -1,0 +1,195 @@
+"""The port's host setup and multigrid pieces against the JAX package, on the
+CPU: generators, format conversions, ``build_hierarchy`` (held to the JAX
+build carried across by ``convert.hierarchy_from_reference``), transfers,
+smoothers and one V-cycle."""
+
+from functools import partial
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from conjugategradient_tpu.core import formats as jfmt
+from conjugategradient_tpu.core import generators as jgen
+from conjugategradient_tpu.core import oracle as jor
+from conjugategradient_tpu.ops.stencil import spmv_const_stencil as j_spmv_const
+from conjugategradient_tpu.precond import multigrid as jmg
+from conjugategradient_tpu.precond import smoothers as jsm
+from conjugategradient_tpu.precond import transfer as jtr
+from conjugategradient_tpu_torch.convert import hierarchy_from_reference
+from conjugategradient_tpu_torch.core import formats as tfmt
+from conjugategradient_tpu_torch.core import generators as tgen
+from conjugategradient_tpu_torch.core import oracle as tor
+from conjugategradient_tpu_torch.ops.stencil import spmv_const_stencil
+from conjugategradient_tpu_torch.precond import multigrid as tmg
+from conjugategradient_tpu_torch.precond import smoothers as tsm
+from conjugategradient_tpu_torch.precond import transfer as ttr
+
+
+def _jax_fields(hj):
+    """The JAX hierarchy as plain numpy arrays and Python values."""
+    levels = [
+        dict(coeffs=l.A.coeffs, shifts=l.A.shifts, grid=l.grid, cheb_bounds=l.cheb_bounds,
+             transfer=l.transfer, inv_diag=np.asarray(l.inv_diag))
+        for l in hj.levels
+    ]
+    return dict(levels=levels, coarse_inv=np.asarray(hj.coarse_inv), smoother=hj.smoother,
+                pre=hj.pre, post=hj.post, omega=hj.omega)
+
+
+def _build_both(grid, dtype=np.float64):
+    sj = jgen.poisson_system(grid, dtype=dtype)
+    st = tgen.poisson_system(grid, dtype=dtype)
+    kw = dict(smoother="chebyshev", pre=2, post=2, dtype=dtype)
+    hj = jmg.build_hierarchy(sj.A, grid, coarse_operator=jgen.poisson_coarse_operator(dtype), **kw)
+    ht = tmg.build_hierarchy(st.A, grid, coarse_operator=tgen.poisson_coarse_operator(dtype), **kw)
+    return hj, ht
+
+
+@pytest.mark.parametrize("grid", [(33,), (31, 17), (9, 7, 5)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_generators_bit_identical(grid, dtype):
+    sj = jgen.poisson_system(grid, seed=3, dtype=dtype)
+    st = tgen.poisson_system(grid, seed=3, dtype=dtype)
+    assert st.A.offsets == sj.A.offsets and st.A.shape == sj.A.shape
+    np.testing.assert_array_equal(st.A.data, np.asarray(sj.A.data))
+    np.testing.assert_array_equal(st.b, sj.b)
+    np.testing.assert_array_equal(st.x0, sj.x0)
+    coarse = tuple((n - 1) // 2 for n in grid)
+    cj = jgen.poisson_coarse_operator(dtype)(2, coarse)
+    ct = tgen.poisson_coarse_operator(dtype)(2, coarse)
+    assert ct.offsets == cj.offsets and ct.data.dtype == np.asarray(cj.data).dtype
+    np.testing.assert_array_equal(ct.data, np.asarray(cj.data))
+
+
+@pytest.mark.parametrize("grid", [(31, 17), (9, 7, 5)])
+def test_format_conversions_match_jax(grid):
+    sj = jgen.poisson_system(grid)
+    st = tgen.poisson_system(grid)
+    stj, stt = jfmt.dia_to_stencil(sj.A, grid), tfmt.dia_to_stencil(st.A, grid)
+    assert stt.shifts == stj.shifts and stt.grid == stj.grid
+    np.testing.assert_array_equal(stt.data, np.asarray(stj.data))
+    cj, ct = jfmt.stencil_to_const(stj), tfmt.stencil_to_const(stt)
+    assert (ct.coeffs, ct.shifts, ct.grid) == (cj.coeffs, cj.shifts, cj.grid)
+    assert ct.halo == cj.halo and ct.nnz == cj.nnz == stt.nnz
+    np.testing.assert_array_equal(tfmt.dia_diagonal(st.A), jfmt.dia_diagonal(sj.A))
+    np.testing.assert_array_equal(tfmt.dia_to_dense(st.A), np.asarray(jfmt.dia_to_dense(sj.A).data))
+    for off in (1, -1, grid[-1], -grid[-1], grid[-1] + 1, 7 * grid[-1] - 3):
+        assert tfmt._decompose_offset(off, grid) == jfmt._decompose_offset(off, grid)
+    x = np.random.default_rng(0).standard_normal(st.n)
+    np.testing.assert_array_equal(tor.spmv(st.A, x), jor.spmv(sj.A, x))
+    # a variable-coefficient stencil is not const-representable
+    legs = stt.data.copy()
+    legs[0].flat[-1] = 5.0
+    assert tfmt.stencil_to_const(tfmt.StencilMatrix(legs, stt.shifts, stt.grid)) is None
+
+
+@pytest.mark.parametrize("grid", [(63, 63), (31, 31, 31), (63, 63, 63)])
+def test_build_hierarchy_matches_jax(grid):
+    # equal grids, coeffs, shifts, bounds, transfer kinds; exact inv_diag;
+    # coarse_inv within 1e-12 (the same numpy code: in practice exact)
+    hj, ht = _build_both(grid)
+    hc = hierarchy_from_reference(**_jax_fields(hj))
+    assert len(ht.levels) == len(hj.levels) == len(hc.levels) > 0
+    for lt, lc in zip(ht.levels, hc.levels):
+        assert lt.grid == lc.grid
+        assert (lt.A.coeffs, lt.A.shifts, lt.A.grid) == (lc.A.coeffs, lc.A.shifts, lc.A.grid)
+        assert lt.cheb_bounds == lc.cheb_bounds and lt.transfer == lc.transfer == "fw"
+        assert lt.inv_diag.dtype == lc.inv_diag.dtype and lt.inv_diag.ndim == 0
+        assert torch.equal(lt.inv_diag, lc.inv_diag)
+    assert (ht.smoother, ht.pre, ht.post, ht.omega) == (hc.smoother, hc.pre, hc.post, hc.omega)
+    np.testing.assert_allclose(ht.coarse_inv.numpy(), hc.coarse_inv.numpy(), rtol=0, atol=1e-12)
+
+
+def test_hierarchy_is_a_module_with_buffers():
+    _, ht = _build_both((31, 31, 31), np.float32)
+    names = {n for n, _ in ht.named_buffers()}
+    assert names == {"coarse_inv", "levels.0.inv_diag", "levels.1.inv_diag"}
+    h64 = ht.to(torch.float64)
+    assert h64.coarse_inv.dtype == torch.float64 and h64.levels[1].inv_diag.dtype == torch.float64
+
+
+@pytest.mark.parametrize("grid", [(15, 31), (7, 9, 11)])
+def test_transfers_match_jax(grid):
+    rng = np.random.default_rng(1)
+    v = rng.standard_normal(grid)
+    rj = np.asarray(jtr.restrict_grid(jnp.asarray(v)))
+    rt = ttr.restrict_grid(torch.from_numpy(v))
+    assert rt.is_contiguous()
+    np.testing.assert_allclose(rt.numpy(), rj, rtol=1e-12, atol=1e-12)
+    e = rng.standard_normal(ttr.coarse_shape(grid))
+    pj = np.asarray(jtr.prolong_grid(jnp.asarray(e), grid))
+    pt = ttr.prolong_grid(torch.from_numpy(e), grid)
+    assert pt.is_contiguous()
+    np.testing.assert_allclose(pt.numpy(), pj, rtol=1e-12, atol=1e-12)
+    assert ttr.coarse_shape(grid) == jtr.coarse_shape(grid)
+    assert ttr.can_coarsen((8, 9)) == jtr.can_coarsen((8, 9)) is False
+
+
+@pytest.mark.parametrize("smoother", ["chebyshev", "jacobi"])
+def test_smoothers_match_jax(smoother):
+    grid = (13, 11, 9)
+    jA = jfmt.stencil_to_const(jfmt.dia_to_stencil(jgen.poisson_system(grid).A, grid))
+    tA = tfmt.stencil_to_const(tfmt.dia_to_stencil(tgen.poisson_system(grid).A, grid))
+    rng = np.random.default_rng(2)
+    b, x = rng.standard_normal((2,) + grid)
+    invd = 1.0 / 6.0
+    jop, top = partial(j_spmv_const, jA), partial(spmv_const_stencil, tA)
+    if smoother == "chebyshev":
+        xj = jsm.chebyshev_smooth(jop, jnp.asarray(invd), jnp.asarray(b), jnp.asarray(x), 3, 2.0, 0.5)
+        xt = tsm.chebyshev_smooth(top, torch.tensor(invd, dtype=torch.float64), torch.from_numpy(b),
+                                  torch.from_numpy(x), 3, 2.0, 0.5)
+    else:
+        xj = jsm.jacobi_smooth(jop, jnp.asarray(invd), jnp.asarray(b), jnp.asarray(x), 3)
+        xt = tsm.jacobi_smooth(top, torch.tensor(invd, dtype=torch.float64), torch.from_numpy(b),
+                               torch.from_numpy(x), 3)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("grid", [(31, 31), (15, 15, 15)])
+def test_v_cycle_matches_jax_fp64(grid):
+    # same state in both packages (carried across); fp64 takes the unfused
+    # path in both, so the cycles agree to rounding
+    hj, _ = _build_both(grid)
+    hc = hierarchy_from_reference(**_jax_fields(hj))
+    b = np.random.default_rng(4).standard_normal(grid)
+    yj = np.asarray(jmg.v_cycle(hj, jnp.asarray(b)))
+    yt = tmg.v_cycle(hc, torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=1e-12, atol=1e-12)
+    # flat input comes back flat
+    yf = tmg.v_cycle(hc, torch.from_numpy(b.reshape(-1)))
+    assert yf.shape == (b.size,)
+    np.testing.assert_allclose(yf.numpy(), yj.reshape(-1), rtol=1e-12, atol=1e-12)
+
+
+def test_fused_gate():
+    _, h3 = _build_both((15, 15, 15), np.float32)
+    _, h2 = _build_both((63, 63), np.float32)
+    b3 = torch.zeros((15, 15, 15))
+    assert tmg._fused_cheb_ok(h3.levels[0], b3)
+    assert not tmg._fused_cheb_ok(h3.levels[0], b3.double())  # fp64 runs unfused
+    assert not tmg._fused_cheb_ok(h2.levels[0], torch.zeros((63, 63)))  # 2-D runs unfused
+
+
+def test_unported_branches_raise_naming_the_roadmap():
+    s = tgen.poisson_system((15, 15))
+    co = tgen.poisson_coarse_operator()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        tmg.build_hierarchy(s.A, (15, 15))  # Galerkin
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        tmg.build_hierarchy(s.A, (15, 15), smoother="rbgs", coarse_operator=co)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        tmg.fmg(None, None)
+    s64 = tgen.poisson_system((64, 64))
+    with pytest.raises(NotImplementedError, match="hyb"):
+        tmg.build_hierarchy(s64.A, (64, 64), coarse_operator=co)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        hierarchy_from_reference(
+            [dict(coeffs=(1.0,), shifts=((0, 0),), grid=(4, 4), cheb_bounds=(0.5, 2.0),
+                  transfer="agg", inv_diag=np.asarray(1.0))],
+            np.eye(4), "chebyshev", 2, 2, 2 / 3,
+        )
+    with pytest.raises(ValueError, match="unknown smoother"):
+        tmg.build_hierarchy(s.A, (15, 15), smoother="sor", coarse_operator=co)
