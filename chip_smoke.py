@@ -3,20 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the stencil kernels from ``conjugategradient_tpu_torch/csrc``, checks
-each kernel against its plain PyTorch twin on the card, then drives the
-port's main path through its public entry points: ``poisson_system`` ->
-``build_hierarchy`` (rediscretized const-stencil levels, Chebyshev
-pre=2/post=2) -> ``cg_solve`` with the V-cycle as preconditioner, on the 2-D
-1023^2 and the 3-D 255^3 Poisson problems in fp32.  Every phase has a bound
-and any miss, build failure or launch failure ends the run with a non-zero
-exit before the last line.  The launch counters show that the solves went
-through both kernels (the fused Chebyshev kernel at every 3-D level).
+Builds the kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc`` per
+source, started together), checks each kernel against its plain PyTorch twin
+on the card, then drives the port's two main paths through their public
+entry points, each with the launch counts set to 0 just before it and read
+just after:
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-the per-kernel record (launches on the main path, worst error against the
-twin, kernel and twin times).  Times come from CUDA events after a warm-up
-and each is printed beside the card's name and power limit.
+- MGCG: ``poisson_system`` -> ``build_hierarchy`` (rediscretized
+  const-stencil levels, Chebyshev pre=2/post=2) -> ``cg_solve`` with the
+  V-cycle as preconditioner, on the 2-D 1023^2 and the 3-D 255^3 Poisson
+  problems in fp32.  The counts show both stencil kernels ran (the fused
+  Chebyshev kernel at every 3-D level).
+- The flagship: ``WORKLOADS["cublas_flagship"]`` (n = 207,402, band 160) in
+  fp64 -> ``refined_solve`` to an absolute ||r||_2 < 1e-8, three times: fp32
+  legs, bf16 legs (``matrix_dtype``) and the fp64 device residual
+  (``device_residual=True``); then ``api.solve(A, B, method="refined")`` with
+  an n x 4 block.  The counts show the DIA SpMV ran in each of its three
+  instantiations and as often as the iteration counts imply, and that the
+  DIA SpMM ran.
+
+Every phase has a bound and any miss, build failure or launch failure ends
+the run with a non-zero exit before the last line.  The last line is
+``{"ok": true, "device": {...}}``; the line before it holds the per-kernel
+record (launches on the main path, worst error against the twin, kernel and
+twin times).  Times come from CUDA events after a warm-up and each is
+printed beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -29,9 +40,21 @@ import time
 import numpy as np
 import torch
 
-from conjugategradient_tpu_torch.core import generators
+from conjugategradient_tpu_torch import api
+from conjugategradient_tpu_torch.core import generators, oracle
 from conjugategradient_tpu_torch.core.formats import dia_to_stencil, stencil_to_const
-from conjugategradient_tpu_torch.ops import _build, cuda_stencil
+from conjugategradient_tpu_torch.models.workloads import WORKLOADS
+from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
+from conjugategradient_tpu_torch.ops.cuda_dia import (
+    TAGS,
+    k_chunks,
+    spmm_dia_cuda,
+    spmm_dia_ref,
+    spmv_dia_cuda,
+    spmv_dia_ref,
+    spmv_dot_dia_cuda,
+    spmv_dot_dia_ref,
+)
 from conjugategradient_tpu_torch.ops.cuda_stencil import (
     cheb_smooth_const_cuda,
     cheb_smooth_const_ref,
@@ -45,10 +68,13 @@ from conjugategradient_tpu_torch.precond.multigrid import (
 )
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
+from conjugategradient_tpu_torch.solvers.refine import refined_solve
 
-#: max |kernel - twin| <= KERNEL_REL * max |twin|: same leg order in fp32,
-#: only FMA contraction differs.
+#: max |kernel - twin| <= KERNEL_REL * max |twin|: same leg order in fp32
+#: (or bf16 legs with fp32 accumulation), only FMA contraction differs.
 KERNEL_REL = 1e-5
+#: the same bound for the fp64 DIA instantiation.
+KERNEL_REL64 = 1e-13
 #: solver tolerance (rel_l2) and the bound on the true fp64 relative
 #: residual of the fp32 solution (the fp32 drift floor).
 TOL = 1e-6
@@ -66,6 +92,18 @@ SMALL_GRIDS = [(63, 63), (31, 31, 31)]
 TIME_SPMV_GRIDS = [(1023, 1023), (255, 255, 255), (63, 63, 63)]
 TIME_CHEB_GRIDS = [(255, 255, 255), (63, 63, 63)]
 
+#: the flagship: fp64 contract, fp32 inner solves (bench.py's call)
+FLAGSHIP = "cublas_flagship"
+FLAGSHIP_TOL = 1e-8
+FLAGSHIP_INNER_TOL = 1e-4
+#: multi-RHS columns vs their single-RHS refined solves, and the card vs the
+#: CPU on the small refined solve: both fp64-converged to ||r|| < 1e-8, so
+#: the solutions agree far below fp32 rounding.
+MULTI_AGREE = 1e-7
+SMALL_REFINE = (4096, 32)
+SPMM_KS = (1, 3, 4, 8)
+DIA_LEGS = tuple(TAGS)
+
 KERNELS = {
     "spmv_const_stencil": dict(
         route="cuda", source="conjugategradient_tpu_torch/csrc/stencil.cu",
@@ -74,6 +112,14 @@ KERNELS = {
     "cheb_smooth_const": dict(
         route="cuda", source="conjugategradient_tpu_torch/csrc/stencil.cu",
         replaces="conjugategradient_tpu/ops/pallas_stencil.py:288",
+    ),
+    "spmv_dia": dict(
+        route="cuda", source="conjugategradient_tpu_torch/csrc/dia.cu",
+        replaces="conjugategradient_tpu/ops/pallas_spmv.py:193",
+    ),
+    "spmm_dia": dict(
+        route="cuda", source="conjugategradient_tpu_torch/csrc/dia.cu",
+        replaces="conjugategradient_tpu/ops/pallas_spmv.py:421",
     ),
 }
 
@@ -142,6 +188,199 @@ def _check_solution(tag, A, b, res):
     return rel
 
 
+def _dia_cases(flagship_A):
+    """(label, host DiaMatrix) of the DIA kernel checks: the flagship, a
+    ragged band, the tridiagonal workload, and 2-D/3-D Poisson operators as
+    flat DIA (far offsets +-1023 and +-3969)."""
+    return [
+        (f"banded_sin n={flagship_A.n} band=160", flagship_A),
+        ("banded_sin n=333 band=8", generators.banded_sin_matrix(333, 8)),
+        ("tridiagonal n=65536", generators.tridiagonal_matrix(65536)),
+        ("poisson2d 1023^2", generators.poisson2d_matrix(1023)),
+        ("poisson3d 63^3", generators.poisson3d_matrix(63)),
+    ]
+
+
+def _dia_kernel_checks(cases, dev, errs):
+    """Kernel #4 (fp32, bf16 and fp64 legs; plain and fused) and kernel #5
+    (k in SPMM_KS) against their twins; every SpMM column must equal the
+    single-RHS kernel bit for bit (same legs, same order, explicit fma)."""
+    rng = np.random.default_rng(SEED)
+    for label, A_host in cases:
+        for legs in DIA_LEGS:
+            A = A_host.device_put(legs, dev)
+            vec = torch.float64 if legs == torch.float64 else torch.float32
+            rel = KERNEL_REL64 if legs == torch.float64 else KERNEL_REL
+            tag = f"{label} {TAGS[legs]} legs"
+            x = torch.from_numpy(rng.standard_normal(A.n)).to(dev, vec)
+            y, ref = spmv_dia_cuda(A, x), spmv_dia_ref(A, x)
+            yf, dot = spmv_dot_dia_cuda(A, x)
+            ref_dot = torch.dot(x, ref)
+            torch.cuda.synchronize()
+            err, scale = _max_err(y, ref)
+            _require(err <= rel * scale, f"spmv_dia {tag}: max err {err:.3e} > {rel}*{scale:.3e}")
+            _require(torch.equal(yf, y), f"spmv_dot_dia {tag}: fused A p differs from the SpMV's")
+            dot_err = abs(float(dot) - float(ref_dot))
+            dot_scale = float((x.abs() * ref.abs()).sum())
+            _require(dot_err <= rel * dot_scale,
+                     f"spmv_dot_dia {tag}: p.Ap err {dot_err:.3e} > {rel}*{dot_scale:.3e}")
+            errs["spmv_dia"] = max(errs["spmv_dia"], err)
+            print(f"spmv_dia {tag}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e}); "
+                  f"fused p.Ap err {dot_err:.3e} (sum|p Ap| {dot_scale:.3e})")
+            if legs == torch.float64:
+                continue
+            worst = 0.0
+            for k in SPMM_KS:
+                X = torch.from_numpy(rng.standard_normal((k, A.n))).to(dev, torch.float32)
+                Y, ref = spmm_dia_cuda(A, X), spmm_dia_ref(A, X)
+                torch.cuda.synchronize()
+                err, scale = _max_err(Y, ref)
+                _require(err <= KERNEL_REL * scale,
+                         f"spmm_dia {tag} k={k}: max err {err:.3e} > {KERNEL_REL}*{scale:.3e}")
+                same = all(torch.equal(Y[j], spmv_dia_cuda(A, X[j])) for j in range(k))
+                _require(same, f"spmm_dia {tag} k={k}: a column differs from the single-RHS kernel")
+                worst = max(worst, err)
+            errs["spmm_dia"] = max(errs["spmm_dia"], worst)
+            print(f"spmm_dia {tag} k={SPMM_KS}: max|kernel-twin| {worst:.3e}; "
+                  "every column equals the SpMV kernel's")
+
+
+def _small_refine_card_vs_cpu(dev):
+    """The same small refined solve on the card and on the CPU (twins)."""
+    s = generators.banded_sin_system(*SMALL_REFINE)
+    kw = dict(tol=FLAGSHIP_TOL, norm="l2", inner_tol=FLAGSHIP_INNER_TOL)
+    g = refined_solve(s.A, s.b, s.x0, device=dev, **kw)
+    c = refined_solve(s.A, s.b, s.x0, device="cpu", **kw)
+    tag = f"small refined banded_sin{SMALL_REFINE}"
+    _require(g.converged and c.converged, f"{tag}: card {g.converged}, CPU {c.converged}")
+    _require(g.outer_iterations == c.outer_iterations,
+             f"{tag}: {g.outer_iterations} outer passes on the card vs {c.outer_iterations} on the CPU")
+    dx = float(np.abs(g.x - c.x).max() / np.abs(c.x).max())
+    _require(dx <= MULTI_AGREE, f"{tag}: card vs CPU solution differs by {dx:.3e}")
+    print(f"{tag}: card {g.outer_iterations} outer / {g.inner_iterations} inner, CPU "
+          f"{c.outer_iterations} / {c.inner_iterations}, max rel diff {dx:.3e}")
+
+
+def _flagship_routes(fsys, dev, card):
+    """bench.py's flagship call on the card, three routes, each counted (the
+    counts set to 0 just before the solve and read just after) and then
+    timed in a second run.  Returns {route: launches by dtype}."""
+    routes = (
+        ("fp32 legs", {}, "fp32"),
+        ("bf16 legs", dict(matrix_dtype=torch.bfloat16), "bf16"),
+        ("fp64 device residual", dict(device_residual=True), "fp32"),
+    )
+    out = {}
+    for label, kw, inner_tag in routes:
+        solve = lambda: refined_solve(
+            fsys.A, fsys.b, fsys.x0, tol=FLAGSHIP_TOL, norm="l2", inner_tol=FLAGSHIP_INNER_TOL,
+            device_dtype=np.float32, device=dev, **kw)
+        torch.cuda.synchronize()
+        cuda_dia.reset_launch_counts()
+        res = solve()
+        torch.cuda.synchronize()
+        counts = dict(spmv_dia_cuda.launches_by_dtype)
+        tag = f"flagship {label}"
+        _require(res.converged, f"{tag}: not converged after {res.outer_iterations} passes "
+                                f"(stalled {res.stalled}, history {res.history})")
+        _require(res.x.shape == (fsys.n,) and bool(np.isfinite(res.x).all()), f"{tag}: bad x")
+        r_true = float(np.linalg.norm(fsys.b - oracle.spmv(fsys.A, res.x)))
+        _require(r_true < FLAGSHIP_TOL, f"{tag}: true fp64 ||b - A x||_2 {r_true:.3e} >= {FLAGSHIP_TOL}")
+        want = res.outer_iterations + res.inner_iterations
+        _require(want > 0, f"{tag}: no inner solve ran")
+        _require(counts.get(inner_tag, 0) == want,
+                 f"{tag}: {inner_tag} SpMV launches {counts} != outer + inner iterations {want}")
+        if kw.get("device_residual"):
+            _require(counts.get("fp64", 0) == res.outer_iterations + 1,
+                     f"{tag}: fp64 residual launches {counts} != outer passes + 1")
+        print(f"{tag}: converged, {res.outer_iterations} outer / {res.inner_iterations} inner "
+              f"iterations, true fp64 ||r||_2 {r_true:.3e}, history "
+              f"{[float(f'{h:.4e}') for h in res.history]}, spmv_dia launches {counts}")
+        _print_route_time(f"{tag} (counted run)", res.timings, card)
+        _print_route_time(f"{tag} (timed run)", solve().timings, card)
+        out[label] = counts
+    return out
+
+
+def _print_route_time(tag, timings, card):
+    """A refined solve's host-clock wall (the whole call) split into inner
+    solves and host outer work, from ``RefineResult.timings``."""
+    wall = timings["inner_s"] + timings["outer_s"]
+    print(f"time {tag}: wall {wall * 1e3:.3f} ms = inner solves {timings['inner_s'] * 1e3:.3f} ms"
+          f" + host outer work {timings['outer_s'] * 1e3:.3f} ms; timings "
+          f"{({k: round(v * 1e3, 3) for k, v in timings.items()})} ms [{card}]")
+
+
+def _flagship_multi(fsys, dev, card) -> int:
+    """``api.solve(A, B, method="refined")`` with B = [b, three seeded normal
+    columns], counted; every column must converge and agree with its
+    single-RHS refined solve.  Returns the SpMM launch count."""
+    rng = np.random.default_rng(SEED)
+    B = np.column_stack([fsys.b] + [rng.standard_normal(fsys.n) for _ in range(3)])
+    torch.cuda.synchronize()
+    cuda_dia.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = api.solve(fsys.A, B, method="refined", tol=FLAGSHIP_TOL, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = spmm_dia_cuda.launches
+    by_dtype = dict(spmm_dia_cuda.launches_by_dtype)
+    tag = f"flagship multi-RHS n x {B.shape[1]}"
+    _require(bool(res.converged.all()), f"{tag}: converged {res.converged}, history {res.history}")
+    _require(res.x.shape == B.shape and bool(np.isfinite(res.x).all()), f"{tag}: bad X")
+    _require(launches > 0, f"{tag}: no spmm_dia launch")
+    worst = 0.0
+    for j in range(B.shape[1]):
+        r_true = float(np.linalg.norm(B[:, j] - oracle.spmv(fsys.A, res.x[:, j])))
+        _require(r_true < FLAGSHIP_TOL, f"{tag} column {j}: true ||r||_2 {r_true:.3e}")
+        single = refined_solve(fsys.A, B[:, j], tol=FLAGSHIP_TOL, device=dev)
+        dx = float(np.abs(res.x[:, j] - single.x).max() / np.abs(single.x).max())
+        _require(dx <= MULTI_AGREE, f"{tag} column {j}: differs from its single-RHS solve by {dx:.3e}")
+        worst = max(worst, dx)
+    print(f"{tag}: converged in {res.outer_iterations} outer passes, inner iterations per column "
+          f"{res.inner_iterations.tolist()}, max rel diff to single-RHS solves {worst:.3e}, "
+          f"spmm_dia launches {launches} {by_dtype} (chunks of {k_chunks(B.shape[1])})")
+    print(f"time {tag}: wall {wall * 1e3:.3f} ms [{card}]")
+    return launches
+
+
+def _dia_times(A_host, dev, card, times):
+    """Kernel vs twin at the flagship's shape (band 160, n = 207,402): the
+    SpMV in three instantiations, fused vs unfused-plus-dot, the SpMM at
+    k = 4 and 8 vs k single SpMVs; and a read/copy bandwidth canary."""
+    rng = np.random.default_rng(SEED + 1)
+    n = A_host.n
+    xs = {v: torch.from_numpy(rng.standard_normal(n)).to(dev, v) for v in (torch.float32, torch.float64)}
+    for legs in DIA_LEGS:
+        A = A_host.device_put(legs, dev)
+        x = xs[torch.float64 if legs == torch.float64 else torch.float32]
+        k_ms = _time_ms(lambda: spmv_dia_cuda(A, x), 200)
+        p_ms = _time_ms(lambda: spmv_dia_ref(A, x), 10)
+        gb = (A.data.numel() * A.data.element_size() + 2 * n * x.element_size()) / 1e9
+        times[("spmv_dia", TAGS[legs])] = (k_ms, p_ms)
+        print(f"time spmv_dia {TAGS[legs]} legs n={n} band=160: kernel {k_ms:.4f} ms "
+              f"({gb / (k_ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB), twin {p_ms:.4f} ms [{card}]")
+    A = A_host.device_put(torch.float32, dev)
+    x = xs[torch.float32]
+    f_ms = _time_ms(lambda: spmv_dot_dia_cuda(A, x), 200)
+    u_ms = _time_ms(lambda: torch.dot(x, spmv_dia_cuda(A, x)), 200)
+    print(f"time spmv_dot_dia fp32 fused: {f_ms:.4f} ms vs unfused SpMV + dot {u_ms:.4f} ms [{card}]")
+    for k in (4, 8):
+        X = torch.from_numpy(rng.standard_normal((k, n))).to(dev, torch.float32)
+        k_ms = _time_ms(lambda: spmm_dia_cuda(A, X), 100)
+        s_ms = _time_ms(lambda: [spmv_dia_cuda(A, X[j]) for j in range(k)], 100)
+        p_ms = _time_ms(lambda: spmm_dia_ref(A, X), 5)
+        times[("spmm_dia", k)] = (k_ms, p_ms)
+        print(f"time spmm_dia fp32 k={k}: kernel {k_ms:.4f} ms vs {k} single SpMVs {s_ms:.4f} ms, "
+              f"twin {p_ms:.4f} ms [{card}]")
+    buf = torch.empty(A.data.numel(), dtype=torch.float32, device=dev).normal_()
+    gb = buf.numel() * 4 / 1e9
+    r_ms = _time_ms(lambda: buf.sum(), 100)
+    c_ms = _time_ms(lambda: buf.clone(), 100)
+    print(f"canary {gb * 1e3:.1f} MB fp32: read (sum) {r_ms:.4f} ms = {gb / (r_ms * 1e-3):.0f} GB/s, "
+          f"copy {c_ms:.4f} ms = {2 * gb / (c_ms * 1e-3):.0f} GB/s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -150,6 +389,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {k: 0.0 for k in KERNELS}
+    t_run = time.perf_counter()
 
     # -- phase 1: device ---------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -162,12 +402,14 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load()
-    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.3f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    lib_paths = _build.build()
+    for name in lib_paths:
+        _build.load(name)
+    print(f"build: {sorted(p.name for p in lib_paths.values())} in {time.perf_counter() - t0:.3f} s")
+    for lib_path in lib_paths.values():
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
     rng = torch.Generator(device=dev).manual_seed(SEED)
     rand = lambda g: torch.randn(g, generator=rng, device=dev, dtype=torch.float32)
@@ -216,6 +458,14 @@ def main() -> int:
               f"max rel diff {dx:.3e}")
     torch.cuda.synchronize()
 
+    # DIA kernels (#4 in three instantiations and fused, #5) vs their twins
+    t0 = time.perf_counter()
+    fsys = WORKLOADS[FLAGSHIP].build(dtype=np.float64)
+    print(f"flagship system {FLAGSHIP}: n {fsys.n}, {fsys.A.ndiags} diagonals, "
+          f"built in {time.perf_counter() - t0:.3f} s")
+    _dia_kernel_checks(_dia_cases(fsys.A), dev, errs)
+    _small_refine_card_vs_cpu(dev)
+
     # -- phases 3-4: the main path, counted ---------------------------------
     sys2 = generators.poisson_system(GRID_2D, dtype=np.float32)
     sys3 = generators.poisson_system(GRID_3D, dtype=np.float32)
@@ -257,6 +507,12 @@ def main() -> int:
     print(f"plain CG 2-D {GRID_2D}: {res_plain.iterations} iterations, "
           f"true fp64 rel residual {rel_plain:.3e}")
 
+    # -- the flagship path, counted: three refined routes, then multi-RHS ----
+    flag = _flagship_routes(fsys, dev, card)
+    multi_spmm = _flagship_multi(fsys, dev, card)
+    launches["spmv_dia"] = sum(sum(c.values()) for c in flag.values())
+    launches["spmm_dia"] = multi_spmm
+
     # -- phase 6: times -----------------------------------------------------
     times = {}
     for g in TIME_SPMV_GRIDS:
@@ -284,15 +540,19 @@ def main() -> int:
     for tag, fn in (("MGCG 2-D", solve2), ("MGCG 3-D", solve3), ("plain CG 2-D", plain)):
         ms = _time_ms(fn, 3)
         print(f"time {tag} solve: {ms:.3f} ms [{card}]")
+    _dia_times(fsys.A, dev, card, times)
 
     # -- record -------------------------------------------------------------
     main_shape = {"spmv_const_stencil": ("spmv_const_stencil", GRID_3D),
-                  "cheb_smooth_const": ("cheb_smooth_const", GRID_3D, "pre: zero x0 + resid")}
+                  "cheb_smooth_const": ("cheb_smooth_const", GRID_3D, "pre: zero x0 + resid"),
+                  "spmv_dia": ("spmv_dia", "fp32"),
+                  "spmm_dia": ("spmm_dia", 4)}
     record = [
         dict(name=name, **meta, launches=launches[name], max_abs_err=errs[name],
              ms=times[main_shape[name]][0], plain_ms=times[main_shape[name]][1])
         for name, meta in KERNELS.items()
     ]
+    print(f"run: {time.perf_counter() - t_run:.1f} s after the build")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

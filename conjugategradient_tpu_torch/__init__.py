@@ -6,13 +6,19 @@ rewritten by hand for Hopper (``csrc/``).  The layout mirrors the
 reference's, so each counterpart is found by path:
 
 - ``core``    — numpy host containers (DIA / stencil / const stencil), the
-                Poisson generators and the fp64 oracle SpMV.
-- ``ops``     — BLAS-1, compensated dots, the const-stencil SpMV and the
-                fused Chebyshev smoother (CUDA kernels with plain twins).
-- ``solvers`` — convergence policy and (preconditioned) CG.
+                banded, tridiagonal and Poisson generators and the fp64
+                oracle (SpMV and CG).
+- ``ops``     — BLAS-1, compensated dots, and the CUDA kernels with their
+                plain twins: the const-stencil SpMV, the fused Chebyshev
+                smoother, the DIA SpMV (and its fused p·Ap) and the DIA SpMM.
+- ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG and
+                mixed-precision iterative refinement (the flagship path).
 - ``precond`` — smoothers, fw transfers and the geometric-multigrid
                 V-cycle (MGCG).
-- ``convert`` — carries a hierarchy across from the reference's fields.
+- ``models``  — the named workloads of the reference's drivers.
+- ``api``     — ``solve(A, b, method=...)`` for the ported methods.
+- ``convert`` — carries a hierarchy or a DIA matrix across from the
+                reference's fields.
 
 This package imports ``torch``, numpy and scipy, never ``jax``.  See
 ROADMAP.md for what is ported and what is still to come.

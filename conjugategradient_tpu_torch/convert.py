@@ -1,8 +1,9 @@
-"""Carry a multigrid hierarchy across from the JAX package's fields.
+"""Carry state across from the JAX package's containers.
 
 ``hierarchy_from_reference`` takes the reference hierarchy as plain numpy
-arrays and Python values (the caller does ``np.asarray`` on the JAX side), so
-both packages can compute with the same state; this module never imports
+arrays and Python values (the caller does ``np.asarray`` on the JAX side), and
+``dia_from_reference`` takes a JAX ``DiaMatrix`` (host numpy or ``jnp`` data),
+so both packages can compute with the same state; this module never imports
 ``jax``.
 """
 
@@ -13,7 +14,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix
+from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, DiaMatrix
 from conjugategradient_tpu_torch.precond.multigrid import MgHierarchy, MgLevel
 
 
@@ -59,3 +60,14 @@ def hierarchy_from_reference(
     h = MgHierarchy(out, torch.from_numpy(np.array(coarse_inv)), smoother, int(pre),
                     int(post), float(omega))
     return h.to(device)
+
+
+def dia_from_reference(A_ref) -> DiaMatrix:
+    """The port's host ``DiaMatrix`` from a JAX ``DiaMatrix``: its data as a
+    numpy array (``np.asarray`` reads a ``jnp`` array without this module
+    importing ``jax``), its offsets and shape as Python ints."""
+    return DiaMatrix(
+        np.array(np.asarray(A_ref.data)),
+        tuple(int(o) for o in A_ref.offsets),
+        tuple(int(s) for s in A_ref.shape),
+    )

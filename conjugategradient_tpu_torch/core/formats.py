@@ -1,12 +1,13 @@
 """Host-side (numpy) sparse containers for the PyTorch port.
 
-The counterparts of ``conjugategradient_tpu/core/formats.py`` that the MGCG
-Poisson slice needs: ``DiaMatrix``, ``StencilMatrix`` and
+The counterparts of ``conjugategradient_tpu/core/formats.py`` that the
+ported slices need: ``DiaMatrix``, ``StencilMatrix`` and
 ``ConstStencilMatrix`` plus the conversions between them.  They are plain
-frozen dataclasses over numpy arrays: setup stays on the host, and the only
-device-resident operator of the slice, ``ConstStencilMatrix``, has no array
-data at all (its coefficients, shifts and grid are static Python values that
-the CUDA kernels take by value).
+frozen dataclasses over numpy arrays: setup stays on the host.
+``DiaMatrix.device_put`` gives the device-resident flat banded operator (its
+``data`` a torch tensor, as the JAX package's holds a ``jnp`` array);
+``ConstStencilMatrix`` has no array data at all (its coefficients, shifts and
+grid are static Python values that the CUDA kernels take by value).
 
 The code is a numpy-only copy of the JAX package's host helpers (that package
 imports ``jax`` at its root, which the GPU machine does not have); the
@@ -44,11 +45,36 @@ class DiaMatrix:
         return len(self.offsets)
 
     @property
+    def bandwidth(self) -> int:
+        """Largest |offset|."""
+        return max((abs(o) for o in self.offsets), default=0)
+
+    @property
     def dtype(self):
         return self.data.dtype
 
     def astype(self, dtype) -> "DiaMatrix":
         return DiaMatrix(self.data.astype(dtype), self.offsets, self.shape)
+
+    def device_put(self, dtype=None, device="cpu") -> "DiaMatrix":
+        """A ``DiaMatrix`` whose ``data`` is a contiguous torch tensor on
+        ``device``, cast to ``dtype`` (a numpy or torch dtype, e.g.
+        ``torch.bfloat16`` for a half-width matrix stream).  Same dtype on
+        the CPU shares memory with the numpy array."""
+        import torch
+
+        data = self.data if torch.is_tensor(self.data) else torch.from_numpy(np.asarray(self.data))
+        dt = data.dtype if dtype is None else torch_dtype(dtype)
+        return DiaMatrix(data.to(device=device, dtype=dt).contiguous(), self.offsets, self.shape)
+
+
+def torch_dtype(dtype):
+    """The torch dtype of a torch or numpy dtype (or scalar type)."""
+    import torch
+
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
 def _stencil_nnz(shifts, grid) -> int:

@@ -1,8 +1,10 @@
-"""Deterministic Poisson systems for the MGCG slice (numpy, host-side).
+"""Deterministic SPD systems (numpy, host-side).
 
-A copy of the Poisson part of ``conjugategradient_tpu/core/generators.py``:
-the same numpy code, so the systems are bit-identical to the JAX package's
-(the tests compare them element by element).
+A copy of the parts of ``conjugategradient_tpu/core/generators.py`` that the
+ported slices run: the banded ``|sin(i+j)|`` and tridiagonal systems of the
+reference's drivers, and the Poisson matrices of the multigrid path.  The
+same numpy code, so the systems are bit-identical to the JAX package's (the
+tests compare them element by element).
 """
 
 from __future__ import annotations
@@ -26,6 +28,96 @@ class LinearSystem:
     @property
     def n(self) -> int:
         return self.A.n
+
+
+def banded_sin_matrix(n: int, band: int, dtype=np.float64) -> DiaMatrix:
+    """The ``a_ij = |sin(i+j)|`` banded matrix with row-sum diagonal.
+
+    Off-diagonals live at ``j in [max(0, i - band/2 + 1), min(n, i + band/2))``
+    with ``j != i``, and the diagonal is the sum of the row's off-diagonal
+    magnitudes (``Mgcg/cuBlas/Mgcg/MgcgMain.cs:53-84``).
+    """
+    offsets, data = banded_sin_rows(n, band, 0, n, dtype=dtype)
+    return DiaMatrix(data, offsets, (n, n))
+
+
+def banded_sin_rows(n: int, band: int, lo: int, hi: int, dtype=np.float64):
+    """(offsets, data columns) for rows [lo, hi) of ``banded_sin_matrix``."""
+    if band < 2 or band % 2:
+        raise ValueError("band must be an even integer >= 2")
+    h = band // 2 - 1  # half-width of the off-diagonal band
+    offsets = tuple(range(-h, h + 1))
+    i = np.arange(lo, hi, dtype=np.int64)
+    data = np.zeros((len(offsets), hi - lo), dtype=dtype)
+    diag_k = offsets.index(0)
+    for k, off in enumerate(offsets):
+        if off == 0:
+            continue
+        valid = (i + off >= 0) & (i + off < n)
+        vals = np.abs(np.sin((2 * i + off).astype(dtype)))
+        data[k] = np.where(valid, vals, 0.0)
+        data[diag_k] += data[k]
+    return offsets, data
+
+
+def banded_sin_system(
+    n: int,
+    band: int,
+    b_kind: str = "cos10",
+    x0_kind: str = "i/100",
+    dtype=np.float64,
+) -> LinearSystem:
+    """Matrix plus the drivers' RHS and initial-guess recipes.
+
+    ``b_kind``:  ``cos10`` = 10*cos(i) (``MgcgMain.cs:94``);
+                 ``one_plus`` = 1 + 0.1*i (ViennaCL small);
+                 ``asin`` = asin(i/n) (ViennaCL large).
+    ``x0_kind``: ``i/100`` (``MgcgMain.cs:99``), ``i/10`` (``R/CG.R:21``),
+                 ``zeros``.
+    """
+    A = banded_sin_matrix(n, band, dtype=dtype)
+    i = np.arange(n, dtype=dtype)
+    if b_kind == "cos10":
+        b = 10.0 * np.cos(i)
+    elif b_kind == "one_plus":
+        b = 1.0 + 0.1 * i
+    elif b_kind == "asin":
+        b = np.arcsin(i / n)
+    else:
+        raise ValueError(f"unknown b_kind {b_kind!r}")
+    if x0_kind == "i/100":
+        x0 = i / 100.0
+    elif x0_kind == "i/10":
+        x0 = i / 10.0
+    elif x0_kind == "zeros":
+        x0 = np.zeros(n, dtype=dtype)
+    else:
+        raise ValueError(f"unknown x0_kind {x0_kind!r}")
+    return LinearSystem(A, b.astype(dtype), x0.astype(dtype))
+
+
+def tridiagonal_matrix(n: int, diag: float = 2.0, off: float = 1.0, dtype=np.float64) -> DiaMatrix:
+    """The (2, 1) tridiagonal SPD matrix of the standalone CUDA demo
+    (``SimpleConjugateGradient.cu:163-190``)."""
+    _, data = tridiagonal_rows(n, 0, n, diag=diag, off=off, dtype=dtype)
+    return DiaMatrix(data, (-1, 0, 1), (n, n))
+
+
+def tridiagonal_rows(n: int, lo: int, hi: int, diag: float = 2.0, off: float = 1.0, dtype=np.float64):
+    """(offsets, data columns) for rows [lo, hi) of the tridiagonal matrix."""
+    i = np.arange(lo, hi, dtype=np.int64)
+    data = np.zeros((3, hi - lo), dtype=dtype)
+    data[0] = np.where(i >= 1, off, 0.0)  # A[i, i-1]
+    data[1] = diag
+    data[2] = np.where(i <= n - 2, off, 0.0)  # A[i, i+1]
+    return (-1, 0, 1), data
+
+
+def tridiagonal_system(n: int, dtype=np.float64) -> LinearSystem:
+    """Tridiagonal workload: ``b_i = i^2 / 2``, ``x0 = 0``
+    (``SimpleConjugateGradient.cu:196,203``)."""
+    i = np.arange(n, dtype=dtype)
+    return LinearSystem(tridiagonal_matrix(n, dtype=dtype), 0.5 * i * i, np.zeros(n, dtype=dtype))
 
 
 def poisson1d_matrix(nx: int, dtype=np.float64) -> DiaMatrix:

@@ -17,7 +17,8 @@
 //   Design: one thread per output point, x fastest (a warp reads 32
 //   consecutive floats of each leg's window); the 2*d neighbour re-reads are
 //   left to L1/L2.  A 2-D grid (L, nx) runs as a 3-D grid (1, L, nx).
-//   Measured at 255^3 it moves the minimum 133 MB at ~0.77 TB/s effective;
+//   Measured at 255^3 (NVIDIA H100 80GB HBM3, 700.00 W) it moves the
+//   minimum 133 MB at ~0.77 TB/s effective;
 //   unrolling the leg loop over the struct's capacity made it slower
 //   (0.195 vs 0.174 ms), so the loop stays rolled.
 //   Legs are summed in A.shifts order, as _kernel does, so the kernel and

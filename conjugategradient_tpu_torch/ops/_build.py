@@ -1,11 +1,13 @@
-"""Build ``csrc/stencil.cu`` at first use and load it with ctypes.
+"""Build the CUDA sources in ``csrc/`` at first use and load them with ctypes.
 
-The library is compiled by ``nvcc`` from the package's own sources into
-``conjugategradient_tpu_torch/_build/``, under a name keyed on a hash of the
-sources and flags, so a fresh checkout builds it on the first kernel launch
-and an edited source rebuilds it.  The C interface takes plain pointers and
-the stream as ``void*``; every pointer argument is declared ``c_void_p`` so
-ctypes does not cut it to 32 bits.
+Each source (``stencil.cu``, ``dia.cu``) becomes its own shared library,
+compiled by ``nvcc`` from the package's own sources into
+``conjugategradient_tpu_torch/_build/`` under a name keyed on a hash of that
+source and the flags, so a fresh checkout builds it on the first kernel
+launch and an edited source rebuilds it.  ``build()`` starts one ``nvcc`` per
+missing library, all together, and waits for them.  The C interfaces take
+plain pointers and the stream as ``void*``; every pointer argument is
+declared ``c_void_p`` so ctypes does not cut it to 32 bits.
 """
 
 from __future__ import annotations
@@ -17,9 +19,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stencil.cu",)
+SOURCES = {
+    "stencil": _PKG / "csrc" / "stencil.cu",
+    "dia": _PKG / "csrc" / "dia.cu",
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,40 +48,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libcg_stencil_{h.hexdigest()[:16]}.so"
+    h.update(SOURCES[name].read_bytes())
+    return BUILD_DIR / f"libcg_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless a build of the current sources exists;
-    ``nvcc``'s output (including ``-Xptxas -v``) is kept beside it as
-    ``.log``."""
-    out = library_path()
-    if out.exists():
-        return out
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every named library (default: all) unless a build of its
+    current source exists, one ``nvcc`` per source, started together.
+    ``nvcc``'s output (including ``-Xptxas -v``) is kept beside each library
+    as ``.log``.  Returns ``{name: library path}``."""
+    names = list(SOURCES) if names is None else list(names)
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True, text=True,
-    )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with {proc.returncode}:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return out
+    nvcc = _nvcc()
+    running = []
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        log = open(out.with_suffix(".log"), "w")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                                stdout=log, stderr=subprocess.STDOUT)
+        running.append((name, out, tmp, log, proc))
+    failed = []
+    for name, out, tmp, log, proc in running:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} (nvcc exit {rc}):\n{out.with_suffix('.log').read_text()[-4000:]}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return outs
 
 
-@functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """The loaded library, built first if needed (once per process)."""
-    lib = ctypes.CDLL(str(build()))
-    lib.cg_error_string.argtypes = [_I]
-    lib.cg_error_string.restype = ctypes.c_char_p
+def _bind_stencil(lib: ctypes.CDLL) -> None:
     lib.cg_spmv_const.argtypes = [_P, _P, _I, _I, _I, _I, _FP, _IP, _P]
     lib.cg_spmv_const.restype = _I
     lib.cg_cheb_const.argtypes = [
@@ -83,4 +95,26 @@ def load() -> ctypes.CDLL:
         ctypes.c_float, _FP, _FP, _P,
     ]
     lib.cg_cheb_const.restype = _I
+
+
+def _bind_dia(lib: ctypes.CDLL) -> None:
+    lib.cg_spmv_dia.argtypes = [_I, _P, _P, _P, _I, _I, _IP, _P]
+    lib.cg_spmv_dia.restype = _I
+    lib.cg_spmv_dot_dia.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _IP, _P]
+    lib.cg_spmv_dot_dia.restype = _I
+    lib.cg_spmm_dia.argtypes = [_I, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _IP, _P]
+    lib.cg_spmm_dia.restype = _I
+
+
+_BIND = {"stencil": _bind_stencil, "dia": _bind_dia}
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed (once per
+    process)."""
+    lib = ctypes.CDLL(str(build([name])[name]))
+    lib.cg_error_string.argtypes = [_I]
+    lib.cg_error_string.restype = ctypes.c_char_p
+    _BIND[name](lib)
     return lib

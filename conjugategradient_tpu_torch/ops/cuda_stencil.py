@@ -165,7 +165,7 @@ def spmv_const_stencil_cuda(A: ConstStencilMatrix, x: torch.Tensor) -> torch.Ten
     nz, ny, nx = ((1,) * (3 - len(A.grid))) + tuple(A.grid)
     y = torch.empty_like(x)
     coeffs, shifts = _legs(A)
-    lib = _build.load()
+    lib = _build.load("stencil")
     err = lib.cg_spmv_const(
         x.data_ptr(), y.data_ptr(), nz, ny, nx, A.nlegs, coeffs, shifts, _stream(x)
     )
@@ -211,7 +211,7 @@ def cheb_smooth_const_cuda(
     coeffs, shifts = _legs(A)
     alpha = (ctypes.c_float * MAX_DEGREE)(*alphas)
     beta = (ctypes.c_float * MAX_DEGREE)(*betas)
-    lib = _build.load()
+    lib = _build.load("stencil")
     err = lib.cg_cheb_const(
         b.data_ptr(), None if x is None else x.data_ptr(), invd.data_ptr(),
         x_out.data_ptr(), None if r_out is None else r_out.data_ptr(),

@@ -1,1 +1,1 @@
-"""Convergence policy and the CG solver."""
+"""Convergence policy, CG, multi-RHS CG and mixed-precision refinement."""

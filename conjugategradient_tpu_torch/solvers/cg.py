@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from conjugategradient_tpu_torch.core.formats import DiaMatrix
 from conjugategradient_tpu_torch.ops.blas import dot as _dot
 from conjugategradient_tpu_torch.ops.blas import residual_norm
 from conjugategradient_tpu_torch.ops.spmv import as_operator
@@ -91,15 +92,21 @@ def cg_solve(
     policy: ConvergencePolicy = ConvergencePolicy(),
     M: Optional[Callable] = None,
     precise_dot: bool = False,
+    use_pallas: bool = False,
 ) -> CGResult:
     """Solve A x = b by (preconditioned) CG on ``b``'s device.
 
-    ``A`` is a ``ConstStencilMatrix`` or a callable; ``b`` may be flat or
-    grid-shaped.  fp32 with an absolute norm can underflow ``r`` long before
-    the true residual is meaningful: for plain fp32 solves prefer
-    ``norm="rel_l2"``.
+    ``A`` is a ``ConstStencilMatrix``, a ``DiaMatrix`` (a host one is placed
+    on ``b``'s device) or a callable; ``b`` may be flat or grid-shaped.
+    ``use_pallas`` is kept for parity and changes nothing: a CUDA ``b``
+    always runs the hand-written kernels, a CPU ``b`` their twins
+    (``ops.spmv.as_operator``).  fp32 with an absolute norm can underflow
+    ``r`` long before the true residual is meaningful: for plain fp32 solves
+    prefer ``norm="rel_l2"``, or ``solvers.refine.refined_solve``.
     """
-    op = as_operator(A)
+    if isinstance(A, DiaMatrix) and not torch.is_tensor(A.data):
+        A = A.device_put(device=b.device)
+    op = as_operator(A, use_pallas=use_pallas)
     n = b.numel()
     dtype = b.dtype
     tol = torch.tensor(policy.tol, dtype=dtype, device=b.device)

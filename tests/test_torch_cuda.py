@@ -11,8 +11,16 @@ import pytest
 import torch
 
 from conjugategradient_tpu_torch.core import generators
-from conjugategradient_tpu_torch.core.formats import dia_to_stencil, stencil_to_const
-from conjugategradient_tpu_torch.ops import cuda_stencil
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, dia_to_stencil, stencil_to_const
+from conjugategradient_tpu_torch.ops import cuda_dia, cuda_stencil
+from conjugategradient_tpu_torch.ops.cuda_dia import (
+    spmm_dia_cuda,
+    spmm_dia_ref,
+    spmv_dia_cuda,
+    spmv_dia_ref,
+    spmv_dot_dia_cuda,
+    spmv_dot_dia_ref,
+)
 from conjugategradient_tpu_torch.ops.cuda_stencil import (
     cheb_smooth_const_cuda,
     cheb_smooth_const_ref,
@@ -27,6 +35,8 @@ pytestmark = pytest.mark.gpu
 
 #: same leg order in fp32; only FMA contraction differs
 REL = 1e-5
+#: the same in fp64
+REL64 = 1e-13
 
 
 @pytest.fixture
@@ -101,3 +111,82 @@ def test_mgcg_on_card_matches_cpu(cuda, grid):
     g, c = out["cuda"], out["cpu"]
     assert g.converged and c.converged and abs(g.iterations - c.iterations) <= 1
     assert float((g.x.cpu() - c.x).abs().max() / c.x.abs().max()) <= 1e-4
+
+
+def _dia(kind, dtype):
+    """Host DIA matrices of the flat banded path: banded |sin|, ragged,
+    tridiagonal and a 2-D Poisson operator as flat DIA."""
+    A = {
+        "banded": lambda: generators.banded_sin_matrix(5000, 160),
+        "ragged": lambda: generators.banded_sin_matrix(333, 8),
+        "tridiag": lambda: generators.tridiagonal_matrix(1023),
+        "poisson2d": lambda: generators.poisson2d_matrix(61),
+    }[kind]()
+    return A.device_put(dtype, "cuda")
+
+
+@pytest.mark.parametrize("kind", ["banded", "ragged", "tridiag", "poisson2d"])
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+def test_dia_spmv_kernels_match_twin(cuda, kind, legs):
+    A = _dia(kind, legs)
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(A.n)).to(cuda, vec)
+    cuda_dia.reset_launch_counts()
+    y = spmv_dia_cuda(A, x)
+    yf, dot = spmv_dot_dia_cuda(A, x)
+    torch.cuda.synchronize()
+    assert spmv_dia_cuda.launches_by_dtype[cuda_dia.TAGS[legs]] == 1 and spmv_dot_dia_cuda.launches == 1
+    ref, ref_dot = spmv_dot_dia_ref(A, x)
+    assert y.dtype == ref.dtype == vec
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= rel * scale
+    assert torch.equal(yf, y)  # the fused kernel computes y by the same code
+    assert abs(float(dot) - float(ref_dot)) <= rel * float((x.abs() * ref.abs()).sum())
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 11])
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16])
+def test_dia_spmm_kernel_matches_twin_and_spmv(cuda, k, legs):
+    A = _dia("banded", legs)
+    X = torch.from_numpy(np.random.default_rng(4).standard_normal((k, A.n))).to(cuda, torch.float32)
+    n0 = spmm_dia_cuda.launches
+    Y = spmm_dia_cuda(A, X)
+    torch.cuda.synchronize()
+    assert spmm_dia_cuda.launches == n0 + len(cuda_dia.k_chunks(k))
+    ref = spmm_dia_ref(A, X)
+    assert float((Y - ref).abs().max()) <= REL * float(ref.abs().max())
+    for j in range(k):  # each column is the single-RHS kernel's result, bit for bit
+        assert torch.equal(Y[j], spmv_dia_cuda(A, X[j].contiguous()))
+
+
+def test_dia_kernels_raise_instead_of_falling_back(cuda):
+    A = _dia("ragged", torch.float32)
+    with pytest.raises(TypeError, match="no kernel"):
+        spmv_dia_cuda(A, torch.zeros(A.n, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_dia_cuda(A, torch.zeros((A.n, 2), device=cuda).T)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        spmm_dia_cuda(_dia("ragged", torch.float64), torch.zeros((2, A.n), dtype=torch.float64,
+                                                                  device=cuda))
+    wide = DiaMatrix(torch.zeros((300, 400), device=cuda), tuple(range(-150, 150)), (400, 400))
+    with pytest.raises(ValueError, match="diagonals"):
+        spmv_dia_cuda(wide, torch.zeros(400, device=cuda))
+
+
+def test_refined_flagship_contract_on_card_matches_cpu(cuda):
+    from conjugategradient_tpu_torch.core import oracle
+    from conjugategradient_tpu_torch.solvers.refine import refined_solve
+
+    s = generators.banded_sin_system(4096, 32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cuda_dia.reset_launch_counts()
+        out[dev] = refined_solve(s.A, s.b, s.x0, tol=1e-8, norm="l2", inner_tol=1e-4, device=dev)
+        if dev == "cuda":
+            r = out[dev]
+            assert spmv_dia_cuda.launches == r.outer_iterations + r.inner_iterations
+    g, c = out["cuda"], out["cpu"]
+    assert g.converged and c.converged and g.outer_iterations == c.outer_iterations
+    assert np.linalg.norm(s.b - oracle.spmv(s.A, g.x)) < 1e-8
+    assert np.abs(g.x - c.x).max() <= 1e-7 * np.abs(c.x).max()

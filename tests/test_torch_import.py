@@ -22,6 +22,12 @@ def test_port_and_smoke_script_do_not_import_jax():
         "import conjugategradient_tpu_torch.convert\n"
         "import conjugategradient_tpu_torch.precond.multigrid\n"
         "import conjugategradient_tpu_torch.ops.cuda_stencil\n"
+        "import conjugategradient_tpu_torch.ops.cuda_dia\n"
+        "import conjugategradient_tpu_torch.ops.spmm\n"
+        "import conjugategradient_tpu_torch.solvers.multi\n"
+        "import conjugategradient_tpu_torch.solvers.refine\n"
+        "import conjugategradient_tpu_torch.models.workloads\n"
+        "import conjugategradient_tpu_torch.api\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "bad += sorted(m for m in sys.modules if m == 'conjugategradient_tpu' or m.startswith('conjugategradient_tpu.'))\n"
