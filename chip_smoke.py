@@ -21,6 +21,14 @@ just after:
   an n x 4 block.  The counts show the DIA SpMV ran in each of its three
   instantiations and as often as the iteration counts imply, and that the
   DIA SpMM ran.
+- The variable-coefficient path: ``diffusion_system((255,)*3, kind="jump",
+  contrast=1e3)`` -> ``build_hierarchy`` (Galerkin: 255^3 with 7 legs, then
+  127^3 .. 15^3 with 27 legs each, dense 7^3) -> ``api.solve(method="mgcg")``
+  in fp32; then ``diffusion_system((255,)*3, kind="smooth")`` ->
+  ``refined_solve(grid=, matrix_dtype=torch.bfloat16)`` to an absolute
+  ||r||_2 < 1e-8, host and device residual.  The counts show the
+  variable-coefficient SpMV ran at every level, and on its bf16-leg
+  instantiation as often as the iteration counts imply.
 
 Every phase has a bound and any miss, build failure or launch failure ends
 the run with a non-zero exit before the last line.  The last line is
@@ -42,7 +50,7 @@ import torch
 
 from conjugategradient_tpu_torch import api
 from conjugategradient_tpu_torch.core import generators, oracle
-from conjugategradient_tpu_torch.core.formats import dia_to_stencil, stencil_to_const
+from conjugategradient_tpu_torch.core.formats import StencilMatrix, dia_to_stencil, stencil_to_const
 from conjugategradient_tpu_torch.models.workloads import WORKLOADS
 from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
 from conjugategradient_tpu_torch.ops.cuda_dia import (
@@ -60,6 +68,8 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
     cheb_smooth_const_ref,
     spmv_const_stencil_cuda,
     spmv_const_stencil_ref,
+    spmv_stencil_cuda,
+    spmv_stencil_ref,
 )
 from conjugategradient_tpu_torch.precond.multigrid import (
     _const_bounds,
@@ -102,7 +112,17 @@ FLAGSHIP_INNER_TOL = 1e-4
 MULTI_AGREE = 1e-7
 SMALL_REFINE = (4096, 32)
 SPMM_KS = (1, 3, 4, 8)
-DIA_LEGS = tuple(TAGS)
+#: leg dtypes of the kernels with an instantiation per leg dtype (#3, #4)
+LEG_DTYPES = tuple(TAGS)
+
+#: the variable-coefficient path: 255^3 diffusion, jump field (contrast 1e3)
+#: for fp32 MGCG, smooth field for the bf16-leg refined solve
+VAR_GRID = (255, 255, 255)
+VAR_CONTRAST = 1e3
+VAR_SMALL = (31, 31, 31)
+#: kernel #3's small check shapes: (label, grid) of diffusion operators
+VAR_CHECK_GRIDS = [("2-D (25, 19) 5 legs, ragged", (25, 19)), ("2-D 1023^2 5 legs", (1023, 1023)),
+                   ("3-D (17, 13, 11) 7 legs", (17, 13, 11))]
 
 KERNELS = {
     "spmv_const_stencil": dict(
@@ -120,6 +140,10 @@ KERNELS = {
     "spmm_dia": dict(
         route="cuda", source="conjugategradient_tpu_torch/csrc/dia.cu",
         replaces="conjugategradient_tpu/ops/pallas_spmv.py:421",
+    ),
+    "spmv_stencil": dict(
+        route="cuda", source="conjugategradient_tpu_torch/csrc/stencil_var.cu",
+        replaces="conjugategradient_tpu/ops/pallas_stencil.py:177",
     ),
 }
 
@@ -207,7 +231,7 @@ def _dia_kernel_checks(cases, dev, errs):
     single-RHS kernel bit for bit (same legs, same order, explicit fma)."""
     rng = np.random.default_rng(SEED)
     for label, A_host in cases:
-        for legs in DIA_LEGS:
+        for legs in LEG_DTYPES:
             A = A_host.device_put(legs, dev)
             vec = torch.float64 if legs == torch.float64 else torch.float32
             rel = KERNEL_REL64 if legs == torch.float64 else KERNEL_REL
@@ -351,7 +375,7 @@ def _dia_times(A_host, dev, card, times):
     rng = np.random.default_rng(SEED + 1)
     n = A_host.n
     xs = {v: torch.from_numpy(rng.standard_normal(n)).to(dev, v) for v in (torch.float32, torch.float64)}
-    for legs in DIA_LEGS:
+    for legs in LEG_DTYPES:
         A = A_host.device_put(legs, dev)
         x = xs[torch.float64 if legs == torch.float64 else torch.float32]
         k_ms = _time_ms(lambda: spmv_dia_cuda(A, x), 200)
@@ -379,6 +403,157 @@ def _dia_times(A_host, dev, card, times):
     c_ms = _time_ms(lambda: buf.clone(), 100)
     print(f"canary {gb * 1e3:.1f} MB fp32: read (sum) {r_ms:.4f} ms = {gb / (r_ms * 1e-3):.0f} GB/s, "
           f"copy {c_ms:.4f} ms = {2 * gb / (c_ms * 1e-3):.0f} GB/s [{card}]")
+
+
+def _var_hierarchy(kind, dev):
+    """The 255^3 diffusion system of ``kind`` and its Galerkin hierarchy on
+    the card, with the host setup seconds by phase."""
+    t0 = time.perf_counter()
+    s = generators.diffusion_system(VAR_GRID, kind=kind, contrast=VAR_CONTRAST, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    h = build_hierarchy(s.A, VAR_GRID, smoother="chebyshev", pre=2, post=2, dtype=np.float32,
+                        device=dev)
+    setup = {"generator": gen_s, **h.setup_s}
+    levels = [(lvl.grid, lvl.A.nlegs, type(lvl.A).__name__) for lvl in h.levels]
+    _require(all(isinstance(lvl.A, StencilMatrix) for lvl in h.levels),
+             f"{kind} 255^3: a level const-detected: {levels}")
+    print(f"hierarchy {kind} 255^3: levels (grid, legs) {[l[:2] for l in levels]} + dense "
+          f"{h.coarse_inv.shape[0]}; host setup s "
+          f"{ {k: round(v, 3) for k, v in setup.items()} } (total {sum(setup.values()):.3f} s)")
+    return s, h
+
+
+def _var_kernel_checks(cases, dev, errs):
+    """Kernel #3 in its three instantiations (fp32 legs, bf16 legs with fp32
+    x, fp64) against its twin on the same tensors."""
+    for label, A32 in cases:
+        for legs in LEG_DTYPES:
+            A = A32.astype(legs)
+            vec = torch.float64 if legs == torch.float64 else torch.float32
+            rel = KERNEL_REL64 if legs == torch.float64 else KERNEL_REL
+            x = torch.randn(A.grid, device=dev, dtype=vec)
+            err, scale = _max_err(spmv_stencil_cuda(A, x), spmv_stencil_ref(A, x))
+            torch.cuda.synchronize()
+            tag = f"{label} {TAGS[legs]} legs"
+            _require(err <= rel * scale, f"spmv_stencil {tag}: max err {err:.3e} > {rel}*{scale:.3e}")
+            errs["spmv_stencil"] = max(errs["spmv_stencil"], err)
+            print(f"spmv_stencil {tag}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+            del A, x
+
+
+def _small_var_mgcg_card_vs_cpu(dev):
+    """The default (Galerkin) MGCG route of ``api.solve`` on a small jump
+    system, on the card and on the CPU (twins): equal iteration counts."""
+    s = generators.diffusion_system(VAR_SMALL, kind="jump", contrast=VAR_CONTRAST, seed=SEED)
+    kw = dict(method="mgcg", grid=VAR_SMALL, tol=TOL, norm="rel_l2", dtype=np.float32,
+              precise_dot=True)
+    g = api.solve(s.A, s.b, device=dev, **kw)
+    c = api.solve(s.A, s.b, device="cpu", **kw)
+    tag = f"small Galerkin MGCG jump {VAR_SMALL}"
+    _require(g.converged and c.converged, f"{tag}: card {g.converged}, CPU {c.converged}")
+    _require(g.iterations == c.iterations,
+             f"{tag}: {g.iterations} iterations on the card vs {c.iterations} on the CPU")
+    dx = float((g.x.cpu() - c.x).abs().max() / c.x.abs().max())
+    _require(dx <= SMALL_AGREE, f"{tag}: card vs CPU solution differs by {dx:.3e}")
+    print(f"{tag}: card {g.iterations} its, CPU {c.iterations} its, max rel diff {dx:.3e}")
+
+
+def _host_rel_residual(A, b, x) -> float:
+    """||b - A x||_2 / ||b||_2 in fp64 by the host oracle."""
+    r = b - oracle.spmv(A, np.asarray(x, dtype=np.float64))
+    return float(np.linalg.norm(r) / np.linalg.norm(b))
+
+
+def _var_mgcg(sysj, hj, dev, card) -> int:
+    """``api.solve(method="mgcg")`` on the 255^3 jump system over its
+    Galerkin hierarchy, counted (kernel #3 at every level) and then timed in
+    a warm run.  Returns kernel #3's launch count."""
+    kw = dict(method="mgcg", grid=VAR_GRID, tol=TOL, norm="rel_l2", dtype=np.float32, device=dev,
+              hierarchy=hj, precise_dot=True)
+    torch.cuda.synchronize()
+    cuda_stencil.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = api.solve(sysj.A, sysj.b, **kw)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = spmv_stencil_cuda.launches
+    by_grid = dict(spmv_stencil_cuda.launches_by_grid)
+    by_dtype = dict(spmv_stencil_cuda.launches_by_dtype)
+    tag = f"MGCG jump {VAR_GRID}"
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    _require(tuple(res.x.shape) == (sysj.n,) and bool(torch.isfinite(res.x).all()), f"{tag}: bad x")
+    rel = _host_rel_residual(sysj.A, sysj.b, res.x.cpu().numpy())
+    _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+    for lvl in hj.levels:
+        _require(by_grid.get(lvl.grid, 0) > 0, f"spmv_stencil: no launch at level {lvl.grid}")
+    _require(set(by_dtype) == {"fp32"}, f"{tag}: kernel #3 launches by leg dtype {by_dtype}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.solve(sysj.A, sysj.b, **kw)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{tag}: {res.iterations} iterations, rel_l2 {float(res.residual):.3e}, true fp64 rel "
+          f"residual {rel:.3e}; spmv_stencil launches {launches} by grid "
+          f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }")
+    print(f"time {tag} api.solve: counted run {first_ms:.3f} ms, warm run {warm_ms:.3f} ms [{card}]")
+    return launches
+
+
+def _var_refine_routes(syss, hs, dev, card) -> int:
+    """``refined_solve(grid=, matrix_dtype=bf16)`` on the 255^3 smooth
+    system, host and device residual, each counted and then timed in a
+    second run.  Returns kernel #3's launch count over both counted runs."""
+    total = 0
+    for label, kw in (("host residual", {}), ("device residual", dict(device_residual=True))):
+        solve = lambda: refined_solve(
+            syss.A, syss.b, tol=FLAGSHIP_TOL, norm="l2", grid=VAR_GRID,
+            inner_tol=FLAGSHIP_INNER_TOL, matrix_dtype=torch.bfloat16, hierarchy=hs, device=dev, **kw)
+        torch.cuda.synchronize()
+        cuda_stencil.reset_launch_counts()
+        cuda_dia.reset_launch_counts()
+        res = solve()
+        torch.cuda.synchronize()
+        by_dtype = dict(spmv_stencil_cuda.launches_by_dtype)
+        by_grid = dict(spmv_stencil_cuda.launches_by_grid)
+        dia = dict(spmv_dia_cuda.launches_by_dtype)
+        total += spmv_stencil_cuda.launches
+        tag = f"refined smooth {VAR_GRID} bf16 legs, {label}"
+        _require(res.converged, f"{tag}: not converged after {res.outer_iterations} passes "
+                                f"(stalled {res.stalled}, history {res.history})")
+        _require(res.x.shape == (syss.n,) and bool(np.isfinite(res.x).all()), f"{tag}: bad x")
+        r_true = float(np.linalg.norm(syss.b - oracle.spmv(syss.A, res.x)))
+        _require(r_true < FLAGSHIP_TOL, f"{tag}: true fp64 ||b - A x||_2 {r_true:.3e} >= {FLAGSHIP_TOL}")
+        want = res.outer_iterations + res.inner_iterations
+        _require(want > 0 and by_dtype.get("bf16", 0) == want,
+                 f"{tag}: bf16-leg launches {by_dtype} != outer + inner iterations {want}")
+        for lvl in hs.levels:
+            _require(by_grid.get(lvl.grid, 0) > 0, f"{tag}: no kernel #3 launch at level {lvl.grid}")
+        if kw.get("device_residual"):
+            _require(dia.get("fp64", 0) == res.outer_iterations + 1,
+                     f"{tag}: fp64 residual launches {dia} != outer passes + 1")
+        print(f"{tag}: converged, {res.outer_iterations} outer / {res.inner_iterations} inner "
+              f"iterations, true fp64 ||r||_2 {r_true:.3e}, history "
+              f"{[float(f'{v:.4e}') for v in res.history]}, spmv_stencil launches {by_dtype}, "
+              f"spmv_dia {dia}")
+        _print_route_time(f"{tag} (counted run)", res.timings, card)
+        _print_route_time(f"{tag} (timed run)", solve().timings, card)
+    return total
+
+
+def _var_times(hj, dev, card, times):
+    """Kernel #3 vs its twin at the path's shapes: the 255^3 fine level
+    (7 legs) and the 127^3 Galerkin level (27 legs), fp32 and bf16 legs,
+    with GB/s from the minimum bytes (legs + x + y)."""
+    for label, A32 in (("255^3 7 legs", hj.levels[0].A), ("127^3 27 legs", hj.levels[1].A)):
+        for legs in (torch.float32, torch.bfloat16):
+            A = A32.astype(legs)
+            x = torch.randn(A.grid, device=dev)
+            k_ms = _time_ms(lambda: spmv_stencil_cuda(A, x), 50)
+            p_ms = _time_ms(lambda: spmv_stencil_ref(A, x), 10)
+            gb = (A.data.numel() * A.data.element_size() + 2 * x.numel() * 4) / 1e9
+            times[("spmv_stencil", label, TAGS[legs])] = (k_ms, p_ms)
+            print(f"time spmv_stencil {label} {TAGS[legs]} legs: kernel {k_ms:.4f} ms "
+                  f"({gb / (k_ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB), twin {p_ms:.4f} ms [{card}]")
 
 
 def main() -> int:
@@ -411,6 +586,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
 
+    torch.manual_seed(SEED)  # the kernel-#3 checks and times draw from the default generator
     rng = torch.Generator(device=dev).manual_seed(SEED)
     rand = lambda g: torch.randn(g, generator=rng, device=dev, dtype=torch.float32)
 
@@ -466,6 +642,19 @@ def main() -> int:
     _dia_kernel_checks(_dia_cases(fsys.A), dev, errs)
     _small_refine_card_vs_cpu(dev)
 
+    # kernel #3 (three instantiations) vs its twin: small diffusion
+    # operators, then the 255^3 jump fine level and its 127^3 27-leg level
+    sysj, hj = _var_hierarchy("jump", dev)
+    cases = []
+    for label, g in VAR_CHECK_GRIDS:
+        A_h = generators.diffusion_system(g, kind="jump", contrast=VAR_CONTRAST, seed=SEED).A
+        cases.append((label, dia_to_stencil(A_h, g).device_put(torch.float32, dev)))
+    cases += [("3-D 255^3 7 legs (jump)", hj.levels[0].A),
+              ("127^3 27-leg Galerkin level (jump)", hj.levels[1].A)]
+    _var_kernel_checks(cases, dev, errs)
+    del cases
+    _small_var_mgcg_card_vs_cpu(dev)
+
     # -- phases 3-4: the main path, counted ---------------------------------
     sys2 = generators.poisson_system(GRID_2D, dtype=np.float32)
     sys3 = generators.poisson_system(GRID_3D, dtype=np.float32)
@@ -513,6 +702,12 @@ def main() -> int:
     launches["spmv_dia"] = sum(sum(c.values()) for c in flag.values())
     launches["spmm_dia"] = multi_spmm
 
+    # -- the variable-coefficient path, counted: jump MGCG, smooth refined ---
+    launches["spmv_stencil"] = _var_mgcg(sysj, hj, dev, card)
+    syss, hs = _var_hierarchy("smooth", dev)
+    launches["spmv_stencil"] += _var_refine_routes(syss, hs, dev, card)
+    del syss, hs
+
     # -- phase 6: times -----------------------------------------------------
     times = {}
     for g in TIME_SPMV_GRIDS:
@@ -541,12 +736,14 @@ def main() -> int:
         ms = _time_ms(fn, 3)
         print(f"time {tag} solve: {ms:.3f} ms [{card}]")
     _dia_times(fsys.A, dev, card, times)
+    _var_times(hj, dev, card, times)
 
     # -- record -------------------------------------------------------------
     main_shape = {"spmv_const_stencil": ("spmv_const_stencil", GRID_3D),
                   "cheb_smooth_const": ("cheb_smooth_const", GRID_3D, "pre: zero x0 + resid"),
                   "spmv_dia": ("spmv_dia", "fp32"),
-                  "spmm_dia": ("spmm_dia", 4)}
+                  "spmm_dia": ("spmm_dia", 4),
+                  "spmv_stencil": ("spmv_stencil", "255^3 7 legs", "fp32")}
     record = [
         dict(name=name, **meta, launches=launches[name], max_abs_err=errs[name],
              ms=times[main_shape[name]][0], plain_ms=times[main_shape[name]][1])

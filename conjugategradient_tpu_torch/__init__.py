@@ -6,15 +6,17 @@ rewritten by hand for Hopper (``csrc/``).  The layout mirrors the
 reference's, so each counterpart is found by path:
 
 - ``core``    — numpy host containers (DIA / stencil / const stencil), the
-                banded, tridiagonal and Poisson generators and the fp64
-                oracle (SpMV and CG).
+                banded, tridiagonal, Poisson and variable-coefficient
+                diffusion generators and the fp64 oracle (SpMV and CG).
 - ``ops``     — BLAS-1, compensated dots, and the CUDA kernels with their
                 plain twins: the const-stencil SpMV, the fused Chebyshev
-                smoother, the DIA SpMV (and its fused p·Ap) and the DIA SpMM.
-- ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG and
-                mixed-precision iterative refinement (the flagship path).
+                smoother, the variable-coefficient stencil SpMV, the DIA
+                SpMV (and its fused p·Ap) and the DIA SpMM.
+- ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG,
+                mixed-precision iterative refinement (the flagship path) and
+                the setup-time spectral bounds.
 - ``precond`` — smoothers, fw transfers and the geometric-multigrid
-                V-cycle (MGCG).
+                hierarchy (Galerkin or rediscretized) and V-cycle (MGCG).
 - ``models``  — the named workloads of the reference's drivers.
 - ``api``     — ``solve(A, b, method=...)`` for the ported methods.
 - ``convert`` — carries a hierarchy or a DIA matrix across from the

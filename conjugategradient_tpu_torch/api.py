@@ -3,8 +3,9 @@
 The port of ``conjugategradient_tpu/api.py::solve`` for the ported methods:
 
 - ``method="cg"``      — plain CG on the card (DIA: kernel #4)
-- ``method="mgcg"``    — multigrid-preconditioned CG (needs ``grid=`` and,
-  until Galerkin coarsening is ported, ``coarse_operator=``)
+- ``method="mgcg"``    — multigrid-preconditioned CG (needs ``grid=``): the
+  Galerkin hierarchy by default (variable-coefficient levels on kernel #3),
+  or the rediscretized one with ``coarse_operator=``
 - ``method="refined"`` — mixed-precision iterative refinement to an fp64
   tolerance (``device_residual=True`` keeps the outer loop on the card)
 - ``method="oracle"``  — the fp64 numpy CPU oracle

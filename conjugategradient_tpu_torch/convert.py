@@ -14,7 +14,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, DiaMatrix
+from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, DiaMatrix, StencilMatrix
 from conjugategradient_tpu_torch.precond.multigrid import MgHierarchy, MgLevel
 
 
@@ -29,11 +29,12 @@ def hierarchy_from_reference(
 ) -> MgHierarchy:
     """The port's ``MgHierarchy`` from a JAX ``MgHierarchy``'s fields.
 
-    Each entry of ``levels`` maps ``coeffs``, ``shifts``, ``grid``,
-    ``cheb_bounds``, ``transfer`` and ``inv_diag`` (a scalar numpy array) of
-    one const-stencil level; ``coarse_inv`` is the dense coarsest inverse.
-    Only the slice's levels are carried: fw transfers and scalar
-    ``inv_diag``.
+    Each entry of ``levels`` maps ``shifts``, ``grid``, ``cheb_bounds``,
+    ``transfer`` and ``inv_diag`` of one level, plus either ``coeffs`` (a
+    const-stencil level, scalar ``inv_diag``) or ``legs`` (a
+    variable-coefficient level: a ``(nlegs, *grid)`` array and a
+    grid-shaped ``inv_diag``); ``coarse_inv`` is the dense coarsest inverse.
+    Only fw transfers are carried.
     """
     out = []
     for lv in levels:
@@ -42,19 +43,19 @@ def hierarchy_from_reference(
                 f"{lv['transfer']!r} transfers are not ported yet "
                 "(ROADMAP queue 1 item 9 (the rest of the hierarchy))"
             )
-        inv_d = np.asarray(lv["inv_diag"])
-        if inv_d.ndim != 0:
-            raise NotImplementedError(
-                "grid-shaped inv_diag (variable-coefficient levels) is not ported yet "
-                "(ROADMAP queue 2 kernel #3)"
-            )
-        A = ConstStencilMatrix(
-            tuple(float(c) for c in lv["coeffs"]),
-            tuple(tuple(int(s) for s in sh) for sh in lv["shifts"]),
-            tuple(int(n) for n in lv["grid"]),
-        )
+        grid = tuple(int(n) for n in lv["grid"])
+        shifts = tuple(tuple(int(s) for s in sh) for sh in lv["shifts"])
+        inv_d = np.array(lv["inv_diag"])
+        if "legs" in lv:
+            A = StencilMatrix(np.array(lv["legs"]), shifts, grid)
+            if inv_d.shape != grid:
+                raise ValueError(f"inv_diag of shape {inv_d.shape} is not grid {grid}")
+        else:
+            A = ConstStencilMatrix(tuple(float(c) for c in lv["coeffs"]), shifts, grid)
+            if inv_d.ndim != 0:
+                raise ValueError(f"a const-stencil level takes a scalar inv_diag, got {inv_d.shape}")
         out.append(
-            MgLevel(A, torch.from_numpy(inv_d.copy()), A.grid,
+            MgLevel(A, torch.from_numpy(inv_d), grid,
                     tuple(float(v) for v in lv["cheb_bounds"]), "fw")
         )
     h = MgHierarchy(out, torch.from_numpy(np.array(coarse_inv)), smoother, int(pre),

@@ -4,8 +4,9 @@ The counterparts of ``conjugategradient_tpu/core/formats.py`` that the
 ported slices need: ``DiaMatrix``, ``StencilMatrix`` and
 ``ConstStencilMatrix`` plus the conversions between them.  They are plain
 frozen dataclasses over numpy arrays: setup stays on the host.
-``DiaMatrix.device_put`` gives the device-resident flat banded operator (its
-``data`` a torch tensor, as the JAX package's holds a ``jnp`` array);
+``DiaMatrix.device_put`` and ``StencilMatrix.device_put`` give the
+device-resident operators (their ``data`` a torch tensor, as the JAX
+package's holds a ``jnp`` array);
 ``ConstStencilMatrix`` has no array data at all (its coefficients, shifts and
 grid are static Python values that the CUDA kernels take by value).
 
@@ -92,11 +93,13 @@ class StencilMatrix:
     """Variable-coefficient stencil on a d-dimensional tensor grid.
 
     ``data[k][idx] = A[idx, idx + shifts[k]]`` in grid coordinates; legs hold
-    exact zeros where the neighbour exits the grid.  In this slice it is only
-    setup state: ``build_hierarchy`` const-detects every level from it.
+    exact zeros where the neighbour exits the grid.  Host setup holds numpy
+    legs; ``device_put`` gives the device operator (torch legs), which the
+    variable-coefficient SpMV (``ops.stencil.spmv_stencil``, kernel #3 on
+    the card) streams once per product.
     """
 
-    data: np.ndarray  # (nlegs, *grid)
+    data: np.ndarray  # (nlegs, *grid): numpy on the host, torch on a device
     shifts: Tuple[Tuple[int, ...], ...]
     grid: Tuple[int, ...]
 
@@ -127,6 +130,27 @@ class StencilMatrix:
     @property
     def dtype(self):
         return self.data.dtype
+
+    def astype(self, dtype) -> "StencilMatrix":
+        """The same stencil with its legs cast to ``dtype``: numpy legs take
+        a numpy dtype, torch legs a torch or numpy one (e.g.
+        ``torch.bfloat16`` legs under fp32 state)."""
+        import torch
+
+        if torch.is_tensor(self.data):
+            return StencilMatrix(self.data.to(torch_dtype(dtype)).contiguous(), self.shifts, self.grid)
+        return StencilMatrix(np.asarray(self.data).astype(dtype), self.shifts, self.grid)
+
+    def device_put(self, dtype=None, device="cpu") -> "StencilMatrix":
+        """A ``StencilMatrix`` whose legs are a contiguous torch tensor on
+        ``device``, cast to ``dtype`` (a numpy or torch dtype), as
+        ``DiaMatrix.device_put``.  Same dtype on the CPU shares memory with
+        the numpy array."""
+        import torch
+
+        data = self.data if torch.is_tensor(self.data) else torch.from_numpy(np.asarray(self.data))
+        dt = data.dtype if dtype is None else torch_dtype(dtype)
+        return StencilMatrix(data.to(device=device, dtype=dt).contiguous(), self.shifts, self.grid)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 A copy of the parts of ``conjugategradient_tpu/core/generators.py`` that the
 ported slices run: the banded ``|sin(i+j)|`` and tridiagonal systems of the
-reference's drivers, and the Poisson matrices of the multigrid path.  The
+reference's drivers, the Poisson matrices of the multigrid path and the
+variable-coefficient diffusion family of the Galerkin MGCG path.  The
 same numpy code, so the systems are bit-identical to the JAX package's (the
 tests compare them element by element).
 """
@@ -223,3 +224,113 @@ def poisson_coarse_operator(dtype=np.float64):
         )
 
     return cb
+
+
+# ---------------------------------------------------------------------------
+# Variable-coefficient diffusion: -div(a grad u) = f on a tensor grid,
+# node-centered coefficients, harmonic-mean face weights, Dirichlet
+# boundaries.  The variable-coefficient workload, whose legs stream matrix
+# bytes (kernel #3) and whose hierarchy is built by the Galerkin product.
+# ---------------------------------------------------------------------------
+
+
+def diffusion_coefficients(
+    grid_shape: Tuple[int, ...],
+    kind: str = "jump",
+    contrast: float = 1e3,
+    seed: int = 0,
+    dtype=np.float64,
+) -> np.ndarray:
+    """Positive node-centered coefficient field ``a`` on ``grid_shape``.
+
+    ``kind="jump"``: piecewise-constant log-uniform values in
+    ``[1, contrast]`` on a coarse 4^d block partition.  ``kind="smooth"``: a
+    smooth ``exp(sin)`` product field with max/min ratio ~= e^2 per axis.
+    ``kind="const"``: all ones (the Poisson Laplacian).
+    """
+    grid_shape = tuple(int(g) for g in grid_shape)
+    if kind == "const":
+        return np.ones(grid_shape, dtype=dtype)
+    if kind == "smooth":
+        a = np.ones(grid_shape, dtype=np.float64)
+        for ax, g in enumerate(grid_shape):
+            t = np.linspace(0.0, 2.0 * np.pi, g)
+            shape = [1] * len(grid_shape)
+            shape[ax] = g
+            a = a * np.exp(np.sin(t + 0.7 * ax + seed)).reshape(shape)
+        return a.astype(dtype)
+    if kind == "jump":
+        rng = np.random.default_rng(seed)
+        blocks = tuple(max(1, (g + 3) // 4) for g in grid_shape)  # ~4 cells/axis
+        vals = np.exp(
+            rng.uniform(0.0, np.log(max(contrast, 1.0 + 1e-12)), size=blocks)
+        )
+        idx = np.ix_(
+            *[np.minimum(np.arange(g) * b // g, b - 1) for g, b in zip(grid_shape, blocks)]
+        )
+        return vals[idx].astype(dtype)
+    raise ValueError(f"unknown coefficient kind {kind!r}")
+
+
+def diffusion_matrix(grid_shape: Tuple[int, ...], a: np.ndarray, dtype=np.float64) -> DiaMatrix:
+    """SPD discretization of ``-div(a grad u)`` with Dirichlet boundaries.
+
+    Unit grid spacing; the face weight between neighbouring nodes is the
+    harmonic mean ``2 a_i a_j / (a_i + a_j)``, boundary faces use the node's
+    own ``a``.  Row ``i``: diagonal = sum of its 2d face weights,
+    off-diagonal ``-w_face`` per in-grid neighbour: a symmetric M-matrix,
+    positive definite via the strictly positive boundary faces.  Offsets are
+    the row-major axis strides, so ``dia_to_stencil`` maps it to a
+    (2d+1)-leg ``StencilMatrix``.
+    """
+    grid_shape = tuple(int(g) for g in grid_shape)
+    d = len(grid_shape)
+    a = np.asarray(a, dtype=np.float64).reshape(grid_shape)
+    if np.any(a <= 0):
+        raise ValueError("diffusion coefficients must be strictly positive")
+    n = int(np.prod(grid_shape))
+    strides = [int(np.prod(grid_shape[ax + 1 :])) for ax in range(d)]
+
+    diag = np.zeros(grid_shape, dtype=np.float64)
+    legs: dict[int, np.ndarray] = {}
+    for ax in range(d):
+        lo = [slice(None)] * d
+        hi = [slice(None)] * d
+        lo[ax] = slice(None, -1)  # node i  (face between i and i+1)
+        hi[ax] = slice(1, None)  # node i+1
+        lo, hi = tuple(lo), tuple(hi)
+        w = 2.0 * a[lo] * a[hi] / (a[lo] + a[hi])
+        plus = np.zeros(grid_shape, dtype=np.float64)  # A[i, i+stride]
+        minus = np.zeros(grid_shape, dtype=np.float64)  # A[i, i-stride]
+        plus[lo] = w
+        minus[hi] = w
+        diag += plus + minus
+        first = [slice(None)] * d
+        last = [slice(None)] * d
+        first[ax] = 0
+        last[ax] = grid_shape[ax] - 1
+        diag[tuple(first)] += a[tuple(first)]  # Dirichlet boundary faces
+        diag[tuple(last)] += a[tuple(last)]
+        legs[strides[ax]] = -plus
+        legs[-strides[ax]] = -minus
+    legs[0] = diag
+
+    offsets = tuple(sorted(legs))
+    data = np.stack([legs[o].reshape(-1) for o in offsets]).astype(dtype)
+    return DiaMatrix(data, offsets, (n, n))
+
+
+def diffusion_system(
+    grid_shape: Tuple[int, ...],
+    kind: str = "jump",
+    contrast: float = 1e3,
+    seed: int = 0,
+    dtype=np.float64,
+) -> LinearSystem:
+    """Diffusion workload: coefficient field per ``kind``, smooth RHS, x0=0."""
+    a = diffusion_coefficients(grid_shape, kind=kind, contrast=contrast, seed=seed)
+    A = diffusion_matrix(grid_shape, a, dtype=dtype)
+    n = A.n
+    i = np.arange(n, dtype=np.float64)
+    b = np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)
+    return LinearSystem(A, b.astype(dtype), np.zeros(n, dtype=dtype))

@@ -1,7 +1,7 @@
 """Build the CUDA sources in ``csrc/`` at first use and load them with ctypes.
 
-Each source (``stencil.cu``, ``dia.cu``) becomes its own shared library,
-compiled by ``nvcc`` from the package's own sources into
+Each source (``stencil.cu``, ``stencil_var.cu``, ``dia.cu``) becomes its
+own shared library, compiled by ``nvcc`` from the package's own sources into
 ``conjugategradient_tpu_torch/_build/`` under a name keyed on a hash of that
 source and the flags, so a fresh checkout builds it on the first kernel
 launch and an edited source rebuilds it.  ``build()`` starts one ``nvcc`` per
@@ -24,6 +24,7 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "stencil": _PKG / "csrc" / "stencil.cu",
+    "stencil_var": _PKG / "csrc" / "stencil_var.cu",
     "dia": _PKG / "csrc" / "dia.cu",
 }
 BUILD_DIR = _PKG / "_build"
@@ -97,6 +98,11 @@ def _bind_stencil(lib: ctypes.CDLL) -> None:
     lib.cg_cheb_const.restype = _I
 
 
+def _bind_stencil_var(lib: ctypes.CDLL) -> None:
+    lib.cg_spmv_var.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _IP, _P]
+    lib.cg_spmv_var.restype = _I
+
+
 def _bind_dia(lib: ctypes.CDLL) -> None:
     lib.cg_spmv_dia.argtypes = [_I, _P, _P, _P, _I, _I, _IP, _P]
     lib.cg_spmv_dia.restype = _I
@@ -106,7 +112,7 @@ def _bind_dia(lib: ctypes.CDLL) -> None:
     lib.cg_spmm_dia.restype = _I
 
 
-_BIND = {"stencil": _bind_stencil, "dia": _bind_dia}
+_BIND = {"stencil": _bind_stencil, "stencil_var": _bind_stencil_var, "dia": _bind_dia}
 
 
 @functools.lru_cache(maxsize=None)

@@ -35,7 +35,7 @@ import torch
 
 from conjugategradient_tpu_torch.core.formats import DiaMatrix
 from conjugategradient_tpu_torch.ops import _build
-from conjugategradient_tpu_torch.ops.cuda_stencil import _raise_on, _stream
+from conjugategradient_tpu_torch.ops.cuda_stencil import _CODES, TAGS, _raise_on, _stream
 
 #: Limit of the kernels' by-value offsets struct (``csrc/dia.cu``); band 160
 #: has 159 diagonals.
@@ -43,14 +43,6 @@ MAX_DIAGS = 256
 #: Column chunks of one SpMM launch, largest first (template K of the kernel).
 K_CHUNKS = (8, 4, 2, 1)
 
-#: (leg dtype, vector dtype) -> the C entry's instantiation code
-_CODES = {
-    (torch.float32, torch.float32): 0,
-    (torch.bfloat16, torch.float32): 1,
-    (torch.float64, torch.float64): 2,
-}
-#: leg dtype -> the key of ``launches_by_dtype``
-TAGS = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float64: "fp64"}
 
 
 # ---------------------------------------------------------------------------

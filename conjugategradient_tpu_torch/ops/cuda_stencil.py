@@ -1,21 +1,28 @@
-"""Const-stencil kernels: CUDA wrappers and their plain PyTorch twins.
+"""Stencil kernels: CUDA wrappers and their plain PyTorch twins.
 
-Two kernels of ``csrc/stencil.cu`` (design notes at the top of that file):
+Two kernels of ``csrc/stencil.cu`` and one of ``csrc/stencil_var.cu``
+(design notes at the top of each file):
 
 - ``spmv_const_stencil_cuda`` — y = A x for a 2-D/3-D ``ConstStencilMatrix``
   (replaces ``conjugategradient_tpu/ops/pallas_stencil.py::_kernel``);
 - ``cheb_smooth_const_cuda`` — the whole degree-d Chebyshev recurrence on
   D⁻¹A for a 3-D const stencil, optionally from a zero x0 and optionally
-  emitting r = D⁻¹(b − A x_out) (replaces ``_cheb_kernel``).
+  emitting r = D⁻¹(b − A x_out) (replaces ``_cheb_kernel``);
+- ``spmv_stencil_cuda`` — y = A x for a 2-D/3-D variable-coefficient
+  ``StencilMatrix`` with up to 27 legs (kernel #3, replaces
+  ``_kernel_var``), in three instantiations by (leg dtype, vector dtype):
+  (fp32, fp32), (bf16, fp32) with the legs upcast in registers, and
+  (fp64, fp64).
 
 Each wrapper runs its twin (``*_ref``) for a tensor on the CPU, and only
 there.  For any other tensor it checks everything the kernel does not take
-(device, dtype, rank and shape, contiguity, |shift| > 1, 1-D grids), raises
-on a mismatch, and launches the kernel on the current CUDA stream; a launch
-that the runtime refuses raises too.  ``launches`` on each wrapper counts its
-kernel launches and nothing else; ``cheb_smooth_const_cuda.launches_by_grid``
-splits its count by grid, so a run can show that every 3-D level went
-through the kernel.
+(device, dtype, rank and shape, contiguity, |shift| > 1, 1-D grids, the leg
+limit), raises on a mismatch, and launches the kernel on the current CUDA
+stream; a launch that the runtime refuses raises too.  ``launches`` on each
+wrapper counts its kernel launches and nothing else; ``launches_by_grid``
+(the fused smoother and the variable SpMV) splits the count by grid, so a
+run can show that every level went through its kernel, and
+``spmv_stencil_cuda.launches_by_dtype`` by leg dtype.
 """
 
 from __future__ import annotations
@@ -27,10 +34,11 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix
+from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, StencilMatrix
 from conjugategradient_tpu_torch.ops import _build
 
-#: Limits of the kernels' by-value argument structs (``csrc/stencil.cu``).
+#: Limits of the kernels' by-value argument structs (``csrc/stencil.cu``,
+#: ``csrc/stencil_var.cu``).
 MAX_LEGS = 27
 MAX_DEGREE = 5
 
@@ -111,6 +119,23 @@ def cheb_smooth_const_ref(
     return (x, r) if want_resid else x
 
 
+def spmv_stencil_ref(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for a variable-coefficient stencil on grid-shaped ``x``: zero
+    pad + static slices, legs summed in ``A.shifts`` order, each leg upcast
+    to ``x``'s dtype (bf16 legs under fp32 state accumulate in fp32)."""
+    halo = A.halo
+    pad = []
+    for h in reversed(halo):
+        pad += [h, h]
+    xp = F.pad(x, pad)
+    y = None
+    for k, shift in enumerate(A.shifts):
+        sl = tuple(slice(h + s, h + s + g) for h, s, g in zip(halo, shift, A.grid))
+        term = A.data[k].to(x.dtype) * xp[sl]
+        y = term if y is None else y + term
+    return y
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -138,12 +163,18 @@ def _check_kernel_args(name: str, A: ConstStencilMatrix, tensors: Sequence[torch
             raise ValueError(f"{name}: the kernel needs CUDA tensors on one device, got {t.device}")
 
 
+def _shifts_arg(shifts, ndim: int):
+    """The shifts as a ctypes array of (dz, dy, dx) triples; 2-D shifts
+    become (0, dy, dx)."""
+    pad = (0,) * (3 - ndim)
+    flat = [int(s) for sh in shifts for s in pad + tuple(sh)]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
 def _legs(A: ConstStencilMatrix):
-    """(coeffs, shifts) as ctypes arrays; 2-D shifts become (0, dy, dx)."""
-    pad = (0,) * (3 - len(A.grid))
-    flat = [int(s) for sh in A.shifts for s in pad + tuple(sh)]
+    """(coeffs, shifts) as ctypes arrays."""
     coeffs = (ctypes.c_float * A.nlegs)(*[float(c) for c in A.coeffs])
-    return coeffs, (ctypes.c_int * len(flat))(*flat)
+    return coeffs, _shifts_arg(A.shifts, len(A.grid))
 
 
 def _raise_on(lib, err: int, name: str):
@@ -226,9 +257,77 @@ def cheb_smooth_const_cuda(
 cheb_smooth_const_cuda.launches = 0
 cheb_smooth_const_cuda.launches_by_grid = collections.Counter()
 
+#: (leg dtype, vector dtype) -> the instantiation code of the C entries
+#: that take legs (``cg_spmv_var`` here, the DIA entries of ``csrc/dia.cu``)
+_CODES = {
+    (torch.float32, torch.float32): 0,
+    (torch.bfloat16, torch.float32): 1,
+    (torch.float64, torch.float64): 2,
+}
+#: leg dtype -> the key of ``launches_by_dtype``
+TAGS = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float64: "fp64"}
+
+
+def _check_var_args(name: str, A: StencilMatrix, x: torch.Tensor) -> int:
+    """Raise on anything kernel #3 does not take; return the instantiation
+    code."""
+    if not isinstance(A, StencilMatrix):
+        raise TypeError(f"{name}: needs a StencilMatrix, got {type(A).__name__}")
+    legs = A.data
+    if not torch.is_tensor(legs):
+        raise TypeError(f"{name}: A.data must be a torch tensor (use StencilMatrix.device_put)")
+    if len(A.grid) not in (2, 3):
+        raise ValueError(f"{name}: needs a 2-D or 3-D grid, got grid={A.grid}")
+    if any(abs(s) > 1 for sh in A.shifts for s in sh):
+        raise ValueError(f"{name}: per-axis shifts must be in {{-1, 0, 1}}, got {A.shifts}")
+    if not 1 <= A.nlegs <= MAX_LEGS:
+        raise ValueError(f"{name}: 1..{MAX_LEGS} legs supported, got {A.nlegs}")
+    if tuple(legs.shape) != (A.nlegs,) + tuple(A.grid):
+        raise ValueError(f"{name}: legs of shape {tuple(legs.shape)} are not (nlegs, *grid)")
+    code = _CODES.get((legs.dtype, x.dtype))
+    if code is None:
+        raise TypeError(
+            f"{name}: no kernel for {legs.dtype} legs with a {x.dtype} vector; "
+            f"supported: {[(str(d), str(v)) for d, v in _CODES]}"
+        )
+    if tuple(x.shape) != tuple(A.grid):
+        raise ValueError(f"{name}: tensor of shape {tuple(x.shape)} is not grid {A.grid}")
+    if not (legs.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors only")
+    for t in (legs, x):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name}: the kernel needs CUDA tensors on one device, got {t.device}")
+    return code
+
+
+def spmv_stencil_cuda(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for grid-shaped ``x`` and a device ``StencilMatrix``: kernel
+    #3 for a CUDA tensor, the twin for a CPU tensor."""
+    if x.device.type == "cpu":
+        return spmv_stencil_ref(A, x)
+    name = "spmv_stencil_cuda"
+    code = _check_var_args(name, A, x)
+    nz, ny, nx = ((1,) * (3 - len(A.grid))) + tuple(A.grid)
+    y = torch.empty_like(x)
+    lib = _build.load("stencil_var")
+    err = lib.cg_spmv_var(code, A.data.data_ptr(), x.data_ptr(), y.data_ptr(), nz, ny, nx,
+                          A.nlegs, _shifts_arg(A.shifts, len(A.grid)), _stream(x))
+    _raise_on(lib, err, name)
+    spmv_stencil_cuda.launches += 1
+    spmv_stencil_cuda.launches_by_grid[tuple(A.grid)] += 1
+    spmv_stencil_cuda.launches_by_dtype[TAGS[A.data.dtype]] += 1
+    return y
+
+
+spmv_stencil_cuda.launches = 0
+spmv_stencil_cuda.launches_by_grid = collections.Counter()
+spmv_stencil_cuda.launches_by_dtype = collections.Counter()
+
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    spmv_const_stencil_cuda.launches = 0
-    cheb_smooth_const_cuda.launches = 0
+    """Set every stencil kernel's launch count to 0."""
+    for fn in (spmv_const_stencil_cuda, cheb_smooth_const_cuda, spmv_stencil_cuda):
+        fn.launches = 0
     cheb_smooth_const_cuda.launches_by_grid.clear()
+    spmv_stencil_cuda.launches_by_grid.clear()
+    spmv_stencil_cuda.launches_by_dtype.clear()

@@ -10,6 +10,7 @@ import torch
 
 from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, DiaMatrix, StencilMatrix
 from conjugategradient_tpu_torch.ops.cuda_dia import spmv_dia_cuda
+from conjugategradient_tpu_torch.ops.stencil import spmv_const_stencil, spmv_stencil
 
 
 def spmv_dia(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -21,9 +22,9 @@ def spmv_dia(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A x for the ported formats."""
     if isinstance(A, ConstStencilMatrix):
-        from conjugategradient_tpu_torch.ops.stencil import spmv_const_stencil
-
         return spmv_const_stencil(A, x)
+    if isinstance(A, StencilMatrix):
+        return spmv_stencil(A, x)
     if isinstance(A, DiaMatrix):
         return spmv_dia(A, x)
     _refuse(A)
@@ -32,31 +33,27 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
 def _refuse(A):
     """Raise ``NotImplementedError`` naming the ROADMAP item that ports A's
     format."""
-    if isinstance(A, StencilMatrix):
-        raise NotImplementedError(
-            "variable-coefficient stencil SpMV is not ported yet "
-            "(ROADMAP queue 2 kernel #3, ops/pallas_stencil.py::_kernel_var)"
-        )
     raise NotImplementedError(
         f"{type(A).__name__} SpMV is not ported yet (ROADMAP queue 1 item 8: other formats)"
     )
 
 
 def as_operator(A, use_pallas: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Wrap a ``ConstStencilMatrix`` or a device ``DiaMatrix`` as its SpMV,
-    or pass a callable through.
+    """Wrap a ``ConstStencilMatrix``, a ``StencilMatrix`` or a ``DiaMatrix``
+    as its SpMV, or pass a callable through.
 
     ``use_pallas`` is kept for parity with the JAX package and changes
     nothing: on a CUDA tensor both values launch the hand-written kernel (the
     card is the accelerator the JAX default, ``jax.default_backend() ==
     "tpu"``, stands for), and on a CPU tensor both run the plain twin.  A
-    host (numpy) ``DiaMatrix`` is placed on the CPU first.
+    host (numpy) ``DiaMatrix`` or ``StencilMatrix`` is placed on the CPU
+    first.
     """
+    if isinstance(A, (DiaMatrix, StencilMatrix)) and not torch.is_tensor(A.data):
+        A = A.device_put()
     if isinstance(A, DiaMatrix):
-        if not torch.is_tensor(A.data):
-            A = A.device_put()
         return partial(spmv_dia, A)
-    if isinstance(A, ConstStencilMatrix):
+    if isinstance(A, (ConstStencilMatrix, StencilMatrix)):
         return partial(spmv, A)
     if callable(A):
         return A

@@ -1,9 +1,11 @@
 """Grid-stencil SpMV on grid-shaped tensors.
 
 Solver state stays in its natural grid shape end to end (dots and norms
-reduce over all axes).  ``spmv_const_stencil`` is the slice's operator: the
-CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor, at every
-grid size (no size threshold: the kernel runs wherever the card does).
+reduce over all axes).  ``spmv_const_stencil`` (const-coefficient levels,
+kernel #1) and ``spmv_stencil`` (variable-coefficient levels, kernel #3) run
+the CUDA kernel for a CUDA tensor and its plain twin for a CPU tensor, at
+every grid size and leg dtype the kernel takes (no size threshold and no
+bf16-only gate: those are TPU measurements).
 """
 
 from __future__ import annotations
@@ -11,8 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix
-from conjugategradient_tpu_torch.ops.cuda_stencil import spmv_const_stencil_cuda
+from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, StencilMatrix
+from conjugategradient_tpu_torch.ops.cuda_stencil import spmv_const_stencil_cuda, spmv_stencil_cuda
 
 
 def _as_grid(x: torch.Tensor, grid):
@@ -33,3 +35,11 @@ def spmv_const_stencil(A: ConstStencilMatrix, x: torch.Tensor) -> torch.Tensor:
     and out."""
     x, back = _as_grid(x, A.grid)
     return back(spmv_const_stencil_cuda(A, x))
+
+
+def spmv_stencil(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for a device variable-coefficient ``StencilMatrix``: its legs
+    stream once, each leg upcast to the state's dtype.  Flat (n,) input is
+    reshaped in and out."""
+    x, back = _as_grid(x, A.grid)
+    return back(spmv_stencil_cuda(A, x))

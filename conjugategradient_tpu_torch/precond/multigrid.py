@@ -1,31 +1,39 @@
 """Geometric multigrid: hierarchy setup, V-cycle and the MGCG preconditioner.
 
-The slice of ``conjugategradient_tpu/precond/multigrid.py`` that the Poisson
-MGCG path runs: grid-shaped (stencil) levels that const-detect to
-``ConstStencilMatrix``, full-weighting transfers, a rediscretized coarse
-operator per level, and a dense inverse on the coarsest grid.  Setup is
-host-side numpy; the hierarchy is an ``nn.Module`` whose per-level
-``inv_diag`` and ``coarse_inv`` are registered buffers, so ``.to(device)``
-moves it.
+The slice of ``conjugategradient_tpu/precond/multigrid.py`` that the MGCG
+paths run: grid-shaped (stencil) levels with full-weighting transfers, coarse
+operators by the Galerkin product ``R A P`` (the default) or by a
+rediscretization hook (``coarse_operator``), and a dense inverse on the
+coarsest grid.  Setup is host-side numpy and scipy; the hierarchy is an
+``nn.Module`` whose per-level ``inv_diag``, variable-coefficient ``legs`` and
+``coarse_inv`` are registered buffers, so ``.to(device)`` moves it.
 
-On a 3-D const level with fp32 state the Chebyshev smoothing runs fused
-(``ops.cuda_stencil.cheb_smooth_const_cuda``): the kernel on the card, its
-twin on the CPU.  Every other level, and every fp64 run, takes the unfused
-``chebyshev_smooth`` built from the SpMV kernel.
+A level whose operator is constant over the grid (the Poisson ladder)
+const-detects to a ``ConstStencilMatrix`` with a scalar ``inv_diag`` and
+Gershgorin Chebyshev bounds; any other level keeps its legs (a
+``StencilMatrix`` over the ``legs`` buffer, kernel #3 on the card), a
+grid-shaped ``inv_diag`` and bounds from the host power iteration.  On a 3-D
+const level with fp32 state the Chebyshev smoothing runs fused
+(``ops.cuda_stencil.cheb_smooth_const_cuda``); every other level, and every
+fp64 run, takes the unfused ``chebyshev_smooth`` built from the SpMV kernel.
 """
 
 from __future__ import annotations
 
+import time
 from functools import partial
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 from torch import nn
 
+from conjugategradient_tpu_torch.core import oracle
 from conjugategradient_tpu_torch.core.formats import (
     ConstStencilMatrix,
     DiaMatrix,
+    StencilMatrix,
     dia_diagonal,
     dia_to_dense,
     dia_to_stencil,
@@ -35,29 +43,53 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import cheb_smooth_const_cuda
 from conjugategradient_tpu_torch.ops.spmv import as_operator
 from conjugategradient_tpu_torch.precond import transfer
 from conjugategradient_tpu_torch.precond.smoothers import chebyshev_smooth, jacobi_smooth
+from conjugategradient_tpu_torch.solvers import eigen
 
 GridShape = Tuple[int, ...]
 
 _REST_OF_HIERARCHY = "ROADMAP queue 1 item 9 (the rest of the hierarchy)"
+#: semicoarsening threshold: an axis whose coupling is below this share of
+#: the strongest one is not coarsened (the JAX package's default)
+_SEMI_THETA = 0.25
 
 
 class MgLevel(nn.Module):
-    """One level: const-stencil operator, scalar ``1/diag`` buffer, grid
-    geometry, Chebyshev bounds of D^{-1}A and the transfer kind."""
+    """One level: operator, ``1/diag`` buffer (a scalar on a const level,
+    grid-shaped on a variable one), grid geometry, Chebyshev bounds of
+    D^{-1}A and the transfer kind.
 
-    def __init__(self, A: ConstStencilMatrix, inv_diag: torch.Tensor, grid: GridShape,
+    A variable level registers its legs as the buffer ``legs`` and builds
+    ``A`` over that buffer on every access, so ``.to(device)`` (or a dtype
+    cast) moves the operator with the level."""
+
+    def __init__(self, A, inv_diag: torch.Tensor, grid: GridShape,
                  cheb_bounds: Tuple[float, float], transfer: str = "fw"):
         super().__init__()
-        self.A = A
+        if isinstance(A, StencilMatrix):
+            self._const = None
+            self.shifts = tuple(A.shifts)
+            legs = A.data if torch.is_tensor(A.data) else torch.from_numpy(np.asarray(A.data))
+            self.register_buffer("legs", legs.contiguous())
+        else:
+            self._const = A
         self.register_buffer("inv_diag", inv_diag)
         self.grid = tuple(grid)
         self.cheb_bounds = tuple(cheb_bounds)
         self.transfer = transfer
 
+    @property
+    def A(self):
+        """The level's operator: the ``ConstStencilMatrix``, or a
+        ``StencilMatrix`` over the current ``legs`` buffer."""
+        if self._const is not None:
+            return self._const
+        return StencilMatrix(self.legs, self.shifts, self.grid)
+
 
 class MgHierarchy(nn.Module):
     """Static hierarchy: ``levels[0]`` is the fine grid; the coarsest grid is
-    solved with the dense inverse ``coarse_inv``."""
+    solved with the dense inverse ``coarse_inv``.  ``setup_s`` holds
+    ``build_hierarchy``'s host-clock seconds by phase (empty otherwise)."""
 
     def __init__(self, levels, coarse_inv: torch.Tensor, smoother: str, pre: int,
                  post: int, omega: float):
@@ -68,10 +100,78 @@ class MgHierarchy(nn.Module):
         self.pre = pre
         self.post = post
         self.omega = omega
+        self.setup_s = {}
 
     @property
     def n_levels(self) -> int:
         return len(self.levels) + 1  # + coarsest direct level
+
+
+def _dia_to_scipy(A: DiaMatrix) -> sp.csr_matrix:
+    """Direct DIA -> scipy.dia -> csr.  Our data is row-indexed
+    (``data[k, i] = A[i, i+off]``), scipy's column-indexed
+    (``data[k, j] = A[j-off, j]``): shift by off."""
+    n = A.n
+    data = np.asarray(A.data)
+    sdata = np.zeros_like(data)
+    for k, off in enumerate(A.offsets):
+        if off >= 0:
+            sdata[k, off:] = data[k, : n - off]
+        elif off < 0:
+            sdata[k, : n + off] = data[k, -off:]
+    return sp.dia_matrix((sdata, np.asarray(A.offsets)), shape=(n, n)).tocsr()
+
+
+def _scipy_to_dia(S: sp.spmatrix) -> DiaMatrix:
+    """scipy -> DIA via scipy's own ``.todia()``, un-shifting the
+    column-indexed layout back to row-indexed, offsets ascending."""
+    D = S.todia()
+    n = D.shape[0]
+    offsets = tuple(int(o) for o in D.offsets)
+    order = np.argsort(offsets)
+    sdata = np.asarray(D.data)
+    out = np.zeros((len(offsets), n), dtype=sdata.dtype)
+    for slot, k in enumerate(order):
+        off = offsets[k]
+        if off >= 0:
+            out[slot, : n - off] = sdata[k, off:]
+        else:
+            out[slot, -off:] = sdata[k, : n + off]
+    return DiaMatrix(out, tuple(offsets[k] for k in order), (n, n))
+
+
+def _const_near_null(A_h: DiaMatrix, grid: GridShape) -> bool:
+    """True iff the constant (not the checkerboard) is the near-null
+    candidate, the precondition for geometric transfers: the two Rayleigh
+    numerators ones.A.ones and alt.A.alt by the host oracle."""
+    ones = np.ones(A_h.n)
+    alt = np.where(np.indices(grid).sum(axis=0).reshape(-1) % 2 == 0, 1.0, -1.0)
+    q1 = float(ones @ oracle.spmv(A_h, ones))
+    q2 = float(alt @ oracle.spmv(A_h, alt))
+    return q1 <= q2
+
+
+def _axis_strengths(st: StencilMatrix) -> np.ndarray:
+    """Per-axis coupling strength: max |value| over the axis-aligned
+    off-diagonal stencil legs (the semicoarsening detector)."""
+    d = st.ndim
+    out = np.zeros(d)
+    data = np.asarray(st.data)
+    for k, shift in enumerate(st.shifts):
+        nz = [ax for ax in range(d) if shift[ax] != 0]
+        if len(nz) == 1:
+            out[nz[0]] = max(out[nz[0]], float(np.max(np.abs(data[k]))))
+    return out
+
+
+def _const_axis_strengths(Ac: ConstStencilMatrix, g: GridShape) -> np.ndarray:
+    """``_axis_strengths`` of a const stencil, from its coefficients."""
+    s_ax = np.zeros(len(g))
+    for c, s in zip(Ac.coeffs, Ac.shifts):
+        nz = [ax for ax in range(len(g)) if s[ax] != 0]
+        if len(nz) == 1:
+            s_ax[nz[0]] = max(s_ax[nz[0]], abs(float(c)))
+    return s_ax
 
 
 def _const_bounds(Ac: ConstStencilMatrix, lower_frac: float = 0.25):
@@ -92,10 +192,8 @@ def _const_bounds(Ac: ConstStencilMatrix, lower_frac: float = 0.25):
 
 
 def _geometric_ok(Ac: ConstStencilMatrix, g: GridShape) -> bool:
-    """True iff the constant (not the checkerboard) is the near-null vector,
-    the precondition for geometric transfers: the closed form of the two
-    Rayleigh quotients ones.A.ones and alt.A.alt of a const stencil (each leg
-    counts once per valid position, times (-1)^{sum s} when alternating)."""
+    """``_const_near_null`` of a const stencil in closed form: each leg
+    counts once per valid position, times (-1)^{sum s} when alternating."""
 
     def _q(signed: bool) -> float:
         tot = 0.0
@@ -125,6 +223,33 @@ def _hybrid_applies(g: GridShape) -> bool:
     return all(n >= 5 for n in coarse)
 
 
+def _pick_kind(g: GridShape, geom_ok: bool) -> Optional[str]:
+    """The JAX package's auto transfer choice: full weighting (every axis
+    odd) > hybrid > aggregation, the geometric kinds only where the
+    constant is the near-null vector."""
+    if geom_ok and transfer.can_coarsen(g):
+        return "fw"
+    if geom_ok and _hybrid_applies(g):
+        return "hyb"
+    if transfer.can_aggregate(g):
+        return "agg"
+    return None
+
+
+def galerkin_coarse(A: DiaMatrix, fine: GridShape, kind: str = "fw") -> DiaMatrix:
+    """A_c = R A P on the host (setup-time scipy triple product), with the
+    full-weighting P and R = P^T / 2^d.  Other transfer kinds are not
+    ported yet."""
+    if kind != "fw":
+        raise NotImplementedError(
+            f"galerkin_coarse kind={kind!r} is not ported yet ({_REST_OF_HIERARCHY})"
+        )
+    S = _dia_to_scipy(A)
+    P = transfer.prolong_matrix(fine)
+    R = (P.T * (0.5 ** len(fine))).tocsr()
+    return _scipy_to_dia(R @ S @ P)
+
+
 def build_hierarchy(
     A: DiaMatrix,
     grid: GridShape,
@@ -141,12 +266,24 @@ def build_hierarchy(
     """Build the hierarchy from the host fine operator and place it on
     ``device``.
 
-    ``coarse_operator(level, coarse_grid) -> DiaMatrix`` rediscretizes each
-    coarse level (e.g. ``generators.poisson_coarse_operator``); it is
-    required, as the Galerkin product is not ported.  Coarsening uses full
-    weighting while every axis is odd and the constant is the near-null
-    vector, and stops at ``max_coarse`` unknowns; where the JAX package
-    would fall back to aggregation the build stops as it does there.
+    Coarse operators are the Galerkin products ``R A P`` (``galerkin_coarse``)
+    unless ``coarse_operator(level, coarse_grid) -> DiaMatrix`` rediscretizes
+    each coarse level (e.g. ``generators.poisson_coarse_operator``).  The
+    transfer decisions are the JAX package's: full weighting while every
+    axis is odd and the constant is the near-null vector, semicoarsening
+    where an axis couples below ``_SEMI_THETA`` of the strongest (Galerkin
+    only), and coarsening stops at ``max_coarse`` unknowns.  Where the JAX
+    package would take semicoarsening, hybrid or aggregation transfers the
+    build raises ``NotImplementedError`` (those transfers are not ported);
+    with ``coarse_operator`` an aggregation step stops the build, as it does
+    there.  Never silently full-coarsens in their place.
+
+    ``setup_s`` on the result splits the host-clock seconds into ``detect``
+    (stencil conversion, const detection, transfer choice), ``bounds``
+    (Chebyshev bounds), ``levels`` (casting legs and ``inv_diag`` to
+    ``dtype``), ``galerkin`` (the triple products, or ``coarse_operator``),
+    ``coarse_inv`` (the dense inverse) and ``upload`` (placing the
+    hierarchy on ``device``, synchronised).
     """
     if int(np.prod(grid)) != A.n:
         raise ValueError(f"prod(grid)={int(np.prod(grid))} != n={A.n}")
@@ -154,62 +291,92 @@ def build_hierarchy(
         raise NotImplementedError(f"the rbgs smoother is not ported yet ({_REST_OF_HIERARCHY})")
     if smoother not in ("jacobi", "chebyshev"):
         raise ValueError(f"unknown smoother {smoother!r}")
-    if coarse_operator is None:
-        raise NotImplementedError(
-            "Galerkin coarsening (galerkin_coarse) is not ported yet; pass "
-            f"coarse_operator= ({_REST_OF_HIERARCHY})"
-        )
 
+    setup = dict.fromkeys(("detect", "bounds", "levels", "galerkin", "coarse_inv", "upload"), 0.0)
     levels = []
     A_h = A  # host-side numpy DIA
     g = tuple(grid)
-    while A_h.n > max_coarse and len(levels) < max_levels - 1 and all(n >= 2 for n in g):
-        A_const = stencil_to_const(dia_to_stencil(A_h, g, copy=False))
-        if A_const is None:
-            raise NotImplementedError(
-                "variable-coefficient levels are not ported yet "
-                f"(ROADMAP queue 2 kernel #3 and {_REST_OF_HIERARCHY})"
-            )
-        geom_ok = _geometric_ok(A_const, g)
-        if not (geom_ok and transfer.can_coarsen(g)):
-            if geom_ok and _hybrid_applies(g):
-                raise NotImplementedError(
-                    f"hybrid (hyb) transfers for grid {g} are not ported yet ({_REST_OF_HIERARCHY})"
-                )
-            # the JAX package would pick aggregation, which has no calibrated
-            # rediscretization scale: it stops coarsening here and inverts
-            # what remains
+    while A_h.n > max_coarse and transfer.can_aggregate(g) and len(levels) < max_levels - 1:
+        t0 = time.perf_counter()
+        # copy=False: A_st aliases A_h's buffer; both are transient setup
+        # state here (A_h is replaced by the next coarse level)
+        A_st = dia_to_stencil(A_h, g, copy=False)
+        A_const = stencil_to_const(A_st)
+        geom_ok = _geometric_ok(A_const, g) if A_const is not None else _const_near_null(A_h, g)
+        kind = _pick_kind(g, geom_ok)
+        if kind is None:
             break
+        if coarse_operator is None and kind in ("fw", "hyb") and len(g) > 1:
+            s_ax = (_const_axis_strengths(A_const, g) if A_const is not None
+                    else _axis_strengths(A_st))
+            if s_ax.max() > 0:
+                mask = tuple(bool(v >= _SEMI_THETA * s_ax.max()) for v in s_ax)
+                if not all(mask) and transfer.can_partial(g, mask):
+                    kind = "semi" + "".join("1" if m else "0" for m in mask)
+        if coarse_operator is not None and kind == "agg":
+            # no calibrated rediscretization scale for aggregation: the
+            # dense coarse inverse takes over at whatever size remains
+            break
+        if kind != "fw":
+            raise NotImplementedError(
+                f"{kind!r} transfers for grid {g} are not ported yet ({_REST_OF_HIERARCHY})"
+            )
         center = (0,) * len(g)
-        if center not in A_const.shifts:
-            raise ValueError("stencil has no center leg; not SPD-compatible with Jacobi scaling")
-        diag = np.asarray(
-            [A_const.coeffs[A_const.shifts.index(center)]], np.asarray(A_h.data).dtype
-        )
+        if A_const is not None and center in A_const.shifts:
+            diag = np.asarray([A_const.coeffs[A_const.shifts.index(center)]],
+                              np.asarray(A_h.data).dtype)
+        else:
+            diag = dia_diagonal(A_h)
         if np.any(diag <= 0):
             raise ValueError("non-positive diagonal; not SPD-compatible with Jacobi scaling")
-        bounds = _const_bounds(A_const) if smoother == "chebyshev" else (0.0, 0.0)
+        t1 = time.perf_counter()
+        setup["detect"] += t1 - t0
+        if smoother == "chebyshev":
+            bounds = (_const_bounds(A_const) if A_const is not None
+                      else eigen.scaled_spectrum_bounds(A_h))
+        else:
+            bounds = (0.0, 0.0)
+        t2 = time.perf_counter()
+        setup["bounds"] += t2 - t1
         dt = dtype or np.asarray(A_h.data).dtype
-        inv_d = torch.from_numpy(np.asarray(1.0 / diag[0], dtype=dt).reshape(()))
-        levels.append(MgLevel(A_const, inv_d, g, bounds, "fw"))
+        if A_const is not None:
+            # zero matrix bytes per SpMV, scalar inv_diag
+            inv_d = torch.from_numpy(np.asarray(1.0 / diag[0], dtype=dt).reshape(()))
+            levels.append(MgLevel(A_const, inv_d, g, bounds, "fw"))
+        else:
+            inv_d = torch.from_numpy((1.0 / diag).astype(dt).reshape(g))
+            levels.append(MgLevel(A_st.device_put(dt), inv_d, g, bounds, "fw"))
+        t3 = time.perf_counter()
+        setup["levels"] += t3 - t2
         g_next = transfer.coarse_shape(g)
-        A_h = coarse_operator(len(levels), g_next)
-        if int(np.prod(g_next)) != A_h.n:
-            raise ValueError(f"coarse_operator returned n={A_h.n} for grid {g_next}")
+        if coarse_operator is not None:
+            A_h = coarse_operator(len(levels), g_next)
+            if int(np.prod(g_next)) != A_h.n:
+                raise ValueError(f"coarse_operator returned n={A_h.n} for grid {g_next}")
+        else:
+            A_h = galerkin_coarse(A_h, g, "fw")
+        setup["galerkin"] += time.perf_counter() - t3
         g = g_next
 
-    if A_h.n > 4 * max_coarse:
+    if coarse_operator is not None and A_h.n > 4 * max_coarse:
         # never silently densify a large remainder
         raise ValueError(
             f"rediscretized coarsening stopped at n={A_h.n} > 4*max_coarse="
             f"{4 * max_coarse} (grid {g}: axes not fw-coarsenable); fix the grid "
             "sizes (2^k - 1 axes) or raise max_coarse explicitly"
         )
+    t0 = time.perf_counter()
     dt = dtype or np.asarray(A_h.data).dtype
     dense = dia_to_dense(A_h)
     coarse_inv = torch.from_numpy(np.linalg.inv(np.asarray(dense, dtype=np.float64)).astype(dt))
     h = MgHierarchy(levels, coarse_inv, smoother, pre, post, omega)
-    return h.to(device)
+    t1 = time.perf_counter()
+    h = h.to(device)
+    if h.coarse_inv.device.type == "cuda":
+        torch.cuda.synchronize(h.coarse_inv.device)
+    setup.update(coarse_inv=t1 - t0, upload=time.perf_counter() - t1)
+    h.setup_s = setup
+    return h
 
 
 def _fused_cheb_ok(lvl: MgLevel, b: torch.Tensor) -> bool:
@@ -306,7 +473,10 @@ def mgcg_solve(
 ):
     """Multigrid-preconditioned CG: builds (or reuses) the hierarchy, then
     runs CG with one V-cycle per iteration as M.  Returns
-    ``(CGResult, MgHierarchy)`` with a flat ``x``."""
+    ``(CGResult, MgHierarchy)`` with a flat ``x``.  The operator is the fine
+    level's stencil; a hierarchy without levels (the whole system below
+    ``max_coarse``) runs flat on ``A`` as DIA, its V-cycle the dense
+    inverse, as the JAX package does."""
     from conjugategradient_tpu_torch.solvers.cg import CGResult, cg_solve
     from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -315,17 +485,16 @@ def mgcg_solve(
     if h is None:
         h = build_hierarchy(A, grid, smoother=smoother, pre=pre, post=post, dtype=dtype,
                             coarse_operator=coarse_operator, device=device)
-    if not h.levels:
-        raise NotImplementedError(
-            f"a hierarchy without levels (a pure dense solve) is not ported yet ({_REST_OF_HIERARCHY})"
-        )
     dev = h.coarse_inv.device
     tdt = h.coarse_inv.dtype
-    b = torch.as_tensor(np.asarray(b), device=dev).to(tdt).reshape(grid)
+    if h.levels:
+        A_dev, shape = h.levels[0].A, tuple(grid)
+    else:
+        A_dev, shape = A.device_put(tdt, dev), (A.n,)
+    b = torch.as_tensor(np.asarray(b), device=dev).to(tdt).reshape(shape)
     if x0 is not None:
-        x0 = torch.as_tensor(np.asarray(x0), device=dev).to(tdt).reshape(grid)
-    result = cg_solve(h.levels[0].A, b, x0, policy, M=as_preconditioner(h),
-                      precise_dot=precise_dot)
+        x0 = torch.as_tensor(np.asarray(x0), device=dev).to(tdt).reshape(shape)
+    result = cg_solve(A_dev, b, x0, policy, M=as_preconditioner(h), precise_dot=precise_dot)
     result = CGResult(x=result.x.reshape(-1), iterations=result.iterations,
                       residual=result.residual, converged=result.converged)
     return result, h

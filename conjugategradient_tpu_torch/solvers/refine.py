@@ -12,8 +12,10 @@ The port of ``conjugategradient_tpu/solvers/refine.py``:
 
 Gridless, the inner CG runs on the DIA SpMV (kernel #4,
 ``ops.cuda_dia.spmv_dia_cuda``), with ``matrix_dtype=torch.bfloat16`` on its
-bf16-leg instantiation; with ``grid=`` it is MGCG on the const-stencil
-hierarchy of ``precond.multigrid``.  ``refined_solve_multi`` runs the
+bf16-leg instantiation; with ``grid=`` it is MGCG on the hierarchy of
+``precond.multigrid`` (Galerkin by default), and ``matrix_dtype`` narrows
+the legs of a variable-coefficient fine operator (kernel #3's bf16-leg
+instantiation).  ``refined_solve_multi`` runs the
 multi-RHS form over ``cg_solve_multi`` (kernel #5).
 
 ``device_residual=True`` keeps the outer loop on the card too.  The JAX
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from conjugategradient_tpu_torch.core import oracle
-from conjugategradient_tpu_torch.core.formats import DiaMatrix
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, StencilMatrix, dia_to_stencil
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
 from conjugategradient_tpu_torch.solvers.multi import cg_solve_multi
@@ -78,15 +80,15 @@ def _inner_solver(A: DiaMatrix, grid, inner_tol, device_dtype, hierarchy, smooth
     """(solve(r) -> CGResult, shape of r): the fp32 inner CG, built once.
 
     Gridless: CG on ``A.device_put(matrix_dtype or device_dtype)``.  Grid:
-    MGCG on the const-stencil hierarchy (``hierarchy``, on ``device``, or
-    one built here; building needs the Galerkin product, which is not
-    ported, so ``build_hierarchy`` raises).  Const-stencil levels ship no
-    matrix bytes, so ``matrix_dtype`` does not apply there."""
-    from conjugategradient_tpu_torch.precond.multigrid import (
-        _REST_OF_HIERARCHY,
-        as_preconditioner,
-        build_hierarchy,
-    )
+    MGCG on the hierarchy (``hierarchy``, on ``device``, or the Galerkin one
+    built here), with the fine level's operator; a hierarchy without levels
+    runs on ``A``'s variable-coefficient stencil form and the dense coarse
+    inverse.  ``matrix_dtype`` narrows only the operator's legs when it is a
+    variable-coefficient ``StencilMatrix`` (each leg upcasts to the fp32
+    state in the kernel); the V-cycle keeps ``device_dtype``, and a
+    const-detected operator ships no matrix bytes, so it ignores
+    ``matrix_dtype``."""
+    from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner, build_hierarchy
 
     max_it = min(8 * A.n, 1_000_000)
     pol = ConvergencePolicy(tol=inner_tol, norm="rel_l2", max_iteration=max_it)
@@ -95,12 +97,11 @@ def _inner_solver(A: DiaMatrix, grid, inner_tol, device_dtype, hierarchy, smooth
         h = hierarchy
         if h is None:
             h = build_hierarchy(A, grid, smoother=smoother, dtype=device_dtype, device=device)
-        if not h.levels:
-            raise NotImplementedError(
-                "a grid path without hierarchy levels needs the variable-coefficient "
-                f"stencil operator (ROADMAP queue 2 kernel #3, {_REST_OF_HIERARCHY})"
-            )
-        A_dev, M = h.levels[0].A, as_preconditioner(h)
+        A_dev = (h.levels[0].A if h.levels
+                 else dia_to_stencil(A, tuple(grid)).device_put(device_dtype, device))
+        if matrix_dtype is not None and isinstance(A_dev, StencilMatrix):
+            A_dev = A_dev.astype(matrix_dtype)
+        M = as_preconditioner(h)
         return (lambda r: cg_solve(A_dev, r, policy=pol, M=M, precise_dot=prec)), tuple(grid)
     A_dev = A.device_put(matrix_dtype or device_dtype, device)
     return (lambda r: cg_solve(A_dev, r, policy=pol, precise_dot=prec)), (A.n,)
@@ -135,10 +136,14 @@ def refined_solve(
     pass checks it; two consecutive passes that cut it by less than 10%
     declare ``stalled`` (the fp64 evaluation noise floor).
 
-    ``matrix_dtype`` (gridless) stores the device matrix narrower than the
-    Krylov state, e.g. ``torch.bfloat16`` with fp32 vectors: the kernel
-    streams half the bytes and accumulates in fp32, the inner CG converges
-    on the rounded operator, and the fp64 outer passes correct for it.
+    ``matrix_dtype`` stores the device matrix narrower than the Krylov
+    state, e.g. ``torch.bfloat16`` with fp32 vectors: the kernel streams
+    half the bytes and accumulates in fp32, the inner CG converges on the
+    rounded operator, and the fp64 outer passes correct for it.  On the
+    grid path only a variable-coefficient fine operator is narrowed (the
+    V-cycle keeps ``device_dtype``).  The outer passes contract by about
+    ``kappa(A) * 2**-8`` each, so a high-contrast jump field stalls and
+    reports not converged.
 
     ``device_residual=True`` runs the outer loop on the card in fp64 (see
     the module docstring); it needs ``device_dtype=float32``.

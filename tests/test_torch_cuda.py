@@ -11,7 +11,12 @@ import pytest
 import torch
 
 from conjugategradient_tpu_torch.core import generators
-from conjugategradient_tpu_torch.core.formats import DiaMatrix, dia_to_stencil, stencil_to_const
+from conjugategradient_tpu_torch.core.formats import (
+    DiaMatrix,
+    StencilMatrix,
+    dia_to_stencil,
+    stencil_to_const,
+)
 from conjugategradient_tpu_torch.ops import cuda_dia, cuda_stencil
 from conjugategradient_tpu_torch.ops.cuda_dia import (
     spmm_dia_cuda,
@@ -26,8 +31,14 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
     cheb_smooth_const_ref,
     spmv_const_stencil_cuda,
     spmv_const_stencil_ref,
+    spmv_stencil_cuda,
+    spmv_stencil_ref,
 )
-from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner, build_hierarchy
+from conjugategradient_tpu_torch.precond.multigrid import (
+    as_preconditioner,
+    build_hierarchy,
+    galerkin_coarse,
+)
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -190,3 +201,94 @@ def test_refined_flagship_contract_on_card_matches_cpu(cuda):
     assert g.converged and c.converged and g.outer_iterations == c.outer_iterations
     assert np.linalg.norm(s.b - oracle.spmv(s.A, g.x)) < 1e-8
     assert np.abs(g.x - c.x).max() <= 1e-7 * np.abs(c.x).max()
+
+
+#: variable-coefficient stencils of kernel #3: 2-D/3-D diffusion operators
+#: (5 and 7 legs) and Galerkin coarse levels of them (9 and 27 legs), on
+#: ragged grids
+VAR_CASES = {
+    "5 legs (37, 53)": ((37, 53), None),
+    "7 legs (23, 9, 12)": ((23, 9, 12), None),
+    "7 legs (2, 3, 5)": ((2, 3, 5), None),
+    "9 legs (19, 13)": ((39, 27), (19, 13)),
+    "27 legs (11, 7, 5)": ((23, 15, 11), (11, 7, 5)),
+}
+
+
+def _var(case, legs, device):
+    fine, coarse = VAR_CASES[case]
+    A = generators.diffusion_system(fine, contrast=1e3).A
+    grid = fine
+    if coarse is not None:
+        A, grid = galerkin_coarse(A, fine), coarse
+    st = dia_to_stencil(A, grid)
+    return st.device_put(legs, device)
+
+
+@pytest.mark.parametrize("case", sorted(VAR_CASES))
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+def test_var_stencil_kernel_matches_twin(cuda, case, legs):
+    A = _var(case, legs, cuda)
+    assert A.nlegs == int(case.split()[0])
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(A.grid)).to(cuda, vec)
+    cuda_stencil.reset_launch_counts()
+    y = spmv_stencil_cuda(A, x)
+    torch.cuda.synchronize()
+    assert spmv_stencil_cuda.launches == 1 and spmv_stencil_cuda.launches_by_grid[A.grid] == 1
+    assert spmv_stencil_cuda.launches_by_dtype[cuda_stencil.TAGS[legs]] == 1
+    ref = spmv_stencil_ref(A, x)
+    assert y.dtype == ref.dtype == vec
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("case", ["5 legs (37, 53)", "27 legs (11, 7, 5)"])
+def test_var_stencil_kernel_reads_nothing_outside_the_grid(cuda, case):
+    # x is carved out of a NaN-filled buffer, and NaNs are planted at grid
+    # corners: a read past the grid (or across a row seam, where a leg is 0)
+    # would leak a NaN where the twin has none (0 * NaN = NaN)
+    A = _var(case, torch.float32, cuda)
+    n = int(np.prod(A.grid))
+    buf = torch.full((n + 2 * 4096,), float("nan"), device=cuda)
+    x = buf[4096 : 4096 + n].view(A.grid)
+    x.copy_(torch.from_numpy(np.random.default_rng(7).standard_normal(A.grid)).to(cuda, torch.float32))
+    x[(0,) * len(A.grid)] = float("nan")
+    x[tuple(g - 1 for g in A.grid)] = float("nan")
+    y = spmv_stencil_cuda(A, x)
+    torch.cuda.synchronize()
+    ref = spmv_stencil_ref(A, x)
+    assert torch.equal(torch.isnan(y), torch.isnan(ref))
+    assert 0 < int(torch.isnan(ref).sum()) < n
+    ok = ~torch.isnan(ref)
+    assert float((y[ok] - ref[ok]).abs().max()) <= REL * float(ref[ok].abs().max())
+
+
+def test_var_stencil_kernel_raises_instead_of_falling_back(cuda):
+    A = _var("7 legs (23, 9, 12)", torch.float32, cuda)
+    with pytest.raises(TypeError, match="no kernel"):
+        spmv_stencil_cuda(A, torch.zeros(A.grid, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        spmv_stencil_cuda(A, torch.zeros((12, 9, 23), device=cuda).transpose(0, 2))
+    shifts = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
+    wide = StencilMatrix(torch.zeros((28, 5, 5, 5), device=cuda), shifts + ((0, 0, 0),), (5, 5, 5))
+    with pytest.raises(ValueError, match="legs supported"):
+        spmv_stencil_cuda(wide, torch.zeros((5, 5, 5), device=cuda))
+
+
+def test_galerkin_mgcg_on_card_matches_cpu(cuda):
+    grid = (31, 31, 31)
+    sys_ = generators.diffusion_system(grid, contrast=1e3)
+    pol = ConvergencePolicy(tol=1e-6, norm="rel_l2", max_iteration=8 * sys_.n)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        h = build_hierarchy(sys_.A, grid, dtype=np.float32, device=dev)
+        b = torch.from_numpy(sys_.b).to(dev, torch.float32).reshape(grid)
+        cuda_stencil.reset_launch_counts()
+        out[dev.type] = cg_solve(h.levels[0].A, b, policy=pol, M=as_preconditioner(h),
+                                 precise_dot=True)
+        if dev.type == "cuda":
+            assert all(spmv_stencil_cuda.launches_by_grid[l.grid] > 0 for l in h.levels)
+    g, c = out["cuda"], out["cpu"]
+    assert g.converged and c.converged and g.iterations == c.iterations
+    assert float((g.x.cpu() - c.x).abs().max() / c.x.abs().max()) <= 1e-4

@@ -232,9 +232,11 @@ def test_device_put_and_bandwidth():
 def test_unported_formats_raise():
     from conjugategradient_tpu_torch.core.formats import StencilMatrix
 
-    st = StencilMatrix(np.zeros((1, 4, 4)), ((0, 0),), (4, 4))
-    with pytest.raises(NotImplementedError, match="kernel #3"):
-        as_operator(st)
+    st = StencilMatrix(np.ones((1, 4, 4)), ((0, 0),), (4, 4))
+    # the variable-coefficient stencil SpMV is ported (kernel #3); its
+    # multi-RHS SpMM is not
+    assert torch.equal(as_operator(st)(torch.arange(16.0, dtype=torch.float64)),
+                       torch.arange(16.0, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="item 8"):
         spmm(st, torch.zeros((16, 2)))
     with pytest.raises(NotImplementedError, match="item 8"):

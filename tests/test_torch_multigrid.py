@@ -173,11 +173,33 @@ def test_fused_gate():
     assert not tmg._fused_cheb_ok(h2.levels[0], torch.zeros((63, 63)))  # 2-D runs unfused
 
 
+def _anisotropic(grid, eps=1e-3):
+    """2-D Poisson with the axis-0 coupling scaled by ``eps`` (semicoarsening
+    territory), as a host DIA matrix of the given package."""
+    A = tgen.poisson_system(grid).A
+    data = np.array(A.data)
+    ny, nx = grid
+    for k, off in enumerate(A.offsets):
+        if abs(off) == nx:
+            data[k] *= eps
+    data[A.offsets.index(0)] = 2.0 + 2.0 * eps
+    return data, A.offsets, A.shape
+
+
 def test_unported_branches_raise_naming_the_roadmap():
     s = tgen.poisson_system((15, 15))
     co = tgen.poisson_coarse_operator()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tmg.build_hierarchy(s.A, (15, 15))  # Galerkin
+    # Galerkin where the JAX package semicoarsens: the port raises, never
+    # full-coarsens in its place
+    data, offsets, shape = _anisotropic((31, 63))
+    hj = jmg.build_hierarchy(jfmt.DiaMatrix(data, offsets, shape), (31, 63))
+    assert hj.levels[0].transfer == "semi01"
+    with pytest.raises(NotImplementedError, match="'semi01' transfers .*ROADMAP queue 1 item 9"):
+        tmg.build_hierarchy(tfmt.DiaMatrix(data, offsets, shape), (31, 63))
+    # the (+1, 2, +1) tridiagonal's near-null vector alternates: aggregation
+    assert jmg.build_hierarchy(jgen.tridiagonal_matrix(2047), (2047,)).levels[0].transfer == "agg"
+    with pytest.raises(NotImplementedError, match="'agg' transfers .*ROADMAP queue 1 item 9"):
+        tmg.build_hierarchy(tgen.tridiagonal_matrix(2047), (2047,))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         tmg.build_hierarchy(s.A, (15, 15), smoother="rbgs", coarse_operator=co)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
@@ -193,3 +215,45 @@ def test_unported_branches_raise_naming_the_roadmap():
         )
     with pytest.raises(ValueError, match="unknown smoother"):
         tmg.build_hierarchy(s.A, (15, 15), smoother="sor", coarse_operator=co)
+
+
+def test_stencil_device_put_round_trips():
+    grid = (5, 7, 3)
+    st = tfmt.dia_to_stencil(tgen.diffusion_system(grid).A, grid)
+    d = st.device_put()
+    assert torch.is_tensor(d.data) and d.data.dtype == torch.float64
+    assert np.shares_memory(d.data.numpy(), st.data)  # same dtype on the CPU: no copy
+    assert (d.shifts, d.grid, d.nlegs, d.halo) == (st.shifts, st.grid, st.nlegs, st.halo)
+    f = st.device_put(np.float32)
+    assert f.data.dtype == torch.float32 and f.data.is_contiguous()
+    np.testing.assert_array_equal(f.data.numpy(), st.data.astype(np.float32))
+    b = d.astype(torch.bfloat16)
+    assert b.data.dtype == torch.bfloat16 and b.device_put(torch.float64).data.dtype == torch.float64
+    np.testing.assert_array_equal(st.astype(np.float32).data, f.data.numpy())
+    np.testing.assert_array_equal(f.device_put(np.float64).data.numpy(),
+                                  st.data.astype(np.float32).astype(np.float64))
+
+
+def test_variable_levels_carry_across_and_move_with_the_module():
+    # a Galerkin jump hierarchy, JAX fields -> hierarchy_from_reference ->
+    # equal to the port's own build; the legs are a buffer, so a dtype cast
+    # of the module moves the operator with it
+    grid = (31, 31, 31)
+    sj = jgen.diffusion_system(grid, contrast=1e4)
+    hj = jmg.build_hierarchy(sj.A, grid, dtype=np.float32)
+    levels = [dict(legs=np.asarray(l.A.data), shifts=l.A.shifts, grid=l.grid,
+                   cheb_bounds=l.cheb_bounds, transfer=l.transfer, inv_diag=np.asarray(l.inv_diag))
+              for l in hj.levels]
+    hc = hierarchy_from_reference(levels, np.asarray(hj.coarse_inv), hj.smoother, hj.pre,
+                                  hj.post, hj.omega)
+    ht = tmg.build_hierarchy(tgen.diffusion_system(grid, contrast=1e4).A, grid, dtype=np.float32)
+    for lc, lt in zip(hc.levels, ht.levels):
+        assert isinstance(lc.A, tfmt.StencilMatrix) and lc.A.data.dtype == torch.float32
+        assert lc.A.shifts == lt.A.shifts and lc.cheb_bounds == lt.cheb_bounds
+        assert torch.equal(lc.A.data, lt.A.data) and torch.equal(lc.inv_diag, lt.inv_diag)
+    assert [l.A.nlegs for l in hc.levels] == [7, 27]
+    h64 = hc.to(torch.float64)
+    assert all(l.A.data.dtype == l.inv_diag.dtype == torch.float64 for l in h64.levels)
+    with pytest.raises(ValueError, match="not grid"):
+        hierarchy_from_reference([dict(levels[0], inv_diag=np.asarray(1.0))],
+                                 np.eye(1), "chebyshev", 2, 2, 2 / 3)

@@ -167,8 +167,9 @@ def test_grid_path_with_rediscretized_hierarchy_matches_jax(device_residual):
 
 def test_unported_options_raise():
     s = tgen.poisson_system((31, 31))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        refined_solve(s.A, s.b, grid=(31, 31))  # Galerkin hierarchy build
+    s64 = tgen.poisson_system((64, 64))
+    with pytest.raises(NotImplementedError, match="'hyb' transfers .*ROADMAP queue 1 item 9"):
+        refined_solve(s64.A, s64.b, grid=(64, 64))  # Galerkin on even axes: hybrid transfers
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         refined_solve(s.A, s.b, inner="bicgstab")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
