@@ -5,9 +5,9 @@
 
 Builds the kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together), checks each kernel against its plain PyTorch twin
-on the card, then drives the port's two main paths through their public
-entry points, each with the launch counts set to 0 just before it and read
-just after:
+on the card, then drives the port's paths through their public entry
+points, each with the launch counts set to 0 just before it and read just
+after:
 
 - MGCG: ``poisson_system`` -> ``build_hierarchy`` (rediscretized
   const-stencil levels, Chebyshev pre=2/post=2) -> ``cg_solve`` with the
@@ -29,39 +29,65 @@ just after:
   ||r||_2 < 1e-8, host and device residual.  The counts show the
   variable-coefficient SpMV ran at every level, and on its bf16-leg
   instantiation as often as the iteration counts imply.
+- The multi-RHS grid path: ``cg_solve_multi`` on the 255^3 jump system's DIA
+  (the DIA SpMM at the CG level) with ``as_multi_preconditioner`` over its
+  hierarchy, k = 4, column 0 the system's b (its iteration count must equal
+  the single-RHS solve's); ``api.solve(B, method="mgcg")`` on 63^3 Poisson,
+  card against CPU; ``refined_solve_multi(grid=, matrix_dtype=bf16)`` on the
+  255^3 smooth system, k = 2 (column 0's counts must equal the single-RHS
+  host route's).
+- Kernel #6, the single-call accumulating DIA SpMM: the experiment module
+  ``conjugategradient_tpu_torch.scripts.spmm_acc_experiment`` at its default
+  shape (n = 414,720, band 160, k = 8), counted, and its measurement on the
+  255^3 7-diagonal DIA at k = 4.
 
 Every phase has a bound and any miss, build failure or launch failure ends
 the run with a non-zero exit before the last line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the per-kernel
-record (launches on the main path, worst error against the twin, kernel and
-twin times).  Times come from CUDA events after a warm-up and each is
-printed beside the card's name and power limit.
+record: launches on the main path, worst error against the twin, kernel and
+twin times, the least time the card could take (``bound_ms``: the bytes each
+input read once and each output written once at 3.35 TB/s, or the fp32
+operations at 67 TFLOP/s, whichever is longer; ``bound_by`` says which) and
+the time of one PyTorch call that computes the same function
+(``library_ms``: cuDNN's convolution for the const stencil, cuSPARSE's CSR
+product for the variable stencil and the DIA kernels; none for the
+Chebyshev smoother).  The library calls are yardsticks here and nowhere in
+the port.  Times come from CUDA events after a warm-up and each is printed
+beside the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from conjugategradient_tpu_torch import api
 from conjugategradient_tpu_torch.core import generators, oracle
-from conjugategradient_tpu_torch.core.formats import StencilMatrix, dia_to_stencil, stencil_to_const
+from conjugategradient_tpu_torch.core.formats import (
+    ConstStencilMatrix,
+    DiaMatrix,
+    StencilMatrix,
+    dia_to_stencil,
+    stencil_to_const,
+)
 from conjugategradient_tpu_torch.models.workloads import WORKLOADS
 from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
+from conjugategradient_tpu_torch.ops.card import bound_ms, card_name, dia_nnz, spmm_bytes, time_ms
 from conjugategradient_tpu_torch.ops.cuda_dia import (
     TAGS,
     k_chunks,
+    spmm_dia_acc_cuda,
+    spmm_dia_acc_ref,
     spmm_dia_cuda,
     spmm_dia_ref,
     spmv_dia_cuda,
     spmv_dia_ref,
     spmv_dot_dia_cuda,
-    spmv_dot_dia_ref,
 )
 from conjugategradient_tpu_torch.ops.cuda_stencil import (
     cheb_smooth_const_cuda,
@@ -73,12 +99,15 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
 )
 from conjugategradient_tpu_torch.precond.multigrid import (
     _const_bounds,
+    _fused_cheb_ok,
     as_preconditioner,
     build_hierarchy,
 )
+from conjugategradient_tpu_torch.scripts import spmm_acc_experiment
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
+from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
-from conjugategradient_tpu_torch.solvers.refine import refined_solve
+from conjugategradient_tpu_torch.solvers.refine import refined_solve, refined_solve_multi
 
 #: max |kernel - twin| <= KERNEL_REL * max |twin|: same leg order in fp32
 #: (or bf16 legs with fp32 accumulation), only FMA contraction differs.
@@ -124,6 +153,27 @@ VAR_SMALL = (31, 31, 31)
 VAR_CHECK_GRIDS = [("2-D (25, 19) 5 legs, ragged", (25, 19)), ("2-D 1023^2 5 legs", (1023, 1023)),
                    ("3-D (17, 13, 11) 7 legs", (17, 13, 11))]
 
+#: kernel #6 (single-call accumulating SpMM) against kernel #5: two rounding
+#: orders of the same fp32 sum (groups into partials, or one running sum)
+ACC_VS_SPMM = 1e-6
+#: kernel #6 against the fp64 oracle (the JAX experiment's bound)
+ACC_VS_ORACLE = 1e-5
+#: (label, n, band) of kernel #6's checks; the flagship's n at band 160
+ACC_CASES = [("band 32 n=65536", 65536, 32), ("band 160 n=207402", 207402, 160)]
+#: the multi-RHS grid path: columns of the 255^3 jump MGCG, of the 63^3
+#: facade run, of the 255^3 smooth refined solve
+MULTI_K = 4
+FACADE_GRID = (63, 63, 63)
+REFINE_MULTI_K = 2
+#: kernel #6's two measured shapes: the experiment's default, the 255^3
+#: jump operator as a 7-diagonal DIA (the multi-RHS MGCG's CG level)
+ACC_MAIN = "n=414720 band=160 k=8"
+ACC_DIA7 = f"255^3 7 diagonals k={MULTI_K}"
+#: operations per point of one degree-2 Chebyshev pre-smooth from a zero x0
+#: with the residual (``cheb_smooth_const_ref``): 2 scalings, 2 x updates,
+#: 2 r updates of (7-leg SpMV 14 + scaling 1 + subtract 1), 1 d update of 3
+CHEB2_FLOPS_PER_POINT = 39
+
 KERNELS = {
     "spmv_const_stencil": dict(
         route="cuda", source="conjugategradient_tpu_torch/csrc/stencil.cu",
@@ -144,6 +194,10 @@ KERNELS = {
     "spmv_stencil": dict(
         route="cuda", source="conjugategradient_tpu_torch/csrc/stencil_var.cu",
         replaces="conjugategradient_tpu/ops/pallas_stencil.py:177",
+    ),
+    "spmm_dia_acc": dict(
+        route="cuda", source="conjugategradient_tpu_torch/csrc/dia.cu",
+        replaces="scripts/spmm_acc_experiment.py:64",
     ),
 }
 
@@ -167,18 +221,36 @@ def _max_err(out, ref):
     return err, scale
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean ms per call by CUDA events over ``reps`` calls after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def _cheb_checks(label, A, lo, hi, invd, rand, errs):
+    """Kernel #2 against its twin on ``A``: degrees 1 and 2, from a zero or
+    a given x0, with and without the residual."""
+    b, x0 = rand(A.grid), rand(A.grid)
+    for degree in (1, 2):
+        for xin in (None, x0):
+            for want_resid in (False, True):
+                args = (A, b, xin, degree, hi, lo, invd, want_resid)
+                err, scale = _max_err(cheb_smooth_const_cuda(*args), cheb_smooth_const_ref(*args))
+                torch.cuda.synchronize()
+                tag = (f"cheb {label} degree={degree} x0={'zero' if xin is None else 'given'} "
+                       f"resid={want_resid}")
+                _require(err <= KERNEL_REL * scale, f"{tag}: max err {err:.3e} > {KERNEL_REL}*{scale:.3e}")
+                errs["cheb_smooth_const"] = max(errs["cheb_smooth_const"], err)
+                print(f"cheb_smooth_const {tag}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+
+
+def _cheb_galerkin_checks(dev, rand, errs):
+    """Kernel #2 on the coarse levels of the facade's 63^3 Poisson Galerkin
+    hierarchy (the one ``api.solve(B, method="mgcg")`` builds): 27-leg
+    const-detected stencils, with the level's own bounds and 1/diag."""
+    s = generators.poisson_system(FACADE_GRID, dtype=np.float32)
+    h = build_hierarchy(s.A, FACADE_GRID, dtype=np.float32, device=dev)
+    for lvl in h.levels[1:]:
+        _require(isinstance(lvl.A, ConstStencilMatrix) and lvl.A.nlegs == 27
+                 and _fused_cheb_ok(lvl, torch.empty(lvl.grid, device=dev)),
+                 f"facade {FACADE_GRID} level {lvl.grid}: not a 27-leg fused-smoother level")
+        lo, hi = lvl.cheb_bounds
+        _cheb_checks(f"{lvl.grid} 27-leg Galerkin level of {FACADE_GRID}", lvl.A, lo, hi,
+                     lvl.inv_diag, rand, errs)
 
 
 def _true_rel_residual(A, b, x) -> float:
@@ -267,6 +339,25 @@ def _dia_kernel_checks(cases, dev, errs):
             errs["spmm_dia"] = max(errs["spmm_dia"], worst)
             print(f"spmm_dia {tag} k={SPMM_KS}: max|kernel-twin| {worst:.3e}; "
                   "every column equals the SpMV kernel's")
+
+
+def _spmm_jump_check(sysj, dev, errs):
+    """Kernel #5 at the multi-RHS MGCG's CG level: the 255^3 jump operator
+    as a 7-diagonal fp32 DIA (offsets +-1, +-255, +-65025), k = MULTI_K,
+    against its twin; every column equals the single-RHS kernel's."""
+    A = sysj.A.device_put(torch.float32, dev)
+    X = torch.randn((MULTI_K, A.n), generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    Y, ref = spmm_dia_cuda(A, X), spmm_dia_ref(A, X)
+    torch.cuda.synchronize()
+    err, scale = _max_err(Y, ref)
+    tag = f"spmm_dia {ACC_DIA7} fp32 legs"
+    _require(err <= KERNEL_REL * scale, f"{tag}: max err {err:.3e} > {KERNEL_REL}*{scale:.3e}")
+    same = all(torch.equal(Y[j], spmv_dia_cuda(A, X[j])) for j in range(MULTI_K))
+    _require(same, f"{tag}: a column differs from the single-RHS kernel")
+    errs["spmm_dia"] = max(errs["spmm_dia"], err)
+    print(f"{tag}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e}); every column equals the "
+          "SpMV kernel's")
 
 
 def _small_refine_card_vs_cpu(dev):
@@ -378,29 +469,29 @@ def _dia_times(A_host, dev, card, times):
     for legs in LEG_DTYPES:
         A = A_host.device_put(legs, dev)
         x = xs[torch.float64 if legs == torch.float64 else torch.float32]
-        k_ms = _time_ms(lambda: spmv_dia_cuda(A, x), 200)
-        p_ms = _time_ms(lambda: spmv_dia_ref(A, x), 10)
+        k_ms = time_ms(lambda: spmv_dia_cuda(A, x), 200)
+        p_ms = time_ms(lambda: spmv_dia_ref(A, x), 10)
         gb = (A.data.numel() * A.data.element_size() + 2 * n * x.element_size()) / 1e9
         times[("spmv_dia", TAGS[legs])] = (k_ms, p_ms)
         print(f"time spmv_dia {TAGS[legs]} legs n={n} band=160: kernel {k_ms:.4f} ms "
               f"({gb / (k_ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB), twin {p_ms:.4f} ms [{card}]")
     A = A_host.device_put(torch.float32, dev)
     x = xs[torch.float32]
-    f_ms = _time_ms(lambda: spmv_dot_dia_cuda(A, x), 200)
-    u_ms = _time_ms(lambda: torch.dot(x, spmv_dia_cuda(A, x)), 200)
+    f_ms = time_ms(lambda: spmv_dot_dia_cuda(A, x), 200)
+    u_ms = time_ms(lambda: torch.dot(x, spmv_dia_cuda(A, x)), 200)
     print(f"time spmv_dot_dia fp32 fused: {f_ms:.4f} ms vs unfused SpMV + dot {u_ms:.4f} ms [{card}]")
     for k in (4, 8):
         X = torch.from_numpy(rng.standard_normal((k, n))).to(dev, torch.float32)
-        k_ms = _time_ms(lambda: spmm_dia_cuda(A, X), 100)
-        s_ms = _time_ms(lambda: [spmv_dia_cuda(A, X[j]) for j in range(k)], 100)
-        p_ms = _time_ms(lambda: spmm_dia_ref(A, X), 5)
+        k_ms = time_ms(lambda: spmm_dia_cuda(A, X), 100)
+        s_ms = time_ms(lambda: [spmv_dia_cuda(A, X[j]) for j in range(k)], 100)
+        p_ms = time_ms(lambda: spmm_dia_ref(A, X), 5)
         times[("spmm_dia", k)] = (k_ms, p_ms)
         print(f"time spmm_dia fp32 k={k}: kernel {k_ms:.4f} ms vs {k} single SpMVs {s_ms:.4f} ms, "
               f"twin {p_ms:.4f} ms [{card}]")
     buf = torch.empty(A.data.numel(), dtype=torch.float32, device=dev).normal_()
     gb = buf.numel() * 4 / 1e9
-    r_ms = _time_ms(lambda: buf.sum(), 100)
-    c_ms = _time_ms(lambda: buf.clone(), 100)
+    r_ms = time_ms(lambda: buf.sum(), 100)
+    c_ms = time_ms(lambda: buf.clone(), 100)
     print(f"canary {gb * 1e3:.1f} MB fp32: read (sum) {r_ms:.4f} ms = {gb / (r_ms * 1e-3):.0f} GB/s, "
           f"copy {c_ms:.4f} ms = {2 * gb / (c_ms * 1e-3):.0f} GB/s [{card}]")
 
@@ -464,10 +555,10 @@ def _host_rel_residual(A, b, x) -> float:
     return float(np.linalg.norm(r) / np.linalg.norm(b))
 
 
-def _var_mgcg(sysj, hj, dev, card) -> int:
+def _var_mgcg(sysj, hj, dev, card):
     """``api.solve(method="mgcg")`` on the 255^3 jump system over its
     Galerkin hierarchy, counted (kernel #3 at every level) and then timed in
-    a warm run.  Returns kernel #3's launch count."""
+    a warm run.  Returns kernel #3's launch count and the counted result."""
     kw = dict(method="mgcg", grid=VAR_GRID, tol=TOL, norm="rel_l2", dtype=np.float32, device=dev,
               hierarchy=hj, precise_dot=True)
     torch.cuda.synchronize()
@@ -496,14 +587,15 @@ def _var_mgcg(sysj, hj, dev, card) -> int:
           f"residual {rel:.3e}; spmv_stencil launches {launches} by grid "
           f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }")
     print(f"time {tag} api.solve: counted run {first_ms:.3f} ms, warm run {warm_ms:.3f} ms [{card}]")
-    return launches
+    return launches, res
 
 
 def _var_refine_routes(syss, hs, dev, card) -> int:
     """``refined_solve(grid=, matrix_dtype=bf16)`` on the 255^3 smooth
-    system, host and device residual, each counted and then timed in a
-    second run.  Returns kernel #3's launch count over both counted runs."""
-    total = 0
+    system, host and device residual, each counted, the device route then
+    timed in a second run.  Returns kernel #3's launch count over both
+    counted runs and the host-residual route's result."""
+    total, results = 0, {}
     for label, kw in (("host residual", {}), ("device residual", dict(device_residual=True))):
         solve = lambda: refined_solve(
             syss.A, syss.b, tol=FLAGSHIP_TOL, norm="l2", grid=VAR_GRID,
@@ -536,8 +628,10 @@ def _var_refine_routes(syss, hs, dev, card) -> int:
               f"{[float(f'{v:.4e}') for v in res.history]}, spmv_stencil launches {by_dtype}, "
               f"spmv_dia {dia}")
         _print_route_time(f"{tag} (counted run)", res.timings, card)
-        _print_route_time(f"{tag} (timed run)", solve().timings, card)
-    return total
+        if kw.get("device_residual"):  # the host route's wall is its host residual's: run once
+            _print_route_time(f"{tag} (timed run)", solve().timings, card)
+        results[label] = res
+    return total, results["host residual"]
 
 
 def _var_times(hj, dev, card, times):
@@ -548,12 +642,324 @@ def _var_times(hj, dev, card, times):
         for legs in (torch.float32, torch.bfloat16):
             A = A32.astype(legs)
             x = torch.randn(A.grid, device=dev)
-            k_ms = _time_ms(lambda: spmv_stencil_cuda(A, x), 50)
-            p_ms = _time_ms(lambda: spmv_stencil_ref(A, x), 10)
+            k_ms = time_ms(lambda: spmv_stencil_cuda(A, x), 50)
+            p_ms = time_ms(lambda: spmv_stencil_ref(A, x), 10)
             gb = (A.data.numel() * A.data.element_size() + 2 * x.numel() * 4) / 1e9
             times[("spmv_stencil", label, TAGS[legs])] = (k_ms, p_ms)
             print(f"time spmv_stencil {label} {TAGS[legs]} legs: kernel {k_ms:.4f} ms "
                   f"({gb / (k_ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB), twin {p_ms:.4f} ms [{card}]")
+
+
+def _nan_carved(X):
+    """A copy of ``X`` (k, n) carved out of a NaN-filled buffer, with NaNs
+    planted at both ends of every column: a read past [0, n) or a leg that
+    is not skipped where its neighbour lies outside would leak a NaN where
+    the twin has none."""
+    pad = 4096
+    buf = torch.full((X.numel() + 2 * pad,), float("nan"), device=X.device)
+    Xc = buf[pad : pad + X.numel()].view(X.shape)
+    Xc.copy_(X)
+    Xc[:, 0] = float("nan")
+    Xc[:, -1] = float("nan")
+    return Xc
+
+
+def _acc_kernel_checks(dev, errs):
+    """Kernel #6 against its twin, against kernel #5 and against the fp64
+    oracle (on the legs as the kernel reads them), fp32 and bf16 legs, k in
+    SPMM_KS, then on a NaN-planted X: equal NaN patterns, the rows the band
+    does not reach finite."""
+    rng = np.random.default_rng(SEED + 2)
+    for label, n, band in ACC_CASES:
+        A_host = generators.banded_sin_matrix(n, band)
+        for legs in (torch.float32, torch.bfloat16):
+            A = A_host.device_put(legs, dev)
+            A64 = DiaMatrix(A.data.double().cpu().numpy(), A.offsets, A.shape)
+            tag = f"spmm_dia_acc {label} {TAGS[legs]} legs"
+            worst = worst5 = worst_o = 0.0
+            for k in SPMM_KS:
+                X = torch.from_numpy(rng.standard_normal((k, n))).to(dev, torch.float32)
+                Y, ref, Y5 = spmm_dia_acc_cuda(A, X), spmm_dia_acc_ref(A, X), spmm_dia_cuda(A, X)
+                torch.cuda.synchronize()
+                err, scale = _max_err(Y, ref)
+                _require(err <= KERNEL_REL * scale, f"{tag} k={k}: max err {err:.3e} > {KERNEL_REL}*{scale:.3e}")
+                e5, s5 = _max_err(Y, Y5)
+                _require(e5 <= ACC_VS_SPMM * s5,
+                         f"{tag} k={k}: vs spmm_dia {e5:.3e} > {ACC_VS_SPMM}*{s5:.3e}")
+                Yh, Xh = Y.cpu().numpy(), X.cpu().double().numpy()
+                for j in range(k):
+                    yo = oracle.spmv(A64, Xh[j])
+                    eo = float(np.abs(Yh[j] - yo).max() / np.abs(yo).max())
+                    _require(eo <= ACC_VS_ORACLE, f"{tag} k={k} column {j}: vs fp64 oracle {eo:.3e}")
+                    worst_o = max(worst_o, eo)
+                worst, worst5 = max(worst, err), max(worst5, e5 / s5)
+            Xc = _nan_carved(torch.from_numpy(rng.standard_normal((3, n))).to(dev, torch.float32))
+            Y, ref = spmm_dia_acc_cuda(A, Xc), spmm_dia_acc_ref(A, Xc)
+            torch.cuda.synchronize()
+            nan = torch.isnan(ref)
+            _require(torch.equal(torch.isnan(Y), nan) and 0 < int(nan.sum()) < nan.numel(),
+                     f"{tag}: NaN pattern differs from the twin's (or is all or nothing)")
+            err, scale = _max_err(Y[~nan], ref[~nan])
+            _require(err <= KERNEL_REL * scale, f"{tag} NaN-planted: max err {err:.3e}")
+            errs["spmm_dia_acc"] = max(errs["spmm_dia_acc"], worst, err)
+            print(f"{tag} k={SPMM_KS}: max|kernel-twin| {worst:.3e}, vs spmm_dia {worst5:.3e} of "
+                  f"max|Y|, vs fp64 oracle {worst_o:.3e}; NaN-planted X: {int(nan.sum())} NaN "
+                  "entries, the same as the twin's")
+
+
+def _acc_experiment(sysj, dev):
+    """The experiment at its default shape, counted: the path of kernel #6.
+    Then its measurement on the 255^3 7-diagonal DIA at k = MULTI_K.
+    Returns kernel #6's launch count in the counted run and the two records
+    (kernels #6 and #5 timed at each shape), keyed as ``_acc_times``."""
+    torch.cuda.synchronize()
+    cuda_dia.reset_launch_counts()
+    rec = spmm_acc_experiment.run()
+    torch.cuda.synchronize()
+    launches, by_dtype = spmm_dia_acc_cuda.launches, dict(spmm_dia_acc_cuda.launches_by_dtype)
+    _require(rec["max_rel_err"] < ACC_VS_ORACLE, f"spmm_acc_experiment: {rec}")
+    _require(launches > 0, "spmm_acc_experiment: no spmm_dia_acc launch")
+    rec7 = spmm_acc_experiment.measure(sysj.A, MULTI_K, dev)
+    _require(rec7["max_rel_err"] < ACC_VS_ORACLE, f"spmm_acc_experiment 255^3: {rec7}")
+    print(f"spmm_acc_experiment on the 255^3 7-diagonal DIA: {json.dumps(rec7)}")
+    print(f"spmm_acc_experiment default shape (counted): spmm_dia_acc launches {launches} {by_dtype}")
+    return launches, {ACC_MAIN: rec, ACC_DIA7: rec7}
+
+
+def _counts():
+    """The launch counts of kernels #1, #2, #3 and #5."""
+    return {"spmv_const_stencil": spmv_const_stencil_cuda.launches,
+            "cheb_smooth_const": cheb_smooth_const_cuda.launches,
+            "spmv_stencil": spmv_stencil_cuda.launches, "spmm_dia": spmm_dia_cuda.launches}
+
+
+def _reset_counts():
+    torch.cuda.synchronize()
+    cuda_stencil.reset_launch_counts()
+    cuda_dia.reset_launch_counts()
+
+
+def _device_time_top(fn, wall_ms: float, card, top: int = 6):
+    """Run ``fn`` once under ``torch.profiler`` and print the device time by
+    kernel name (the ``top`` largest) beside the profiled wall, and the
+    device's busy share of ``wall_ms``, the same work's unprofiled wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    # device events only: a CPU op's self device time repeats its kernels'
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
+                  reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    print(f"profile: profiled wall {prof_ms:.3f} ms, device time {total_ms:.3f} ms in "
+          f"{sum(r[1] for r in rows)} device ops, device busy {total_ms / wall_ms:.1%} of the "
+          f"unprofiled wall {wall_ms:.3f} ms; top: "
+          f"{[(k[:60], round(us / 1e3, 3), n) for us, n, k in rows[:top]]} [{card}]")
+
+
+def _multi_mgcg(sysj, hj, single, dev, card):
+    """Multi-RHS MGCG on the 255^3 jump system: ``cg_solve_multi`` on its
+    fp32 DIA (kernel #5 at the CG level) with ``as_multi_preconditioner``
+    over its hierarchy (kernel #3 per column at every level), k = MULTI_K,
+    column 0 the system's b; counted, then the whole solve profiled.  Column 0 must take the single-RHS solve's
+    iterations and agree with its solution.  Returns the launch counts."""
+    rng = np.random.default_rng(SEED)
+    B = np.column_stack([sysj.b] + [rng.standard_normal(sysj.n) for _ in range(MULTI_K - 1)])
+    A_dev = sysj.A.device_put(torch.float32, dev)
+    B_dev = torch.from_numpy(B).to(dev, torch.float32)
+    M = as_multi_preconditioner(hj)
+    policy = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = cg_solve_multi(A_dev, B_dev, policy=policy, M=M)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    by_grid = dict(spmv_stencil_cuda.launches_by_grid)
+    its = res.iterations.tolist()
+    tag = f"multi-RHS MGCG jump {VAR_GRID} k={MULTI_K}"
+    _require(bool(res.converged.all()), f"{tag}: converged {res.converged.tolist()}, its {its}")
+    _require(its[0] == single.iterations,
+             f"{tag}: column 0 took {its[0]} iterations, the single-RHS solve {single.iterations}")
+    _require(tuple(res.x.shape) == B.shape and bool(torch.isfinite(res.x).all()), f"{tag}: bad X")
+    X = res.x.cpu().numpy()
+    rels = [_host_rel_residual(sysj.A, B[:, j], X[:, j]) for j in range(MULTI_K)]
+    _require(max(rels) <= TRUE_REL, f"{tag}: true fp64 relative residuals {rels} > {TRUE_REL}")
+    x1 = single.x.cpu().numpy()
+    dx = float(np.abs(X[:, 0] - x1).max() / np.abs(x1).max())
+    _require(dx <= SMALL_AGREE, f"{tag}: column 0 differs from the single-RHS solution by {dx:.3e}")
+    for lvl in hj.levels:
+        _require(by_grid.get(lvl.grid, 0) > 0, f"{tag}: no kernel #3 launch at level {lvl.grid}")
+    _require(counts["spmm_dia"] == max(its) + 1,
+             f"{tag}: spmm_dia launches {counts['spmm_dia']} != iterations + 1 ({max(its) + 1})")
+    print(f"{tag}: iterations per column {its} (single-RHS {single.iterations}), true fp64 rel "
+          f"residuals {[float(f'{r:.3e}') for r in rels]}, column 0 vs single-RHS {dx:.3e}; "
+          f"launches {counts}, kernel #3 by grid "
+          f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }")
+    print(f"time {tag}: counted run {wall_ms:.3f} ms [{card}]")
+    _device_time_top(lambda: cg_solve_multi(A_dev, B_dev, policy=policy, M=M), wall_ms, card)
+    return counts
+
+
+def _facade_multi_mgcg(dev, card):
+    """``api.solve(B, method="mgcg")`` on 63^3 Poisson (Galerkin levels that
+    const-detect: the fused smoother, kernel #2, per column, with its own
+    residual, so kernel #1 stays idle; #5 at the CG level),
+    k = MULTI_K, on the card (counted) and on the CPU: equal per-column
+    iterations."""
+    s = generators.poisson_system(FACADE_GRID, dtype=np.float32)
+    rng = np.random.default_rng(SEED + 3)
+    B = np.column_stack([s.b] + [rng.standard_normal(s.n) for _ in range(MULTI_K - 1)])
+    kw = dict(method="mgcg", grid=FACADE_GRID, tol=TOL, norm="rel_l2", dtype=np.float32)
+    _reset_counts()
+    t0 = time.perf_counter()
+    g = api.solve(s.A, B, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    c = api.solve(s.A, B, device="cpu", **kw)
+    tag = f"facade multi-RHS mgcg Poisson {FACADE_GRID} k={MULTI_K}"
+    _require(bool(g.converged.all()) and bool(c.converged.all()),
+             f"{tag}: card {g.converged.tolist()}, CPU {c.converged.tolist()}")
+    _require(g.iterations.tolist() == c.iterations.tolist(),
+             f"{tag}: iterations {g.iterations.tolist()} on the card vs {c.iterations.tolist()} on the CPU")
+    dx = float((g.x.cpu() - c.x).abs().max() / c.x.abs().max())
+    _require(dx <= SMALL_AGREE, f"{tag}: card vs CPU solution differs by {dx:.3e}")
+    for name in ("cheb_smooth_const", "spmm_dia"):  # the fused smoother leaves #1 idle
+        _require(counts[name] > 0, f"{tag}: no {name} launch ({counts})")
+    print(f"{tag}: card {g.iterations.tolist()} its, CPU {c.iterations.tolist()} its, max rel diff "
+          f"{dx:.3e}; launches {counts}")
+    print(f"time {tag} api.solve (card, hierarchy setup included): {wall_ms:.3f} ms [{card}]")
+    return counts
+
+
+def _refine_multi(syss, hs, single, dev, card):
+    """``refined_solve_multi(grid=, hierarchy=, matrix_dtype=bf16)`` on the
+    255^3 smooth system, k = REFINE_MULTI_K, column 0 its b, counted: every
+    column reaches ||r||_2 < 1e-8, and column 0's outer passes and inner
+    iterations equal the single-RHS host route's."""
+    rng = np.random.default_rng(SEED + 4)
+    B = np.column_stack([syss.b] + [rng.standard_normal(syss.n) for _ in range(REFINE_MULTI_K - 1)])
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = refined_solve_multi(syss.A, B, tol=FLAGSHIP_TOL, norm="l2", grid=VAR_GRID,
+                              inner_tol=FLAGSHIP_INNER_TOL, matrix_dtype=torch.bfloat16,
+                              hierarchy=hs, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    by_dtype = dict(spmv_stencil_cuda.launches_by_dtype)
+    tag = f"refined multi-RHS smooth {VAR_GRID} bf16 legs k={REFINE_MULTI_K}"
+    _require(bool(res.converged.all()), f"{tag}: converged {res.converged}, history {res.history}")
+    _require(res.x.shape == B.shape and bool(np.isfinite(res.x).all()), f"{tag}: bad X")
+    r_true = [float(np.linalg.norm(B[:, j] - oracle.spmv(syss.A, res.x[:, j])))
+              for j in range(REFINE_MULTI_K)]
+    _require(max(r_true) < FLAGSHIP_TOL, f"{tag}: true fp64 ||r||_2 {r_true} >= {FLAGSHIP_TOL}")
+    outer0 = next(p for p, h in enumerate(res.history) if h[0] < FLAGSHIP_TOL)
+    inner0 = int(res.inner_iterations[0])
+    _require((outer0, inner0) == (single.outer_iterations, single.inner_iterations),
+             f"{tag}: column 0 took {outer0} outer / {inner0} inner, the single-RHS host route "
+             f"{single.outer_iterations} / {single.inner_iterations}")
+    _require(by_dtype.get("bf16", 0) > 0, f"{tag}: no bf16-leg kernel #3 launch ({by_dtype})")
+    print(f"{tag}: converged in {res.outer_iterations} outer passes, inner iterations per column "
+          f"{res.inner_iterations.tolist()}, column 0 {outer0} outer / {inner0} inner (single-RHS "
+          f"{single.outer_iterations} / {single.inner_iterations}), true fp64 ||r||_2 "
+          f"{[float(f'{r:.3e}') for r in r_true]}; spmv_stencil launches {by_dtype}")
+    print(f"time {tag}: wall {wall_s * 1e3:.3f} ms [{card}]")
+    return _counts()
+
+
+def _csr(A):
+    """A device DIA matrix as a CSR tensor with int32 indices, built on the
+    card: each row's in-range entries, offsets ascending."""
+    n = A.n
+    order = sorted(range(A.ndiags), key=lambda k: A.offsets[k])
+    offs = torch.tensor([A.offsets[k] for k in order], device=A.data.device)
+    cols = torch.arange(n, device=offs.device)[:, None] + offs[None, :]
+    keep = (cols >= 0) & (cols < n)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=offs.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    vals = A.data[order].T[keep]
+    return torch.sparse_csr_tensor(crow.int(), cols[keep].int(), vals, size=(n, n),
+                                   check_invariants=False)
+
+
+def _library(name, lib_fn, kernel_out, card, reps):
+    """Time one PyTorch call (the yardstick) after checking that it computes
+    what the kernel computed."""
+    err, scale = _max_err(lib_fn(), kernel_out)
+    _require(err <= KERNEL_REL * scale, f"library call for {name}: max err {err:.3e} vs the kernel")
+    ms = time_ms(lib_fn, reps)
+    print(f"time library call for {name}: {ms:.4f} ms (max|library-kernel| {err:.3e}) [{card}]")
+    return ms
+
+
+def _library_and_bounds(ops, fsys, sysj, hj, dev, card):
+    """For the main shape of kernels #1-#5: the library call's time and the
+    bound.  #1 at 255^3 (cuDNN ``conv3d``), #2 degree-2 pre-smooth at 255^3
+    (no library call), #3 the 255^3 jump fine level (cuSPARSE CSR SpMV), #4
+    band 160 fp32 (CSR SpMV), #5 band 160 k = 4 (CSR SpMM)."""
+    lib, bounds = {}, {}
+    A1 = ops[GRID_3D]
+    n3 = int(np.prod(GRID_3D))
+    x = torch.randn(GRID_3D, device=dev)
+    w = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    for c, s in zip(A1.coeffs, A1.shifts):
+        w[(0, 0) + tuple(1 + d for d in s)] = c
+    lib["spmv_const_stencil"] = _library(
+        "spmv_const_stencil 255^3", lambda: F.conv3d(x[None, None], w, padding=1)[0, 0],
+        spmv_const_stencil_cuda(A1, x), card, 50)
+    bounds["spmv_const_stencil"] = bound_ms(2 * n3 * 4, 2 * A1.nlegs * n3)
+    lib["cheb_smooth_const"] = None
+    bounds["cheb_smooth_const"] = bound_ms(3 * n3 * 4, CHEB2_FLOPS_PER_POINT * n3)
+    A3 = hj.levels[0].A
+    csr = _csr(sysj.A.device_put(torch.float32, dev))
+    lib["spmv_stencil"] = _library("spmv_stencil 255^3 7 legs fp32", lambda: csr @ x.reshape(-1),
+                                   spmv_stencil_cuda(A3, x).reshape(-1), card, 50)
+    bounds["spmv_stencil"] = bound_ms(A3.nnz * 4 + 2 * n3 * 4, 2 * A3.nnz)
+    del csr
+    A = fsys.A.device_put(torch.float32, dev)
+    nnz = dia_nnz(A)
+    csr = _csr(A)
+    xf = torch.randn(A.n, device=dev)
+    lib["spmv_dia"] = _library("spmv_dia band 160 fp32", lambda: csr @ xf, spmv_dia_cuda(A, xf),
+                               card, 200)
+    bounds["spmv_dia"] = bound_ms(spmm_bytes(A, 1), 2 * nnz)
+    X = torch.randn((4, A.n), device=dev)
+    Xn = X.T.contiguous()
+    lib["spmm_dia"] = _library("spmm_dia band 160 fp32 k=4", lambda: csr @ Xn,
+                               spmm_dia_cuda(A, X).T, card, 100)
+    bounds["spmm_dia"] = bound_ms(spmm_bytes(A, 4), 2 * 4 * nnz)
+    return lib, bounds
+
+
+def _acc_times(sysj, recs, dev, card, times, lib, bounds):
+    """Kernel #6 against its twin and cuSPARSE's CSR SpMM at the
+    experiment's shape (n = 414,720, band 160, k = 8; the record's main
+    shape) and on the 255^3 7-diagonal DIA at k = MULTI_K, beside the
+    experiment's own times of kernels #6 and #5 at each shape (``recs``)."""
+    cases = ((ACC_MAIN, generators.banded_sin_matrix(414_720, 160, np.float32), 8),
+             (ACC_DIA7, sysj.A, MULTI_K))
+    for label, A_host, k in cases:
+        A = A_host.device_put(torch.float32, dev)
+        X = torch.randn((k, A.n), device=dev)
+        Xn = X.T.contiguous()
+        csr = _csr(A)
+        acc_ms, spmm_ms = recs[label]["single_call_us"] / 1e3, recs[label]["chained_us"] / 1e3
+        p_ms = time_ms(lambda: spmm_dia_acc_ref(A, X), 3)
+        csr_ms = _library(f"spmm_dia_acc {label}", lambda: csr @ Xn, spmm_dia_acc_cuda(A, X).T,
+                          card, 100)
+        bound = bound_ms(spmm_bytes(A, k), 2 * k * dia_nnz(A))
+        times[("spmm_dia_acc", label)] = (acc_ms, p_ms)
+        print(f"time spmm_dia_acc {label}: kernel #6 {acc_ms:.4f} ms, kernel #5 {spmm_ms:.4f} ms "
+              f"(the experiment's record), CSR SpMM {csr_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({spmm_bytes(A, k) / 1e6:.1f} MB) [{card}]")
+        if label == ACC_MAIN:
+            lib["spmm_dia_acc"], bounds["spmm_dia_acc"] = csr_ms, bound
+        del A, X, Xn, csr
 
 
 def main() -> int:
@@ -568,11 +974,7 @@ def main() -> int:
 
     # -- phase 1: device ---------------------------------------------------
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(card)
 
@@ -606,18 +1008,8 @@ def main() -> int:
         ops[g] = A
         lo, hi = _const_bounds(A)
         invd = torch.tensor(1.0 / A.coeffs[A.shifts.index((0, 0, 0))], device=dev)
-        b, x0 = rand(g), rand(g)
-        for degree in (1, 2):
-            for xin in (None, x0):
-                for want_resid in (False, True):
-                    args = (A, b, xin, degree, hi, lo, invd, want_resid)
-                    err, scale = _max_err(cheb_smooth_const_cuda(*args), cheb_smooth_const_ref(*args))
-                    torch.cuda.synchronize()
-                    tag = (f"cheb {g} degree={degree} x0={'zero' if xin is None else 'given'} "
-                           f"resid={want_resid}")
-                    _require(err <= KERNEL_REL * scale, f"{tag}: max err {err:.3e} > {KERNEL_REL}*{scale:.3e}")
-                    errs["cheb_smooth_const"] = max(errs["cheb_smooth_const"], err)
-                    print(f"cheb_smooth_const {tag}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+        _cheb_checks(f"{g}", A, lo, hi, invd, rand, errs)
+    _cheb_galerkin_checks(dev, rand, errs)
 
     # small solves on the card agree with the same solves on the CPU (twins)
     for g in SMALL_GRIDS:
@@ -640,6 +1032,7 @@ def main() -> int:
     print(f"flagship system {FLAGSHIP}: n {fsys.n}, {fsys.A.ndiags} diagonals, "
           f"built in {time.perf_counter() - t0:.3f} s")
     _dia_kernel_checks(_dia_cases(fsys.A), dev, errs)
+    _acc_kernel_checks(dev, errs)
     _small_refine_card_vs_cpu(dev)
 
     # kernel #3 (three instantiations) vs its twin: small diffusion
@@ -653,6 +1046,7 @@ def main() -> int:
               ("127^3 27-leg Galerkin level (jump)", hj.levels[1].A)]
     _var_kernel_checks(cases, dev, errs)
     del cases
+    _spmm_jump_check(sysj, dev, errs)
     _small_var_mgcg_card_vs_cpu(dev)
 
     # -- phases 3-4: the main path, counted ---------------------------------
@@ -703,10 +1097,21 @@ def main() -> int:
     launches["spmm_dia"] = multi_spmm
 
     # -- the variable-coefficient path, counted: jump MGCG, smooth refined ---
-    launches["spmv_stencil"] = _var_mgcg(sysj, hj, dev, card)
+    launches["spmv_stencil"], single_jump = _var_mgcg(sysj, hj, dev, card)
     syss, hs = _var_hierarchy("smooth", dev)
-    launches["spmv_stencil"] += _var_refine_routes(syss, hs, dev, card)
+    var_refine, single_smooth = _var_refine_routes(syss, hs, dev, card)
+    launches["spmv_stencil"] += var_refine
+
+    # -- the multi-RHS grid path, counted: 255^3 jump MGCG (reusing its
+    # hierarchy), the 63^3 facade, the 255^3 smooth refined solve ------------
+    for counts in (_multi_mgcg(sysj, hj, single_jump, dev, card), _facade_multi_mgcg(dev, card),
+                   _refine_multi(syss, hs, single_smooth, dev, card)):
+        for name, count in counts.items():
+            launches[name] += count
     del syss, hs
+
+    # -- kernel #6's path, counted: the experiment at its default shape ------
+    launches["spmm_dia_acc"], acc_recs = _acc_experiment(sysj, dev)
 
     # -- phase 6: times -----------------------------------------------------
     times = {}
@@ -714,8 +1119,8 @@ def main() -> int:
         A = ops[g]
         x = rand(g)
         reps = 200 if np.prod(g) < 2e6 else 50
-        k_ms = _time_ms(lambda: spmv_const_stencil_cuda(A, x), reps)
-        p_ms = _time_ms(lambda: spmv_const_stencil_ref(A, x), reps)
+        k_ms = time_ms(lambda: spmv_const_stencil_cuda(A, x), reps)
+        p_ms = time_ms(lambda: spmv_const_stencil_ref(A, x), reps)
         times[("spmv_const_stencil", g)] = (k_ms, p_ms)
         print(f"time spmv_const_stencil {g}: kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms [{card}]")
     for g in TIME_CHEB_GRIDS:
@@ -727,28 +1132,34 @@ def main() -> int:
         for label, xin, want_resid in (("pre: zero x0 + resid", None, True),
                                        ("post: given x0", x0, False)):
             args = (A, b, xin, 2, hi, lo, invd, want_resid)
-            k_ms = _time_ms(lambda: cheb_smooth_const_cuda(*args), reps)
-            p_ms = _time_ms(lambda: cheb_smooth_const_ref(*args), reps)
+            k_ms = time_ms(lambda: cheb_smooth_const_cuda(*args), reps)
+            p_ms = time_ms(lambda: cheb_smooth_const_ref(*args), reps)
             times[("cheb_smooth_const", g, label)] = (k_ms, p_ms)
             print(f"time cheb_smooth_const {g} degree 2 {label}: kernel {k_ms:.4f} ms, "
                   f"twin {p_ms:.4f} ms [{card}]")
     for tag, fn in (("MGCG 2-D", solve2), ("MGCG 3-D", solve3), ("plain CG 2-D", plain)):
-        ms = _time_ms(fn, 3)
+        ms = time_ms(fn, 3)
         print(f"time {tag} solve: {ms:.3f} ms [{card}]")
     _dia_times(fsys.A, dev, card, times)
     _var_times(hj, dev, card, times)
+    lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card)
+    _acc_times(sysj, acc_recs, dev, card, times, lib, bounds)
 
     # -- record -------------------------------------------------------------
     main_shape = {"spmv_const_stencil": ("spmv_const_stencil", GRID_3D),
                   "cheb_smooth_const": ("cheb_smooth_const", GRID_3D, "pre: zero x0 + resid"),
                   "spmv_dia": ("spmv_dia", "fp32"),
                   "spmm_dia": ("spmm_dia", 4),
-                  "spmv_stencil": ("spmv_stencil", "255^3 7 legs", "fp32")}
+                  "spmv_stencil": ("spmv_stencil", "255^3 7 legs", "fp32"),
+                  "spmm_dia_acc": ("spmm_dia_acc", ACC_MAIN)}
     record = [
         dict(name=name, **meta, launches=launches[name], max_abs_err=errs[name],
-             ms=times[main_shape[name]][0], plain_ms=times[main_shape[name]][1])
+             ms=times[main_shape[name]][0], plain_ms=times[main_shape[name]][1],
+             bound_ms=bounds[name][0], bound_by=bounds[name][1], library_ms=lib[name])
         for name, meta in KERNELS.items()
     ]
+    for r in record:
+        _require(r["launches"] > 0, f"{r['name']}: no launch on its path")
     print(f"run: {time.perf_counter() - t_run:.1f} s after the build")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

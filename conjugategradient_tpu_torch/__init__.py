@@ -10,17 +10,21 @@ reference's, so each counterpart is found by path:
                 diffusion generators and the fp64 oracle (SpMV and CG).
 - ``ops``     — BLAS-1, compensated dots, and the CUDA kernels with their
                 plain twins: the const-stencil SpMV, the fused Chebyshev
-                smoother, the variable-coefficient stencil SpMV, the DIA
-                SpMV (and its fused p·Ap) and the DIA SpMM.
-- ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG,
-                mixed-precision iterative refinement (the flagship path) and
-                the setup-time spectral bounds.
+                smoother, the variable-coefficient stencil SpMV (and its
+                per-column SpMM), the DIA SpMV (and its fused p·Ap), the
+                DIA SpMM and its single-call accumulating form.
+- ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG and
+                its multigrid preconditioner, mixed-precision iterative
+                refinement (the flagship path) and the setup-time spectral
+                bounds.
 - ``precond`` — smoothers, fw transfers and the geometric-multigrid
                 hierarchy (Galerkin or rediscretized) and V-cycle (MGCG).
 - ``models``  — the named workloads of the reference's drivers.
 - ``api``     — ``solve(A, b, method=...)`` for the ported methods.
 - ``convert`` — carries a hierarchy or a DIA matrix across from the
                 reference's fields.
+- ``scripts`` — runnable measurements on the card (the kernel #6
+                experiment).
 
 This package imports ``torch``, numpy and scipy, never ``jax``.  See
 ROADMAP.md for what is ported and what is still to come.

@@ -11,7 +11,9 @@ The port of ``conjugategradient_tpu/api.py::solve`` for the ported methods:
 - ``method="oracle"``  — the fp64 numpy CPU oracle
 
 An ``(n, k)`` right-hand side routes to the multi-RHS solvers: ``cg``
-(``cg_solve_multi``, kernel #5) and ``refined`` (``refined_solve_multi``).
+(``cg_solve_multi``, kernel #5), ``mgcg`` (``cg_solve_multi`` on the DIA
+SpMM with ``as_multi_preconditioner`` over the Galerkin hierarchy) and
+``refined`` (``refined_solve_multi``, with or without ``grid``).
 Every other method of the JAX facade raises ``NotImplementedError`` naming
 the ROADMAP item that ports it; nothing is rerouted.
 
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from conjugategradient_tpu_torch.core import oracle
-from conjugategradient_tpu_torch.core.formats import DiaMatrix, torch_dtype
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, torch_dtype
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 _PRECONDITIONERS = "ROADMAP queue 1 item 9 (the rest of the hierarchy and the preconditioners)"
@@ -55,12 +57,6 @@ def _refuse(method: str):
             f"method={method!r}: preconditioner prefixes are not ported yet ({_PRECONDITIONERS})"
         )
     raise ValueError(f"unknown method {method!r}")
-
-
-def _default_device(device):
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def _place(a, dtype, device) -> torch.Tensor:
@@ -90,7 +86,7 @@ def solve(
     )
     if "mesh" in kw or "axes" in kw:
         raise NotImplementedError(f"mesh-distributed solves are not ported yet ({_PARALLEL})")
-    device = _default_device(device)
+    device = default_device(device)
     if np.ndim(b) == 2:
         return _solve_multi(A, b, x0, method, policy, grid, dtype, device, **kw)
     if method == "oracle":
@@ -124,7 +120,8 @@ def solve(
 
 
 def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
-    """Multi-RHS routing: ``cg`` and ``refined`` over (n, k) blocks."""
+    """Multi-RHS routing: ``cg``, ``mgcg`` and ``refined`` over (n, k)
+    blocks."""
     if method == "refined":
         if not isinstance(A, DiaMatrix):
             raise TypeError("refined solve requires a DiaMatrix")
@@ -132,16 +129,21 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
 
         return refined_solve_multi(A, B, X0, tol=policy.tol, norm=policy.norm, grid=grid,
                                    device=device, **kw)
-    if method == "mgcg":
-        raise NotImplementedError(
-            "multi-RHS mgcg needs as_multi_preconditioner, not ported yet "
-            "(ROADMAP queue 1 item 8)"
-        )
-    if method != "cg":
+    if method not in ("cg", "mgcg"):
         _refuse(method)
-    from conjugategradient_tpu_torch.solvers.multi import cg_solve_multi
+    from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
 
     B_dev = _place(B, dtype, device)
     X0_dev = None if X0 is None else _place(X0, dtype, device)
+    M = None
+    if method == "mgcg":
+        if grid is None:
+            raise ValueError("mgcg requires grid=")
+        if not isinstance(A, DiaMatrix):
+            raise TypeError("mgcg requires a DiaMatrix")
+        from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy
+
+        np_dtype = torch.empty(0, dtype=B_dev.dtype).numpy().dtype
+        M = as_multi_preconditioner(build_hierarchy(A, grid, dtype=np_dtype, device=device))
     A_dev = A.device_put(dtype, device) if isinstance(A, DiaMatrix) else A
-    return cg_solve_multi(A_dev, B_dev, X0_dev, policy, **kw)
+    return cg_solve_multi(A_dev, B_dev, X0_dev, policy, M=M, **kw)

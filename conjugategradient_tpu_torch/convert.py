@@ -14,7 +14,12 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, DiaMatrix, StencilMatrix
+from conjugategradient_tpu_torch.core.formats import (
+    ConstStencilMatrix,
+    DiaMatrix,
+    StencilMatrix,
+    default_device,
+)
 from conjugategradient_tpu_torch.precond.multigrid import MgHierarchy, MgLevel
 
 
@@ -25,7 +30,7 @@ def hierarchy_from_reference(
     pre: int,
     post: int,
     omega: float,
-    device="cpu",
+    device=None,
 ) -> MgHierarchy:
     """The port's ``MgHierarchy`` from a JAX ``MgHierarchy``'s fields.
 
@@ -34,7 +39,8 @@ def hierarchy_from_reference(
     const-stencil level, scalar ``inv_diag``) or ``legs`` (a
     variable-coefficient level: a ``(nlegs, *grid)`` array and a
     grid-shaped ``inv_diag``); ``coarse_inv`` is the dense coarsest inverse.
-    Only fw transfers are carried.
+    Only fw transfers are carried.  ``device=None`` places it on the card
+    when there is one.
     """
     out = []
     for lv in levels:
@@ -60,7 +66,7 @@ def hierarchy_from_reference(
         )
     h = MgHierarchy(out, torch.from_numpy(np.array(coarse_inv)), smoother, int(pre),
                     int(post), float(omega))
-    return h.to(device)
+    return h.to(default_device(device))
 
 
 def dia_from_reference(A_ref) -> DiaMatrix:

@@ -6,7 +6,8 @@ ported slices need: ``DiaMatrix``, ``StencilMatrix`` and
 frozen dataclasses over numpy arrays: setup stays on the host.
 ``DiaMatrix.device_put`` and ``StencilMatrix.device_put`` give the
 device-resident operators (their ``data`` a torch tensor, as the JAX
-package's holds a ``jnp`` array);
+package's holds a ``jnp`` array), on the card by default
+(``default_device``);
 ``ConstStencilMatrix`` has no array data at all (its coefficients, shifts and
 grid are static Python values that the CUDA kernels take by value).
 
@@ -57,16 +58,34 @@ class DiaMatrix:
     def astype(self, dtype) -> "DiaMatrix":
         return DiaMatrix(self.data.astype(dtype), self.offsets, self.shape)
 
-    def device_put(self, dtype=None, device="cpu") -> "DiaMatrix":
+    def device_put(self, dtype=None, device=None) -> "DiaMatrix":
         """A ``DiaMatrix`` whose ``data`` is a contiguous torch tensor on
-        ``device``, cast to ``dtype`` (a numpy or torch dtype, e.g.
+        ``device`` (``None``: the card when there is one, see
+        ``default_device``), cast to ``dtype`` (a numpy or torch dtype, e.g.
         ``torch.bfloat16`` for a half-width matrix stream).  Same dtype on
         the CPU shares memory with the numpy array."""
-        import torch
+        return DiaMatrix(_put(self.data, dtype, device), self.offsets, self.shape)
 
-        data = self.data if torch.is_tensor(self.data) else torch.from_numpy(np.asarray(self.data))
-        dt = data.dtype if dtype is None else torch_dtype(dtype)
-        return DiaMatrix(data.to(device=device, dtype=dt).contiguous(), self.offsets, self.shape)
+
+def default_device(device=None):
+    """``device`` as a ``torch.device``; ``None`` takes the card when there
+    is one, as the JAX package places on its default backend.  Every entry
+    point of the port that takes ``device`` resolves it here."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _put(data, dtype, device):
+    """Host numpy (or torch) ``data`` as a contiguous tensor on ``device``
+    in ``dtype`` (``None``: keep it)."""
+    import torch
+
+    t = data if torch.is_tensor(data) else torch.from_numpy(np.asarray(data))
+    dt = t.dtype if dtype is None else torch_dtype(dtype)
+    return t.to(device=default_device(device), dtype=dt).contiguous()
 
 
 def torch_dtype(dtype):
@@ -141,16 +160,12 @@ class StencilMatrix:
             return StencilMatrix(self.data.to(torch_dtype(dtype)).contiguous(), self.shifts, self.grid)
         return StencilMatrix(np.asarray(self.data).astype(dtype), self.shifts, self.grid)
 
-    def device_put(self, dtype=None, device="cpu") -> "StencilMatrix":
+    def device_put(self, dtype=None, device=None) -> "StencilMatrix":
         """A ``StencilMatrix`` whose legs are a contiguous torch tensor on
         ``device``, cast to ``dtype`` (a numpy or torch dtype), as
         ``DiaMatrix.device_put``.  Same dtype on the CPU shares memory with
         the numpy array."""
-        import torch
-
-        data = self.data if torch.is_tensor(self.data) else torch.from_numpy(np.asarray(self.data))
-        dt = data.dtype if dtype is None else torch_dtype(dtype)
-        return StencilMatrix(data.to(device=device, dtype=dt).contiguous(), self.shifts, self.grid)
+        return StencilMatrix(_put(self.data, dtype, device), self.shifts, self.grid)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,6 +41,35 @@
 //   applied to all K columns held in registers, so the dominant matrix
 //   stream is amortised K-fold.  Templated on K in {1, 2, 4, 8}; the wrapper
 //   runs larger or odd k in chunks.  fp32 and bf16-leg instantiations.
+//
+// Kernel 6: the single-call accumulating DIA SpMM, the same Y = A X as
+//   kernel 5 with the diagonals taken in groups.  Replaces
+//   scripts/spmm_acc_experiment.py::kernel (:64, pallas_call at :108 in
+//   apply_acc), whose sequential group axis keeps the output tile resident
+//   while every group is added into it.
+//   Bound on the H100: device-memory bandwidth, as kernel 5 (the legs, then
+//   X and Y once each).  Kernel 5 reads X[c, i + off] through L1 once per
+//   leg, per column and per row; here a loop over the groups inside the
+//   block takes the place of the TPU's sequential grid axis.  One block of
+//   ACC_TILE rows, one thread per row, K columns of y in registers.  For
+//   each group the block stages X[c, i0 + lo .. i0 + ACC_TILE + hi) of all
+//   K columns in shared memory once (plain cooperative loads), syncs, sums
+//   the group's legs from shared memory into a register partial, adds the
+//   partial into y, and syncs before the next group's stage.  y is written
+//   once, at the end.
+//   The group plan is the host's (ops/cuda_dia.py::plan_dia_groups):
+//   offsets ascending, a new group when hi - lo would pass ACC_SPAN or the
+//   group holds ACC_LMAX = 48 legs (the JAX plan's _LMAX_MULTI), the group
+//   holding offset 0 last.  It travels as a __grid_constant__ parameter, so
+//   the per-leg reads stay in parameter space instead of a local copy.  Legs
+//   stay row-major (ndiags, n): no relayout.
+//   A neighbour outside [0, n) is never read: the stage skips it and the leg
+//   is skipped by the same predicate as kernels 4 and 5 (a zero-filled stage
+//   times a coefficient would turn 0 * NaN into NaN).  Legs are summed in
+//   plan order into the partial with an explicit fma, and the partial added
+//   into y, exactly as the twin spmm_dia_acc_ref does, so the two differ only
+//   by FMA contraction.  Kernel 6 and kernel 5 round in different orders.
+//   Shared memory: K * (ACC_TILE + ACC_SPAN) fp32 = 24 KB at K = 8, static.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -48,6 +77,9 @@
 
 #define MAX_DIAGS 256
 #define THREADS 256
+#define ACC_TILE 256
+#define ACC_SPAN 512
+#define ACC_LMAX 48
 
 struct Offsets {
   int n;
@@ -144,6 +176,104 @@ spmm_dia_kernel(const L* __restrict__ data, const float* __restrict__ X, float* 
   for (int c = 0; c < K; ++c) Y[c * ld + i] = acc[c];
 }
 
+// The group plan of kernel 6: group g holds plan legs [begin[g], begin[g+1]);
+// leg l has offset off[l] (ascending inside a group) and data row row[l].
+struct AccPlan {
+  int ngroups;
+  int begin[MAX_DIAGS + 1];
+  int off[MAX_DIAGS];
+  unsigned char row[MAX_DIAGS];
+};
+
+template <typename L, int K>
+__global__ void __launch_bounds__(ACC_TILE)
+spmm_dia_acc_kernel(const L* __restrict__ data, const float* __restrict__ X,
+                    float* __restrict__ Y, int n, long long ld,
+                    const __grid_constant__ AccPlan plan) {
+  __shared__ float stage[K][ACC_TILE + ACC_SPAN];
+  const int t = threadIdx.x;
+  const long long i0 = (long long)blockIdx.x * ACC_TILE;
+  const int i = (int)i0 + t;
+  float y[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) y[c] = 0.0f;
+  for (int g = 0; g < plan.ngroups; ++g) {
+    const int b = plan.begin[g], e = plan.begin[g + 1];
+    const int lo = plan.off[b];
+    const int width = ACC_TILE + plan.off[e - 1] - lo;
+    for (int s = t; s < width; s += ACC_TILE) {
+      const long long j = i0 + lo + s;
+      if (j >= 0 && j < n) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) stage[c][s] = X[c * ld + j];
+      }
+    }
+    __syncthreads();
+    if (i < n) {
+      float part[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) part[c] = 0.0f;
+      for (int l = b; l < e; ++l) {
+        const int off = plan.off[l];
+        const int j = i + off;
+        if (j >= 0 && j < n) {
+          const float d = to_acc(data[(long long)plan.row[l] * n + i]);
+          const int s = t + off - lo;
+#pragma unroll
+          for (int c = 0; c < K; ++c) part[c] = madd(d, stage[c][s], part[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < K; ++c) y[c] += part[c];
+    }
+    __syncthreads();
+  }
+  if (i < n) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) Y[c * ld + i] = y[c];
+  }
+}
+
+// checks every limit the kernel relies on; 0 or cudaErrorInvalidValue
+static int fill_plan(AccPlan* p, int ndiags, int ngroups, const int* begin, const int* off,
+                     const int* row) {
+  if (ndiags < 1 || ndiags > MAX_DIAGS || ngroups < 1 || ngroups > ndiags)
+    return (int)cudaErrorInvalidValue;
+  if (begin[0] != 0 || begin[ngroups] != ndiags) return (int)cudaErrorInvalidValue;
+  p->ngroups = ngroups;
+  for (int g = 0; g <= ngroups; ++g) p->begin[g] = begin[g];
+  for (int g = 0; g < ngroups; ++g) {
+    const int b = begin[g], e = begin[g + 1];
+    if (e <= b || e - b > ACC_LMAX) return (int)cudaErrorInvalidValue;
+    for (int l = b + 1; l < e; ++l)
+      if (off[l] <= off[l - 1]) return (int)cudaErrorInvalidValue;
+    if ((long long)off[e - 1] - off[b] > ACC_SPAN) return (int)cudaErrorInvalidValue;
+  }
+  for (int l = 0; l < ndiags; ++l) {
+    if (row[l] < 0 || row[l] >= ndiags) return (int)cudaErrorInvalidValue;
+    p->off[l] = off[l];
+    p->row[l] = (unsigned char)row[l];
+  }
+  return 0;
+}
+
+template <typename L>
+static int launch_spmm_acc(int k, const void* data, const void* X, void* Y, int n, long long ld,
+                           const AccPlan& p, cudaStream_t st) {
+  const L* d = (const L*)data;
+  const float* x = (const float*)X;
+  float* y = (float*)Y;
+  const int nb = (n + ACC_TILE - 1) / ACC_TILE;
+  switch (k) {
+    case 1: spmm_dia_acc_kernel<L, 1><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
+    case 2: spmm_dia_acc_kernel<L, 2><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
+    case 4: spmm_dia_acc_kernel<L, 4><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
+    case 8: spmm_dia_acc_kernel<L, 8><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 static int fill_offsets(Offsets* o, int ndiags, const int* offsets) {
   if (ndiags < 1 || ndiags > MAX_DIAGS) return (int)cudaErrorInvalidValue;
   o->n = ndiags;
@@ -233,6 +363,22 @@ int cg_spmm_dia(int code, int k, const void* data, const void* X, void* Y, int n
   switch (code) {
     case FP32: return launch_spmm<float>(k, data, X, Y, n, ld, o, st);
     case BF16: return launch_spmm<__nv_bfloat16>(k, data, X, Y, n, ld, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// kernel 6: k in {1, 2, 4, 8} columns of stride ld, the group plan of
+// plan_dia_groups (begin: ngroups + 1 entries; off, row: ndiags); code 0 or 1
+int cg_spmm_dia_acc(int code, int k, const void* data, const void* X, void* Y, int n,
+                    long long ld, int ndiags, int ngroups, const int* begin, const int* off,
+                    const int* row, void* stream) {
+  AccPlan p;
+  int err = fill_plan(&p, ndiags, ngroups, begin, off, row);
+  if (err) return err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+    case FP32: return launch_spmm_acc<float>(k, data, X, Y, n, ld, p, st);
+    case BF16: return launch_spmm_acc<__nv_bfloat16>(k, data, X, Y, n, ld, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

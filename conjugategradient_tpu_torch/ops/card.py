@@ -1,0 +1,62 @@
+"""The card's published peaks, the least time a kernel could take on it, and
+CUDA-event timing: what ``chip_smoke.py`` and the kernel #6 experiment
+(``scripts/spmm_acc_experiment.py``) report each kernel against.
+
+Nothing on a solve path imports this module.
+"""
+
+from __future__ import annotations
+
+import subprocess
+from typing import Tuple
+
+import torch
+
+from conjugategradient_tpu_torch.core.formats import DiaMatrix
+from conjugategradient_tpu_torch.ops.cuda_dia import _windows
+
+#: the H100 SXM's published device-memory rate (at its 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+#: the H100 SXM's published fp32 rate outside the tensor cores (700 W)
+FP32_FLOPS = 67e12
+
+
+def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:
+    """(ms, ``"bytes"`` or ``"operations"``): the longer of ``nbytes`` at
+    HBM_BYTES_PER_S and ``flops`` fp32 operations at FP32_FLOPS."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dia_nnz(A: DiaMatrix) -> int:
+    """Leg entries whose neighbour lies inside the matrix: the entries a DIA
+    kernel reads."""
+    return sum(i1 - i0 for _, _, i0, i1 in _windows(A))
+
+
+def spmm_bytes(A: DiaMatrix, k: int) -> int:
+    """Bytes that Y = A X must move for k fp32 columns: each leg entry whose
+    neighbour lies inside the matrix read once, X read once, Y written once."""
+    return dia_nnz(A) * A.data.dtype.itemsize + 2 * k * A.n * 4
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` by CUDA events over ``reps`` calls after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

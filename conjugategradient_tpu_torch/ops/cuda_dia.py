@@ -1,6 +1,6 @@
 """DIA kernels: CUDA wrappers and their plain PyTorch twins.
 
-Two kernels of ``csrc/dia.cu`` (design notes at the top of that file):
+Three kernels of ``csrc/dia.cu`` (design notes at the top of that file):
 
 - ``spmv_dia_cuda`` — y = A x for a flat banded ``DiaMatrix`` with any
   offsets, and ``spmv_dot_dia_cuda``, its fused form that also returns
@@ -8,7 +8,12 @@ Two kernels of ``csrc/dia.cu`` (design notes at the top of that file):
   ``conjugategradient_tpu/ops/pallas_spmv.py::_cm_kernel``);
 - ``spmm_dia_cuda`` — Y = A X for k right-hand sides held as ``(k, n)``,
   one coefficient stream for all k (kernel #5, replaces
-  ``_cm_kernel_multi``).
+  ``_cm_kernel_multi``): the library path of every multi-RHS solve;
+- ``spmm_dia_acc_cuda`` — the same Y = A X in one call over groups of
+  diagonals (``plan_dia_groups``), each group's x window staged in shared
+  memory and y kept in registers across the groups (kernel #6, replaces
+  ``scripts/spmm_acc_experiment.py::kernel``).  Only the experiment module
+  ``scripts/spmm_acc_experiment.py`` of this package calls it.
 
 Instantiations, by (leg dtype, vector dtype): (fp32, fp32), (bf16, fp32)
 with fp32 accumulation, and, for the SpMV only, (fp64, fp64).
@@ -20,7 +25,7 @@ raises on a mismatch, and launches on the current CUDA stream; a launch that
 the runtime refuses raises too.  ``launches`` on each wrapper counts its
 kernel launches and nothing else, and ``launches_by_dtype`` splits the count
 by leg dtype (``"fp32"``, ``"bf16"``, ``"fp64"``), so a run can show which
-instantiation it went through.  The SpMM runs k columns in chunks of
+instantiation it went through.  The SpMMs run k columns in chunks of
 8, 4, 2 and 1, one launch each.
 """
 
@@ -42,6 +47,11 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import _CODES, TAGS, _raise_on
 MAX_DIAGS = 256
 #: Column chunks of one SpMM launch, largest first (template K of the kernel).
 K_CHUNKS = (8, 4, 2, 1)
+#: Kernel #6's group limits (``ACC_SPAN``, ``ACC_LMAX`` in ``csrc/dia.cu``):
+#: the widest offset window of a group, and its most legs (the JAX plan's
+#: ``_LMAX_MULTI``).
+ACC_SPAN = 512
+ACC_LMAX = 48
 
 
 
@@ -84,6 +94,43 @@ def spmm_dia_ref(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
     Y = torch.zeros((X.shape[0], A.n), dtype=acc, device=X.device)
     for k, off, i0, i1 in _windows(A):
         Y[:, i0:i1] += A.data[k, i0:i1].to(acc) * X[:, i0 + off : i1 + off].to(acc)
+    return Y
+
+
+@functools.lru_cache(maxsize=64)
+def plan_dia_groups(offsets: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
+    """Kernel #6's group plan: tuples of leg indices into ``offsets``.
+
+    Offsets are taken in ascending order; a new group starts when its
+    window (largest minus smallest offset) would pass ``ACC_SPAN`` or it
+    holds ``ACC_LMAX`` legs, and the group holding offset 0 moves last, as
+    in the JAX package's ``plan_dia_cm``."""
+    groups, cur = [], []
+    for k in sorted(range(len(offsets)), key=lambda k: offsets[k]):
+        if cur and (offsets[k] - offsets[cur[0]] > ACC_SPAN or len(cur) >= ACC_LMAX):
+            groups.append(tuple(cur))
+            cur = []
+        cur.append(k)
+    if cur:
+        groups.append(tuple(cur))
+    zero = [g for g in groups if any(offsets[k] == 0 for k in g)]
+    return tuple([g for g in groups if g not in zero] + zero)
+
+
+def spmm_dia_acc_ref(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Kernel #6's schedule on whole arrays: Y = A X for ``X`` of shape
+    ``(k, n)``, each group of ``plan_dia_groups`` summed into a partial in
+    plan order, then the partial added into Y (which starts at zero)."""
+    acc = torch.promote_types(A.data.dtype, X.dtype)
+    Y = torch.zeros((X.shape[0], A.n), dtype=acc, device=X.device)
+    windows = {k: (off, i0, i1) for k, off, i0, i1 in _windows(A)}
+    for group in plan_dia_groups(tuple(A.offsets)):
+        part = torch.zeros_like(Y)
+        for k in group:
+            if k in windows:
+                off, i0, i1 = windows[k]
+                part[:, i0:i1] += A.data[k, i0:i1].to(acc) * X[:, i0 + off : i1 + off].to(acc)
+        Y += part
     return Y
 
 
@@ -210,8 +257,45 @@ spmm_dia_cuda.launches = 0
 spmm_dia_cuda.launches_by_dtype = collections.Counter()
 
 
+@functools.lru_cache(maxsize=64)
+def _plan_args(offsets: Tuple[int, ...]):
+    """(ngroups, begin, off, row) of ``plan_dia_groups`` as ctypes arrays."""
+    groups = plan_dia_groups(offsets)
+    legs = [k for g in groups for k in g]
+    begin = [0]
+    for g in groups:
+        begin.append(begin[-1] + len(g))
+    ints = lambda v: (ctypes.c_int * len(v))(*v)
+    return len(groups), ints(begin), ints([offsets[k] for k in legs]), ints(legs)
+
+
+def spmm_dia_acc_cuda(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y = A X for ``X`` of shape ``(k, n)`` by kernel #6 (one launch per
+    column chunk) for a CUDA tensor, its twin for a CPU tensor."""
+    if X.device.type == "cpu":
+        return spmm_dia_acc_ref(A, X)
+    name = "spmm_dia_acc_cuda"
+    code = _check_kernel_args(name, A, X, 2)
+    Y = torch.empty_like(X)
+    lib = _build.load("dia")
+    ngroups, begin, off, row = _plan_args(tuple(A.offsets))
+    c0 = 0
+    for kc in k_chunks(X.shape[0]):
+        err = lib.cg_spmm_dia_acc(code, kc, A.data.data_ptr(), X[c0].data_ptr(), Y[c0].data_ptr(),
+                                  A.n, A.n, A.ndiags, ngroups, begin, off, row, _stream(X))
+        _raise_on(lib, err, name)
+        spmm_dia_acc_cuda.launches += 1
+        spmm_dia_acc_cuda.launches_by_dtype[TAGS[A.data.dtype]] += 1
+        c0 += kc
+    return Y
+
+
+spmm_dia_acc_cuda.launches = 0
+spmm_dia_acc_cuda.launches_by_dtype = collections.Counter()
+
+
 def reset_launch_counts() -> None:
     """Set every DIA kernel's launch count to 0."""
-    for fn in (spmv_dia_cuda, spmv_dot_dia_cuda, spmm_dia_cuda):
+    for fn in (spmv_dia_cuda, spmv_dot_dia_cuda, spmm_dia_cuda, spmm_dia_acc_cuda):
         fn.launches = 0
         fn.launches_by_dtype.clear()

@@ -73,7 +73,8 @@ def _cheb_scalars(degree: int, lam_max: float, lam_min: float):
 
 def spmv_const_stencil_ref(A: ConstStencilMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A x on grid-shaped ``x`` by zero-pad + static slices, legs summed
-    in ``A.shifts`` order (the zero padding is the Dirichlet boundary)."""
+    in ``A.shifts`` order (the zero padding is the Dirichlet boundary).  A
+    leading column axis, ``(k, *grid)``, is carried through: the SpMM."""
     halo = A.halo
     pad = []
     for h in reversed(halo):  # F.pad lists the last axis first
@@ -82,7 +83,7 @@ def spmv_const_stencil_ref(A: ConstStencilMatrix, x: torch.Tensor) -> torch.Tens
     y = None
     for c, shift in zip(A.coeffs, A.shifts):
         sl = tuple(slice(h + s, h + s + g) for h, s, g in zip(halo, shift, A.grid))
-        term = c * xp[sl]
+        term = c * xp[(..., *sl)]
         y = term if y is None else y + term
     return y
 
@@ -122,7 +123,8 @@ def cheb_smooth_const_ref(
 def spmv_stencil_ref(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A x for a variable-coefficient stencil on grid-shaped ``x``: zero
     pad + static slices, legs summed in ``A.shifts`` order, each leg upcast
-    to ``x``'s dtype (bf16 legs under fp32 state accumulate in fp32)."""
+    to ``x``'s dtype (bf16 legs under fp32 state accumulate in fp32).  A
+    leading column axis is carried through, as in ``spmv_const_stencil_ref``."""
     halo = A.halo
     pad = []
     for h in reversed(halo):
@@ -131,7 +133,7 @@ def spmv_stencil_ref(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
     y = None
     for k, shift in enumerate(A.shifts):
         sl = tuple(slice(h + s, h + s + g) for h, s, g in zip(halo, shift, A.grid))
-        term = A.data[k].to(x.dtype) * xp[sl]
+        term = A.data[k].to(x.dtype) * xp[(..., *sl)]
         y = term if y is None else y + term
     return y
 

@@ -50,7 +50,7 @@ def as_operator(A, use_pallas: bool = False) -> Callable[[torch.Tensor], torch.T
     first.
     """
     if isinstance(A, (DiaMatrix, StencilMatrix)) and not torch.is_tensor(A.data):
-        A = A.device_put()
+        A = A.device_put(device="cpu")
     if isinstance(A, DiaMatrix):
         return partial(spmv_dia, A)
     if isinstance(A, (ConstStencilMatrix, StencilMatrix)):

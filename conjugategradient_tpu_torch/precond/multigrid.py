@@ -36,6 +36,7 @@ from conjugategradient_tpu_torch.core.formats import (
     StencilMatrix,
     dia_diagonal,
     dia_to_dense,
+    default_device,
     dia_to_stencil,
     stencil_to_const,
 )
@@ -261,10 +262,10 @@ def build_hierarchy(
     max_levels: int = 25,
     dtype=None,
     coarse_operator=None,
-    device="cpu",
+    device=None,
 ) -> MgHierarchy:
     """Build the hierarchy from the host fine operator and place it on
-    ``device``.
+    ``device`` (``None``: the card when there is one).
 
     Coarse operators are the Galerkin products ``R A P`` (``galerkin_coarse``)
     unless ``coarse_operator(level, coarse_grid) -> DiaMatrix`` rediscretizes
@@ -345,7 +346,8 @@ def build_hierarchy(
             levels.append(MgLevel(A_const, inv_d, g, bounds, "fw"))
         else:
             inv_d = torch.from_numpy((1.0 / diag).astype(dt).reshape(g))
-            levels.append(MgLevel(A_st.device_put(dt), inv_d, g, bounds, "fw"))
+            # legs assembled on the host; the whole hierarchy moves once, below
+            levels.append(MgLevel(A_st.device_put(dt, "cpu"), inv_d, g, bounds, "fw"))
         t3 = time.perf_counter()
         setup["levels"] += t3 - t2
         g_next = transfer.coarse_shape(g)
@@ -371,7 +373,7 @@ def build_hierarchy(
     coarse_inv = torch.from_numpy(np.linalg.inv(np.asarray(dense, dtype=np.float64)).astype(dt))
     h = MgHierarchy(levels, coarse_inv, smoother, pre, post, omega)
     t1 = time.perf_counter()
-    h = h.to(device)
+    h = h.to(default_device(device))
     if h.coarse_inv.device.type == "cuda":
         torch.cuda.synchronize(h.coarse_inv.device)
     setup.update(coarse_inv=t1 - t0, upload=time.perf_counter() - t1)
@@ -469,14 +471,16 @@ def mgcg_solve(
     precise_dot: bool = False,
     coarse_operator=None,
     dtype=None,
-    device="cpu",
+    device=None,
 ):
     """Multigrid-preconditioned CG: builds (or reuses) the hierarchy, then
     runs CG with one V-cycle per iteration as M.  Returns
     ``(CGResult, MgHierarchy)`` with a flat ``x``.  The operator is the fine
     level's stencil; a hierarchy without levels (the whole system below
     ``max_coarse``) runs flat on ``A`` as DIA, its V-cycle the dense
-    inverse, as the JAX package does."""
+    inverse, as the JAX package does.  The solve runs where the hierarchy
+    lies: a built one on ``device`` (``None``: the card when there is
+    one)."""
     from conjugategradient_tpu_torch.solvers.cg import CGResult, cg_solve
     from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 

@@ -6,7 +6,8 @@ and betas); a column that has converged (or hit max_iteration) freezes under
 masked updates until every column is done.
 
 The Krylov state is held as ``(k, n)``, each column contiguous, for the
-whole solve: the layout kernel #5 (``ops.cuda_dia.spmm_dia_cuda``) reads.
+whole solve: the layout kernel #5 (``ops.cuda_dia.spmm_dia_cuda``) reads,
+and the one ``ops.stencil.spmm_columns`` cuts a stencil's columns from.
 ``B`` is transposed once at entry and ``X`` once at exit (the JAX package's
 ``make_cm_operator`` lesson: convert the layout twice per solve, not per
 SpMM).  Like ``cg_solve`` this is a Python loop; the host reads one device
@@ -20,8 +21,9 @@ from typing import Optional
 
 import torch
 
-from conjugategradient_tpu_torch.core.formats import DiaMatrix
+from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, DiaMatrix, StencilMatrix
 from conjugategradient_tpu_torch.ops.cuda_dia import spmm_dia_cuda
+from conjugategradient_tpu_torch.ops.stencil import spmm_columns
 from conjugategradient_tpu_torch.solvers.cg import _safe_div
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -35,12 +37,15 @@ class MultiCGResult:
 
 
 def _as_multi_operator(A, device):
-    """A (k, n) -> (k, n) operator: kernel #5 for a DIA matrix, a transposed
-    call for an (n, k) callable."""
+    """A (k, n) -> (k, n) operator: kernel #5 for a DIA matrix, the stencil
+    SpMM (kernel #1 or #3 per column) for a stencil, a transposed call for an
+    (n, k) callable."""
+    if isinstance(A, (DiaMatrix, StencilMatrix)) and not torch.is_tensor(A.data):
+        A = A.device_put(device=device)
     if isinstance(A, DiaMatrix):
-        if not torch.is_tensor(A.data):
-            A = A.device_put(device=device)
         return lambda P: spmm_dia_cuda(A, P)
+    if isinstance(A, (StencilMatrix, ConstStencilMatrix)):
+        return lambda P: spmm_columns(A, P)
     if callable(A):
         return lambda P: A(P.T).T.contiguous()
     raise NotImplementedError(
@@ -50,11 +55,24 @@ def _as_multi_operator(A, device):
 
 
 def as_multi_preconditioner(h):
-    """The multi-RHS V-cycle is not ported yet."""
-    raise NotImplementedError(
-        "as_multi_preconditioner (multi-RHS MGCG) is not ported yet "
-        "(ROADMAP queue 1 item 8: the multi-RHS grid path)"
-    )
+    """Multi-RHS V-cycle: M mapping (n, k) -> (n, k), one V-cycle per
+    column, which is what the JAX package's ``vmap`` of ``v_cycle``
+    computes.  Plug into ``cg_solve_multi(..., M=...)`` for multi-RHS MGCG.
+
+    The columns are cut contiguous from a ``(k, n)`` copy of ``R``, which
+    costs nothing when ``R`` is the transpose of ``cg_solve_multi``'s
+    ``(k, n)`` state, and each runs the single-RHS cycle: kernels #1, #2 and
+    #3 launch per column exactly as in MGCG.  Like ``as_preconditioner`` it
+    turns TF32 off for the coarse dense product."""
+    from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner
+
+    cycle = as_preconditioner(h)
+
+    def M(R):
+        Rk = R.T.contiguous()
+        return torch.stack([cycle(Rk[j]) for j in range(Rk.shape[0])]).T
+
+    return M
 
 
 def bicgstab_solve_multi(*args, **kwargs):
@@ -76,9 +94,10 @@ def cg_solve_multi(
 
     Per-column convergence policy (same tol and norm for all columns); the
     loop exits when every column is converged or at max_iteration.  ``A`` is
-    a ``DiaMatrix`` (kernel #5 on a CUDA tensor, its twin on a CPU one) or an
-    (n, k) -> (n, k) callable; ``M`` is an optional (n, k) -> (n, k)
-    preconditioner.  ``use_pallas`` is kept for parity and changes nothing
+    a ``DiaMatrix`` (kernel #5 on a CUDA tensor, its twin on a CPU one), a
+    ``StencilMatrix`` or ``ConstStencilMatrix`` (``ops.stencil.spmm_columns``)
+    or an (n, k) -> (n, k) callable; ``M`` is an optional (n, k) -> (n, k)
+    preconditioner (``as_multi_preconditioner`` for MGCG).  ``use_pallas`` is kept for parity and changes nothing
     (see ``ops.spmv.as_operator``).
     """
     n, k = B.shape

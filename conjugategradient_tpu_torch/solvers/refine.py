@@ -16,7 +16,8 @@ bf16-leg instantiation; with ``grid=`` it is MGCG on the hierarchy of
 ``precond.multigrid`` (Galerkin by default), and ``matrix_dtype`` narrows
 the legs of a variable-coefficient fine operator (kernel #3's bf16-leg
 instantiation).  ``refined_solve_multi`` runs the
-multi-RHS form over ``cg_solve_multi`` (kernel #5).
+multi-RHS form over ``cg_solve_multi``: kernel #5 gridless, multi-RHS MGCG
+(``as_multi_preconditioner``) with ``grid=``.
 
 ``device_residual=True`` keeps the outer loop on the card too.  The JAX
 package does that in double-float (two-fp32) arithmetic, since the TPU has
@@ -27,7 +28,8 @@ gridless and the grid path alike.
 
 ``use_pallas`` is kept for parity and changes nothing: on the card every
 DIA product runs the hand-written kernel, on the CPU its plain twin (see
-``ops.spmv.as_operator``).  ``device`` says where the inner solves run.
+``ops.spmv.as_operator``).  ``device`` says where the inner solves run;
+``None`` (the default) takes the card when there is one.
 """
 
 from __future__ import annotations
@@ -40,10 +42,15 @@ import numpy as np
 import torch
 
 from conjugategradient_tpu_torch.core import oracle
-from conjugategradient_tpu_torch.core.formats import DiaMatrix, StencilMatrix, dia_to_stencil
+from conjugategradient_tpu_torch.core.formats import (
+    DiaMatrix,
+    StencilMatrix,
+    default_device,
+    dia_to_stencil,
+)
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
-from conjugategradient_tpu_torch.solvers.multi import cg_solve_multi
+from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, NotConvergedError
 
 _SOLVER_FAMILIES = "ROADMAP queue 1 item 10 (solver families)"
@@ -75,32 +82,40 @@ def _check_inner(inner: str, deflation) -> None:
         raise NotImplementedError(f"deflation= is not ported yet ({_SOLVER_FAMILIES})")
 
 
+def _grid_operator(A: DiaMatrix, grid, device_dtype, hierarchy, smoother, matrix_dtype, device):
+    """(hierarchy, operator) of the grid path: ``hierarchy`` or the
+    Galerkin one built here on ``device``, and the fine level's operator; a
+    hierarchy without levels runs on ``A``'s variable-coefficient stencil
+    form and the dense coarse inverse.  ``matrix_dtype`` narrows only the
+    operator's legs when it is a variable-coefficient ``StencilMatrix``
+    (each leg upcasts to the fp32 state in the kernel); the V-cycle keeps
+    ``device_dtype``, and a const-detected operator ships no matrix bytes,
+    so it ignores ``matrix_dtype``."""
+    from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy
+
+    h = hierarchy
+    if h is None:
+        h = build_hierarchy(A, grid, smoother=smoother, dtype=device_dtype, device=device)
+    A_dev = (h.levels[0].A if h.levels
+             else dia_to_stencil(A, tuple(grid)).device_put(device_dtype, device))
+    if matrix_dtype is not None and isinstance(A_dev, StencilMatrix):
+        A_dev = A_dev.astype(matrix_dtype)
+    return h, A_dev
+
+
 def _inner_solver(A: DiaMatrix, grid, inner_tol, device_dtype, hierarchy, smoother,
                   matrix_dtype, device):
     """(solve(r) -> CGResult, shape of r): the fp32 inner CG, built once.
 
     Gridless: CG on ``A.device_put(matrix_dtype or device_dtype)``.  Grid:
-    MGCG on the hierarchy (``hierarchy``, on ``device``, or the Galerkin one
-    built here), with the fine level's operator; a hierarchy without levels
-    runs on ``A``'s variable-coefficient stencil form and the dense coarse
-    inverse.  ``matrix_dtype`` narrows only the operator's legs when it is a
-    variable-coefficient ``StencilMatrix`` (each leg upcasts to the fp32
-    state in the kernel); the V-cycle keeps ``device_dtype``, and a
-    const-detected operator ships no matrix bytes, so it ignores
-    ``matrix_dtype``."""
-    from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner, build_hierarchy
+    MGCG on ``_grid_operator``'s hierarchy and operator."""
+    from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner
 
     max_it = min(8 * A.n, 1_000_000)
     pol = ConvergencePolicy(tol=inner_tol, norm="rel_l2", max_iteration=max_it)
     prec = np.dtype(device_dtype) == np.float32
     if grid is not None:
-        h = hierarchy
-        if h is None:
-            h = build_hierarchy(A, grid, smoother=smoother, dtype=device_dtype, device=device)
-        A_dev = (h.levels[0].A if h.levels
-                 else dia_to_stencil(A, tuple(grid)).device_put(device_dtype, device))
-        if matrix_dtype is not None and isinstance(A_dev, StencilMatrix):
-            A_dev = A_dev.astype(matrix_dtype)
+        h, A_dev = _grid_operator(A, grid, device_dtype, hierarchy, smoother, matrix_dtype, device)
         M = as_preconditioner(h)
         return (lambda r: cg_solve(A_dev, r, policy=pol, M=M, precise_dot=prec)), tuple(grid)
     A_dev = A.device_put(matrix_dtype or device_dtype, device)
@@ -125,10 +140,10 @@ def refined_solve(
     device_residual: bool = False,
     deflation=None,
     inner: str = "cg",
-    device="cpu",
+    device=None,
 ) -> RefineResult:
     """Solve A x = b to an fp64 tolerance using fp32 inner solves on
-    ``device``.
+    ``device`` (``None``: the card when there is one).
 
     ``A``/``b`` are host fp64.  With ``grid`` the inner solver is MGCG on
     ``hierarchy`` (reused across passes); otherwise plain CG on the DIA
@@ -150,6 +165,7 @@ def refined_solve(
     ``inner="bicgstab"`` and ``deflation`` are not ported yet.
     """
     _check_inner(inner, deflation)
+    device = default_device(device)
     if device_residual:
         return _refined_solve_device(
             A, b, x0, tol=tol, norm=norm, grid=grid, inner_tol=inner_tol,
@@ -228,7 +244,7 @@ def _refined_solve_device(
     raise_on_divergence: bool = False,
     use_pallas: Optional[bool] = None,
     matrix_dtype=None,
-    device="cpu",
+    device=None,
 ) -> RefineResult:
     """Device-resident refinement: the outer loop's fp64 work (residual,
     norms, scaling, update) runs on ``device`` in fp64, with ``b - A x`` on
@@ -239,6 +255,7 @@ def _refined_solve_device(
                          "(fp32 inner solves under an fp64 outer pass)")
     t_start = time.perf_counter()
     n = A.n
+    device = default_device(device)
     solve, shape = _inner_solver(A, grid, inner_tol, device_dtype, hierarchy, smoother,
                                  matrix_dtype, device)
     A64 = A.device_put(torch.float64, device)
@@ -374,24 +391,23 @@ def refined_solve_multi(
     smoother: str = "chebyshev",
     use_pallas: Optional[bool] = None,
     matrix_dtype=None,
-    device="cpu",
+    device=None,
 ) -> RefineMultiResult:
     """Multi-RHS iterative refinement: solve A X = B, B of shape (n, k), to
-    an fp64 tolerance with fp32 multi-RHS CG inner solves on ``device``.
+    an fp64 tolerance with fp32 multi-RHS CG inner solves on ``device``
+    (``None``: the card when there is one).
 
     The outer loop is the single-RHS recurrence per column (fp64 host
     residual, per-column inf-norm scaling, the two-pass stall rule); every
-    inner solve is one ``cg_solve_multi`` over the whole block, so the matrix
-    streams once per iteration for all k columns (kernel #5).  Converged and
-    stalled columns are frozen: their residual columns enter the inner solve
-    as exact zeros and their updates are masked.  Gridless only: the grid
-    path needs ``as_multi_preconditioner``, not ported yet.
+    inner solve is one ``cg_solve_multi`` over the whole block.  Gridless,
+    the matrix streams once per iteration for all k columns (kernel #5).
+    With ``grid`` the inner solve is multi-RHS MGCG: the operator and
+    hierarchy of the single-RHS grid path (``matrix_dtype`` narrows the same
+    legs) and ``as_multi_preconditioner``.  Converged and stalled columns
+    are frozen: their residual columns enter the inner solve as exact zeros
+    and their updates are masked.
     """
-    if grid is not None:
-        raise NotImplementedError(
-            "refined_solve_multi with grid= needs the multi-RHS V-cycle "
-            "(as_multi_preconditioner), not ported yet (ROADMAP queue 1 item 8)"
-        )
+    device = default_device(device)
     n = A.n
     B64 = np.asarray(B, dtype=np.float64)
     if B64.ndim != 2 or B64.shape[0] != n:
@@ -399,9 +415,15 @@ def refined_solve_multi(
     k = B64.shape[1]
     X = np.zeros((n, k)) if X0 is None else np.asarray(X0, dtype=np.float64).reshape(n, k).copy()
 
-    A_dev = A.device_put(matrix_dtype or device_dtype, device)
     max_it = min(8 * n, 1_000_000)
     pol = ConvergencePolicy(tol=inner_tol, norm="rel_l2", max_iteration=max_it)
+    if grid is not None:
+        h, A_dev = _grid_operator(A, grid, device_dtype, hierarchy, smoother, matrix_dtype, device)
+        M = as_multi_preconditioner(h)
+        solve = lambda R: cg_solve_multi(A_dev, R, policy=pol, M=M)
+    else:
+        A_dev = A.device_put(matrix_dtype or device_dtype, device)
+        solve = lambda R: cg_solve_multi(A_dev, R, policy=pol, use_pallas=bool(use_pallas))
 
     def spmm64(X):
         return np.stack([oracle.spmv(A, X[:, j]) for j in range(k)], axis=1)
@@ -438,8 +460,7 @@ def refined_solve_multi(
         s = np.abs(R).max(axis=0)
         s = np.where(active & (s > 0), s, 1.0)
         Rs = np.where(active[None, :], R / s[None, :], 0.0)
-        dres = cg_solve_multi(A_dev, torch.from_numpy(Rs.astype(device_dtype)).to(device),
-                              policy=pol, use_pallas=bool(use_pallas))
+        dres = solve(torch.from_numpy(Rs.astype(device_dtype)).to(device))
         inner_total += np.where(active, dres.iterations.cpu().numpy(), 0)
         D = dres.x.cpu().numpy().astype(np.float64)
         X = X + np.where(active[None, :], s[None, :], 0.0) * D

@@ -4,8 +4,9 @@ port against the JAX package's, on the CPU.
 The host generators and the workload table are copies: they must be
 bit-identical and field-for-field equal.  ``cg_solve_multi`` in fp64 runs
 the same per-column recurrence as the JAX package's, so the per-column
-iteration counts are equal.  Every facade method the port does not have yet
-raises ``NotImplementedError`` naming its ROADMAP item.
+iteration counts are equal, with or without the multi-RHS V-cycle.  Every
+facade method the port does not have yet raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ from conjugategradient_tpu_torch.core import generators as tgen
 from conjugategradient_tpu_torch.core import oracle
 from conjugategradient_tpu_torch.models import workloads as twl
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
+from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy
 from conjugategradient_tpu_torch.solvers.multi import (
     as_multi_preconditioner,
     bicgstab_solve_multi,
@@ -106,11 +108,13 @@ def test_cg_solve_multi_preconditioner_and_callable_operator():
     jac = cg_solve_multi(A, B, policy=pol, M=lambda R: inv[:, None] * R)
     fn = cg_solve_multi(lambda P: torch.stack([spmv_dia(A, P[:, j]) for j in range(3)], 1), B,
                         policy=pol)
-    for r in (plain, jac, fn):
+    # 200 rows are below max_coarse: the V-cycle is the dense inverse
+    mg = cg_solve_multi(A, B, policy=pol,
+                        M=as_multi_preconditioner(build_hierarchy(s.A, (s.n,), device="cpu")))
+    assert int(mg.iterations.max()) <= 2
+    for r in (plain, jac, fn, mg):
         assert bool(r.converged.all())
         np.testing.assert_allclose(r.x.numpy(), plain.x.numpy(), rtol=1e-7, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        as_multi_preconditioner(None)
     with pytest.raises(NotImplementedError, match="item 10"):
         bicgstab_solve_multi(A, B)
 
@@ -151,8 +155,11 @@ def test_facade_multi_rhs_routes():
     assert r.converged.all() and hasattr(r, "stalled")
     for j in range(2):
         assert np.linalg.norm(B[:, j] - oracle.spmv(s.A, r.x[:, j])) < 1e-9
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.solve(s.A, B, method="mgcg", grid=(255,))
+    m = api.solve(s.A, B, method="mgcg", grid=(255,), tol=1e-10, norm="rel_l2", device="cpu")
+    jm = japi.solve(jgen.tridiagonal_system(255).A, B, method="mgcg", grid=(255,), tol=1e-10,
+                    norm="rel_l2")
+    assert bool(m.converged.all())
+    np.testing.assert_array_equal(m.iterations.numpy(), np.asarray(jm.iterations))
 
 
 UNPORTED = {

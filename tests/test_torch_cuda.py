@@ -19,6 +19,8 @@ from conjugategradient_tpu_torch.core.formats import (
 )
 from conjugategradient_tpu_torch.ops import cuda_dia, cuda_stencil
 from conjugategradient_tpu_torch.ops.cuda_dia import (
+    spmm_dia_acc_cuda,
+    spmm_dia_acc_ref,
     spmm_dia_cuda,
     spmm_dia_ref,
     spmv_dia_cuda,
@@ -38,8 +40,10 @@ from conjugategradient_tpu_torch.precond.multigrid import (
     as_preconditioner,
     build_hierarchy,
     galerkin_coarse,
+    v_cycle,
 )
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
+from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 pytestmark = pytest.mark.gpu
@@ -132,6 +136,7 @@ def _dia(kind, dtype):
         "ragged": lambda: generators.banded_sin_matrix(333, 8),
         "tridiag": lambda: generators.tridiagonal_matrix(1023),
         "poisson2d": lambda: generators.poisson2d_matrix(61),
+        "poisson3d": lambda: generators.poisson3d_matrix(31),
     }[kind]()
     return A.device_put(dtype, "cuda")
 
@@ -292,3 +297,76 @@ def test_galerkin_mgcg_on_card_matches_cpu(cuda):
     g, c = out["cuda"], out["cpu"]
     assert g.converged and c.converged and g.iterations == c.iterations
     assert float((g.x.cpu() - c.x).abs().max() / c.x.abs().max()) <= 1e-4
+
+
+#: kernel #6 against kernel #5: the same fp32 sum rounded in two orders
+#: (group partials, or one running sum)
+ACC_VS_SPMM = 1e-6
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 11])
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["banded", "poisson3d"])
+def test_dia_spmm_acc_kernel_matches_twin_and_spmm(cuda, kind, legs, k):
+    # band 160 takes four groups of <= 48 legs; 3-D Poisson's +-961 offsets
+    # take three groups by the window limit
+    A = _dia(kind, legs)
+    X = torch.from_numpy(np.random.default_rng(8).standard_normal((k, A.n))).to(cuda, torch.float32)
+    n0 = spmm_dia_acc_cuda.launches
+    Y = spmm_dia_acc_cuda(A, X)
+    torch.cuda.synchronize()
+    assert spmm_dia_acc_cuda.launches == n0 + len(cuda_dia.k_chunks(k))
+    ref = spmm_dia_acc_ref(A, X)
+    assert float((Y - ref).abs().max()) <= REL * float(ref.abs().max())
+    Y5 = spmm_dia_cuda(A, X)
+    assert float((Y - Y5).abs().max()) <= ACC_VS_SPMM * float(Y5.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["banded", "poisson3d"])
+def test_dia_spmm_acc_kernel_reads_nothing_outside_the_matrix(cuda, kind):
+    # X is carved out of a NaN-filled buffer with NaNs planted at both ends
+    # of every column: the rows the band reaches are NaN in the kernel and
+    # the twin alike, the others stay finite
+    A = _dia(kind, torch.float32)
+    k, pad = 3, 4096
+    buf = torch.full((k * A.n + 2 * pad,), float("nan"), device=cuda)
+    X = buf[pad : pad + k * A.n].view(k, A.n)
+    X.copy_(torch.from_numpy(np.random.default_rng(9).standard_normal((k, A.n))).to(cuda, torch.float32))
+    X[:, 0] = float("nan")
+    X[:, -1] = float("nan")
+    Y = spmm_dia_acc_cuda(A, X)
+    torch.cuda.synchronize()
+    ref = spmm_dia_acc_ref(A, X)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(Y), nan) and 0 < int(nan.sum()) < nan.numel()
+    assert float((Y[~nan] - ref[~nan]).abs().max()) <= REL * float(ref[~nan].abs().max())
+
+
+def test_dia_spmm_acc_kernel_raises_instead_of_falling_back(cuda):
+    A = _dia("ragged", torch.float32)
+    with pytest.raises(TypeError, match="no kernel"):
+        spmm_dia_acc_cuda(A, torch.zeros((2, A.n), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_dia_acc_cuda(A, torch.zeros((A.n, 2), device=cuda).T)
+    wide = DiaMatrix(torch.zeros((300, 400), device=cuda), tuple(range(-150, 150)), (400, 400))
+    with pytest.raises(ValueError, match="diagonals"):
+        spmm_dia_acc_cuda(wide, torch.zeros((2, 400), device=cuda))
+
+
+@pytest.mark.parametrize("kind", ["poisson", "jump"])
+def test_multi_preconditioner_on_card_is_v_cycle_per_column(cuda, kind):
+    # Poisson's Galerkin levels const-detect (the fused smoother, kernel #2),
+    # the jump field's stay variable (kernel #3)
+    grid = (31, 31, 31)
+    sys_ = (generators.poisson_system(grid) if kind == "poisson"
+            else generators.diffusion_system(grid, contrast=1e3))
+    h = build_hierarchy(sys_.A, grid, dtype=np.float32, device=cuda)
+    R = torch.from_numpy(np.random.default_rng(10).standard_normal((sys_.n, 3))).to(cuda, torch.float32)
+    cuda_stencil.reset_launch_counts()
+    Z = as_multi_preconditioner(h)(R)
+    torch.cuda.synchronize()
+    launched = cheb_smooth_const_cuda.launches if kind == "poisson" else spmv_stencil_cuda.launches
+    assert launched > 0
+    assert Z.shape == R.shape
+    for j in range(3):
+        assert torch.equal(Z[:, j], v_cycle(h, R[:, j].contiguous()))

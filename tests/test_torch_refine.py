@@ -176,8 +176,14 @@ def test_unported_options_raise():
         refined_solve(s.A, s.b, deflation=object())
     with pytest.raises(ValueError, match="unknown inner"):
         refined_solve(s.A, s.b, inner="gmres")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        refined_solve_multi(s.A, _block_rhs(s.n, 2), grid=(31, 31))
+    with pytest.raises(NotImplementedError, match="'hyb' transfers .*ROADMAP queue 1 item 9"):
+        refined_solve_multi(s64.A, _block_rhs(s64.n, 2), grid=(64, 64))
+    # the multi-RHS grid path itself is ported: multi-RHS MGCG inner solves
+    B = _block_rhs(s.n, 2)
+    res = refined_solve_multi(s.A, B, tol=1e-9, grid=(31, 31))
+    assert res.converged.all()
+    for j in range(2):
+        assert np.linalg.norm(B[:, j] - oracle.spmv(s.A, res.x[:, j])) < 1e-9
 
 
 def test_oracle_cg_is_bit_identical_to_jax():
