@@ -58,6 +58,7 @@ beside the card's name and power limit.
 
 from __future__ import annotations
 
+import itertools
 import json
 import sys
 import time
@@ -90,6 +91,7 @@ from conjugategradient_tpu_torch.ops.cuda_dia import (
     spmv_dot_dia_cuda,
 )
 from conjugategradient_tpu_torch.ops.cuda_stencil import (
+    cheb_geometry,
     cheb_smooth_const_cuda,
     cheb_smooth_const_ref,
     spmv_const_stencil_cuda,
@@ -127,9 +129,18 @@ GRID_2D = (1023, 1023)
 GRID_3D = (255, 255, 255)
 SPMV_GRIDS = [(1023, 1023), (37, 53), (255, 255, 255), (23, 9, 12)]
 CHEB_GRIDS = [(24, 9, 12), (63, 63, 63), (255, 255, 255)]
+#: kernel #2's edge grids: nz below the pipeline's stages, nz not a multiple
+#: of the z chunk, nx and ny not multiples of the (32, 16) tile; checked at
+#: degrees 1, 2 and 5, and the last with its legs in reverse order (the
+#: instantiation that reads its shifts at run time)
+CHEB_EDGE_GRIDS = [(3, 40, 70), (37, 20, 40), (37, 21, 45)]
+CHEB_EDGE_DEGREES = (1, 2, 5)
 SMALL_GRIDS = [(63, 63), (31, 31, 31)]
 TIME_SPMV_GRIDS = [(1023, 1023), (255, 255, 255), (63, 63, 63)]
-TIME_CHEB_GRIDS = [(255, 255, 255), (63, 63, 63)]
+TIME_CHEB_GRIDS = [(255, 255, 255), (127, 127, 127), (63, 63, 63)]
+#: kernel #2's timed variants: (label, zero x0, residual) at degree 2
+CHEB_VARIANTS = (("pre: zero x0 + resid", True, True), ("post: given x0", False, False),
+                 ("h=3: given x0 + resid", False, True))
 
 #: the flagship: fp64 contract, fp32 inner solves (bench.py's call)
 FLAGSHIP = "cublas_flagship"
@@ -152,6 +163,24 @@ VAR_SMALL = (31, 31, 31)
 #: kernel #3's small check shapes: (label, grid) of diffusion operators
 VAR_CHECK_GRIDS = [("2-D (25, 19) 5 legs, ragged", (25, 19)), ("2-D 1023^2 5 legs", (1023, 1023)),
                    ("3-D (17, 13, 11) 7 legs", (17, 13, 11))]
+SHIFTS27 = tuple(itertools.product((-1, 0, 1), repeat=3))
+#: kernel #3's hand-made edge stencils (random legs): leg counts without an
+#: instantiation of their own (13, 19), a grid of boundary blocks only,
+#: nz = 1, and a ragged 2-D grid with interior blocks
+VAR_HAND = [("13 legs (10, 18, 66)", SHIFTS27[:13], (10, 18, 66)),
+            ("19 legs (10, 18, 66)", tuple(s for s in SHIFTS27 if sum(map(abs, s)) <= 2), (10, 18, 66)),
+            ("7 legs (3, 3, 3)", tuple(s for s in SHIFTS27 if sum(map(abs, s)) <= 1), (3, 3, 3)),
+            ("7 legs nz=1 (1, 17, 65)", tuple(s for s in SHIFTS27 if sum(map(abs, s)) <= 1), (1, 17, 65)),
+            ("9 legs 2-D (40, 600)", tuple(s[1:] for s in SHIFTS27 if s[0] == 0), (40, 600))]
+#: solve walls that this script measured before the redesign of kernels #2
+#: and #3 (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+WALLS_BEFORE_MS = {
+    "MGCG 2-D 1023^2 solve": "46.4",
+    "MGCG 3-D 255^3 solve": "52.9",
+    "MGCG jump 255^3 warm solve": "443.4",
+    "multi-RHS MGCG jump 255^3 k=4": "1221.3",
+    "refined smooth 255^3 bf16 legs, device residual (timed run)": "1390-1400",
+}
 
 #: kernel #6 (single-call accumulating SpMM) against kernel #5: two rounding
 #: orders of the same fp32 sum (groups into partials, or one running sum)
@@ -169,10 +198,6 @@ REFINE_MULTI_K = 2
 #: jump operator as a 7-diagonal DIA (the multi-RHS MGCG's CG level)
 ACC_MAIN = "n=414720 band=160 k=8"
 ACC_DIA7 = f"255^3 7 diagonals k={MULTI_K}"
-#: operations per point of one degree-2 Chebyshev pre-smooth from a zero x0
-#: with the residual (``cheb_smooth_const_ref``): 2 scalings, 2 x updates,
-#: 2 r updates of (7-leg SpMV 14 + scaling 1 + subtract 1), 1 d update of 3
-CHEB2_FLOPS_PER_POINT = 39
 
 KERNELS = {
     "spmv_const_stencil": dict(
@@ -221,11 +246,28 @@ def _max_err(out, ref):
     return err, scale
 
 
-def _cheb_checks(label, A, lo, hi, invd, rand, errs):
-    """Kernel #2 against its twin on ``A``: degrees 1 and 2, from a zero or
-    a given x0, with and without the residual."""
+def _cheb_flops(nlegs: int, degree: int, zero_x: bool, want_resid: bool) -> int:
+    """fp32 operations per point of one fused smoothing
+    (``cheb_smooth_const_ref``): the initial residual (2 from a zero x0: a
+    scaling and the division by theta; with a given x0 also the SpMV and the
+    subtraction), ``degree`` x updates, an r update (SpMV, scaling,
+    subtraction) per application of A to d, and ``degree - 1`` d updates
+    of 3.  The degree-2 pre-smooth with 7 legs: 39."""
+    init = 2 if zero_x else 2 * nlegs + 3
+    return init + degree + (degree - 1 + int(want_resid)) * (2 * nlegs + 2) + 3 * (degree - 1)
+
+
+def _cheb_bytes(n: int, zero_x: bool, want_resid: bool) -> int:
+    """Bytes one fused smoothing must move: b [and x0] read once, x [and r]
+    written once, fp32."""
+    return 4 * n * (2 + (0 if zero_x else 1) + int(want_resid))
+
+
+def _cheb_checks(label, A, lo, hi, invd, rand, errs, degrees=(1, 2)):
+    """Kernel #2 against its twin on ``A``: each of ``degrees``, from a zero
+    or a given x0, with and without the residual."""
     b, x0 = rand(A.grid), rand(A.grid)
-    for degree in (1, 2):
+    for degree in degrees:
         for xin in (None, x0):
             for want_resid in (False, True):
                 args = (A, b, xin, degree, hi, lo, invd, want_resid)
@@ -557,8 +599,9 @@ def _host_rel_residual(A, b, x) -> float:
 
 def _var_mgcg(sysj, hj, dev, card):
     """``api.solve(method="mgcg")`` on the 255^3 jump system over its
-    Galerkin hierarchy, counted (kernel #3 at every level) and then timed in
-    a warm run.  Returns kernel #3's launch count and the counted result."""
+    Galerkin hierarchy, counted (kernel #3 at every level), timed in a warm
+    run, then profiled.  Returns kernel #3's launch count, the counted result
+    and the warm wall (ms)."""
     kw = dict(method="mgcg", grid=VAR_GRID, tol=TOL, norm="rel_l2", dtype=np.float32, device=dev,
               hierarchy=hj, precise_dot=True)
     torch.cuda.synchronize()
@@ -587,14 +630,16 @@ def _var_mgcg(sysj, hj, dev, card):
           f"residual {rel:.3e}; spmv_stencil launches {launches} by grid "
           f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }")
     print(f"time {tag} api.solve: counted run {first_ms:.3f} ms, warm run {warm_ms:.3f} ms [{card}]")
-    return launches, res
+    _device_time_top(lambda: api.solve(sysj.A, sysj.b, **kw), warm_ms, card)
+    return launches, res, warm_ms
 
 
 def _var_refine_routes(syss, hs, dev, card) -> int:
     """``refined_solve(grid=, matrix_dtype=bf16)`` on the 255^3 smooth
     system, host and device residual, each counted, the device route then
     timed in a second run.  Returns kernel #3's launch count over both
-    counted runs and the host-residual route's result."""
+    counted runs, the host-residual route's result and the device route's
+    timed wall (ms)."""
     total, results = 0, {}
     for label, kw in (("host residual", {}), ("device residual", dict(device_residual=True))):
         solve = lambda: refined_solve(
@@ -629,25 +674,34 @@ def _var_refine_routes(syss, hs, dev, card) -> int:
               f"spmv_dia {dia}")
         _print_route_time(f"{tag} (counted run)", res.timings, card)
         if kw.get("device_residual"):  # the host route's wall is its host residual's: run once
-            _print_route_time(f"{tag} (timed run)", solve().timings, card)
+            timings = solve().timings
+            _print_route_time(f"{tag} (timed run)", timings, card)
+            device_wall_ms = (timings["inner_s"] + timings["outer_s"]) * 1e3
         results[label] = res
-    return total, results["host residual"]
+    return total, results["host residual"], device_wall_ms
 
 
 def _var_times(hj, dev, card, times):
     """Kernel #3 vs its twin at the path's shapes: the 255^3 fine level
-    (7 legs) and the 127^3 Galerkin level (27 legs), fp32 and bf16 legs,
-    with GB/s from the minimum bytes (legs + x + y)."""
-    for label, A32 in (("255^3 7 legs", hj.levels[0].A), ("127^3 27 legs", hj.levels[1].A)):
-        for legs in (torch.float32, torch.bfloat16):
+    (7 legs; fp32, bf16 and fp64 legs) and the 127^3 Galerkin level (27
+    legs; fp32 and bf16), with GB/s from all leg bytes + x + y and the
+    share of the bound (the leg entries whose neighbour lies in the grid)."""
+    for label, A32, dtypes in (("255^3 7 legs", hj.levels[0].A, LEG_DTYPES),
+                               ("127^3 27 legs", hj.levels[1].A, (torch.float32, torch.bfloat16))):
+        for legs in dtypes:
             A = A32.astype(legs)
-            x = torch.randn(A.grid, device=dev)
+            vec = torch.float64 if legs == torch.float64 else torch.float32
+            x = torch.randn(A.grid, device=dev, dtype=vec)
             k_ms = time_ms(lambda: spmv_stencil_cuda(A, x), 50)
             p_ms = time_ms(lambda: spmv_stencil_ref(A, x), 10)
-            gb = (A.data.numel() * A.data.element_size() + 2 * x.numel() * 4) / 1e9
+            gb = (A.data.numel() * A.data.element_size() + 2 * x.numel() * x.element_size()) / 1e9
+            bound = bound_ms(A.nnz * A.data.element_size() + 2 * x.numel() * x.element_size(),
+                             2 * A.nnz)
             times[("spmv_stencil", label, TAGS[legs])] = (k_ms, p_ms)
             print(f"time spmv_stencil {label} {TAGS[legs]} legs: kernel {k_ms:.4f} ms "
-                  f"({gb / (k_ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB), twin {p_ms:.4f} ms [{card}]")
+                  f"({gb / (k_ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB; bound {bound[0]:.4f} ms, "
+                  f"{bound[0] / k_ms:.1%} of it), twin {p_ms:.4f} ms [{card}]")
+            del A, x
 
 
 def _nan_carved(X):
@@ -765,8 +819,9 @@ def _multi_mgcg(sysj, hj, single, dev, card):
     """Multi-RHS MGCG on the 255^3 jump system: ``cg_solve_multi`` on its
     fp32 DIA (kernel #5 at the CG level) with ``as_multi_preconditioner``
     over its hierarchy (kernel #3 per column at every level), k = MULTI_K,
-    column 0 the system's b; counted, then the whole solve profiled.  Column 0 must take the single-RHS solve's
-    iterations and agree with its solution.  Returns the launch counts."""
+    column 0 the system's b; counted, then the whole solve profiled.
+    Column 0 must take the single-RHS solve's iterations and agree with its
+    solution.  Returns the launch counts and the counted wall (ms)."""
     rng = np.random.default_rng(SEED)
     B = np.column_stack([sysj.b] + [rng.standard_normal(sysj.n) for _ in range(MULTI_K - 1)])
     A_dev = sysj.A.device_put(torch.float32, dev)
@@ -802,7 +857,7 @@ def _multi_mgcg(sysj, hj, single, dev, card):
           f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }")
     print(f"time {tag}: counted run {wall_ms:.3f} ms [{card}]")
     _device_time_top(lambda: cg_solve_multi(A_dev, B_dev, policy=policy, M=M), wall_ms, card)
-    return counts
+    return counts, wall_ms
 
 
 def _facade_multi_mgcg(dev, card):
@@ -914,7 +969,8 @@ def _library_and_bounds(ops, fsys, sysj, hj, dev, card):
         spmv_const_stencil_cuda(A1, x), card, 50)
     bounds["spmv_const_stencil"] = bound_ms(2 * n3 * 4, 2 * A1.nlegs * n3)
     lib["cheb_smooth_const"] = None
-    bounds["cheb_smooth_const"] = bound_ms(3 * n3 * 4, CHEB2_FLOPS_PER_POINT * n3)
+    bounds["cheb_smooth_const"] = bound_ms(_cheb_bytes(n3, True, True),
+                                           _cheb_flops(A1.nlegs, 2, True, True) * n3)
     A3 = hj.levels[0].A
     csr = _csr(sysj.A.device_put(torch.float32, dev))
     lib["spmv_stencil"] = _library("spmv_stencil 255^3 7 legs fp32", lambda: csr @ x.reshape(-1),
@@ -983,10 +1039,18 @@ def main() -> int:
     for name in lib_paths:
         _build.load(name)
     print(f"build: {sorted(p.name for p in lib_paths.values())} in {time.perf_counter() - t0:.3f} s")
-    for lib_path in lib_paths.values():
-        for line in lib_path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  ptxas: {line.strip()}")
+    for name in lib_paths:
+        for entry, res in sorted(_build.kernel_resources(name).items()):
+            print(f"  ptxas {name}: {entry[:72]} {res}")
+    for src, kernel in (("stencil", "cheb_const_kernel"), ("stencil_var", "spmv_var_kernel")):
+        res = {e: r for e, r in _build.kernel_resources(src).items() if kernel in e}
+        _require(bool(res), f"ptxas: no {kernel} entry in the {src} build log")
+        bad = {e: r for e, r in res.items()
+               if (r.get("stack"), r.get("spill_stores"), r.get("spill_loads")) != (0, 0, 0)}
+        _require(not bad, f"ptxas: {kernel} instantiations with a stack frame or spills: {bad}")
+        regs = [r["registers"] for r in res.values()]
+        print(f"ptxas {kernel}: {len(res)} instantiations, all with a 0-byte stack frame and 0 "
+              f"spill bytes, {min(regs)}-{max(regs)} registers")
 
     torch.manual_seed(SEED)  # the kernel-#3 checks and times draw from the default generator
     rng = torch.Generator(device=dev).manual_seed(SEED)
@@ -1009,6 +1073,13 @@ def main() -> int:
         lo, hi = _const_bounds(A)
         invd = torch.tensor(1.0 / A.coeffs[A.shifts.index((0, 0, 0))], device=dev)
         _cheb_checks(f"{g}", A, lo, hi, invd, rand, errs)
+    for g in CHEB_EDGE_GRIDS:
+        A = _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
+        lo, hi = _const_bounds(A)
+        invd = torch.tensor(1.0 / A.coeffs[A.shifts.index((0, 0, 0))], device=dev)
+        _cheb_checks(f"{g}", A, lo, hi, invd, rand, errs, CHEB_EDGE_DEGREES)
+    rev = ConstStencilMatrix(A.coeffs[::-1], A.shifts[::-1], A.grid)
+    _cheb_checks(f"{A.grid} legs reversed", rev, lo, hi, invd, rand, errs, CHEB_EDGE_DEGREES)
     _cheb_galerkin_checks(dev, rand, errs)
 
     # small solves on the card agree with the same solves on the CPU (twins)
@@ -1042,6 +1113,10 @@ def main() -> int:
     for label, g in VAR_CHECK_GRIDS:
         A_h = generators.diffusion_system(g, kind="jump", contrast=VAR_CONTRAST, seed=SEED).A
         cases.append((label, dia_to_stencil(A_h, g).device_put(torch.float32, dev)))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, shifts, g in VAR_HAND:
+        legs = torch.rand((len(shifts),) + g, generator=gen, device=dev) * 2 - 1
+        cases.append((f"hand-made {label}", StencilMatrix(legs, shifts, g)))
     cases += [("3-D 255^3 7 legs (jump)", hj.levels[0].A),
               ("127^3 27-leg Galerkin level (jump)", hj.levels[1].A)]
     _var_kernel_checks(cases, dev, errs)
@@ -1097,14 +1172,18 @@ def main() -> int:
     launches["spmm_dia"] = multi_spmm
 
     # -- the variable-coefficient path, counted: jump MGCG, smooth refined ---
-    launches["spmv_stencil"], single_jump = _var_mgcg(sysj, hj, dev, card)
+    walls = {}
+    launches["spmv_stencil"], single_jump, walls["MGCG jump 255^3 warm solve"] = _var_mgcg(
+        sysj, hj, dev, card)
     syss, hs = _var_hierarchy("smooth", dev)
-    var_refine, single_smooth = _var_refine_routes(syss, hs, dev, card)
+    var_refine, single_smooth, walls["refined smooth 255^3 bf16 legs, device residual (timed run)"] = (
+        _var_refine_routes(syss, hs, dev, card))
     launches["spmv_stencil"] += var_refine
 
     # -- the multi-RHS grid path, counted: 255^3 jump MGCG (reusing its
     # hierarchy), the 63^3 facade, the 255^3 smooth refined solve ------------
-    for counts in (_multi_mgcg(sysj, hj, single_jump, dev, card), _facade_multi_mgcg(dev, card),
+    multi_counts, walls["multi-RHS MGCG jump 255^3 k=4"] = _multi_mgcg(sysj, hj, single_jump, dev, card)
+    for counts in (multi_counts, _facade_multi_mgcg(dev, card),
                    _refine_multi(syss, hs, single_smooth, dev, card)):
         for name, count in counts.items():
             launches[name] += count
@@ -1123,27 +1202,39 @@ def main() -> int:
         p_ms = time_ms(lambda: spmv_const_stencil_ref(A, x), reps)
         times[("spmv_const_stencil", g)] = (k_ms, p_ms)
         print(f"time spmv_const_stencil {g}: kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms [{card}]")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for g in TIME_CHEB_GRIDS:
-        A = ops[g]
+        A = ops.get(g) or _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
         lo, hi = _const_bounds(A)
         invd = torch.tensor(1.0 / A.coeffs[A.shifts.index((0, 0, 0))], device=dev)
         b, x0 = rand(g), rand(g)
-        reps = 200 if np.prod(g) < 2e6 else 20
-        for label, xin, want_resid in (("pre: zero x0 + resid", None, True),
-                                       ("post: given x0", x0, False)):
-            args = (A, b, xin, 2, hi, lo, invd, want_resid)
+        n = int(np.prod(g))
+        reps = 200 if n < 1e6 else 20
+        for label, zero_x, want_resid in CHEB_VARIANTS:
+            args = (A, b, None if zero_x else x0, 2, hi, lo, invd, want_resid)
             k_ms = time_ms(lambda: cheb_smooth_const_cuda(*args), reps)
             p_ms = time_ms(lambda: cheb_smooth_const_ref(*args), reps)
+            nbytes = _cheb_bytes(n, zero_x, want_resid)
+            bound = bound_ms(nbytes, _cheb_flops(A.nlegs, 2, zero_x, want_resid) * n)
+            chunk = cheb_geometry(2, zero_x, want_resid, g, sms).chunk
             times[("cheb_smooth_const", g, label)] = (k_ms, p_ms)
-            print(f"time cheb_smooth_const {g} degree 2 {label}: kernel {k_ms:.4f} ms, "
-                  f"twin {p_ms:.4f} ms [{card}]")
-    for tag, fn in (("MGCG 2-D", solve2), ("MGCG 3-D", solve3), ("plain CG 2-D", plain)):
-        ms = time_ms(fn, 3)
-        print(f"time {tag} solve: {ms:.3f} ms [{card}]")
+            print(f"time cheb_smooth_const {g} degree 2 {label} (z chunk {chunk}): kernel "
+                  f"{k_ms:.4f} ms ({nbytes / 1e6 / k_ms:.0f} GB/s of {nbytes / 1e6:.1f} MB; bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / k_ms:.1%} of it), twin "
+                  f"{p_ms:.4f} ms [{card}]")
+    for tag, fn in (("MGCG 2-D 1023^2 solve", solve2), ("MGCG 3-D 255^3 solve", solve3)):
+        walls[tag] = time_ms(fn, 3)
+        print(f"time {tag}: {walls[tag]:.3f} ms [{card}]")
+    _device_time_top(solve3, walls["MGCG 3-D 255^3 solve"], card)
+    print(f"time plain CG 2-D solve: {time_ms(plain, 3):.3f} ms [{card}]")
     _dia_times(fsys.A, dev, card, times)
     _var_times(hj, dev, card, times)
     lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card)
     _acc_times(sysj, acc_recs, dev, card, times, lib, bounds)
+
+    for tag, before in WALLS_BEFORE_MS.items():
+        print(f"wall {tag}: {walls[tag]:.3f} ms now, {before} ms before the redesign of kernels #2 "
+              f"and #3 [{card}]")
 
     # -- record -------------------------------------------------------------
     main_shape = {"spmv_const_stencil": ("spmv_const_stencil", GRID_3D),

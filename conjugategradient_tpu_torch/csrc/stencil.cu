@@ -31,22 +31,41 @@
 //   (:288, pallas_call at :376); same schedule as
 //   precond/smoothers.py::chebyshev_smooth.
 //   Bound on the H100: device-memory traffic of the unfused form (about ten
-//   full passes per degree step); fused, it reads b [and x] and writes x
+//   full passes per degree step); fused, it reads b [and x0] and writes x
 //   [and r] once, plus the halo overlap of the tiles.
-//   Tile and halo: the TPU slab spans whole planes and only needs a z-halo,
-//   but a 255 x 255 fp32 plane (260 KB) is more than a block's 227 KB of
-//   shared memory, so all three axes are tiled.  Each block owns an
-//   8 x 8 x 32 (z, y, x) interior tile and loads it with a halo of
-//   h = _cheb_halo(degree, zero_x, want_resid) on EVERY face: degree, or
-//   degree + 1 for a given x0 with residual output.  The points on the
-//   tile's outer face have neighbours outside the tile; they skip each
-//   application of A and go stale, so the valid region erodes by one point
-//   per face per application, and h applications on the deepest path leave
-//   the interior exact.  The kernel is templated on h, so every tile extent
-//   is a compile-time constant and the index arithmetic is cheap.  Three
-//   tile arrays (x, r, d; b is loaded straight into r) take
-//   3 * (8+2h)(8+2h)(32+2h) * 4 B: 62 KB at h = 2, 211 KB at h = 6, hence
-//   MAX_DEGREE = 5 and the dynamic shared-memory opt-in.
+//   Design: a z-marching wavefront (2.5-D tiling with temporal blocking).
+//   The TPU slab spans whole planes and needs a z-halo only; a 255 x 255
+//   fp32 plane (260 KB) is more than a block's 227 KB of shared memory.
+//   The first design tiled all three axes with a halo of h on every face
+//   (b read and every stage computed 2.5x at h = 2, four index-decoding
+//   passes and three block barriers per degree step); this one keeps the
+//   halo in x and y only:
+//   - A block owns a TX x TY (x, y) column tile plus h on each side, one
+//     thread per column of the extended tile, and marches a chunk of cz
+//     planes in z from h planes before the chunk to h planes after it.
+//     Planes outside the domain read 0 and are never loaded.
+//   - The recurrence is a pipeline of NA stages, one per application of A
+//     (A x0 for a given x0, then A d_k for each d the outputs need).
+//     Stage s works on plane t - 2s while stage 0 loads plane t; it reads
+//     its operand (x0 or d_k) at planes q - 1, q, q + 1 from a four-plane
+//     ring in shared memory, written by stage s - 1 in earlier steps, and
+//     writes the next operand into ring s.  Two planes of lag per stage
+//     (not one) let a single __syncthreads() per plane step order every
+//     ring write before its reads: the plane a stage writes is never one
+//     that the next stage reads in the same step.
+//   - The pointwise state (r and x of the plane a stage hands on) stays in
+//     the owning thread's registers, a two-deep delay line per stage.
+//   - b [and x0] for plane t + 1 are loaded into registers at the top of
+//     step t, so the load is in flight across the barrier and the stages.
+//   - Each thread's (x, y) is fixed for the whole march and z is the loop
+//     counter: no per-element division.  Every extent is a compile-time
+//     constant of the (degree, x0 given, residual) instantiation.
+//   Erosion: a column on the tile's outer face has neighbours outside the
+//   tile and skips each application (stale); a plane before the chunk's
+//   first loaded plane reads the ring's initial zeros.  Either way the wrong
+//   region grows by one point per application, and h >= NA applications
+//   leave the interior tile of the chunk exact (h =
+//   _cheb_halo(degree, zero_x, want_resid)).
 //   Masking rule: a point outside the global domain must read as 0 at EVERY
 //   application of A, not only at load time (recurrence state outside the
 //   domain becomes nonzero after the first application; the reference's
@@ -57,18 +76,23 @@
 //   carry a NaN into the sum (0 * NaN = NaN; the reference's fault 92c5bd5).
 //   The recurrence scalars are computed in double precision on the host and
 //   passed as fp32, as _cheb_kernel does; the last r update is skipped when
-//   no residual is wanted.
+//   no residual is wanted.  Each update keeps the twin's order: r = (b - A
+//   x0) * invd, r -= invd * (A d), d = a_k d + b_k r, x += d.
 // ---------------------------------------------------------------------------
 
+#include <climits>
 #include <cuda_runtime.h>
 
 #define MAX_LEGS 27
 #define MAX_DEGREE 5
-
-#define TX 32
-#define TY 8
-#define TZ 8
-#define CHEB_THREADS 256
+// kernel 2's design constants; scripts/stencil_tuning.py builds other
+// values with -D (the wrapper's cheb_geometry mirrors the defaults)
+#ifndef CHEB_TY
+#define CHEB_TY 16  // interior tile rows for h <= 4 (8 above)
+#endif
+#ifndef CHEB_MINB
+#define CHEB_MINB 2  // blocks per SM asked of ptxas for h <= 2
+#endif
 
 struct Legs {
   int n;
@@ -79,10 +103,18 @@ struct Legs {
 };
 
 struct Cheb {
-  int degree;
   float theta;             // d_0 = r_0 / theta
   float a[MAX_DEGREE];     // d_{k+1} = a[k] * d_k + b[k] * r_{k+1}
   float b[MAX_DEGREE];
+};
+
+// the legs of kernel 2: z shift and the in-plane offset sy * EX + sx of the
+// extended tile
+struct TileLegs {
+  int n;
+  float c[MAX_LEGS];
+  int sz[MAX_LEGS];
+  int oxy[MAX_LEGS];
 };
 
 __device__ __forceinline__ bool inside(int z, int y, int x, int nz, int ny, int nx) {
@@ -105,118 +137,187 @@ __global__ void spmv_const_kernel(const float* __restrict__ x, float* __restrict
   y[((long long)iz * ny + iy) * nx + ix] = acc;
 }
 
-// Tile geometry for halo H; every extent is a compile-time constant, so the
-// index arithmetic below is multiply-shift, not division.
-template <int H>
-struct Tile {
-  static constexpr int EX = TX + 2 * H, EY = TY + 2 * H, EZ = TZ + 2 * H;
-  static constexpr int E = EX * EY * EZ;
+// Geometry of one (degree, x0 given, residual) instantiation of kernel 2;
+// ops/cuda_stencil.py::cheb_geometry mirrors it and the C entry checks the
+// two agree.
+template <int DEG, bool X0, bool RES>
+struct Wave {
+  static constexpr int NA = (X0 ? 1 : 0) + DEG - 1 + (RES ? 1 : 0);  // applications of A
+  static constexpr int H = DEG + ((X0 && RES) ? 1 : 0);               // _cheb_halo
+  static constexpr int TX = 32, TY = H <= 4 ? CHEB_TY : 8;            // interior tile
+  static constexpr int EX = TX + 2 * H, EY = TY + 2 * H, PL = EX * EY;
+  static constexpr int NT = PL;                                       // one thread per column
+  static constexpr int MINB = H <= 2 ? CHEB_MINB : 1;
+  static constexpr size_t SMEM = (size_t)NA * 4 * PL * sizeof(float);
+  static constexpr int M = NA > 0 ? NA : 1;
 };
 
-// (A s)[i] at a tile point whose neighbours all lie in the tile.  s is zero
-// at every out-of-domain point (the masking invariant), so no check is needed.
-__device__ __forceinline__ float apply_tile(const float* s, int i, const int* off,
-                                            const Legs& legs) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < MAX_LEGS; ++k)
-    if (k < legs.n) acc += legs.c[k] * s[i + off[k]];
-  return acc;
+// Compile-time shifts of the two standard patterns, in the order
+// dia_to_stencil gives them (offsets ascending): P = 7, the 7-point star of
+// every rediscretized Poisson level; P = 27, the 27-point box of the
+// const-detected Galerkin levels.  P = 0 reads the shifts from TileLegs.
+template <int P>
+__host__ __device__ constexpr int pat_z(int k) {
+  return P == 7 ? (k == 0 ? -1 : (k == 6 ? 1 : 0)) : k / 9 - 1;
+}
+template <int P>
+__host__ __device__ constexpr int pat_y(int k) {
+  return P == 7 ? (k == 1 ? -1 : (k == 5 ? 1 : 0)) : (k / 3) % 3 - 1;
+}
+template <int P>
+__host__ __device__ constexpr int pat_x(int k) {
+  return P == 7 ? (k == 2 ? -1 : (k == 4 ? 1 : 0)) : k % 3 - 1;
 }
 
-template <int H>
-__global__ void __launch_bounds__(CHEB_THREADS)
+template <int DEG, bool X0, bool RES, int P>
+__global__ void __launch_bounds__(Wave<DEG, X0, RES>::NT, Wave<DEG, X0, RES>::MINB)
 cheb_const_kernel(const float* __restrict__ b, const float* __restrict__ x0,
                   const float* __restrict__ invd_ptr, float* __restrict__ x_out,
-                  float* __restrict__ r_out, int nz, int ny, int nx, Legs legs, Cheb ch) {
-  using T = Tile<H>;
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sr = smem + T::E;
-  float* sd = smem + 2 * T::E;
-  const int gx0 = blockIdx.x * TX - H, gy0 = blockIdx.y * TY - H, gz0 = blockIdx.z * TZ - H;
+                  float* __restrict__ r_out, int nz, int ny, int nx, int cz,
+                  const __grid_constant__ TileLegs legs, const __grid_constant__ Cheb ch) {
+  using W = Wave<DEG, X0, RES>;
+  constexpr int NA = W::NA, H = W::H, EX = W::EX, EY = W::EY, PL = W::PL, M = W::M;
+  extern __shared__ float ring[];  // [NA][4][PL]: operand of stage s + 1, plane q at slot q & 3
+  const int tid = threadIdx.x;
+  const int tx = tid % EX, ty = tid / EX;
+  const int gx = blockIdx.x * W::TX - H + tx, gy = blockIdx.y * W::TY - H + ty;
+  const bool inxy = (unsigned)gx < (unsigned)nx && (unsigned)gy < (unsigned)ny;
+  const bool face = tx == 0 || tx == EX - 1 || ty == 0 || ty == EY - 1;
+  const bool own = inxy && tx >= H && tx < EX - H && ty >= H && ty < EY - H;
+  const int plane = ny * nx;
+  const int col = gy * nx + gx;  // used only where inxy
+  const int z0 = blockIdx.z * cz, z1 = min(z0 + cz, nz);
+  const int zload = min(z1 + H, nz);  // planes [z0 - H, zload) are loaded
   const float invd = *invd_ptr;
-  const bool zero_x = (x0 == nullptr);
-  const bool want_resid = (r_out != nullptr);
-  int off[MAX_LEGS];
+
+  for (int i = tid; i < NA * 4 * PL; i += W::NT) ring[i] = 0.0f;
+
+  // the pointwise (r, x) each stage hands on: [0] from the last step, [1]
+  // from the one before, which the next stage (two planes behind) takes
+  float r1[M], x1[M], r2[M], x2[M];
 #pragma unroll
-  for (int k = 0; k < MAX_LEGS; ++k)
-    off[k] = k < legs.n ? (legs.sz[k] * T::EY + legs.sy[k]) * T::EX + legs.sx[k] : 0;
+  for (int s = 0; s < M; ++s) r1[s] = x1[s] = r2[s] = x2[s] = 0.0f;
 
-  // load b into r and x0 into x; out-of-domain points are set to 0, not loaded
-  for (int i = threadIdx.x; i < T::E; i += CHEB_THREADS) {
-    const int px = i % T::EX, py = (i / T::EX) % T::EY, pz = i / (T::EX * T::EY);
-    const int gz = gz0 + pz, gy = gy0 + py, gx = gx0 + px;
-    const bool in = inside(gz, gy, gx, nz, ny, nx);
-    const long long g = ((long long)gz * ny + gy) * nx + gx;
-    sr[i] = in ? b[g] : 0.0f;
-    sx[i] = (in && !zero_x) ? x0[g] : 0.0f;
-  }
-  __syncthreads();
-
-  // r = D^-1 (b - A x0) (or D^-1 b), d = r / theta, zero outside the domain.
-  // Points on the tile's outer face have neighbours outside the tile: they
-  // skip the application and go stale (the erosion the halo pays for).
-  for (int i = threadIdx.x; i < T::E; i += CHEB_THREADS) {
-    const int px = i % T::EX, py = (i / T::EX) % T::EY, pz = i / (T::EX * T::EY);
-    const bool face = px == 0 || px == T::EX - 1 || py == 0 || py == T::EY - 1 ||
-                      pz == 0 || pz == T::EZ - 1;
-    const bool in = inside(gz0 + pz, gy0 + py, gx0 + px, nz, ny, nx);
-    float r = sr[i];
-    if (!zero_x && !face) r -= apply_tile(sx, i, off, legs);
-    r *= invd;
-    sr[i] = r;
-    sd[i] = in ? r / ch.theta : 0.0f;
-  }
-  __syncthreads();
-
-  for (int k = 0; k < ch.degree; ++k) {
-    const bool last = (k == ch.degree - 1);
-    const bool update_r = !(last && !want_resid);
-    for (int i = threadIdx.x; i < T::E; i += CHEB_THREADS) {
-      sx[i] += sd[i];
-      if (update_r) {
-        const int px = i % T::EX, py = (i / T::EX) % T::EY, pz = i / (T::EX * T::EY);
-        const bool face = px == 0 || px == T::EX - 1 || py == 0 || py == T::EY - 1 ||
-                          pz == 0 || pz == T::EZ - 1;
-        if (!face) sr[i] -= invd * apply_tile(sd, i, off, legs);
+  float nb = 0.0f, nx0 = 0.0f;
+  auto load = [&](int t) {
+    nb = 0.0f;
+    nx0 = 0.0f;
+    if (inxy && t >= 0 && t < zload) {
+      nb = __ldg(b + (t * plane + col));
+      if (X0) nx0 = __ldg(x0 + (t * plane + col));
+    }
+  };
+  load(z0 - H);
+  const int tend = z1 - 1 + 2 * NA;
+  for (int t = z0 - H; t <= tend; ++t) {
+    const float cb = nb, cx = nx0;
+    load(t + 1);
+    __syncthreads();  // ring writes of the earlier steps are visible; their reads are done
+    float nr[M], nxv[M];
+    {  // stage 0: plane t
+      const bool in = inxy && (unsigned)t < (unsigned)nz;
+      float r, x;
+      if (X0) {
+        r = cb;  // b, scaled by stage 1
+        x = cx;
+        if (NA > 0) ring[(t & 3) * PL + tid] = cx;
+      } else {
+        r = invd * cb;
+        const float d = in ? r / ch.theta : 0.0f;
+        x = d;
+        if (NA > 0) ring[(t & 3) * PL + tid] = d;
+      }
+      if (NA == 0) {
+        if (own && t >= z0 && t < z1) x_out[t * plane + col] = x;
+      } else {
+        nr[0] = r;
+        nxv[0] = x;
       }
     }
-    if (!last) {
-      __syncthreads();  // every read of d by the application is done
-      for (int i = threadIdx.x; i < T::E; i += CHEB_THREADS) {
-        const int px = i % T::EX, py = (i / T::EX) % T::EY, pz = i / (T::EX * T::EY);
-        const bool in = inside(gz0 + pz, gy0 + py, gx0 + px, nz, ny, nx);
-        sd[i] = in ? ch.a[k] * sd[i] + ch.b[k] * sr[i] : 0.0f;
+#pragma unroll
+    for (int s = 1; s <= NA; ++s) {  // stage s: application s of A, at plane t - 2s
+      const int q = t - 2 * s;
+      const bool in = inxy && (unsigned)q < (unsigned)nz;
+      const float* R = ring + (s - 1) * 4 * PL + tid;
+      float a = 0.0f;
+      if (!face) {
+        if constexpr (P == 0) {
+#pragma unroll
+          for (int k = 0; k < MAX_LEGS; ++k)
+            if (k < legs.n) a += legs.c[k] * R[((q + legs.sz[k]) & 3) * PL + legs.oxy[k]];
+        } else {  // the plane of each leg and its in-plane offset are constants
+          const float* Z[3] = {R + ((q - 1) & 3) * PL, R + (q & 3) * PL, R + ((q + 1) & 3) * PL};
+#pragma unroll
+          for (int k = 0; k < P; ++k)
+            a += legs.c[k] * Z[pat_z<P>(k) + 1][pat_y<P>(k) * EX + pat_x<P>(k)];
+        }
       }
-      __syncthreads();
+      float r = r2[s - 1], x = x2[s - 1];
+      float* next = ring + s * 4 * PL + (q & 3) * PL + tid;
+      if (X0 && s == 1) {  // r_0 = D^-1 (b - A x0), d_0 = r_0 / theta, x = x0 + d_0
+        if (!face) r -= a;
+        r *= invd;
+        const float d = in ? r / ch.theta : 0.0f;
+        x += d;
+        if (s < NA) *next = d;
+      } else {  // application of d_k
+        const int k = s - 1 - (X0 ? 1 : 0);
+        if (!face) r -= invd * a;
+        if (k < DEG - 1) {
+          const float d = in ? ch.a[k] * R[(q & 3) * PL] + ch.b[k] * r : 0.0f;
+          x += d;
+          if (s < NA) *next = d;
+        }
+      }
+      if (s < NA) {
+        nr[s] = r;
+        nxv[s] = x;
+      } else if (own && q >= z0 && q < z1) {
+        x_out[q * plane + col] = x;
+        if (RES) r_out[q * plane + col] = r;
+      }
     }
-  }
-  __syncthreads();
-
-  // the interior tile is exact: write its in-domain points
-  for (int i = threadIdx.x; i < TX * TY * TZ; i += CHEB_THREADS) {
-    const int px = i % TX, py = (i / TX) % TY, pz = i / (TX * TY);
-    const int gz = gz0 + H + pz, gy = gy0 + H + py, gx = gx0 + H + px;
-    if (!inside(gz, gy, gx, nz, ny, nx)) continue;
-    const int s = ((pz + H) * T::EY + (py + H)) * T::EX + (px + H);
-    const long long g = ((long long)gz * ny + gy) * nx + gx;
-    x_out[g] = sx[s];
-    if (want_resid) r_out[g] = sr[s];
+#pragma unroll
+    for (int s = 0; s < NA; ++s) {
+      r2[s] = r1[s];
+      x2[s] = x1[s];
+      r1[s] = nr[s];
+      x1[s] = nxv[s];
+    }
   }
 }
 
-template <int H>
+template <int P>
+static bool is_pattern(const Legs& legs) {
+  if (legs.n != P) return false;
+  for (int k = 0; k < P; ++k)
+    if (legs.sz[k] != pat_z<P>(k) || legs.sy[k] != pat_y<P>(k) || legs.sx[k] != pat_x<P>(k))
+      return false;
+  return true;
+}
+
+template <int DEG, bool X0, bool RES>
 static int launch_cheb(const float* b, const float* x0, const float* invd, float* x_out,
-                       float* r_out, int nz, int ny, int nx, const Legs& legs, const Cheb& ch,
-                       cudaStream_t stream) {
-  const size_t smem = 3 * (size_t)Tile<H>::E * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(cheb_const_kernel<H>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       float* r_out, int nz, int ny, int nx, int h, int tx, int ty, int cz,
+                       const Legs& legs, const Cheb& ch, cudaStream_t stream) {
+  using W = Wave<DEG, X0, RES>;
+  if (h != W::H || tx != W::TX || ty != W::TY) return (int)cudaErrorInvalidValue;
+  TileLegs tl = {};
+  tl.n = legs.n;
+  for (int k = 0; k < legs.n; ++k) {
+    tl.c[k] = legs.c[k];
+    tl.sz[k] = legs.sz[k];
+    tl.oxy[k] = legs.sy[k] * W::EX + legs.sx[k];
+  }
+  const int pattern = is_pattern<7>(legs) ? 7 : (is_pattern<27>(legs) ? 27 : 0);
+  auto kernel = pattern == 7    ? cheb_const_kernel<DEG, X0, RES, 7>
+                : pattern == 27 ? cheb_const_kernel<DEG, X0, RES, 27>
+                                : cheb_const_kernel<DEG, X0, RES, 0>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)W::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + TZ - 1) / TZ);
-  cheb_const_kernel<H><<<grid, CHEB_THREADS, smem, stream>>>(b, x0, invd, x_out, r_out, nz,
-                                                             ny, nx, legs, ch);
+  const dim3 grid((nx + W::TX - 1) / W::TX, (ny + W::TY - 1) / W::TY, (nz + cz - 1) / cz);
+  kernel<<<grid, W::NT, W::SMEM, stream>>>(b, x0, invd, x_out, r_out, nz, ny, nx, cz, tl, ch);
   return (int)cudaGetLastError();
 }
 
@@ -249,33 +350,42 @@ int cg_spmv_const(const float* x, float* y, int nz, int ny, int nx, int nlegs,
 }
 
 // x0 == NULL: zero initial guess; r_out == NULL: no residual output.
-// alpha/beta: degree - 1 recurrence coefficients each.
+// alpha/beta: degree - 1 recurrence coefficients each.  (h, tx, ty, cz):
+// halo, interior tile and z chunk of ops/cuda_stencil.py::cheb_geometry; the
+// entry refuses a halo or tile that is not the instantiation's own.
 int cg_cheb_const(const float* b, const float* x0, const float* invd, float* x_out,
                   float* r_out, int nz, int ny, int nx, int nlegs, const float* coeffs,
-                  const int* shifts, int degree, int h, float theta, const float* alpha,
-                  const float* beta, void* stream) {
+                  const int* shifts, int degree, int h, int tx, int ty, int cz, float theta,
+                  const float* alpha, const float* beta, void* stream) {
   Legs legs;
   int err = fill_legs(&legs, nlegs, coeffs, shifts);
   if (err) return err;
-  if (degree < 1 || degree > MAX_DEGREE || h < degree || h > MAX_DEGREE + 1)
+  if (degree < 1 || degree > MAX_DEGREE || cz < 1 || nz < 1 || ny < 1 || nx < 1 ||
+      (long long)nz * ny * nx > INT_MAX || (nz + cz - 1) / cz > 65535)
     return (int)cudaErrorInvalidValue;
   Cheb ch;
-  ch.degree = degree;
   ch.theta = theta;
   for (int k = 0; k < MAX_DEGREE; ++k) {
     ch.a[k] = k < degree - 1 ? alpha[k] : 0.0f;
     ch.b[k] = k < degree - 1 ? beta[k] : 0.0f;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (h) {
-    case 1: return launch_cheb<1>(b, x0, invd, x_out, r_out, nz, ny, nx, legs, ch, st);
-    case 2: return launch_cheb<2>(b, x0, invd, x_out, r_out, nz, ny, nx, legs, ch, st);
-    case 3: return launch_cheb<3>(b, x0, invd, x_out, r_out, nz, ny, nx, legs, ch, st);
-    case 4: return launch_cheb<4>(b, x0, invd, x_out, r_out, nz, ny, nx, legs, ch, st);
-    case 5: return launch_cheb<5>(b, x0, invd, x_out, r_out, nz, ny, nx, legs, ch, st);
-    case 6: return launch_cheb<6>(b, x0, invd, x_out, r_out, nz, ny, nx, legs, ch, st);
+  const int variant = (degree - 1) * 4 + (x0 != nullptr) * 2 + (r_out != nullptr);
+#define CHEB_CASE(D, X, R)                                                                     \
+  case (D - 1) * 4 + X * 2 + R:                                                                \
+    return launch_cheb<D, (X != 0), (R != 0)>(b, x0, invd, x_out, r_out, nz, ny, nx, h, tx, ty, cz, legs, ch, \
+                                st);
+#define CHEB_DEGREE(D) CHEB_CASE(D, 0, 0) CHEB_CASE(D, 0, 1) CHEB_CASE(D, 1, 0) CHEB_CASE(D, 1, 1)
+  switch (variant) {
+    CHEB_DEGREE(1)
+    CHEB_DEGREE(2)
+    CHEB_DEGREE(3)
+    CHEB_DEGREE(4)
+    CHEB_DEGREE(5)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef CHEB_DEGREE
+#undef CHEB_CASE
 }
 
 }  // extern "C"

@@ -18,12 +18,38 @@
 //   and one write of y (the 2 * d neighbour re-reads of x hit L1/L2).  At
 //   255^3 with 7 fp32 legs that is (7 + 2) * 4 B * 16.58M = 597 MB; a
 //   127^3 Galerkin level with 27 legs moves (27 + 2) * 4 B * 2.05M = 238 MB.
-//   Design: one thread per output point, x fastest, so a warp reads 128
-//   contiguous bytes of each fp32 leg (64 of a bf16 leg) and of x's window.
-//   Legs are read at k * n + p with 64-bit index math.  Shifts travel by
-//   value (<= MAX_LEGS = 27, the Galerkin 3-D coarse levels).  A 2-D grid
-//   (ny, nx) runs as the 3-D grid (1, ny, nx).  The TPU slab halos, the
-//   8-row 2-D halo blocks and the per-slab leg blocks have no counterpart.
+//   Design: a latency-hiding streaming kernel.  The first design (one point
+//   per thread, a rolled loop over a by-value shift struct indexed with the
+//   runtime leg number) sat at a third of the read rate: the struct went to
+//   an 88-byte stack frame, every leg paid six compares, a branch and a
+//   64-bit multiply, and the rolled loop kept about two loads in flight.
+//   Now:
+//   - The leg count is a template parameter for the counts the hierarchies
+//     produce (5: 2-D fine, 9: 2-D Galerkin, 7: 3-D fine, 27: 3-D
+//     Galerkin); the leg loop is unrolled and each leg's shift is folded on
+//     the host into one constant offset (sz * ny * nx + sy * nx + sx) that
+//     lives in the __grid_constant__ Plan.  Every other count (1..27) runs
+//     the 27-leg instantiation with the count read from the Plan.  Every
+//     index into the Plan is a compile-time constant: no stack frame.
+//   - A (32, 8) block owns a ZRUN-plane run in z (4 planes, tuned by
+//     scripts/stencil_tuning.py); each thread marches its
+//     (y, x) column through the run.  A block whose points and their
+//     one-point neighbourhood (only along axes the shifts use) lie inside
+//     the grid takes a branch-free path; the test is uniform over the block.
+//     The other blocks mask each leg with a per-thread (y, x) bit mask,
+//     computed once, and a per-plane z mask at the two end planes.
+//   - The interior path loads B points' legs and x neighbours (B * nlegs of
+//     each, B from the leg count and width) before the first FMA, so
+//     about 30-60 loads are in flight per thread (at most 256 bytes of
+//     them, so fp64 with 27 legs loads in two groups and does not spill).  Index math is 32-bit
+//     within a leg; each leg's base is k * n in 64 bits (27 * 511^3
+//     overflows int32).  Legs load with the evict-first hint (__ldcs), x
+//     through the read-only path (__ldg), so the legs do not push x out of
+//     L1/L2.  No vector loads: a 255-wide row starts on 4 bytes.
+//   - A 2-D grid (ny, nx) runs as the 3-D grid (ny, 1, nx) with shifts
+//     (sy, 0, sx), so its rows are the marched axis.
+//   The TPU slab halos, the 8-row 2-D halo blocks and the per-slab leg blocks
+//   have no counterpart.
 //   Masking: a neighbour outside the grid is never read and contributes 0.
 //   The kernel does not rely on the zero legs there: 0 * NaN = NaN, so a
 //   read of memory beyond the grid would leak (the reference's fault
@@ -36,16 +62,27 @@
 //   launches a kernel at every level.
 // ---------------------------------------------------------------------------
 
+#include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MAX_LEGS 27
+#define THREADS 256
+// design constants; scripts/stencil_tuning.py builds other values with -D
+#ifndef ZRUN
+#define ZRUN 4  // z planes a thread marches
+#endif
+#ifndef BATCH_BYTES
+#define BATCH_BYTES 16  // accumulator-width bytes of each stream per load batch
+#endif
 
-struct Shifts {
-  int n;
-  signed char sz[MAX_LEGS];
+struct Plan {
+  int n;                  // legs (read by the generic instantiation only)
+  int off[MAX_LEGS];      // sz * ny * nx + sy * nx + sx
   signed char sy[MAX_LEGS];
   signed char sx[MAX_LEGS];
+  unsigned zlo, zhi;      // legs valid at z = 0 (sz >= 0) and at z = nz - 1 (sz <= 0)
+  int hz, hy, hx;         // 1 where some shift moves along the axis
 };
 
 enum Code { FP32 = 0, BF16 = 1, FP64 = 2 };
@@ -56,31 +93,125 @@ __device__ __forceinline__ double to_acc(double v) { return v; }
 __device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
 
+// legs stream once: evict-first
+__device__ __forceinline__ float ld_leg(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ double ld_leg(const double* p) { return __ldcs(p); }
+__device__ __forceinline__ __nv_bfloat16 ld_leg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// points per batch of loads: about BATCH_BYTES of accumulator-width loads
+// of each stream (legs, x) in flight per thread
+template <typename V>
+__host__ __device__ constexpr int batch(int k) {
+  return k * (int)sizeof(V) <= BATCH_BYTES ? 4 : (k * (int)sizeof(V) <= 2 * BATCH_BYTES ? 2 : 1);
+}
+
+// legs per group of loads: at most 256 bytes (64 registers) of leg and x
+// values in flight, so the fp64 27-leg instantiation does not spill
 template <typename L, typename V>
-__global__ void spmv_var_kernel(const L* __restrict__ legs, const V* __restrict__ x,
-                                V* __restrict__ y, int nz, int ny, int nx, Shifts sh) {
-  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  const int iz = blockIdx.z;
-  if (ix >= nx || iy >= ny) return;
-  const long long n = (long long)nz * ny * nx;
-  const long long p = ((long long)iz * ny + iy) * nx + ix;
-  V acc = 0;
-  for (int k = 0; k < sh.n; ++k) {
-    const int jz = iz + sh.sz[k], jy = iy + sh.sy[k], jx = ix + sh.sx[k];
-    if (jz < 0 || jz >= nz || jy < 0 || jy >= ny || jx < 0 || jx >= nx) continue;
-    acc = madd(to_acc(legs[(long long)k * n + p]), x[((long long)jz * ny + jy) * nx + jx], acc);
+__host__ __device__ constexpr int group(int k, int b) {
+  return b * k * (int)(sizeof(L) + sizeof(V)) <= 256 ? k : 256 / (b * (int)(sizeof(L) + sizeof(V)));
+}
+
+// y at B points p, p + plane, ...: legs loaded group by group, every load
+// of a group before its first FMA, legs summed in order.  MASK: leg k only
+// where bit k of m is set (its neighbour lies in the grid).
+template <int K, int B, bool MASK, typename L, typename V>
+__device__ __forceinline__ void points(const L* __restrict__ legs, size_t n,
+                                       const V* __restrict__ x, V* __restrict__ y, int p,
+                                       int plane, const Plan& plan, int nl, unsigned m) {
+  constexpr int KG = group<L, V>(K, B);
+  V acc[B];
+#pragma unroll
+  for (int j = 0; j < B; ++j) acc[j] = V(0);
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += KG) {
+    L lv[B][KG];
+    V xv[B][KG];
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) {
+        const int k = k0 + kk;
+        lv[j][kk] = L(0.0f);
+        xv[j][kk] = V(0);
+        if (k < K && k < nl && (!MASK || ((m >> k) & 1u))) {
+          lv[j][kk] = ld_leg(legs + (size_t)k * n + (p + j * plane));
+          xv[j][kk] = __ldg(x + (p + j * plane + plan.off[k]));
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) {
+        const int k = k0 + kk;
+        if (k < K && k < nl && (!MASK || ((m >> k) & 1u)))
+          acc[j] = madd(to_acc(lv[j][kk]), xv[j][kk], acc[j]);
+      }
   }
-  y[p] = acc;
+#pragma unroll
+  for (int j = 0; j < B; ++j) y[p + j * plane] = acc[j];
+}
+
+template <typename L, typename V, int NL>
+__global__ void __launch_bounds__(THREADS)
+spmv_var_kernel(const L* __restrict__ legs, const V* __restrict__ x, V* __restrict__ y, int nz,
+                int ny, int nx, const __grid_constant__ Plan plan) {
+  constexpr int K = NL > 0 ? NL : MAX_LEGS;
+  constexpr int B = batch<V>(K);
+  static_assert(ZRUN % B == 0, "a full run is whole batches");
+  const int nl = NL > 0 ? NL : plan.n;
+  const int bx0 = blockIdx.x * blockDim.x, by0 = blockIdx.y * blockDim.y;
+  const int z0 = blockIdx.z * ZRUN;
+  const int ix = bx0 + threadIdx.x, iy = by0 + threadIdx.y;
+  const bool interior = bx0 >= plan.hx && bx0 + (int)blockDim.x <= nx - plan.hx &&
+                        by0 >= plan.hy && by0 + (int)blockDim.y <= ny - plan.hy &&
+                        z0 >= plan.hz && z0 + ZRUN <= nz - plan.hz;
+  if (ix >= nx || iy >= ny) return;
+  const int plane = ny * nx;
+  const size_t n = (size_t)plane * nz;
+  int p = (z0 * ny + iy) * nx + ix;
+
+  if (interior) {
+    for (int j0 = 0; j0 < ZRUN; j0 += B, p += B * plane)
+      points<K, B, false>(legs, n, x, y, p, plane, plan, nl, 0u);
+    return;
+  }
+  // boundary block: a leg whose neighbour leaves the grid is not read
+  unsigned mxy = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (k < nl && (unsigned)(ix + plan.sx[k]) < (unsigned)nx &&
+        (unsigned)(iy + plan.sy[k]) < (unsigned)ny)
+      mxy |= 1u << k;
+  const int zend = min(z0 + ZRUN, nz);
+  for (int z = z0; z < zend; ++z, p += plane) {
+    unsigned m = mxy;
+    if (z == 0) m &= plan.zlo;
+    if (z == nz - 1) m &= plan.zhi;
+    points<K, 1, true>(legs, n, x, y, p, plane, plan, nl, m);
+  }
 }
 
 template <typename L, typename V>
-static int launch(const void* legs, const void* x, void* y, int nz, int ny, int nx,
-                  const Shifts& sh, cudaStream_t st) {
-  const dim3 block(32, 8, 1);
-  const dim3 grid((nx + 31) / 32, (ny + 7) / 8, nz);
-  spmv_var_kernel<L, V><<<grid, block, 0, st>>>((const L*)legs, (const V*)x, (V*)y, nz, ny, nx,
-                                                sh);
+static int launch(int spec, const void* legs, const void* x, void* y, int nz, int ny, int nx,
+                  const Plan& plan, cudaStream_t st) {
+  // a 2-D grid arrives as (ny, 1, nx): one row of threads per block
+  const dim3 block = ny == 1 ? dim3(nx > 128 ? 256 : (nx > 32 ? 128 : 32), 1, 1) : dim3(32, 8, 1);
+  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y,
+                  (nz + ZRUN - 1) / ZRUN);
+  const L* l = (const L*)legs;
+  const V* xv = (const V*)x;
+  V* yv = (V*)y;
+  switch (spec) {
+    case 0: spmv_var_kernel<L, V, 0><<<grid, block, 0, st>>>(l, xv, yv, nz, ny, nx, plan); break;
+    case 5: spmv_var_kernel<L, V, 5><<<grid, block, 0, st>>>(l, xv, yv, nz, ny, nx, plan); break;
+    case 7: spmv_var_kernel<L, V, 7><<<grid, block, 0, st>>>(l, xv, yv, nz, ny, nx, plan); break;
+    case 9: spmv_var_kernel<L, V, 9><<<grid, block, 0, st>>>(l, xv, yv, nz, ny, nx, plan); break;
+    case 27: spmv_var_kernel<L, V, 27><<<grid, block, 0, st>>>(l, xv, yv, nz, ny, nx, plan); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -89,23 +220,48 @@ extern "C" {
 const char* cg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // code: 0 fp32 legs / fp32 x, 1 bf16 legs / fp32 x, 2 fp64 legs / fp64 x.
-// legs: (nlegs, nz, ny, nx) contiguous; shifts: nlegs (dz, dy, dx) triples,
-// each component in {-1, 0, 1}.
-int cg_spmv_var(int code, const void* legs, const void* x, void* y, int nz, int ny, int nx,
-                int nlegs, const int* shifts, void* stream) {
-  if (nlegs < 1 || nlegs > MAX_LEGS || nz < 1 || nz > 65535) return (int)cudaErrorInvalidValue;
-  Shifts sh;
-  sh.n = nlegs;
+// spec: the instantiation, nlegs itself for a specialised count (5, 7, 9,
+// 27) or 0 for the generic one.  legs: (nlegs, nz, ny, nx) contiguous;
+// shifts: nlegs (dz, dy, dx) triples, each component in {-1, 0, 1}.
+int cg_spmv_var(int code, int spec, const void* legs, const void* x, void* y, int nz, int ny,
+                int nx, int nlegs, const int* shifts, void* stream) {
+  if (nlegs < 1 || nlegs > MAX_LEGS || nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  if (spec != 0 && spec != nlegs) return (int)cudaErrorInvalidValue;
+  int sz[MAX_LEGS], sy[MAX_LEGS], sx[MAX_LEGS];
   for (int k = 0; k < nlegs; ++k) {
-    sh.sz[k] = (signed char)shifts[3 * k + 0];
-    sh.sy[k] = (signed char)shifts[3 * k + 1];
-    sh.sx[k] = (signed char)shifts[3 * k + 2];
+    sz[k] = shifts[3 * k + 0];
+    sy[k] = shifts[3 * k + 1];
+    sx[k] = shifts[3 * k + 2];
+  }
+  if (nz == 1) {  // march over rows: (1, ny, nx) -> (ny, 1, nx)
+    nz = ny;
+    ny = 1;
+    for (int k = 0; k < nlegs; ++k) {
+      const int t = sz[k];
+      sz[k] = sy[k];
+      sy[k] = t;
+    }
+  }
+  const long long plane = (long long)ny * nx;
+  if (plane * nz + (ZRUN + 2) * plane > INT_MAX || (nz + ZRUN - 1) / ZRUN > 65535)
+    return (int)cudaErrorInvalidValue;
+  Plan plan = {};
+  plan.n = nlegs;
+  for (int k = 0; k < nlegs; ++k) {
+    plan.off[k] = (int)(sz[k] * plane + sy[k] * nx + sx[k]);
+    plan.sy[k] = (signed char)sy[k];
+    plan.sx[k] = (signed char)sx[k];
+    if (sz[k] >= 0) plan.zlo |= 1u << k;
+    if (sz[k] <= 0) plan.zhi |= 1u << k;
+    plan.hz |= sz[k] != 0;
+    plan.hy |= sy[k] != 0;
+    plan.hx |= sx[k] != 0;
   }
   const cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
-    case FP32: return launch<float, float>(legs, x, y, nz, ny, nx, sh, st);
-    case BF16: return launch<__nv_bfloat16, float>(legs, x, y, nz, ny, nx, sh, st);
-    case FP64: return launch<double, double>(legs, x, y, nz, ny, nx, sh, st);
+    case FP32: return launch<float, float>(spec, legs, x, y, nz, ny, nx, plan, st);
+    case BF16: return launch<__nv_bfloat16, float>(spec, legs, x, y, nz, ny, nx, plan, st);
+    case FP64: return launch<double, double>(spec, legs, x, y, nz, ny, nx, plan, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,10 +16,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
@@ -49,19 +50,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     h.update(SOURCES[name].read_bytes())
     return BUILD_DIR / f"libcg_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+def build(names: Optional[Iterable[str]] = None, defines: Tuple[str, ...] = ()) -> Dict[str, Path]:
     """Compile every named library (default: all) unless a build of its
     current source exists, one ``nvcc`` per source, started together.
+    ``defines`` (``"NAME=value"``) override a source's compile-time design
+    constants, for the tuning script (``scripts/stencil_tuning.py``).
     ``nvcc``'s output (including ``-Xptxas -v``) is kept beside each library
     as ``.log``.  Returns ``{name: library path}``."""
     names = list(SOURCES) if names is None else list(names)
-    outs = {name: library_path(name) for name in names}
+    outs = {name: library_path(name, defines) for name in names}
     todo = {name: out for name, out in outs.items() if not out.exists()}
     if not todo:
         return outs
@@ -71,7 +78,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     for name, out in todo.items():
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         log = open(out.with_suffix(".log"), "w")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+        proc = subprocess.Popen([nvcc, *_flags(defines), "-o", str(tmp), str(SOURCES[name])],
                                 stdout=log, stderr=subprocess.STDOUT)
         running.append((name, out, tmp, log, proc))
     failed = []
@@ -88,18 +95,39 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return outs
 
 
+def kernel_resources(name: str, defines: Tuple[str, ...] = ()) -> Dict[str, Dict[str, int]]:
+    """Per kernel entry of a built library, what ``ptxas -v`` reported:
+    ``{mangled entry: {"registers", "stack", "spill_stores", "spill_loads"}}``."""
+    out, entry = {}, None
+    for line in library_path(name, defines).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m[1])
+    return out
+
+
 def _bind_stencil(lib: ctypes.CDLL) -> None:
     lib.cg_spmv_const.argtypes = [_P, _P, _I, _I, _I, _I, _FP, _IP, _P]
     lib.cg_spmv_const.restype = _I
     lib.cg_cheb_const.argtypes = [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _FP, _IP, _I, _I,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _FP, _IP, _I, _I, _I, _I, _I,
         ctypes.c_float, _FP, _FP, _P,
     ]
     lib.cg_cheb_const.restype = _I
 
 
 def _bind_stencil_var(lib: ctypes.CDLL) -> None:
-    lib.cg_spmv_var.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _IP, _P]
+    lib.cg_spmv_var.argtypes = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _IP, _P]
     lib.cg_spmv_var.restype = _I
 
 
@@ -119,10 +147,10 @@ _BIND = {"stencil": _bind_stencil, "stencil_var": _bind_stencil_var, "dia": _bin
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed (once per
     process)."""
-    lib = ctypes.CDLL(str(build([name])[name]))
+    lib = ctypes.CDLL(str(build([name], defines)[name]))
     lib.cg_error_string.argtypes = [_I]
     lib.cg_error_string.restype = ctypes.c_char_p
     _BIND[name](lib)

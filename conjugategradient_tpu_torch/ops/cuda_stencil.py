@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +49,51 @@ def _cheb_halo(degree: int, zero_x: bool, want_resid: bool) -> int:
     ``degree``, plus one for the ``A x0`` of a given x0 when the residual is
     emitted (the x path still erodes only ``degree`` deep)."""
     return degree + (1 if (want_resid and not zero_x) else 0)
+
+
+#: z chunks of kernel #2 (planes one block owns), largest first: a launch
+#: takes the largest that still gives every SM a block
+CHEB_CHUNKS = (128, 64, 32, 16)
+#: the H100 SXM's streaming multiprocessors
+H100_SMS = 132
+
+
+class ChebGeometry(NamedTuple):
+    """Kernel #2's launch geometry for one (degree, zero_x, want_resid)
+    variant, the same as ``Wave`` in ``csrc/stencil.cu`` (whose C entry
+    refuses a halo or tile that differs): ``h`` the halo, ``napps`` the
+    applications of A (pipeline stages), ``tile`` the (x, y) interior tile,
+    ``threads`` one per column of the tile plus h on each side, ``smem`` the
+    bytes of the operand rings (four planes of the extended tile per
+    stage), ``chunk`` the z planes a block owns."""
+
+    h: int
+    napps: int
+    tile: Tuple[int, int]
+    threads: int
+    smem: int
+    chunk: int
+
+
+def cheb_geometry(degree: int, zero_x: bool, want_resid: bool, grid=None,
+                  sms: int = H100_SMS) -> ChebGeometry:
+    """Kernel #2's geometry; ``chunk`` for a 3-D ``grid`` on a card with
+    ``sms`` multiprocessors (the smallest chunk without a grid)."""
+    h = _cheb_halo(degree, zero_x, want_resid)
+    napps = (0 if zero_x else 1) + degree - 1 + (1 if want_resid else 0)
+    tx, ty = 32, (16 if h <= 4 else 8)
+    ext = (tx + 2 * h) * (ty + 2 * h)
+    chunk = CHEB_CHUNKS[-1]
+    if grid is not None:
+        nz, ny, nx = grid
+        tiles = -(-nx // tx) * -(-ny // ty)
+        chunk = next((c for c in CHEB_CHUNKS if tiles * -(-nz // c) >= sms), chunk)
+    return ChebGeometry(h, napps, (tx, ty), ext, napps * 4 * ext * 4, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _cheb_scalars(degree: int, lam_max: float, lam_min: float):
@@ -210,6 +256,26 @@ def spmv_const_stencil_cuda(A: ConstStencilMatrix, x: torch.Tensor) -> torch.Ten
 spmv_const_stencil_cuda.launches = 0
 
 
+def _cheb_launch(lib, A, b, x, degree, lam_max, lam_min, invd, want_resid, geo: ChebGeometry):
+    """Launch kernel #2 of ``lib`` with geometry ``geo`` on checked
+    arguments; returns ``(x_out, r_out or None)``."""
+    theta, alphas, betas = _cheb_scalars(degree, lam_max, lam_min)
+    nz, ny, nx = A.grid
+    x_out = torch.empty_like(b)
+    r_out = torch.empty_like(b) if want_resid else None
+    coeffs, shifts = _legs(A)
+    alpha = (ctypes.c_float * MAX_DEGREE)(*alphas)
+    beta = (ctypes.c_float * MAX_DEGREE)(*betas)
+    err = lib.cg_cheb_const(
+        b.data_ptr(), None if x is None else x.data_ptr(), invd.data_ptr(),
+        x_out.data_ptr(), None if r_out is None else r_out.data_ptr(),
+        nz, ny, nx, A.nlegs, coeffs, shifts, degree, geo.h, *geo.tile, geo.chunk, theta, alpha,
+        beta, _stream(b),
+    )
+    _raise_on(lib, err, "cheb_smooth_const_cuda")
+    return x_out, r_out
+
+
 def cheb_smooth_const_cuda(
     A: ConstStencilMatrix,
     b: torch.Tensor,
@@ -236,21 +302,9 @@ def cheb_smooth_const_cuda(
     invd = torch.as_tensor(inv_diag, dtype=torch.float32, device=b.device)
     if invd.ndim != 0:
         raise ValueError(f"{name}: inv_diag must be a scalar, got shape {tuple(invd.shape)}")
-    h = _cheb_halo(degree, x is None, want_resid)
-    theta, alphas, betas = _cheb_scalars(degree, lam_max, lam_min)
-    nz, ny, nx = A.grid
-    x_out = torch.empty_like(b)
-    r_out = torch.empty_like(b) if want_resid else None
-    coeffs, shifts = _legs(A)
-    alpha = (ctypes.c_float * MAX_DEGREE)(*alphas)
-    beta = (ctypes.c_float * MAX_DEGREE)(*betas)
-    lib = _build.load("stencil")
-    err = lib.cg_cheb_const(
-        b.data_ptr(), None if x is None else x.data_ptr(), invd.data_ptr(),
-        x_out.data_ptr(), None if r_out is None else r_out.data_ptr(),
-        nz, ny, nx, A.nlegs, coeffs, shifts, degree, h, theta, alpha, beta, _stream(b),
-    )
-    _raise_on(lib, err, name)
+    x_out, r_out = _cheb_launch(_build.load("stencil"), A, b, x, degree, lam_max, lam_min, invd,
+                                want_resid, cheb_geometry(degree, x is None, want_resid, A.grid,
+                                                          _sms(b.device.index)))
     cheb_smooth_const_cuda.launches += 1
     cheb_smooth_const_cuda.launches_by_grid[tuple(A.grid)] += 1
     return (x_out, r_out) if want_resid else x_out
@@ -268,6 +322,16 @@ _CODES = {
 }
 #: leg dtype -> the key of ``launches_by_dtype``
 TAGS = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float64: "fp64"}
+#: leg counts with an instantiation of their own in kernel #3: the 2-D fine
+#: (5) and Galerkin (9) levels, the 3-D fine (7) and Galerkin (27) levels
+SPECIALISED_LEGS = (5, 7, 9, 27)
+
+
+def var_instantiation(nlegs: int) -> int:
+    """Kernel #3's instantiation for ``nlegs`` legs: the count itself where
+    it has its own, else 0, the generic one that reads the count at run
+    time."""
+    return nlegs if nlegs in SPECIALISED_LEGS else 0
 
 
 def _check_var_args(name: str, A: StencilMatrix, x: torch.Tensor) -> int:
@@ -302,6 +366,17 @@ def _check_var_args(name: str, A: StencilMatrix, x: torch.Tensor) -> int:
     return code
 
 
+def _var_launch(lib, code: int, A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch kernel #3 of ``lib`` on checked arguments."""
+    nz, ny, nx = ((1,) * (3 - len(A.grid))) + tuple(A.grid)
+    y = torch.empty_like(x)
+    err = lib.cg_spmv_var(code, var_instantiation(A.nlegs), A.data.data_ptr(), x.data_ptr(),
+                          y.data_ptr(), nz, ny, nx, A.nlegs, _shifts_arg(A.shifts, len(A.grid)),
+                          _stream(x))
+    _raise_on(lib, err, "spmv_stencil_cuda")
+    return y
+
+
 def spmv_stencil_cuda(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A x for grid-shaped ``x`` and a device ``StencilMatrix``: kernel
     #3 for a CUDA tensor, the twin for a CPU tensor."""
@@ -309,12 +384,7 @@ def spmv_stencil_cuda(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
         return spmv_stencil_ref(A, x)
     name = "spmv_stencil_cuda"
     code = _check_var_args(name, A, x)
-    nz, ny, nx = ((1,) * (3 - len(A.grid))) + tuple(A.grid)
-    y = torch.empty_like(x)
-    lib = _build.load("stencil_var")
-    err = lib.cg_spmv_var(code, A.data.data_ptr(), x.data_ptr(), y.data_ptr(), nz, ny, nx,
-                          A.nlegs, _shifts_arg(A.shifts, len(A.grid)), _stream(x))
-    _raise_on(lib, err, name)
+    y = _var_launch(_build.load("stencil_var"), code, A, x)
     spmv_stencil_cuda.launches += 1
     spmv_stencil_cuda.launches_by_grid[tuple(A.grid)] += 1
     spmv_stencil_cuda.launches_by_dtype[TAGS[A.data.dtype]] += 1

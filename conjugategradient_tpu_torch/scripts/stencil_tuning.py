@@ -1,0 +1,166 @@
+"""Design constants of kernels #2 and #3, measured on the card.
+
+    python -m conjugategradient_tpu_torch.scripts.stencil_tuning
+
+Builds ``csrc/stencil_var.cu`` (kernel #3) and ``csrc/stencil.cu`` (kernel
+#2) once for each value of a compile-time design constant (``nvcc -D``; all
+builds started together), prints each build's ``ptxas`` lines for the two
+kernels, and times each build at the main path's shapes with CUDA events
+after a warm-up:
+
+- kernel #3, ``ZRUN`` (z planes a thread marches) and ``BATCH_BYTES`` (loads
+  issued before the first FMA): 255^3 with 7 legs (fp32, bf16, fp64) and
+  127^3 with 27 legs (fp32, bf16), random legs;
+- kernel #2, ``CHEB_TY`` (interior tile rows) and ``CHEB_MINB`` (blocks per
+  SM asked of ptxas), each at z chunks of 16, 32, 64 and 128 planes:
+  Poisson, degree 2, at 255^3 and 127^3 the pre-smooth (zero x0, residual)
+  and the post-smooth (given x0), at 255^3 also the given-x0-with-residual
+  variant (h = 3) and the
+  pre-smooth with the legs in reverse order (the instantiation that reads
+  its shifts at run time, against the compile-time 7-point pattern).
+
+Every variant is held to the twin first (max error <= 1e-5 of max |twin|,
+1e-13 in fp64).  The launches go through the wrappers' launch helpers, not
+the wrappers, so no launch count moves.  The last line is one JSON record:
+``{"card": ..., "spmv_stencil": {variant: {shape: ms}}, "cheb_smooth_const":
+{variant: {shape: ms}}}``.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import itertools
+import json
+import sys
+
+import torch
+
+from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, StencilMatrix
+from conjugategradient_tpu_torch.ops import _build
+from conjugategradient_tpu_torch.ops import cuda_stencil as cs
+from conjugategradient_tpu_torch.ops.card import card_name, time_ms
+
+REL, REL64 = 1e-5, 1e-13
+#: build label -> -D overrides; the first of each is the shipped design
+VAR_BUILDS = {
+    "ZRUN=4 BATCH_BYTES=16": (),
+    "ZRUN=4 BATCH_BYTES=32": ("BATCH_BYTES=32",),
+    "ZRUN=4 BATCH_BYTES=64": ("BATCH_BYTES=64",),
+    "ZRUN=8 BATCH_BYTES=16": ("ZRUN=8",),
+    "ZRUN=8 BATCH_BYTES=32": ("ZRUN=8", "BATCH_BYTES=32"),
+    "ZRUN=16 BATCH_BYTES=32": ("ZRUN=16", "BATCH_BYTES=32"),
+}
+CHEB_BUILDS = {
+    "CHEB_TY=16 CHEB_MINB=2": (),
+    "CHEB_MINB=1": ("CHEB_MINB=1",),
+    "CHEB_TY=8": ("CHEB_TY=8",),
+    "CHEB_TY=8 CHEB_MINB=4": ("CHEB_TY=8", "CHEB_MINB=4"),
+}
+#: the 7-point and 27-point shifts in the order dia_to_stencil gives them
+SHIFTS7 = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (0, 1, 0), (1, 0, 0))
+SHIFTS27 = tuple(itertools.product((-1, 0, 1), repeat=3))
+#: the 3-D Poisson stencil (poisson_system's): 6 on the centre, -1 around
+POISSON = tuple(6.0 if s == (0, 0, 0) else -1.0 for s in SHIFTS7)
+
+
+def _err(out, ref):
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    return (max(float((o - r).abs().max()) for o, r in zip(outs, refs)),
+            max(float(r.abs().max()) for r in refs))
+
+
+def _var_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, grid, shifts in (("255^3 7 legs", (255,) * 3, SHIFTS7),
+                                ("127^3 27 legs", (127,) * 3, SHIFTS27)):
+        legs32 = torch.rand((len(shifts),) + grid, generator=g, device=dev)
+        dtypes = (torch.float32, torch.bfloat16) + ((torch.float64,) if len(shifts) == 7 else ())
+        for legs in dtypes:
+            vec = torch.float64 if legs == torch.float64 else torch.float32
+            A = StencilMatrix(legs32.to(legs), shifts, grid)
+            x = torch.randn(grid, generator=g, device=dev).to(vec)
+            yield f"{label} {cs.TAGS[legs]}", A, x
+
+
+def _cheb_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    invd = torch.tensor(1.0 / 6.0, device=dev)
+    for n in (255, 127):
+        grid = (n,) * 3
+        A = ConstStencilMatrix(POISSON, SHIFTS7, grid)
+        b, x0 = (torch.randn(grid, generator=g, device=dev) for _ in range(2))
+        cases = [("pre: zero x0 + resid", A, None, True), ("post: given x0", A, x0, False)]
+        if n == 255:
+            # the same operator with its legs in reverse order: no
+            # compile-time pattern, the shifts read at run time
+            Ar = ConstStencilMatrix(POISSON[::-1], SHIFTS7[::-1], grid)
+            cases += [("h=3: given x0 + resid", A, x0, True), ("pre, shifts at run time", Ar, None, True)]
+        for label, op, xin, resid in cases:
+            yield f"{n}^3 degree 2 {label}", (op, b, xin, 2, 2.0, 0.5, invd, resid)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("stencil_tuning: needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_name()
+    print(card)
+    builds = {("stencil_var", k): d for k, d in VAR_BUILDS.items()}
+    builds.update({("stencil", k): d for k, d in CHEB_BUILDS.items()})
+    # one nvcc per build, all started together
+    with cf.ThreadPoolExecutor(len(builds)) as pool:
+        paths = dict(zip(builds, pool.map(lambda kv: _build.build([kv[0][0]], kv[1])[kv[0][0]],
+                                          builds.items())))
+    for src, label in paths:
+        kernel = "spmv_var_kernel" if src == "stencil_var" else "cheb_const_kernel"
+        for entry, res in sorted(_build.kernel_resources(src, builds[src, label]).items()):
+            if kernel in entry:
+                print(f"ptxas {src} [{label}] {entry[:60]}: {res}")
+    record = {"card": card, "spmv_stencil": {}, "cheb_smooth_const": {}}
+
+    for label, defines in VAR_BUILDS.items():
+        lib = _build.load("stencil_var", defines)
+        row = record["spmv_stencil"][label] = {}
+        for shape, A, x in _var_cases(dev):
+            code = cs._CODES[(A.data.dtype, x.dtype)]
+            fn = lambda: cs._var_launch(lib, code, A, x)
+            err, scale = _err(fn(), cs.spmv_stencil_ref(A, x))
+            rel = REL64 if x.dtype == torch.float64 else REL
+            if not err <= rel * scale:
+                raise RuntimeError(f"spmv_stencil [{label}] {shape}: max err {err:.3e} > {rel}*{scale:.3e}")
+            ms = time_ms(fn, 50)
+            gb = (A.data.numel() * A.data.element_size() + 2 * x.numel() * x.element_size()) / 1e9
+            row[shape] = ms
+            print(f"time spmv_stencil [{label}] {shape}: {ms:.4f} ms ({gb / (ms * 1e-3):.0f} GB/s) "
+                  f"[{card}]")
+            del A, x
+
+    for label, defines in CHEB_BUILDS.items():
+        lib = _build.load("stencil", defines)
+        row = record["cheb_smooth_const"][label] = {}
+        for shape, args in _cheb_cases(dev):
+            A, b, xin, degree, hi, lo, invd, resid = args
+            ref = cs.cheb_smooth_const_ref(*args)
+            geo = cs.cheb_geometry(degree, xin is None, resid)
+            ty = dict(d.split("=") for d in defines).get("CHEB_TY")
+            if ty is not None and geo.h <= 4:
+                geo = geo._replace(tile=(geo.tile[0], int(ty)))
+            for chunk in cs.CHEB_CHUNKS:
+                g = geo._replace(chunk=chunk)
+                fn = lambda: cs._cheb_launch(lib, A, b, xin, degree, hi, lo, invd, resid, g)
+                out = fn()
+                err, scale = _err(out if resid else out[0], ref)
+                if not err <= REL * scale:
+                    raise RuntimeError(f"cheb [{label}] {shape} chunk {chunk}: max err {err:.3e}")
+                ms = time_ms(fn, 20)
+                row[f"{shape}, chunk {chunk}"] = ms
+                print(f"time cheb_smooth_const [{label}] {shape}, tile {g.tile}, chunk {chunk}: "
+                      f"{ms:.4f} ms [{card}]")
+    print(json.dumps(record))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

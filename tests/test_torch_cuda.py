@@ -6,12 +6,15 @@ the card with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``tests/conftest.py`` sets up JAX, which the GPU machine does not have).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from conjugategradient_tpu_torch.core import generators
 from conjugategradient_tpu_torch.core.formats import (
+    ConstStencilMatrix,
     DiaMatrix,
     StencilMatrix,
     dia_to_stencil,
@@ -94,6 +97,71 @@ def test_cheb_kernel_matches_twin(cuda, grid, degree, zero_x, want_resid):
     out, ref = cheb_smooth_const_cuda(*args), cheb_smooth_const_ref(*args)
     torch.cuda.synchronize()
     for o, r in zip(out if want_resid else (out,), ref if want_resid else (ref,)):
+        assert float((o - r).abs().max()) <= REL * float(r.abs().max())
+
+
+#: kernel #2's edge grids: nz below the pipeline's stages, nz not a multiple
+#: of the z chunk, nx and ny not multiples of the tile; the 7-point legs in
+#: reverse order (the instantiation that reads its shifts at run time); a
+#: 27-leg const-detected Galerkin level (the compile-time box pattern)
+CHEB_EDGE = ["(3, 40, 70)", "(37, 20, 40)", "(37, 21, 45)", "(37, 21, 45) legs reversed",
+             "(15, 15, 15) 27-leg Galerkin level"]
+
+
+def _cheb_edge(case, device):
+    """(operator, lam_min, lam_max, inv_diag) of a kernel #2 edge case."""
+    if case.endswith("Galerkin level"):
+        h = build_hierarchy(generators.poisson_system((31, 31, 31)).A, (31, 31, 31),
+                            dtype=np.float32, device=device)
+        lvl = h.levels[1]
+        assert lvl.A.nlegs == 27 and lvl.grid == (15, 15, 15)
+        return (lvl.A, *lvl.cheb_bounds, lvl.inv_diag)
+    grid = tuple(int(v) for v in case.split(")")[0].strip("(").split(","))
+    A = _const(grid)
+    if case.endswith("legs reversed"):
+        A = ConstStencilMatrix(A.coeffs[::-1], A.shifts[::-1], A.grid)
+    return A, 0.5, 2.0, torch.tensor(1.0 / 6.0, device=device)
+
+
+@pytest.mark.parametrize("case", CHEB_EDGE)
+@pytest.mark.parametrize("degree", [1, 2, cuda_stencil.MAX_DEGREE])
+@pytest.mark.parametrize("zero_x", [True, False])
+@pytest.mark.parametrize("want_resid", [False, True])
+def test_cheb_kernel_matches_twin_at_edge_grids(cuda, case, degree, zero_x, want_resid):
+    A, lo, hi, invd = _cheb_edge(case, cuda)
+    b, x0 = _rand(A.grid, 3, cuda), _rand(A.grid, 4, cuda)
+    args = (A, b, None if zero_x else x0, degree, hi, lo, invd, want_resid)
+    n0 = cheb_smooth_const_cuda.launches
+    out, ref = cheb_smooth_const_cuda(*args), cheb_smooth_const_ref(*args)
+    torch.cuda.synchronize()
+    assert cheb_smooth_const_cuda.launches == n0 + 1
+    for o, r in zip(out if want_resid else (out,), ref if want_resid else (ref,)):
+        assert float((o - r).abs().max()) <= REL * float(r.abs().max())
+
+
+def _nan_carved_grid(grid, seed, device):
+    """A grid tensor carved out of a NaN-filled buffer."""
+    n = int(np.prod(grid))
+    buf = torch.full((n + 2 * 4096,), float("nan"), device=device)
+    x = buf[4096 : 4096 + n].view(grid)
+    x.copy_(_rand(grid, seed, device))
+    return x
+
+
+@pytest.mark.parametrize("zero_x", [True, False])
+@pytest.mark.parametrize("want_resid", [False, True])
+def test_cheb_kernel_reads_nothing_outside_the_grid(cuda, zero_x, want_resid):
+    # b and x0 lie between NaNs: a load outside the grid (or an operand not
+    # zeroed outside the domain) would carry a NaN into an output
+    grid = (37, 21, 45)
+    A = _const(grid)
+    b, x0 = _nan_carved_grid(grid, 5, cuda), _nan_carved_grid(grid, 6, cuda)
+    args = (A, b, None if zero_x else x0, 2, 2.0, 0.5, torch.tensor(1.0 / 6.0, device=cuda),
+            want_resid)
+    out, ref = cheb_smooth_const_cuda(*args), cheb_smooth_const_ref(*args)
+    torch.cuda.synchronize()
+    for o, r in zip(out if want_resid else (out,), ref if want_resid else (ref,)):
+        assert not bool(torch.isnan(r).any()) and not bool(torch.isnan(o).any())
         assert float((o - r).abs().max()) <= REL * float(r.abs().max())
 
 
@@ -267,6 +335,44 @@ def test_var_stencil_kernel_reads_nothing_outside_the_grid(cuda, case):
     assert 0 < int(torch.isnan(ref).sum()) < n
     ok = ~torch.isnan(ref)
     assert float((y[ok] - ref[ok]).abs().max()) <= REL * float(ref[ok].abs().max())
+
+
+SHIFTS27 = tuple(itertools.product((-1, 0, 1), repeat=3))
+STAR7 = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (0, 1, 0), (1, 0, 0))
+#: hand-made stencils of kernel #3: two leg counts without an instantiation
+#: of their own (13, 19), every specialised count on a grid that has an
+#: interior block (3-D: more than two (32, 8) tiles and two 4-plane runs;
+#: 2-D: more than two 256-wide rows and two 4-row runs), a grid of boundary
+#: blocks only, and nz = 1
+VAR_HAND = {
+    "13 legs (10, 18, 66)": (SHIFTS27[:13], (10, 18, 66)),
+    "19 legs (10, 18, 66)": (tuple(s for s in SHIFTS27 if sum(map(abs, s)) <= 2), (10, 18, 66)),
+    "7 legs (10, 18, 66)": (STAR7, (10, 18, 66)),
+    "27 legs (10, 18, 66)": (SHIFTS27, (10, 18, 66)),
+    "7 legs (3, 3, 3)": (STAR7, (3, 3, 3)),
+    "7 legs nz=1 (1, 17, 65)": (STAR7, (1, 17, 65)),
+    "5 legs 2-D (40, 600)": (tuple(s[1:] for s in STAR7 if s[0] == 0), (40, 600)),
+    "9 legs 2-D (40, 600)": (tuple(s[1:] for s in SHIFTS27 if s[0] == 0), (40, 600)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VAR_HAND))
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+def test_var_stencil_kernel_matches_twin_on_hand_made_stencils(cuda, case, legs):
+    shifts, grid = VAR_HAND[case]
+    rng = np.random.default_rng(8)
+    A = StencilMatrix(torch.from_numpy(rng.uniform(-1, 1, (len(shifts),) + grid)).to(cuda, legs),
+                      shifts, grid)
+    assert A.nlegs == int(case.split()[0])
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    x = torch.from_numpy(rng.standard_normal(grid)).to(cuda, vec)
+    cuda_stencil.reset_launch_counts()
+    y = spmv_stencil_cuda(A, x)
+    torch.cuda.synchronize()
+    assert spmv_stencil_cuda.launches_by_dtype[cuda_stencil.TAGS[legs]] == 1
+    ref = spmv_stencil_ref(A, x)
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
 
 
 def test_var_stencil_kernel_raises_instead_of_falling_back(cuda):
