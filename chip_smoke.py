@@ -36,20 +36,33 @@ after:
   card against CPU; ``refined_solve_multi(grid=, matrix_dtype=bf16)`` on the
   255^3 smooth system, k = 2 (column 0's counts must equal the single-RHS
   host route's).
+- The default dtype: ``api.solve(method="mgcg")`` with dtype=None on the
+  generators' fp64 Poisson systems at 127^3 and on the 1-D grid (262143,)
+  (kernel #1's fp64 instantiations at every level, 3-D and 1-D patterns),
+  each against the fp64 host oracle, and again from a b already on the card
+  (the same x bit for bit); ``api.solve(A, B, method="cg")`` on the fp64
+  flagship with n x 4 (kernel #5's fp64 instantiation).
 - Kernel #6, the single-call accumulating DIA SpMM: the experiment module
   ``conjugategradient_tpu_torch.scripts.spmm_acc_experiment`` at its default
   shape (n = 414,720, band 160, k = 8), counted, and its measurement on the
   255^3 7-diagonal DIA at k = 4.
 
+Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
+NaN-carved x) and #5 (fp32, bf16 and fp64 legs) are held to their twins
+first, and the ptxas report of every instantiation of #1, #2, #3 and #5
+must show a 0-byte stack frame and no spills.
+
 Every phase has a bound and any miss, build failure or launch failure ends
 the run with a non-zero exit before the last line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the per-kernel
-record: launches on the main path, worst error against the twin, kernel and
-twin times, the least time the card could take (``bound_ms``: the bytes each
-input read once and each output written once at 3.35 TB/s, or the fp32
-operations at 67 TFLOP/s, whichever is longer; ``bound_by`` says which) and
-the time of one PyTorch call that computes the same function
-(``library_ms``: cuDNN's convolution for the const stencil, cuSPARSE's CSR
+record: launches on the fp32 paths above (``launches``) and each path's own
+count, the default-dtype ones too (``launches_by_path``), worst error
+against the twin, kernel and twin times, the least time the card could
+take (``bound_ms``: the bytes each input read once and each output written
+once at 3.35 TB/s, or the fp32 operations at 67 TFLOP/s, whichever is
+longer; ``bound_by`` says which) and the time of one PyTorch call that
+computes the same function (``library_ms``: a convolution for the const
+stencil, cuSPARSE's CSR
 product for the variable stencil and the DIA kernels; none for the
 Chebyshev smoother).  The library calls are yardsticks here and nowhere in
 the port.  Times come from CUDA events after a warm-up and each is printed
@@ -78,7 +91,14 @@ from conjugategradient_tpu_torch.core.formats import (
 )
 from conjugategradient_tpu_torch.models.workloads import WORKLOADS
 from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
-from conjugategradient_tpu_torch.ops.card import bound_ms, card_name, dia_nnz, spmm_bytes, time_ms
+from conjugategradient_tpu_torch.ops.card import (
+    bound_ms,
+    card_name,
+    dia_nnz,
+    graph_ms,
+    spmm_bytes,
+    time_ms,
+)
 from conjugategradient_tpu_torch.ops.cuda_dia import (
     TAGS,
     k_chunks,
@@ -127,7 +147,38 @@ SMALL_AGREE = 1e-4
 SEED = 0
 GRID_2D = (1023, 1023)
 GRID_3D = (255, 255, 255)
-SPMV_GRIDS = [(1023, 1023), (37, 53), (255, 255, 255), (23, 9, 12)]
+SPMV_GRIDS = [(1023, 1023), (37, 53), (255, 255, 255), (23, 9, 12), (4095,), (300,)]
+#: kernel #1's hand-made stencils (random coefficients): every compile-time
+#: pattern on grids with interior blocks and ragged edges (nz = 1 for the
+#: 3-D ones), the legs reversed and a short list (the run-time pattern);
+#: each in fp32 and fp64, and in fp64 on a NaN-carved x
+_T27 = tuple(itertools.product((-1, 0, 1), repeat=3))
+_STAR7 = tuple(s for s in _T27 if sum(map(abs, s)) <= 1)
+CONST_HAND = [
+    ("3-point (4095,)", ((-1,), (0,), (1,)), (4095,)),
+    ("5-point (40, 600)", ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), (40, 600)),
+    ("9-point (41, 299)", tuple(s[1:] for s in _T27 if s[0] == 0), (41, 299)),
+    ("7-point (13, 20, 70)", _STAR7, (13, 20, 70)),
+    ("7-point nz=1 (1, 17, 65)", _STAR7, (1, 17, 65)),
+    ("27-point (13, 20, 70)", _T27, (13, 20, 70)),
+    ("27-point nz=1 (1, 17, 65)", _T27, (1, 17, 65)),
+    ("7-point reversed (13, 20, 70)", _STAR7[::-1], (13, 20, 70)),
+    ("2 legs (1000,)", ((0,), (1,)), (1000,)),
+    ("13 legs (13, 20, 70)", _T27[:13], (13, 20, 70)),
+]
+#: kernel #1's timed shapes beyond the record's 255^3 fp32: (label, shifts,
+#: grid), timed as a CUDA graph's replay (``graph_ms``): at a few µs a
+#: kernel outruns the host's launches
+TIME_CONST = [("255^3 7-point", _STAR7, (255, 255, 255)),
+              ("127^3 27-point", _T27, (127, 127, 127)),
+              ("1023^2 5-point", ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), (1023, 1023)),
+              ("(1048575,) 3-point", ((-1,), (0,), (1,)), (1048575,))]
+#: the default-dtype (fp64) MGCG: Poisson at 127^3 (a 255^3 Galerkin setup
+#: costs ~20 s of host time) and on a 1-D grid, to rel_l2 1e-10; the true
+#: fp64 relative residual by the host oracle must be within FP64_TRUE_REL
+FP64_GRIDS = [(127, 127, 127), (262143,)]
+FP64_TOL = 1e-10
+FP64_TRUE_REL = 1e-9
 CHEB_GRIDS = [(24, 9, 12), (63, 63, 63), (255, 255, 255)]
 #: kernel #2's edge grids: nz below the pipeline's stages, nz not a multiple
 #: of the z chunk, nx and ny not multiples of the (32, 16) tile; checked at
@@ -172,14 +223,15 @@ VAR_HAND = [("13 legs (10, 18, 66)", SHIFTS27[:13], (10, 18, 66)),
             ("7 legs (3, 3, 3)", tuple(s for s in SHIFTS27 if sum(map(abs, s)) <= 1), (3, 3, 3)),
             ("7 legs nz=1 (1, 17, 65)", tuple(s for s in SHIFTS27 if sum(map(abs, s)) <= 1), (1, 17, 65)),
             ("9 legs 2-D (40, 600)", tuple(s[1:] for s in SHIFTS27 if s[0] == 0), (40, 600))]
-#: solve walls that this script measured before the redesign of kernels #2
-#: and #3 (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+#: solve walls of this script's two runs on the tree before the redesign of
+#: kernels #1 and #5 (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+#: run's
 WALLS_BEFORE_MS = {
-    "MGCG 2-D 1023^2 solve": "46.4",
-    "MGCG 3-D 255^3 solve": "52.9",
-    "MGCG jump 255^3 warm solve": "443.4",
-    "multi-RHS MGCG jump 255^3 k=4": "1221.3",
-    "refined smooth 255^3 bf16 legs, device residual (timed run)": "1390-1400",
+    "MGCG 2-D 1023^2 solve": "42.8 / 31.1",
+    "MGCG 3-D 255^3 solve": "53.8 / 42.7",
+    "MGCG jump 255^3 warm solve": "361.1 / 432.6",
+    "multi-RHS MGCG jump 255^3 k=4": "810.2 / 1606.9",
+    "refined smooth 255^3 bf16 legs, device residual (timed run)": "1233.0 / 1332",
 }
 
 #: kernel #6 (single-call accumulating SpMM) against kernel #5: two rounding
@@ -295,6 +347,149 @@ def _cheb_galerkin_checks(dev, rand, errs):
                      lvl.inv_diag, rand, errs)
 
 
+def _const_kernel_checks(dev, errs):
+    """Kernel #1 against its twin: Poisson operators of SPMV_GRIDS (1-D, 2-D,
+    3-D) and the hand-made CONST_HAND stencils, each in fp32 and fp64, and
+    every hand-made one in fp64 on an x carved out of a NaN-filled buffer (a
+    read outside the grid would leak a NaN)."""
+    rng = np.random.default_rng(SEED + 5)
+    cases = [(f"Poisson {g}", _const_poisson(generators.poisson_system(g).A, g)) for g in SPMV_GRIDS]
+    for label, shifts, g in CONST_HAND:
+        coeffs = tuple(float(c) for c in rng.uniform(-1, 1, len(shifts)))
+        cases.append((label, ConstStencilMatrix(coeffs, shifts, g)))
+    for label, A in cases:
+        spec = cuda_stencil.const_view(A.grid, A.shifts).spec
+        x64 = torch.from_numpy(rng.standard_normal(A.grid)).to(dev)
+        inputs = [(torch.float32, x64.float()), (torch.float64, x64)]
+        if not label.startswith("Poisson"):
+            buf = torch.full((x64.numel() + 8192,), float("nan"), dtype=torch.float64, device=dev)
+            carved = buf[4096 : 4096 + x64.numel()].view(A.grid)
+            carved.copy_(x64)
+            inputs.append(("fp64 NaN-carved", carved))
+        for tag, x in inputs:
+            rel = KERNEL_REL64 if x.dtype == torch.float64 else KERNEL_REL
+            y, ref = spmv_const_stencil_cuda(A, x), spmv_const_stencil_ref(A, x)
+            torch.cuda.synchronize()
+            _require(y.dtype == x.dtype and not bool(torch.isnan(y).any()),
+                     f"spmv_const_stencil {label} {tag}: dtype {y.dtype} or a NaN")
+            err, scale = _max_err(y, ref)
+            _require(err <= rel * scale, f"spmv_const_stencil {label} {tag}: max err {err:.3e} > "
+                                         f"{rel}*{scale:.3e}")
+            if x.dtype == torch.float32:
+                errs["spmv_const_stencil"] = max(errs["spmv_const_stencil"], err)
+        print(f"spmv_const_stencil {label} (pattern {spec or 'run-time'}): fp32 and fp64 within "
+              f"{KERNEL_REL} / {KERNEL_REL64} of max|twin|" +
+              ("" if label.startswith("Poisson") else "; NaN-carved fp64 x: no NaN"))
+
+
+def _fp64_mgcg(dev, card):
+    """The default-dtype MGCG: ``api.solve(method="mgcg")`` with dtype=None on
+    the generators' fp64 Poisson systems of FP64_GRIDS over a hierarchy built
+    once (fp64 levels: kernel #1 in fp64 at every level, no kernel #2),
+    counted, then the same solve from a b already on the card (the same x
+    bit for bit).  Returns {path: kernel #1's launches in its counted
+    solve}."""
+    out = {}
+    for g in FP64_GRIDS:
+        s = generators.poisson_system(g)
+        t0 = time.perf_counter()
+        h = build_hierarchy(s.A, g, device=dev)
+        setup_s = time.perf_counter() - t0
+        kw = dict(method="mgcg", grid=g, tol=FP64_TOL, norm="rel_l2", hierarchy=h, device=dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = api.solve(s.A, s.b, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        by_grid = dict(spmv_const_stencil_cuda.launches_by_grid)
+        by_dtype = dict(spmv_const_stencil_cuda.launches_by_dtype)
+        tag = f"default-dtype MGCG Poisson {g}"
+        out[tag] = spmv_const_stencil_cuda.launches
+        _require(res.converged and res.x.dtype == torch.float64,
+                 f"{tag}: converged {res.converged}, x {res.x.dtype}")
+        rel = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
+        _require(rel <= FP64_TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {FP64_TRUE_REL}")
+        _require(set(by_dtype) == {"fp64"} and cheb_smooth_const_cuda.launches == 0,
+                 f"{tag}: kernel #1 by dtype {by_dtype}, kernel #2 {cheb_smooth_const_cuda.launches}")
+        for lvl in h.levels:
+            _require(by_grid.get(lvl.grid, 0) > 0, f"{tag}: no kernel #1 launch at level {lvl.grid}")
+        res_dev = api.solve(s.A, torch.from_numpy(s.b).to(dev), **kw)
+        _require(res_dev.iterations == res.iterations and torch.equal(res_dev.x, res.x),
+                 f"{tag}: b on the card gives another x ({res_dev.iterations} iterations)")
+        print(f"{tag}: {res.iterations} iterations, true fp64 rel residual {rel:.3e}, levels "
+              f"{[l.grid for l in h.levels]} (patterns "
+              f"{[cuda_stencil.const_view(l.grid, l.A.shifts).spec for l in h.levels]}), kernel #1 "
+              f"launches {by_dtype} by grid { {str(k): v for k, v in by_grid.items()} }; b on the "
+              "card: the same x bit for bit")
+        print(f"time {tag}: solve {wall_ms:.3f} ms, host hierarchy setup {setup_s:.3f} s [{card}]")
+    return out
+
+
+def _fp64_block_cg(fsys, dev, card):
+    """``api.solve(A, B, method="cg")`` on the flagship in fp64 (dtype=None)
+    with B = [b, three seeded normal columns], counted: kernel #5's fp64
+    instantiation once per iteration plus the initial residual; every column
+    converges to rel_l2 FP64_TOL with its true fp64 residual within
+    FP64_TRUE_REL.  Returns kernel #5's launches."""
+    rng = np.random.default_rng(SEED + 6)
+    B = np.column_stack([fsys.b] + [rng.standard_normal(fsys.n) for _ in range(MULTI_K - 1)])
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = api.solve(fsys.A, B, method="cg", tol=FP64_TOL, norm="rel_l2", device=dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_dtype = dict(spmm_dia_cuda.launches_by_dtype)
+    its = res.iterations.tolist()
+    tag = f"fp64 flagship block CG n x {MULTI_K}"
+    _require(bool(res.converged.all()) and res.x.dtype == torch.float64,
+             f"{tag}: converged {res.converged.tolist()}, its {its}, x {res.x.dtype}")
+    X = res.x.cpu().numpy()
+    rels = [_host_rel_residual(fsys.A, B[:, j], X[:, j]) for j in range(MULTI_K)]
+    _require(max(rels) <= FP64_TRUE_REL, f"{tag}: true fp64 relative residuals {rels}")
+    _require(by_dtype == {"fp64": max(its) + 1},
+             f"{tag}: spmm_dia launches {by_dtype} != fp64 iterations + 1 ({max(its) + 1})")
+    print(f"{tag}: iterations per column {its}, true fp64 rel residuals "
+          f"{[float(f'{r:.3e}') for r in rels]}, spmm_dia launches {by_dtype}")
+    print(f"time {tag}: wall {wall_ms:.3f} ms [{card}]")
+    return spmm_dia_cuda.launches
+
+
+def _conv(A, x):
+    """One PyTorch call that computes A x for a const stencil on grid-shaped
+    ``x``: ``conv1d``/``conv2d``/``conv3d`` with the coefficients as a 3^d
+    cross-correlation kernel and zero padding (the Dirichlet boundary)."""
+    d = len(A.grid)
+    w = torch.zeros((1, 1) + (3,) * d, dtype=x.dtype, device=x.device)
+    for c, s in zip(A.coeffs, A.shifts):
+        w[(0, 0) + tuple(1 + v for v in s)] = c
+    conv = (F.conv1d, F.conv2d, F.conv3d)[d - 1]
+    return lambda: conv(x[None, None], w, padding=1)[0, 0]
+
+
+def _const_times(dev, card):
+    """Kernel #1 at TIME_CONST's shapes in fp32 and fp64 (random
+    coefficients; the 255^3 fp32 row repeats the record's shape), each with
+    its twin, its library call (``_conv``, eager) and its bound: x read
+    once, y written once.  The 1023^2 and 1-D grids lie in the 50 MB L2,
+    which a graph's replay keeps warm: there the HBM bound is not one."""
+    rng = np.random.default_rng(SEED + 7)
+    for label, shifts, g in TIME_CONST:
+        A = ConstStencilMatrix(tuple(float(c) for c in rng.uniform(-1, 1, len(shifts))), shifts, g)
+        n = int(np.prod(g))
+        for dtype in (torch.float32, torch.float64):
+            x = torch.randn(g, device=dev, dtype=dtype)
+            ms = graph_ms(lambda: spmv_const_stencil_cuda(A, x), 200 if n < 2e6 else 50)
+            p_ms = time_ms(lambda: spmv_const_stencil_ref(A, x), 10)
+            tag = f"spmv_const_stencil {label} {TAGS[dtype]}"
+            lib_ms = _library(tag, _conv(A, x), spmv_const_stencil_cuda(A, x), card,
+                              100 if n < 2e6 else 20)
+            nbytes = 2 * n * x.element_size()
+            bound = bound_ms(nbytes, 2 * A.nlegs * n)
+            print(f"time {tag} (graph): kernel {ms:.4f} ms ({nbytes / 1e6 / ms:.0f} GB/s of "
+                  f"{nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms by {bound[1]}, {bound[0] / ms:.1%} "
+                  f"of it), twin {p_ms:.4f} ms, library call {lib_ms:.4f} ms [{card}]")
+
+
 def _true_rel_residual(A, b, x) -> float:
     """||b - A x|| / ||b|| in fp64 on the card, through the plain twin."""
     b64, x64 = b.double(), x.double().reshape(b.shape)
@@ -340,9 +535,10 @@ def _dia_cases(flagship_A):
 
 
 def _dia_kernel_checks(cases, dev, errs):
-    """Kernel #4 (fp32, bf16 and fp64 legs; plain and fused) and kernel #5
-    (k in SPMM_KS) against their twins; every SpMM column must equal the
-    single-RHS kernel bit for bit (same legs, same order, explicit fma)."""
+    """Kernel #4 and kernel #5 (k in SPMM_KS; fp32, bf16 and fp64 legs;
+    #4 plain and fused) against their twins; every SpMM column must equal
+    the single-RHS kernel bit for bit (same legs, same order, explicit
+    fma)."""
     rng = np.random.default_rng(SEED)
     for label, A_host in cases:
         for legs in LEG_DTYPES:
@@ -365,20 +561,19 @@ def _dia_kernel_checks(cases, dev, errs):
             errs["spmv_dia"] = max(errs["spmv_dia"], err)
             print(f"spmv_dia {tag}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e}); "
                   f"fused p.Ap err {dot_err:.3e} (sum|p Ap| {dot_scale:.3e})")
-            if legs == torch.float64:
-                continue
             worst = 0.0
             for k in SPMM_KS:
-                X = torch.from_numpy(rng.standard_normal((k, A.n))).to(dev, torch.float32)
+                X = torch.from_numpy(rng.standard_normal((k, A.n))).to(dev, vec)
                 Y, ref = spmm_dia_cuda(A, X), spmm_dia_ref(A, X)
                 torch.cuda.synchronize()
                 err, scale = _max_err(Y, ref)
-                _require(err <= KERNEL_REL * scale,
-                         f"spmm_dia {tag} k={k}: max err {err:.3e} > {KERNEL_REL}*{scale:.3e}")
+                _require(err <= rel * scale,
+                         f"spmm_dia {tag} k={k}: max err {err:.3e} > {rel}*{scale:.3e}")
                 same = all(torch.equal(Y[j], spmv_dia_cuda(A, X[j])) for j in range(k))
                 _require(same, f"spmm_dia {tag} k={k}: a column differs from the single-RHS kernel")
                 worst = max(worst, err)
-            errs["spmm_dia"] = max(errs["spmm_dia"], worst)
+            if legs != torch.float64:
+                errs["spmm_dia"] = max(errs["spmm_dia"], worst)
             print(f"spmm_dia {tag} k={SPMM_KS}: max|kernel-twin| {worst:.3e}; "
                   "every column equals the SpMV kernel's")
 
@@ -504,7 +699,9 @@ def _flagship_multi(fsys, dev, card) -> int:
 def _dia_times(A_host, dev, card, times):
     """Kernel vs twin at the flagship's shape (band 160, n = 207,402): the
     SpMV in three instantiations, fused vs unfused-plus-dot, the SpMM at
-    k = 4 and 8 vs k single SpMVs; and a read/copy bandwidth canary."""
+    k = 4 and 8 vs k single SpMVs and vs a CSR SpMM (``times`` gets (kernel,
+    twin, CSR) ms; bf16 legs: the CSR holds them upcast to fp32, the same
+    function); and a read/copy bandwidth canary."""
     rng = np.random.default_rng(SEED + 1)
     n = A_host.n
     xs = {v: torch.from_numpy(rng.standard_normal(n)).to(dev, v) for v in (torch.float32, torch.float64)}
@@ -522,14 +719,24 @@ def _dia_times(A_host, dev, card, times):
     f_ms = time_ms(lambda: spmv_dot_dia_cuda(A, x), 200)
     u_ms = time_ms(lambda: torch.dot(x, spmv_dia_cuda(A, x)), 200)
     print(f"time spmv_dot_dia fp32 fused: {f_ms:.4f} ms vs unfused SpMV + dot {u_ms:.4f} ms [{card}]")
-    for k in (4, 8):
-        X = torch.from_numpy(rng.standard_normal((k, n))).to(dev, torch.float32)
-        k_ms = time_ms(lambda: spmm_dia_cuda(A, X), 100)
-        s_ms = time_ms(lambda: [spmv_dia_cuda(A, X[j]) for j in range(k)], 100)
-        p_ms = time_ms(lambda: spmm_dia_ref(A, X), 5)
-        times[("spmm_dia", k)] = (k_ms, p_ms)
-        print(f"time spmm_dia fp32 k={k}: kernel {k_ms:.4f} ms vs {k} single SpMVs {s_ms:.4f} ms, "
-              f"twin {p_ms:.4f} ms [{card}]")
+    for legs, k in ((torch.float32, 4), (torch.float32, 8), (torch.bfloat16, 4), (torch.float64, 4)):
+        Ak = A if legs == torch.float32 else A_host.device_put(legs, dev)
+        vec = torch.float64 if legs == torch.float64 else torch.float32
+        X = torch.from_numpy(rng.standard_normal((k, n))).to(dev, vec)
+        k_ms = time_ms(lambda: spmm_dia_cuda(Ak, X), 100)
+        s_ms = time_ms(lambda: [spmv_dia_cuda(Ak, X[j]) for j in range(k)], 100)
+        p_ms = time_ms(lambda: spmm_dia_ref(Ak, X), 5)
+        csr = _csr(DiaMatrix(Ak.data.to(vec), Ak.offsets, Ak.shape))
+        Xn = X.T.contiguous()
+        tag = f"spmm_dia {TAGS[legs]} legs k={k}"
+        lib_ms = _library(tag, lambda: csr @ Xn, spmm_dia_cuda(Ak, X).T, card, 100)
+        nbytes = dia_nnz(Ak) * Ak.data.element_size() + 2 * k * n * X.element_size()
+        bound = bound_ms(nbytes, 2 * k * dia_nnz(Ak))
+        times[("spmm_dia", k, TAGS[legs])] = (k_ms, p_ms, lib_ms)
+        print(f"time {tag}: kernel {k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms, "
+              f"{bound[0] / k_ms:.1%} of it) vs {k} single SpMVs {s_ms:.4f} ms, twin {p_ms:.4f} ms, "
+              f"CSR SpMM {lib_ms:.4f} ms [{card}]")
+        del csr, Xn
     buf = torch.empty(A.data.numel(), dtype=torch.float32, device=dev).normal_()
     gb = buf.numel() * 4 / 1e9
     r_ms = time_ms(lambda: buf.sum(), 100)
@@ -952,21 +1159,18 @@ def _library(name, lib_fn, kernel_out, card, reps):
     return ms
 
 
-def _library_and_bounds(ops, fsys, sysj, hj, dev, card):
+def _library_and_bounds(ops, fsys, sysj, hj, dev, card, times):
     """For the main shape of kernels #1-#5: the library call's time and the
     bound.  #1 at 255^3 (cuDNN ``conv3d``), #2 degree-2 pre-smooth at 255^3
     (no library call), #3 the 255^3 jump fine level (cuSPARSE CSR SpMV), #4
-    band 160 fp32 (CSR SpMV), #5 band 160 k = 4 (CSR SpMM)."""
+    band 160 fp32 (CSR SpMV), #5 band 160 k = 4 (CSR SpMM, from
+    ``_dia_times``)."""
     lib, bounds = {}, {}
     A1 = ops[GRID_3D]
     n3 = int(np.prod(GRID_3D))
     x = torch.randn(GRID_3D, device=dev)
-    w = torch.zeros((1, 1, 3, 3, 3), device=dev)
-    for c, s in zip(A1.coeffs, A1.shifts):
-        w[(0, 0) + tuple(1 + d for d in s)] = c
-    lib["spmv_const_stencil"] = _library(
-        "spmv_const_stencil 255^3", lambda: F.conv3d(x[None, None], w, padding=1)[0, 0],
-        spmv_const_stencil_cuda(A1, x), card, 50)
+    lib["spmv_const_stencil"] = _library("spmv_const_stencil 255^3", _conv(A1, x),
+                                         spmv_const_stencil_cuda(A1, x), card, 50)
     bounds["spmv_const_stencil"] = bound_ms(2 * n3 * 4, 2 * A1.nlegs * n3)
     lib["cheb_smooth_const"] = None
     bounds["cheb_smooth_const"] = bound_ms(_cheb_bytes(n3, True, True),
@@ -984,10 +1188,7 @@ def _library_and_bounds(ops, fsys, sysj, hj, dev, card):
     lib["spmv_dia"] = _library("spmv_dia band 160 fp32", lambda: csr @ xf, spmv_dia_cuda(A, xf),
                                card, 200)
     bounds["spmv_dia"] = bound_ms(spmm_bytes(A, 1), 2 * nnz)
-    X = torch.randn((4, A.n), device=dev)
-    Xn = X.T.contiguous()
-    lib["spmm_dia"] = _library("spmm_dia band 160 fp32 k=4", lambda: csr @ Xn,
-                               spmm_dia_cuda(A, X).T, card, 100)
+    lib["spmm_dia"] = times[("spmm_dia", 4, "fp32")][2]
     bounds["spmm_dia"] = bound_ms(spmm_bytes(A, 4), 2 * 4 * nnz)
     return lib, bounds
 
@@ -1042,7 +1243,8 @@ def main() -> int:
     for name in lib_paths:
         for entry, res in sorted(_build.kernel_resources(name).items()):
             print(f"  ptxas {name}: {entry[:72]} {res}")
-    for src, kernel in (("stencil", "cheb_const_kernel"), ("stencil_var", "spmv_var_kernel")):
+    for src, kernel in (("stencil", "spmv_const_kernel"), ("stencil", "cheb_const_kernel"),
+                        ("stencil_var", "spmv_var_kernel"), ("dia", "spmm_dia_kernel")):
         res = {e: r for e, r in _build.kernel_resources(src).items() if kernel in e}
         _require(bool(res), f"ptxas: no {kernel} entry in the {src} build log")
         bad = {e: r for e, r in res.items()
@@ -1057,16 +1259,9 @@ def main() -> int:
     rand = lambda g: torch.randn(g, generator=rng, device=dev, dtype=torch.float32)
 
     # -- phase 2: kernels vs twins on the card ------------------------------
-    ops = {}
-    for g in SPMV_GRIDS:
-        A = _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
-        ops[g] = A
-        x = rand(g)
-        err, scale = _max_err(spmv_const_stencil_cuda(A, x), spmv_const_stencil_ref(A, x))
-        torch.cuda.synchronize()
-        _require(err <= KERNEL_REL * scale, f"spmv {g}: max err {err:.3e} > {KERNEL_REL}*{scale:.3e}")
-        errs["spmv_const_stencil"] = max(errs["spmv_const_stencil"], err)
-        print(f"spmv_const_stencil {g}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+    ops = {g: _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
+           for g in TIME_SPMV_GRIDS}
+    _const_kernel_checks(dev, errs)
     for g in CHEB_GRIDS:
         A = ops.get(g) or _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
         ops[g] = A
@@ -1134,11 +1329,23 @@ def main() -> int:
     res2 = solve2()
     res3 = solve3()
     torch.cuda.synchronize()
-    launches = {
-        "spmv_const_stencil": spmv_const_stencil_cuda.launches,
-        "cheb_smooth_const": cheb_smooth_const_cuda.launches,
-    }
+    # launches[name]: kernel name's count on the fp32 paths (the record's
+    # "launches"); by_path[name]: each path's own count, the default-dtype
+    # (fp64) paths too (the record's "launches_by_path")
+    launches = dict.fromkeys(KERNELS, 0)
+    by_path = {name: {} for name in KERNELS}
+
+    def count(path, counts, fp32=True):
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+                if fp32:
+                    launches[name] += n
+
+    count("Poisson MGCG 1023^2 + 255^3", {"spmv_const_stencil": spmv_const_stencil_cuda.launches,
+                                          "cheb_smooth_const": cheb_smooth_const_cuda.launches})
     by_grid = dict(cheb_smooth_const_cuda.launches_by_grid)
+    const_by_grid = dict(spmv_const_stencil_cuda.launches_by_grid)
 
     rel2 = _check_solution("MGCG 2-D", h2.levels[0].A, b2, res2)
     rel3 = _check_solution("MGCG 3-D", h3.levels[0].A, b3, res3)
@@ -1150,12 +1357,15 @@ def main() -> int:
           f"coarse {h3.coarse_inv.shape[0]}, setup {setup3:.2f} s")
 
     # -- phase 5: path proof ------------------------------------------------
-    for name, count in launches.items():
-        _require(count > 0, f"{name}: no launch on the main path")
+    for name in ("spmv_const_stencil", "cheb_smooth_const"):
+        _require(launches[name] > 0, f"{name}: no launch on the main path")
     for lvl in h3.levels:
         _require(by_grid.get(lvl.grid, 0) > 0, f"cheb_smooth_const: no launch at 3-D level {lvl.grid}")
-    print(f"launches on the main path: {launches}; fused Chebyshev by grid: "
-          f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }")
+    for lvl in h2.levels:
+        _require(const_by_grid.get(lvl.grid, 0) > 0, f"spmv_const_stencil: no launch at 2-D level {lvl.grid}")
+    print(f"launches on the main path: {by_path}; fused Chebyshev by grid: "
+          f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }; const-stencil SpMV "
+          f"by grid: { {str(k): v for k, v in sorted(const_by_grid.items(), reverse=True)} }")
 
     # plain CG on the 2-D system, for comparison
     policy2 = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=8 * sys2.n)
@@ -1166,42 +1376,52 @@ def main() -> int:
           f"true fp64 rel residual {rel_plain:.3e}")
 
     # -- the flagship path, counted: three refined routes, then multi-RHS ----
-    flag = _flagship_routes(fsys, dev, card)
-    multi_spmm = _flagship_multi(fsys, dev, card)
-    launches["spmv_dia"] = sum(sum(c.values()) for c in flag.values())
-    launches["spmm_dia"] = multi_spmm
+    for route, counts in _flagship_routes(fsys, dev, card).items():
+        count(f"flagship refined, {route}", {"spmv_dia": sum(counts.values())})
+    count("flagship refined n x 4", {"spmm_dia": _flagship_multi(fsys, dev, card)})
+
+    # -- the default dtype, counted: fp64 MGCG (kernel #1 in fp64, 3-D and
+    # 1-D), a b on the card, and the fp64 flagship block CG (kernel #5) -----
+    for path, n in _fp64_mgcg(dev, card).items():
+        count(path, {"spmv_const_stencil": n}, fp32=False)
+    count(f"fp64 flagship block CG n x {MULTI_K}", {"spmm_dia": _fp64_block_cg(fsys, dev, card)},
+          fp32=False)
 
     # -- the variable-coefficient path, counted: jump MGCG, smooth refined ---
     walls = {}
-    launches["spmv_stencil"], single_jump, walls["MGCG jump 255^3 warm solve"] = _var_mgcg(
-        sysj, hj, dev, card)
+    var_mgcg, single_jump, walls["MGCG jump 255^3 warm solve"] = _var_mgcg(sysj, hj, dev, card)
+    count("MGCG jump 255^3", {"spmv_stencil": var_mgcg})
     syss, hs = _var_hierarchy("smooth", dev)
     var_refine, single_smooth, walls["refined smooth 255^3 bf16 legs, device residual (timed run)"] = (
         _var_refine_routes(syss, hs, dev, card))
-    launches["spmv_stencil"] += var_refine
+    count("refined smooth 255^3 bf16 legs, host + device residual", {"spmv_stencil": var_refine})
 
     # -- the multi-RHS grid path, counted: 255^3 jump MGCG (reusing its
     # hierarchy), the 63^3 facade, the 255^3 smooth refined solve ------------
     multi_counts, walls["multi-RHS MGCG jump 255^3 k=4"] = _multi_mgcg(sysj, hj, single_jump, dev, card)
-    for counts in (multi_counts, _facade_multi_mgcg(dev, card),
-                   _refine_multi(syss, hs, single_smooth, dev, card)):
-        for name, count in counts.items():
-            launches[name] += count
+    count(f"multi-RHS MGCG jump 255^3 k={MULTI_K}", multi_counts)
+    count(f"api.solve(B, mgcg) {FACADE_GRID} k={MULTI_K}", _facade_multi_mgcg(dev, card))
+    count(f"refined_solve_multi smooth 255^3 k={REFINE_MULTI_K}",
+          _refine_multi(syss, hs, single_smooth, dev, card))
     del syss, hs
 
     # -- kernel #6's path, counted: the experiment at its default shape ------
-    launches["spmm_dia_acc"], acc_recs = _acc_experiment(sysj, dev)
+    acc_launches, acc_recs = _acc_experiment(sysj, dev)
+    count("kernel #6 experiment", {"spmm_dia_acc": acc_launches})
 
     # -- phase 6: times -----------------------------------------------------
     times = {}
-    for g in TIME_SPMV_GRIDS:
+    for g in TIME_SPMV_GRIDS:  # Poisson; below 2 M points from a CUDA graph
         A = ops[g]
         x = rand(g)
-        reps = 200 if np.prod(g) < 2e6 else 50
-        k_ms = time_ms(lambda: spmv_const_stencil_cuda(A, x), reps)
+        small = np.prod(g) < 2e6
+        reps = 200 if small else 50
+        k_ms = (graph_ms if small else time_ms)(lambda: spmv_const_stencil_cuda(A, x), reps)
         p_ms = time_ms(lambda: spmv_const_stencil_ref(A, x), reps)
         times[("spmv_const_stencil", g)] = (k_ms, p_ms)
-        print(f"time spmv_const_stencil {g}: kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms [{card}]")
+        print(f"time spmv_const_stencil Poisson {g}{' (graph)' if small else ''}: kernel "
+              f"{k_ms:.4f} ms, twin {p_ms:.4f} ms [{card}]")
+    _const_times(dev, card)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for g in TIME_CHEB_GRIDS:
         A = ops.get(g) or _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
@@ -1229,24 +1449,25 @@ def main() -> int:
     print(f"time plain CG 2-D solve: {time_ms(plain, 3):.3f} ms [{card}]")
     _dia_times(fsys.A, dev, card, times)
     _var_times(hj, dev, card, times)
-    lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card)
+    lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card, times)
     _acc_times(sysj, acc_recs, dev, card, times, lib, bounds)
 
     for tag, before in WALLS_BEFORE_MS.items():
-        print(f"wall {tag}: {walls[tag]:.3f} ms now, {before} ms before the redesign of kernels #2 "
-              f"and #3 [{card}]")
+        print(f"wall {tag}: {walls[tag]:.3f} ms now, {before} ms in two runs before the redesign "
+              f"of kernels #1 and #5 [{card}]")
 
     # -- record -------------------------------------------------------------
     main_shape = {"spmv_const_stencil": ("spmv_const_stencil", GRID_3D),
                   "cheb_smooth_const": ("cheb_smooth_const", GRID_3D, "pre: zero x0 + resid"),
                   "spmv_dia": ("spmv_dia", "fp32"),
-                  "spmm_dia": ("spmm_dia", 4),
+                  "spmm_dia": ("spmm_dia", 4, "fp32"),
                   "spmv_stencil": ("spmv_stencil", "255^3 7 legs", "fp32"),
                   "spmm_dia_acc": ("spmm_dia_acc", ACC_MAIN)}
     record = [
-        dict(name=name, **meta, launches=launches[name], max_abs_err=errs[name],
-             ms=times[main_shape[name]][0], plain_ms=times[main_shape[name]][1],
-             bound_ms=bounds[name][0], bound_by=bounds[name][1], library_ms=lib[name])
+        dict(name=name, **meta, launches=launches[name], launches_by_path=by_path[name],
+             max_abs_err=errs[name], ms=times[main_shape[name]][0],
+             plain_ms=times[main_shape[name]][1], bound_ms=bounds[name][0],
+             bound_by=bounds[name][1], library_ms=lib[name])
         for name, meta in KERNELS.items()
     ]
     for r in record:

@@ -18,7 +18,8 @@ Every other method of the JAX facade raises ``NotImplementedError`` naming
 the ROADMAP item that ports it; nothing is rerouted.
 
 ``device`` says where the solve runs; ``None`` takes the card when there is
-one, as the JAX package takes its default backend.  Host numpy arrays in,
+one, as the JAX package takes its default backend.  Host numpy arrays or
+torch tensors on any device in (as the JAX facade takes device arrays),
 results with ``.x``, ``.iterations``, ``.residual`` and ``.converged`` out.
 """
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from conjugategradient_tpu_torch.core import oracle
-from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, torch_dtype
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, place
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 _PRECONDITIONERS = "ROADMAP queue 1 item 9 (the rest of the hierarchy and the preconditioners)"
@@ -57,13 +58,6 @@ def _refuse(method: str):
             f"method={method!r}: preconditioner prefixes are not ported yet ({_PRECONDITIONERS})"
         )
     raise ValueError(f"unknown method {method!r}")
-
-
-def _place(a, dtype, device) -> torch.Tensor:
-    """A host array (or tensor) as a tensor on ``device``, cast to ``dtype``
-    (``None``: keep its dtype)."""
-    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
-    return t.to(device=device, dtype=t.dtype if dtype is None else torch_dtype(dtype))
 
 
 def solve(
@@ -113,8 +107,8 @@ def solve(
         _refuse(method)
     from conjugategradient_tpu_torch.solvers.cg import cg_solve
 
-    b_dev = _place(b, dtype, device)
-    x0_dev = None if x0 is None else _place(x0, dtype, device)
+    b_dev = place(b, dtype, device)
+    x0_dev = None if x0 is None else place(x0, dtype, device)
     A_dev = A.device_put(dtype, device) if isinstance(A, DiaMatrix) else A
     return cg_solve(A_dev, b_dev, x0_dev, policy, **kw)
 
@@ -133,8 +127,8 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
         _refuse(method)
     from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
 
-    B_dev = _place(B, dtype, device)
-    X0_dev = None if X0 is None else _place(X0, dtype, device)
+    B_dev = place(B, dtype, device)
+    X0_dev = None if X0 is None else place(X0, dtype, device)
     M = None
     if method == "mgcg":
         if grid is None:

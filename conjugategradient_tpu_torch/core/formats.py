@@ -88,6 +88,27 @@ def _put(data, dtype, device):
     return t.to(device=default_device(device), dtype=dt).contiguous()
 
 
+def place(a, dtype, device):
+    """A host array (or a torch tensor on any device) as a tensor on
+    ``device``, cast to ``dtype`` (``None``: keep its dtype).  A tensor
+    moves device to device, with no host round trip."""
+    import torch
+
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return t.to(device=device, dtype=t.dtype if dtype is None else torch_dtype(dtype))
+
+
+def host_f64(a) -> np.ndarray:
+    """A host array (or a torch tensor on any device) as a host fp64 numpy
+    array: one copy to the host for a device tensor, none for a host fp64
+    array or CPU fp64 tensor (the result then shares its memory)."""
+    import torch
+
+    if torch.is_tensor(a):
+        a = a.detach().to(device="cpu", dtype=torch.float64).numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
 def torch_dtype(dtype):
     """The torch dtype of a torch or numpy dtype (or scalar type)."""
     import torch

@@ -40,7 +40,43 @@
 //   pallas_call at :464 in _group_spmm).  Each coefficient is read once and
 //   applied to all K columns held in registers, so the dominant matrix
 //   stream is amortised K-fold.  Templated on K in {1, 2, 4, 8}; the wrapper
-//   runs larger or odd k in chunks.  fp32 and bf16-leg instantiations.
+//   runs larger or odd k in chunks.  Instantiations as kernel 4's: fp32,
+//   bf16 legs with fp32 columns, and fp64.
+//   Bound on the H100: device-memory bandwidth, the legs (132 MB fp32 at
+//   the flagship) and X and Y once each: 138.5 MB at k = 4, 0.0413 ms.
+//   The first design (one thread per row, a two-leg unrolled loop with a
+//   bounds branch per leg) kept about two coefficient loads in flight per
+//   thread and ran at 0.0838 ms (49%).  This one:
+//   - A block of SPMM_THREADS rows whose rows all have every diagonal
+//     inside [0, n) takes a path without tests; the others skip a leg whose
+//     neighbour leaves [0, n) and never read it.
+//   - The coefficient stream is software-pipelined in registers: the next
+//     batch of B coefficients (__ldcs, evict-first, so they do not push X
+//     out of L1) is loaded before the FMAs of this one.  B is SPMM_LEGS = 16
+//     for fp32 legs with K <= 4 on more than 16 legs, else SPMM_LEGS_SHORT
+//     = 8 (K = 8 and bf16 and fp64 legs ran as fast or faster with it).
+//   - Where a leg reads at least 32 bytes of X per row (fp32 K = 8, fp64
+//     K >= 4) or eight times its coefficient's bytes (bf16 legs, K >= 4),
+//     and the band spans at most SPMM_SPAN = 1024 rows, the block first
+//     stages its X window in shared memory (spmm_dia_kernel_stage), where a
+//     warp's read at any offset is one wavefront (two through L1 when
+//     unaligned).  The staged form is held to SPMM_STAGE_MINB = 4 blocks per
+//     SM (64 registers): left to itself ptxas gave fp64 K = 4 80 registers
+//     and 3 blocks per SM.  fp64 k = 4: unstaged 0.1206 ms, staged 0.1142,
+//     staged and capped 0.1002.
+//   Measured (scripts/dia_tuning.py; NVIDIA H100 80GB HBM3, 700.00 W):
+//   band 160 k = 4 fp32 0.0639 ms (65% of the bound), fp64 0.1002 ms (83%),
+//   bf16 legs 0.0605 ms; k = 8 fp32 0.0733 ms (unstaged 0.0881); the 255^3
+//   seven-diagonal operator at k = 4 0.3836 ms (77%).  What did not help
+//   fp32 k = 4 (the same script): deeper or shallower batches (4, 8, 12,
+//   24 legs: 0.0664-0.0883 ms), staging X, 64- or 128-row blocks.  Tried,
+//   slower and removed: L2-only (__ldcg) or read-only-path (__ldg)
+//   coefficient loads, a register cap on the unstaged form so that the
+//   flagship's 811 blocks (3241 of 64 rows) fit one wave (0.0860 ms: 8-leg
+//   batches in 40 registers), and a cp.async copy pipeline of the
+//   coefficients into shared memory.
+//   Each thread sums its own row's legs in A.offsets order with an explicit
+//   fma, so column j equals kernel 4's SpMV of column j bit for bit.
 //
 // Kernel 6: the single-call accumulating DIA SpMM, the same Y = A X as
 //   kernel 5 with the diagonals taken in groups.  Replaces
@@ -80,6 +116,26 @@
 #define ACC_TILE 256
 #define ACC_SPAN 512
 #define ACC_LMAX 48
+// kernel 5's design constants; scripts/dia_tuning.py builds other values
+// with -D
+#ifndef SPMM_THREADS
+#define SPMM_THREADS 256  // rows per block, one thread each
+#endif
+#ifndef SPMM_LEGS
+#define SPMM_LEGS 16  // coefficients per batch: fp32 legs, K <= 4, more than 16 legs
+#endif
+#ifndef SPMM_LEGS_SHORT
+#define SPMM_LEGS_SHORT 8  // coefficients per batch otherwise
+#endif
+#ifndef SPMM_SPAN
+#define SPMM_SPAN 1024  // widest leg span (hi - lo) whose X window may be staged in shared memory
+#endif
+#ifndef SPMM_STAGE_BYTES
+#define SPMM_STAGE_BYTES 32  // least X bytes a leg reads per row for the window to be staged
+#endif
+#ifndef SPMM_STAGE_MINB
+#define SPMM_STAGE_MINB 4  // blocks per SM asked of ptxas for the staged form (64 registers)
+#endif
 
 struct Offsets {
   int n;
@@ -153,27 +209,124 @@ sum_partials_kernel(const V* __restrict__ partial, int m, V* __restrict__ out) {
   if (threadIdx.x == 0) *out = s[0];
 }
 
-// Y[c, i] = sum_k data[k, i] * X[c, i + offsets[k]] for K columns of stride ld
-template <typename L, int K>
-__global__ void __launch_bounds__(THREADS)
-spmm_dia_kernel(const L* __restrict__ data, const float* __restrict__ X, float* __restrict__ Y,
-                int n, long long ld, Offsets offs) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  float acc[K];
+// kernel 5's legs: the offsets, and the least and greatest offset clamped
+// to 0 (lo <= 0 <= hi) for the interior test
+struct SpmmOffsets {
+  int n;
+  int lo, hi;
+  int off[MAX_DIAGS];
+};
+
+// coefficients stream once: evict-first, so they do not push X out of L1
+__device__ __forceinline__ float ld_leg(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ double ld_leg(const double* p) { return __ldcs(p); }
+__device__ __forceinline__ __nv_bfloat16 ld_leg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// coefficients of B legs starting at leg k0, or 0 past the last leg
+template <typename L, int B>
+__device__ __forceinline__ void load_legs(L (&d)[B], const L* __restrict__ row, int n, int nd,
+                                          int k0) {
 #pragma unroll
-  for (int c = 0; c < K; ++c) acc[c] = 0.0f;
-#pragma unroll 2
-  for (int k = 0; k < offs.n; ++k) {
-    const int j = i + offs.off[k];
-    if (j >= 0 && j < n) {
-      const float d = to_acc(data[(long long)k * n + i]);
+  for (int b = 0; b < B; ++b)
+    d[b] = k0 + b < nd ? ld_leg(row + (size_t)(k0 + b) * n) : L(0.0f);
+}
+
+// Y[c, i] = sum_k data[k, i] * X[c, i + offsets[k]] for K columns of stride
+// ld, one thread per row, legs in offsets order.  The coefficient stream is
+// software-pipelined in registers: the B coefficients of the next batch are
+// loaded before the FMAs of this one, so two batches of loads are in flight
+// per thread.  MASK (blocks near either end of [0, n)): a leg whose neighbour
+// leaves [0, n) is not read and adds nothing.  STAGE: X comes from the
+// block's window win[c * W + (j - i0 - lo)] in shared memory instead of
+// through L1.
+template <typename L, typename V, int K, int B, bool MASK, bool STAGE>
+__device__ __forceinline__ void spmm_row(const L* __restrict__ row, const V* __restrict__ X,
+                                         V* __restrict__ Y, int n, long long ld,
+                                         const SpmmOffsets& offs, int i, const V* win, int W) {
+  V acc[K];
 #pragma unroll
-      for (int c = 0; c < K; ++c) acc[c] = madd(d, X[c * ld + j], acc[c]);
+  for (int c = 0; c < K; ++c) acc[c] = V(0);
+  const int nd = offs.n;
+  L cur[B], nxt[B];
+  load_legs(cur, row, n, nd, 0);
+  for (int k0 = 0; k0 < nd; k0 += B) {
+    if (k0 + B < nd) load_legs(nxt, row, n, nd, k0 + B);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int k = k0 + b;
+      const int j = i + (k < nd ? offs.off[k] : 0);
+      if (k < nd && (!MASK || (unsigned)j < (unsigned)n)) {
+        const V d = to_acc(cur[b]);
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          acc[c] = madd(d, STAGE ? win[c * W + (j - i + threadIdx.x - offs.lo)] : __ldg(X + (c * ld + j)),
+                        acc[c]);
+      }
     }
+#pragma unroll
+    for (int b = 0; b < B; ++b) cur[b] = nxt[b];
   }
 #pragma unroll
   for (int c = 0; c < K; ++c) Y[c * ld + i] = acc[c];
+}
+
+// One block of kernel 5.  STAGE (wide columns, a leg span of at most
+// SPMM_SPAN): the block first copies the window X[c, i0 + lo .. i0 +
+// SPMM_THREADS + hi) of every column, the part inside [0, n), into shared
+// memory, where a warp's reads at any offset take one wavefront (through L1
+// an unaligned read takes two); each thread requests up to four columns of a
+// window entry before it stores them.
+template <typename L, typename V, int K, int B, bool STAGE>
+__device__ __forceinline__ void spmm_block(const L* __restrict__ data, const V* __restrict__ X,
+                                           V* __restrict__ Y, int n, long long ld,
+                                           const SpmmOffsets& offs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* win = reinterpret_cast<V*>(smem);
+  const int i0 = blockIdx.x * SPMM_THREADS;
+  const int i = i0 + threadIdx.x;
+  const int W = SPMM_THREADS + offs.hi - offs.lo;
+  if constexpr (STAGE) {
+    constexpr int G = K < 4 ? K : 4;  // columns requested together
+    for (int t = threadIdx.x; t < W; t += SPMM_THREADS) {
+      const int j = i0 + offs.lo + t;
+      const bool in = (unsigned)j < (unsigned)n;
+#pragma unroll
+      for (int c0 = 0; c0 < K; c0 += G) {
+        V v[G];
+#pragma unroll
+        for (int c = 0; c < G; ++c) v[c] = in ? __ldg(X + ((c0 + c) * ld + j)) : V(0);
+#pragma unroll
+        for (int c = 0; c < G; ++c) win[(c0 + c) * W + t] = v[c];
+      }
+    }
+    __syncthreads();
+  }
+  // every row of the block has every neighbour inside [0, n): no tests
+  const bool interior = i0 + offs.lo >= 0 && (long long)i0 + SPMM_THREADS + offs.hi <= n;
+  if (i >= n) return;
+  if (interior)
+    spmm_row<L, V, K, B, false, STAGE>(data + i, X, Y, n, ld, offs, i, win, W);
+  else
+    spmm_row<L, V, K, B, true, STAGE>(data + i, X, Y, n, ld, offs, i, win, W);
+}
+
+template <typename L, typename V, int K, int B>
+__global__ void __launch_bounds__(SPMM_THREADS)
+spmm_dia_kernel(const L* __restrict__ data, const V* __restrict__ X, V* __restrict__ Y, int n,
+                long long ld, const __grid_constant__ SpmmOffsets offs) {
+  spmm_block<L, V, K, B, false>(data, X, Y, n, ld, offs);
+}
+
+// the staged form, held to SPMM_STAGE_MINB blocks per SM (64 registers):
+// left to itself ptxas gives it 80 registers in fp64 K = 4 (3 blocks of 256
+// rows per SM)
+template <typename L, typename V, int K, int B>
+__global__ void __launch_bounds__(SPMM_THREADS, SPMM_STAGE_MINB)
+spmm_dia_kernel_stage(const L* __restrict__ data, const V* __restrict__ X, V* __restrict__ Y,
+                      int n, long long ld, const __grid_constant__ SpmmOffsets offs) {
+  spmm_block<L, V, K, B, true>(data, X, Y, n, ld, offs);
 }
 
 // The group plan of kernel 6: group g holds plan legs [begin[g], begin[g+1]);
@@ -303,20 +456,69 @@ static int launch_spmv_dot(const void* data, const void* p, void* y, void* parti
   return (int)cudaGetLastError();
 }
 
+// the batch: SPMM_LEGS for fp32 legs, up to four columns and a long leg
+// list, else SPMM_LEGS_SHORT (more columns, a short list, and bf16 and fp64
+// legs ran faster with it; scripts/dia_tuning.py)
 template <typename L>
+static int spmm_batch(int k, int nd) {
+  return sizeof(L) == 4 && k <= 4 && nd > SPMM_LEGS ? SPMM_LEGS : SPMM_LEGS_SHORT;
+}
+
+// stage the X window (where the band spans at most SPMM_SPAN rows) when a
+// leg reads at least SPMM_STAGE_BYTES = 32 bytes of X per row (fp32 K = 8,
+// fp64 K >= 4) or eight times its coefficient's bytes (bf16 legs, K >= 4);
+// fp32 legs with K <= 4 ran faster through L1 (scripts/dia_tuning.py)
+template <typename L, typename V, int K>
+constexpr bool spmm_stages() {
+  return K * sizeof(V) >= SPMM_STAGE_BYTES || K * sizeof(V) >= 8 * sizeof(L);
+}
+
+template <typename L, typename V, int K, int B>
+static int launch_spmm_kb(const L* d, const V* x, V* y, int n, long long ld, const SpmmOffsets& o,
+                          cudaStream_t st) {
+  const int nb = (n + SPMM_THREADS - 1) / SPMM_THREADS;
+  if constexpr (spmm_stages<L, V, K>()) {
+    if (o.hi - o.lo <= SPMM_SPAN) {
+      const size_t smem = (size_t)K * (SPMM_THREADS + o.hi - o.lo) * sizeof(V);
+      if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(spmm_dia_kernel_stage<L, V, K, B>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   (int)smem);
+        if (e != cudaSuccess) return (int)e;
+      }
+      spmm_dia_kernel_stage<L, V, K, B><<<nb, SPMM_THREADS, smem, st>>>(d, x, y, n, ld, o);
+      return (int)cudaGetLastError();
+    }
+  }
+  spmm_dia_kernel<L, V, K, B><<<nb, SPMM_THREADS, 0, st>>>(d, x, y, n, ld, o);
+  return (int)cudaGetLastError();
+}
+
+// the batch (spmm_batch) picks the instantiation; only fp32 legs with up to
+// four columns ever take SPMM_LEGS, so only those are built with it
+template <typename L, typename V, int K>
+static int launch_spmm_k(int nd, const L* d, const V* x, V* y, int n, long long ld,
+                         const SpmmOffsets& o, cudaStream_t st) {
+  if constexpr (sizeof(L) == 4 && K <= 4) {
+    if (spmm_batch<L>(K, nd) == SPMM_LEGS)
+      return launch_spmm_kb<L, V, K, SPMM_LEGS>(d, x, y, n, ld, o, st);
+  }
+  return launch_spmm_kb<L, V, K, SPMM_LEGS_SHORT>(d, x, y, n, ld, o, st);
+}
+
+template <typename L, typename V>
 static int launch_spmm(int k, const void* data, const void* X, void* Y, int n, long long ld,
-                       const Offsets& o, cudaStream_t st) {
+                       const SpmmOffsets& o, cudaStream_t st) {
   const L* d = (const L*)data;
-  const float* x = (const float*)X;
-  float* y = (float*)Y;
+  const V* x = (const V*)X;
+  V* y = (V*)Y;
   switch (k) {
-    case 1: spmm_dia_kernel<L, 1><<<blocks_of(n), THREADS, 0, st>>>(d, x, y, n, ld, o); break;
-    case 2: spmm_dia_kernel<L, 2><<<blocks_of(n), THREADS, 0, st>>>(d, x, y, n, ld, o); break;
-    case 4: spmm_dia_kernel<L, 4><<<blocks_of(n), THREADS, 0, st>>>(d, x, y, n, ld, o); break;
-    case 8: spmm_dia_kernel<L, 8><<<blocks_of(n), THREADS, 0, st>>>(d, x, y, n, ld, o); break;
+    case 1: return launch_spmm_k<L, V, 1>(o.n, d, x, y, n, ld, o, st);
+    case 2: return launch_spmm_k<L, V, 2>(o.n, d, x, y, n, ld, o, st);
+    case 4: return launch_spmm_k<L, V, 4>(o.n, d, x, y, n, ld, o, st);
+    case 8: return launch_spmm_k<L, V, 8>(o.n, d, x, y, n, ld, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -353,16 +555,23 @@ int cg_spmv_dot_dia(int code, const void* data, const void* p, void* y, void* pa
   }
 }
 
-// k in {1, 2, 4, 8} columns starting at X / Y, column stride ld; code 0 or 1
+// k in {1, 2, 4, 8} columns starting at X / Y, column stride ld; code as
+// cg_spmv_dia
 int cg_spmm_dia(int code, int k, const void* data, const void* X, void* Y, int n, long long ld,
                 int ndiags, const int* offsets, void* stream) {
-  Offsets o;
-  int err = fill_offsets(&o, ndiags, offsets);
-  if (err) return err;
+  if (ndiags < 1 || ndiags > MAX_DIAGS || n < 1) return (int)cudaErrorInvalidValue;
+  SpmmOffsets o = {};
+  o.n = ndiags;
+  for (int k2 = 0; k2 < ndiags; ++k2) {
+    o.off[k2] = offsets[k2];
+    if (offsets[k2] < o.lo) o.lo = offsets[k2];
+    if (offsets[k2] > o.hi) o.hi = offsets[k2];
+  }
   const cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
-    case FP32: return launch_spmm<float>(k, data, X, Y, n, ld, o, st);
-    case BF16: return launch_spmm<__nv_bfloat16>(k, data, X, Y, n, ld, o, st);
+    case FP32: return launch_spmm<float, float>(k, data, X, Y, n, ld, o, st);
+    case BF16: return launch_spmm<__nv_bfloat16, float>(k, data, X, Y, n, ld, o, st);
+    case FP64: return launch_spmm<double, double>(k, data, X, Y, n, ld, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,22 +8,54 @@
 // nothing and do not synchronise; each C entry returns cudaGetLastError().
 //
 // ---------------------------------------------------------------------------
-// Kernel 1: const-stencil SpMV, y = sum_k c_k * shift_k(x), 2-D and 3-D.
+// Kernel 1: const-stencil SpMV, y = sum_k c_k * shift_k(x), 1-D, 2-D and
+//   3-D, fp32 and fp64.
 //   Replaces conjugategradient_tpu/ops/pallas_stencil.py::_kernel (:127,
 //   pallas_call at :152).
 //   Bound on the H100: device-memory bandwidth.  The operator has no matrix
-//   bytes (coefficients and shifts travel by value in a <= 27-leg struct),
-//   so the minimum traffic is one read of x and one write of y, 8 B per row.
-//   Design: one thread per output point, x fastest (a warp reads 32
-//   consecutive floats of each leg's window); the 2*d neighbour re-reads are
-//   left to L1/L2.  A 2-D grid (L, nx) runs as a 3-D grid (1, L, nx).
-//   Measured at 255^3 (NVIDIA H100 80GB HBM3, 700.00 W) it moves the
-//   minimum 133 MB at ~0.77 TB/s effective;
-//   unrolling the leg loop over the struct's capacity made it slower
-//   (0.195 vs 0.174 ms), so the loop stays rolled.
-//   Legs are summed in A.shifts order, as _kernel does, so the kernel and
-//   its twin differ only by FMA contraction.  The TPU slab halos, the 8-row
-//   2-D halo blocks and the Mosaic concat workaround have no counterpart.
+//   bytes (the coefficients travel in a __grid_constant__ plan), so the
+//   minimum traffic is one read of x and one write of y: 132.7 MB at 255^3
+//   in fp32, 0.0396 ms at 3.35 TB/s.  A 1023^2 grid (8.4 MB) lies in the
+//   50 MB L2, where the launch, not HBM, bounds it.
+//   The first design (one thread per point, a rolled loop over a by-value
+//   struct of shifts, a bounds test and a 64-bit address per leg, the 2 * d
+//   neighbour re-reads left to L1/L2) ran at 0.1752 ms (23% of the bound).
+//   This one applies kernel 3's recipe with zero matrix bytes:
+//   - Every grid runs on a 3-D view (ops/cuda_stencil.py::const_view): a
+//     2-D grid (ny, nx) as (ny, 1, nx), so its rows are the marched axis; a
+//     1-D grid as (1, 1, n) with one row of threads per block.
+//   - The patterns the hierarchies produce are compile-time (P): the 1-D
+//     3-point, the 2-D 5-point star and 9-point box, the 3-D 7-point star
+//     and 27-point box, each in the order dia_to_stencil gives (the C entry
+//     checks the wrapper's choice).  Other shift lists read theirs at run
+//     time (P = 0) and keep their order.
+//   - A thread owns an (x, y) column and marches a CONST_ZRUN-plane run in
+//     z.  A pattern's thread loads every x value its run reads once, all
+//     before the first FMA, into registers: the planes z0 - 1 .. z0 + ZR of
+//     its column and the in-plane neighbours the pattern reads (need<P, ZR>,
+//     a closed form so that every index is a compile-time constant), so the
+//     7-point star loads 5.5 values per point instead of 7 and the 27-point
+//     box 13.5 instead of 27.
+//   - A block whose neighbourhood lies inside the grid (uniform over the
+//     block) reads without a test.  A border block of a pattern fills the
+//     same registers with each value tested against the grid: outside it
+//     is 0 and never read, the zero that the twin's padding gives (no read
+//     past the grid carries a NaN in: 0 * NaN = NaN, the reference's fault
+//     92c5bd5).  The run-time pattern tests each leg in border blocks.
+//   Measured (scripts/stencil_tuning.py; NVIDIA H100 80GB HBM3, 700.00 W):
+//   255^3 7-point fp32 0.0551 ms (72% of the bound), fp64 0.0964 ms;
+//   127^3 27-point 0.0123 / 0.0187 ms; 1023^2 5-point 0.0038 ms and the
+//   1-D 3-point at 2^20 - 1 0.0039 ms, replayed from a CUDA graph.  A
+//   shared tile of each plane with a one-point halo instead of L1 was tried
+//   and lost for the star (0.0774 ms) and for the box (0.0175 ms), and was
+//   removed; runs of 2 and 8 planes lost at 255^3 or 127^3.
+//   The launch geometry is the wrapper's (ops/cuda_stencil.py::
+//   const_geometry: the block, and the grid that covers the view with the
+//   z run this library reports through cg_spmv_const_zrun).
+//   Legs are summed in A.shifts order with an explicit fma, so the kernel
+//   and its twin differ only by FMA contraction.  The TPU slab halos, the
+//   8-row 2-D halo blocks and the Mosaic concat workaround have no
+//   counterpart.
 //
 // Kernel 2: fused degree-d Chebyshev smoothing on D^-1 A (3-D), optionally
 //   from a zero x0 and optionally emitting r = D^-1 (b - A x_out).
@@ -85,6 +117,12 @@
 
 #define MAX_LEGS 27
 #define MAX_DEGREE 5
+#define THREADS 256
+// kernel 1's design constant; scripts/stencil_tuning.py builds other values
+// with -D (the wrapper reads it through cg_spmv_const_zrun)
+#ifndef CONST_ZRUN
+#define CONST_ZRUN 4  // planes a thread marches (1 for the 1-D 3-point pattern)
+#endif
 // kernel 2's design constants; scripts/stencil_tuning.py builds other
 // values with -D (the wrapper's cheb_geometry mirrors the defaults)
 #ifndef CHEB_TY
@@ -117,24 +155,149 @@ struct TileLegs {
   int oxy[MAX_LEGS];
 };
 
-__device__ __forceinline__ bool inside(int z, int y, int x, int nz, int ny, int nx) {
-  return z >= 0 && z < nz && y >= 0 && y < ny && x >= 0 && x < nx;
+// Compile-time shifts of the standard patterns, in the order dia_to_stencil
+// gives them (offsets ascending), on the kernels' 3-D view (z, y, x) of the
+// grid (a 2-D grid (ny, nx) is viewed as (ny, 1, nx), a 1-D one as
+// (1, 1, n)): P = 3, the 1-D 3-point; P = 5 and P = 9, the 2-D 5-point star
+// and 9-point box; P = 7, the 3-D 7-point star of every rediscretized
+// Poisson level; P = 27, the 27-point box of the const-detected Galerkin
+// levels.  P = 0 reads the shifts at run time.
+template <int P>
+__host__ __device__ constexpr int pat_z(int k) {
+  return P == 3   ? 0
+         : P == 5 ? (k == 0 ? -1 : (k == 4 ? 1 : 0))
+         : P == 9 ? k / 3 - 1
+         : P == 7 ? (k == 0 ? -1 : (k == 6 ? 1 : 0))
+                  : k / 9 - 1;
+}
+template <int P>
+__host__ __device__ constexpr int pat_y(int k) {
+  return (P == 3 || P == 5 || P == 9) ? 0
+         : P == 7                     ? (k == 1 ? -1 : (k == 5 ? 1 : 0))
+                                      : (k / 3) % 3 - 1;
+}
+template <int P>
+__host__ __device__ constexpr int pat_x(int k) {
+  return P == 3   ? k - 1
+         : P == 5 ? (k == 1 ? -1 : (k == 3 ? 1 : 0))
+         : P == 7 ? (k == 2 ? -1 : (k == 4 ? 1 : 0))
+                  : k % 3 - 1;  // P = 9, 27
 }
 
-__global__ void spmv_const_kernel(const float* __restrict__ x, float* __restrict__ y,
-                                  int nz, int ny, int nx, Legs legs) {
-  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  const int iz = blockIdx.z;
+// Kernel 1's legs on the 3-D view: the coefficients in the state's type,
+// and for the run-time pattern the shifts and their folded offsets
+// (sz * ny * nx + sy * nx + sx).  hz, hy, hx: 1 where a shift moves along
+// the axis (the depth of the border a block must clear to be interior).
+template <typename T>
+struct ConstPlan {
+  int n;
+  T c[MAX_LEGS];
+  int off[MAX_LEGS];
+  signed char sz[MAX_LEGS];
+  signed char sy[MAX_LEGS];
+  signed char sx[MAX_LEGS];
+  int hz, hy, hx;
+};
+
+__device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
+
+// True where some leg of pattern P reads in-plane neighbour (dy, dx) of the
+// plane dq planes from the run's first, for some plane of a ZR-plane run, in
+// closed form so that every use folds to a constant: the boxes read every
+// neighbour of the planes -1 .. ZR (the 2-D box, on its (ny, 1, nx) view,
+// only dy = 0); the stars read the centre of the planes -1 .. ZR and their
+// in-plane arms on the run's own planes; the 1-D 3-point its one plane.
+template <int P, int ZR>
+__host__ __device__ constexpr bool need(int dq, int dy, int dx) {
+  const bool run = dq >= 0 && dq < ZR, ends = dq >= -1 && dq <= ZR;
+  return P == 27  ? ends
+         : P == 9 ? dy == 0 && ends
+         : P == 3 ? dy == 0 && run
+         : (dy == 0 && dx == 0) ? ends
+         : P == 5 ? dy == 0 && run
+                  : (dy == 0 || dx == 0) && run;  // P = 7
+}
+
+template <int P>
+__host__ __device__ constexpr int zrun_of() { return P == 3 ? 1 : CONST_ZRUN; }
+
+// y = sum_k c_k * shift_k(x) on the 3-D view, a ZR-plane run in z per
+// thread.  An interior block (every point's neighbourhood inside the grid)
+// of a compile-time pattern loads each x value its run needs once, all
+// before the first FMA: the planes z0 - 1 .. z0 + ZR of its own column and
+// the in-plane neighbours the pattern reads, kept in registers (v), so a
+// plane's centre value serves the z - 1, z and z + 1 legs of three points.
+// A border block of a pattern fills the same registers, each value tested
+// against the grid (0 outside, never read); a border block of the run-time
+// pattern tests each leg.  Legs are summed in order with an explicit fma.
+template <typename T, int P>
+__global__ void __launch_bounds__(THREADS)
+spmv_const_kernel(const T* __restrict__ x, T* __restrict__ y, int nz, int ny, int nx,
+                  const __grid_constant__ ConstPlan<T> plan) {
+  constexpr int ZR = zrun_of<P>();
+  const int bx0 = blockIdx.x * blockDim.x, by0 = blockIdx.y * blockDim.y;
+  const int z0 = blockIdx.z * ZR;
+  const int ix = bx0 + threadIdx.x, iy = by0 + threadIdx.y;
+  const bool interior = bx0 >= plan.hx && bx0 + (int)blockDim.x <= nx - plan.hx &&
+                        by0 >= plan.hy && by0 + (int)blockDim.y <= ny - plan.hy &&
+                        z0 >= plan.hz && z0 + ZR <= nz - plan.hz;
   if (ix >= nx || iy >= ny) return;
-  float acc = 0.0f;
-  for (int k = 0; k < legs.n; ++k) {
-    const int jz = iz + legs.sz[k], jy = iy + legs.sy[k], jx = ix + legs.sx[k];
-    float v = 0.0f;
-    if (inside(jz, jy, jx, nz, ny, nx)) v = x[((long long)jz * ny + jy) * nx + jx];
-    acc += legs.c[k] * v;
+  const int plane = ny * nx;
+  const int p0 = (z0 * ny + iy) * nx + ix;
+
+  if constexpr (P > 0) {
+    T v[ZR + 2][3][3];
+    if (interior) {
+#pragma unroll
+      for (int q = 0; q < ZR + 2; ++q)
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+            if (need<P, ZR>(q - 1, a - 1, b - 1))
+              v[q][a][b] = __ldg(x + (p0 + (q - 1) * plane + (a - 1) * nx + (b - 1)));
+    } else {
+      // border block: a neighbour outside the grid is not read; its leg
+      // takes the 0 that the twin's zero padding gives
+#pragma unroll
+      for (int q = 0; q < ZR + 2; ++q)
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+            if (need<P, ZR>(q - 1, a - 1, b - 1)) {
+              const bool in = (unsigned)(z0 + q - 1) < (unsigned)nz &&
+                              (unsigned)(iy + a - 1) < (unsigned)ny &&
+                              (unsigned)(ix + b - 1) < (unsigned)nx;
+              v[q][a][b] = in ? __ldg(x + (p0 + (q - 1) * plane + (a - 1) * nx + (b - 1))) : T(0);
+            }
+    }
+#pragma unroll
+    for (int j = 0; j < ZR; ++j) {
+      if (z0 + j < nz) {  // the last run of a ragged grid is short
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < P; ++k)
+          acc = madd(plan.c[k], v[j + pat_z<P>(k) + 1][pat_y<P>(k) + 1][pat_x<P>(k) + 1], acc);
+        y[p0 + j * plane] = acc;
+      }
+    }
+  } else {
+    // the run-time pattern, legs read by index: each leg tested against
+    // the grid, except in an interior block
+    const int zend = min(z0 + ZR, nz);
+    for (int z = z0, p = p0; z < zend; ++z, p += plane) {
+      T acc = T(0);
+#pragma unroll 4
+      for (int k = 0; k < plan.n; ++k)
+        if (interior || ((unsigned)(z + plan.sz[k]) < (unsigned)nz &&
+                         (unsigned)(iy + plan.sy[k]) < (unsigned)ny &&
+                         (unsigned)(ix + plan.sx[k]) < (unsigned)nx))
+          acc = madd(plan.c[k], __ldg(x + (p + plan.off[k])), acc);
+      y[p] = acc;
+    }
   }
-  y[((long long)iz * ny + iy) * nx + ix] = acc;
 }
 
 // Geometry of one (degree, x0 given, residual) instantiation of kernel 2;
@@ -152,23 +315,8 @@ struct Wave {
   static constexpr int M = NA > 0 ? NA : 1;
 };
 
-// Compile-time shifts of the two standard patterns, in the order
-// dia_to_stencil gives them (offsets ascending): P = 7, the 7-point star of
-// every rediscretized Poisson level; P = 27, the 27-point box of the
-// const-detected Galerkin levels.  P = 0 reads the shifts from TileLegs.
-template <int P>
-__host__ __device__ constexpr int pat_z(int k) {
-  return P == 7 ? (k == 0 ? -1 : (k == 6 ? 1 : 0)) : k / 9 - 1;
-}
-template <int P>
-__host__ __device__ constexpr int pat_y(int k) {
-  return P == 7 ? (k == 1 ? -1 : (k == 5 ? 1 : 0)) : (k / 3) % 3 - 1;
-}
-template <int P>
-__host__ __device__ constexpr int pat_x(int k) {
-  return P == 7 ? (k == 2 ? -1 : (k == 4 ? 1 : 0)) : k % 3 - 1;
-}
-
+// Kernel 2 takes the 3-D patterns P = 7 and P = 27 of pat_z/pat_y/pat_x;
+// P = 0 reads the shifts from TileLegs.
 template <int DEG, bool X0, bool RES, int P>
 __global__ void __launch_bounds__(Wave<DEG, X0, RES>::NT, Wave<DEG, X0, RES>::MINB)
 cheb_const_kernel(const float* __restrict__ b, const float* __restrict__ x0,
@@ -333,20 +481,90 @@ static int fill_legs(Legs* legs, int nlegs, const float* coeffs, const int* shif
   return 0;
 }
 
+enum Code { FP32 = 0, FP64 = 2 };
+
+template <int P>
+static bool const_pattern(int nlegs, const int* shifts) {
+  if (nlegs != P) return false;
+  for (int k = 0; k < P; ++k)
+    if (shifts[3 * k] != pat_z<P>(k) || shifts[3 * k + 1] != pat_y<P>(k) ||
+        shifts[3 * k + 2] != pat_x<P>(k))
+      return false;
+  return true;
+}
+
+template <typename T>
+static int launch_const(int spec, const void* x, void* y, int nz, int ny, int nx, int nlegs,
+                        const double* coeffs, const int* shifts, dim3 grid, dim3 block,
+                        cudaStream_t st) {
+  ConstPlan<T> plan = {};
+  plan.n = nlegs;
+  const long long plane = (long long)ny * nx;
+  for (int k = 0; k < nlegs; ++k) {
+    const int sz = shifts[3 * k], sy = shifts[3 * k + 1], sx = shifts[3 * k + 2];
+    plan.c[k] = (T)coeffs[k];
+    plan.off[k] = (int)(sz * plane + sy * nx + sx);
+    plan.sz[k] = (signed char)sz;
+    plan.sy[k] = (signed char)sy;
+    plan.sx[k] = (signed char)sx;
+    plan.hz |= sz != 0;
+    plan.hy |= sy != 0;
+    plan.hx |= sx != 0;
+  }
+  const T* xv = (const T*)x;
+  T* yv = (T*)y;
+  switch (spec) {
+    case 0: spmv_const_kernel<T, 0><<<grid, block, 0, st>>>(xv, yv, nz, ny, nx, plan); break;
+    case 3: spmv_const_kernel<T, 3><<<grid, block, 0, st>>>(xv, yv, nz, ny, nx, plan); break;
+    case 5: spmv_const_kernel<T, 5><<<grid, block, 0, st>>>(xv, yv, nz, ny, nx, plan); break;
+    case 7: spmv_const_kernel<T, 7><<<grid, block, 0, st>>>(xv, yv, nz, ny, nx, plan); break;
+    case 9: spmv_const_kernel<T, 9><<<grid, block, 0, st>>>(xv, yv, nz, ny, nx, plan); break;
+    case 27: spmv_const_kernel<T, 27><<<grid, block, 0, st>>>(xv, yv, nz, ny, nx, plan); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* cg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// shifts: nlegs (dz, dy, dx) triples, each component in {-1, 0, 1}
-int cg_spmv_const(const float* x, float* y, int nz, int ny, int nx, int nlegs,
-                  const float* coeffs, const int* shifts, void* stream) {
-  Legs legs;
-  int err = fill_legs(&legs, nlegs, coeffs, shifts);
-  if (err) return err;
-  const dim3 block(32, 8, 1);
-  const dim3 grid((nx + 31) / 32, (ny + 7) / 8, nz);
-  spmv_const_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, y, nz, ny, nx, legs);
-  return (int)cudaGetLastError();
+// Kernel 1's z run for pattern spec: the planes a thread marches, a
+// compile-time constant of the library (the wrapper's geometry covers the
+// view with it)
+int cg_spmv_const_zrun(int spec) { return spec == 3 ? zrun_of<3>() : zrun_of<0>(); }
+
+// Kernel 1.  code: 0 fp32, 2 fp64.  (nz, ny, nx): the 3-D view of the grid
+// (ops/cuda_stencil.py::const_view); shifts: nlegs (dz, dy, dx) triples on
+// it, each component in {-1, 0, 1}; coeffs: nlegs values, cast to the
+// state's type here.  spec: the pattern (3, 5, 7, 9, 27; the shifts must be
+// exactly its own) or 0 for the run-time one.  (bx, by) threads a block and
+// (gx, gy, gz) blocks: the wrapper's geometry, which must cover the view
+// (gz runs of cg_spmv_const_zrun(spec) planes).
+int cg_spmv_const(int code, int spec, const void* x, void* y, int nz, int ny, int nx,
+                  int nlegs, const double* coeffs, const int* shifts, int bx, int by, int gx,
+                  int gy, int gz, void* stream) {
+  if (nlegs < 1 || nlegs > MAX_LEGS || nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 3 * nlegs; ++i)
+    if (shifts[i] < -1 || shifts[i] > 1) return (int)cudaErrorInvalidValue;
+  const bool pattern_ok = spec == 0 || (spec == 3 && const_pattern<3>(nlegs, shifts)) ||
+                          (spec == 5 && const_pattern<5>(nlegs, shifts)) ||
+                          (spec == 7 && const_pattern<7>(nlegs, shifts)) ||
+                          (spec == 9 && const_pattern<9>(nlegs, shifts)) ||
+                          (spec == 27 && const_pattern<27>(nlegs, shifts));
+  if (!pattern_ok) return (int)cudaErrorInvalidValue;
+  const long long zr = cg_spmv_const_zrun(spec), plane = (long long)ny * nx;
+  if (bx < 1 || by < 1 || bx * by > THREADS || gx < 1 || gy < 1 || gz < 1 || gy > 65535 ||
+      gz > 65535 || (long long)gx * bx < nx || (long long)gy * by < ny || gz * zr < nz ||
+      plane * nz + (zr + 2) * plane > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(gx, gy, gz), block(bx, by, 1);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+    case FP32: return launch_const<float>(spec, x, y, nz, ny, nx, nlegs, coeffs, shifts, grid, block, st);
+    case FP64: return launch_const<double>(spec, x, y, nz, ny, nx, nlegs, coeffs, shifts, grid, block, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // x0 == NULL: zero initial guess; r_out == NULL: no residual output.

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FP = ctypes.POINTER(ctypes.c_float)
+_DP = ctypes.POINTER(ctypes.c_double)
 _IP = ctypes.POINTER(ctypes.c_int)
 
 
@@ -64,7 +65,8 @@ def build(names: Optional[Iterable[str]] = None, defines: Tuple[str, ...] = ()) 
     """Compile every named library (default: all) unless a build of its
     current source exists, one ``nvcc`` per source, started together.
     ``defines`` (``"NAME=value"``) override a source's compile-time design
-    constants, for the tuning script (``scripts/stencil_tuning.py``).
+    constants, for the tuning scripts (``scripts/stencil_tuning.py``,
+    ``scripts/dia_tuning.py``).
     ``nvcc``'s output (including ``-Xptxas -v``) is kept beside each library
     as ``.log``.  Returns ``{name: library path}``."""
     names = list(SOURCES) if names is None else list(names)
@@ -117,8 +119,10 @@ def kernel_resources(name: str, defines: Tuple[str, ...] = ()) -> Dict[str, Dict
 
 
 def _bind_stencil(lib: ctypes.CDLL) -> None:
-    lib.cg_spmv_const.argtypes = [_P, _P, _I, _I, _I, _I, _FP, _IP, _P]
+    lib.cg_spmv_const.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _DP, _IP, _I, _I, _I, _I, _I, _P]
     lib.cg_spmv_const.restype = _I
+    lib.cg_spmv_const_zrun.argtypes = [_I]
+    lib.cg_spmv_const_zrun.restype = _I
     lib.cg_cheb_const.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _FP, _IP, _I, _I, _I, _I, _I,
         ctypes.c_float, _FP, _FP, _P,

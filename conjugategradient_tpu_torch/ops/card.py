@@ -1,6 +1,7 @@
 """The card's published peaks, the least time a kernel could take on it, and
-CUDA-event timing: what ``chip_smoke.py`` and the kernel #6 experiment
-(``scripts/spmm_acc_experiment.py``) report each kernel against.
+CUDA-event timing (of launches from the host, or replayed from a CUDA
+graph): what ``chip_smoke.py``, the tuning scripts and the kernel #6
+experiment (``scripts/spmm_acc_experiment.py``) report each kernel against.
 
 Nothing on a solve path imports this module.
 """
@@ -50,6 +51,28 @@ def time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` replayed from one CUDA graph of ``reps``
+    calls, by CUDA events: the device time of a kernel too short for the
+    host to launch it as fast as the card runs it (``time_ms`` then reads
+    the host's launch rate)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps

@@ -16,7 +16,8 @@ Three kernels of ``csrc/dia.cu`` (design notes at the top of that file):
   ``scripts/spmm_acc_experiment.py`` of this package calls it.
 
 Instantiations, by (leg dtype, vector dtype): (fp32, fp32), (bf16, fp32)
-with fp32 accumulation, and, for the SpMV only, (fp64, fp64).
+with fp32 accumulation, and (fp64, fp64), the last for the SpMV and the
+SpMM but not kernel #6.
 
 Each wrapper runs its twin (``*_ref``) for a tensor on the CPU, and only
 there.  For any other tensor it checks everything the kernels do not take
@@ -164,8 +165,6 @@ def _check_kernel_args(name: str, A: DiaMatrix, v: torch.Tensor, rank: int) -> i
             f"{name}: no kernel for {data.dtype} legs with a {v.dtype} vector; "
             f"supported: {[(str(d), str(x)) for d, x in _CODES]}"
         )
-    if rank == 2 and data.dtype == torch.float64:
-        raise TypeError(f"{name}: the SpMM kernel takes fp32 or bf16 legs with fp32 columns")
     if v.ndim != rank or v.shape[-1] != A.n:
         want = "(n,)" if rank == 1 else "(k, n)"
         raise ValueError(f"{name}: vector of shape {tuple(v.shape)} is not {want} with n = {A.n}")
@@ -237,18 +236,24 @@ def spmm_dia_cuda(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
     tensor (one launch per column chunk), the twin for a CPU tensor."""
     if X.device.type == "cpu":
         return spmm_dia_ref(A, X)
-    name = "spmm_dia_cuda"
-    code = _check_kernel_args(name, A, X, 2)
+    code = _check_kernel_args("spmm_dia_cuda", A, X, 2)
+    chunks = k_chunks(X.shape[0])
+    Y = _spmm_launch(_build.load("dia"), code, A, X)
+    spmm_dia_cuda.launches += len(chunks)
+    spmm_dia_cuda.launches_by_dtype[TAGS[A.data.dtype]] += len(chunks)
+    return Y
+
+
+def _spmm_launch(lib, code: int, A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Launch kernel #5 of ``lib`` on checked arguments, one launch per
+    column chunk."""
     Y = torch.empty_like(X)
-    lib = _build.load("dia")
     offs = _offsets_arg(tuple(A.offsets))
     c0 = 0
     for kc in k_chunks(X.shape[0]):
         err = lib.cg_spmm_dia(code, kc, A.data.data_ptr(), X[c0].data_ptr(), Y[c0].data_ptr(),
                               A.n, A.n, A.ndiags, offs, _stream(X))
-        _raise_on(lib, err, name)
-        spmm_dia_cuda.launches += 1
-        spmm_dia_cuda.launches_by_dtype[TAGS[A.data.dtype]] += 1
+        _raise_on(lib, err, "spmm_dia_cuda")
         c0 += kc
     return Y
 
@@ -275,6 +280,8 @@ def spmm_dia_acc_cuda(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return spmm_dia_acc_ref(A, X)
     name = "spmm_dia_acc_cuda"
+    if torch.is_tensor(getattr(A, "data", None)) and A.data.dtype == torch.float64:
+        raise TypeError(f"{name}: the kernel takes fp32 or bf16 legs with fp32 columns")
     code = _check_kernel_args(name, A, X, 2)
     Y = torch.empty_like(X)
     lib = _build.load("dia")

@@ -3,8 +3,10 @@
 Two kernels of ``csrc/stencil.cu`` and one of ``csrc/stencil_var.cu``
 (design notes at the top of each file):
 
-- ``spmv_const_stencil_cuda`` — y = A x for a 2-D/3-D ``ConstStencilMatrix``
-  (replaces ``conjugategradient_tpu/ops/pallas_stencil.py::_kernel``);
+- ``spmv_const_stencil_cuda`` — y = A x for a 1-D, 2-D or 3-D
+  ``ConstStencilMatrix`` in fp32 or fp64 (kernel #1, replaces
+  ``conjugategradient_tpu/ops/pallas_stencil.py::_kernel``), on the 3-D view
+  of ``const_view`` with the launch of ``const_geometry``;
 - ``cheb_smooth_const_cuda`` — the whole degree-d Chebyshev recurrence on
   D⁻¹A for a 3-D const stencil, optionally from a zero x0 and optionally
   emitting r = D⁻¹(b − A x_out) (replaces ``_cheb_kernel``);
@@ -16,13 +18,13 @@ Two kernels of ``csrc/stencil.cu`` and one of ``csrc/stencil_var.cu``
 
 Each wrapper runs its twin (``*_ref``) for a tensor on the CPU, and only
 there.  For any other tensor it checks everything the kernel does not take
-(device, dtype, rank and shape, contiguity, |shift| > 1, 1-D grids, the leg
-limit), raises on a mismatch, and launches the kernel on the current CUDA
-stream; a launch that the runtime refuses raises too.  ``launches`` on each
-wrapper counts its kernel launches and nothing else; ``launches_by_grid``
-(the fused smoother and the variable SpMV) splits the count by grid, so a
-run can show that every level went through its kernel, and
-``spmv_stencil_cuda.launches_by_dtype`` by leg dtype.
+(device, dtype, rank and shape, contiguity, |shift| > 1, the leg limit; the
+fused smoother takes fp32 3-D grids only), raises on a mismatch, and
+launches the kernel on the current CUDA stream; a launch that the runtime
+refuses raises too.  ``launches`` on each wrapper counts its kernel launches
+and nothing else; ``launches_by_grid`` splits the count by grid, so a run
+can show that every level went through its kernel, and
+``launches_by_dtype`` (the two SpMVs) by state or leg dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import itertools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -49,6 +52,63 @@ def _cheb_halo(degree: int, zero_x: bool, want_resid: bool) -> int:
     ``degree``, plus one for the ``A x0`` of a given x0 when the residual is
     emitted (the x path still erodes only ``degree`` deep)."""
     return degree + (1 if (want_resid and not zero_x) else 0)
+
+
+#: kernel #1's compile-time patterns on its 3-D view (``const_view``), each
+#: in the order ``dia_to_stencil`` gives it (``pat_z``/``pat_y``/``pat_x`` in
+#: ``csrc/stencil.cu``): the 1-D 3-point, the 2-D 5-point star and 9-point
+#: box (a 2-D grid is viewed as (ny, 1, nx)), the 3-D 7-point star and
+#: 27-point box.  Any other shift list takes the run-time instantiation, 0.
+_TRIPLES = tuple(itertools.product((-1, 0, 1), repeat=3))
+CONST_PATTERNS = {
+    3: ((0, 0, -1), (0, 0, 0), (0, 0, 1)),
+    5: ((-1, 0, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (1, 0, 0)),
+    9: tuple(s for s in _TRIPLES if s[1] == 0),
+    7: tuple(s for s in _TRIPLES if sum(map(abs, s)) <= 1),
+    27: _TRIPLES,
+}
+
+class ConstView(NamedTuple):
+    """Kernel #1's 3-D view of a grid: ``dims`` (nz, ny, nx) with a 2-D grid
+    (ny, nx) as (ny, 1, nx), so its rows are the marched axis, and a 1-D
+    grid (n,) as (1, 1, n); ``shifts`` the legs' (dz, dy, dx) on it;
+    ``spec`` the instantiation (a key of ``CONST_PATTERNS``, or 0)."""
+
+    dims: Tuple[int, int, int]
+    shifts: Tuple[Tuple[int, int, int], ...]
+    spec: int
+
+
+@functools.lru_cache(maxsize=256)
+def const_view(grid: Tuple[int, ...], shifts: Tuple[Tuple[int, ...], ...]) -> ConstView:
+    """Kernel #1's view of a 1-D, 2-D or 3-D grid and its shifts."""
+    if len(grid) == 3:
+        dims, sh = tuple(grid), tuple(tuple(s) for s in shifts)
+    elif len(grid) == 2:
+        dims, sh = (grid[0], 1, grid[1]), tuple((s[0], 0, s[1]) for s in shifts)
+    else:
+        dims, sh = (1, 1, grid[0]), tuple((0, 0, s[0]) for s in shifts)
+    spec = next((p for p, pat in CONST_PATTERNS.items() if pat == sh), 0)
+    return ConstView(dims, sh, spec)
+
+
+class ConstGeometry(NamedTuple):
+    """Kernel #1's launch on a view, which the C entry takes as given:
+    ``block`` (x, y) threads, one row of them where the view has one row per
+    plane (1-D and 2-D grids), else 32 x 8; ``zrun`` the planes a thread
+    marches (the library's compile-time run, ``cg_spmv_const_zrun``);
+    ``grid`` the blocks along (x, y, z) that cover the view."""
+
+    block: Tuple[int, int]
+    zrun: int
+    grid: Tuple[int, int, int]
+
+
+def const_geometry(view: ConstView, zrun: int) -> ConstGeometry:
+    """Kernel #1's launch for ``view`` with runs of ``zrun`` planes."""
+    nz, ny, nx = view.dims
+    block = ((256 if nx > 128 else (128 if nx > 32 else 32)), 1) if ny == 1 else (32, 8)
+    return ConstGeometry(block, zrun, (-(-nx // block[0]), -(-ny // block[1]), -(-nz // zrun)))
 
 
 #: z chunks of kernel #2 (planes one block owns), largest first: a launch
@@ -189,20 +249,26 @@ def spmv_stencil_ref(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _check_dtype(name: str, tensors: Sequence[torch.Tensor], dtypes) -> None:
+    for t in tensors:
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{name}: the kernel takes {names} only, got {t.dtype}")
+
+
 def _check_kernel_args(name: str, A: ConstStencilMatrix, tensors: Sequence[torch.Tensor]):
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take but a dtype (each wrapper
+    checks its kernel's dtypes)."""
     if not isinstance(A, ConstStencilMatrix):
         raise TypeError(f"{name}: needs a ConstStencilMatrix, got {type(A).__name__}")
-    if len(A.grid) not in (2, 3):
-        raise ValueError(f"{name}: needs a 2-D or 3-D grid, got grid={A.grid}")
+    if len(A.grid) not in (1, 2, 3):
+        raise ValueError(f"{name}: needs a 1-D, 2-D or 3-D grid, got grid={A.grid}")
     if any(abs(s) > 1 for sh in A.shifts for s in sh):
         raise ValueError(f"{name}: per-axis shifts must be in {{-1, 0, 1}}, got {A.shifts}")
     if not 1 <= A.nlegs <= MAX_LEGS:
         raise ValueError(f"{name}: 1..{MAX_LEGS} legs supported, got {A.nlegs}")
     dev = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32 only, got {t.dtype}")
         if tuple(t.shape) != tuple(A.grid):
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not grid {A.grid}")
         if not t.is_contiguous():
@@ -235,25 +301,49 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=256)
+def _const_args(coeffs: Tuple[float, ...], view: ConstView):
+    """(coeffs as doubles, the view's shifts as triples) as ctypes arrays."""
+    flat = [s for sh in view.shifts for s in sh]
+    return (ctypes.c_double * len(coeffs))(*coeffs), (ctypes.c_int * len(flat))(*flat)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_zrun(lib, spec: int) -> int:
+    """The z run that ``lib`` compiled for pattern ``spec``."""
+    return lib.cg_spmv_const_zrun(spec)
+
+
+def _const_launch(lib, A: ConstStencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch kernel #1 of ``lib`` on checked arguments."""
+    view = const_view(tuple(A.grid), tuple(A.shifts))
+    geo = const_geometry(view, _const_zrun(lib, view.spec))
+    y = torch.empty_like(x)
+    coeffs, shifts = _const_args(tuple(float(c) for c in A.coeffs), view)
+    err = lib.cg_spmv_const(_CODES[(x.dtype, x.dtype)], view.spec, x.data_ptr(), y.data_ptr(),
+                            *view.dims, A.nlegs, coeffs, shifts, *geo.block, *geo.grid, _stream(x))
+    _raise_on(lib, err, "spmv_const_stencil_cuda")
+    return y
+
+
 def spmv_const_stencil_cuda(A: ConstStencilMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for grid-shaped ``x``: the CUDA kernel for a CUDA tensor, the
-    twin for a CPU tensor."""
+    """y = A x for grid-shaped ``x``: kernel #1 for a CUDA tensor (fp32 or
+    fp64, 1-D, 2-D or 3-D), the twin for a CPU tensor."""
     if x.device.type == "cpu":
         return spmv_const_stencil_ref(A, x)
-    _check_kernel_args("spmv_const_stencil_cuda", A, [x])
-    nz, ny, nx = ((1,) * (3 - len(A.grid))) + tuple(A.grid)
-    y = torch.empty_like(x)
-    coeffs, shifts = _legs(A)
-    lib = _build.load("stencil")
-    err = lib.cg_spmv_const(
-        x.data_ptr(), y.data_ptr(), nz, ny, nx, A.nlegs, coeffs, shifts, _stream(x)
-    )
-    _raise_on(lib, err, "spmv_const_stencil_cuda")
+    name = "spmv_const_stencil_cuda"
+    _check_dtype(name, [x], (torch.float32, torch.float64))
+    _check_kernel_args(name, A, [x])
+    y = _const_launch(_build.load("stencil"), A, x)
     spmv_const_stencil_cuda.launches += 1
+    spmv_const_stencil_cuda.launches_by_grid[tuple(A.grid)] += 1
+    spmv_const_stencil_cuda.launches_by_dtype[TAGS[x.dtype]] += 1
     return y
 
 
 spmv_const_stencil_cuda.launches = 0
+spmv_const_stencil_cuda.launches_by_grid = collections.Counter()
+spmv_const_stencil_cuda.launches_by_dtype = collections.Counter()
 
 
 def _cheb_launch(lib, A, b, x, degree, lam_max, lam_min, invd, want_resid, geo: ChebGeometry):
@@ -298,7 +388,9 @@ def cheb_smooth_const_cuda(
         raise ValueError(f"{name}: needs a 3-D grid, got grid={A.grid}")
     if not 1 <= degree <= MAX_DEGREE:
         raise ValueError(f"{name}: degree must be in 1..{MAX_DEGREE}, got {degree}")
-    _check_kernel_args(name, A, [b] if x is None else [b, x])
+    tensors = [b] if x is None else [b, x]
+    _check_dtype(name, tensors, (torch.float32,))
+    _check_kernel_args(name, A, tensors)
     invd = torch.as_tensor(inv_diag, dtype=torch.float32, device=b.device)
     if invd.ndim != 0:
         raise ValueError(f"{name}: inv_diag must be a scalar, got shape {tuple(invd.shape)}")
@@ -400,6 +492,6 @@ def reset_launch_counts() -> None:
     """Set every stencil kernel's launch count to 0."""
     for fn in (spmv_const_stencil_cuda, cheb_smooth_const_cuda, spmv_stencil_cuda):
         fn.launches = 0
-    cheb_smooth_const_cuda.launches_by_grid.clear()
-    spmv_stencil_cuda.launches_by_grid.clear()
+        fn.launches_by_grid.clear()
+    spmv_const_stencil_cuda.launches_by_dtype.clear()
     spmv_stencil_cuda.launches_by_dtype.clear()

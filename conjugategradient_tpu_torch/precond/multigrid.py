@@ -38,6 +38,7 @@ from conjugategradient_tpu_torch.core.formats import (
     dia_to_dense,
     default_device,
     dia_to_stencil,
+    place,
     stencil_to_const,
 )
 from conjugategradient_tpu_torch.ops.cuda_stencil import cheb_smooth_const_cuda
@@ -480,7 +481,8 @@ def mgcg_solve(
     ``max_coarse``) runs flat on ``A`` as DIA, its V-cycle the dense
     inverse, as the JAX package does.  The solve runs where the hierarchy
     lies: a built one on ``device`` (``None``: the card when there is
-    one)."""
+    one).  ``b`` and ``x0`` may be host arrays or torch tensors on any
+    device; a tensor moves to the hierarchy's device and dtype directly."""
     from conjugategradient_tpu_torch.solvers.cg import CGResult, cg_solve
     from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -495,9 +497,9 @@ def mgcg_solve(
         A_dev, shape = h.levels[0].A, tuple(grid)
     else:
         A_dev, shape = A.device_put(tdt, dev), (A.n,)
-    b = torch.as_tensor(np.asarray(b), device=dev).to(tdt).reshape(shape)
+    b = place(b, tdt, dev).reshape(shape)
     if x0 is not None:
-        x0 = torch.as_tensor(np.asarray(x0), device=dev).to(tdt).reshape(shape)
+        x0 = place(x0, tdt, dev).reshape(shape)
     result = cg_solve(A_dev, b, x0, policy, M=as_preconditioner(h), precise_dot=precise_dot)
     result = CGResult(x=result.x.reshape(-1), iterations=result.iterations,
                       residual=result.residual, converged=result.converged)

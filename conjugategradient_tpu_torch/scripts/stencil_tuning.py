@@ -1,12 +1,19 @@
-"""Design constants of kernels #2 and #3, measured on the card.
+"""Design constants of kernels #1, #2 and #3, measured on the card.
 
     python -m conjugategradient_tpu_torch.scripts.stencil_tuning
 
-Builds ``csrc/stencil_var.cu`` (kernel #3) and ``csrc/stencil.cu`` (kernel
-#2) once for each value of a compile-time design constant (``nvcc -D``; all
-builds started together), prints each build's ``ptxas`` lines for the two
-kernels, and times each build at the main path's shapes with CUDA events
-after a warm-up:
+Builds ``csrc/stencil_var.cu`` (kernel #3) and ``csrc/stencil.cu`` (kernels
+#1 and #2) once for each value of a compile-time design constant (``nvcc
+-D``; all builds started together), prints each build's ``ptxas`` lines for
+the three kernels, and times each build at the main path's shapes with CUDA
+events after a warm-up:
+
+- kernel #1, ``CONST_ZRUN`` (z planes a thread marches), random
+  coefficients: the 7-point star at 255^3, the 27-point box at 127^3, the
+  5-point star and 9-point box at 1023^2, the 1-D 3-point at 2^20 - 1, each
+  in fp32 and fp64, and the 7-point star's legs reversed at 255^3 fp32 (the
+  run-time instantiation), replayed from a CUDA graph (``graph_ms``: below
+  2 M points the host's launch rate would set the time);
 
 - kernel #3, ``ZRUN`` (z planes a thread marches) and ``BATCH_BYTES`` (loads
   issued before the first FMA): 255^3 with 7 legs (fp32, bf16, fp64) and
@@ -23,7 +30,8 @@ Every variant is held to the twin first (max error <= 1e-5 of max |twin|,
 1e-13 in fp64).  The launches go through the wrappers' launch helpers, not
 the wrappers, so no launch count moves.  The last line is one JSON record:
 ``{"card": ..., "spmv_stencil": {variant: {shape: ms}}, "cheb_smooth_const":
-{variant: {shape: ms}}}``.  Needs a CUDA device.
+{variant: {shape: ms}}, "spmv_const_stencil": {variant: {shape: ms}}}``.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch
 from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, StencilMatrix
 from conjugategradient_tpu_torch.ops import _build
 from conjugategradient_tpu_torch.ops import cuda_stencil as cs
-from conjugategradient_tpu_torch.ops.card import card_name, time_ms
+from conjugategradient_tpu_torch.ops.card import card_name, graph_ms, time_ms
 
 REL, REL64 = 1e-5, 1e-13
 #: build label -> -D overrides; the first of each is the shipped design
@@ -49,6 +57,11 @@ VAR_BUILDS = {
     "ZRUN=8 BATCH_BYTES=16": ("ZRUN=8",),
     "ZRUN=8 BATCH_BYTES=32": ("ZRUN=8", "BATCH_BYTES=32"),
     "ZRUN=16 BATCH_BYTES=32": ("ZRUN=16", "BATCH_BYTES=32"),
+}
+CONST_BUILDS = {
+    "CONST_ZRUN=4": (),
+    "CONST_ZRUN=2": ("CONST_ZRUN=2",),
+    "CONST_ZRUN=8": ("CONST_ZRUN=8",),
 }
 CHEB_BUILDS = {
     "CHEB_TY=16 CHEB_MINB=2": (),
@@ -83,6 +96,23 @@ def _var_cases(dev):
             yield f"{label} {cs.TAGS[legs]}", A, x
 
 
+def _const_cases(dev):
+    """(label, operator, x) of kernel #1's timed shapes."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    box2 = tuple(s[1:] for s in SHIFTS27 if s[0] == 0)
+    star2 = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+    for label, shifts, grid in (("255^3 7-point", SHIFTS7, (255,) * 3),
+                                ("127^3 27-point", SHIFTS27, (127,) * 3),
+                                ("1023^2 5-point", star2, (1023, 1023)),
+                                ("1023^2 9-point", box2, (1023, 1023)),
+                                ("(1048575,) 3-point", ((-1,), (0,), (1,)), (2**20 - 1,)),
+                                ("255^3 7-point reversed", SHIFTS7[::-1], (255,) * 3)):
+        coeffs = tuple(float(c) for c in torch.rand(len(shifts), generator=g, device=dev) - 0.5)
+        A = ConstStencilMatrix(coeffs, shifts, grid)
+        for dtype in (torch.float32,) if "reversed" in label else (torch.float32, torch.float64):
+            yield f"{label} {cs.TAGS[dtype]}", A, torch.randn(grid, generator=g, device=dev).to(dtype)
+
+
 def _cheb_cases(dev):
     g = torch.Generator(device=dev).manual_seed(1)
     invd = torch.tensor(1.0 / 6.0, device=dev)
@@ -109,16 +139,33 @@ def main() -> int:
     print(card)
     builds = {("stencil_var", k): d for k, d in VAR_BUILDS.items()}
     builds.update({("stencil", k): d for k, d in CHEB_BUILDS.items()})
+    builds.update({("stencil", k): d for k, d in CONST_BUILDS.items()})
     # one nvcc per build, all started together
-    with cf.ThreadPoolExecutor(len(builds)) as pool:
-        paths = dict(zip(builds, pool.map(lambda kv: _build.build([kv[0][0]], kv[1])[kv[0][0]],
-                                          builds.items())))
-    for src, label in paths:
-        kernel = "spmv_var_kernel" if src == "stencil_var" else "cheb_const_kernel"
+    unique = sorted({(src, d) for (src, _), d in builds.items()})  # one nvcc per library
+    with cf.ThreadPoolExecutor(len(unique)) as pool:
+        list(pool.map(lambda sd: _build.build([sd[0]], sd[1]), unique))
+    for src, label in builds:
+        kernel = ("spmv_var_kernel" if src == "stencil_var" else
+                  "spmv_const_kernel" if label in CONST_BUILDS else "cheb_const_kernel")
         for entry, res in sorted(_build.kernel_resources(src, builds[src, label]).items()):
             if kernel in entry:
                 print(f"ptxas {src} [{label}] {entry[:60]}: {res}")
-    record = {"card": card, "spmv_stencil": {}, "cheb_smooth_const": {}}
+    record = {"card": card, "spmv_stencil": {}, "cheb_smooth_const": {}, "spmv_const_stencil": {}}
+
+    for label, defines in CONST_BUILDS.items():
+        lib = _build.load("stencil", defines)
+        row = record["spmv_const_stencil"][label] = {}
+        for shape, A, x in _const_cases(dev):
+            fn = lambda: cs._const_launch(lib, A, x)
+            err, scale = _err(fn(), cs.spmv_const_stencil_ref(A, x))
+            rel = REL64 if x.dtype == torch.float64 else REL
+            if not err <= rel * scale:
+                raise RuntimeError(f"spmv_const [{label}] {shape}: max err {err:.3e} > {rel}*{scale:.3e}")
+            ms = graph_ms(fn, 200 if x.numel() < 2e6 else 50)
+            gb = 2 * x.numel() * x.element_size() / 1e9
+            row[shape] = ms
+            print(f"time spmv_const_stencil [{label}] {shape}: {ms:.4f} ms "
+                  f"({gb / (ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB) [{card}]")
 
     for label, defines in VAR_BUILDS.items():
         lib = _build.load("stencil_var", defines)

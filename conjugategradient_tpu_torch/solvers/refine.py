@@ -47,6 +47,8 @@ from conjugategradient_tpu_torch.core.formats import (
     StencilMatrix,
     default_device,
     dia_to_stencil,
+    host_f64,
+    place,
 )
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
@@ -145,7 +147,10 @@ def refined_solve(
     """Solve A x = b to an fp64 tolerance using fp32 inner solves on
     ``device`` (``None``: the card when there is one).
 
-    ``A``/``b`` are host fp64.  With ``grid`` the inner solver is MGCG on
+    ``A`` is host fp64; ``b`` and ``x0`` are host arrays or torch tensors on
+    any device (the host routes copy a tensor to the host once,
+    ``core.formats.host_f64``; the device route moves it to ``device``, as
+    the JAX package takes device arrays).  With ``grid`` the inner solver is MGCG on
     ``hierarchy`` (reused across passes); otherwise plain CG on the DIA
     kernel.  The returned residual is the *true* fp64 residual.  Each outer
     pass checks it; two consecutive passes that cut it by less than 10%
@@ -176,8 +181,8 @@ def refined_solve(
 
     t_start = time.perf_counter()
     n = A.n
-    b64 = np.asarray(b, dtype=np.float64)
-    x = np.zeros(n) if x0 is None else np.asarray(x0, dtype=np.float64).copy()
+    b64 = host_f64(b)
+    x = np.zeros(n) if x0 is None else host_f64(x0).copy()
     solve, shape = _inner_solver(A, grid, inner_tol, device_dtype, hierarchy, smoother,
                                  matrix_dtype, device)
 
@@ -261,9 +266,9 @@ def _refined_solve_device(
     A64 = A.device_put(torch.float64, device)
 
     t0 = time.perf_counter()
-    b64 = torch.from_numpy(np.asarray(b, dtype=np.float64)).to(device)
+    b64 = place(b, torch.float64, device).reshape(n)
     x64 = (torch.zeros(n, dtype=torch.float64, device=device) if x0 is None
-           else torch.from_numpy(np.asarray(x0, dtype=np.float64)).to(device))
+           else place(x0, torch.float64, device).reshape(n))
     if b64.device.type == "cuda":
         torch.cuda.synchronize(b64.device)
     input_s = time.perf_counter() - t0
@@ -397,7 +402,8 @@ def refined_solve_multi(
     an fp64 tolerance with fp32 multi-RHS CG inner solves on ``device``
     (``None``: the card when there is one).
 
-    The outer loop is the single-RHS recurrence per column (fp64 host
+    ``B`` and ``X0`` are host arrays or torch tensors on any device, copied
+    to the host once.  The outer loop is the single-RHS recurrence per column (fp64 host
     residual, per-column inf-norm scaling, the two-pass stall rule); every
     inner solve is one ``cg_solve_multi`` over the whole block.  Gridless,
     the matrix streams once per iteration for all k columns (kernel #5).
@@ -409,11 +415,11 @@ def refined_solve_multi(
     """
     device = default_device(device)
     n = A.n
-    B64 = np.asarray(B, dtype=np.float64)
+    B64 = host_f64(B)
     if B64.ndim != 2 or B64.shape[0] != n:
         raise ValueError(f"B must be (n, k) = ({n}, k), got {B64.shape}")
     k = B64.shape[1]
-    X = np.zeros((n, k)) if X0 is None else np.asarray(X0, dtype=np.float64).reshape(n, k).copy()
+    X = np.zeros((n, k)) if X0 is None else host_f64(X0).reshape(n, k).copy()
 
     max_it = min(8 * n, 1_000_000)
     pol = ConvergencePolicy(tol=inner_tol, norm="rel_l2", max_iteration=max_it)

@@ -20,7 +20,7 @@ from conjugategradient_tpu_torch.core.formats import (
     dia_to_stencil,
     stencil_to_const,
 )
-from conjugategradient_tpu_torch.ops import cuda_dia, cuda_stencil
+from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
 from conjugategradient_tpu_torch.ops.cuda_dia import (
     spmm_dia_acc_cuda,
     spmm_dia_acc_ref,
@@ -73,16 +73,79 @@ def _rand(grid, seed, device):
     return torch.from_numpy(x).to(device)
 
 
-@pytest.mark.parametrize("grid", [(37, 53), (2, 7), (64, 33), (23, 9, 12), (2, 3, 5), (40, 17, 70)])
-def test_spmv_kernel_matches_twin(cuda, grid):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid", [(37, 53), (2, 7), (64, 33), (23, 9, 12), (2, 3, 5), (40, 17, 70),
+                                  (4095,), (7,), (13, 20, 70)])
+def test_spmv_kernel_matches_twin(cuda, grid, dtype):
     A = _const(grid)
-    x = _rand(grid, 0, cuda)
-    n0 = spmv_const_stencil_cuda.launches
+    x = _rand(grid, 0, cuda).to(dtype)
+    rel = REL64 if dtype == torch.float64 else REL
+    cuda_stencil.reset_launch_counts()
     y = spmv_const_stencil_cuda(A, x)
     torch.cuda.synchronize()
     ref = spmv_const_stencil_ref(A, x)
-    assert spmv_const_stencil_cuda.launches == n0 + 1
-    assert float((y - ref).abs().max()) <= REL * float(ref.abs().max())
+    assert spmv_const_stencil_cuda.launches == 1
+    assert spmv_const_stencil_cuda.launches_by_grid[grid] == 1
+    assert spmv_const_stencil_cuda.launches_by_dtype[cuda_stencil.TAGS[dtype]] == 1
+    assert y.dtype == dtype
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+#: kernel #1's instantiations on random coefficients: every compile-time
+#: pattern (on a grid with interior blocks and ragged edges in every axis,
+#: nz = 1 for the 3-D ones), its legs reversed and a short leg list (the
+#: run-time instantiation), and 1-D grids
+_T = tuple(itertools.product((-1, 0, 1), repeat=3))
+CONST_HAND = {
+    "3-point 1-D (4095,)": (((-1,), (0,), (1,)), (4095,)),
+    "3-point 1-D (300,)": (((-1,), (0,), (1,)), (300,)),
+    "5-point 2-D (40, 600)": (((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), (40, 600)),
+    "9-point 2-D (41, 299)": (tuple(s[1:] for s in _T if s[0] == 0), (41, 299)),
+    "7-point (13, 20, 70)": (tuple(s for s in _T if sum(map(abs, s)) <= 1), (13, 20, 70)),
+    "7-point nz=1 (1, 17, 65)": (tuple(s for s in _T if sum(map(abs, s)) <= 1), (1, 17, 65)),
+    "27-point (13, 20, 70)": (_T, (13, 20, 70)),
+    "27-point nz=1 (1, 17, 65)": (_T, (1, 17, 65)),
+    "7-point reversed (13, 20, 70)": (tuple(s for s in _T if sum(map(abs, s)) <= 1)[::-1], (13, 20, 70)),
+    "5-point reversed 2-D (40, 600)": (((1, 0), (0, 1), (0, 0), (0, -1), (-1, 0)), (40, 600)),
+    "2 legs 1-D (1000,)": (((0,), (1,)), (1000,)),
+    "13 legs (13, 20, 70)": (_T[:13], (13, 20, 70)),
+}
+
+
+def _const_hand(case, device, dtype):
+    shifts, grid = CONST_HAND[case]
+    rng = np.random.default_rng(11)
+    A = ConstStencilMatrix(tuple(float(c) for c in rng.uniform(-1, 1, len(shifts))), shifts, grid)
+    return A, _rand(grid, 12, device).to(dtype)
+
+
+@pytest.mark.parametrize("case", sorted(CONST_HAND))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_kernel_matches_twin_on_every_pattern(cuda, case, dtype):
+    A, x = _const_hand(case, cuda, dtype)
+    spec = cuda_stencil.const_view(A.grid, A.shifts).spec
+    assert (spec == 0) == ("reversed" in case or "legs" in case)
+    y = spmv_const_stencil_cuda(A, x)
+    torch.cuda.synchronize()
+    ref = spmv_const_stencil_ref(A, x)
+    rel = REL64 if dtype == torch.float64 else REL
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(CONST_HAND))
+def test_spmv_kernel_reads_nothing_outside_the_grid(cuda, case):
+    # x lies between NaNs: a read past the grid would leak a NaN where the
+    # twin has none
+    A, x = _const_hand(case, cuda, torch.float64)
+    n = x.numel()
+    buf = torch.full((n + 2 * 4096,), float("nan"), device=cuda, dtype=torch.float64)
+    xc = buf[4096 : 4096 + n].view(A.grid)
+    xc.copy_(x)
+    y = spmv_const_stencil_cuda(A, xc)
+    torch.cuda.synchronize()
+    ref = spmv_const_stencil_ref(A, xc)
+    assert not bool(torch.isnan(ref).any()) and not bool(torch.isnan(y).any())
+    assert float((y - ref).abs().max()) <= REL64 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("grid", [(24, 9, 12), (9, 9, 9), (17, 33, 70)])
@@ -167,13 +230,39 @@ def test_cheb_kernel_reads_nothing_outside_the_grid(cuda, zero_x, want_resid):
 
 def test_cuda_path_raises_instead_of_falling_back(cuda):
     A = _const((9, 9, 9))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        spmv_const_stencil_cuda(A, torch.zeros((9, 9, 9), dtype=torch.bfloat16, device=cuda))
     with pytest.raises(TypeError, match="float32"):
-        spmv_const_stencil_cuda(A, torch.zeros((9, 9, 9), dtype=torch.float64, device=cuda))
+        cheb_smooth_const_cuda(A, torch.zeros((9, 9, 9), dtype=torch.float64, device=cuda), None,
+                               2, 2.0, 0.5, torch.tensor(1 / 6, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         spmv_const_stencil_cuda(A, torch.zeros((9, 9, 9), device=cuda).transpose(0, 1))
     with pytest.raises(ValueError, match="scalar"):
         cheb_smooth_const_cuda(A, torch.zeros((9, 9, 9), device=cuda), None, 2, 2.0, 0.5,
                                torch.ones(3, device=cuda))
+
+
+def test_const_kernel_takes_the_wrappers_geometry(cuda):
+    # the library reports its z run (one plane for the 1-D pattern), and the
+    # C entry launches the wrapper's block and grid, refusing one that does
+    # not cover the view
+    lib = _build.load("stencil")
+    assert lib.cg_spmv_const_zrun(3) == 1 and lib.cg_spmv_const_zrun(7) >= 1
+    A = _const((13, 20, 70))
+    x = torch.randn(A.grid, device=cuda)
+    view = cuda_stencil.const_view(A.grid, A.shifts)
+    geo = cuda_stencil.const_geometry(view, lib.cg_spmv_const_zrun(view.spec))
+    coeffs, shifts = cuda_stencil._const_args(tuple(float(c) for c in A.coeffs), view)
+    y = torch.empty_like(x)
+    short = (geo.grid[0], geo.grid[1], geo.grid[2] - 1)
+    for block, grid, ok in ((geo.block, geo.grid, True), (geo.block, short, False),
+                            ((32, 16), geo.grid, False)):
+        err = lib.cg_spmv_const(0, view.spec, x.data_ptr(), y.data_ptr(), *view.dims, A.nlegs,
+                                coeffs, shifts, *block, *grid, 0)
+        assert (err == 0) == ok
+    torch.cuda.synchronize()
+    ref = spmv_const_stencil_ref(A, x)
+    assert float((spmv_const_stencil_cuda(A, x) - ref).abs().max()) <= REL * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("grid", [(63, 63), (31, 31, 31)])
@@ -229,19 +318,46 @@ def test_dia_spmv_kernels_match_twin(cuda, kind, legs):
     assert abs(float(dot) - float(ref_dot)) <= rel * float((x.abs() * ref.abs()).sum())
 
 
-@pytest.mark.parametrize("k", [1, 3, 4, 8, 11])
-@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16])
-def test_dia_spmm_kernel_matches_twin_and_spmv(cuda, k, legs):
-    A = _dia("banded", legs)
-    X = torch.from_numpy(np.random.default_rng(4).standard_normal((k, A.n))).to(cuda, torch.float32)
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 11])
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("kind", ["banded", "ragged", "poisson3d"])
+def test_dia_spmm_kernel_matches_twin_and_spmv(cuda, kind, k, legs):
+    A = _dia(kind, legs)
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    X = torch.from_numpy(np.random.default_rng(4).standard_normal((k, A.n))).to(cuda, vec)
     n0 = spmm_dia_cuda.launches
     Y = spmm_dia_cuda(A, X)
     torch.cuda.synchronize()
     assert spmm_dia_cuda.launches == n0 + len(cuda_dia.k_chunks(k))
     ref = spmm_dia_ref(A, X)
-    assert float((Y - ref).abs().max()) <= REL * float(ref.abs().max())
+    assert Y.dtype == ref.dtype == vec
+    assert float((Y - ref).abs().max()) <= rel * float(ref.abs().max())
     for j in range(k):  # each column is the single-RHS kernel's result, bit for bit
         assert torch.equal(Y[j], spmv_dia_cuda(A, X[j].contiguous()))
+
+
+@pytest.mark.parametrize("k", [3, 8])  # 8: the banded kinds stage X in shared memory
+@pytest.mark.parametrize("legs", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["banded", "ragged", "poisson3d"])
+def test_dia_spmm_kernel_reads_nothing_outside_the_matrix(cuda, kind, legs, k):
+    # X is carved out of a NaN-filled buffer with NaNs planted at both ends
+    # of every column: the rows the band reaches are NaN in the kernel and
+    # the twin alike, the others stay finite
+    A = _dia(kind, legs)
+    pad = 4096
+    buf = torch.full((k * A.n + 2 * pad,), float("nan"), device=cuda, dtype=legs)
+    X = buf[pad : pad + k * A.n].view(k, A.n)
+    X.copy_(torch.from_numpy(np.random.default_rng(9).standard_normal((k, A.n))).to(cuda, legs))
+    X[:, 0] = float("nan")
+    X[:, -1] = float("nan")
+    Y = spmm_dia_cuda(A, X)
+    torch.cuda.synchronize()
+    ref = spmm_dia_ref(A, X)
+    nan = torch.isnan(ref)
+    rel = REL64 if legs == torch.float64 else REL
+    assert torch.equal(torch.isnan(Y), nan) and 0 < int(nan.sum()) < nan.numel()
+    assert float((Y[~nan] - ref[~nan]).abs().max()) <= rel * float(ref[~nan].abs().max())
 
 
 def test_dia_kernels_raise_instead_of_falling_back(cuda):
@@ -250,9 +366,12 @@ def test_dia_kernels_raise_instead_of_falling_back(cuda):
         spmv_dia_cuda(A, torch.zeros(A.n, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         spmm_dia_cuda(A, torch.zeros((A.n, 2), device=cuda).T)
+    # kernel #5 takes fp64 legs with fp64 columns; kernel #6 refuses them
+    A64 = _dia("ragged", torch.float64)
+    X64 = torch.ones((2, A.n), dtype=torch.float64, device=cuda)
+    assert torch.equal(spmm_dia_cuda(A64, X64)[1], spmv_dia_cuda(A64, X64[1].contiguous()))
     with pytest.raises(TypeError, match="fp32 or bf16"):
-        spmm_dia_cuda(_dia("ragged", torch.float64), torch.zeros((2, A.n), dtype=torch.float64,
-                                                                  device=cuda))
+        spmm_dia_acc_cuda(A64, X64)
     wide = DiaMatrix(torch.zeros((300, 400), device=cuda), tuple(range(-150, 150)), (400, 400))
     with pytest.raises(ValueError, match="diagonals"):
         spmv_dia_cuda(wide, torch.zeros(400, device=cuda))
@@ -476,3 +595,72 @@ def test_multi_preconditioner_on_card_is_v_cycle_per_column(cuda, kind):
     assert Z.shape == R.shape
     for j in range(3):
         assert torch.equal(Z[:, j], v_cycle(h, R[:, j].contiguous()))
+
+
+@pytest.mark.parametrize("grid", [(63, 63), (31, 31, 31), (4095,)])
+def test_default_dtype_mgcg_on_card_matches_cpu(cuda, grid):
+    # the generators' fp64 through api.solve with dtype=None: kernel #1 in
+    # fp64 at every level (the fused smoother is fp32 only); 1-D above
+    # max_coarse runs kernel #1's 1-D pattern
+    from conjugategradient_tpu_torch import api
+
+    s = generators.poisson_system(grid)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cuda_stencil.reset_launch_counts()
+        out[dev] = api.solve(s.A, s.b, method="mgcg", grid=grid, tol=1e-10, norm="rel_l2",
+                             device=dev)
+        if dev == "cuda":
+            assert spmv_const_stencil_cuda.launches_by_dtype["fp64"] > 0
+            assert cheb_smooth_const_cuda.launches == 0
+    g, c = out["cuda"], out["cpu"]
+    assert g.x.dtype == torch.float64 and g.converged and c.converged
+    assert g.iterations == c.iterations
+    assert float((g.x.cpu() - c.x).abs().max() / c.x.abs().max()) <= 1e-10
+
+
+def test_fp64_block_cg_on_card_matches_cpu(cuda):
+    from conjugategradient_tpu_torch import api
+
+    s = generators.banded_sin_system(4096, 32)
+    B = np.column_stack([s.b] + [np.random.default_rng(j).standard_normal(s.n) for j in range(2)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cuda_dia.reset_launch_counts()
+        out[dev] = api.solve(s.A, B, method="cg", tol=1e-8, norm="rel_l2", device=dev)
+        if dev == "cuda":
+            assert spmm_dia_cuda.launches_by_dtype["fp64"] > 0
+    g, c = out["cuda"], out["cpu"]
+    assert bool(g.converged.all()) and bool(c.converged.all())
+    assert g.iterations.tolist() == c.iterations.tolist()
+    assert float((g.x.cpu() - c.x).abs().max() / c.x.abs().max()) <= 1e-10
+
+
+def test_entry_points_take_a_b_already_on_the_card(cuda):
+    # the same data as a CUDA tensor and as numpy: the same result
+    from conjugategradient_tpu_torch.precond.multigrid import mgcg_solve
+    from conjugategradient_tpu_torch.solvers.refine import refined_solve, refined_solve_multi
+
+    grid = (31, 31, 31)
+    s = generators.poisson_system(grid)
+    b_dev = torch.from_numpy(s.b).to(cuda)
+    x0 = np.random.default_rng(13).standard_normal(s.n) * 1e-3
+    h = build_hierarchy(s.A, grid, dtype=np.float32, device=cuda)
+    kw = dict(grid=grid, x0=None, hierarchy=h, policy=ConvergencePolicy(tol=1e-6, norm="rel_l2"))
+    for x0_in in (None, x0):
+        kw["x0"] = x0_in
+        r_np, _ = mgcg_solve(s.A, s.b, **kw)
+        kw["x0"] = None if x0_in is None else torch.from_numpy(x0_in).to(cuda)
+        r_dev, _ = mgcg_solve(s.A, b_dev, **kw)
+        assert r_np.iterations == r_dev.iterations and torch.equal(r_np.x, r_dev.x)
+    f = generators.banded_sin_system(4096, 32)
+    fb = torch.from_numpy(f.b).to(cuda)
+    fx0 = torch.from_numpy(f.x0).to(cuda)
+    for kwr in ({}, dict(device_residual=True)):
+        a = refined_solve(f.A, f.b, f.x0, tol=1e-8, device=cuda, **kwr)
+        d = refined_solve(f.A, fb, fx0, tol=1e-8, device=cuda, **kwr)
+        assert a.converged and np.array_equal(a.x, d.x) and a.history == d.history
+    B = np.column_stack([f.b, 2 * f.b])
+    a = refined_solve_multi(f.A, B, tol=1e-8, device=cuda)
+    d = refined_solve_multi(f.A, torch.from_numpy(B).to(cuda), tol=1e-8, device=cuda)
+    assert bool(a.converged.all()) and np.array_equal(a.x, d.x)

@@ -207,7 +207,8 @@ def test_kernel_path_checks_raise_instead_of_falling_back():
         spmv_dia_cuda(meta32, torch.empty(332, device="meta"))
     with pytest.raises(ValueError, match="contiguous"):
         spmm_dia_cuda(meta32, torch.empty((333, 2), device="meta").T)
-    with pytest.raises(TypeError, match="fp32 or bf16"):
+    # kernel #5 takes fp64 legs with fp64 columns: refused only for the device
+    with pytest.raises(ValueError, match="CUDA tensors"):
         spmm_dia_cuda(_meta(A, torch.float64), torch.empty((2, 333), dtype=torch.float64,
                                                            device="meta"))
     with pytest.raises(TypeError, match="device_put"):

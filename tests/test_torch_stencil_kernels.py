@@ -97,7 +97,7 @@ def test_cpu_wrappers_use_twins_and_launch_nothing():
             ref = cheb_smooth_const_ref(A, b, xin, 2, 2.0, 0.5, 1.0 / 6.0, want_resid)
             for o, r in zip(out if want_resid else (out,), ref if want_resid else (ref,)):
                 assert torch.equal(o, r)
-    # fp64 on the CPU goes to the twin too (the kernel path would refuse it)
+    # fp64 on the CPU goes to the twin too
     assert spmv_const_stencil_cuda(A, b.double()).dtype == torch.float64
     # the operator takes flat vectors too, and refuses other shapes
     y_flat = spmv_const_stencil(A, b.reshape(-1))
@@ -118,15 +118,26 @@ def test_kernel_path_rejects_what_the_kernels_do_not_take():
     _, A3 = _consts((9, 9, 9))
     A1 = ConstStencilMatrix((-1.0, 2.0, -1.0), ((-1,), (0,), (1,)), (65,))
     wide = ConstStencilMatrix((-1.0, 2.0, -1.0), ((-2, 0), (0, 0), (2, 0)), (9, 9))
-    # 1-D grid
-    with pytest.raises(ValueError, match="2-D or 3-D"):
-        spmv_const_stencil_cuda(A1, _meta((65,)))
+    # kernel #1 takes 1-D, 2-D and 3-D grids in fp32 and fp64: every check
+    # passes, and a meta tensor is refused only for not lying on the card
+    for A, shape in ((A1, (65,)), (A3, (9, 9, 9))):
+        for dtype in (torch.float32, torch.float64):
+            with pytest.raises(ValueError, match="CUDA"):
+                spmv_const_stencil_cuda(A, _meta(shape, dtype))
+    # 4-D grid
+    A4 = ConstStencilMatrix((1.0,), ((0, 0, 0, 0),), (3, 3, 3, 3))
+    with pytest.raises(ValueError, match="1-D, 2-D or 3-D"):
+        spmv_const_stencil_cuda(A4, _meta((3, 3, 3, 3)))
     # |shift| > 1
     with pytest.raises(ValueError, match="shifts"):
         spmv_const_stencil_cuda(wide, _meta((9, 9)))
-    # not fp32
-    with pytest.raises(TypeError, match="float32"):
-        spmv_const_stencil_cuda(A3, _meta((9, 9, 9), torch.float64))
+    # more than 27 legs
+    many = ConstStencilMatrix((1.0,) * 28, tuple((i % 3 - 1, 0, 0) for i in range(28)), (9, 9, 9))
+    with pytest.raises(ValueError, match="legs supported"):
+        spmv_const_stencil_cuda(many, _meta((9, 9, 9)))
+    # neither fp32 nor fp64; the fused smoother takes fp32 only
+    with pytest.raises(TypeError, match="float32 or float64"):
+        spmv_const_stencil_cuda(A3, _meta((9, 9, 9), torch.bfloat16))
     with pytest.raises(TypeError, match="float32"):
         cheb_smooth_const_cuda(A3, _meta((9, 9, 9), torch.float64), None, 2, 2.0, 0.5, 1 / 6)
     # wrong rank / shape
