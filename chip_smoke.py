@@ -45,12 +45,15 @@ after:
 - Kernel #6, the single-call accumulating DIA SpMM: the experiment module
   ``conjugategradient_tpu_torch.scripts.spmm_acc_experiment`` at its default
   shape (n = 414,720, band 160, k = 8), counted, and its measurement on the
-  255^3 7-diagonal DIA at k = 4.
+  255^3 7-diagonal DIA at k = 4; then timed with bf16 legs at the default
+  shape and at the flagship's band 160, k = 4, beside kernel #5.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
-NaN-carved x) and #5 (fp32, bf16 and fp64 legs) are held to their twins
-first, and the ptxas report of every instantiation of #1, #2, #3 and #5
-must show a 0-byte stack frame and no spills.
+NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
+NaN-planted X at k = 3 and 8) are held to their twins first, and the ptxas
+report of every instantiation of #1, #2, #3, #5 and #6 must show a 0-byte
+stack frame and no spills; #6's blocks per SM and waves at its main shapes
+are printed.
 
 Every phase has a bound and any miss, build failure or launch failure ends
 the run with a non-zero exit before the last line.  The last line is
@@ -92,6 +95,8 @@ from conjugategradient_tpu_torch.core.formats import (
 from conjugategradient_tpu_torch.models.workloads import WORKLOADS
 from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
 from conjugategradient_tpu_torch.ops.card import (
+    SMS,
+    blocks_per_sm,
     bound_ms,
     card_name,
     dia_nnz,
@@ -241,6 +246,8 @@ ACC_VS_SPMM = 1e-6
 ACC_VS_ORACLE = 1e-5
 #: (label, n, band) of kernel #6's checks; the flagship's n at band 160
 ACC_CASES = [("band 32 n=65536", 65536, 32), ("band 160 n=207402", 207402, 160)]
+#: the column counts of its NaN-planted checks (8: the widest window)
+ACC_NAN_KS = (3, 8)
 #: the multi-RHS grid path: columns of the 255^3 jump MGCG, of the 63^3
 #: facade run, of the 255^3 smooth refined solve
 MULTI_K = 4
@@ -250,6 +257,9 @@ REFINE_MULTI_K = 2
 #: jump operator as a 7-diagonal DIA (the multi-RHS MGCG's CG level)
 ACC_MAIN = "n=414720 band=160 k=8"
 ACC_DIA7 = f"255^3 7 diagonals k={MULTI_K}"
+#: and two more: the main shape with bf16 legs, the flagship at k = 4
+ACC_MAIN_BF16 = "n=414720 band=160 k=8 bf16 legs"
+ACC_FLAGSHIP = "n=207402 band=160 k=4"
 
 KERNELS = {
     "spmv_const_stencil": dict(
@@ -954,17 +964,21 @@ def _acc_kernel_checks(dev, errs):
                     _require(eo <= ACC_VS_ORACLE, f"{tag} k={k} column {j}: vs fp64 oracle {eo:.3e}")
                     worst_o = max(worst_o, eo)
                 worst, worst5 = max(worst, err), max(worst5, e5 / s5)
-            Xc = _nan_carved(torch.from_numpy(rng.standard_normal((3, n))).to(dev, torch.float32))
-            Y, ref = spmm_dia_acc_cuda(A, Xc), spmm_dia_acc_ref(A, Xc)
-            torch.cuda.synchronize()
-            nan = torch.isnan(ref)
-            _require(torch.equal(torch.isnan(Y), nan) and 0 < int(nan.sum()) < nan.numel(),
-                     f"{tag}: NaN pattern differs from the twin's (or is all or nothing)")
-            err, scale = _max_err(Y[~nan], ref[~nan])
-            _require(err <= KERNEL_REL * scale, f"{tag} NaN-planted: max err {err:.3e}")
-            errs["spmm_dia_acc"] = max(errs["spmm_dia_acc"], worst, err)
+            nans = []
+            for k in ACC_NAN_KS:
+                Xc = _nan_carved(torch.from_numpy(rng.standard_normal((k, n))).to(dev, torch.float32))
+                Y, ref = spmm_dia_acc_cuda(A, Xc), spmm_dia_acc_ref(A, Xc)
+                torch.cuda.synchronize()
+                nan = torch.isnan(ref)
+                _require(torch.equal(torch.isnan(Y), nan) and 0 < int(nan.sum()) < nan.numel(),
+                         f"{tag} k={k}: NaN pattern differs from the twin's (or is all or nothing)")
+                err, scale = _max_err(Y[~nan], ref[~nan])
+                _require(err <= KERNEL_REL * scale, f"{tag} k={k} NaN-planted: max err {err:.3e}")
+                worst = max(worst, err)
+                nans.append(int(nan.sum()))
+            errs["spmm_dia_acc"] = max(errs["spmm_dia_acc"], worst)
             print(f"{tag} k={SPMM_KS}: max|kernel-twin| {worst:.3e}, vs spmm_dia {worst5:.3e} of "
-                  f"max|Y|, vs fp64 oracle {worst_o:.3e}; NaN-planted X: {int(nan.sum())} NaN "
+                  f"max|Y|, vs fp64 oracle {worst_o:.3e}; NaN-planted X at k={ACC_NAN_KS}: {nans} NaN "
                   "entries, the same as the twin's")
 
 
@@ -1194,29 +1208,60 @@ def _library_and_bounds(ops, fsys, sysj, hj, dev, card, times):
 
 
 def _acc_times(sysj, recs, dev, card, times, lib, bounds):
-    """Kernel #6 against its twin and cuSPARSE's CSR SpMM at the
-    experiment's shape (n = 414,720, band 160, k = 8; the record's main
-    shape) and on the 255^3 7-diagonal DIA at k = MULTI_K, beside the
-    experiment's own times of kernels #6 and #5 at each shape (``recs``)."""
-    cases = ((ACC_MAIN, generators.banded_sin_matrix(414_720, 160, np.float32), 8),
-             (ACC_DIA7, sysj.A, MULTI_K))
-    for label, A_host, k in cases:
-        A = A_host.device_put(torch.float32, dev)
+    """Kernel #6 against its twin and cuSPARSE's CSR SpMM, each time beside
+    kernel #5's on the same inputs and the bound: at the experiment's shape
+    (n = 414,720, band 160, k = 8; the record's main shape) in fp32 legs and
+    on the 255^3 7-diagonal DIA at k = MULTI_K, both timed by the
+    experiment (``recs``), then the same main shape with bf16 legs and the
+    flagship band 160 at k = 4, timed here (bf16 legs: the CSR holds them
+    upcast to fp32, the same function)."""
+    main = generators.banded_sin_matrix(414_720, 160, np.float32)
+    cases = ((ACC_MAIN, main, torch.float32, 8), (ACC_DIA7, sysj.A, torch.float32, MULTI_K),
+             (ACC_MAIN_BF16, main, torch.bfloat16, 8),
+             (ACC_FLAGSHIP, generators.banded_sin_matrix(207_402, 160, np.float32), torch.float32, 4))
+    for label, A_host, legs, k in cases:
+        A = A_host.device_put(legs, dev)
         X = torch.randn((k, A.n), device=dev)
         Xn = X.T.contiguous()
-        csr = _csr(A)
-        acc_ms, spmm_ms = recs[label]["single_call_us"] / 1e3, recs[label]["chained_us"] / 1e3
+        csr = _csr(DiaMatrix(A.data.float(), A.offsets, A.shape))
+        if label in recs:
+            acc_ms, spmm_ms = recs[label]["single_call_us"] / 1e3, recs[label]["chained_us"] / 1e3
+            src = "the experiment's record"
+        else:
+            acc_ms = time_ms(lambda: spmm_dia_acc_cuda(A, X), 100)
+            spmm_ms = time_ms(lambda: spmm_dia_cuda(A, X), 100)
+            src = "timed here"
         p_ms = time_ms(lambda: spmm_dia_acc_ref(A, X), 3)
         csr_ms = _library(f"spmm_dia_acc {label}", lambda: csr @ Xn, spmm_dia_acc_cuda(A, X).T,
                           card, 100)
-        bound = bound_ms(spmm_bytes(A, k), 2 * k * dia_nnz(A))
+        nbytes = spmm_bytes(A, k)
+        bound = bound_ms(nbytes, 2 * k * dia_nnz(A))
         times[("spmm_dia_acc", label)] = (acc_ms, p_ms)
-        print(f"time spmm_dia_acc {label}: kernel #6 {acc_ms:.4f} ms, kernel #5 {spmm_ms:.4f} ms "
-              f"(the experiment's record), CSR SpMM {csr_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
-              f"{bound[0]:.4f} ms ({spmm_bytes(A, k) / 1e6:.1f} MB) [{card}]")
+        print(f"time spmm_dia_acc {label}: kernel #6 {acc_ms:.4f} ms ({bound[0] / acc_ms:.1%} of the "
+              f"bound), kernel #5 {spmm_ms:.4f} ms ({src}), CSR SpMM {csr_ms:.4f} ms, twin "
+              f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
         if label == ACC_MAIN:
             lib["spmm_dia_acc"], bounds["spmm_dia_acc"] = csr_ms, bound
         del A, X, Xn, csr
+
+
+def _acc_geometry(card):
+    """Kernel #6's launch at its main shapes: the library's tile and window
+    ring, each instantiation's registers, blocks per SM (registers and the
+    windows' shared memory) and the waves of the grid."""
+    lib = _build.load("dia")
+    tile, stages = lib.cg_spmm_dia_acc_tile(), lib.cg_spmm_dia_acc_stages()
+    for legs, k in (("f", 8), ("13__nv_bfloat16", 8), ("f", 4)):
+        n = 414_720 if k == 8 else 207_402
+        geo = cuda_dia.acc_geometry(tuple(range(-79, 80)), n, k, tile, stages)
+        res = next(r for e, r in _build.kernel_resources("dia").items()
+                   if e.startswith(f"_Z19spmm_dia_acc_kernelI{legs}Li{k}E"))
+        per_sm = blocks_per_sm(res["registers"], tile, geo.smem_bytes)
+        print(f"spmm_dia_acc geometry n={n} band=160 k={k} {'fp32' if legs == 'f' else 'bf16'} legs: "
+              f"{geo.blocks} blocks of {tile} rows ({geo.interior} interior), {res['registers']} "
+              f"registers, {geo.smem_bytes} B shared memory ({stages} window buffers), {per_sm} "
+              f"blocks per SM, "
+              f"{geo.blocks / (SMS * per_sm):.2f} waves [{card}]")
 
 
 def main() -> int:
@@ -1244,7 +1289,8 @@ def main() -> int:
         for entry, res in sorted(_build.kernel_resources(name).items()):
             print(f"  ptxas {name}: {entry[:72]} {res}")
     for src, kernel in (("stencil", "spmv_const_kernel"), ("stencil", "cheb_const_kernel"),
-                        ("stencil_var", "spmv_var_kernel"), ("dia", "spmm_dia_kernel")):
+                        ("stencil_var", "spmv_var_kernel"), ("dia", "spmm_dia_kernel"),
+                        ("dia", "spmm_dia_acc_kernel")):
         res = {e: r for e, r in _build.kernel_resources(src).items() if kernel in e}
         _require(bool(res), f"ptxas: no {kernel} entry in the {src} build log")
         bad = {e: r for e, r in res.items()
@@ -1253,6 +1299,7 @@ def main() -> int:
         regs = [r["registers"] for r in res.values()]
         print(f"ptxas {kernel}: {len(res)} instantiations, all with a 0-byte stack frame and 0 "
               f"spill bytes, {min(regs)}-{max(regs)} registers")
+    _acc_geometry(card)
 
     torch.manual_seed(SEED)  # the kernel-#3 checks and times draw from the default generator
     rng = torch.Generator(device=dev).manual_seed(SEED)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from conjugategradient_tpu_torch.core import oracle
-from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, place
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, StencilMatrix, default_device, place
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 _PRECONDITIONERS = "ROADMAP queue 1 item 9 (the rest of the hierarchy and the preconditioners)"
@@ -46,6 +46,13 @@ _UNPORTED = {
     "sharded_cg": _PARALLEL,
 }
 _PREFIXES = ("jacobi_", "bjacobi_", "amg_", "mg_")
+
+
+def _place_matrix(A, dtype, device):
+    """A ``DiaMatrix`` or ``StencilMatrix`` on ``device`` at ``dtype``, as the
+    JAX facade calls ``device_put(dtype)`` on any container that has one; a
+    stencil of constants or a callable as it is."""
+    return A.device_put(dtype, device) if isinstance(A, (DiaMatrix, StencilMatrix)) else A
 
 
 def _refuse(method: str):
@@ -109,7 +116,7 @@ def solve(
 
     b_dev = place(b, dtype, device)
     x0_dev = None if x0 is None else place(x0, dtype, device)
-    A_dev = A.device_put(dtype, device) if isinstance(A, DiaMatrix) else A
+    A_dev = _place_matrix(A, dtype, device)
     return cg_solve(A_dev, b_dev, x0_dev, policy, **kw)
 
 
@@ -139,5 +146,5 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
 
         np_dtype = torch.empty(0, dtype=B_dev.dtype).numpy().dtype
         M = as_multi_preconditioner(build_hierarchy(A, grid, dtype=np_dtype, device=device))
-    A_dev = A.device_put(dtype, device) if isinstance(A, DiaMatrix) else A
+    A_dev = _place_matrix(A, dtype, device)
     return cg_solve_multi(A_dev, B_dev, X0_dev, policy, M=M, **kw)

@@ -84,28 +84,43 @@
 //   apply_acc), whose sequential group axis keeps the output tile resident
 //   while every group is added into it.
 //   Bound on the H100: device-memory bandwidth, as kernel 5 (the legs, then
-//   X and Y once each).  Kernel 5 reads X[c, i + off] through L1 once per
-//   leg, per column and per row; here a loop over the groups inside the
-//   block takes the place of the TPU's sequential grid axis.  One block of
-//   ACC_TILE rows, one thread per row, K columns of y in registers.  For
-//   each group the block stages X[c, i0 + lo .. i0 + ACC_TILE + hi) of all
-//   K columns in shared memory once (plain cooperative loads), syncs, sums
-//   the group's legs from shared memory into a register partial, adds the
-//   partial into y, and syncs before the next group's stage.  y is written
-//   once, at the end.
+//   X and Y once each): 290.3 MB, 0.0867 ms at n = 414,720, band 160,
+//   K = 8.  Beside it, each leg reads K values of X per row from shared
+//   memory: 2.1 GB at that shape, at least 0.06 ms at 128 bytes a clock per
+//   SM (1.98 GHz), so at K = 8 shared memory is nearly a second bound.
 //   The group plan is the host's (ops/cuda_dia.py::plan_dia_groups):
 //   offsets ascending, a new group when hi - lo would pass ACC_SPAN or the
 //   group holds ACC_LMAX = 48 legs (the JAX plan's _LMAX_MULTI), the group
 //   holding offset 0 last.  It travels as a __grid_constant__ parameter, so
 //   the per-leg reads stay in parameter space instead of a local copy.  Legs
 //   stay row-major (ndiags, n): no relayout.
-//   A neighbour outside [0, n) is never read: the stage skips it and the leg
-//   is skipped by the same predicate as kernels 4 and 5 (a zero-filled stage
-//   times a coefficient would turn 0 * NaN into NaN).  Legs are summed in
-//   plan order into the partial with an explicit fma, and the partial added
-//   into y, exactly as the twin spmm_dia_acc_ref does, so the two differ only
-//   by FMA contraction.  Kernel 6 and kernel 5 round in different orders.
-//   Shared memory: K * (ACC_TILE + ACC_SPAN) fp32 = 24 KB at K = 8, static.
+//   The first design (one window staged by plain loads per group, two
+//   barriers per group, one coefficient load at a time with a bounds test
+//   per leg) ran at 35% of the bound.  This one takes kernel 5's recipe and
+//   a loop over the groups inside the block in place of the TPU's
+//   sequential grid axis:
+//   - One block of ACC_TILE rows, one thread per row, K columns of y and of
+//     the group's partial in registers; y is written once, at the end.
+//   - The coefficient stream is pipelined in registers across the whole
+//     plan: batches of ACC_LEGS consecutive plan legs (__ldcs,
+//     evict-first) that run across group boundaries, the next batch
+//     requested before this batch's FMAs.  A batch is summed in segments
+//     that end at group boundaries, where the partial is added into y; at
+//     K <= 4 a batch inside one group runs without a range test.
+//   - Each group's window X[c, i0 + lo .. i0 + ACC_TILE + hi) of all K
+//     columns is copied with cp.async into a ring of ACC_STAGES buffers:
+//     group g + ACC_STAGES - 1's while group g is summed, one wait and one
+//     barrier per group.  Entries outside [0, n) are not copied.  The
+//     buffers are sized by the plan's widest group (dynamic shared memory,
+//     min(groups, ACC_STAGES) * K * (ACC_TILE + span) fp32).
+//   - A block whose rows all have every neighbour inside [0, n) sums without
+//     tests; the others skip a leg whose neighbour leaves [0, n) and never
+//     read it (a zero-filled entry times a coefficient would turn 0 * NaN
+//     into NaN).
+//   Legs are summed in plan order into the partial with an explicit fma, and
+//   the partial added into y, exactly as the twin spmm_dia_acc_ref does, so
+//   the two differ only by FMA contraction.  Kernel 6 and kernel 5 round in
+//   different orders.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -113,9 +128,19 @@
 
 #define MAX_DIAGS 256
 #define THREADS 256
-#define ACC_TILE 256
 #define ACC_SPAN 512
 #define ACC_LMAX 48
+// kernel 6's design constants; scripts/dia_tuning.py builds other values
+// with -D
+#ifndef ACC_TILE
+#define ACC_TILE 256  // rows per block, one thread each
+#endif
+#ifndef ACC_LEGS
+#define ACC_LEGS 8  // coefficients per batch of each row's stream
+#endif
+#ifndef ACC_STAGES
+#define ACC_STAGES 3  // window buffers in the ring (at least 2)
+#endif
 // kernel 5's design constants; scripts/dia_tuning.py builds other values
 // with -D
 #ifndef SPMM_THREADS
@@ -331,60 +356,168 @@ spmm_dia_kernel_stage(const L* __restrict__ data, const V* __restrict__ X, V* __
 
 // The group plan of kernel 6: group g holds plan legs [begin[g], begin[g+1]);
 // leg l has offset off[l] (ascending inside a group) and data row row[l].
+// lo and hi are the least and greatest offset clamped to lo <= 0 <= hi (the
+// interior test); width is the entries of one column's window, ACC_TILE plus
+// the widest group's span.
 struct AccPlan {
   int ngroups;
+  int lo, hi, width;
   int begin[MAX_DIAGS + 1];
   int off[MAX_DIAGS];
   unsigned char row[MAX_DIAGS];
 };
+
+// one 4-byte asynchronous copy from global to shared memory (cp.async; it
+// bypasses the registers), and the group and wait that close a stage
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage group g's window X[c, i0 + lo_g .. i0 + ACC_TILE + hi_g) of all K
+// columns into buf[c * width + s]; entries outside [0, n) are not copied
+// (the legs that would read them are skipped).  The caller commits.
+template <int K>
+__device__ __forceinline__ void acc_stage(float* buf, const float* __restrict__ X, int n,
+                                          long long ld, const AccPlan& plan, int g, int i0) {
+  const int b = plan.begin[g], e = plan.begin[g + 1];
+  const int lo = plan.off[b];
+  const int w = ACC_TILE + plan.off[e - 1] - lo;
+  for (int s = threadIdx.x; s < w; s += ACC_TILE) {
+    const long long j = (long long)i0 + lo + s;
+    if (j >= 0 && j < n) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) cp_async4(buf + c * plan.width + s, X + (c * ld + j));
+    }
+  }
+}
+
+// coefficients of plan legs [k0, min(k0 + B, end)) of this thread's row, 0
+// past end
+template <typename L, int B>
+__device__ __forceinline__ void acc_load(L (&d)[B], const L* __restrict__ rowp, int n,
+                                         const AccPlan& plan, int k0, int end) {
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+    d[b] = k0 + b < end ? ld_leg(rowp + (size_t)plan.row[k0 + b] * n) : L(0.0f);
+}
+
+// One block of kernel 6: ACC_TILE rows, one thread each, K columns of y in
+// registers.  The coefficient stream is pipelined in registers across the
+// whole plan: batches of ACC_LEGS consecutive plan legs, which run across
+// group boundaries, the next requested before this batch's FMAs, so the
+// next group's first coefficients are in flight while this group's last are
+// summed (and a short plan's are all requested at once).  A batch is summed
+// in segments that end at group boundaries: there the partial is added into
+// y and the next group opens.  The windows go through a ring of ACC_STAGES
+// buffers: group g + ACC_STAGES - 1's is copied (cp.async) while group g is
+// summed, so a plan of up to ACC_STAGES groups has every window in flight at
+// once; opening a group is one wait and one barrier.  MASK (blocks near
+// either end of [0, n)): a leg whose neighbour leaves [0, n) is not read and
+// adds nothing.
+template <typename L, int K, bool MASK>
+__device__ __forceinline__ void acc_block(const L* __restrict__ data, const float* __restrict__ X,
+                                          float* __restrict__ Y, int n, long long ld,
+                                          const AccPlan& plan, float* win) {
+  constexpr int B = ACC_LEGS, S = ACC_STAGES;
+  // a batch inside one group skips the per-leg range test; at K = 8 that
+  // second copy of the loop takes ptxas past 64 registers into spills and
+  // ran no faster (scripts/dia_tuning.py), so K = 8 keeps the tested loop
+  constexpr bool WHOLE = K < 8;
+  const int t = threadIdx.x;
+  const int i0 = blockIdx.x * ACC_TILE;
+  const int i = i0 + t;
+  const bool row_in = i < n;
+  const int W = plan.width;
+  const int G = plan.ngroups;
+  const int nd = plan.begin[G];
+  const L* rowp = data + (row_in ? i : 0);
+  float y[K], part[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) y[c] = part[c] = 0.0f;
+  L cur[B], nxt[B];
+  acc_load(cur, rowp, n, plan, 0, nd);
+  // one commit group per stage, empty past the last group, so that the wait
+  // below always leaves exactly the newer stages in flight
+#pragma unroll
+  for (int p = 0; p < S - 1; ++p) {
+    if (p < G) acc_stage<K>(win + p * K * W, X, n, ld, plan, p, i0);
+    cp_async_commit();
+  }
+  int g = -1, gend = 0;  // the open group and its end
+  const float* w = win;
+  int s0 = 0;  // this row's window entry at offset 0
+  for (int k0 = 0; k0 < nd; k0 += B) {
+    if (k0 + B < nd) acc_load(nxt, rowp, n, plan, k0 + B, nd);
+    const int bend = k0 + B < nd ? k0 + B : nd;
+    for (int l = k0; l < bend;) {
+      if (l == gend) {  // open group g + 1
+        ++g;
+        gend = plan.begin[g + 1];
+        cp_async_wait<S - 2>();
+        __syncthreads();  // group g's window is in; every thread is done with g - 1's buffer
+        const int p = g + S - 1;
+        if (p < G) acc_stage<K>(win + (p % S) * K * W, X, n, ld, plan, p, i0);
+        cp_async_commit();
+        w = win + (g % S) * K * W;
+        s0 = t - plan.off[l];
+      }
+      const int seg = bend < gend ? bend : gend;  // this segment: legs [l, seg)
+      // plan leg k0 + b into the partial
+      auto leg = [&](int b) {
+        const int off = plan.off[k0 + b];
+        if (!MASK || (row_in && (unsigned)(i + off) < (unsigned)n)) {
+          const float d = to_acc(cur[b]);
+#pragma unroll
+          for (int c = 0; c < K; ++c) part[c] = madd(d, w[c * W + s0 + off], part[c]);
+        }
+      };
+      if (WHOLE && seg - l == B) {
+#pragma unroll
+        for (int b = 0; b < B; ++b) leg(b);
+      } else {
+#pragma unroll
+        for (int b = 0; b < B; ++b)
+          if (k0 + b >= l && k0 + b < seg) leg(b);
+      }
+      l = seg;
+      if (l == gend) {  // group g is summed
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          y[c] += part[c];
+          part[c] = 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) cur[b] = nxt[b];
+  }
+  if (row_in) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) Y[c * ld + i] = y[c];
+  }
+}
 
 template <typename L, int K>
 __global__ void __launch_bounds__(ACC_TILE)
 spmm_dia_acc_kernel(const L* __restrict__ data, const float* __restrict__ X,
                     float* __restrict__ Y, int n, long long ld,
                     const __grid_constant__ AccPlan plan) {
-  __shared__ float stage[K][ACC_TILE + ACC_SPAN];
-  const int t = threadIdx.x;
+  extern __shared__ __align__(16) float acc_win[];  // min(G, ACC_STAGES) buffers of K * width
+  // every row of the block has every neighbour inside [0, n): no tests
   const long long i0 = (long long)blockIdx.x * ACC_TILE;
-  const int i = (int)i0 + t;
-  float y[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) y[c] = 0.0f;
-  for (int g = 0; g < plan.ngroups; ++g) {
-    const int b = plan.begin[g], e = plan.begin[g + 1];
-    const int lo = plan.off[b];
-    const int width = ACC_TILE + plan.off[e - 1] - lo;
-    for (int s = t; s < width; s += ACC_TILE) {
-      const long long j = i0 + lo + s;
-      if (j >= 0 && j < n) {
-#pragma unroll
-        for (int c = 0; c < K; ++c) stage[c][s] = X[c * ld + j];
-      }
-    }
-    __syncthreads();
-    if (i < n) {
-      float part[K];
-#pragma unroll
-      for (int c = 0; c < K; ++c) part[c] = 0.0f;
-      for (int l = b; l < e; ++l) {
-        const int off = plan.off[l];
-        const int j = i + off;
-        if (j >= 0 && j < n) {
-          const float d = to_acc(data[(long long)plan.row[l] * n + i]);
-          const int s = t + off - lo;
-#pragma unroll
-          for (int c = 0; c < K; ++c) part[c] = madd(d, stage[c][s], part[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < K; ++c) y[c] += part[c];
-    }
-    __syncthreads();
-  }
-  if (i < n) {
-#pragma unroll
-    for (int c = 0; c < K; ++c) Y[c * ld + i] = y[c];
-  }
+  if (i0 + plan.lo >= 0 && i0 + ACC_TILE + plan.hi <= n)
+    acc_block<L, K, false>(data, X, Y, n, ld, plan, acc_win);
+  else
+    acc_block<L, K, true>(data, X, Y, n, ld, plan, acc_win);
 }
 
 // checks every limit the kernel relies on; 0 or cudaErrorInvalidValue
@@ -394,6 +527,8 @@ static int fill_plan(AccPlan* p, int ndiags, int ngroups, const int* begin, cons
     return (int)cudaErrorInvalidValue;
   if (begin[0] != 0 || begin[ngroups] != ndiags) return (int)cudaErrorInvalidValue;
   p->ngroups = ngroups;
+  p->lo = p->hi = 0;
+  int span = 0;
   for (int g = 0; g <= ngroups; ++g) p->begin[g] = begin[g];
   for (int g = 0; g < ngroups; ++g) {
     const int b = begin[g], e = begin[g + 1];
@@ -401,13 +536,32 @@ static int fill_plan(AccPlan* p, int ndiags, int ngroups, const int* begin, cons
     for (int l = b + 1; l < e; ++l)
       if (off[l] <= off[l - 1]) return (int)cudaErrorInvalidValue;
     if ((long long)off[e - 1] - off[b] > ACC_SPAN) return (int)cudaErrorInvalidValue;
+    if (off[e - 1] - off[b] > span) span = off[e - 1] - off[b];
   }
   for (int l = 0; l < ndiags; ++l) {
     if (row[l] < 0 || row[l] >= ndiags) return (int)cudaErrorInvalidValue;
     p->off[l] = off[l];
     p->row[l] = (unsigned char)row[l];
+    if (off[l] < p->lo) p->lo = off[l];
+    if (off[l] > p->hi) p->hi = off[l];
   }
+  p->width = ACC_TILE + span;
   return 0;
+}
+
+template <typename L, int K>
+static int launch_acc_k(const L* d, const float* x, float* y, int n, long long ld,
+                        const AccPlan& p, cudaStream_t st) {
+  const int nbuf = p.ngroups < ACC_STAGES ? p.ngroups : ACC_STAGES;
+  const size_t smem = (size_t)nbuf * K * p.width * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        spmm_dia_acc_kernel<L, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int nb = (n + ACC_TILE - 1) / ACC_TILE;
+  spmm_dia_acc_kernel<L, K><<<nb, ACC_TILE, smem, st>>>(d, x, y, n, ld, p);
+  return (int)cudaGetLastError();
 }
 
 template <typename L>
@@ -416,15 +570,13 @@ static int launch_spmm_acc(int k, const void* data, const void* X, void* Y, int 
   const L* d = (const L*)data;
   const float* x = (const float*)X;
   float* y = (float*)Y;
-  const int nb = (n + ACC_TILE - 1) / ACC_TILE;
   switch (k) {
-    case 1: spmm_dia_acc_kernel<L, 1><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
-    case 2: spmm_dia_acc_kernel<L, 2><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
-    case 4: spmm_dia_acc_kernel<L, 4><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
-    case 8: spmm_dia_acc_kernel<L, 8><<<nb, ACC_TILE, 0, st>>>(d, x, y, n, ld, p); break;
+    case 1: return launch_acc_k<L, 1>(d, x, y, n, ld, p, st);
+    case 2: return launch_acc_k<L, 2>(d, x, y, n, ld, p, st);
+    case 4: return launch_acc_k<L, 4>(d, x, y, n, ld, p, st);
+    case 8: return launch_acc_k<L, 8>(d, x, y, n, ld, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 static int fill_offsets(Offsets* o, int ndiags, const int* offsets) {
@@ -576,11 +728,16 @@ int cg_spmm_dia(int code, int k, const void* data, const void* X, void* Y, int n
   }
 }
 
+// kernel 6's rows per block and window buffers, as this library was built
+int cg_spmm_dia_acc_tile() { return ACC_TILE; }
+int cg_spmm_dia_acc_stages() { return ACC_STAGES; }
+
 // kernel 6: k in {1, 2, 4, 8} columns of stride ld, the group plan of
 // plan_dia_groups (begin: ngroups + 1 entries; off, row: ndiags); code 0 or 1
 int cg_spmm_dia_acc(int code, int k, const void* data, const void* X, void* Y, int n,
                     long long ld, int ndiags, int ngroups, const int* begin, const int* off,
                     const int* row, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   AccPlan p;
   int err = fill_plan(&p, ndiags, ngroups, begin, off, row);
   if (err) return err;

@@ -145,6 +145,10 @@ def _bind_dia(lib: ctypes.CDLL) -> None:
     lib.cg_spmm_dia_acc.argtypes = [_I, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _IP, _IP,
                                     _IP, _P]
     lib.cg_spmm_dia_acc.restype = _I
+    lib.cg_spmm_dia_acc_tile.argtypes = []
+    lib.cg_spmm_dia_acc_tile.restype = _I
+    lib.cg_spmm_dia_acc_stages.argtypes = []
+    lib.cg_spmm_dia_acc_stages.restype = _I
 
 
 _BIND = {"stencil": _bind_stencil, "stencil_var": _bind_stencil_var, "dia": _bind_dia}

@@ -1,5 +1,5 @@
-"""The card's published peaks, the least time a kernel could take on it, and
-CUDA-event timing (of launches from the host, or replayed from a CUDA
+"""The card's published peaks and per-SM limits, the least time a kernel could
+take on it, and CUDA-event timing (of launches from the host, or replayed from a CUDA
 graph): what ``chip_smoke.py``, the tuning scripts and the kernel #6
 experiment (``scripts/spmm_acc_experiment.py``) report each kernel against.
 
@@ -20,6 +20,19 @@ from conjugategradient_tpu_torch.ops.cuda_dia import _windows
 HBM_BYTES_PER_S = 3.35e12
 #: the H100 SXM's published fp32 rate outside the tensor cores (700 W)
 FP32_FLOPS = 67e12
+#: the H100's SMs and per-SM limits: registers, threads, blocks, shared
+#: memory (bytes; each block also holds 1 KB of it for the system)
+SMS, SM_REGS, SM_THREADS, SM_BLOCKS, SM_SMEM = 132, 65536, 2048, 32, 228 * 1024
+
+
+def blocks_per_sm(registers: int, threads: int, smem_bytes: int = 0) -> int:
+    """Blocks of ``threads`` threads an SM holds at ``registers`` per thread
+    (allocated per warp in units of 256) and ``smem_bytes`` of shared
+    memory per block."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // 256) * 256
+    by_smem = SM_SMEM // (smem_bytes + 1024) if smem_bytes else SM_BLOCKS
+    return min(SM_REGS // per_warp // warps, SM_THREADS // threads, SM_BLOCKS, by_smem)
 
 
 def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:

@@ -10,9 +10,11 @@ Three kernels of ``csrc/dia.cu`` (design notes at the top of that file):
   one coefficient stream for all k (kernel #5, replaces
   ``_cm_kernel_multi``): the library path of every multi-RHS solve;
 - ``spmm_dia_acc_cuda`` — the same Y = A X in one call over groups of
-  diagonals (``plan_dia_groups``), each group's x window staged in shared
-  memory and y kept in registers across the groups (kernel #6, replaces
-  ``scripts/spmm_acc_experiment.py::kernel``).  Only the experiment module
+  diagonals (``plan_dia_groups``), each group's x window copied into a ring
+  of shared-memory buffers while an earlier group is summed, y kept in
+  registers across the groups (kernel #6, replaces
+  ``scripts/spmm_acc_experiment.py::kernel``; its launch is
+  ``acc_geometry``).  Only the experiment module
   ``scripts/spmm_acc_experiment.py`` of this package calls it.
 
 Instantiations, by (leg dtype, vector dtype): (fp32, fp32), (bf16, fp32)
@@ -35,7 +37,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -116,6 +118,34 @@ def plan_dia_groups(offsets: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
         groups.append(tuple(cur))
     zero = [g for g in groups if any(offsets[k] == 0 for k in g)]
     return tuple([g for g in groups if g not in zero] + zero)
+
+
+class AccGeometry(NamedTuple):
+    """Kernel #6's launch for one plan: ``blocks`` of ``tile`` rows, of
+    which ``interior`` have every neighbour of every row inside [0, n) (the
+    untested path), and the dynamic shared memory of a block: one window of
+    k columns per buffer of the ring (``stages``, or fewer for a plan of
+    fewer groups), each ``tile`` plus the widest group's span entries
+    wide."""
+
+    blocks: int
+    interior: int
+    smem_bytes: int
+
+
+def acc_geometry(offsets: Tuple[int, ...], n: int, k: int, tile: int, stages: int) -> AccGeometry:
+    """The launch ``cg_spmm_dia_acc`` makes for ``offsets`` at ``n`` rows
+    and k columns with ``tile`` rows per block and a ring of ``stages``
+    window buffers (the library's ``cg_spmm_dia_acc_tile`` and
+    ``cg_spmm_dia_acc_stages``)."""
+    groups = plan_dia_groups(tuple(offsets))
+    lo, hi = min(0, min(offsets)), max(0, max(offsets))
+    span = max(offsets[g[-1]] - offsets[g[0]] for g in groups)
+    blocks = -(-n // tile)
+    first = -(-max(0, -lo) // tile)  # the first block with i0 + lo >= 0
+    last = (n - hi - tile) // tile  # the last with i0 + tile + hi <= n
+    smem = min(len(groups), stages) * k * (tile + span) * 4
+    return AccGeometry(blocks, max(0, last - first + 1), smem)
 
 
 def spmm_dia_acc_ref(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
@@ -283,16 +313,23 @@ def spmm_dia_acc_cuda(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
     if torch.is_tensor(getattr(A, "data", None)) and A.data.dtype == torch.float64:
         raise TypeError(f"{name}: the kernel takes fp32 or bf16 legs with fp32 columns")
     code = _check_kernel_args(name, A, X, 2)
+    chunks = k_chunks(X.shape[0])
+    Y = _acc_launch(_build.load("dia"), code, A, X)
+    spmm_dia_acc_cuda.launches += len(chunks)
+    spmm_dia_acc_cuda.launches_by_dtype[TAGS[A.data.dtype]] += len(chunks)
+    return Y
+
+
+def _acc_launch(lib, code: int, A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Launch kernel #6 of ``lib`` on checked arguments, one launch per
+    column chunk."""
     Y = torch.empty_like(X)
-    lib = _build.load("dia")
     ngroups, begin, off, row = _plan_args(tuple(A.offsets))
     c0 = 0
     for kc in k_chunks(X.shape[0]):
         err = lib.cg_spmm_dia_acc(code, kc, A.data.data_ptr(), X[c0].data_ptr(), Y[c0].data_ptr(),
                                   A.n, A.n, A.ndiags, ngroups, begin, off, row, _stream(X))
-        _raise_on(lib, err, name)
-        spmm_dia_acc_cuda.launches += 1
-        spmm_dia_acc_cuda.launches_by_dtype[TAGS[A.data.dtype]] += 1
+        _raise_on(lib, err, "spmm_dia_acc_cuda")
         c0 += kc
     return Y
 

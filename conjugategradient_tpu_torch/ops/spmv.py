@@ -47,7 +47,8 @@ def as_operator(A, use_pallas: bool = False) -> Callable[[torch.Tensor], torch.T
     card is the accelerator the JAX default, ``jax.default_backend() ==
     "tpu"``, stands for), and on a CPU tensor both run the plain twin.  A
     host (numpy) ``DiaMatrix`` or ``StencilMatrix`` is placed on the CPU
-    first.
+    first: the solvers place one on ``b``'s device before they get here, so
+    this is for a call with no right-hand side to follow.
     """
     if isinstance(A, (DiaMatrix, StencilMatrix)) and not torch.is_tensor(A.data):
         A = A.device_put(device="cpu")

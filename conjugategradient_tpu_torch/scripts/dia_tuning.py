@@ -1,9 +1,9 @@
-"""Design constants of kernel #5 (the DIA SpMM), measured on the card.
+"""Design constants of kernels #5 and #6 (the DIA SpMMs), measured on the card.
 
     python -m conjugategradient_tpu_torch.scripts.dia_tuning
 
 Builds ``csrc/dia.cu`` once for each value of its compile-time design
-constants (``nvcc -D``; all builds started together):
+constants (``nvcc -D``; all builds started together).  Kernel #5:
 
 - ``SPMM_SPAN``: the widest leg span whose X window a block stages in
   shared memory (0: every X read goes through L1);
@@ -17,21 +17,34 @@ constants (``nvcc -D``; all builds started together):
 - ``SPMM_STAGE_MINB``: blocks per SM asked of ``ptxas`` for the staged form
   (a register cap).
 
-Prints each build's ``ptxas`` lines for kernel #5, each with the blocks an
-SM holds at its register count (``blocks_per_sm``) and the waves that makes
-of the flagship's grid, and times it with CUDA events after a warm-up at
-the main path's shapes: the flagship band 160 (n = 207,402) at k = 4 in
-fp32, bf16 legs and fp64, at k = 8 and k = 1 in fp32 (beside kernel #4's
-SpMV), and the 255^3 operator as a 7-diagonal DIA (offsets +-1, +-255,
-+-65025, random legs) at k = 4 in fp32.  Each time
-stands beside its bound (each leg entry whose neighbour lies in the matrix
-read once, X read once, Y written once, at 3.35 TB/s).
+Kernel #6 (the single-call accumulating SpMM):
+
+- ``ACC_TILE``: rows per block;
+- ``ACC_LEGS``: the coefficients per batch of each row's stream;
+- ``ACC_STAGES``: the window buffers in the ring (the copies of that many
+  groups less one are in flight while a group is summed; 2 is double
+  buffering).
+
+Prints each build's ``ptxas`` lines for the kernel it tunes, each with the
+blocks an SM holds at its register count (and, for #6, its shared memory
+at the main shape) and the waves that makes of the main shape's grid
+(#5: the flagship, n = 207,402; #6: n = 414,720, band 160, k = 8), and
+times it with CUDA events after a warm-up.  #5 at the main path's shapes:
+the flagship band 160 at k = 4 in fp32, bf16 legs and fp64, at k = 8 and
+k = 1 in fp32 (beside kernel #4's SpMV), and the 255^3 operator as a
+7-diagonal DIA (offsets +-1, +-255, +-65025, random legs) at k = 4 in fp32.
+#6 at its experiment's shape (n = 414,720, band 160, k = 8) with fp32 and
+bf16 legs, at the flagship k = 4 and on the 255^3 7-diagonal DIA at k = 4,
+each beside #5's shipped build on the same inputs.  Each time stands beside
+its bound (each leg entry whose neighbour lies in the matrix read once, X
+read once, Y written once, at 3.35 TB/s).
 
 Every variant is held to the twin first (max error <= 1e-5 of max |twin|,
-1e-13 in fp64).  The launches go through the wrapper's launch helper, not
-the wrapper, so kernel #5's launch counts do not move.  The last line is
+1e-13 in fp64).  The launches go through the wrappers' launch helpers, not
+the wrappers, so the kernels' launch counts do not move.  The last line is
 one JSON record: ``{"card": ..., "spmm_dia": {variant: {shape: ms}},
-"spmv_dia": {shape: ms}}``.  Needs a CUDA device.
+"spmv_dia": {shape: ms}, "spmm_dia_acc": {variant: {shape: ms}}}``.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ from conjugategradient_tpu_torch.core import generators
 from conjugategradient_tpu_torch.core.formats import DiaMatrix
 from conjugategradient_tpu_torch.ops import _build
 from conjugategradient_tpu_torch.ops import cuda_dia as cd
-from conjugategradient_tpu_torch.ops.card import bound_ms, card_name, dia_nnz, time_ms
+from conjugategradient_tpu_torch.ops.card import SMS, blocks_per_sm, bound_ms, card_name, dia_nnz, time_ms
 
 REL, REL64 = 1e-5, 1e-13
 #: build label -> -D overrides; the first is the shipped design
@@ -65,25 +78,35 @@ BUILDS = {
     "SPMM_THREADS=128": ("SPMM_THREADS=128",),
     "SPMM_THREADS=64": ("SPMM_THREADS=64",),
 }
-#: the H100's per-SM limits: registers, threads, blocks; and its SMs
-SM_REGS, SM_THREADS, SM_BLOCKS, SMS = 65536, 2048, 32, 132
+#: kernel #6's builds, the shipped design first (the default build, shared
+#: with #5's shipped one)
+ACC_BUILDS = {
+    "ACC_TILE=256 ACC_LEGS=8 ACC_STAGES=3": (),
+    "ACC_STAGES=2": ("ACC_STAGES=2",),
+    "ACC_STAGES=4": ("ACC_STAGES=4",),
+    "ACC_TILE=128": ("ACC_TILE=128",),
+    "ACC_TILE=512": ("ACC_TILE=512",),
+    "ACC_LEGS=4": ("ACC_LEGS=4",),
+    "ACC_LEGS=16": ("ACC_LEGS=16",),
+}
 FLAGSHIP_N = 207_402
-
-
-def blocks_per_sm(registers: int, threads: int) -> int:
-    """Blocks of ``threads`` threads an SM holds at ``registers`` per thread
-    (allocated per warp in units of 256), without shared memory."""
-    warps = -(-threads // 32)
-    per_warp = -(-registers * 32 // 256) * 256
-    return min(SM_REGS // per_warp // warps, SM_THREADS // threads, SM_BLOCKS)
+#: kernel #6's main shape: its experiment's n, band and k
+ACC_N, ACC_BAND, ACC_K = 414_720, 160, 8
 
 
 def _threads(defines) -> int:
     return next((int(d.split("=")[1]) for d in defines if d.startswith("SPMM_THREADS=")), 256)
 
 
+def _seven_diagonals(g, dev):
+    """The 255^3 operator's offsets as a 7-diagonal DIA with random legs."""
+    n, p = 255**3, 255**2
+    offsets = (-p, -255, -1, 0, 1, 255, p)
+    return DiaMatrix(torch.rand((7, n), generator=g, device=dev), offsets, (n, n))
+
+
 def _cases(dev):
-    """(label, device DiaMatrix, X) of the timed shapes."""
+    """(label, device DiaMatrix, X) of kernel #5's timed shapes."""
     band = generators.banded_sin_matrix(FLAGSHIP_N, 160)
     g = torch.Generator(device=dev).manual_seed(0)
     for legs, k in ((torch.float32, 4), (torch.bfloat16, 4), (torch.float64, 4), (torch.float32, 8),
@@ -91,10 +114,37 @@ def _cases(dev):
         A = band.device_put(legs, dev)
         vec = torch.float64 if legs == torch.float64 else torch.float32
         yield f"band 160 k={k} {cd.TAGS[legs]}", A, torch.randn((k, A.n), generator=g, device=dev).to(vec)
-    n, p = 255**3, 255**2
-    offsets = (-p, -255, -1, 0, 1, 255, p)
-    A = DiaMatrix(torch.rand((7, n), generator=g, device=dev), offsets, (n, n))
-    yield "255^3 7 diagonals k=4 fp32", A, torch.randn((4, n), generator=g, device=dev)
+    yield "255^3 7 diagonals k=4 fp32", _seven_diagonals(g, dev), torch.randn((4, 255**3), generator=g,
+                                                                               device=dev)
+
+
+def _acc_cases(dev):
+    """(label, device DiaMatrix, X) of kernel #6's timed shapes."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    main = generators.banded_sin_matrix(ACC_N, ACC_BAND)
+    for legs in (torch.float32, torch.bfloat16):
+        yield (f"n={ACC_N} band {ACC_BAND} k={ACC_K} {cd.TAGS[legs]}", main.device_put(legs, dev),
+               torch.randn((ACC_K, ACC_N), generator=g, device=dev))
+    A = generators.banded_sin_matrix(FLAGSHIP_N, 160).device_put(torch.float32, dev)
+    yield "band 160 k=4 fp32 (flagship)", A, torch.randn((4, FLAGSHIP_N), generator=g, device=dev)
+    yield "255^3 7 diagonals k=4 fp32", _seven_diagonals(g, dev), torch.randn((4, 255**3), generator=g,
+                                                                               device=dev)
+
+
+def _time_variants(label_fn, builds, launch, ref, nbytes, bound, shape, card, record):
+    """Hold each build's kernel to the twin, then time it; ``launch(lib)``
+    runs it on the shape's inputs."""
+    rel = REL64 if ref.dtype == torch.float64 else REL
+    scale = float(ref.abs().max())
+    for label, defines in builds.items():
+        lib = _build.load("dia", defines)
+        err = float((launch(lib) - ref).abs().max())
+        if not err <= rel * scale:
+            raise RuntimeError(f"{label_fn} [{label}] {shape}: max err {err:.3e} > {rel}*{scale:.3e}")
+        ms = time_ms(lambda: launch(lib), 100)
+        record[label][shape] = ms
+        print(f"time {label_fn} [{label}] {shape}: {ms:.4f} ms (bound {bound:.4f} ms of "
+              f"{nbytes / 1e6:.1f} MB, {bound / ms:.1%} of it) [{card}]")
 
 
 def main() -> int:
@@ -104,8 +154,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_name()
     print(card)
-    with cf.ThreadPoolExecutor(len(BUILDS)) as pool:
-        list(pool.map(lambda d: _build.build(["dia"], d), BUILDS.values()))
+    every = list(BUILDS.values()) + list(ACC_BUILDS.values())[1:]
+    with cf.ThreadPoolExecutor(len(every)) as pool:
+        list(pool.map(lambda d: _build.build(["dia"], d), every))
     for label, defines in BUILDS.items():
         for entry, res in sorted(_build.kernel_resources("dia", defines).items()):
             if "spmm_dia_kernel" in entry:
@@ -114,29 +165,49 @@ def main() -> int:
                 waves = -(-FLAGSHIP_N // t) / (SMS * per_sm)
                 print(f"ptxas dia [{label}] {entry[:60]}: {res}; {per_sm} blocks/SM, "
                       f"{waves:.2f} waves at n = {FLAGSHIP_N}")
-    record = {"card": card, "spmm_dia": {label: {} for label in BUILDS}}
+    main_offsets = tuple(range(-(ACC_BAND // 2) + 1, ACC_BAND // 2))
+    for label, defines in ACC_BUILDS.items():
+        lib = _build.load("dia", defines)
+        geo = cd.acc_geometry(main_offsets, ACC_N, ACC_K, lib.cg_spmm_dia_acc_tile(),
+                              lib.cg_spmm_dia_acc_stages())
+        tile = lib.cg_spmm_dia_acc_tile()
+        for entry, res in sorted(_build.kernel_resources("dia", defines).items()):
+            if "spmm_dia_acc_kernel" not in entry:
+                continue
+            shape = ""
+            if f"Li{ACC_K}E" in entry:  # the main shape's instantiations
+                per_sm = blocks_per_sm(res["registers"], tile, geo.smem_bytes)
+                shape = (f"; at n = {ACC_N} band {ACC_BAND} k = {ACC_K}: {geo.smem_bytes} B shared, "
+                         f"{per_sm} blocks/SM, {geo.blocks / (SMS * per_sm):.2f} waves of "
+                         f"{geo.blocks} blocks ({geo.interior} interior)")
+            print(f"ptxas dia [{label}] {entry[:60]}: {res}{shape}")
+    record = {"card": card, "spmm_dia": {label: {} for label in BUILDS},
+              "spmm_dia_acc": {label: {} for label in ACC_BUILDS}}
     for shape, A, X in _cases(dev):
         code = cd._CODES[(A.data.dtype, X.dtype)]
         ref = cd.spmm_dia_ref(A, X)
-        scale = float(ref.abs().max())
         nbytes = dia_nnz(A) * A.data.element_size() + 2 * X.numel() * X.element_size()
         bound = bound_ms(nbytes, 2 * X.shape[0] * dia_nnz(A))[0]
-        for label, defines in BUILDS.items():
-            lib = _build.load("dia", defines)
-            fn = lambda: cd._spmm_launch(lib, code, A, X)
-            err = float((fn() - ref).abs().max())
-            rel = REL64 if X.dtype == torch.float64 else REL
-            if not err <= rel * scale:
-                raise RuntimeError(f"spmm_dia [{label}] {shape}: max err {err:.3e} > {rel}*{scale:.3e}")
-            ms = time_ms(fn, 100)
-            record["spmm_dia"][label][shape] = ms
-            print(f"time spmm_dia [{label}] {shape}: {ms:.4f} ms (bound {bound:.4f} ms of "
-                  f"{nbytes / 1e6:.1f} MB, {bound / ms:.1%} of it) [{card}]")
+        _time_variants("spmm_dia", BUILDS, lambda lib: cd._spmm_launch(lib, code, A, X), ref, nbytes,
+                       bound, shape, card, record["spmm_dia"])
         if X.shape[0] == 1:
             ms = time_ms(lambda: cd.spmv_dia_cuda(A, X[0]), 100)
             record["spmv_dia"] = {shape: ms}
             print(f"time spmv_dia (kernel #4) {shape}: {ms:.4f} ms [{card}]")
         del ref
+    shipped = _build.load("dia")
+    for shape, A, X in _acc_cases(dev):
+        code = cd._CODES[(A.data.dtype, X.dtype)]
+        ref = cd.spmm_dia_acc_ref(A, X)
+        nbytes = dia_nnz(A) * A.data.element_size() + 2 * X.numel() * X.element_size()
+        bound = bound_ms(nbytes, 2 * X.shape[0] * dia_nnz(A))[0]
+        _time_variants("spmm_dia_acc", ACC_BUILDS, lambda lib: cd._acc_launch(lib, code, A, X), ref,
+                       nbytes, bound, shape, card, record["spmm_dia_acc"])
+        ms5 = time_ms(lambda: cd._spmm_launch(shipped, code, A, X), 100)
+        record["spmm_dia_acc"].setdefault("kernel #5 (shipped)", {})[shape] = ms5
+        print(f"time spmm_dia (kernel #5, shipped) {shape}: {ms5:.4f} ms ({bound / ms5:.1%} of the "
+              f"bound) [{card}]")
+        del ref, A, X
     print(json.dumps(record))
     return 0
 

@@ -4,9 +4,10 @@ The port of the JAX package's ``scripts/spmm_acc_experiment.py``.  There one
 Pallas call with a sequential diagonal-group axis, the output block resident
 across it, ran slower than the chained per-group calls of the library path,
 and was kept as a negative result.  On Hopper the sequential axis is a loop
-inside the block: kernel #6 (``ops.cuda_dia.spmm_dia_acc_cuda``) stages each
-group's window of X in shared memory once per tile and keeps Y in registers
-across the groups.  This module measures it anew.
+inside the block: kernel #6 (``ops.cuda_dia.spmm_dia_acc_cuda``) copies each
+group's window of X into a ring of shared-memory buffers ahead of its sums,
+streams the coefficients in batches that run across the groups, and keeps
+Y in registers across them.  This module measures it anew.
 
     python -m conjugategradient_tpu_torch.scripts.spmm_acc_experiment [--cpu] [--n N] [--band B] [--k K]
 

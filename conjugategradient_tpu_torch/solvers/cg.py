@@ -16,7 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
-from conjugategradient_tpu_torch.core.formats import DiaMatrix
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, StencilMatrix
 from conjugategradient_tpu_torch.ops.blas import dot as _dot
 from conjugategradient_tpu_torch.ops.blas import residual_norm
 from conjugategradient_tpu_torch.ops.spmv import as_operator
@@ -96,15 +96,15 @@ def cg_solve(
 ) -> CGResult:
     """Solve A x = b by (preconditioned) CG on ``b``'s device.
 
-    ``A`` is a ``ConstStencilMatrix``, a ``DiaMatrix`` (a host one is placed
-    on ``b``'s device) or a callable; ``b`` may be flat or grid-shaped.
+    ``A`` is a ``ConstStencilMatrix``, a ``DiaMatrix`` or ``StencilMatrix``
+    (a host one is placed on ``b``'s device, its dtype kept) or a callable; ``b`` may be flat or grid-shaped.
     ``use_pallas`` is kept for parity and changes nothing: a CUDA ``b``
     always runs the hand-written kernels, a CPU ``b`` their twins
     (``ops.spmv.as_operator``).  fp32 with an absolute norm can underflow
     ``r`` long before the true residual is meaningful: for plain fp32 solves
     prefer ``norm="rel_l2"``, or ``solvers.refine.refined_solve``.
     """
-    if isinstance(A, DiaMatrix) and not torch.is_tensor(A.data):
+    if isinstance(A, (DiaMatrix, StencilMatrix)) and not torch.is_tensor(A.data):
         A = A.device_put(device=b.device)
     op = as_operator(A, use_pallas=use_pallas)
     n = b.numel()

@@ -578,6 +578,125 @@ def test_dia_spmm_acc_kernel_raises_instead_of_falling_back(cuda):
         spmm_dia_acc_cuda(wide, torch.zeros((2, 400), device=cuda))
 
 
+#: kernel #6's edge shapes (host DIA, random legs): fewer rows than one
+#: tile; a group whose window crosses both ends of [0, n) in every block;
+#: interior and border blocks with groups split by the window limit
+ACC_EDGE = {
+    "n=100 band 160": (100, tuple(range(-79, 80))),
+    "n=200 one group crossing both ends": (200, (-150, -1, 0, 1, 150)),
+    "n=3001 wide": (3001, (-900, -500, -3, 0, 2, 450, 700)),
+}
+
+
+def _acc_edge(case, legs):
+    n, offsets = ACC_EDGE[case]
+    data = np.random.default_rng(15).uniform(-1, 1, (len(offsets), n))
+    return DiaMatrix(data, offsets, (n, n)).device_put(legs, "cuda")
+
+
+def _nan_carved(X):
+    """``X`` (k, n) copied into a NaN-filled buffer, NaNs planted at both
+    ends of every column."""
+    pad = 4096
+    buf = torch.full((X.numel() + 2 * pad,), float("nan"), device=X.device, dtype=X.dtype)
+    Xc = buf[pad : pad + X.numel()].view(X.shape)
+    Xc.copy_(X)
+    Xc[:, 0] = float("nan")
+    Xc[:, -1] = float("nan")
+    return Xc
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ACC_EDGE))
+def test_dia_spmm_acc_kernel_matches_twin_at_edge_shapes(cuda, case, legs, k):
+    A = _acc_edge(case, legs)
+    X = torch.from_numpy(np.random.default_rng(16).standard_normal((k, A.n))).to(cuda, torch.float32)
+    Y = spmm_dia_acc_cuda(A, X)
+    torch.cuda.synchronize()
+    ref = spmm_dia_acc_ref(A, X)
+    assert float((Y - ref).abs().max()) <= REL * float(ref.abs().max())
+    Y5 = spmm_dia_cuda(A, X)
+    assert float((Y - Y5).abs().max()) <= ACC_VS_SPMM * float(Y5.abs().max())
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("case", ["banded", "poisson3d", "n=200 one group crossing both ends",
+                                  "n=3001 wide"])
+def test_dia_spmm_acc_kernel_reads_nothing_outside_at_k(cuda, case, k):
+    # interior blocks (banded, poisson3d) and border blocks alike: the rows
+    # the band reaches from either planted end are NaN in kernel and twin
+    # (at n = 100 band 160 it reaches every row: no finite row to compare)
+    A = _dia(case, torch.float32) if case in ("banded", "poisson3d") else _acc_edge(case, torch.float32)
+    X = _nan_carved(torch.from_numpy(np.random.default_rng(17).standard_normal((k, A.n))).to(
+        cuda, torch.float32))
+    Y = spmm_dia_acc_cuda(A, X)
+    torch.cuda.synchronize()
+    ref = spmm_dia_acc_ref(A, X)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(Y), nan) and 0 < int(nan.sum()) < nan.numel()
+    assert float((Y[~nan] - ref[~nan]).abs().max()) <= REL * float(ref[~nan].abs().max())
+
+
+def test_dia_spmm_acc_geometry_is_the_librarys(cuda):
+    # the interior/border split the card tests rely on, at the library's tile
+    lib = _build.load("dia")
+    tile, stages = lib.cg_spmm_dia_acc_tile(), lib.cg_spmm_dia_acc_stages()
+    for case, want in (("n=100 band 160", (1, 0)), ("n=3001 wide", None)):
+        n, offsets = ACC_EDGE[case]
+        geo = cuda_dia.acc_geometry(offsets, n, 8, tile, stages)
+        if want is not None:
+            assert (geo.blocks, geo.interior) == want
+        else:
+            assert 0 < geo.interior < geo.blocks
+    A = _dia("banded", torch.float32)
+    geo = cuda_dia.acc_geometry(tuple(A.offsets), A.n, 8, tile, stages)
+    assert 0 < geo.interior < geo.blocks
+
+
+@pytest.mark.parametrize("route", ["cg_solve", "api.solve"])
+def test_host_stencil_solves_on_the_card(cuda, route):
+    # a host StencilMatrix with a b on the card: its legs follow b to the
+    # card (kernel #3, fp64 legs) and the solve takes the CPU's iterations
+    # (contrast 10: at 1e3 the ~520 fp64 iterations move with FMA rounding)
+    from conjugategradient_tpu_torch import api
+
+    grid = (15, 13, 11)
+    s = generators.diffusion_system(grid, kind="jump", contrast=10.0, seed=0)
+    A = dia_to_stencil(s.A, grid)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = torch.from_numpy(s.b).to(dev)
+        cuda_stencil.reset_launch_counts()
+        if route == "cg_solve":
+            out[dev] = cg_solve(A, b, policy=ConvergencePolicy(tol=1e-8, norm="rel_l2"))
+        else:
+            out[dev] = api.solve(A, b, method="cg", tol=1e-8, norm="rel_l2", device=dev)
+        if dev == "cuda":
+            assert spmv_stencil_cuda.launches_by_dtype["fp64"] > 0
+    g, c = out["cuda"], out["cpu"]
+    assert g.x.device.type == "cuda" and g.converged and c.converged
+    assert g.iterations == c.iterations
+    # two fp64 solves to rel_l2 1e-8 that round differently (FMA) agree to
+    # the solve's tolerance, not to fp64 rounding (7e-10 measured)
+    assert float((g.x.cpu() - c.x).abs().max() / c.x.abs().max()) <= 1e-8
+
+
+def test_host_stencil_solves_on_the_card_in_fp32(cuda):
+    # api.solve(dtype=np.float32) places the host legs at fp32 on the card
+    from conjugategradient_tpu_torch import api
+
+    grid = (15, 13, 11)
+    s = generators.diffusion_system(grid, kind="jump", contrast=10.0, seed=0)
+    kw = dict(method="cg", tol=1e-5, norm="rel_l2", dtype=np.float32)
+    cuda_stencil.reset_launch_counts()
+    g = api.solve(dia_to_stencil(s.A, grid), s.b, device=cuda, **kw)
+    assert spmv_stencil_cuda.launches_by_dtype["fp32"] > 0
+    c = api.solve(dia_to_stencil(s.A, grid), s.b, device="cpu", **kw)
+    assert g.converged and g.x.dtype == torch.float32
+    assert g.iterations == c.iterations  # 48 on the CPU, as in the JAX package
+
+
 @pytest.mark.parametrize("kind", ["poisson", "jump"])
 def test_multi_preconditioner_on_card_is_v_cycle_per_column(cuda, kind):
     # Poisson's Galerkin levels const-detect (the fused smoother, kernel #2),

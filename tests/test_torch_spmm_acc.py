@@ -6,10 +6,14 @@ interpret mode and to its XLA ``spmm_dia``, on the same inputs made from a
 numpy seed; the group plan to its contract; the experiment module
 ``scripts/spmm_acc_experiment.py`` to its record on the CPU.  The kernel
 itself is compared with the twin on the card (``chip_smoke.py``,
-``tests/test_torch_cuda.py``).
+``tests/test_torch_cuda.py``); here ``acc_schedule`` replays its launch
+block by block (tile, coefficient batches across group boundaries, the two
+window buffers, the interior/border split) against the twin in fp64.
 """
 
 import json
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,7 +26,7 @@ from conjugategradient_tpu.ops.pallas_spmv import spmm_dia_pallas
 from conjugategradient_tpu.ops.spmm import spmm_dia as j_spmm_dia
 from conjugategradient_tpu_torch.core import generators as tgen
 from conjugategradient_tpu_torch.core.formats import DiaMatrix
-from conjugategradient_tpu_torch.ops import card
+from conjugategradient_tpu_torch.ops import card, cuda_dia
 from conjugategradient_tpu_torch.ops.cuda_dia import (
     ACC_LMAX,
     ACC_SPAN,
@@ -158,3 +162,167 @@ def test_experiment_bytes_count_each_input_once():
 def test_bound_takes_the_longer_of_bytes_and_operations():
     assert card.bound_ms(3.35e9, 1.0) == pytest.approx((1.0, "bytes"))
     assert card.bound_ms(1.0, 67e9) == pytest.approx((1.0, "operations"))
+
+
+# ---------------------------------------------------------------------------
+# kernel #6's schedule, emulated block by block
+# ---------------------------------------------------------------------------
+
+_SRC = (Path(cuda_dia.__file__).parents[1] / "csrc" / "dia.cu").read_text()
+#: kernel #6's design constants as the library is built by default
+ACC_TILE = int(re.search(r"#define ACC_TILE (\d+)", _SRC).group(1))
+ACC_LEGS = int(re.search(r"#define ACC_LEGS (\d+)", _SRC).group(1))
+ACC_STAGES = int(re.search(r"#define ACC_STAGES (\d+)", _SRC).group(1))
+#: the emulation repeats the twin's fp64 operations in the same order
+REL = 1e-12
+
+
+def acc_schedule(A, X, tile=ACC_TILE, batch=ACC_LEGS, stages=ACC_STAGES):
+    """Kernel #6's launch (``csrc/dia.cu::acc_block``) on CPU tensors, one
+    block at a time, with the kernel's own decisions: the interior test, the
+    coefficient batches (consecutive plan legs across group boundaries, the
+    next requested before this one's FMAs, each summed in segments that end
+    at group boundaries), the ring of ``stages`` window buffers (groups
+    0 .. stages - 2 copied first; opening group g copies group
+    g + stages - 1 into buffer (g + stages - 1) % stages; entries outside
+    [0, n) not copied).  Returns Y, the writes per row, and the number of
+    interior and border blocks."""
+    n, k = A.n, X.shape[0]
+    groups = plan_dia_groups(tuple(A.offsets))
+    legs = [l for g in groups for l in g]  # plan order -> data row
+    offs = [A.offsets[l] for l in legs]
+    begin = np.cumsum([0] + [len(g) for g in groups]).tolist()
+    G, nd = len(groups), len(legs)
+    lo, hi = min(0, min(offs)), max(0, max(offs))
+    W = tile + max(offs[begin[g + 1] - 1] - offs[begin[g]] for g in range(G))
+    Y = torch.full((k, n), float("nan"), dtype=X.dtype)
+    writes = torch.zeros(n, dtype=torch.int64)
+    blocks = {"interior": 0, "border": 0}
+    t = torch.arange(tile)
+    for i0 in range(0, n, tile):
+        rows = i0 + t
+        row_in = rows < n
+        interior = i0 + lo >= 0 and i0 + tile + hi <= n
+        blocks["interior" if interior else "border"] += 1
+        # shared memory holds whatever an earlier block left: NaN here
+        bufs = [torch.full((k, W), float("nan"), dtype=X.dtype) for _ in range(stages)]
+        holds = [None] * stages
+
+        def stage(g):
+            b, e = begin[g], begin[g + 1]
+            j = i0 + offs[b] + torch.arange(tile + offs[e - 1] - offs[b])
+            ok = (j >= 0) & (j < n)
+            buf = bufs[g % stages]
+            buf[:, : j.numel()][:, ok] = X[:, j[ok]]
+            holds[g % stages] = g
+
+        def load(k0):  # (plan leg, coefficients of the block's rows), or None past the plan
+            return [(l, A.data[legs[l], rows.clamp(max=n - 1)]) if l < nd else None
+                    for l in range(k0, k0 + batch)]
+
+        y = torch.zeros((k, tile), dtype=X.dtype)
+        part = torch.zeros_like(y)
+        cur = load(0)
+        for p in range(min(stages - 1, G)):
+            stage(p)
+        summed, opened = [], []
+        g, gend = -1, 0
+        for k0 in range(0, nd, batch):
+            nxt = load(k0 + batch) if k0 + batch < nd else None  # across group boundaries
+            bend = min(k0 + batch, nd)
+            l = k0
+            while l < bend:
+                if l == gend:  # open group g + 1: the wait and the barrier
+                    g += 1
+                    gend = begin[g + 1]
+                    assert holds[g % stages] == g  # its window is in
+                    if g + stages - 1 < G:
+                        stage(g + stages - 1)  # into the buffer group g - 1 was summed from
+                        assert holds[g % stages] == g
+                    w, s0 = bufs[g % stages], t - offs[l]
+                    opened.append(l)
+                seg = min(bend, gend)
+                for bb in range(batch):
+                    ll = k0 + bb
+                    if not l <= ll < seg:
+                        continue
+                    assert cur[bb][0] == ll  # the batch holds the leg the segment sums
+                    d, off = cur[bb][1], offs[ll]
+                    xv = w[:, s0 + off]
+                    summed.append(ll)
+                    if interior:
+                        part = part + d * xv
+                    else:  # a leg whose neighbour leaves [0, n) is not read
+                        inside = row_in & (rows + off >= 0) & (rows + off < n)
+                        part = torch.where(inside, part + d * torch.where(inside, xv, 0.0), part)
+                l = seg
+                if l == gend:  # group g is summed
+                    y = y + part
+                    part = torch.zeros_like(y)
+            cur = nxt
+        assert summed == list(range(nd))  # every leg once, in plan order
+        assert opened == begin[:-1]  # every group opened once, at its first leg
+        Y[:, rows[row_in]] = y[:, row_in]
+        writes[rows[row_in]] += 1
+    return Y, writes, blocks
+
+
+def _acc_cases():
+    """DIA matrices for the emulation: band 32 and 160 (n not a multiple of
+    any tile), the 7-point 3-D offsets on a 13^3 grid, a set wider than a
+    group's window, and band 160 on fewer rows than one window."""
+    rng = np.random.default_rng(12)
+    p = 13
+    wide = (-900, -500, -3, 0, 2, 450, 700)
+    return {
+        "band 32 n=1000": tgen.banded_sin_matrix(1000, 32),
+        "band 160 n=3001": tgen.banded_sin_matrix(3001, 160),
+        "7-point 13^3": DiaMatrix(rng.standard_normal((7, p**3)), (-p * p, -p, -1, 0, 1, p, p * p),
+                                  (p**3, p**3)),
+        "wide n=2500": DiaMatrix(rng.standard_normal((len(wide), 2500)), wide, (2500, 2500)),
+        "band 160 n=100": DiaMatrix(rng.standard_normal((159, 100)), tuple(range(-79, 80)),
+                                    (100, 100)),
+    }
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("tile,batch,stages", [(ACC_TILE, ACC_LEGS, ACC_STAGES), (128, 16, 2),
+                                               (64, 3, 4)])
+@pytest.mark.parametrize("name", sorted(_acc_cases()))
+def test_acc_schedule_matches_twin(name, tile, batch, stages, k):
+    A = _acc_cases()[name].device_put(torch.float64, "cpu")
+    X = torch.from_numpy(np.random.default_rng(13).standard_normal((k, A.n)))
+    Y, writes, blocks = acc_schedule(A, X, tile, batch, stages)
+    ref = spmm_dia_acc_ref(A, X)
+    assert torch.equal(writes, torch.ones_like(writes))  # the blocks cover the rows once
+    assert not bool(torch.isnan(Y).any())  # no entry outside [0, n) was read
+    assert float((Y - ref).abs().max()) <= REL * float(ref.abs().max())
+    geo = cuda_dia.acc_geometry(tuple(A.offsets), A.n, k, tile, stages)
+    assert (geo.blocks, geo.interior) == (sum(blocks.values()), blocks["interior"])
+
+
+def test_acc_schedule_reaches_both_paths():
+    # band 160 at n = 3001 has interior and border blocks; fewer rows than a
+    # window have border blocks only, where every group's window crosses both
+    # ends of [0, n)
+    A = _acc_cases()["band 160 n=3001"].device_put(torch.float64, "cpu")
+    X = torch.from_numpy(np.random.default_rng(14).standard_normal((2, A.n)))
+    assert all(acc_schedule(A, X)[2].values())
+    A = _acc_cases()["band 160 n=100"].device_put(torch.float64, "cpu")
+    assert acc_schedule(A, X[:, :100])[2] == {"interior": 0, "border": 1}
+
+
+def test_acc_shipped_constants_and_main_shapes():
+    assert (ACC_TILE, ACC_LEGS, ACC_STAGES) == (256, 8, 3)
+    # the experiment's main shape and the 255^3 seven-diagonal operator: all
+    # but a block at either end take the untested path; a ring of three
+    # windows takes 29.1 KB at band 160, K = 8, and 36.8 KB for the 255^3
+    # operator's three groups at K = 4
+    band = cuda_dia.acc_geometry(tuple(range(-79, 80)), 414_720, 8, ACC_TILE, ACC_STAGES)
+    assert band == (1620, 1618, 3 * 8 * (256 + 47) * 4)
+    p = 255**2
+    dia7 = cuda_dia.acc_geometry((-p, -255, -1, 0, 1, 255, p), 255**3, 4, ACC_TILE, ACC_STAGES)
+    assert dia7.blocks - dia7.interior == 2 * -(-p // ACC_TILE)
+    assert dia7.smem_bytes == 3 * 4 * (256 + 510) * 4
+    # a plan of fewer groups than buffers takes one buffer per group
+    assert cuda_dia.acc_geometry((-1, 0, 1), 1000, 1, ACC_TILE, ACC_STAGES).smem_bytes == 258 * 4
