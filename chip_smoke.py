@@ -47,6 +47,20 @@ after:
   shape (n = 414,720, band 160, k = 8), counted, and its measurement on the
   255^3 7-diagonal DIA at k = 4; then timed with bf16 legs at the default
   shape and at the flagship's band 160, k = 4, beside kernel #5.
+- The rest of the multigrid build, fp32 MGCG through ``api.solve`` (each
+  level's own kernel must launch): Poisson 256^3 with the default Galerkin
+  hierarchy (a hybrid const fine level on kernels #1 and #2, then 81-leg
+  levels at |shift| 2 on the wide kernel #3) and rediscretized (every level
+  const), the latter also as a W-cycle MGCG and as fmg followed by MGCG;
+  Poisson 1024^2 Galerkin with grid-stencil levels, with ``layout="dia"``
+  (kernel #4 levels) and with the rbgs smoother; anisotropic 1024^2
+  (semicoarsening); the reference's simple_cuda tridiagonal (n = 65,536,
+  aggregation with smoothed transfers on kernel #1's 1-D view, then 1-D
+  wide #3 levels) in fp32 and in fp64.  First the same kinds small in fp64
+  on the card and on the CPU (equal iteration counts), and the wide kernel
+  against its twin on NaN-carved x at 128^3 x 81, 512^2 x 21, 1-D 32768 x 5
+  and 16^3 x 125 legs; kernels #1 and #2 on the even grids 256^3 and
+  (256, 255, 254) with the other checks.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -74,6 +88,7 @@ beside the card's name and power limit.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import sys
@@ -123,12 +138,15 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
     spmv_const_stencil_ref,
     spmv_stencil_cuda,
     spmv_stencil_ref,
+    spmv_stencil_wide_cuda,
+    var_route,
 )
 from conjugategradient_tpu_torch.precond.multigrid import (
     _const_bounds,
     _fused_cheb_ok,
     as_preconditioner,
     build_hierarchy,
+    fmg,
 )
 from conjugategradient_tpu_torch.scripts import spmm_acc_experiment
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
@@ -214,6 +232,12 @@ LEG_DTYPES = tuple(TAGS)
 #: the variable-coefficient path: 255^3 diffusion, jump field (contrast 1e3)
 #: for fp32 MGCG, smooth field for the bf16-leg refined solve
 VAR_GRID = (255, 255, 255)
+#: the smooth field's grid for the bf16-leg refined solves (one RHS and
+#: k = 2): cut from 255^3 to 127^3 when the rest of the multigrid build
+#: joined the run, which keeps the whole run near half its time limit (the
+#: 255^3 smooth hierarchy's setup, host residual route and k = 2 block took
+#: ~220 s of host time on the H100 machine's CPU)
+SMOOTH_GRID = (127, 127, 127)
 VAR_CONTRAST = 1e3
 VAR_SMALL = (31, 31, 31)
 #: kernel #3's small check shapes: (label, grid) of diffusion operators
@@ -236,8 +260,27 @@ WALLS_BEFORE_MS = {
     "MGCG 3-D 255^3 solve": "53.8 / 42.7",
     "MGCG jump 255^3 warm solve": "361.1 / 432.6",
     "multi-RHS MGCG jump 255^3 k=4": "810.2 / 1606.9",
-    "refined smooth 255^3 bf16 legs, device residual (timed run)": "1233.0 / 1332",
 }
+
+#: the rest of the multigrid build, at full size: Poisson 256^3 (hybrid
+#: fine level, Galerkin levels of 81 legs at |shift| 2; and rediscretized,
+#: every level const), Poisson 1024^2 (2-D hybrid: stencil levels, DIA
+#: levels, the rbgs smoother), anisotropic 1024^2 (semicoarsening) and the
+#: reference's simple_cuda tridiagonal n = 65,536 (aggregation)
+KIND_GRID_3D = (256, 256, 256)
+KIND_GRID_2D = (1024, 1024)
+KIND_RATIOS = (1e-3, 1.0)
+KIND_TRIDIAG = 65536
+#: the same kinds small, on the card and on the CPU in fp64: (label, system
+#: kind, grid, build keywords, cycle index)
+KIND_SMALL = [("Galerkin Poisson 64^3", "poisson", (64, 64, 64), {}, 1),
+              ("rediscretized Poisson 64^3 W-cycle", "poisson", (64, 64, 64), "redisc", 2),
+              ("Galerkin Poisson 64^2 layout dia", "poisson", (64, 64), dict(layout="dia"), 1),
+              ("Galerkin Poisson 64^2 rbgs", "poisson", (64, 64), dict(smoother="rbgs"), 1),
+              ("anisotropic 128^2", "aniso", (128, 128), {}, 1),
+              ("tridiagonal 4096", "tridiagonal", (4096,), {}, 1)]
+#: kernels #1 and #2 on even grids (every block full) before any solve
+EVEN_GRIDS = [(256, 256, 256), (256, 255, 254)]
 
 #: kernel #6 (single-call accumulating SpMM) against kernel #5: two rounding
 #: orders of the same fp32 sum (groups into partials, or one running sum)
@@ -285,6 +328,10 @@ KERNELS = {
     "spmm_dia_acc": dict(
         route="cuda", source="conjugategradient_tpu_torch/csrc/dia.cu",
         replaces="scripts/spmm_acc_experiment.py:64",
+    ),
+    "spmv_stencil_wide": dict(
+        route="cuda", source="conjugategradient_tpu_torch/csrc/stencil_var.cu",
+        replaces="conjugategradient_tpu/ops/pallas_stencil.py:177",
     ),
 }
 
@@ -363,7 +410,8 @@ def _const_kernel_checks(dev, errs):
     every hand-made one in fp64 on an x carved out of a NaN-filled buffer (a
     read outside the grid would leak a NaN)."""
     rng = np.random.default_rng(SEED + 5)
-    cases = [(f"Poisson {g}", _const_poisson(generators.poisson_system(g).A, g)) for g in SPMV_GRIDS]
+    cases = [(f"Poisson {g}", _const_poisson(generators.poisson_system(g).A, g))
+             for g in SPMV_GRIDS + EVEN_GRIDS]
     for label, shifts, g in CONST_HAND:
         coeffs = tuple(float(c) for c in rng.uniform(-1, 1, len(shifts)))
         cases.append((label, ConstStencilMatrix(coeffs, shifts, g)))
@@ -755,19 +803,19 @@ def _dia_times(A_host, dev, card, times):
           f"copy {c_ms:.4f} ms = {2 * gb / (c_ms * 1e-3):.0f} GB/s [{card}]")
 
 
-def _var_hierarchy(kind, dev):
-    """The 255^3 diffusion system of ``kind`` and its Galerkin hierarchy on
-    the card, with the host setup seconds by phase."""
+def _var_hierarchy(kind, dev, grid=VAR_GRID):
+    """The diffusion system of ``kind`` on ``grid`` and its Galerkin
+    hierarchy on the card, with the host setup seconds by phase."""
     t0 = time.perf_counter()
-    s = generators.diffusion_system(VAR_GRID, kind=kind, contrast=VAR_CONTRAST, seed=SEED)
+    s = generators.diffusion_system(grid, kind=kind, contrast=VAR_CONTRAST, seed=SEED)
     gen_s = time.perf_counter() - t0
-    h = build_hierarchy(s.A, VAR_GRID, smoother="chebyshev", pre=2, post=2, dtype=np.float32,
+    h = build_hierarchy(s.A, grid, smoother="chebyshev", pre=2, post=2, dtype=np.float32,
                         device=dev)
     setup = {"generator": gen_s, **h.setup_s}
     levels = [(lvl.grid, lvl.A.nlegs, type(lvl.A).__name__) for lvl in h.levels]
     _require(all(isinstance(lvl.A, StencilMatrix) for lvl in h.levels),
-             f"{kind} 255^3: a level const-detected: {levels}")
-    print(f"hierarchy {kind} 255^3: levels (grid, legs) {[l[:2] for l in levels]} + dense "
+             f"{kind} {grid}: a level const-detected: {levels}")
+    print(f"hierarchy {kind} {grid}: levels (grid, legs) {[l[:2] for l in levels]} + dense "
           f"{h.coarse_inv.shape[0]}; host setup s "
           f"{ {k: round(v, 3) for k, v in setup.items()} } (total {sum(setup.values()):.3f} s)")
     return s, h
@@ -860,7 +908,7 @@ def _var_refine_routes(syss, hs, dev, card) -> int:
     total, results = 0, {}
     for label, kw in (("host residual", {}), ("device residual", dict(device_residual=True))):
         solve = lambda: refined_solve(
-            syss.A, syss.b, tol=FLAGSHIP_TOL, norm="l2", grid=VAR_GRID,
+            syss.A, syss.b, tol=FLAGSHIP_TOL, norm="l2", grid=SMOOTH_GRID,
             inner_tol=FLAGSHIP_INNER_TOL, matrix_dtype=torch.bfloat16, hierarchy=hs, device=dev, **kw)
         torch.cuda.synchronize()
         cuda_stencil.reset_launch_counts()
@@ -871,7 +919,7 @@ def _var_refine_routes(syss, hs, dev, card) -> int:
         by_grid = dict(spmv_stencil_cuda.launches_by_grid)
         dia = dict(spmv_dia_cuda.launches_by_dtype)
         total += spmv_stencil_cuda.launches
-        tag = f"refined smooth {VAR_GRID} bf16 legs, {label}"
+        tag = f"refined smooth {SMOOTH_GRID} bf16 legs, {label}"
         _require(res.converged, f"{tag}: not converged after {res.outer_iterations} passes "
                                 f"(stalled {res.stalled}, history {res.history})")
         _require(res.x.shape == (syss.n,) and bool(np.isfinite(res.x).all()), f"{tag}: bad x")
@@ -1122,13 +1170,13 @@ def _refine_multi(syss, hs, single, dev, card):
     B = np.column_stack([syss.b] + [rng.standard_normal(syss.n) for _ in range(REFINE_MULTI_K - 1)])
     _reset_counts()
     t0 = time.perf_counter()
-    res = refined_solve_multi(syss.A, B, tol=FLAGSHIP_TOL, norm="l2", grid=VAR_GRID,
+    res = refined_solve_multi(syss.A, B, tol=FLAGSHIP_TOL, norm="l2", grid=SMOOTH_GRID,
                               inner_tol=FLAGSHIP_INNER_TOL, matrix_dtype=torch.bfloat16,
                               hierarchy=hs, device=dev)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     by_dtype = dict(spmv_stencil_cuda.launches_by_dtype)
-    tag = f"refined multi-RHS smooth {VAR_GRID} bf16 legs k={REFINE_MULTI_K}"
+    tag = f"refined multi-RHS smooth {SMOOTH_GRID} bf16 legs k={REFINE_MULTI_K}"
     _require(bool(res.converged.all()), f"{tag}: converged {res.converged}, history {res.history}")
     _require(res.x.shape == B.shape and bool(np.isfinite(res.x).all()), f"{tag}: bad X")
     r_true = [float(np.linalg.norm(B[:, j] - oracle.spmv(syss.A, res.x[:, j])))
@@ -1264,6 +1312,330 @@ def _acc_geometry(card):
               f"{geo.blocks / (SMS * per_sm):.2f} waves [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# the rest of the multigrid build: hybrid, semicoarsening and aggregation
+# transfers, the wide kernel #3, DIA levels, rbgs, W-cycle and fmg
+# ---------------------------------------------------------------------------
+
+
+def _kind_system(kind, grid):
+    """Poisson, the reference's (2, 1) tridiagonal, or anisotropic diffusion
+    with the axis-0 coupling at KIND_RATIOS[0], in the generators' fp64 (the
+    hierarchies are built from it, their levels cast to the solve's dtype,
+    as the JAX package builds them)."""
+    if kind == "poisson":
+        return generators.poisson_system(grid)
+    if kind == "tridiagonal":
+        return generators.tridiagonal_system(grid[0])
+    return generators.anisotropic_diffusion_system(grid, KIND_RATIOS)
+
+
+def _describe(h):
+    """(grid, transfer, operator, legs, max |shift|) of each level."""
+    out = []
+    for lvl in h.levels:
+        A = lvl.A
+        if isinstance(A, DiaMatrix):
+            out.append((lvl.grid, lvl.transfer, "dia", A.ndiags))
+        else:
+            out.append((lvl.grid, lvl.transfer,
+                        "const" if isinstance(A, ConstStencilMatrix) else "var", A.nlegs, max(A.halo)))
+    return out
+
+
+def _kind_hierarchy(label, s, grid, dev, dtype=np.float32, **kw):
+    """``build_hierarchy`` on the card, its levels and host setup by phase
+    printed."""
+    t0 = time.perf_counter()
+    h = build_hierarchy(s.A, grid, dtype=dtype, device=dev, **kw)
+    total = time.perf_counter() - t0
+    print(f"hierarchy {label}: levels (grid, transfer, operator, legs, max |shift|) {_describe(h)} "
+          f"+ dense {h.coarse_inv.shape[0]}; host setup s "
+          f"{ {k: round(v, 3) for k, v in h.setup_s.items()} } (total {total:.3f} s)")
+    return h
+
+
+def _kind_counts():
+    """The launch counts of every kernel a multigrid path reaches (#1-#4 and
+    the wide #3)."""
+    return {"spmv_const_stencil": spmv_const_stencil_cuda.launches,
+            "cheb_smooth_const": cheb_smooth_const_cuda.launches,
+            "spmv_stencil": spmv_stencil_cuda.launches,
+            "spmv_stencil_wide": spmv_stencil_wide_cuda.launches,
+            "spmv_dia": spmv_dia_cuda.launches}
+
+
+def _levels_launched(tag, h):
+    """Each level's own kernel launched at its grid: #1 or #2 on a const
+    level, the tuned or the wide #3 on a variable one, #4 on a DIA one."""
+    for lvl in h.levels:
+        A = lvl.A
+        if isinstance(A, DiaMatrix):
+            ok, name = spmv_dia_cuda.launches > 0, "spmv_dia"
+        elif isinstance(A, ConstStencilMatrix):
+            ok = (spmv_const_stencil_cuda.launches_by_grid.get(lvl.grid, 0)
+                  + cheb_smooth_const_cuda.launches_by_grid.get(lvl.grid, 0)) > 0
+            name = "spmv_const_stencil or cheb_smooth_const"
+        elif var_route(A) == "wide":
+            ok, name = spmv_stencil_wide_cuda.launches_by_grid.get(lvl.grid, 0) > 0, "spmv_stencil_wide"
+        else:
+            ok, name = spmv_stencil_cuda.launches_by_grid.get(lvl.grid, 0) > 0, "spmv_stencil"
+        _require(ok, f"{tag}: no {name} launch at level {lvl.grid}")
+
+
+def _kind_mgcg(tag, s, grid, h, dev, card, dtype=np.float32, profile=True, **kw):
+    """``api.solve(method="mgcg")`` over ``h``, counted (every level's
+    kernel must launch), then timed warm and profiled.  fp32: rel_l2 TOL
+    with ``precise_dot``, true fp64 relative residual within TRUE_REL; fp64
+    (``dtype=None``): FP64_TOL and FP64_TRUE_REL.  Returns the launch
+    counts by kernel and the result."""
+    fp32 = dtype == np.float32
+    kw = dict(method="mgcg", grid=grid, tol=TOL if fp32 else FP64_TOL, norm="rel_l2", dtype=dtype,
+              device=dev, hierarchy=h, precise_dot=fp32, **kw)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = api.solve(s.A, s.b, **kw)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = _kind_counts()
+    wide = {str(k): v for k, v in sorted(spmv_stencil_wide_cuda.launches_by_grid.items(), reverse=True)}
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    _require(tuple(res.x.shape) == (s.n,) and bool(torch.isfinite(res.x).all()), f"{tag}: bad x")
+    rel = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
+    bound = TRUE_REL if fp32 else FP64_TRUE_REL
+    _require(rel <= bound, f"{tag}: true fp64 relative residual {rel:.3e} > {bound}")
+    _levels_launched(tag, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.solve(s.A, s.b, **kw)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{tag}: {res.iterations} iterations, rel_l2 {float(res.residual):.3e}, true fp64 rel "
+          f"residual {rel:.3e}; launches by kernel {counts}; wide kernel #3 by grid {wide}")
+    print(f"time {tag} api.solve: counted run {first_ms:.3f} ms, warm run {warm_ms:.3f} ms [{card}]")
+    if profile:
+        _device_time_top(lambda: api.solve(s.A, s.b, **kw), warm_ms, card)
+    return counts, res
+
+
+def _kind_small_card_vs_cpu(dev):
+    """KIND_SMALL's solves in fp64 (dtype=None) to FP64_TOL, on the card and
+    on the CPU over the same host-built hierarchy: equal converged flags and
+    iteration counts.  Returns the card's 64^3 Galerkin hierarchy (its 16^3
+    level has 125 legs)."""
+    out = None
+    for label, kind, grid, kw, gamma in KIND_SMALL:
+        s = _kind_system(kind, grid)
+        bkw = dict(coarse_operator=generators.poisson_coarse_operator()) if kw == "redisc" else kw
+        h_cpu = build_hierarchy(s.A, grid, device="cpu", **bkw)
+        h_dev = copy.deepcopy(h_cpu).to(dev)
+        skw = dict(method="mgcg", grid=grid, tol=FP64_TOL, norm="rel_l2", gamma=gamma)
+        _reset_counts()
+        g = api.solve(s.A, s.b, hierarchy=h_dev, device=dev, **skw)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _kind_counts().items() if v}
+        _levels_launched(f"small {label}", h_dev)
+        c = api.solve(s.A, s.b, hierarchy=h_cpu, device="cpu", **skw)
+        tag = f"small {label} fp64"
+        _require(g.converged and c.converged, f"{tag}: card {g.converged}, CPU {c.converged}")
+        _require(g.iterations == c.iterations,
+                 f"{tag}: {g.iterations} iterations on the card vs {c.iterations} on the CPU")
+        dx = float((g.x.cpu() - c.x).abs().max() / c.x.abs().max())
+        _require(dx <= FP64_TRUE_REL, f"{tag}: card vs CPU solution differs by {dx:.3e}")
+        print(f"{tag}: levels {_describe(h_cpu)}; card {g.iterations} its, CPU {c.iterations} its, "
+              f"max rel diff {dx:.3e}; card launches {counts}")
+        if label == "Galerkin Poisson 64^3":
+            out = h_dev
+    return out
+
+
+def _carve(x):
+    """``x`` copied into a buffer of NaNs, NaNs planted at its first and
+    last grid points: a read outside the grid, or of a neighbour a leg must
+    skip, leaks a NaN where the twin has none."""
+    pad = 4096
+    buf = torch.full((x.numel() + 2 * pad,), float("nan"), dtype=x.dtype, device=x.device)
+    xc = buf[pad : pad + x.numel()].view(x.shape)
+    xc.copy_(x)
+    xc[(0,) * x.ndim] = float("nan")
+    xc[tuple(g - 1 for g in x.shape)] = float("nan")
+    return xc
+
+
+def _wide_kernel_checks(cases, dev, errs):
+    """The wide kernel #3, reached through ``spmv_stencil_cuda``'s route, in
+    its three instantiations against its twin on NaN-carved x: equal NaN
+    patterns, the rest within KERNEL_REL (KERNEL_REL64 in fp64)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for label, A32 in cases:
+        _require(var_route(A32) == "wide", f"wide {label}: routed {var_route(A32)}")
+        for legs in LEG_DTYPES:
+            A = A32.astype(legs)
+            vec = torch.float64 if legs == torch.float64 else torch.float32
+            rel = KERNEL_REL64 if legs == torch.float64 else KERNEL_REL
+            x = _carve(torch.randn(A.grid, generator=gen, device=dev, dtype=vec))
+            before = spmv_stencil_wide_cuda.launches
+            y, ref = spmv_stencil_cuda(A, x), spmv_stencil_ref(A, x)
+            torch.cuda.synchronize()
+            tag = f"spmv_stencil_wide {label} {TAGS[legs]} legs"
+            _require(spmv_stencil_wide_cuda.launches == before + 1, f"{tag}: not the wide kernel")
+            nan = torch.isnan(ref)
+            _require(torch.equal(torch.isnan(y), nan) and 0 < int(nan.sum()) < nan.numel(),
+                     f"{tag}: NaN pattern differs from the twin's (or is all or nothing)")
+            err, scale = _max_err(y[~nan], ref[~nan])
+            _require(err <= rel * scale, f"{tag}: max err {err:.3e} > {rel}*{scale:.3e}")
+            errs["spmv_stencil_wide"] = max(errs["spmv_stencil_wide"], err)
+            print(f"{tag}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e}); NaN-carved x: "
+                  f"{int(nan.sum())} NaN entries, the twin's")
+            del A, x, y, ref
+
+
+def _stencil_csr(A):
+    """A device ``StencilMatrix`` as a CSR tensor (its legs as diagonals at
+    the folded flat offsets; a leg is 0 where its neighbour leaves the
+    grid, so the product is the same)."""
+    strides = [int(np.prod(A.grid[ax + 1:])) for ax in range(A.ndim)]
+    offs = tuple(sum(s * st for s, st in zip(sh, strides)) for sh in A.shifts)
+    return _csr(DiaMatrix(A.data.reshape(A.nlegs, -1).float(), offs, (A.n, A.n)))
+
+
+def _wide_times(cases, dev, card, times, lib, bounds):
+    """The wide kernel #3 at the paths' shapes (below 2e7 leg entries from a
+    CUDA graph) against its twin, its bound
+    (each leg entry whose neighbour lies in the grid read once, x read once,
+    y written once) and, for fp32 legs, cuSPARSE's CSR product of the same
+    operator; the first case's fp32 row is the record's main shape."""
+    for i, (label, A32, dtypes) in enumerate(cases):
+        for legs in dtypes:
+            A = A32.astype(legs)
+            vec = torch.float64 if legs == torch.float64 else torch.float32
+            x = torch.randn(A.grid, device=dev, dtype=vec)
+            n = x.numel()
+            big = n * A.nlegs > 2e7
+            call = lambda: spmv_stencil_wide_cuda(A, x)
+            # below 2e7 leg entries the host launches slower than the card
+            # runs the kernel: its device time from a CUDA graph's replay,
+            # beside the time as launched from Python
+            k_ms = (time_ms if big else graph_ms)(call, 50 if big else 200)
+            launched = "" if big else f" (graph; {time_ms(call, 200):.4f} as launched)"
+            p_ms = time_ms(lambda: spmv_stencil_ref(A, x), 3 if big else 20)
+            nbytes = A.nnz * A.data.element_size() + 2 * n * x.element_size()
+            all_legs = A.data.numel() * A.data.element_size() + 2 * n * x.element_size()
+            bound = bound_ms(nbytes, 2 * A.nnz)
+            lib_ms = None
+            if legs == torch.float32:
+                csr = _stencil_csr(A)
+                lib_ms = _library(f"spmv_stencil_wide {label}", lambda: csr @ x.reshape(-1),
+                                  spmv_stencil_wide_cuda(A, x).reshape(-1), card, 50 if big else 200)
+                del csr
+            times[("spmv_stencil_wide", label, TAGS[legs])] = (k_ms, p_ms, lib_ms)
+            print(f"time spmv_stencil_wide {label} {TAGS[legs]} legs: kernel {k_ms:.4f} ms{launched} "
+                  f"({all_legs / 1e6 / k_ms:.0f} GB/s of {all_legs / 1e6:.1f} MB with every leg "
+                  f"entry; bound {bound[0]:.4f} ms by {bound[1]} on {nbytes / 1e6:.1f} MB, "
+                  f"{bound[0] / k_ms:.1%} of it), twin {p_ms:.4f} ms, library call "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms [{card}]")
+            if i == 0 and legs == torch.float32:
+                lib["spmv_stencil_wide"], bounds["spmv_stencil_wide"] = lib_ms, bound
+            del A, x
+
+
+def _fmg_then_mgcg(s, grid, h, dev, card, from_zero):
+    """One ``fmg`` pass over ``h`` (fp32), then MGCG from its result:
+    converged, true fp64 relative residual within TRUE_REL, no more
+    iterations than MGCG from zero.  Returns the launch counts of both."""
+    tag = f"fmg + MGCG Poisson {grid} rediscretized"
+    b = torch.from_numpy(s.b).to(dev, torch.float32)
+    _reset_counts()
+    t0 = time.perf_counter()
+    x0 = fmg(h, b)
+    torch.cuda.synchronize()
+    fmg_ms = (time.perf_counter() - t0) * 1e3
+    _require(tuple(x0.shape) == (s.n,) and bool(torch.isfinite(x0).all()), f"{tag}: bad fmg x")
+    rel0 = _host_rel_residual(s.A, s.b, x0.cpu().numpy())
+    res = api.solve(s.A, s.b, x0=x0, method="mgcg", grid=grid, tol=TOL, norm="rel_l2",
+                    dtype=np.float32, device=dev, hierarchy=h, precise_dot=True)
+    torch.cuda.synchronize()
+    counts = _kind_counts()
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    rel = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
+    _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+    _require(res.iterations <= from_zero.iterations,
+             f"{tag}: {res.iterations} iterations from fmg, {from_zero.iterations} from zero")
+    print(f"{tag}: fmg true fp64 rel residual {rel0:.3e}; MGCG from it {res.iterations} iterations "
+          f"(from zero {from_zero.iterations}), true fp64 rel residual {rel:.3e}; launches {counts}")
+    print(f"time {tag}: fmg pass {fmg_ms:.3f} ms [{card}]")
+    return counts
+
+
+def _multigrid_kinds(dev, card, errs, count):
+    """The rest of the multigrid build at full size, each path counted
+    (``count``), the wide kernel #3 checked against its twin at the paths'
+    shapes first.  Returns the wide kernel's timing cases."""
+    h64 = _kind_small_card_vs_cpu(dev)
+    s3 = _kind_system("poisson", KIND_GRID_3D)
+    h3g = _kind_hierarchy(f"Galerkin Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, dev)
+    s2 = _kind_system("poisson", KIND_GRID_2D)
+    h2g = _kind_hierarchy(f"Galerkin Poisson {KIND_GRID_2D}", s2, KIND_GRID_2D, dev)
+    st = _kind_system("tridiagonal", (KIND_TRIDIAG,))
+    ht64 = _kind_hierarchy(f"tridiagonal {KIND_TRIDIAG} fp64", st, (KIND_TRIDIAG,), dev, dtype=None)
+    w125 = next(l.A for l in h64.levels if isinstance(l.A, StencilMatrix) and l.A.nlegs == 125)
+    wide = [("128^3 81 legs", h3g.levels[1].A), ("512^2 21 legs", h2g.levels[1].A),
+            (f"1-D {ht64.levels[1].grid[0]} 5 legs", ht64.levels[1].A), ("16^3 125 legs", w125)]
+    wide += [(f"{l.grid[0]}^3 {l.A.nlegs} legs halo {max(l.A.halo)}", l.A) for l in h3g.levels[2:]
+             if isinstance(l.A, StencilMatrix) and max(l.A.halo) > 2]
+    for label, A in wide:
+        _require(A.nlegs == int(label.split(" legs")[0].split()[-1])
+                 and 2 <= max(A.halo) <= cuda_stencil.WIDE_HALO,
+                 f"wide case {label}: {A.nlegs} legs, halo {A.halo}")
+    _wide_kernel_checks([(label, A.astype(torch.float32)) for label, A in wide], dev, errs)
+
+    res = {}
+    for label, s, grid, h, kw in (
+            (f"MGCG Galerkin Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, h3g, {}),
+            (f"MGCG Galerkin Poisson {KIND_GRID_2D}", s2, KIND_GRID_2D, h2g, {})):
+        counts, res[label] = _kind_mgcg(label, s, grid, h, dev, card, **kw)
+        count(label, counts)
+    h3r = _kind_hierarchy(f"rediscretized Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, dev,
+                          coarse_operator=generators.poisson_coarse_operator(np.float32))
+    _require(all(isinstance(l.A, ConstStencilMatrix) for l in h3r.levels),
+             f"rediscretized {KIND_GRID_3D}: a level is not const")
+    label = f"MGCG rediscretized Poisson {KIND_GRID_3D}"
+    counts, v_res = _kind_mgcg(label, s3, KIND_GRID_3D, h3r, dev, card)
+    count(label, counts)
+    label = f"W-cycle MGCG rediscretized Poisson {KIND_GRID_3D}"
+    counts, w_res = _kind_mgcg(label, s3, KIND_GRID_3D, h3r, dev, card, profile=False, gamma=2)
+    count(label, counts)
+    print(f"W-cycle against V-cycle, rediscretized {KIND_GRID_3D}: {w_res.iterations} against "
+          f"{v_res.iterations} iterations")
+    count(f"fmg + MGCG rediscretized Poisson {KIND_GRID_3D}",
+          _fmg_then_mgcg(s3, KIND_GRID_3D, h3r, dev, card, v_res))
+    del h3r
+    for label, kw in (("layout dia", dict(layout="dia")), ("rbgs", dict(smoother="rbgs"))):
+        h = _kind_hierarchy(f"Galerkin Poisson {KIND_GRID_2D} {label}", s2, KIND_GRID_2D, dev, **kw)
+        path = f"MGCG Galerkin Poisson {KIND_GRID_2D} {label}"
+        counts, _ = _kind_mgcg(path, s2, KIND_GRID_2D, h, dev, card)
+        count(path, counts)
+        del h
+    sa = _kind_system("aniso", KIND_GRID_2D)
+    ha = _kind_hierarchy(f"anisotropic {KIND_GRID_2D} ratios {KIND_RATIOS}", sa, KIND_GRID_2D, dev)
+    _require(ha.levels[0].transfer.startswith("semi"), f"anisotropic: {ha.levels[0].transfer}")
+    label = f"MGCG anisotropic {KIND_GRID_2D}"
+    counts, _ = _kind_mgcg(label, sa, KIND_GRID_2D, ha, dev, card)
+    count(label, counts)
+    del ha
+    ht32 = _kind_hierarchy(f"tridiagonal {KIND_TRIDIAG} fp32", st, (KIND_TRIDIAG,), dev)
+    _require(ht32.levels[0].transfer == "agg", f"tridiagonal: {ht32.levels[0].transfer}")
+    label = f"MGCG tridiagonal {KIND_TRIDIAG} (simple_cuda)"
+    counts, _ = _kind_mgcg(label, st, (KIND_TRIDIAG,), ht32, dev, card)
+    count(label, counts)
+    label = f"default-dtype MGCG tridiagonal {KIND_TRIDIAG} (simple_cuda)"
+    counts, _ = _kind_mgcg(label, st, (KIND_TRIDIAG,), ht64, dev, card, dtype=None)
+    count(label, counts, fp32=False)
+    return [(label, A.astype(torch.float32),
+             (torch.float32, torch.bfloat16, torch.float64) if i == 0 else (torch.float32,))
+            for i, (label, A) in enumerate(wide)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1289,7 +1661,8 @@ def main() -> int:
         for entry, res in sorted(_build.kernel_resources(name).items()):
             print(f"  ptxas {name}: {entry[:72]} {res}")
     for src, kernel in (("stencil", "spmv_const_kernel"), ("stencil", "cheb_const_kernel"),
-                        ("stencil_var", "spmv_var_kernel"), ("dia", "spmm_dia_kernel"),
+                        ("stencil_var", "spmv_var_kernel"), ("stencil_var", "spmv_var_wide_kernel"),
+                        ("dia", "spmm_dia_kernel"),
                         ("dia", "spmm_dia_acc_kernel")):
         res = {e: r for e, r in _build.kernel_resources(src).items() if kernel in e}
         _require(bool(res), f"ptxas: no {kernel} entry in the {src} build log")
@@ -1309,7 +1682,7 @@ def main() -> int:
     ops = {g: _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
            for g in TIME_SPMV_GRIDS}
     _const_kernel_checks(dev, errs)
-    for g in CHEB_GRIDS:
+    for g in CHEB_GRIDS + EVEN_GRIDS:
         A = ops.get(g) or _const_poisson(generators.poisson_system(g, dtype=np.float32).A, g)
         ops[g] = A
         lo, hi = _const_bounds(A)
@@ -1438,23 +1811,27 @@ def main() -> int:
     walls = {}
     var_mgcg, single_jump, walls["MGCG jump 255^3 warm solve"] = _var_mgcg(sysj, hj, dev, card)
     count("MGCG jump 255^3", {"spmv_stencil": var_mgcg})
-    syss, hs = _var_hierarchy("smooth", dev)
-    var_refine, single_smooth, walls["refined smooth 255^3 bf16 legs, device residual (timed run)"] = (
-        _var_refine_routes(syss, hs, dev, card))
-    count("refined smooth 255^3 bf16 legs, host + device residual", {"spmv_stencil": var_refine})
+    syss, hs = _var_hierarchy("smooth", dev, SMOOTH_GRID)
+    var_refine, single_smooth, _ = _var_refine_routes(syss, hs, dev, card)
+    count("refined smooth 127^3 bf16 legs, host + device residual", {"spmv_stencil": var_refine})
 
     # -- the multi-RHS grid path, counted: 255^3 jump MGCG (reusing its
     # hierarchy), the 63^3 facade, the 255^3 smooth refined solve ------------
     multi_counts, walls["multi-RHS MGCG jump 255^3 k=4"] = _multi_mgcg(sysj, hj, single_jump, dev, card)
     count(f"multi-RHS MGCG jump 255^3 k={MULTI_K}", multi_counts)
     count(f"api.solve(B, mgcg) {FACADE_GRID} k={MULTI_K}", _facade_multi_mgcg(dev, card))
-    count(f"refined_solve_multi smooth 255^3 k={REFINE_MULTI_K}",
+    count(f"refined_solve_multi smooth 127^3 k={REFINE_MULTI_K}",
           _refine_multi(syss, hs, single_smooth, dev, card))
     del syss, hs
 
     # -- kernel #6's path, counted: the experiment at its default shape ------
     acc_launches, acc_recs = _acc_experiment(sysj, dev)
     count("kernel #6 experiment", {"spmm_dia_acc": acc_launches})
+
+    # -- the rest of the multigrid build, counted: hybrid, semicoarsening and
+    # aggregation transfers (the wide kernel #3 checked first), DIA levels,
+    # rbgs, W-cycle and fmg -------------------------------------------------
+    wide_cases = _multigrid_kinds(dev, card, errs, count)
 
     # -- phase 6: times -----------------------------------------------------
     times = {}
@@ -1498,6 +1875,7 @@ def main() -> int:
     _var_times(hj, dev, card, times)
     lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card, times)
     _acc_times(sysj, acc_recs, dev, card, times, lib, bounds)
+    _wide_times(wide_cases, dev, card, times, lib, bounds)
 
     for tag, before in WALLS_BEFORE_MS.items():
         print(f"wall {tag}: {walls[tag]:.3f} ms now, {before} ms in two runs before the redesign "
@@ -1509,7 +1887,8 @@ def main() -> int:
                   "spmv_dia": ("spmv_dia", "fp32"),
                   "spmm_dia": ("spmm_dia", 4, "fp32"),
                   "spmv_stencil": ("spmv_stencil", "255^3 7 legs", "fp32"),
-                  "spmm_dia_acc": ("spmm_dia_acc", ACC_MAIN)}
+                  "spmm_dia_acc": ("spmm_dia_acc", ACC_MAIN),
+                  "spmv_stencil_wide": ("spmv_stencil_wide", "128^3 81 legs", "fp32")}
     record = [
         dict(name=name, **meta, launches=launches[name], launches_by_path=by_path[name],
              max_abs_err=errs[name], ms=times[main_shape[name]][0],

@@ -6,19 +6,22 @@ rewritten by hand for Hopper (``csrc/``).  The layout mirrors the
 reference's, so each counterpart is found by path:
 
 - ``core``    — numpy host containers (DIA / stencil / const stencil), the
-                banded, tridiagonal, Poisson and variable-coefficient
-                diffusion generators and the fp64 oracle (SpMV and CG).
+                banded, tridiagonal, Poisson, variable-coefficient and
+                anisotropic diffusion generators and the fp64 oracle (SpMV
+                and CG).
 - ``ops``     — BLAS-1, compensated dots, and the CUDA kernels with their
                 plain twins: the const-stencil SpMV, the fused Chebyshev
-                smoother, the variable-coefficient stencil SpMV (and its
-                per-column SpMM), the DIA SpMV (and its fused p·Ap), the
+                smoother, the variable-coefficient stencil SpMV (tuned at
+                halo 1, wide at halo 2; and its per-column SpMM), the DIA SpMV (and its fused p·Ap), the
                 DIA SpMM and its single-call accumulating form.
 - ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG and
                 its multigrid preconditioner, mixed-precision iterative
                 refinement (the flagship path) and the setup-time spectral
                 bounds.
-- ``precond`` — smoothers, fw transfers and the geometric-multigrid
-                hierarchy (Galerkin or rediscretized) and V-cycle (MGCG).
+- ``precond`` — smoothers (Jacobi, Chebyshev, red-black Gauss-Seidel), the
+                fw, hybrid, semicoarsening and aggregation transfers, and
+                the multigrid hierarchy (Galerkin or rediscretized), V- and
+                W-cycles and fmg (MGCG).
 - ``models``  — the named workloads of the reference's drivers.
 - ``api``     — ``solve(A, b, method=...)`` for the ported methods.
 - ``convert`` — carries a hierarchy or a DIA matrix across from the

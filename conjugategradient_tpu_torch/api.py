@@ -34,9 +34,9 @@ from conjugategradient_tpu_torch.core import oracle
 from conjugategradient_tpu_torch.core.formats import DiaMatrix, StencilMatrix, default_device, place
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
-_PRECONDITIONERS = "ROADMAP queue 1 item 9 (the rest of the hierarchy and the preconditioners)"
-_SOLVER_FAMILIES = "ROADMAP queue 1 item 10 (solver families)"
-_PARALLEL = "ROADMAP queue 1 item 12 (parallel)"
+_PRECONDITIONERS = "ROADMAP queue 1: preconditioners"
+_SOLVER_FAMILIES = "ROADMAP queue 1: solver families"
+_PARALLEL = "ROADMAP queue 1: parallel"
 _UNPORTED = {
     **{m: _SOLVER_FAMILIES for m in (
         "bicgstab", "gmres", "fgmres", "minres", "idr", "lsmr", "cgnr", "chebyshev",

@@ -23,6 +23,10 @@ from conjugategradient_tpu_torch.core.formats import (
 from conjugategradient_tpu_torch.precond.multigrid import MgHierarchy, MgLevel
 
 
+def _optional(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
 def hierarchy_from_reference(
     levels: Sequence[Mapping],
     coarse_inv: np.ndarray,
@@ -34,35 +38,39 @@ def hierarchy_from_reference(
 ) -> MgHierarchy:
     """The port's ``MgHierarchy`` from a JAX ``MgHierarchy``'s fields.
 
-    Each entry of ``levels`` maps ``shifts``, ``grid``, ``cheb_bounds``,
-    ``transfer`` and ``inv_diag`` of one level, plus either ``coeffs`` (a
-    const-stencil level, scalar ``inv_diag``) or ``legs`` (a
-    variable-coefficient level: a ``(nlegs, *grid)`` array and a
-    grid-shaped ``inv_diag``); ``coarse_inv`` is the dense coarsest inverse.
-    Only fw transfers are carried.  ``device=None`` places it on the card
-    when there is one.
+    Each entry of ``levels`` maps ``grid``, ``cheb_bounds``, ``transfer``
+    (any kind: ``fw``, ``hyb``, ``semi…``, ``agg``) and ``inv_diag`` of one
+    level, and its operator in one of three layouts: ``coeffs`` and
+    ``shifts`` (a const-stencil level, scalar ``inv_diag``), ``legs`` and
+    ``shifts`` (a variable-coefficient stencil level: ``(nlegs, *grid)``
+    legs, grid-shaped ``inv_diag``), or ``legs`` and ``offsets`` (a
+    ``layout="dia"`` level: ``(ndiags, n)`` data, flat ``inv_diag``).
+    Optional keys: ``weight`` (an agg level's weights), ``sa_smooth``
+    (default True) and ``mask`` (the rbgs checkerboard).  ``coarse_inv`` is
+    the dense coarsest inverse.  ``device=None`` places it on the card when
+    there is one.
     """
     out = []
     for lv in levels:
-        if lv["transfer"] != "fw":
-            raise NotImplementedError(
-                f"{lv['transfer']!r} transfers are not ported yet "
-                "(ROADMAP queue 1 item 9 (the rest of the hierarchy))"
-            )
         grid = tuple(int(n) for n in lv["grid"])
-        shifts = tuple(tuple(int(s) for s in sh) for sh in lv["shifts"])
         inv_d = np.array(lv["inv_diag"])
-        if "legs" in lv:
-            A = StencilMatrix(np.array(lv["legs"]), shifts, grid)
-            if inv_d.shape != grid:
-                raise ValueError(f"inv_diag of shape {inv_d.shape} is not grid {grid}")
+        if "offsets" in lv:
+            n = int(np.prod(grid))
+            A = DiaMatrix(np.array(lv["legs"]), tuple(int(o) for o in lv["offsets"]), (n, n))
+            want = (n,)
         else:
-            A = ConstStencilMatrix(tuple(float(c) for c in lv["coeffs"]), shifts, grid)
-            if inv_d.ndim != 0:
-                raise ValueError(f"a const-stencil level takes a scalar inv_diag, got {inv_d.shape}")
+            shifts = tuple(tuple(int(s) for s in sh) for sh in lv["shifts"])
+            if "legs" in lv:
+                A, want = StencilMatrix(np.array(lv["legs"]), shifts, grid), grid
+            else:
+                A, want = ConstStencilMatrix(tuple(float(c) for c in lv["coeffs"]), shifts, grid), ()
+        if inv_d.shape != want:
+            raise ValueError(f"inv_diag of shape {inv_d.shape} is not grid {grid}'s "
+                             f"{want}, the shape a {type(A).__name__} level takes")
         out.append(
-            MgLevel(A, torch.from_numpy(inv_d), grid,
-                    tuple(float(v) for v in lv["cheb_bounds"]), "fw")
+            MgLevel(A, torch.from_numpy(inv_d), grid, tuple(float(v) for v in lv["cheb_bounds"]),
+                    str(lv["transfer"]), weight=_optional(lv.get("weight")),
+                    mask=_optional(lv.get("mask")), sa_smooth=bool(lv.get("sa_smooth", True)))
         )
     h = MgHierarchy(out, torch.from_numpy(np.array(coarse_inv)), smoother, int(pre),
                     int(post), float(omega))

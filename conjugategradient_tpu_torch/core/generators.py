@@ -3,7 +3,8 @@
 A copy of the parts of ``conjugategradient_tpu/core/generators.py`` that the
 ported slices run: the banded ``|sin(i+j)|`` and tridiagonal systems of the
 reference's drivers, the Poisson matrices of the multigrid path and the
-variable-coefficient diffusion family of the Galerkin MGCG path.  The
+variable-coefficient diffusion family of the Galerkin MGCG path, and the
+anisotropic Laplacian of the semicoarsening path.  The
 same numpy code, so the systems are bit-identical to the JAX package's (the
 tests compare them element by element).
 """
@@ -330,6 +331,45 @@ def diffusion_system(
     """Diffusion workload: coefficient field per ``kind``, smooth RHS, x0=0."""
     a = diffusion_coefficients(grid_shape, kind=kind, contrast=contrast, seed=seed)
     A = diffusion_matrix(grid_shape, a, dtype=dtype)
+    n = A.n
+    i = np.arange(n, dtype=np.float64)
+    b = np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)
+    return LinearSystem(A, b.astype(dtype), np.zeros(n, dtype=dtype))
+
+
+def anisotropic_diffusion_matrix(
+    grid_shape: Tuple[int, ...], ratios, dtype=np.float64
+) -> DiaMatrix:
+    """Constant-coefficient anisotropic Laplacian ``-sum_ax a_ax d2u/dx_ax2``
+    (Dirichlet, unit spacing), one coefficient per grid axis in ``ratios``:
+    the semicoarsening workload (point smoothers leave error smooth only
+    along the strongly coupled axes)."""
+    grid_shape = tuple(grid_shape)
+    ratios = tuple(float(a) for a in ratios)
+    if len(ratios) != len(grid_shape):
+        raise ValueError(f"need {len(grid_shape)} ratios, got {len(ratios)}")
+    n = int(np.prod(grid_shape))
+    idx = np.indices(grid_shape).reshape(len(grid_shape), n)
+    strides = [int(np.prod(grid_shape[ax + 1:])) for ax in range(len(grid_shape))]
+    offsets, rows = [], []
+    for ax in range(len(grid_shape)):
+        offsets.append(-strides[ax])
+        rows.append(np.where(idx[ax] >= 1, -ratios[ax], 0.0))
+    offsets.append(0)
+    rows.append(np.full(n, 2.0 * sum(ratios)))
+    for ax in range(len(grid_shape) - 1, -1, -1):
+        offsets.append(strides[ax])
+        rows.append(np.where(idx[ax] <= grid_shape[ax] - 2, -ratios[ax], 0.0))
+    order = np.argsort(offsets)
+    data = np.stack([rows[k] for k in order]).astype(dtype)
+    return DiaMatrix(data, tuple(int(offsets[k]) for k in order), (n, n))
+
+
+def anisotropic_diffusion_system(
+    grid_shape: Tuple[int, ...], ratios, seed: int = 0, dtype=np.float64
+) -> LinearSystem:
+    """The anisotropic Laplacian with the smooth Poisson-family RHS, x0=0."""
+    A = anisotropic_diffusion_matrix(grid_shape, ratios, dtype=dtype)
     n = A.n
     i = np.arange(n, dtype=np.float64)
     b = np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)

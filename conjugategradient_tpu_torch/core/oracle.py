@@ -40,7 +40,7 @@ def spmv(A, x: np.ndarray) -> np.ndarray:
     if not isinstance(A, DiaMatrix):
         raise NotImplementedError(
             f"oracle.spmv of {type(A).__name__} is not ported yet "
-            "(ROADMAP queue 1 item 8: other formats)"
+            "(ROADMAP queue 1: other formats and ingestion)"
         )
     x = np.asarray(x)
     n = A.n

@@ -60,6 +60,44 @@
 //   bf16/fp32 (half the leg bytes, upcast in registers, as _kernel_var does)
 //   and fp64/fp64, the same set as kernel 4, so an fp64 MGCG on the card
 //   launches a kernel at every level.
+//
+// ---------------------------------------------------------------------------
+// Kernel 3, wide (spmv_var_wide_kernel): the same product where the tuned
+//   kernel's halo-1 design does not reach: per-axis |shift| up to
+//   WIDE_HALO = 7, 1 to WIDE_LEGS = 3375 legs, 1-D, 2-D and 3-D grids.
+//   These are the Galerkin levels of the hybrid (cell-centered),
+//   semicoarsening and smoothed-aggregation transfers: |shift| 2 with 81 legs
+//   at a 3-D hybrid level, 21-25 at 2-D, 5 at 1-D, 125 at a first
+//   aggregation level; each further smoothed-aggregation level widens the
+//   stencil (the 256^3 Poisson hierarchy reaches 343 legs at |shift| 3 on
+//   32^3 and 1331 at |shift| 5 on 16^3).  The Pallas kernel stops at
+//   |shift| <= 1 and the JAX package runs these levels through XLA's
+//   pad-and-slice (conjugategradient_tpu/ops/stencil.py:70-90); on the card
+//   that plain form is ~3 eager ops per leg.
+//   Bound on the H100: device-memory bandwidth, the legs again: a 128^3
+//   level with 81 fp32 legs moves (81 + 2) * 4 B * 2.10M = 696 MB, 0.208 ms
+//   at 3.35 TB/s.
+//   Design (simple first; making it fast is later work):
+//   - One thread per (y, x) column marching a WIDE_ZRUN-plane run in z, the
+//     narrow kernel's (32, 8) blocks, or one row of threads on a 1-D or
+//     2-D grid (viewed as (1, 1, n) and (ny, 1, nx) by the wrapper).  A
+//     view with too few runs to fill the card (the deep levels: 32^3 with
+//     343 legs, 16^3 with 1331) takes one plane a thread instead; with runs
+//     of four, 16^3 was 4 blocks of 1331-leg chains, 0.52 ms against
+//     cuSPARSE's 0.03 on an H100 80GB HBM3 at 700 W (PERF.md section 6).
+//   - The legs' folded offsets and shifts come from a table in device memory
+//     (int2 per leg, built and cached by the wrapper: too many legs for the
+//     parameter space), read with uniform loads.  The legs go in groups of
+//     WIDE_GROUP: a group's table entries are read once for the whole z run,
+//     then for each plane every load of the group comes before its first
+//     FMA.  The group loop is not unrolled (a fully unrolled 125-leg loop
+//     took 255 registers).
+//   - Each leg is tested against the grid (its (y, x) test once per group,
+//     its z test per plane): no leg masks and no interior fast path, so the
+//     halo-1 kernel's 32-bit masks and end-plane masking do not carry over.
+//   Masking, summation order and the three leg/state instantiations are the
+//   narrow kernel's: a neighbour outside the grid is never read, legs are
+//   summed in A.shifts order with an explicit fma.
 // ---------------------------------------------------------------------------
 
 #include <climits>
@@ -215,6 +253,98 @@ static int launch(int spec, const void* legs, const void* x, void* y, int nz, in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the wide kernel
+// ---------------------------------------------------------------------------
+
+#define WIDE_LEGS 3375  // 15^3: every shift of the halo-7 box
+#define WIDE_HALO 7
+#define WIDE_ZRUN 4   // z planes a thread marches
+#define WIDE_GROUP 8  // legs per group of loads
+
+// one leg of the table: x = folded offset, y = (sz, sy, sx) as three
+// signed bytes (bits 0-7, 8-15, 16-23)
+__device__ __forceinline__ int shift_of(int packed, int byte) {
+  return (int)(signed char)((packed >> (8 * byte)) & 0xff);
+}
+
+template <typename L, typename V, int ZR>
+__global__ void __launch_bounds__(THREADS)
+spmv_var_wide_kernel(const L* __restrict__ legs, const V* __restrict__ x, V* __restrict__ y,
+                     const int2* __restrict__ table, int nlegs, int nz, int ny, int nx) {
+  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+  if (ix >= nx || iy >= ny) return;
+  const int plane = ny * nx;
+  const size_t n = (size_t)plane * nz;
+  const int z0 = blockIdx.z * ZR;
+  const int nr = min(ZR, nz - z0);
+  const int p0 = (z0 * ny + iy) * nx + ix;
+  V acc[ZR];
+#pragma unroll
+  for (int r = 0; r < ZR; ++r) acc[r] = V(0);
+#pragma unroll 1
+  for (int k0 = 0; k0 < nlegs; k0 += WIDE_GROUP) {
+    // the group's table entries, read once for the whole z run; the (y, x)
+    // test does not depend on the plane
+    int off[WIDE_GROUP], sz[WIDE_GROUP];
+    unsigned mxy = 0u;
+#pragma unroll
+    for (int j = 0; j < WIDE_GROUP; ++j) {
+      off[j] = 0;
+      sz[j] = 0;
+      if (k0 + j < nlegs) {
+        const int2 e = __ldg(table + k0 + j);
+        off[j] = e.x;
+        sz[j] = shift_of(e.y, 0);
+        if ((unsigned)(iy + shift_of(e.y, 1)) < (unsigned)ny &&
+            (unsigned)(ix + shift_of(e.y, 2)) < (unsigned)nx)
+          mxy |= 1u << j;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ZR; ++r) {
+      if (r >= nr) break;
+      const int p = p0 + r * plane;
+      L lv[WIDE_GROUP];
+      V xv[WIDE_GROUP];
+      unsigned m = 0u;
+#pragma unroll
+      for (int j = 0; j < WIDE_GROUP; ++j) {
+        lv[j] = L(0.0f);
+        xv[j] = V(0);
+        if (((mxy >> j) & 1u) && (unsigned)(z0 + r + sz[j]) < (unsigned)nz) {
+          m |= 1u << j;
+          lv[j] = ld_leg(legs + (size_t)(k0 + j) * n + p);
+          xv[j] = __ldg(x + (p + off[j]));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < WIDE_GROUP; ++j)
+        if ((m >> j) & 1u) acc[r] = madd(to_acc(lv[j]), xv[j], acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ZR; ++r)
+    if (r < nr) y[p0 + r * plane] = acc[r];
+}
+
+template <typename L, typename V>
+static int launch_wide(const void* legs, const void* x, void* y, const int2* table, int nlegs,
+                       int nz, int ny, int nx, int zrun, cudaStream_t st) {
+  // a 1-D or 2-D grid arrives as (1, 1, n) or (ny, 1, nx): one row of threads
+  const dim3 block = ny == 1 ? dim3(nx > 128 ? 256 : (nx > 32 ? 128 : 32), 1, 1) : dim3(32, 8, 1);
+  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y,
+                  (nz + zrun - 1) / zrun);
+  if (zrun == 1)
+    spmv_var_wide_kernel<L, V, 1><<<grid, block, 0, st>>>((const L*)legs, (const V*)x, (V*)y,
+                                                          table, nlegs, nz, ny, nx);
+  else
+    spmv_var_wide_kernel<L, V, WIDE_ZRUN><<<grid, block, 0, st>>>((const L*)legs, (const V*)x,
+                                                                  (V*)y, table, nlegs, nz, ny, nx);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* cg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -262,6 +392,33 @@ int cg_spmv_var(int code, int spec, const void* legs, const void* x, void* y, in
     case FP32: return launch<float, float>(spec, legs, x, y, nz, ny, nx, plan, st);
     case BF16: return launch<__nv_bfloat16, float>(spec, legs, x, y, nz, ny, nx, plan, st);
     case FP64: return launch<double, double>(spec, legs, x, y, nz, ny, nx, plan, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The wide kernel.  code: as cg_spmv_var.  legs: (nlegs, nz, ny, nx)
+// contiguous with 1 <= nlegs <= WIDE_LEGS, on the view the wrapper built
+// (ops/cuda_stencil.py::wide_view: a 1-D or 2-D grid marches its rows as
+// (1, 1, n) or (ny, 1, nx)); table: nlegs int2 entries on the device, each
+// leg's folded offset and its (sz, sy, sx) bytes on that view, every
+// component in [-WIDE_HALO, WIDE_HALO]; zrun: the planes a thread
+// marches, 1 or WIDE_ZRUN (the wrapper's choice, ops/cuda_stencil.py::
+// wide_zrun).
+int cg_spmv_var_wide(int code, const void* legs, const void* x, void* y, const void* table,
+                     int nlegs, int nz, int ny, int nx, int zrun, void* stream) {
+  if (nlegs < 1 || nlegs > WIDE_LEGS || nz < 1 || ny < 1 || nx < 1 || table == nullptr ||
+      (zrun != 1 && zrun != WIDE_ZRUN))
+    return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)ny * nx;
+  if (plane * nz + (WIDE_HALO + 1) * plane > INT_MAX || (nz + zrun - 1) / zrun > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int2* t = (const int2*)table;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+    case FP32: return launch_wide<float, float>(legs, x, y, t, nlegs, nz, ny, nx, zrun, st);
+    case BF16:
+      return launch_wide<__nv_bfloat16, float>(legs, x, y, t, nlegs, nz, ny, nx, zrun, st);
+    case FP64: return launch_wide<double, double>(legs, x, y, t, nlegs, nz, ny, nx, zrun, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -53,7 +53,7 @@ class Workload:
         """Per-row-block generation serves the multi-host path only."""
         raise NotImplementedError(
             "Workload.build_rows (row-block generation for the multi-host path) is not "
-            "ported yet (ROADMAP queue 1 item 12: parallel)"
+            "ported yet (ROADMAP queue 1: parallel)"
         )
 
 

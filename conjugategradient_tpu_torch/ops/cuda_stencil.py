@@ -10,21 +10,27 @@ Two kernels of ``csrc/stencil.cu`` and one of ``csrc/stencil_var.cu``
 - ``cheb_smooth_const_cuda`` — the whole degree-d Chebyshev recurrence on
   D⁻¹A for a 3-D const stencil, optionally from a zero x0 and optionally
   emitting r = D⁻¹(b − A x_out) (replaces ``_cheb_kernel``);
-- ``spmv_stencil_cuda`` — y = A x for a 2-D/3-D variable-coefficient
-  ``StencilMatrix`` with up to 27 legs (kernel #3, replaces
-  ``_kernel_var``), in three instantiations by (leg dtype, vector dtype):
-  (fp32, fp32), (bf16, fp32) with the legs upcast in registers, and
-  (fp64, fp64).
+- ``spmv_stencil_cuda`` — y = A x for a variable-coefficient
+  ``StencilMatrix`` (kernel #3, replaces ``_kernel_var``), in three
+  instantiations by (leg dtype, vector dtype): (fp32, fp32), (bf16, fp32)
+  with the legs upcast in registers, and (fp64, fp64).  Two kernels, chosen
+  by ``var_route``: the tuned ``spmv_var_kernel`` for halo-1 stencils of up
+  to 27 legs on 2-D and 3-D grids, and ``spmv_var_wide_kernel``
+  (``spmv_stencil_wide_cuda``) for the wider Galerkin levels of the
+  hybrid, semicoarsening and aggregation transfers: |shift| <= 7, up to
+  3375 legs, 1-D to 3-D, its legs' offsets and shifts in a device table
+  (``wide_view``).
 
 Each wrapper runs its twin (``*_ref``) for a tensor on the CPU, and only
 there.  For any other tensor it checks everything the kernel does not take
-(device, dtype, rank and shape, contiguity, |shift| > 1, the leg limit; the
+(device, dtype, rank and shape, contiguity, the shift and leg limits; the
 fused smoother takes fp32 3-D grids only), raises on a mismatch, and
 launches the kernel on the current CUDA stream; a launch that the runtime
 refuses raises too.  ``launches`` on each wrapper counts its kernel launches
-and nothing else; ``launches_by_grid`` splits the count by grid, so a run
-can show that every level went through its kernel, and
-``launches_by_dtype`` (the two SpMVs) by state or leg dtype.
+and nothing else (``spmv_stencil_cuda`` the tuned kernel's,
+``spmv_stencil_wide_cuda`` the wide one's); ``launches_by_grid`` splits the
+count by grid, so a run can show that every level went through its kernel,
+and ``launches_by_dtype`` (the SpMVs) by state or leg dtype.
 """
 
 from __future__ import annotations
@@ -42,9 +48,12 @@ from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, Stencil
 from conjugategradient_tpu_torch.ops import _build
 
 #: Limits of the kernels' by-value argument structs (``csrc/stencil.cu``,
-#: ``csrc/stencil_var.cu``).
+#: ``csrc/stencil_var.cu``); the wide kernel #3's legs and halo
+#: (``WIDE_LEGS``, ``WIDE_HALO`` there: every shift of the halo-7 box).
 MAX_LEGS = 27
 MAX_DEGREE = 5
+WIDE_LEGS = 3375
+WIDE_HALO = 7
 
 
 def _cheb_halo(degree: int, zero_x: bool, want_resid: bool) -> int:
@@ -426,20 +435,102 @@ def var_instantiation(nlegs: int) -> int:
     return nlegs if nlegs in SPECIALISED_LEGS else 0
 
 
+class WideView(NamedTuple):
+    """The wide kernel #3's view of a grid: ``dims`` (nz, ny, nx) with a
+    2-D grid (ny, nx) as (ny, 1, nx) and a 1-D grid (n,) as (1, 1, n), so
+    rows are the marched axis (the C entry takes it as given); ``shifts``
+    the legs' (dz, dy, dx) on it; ``offsets`` each leg's folded flat
+    offset dz * ny * nx + dy * nx + dx."""
+
+    dims: Tuple[int, int, int]
+    shifts: Tuple[Tuple[int, int, int], ...]
+    offsets: Tuple[int, ...]
+
+
+def wide_view(grid: Tuple[int, ...], shifts: Tuple[Tuple[int, ...], ...]) -> WideView:
+    """The wide kernel's view of a 1-D, 2-D or 3-D grid and its shifts."""
+    dims = (1,) * (3 - len(grid)) + tuple(grid)
+    sh = [(0,) * (3 - len(grid)) + tuple(s) for s in shifts]
+    if dims[0] == 1:  # march over rows: (1, ny, nx) -> (ny, 1, nx)
+        dims = (dims[1], 1, dims[2])
+        sh = [(s[1], s[0], s[2]) for s in sh]
+    _, ny, nx = dims
+    return WideView(dims, tuple(sh), tuple(z * ny * nx + y * nx + x for z, y, x in sh))
+
+
+#: the wide kernel's z run (``WIDE_ZRUN`` in ``csrc/stencil_var.cu``), and
+#: the threads a card must get before a launch takes it: below that the
+#: runs do not fill the card and each thread takes one plane
+WIDE_ZRUN = 4
+WIDE_FILL_THREADS_PER_SM = 2048
+
+
+def wide_zrun(view: WideView, sms: int = H100_SMS) -> int:
+    """The planes a thread of the wide kernel marches on ``view``:
+    ``WIDE_ZRUN`` where that still gives a full card of threads (every SM
+    ``WIDE_FILL_THREADS_PER_SM``) or where one plane a block would exceed
+    the launch's 65,535 blocks along z, else 1."""
+    nz, ny, nx = view.dims
+    runs = nx * ny * -(-nz // WIDE_ZRUN)
+    return WIDE_ZRUN if runs >= sms * WIDE_FILL_THREADS_PER_SM or nz > 65535 else 1
+
+
+def _wide_table(view: WideView, device: torch.device) -> torch.Tensor:
+    """``view``'s leg table on ``device``, one int2 a leg: the folded
+    offset, and (sz, sy, sx) as signed bytes 0-2 of the second int."""
+    rows = [(off, (z & 0xFF) | ((y & 0xFF) << 8) | ((x & 0xFF) << 16))
+            for off, (z, y, x) in zip(view.offsets, view.shifts)]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+#: facts of a leg list cached by the identity of its shifts tuple (a level
+#: rebuilds its StencilMatrix over the same tuple on every access): scanning
+#: or hashing a 1331-leg list at every launch kept the host longer than the
+#: kernel takes
+_BY_SHIFTS: dict = {}
+
+
+def _by_shifts(shifts, key, make):
+    """``make()``, cached under ``key`` for the tuple ``shifts`` (held, so
+    its id is not reused while cached)."""
+    k = (id(shifts), key)
+    hit = _BY_SHIFTS.get(k)
+    if hit is None or hit[0] is not shifts:
+        if len(_BY_SHIFTS) >= 512:
+            _BY_SHIFTS.clear()
+        hit = _BY_SHIFTS[k] = (shifts, make())
+    return hit[1]
+
+
+def var_route(A: StencilMatrix) -> str:
+    """Which kernel #3 takes ``A`` on the card: ``"narrow"`` (the tuned
+    halo-1 kernel) for every per-axis |shift| <= 1, at most ``MAX_LEGS``
+    legs and a 2-D or 3-D grid; otherwise ``"wide"`` within |shift| <=
+    ``WIDE_HALO``, 1..``WIDE_LEGS`` legs and a 1-D, 2-D or 3-D grid; beyond
+    that ``ValueError``."""
+    halo = _by_shifts(A.shifts, "halo",
+                      lambda: max((abs(s) for sh in A.shifts for s in sh), default=0))
+    if len(A.grid) in (2, 3) and halo <= 1 and 1 <= A.nlegs <= MAX_LEGS:
+        return "narrow"
+    if len(A.grid) not in (1, 2, 3):
+        raise ValueError(f"kernel #3 needs a 1-D, 2-D or 3-D grid, got grid={A.grid}")
+    if halo > WIDE_HALO:
+        raise ValueError(f"kernel #3: per-axis shifts must be in [-{WIDE_HALO}, {WIDE_HALO}], "
+                         f"got {A.shifts}")
+    if not 1 <= A.nlegs <= WIDE_LEGS:
+        raise ValueError(f"kernel #3: 1..{WIDE_LEGS} legs supported, got {A.nlegs}")
+    return "wide"
+
+
 def _check_var_args(name: str, A: StencilMatrix, x: torch.Tensor) -> int:
-    """Raise on anything kernel #3 does not take; return the instantiation
-    code."""
+    """Raise on anything kernel #3 (tuned or wide) does not take; return
+    the instantiation code."""
     if not isinstance(A, StencilMatrix):
         raise TypeError(f"{name}: needs a StencilMatrix, got {type(A).__name__}")
     legs = A.data
     if not torch.is_tensor(legs):
         raise TypeError(f"{name}: A.data must be a torch tensor (use StencilMatrix.device_put)")
-    if len(A.grid) not in (2, 3):
-        raise ValueError(f"{name}: needs a 2-D or 3-D grid, got grid={A.grid}")
-    if any(abs(s) > 1 for sh in A.shifts for s in sh):
-        raise ValueError(f"{name}: per-axis shifts must be in {{-1, 0, 1}}, got {A.shifts}")
-    if not 1 <= A.nlegs <= MAX_LEGS:
-        raise ValueError(f"{name}: 1..{MAX_LEGS} legs supported, got {A.nlegs}")
+    var_route(A)
     if tuple(legs.shape) != (A.nlegs,) + tuple(A.grid):
         raise ValueError(f"{name}: legs of shape {tuple(legs.shape)} are not (nlegs, *grid)")
     code = _CODES.get((legs.dtype, x.dtype))
@@ -469,29 +560,68 @@ def _var_launch(lib, code: int, A: StencilMatrix, x: torch.Tensor) -> torch.Tens
     return y
 
 
+def _count(fn, A: StencilMatrix) -> None:
+    fn.launches += 1
+    fn.launches_by_grid[tuple(A.grid)] += 1
+    fn.launches_by_dtype[TAGS[A.data.dtype]] += 1
+
+
 def spmv_stencil_cuda(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for grid-shaped ``x`` and a device ``StencilMatrix``: kernel
-    #3 for a CUDA tensor, the twin for a CPU tensor."""
+    """y = A x for grid-shaped ``x`` and a device ``StencilMatrix``: the twin
+    for a CPU tensor; for a CUDA tensor kernel #3 by ``var_route``: the
+    tuned kernel (counted here) for every per-axis |shift| <= 1, at most 27
+    legs and a 2-D or 3-D grid; else the wide kernel
+    (``spmv_stencil_wide_cuda``, counted there) for |shift| <= 7, 1 to 3375
+    legs and a 1-D, 2-D or 3-D grid; beyond that ``ValueError``."""
     if x.device.type == "cpu":
         return spmv_stencil_ref(A, x)
     name = "spmv_stencil_cuda"
     code = _check_var_args(name, A, x)
+    if var_route(A) == "wide":
+        return _wide_launch(code, A, x)
     y = _var_launch(_build.load("stencil_var"), code, A, x)
-    spmv_stencil_cuda.launches += 1
-    spmv_stencil_cuda.launches_by_grid[tuple(A.grid)] += 1
-    spmv_stencil_cuda.launches_by_dtype[TAGS[A.data.dtype]] += 1
+    _count(spmv_stencil_cuda, A)
     return y
 
 
-spmv_stencil_cuda.launches = 0
-spmv_stencil_cuda.launches_by_grid = collections.Counter()
-spmv_stencil_cuda.launches_by_dtype = collections.Counter()
+def _wide_launch(code: int, A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch the wide kernel #3 on checked arguments and count it."""
+    lib = _build.load("stencil_var")
+
+    def plan():
+        view = wide_view(tuple(A.grid), tuple(A.shifts))
+        return view, _wide_table(view, x.device), wide_zrun(view, _sms(x.device.index))
+
+    view, table, zrun = _by_shifts(A.shifts, (tuple(A.grid), x.device), plan)
+    y = torch.empty_like(x)
+    err = lib.cg_spmv_var_wide(code, A.data.data_ptr(), x.data_ptr(), y.data_ptr(),
+                               table.data_ptr(), A.nlegs, *view.dims, zrun, _stream(x))
+    _raise_on(lib, err, "spmv_stencil_wide_cuda")
+    _count(spmv_stencil_wide_cuda, A)
+    return y
+
+
+def spmv_stencil_wide_cuda(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x by the wide kernel #3 for any stencil within its limits
+    (|shift| <= 7, 1 to 3375 legs, 1-D to 3-D), the tuned kernel's shapes
+    too: the twin for a CPU tensor.  ``spmv_stencil_cuda`` routes here where
+    the tuned kernel does not reach."""
+    if x.device.type == "cpu":
+        return spmv_stencil_ref(A, x)
+    return _wide_launch(_check_var_args("spmv_stencil_wide_cuda", A, x), A, x)
+
+
+for _fn in (spmv_stencil_cuda, spmv_stencil_wide_cuda):
+    _fn.launches = 0
+    _fn.launches_by_grid = collections.Counter()
+    _fn.launches_by_dtype = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     """Set every stencil kernel's launch count to 0."""
-    for fn in (spmv_const_stencil_cuda, cheb_smooth_const_cuda, spmv_stencil_cuda):
+    for fn in (spmv_const_stencil_cuda, cheb_smooth_const_cuda, spmv_stencil_cuda,
+               spmv_stencil_wide_cuda):
         fn.launches = 0
         fn.launches_by_grid.clear()
-    spmv_const_stencil_cuda.launches_by_dtype.clear()
-    spmv_stencil_cuda.launches_by_dtype.clear()
+    for fn in (spmv_const_stencil_cuda, spmv_stencil_cuda, spmv_stencil_wide_cuda):
+        fn.launches_by_dtype.clear()

@@ -28,5 +28,6 @@ def spmm(A, B: torch.Tensor) -> torch.Tensor:
     if isinstance(A, DiaMatrix):
         return spmm_dia(A, B)
     raise NotImplementedError(
-        f"{type(A).__name__} SpMM is not ported yet (ROADMAP queue 1 item 8: other formats)"
+        f"{type(A).__name__} SpMM is not ported yet "
+        "(ROADMAP queue 1: other formats and ingestion)"
     )

@@ -34,7 +34,8 @@ def _refuse(A):
     """Raise ``NotImplementedError`` naming the ROADMAP item that ports A's
     format."""
     raise NotImplementedError(
-        f"{type(A).__name__} SpMV is not ported yet (ROADMAP queue 1 item 8: other formats)"
+        f"{type(A).__name__} SpMV is not ported yet "
+        "(ROADMAP queue 1: other formats and ingestion)"
     )
 
 

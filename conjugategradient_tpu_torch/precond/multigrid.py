@@ -1,21 +1,32 @@
-"""Geometric multigrid: hierarchy setup, V-cycle and the MGCG preconditioner.
+"""Geometric multigrid: hierarchy setup, V- and W-cycles, full multigrid and
+the MGCG preconditioner.
 
-The slice of ``conjugategradient_tpu/precond/multigrid.py`` that the MGCG
-paths run: grid-shaped (stencil) levels with full-weighting transfers, coarse
-operators by the Galerkin product ``R A P`` (the default) or by a
-rediscretization hook (``coarse_operator``), and a dense inverse on the
-coarsest grid.  Setup is host-side numpy and scipy; the hierarchy is an
-``nn.Module`` whose per-level ``inv_diag``, variable-coefficient ``legs`` and
-``coarse_inv`` are registered buffers, so ``.to(device)`` moves it.
+The port of ``conjugategradient_tpu/precond/multigrid.py``.  Setup is
+host-side numpy and scipy; the hierarchy is an ``nn.Module`` whose per-level
+``inv_diag``, variable-coefficient ``legs``, aggregation ``weight``,
+red-black ``mask`` and ``coarse_inv`` are registered buffers, so
+``.to(device)`` moves it.
+
+Transfers (``precond.transfer``), chosen per level as the JAX package
+chooses them: full weighting (``fw``) while every axis is odd, hybrid
+fw/cell-centered (``hyb``) on even axes, semicoarsening (``semi…``) of the
+strongly coupled axes under anisotropy, and smoothed aggregation (``agg``)
+where the near-null vector alternates in sign or no geometric transfer
+applies.  Coarse operators are the Galerkin products ``R A P`` unless a
+rediscretization hook (``coarse_operator``) replaces them; the coarsest grid
+is solved with a dense inverse.
 
 A level whose operator is constant over the grid (the Poisson ladder)
 const-detects to a ``ConstStencilMatrix`` with a scalar ``inv_diag`` and
 Gershgorin Chebyshev bounds; any other level keeps its legs (a
-``StencilMatrix`` over the ``legs`` buffer, kernel #3 on the card), a
-grid-shaped ``inv_diag`` and bounds from the host power iteration.  On a 3-D
-const level with fp32 state the Chebyshev smoothing runs fused
-(``ops.cuda_stencil.cheb_smooth_const_cuda``); every other level, and every
-fp64 run, takes the unfused ``chebyshev_smooth`` built from the SpMV kernel.
+``StencilMatrix`` over the ``legs`` buffer, kernel #3 on the card: the tuned
+kernel at halo 1, the wide one at the halo-2 Galerkin levels of the hyb,
+semi and agg transfers), a grid-shaped ``inv_diag`` and bounds from the host
+power iteration.  ``layout="dia"`` keeps flat ``DiaMatrix`` levels and flat
+vectors (kernel #4).  On a 3-D const level with fp32 state the Chebyshev
+smoothing runs fused (``ops.cuda_stencil.cheb_smooth_const_cuda``); every
+other level, and every fp64 run, takes the unfused smoothers built from the
+SpMV kernels.
 """
 
 from __future__ import annotations
@@ -44,47 +55,63 @@ from conjugategradient_tpu_torch.core.formats import (
 from conjugategradient_tpu_torch.ops.cuda_stencil import cheb_smooth_const_cuda
 from conjugategradient_tpu_torch.ops.spmv import as_operator
 from conjugategradient_tpu_torch.precond import transfer
-from conjugategradient_tpu_torch.precond.smoothers import chebyshev_smooth, jacobi_smooth
+from conjugategradient_tpu_torch.precond.smoothers import (
+    chebyshev_smooth,
+    jacobi_smooth,
+    parity_mask,
+    redblack_gs_smooth,
+    redblack_gs_smooth_reversed,
+)
 from conjugategradient_tpu_torch.solvers import eigen
 
 GridShape = Tuple[int, ...]
 
-_REST_OF_HIERARCHY = "ROADMAP queue 1 item 9 (the rest of the hierarchy)"
-#: semicoarsening threshold: an axis whose coupling is below this share of
-#: the strongest one is not coarsened (the JAX package's default)
-_SEMI_THETA = 0.25
-
 
 class MgLevel(nn.Module):
     """One level: operator, ``1/diag`` buffer (a scalar on a const level,
-    grid-shaped on a variable one), grid geometry, Chebyshev bounds of
-    D^{-1}A and the transfer kind.
+    grid-shaped on a variable one, flat on a DIA one), grid geometry,
+    Chebyshev bounds of D^{-1}A and the transfer kind.
 
-    A variable level registers its legs as the buffer ``legs`` and builds
-    ``A`` over that buffer on every access, so ``.to(device)`` (or a dtype
-    cast) moves the operator with the level."""
+    A variable-coefficient or DIA level registers its legs as the buffer
+    ``legs`` and builds ``A`` over that buffer on every access, so
+    ``.to(device)`` (or a dtype cast) moves the operator with the level.
+    ``weight`` (the aggregation weights of an agg level) and ``mask`` (the
+    checkerboard of the rbgs smoother) are buffers too, ``None`` where the
+    level has none; ``sa_smooth`` says whether an agg level's transfers are
+    smoothed by ``(I - c D^{-1}A)``."""
 
     def __init__(self, A, inv_diag: torch.Tensor, grid: GridShape,
-                 cheb_bounds: Tuple[float, float], transfer: str = "fw"):
+                 cheb_bounds: Tuple[float, float], transfer: str = "fw",
+                 weight: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                 sa_smooth: bool = True):
         super().__init__()
-        if isinstance(A, StencilMatrix):
-            self._const = None
-            self.shifts = tuple(A.shifts)
+        self._const = self.shifts = self.offsets = None
+        if isinstance(A, (StencilMatrix, DiaMatrix)):
+            if isinstance(A, StencilMatrix):
+                self.shifts = tuple(A.shifts)
+            else:
+                self.offsets = tuple(A.offsets)
             legs = A.data if torch.is_tensor(A.data) else torch.from_numpy(np.asarray(A.data))
             self.register_buffer("legs", legs.contiguous())
         else:
             self._const = A
         self.register_buffer("inv_diag", inv_diag)
+        self.register_buffer("weight", weight)
+        self.register_buffer("mask", mask)
         self.grid = tuple(grid)
         self.cheb_bounds = tuple(cheb_bounds)
         self.transfer = transfer
+        self.sa_smooth = sa_smooth
 
     @property
     def A(self):
         """The level's operator: the ``ConstStencilMatrix``, or a
-        ``StencilMatrix`` over the current ``legs`` buffer."""
+        ``StencilMatrix`` or ``DiaMatrix`` over the current ``legs`` buffer."""
         if self._const is not None:
             return self._const
+        if self.offsets is not None:
+            n = int(np.prod(self.grid))
+            return DiaMatrix(self.legs, self.offsets, (n, n))
         return StencilMatrix(self.legs, self.shifts, self.grid)
 
 
@@ -142,21 +169,45 @@ def _scipy_to_dia(S: sp.spmatrix) -> DiaMatrix:
     return DiaMatrix(out, tuple(offsets[k] for k in order), (n, n))
 
 
+#: smoothed-aggregation damping: omega = 4 / (3 * lam_max(D^{-1}A))
+_SA_W = 4.0 / 3.0
+
+
+def _checkerboard(grid: GridShape) -> np.ndarray:
+    return np.where(np.indices(grid).sum(axis=0).reshape(-1) % 2 == 0, 1.0, -1.0)
+
+
+def _near_null(A_h: DiaMatrix, grid: GridShape) -> np.ndarray:
+    """Near-null candidate for the aggregation coarse space: whichever of
+    the constant and the checkerboard-alternating vector has the smaller
+    Rayleigh quotient (the constant for negative off-diagonals, the
+    alternating vector for the (+1, 2, +1) tridiagonal)."""
+    best, best_q = None, np.inf
+    for z in (np.ones(A_h.n), _checkerboard(grid)):
+        q = float(z @ oracle.spmv(A_h, z)) / float(z @ z)
+        if q < best_q:
+            best, best_q = z, q
+    return best
+
+
 def _const_near_null(A_h: DiaMatrix, grid: GridShape) -> bool:
     """True iff the constant (not the checkerboard) is the near-null
     candidate, the precondition for geometric transfers: the two Rayleigh
     numerators ones.A.ones and alt.A.alt by the host oracle."""
     ones = np.ones(A_h.n)
-    alt = np.where(np.indices(grid).sum(axis=0).reshape(-1) % 2 == 0, 1.0, -1.0)
+    alt = _checkerboard(grid)
     q1 = float(ones @ oracle.spmv(A_h, ones))
     q2 = float(alt @ oracle.spmv(A_h, alt))
     return q1 <= q2
 
 
-def _axis_strengths(st: StencilMatrix) -> np.ndarray:
+def _axis_strengths(A_h: DiaMatrix, grid: GridShape, st=None) -> np.ndarray:
     """Per-axis coupling strength: max |value| over the axis-aligned
-    off-diagonal stencil legs (the semicoarsening detector)."""
-    d = st.ndim
+    off-diagonal stencil legs (the semicoarsening detector); ``st`` is the
+    stencil form when it already exists."""
+    if st is None:
+        st = dia_to_stencil(A_h, grid)
+    d = len(grid)
     out = np.zeros(d)
     data = np.asarray(st.data)
     for k, shift in enumerate(st.shifts):
@@ -174,6 +225,29 @@ def _const_axis_strengths(Ac: ConstStencilMatrix, g: GridShape) -> np.ndarray:
         if len(nz) == 1:
             s_ax[nz[0]] = max(s_ax[nz[0]], abs(float(c)))
     return s_ax
+
+
+def _agg_weights(z: np.ndarray, grid: GridShape):
+    """Per-aggregate-normalised candidate -> (W, z_coarse): ``diag(W) @
+    P_plain`` has orthonormal columns and reproduces ``z`` exactly."""
+    zz = (z * z).reshape(grid)
+    for ax in range(len(grid)):
+        m = zz.shape[ax]
+        zm = np.moveaxis(zz, ax, -1)
+        if m % 2:
+            zm = np.concatenate([zm, np.zeros(zm.shape[:-1] + (1,))], axis=-1)
+        zm = zm.reshape(zm.shape[:-1] + (-1, 2)).sum(axis=-1)
+        zz = np.moveaxis(zm, -1, ax)
+    nrm = np.sqrt(zz)  # coarse-grid aggregate norms
+    expand = nrm
+    for ax in range(len(grid)):
+        expand = np.moveaxis(
+            np.repeat(np.moveaxis(expand, ax, -1), 2, axis=-1)[..., : grid[ax]], -1, ax
+        )
+    expand = expand.reshape(-1)
+    ok = expand > 0
+    W = np.where(ok, z / np.where(ok, expand, 1.0), 1.0)
+    return W, nrm.reshape(-1)
 
 
 def _const_bounds(Ac: ConstStencilMatrix, lower_frac: float = 0.25):
@@ -210,44 +284,57 @@ def _geometric_ok(Ac: ConstStencilMatrix, g: GridShape) -> bool:
     return _q(False) <= _q(True)
 
 
-def _hybrid_applies(g: GridShape) -> bool:
-    """Whether the JAX package's auto choice would take hybrid fw/cell-
-    centered transfers: every odd axis >= 3, every even axis >= 2, and every
-    resulting coarse axis >= 5."""
-    coarse = []
-    for n in g:
-        if n % 2 == 1 and n >= 3:
-            coarse.append((n - 1) // 2)
-        elif n % 2 == 0 and n >= 2:
-            coarse.append(n // 2)
-        else:
-            return False
-    return all(n >= 5 for n in coarse)
+def _semi_mask(kind: str):
+    """Decode "semi101..." -> per-axis coarsen mask."""
+    return tuple(c == "1" for c in kind[len("semi"):])
 
 
-def _pick_kind(g: GridShape, geom_ok: bool) -> Optional[str]:
-    """The JAX package's auto transfer choice: full weighting (every axis
-    odd) > hybrid > aggregation, the geometric kinds only where the
-    constant is the near-null vector."""
-    if geom_ok and transfer.can_coarsen(g):
-        return "fw"
-    if geom_ok and _hybrid_applies(g):
-        return "hyb"
-    if transfer.can_aggregate(g):
-        return "agg"
-    return None
+def _coarse_shape_of(g: GridShape, kind: str) -> GridShape:
+    if kind == "fw":
+        return transfer.coarse_shape(g)
+    if kind == "hyb":
+        return transfer.hybrid_coarse_shape(g)
+    if kind.startswith("semi"):
+        return transfer.partial_coarse_shape(g, _semi_mask(kind))
+    return transfer.agg_coarse_shape(g)
 
 
-def galerkin_coarse(A: DiaMatrix, fine: GridShape, kind: str = "fw") -> DiaMatrix:
-    """A_c = R A P on the host (setup-time scipy triple product), with the
-    full-weighting P and R = P^T / 2^d.  Other transfer kinds are not
-    ported yet."""
-    if kind != "fw":
-        raise NotImplementedError(
-            f"galerkin_coarse kind={kind!r} is not ported yet ({_REST_OF_HIERARCHY})"
-        )
+def galerkin_coarse(
+    A: DiaMatrix,
+    fine: GridShape,
+    kind: str = "fw",
+    lam_max: float | None = None,
+    weight: np.ndarray | None = None,
+    sa_smooth: bool = True,
+) -> DiaMatrix:
+    """A_c = R A P on the host (setup-time scipy triple product).
+
+    ``kind``: "fw", "hyb" or "semi…" (the geometric transfers, R = P^T / 2
+    per coarsened axis), or "agg": the tentative prolongator ``diag(weight)
+    P_plain`` (``weight`` from ``_agg_weights`` of the near-null candidate,
+    computed here when not given), smoothed once by ``(I - omega D^{-1} A)``
+    with omega = 4 / (3 lam_max) when ``sa_smooth``.
+    """
     S = _dia_to_scipy(A)
-    P = transfer.prolong_matrix(fine)
+    if kind == "fw":
+        P = transfer.prolong_matrix(fine)
+    elif kind == "hyb":
+        P = transfer.prolong_hybrid_matrix(fine)
+    elif kind.startswith("semi"):
+        mask = _semi_mask(kind)
+        P = transfer.prolong_partial_matrix(fine, mask)
+        R = (P.T * (0.5 ** sum(mask))).tocsr()
+        return _scipy_to_dia((R @ S @ P).tocsr())
+    else:
+        P = transfer.prolong_agg_matrix(fine)
+        if weight is None:
+            weight, _ = _agg_weights(_near_null(A, fine), fine)
+        P = sp.diags(np.asarray(weight).reshape(-1)) @ P
+        if sa_smooth:
+            if lam_max is None:
+                lam_max = eigen.scaled_spectrum_bounds(A)[1]
+            Dinv = sp.diags(1.0 / dia_diagonal(A))
+            P = (P - (_SA_W / lam_max) * (Dinv @ (S @ P))).tocsr()
     R = (P.T * (0.5 ** len(fine))).tocsr()
     return _scipy_to_dia(R @ S @ P)
 
@@ -262,67 +349,106 @@ def build_hierarchy(
     max_coarse: int = 1025,
     max_levels: int = 25,
     dtype=None,
+    layout: str = "stencil",
+    sa_smooth_levels: int | None = None,
+    const_detect: bool = True,
+    transfer_kind: str = "auto",
     coarse_operator=None,
+    semicoarsen: bool = True,
+    semi_theta: float = 0.25,
     device=None,
 ) -> MgHierarchy:
     """Build the hierarchy from the host fine operator and place it on
     ``device`` (``None``: the card when there is one).
 
-    Coarse operators are the Galerkin products ``R A P`` (``galerkin_coarse``)
-    unless ``coarse_operator(level, coarse_grid) -> DiaMatrix`` rediscretizes
-    each coarse level (e.g. ``generators.poisson_coarse_operator``).  The
-    transfer decisions are the JAX package's: full weighting while every
-    axis is odd and the constant is the near-null vector, semicoarsening
-    where an axis couples below ``_SEMI_THETA`` of the strongest (Galerkin
-    only), and coarsening stops at ``max_coarse`` unknowns.  Where the JAX
-    package would take semicoarsening, hybrid or aggregation transfers the
-    build raises ``NotImplementedError`` (those transfers are not ported);
-    with ``coarse_operator`` an aggregation step stops the build, as it does
-    there.  Never silently full-coarsens in their place.
+    The JAX package's build, decision for decision.  ``transfer_kind="auto"``
+    takes full weighting while every axis is odd, else hybrid while every
+    resulting coarse axis is >= 5 (both only where the constant is the
+    near-null vector), else aggregation; ``"fw"``, ``"hyb"`` or ``"agg"``
+    forces one kind while it applies.  With ``semicoarsen`` (Galerkin,
+    auto) an axis coupled below ``semi_theta`` of the strongest is not
+    coarsened.  Coarsening stops at ``max_coarse`` unknowns.
+
+    ``layout="stencil"`` stores each level as a grid stencil (const-detected
+    unless ``const_detect=False``); ``layout="dia"`` keeps flat DIA levels.
+    ``sa_smooth_levels`` smooths the aggregation prolongator on the first k
+    agg levels only (None: all).  ``coarse_operator(level, coarse_grid) ->
+    DiaMatrix`` rediscretizes each coarse level (e.g.
+    ``generators.poisson_coarse_operator``); it assumes the geometric fw/hyb
+    conventions, so ``transfer_kind="agg"`` raises, an aggregation step
+    stops the build, and a build that stops above ``4 * max_coarse`` raises
+    rather than densify a large remainder.
 
     ``setup_s`` on the result splits the host-clock seconds into ``detect``
     (stencil conversion, const detection, transfer choice), ``bounds``
-    (Chebyshev bounds), ``levels`` (casting legs and ``inv_diag`` to
-    ``dtype``), ``galerkin`` (the triple products, or ``coarse_operator``),
-    ``coarse_inv`` (the dense inverse) and ``upload`` (placing the
-    hierarchy on ``device``, synchronised).
+    (Chebyshev bounds), ``near_null`` (the aggregation candidate and
+    weights), ``levels`` (casting legs and ``inv_diag`` to ``dtype``),
+    ``galerkin`` (the triple products, or ``coarse_operator``),
+    ``coarse_inv`` (the dense inverse) and ``upload`` (placing the hierarchy
+    on ``device``, synchronised).
     """
+    if layout not in ("stencil", "dia"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if transfer_kind not in ("auto", "fw", "hyb", "agg"):
+        raise ValueError(f"unknown transfer_kind {transfer_kind!r}")
     if int(np.prod(grid)) != A.n:
         raise ValueError(f"prod(grid)={int(np.prod(grid))} != n={A.n}")
-    if smoother == "rbgs":
-        raise NotImplementedError(f"the rbgs smoother is not ported yet ({_REST_OF_HIERARCHY})")
-    if smoother not in ("jacobi", "chebyshev"):
+    if smoother not in ("jacobi", "chebyshev", "rbgs"):
         raise ValueError(f"unknown smoother {smoother!r}")
+    if coarse_operator is not None and transfer_kind == "agg":
+        raise ValueError(
+            "coarse_operator (rediscretization) assumes the geometric "
+            "fw/hyb transfer conventions; transfer_kind='agg' has no fixed "
+            "calibration"
+        )
 
-    setup = dict.fromkeys(("detect", "bounds", "levels", "galerkin", "coarse_inv", "upload"), 0.0)
+    def _pick_kind(gg, geom_ok=True):
+        if transfer_kind != "auto":
+            can = {"fw": transfer.can_coarsen, "hyb": transfer.can_hybrid,
+                   "agg": transfer.can_aggregate}[transfer_kind]
+            return transfer_kind if can(gg) else None
+        if geom_ok and transfer.can_coarsen(gg):
+            return "fw"
+        # hyb only while every coarse axis stays >= 5: its Galerkin
+        # operators have extent 2, and on smaller axes distinct shifts
+        # alias one flat offset
+        if geom_ok and transfer.can_hybrid(gg) and all(
+            n >= 5 for n in transfer.hybrid_coarse_shape(gg)
+        ):
+            return "hyb"
+        if transfer.can_aggregate(gg):
+            return "agg"
+        return None
+
+    setup = dict.fromkeys(("detect", "bounds", "near_null", "levels", "galerkin", "coarse_inv",
+                           "upload"), 0.0)
     levels = []
     A_h = A  # host-side numpy DIA
     g = tuple(grid)
-    while A_h.n > max_coarse and transfer.can_aggregate(g) and len(levels) < max_levels - 1:
+    while A_h.n > max_coarse and _pick_kind(g) is not None and len(levels) < max_levels - 1:
         t0 = time.perf_counter()
-        # copy=False: A_st aliases A_h's buffer; both are transient setup
-        # state here (A_h is replaced by the next coarse level)
-        A_st = dia_to_stencil(A_h, g, copy=False)
-        A_const = stencil_to_const(A_st)
+        A_st = A_const = None
+        if layout == "stencil":
+            # copy=False: A_st aliases A_h's buffer; both are transient setup
+            # state here (A_h is replaced by the next coarse level)
+            A_st = dia_to_stencil(A_h, g, copy=False)
+            A_const = stencil_to_const(A_st) if const_detect else None
         geom_ok = _geometric_ok(A_const, g) if A_const is not None else _const_near_null(A_h, g)
-        kind = _pick_kind(g, geom_ok)
+        kind = _pick_kind(g, geom_ok=geom_ok)
         if kind is None:
             break
-        if coarse_operator is None and kind in ("fw", "hyb") and len(g) > 1:
+        if (semicoarsen and coarse_operator is None and transfer_kind == "auto"
+                and kind in ("fw", "hyb") and len(g) > 1):
             s_ax = (_const_axis_strengths(A_const, g) if A_const is not None
-                    else _axis_strengths(A_st))
+                    else _axis_strengths(A_h, g, st=A_st))
             if s_ax.max() > 0:
-                mask = tuple(bool(v >= _SEMI_THETA * s_ax.max()) for v in s_ax)
+                mask = tuple(bool(v >= semi_theta * s_ax.max()) for v in s_ax)
                 if not all(mask) and transfer.can_partial(g, mask):
                     kind = "semi" + "".join("1" if m else "0" for m in mask)
         if coarse_operator is not None and kind == "agg":
             # no calibrated rediscretization scale for aggregation: the
             # dense coarse inverse takes over at whatever size remains
             break
-        if kind != "fw":
-            raise NotImplementedError(
-                f"{kind!r} transfers for grid {g} are not ported yet ({_REST_OF_HIERARCHY})"
-            )
         center = (0,) * len(g)
         if A_const is not None and center in A_const.shifts:
             diag = np.asarray([A_const.coeffs[A_const.shifts.index(center)]],
@@ -333,40 +459,60 @@ def build_hierarchy(
             raise ValueError("non-positive diagonal; not SPD-compatible with Jacobi scaling")
         t1 = time.perf_counter()
         setup["detect"] += t1 - t0
-        if smoother == "chebyshev":
-            bounds = (_const_bounds(A_const) if A_const is not None
+        if smoother == "chebyshev" or kind == "agg":
+            # an agg level's transfers need lam_max: the power iteration,
+            # even on a const level
+            bounds = (_const_bounds(A_const) if A_const is not None and kind != "agg"
                       else eigen.scaled_spectrum_bounds(A_h))
         else:
             bounds = (0.0, 0.0)
         t2 = time.perf_counter()
         setup["bounds"] += t2 - t1
-        dt = dtype or np.asarray(A_h.data).dtype
-        if A_const is not None:
-            # zero matrix bytes per SpMV, scalar inv_diag
-            inv_d = torch.from_numpy(np.asarray(1.0 / diag[0], dtype=dt).reshape(()))
-            levels.append(MgLevel(A_const, inv_d, g, bounds, "fw"))
-        else:
-            inv_d = torch.from_numpy((1.0 / diag).astype(dt).reshape(g))
-            # legs assembled on the host; the whole hierarchy moves once, below
-            levels.append(MgLevel(A_st.device_put(dt, "cpu"), inv_d, g, bounds, "fw"))
+        W_host = None
+        sa_smooth = sa_smooth_levels is None or len(levels) < sa_smooth_levels
+        if kind == "agg":
+            W_host, _ = _agg_weights(_near_null(A_h, g), g)
         t3 = time.perf_counter()
-        setup["levels"] += t3 - t2
-        g_next = transfer.coarse_shape(g)
+        setup["near_null"] += t3 - t2
+        dt = dtype or np.asarray(A_h.data).dtype
+        # assembled on the host; the whole hierarchy moves once, below
+        if layout == "stencil":
+            if A_const is not None:
+                # zero matrix bytes per SpMV, scalar inv_diag
+                A_lvl = A_const
+                inv_d = torch.from_numpy(np.asarray(1.0 / diag[0], dtype=dt).reshape(()))
+            else:
+                A_lvl = A_st.device_put(dt, "cpu")
+                inv_d = torch.from_numpy((1.0 / diag).astype(dt).reshape(g))
+            mask = parity_mask(g) if smoother == "rbgs" else None
+            W = None if W_host is None else torch.from_numpy(W_host.astype(dt).reshape(g))
+        else:
+            A_lvl = A_h.device_put(dt, "cpu")
+            inv_d = torch.from_numpy((1.0 / diag).astype(dt))
+            mask = parity_mask((A_h.n,)) if smoother == "rbgs" else None
+            W = None if W_host is None else torch.from_numpy(W_host.astype(dt))
+        levels.append(MgLevel(A_lvl, inv_d, g, bounds, kind, weight=W, mask=mask,
+                              sa_smooth=sa_smooth))
+        t4 = time.perf_counter()
+        setup["levels"] += t4 - t3
+        g_next = _coarse_shape_of(g, kind)
         if coarse_operator is not None:
             A_h = coarse_operator(len(levels), g_next)
             if int(np.prod(g_next)) != A_h.n:
                 raise ValueError(f"coarse_operator returned n={A_h.n} for grid {g_next}")
         else:
-            A_h = galerkin_coarse(A_h, g, "fw")
-        setup["galerkin"] += time.perf_counter() - t3
+            A_h = galerkin_coarse(A_h, g, kind, lam_max=bounds[1] or None, weight=W_host,
+                                  sa_smooth=sa_smooth)
+        setup["galerkin"] += time.perf_counter() - t4
         g = g_next
 
     if coarse_operator is not None and A_h.n > 4 * max_coarse:
         # never silently densify a large remainder
         raise ValueError(
             f"rediscretized coarsening stopped at n={A_h.n} > 4*max_coarse="
-            f"{4 * max_coarse} (grid {g}: axes not fw-coarsenable); fix the grid "
-            "sizes (2^k - 1 axes) or raise max_coarse explicitly"
+            f"{4 * max_coarse} (grid {g}: axes not fw/hyb-coarsenable, or "
+            "the near-null probe forced aggregation); fix the grid sizes "
+            "(2^k or 2^k-1 axes) or raise max_coarse explicitly"
         )
     t0 = time.perf_counter()
     dt = dtype or np.asarray(A_h.data).dtype
@@ -382,6 +528,10 @@ def build_hierarchy(
     return h
 
 
+def _grid_native(lvl: MgLevel) -> bool:
+    return isinstance(lvl.A, (StencilMatrix, ConstStencilMatrix))
+
+
 def _fused_cheb_ok(lvl: MgLevel, b: torch.Tensor) -> bool:
     """Gate for the fused Chebyshev kernel: a 3-D const level with a scalar
     ``inv_diag``, per-axis shifts in {-1, 0, 1}, and fp32 state."""
@@ -394,8 +544,8 @@ def _fused_cheb_ok(lvl: MgLevel, b: torch.Tensor) -> bool:
     )
 
 
-def _smooth(h: MgHierarchy, lvl: MgLevel, op, b, x, sweeps: int, x_zero: bool = False,
-            fused: bool = False):
+def _smooth(h: MgHierarchy, lvl: MgLevel, op, b, x, sweeps: int, post: bool = False,
+            x_zero: bool = False, fused: bool = False):
     if sweeps <= 0:
         return x
     if h.smoother == "chebyshev":
@@ -405,58 +555,148 @@ def _smooth(h: MgHierarchy, lvl: MgLevel, op, b, x, sweeps: int, x_zero: bool = 
                 lvl.A, b, None if x_zero else x, sweeps, hi, lo, lvl.inv_diag
             )
         return chebyshev_smooth(op, lvl.inv_diag, b, x, sweeps, hi, lo)
+    if h.smoother == "rbgs":
+        fn = redblack_gs_smooth_reversed if post else redblack_gs_smooth
+        return fn(op, lvl.inv_diag, b, x, sweeps, lvl.mask)
     return jacobi_smooth(op, lvl.inv_diag, b, x, sweeps, h.omega)
 
 
-def _level_transfers(lvl: MgLevel):
-    """(restrict, prolong) for a level, on grid-shaped tensors."""
-    if lvl.transfer != "fw":
-        raise NotImplementedError(
-            f"{lvl.transfer!r} transfers are not ported yet ({_REST_OF_HIERARCHY})"
+def _level_transfers(lvl: MgLevel, op):
+    """(restrict, prolong) for a level, on grid-shaped tensors.
+
+    An agg level's transfers are the adjoints of the scipy P of its
+    Galerkin product: P = (I - c D^{-1}A) diag(W) P_plain with
+    c = 4 / (3 lam_max) (``sa_smooth``; plain weighted aggregation without
+    it), R = P^T / 2^d.  The smoothed ones apply the level's operator, so
+    they run its SpMV kernel.  On a DIA level, ``op``, ``inv_diag`` and
+    ``W`` are flat: the transfers flatten around them."""
+    if lvl.transfer == "fw":
+        return transfer.restrict_grid, transfer.prolong_grid
+    if lvl.transfer == "hyb":
+        return transfer.restrict_hybrid_grid, transfer.prolong_hybrid_grid
+    if lvl.transfer.startswith("semi"):
+        mask = _semi_mask(lvl.transfer)
+        return (
+            lambda r: transfer.restrict_partial_grid(r, mask),
+            lambda e, fine: transfer.prolong_partial_grid(e, fine, mask),
         )
-    return transfer.restrict_grid, transfer.prolong_grid
+    W = lvl.weight
+    if not lvl.sa_smooth:
+        if _grid_native(lvl):
+            return (
+                lambda r: transfer.restrict_agg_grid(W * r),
+                lambda e, fine: W * transfer.prolong_agg_grid(e, fine),
+            )
+        return (
+            lambda r: transfer.restrict_agg_grid((W * r.reshape(-1)).reshape(r.shape)),
+            lambda e, fine: (W * transfer.prolong_agg_grid(e, fine).reshape(-1)).reshape(fine),
+        )
+    c = _SA_W / lvl.cheb_bounds[1]
+    if _grid_native(lvl):
+
+        def rg(r):
+            return transfer.restrict_agg_grid(W * (r - c * op(lvl.inv_diag * r)))
+
+        def pg(e, fine):
+            w = W * transfer.prolong_agg_grid(e, fine)
+            return w - c * (lvl.inv_diag * op(w))
+
+    else:
+
+        def rg(r):
+            rf = r.reshape(-1)
+            s = W * (rf - c * op(lvl.inv_diag * rf))
+            return transfer.restrict_agg_grid(s.reshape(r.shape))
+
+        def pg(e, fine):
+            w = W * transfer.prolong_agg_grid(e, fine).reshape(-1)
+            return (w - c * (lvl.inv_diag * op(w))).reshape(fine)
+
+    return rg, pg
 
 
-def v_cycle(h: MgHierarchy, b: torch.Tensor, level: int = 0) -> torch.Tensor:
-    """One V-cycle for A_level e = b from a zero initial guess.  Flat input
-    runs grid-shaped and comes back flat."""
+def _coarse_solve(h: MgHierarchy, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(h.coarse_inv, b.reshape(-1)).reshape(b.shape)
+
+
+def v_cycle(h: MgHierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1,
+            x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One multigrid cycle for A_level e = b, from a zero initial guess or
+    ``x0``.  ``gamma`` is the cycle index: 1 a V-cycle, 2 a W-cycle (the
+    coarse correction recurses twice below the top level).  On a
+    grid-stencil hierarchy flat input runs grid-shaped and comes back
+    flat."""
     if level == len(h.levels):
-        return torch.matmul(h.coarse_inv, b.reshape(-1)).reshape(b.shape)
+        return _coarse_solve(h, b)
     lvl = h.levels[level]
-    if tuple(b.shape) != lvl.grid:
-        return v_cycle(h, b.reshape(lvl.grid), level).reshape(-1)
+    grid_native = _grid_native(lvl)
+    if grid_native and tuple(b.shape) != lvl.grid:
+        x0g = None if x0 is None else x0.reshape(lvl.grid)
+        return v_cycle(h, b.reshape(lvl.grid), level, gamma, x0g).reshape(-1)
     op = as_operator(lvl.A)
     fused = h.smoother == "chebyshev" and _fused_cheb_ok(lvl, b)
-    r = None
-    if fused and h.pre > 0:
+    r_pre = None
+    if fused and h.pre > 0 and x0 is None:
         # fused pre-smooth + residual: the kernel emits the smoothed x and
         # r_s = D^{-1}(b - A x); the correction needs r = r_s / inv_diag
         lo, hi = lvl.cheb_bounds
         x, r_s = cheb_smooth_const_cuda(lvl.A, b, None, h.pre, hi, lo, lvl.inv_diag,
                                         want_resid=True)
-        r = r_s / lvl.inv_diag
+        r_pre = r_s / lvl.inv_diag
     else:
-        x = _smooth(h, lvl, op, b, torch.zeros_like(b), h.pre, x_zero=True, fused=fused)
-    rg, pg = _level_transfers(lvl)
-    if r is None:
-        r = b - op(x)
-    x = x + pg(v_cycle(h, rg(r), level + 1), lvl.grid)
-    return _smooth(h, lvl, op, b, x, h.post, fused=fused)
+        x = torch.zeros_like(b) if x0 is None else x0
+        x = _smooth(h, lvl, op, b, x, h.pre, x_zero=x0 is None, fused=fused)
+    rg, pg = _level_transfers(lvl, op)
+
+    def correct(x, r=None):
+        if r is None:
+            r = b - op(x)
+        if grid_native:
+            return x + pg(v_cycle(h, rg(r), level + 1, gamma), lvl.grid)
+        cg_shape = _coarse_shape_of(lvl.grid, lvl.transfer)
+        ec = v_cycle(h, rg(r.reshape(lvl.grid)).reshape(-1), level + 1, gamma)
+        return x + pg(ec.reshape(cg_shape), lvl.grid).reshape(-1)
+
+    for j in range(gamma if level > 0 else 1):  # the cycle index applies below the top
+        x = correct(x, r_pre if j == 0 else None)
+    return _smooth(h, lvl, op, b, x, h.post, post=True, fused=fused)
 
 
-def fmg(*args, **kwargs):
-    """Full multigrid is not ported yet."""
-    raise NotImplementedError(f"fmg is not ported yet ({_REST_OF_HIERARCHY})")
+def fmg(h: MgHierarchy, b: torch.Tensor) -> torch.Tensor:
+    """Full multigrid: restrict b down the hierarchy (with the V-cycle's own
+    transfers), solve the coarsest grid directly, then on each level up
+    prolong and run one V-cycle from that guess.  One pass gives an
+    O(discretisation-accuracy) initial guess; pair it with a few MGCG
+    iterations for tighter tolerances."""
+    grid_native = len(h.levels) > 0 and _grid_native(h.levels[0])
+    flat_in = grid_native and tuple(b.shape) != h.levels[0].grid
+    if flat_in:
+        b = b.reshape(h.levels[0].grid)
+    bs = [b]
+    for lvl in h.levels:
+        rg, _ = _level_transfers(lvl, as_operator(lvl.A))
+        bs.append(rg(bs[-1]) if grid_native else rg(bs[-1].reshape(lvl.grid)).reshape(-1))
+    x = _coarse_solve(h, bs[-1])
+    for level in range(len(h.levels) - 1, -1, -1):
+        lvl = h.levels[level]
+        _, pg = _level_transfers(lvl, as_operator(lvl.A))
+        if grid_native:
+            x = pg(x, lvl.grid)
+        else:
+            x = pg(x.reshape(_coarse_shape_of(lvl.grid, lvl.transfer)), lvl.grid).reshape(-1)
+        x = v_cycle(h, bs[level], level, x0=x)
+    return x.reshape(-1) if flat_in else x
 
 
-def as_preconditioner(h: MgHierarchy) -> Callable[[torch.Tensor], torch.Tensor]:
-    """M(r) = one V-cycle, the "Mg" in MGCG (SPD by symmetric construction).
+def as_preconditioner(h: MgHierarchy, gamma: int = 1) -> Callable[[torch.Tensor], torch.Tensor]:
+    """M(r) = one V-cycle (``gamma=1``) or W-cycle (``gamma=2``), the "Mg"
+    in MGCG (SPD by symmetric construction).
 
     The coarsest solve is a dense fp32 matvec, which must not run in TF32
     (about three decimal digits): this entry point turns CUDA matmul TF32
     off for the process."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    return partial(v_cycle, h, level=0)
+    return partial(v_cycle, h, level=0, gamma=gamma)
 
 
 def mgcg_solve(
@@ -473,16 +713,19 @@ def mgcg_solve(
     coarse_operator=None,
     dtype=None,
     device=None,
+    layout: str = "stencil",
+    gamma: int = 1,
 ):
     """Multigrid-preconditioned CG: builds (or reuses) the hierarchy, then
-    runs CG with one V-cycle per iteration as M.  Returns
-    ``(CGResult, MgHierarchy)`` with a flat ``x``.  The operator is the fine
-    level's stencil; a hierarchy without levels (the whole system below
-    ``max_coarse``) runs flat on ``A`` as DIA, its V-cycle the dense
-    inverse, as the JAX package does.  The solve runs where the hierarchy
-    lies: a built one on ``device`` (``None``: the card when there is
-    one).  ``b`` and ``x0`` may be host arrays or torch tensors on any
-    device; a tensor moves to the hierarchy's device and dtype directly."""
+    runs CG with one cycle per iteration as M (``gamma=2``: W-cycles).
+    Returns ``(CGResult, MgHierarchy)`` with a flat ``x``.  The operator is
+    the fine level's (its stencil, or its DIA with ``layout="dia"``); a
+    hierarchy without levels (the whole system below ``max_coarse``) runs
+    flat on ``A`` as DIA, its cycle the dense inverse, as the JAX package
+    does.  The solve runs where the hierarchy lies: a built one on
+    ``device`` (``None``: the card when there is one).  ``b`` and ``x0`` may
+    be host arrays or torch tensors on any device; a tensor moves to the
+    hierarchy's device and dtype directly."""
     from conjugategradient_tpu_torch.solvers.cg import CGResult, cg_solve
     from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -490,17 +733,18 @@ def mgcg_solve(
     h = hierarchy
     if h is None:
         h = build_hierarchy(A, grid, smoother=smoother, pre=pre, post=post, dtype=dtype,
-                            coarse_operator=coarse_operator, device=device)
+                            layout=layout, coarse_operator=coarse_operator, device=device)
     dev = h.coarse_inv.device
     tdt = h.coarse_inv.dtype
     if h.levels:
-        A_dev, shape = h.levels[0].A, tuple(grid)
+        A_dev = h.levels[0].A
+        shape = tuple(grid) if _grid_native(h.levels[0]) else (A.n,)
     else:
         A_dev, shape = A.device_put(tdt, dev), (A.n,)
     b = place(b, tdt, dev).reshape(shape)
     if x0 is not None:
         x0 = place(x0, tdt, dev).reshape(shape)
-    result = cg_solve(A_dev, b, x0, policy, M=as_preconditioner(h), precise_dot=precise_dot)
+    result = cg_solve(A_dev, b, x0, policy, M=as_preconditioner(h, gamma), precise_dot=precise_dot)
     result = CGResult(x=result.x.reshape(-1), iterations=result.iterations,
                       residual=result.residual, converged=result.converged)
     return result, h

@@ -5,7 +5,7 @@ setup runs: the host power iteration and the Chebyshev smoothing interval of
 a variable-coefficient level.  The same numpy code with the same
 ``default_rng(0)`` start vector, so the bounds equal the JAX package's
 exactly.  Lanczos, LOBPCG, Arnoldi and the device power iteration are still
-to port (ROADMAP queue 1 item 10).
+to port (ROADMAP queue 1: preconditioners, solver families).
 """
 
 from __future__ import annotations

@@ -50,7 +50,7 @@ def _as_multi_operator(A, device):
         return lambda P: A(P.T).T.contiguous()
     raise NotImplementedError(
         f"multi-RHS SpMM of {type(A).__name__} is not ported yet "
-        "(ROADMAP queue 1 item 8: ops/spmm for the other formats)"
+        "(ROADMAP queue 1: other formats and ingestion)"
     )
 
 
@@ -78,7 +78,7 @@ def as_multi_preconditioner(h):
 def bicgstab_solve_multi(*args, **kwargs):
     """Multi-RHS BiCGStab is not ported yet."""
     raise NotImplementedError(
-        "bicgstab_solve_multi is not ported yet (ROADMAP queue 1 item 10: solver families)"
+        "bicgstab_solve_multi is not ported yet (ROADMAP queue 1: solver families)"
     )
 
 

@@ -55,7 +55,7 @@ from conjugategradient_tpu_torch.solvers.cg import cg_solve
 from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, NotConvergedError
 
-_SOLVER_FAMILIES = "ROADMAP queue 1 item 10 (solver families)"
+_SOLVER_FAMILIES = "ROADMAP queue 1: solver families"
 
 
 @dataclasses.dataclass

@@ -38,11 +38,14 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
     spmv_const_stencil_ref,
     spmv_stencil_cuda,
     spmv_stencil_ref,
+    spmv_stencil_wide_cuda,
 )
 from conjugategradient_tpu_torch.precond.multigrid import (
     as_preconditioner,
     build_hierarchy,
+    fmg,
     galerkin_coarse,
+    mgcg_solve,
     v_cycle,
 )
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
@@ -500,8 +503,9 @@ def test_var_stencil_kernel_raises_instead_of_falling_back(cuda):
         spmv_stencil_cuda(A, torch.zeros(A.grid, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         spmv_stencil_cuda(A, torch.zeros((12, 9, 23), device=cuda).transpose(0, 2))
-    shifts = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
-    wide = StencilMatrix(torch.zeros((28, 5, 5, 5), device=cuda), shifts + ((0, 0, 0),), (5, 5, 5))
+    # past the wide kernel's legs (28 legs now take the wide kernel)
+    n = cuda_stencil.WIDE_LEGS + 1
+    wide = StencilMatrix(torch.zeros((n, 5, 5, 5), device=cuda), ((0, 0, 0),) * n, (5, 5, 5))
     with pytest.raises(ValueError, match="legs supported"):
         spmv_stencil_cuda(wide, torch.zeros((5, 5, 5), device=cuda))
 
@@ -783,3 +787,139 @@ def test_entry_points_take_a_b_already_on_the_card(cuda):
     a = refined_solve_multi(f.A, B, tol=1e-8, device=cuda)
     d = refined_solve_multi(f.A, torch.from_numpy(B).to(cuda), tol=1e-8, device=cuda)
     assert bool(a.converged.all()) and np.array_equal(a.x, d.x)
+
+
+#: the wide kernel #3's hand-made stencils (random legs): every shift of
+#: the halo-2 box on 1-D, 2-D and 3-D grids, each rank's Galerkin leg
+#: counts (1-D 5, 2-D 21 and 25, 3-D 81 and 125), the smoothed-aggregation
+#: levels' halo-3 and halo-5 boxes (343 and 1331 legs), odd and even
+#: extents, nz = 1, grids smaller than the halo, and leg counts that are
+#: not a multiple of the kernel's group of 8
+_BOX1 = tuple((s,) for s in range(-2, 3))
+_BOX2 = tuple(itertools.product(range(-2, 3), repeat=2))
+_BOX3 = tuple(itertools.product(range(-2, 3), repeat=3))
+WIDE_HAND = {
+    "5 legs 1-D (4097,)": (_BOX1, (4097,)),
+    "5 legs 1-D (3,)": (_BOX1, (3,)),
+    "21 legs 2-D (63, 64)": (tuple(s for s in _BOX2 if abs(s[0]) + abs(s[1]) < 4), (63, 64)),
+    "25 legs 2-D (40, 600)": (_BOX2, (40, 600)),
+    "25 legs 2-D nz=1 (1, 300)": (_BOX2, (1, 300)),
+    "49 legs 2-D halo 3 (33, 70)": (tuple(itertools.product(range(-3, 4), repeat=2)), (33, 70)),
+    "81 legs 3-D (17, 16, 33)": (_BOX3[22:103], (17, 16, 33)),
+    "125 legs 3-D (9, 10, 11)": (_BOX3, (9, 10, 11)),
+    "125 legs 3-D (2, 3, 4)": (_BOX3, (2, 3, 4)),
+    "28 legs 3-D (12, 9, 40)": (SHIFTS27 + ((0, 0, 2),), (12, 9, 40)),
+    "343 legs 3-D halo 3 (9, 10, 11)": (tuple(itertools.product(range(-3, 4), repeat=3)), (9, 10, 11)),
+    "1331 legs 3-D halo 5 (12, 11, 13)": (tuple(itertools.product(range(-5, 6), repeat=3)),
+                                          (12, 11, 13)),
+    "15 legs 1-D halo 7 (100,)": (tuple((s,) for s in range(-7, 8)), (100,)),
+}
+
+
+def _wide(case, legs, device, seed=11):
+    shifts, grid = WIDE_HAND[case]
+    rng = np.random.default_rng(seed)
+    return StencilMatrix(torch.from_numpy(rng.uniform(-1, 1, (len(shifts),) + grid)).to(device, legs),
+                         shifts, grid)
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_HAND))
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+def test_wide_var_kernel_matches_twin(cuda, case, legs):
+    A = _wide(case, legs, cuda)
+    assert A.nlegs == int(case.split()[0])
+    assert cuda_stencil.var_route(A) == "wide"
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(A.grid)).to(cuda, vec)
+    cuda_stencil.reset_launch_counts()
+    y = spmv_stencil_cuda(A, x)
+    torch.cuda.synchronize()
+    assert spmv_stencil_cuda.launches == 0
+    assert spmv_stencil_wide_cuda.launches == 1 and spmv_stencil_wide_cuda.launches_by_grid[A.grid] == 1
+    assert spmv_stencil_wide_cuda.launches_by_dtype[cuda_stencil.TAGS[legs]] == 1
+    ref = spmv_stencil_ref(A, x)
+    assert y.dtype == ref.dtype == vec
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(c for c in WIDE_HAND if np.prod(WIDE_HAND[c][1]) > 100))
+def test_wide_var_kernel_reads_nothing_outside_the_grid(cuda, case):
+    # (on the tiniest grids the two planted NaNs reach every point)
+    # x carved out of a NaN-filled buffer, NaNs planted at both grid corners:
+    # a read past the grid, or across a row seam, would leak a NaN where the
+    # twin has none
+    A = _wide(case, torch.float32, cuda)
+    n = int(np.prod(A.grid))
+    buf = torch.full((n + 2 * 4096,), float("nan"), device=cuda)
+    x = buf[4096 : 4096 + n].view(A.grid)
+    x.copy_(torch.from_numpy(np.random.default_rng(13).standard_normal(A.grid)).to(cuda, torch.float32))
+    x[(0,) * len(A.grid)] = float("nan")
+    x[tuple(g - 1 for g in A.grid)] = float("nan")
+    y = spmv_stencil_cuda(A, x)
+    torch.cuda.synchronize()
+    ref = spmv_stencil_ref(A, x)
+    assert torch.equal(torch.isnan(y), torch.isnan(ref))
+    assert 0 < int(torch.isnan(ref).sum()) < n
+    ok = ~torch.isnan(ref)
+    assert float((y[ok] - ref[ok]).abs().max()) <= REL * float(ref[ok].abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(VAR_HAND))
+def test_wide_var_kernel_matches_the_tuned_kernel_at_halo_1(cuda, case):
+    shifts, grid = VAR_HAND[case]
+    rng = np.random.default_rng(14)
+    A = StencilMatrix(torch.from_numpy(rng.uniform(-1, 1, (len(shifts),) + grid)).to(cuda, torch.float64),
+                      shifts, grid)
+    x = torch.from_numpy(rng.standard_normal(grid)).to(cuda)
+    y_w, y_t = spmv_stencil_wide_cuda(A, x), spmv_stencil_cuda(A, x)
+    torch.cuda.synchronize()
+    assert float((y_w - y_t).abs().max()) <= REL64 * float(y_t.abs().max())
+
+
+#: the new transfer kinds' systems, small: (label, system, grid, build kw)
+KINDS = {
+    "hyb + agg Poisson 32^3": (lambda: generators.poisson_system((32, 32, 32)), (32, 32, 32), {}),
+    "semi anisotropic 128^2": (lambda: generators.anisotropic_diffusion_system((128, 128), (1e-3, 1.0)),
+                               (128, 128), {}),
+    "agg tridiagonal 4096": (lambda: generators.tridiagonal_system(4096), (4096,), {}),
+    "dia layout Poisson 64^2": (lambda: generators.poisson_system((64, 64)), (64, 64),
+                                dict(layout="dia")),
+    "rbgs Poisson 64^2": (lambda: generators.poisson_system((64, 64)), (64, 64),
+                          dict(smoother="rbgs")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KINDS))
+@pytest.mark.parametrize("gamma", [1, 2])
+def test_new_transfer_kinds_mgcg_on_card_match_cpu(cuda, case, gamma):
+    make, grid, kw = KINDS[case]
+    s = make()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cuda_stencil.reset_launch_counts()
+        cuda_dia.reset_launch_counts()
+        out[dev], h = mgcg_solve(s.A, s.b, grid, policy=ConvergencePolicy(tol=1e-10, norm="rel_l2"),
+                                 gamma=gamma, device=dev, **kw)
+        if dev == "cuda":
+            launched = (spmv_const_stencil_cuda.launches + spmv_stencil_cuda.launches
+                        + spmv_stencil_wide_cuda.launches + spmv_dia_cuda.launches)
+            assert launched > 0
+            if kw.get("layout") == "dia":
+                assert spmv_dia_cuda.launches > 0
+            elif any(cuda_stencil.var_route(l.A) == "wide" for l in h.levels
+                     if isinstance(l.A, StencilMatrix)):
+                assert spmv_stencil_wide_cuda.launches > 0
+    g, c = out["cuda"], out["cpu"]
+    assert g.converged and c.converged and g.iterations == c.iterations
+    assert float((g.x.cpu() - c.x).abs().max() / c.x.abs().max()) <= 1e-10
+
+
+def test_fmg_on_card_matches_cpu(cuda):
+    grid = (64, 64)
+    s = generators.poisson_system(grid)
+    x = {}
+    for dev in ("cuda", "cpu"):
+        h = build_hierarchy(s.A, grid, device=dev)
+        x[dev] = fmg(h, torch.from_numpy(s.b).to(dev)).cpu()
+    assert float((x["cuda"] - x["cpu"]).abs().max() / x["cpu"].abs().max()) <= 1e-12

@@ -187,32 +187,58 @@ def _anisotropic(grid, eps=1e-3):
 
 
 def test_unported_branches_raise_naming_the_roadmap():
+    # every branch this test once pinned as a refusal is ported: each call
+    # now gives the JAX package's result
     s = tgen.poisson_system((15, 15))
-    co = tgen.poisson_coarse_operator()
-    # Galerkin where the JAX package semicoarsens: the port raises, never
-    # full-coarsens in its place
+    co, jco = tgen.poisson_coarse_operator(), jgen.poisson_coarse_operator()
+    b = np.random.default_rng(8).standard_normal((15, 15))
+
+    def same(ht, hj):
+        assert [(l.grid, l.transfer) for l in ht.levels] == [(l.grid, l.transfer) for l in hj.levels]
+        for lt, lj in zip(ht.levels, hj.levels):
+            np.testing.assert_array_equal(lt.inv_diag.numpy(), np.asarray(lj.inv_diag))
+        np.testing.assert_array_equal(ht.coarse_inv.numpy(), np.asarray(hj.coarse_inv))
+
+    # Galerkin where the JAX package semicoarsens
     data, offsets, shape = _anisotropic((31, 63))
     hj = jmg.build_hierarchy(jfmt.DiaMatrix(data, offsets, shape), (31, 63))
     assert hj.levels[0].transfer == "semi01"
-    with pytest.raises(NotImplementedError, match="'semi01' transfers .*ROADMAP queue 1 item 9"):
-        tmg.build_hierarchy(tfmt.DiaMatrix(data, offsets, shape), (31, 63))
+    same(tmg.build_hierarchy(tfmt.DiaMatrix(data, offsets, shape), (31, 63), device="cpu"), hj)
     # the (+1, 2, +1) tridiagonal's near-null vector alternates: aggregation
-    assert jmg.build_hierarchy(jgen.tridiagonal_matrix(2047), (2047,)).levels[0].transfer == "agg"
-    with pytest.raises(NotImplementedError, match="'agg' transfers .*ROADMAP queue 1 item 9"):
-        tmg.build_hierarchy(tgen.tridiagonal_matrix(2047), (2047,))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tmg.build_hierarchy(s.A, (15, 15), smoother="rbgs", coarse_operator=co)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tmg.fmg(None, None)
+    hj = jmg.build_hierarchy(jgen.tridiagonal_matrix(2047), (2047,))
+    assert hj.levels[0].transfer == "agg"
+    ht = tmg.build_hierarchy(tgen.tridiagonal_matrix(2047), (2047,), device="cpu")
+    same(ht, hj)
+    np.testing.assert_array_equal(ht.levels[0].weight.numpy(), np.asarray(hj.levels[0].weight))
+    # the rbgs smoother and fmg
+    kw = dict(smoother="rbgs", max_coarse=63)
+    ht = tmg.build_hierarchy(s.A, (15, 15), coarse_operator=co, device="cpu", **kw)
+    hj = jmg.build_hierarchy(jgen.poisson_system((15, 15)).A, (15, 15), coarse_operator=jco, **kw)
+    same(ht, hj)
+    np.testing.assert_array_equal(ht.levels[0].mask.numpy(), np.asarray(hj.levels[0].mask))
+    np.testing.assert_allclose(tmg.fmg(ht, torch.from_numpy(b)).numpy(),
+                               np.asarray(jmg.fmg(hj, jnp.asarray(b))), rtol=1e-12, atol=1e-12)
+    # a rediscretized even grid: hybrid transfers
     s64 = tgen.poisson_system((64, 64))
-    with pytest.raises(NotImplementedError, match="hyb"):
-        tmg.build_hierarchy(s64.A, (64, 64), coarse_operator=co)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        hierarchy_from_reference(
-            [dict(coeffs=(1.0,), shifts=((0, 0),), grid=(4, 4), cheb_bounds=(0.5, 2.0),
-                  transfer="agg", inv_diag=np.asarray(1.0))],
-            np.eye(4), "chebyshev", 2, 2, 2 / 3,
-        )
+    ht = tmg.build_hierarchy(s64.A, (64, 64), coarse_operator=co, device="cpu")
+    hj = jmg.build_hierarchy(jgen.poisson_system((64, 64)).A, (64, 64), coarse_operator=jco)
+    assert ht.levels[0].transfer == "hyb"
+    same(ht, hj)
+    # an agg level carried across
+    hj = jmg.build_hierarchy(jgen.tridiagonal_matrix(2047), (2047,))
+    lj = hj.levels[0]
+    hc = hierarchy_from_reference(
+        [dict(coeffs=lj.A.coeffs, shifts=lj.A.shifts, grid=lj.grid, cheb_bounds=lj.cheb_bounds,
+              transfer=lj.transfer, inv_diag=np.asarray(lj.inv_diag), weight=np.asarray(lj.weight),
+              sa_smooth=lj.sa_smooth)]
+        + [dict(legs=np.asarray(l.A.data), shifts=l.A.shifts, grid=l.grid,
+                cheb_bounds=l.cheb_bounds, transfer=l.transfer, inv_diag=np.asarray(l.inv_diag))
+           for l in hj.levels[1:]],
+        np.asarray(hj.coarse_inv), hj.smoother, hj.pre, hj.post, hj.omega, device="cpu",
+    )
+    r = np.random.default_rng(9).standard_normal(2047)
+    np.testing.assert_allclose(tmg.v_cycle(hc, torch.from_numpy(r)).numpy(),
+                               np.asarray(jmg.v_cycle(hj, jnp.asarray(r))), rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError, match="unknown smoother"):
         tmg.build_hierarchy(s.A, (15, 15), smoother="sor", coarse_operator=co)
 

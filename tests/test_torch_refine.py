@@ -167,17 +167,25 @@ def test_grid_path_with_rediscretized_hierarchy_matches_jax(device_residual):
 
 def test_unported_options_raise():
     s = tgen.poisson_system((31, 31))
-    s64 = tgen.poisson_system((64, 64))
-    with pytest.raises(NotImplementedError, match="'hyb' transfers .*ROADMAP queue 1 item 9"):
-        refined_solve(s64.A, s64.b, grid=(64, 64))  # Galerkin on even axes: hybrid transfers
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    # Galerkin on even axes (hybrid transfers) is ported: the JAX package's result
+    s64, j64 = tgen.poisson_system((64, 64)), jgen.poisson_system((64, 64))
+    rt = refined_solve(s64.A, s64.b, grid=(64, 64))
+    rj = j_refined(j64.A, j64.b, grid=(64, 64))
+    assert rt.converged and rj.converged
+    assert (rt.outer_iterations, rt.inner_iterations) == (rj.outer_iterations, rj.inner_iterations)
+    np.testing.assert_allclose(rt.x, rj.x, rtol=1e-8, atol=1e-10 * np.abs(rj.x).max())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: solver families"):
         refined_solve(s.A, s.b, inner="bicgstab")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: solver families"):
         refined_solve(s.A, s.b, deflation=object())
     with pytest.raises(ValueError, match="unknown inner"):
         refined_solve(s.A, s.b, inner="gmres")
-    with pytest.raises(NotImplementedError, match="'hyb' transfers .*ROADMAP queue 1 item 9"):
-        refined_solve_multi(s64.A, _block_rhs(s64.n, 2), grid=(64, 64))
+    B64 = _block_rhs(s64.n, 2)
+    mt = refined_solve_multi(s64.A, B64, grid=(64, 64))
+    mj = j_refined_multi(j64.A, B64, grid=(64, 64))
+    assert mt.converged.all() and np.asarray(mj.converged).all()
+    np.testing.assert_array_equal(mt.inner_iterations, np.asarray(mj.inner_iterations))
+    np.testing.assert_allclose(mt.x, np.asarray(mj.x), rtol=1e-8, atol=1e-10 * np.abs(mt.x).max())
     # the multi-RHS grid path itself is ported: multi-RHS MGCG inner solves
     B = _block_rhs(s.n, 2)
     res = refined_solve_multi(s.A, B, tol=1e-9, grid=(31, 31))

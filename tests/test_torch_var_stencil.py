@@ -4,6 +4,8 @@ Pallas kernel in interpret mode), the Galerkin product, the spectral bounds,
 the Galerkin hierarchy, one V-cycle, MGCG and the bf16-leg refined solve.
 Inputs are made from numpy seeds and handed to both packages."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -121,8 +123,11 @@ def test_galerkin_and_bounds_bit_identical(grid):
     np.testing.assert_array_equal(ct.data, np.asarray(cj.data))
     assert teig.scaled_spectrum_bounds(st.A) == jeig.scaled_spectrum_bounds(sj.A)
     assert teig.scaled_spectrum_bounds(ct) == jeig.scaled_spectrum_bounds(cj)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmg.galerkin_coarse(st.A, grid, "agg")
+    # smoothed aggregation, ported: the JAX package's product bit for bit
+    aj = jmg.galerkin_coarse(sj.A, grid, "agg")
+    at = tmg.galerkin_coarse(st.A, grid, "agg")
+    assert at.offsets == aj.offsets
+    np.testing.assert_array_equal(at.data, np.asarray(aj.data))
 
 
 HIERARCHIES = {
@@ -245,13 +250,23 @@ def test_kernel_path_rejects_what_the_kernel_does_not_take():
         spmv_stencil_cuda(A, x.transpose(0, 2))
     with pytest.raises(ValueError, match="not grid"):
         spmv_stencil_cuda(A, _meta((729,)))
-    # more than 27 legs, |shift| > 1, a 1-D grid, host legs
+    # beyond the wide kernel: more than 3375 legs, |shift| > 7, a 4-D grid;
+    # host legs
+    s5 = tuple(itertools.product(range(-2, 3), repeat=3))
     with pytest.raises(ValueError, match="legs supported"):
-        spmv_stencil_cuda(_meta_stencil((9, 9, 9), s3 + ((0, 0, 0),)), x)
+        spmv_stencil_cuda(_meta_stencil((9, 9, 9), ((0, 0, 0),) * (cuda_stencil.WIDE_LEGS + 1)), x)
     with pytest.raises(ValueError, match="shifts"):
-        spmv_stencil_cuda(_meta_stencil((9, 9), ((0, 2), (0, 0))), _meta((9, 9)))
-    with pytest.raises(ValueError, match="2-D or 3-D"):
-        spmv_stencil_cuda(_meta_stencil((9,), ((-1,), (0,), (1,))), _meta((9,)))
+        spmv_stencil_cuda(_meta_stencil((19, 19), ((0, 8), (0, 0))), _meta((19, 19)))
+    with pytest.raises(ValueError, match="1-D, 2-D or 3-D"):
+        spmv_stencil_cuda(_meta_stencil((3, 3, 3, 3), ((0, 0, 0, 0),)), _meta((3, 3, 3, 3)))
+    # within it, the routes: the tuned kernel at halo 1, the wide one beyond
+    assert cuda_stencil.var_route(_meta_stencil((9, 9, 9), s3)) == "narrow"
+    for A_w in (_meta_stencil((9, 9, 9), s3 + ((0, 0, 0),)), _meta_stencil((9, 9, 9), s5),
+                _meta_stencil((9, 9), ((0, 2), (0, 0))), _meta_stencil((9,), ((-1,), (0,), (1,))),
+                _meta_stencil((19, 19), ((0, 7), (-5, 0)))):
+        assert cuda_stencil.var_route(A_w) == "wide"
+        with pytest.raises(ValueError, match="CUDA"):  # checked as far as the device
+            spmv_stencil_cuda(A_w, _meta(A_w.grid))
     with pytest.raises(TypeError, match="torch tensor"):
         spmv_stencil_cuda(tfmt.StencilMatrix(np.zeros((1, 9, 9)), ((0, 0),), (9, 9)), _meta((9, 9)))
     # a device that is neither the CPU nor CUDA
