@@ -58,9 +58,13 @@ after:
   aggregation with smoothed transfers on kernel #1's 1-D view, then 1-D
   wide #3 levels) in fp32 and in fp64.  First the same kinds small in fp64
   on the card and on the CPU (equal iteration counts), and the wide kernel
-  against its twin on NaN-carved x at 128^3 x 81, 512^2 x 21, 1-D 32768 x 5
-  and 16^3 x 125 legs; kernels #1 and #2 on the even grids 256^3 and
-  (256, 255, 254) with the other checks.
+  against its twin on NaN-carved x, each shape at the split of the legs its
+  launch takes: the 256^3 hierarchy's 128^3 x 81, 64^3 x 125, 32^3 x 343 and
+  16^3 x 1331, 512^2 x 21, 1-D 32768 x 5 and a 64^3 hierarchy's 16^3 x 125;
+  kernels #1 and #2 on the even grids 256^3 and (256, 255, 254) with the
+  other checks.  The 256^3 Galerkin MGCG's profile splits the wide
+  kernel's device time by level (each launch's grid and block dims in the
+  trace).
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -88,10 +92,13 @@ beside the card's name and power limit.
 
 from __future__ import annotations
 
+import collections
 import copy
 import itertools
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -140,6 +147,8 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
     spmv_stencil_ref,
     spmv_stencil_wide_cuda,
     var_route,
+    wide_geometry,
+    wide_view,
 )
 from conjugategradient_tpu_torch.precond.multigrid import (
     _const_bounds,
@@ -1062,10 +1071,45 @@ def _reset_counts():
     cuda_dia.reset_launch_counts()
 
 
-def _device_time_top(fn, wall_ms: float, card, top: int = 6):
+def _wide_launch_dims(h):
+    """{(launch grid, block) of the wide #3 on a level of ``h``: that
+    level's grid}, from the launch ``wide_geometry`` gives each."""
+    out = {}
+    for lvl in h.levels:
+        A = lvl.A
+        if isinstance(A, StencilMatrix) and var_route(A) == "wide":
+            geo = wide_geometry(wide_view(tuple(A.grid), tuple(A.shifts)), A.nlegs,
+                                cuda_stencil._sms(A.data.device.index))
+            out[(geo.grid, (geo.block[0], geo.block[1] * geo.split, 1))] = str(lvl.grid)
+    return out
+
+
+def _wide_by_grid(prof, h):
+    """The wide #3's device time (ms) and launches in a profile, by the
+    level of ``h`` each launch's grid and block dims belong to (read from
+    the trace's kernel events)."""
+    dims = _wide_launch_dims(h)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") == "kernel" and "spmv_var_wide_kernel" in e.get("name", ""):
+            args = e.get("args", {})
+            key = (tuple(args.get("grid", ())), tuple(args.get("block", ())))
+            row = out[dims.get(key, f"unmatched {key}")]
+            row[0] += e.get("dur", 0.0) / 1e3
+            row[1] += 1
+    return {k: [round(ms, 4), n] for k, (ms, n) in sorted(out.items())}
+
+
+def _device_time_top(fn, wall_ms: float, card, top: int = 6, h=None):
     """Run ``fn`` once under ``torch.profiler`` and print the device time by
     kernel name (the ``top`` largest) beside the profiled wall, and the
-    device's busy share of ``wall_ms``, the same work's unprofiled wall."""
+    device's busy share of ``wall_ms``, the same work's unprofiled wall;
+    with a hierarchy ``h``, the wide #3's device time by level too."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
@@ -1078,10 +1122,11 @@ def _device_time_top(fn, wall_ms: float, card, top: int = 6):
                    if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
+    wide = "" if h is None else f"; wide #3 device [ms, launches] by grid {_wide_by_grid(prof, h)}"
     print(f"profile: profiled wall {prof_ms:.3f} ms, device time {total_ms:.3f} ms in "
           f"{sum(r[1] for r in rows)} device ops, device busy {total_ms / wall_ms:.1%} of the "
           f"unprofiled wall {wall_ms:.3f} ms; top: "
-          f"{[(k[:60], round(us / 1e3, 3), n) for us, n, k in rows[:top]]} [{card}]")
+          f"{[(k[:60], round(us / 1e3, 3), n) for us, n, k in rows[:top]]}{wide} [{card}]")
 
 
 def _multi_mgcg(sysj, hj, single, dev, card):
@@ -1414,7 +1459,7 @@ def _kind_mgcg(tag, s, grid, h, dev, card, dtype=np.float32, profile=True, **kw)
           f"residual {rel:.3e}; launches by kernel {counts}; wide kernel #3 by grid {wide}")
     print(f"time {tag} api.solve: counted run {first_ms:.3f} ms, warm run {warm_ms:.3f} ms [{card}]")
     if profile:
-        _device_time_top(lambda: api.solve(s.A, s.b, **kw), warm_ms, card)
+        _device_time_top(lambda: api.solve(s.A, s.b, **kw), warm_ms, card, h=h)
     return counts, res
 
 
@@ -1493,18 +1538,22 @@ def _wide_kernel_checks(cases, dev, errs):
 def _stencil_csr(A):
     """A device ``StencilMatrix`` as a CSR tensor (its legs as diagonals at
     the folded flat offsets; a leg is 0 where its neighbour leaves the
-    grid, so the product is the same)."""
+    grid, so the product is the same), fp64 legs in fp64, others upcast to
+    fp32."""
     strides = [int(np.prod(A.grid[ax + 1:])) for ax in range(A.ndim)]
     offs = tuple(sum(s * st for s, st in zip(sh, strides)) for sh in A.shifts)
-    return _csr(DiaMatrix(A.data.reshape(A.nlegs, -1).float(), offs, (A.n, A.n)))
+    vals = A.data.reshape(A.nlegs, -1)
+    vals = vals if vals.dtype == torch.float64 else vals.float()
+    return _csr(DiaMatrix(vals, offs, (A.n, A.n)))
 
 
 def _wide_times(cases, dev, card, times, lib, bounds):
     """The wide kernel #3 at the paths' shapes (below 2e7 leg entries from a
-    CUDA graph) against its twin, its bound
-    (each leg entry whose neighbour lies in the grid read once, x read once,
-    y written once) and, for fp32 legs, cuSPARSE's CSR product of the same
-    operator; the first case's fp32 row is the record's main shape."""
+    CUDA graph), each line with the split of the legs its launch takes,
+    against its twin, its bound (each leg entry whose neighbour lies in the
+    grid read once, x read once, y written once) and cuSPARSE's CSR product
+    of the same operator (bf16 legs upcast to fp32, fp64 in fp64); the
+    first case's fp32 row is the record's main shape."""
     for i, (label, A32, dtypes) in enumerate(cases):
         for legs in dtypes:
             A = A32.astype(legs)
@@ -1522,18 +1571,20 @@ def _wide_times(cases, dev, card, times, lib, bounds):
             nbytes = A.nnz * A.data.element_size() + 2 * n * x.element_size()
             all_legs = A.data.numel() * A.data.element_size() + 2 * n * x.element_size()
             bound = bound_ms(nbytes, 2 * A.nnz)
-            lib_ms = None
-            if legs == torch.float32:
-                csr = _stencil_csr(A)
-                lib_ms = _library(f"spmv_stencil_wide {label}", lambda: csr @ x.reshape(-1),
-                                  spmv_stencil_wide_cuda(A, x).reshape(-1), card, 50 if big else 200)
-                del csr
+            csr = _stencil_csr(A)
+            lib_ms = _library(f"spmv_stencil_wide {label} {TAGS[legs]} legs",
+                              lambda: csr @ x.reshape(-1), spmv_stencil_wide_cuda(A, x).reshape(-1),
+                              card, 50 if big else 200)
+            del csr
+            split = wide_geometry(wide_view(tuple(A.grid), tuple(A.shifts)), A.nlegs,
+                                  cuda_stencil._sms(dev.index)).split
             times[("spmv_stencil_wide", label, TAGS[legs])] = (k_ms, p_ms, lib_ms)
-            print(f"time spmv_stencil_wide {label} {TAGS[legs]} legs: kernel {k_ms:.4f} ms{launched} "
+            print(f"time spmv_stencil_wide {label} {TAGS[legs]} legs, split {split}: kernel "
+                  f"{k_ms:.4f} ms{launched} "
                   f"({all_legs / 1e6 / k_ms:.0f} GB/s of {all_legs / 1e6:.1f} MB with every leg "
                   f"entry; bound {bound[0]:.4f} ms by {bound[1]} on {nbytes / 1e6:.1f} MB, "
                   f"{bound[0] / k_ms:.1%} of it), twin {p_ms:.4f} ms, library call "
-                  f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms [{card}]")
+                  f"{lib_ms:.4f} ms [{card}]")
             if i == 0 and legs == torch.float32:
                 lib["spmv_stencil_wide"], bounds["spmv_stencil_wide"] = lib_ms, bound
             del A, x
@@ -1579,8 +1630,10 @@ def _multigrid_kinds(dev, card, errs, count):
     st = _kind_system("tridiagonal", (KIND_TRIDIAG,))
     ht64 = _kind_hierarchy(f"tridiagonal {KIND_TRIDIAG} fp64", st, (KIND_TRIDIAG,), dev, dtype=None)
     w125 = next(l.A for l in h64.levels if isinstance(l.A, StencilMatrix) and l.A.nlegs == 125)
-    wide = [("128^3 81 legs", h3g.levels[1].A), ("512^2 21 legs", h2g.levels[1].A),
-            (f"1-D {ht64.levels[1].grid[0]} 5 legs", ht64.levels[1].A), ("16^3 125 legs", w125)]
+    wide = [("128^3 81 legs", h3g.levels[1].A), ("64^3 125 legs", h3g.levels[2].A),
+            ("512^2 21 legs", h2g.levels[1].A),
+            (f"1-D {ht64.levels[1].grid[0]} 5 legs", ht64.levels[1].A),
+            ("16^3 125 legs (64^3 hierarchy)", w125)]
     wide += [(f"{l.grid[0]}^3 {l.A.nlegs} legs halo {max(l.A.halo)}", l.A) for l in h3g.levels[2:]
              if isinstance(l.A, StencilMatrix) and max(l.A.halo) > 2]
     for label, A in wide:

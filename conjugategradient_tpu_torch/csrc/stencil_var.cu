@@ -76,28 +76,55 @@
 //   that plain form is ~3 eager ops per leg.
 //   Bound on the H100: device-memory bandwidth, the legs again: a 128^3
 //   level with 81 fp32 legs moves (81 + 2) * 4 B * 2.10M = 696 MB, 0.208 ms
-//   at 3.35 TB/s.
-//   Design (simple first; making it fast is later work):
-//   - One thread per (y, x) column marching a WIDE_ZRUN-plane run in z, the
-//     narrow kernel's (32, 8) blocks, or one row of threads on a 1-D or
-//     2-D grid (viewed as (1, 1, n) and (ny, 1, nx) by the wrapper).  A
-//     view with too few runs to fill the card (the deep levels: 32^3 with
-//     343 legs, 16^3 with 1331) takes one plane a thread instead; with runs
-//     of four, 16^3 was 4 blocks of 1331-leg chains, 0.52 ms against
-//     cuSPARSE's 0.03 on an H100 80GB HBM3 at 700 W (PERF.md section 6).
-//   - The legs' folded offsets and shifts come from a table in device memory
-//     (int2 per leg, built and cached by the wrapper: too many legs for the
-//     parameter space), read with uniform loads.  The legs go in groups of
-//     WIDE_GROUP: a group's table entries are read once for the whole z run,
-//     then for each plane every load of the group comes before its first
-//     FMA.  The group loop is not unrolled (a fully unrolled 125-leg loop
-//     took 255 registers).
+//   at 3.35 TB/s.  The deep levels' legs lie in the 50 MB L2 between
+//   products (16^3 x 1331: 12.5 MB in the grid), so there latency, not
+//   bytes, is what a design must hide.
+//   Design: a gather with no matrix product (no wgmma, no TMA); what sets
+//   its time is warps in flight and loads in flight per thread.  The first
+//   design gave each thread a whole (y, x) column and every leg: on
+//   the deep aggregation levels (32^3 with 343 legs, 16^3 with 1331) that
+//   left 32,768 or 4096 threads each walking a chain of hundreds of loads,
+//   at 18% and 2% of the bound and 1.6x and 5.9x cuSPARSE's CSR product.
+//   Now the legs are split across threads where the points do not fill the
+//   card:
+//   - A block is bx x-lanes by `rows` rows of points by `split` (S) slices
+//     of the leg list (blockDim = (bx, rows * S)): lanes run along x, so a
+//     leg's loads at k * n + p stay coalesced, and the threads of slice s
+//     take legs [s * nlegs / S, (s + 1) * nlegs / S) in A.shifts order (no
+//     slice empty: S <= nlegs).  The wrapper picks the launch
+//     (ops/cuda_stencil.py::wide_geometry): S = 1 with a WIDE_ZRUN-plane z
+//     run where the view's runs fill the card (128^3 x 81); otherwise one
+//     plane a thread and S the largest power of two whose threads still run
+//     in one wave (1024 an SM) with at least WIDE_MIN_SLICE legs a slice
+//     (S = 1 at 512^2 x 21 and 64^3 x 125, 4 at 32^3 x 343, 32 at 16^3 x
+//     1331; on the H100 that beat twice as many threads with half the legs
+//     each).  An unsplit launch is the first design's, term for term.
+//   - Each thread sums its slice with an explicit fma into a register; at
+//     S > 1 the partials go to shared memory and one thread per point adds
+//     them in slice order.  Deterministic, no atomics.  Rounding: at S = 1
+//     the sum is the twin's, term by term (up to FMA contraction); at S > 1
+//     it is grouped by slice, ((s_0 + s_1) + s_2) + ..., each s_i a
+//     sequential sum, so it differs from the twin's sequential order by
+//     rounding (within the card tests' 1e-5 / 1e-13 of max |y|).
+//   - The leg table (an int2 per leg: folded offset, packed shift bytes,
+//     built and cached by the wrapper: too many legs for the parameter
+//     space) is staged in dynamic shared memory once per block (27 KB at
+//     3375 legs; with the partials, at most 35 KB, under the 48 KB a block
+//     gets without opting in), and read from there with broadcast loads.
+//   - The legs go in groups: every load of a group before its first FMA.
+//     With one plane a thread a group is WIDE_GROUP_BYTES of leg and x
+//     registers (16 fp32 or bf16 legs, 8 fp64; blocks of up to 1024
+//     threads cap a thread at 64 registers); with a z run it is
+//     WIDE_RUN_GROUP = 8 legs, whose (y, x) test and table entries stay in
+//     registers for the run (16 took 125 registers at 128^3).  The group
+//     loop is not unrolled (a fully unrolled 125-leg loop took 255
+//     registers).  No stack, no spills (chip_smoke.py checks the ptxas
+//     report).
 //   - Each leg is tested against the grid (its (y, x) test once per group,
 //     its z test per plane): no leg masks and no interior fast path, so the
 //     halo-1 kernel's 32-bit masks and end-plane masking do not carry over.
-//   Masking, summation order and the three leg/state instantiations are the
-//   narrow kernel's: a neighbour outside the grid is never read, legs are
-//   summed in A.shifts order with an explicit fma.
+//   Masking and the three leg/state instantiations are the narrow kernel's:
+//   a neighbour outside the grid is never read.
 // ---------------------------------------------------------------------------
 
 #include <climits>
@@ -259,8 +286,24 @@ static int launch(int spec, const void* legs, const void* x, void* y, int nz, in
 
 #define WIDE_LEGS 3375  // 15^3: every shift of the halo-7 box
 #define WIDE_HALO 7
-#define WIDE_ZRUN 4   // z planes a thread marches
-#define WIDE_GROUP 8  // legs per group of loads
+#define WIDE_ZRUN 4            // z planes a thread marches where the runs fill the card
+#define WIDE_THREADS 256       // threads of an unsplit block
+#define WIDE_MAX_THREADS 1024  // threads of a split block
+#define WIDE_RUN_GROUP 8       // legs per group of loads, unsplit
+// design constants; scripts/stencil_tuning.py builds other values with -D
+#ifndef WIDE_GROUP_BYTES
+#define WIDE_GROUP_BYTES 128  // leg and x register bytes a split thread loads before its first FMA
+#endif
+
+// legs per group of loads: unsplit, WIDE_RUN_GROUP (the group's table
+// entries stay in registers for the z run); split, WIDE_GROUP_BYTES of leg
+// and x registers (a bf16 leg takes a 32-bit one), at most 32 (a group's
+// mask is one 32-bit word)
+template <typename L, typename V, bool SPLIT>
+__host__ __device__ constexpr int wide_group() {
+  constexpr int g = WIDE_GROUP_BYTES / (int)((sizeof(L) < 4 ? 4 : sizeof(L)) + sizeof(V));
+  return !SPLIT ? WIDE_RUN_GROUP : (g < 1 ? 1 : (g > 32 ? 32 : g));
+}
 
 // one leg of the table: x = folded offset, y = (sz, sy, sx) as three
 // signed bytes (bits 0-7, 8-15, 16-23)
@@ -268,80 +311,123 @@ __device__ __forceinline__ int shift_of(int packed, int byte) {
   return (int)(signed char)((packed >> (8 * byte)) & 0xff);
 }
 
-template <typename L, typename V, int ZR>
-__global__ void __launch_bounds__(THREADS)
+// bytes of the staged table, rounded up so the partials behind it align
+__host__ __device__ __forceinline__ int wide_table_bytes(int nlegs) {
+  return (nlegs * (int)sizeof(int2) + 15) / 16 * 16;
+}
+
+// blockDim = (bx, rows * split): thread (tx, ty) takes point (ix, iy) =
+// (blockIdx.x * bx + tx, blockIdx.y * rows + ty % rows) and slice
+// ty / rows of the leg list (SPLIT; else split is 1); ZR planes from
+// z0 = blockIdx.z * ZR (ZR is 1 when split).
+template <typename L, typename V, int ZR, bool SPLIT>
+__global__ void __launch_bounds__(SPLIT ? WIDE_MAX_THREADS : WIDE_THREADS)
 spmv_var_wide_kernel(const L* __restrict__ legs, const V* __restrict__ x, V* __restrict__ y,
-                     const int2* __restrict__ table, int nlegs, int nz, int ny, int nx) {
+                     const int2* __restrict__ table, int nlegs, int nz, int ny, int nx,
+                     int rows) {
+  static_assert(!SPLIT || ZR == 1, "a split launch takes one plane a thread");
+  constexpr int G = wide_group<L, V, SPLIT>();
+  // the leg table, staged once per block
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  int2* tab = reinterpret_cast<int2*>(wide_smem);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int k = tid; k < nlegs; k += blockDim.x * blockDim.y) tab[k] = __ldg(table + k);
+  __syncthreads();
+
+  const int split = SPLIT ? blockDim.y / rows : 1;
+  const int s = SPLIT ? threadIdx.y / rows : 0, ty = threadIdx.y - s * rows;
   const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (ix >= nx || iy >= ny) return;
+  const int iy = blockIdx.y * rows + ty;
+  const int z0 = blockIdx.z * ZR;
+  const bool live = ix < nx && iy < ny && z0 < nz;
+  const int nr = min(ZR, nz - z0);
   const int plane = ny * nx;
   const size_t n = (size_t)plane * nz;
-  const int z0 = blockIdx.z * ZR;
-  const int nr = min(ZR, nz - z0);
   const int p0 = (z0 * ny + iy) * nx + ix;
+  // this thread's slice of the legs, in order
+  const int lo = (int)((long long)s * nlegs / split);
+  const int hi = (int)((long long)(s + 1) * nlegs / split);
   V acc[ZR];
 #pragma unroll
   for (int r = 0; r < ZR; ++r) acc[r] = V(0);
+  if (live) {
 #pragma unroll 1
-  for (int k0 = 0; k0 < nlegs; k0 += WIDE_GROUP) {
-    // the group's table entries, read once for the whole z run; the (y, x)
-    // test does not depend on the plane
-    int off[WIDE_GROUP], sz[WIDE_GROUP];
-    unsigned mxy = 0u;
+    for (int k0 = lo; k0 < hi; k0 += G) {
+      // the group's table entries and (y, x) test, once for the z run
+      int off[G], sz[G];
+      unsigned mxy = 0u;
 #pragma unroll
-    for (int j = 0; j < WIDE_GROUP; ++j) {
-      off[j] = 0;
-      sz[j] = 0;
-      if (k0 + j < nlegs) {
-        const int2 e = __ldg(table + k0 + j);
-        off[j] = e.x;
-        sz[j] = shift_of(e.y, 0);
-        if ((unsigned)(iy + shift_of(e.y, 1)) < (unsigned)ny &&
-            (unsigned)(ix + shift_of(e.y, 2)) < (unsigned)nx)
-          mxy |= 1u << j;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ZR; ++r) {
-      if (r >= nr) break;
-      const int p = p0 + r * plane;
-      L lv[WIDE_GROUP];
-      V xv[WIDE_GROUP];
-      unsigned m = 0u;
-#pragma unroll
-      for (int j = 0; j < WIDE_GROUP; ++j) {
-        lv[j] = L(0.0f);
-        xv[j] = V(0);
-        if (((mxy >> j) & 1u) && (unsigned)(z0 + r + sz[j]) < (unsigned)nz) {
-          m |= 1u << j;
-          lv[j] = ld_leg(legs + (size_t)(k0 + j) * n + p);
-          xv[j] = __ldg(x + (p + off[j]));
+      for (int j = 0; j < G; ++j) {
+        off[j] = 0;
+        sz[j] = 0;
+        if (k0 + j < hi) {
+          const int2 e = tab[k0 + j];
+          off[j] = e.x;
+          sz[j] = shift_of(e.y, 0);
+          if ((unsigned)(iy + shift_of(e.y, 1)) < (unsigned)ny &&
+              (unsigned)(ix + shift_of(e.y, 2)) < (unsigned)nx)
+            mxy |= 1u << j;
         }
       }
 #pragma unroll
-      for (int j = 0; j < WIDE_GROUP; ++j)
-        if ((m >> j) & 1u) acc[r] = madd(to_acc(lv[j]), xv[j], acc[r]);
+      for (int r = 0; r < ZR; ++r) {
+        if (r >= nr) break;
+        const int p = p0 + r * plane;
+        L lv[G];
+        V xv[G];
+        unsigned m = 0u;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          lv[j] = L(0.0f);
+          xv[j] = V(0);
+          if (((mxy >> j) & 1u) && (unsigned)(z0 + r + sz[j]) < (unsigned)nz) {
+            m |= 1u << j;
+            lv[j] = ld_leg(legs + (size_t)(k0 + j) * n + p);
+            xv[j] = __ldg(x + (p + off[j]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          if ((m >> j) & 1u) acc[r] = madd(to_acc(lv[j]), xv[j], acc[r]);
+      }
     }
   }
+  if constexpr (SPLIT) {
+    // the partials through shared memory, added in slice order
+    V* part = reinterpret_cast<V*>(wide_smem + wide_table_bytes(nlegs));
+    const int pts = blockDim.x * rows, q = ty * blockDim.x + threadIdx.x;
+    part[s * pts + q] = acc[0];
+    __syncthreads();
+    if (s == 0 && live) {
+      V t = part[q];
+      for (int u = 1; u < split; ++u) t += part[u * pts + q];
+      y[p0] = t;
+    }
+  } else if (live) {
 #pragma unroll
-  for (int r = 0; r < ZR; ++r)
-    if (r < nr) y[p0 + r * plane] = acc[r];
+    for (int r = 0; r < ZR; ++r)
+      if (r < nr) y[p0 + r * plane] = acc[r];
+  }
 }
 
 template <typename L, typename V>
 static int launch_wide(const void* legs, const void* x, void* y, const int2* table, int nlegs,
-                       int nz, int ny, int nx, int zrun, cudaStream_t st) {
-  // a 1-D or 2-D grid arrives as (1, 1, n) or (ny, 1, nx): one row of threads
-  const dim3 block = ny == 1 ? dim3(nx > 128 ? 256 : (nx > 32 ? 128 : 32), 1, 1) : dim3(32, 8, 1);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y,
-                  (nz + zrun - 1) / zrun);
-  if (zrun == 1)
-    spmv_var_wide_kernel<L, V, 1><<<grid, block, 0, st>>>((const L*)legs, (const V*)x, (V*)y,
-                                                          table, nlegs, nz, ny, nx);
+                       int nz, int ny, int nx, int bx, int rows, int split, int zrun, dim3 grid,
+                       cudaStream_t st) {
+  const dim3 block(bx, rows * split, 1);
+  const L* l = (const L*)legs;
+  const V* xv = (const V*)x;
+  V* yv = (V*)y;
+  const size_t tab = wide_table_bytes(nlegs);
+  if (split > 1)
+    spmv_var_wide_kernel<L, V, 1, true><<<grid, block, tab + (size_t)bx * rows * split * sizeof(V),
+                                           st>>>(l, xv, yv, table, nlegs, nz, ny, nx, rows);
+  else if (zrun == 1)
+    spmv_var_wide_kernel<L, V, 1, false><<<grid, block, tab, st>>>(l, xv, yv, table, nlegs, nz, ny,
+                                                                  nx, rows);
   else
-    spmv_var_wide_kernel<L, V, WIDE_ZRUN><<<grid, block, 0, st>>>((const L*)legs, (const V*)x,
-                                                                  (V*)y, table, nlegs, nz, ny, nx);
+    spmv_var_wide_kernel<L, V, WIDE_ZRUN, false><<<grid, block, tab, st>>>(
+        l, xv, yv, table, nlegs, nz, ny, nx, rows);
   return (int)cudaGetLastError();
 }
 
@@ -401,24 +487,38 @@ int cg_spmv_var(int code, int spec, const void* legs, const void* x, void* y, in
 // (ops/cuda_stencil.py::wide_view: a 1-D or 2-D grid marches its rows as
 // (1, 1, n) or (ny, 1, nx)); table: nlegs int2 entries on the device, each
 // leg's folded offset and its (sz, sy, sx) bytes on that view, every
-// component in [-WIDE_HALO, WIDE_HALO]; zrun: the planes a thread
-// marches, 1 or WIDE_ZRUN (the wrapper's choice, ops/cuda_stencil.py::
-// wide_zrun).
+// component in [-WIDE_HALO, WIDE_HALO].  The launch is the wrapper's
+// (ops/cuda_stencil.py::wide_geometry), which must cover the view exactly:
+// (bx, rows) points a block, split slices of the leg list (1 <= split <=
+// nlegs, bx * rows * split threads), zrun planes a thread (1, or WIDE_ZRUN
+// at split 1), (gx, gy, gz) blocks.
 int cg_spmv_var_wide(int code, const void* legs, const void* x, void* y, const void* table,
-                     int nlegs, int nz, int ny, int nx, int zrun, void* stream) {
+                     int nlegs, int nz, int ny, int nx, int bx, int rows, int split, int zrun,
+                     int gx, int gy, int gz, void* stream) {
   if (nlegs < 1 || nlegs > WIDE_LEGS || nz < 1 || ny < 1 || nx < 1 || table == nullptr ||
-      (zrun != 1 && zrun != WIDE_ZRUN))
+      (zrun != 1 && zrun != WIDE_ZRUN) || split < 1 || split > nlegs ||
+      (zrun != 1 && split != 1))
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)bx * rows * split;
+  if (bx < 1 || rows < 1 || threads > (split > 1 ? WIDE_MAX_THREADS : WIDE_THREADS) ||
+      gx != (nx + bx - 1) / bx || gy != (ny + rows - 1) / rows || gz != (nz + zrun - 1) / zrun ||
+      gy > 65535 || gz > 65535)
     return (int)cudaErrorInvalidValue;
   const long long plane = (long long)ny * nx;
-  if (plane * nz + (WIDE_HALO + 1) * plane > INT_MAX || (nz + zrun - 1) / zrun > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (plane * nz + (WIDE_HALO + 1) * plane > INT_MAX) return (int)cudaErrorInvalidValue;
   const int2* t = (const int2*)table;
+  const dim3 grid(gx, gy, gz);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
-    case FP32: return launch_wide<float, float>(legs, x, y, t, nlegs, nz, ny, nx, zrun, st);
+    case FP32:
+      return launch_wide<float, float>(legs, x, y, t, nlegs, nz, ny, nx, bx, rows, split, zrun,
+                                       grid, st);
     case BF16:
-      return launch_wide<__nv_bfloat16, float>(legs, x, y, t, nlegs, nz, ny, nx, zrun, st);
-    case FP64: return launch_wide<double, double>(legs, x, y, t, nlegs, nz, ny, nx, zrun, st);
+      return launch_wide<__nv_bfloat16, float>(legs, x, y, t, nlegs, nz, ny, nx, bx, rows, split,
+                                               zrun, grid, st);
+    case FP64:
+      return launch_wide<double, double>(legs, x, y, t, nlegs, nz, ny, nx, bx, rows, split, zrun,
+                                         grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

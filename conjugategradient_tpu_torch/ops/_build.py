@@ -133,7 +133,7 @@ def _bind_stencil(lib: ctypes.CDLL) -> None:
 def _bind_stencil_var(lib: ctypes.CDLL) -> None:
     lib.cg_spmv_var.argtypes = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _IP, _P]
     lib.cg_spmv_var.restype = _I
-    lib.cg_spmv_var_wide.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.cg_spmv_var_wide.argtypes = [_I, _P, _P, _P, _P] + [_I] * 11 + [_P]
     lib.cg_spmv_var_wide.restype = _I
 
 

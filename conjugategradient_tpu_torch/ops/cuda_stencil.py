@@ -19,7 +19,8 @@ Two kernels of ``csrc/stencil.cu`` and one of ``csrc/stencil_var.cu``
   (``spmv_stencil_wide_cuda``) for the wider Galerkin levels of the
   hybrid, semicoarsening and aggregation transfers: |shift| <= 7, up to
   3375 legs, 1-D to 3-D, its legs' offsets and shifts in a device table
-  (``wide_view``).
+  (``wide_view``), each point's legs split across ``wide_split`` threads
+  where the points alone do not fill the card (``wide_geometry``).
 
 Each wrapper runs its twin (``*_ref``) for a tensor on the CPU, and only
 there.  For any other tensor it checks everything the kernel does not take
@@ -463,6 +464,15 @@ def wide_view(grid: Tuple[int, ...], shifts: Tuple[Tuple[int, ...], ...]) -> Wid
 #: runs do not fill the card and each thread takes one plane
 WIDE_ZRUN = 4
 WIDE_FILL_THREADS_PER_SM = 2048
+#: threads of an unsplit wide block, and of a split one (``WIDE_THREADS``,
+#: ``WIDE_MAX_THREADS``)
+WIDE_THREADS = 256
+WIDE_MAX_THREADS = 1024
+#: the threads of a split launch an SM holds at once (its 1024-thread
+#: blocks cap a thread at 64 registers, 65,536 an SM), and the fewest legs
+#: a slice keeps (loads in flight per thread)
+WIDE_SPLIT_THREADS_PER_SM = 1024
+WIDE_MIN_SLICE = 16
 
 
 def wide_zrun(view: WideView, sms: int = H100_SMS) -> int:
@@ -473,6 +483,78 @@ def wide_zrun(view: WideView, sms: int = H100_SMS) -> int:
     nz, ny, nx = view.dims
     runs = nx * ny * -(-nz // WIDE_ZRUN)
     return WIDE_ZRUN if runs >= sms * WIDE_FILL_THREADS_PER_SM or nz > 65535 else 1
+
+
+def _wide_lanes(view: WideView) -> int:
+    """x lanes of a wide block: one row of threads (256, 128 or 32 wide) on
+    a view with one row per plane (1-D and 2-D grids), else 32, or 16 on
+    rows of at most 16."""
+    nz, ny, nx = view.dims
+    if ny == 1:
+        return 256 if nx > 128 else (128 if nx > 32 else 32)
+    return 32 if nx > 16 else 16
+
+
+def wide_split(view: WideView, nlegs: int, sms: int = H100_SMS) -> int:
+    """S, the slices of the leg list the wide kernel splits each point's
+    sum into on ``view``: 1 where ``wide_zrun``'s runs fill the card;
+    otherwise the largest power of two whose S threads a point still run in
+    one wave (every SM ``WIDE_SPLIT_THREADS_PER_SM``), as long as each
+    slice keeps ``WIDE_MIN_SLICE`` legs and a block of one row of points
+    holds S.  Measured on the H100 (PERF.md): at 32^3 x 343 and 16^3 x
+    1331 the largest split that fits one wave beat twice as many threads
+    with half the legs each."""
+    if wide_zrun(view, sms) != 1:
+        return 1
+    points = view.dims[0] * view.dims[1] * view.dims[2]
+    most = WIDE_MAX_THREADS // _wide_lanes(view)
+    split = 1
+    while (points * 2 * split <= sms * WIDE_SPLIT_THREADS_PER_SM
+           and 2 * split * WIDE_MIN_SLICE <= nlegs and 2 * split <= most):
+        split *= 2
+    return split
+
+
+class WideGeometry(NamedTuple):
+    """The wide kernel #3's launch on a view, which the C entry takes as
+    given (it refuses one that does not cover the view exactly): ``block``
+    the (x lanes, rows) of points a block holds, ``split`` the slices of
+    the leg list (the block's threads are lanes x rows x split),
+    ``zrun`` the planes a thread marches, ``grid`` the blocks along (x, y,
+    z)."""
+
+    block: Tuple[int, int]
+    split: int
+    zrun: int
+    grid: Tuple[int, int, int]
+
+
+def wide_geometry(view: WideView, nlegs: int, sms: int = H100_SMS,
+                  split: Optional[int] = None) -> WideGeometry:
+    """The wide kernel's launch for ``nlegs`` legs on ``view``: ``split``
+    by ``wide_split`` unless given (a given split > 1 takes one plane a
+    thread), the z run by ``wide_zrun``, and as many rows of points a block
+    as keep it within ``WIDE_THREADS`` (``WIDE_MAX_THREADS`` when split)."""
+    if split is None:
+        split = wide_split(view, nlegs, sms)
+    zrun = wide_zrun(view, sms) if split == 1 else 1
+    if not 1 <= split <= nlegs:
+        raise ValueError(f"wide kernel #3: split must be in 1..{nlegs} (the legs), got {split}")
+    nz, ny, nx = view.dims
+    lanes = _wide_lanes(view)
+    cap = WIDE_THREADS if split == 1 else WIDE_MAX_THREADS
+    if lanes * split > cap:
+        raise ValueError(f"wide kernel #3: at most {cap // lanes} slices on rows of {lanes} "
+                         f"lanes, got {split}")
+    rows = 1 if ny == 1 else max(1, min(WIDE_THREADS, cap // split) // lanes)
+    return WideGeometry((lanes, rows), split, zrun,
+                        (-(-nx // lanes), -(-ny // rows), -(-nz // zrun)))
+
+
+def wide_slices(nlegs: int, split: int) -> Tuple[Tuple[int, int], ...]:
+    """The legs [lo, hi) of each slice, in order: ``s * nlegs // split`` to
+    ``(s + 1) * nlegs // split``, as the kernel computes them."""
+    return tuple((s * nlegs // split, (s + 1) * nlegs // split) for s in range(split))
 
 
 def _wide_table(view: WideView, device: torch.device) -> torch.Tensor:
@@ -578,25 +660,37 @@ def spmv_stencil_cuda(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
     name = "spmv_stencil_cuda"
     code = _check_var_args(name, A, x)
     if var_route(A) == "wide":
-        return _wide_launch(code, A, x)
+        return _wide(code, A, x)
     y = _var_launch(_build.load("stencil_var"), code, A, x)
     _count(spmv_stencil_cuda, A)
     return y
 
 
-def _wide_launch(code: int, A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Launch the wide kernel #3 on checked arguments and count it."""
-    lib = _build.load("stencil_var")
-
+def _wide_plan(A: StencilMatrix, device: torch.device):
+    """(view, table on ``device``, the default launch) of ``A``, cached by
+    its shifts tuple."""
     def plan():
         view = wide_view(tuple(A.grid), tuple(A.shifts))
-        return view, _wide_table(view, x.device), wide_zrun(view, _sms(x.device.index))
+        return view, _wide_table(view, device), wide_geometry(view, A.nlegs, _sms(device.index))
 
-    view, table, zrun = _by_shifts(A.shifts, (tuple(A.grid), x.device), plan)
+    return _by_shifts(A.shifts, (tuple(A.grid), device), plan)
+
+
+def _wide_launch(lib, code: int, A: StencilMatrix, x: torch.Tensor, view: WideView,
+                 table: torch.Tensor, geo: WideGeometry) -> torch.Tensor:
+    """Launch the wide kernel #3 of ``lib`` with ``geo`` on checked
+    arguments."""
     y = torch.empty_like(x)
     err = lib.cg_spmv_var_wide(code, A.data.data_ptr(), x.data_ptr(), y.data_ptr(),
-                               table.data_ptr(), A.nlegs, *view.dims, zrun, _stream(x))
+                               table.data_ptr(), A.nlegs, *view.dims, *geo.block, geo.split,
+                               geo.zrun, *geo.grid, _stream(x))
     _raise_on(lib, err, "spmv_stencil_wide_cuda")
+    return y
+
+
+def _wide(code: int, A: StencilMatrix, x: torch.Tensor):
+    """The wide kernel #3 on checked arguments, counted."""
+    y = _wide_launch(_build.load("stencil_var"), code, A, x, *_wide_plan(A, x.device))
     _count(spmv_stencil_wide_cuda, A)
     return y
 
@@ -608,7 +702,7 @@ def spmv_stencil_wide_cuda(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:
     the tuned kernel does not reach."""
     if x.device.type == "cpu":
         return spmv_stencil_ref(A, x)
-    return _wide_launch(_check_var_args("spmv_stencil_wide_cuda", A, x), A, x)
+    return _wide(_check_var_args("spmv_stencil_wide_cuda", A, x), A, x)
 
 
 for _fn in (spmv_stencil_cuda, spmv_stencil_wide_cuda):

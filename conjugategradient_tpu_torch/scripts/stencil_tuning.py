@@ -1,6 +1,6 @@
 """Design constants of kernels #1, #2 and #3, measured on the card.
 
-    python -m conjugategradient_tpu_torch.scripts.stencil_tuning
+    python -m conjugategradient_tpu_torch.scripts.stencil_tuning [--only var cheb const wide]
 
 Builds ``csrc/stencil_var.cu`` (kernel #3) and ``csrc/stencil.cu`` (kernels
 #1 and #2) once for each value of a compile-time design constant (``nvcc
@@ -18,6 +18,14 @@ events after a warm-up:
 - kernel #3, ``ZRUN`` (z planes a thread marches) and ``BATCH_BYTES`` (loads
   issued before the first FMA): 255^3 with 7 legs (fp32, bf16, fp64) and
   127^3 with 27 legs (fp32, bf16), random legs;
+- the wide kernel #3, ``WIDE_GROUP_BYTES`` (leg and x bytes loaded before
+  the first FMA), each build at every power-of-two split of the legs the
+  launch holds (``wide_geometry(split=)``; split blocks also with half
+  their rows; the default launch marked): the
+  shapes of ``scripts/wide_times.py`` (the 256^3 Galerkin hierarchy's 128^3
+  x 81, 64^3 x 125, 32^3 x 343 and 16^3 x 1331, 512^2 x 21, 1-D 32768 x 5),
+  fp32 legs, and 128^3 x 81 with bf16 and fp64 legs at the default split,
+  below 2e7 leg entries replayed from a CUDA graph;
 - kernel #2, ``CHEB_TY`` (interior tile rows) and ``CHEB_MINB`` (blocks per
   SM asked of ptxas), each at z chunks of 16, 32, 64 and 128 planes:
   Poisson, degree 2, at 255^3 and 127^3 the pre-smooth (zero x0, residual)
@@ -30,12 +38,14 @@ Every variant is held to the twin first (max error <= 1e-5 of max |twin|,
 1e-13 in fp64).  The launches go through the wrappers' launch helpers, not
 the wrappers, so no launch count moves.  The last line is one JSON record:
 ``{"card": ..., "spmv_stencil": {variant: {shape: ms}}, "cheb_smooth_const":
-{variant: {shape: ms}}, "spmv_const_stencil": {variant: {shape: ms}}}``.
-Needs a CUDA device.
+{variant: {shape: ms}}, "spmv_const_stencil": {variant: {shape: ms}},
+"spmv_stencil_wide": {variant: {shape: ms}}}`` (``--only``: the named
+kernels alone).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures as cf
 import itertools
 import json
@@ -47,6 +57,7 @@ from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, Stencil
 from conjugategradient_tpu_torch.ops import _build
 from conjugategradient_tpu_torch.ops import cuda_stencil as cs
 from conjugategradient_tpu_torch.ops.card import card_name, graph_ms, time_ms
+from conjugategradient_tpu_torch.scripts.wide_times import SHAPES as WIDE_SHAPES
 
 REL, REL64 = 1e-5, 1e-13
 #: build label -> -D overrides; the first of each is the shipped design
@@ -62,6 +73,11 @@ CONST_BUILDS = {
     "CONST_ZRUN=4": (),
     "CONST_ZRUN=2": ("CONST_ZRUN=2",),
     "CONST_ZRUN=8": ("CONST_ZRUN=8",),
+}
+WIDE_BUILDS = {
+    "WIDE_GROUP_BYTES=128": (),
+    "WIDE_GROUP_BYTES=64": ("WIDE_GROUP_BYTES=64",),
+    "WIDE_GROUP_BYTES=96": ("WIDE_GROUP_BYTES=96",),
 }
 CHEB_BUILDS = {
     "CHEB_TY=16 CHEB_MINB=2": (),
@@ -130,29 +146,89 @@ def _cheb_cases(dev):
             yield f"{n}^3 degree 2 {label}", (op, b, xin, 2, 2.0, 0.5, invd, resid)
 
 
-def main() -> int:
+def _wide_cases(dev):
+    """(shape, operator, x, splits to time) of the wide kernel's timed
+    shapes: every power-of-two split the launch holds in fp32, the default
+    one with bf16 and fp64 legs."""
+    for label, grid, shifts, dtypes in WIDE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(len(shifts))
+        legs32 = torch.rand((len(shifts),) + grid, generator=g, device=dev) * 2 - 1
+        view = cs.wide_view(grid, shifts)
+        most = min(len(shifts), cs.WIDE_MAX_THREADS // cs.wide_geometry(view, 1).block[0])
+        for legs in dtypes:
+            vec = torch.float64 if legs == torch.float64 else torch.float32
+            A = StencilMatrix(legs32.to(legs), shifts, grid)
+            x = torch.randn(grid, generator=g, device=dev).to(vec)
+            splits = ([1 << i for i in range(most.bit_length()) if 1 << i <= most]
+                      if legs == torch.float32 else [None])
+            yield f"{label} {cs.TAGS[legs]}", A, x, view, splits
+
+
+def _wide_times(record, card, dev):
+    for label, defines in WIDE_BUILDS.items():
+        lib = _build.load("stencil_var", defines)
+        row = record["spmv_stencil_wide"][label] = {}
+        for shape, A, x, view, splits in _wide_cases(dev):
+            code = cs._CODES[(A.data.dtype, x.dtype)]
+            table = cs._wide_table(view, x.device)
+            ref = cs.spmv_stencil_ref(A, x)
+            default = cs.wide_geometry(view, A.nlegs)
+            big = x.numel() * A.nlegs > 2e7
+            geos = []
+            for split in splits:
+                geo = cs.wide_geometry(view, A.nlegs, split=split)
+                geos.append(geo)
+                bx, rows = geo.block
+                if geo.split > 1 and rows > 1:  # the same split in blocks of half the rows
+                    geos.append(geo._replace(block=(bx, rows // 2), grid=(
+                        geo.grid[0], -(-view.dims[1] // (rows // 2)), geo.grid[2])))
+            for geo in geos:
+                fn = lambda: cs._wide_launch(lib, code, A, x, view, table, geo)
+                err, scale = _err(fn(), ref)
+                rel = REL64 if x.dtype == torch.float64 else REL
+                if not err <= rel * scale:
+                    raise RuntimeError(f"wide [{label}] {shape} {geo}: max err {err:.3e} > "
+                                       f"{rel}*{scale:.3e}")
+                ms = (time_ms if big else graph_ms)(fn, 50 if big else 200)
+                key = (f"{shape} split {geo.split} block {geo.block}"
+                       f"{' (default)' if geo == default else ''}")
+                row[key] = ms
+                print(f"time spmv_stencil_wide [{label}] {key}, zrun {geo.zrun}: {ms:.4f} ms"
+                      f"{'' if big else ' (graph)'} [{card}]")
+            del A, x, table, ref
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="+", choices=("var", "cheb", "const", "wide"),
+                    default=("var", "cheb", "const", "wide"))
+    only = set(ap.parse_args(argv).only)
     if not torch.cuda.is_available():
         print("stencil_tuning: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     card = card_name()
     print(card)
-    builds = {("stencil_var", k): d for k, d in VAR_BUILDS.items()}
-    builds.update({("stencil", k): d for k, d in CHEB_BUILDS.items()})
-    builds.update({("stencil", k): d for k, d in CONST_BUILDS.items()})
+    groups = {"var": ("stencil_var", VAR_BUILDS, "spmv_var_kernel"),
+              "wide": ("stencil_var", WIDE_BUILDS, "spmv_var_wide_kernel"),
+              "cheb": ("stencil", CHEB_BUILDS, "cheb_const_kernel"),
+              "const": ("stencil", CONST_BUILDS, "spmv_const_kernel")}
+    builds = {(src, label): (d, kernel) for key, (src, table, kernel) in groups.items()
+              if key in only for label, d in table.items()}
     # one nvcc per build, all started together
-    unique = sorted({(src, d) for (src, _), d in builds.items()})  # one nvcc per library
+    unique = sorted({(src, d) for (src, _), (d, _) in builds.items()})  # one nvcc per library
     with cf.ThreadPoolExecutor(len(unique)) as pool:
         list(pool.map(lambda sd: _build.build([sd[0]], sd[1]), unique))
-    for src, label in builds:
-        kernel = ("spmv_var_kernel" if src == "stencil_var" else
-                  "spmv_const_kernel" if label in CONST_BUILDS else "cheb_const_kernel")
-        for entry, res in sorted(_build.kernel_resources(src, builds[src, label]).items()):
+    for (src, label), (defines, kernel) in builds.items():
+        for entry, res in sorted(_build.kernel_resources(src, defines).items()):
             if kernel in entry:
                 print(f"ptxas {src} [{label}] {entry[:60]}: {res}")
-    record = {"card": card, "spmv_stencil": {}, "cheb_smooth_const": {}, "spmv_const_stencil": {}}
+    record = {"card": card, "spmv_stencil": {}, "cheb_smooth_const": {}, "spmv_const_stencil": {},
+              "spmv_stencil_wide": {}}
+    if "wide" in only:
+        _wide_times(record, card, dev)
 
-    for label, defines in CONST_BUILDS.items():
+    for label, defines in CONST_BUILDS.items() if "const" in only else ():
         lib = _build.load("stencil", defines)
         row = record["spmv_const_stencil"][label] = {}
         for shape, A, x in _const_cases(dev):
@@ -167,7 +243,7 @@ def main() -> int:
             print(f"time spmv_const_stencil [{label}] {shape}: {ms:.4f} ms "
                   f"({gb / (ms * 1e-3):.0f} GB/s of {gb * 1e3:.1f} MB) [{card}]")
 
-    for label, defines in VAR_BUILDS.items():
+    for label, defines in VAR_BUILDS.items() if "var" in only else ():
         lib = _build.load("stencil_var", defines)
         row = record["spmv_stencil"][label] = {}
         for shape, A, x in _var_cases(dev):
@@ -184,7 +260,7 @@ def main() -> int:
                   f"[{card}]")
             del A, x
 
-    for label, defines in CHEB_BUILDS.items():
+    for label, defines in CHEB_BUILDS.items() if "cheb" in only else ():
         lib = _build.load("stencil", defines)
         row = record["cheb_smooth_const"][label] = {}
         for shape, args in _cheb_cases(dev):

@@ -865,6 +865,74 @@ def test_wide_var_kernel_reads_nothing_outside_the_grid(cuda, case):
     assert float((y[ok] - ref[ok]).abs().max()) <= REL * float(ref[ok].abs().max())
 
 
+def _wide_split(A, x, split):
+    """The wide kernel on checked arguments with a forced split of its legs
+    (``"most"``: the largest a block of one row of points holds)."""
+    view = cuda_stencil.wide_view(tuple(A.grid), tuple(A.shifts))
+    most = cuda_stencil.WIDE_MAX_THREADS // cuda_stencil.wide_geometry(view, 1).block[0]
+    split = min(A.nlegs, most if split == "most" else split)
+    code = cuda_stencil._check_var_args("test", A, x)
+    return cuda_stencil._wide_launch(_build.load("stencil_var"), code, A, x, view,
+                                     cuda_stencil._wide_table(view, x.device),
+                                     cuda_stencil.wide_geometry(view, A.nlegs, split=split))
+
+
+@pytest.mark.parametrize("split", [1, 3, "most"])
+@pytest.mark.parametrize("case", sorted(WIDE_HAND))
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+def test_wide_var_kernel_matches_twin_under_a_split(cuda, case, legs, split):
+    # split 1 sums the twin's order; a split > 1 groups the sum by slice
+    A = _wide(case, legs, cuda)
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(A.grid)).to(cuda, vec)
+    y = _wide_split(A, x, split)
+    torch.cuda.synchronize()
+    ref = spmv_stencil_ref(A, x)
+    assert y.dtype == ref.dtype == vec
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("split", [1, "most"])
+@pytest.mark.parametrize("case", sorted(c for c in WIDE_HAND if np.prod(WIDE_HAND[c][1]) > 100))
+def test_wide_var_kernel_reads_nothing_outside_the_grid_under_a_split(cuda, case, split):
+    # test_wide_var_kernel_reads_nothing_outside_the_grid with the legs
+    # split across threads
+    A = _wide(case, torch.float32, cuda)
+    n = int(np.prod(A.grid))
+    buf = torch.full((n + 2 * 4096,), float("nan"), device=cuda)
+    x = buf[4096 : 4096 + n].view(A.grid)
+    x.copy_(torch.from_numpy(np.random.default_rng(13).standard_normal(A.grid)).to(cuda, torch.float32))
+    x[(0,) * len(A.grid)] = float("nan")
+    x[tuple(g - 1 for g in A.grid)] = float("nan")
+    y = _wide_split(A, x, split)
+    torch.cuda.synchronize()
+    ref = spmv_stencil_ref(A, x)
+    assert torch.equal(torch.isnan(y), torch.isnan(ref))
+    assert 0 < int(torch.isnan(ref).sum()) < n
+    ok = ~torch.isnan(ref)
+    assert float((y[ok] - ref[ok]).abs().max()) <= REL * float(ref[ok].abs().max())
+
+
+def test_wide_kernel_refuses_a_launch_that_does_not_cover_the_grid(cuda):
+    # the C entry takes the wrapper's geometry as given and raises on one
+    # that misses a block or a slice too many; nothing falls back
+    A = _wide("343 legs 3-D halo 3 (9, 10, 11)", torch.float32, cuda)
+    x = torch.zeros(A.grid, device=cuda)
+    view = cuda_stencil.wide_view(tuple(A.grid), tuple(A.shifts))
+    table = cuda_stencil._wide_table(view, x.device)
+    lib = _build.load("stencil_var")
+    geo = cuda_stencil.wide_geometry(view, A.nlegs, split=8)
+    y = cuda_stencil._wide_launch(lib, 0, A, x, view, table, geo)
+    torch.cuda.synchronize()
+    assert float(y.abs().max()) == 0.0
+    for bad in (geo._replace(grid=(geo.grid[0], geo.grid[1] - 1, geo.grid[2])),
+                geo._replace(grid=(geo.grid[0], geo.grid[1], geo.grid[2] + 1)),
+                geo._replace(split=64), geo._replace(split=A.nlegs + 1), geo._replace(zrun=4)):
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            cuda_stencil._wide_launch(lib, 0, A, x, view, table, bad)
+
+
 @pytest.mark.parametrize("case", sorted(VAR_HAND))
 def test_wide_var_kernel_matches_the_tuned_kernel_at_halo_1(cuda, case):
     shifts, grid = VAR_HAND[case]
