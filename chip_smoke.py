@@ -65,6 +65,21 @@ after:
   other checks.  The 256^3 Galerkin MGCG's profile splits the wide
   kernel's device time by level (each launch's grid and block dims in the
   trace).
+- The formats slice.  Kernels #4 and #5 (k = 4) past 256 diagonals, fp32
+  and fp64, against their twins on the 16^3 levels of the 128^3 (343
+  diagonals) and 256^3 (1331) hierarchies as DIA, in chained launches; then
+  ``api.solve(method="mgcg", layout="dia")`` on Poisson 128^3 fp32, #4 at
+  every level (the 343-diagonal one in whole chains), beside the
+  stencil-layout solve.  The reference's own storage in fp64 with each
+  workload's policy: the flagship as CSR through ``api.solve`` (cuSPARSE's
+  product, no #4 launch; run twice, bit-identity printed) and through
+  ``make_kernel_operator`` (#4 once per iteration and once more), then an
+  n x 4 block; ``WORKLOADS["handmade_cl"]`` as diagonal-first ELL both
+  ways.  Matrix Market: Poisson 127^3 fp32 permuted by a seeded symmetric
+  permutation must load as CSR and solve with no #4 launch; unpermuted it
+  must load as DIA, solve on #4 and, as an n x 4 block, on #5.  Every
+  format's SpMV and SpMM (k = 4) against the fp64 oracle, timed beside its
+  bound, and #4/#5 past 256 diagonals timed beside cuSPARSE.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -109,10 +124,24 @@ from conjugategradient_tpu_torch import api
 from conjugategradient_tpu_torch.core import generators, oracle
 from conjugategradient_tpu_torch.core.formats import (
     ConstStencilMatrix,
+    CsrMatrix,
     DiaMatrix,
     StencilMatrix,
+    csr_to_bsr,
+    csr_to_coo,
+    csr_to_ell,
+    dia_to_csr,
+    dia_to_dense,
     dia_to_stencil,
     stencil_to_const,
+    stencil_to_dia,
+    to_host,
+)
+from conjugategradient_tpu_torch.core.io import (
+    from_scipy,
+    load_matrix_market,
+    save_matrix_market,
+    to_scipy,
 )
 from conjugategradient_tpu_torch.models.workloads import WORKLOADS
 from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
@@ -128,7 +157,9 @@ from conjugategradient_tpu_torch.ops.card import (
 )
 from conjugategradient_tpu_torch.ops.cuda_dia import (
     TAGS,
+    dia_groups,
     k_chunks,
+    make_kernel_operator,
     spmm_dia_acc_cuda,
     spmm_dia_acc_ref,
     spmm_dia_cuda,
@@ -150,6 +181,8 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
     wide_geometry,
     wide_view,
 )
+from conjugategradient_tpu_torch.ops.spmm import spmm
+from conjugategradient_tpu_torch.ops.spmv import as_operator, prepare
 from conjugategradient_tpu_torch.precond.multigrid import (
     _const_bounds,
     _fused_cheb_ok,
@@ -312,6 +345,38 @@ ACC_DIA7 = f"255^3 7 diagonals k={MULTI_K}"
 #: and two more: the main shape with bf16 legs, the flagship at k = 4
 ACC_MAIN_BF16 = "n=414720 band=160 k=8 bf16 legs"
 ACC_FLAGSHIP = "n=207402 band=160 k=4"
+
+#: the formats slice: kernels #4 and #5 past 256 diagonals on the 16^3
+#: levels of the 128^3 and 256^3 DIA-layout hierarchies (#5 at MANY_K
+#: columns), and the MGCG over the first; the HandmadeCL workload as ELL;
+#: Matrix Market ingestion of Poisson MTX_GRID; every format's product, BSR
+#: in BSR_BLOCK blocks of Poisson DIA_MGCG_GRID, dense at DENSE_N rows
+DIA_MGCG_GRID = (128, 128, 128)
+DIA_MGCG_MANY = 343
+MANY_K = 4
+HANDMADE = "handmade_cl"
+MTX_GRID = (127, 127, 127)
+BSR_BLOCK = (8, 8)
+DENSE_N = 8192
+FORMAT_K = 4
+#: fp64 products of the plain formats against the fp64 oracle: the same
+#: products summed in another order
+FORMAT_REL64 = 1e-12
+#: plain fp64 CG on the flagship: the true ||b - A x||_2 it can reach.  Its
+#: recursive residual passes the policy's 1e-8 long before the 200 minimum
+#: iterations (the fp64 oracle, core.oracle.cg, ends at 6.7e-91), but the
+#: true residual stalls at fp64's attainable accuracy for this system: the
+#: oracle's own x leaves 6.0e-8 (3.1e-11 of ||b|| = 3220), the card's
+#: routes 1.76e-8 (cuSPARSE) and 5.99e-8 (kernel #4), so this bound is
+#: 1.67x over the worse reading; refined_solve is the route that reaches a
+#: true 1e-8
+FLAGSHIP_CG_TRUE = 1e-7
+#: ... and each route within this factor of the same reading by scipy's
+#: textbook CG, the witness that is not the port's: the spread of that
+#: reading when only the products' summation order differs (3.2x between
+#: the port's CSR route and the JAX package's CG at 4096 rows in
+#: tests/test_torch_sparse_ops.py, 3.4x between the card's two routes)
+CG_ORDER_SPREAD = 4.0
 
 KERNELS = {
     "spmv_const_stencil": dict(
@@ -1416,7 +1481,7 @@ def _levels_launched(tag, h):
     for lvl in h.levels:
         A = lvl.A
         if isinstance(A, DiaMatrix):
-            ok, name = spmv_dia_cuda.launches > 0, "spmv_dia"
+            ok, name = spmv_dia_cuda.launches_by_shape.get((A.n, A.ndiags), 0) > 0, "spmv_dia"
         elif isinstance(A, ConstStencilMatrix):
             ok = (spmv_const_stencil_cuda.launches_by_grid.get(lvl.grid, 0)
                   + cheb_smooth_const_cuda.launches_by_grid.get(lvl.grid, 0)) > 0
@@ -1689,6 +1754,380 @@ def _multigrid_kinds(dev, card, errs, count):
             for i, (label, A) in enumerate(wide)]
 
 
+def _nan_buffered(X):
+    """``X`` copied into the middle of a NaN-filled buffer, no NaN inside: a
+    read past [0, n) leaks a NaN where the twin has none."""
+    pad = 8192
+    buf = torch.full((X.numel() + 2 * pad,), float("nan"), dtype=X.dtype, device=X.device)
+    Xc = buf[pad : pad + X.numel()].view(X.shape)
+    Xc.copy_(X)
+    return Xc
+
+
+def _many_diag_checks(cases, dev, errs):
+    """Kernels #4 (plain and fused) and #5 at k = MANY_K against their twins
+    past 256 diagonals, fp32 and fp64, on NaN-buffered vectors; each call
+    must launch once per group of ``dia_groups`` (and column chunk)."""
+    rng = np.random.default_rng(SEED + 3)
+    for label, A_host in cases:
+        groups = len(dia_groups(A_host.ndiags))
+        for legs in (torch.float32, torch.float64):
+            A = A_host.device_put(legs, dev)
+            rel = KERNEL_REL64 if legs == torch.float64 else KERNEL_REL
+            tag = f"{label} {TAGS[legs]}"
+            x = _nan_buffered(torch.from_numpy(rng.standard_normal(A.n)).to(dev, legs))
+            X = _nan_buffered(torch.from_numpy(rng.standard_normal((MANY_K, A.n))).to(dev, legs))
+            _reset_counts()
+            y = spmv_dia_cuda(A, x)
+            yf, dot = spmv_dot_dia_cuda(A, x)
+            Y = spmm_dia_cuda(A, X)
+            torch.cuda.synchronize()
+            launches = (spmv_dia_cuda.launches, spmv_dot_dia_cuda.launches, spmm_dia_cuda.launches)
+            want = (groups, groups, groups * len(cuda_dia.spmm_chunks(A, MANY_K)))
+            _require(launches == want, f"{tag}: launches {launches}, want {want} ({groups} groups)")
+            ref, Yr = spmv_dia_ref(A, x), spmm_dia_ref(A, X)
+            err, scale = _max_err(y, ref)
+            errY, scaleY = _max_err(Y, Yr)
+            dot_err = abs(float(dot) - float(torch.dot(x, ref)))
+            dot_scale = float((x * ref).abs().sum())
+            _require(err <= rel * scale, f"spmv_dia {tag}: max err {err:.3e} > {rel}*{scale:.3e}")
+            _require(torch.equal(yf, y), f"spmv_dot_dia {tag}: fused A p differs from the SpMV's")
+            _require(dot_err <= rel * dot_scale, f"spmv_dot_dia {tag}: p.Ap err {dot_err:.3e}")
+            _require(errY <= rel * scaleY, f"spmm_dia {tag} k={MANY_K}: max err {errY:.3e}")
+            errs["spmv_dia"] = max(errs["spmv_dia"], err)
+            if legs != torch.float64:
+                errs["spmm_dia"] = max(errs["spmm_dia"], errY)
+            print(f"spmv_dia / spmm_dia {tag} ({A.ndiags} diagonals in {groups} chained groups): "
+                  f"max|kernel-twin| {err:.3e} (max|twin| {scale:.3e}), fused p.Ap err "
+                  f"{dot_err:.3e}, k={MANY_K} {errY:.3e}; launches {launches}")
+
+
+def _dia_layout_mgcg(wide_cases, dev, card, errs, count):
+    """The repair's path.  The DIA-layout Galerkin hierarchy of Poisson
+    DIA_MGCG_GRID in fp32 (levels of 7, 81, 125 and 343 diagonals); kernels
+    #4 and #5 against their twins on its 343-diagonal level and on the 256^3
+    hierarchy's 16^3 level as DIA (1331 diagonals); then
+    ``api.solve(method="mgcg", layout="dia")``, counted: #4 at every level,
+    the 343-diagonal one in chained groups, beside the stencil-layout
+    solve's iteration count.  Returns the (label, host DIA) cases."""
+    g = DIA_MGCG_GRID
+    s = _kind_system("poisson", g)
+    h = _kind_hierarchy(f"Galerkin Poisson {g} layout dia", s, g, dev, layout="dia")
+    many = [lvl.A for lvl in h.levels if lvl.A.ndiags > cuda_dia.MAX_DIAGS]
+    _require([A.ndiags for A in many] == [DIA_MGCG_MANY], f"{g} layout dia: levels {_describe(h)}")
+    w1331 = next(A for label, A, _ in wide_cases if A.nlegs == 1331)
+    cases = [(f"{g[0]}^3 hierarchy's 16^3 level", to_host(many[0])),
+             (f"{KIND_GRID_3D[0]}^3 hierarchy's 16^3 level as DIA", stencil_to_dia(to_host(w1331)))]
+    _many_diag_checks(cases, dev, errs)
+    kw = dict(method="mgcg", grid=g, tol=TOL, norm="rel_l2", dtype=np.float32, device=dev,
+              precise_dot=True)
+    tag = f"MGCG Galerkin Poisson {g} layout dia"
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = api.solve(s.A, s.b, hierarchy=h, layout="dia", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_shape = spmv_dia_cuda.launches, dict(spmv_dia_cuda.launches_by_shape)
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    rel = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
+    _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+    _levels_launched(tag, h)
+    n_many = by_shape.get((many[0].n, DIA_MGCG_MANY), 0)
+    _require(n_many > 0 and n_many % len(dia_groups(DIA_MGCG_MANY)) == 0,
+             f"{tag}: {n_many} launches on the {DIA_MGCG_MANY}-diagonal level, not whole chains")
+    count(tag, {"spmv_dia": launches})
+    del h
+    hs = _kind_hierarchy(f"Galerkin Poisson {g}", s, g, dev)
+    _reset_counts()
+    res_s = api.solve(s.A, s.b, hierarchy=hs, **kw)
+    torch.cuda.synchronize()
+    _require(res_s.converged, f"MGCG Galerkin Poisson {g}: did not converge")
+    count(f"MGCG Galerkin Poisson {g}", _kind_counts())
+    print(f"{tag}: {res.iterations} iterations (stencil layout {res_s.iterations}), rel_l2 "
+          f"{float(res.residual):.3e}, true fp64 rel residual {rel:.3e}; spmv_dia launches "
+          f"{launches} by (rows, diagonals) { {str(k): v for k, v in sorted(by_shape.items())} }")
+    print(f"time {tag} api.solve (counted run): {wall * 1e3:.3f} ms [{card}]")
+    return cases
+
+
+def _true_l2(A, b, x):
+    """||b - A x||_2 in fp64 by the host oracle."""
+    return float(np.linalg.norm(b - oracle.spmv(A, np.asarray(x, dtype=np.float64))))
+
+
+def _textbook_cg_true_l2(csr, fsys, iterations):
+    """The witness of plain fp64 CG's attainable accuracy that is not the
+    port's: scipy's textbook CG on the host CSR from the same x0 for the
+    same number of iterations; its true ``||b - A x||_2``.  The CPU tests
+    hold scipy's CG to the JAX package's on the flagship's generator at
+    4096 rows (within 2x; 0.1% apart there)."""
+    import scipy.sparse.linalg as sla
+
+    A = to_scipy(csr)
+    try:
+        x, _ = sla.cg(A, fsys.b, x0=fsys.x0, rtol=0.0, atol=0.0, maxiter=iterations)
+    except TypeError:  # scipy < 1.12 names rtol tol
+        x, _ = sla.cg(A, fsys.b, x0=fsys.x0, tol=0.0, atol=0.0, maxiter=iterations)
+    return _true_l2(fsys.A, fsys.b, x)
+
+
+def _eval_floor(A, b, x):
+    """eps64 * || |A| |x| + |b| ||_2: the rounding of one fp64 evaluation of
+    b - A x at x, below which no residual can be told from 0."""
+    absA = DiaMatrix(np.abs(A.data), A.offsets, A.shape)
+    x = np.abs(np.asarray(x, dtype=np.float64))
+    return float(np.finfo(np.float64).eps * np.linalg.norm(oracle.spmv(absA, x) + np.abs(b)))
+
+
+def _kernel_route(tag, A_ell_or_csr, b, x0, policy, dev, count):
+    """``make_kernel_operator`` (the relayout to DIA, timed) into
+    ``cg_solve``, counted: kernel #4 once per iteration and once for the
+    initial residual.  Returns the result."""
+    t0 = time.perf_counter()
+    op = make_kernel_operator(A_ell_or_csr, device=dev)
+    relayout = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = cg_solve(op, torch.from_numpy(b).to(dev), torch.from_numpy(x0).to(dev), policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = spmv_dia_cuda.launches
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    _require(launches == res.iterations + 1,
+             f"{tag}: {launches} spmv_dia launches, not iterations + 1 = {res.iterations + 1}")
+    count(tag, {"spmv_dia": launches}, fp32=False)
+    print(f"{tag}: relayout {relayout:.3f} s, {res.iterations} iterations, spmv_dia launches "
+          f"{launches}, wall {wall * 1e3:.3f} ms")
+    return res
+
+
+def _reference_storage(fsys, dev, card, count):
+    """The reference's own storage, fp64 with each workload's policy.  The
+    flagship as CSR (``dia_to_csr``): ``api.solve(method="cg")`` (no
+    kernel: cuSPARSE's CSR product) and ``make_kernel_operator`` into
+    ``cg_solve`` (kernel #4), both converged under the workload's policy
+    with a true ``||b - A x||_2`` below FLAGSHIP_CG_TRUE and within
+    CG_ORDER_SPREAD of scipy's textbook CG's,
+    the CSR solve run twice (bit-identity printed), then an n x 4 block
+    whose column 0 takes the single solve's count.  The HandmadeCL workload
+    as diagonal-first ELL (``csr_to_ell``) both ways.  Returns the flagship
+    CSR."""
+    pol = WORKLOADS[FLAGSHIP].policy
+    kw = dict(method="cg", tol=pol.tol, norm=pol.norm, min_iteration=pol.min_iteration,
+              max_iteration=pol.max_iteration, device=dev)
+    t0 = time.perf_counter()
+    csr = dia_to_csr(fsys.A)
+    conv = time.perf_counter() - t0
+    tag = f"flagship CSR ({csr.nnz} nnz)"
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = api.solve(csr, fsys.b, fsys.x0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _require(spmv_dia_cuda.launches == 0, f"{tag}: api.solve launched kernel #4")
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    r_true = _true_l2(fsys.A, fsys.b, res.x.cpu().numpy())
+    _require(r_true < FLAGSHIP_CG_TRUE, f"{tag}: true fp64 ||b - A x||_2 {r_true:.3e}")
+    again = api.solve(csr, fsys.b, fsys.x0, **kw)
+    same = bool(torch.equal(again.x, res.x)) and again.iterations == res.iterations
+    print(f"{tag}: dia_to_csr {conv:.3f} s; api.solve(method='cg') {res.iterations} iterations, "
+          f"true fp64 ||r||_2 {r_true:.3e}, 0 spmv_dia launches, wall {wall * 1e3:.3f} ms; run "
+          f"twice: x bit-identical {same} (max |diff| "
+          f"{float((again.x - res.x).abs().max()):.3e}) [{card}]")
+    res_k = _kernel_route(f"{tag} via make_kernel_operator", csr, fsys.b, fsys.x0, pol, dev, count)
+    r_k = _true_l2(fsys.A, fsys.b, res_k.x.cpu().numpy())
+    _require(r_k < FLAGSHIP_CG_TRUE, f"{tag} via make_kernel_operator: true ||r||_2 {r_k:.3e}")
+    t0 = time.perf_counter()
+    r_w = _textbook_cg_true_l2(csr, fsys, res.iterations)
+    floor = _eval_floor(fsys.A, fsys.b, res.x.cpu().numpy())
+    _require(max(r_true, r_k) <= CG_ORDER_SPREAD * r_w,
+             f"{tag}: true ||r||_2 {r_true:.3e} (CSR) / {r_k:.3e} (#4) over {CG_ORDER_SPREAD}x "
+             f"scipy's textbook CG's {r_w:.3e}")
+    print(f"{tag} via make_kernel_operator: true fp64 ||r||_2 {r_k:.3e}; scipy's textbook CG, "
+          f"{res.iterations} iterations on the host: {r_w:.3e} ({time.perf_counter() - t0:.1f} s); "
+          f"against it: CSR {r_true / r_w:.3f}x, kernel #4 {r_k / r_w:.3f}x; evaluation floor "
+          f"eps |A||x| {floor:.3e} (CSR {r_true / floor:.0f}x, #4 {r_k / floor:.0f}x)")
+    rng = np.random.default_rng(SEED + 4)
+    B = np.column_stack([fsys.b] + [rng.standard_normal(fsys.n) for _ in range(FORMAT_K - 1)])
+    X0 = np.column_stack([fsys.x0] * FORMAT_K)
+    resB = api.solve(csr, B, X0, **kw)
+    its = resB.iterations.cpu().tolist()
+    _require(bool(resB.converged.all()), f"{tag} n x {FORMAT_K}: converged {resB.converged}")
+    _require(its[0] == res.iterations, f"{tag} n x {FORMAT_K}: column 0 took {its[0]} iterations, "
+                                       f"the single solve {res.iterations}")
+    print(f"{tag} n x {FORMAT_K} api.solve(method='cg'): iterations by column {its}")
+
+    hw = WORKLOADS[HANDMADE]
+    hsys = hw.build(dtype=np.float64)
+    t0 = time.perf_counter()
+    ell = csr_to_ell(dia_to_csr(hsys.A))
+    conv = time.perf_counter() - t0
+    _require(np.array_equal(ell.cols[:, 0], np.arange(hsys.n)), "HandmadeCL ELL: diagonal not first")
+    tag = f"HandmadeCL ELL (n {hsys.n}, k {ell.k})"
+    hkw = dict(method="cg", tol=hw.policy.tol, norm=hw.policy.norm,
+               min_iteration=hw.policy.min_iteration, max_iteration=hw.policy.max_iteration, device=dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = api.solve(ell, hsys.b, hsys.x0, **hkw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _require(spmv_dia_cuda.launches == 0, f"{tag}: api.solve launched kernel #4")
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    linf = float(np.abs(hsys.b - oracle.spmv(hsys.A, res.x.cpu().numpy())).max())
+    _require(linf < hw.policy.tol, f"{tag}: true max|b - A x| {linf:.3e}")
+    res_k = _kernel_route(f"{tag} via make_kernel_operator", ell, hsys.b, hsys.x0, hw.policy, dev,
+                          count)
+    linf_k = float(np.abs(hsys.b - oracle.spmv(hsys.A, res_k.x.cpu().numpy())).max())
+    _require(linf_k < hw.policy.tol, f"{tag} via make_kernel_operator: true max|r| {linf_k:.3e}")
+    print(f"{tag}: csr_to_ell(dia_to_csr) {conv:.3f} s; api.solve {res.iterations} iterations, "
+          f"true max|r| {linf:.3e}, wall {wall * 1e3:.3f} ms; via make_kernel_operator "
+          f"{res_k.iterations} iterations, true max|r| {linf_k:.3e} [{card}]")
+    return csr
+
+
+def _ingestion(dev, card, count):
+    """Poisson MTX_GRID fp32 through Matrix Market files: permuted by a
+    seeded symmetric permutation it must load as CSR (the blowup guard sees
+    ~2 M diagonals) and solve with 0 kernel #4 launches; unpermuted it must
+    load as DIA and solve on kernel #4, then as an n x 4 block on #5.  Each
+    solve ``rel_l2 < TOL``, true fp64 relative residual within TRUE_REL."""
+    g = MTX_GRID
+    s = generators.poisson_system(g, dtype=np.float32)
+    perm = np.random.default_rng(SEED).permutation(s.n)
+    t0 = time.perf_counter()
+    permuted = from_scipy(to_scipy(s.A)[perm][:, perm])
+    perm_s = time.perf_counter() - t0
+    kw = dict(method="cg", tol=TOL, norm="rel_l2", dtype=np.float32, device=dev, precise_dot=True)
+    with tempfile.TemporaryDirectory() as d:
+        for label, A_file, b, kind in (("permuted", permuted, s.b[perm], CsrMatrix),
+                                       ("unpermuted", s.A, s.b, DiaMatrix)):
+            path = os.path.join(d, f"poisson_{label}.mtx")
+            t0 = time.perf_counter()
+            save_matrix_market(path, A_file)
+            w_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            A = load_matrix_market(path)
+            r_s = time.perf_counter() - t0
+            tag = f"Poisson {g} .mtx {label}"
+            _require(isinstance(A, kind), f"{tag}: loaded as {type(A).__name__}, not {kind.__name__}")
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = api.solve(A, b, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = spmv_dia_cuda.launches
+            _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+            rel = _host_rel_residual(A, b, res.x.cpu().numpy())
+            _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+            want = 0 if kind is CsrMatrix else res.iterations + 1
+            _require(launches == want, f"{tag}: {launches} spmv_dia launches, want {want}")
+            size = f"{A.ndiags} diagonals" if kind is DiaMatrix else f"{A.nnz} nnz"
+            print(f"{tag}: {os.path.getsize(path) / 1e6:.1f} MB, write {w_s:.3f} s, read "
+                  f"{r_s:.3f} s ({type(A).__name__}, {size}); "
+                  f"api.solve(method='cg') {res.iterations} iterations, true fp64 rel residual "
+                  f"{rel:.3e}, spmv_dia launches {launches}, wall {wall * 1e3:.3f} ms [{card}]")
+            if kind is DiaMatrix:
+                count(f"{tag} api.solve(method='cg')", {"spmv_dia": launches})
+                rng = np.random.default_rng(SEED + 5)
+                B = np.column_stack([b] + [rng.standard_normal(s.n) for _ in range(FORMAT_K - 1)])
+                _reset_counts()
+                resB = api.solve(A, B, **{k: v for k, v in kw.items() if k != "precise_dot"})
+                torch.cuda.synchronize()
+                its = resB.iterations.cpu().tolist()
+                _require(bool(resB.converged.all()) and spmm_dia_cuda.launches > 0,
+                         f"{tag} n x {FORMAT_K}: converged {resB.converged}, "
+                         f"{spmm_dia_cuda.launches} spmm_dia launches")
+                count(f"{tag} api.solve(B n x {FORMAT_K}, method='cg')",
+                      {"spmm_dia": spmm_dia_cuda.launches})
+                print(f"{tag} n x {FORMAT_K}: iterations by column {its}, spmm_dia launches "
+                      f"{spmm_dia_cuda.launches}")
+    print(f"Poisson {g}: symmetric permutation of the matrix {perm_s:.3f} s")
+
+
+def _many_diag_times(cases, dev, card):
+    """Kernels #4 and #5 (k = MANY_K) past 256 diagonals, fp32 and fp64:
+    kernel (as launched and from a CUDA graph), twin and cuSPARSE's CSR
+    product beside the bound (the legs inside the matrix, x and y once)."""
+    rng = np.random.default_rng(SEED + 6)
+    for label, A_host in cases:
+        for legs in (torch.float32, torch.float64):
+            A = A_host.device_put(legs, dev)
+            n, nnz, size = A.n, dia_nnz(A), A.data.element_size()
+            x = torch.from_numpy(rng.standard_normal(n)).to(dev, legs)
+            X = torch.from_numpy(rng.standard_normal((MANY_K, n))).to(dev, legs)
+            csr = _csr(A)
+            tag = f"{label} {A.ndiags} diagonals {TAGS[legs]}"
+            for op, k, fn, twin, lib in (
+                    ("spmv_dia", 1, lambda: spmv_dia_cuda(A, x), lambda: spmv_dia_ref(A, x),
+                     lambda: csr @ x),
+                    ("spmm_dia", MANY_K, lambda: spmm_dia_cuda(A, X), lambda: spmm_dia_ref(A, X),
+                     lambda: (csr @ X.T.contiguous()).T)):
+                k_ms, g_ms, p_ms = time_ms(fn, 200), graph_ms(fn, 200), time_ms(twin, 5)
+                lib_ms = _library(f"{op} {tag}", lib, fn(), card, 100)
+                nbytes = nnz * size + 2 * k * n * size
+                bound = bound_ms(nbytes, 2 * k * nnz)
+                print(f"time {op} {tag} k={k}: kernel {k_ms:.4f} ms (graph {g_ms:.4f}; "
+                      f"{nbytes / 1e6:.1f} MB, bound {bound[0]:.4f} ms by {bound[1]}, "
+                      f"{bound[0] / g_ms:.1%} of it from the graph), {len(dia_groups(A.ndiags))} "
+                      f"launches a call, twin {p_ms:.4f} ms, CSR {lib_ms:.4f} ms [{card}]")
+
+
+def _format_bytes(A, k, size):
+    """Bytes one product of a device CSR, ELL, BSR or dense matrix with k
+    columns must move (``size`` bytes a value): its stored values and
+    indices read once, x read and y written once."""
+    n, m = A.shape
+    vec = (n + m) * k * size
+    if isinstance(A, CsrMatrix):
+        return A.nnz * (size + 4) + (n + 1) * 4 + vec
+    name = type(A).__name__
+    if name == "EllMatrix":
+        return A.data.numel() * (size + 4) + vec
+    if name == "BsrMatrix":
+        return A.data.numel() * size + A.nblocks * 4 + (n // A.block_shape[0] + 1) * 4 + vec
+    return n * m * size + vec
+
+
+def _format_products(csr, dev, card):
+    """Every plain format's SpMV and SpMM (k = FORMAT_K) on the card in fp64
+    against the fp64 oracle, each timed (the solvers' operator: a COO
+    matrix sorted into its CSR once) beside its bound: the flagship as CSR,
+    ELL and COO, Poisson DIA_MGCG_GRID as BSR_BLOCK blocks, banded_sin at
+    DENSE_N rows as dense; and the flagship's CSR through kernel #4
+    (``make_kernel_operator``).  No format here is a TPU kernel: the JAX
+    package runs them by XLA."""
+    bsr = csr_to_bsr(dia_to_csr(generators.poisson_system(DIA_MGCG_GRID).A), BSR_BLOCK)
+    cases = [("CSR flagship", csr), ("ELL flagship", csr_to_ell(csr)),
+             ("COO flagship", csr_to_coo(csr)), (f"BSR {BSR_BLOCK} Poisson {DIA_MGCG_GRID}", bsr),
+             (f"dense banded_sin n={DENSE_N}", dia_to_dense(generators.banded_sin_matrix(DENSE_N, 160)))]
+    rng = np.random.default_rng(SEED + 7)
+    for label, A_host in cases:
+        # the container the solvers run: a COO matrix as its row-sorted CSR
+        # (the bytes are the CSR's)
+        A_mm = prepare(A_host, dev)
+        x_h, X_h = rng.standard_normal(A_mm.n), rng.standard_normal((A_mm.n, FORMAT_K))
+        x, X = torch.from_numpy(x_h).to(dev), torch.from_numpy(X_h).to(dev)
+        op = as_operator(A_mm)
+        y, Y = op(x), spmm(A_mm, X)
+        ref = oracle.spmv(A_host, x_h)
+        refY = np.column_stack([oracle.spmv(A_host, X_h[:, j]) for j in range(FORMAT_K)])
+        e1 = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
+        eK = float(np.abs(Y.cpu().numpy() - refY).max() / np.abs(refY).max())
+        _require(e1 <= FORMAT_REL64 and eK <= FORMAT_REL64,
+                 f"format {label}: rel err {e1:.3e} / {eK:.3e} against the fp64 oracle")
+        for k, fn in ((1, lambda: op(x)), (FORMAT_K, lambda: spmm(A_mm, X))):
+            ms = time_ms(fn, 50)
+            nbytes = _format_bytes(A_mm, k, 8)
+            bound = bound_ms(nbytes, 2 * k * A_host.nnz if hasattr(A_host, "nnz") else 2 * k * A_mm.n ** 2)
+            print(f"time format {label} fp64 k={k}: {ms:.4f} ms ({nbytes / 1e6:.1f} MB, bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / ms:.1%} of it); rel err against "
+                  f"the oracle {e1 if k == 1 else eK:.3e} [{card}]")
+    op = make_kernel_operator(csr, device=dev)
+    x = torch.from_numpy(rng.standard_normal(csr.n)).to(dev)
+    print(f"time format CSR flagship fp64 through kernel #4 (make_kernel_operator): "
+          f"{time_ms(lambda: op(x), 200):.4f} ms [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1886,6 +2325,20 @@ def main() -> int:
     # rbgs, W-cycle and fmg -------------------------------------------------
     wide_cases = _multigrid_kinds(dev, card, errs, count)
 
+    # -- the formats slice, counted: kernels #4 and #5 past 256 diagonals and
+    # the DIA-layout MGCG over them; the reference's CSR and ELL storage;
+    # Matrix Market ingestion ------------------------------------------------
+    t0 = time.perf_counter()
+    many_cases = _dia_layout_mgcg(wide_cases, dev, card, errs, count)
+    print(f"phase: past 256 diagonals and the {DIA_MGCG_GRID} DIA-layout MGCG in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flagship_csr = _reference_storage(fsys, dev, card, count)
+    print(f"phase: the reference's CSR and ELL storage in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _ingestion(dev, card, count)
+    print(f"phase: Matrix Market ingestion in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 6: times -----------------------------------------------------
     times = {}
     for g in TIME_SPMV_GRIDS:  # Poisson; below 2 M points from a CUDA graph
@@ -1929,6 +2382,10 @@ def main() -> int:
     lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card, times)
     _acc_times(sysj, acc_recs, dev, card, times, lib, bounds)
     _wide_times(wide_cases, dev, card, times, lib, bounds)
+    t0 = time.perf_counter()
+    _many_diag_times(many_cases, dev, card)
+    _format_products(flagship_csr, dev, card)
+    print(f"phase: times past 256 diagonals and of every format in {time.perf_counter() - t0:.1f} s")
 
     for tag, before in WALLS_BEFORE_MS.items():
         print(f"wall {tag}: {walls[tag]:.3f} ms now, {before} ms in two runs before the redesign "

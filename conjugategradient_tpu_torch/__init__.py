@@ -5,15 +5,19 @@ in PyTorch on an NVIDIA H100, with every Pallas kernel of a ported path
 rewritten by hand for Hopper (``csrc/``).  The layout mirrors the
 reference's, so each counterpart is found by path:
 
-- ``core``    — numpy host containers (DIA / stencil / const stencil), the
-                banded, tridiagonal, Poisson, variable-coefficient and
-                anisotropic diffusion generators and the fp64 oracle (SpMV
-                and CG).
+- ``core``    — numpy host containers (DIA, stencil, const stencil, ELL,
+                CSR, COO, BSR, dense) and their conversions, the DOK
+                builder, Matrix Market and scipy ingestion, the banded,
+                tridiagonal, Poisson, variable-coefficient and anisotropic
+                diffusion generators and the fp64 oracle (SpMV of every
+                format, CG, the dense direct solve).
 - ``ops``     — BLAS-1, compensated dots, and the CUDA kernels with their
                 plain twins: the const-stencil SpMV, the fused Chebyshev
                 smoother, the variable-coefficient stencil SpMV (tuned at
-                halo 1, wide at halo 2; and its per-column SpMM), the DIA SpMV (and its fused p·Ap), the
-                DIA SpMM and its single-call accumulating form.
+                halo 1, wide at halo 2; and its per-column SpMM), the DIA SpMV (and its fused p·Ap,
+                chained past 256 diagonals; CSR and ELL reach it by a
+                relayout), the DIA SpMM and its single-call accumulating
+                form; the plain CSR, ELL, COO, BSR and dense products.
 - ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG and
                 its multigrid preconditioner, mixed-precision iterative
                 refinement (the flagship path) and the setup-time spectral
@@ -24,7 +28,7 @@ reference's, so each counterpart is found by path:
                 W-cycles and fmg (MGCG).
 - ``models``  — the named workloads of the reference's drivers.
 - ``api``     — ``solve(A, b, method=...)`` for the ported methods.
-- ``convert`` — carries a hierarchy or a DIA matrix across from the
+- ``convert`` — carries a hierarchy or any container across from the
                 reference's fields.
 - ``scripts`` — runnable measurements on the card (the kernel #6
                 experiment).

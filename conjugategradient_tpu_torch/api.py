@@ -2,16 +2,20 @@
 
 The port of ``conjugategradient_tpu/api.py::solve`` for the ported methods:
 
-- ``method="cg"``      — plain CG on the card (DIA: kernel #4)
+- ``method="cg"``      — plain CG on the card, on any container of
+  ``core.formats`` (DIA: kernel #4; CSR, ELL, COO, BSR and dense: the plain
+  products of ``ops.spmv``)
 - ``method="mgcg"``    — multigrid-preconditioned CG (needs ``grid=``): the
   Galerkin hierarchy by default (variable-coefficient levels on kernel #3),
   or the rediscretized one with ``coarse_operator=``
 - ``method="refined"`` — mixed-precision iterative refinement to an fp64
   tolerance (``device_residual=True`` keeps the outer loop on the card)
-- ``method="oracle"``  — the fp64 numpy CPU oracle
+- ``method="oracle"``  — the fp64 numpy CPU oracle, on any host container
 
-An ``(n, k)`` right-hand side routes to the multi-RHS solvers: ``cg``
-(``cg_solve_multi``, kernel #5), ``mgcg`` (``cg_solve_multi`` on the DIA
+``refined`` and ``mgcg`` take a ``DiaMatrix``, as in the JAX package.  An
+``(n, k)`` right-hand side routes to the multi-RHS solvers: ``cg``
+(``cg_solve_multi``: kernel #5 for DIA, ``ops.spmm`` for the other
+containers), ``mgcg`` (``cg_solve_multi`` on the DIA
 SpMM with ``as_multi_preconditioner`` over the Galerkin hierarchy) and
 ``refined`` (``refined_solve_multi``, with or without ``grid``).
 Every other method of the JAX facade raises ``NotImplementedError`` naming
@@ -30,8 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from conjugategradient_tpu_torch.core import oracle
-from conjugategradient_tpu_torch.core.formats import DiaMatrix, StencilMatrix, default_device, place
+from conjugategradient_tpu_torch.core import formats, oracle
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, place
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 _PRECONDITIONERS = "ROADMAP queue 1: preconditioners"
@@ -49,10 +53,10 @@ _PREFIXES = ("jacobi_", "bjacobi_", "amg_", "mg_")
 
 
 def _place_matrix(A, dtype, device):
-    """A ``DiaMatrix`` or ``StencilMatrix`` on ``device`` at ``dtype``, as the
-    JAX facade calls ``device_put(dtype)`` on any container that has one; a
-    stencil of constants or a callable as it is."""
-    return A.device_put(dtype, device) if isinstance(A, (DiaMatrix, StencilMatrix)) else A
+    """Any container on ``device`` at ``dtype``, as the JAX facade calls
+    ``device_put(dtype)`` on any container that has one; a stencil of
+    constants or a callable as it is."""
+    return A.device_put(dtype, device) if hasattr(A, "device_put") else A
 
 
 def _refuse(method: str):
@@ -148,3 +152,11 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
         M = as_multi_preconditioner(build_hierarchy(A, grid, dtype=np_dtype, device=device))
     A_dev = _place_matrix(A, dtype, device)
     return cg_solve_multi(A_dev, B_dev, X0_dev, policy, M=M, **kw)
+
+
+def _to_csr(A) -> formats.CsrMatrix:
+    return formats._any_to_csr(A)
+
+
+def _diagonal(A):
+    return formats.matrix_diagonal(A)

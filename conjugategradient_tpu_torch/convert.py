@@ -2,18 +2,20 @@
 
 ``hierarchy_from_reference`` takes the reference hierarchy as plain numpy
 arrays and Python values (the caller does ``np.asarray`` on the JAX side), and
-``dia_from_reference`` takes a JAX ``DiaMatrix`` (host numpy or ``jnp`` data),
-so both packages can compute with the same state; this module never imports
-``jax``.
+``matrix_from_reference`` takes any JAX container (host numpy or ``jnp``
+data) by its class name and fields, so both packages can compute with the
+same state; this module never imports ``jax``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
+from conjugategradient_tpu_torch.core import formats
 from conjugategradient_tpu_torch.core.formats import (
     ConstStencilMatrix,
     DiaMatrix,
@@ -77,12 +79,36 @@ def hierarchy_from_reference(
     return h.to(default_device(device))
 
 
+#: how each static field of a container reads back as Python values
+_STATIC = {
+    "offsets": lambda v: tuple(int(o) for o in v),
+    "shape": lambda v: tuple(int(d) for d in v),
+    "grid": lambda v: tuple(int(d) for d in v),
+    "shifts": lambda v: tuple(tuple(int(d) for d in s) for s in v),
+    "coeffs": lambda v: tuple(float(c) for c in v),
+}
+
+
+def matrix_from_reference(obj):
+    """The port's host container of the same class name as a JAX container
+    (``DiaMatrix``, ``EllMatrix``, ``CsrMatrix``, ``CooMatrix``,
+    ``BsrMatrix``, ``DenseMatrix``, ``StencilMatrix``,
+    ``ConstStencilMatrix``): each array field a numpy copy (``np.asarray``
+    reads a ``jnp`` array without this module importing ``jax``), each
+    static field Python values."""
+    cls = {c.__name__: c for c in formats.CONTAINERS}.get(type(obj).__name__)
+    if cls is None:
+        raise TypeError(f"no port container for {type(obj).__name__}")
+    fields = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        fields[f.name] = _STATIC[f.name](v) if f.name in _STATIC else np.array(np.asarray(v))
+    return cls(**fields)
+
+
 def dia_from_reference(A_ref) -> DiaMatrix:
-    """The port's host ``DiaMatrix`` from a JAX ``DiaMatrix``: its data as a
-    numpy array (``np.asarray`` reads a ``jnp`` array without this module
-    importing ``jax``), its offsets and shape as Python ints."""
-    return DiaMatrix(
-        np.array(np.asarray(A_ref.data)),
-        tuple(int(o) for o in A_ref.offsets),
-        tuple(int(s) for s in A_ref.shape),
-    )
+    """The port's host ``DiaMatrix`` from a JAX ``DiaMatrix``
+    (``matrix_from_reference``)."""
+    if type(A_ref).__name__ != "DiaMatrix":
+        raise TypeError(f"not a DiaMatrix: {type(A_ref).__name__}")
+    return matrix_from_reference(A_ref)

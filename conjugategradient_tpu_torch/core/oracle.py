@@ -1,8 +1,9 @@
 """Pure-numpy fp64 CPU oracle: the ground truth for true-residual checks.
 
-A copy of the DIA part of ``conjugategradient_tpu/core/oracle.py``: the
-SpMV, the three residual-norm conventions and textbook CG with the
-reference's convergence policy (``method="oracle"`` of ``api.solve``).
+A copy of ``conjugategradient_tpu/core/oracle.py``: the SpMV of every
+container, the three residual-norm conventions, textbook CG with the
+reference's convergence policy (``method="oracle"`` of ``api.solve``) and
+the dense direct solve.
 
 - ``l2``      — sqrt(r.r)
 - ``linf``    — max|r|
@@ -15,7 +16,16 @@ import dataclasses
 
 import numpy as np
 
-from conjugategradient_tpu_torch.core.formats import DiaMatrix
+from conjugategradient_tpu_torch.core import formats
+from conjugategradient_tpu_torch.core.formats import (
+    BsrMatrix,
+    CooMatrix,
+    CsrMatrix,
+    DenseMatrix,
+    DiaMatrix,
+    EllMatrix,
+    StencilMatrix,
+)
 
 
 class NotConvergedError(RuntimeError):
@@ -36,20 +46,38 @@ def max_absolute(a: np.ndarray) -> float:
 
 
 def spmv(A, x: np.ndarray) -> np.ndarray:
-    """y = A x for a host ``DiaMatrix``, in the promoted dtype of A and x."""
-    if not isinstance(A, DiaMatrix):
-        raise NotImplementedError(
-            f"oracle.spmv of {type(A).__name__} is not ported yet "
-            "(ROADMAP queue 1: other formats and ingestion)"
-        )
+    """y = A x for a host container of any format, in the promoted dtype of
+    A and x."""
     x = np.asarray(x)
-    n = A.n
-    data = np.asarray(A.data)
-    y = np.zeros(n, dtype=np.result_type(data.dtype, x.dtype))
-    for k, off in enumerate(A.offsets):
-        i0, i1 = max(0, -off), min(n, n - off)
-        y[i0:i1] += data[k, i0:i1] * x[i0 + off : i1 + off]
-    return y
+    if isinstance(A, DiaMatrix):
+        n = A.n
+        data = np.asarray(A.data)
+        y = np.zeros(n, dtype=np.result_type(data.dtype, x.dtype))
+        for k, off in enumerate(A.offsets):
+            i0, i1 = max(0, -off), min(n, n - off)
+            y[i0:i1] += data[k, i0:i1] * x[i0 + off : i1 + off]
+        return y
+    if isinstance(A, CsrMatrix):
+        prods = np.asarray(A.data) * x[np.asarray(A.indices)]
+        y = np.zeros(A.n, dtype=prods.dtype)
+        np.add.at(y, np.asarray(A.row_ids), prods)
+        return y
+    if isinstance(A, EllMatrix):
+        return (np.asarray(A.data) * x[np.asarray(A.cols)]).sum(axis=1)
+    if isinstance(A, CooMatrix):
+        prods = np.asarray(A.data) * x[np.asarray(A.cols)]
+        y = np.zeros(A.n, dtype=prods.dtype)
+        np.add.at(y, np.asarray(A.rows), prods)
+        return y
+    if isinstance(A, BsrMatrix):
+        return spmv(formats.bsr_to_csr(A), x)
+    if isinstance(A, StencilMatrix):
+        return spmv(formats.stencil_to_dia(A), x)
+    if isinstance(A, formats.ConstStencilMatrix):
+        return spmv(formats.stencil_to_dia(formats.const_to_stencil(A)), x)
+    if isinstance(A, DenseMatrix):
+        return np.asarray(A.data) @ x
+    raise TypeError(f"unsupported matrix type {type(A)}")
 
 
 def residual_norm(r: np.ndarray, rr: float, rr0: float, norm: str) -> float:
@@ -127,3 +155,16 @@ def cg(
             history.append(residual)
         converged = iteration >= min_iteration and residual < tol
     return OracleResult(x, iteration, residual, True, history)
+
+
+def direct_solve(A, b: np.ndarray) -> np.ndarray:
+    """Dense direct solve (the R prototype's ground truth, ``R/CG.R:34``) of
+    a ``DenseMatrix``, ``DiaMatrix`` or ``CsrMatrix``."""
+    if not isinstance(A, DenseMatrix):
+        if isinstance(A, DiaMatrix):
+            A = formats.dia_to_dense(A)
+        elif isinstance(A, CsrMatrix):
+            A = formats.csr_to_dense(A)
+        else:
+            raise TypeError(f"unsupported matrix type {type(A)}")
+    return np.linalg.solve(np.asarray(A.data, dtype=np.float64), np.asarray(b, dtype=np.float64))

@@ -24,10 +24,21 @@
 //   of 256 rows touches a window of 256 + (bandwidth span) entries of x,
 //   which stays in L1/L2.  A neighbour outside [0, n) is never read and
 //   contributes 0, exactly what the JAX package's zero-padded x gives.
-//   Offsets travel by value (<= MAX_DIAGS = 256, enough for band 160).  Legs
-//   are summed in A.offsets order with an explicit fma, so the kernel and
-//   its twin differ only by FMA contraction, and SpMM column j equals the
-//   SpMV of column j bit for bit.
+//   Offsets travel by value, at most MAX_DIAGS = 256 a launch (band 160 has
+//   159).  Legs are summed in A.offsets order with an explicit fma, so the
+//   kernel and its twin differ only by FMA contraction, and SpMM column j
+//   equals the SpMV of column j bit for bit.
+//   More than MAX_DIAGS diagonals (a Galerkin level of a DIA-layout
+//   hierarchy carries 343 or 1331; a loaded band may carry any number):
+//   the wrapper (ops/cuda_dia.py::dia_groups) cuts A.offsets into
+//   consecutive groups of at most MAX_DIAGS legs and launches once per
+//   group, as the JAX package chains its groups of 32 diagonals through
+//   y_in.  Every launch after the first passes accumulate = 1: each thread
+//   starts its sum from the y[i] the previous launch wrote (the same type as
+//   its accumulator) and goes on fma by fma, so the chained result takes its
+//   legs in the same order, term by term, as one pass and as the twin.  The
+//   fused p.Ap is taken by the last group's launch only.  A launch of up to
+//   MAX_DIAGS diagonals (every band-160 launch) is the single launch it was.
 //   Instantiations (leg type / vector and accumulator type): fp32/fp32,
 //   bf16/fp32 (half the matrix bytes, fp32 accumulate, as _cm_kernel does
 //   for a bf16 matrix) and fp64/fp64 (the refinement's device residual).
@@ -76,7 +87,14 @@
 //   batches in 40 registers), and a cp.async copy pipeline of the
 //   coefficients into shared memory.
 //   Each thread sums its own row's legs in A.offsets order with an explicit
-//   fma, so column j equals kernel 4's SpMV of column j bit for bit.
+//   fma, so column j equals kernel 4's SpMV of column j bit for bit.  More
+//   than MAX_DIAGS diagonals chain in groups as kernel 4's do: a launch with
+//   accumulate = 1 starts each column's sum from the Y the previous group
+//   wrote.  Such a launch takes an instantiation of its own (ACC, unstaged,
+//   SPMM_LEGS_SHORT legs a batch, at most 4 columns: ptxas held fp64 K = 8
+//   to 64 registers and spilled), so the kernels of up to MAX_DIAGS
+//   diagonals are the code they were; a run-time flag read in every kernel
+//   had taken fp64 K = 8 staged past its 64-register cap into spills.
 //
 // Kernel 6: the single-call accumulating DIA SpMM, the same Y = A X as
 //   kernel 5 with the diagonals taken in groups.  Replaces
@@ -120,7 +138,8 @@
 //   Legs are summed in plan order into the partial with an explicit fma, and
 //   the partial added into y, exactly as the twin spmm_dia_acc_ref does, so
 //   the two differ only by FMA contraction.  Kernel 6 and kernel 5 round in
-//   different orders.
+//   different orders.  Kernel 6 keeps the MAX_DIAGS limit (its plan is one
+//   struct); only the experiment calls it.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -175,11 +194,11 @@ __device__ __forceinline__ double to_acc(double v) { return v; }
 __device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
 
-// (A x)[i], legs in offsets order; rows outside the band's reach skip the leg
+// (A x)[i] added to acc, legs in offsets order; rows outside the band's
+// reach skip the leg
 template <typename L, typename V>
 __device__ __forceinline__ V row_sum(const L* __restrict__ data, const V* __restrict__ x,
-                                     int n, const Offsets& offs, int i) {
-  V acc = 0;
+                                     int n, const Offsets& offs, int i, V acc) {
 #pragma unroll 4
   for (int k = 0; k < offs.n; ++k) {
     const int j = i + offs.off[k];
@@ -191,21 +210,22 @@ __device__ __forceinline__ V row_sum(const L* __restrict__ data, const V* __rest
 template <typename L, typename V>
 __global__ void __launch_bounds__(THREADS)
 spmv_dia_kernel(const L* __restrict__ data, const V* __restrict__ x, V* __restrict__ y, int n,
-                Offsets offs) {
+                Offsets offs, int accumulate) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < n) y[i] = row_sum(data, x, n, offs, i);
+  if (i < n) y[i] = row_sum(data, x, n, offs, i, accumulate ? y[i] : V(0));
 }
 
-// y = A p and one partial of p . y per block (fixed-order tree)
+// y = A p (continued from y when accumulate) and one partial of p . y per
+// block (fixed-order tree)
 template <typename L, typename V>
 __global__ void __launch_bounds__(THREADS)
 spmv_dot_dia_kernel(const L* __restrict__ data, const V* __restrict__ p, V* __restrict__ y,
-                    V* __restrict__ partial, int n, Offsets offs) {
+                    V* __restrict__ partial, int n, Offsets offs, int accumulate) {
   __shared__ V s[THREADS];
   const int i = blockIdx.x * THREADS + threadIdx.x;
   V prod = 0;
   if (i < n) {
-    const V v = row_sum(data, p, n, offs, i);
+    const V v = row_sum(data, p, n, offs, i, accumulate ? y[i] : V(0));
     y[i] = v;
     prod = v * p[i];
   }
@@ -259,20 +279,21 @@ __device__ __forceinline__ void load_legs(L (&d)[B], const L* __restrict__ row, 
 }
 
 // Y[c, i] = sum_k data[k, i] * X[c, i + offsets[k]] for K columns of stride
-// ld, one thread per row, legs in offsets order.  The coefficient stream is
+// ld, one thread per row, legs in offsets order (ACC: added to the Y an
+// earlier group of a chained launch wrote).  The coefficient stream is
 // software-pipelined in registers: the B coefficients of the next batch are
 // loaded before the FMAs of this one, so two batches of loads are in flight
 // per thread.  MASK (blocks near either end of [0, n)): a leg whose neighbour
 // leaves [0, n) is not read and adds nothing.  STAGE: X comes from the
 // block's window win[c * W + (j - i0 - lo)] in shared memory instead of
 // through L1.
-template <typename L, typename V, int K, int B, bool MASK, bool STAGE>
+template <typename L, typename V, int K, int B, bool MASK, bool STAGE, bool ACC>
 __device__ __forceinline__ void spmm_row(const L* __restrict__ row, const V* __restrict__ X,
                                          V* __restrict__ Y, int n, long long ld,
                                          const SpmmOffsets& offs, int i, const V* win, int W) {
   V acc[K];
 #pragma unroll
-  for (int c = 0; c < K; ++c) acc[c] = V(0);
+  for (int c = 0; c < K; ++c) acc[c] = ACC ? Y[c * ld + i] : V(0);
   const int nd = offs.n;
   L cur[B], nxt[B];
   load_legs(cur, row, n, nd, 0);
@@ -303,7 +324,7 @@ __device__ __forceinline__ void spmm_row(const L* __restrict__ row, const V* __r
 // memory, where a warp's reads at any offset take one wavefront (through L1
 // an unaligned read takes two); each thread requests up to four columns of a
 // window entry before it stores them.
-template <typename L, typename V, int K, int B, bool STAGE>
+template <typename L, typename V, int K, int B, bool STAGE, bool ACC>
 __device__ __forceinline__ void spmm_block(const L* __restrict__ data, const V* __restrict__ X,
                                            V* __restrict__ Y, int n, long long ld,
                                            const SpmmOffsets& offs) {
@@ -332,16 +353,16 @@ __device__ __forceinline__ void spmm_block(const L* __restrict__ data, const V* 
   const bool interior = i0 + offs.lo >= 0 && (long long)i0 + SPMM_THREADS + offs.hi <= n;
   if (i >= n) return;
   if (interior)
-    spmm_row<L, V, K, B, false, STAGE>(data + i, X, Y, n, ld, offs, i, win, W);
+    spmm_row<L, V, K, B, false, STAGE, ACC>(data + i, X, Y, n, ld, offs, i, win, W);
   else
-    spmm_row<L, V, K, B, true, STAGE>(data + i, X, Y, n, ld, offs, i, win, W);
+    spmm_row<L, V, K, B, true, STAGE, ACC>(data + i, X, Y, n, ld, offs, i, win, W);
 }
 
-template <typename L, typename V, int K, int B>
+template <typename L, typename V, int K, int B, bool ACC>
 __global__ void __launch_bounds__(SPMM_THREADS)
 spmm_dia_kernel(const L* __restrict__ data, const V* __restrict__ X, V* __restrict__ Y, int n,
                 long long ld, const __grid_constant__ SpmmOffsets offs) {
-  spmm_block<L, V, K, B, false>(data, X, Y, n, ld, offs);
+  spmm_block<L, V, K, B, false, ACC>(data, X, Y, n, ld, offs);
 }
 
 // the staged form, held to SPMM_STAGE_MINB blocks per SM (64 registers):
@@ -351,7 +372,7 @@ template <typename L, typename V, int K, int B>
 __global__ void __launch_bounds__(SPMM_THREADS, SPMM_STAGE_MINB)
 spmm_dia_kernel_stage(const L* __restrict__ data, const V* __restrict__ X, V* __restrict__ Y,
                       int n, long long ld, const __grid_constant__ SpmmOffsets offs) {
-  spmm_block<L, V, K, B, true>(data, X, Y, n, ld, offs);
+  spmm_block<L, V, K, B, true, false>(data, X, Y, n, ld, offs);
 }
 
 // The group plan of kernel 6: group g holds plan legs [begin[g], begin[g+1]);
@@ -590,18 +611,18 @@ static inline int blocks_of(int n) { return (n + THREADS - 1) / THREADS; }
 
 template <typename L, typename V>
 static int launch_spmv(const void* data, const void* x, void* y, int n, const Offsets& o,
-                       cudaStream_t st) {
+                       int accumulate, cudaStream_t st) {
   spmv_dia_kernel<L, V><<<blocks_of(n), THREADS, 0, st>>>((const L*)data, (const V*)x, (V*)y, n,
-                                                          o);
+                                                          o, accumulate);
   return (int)cudaGetLastError();
 }
 
 template <typename L, typename V>
 static int launch_spmv_dot(const void* data, const void* p, void* y, void* partial, void* dot,
-                           int n, const Offsets& o, cudaStream_t st) {
+                           int n, const Offsets& o, int accumulate, cudaStream_t st) {
   const int nb = blocks_of(n);
   spmv_dot_dia_kernel<L, V><<<nb, THREADS, 0, st>>>((const L*)data, (const V*)p, (V*)y,
-                                                    (V*)partial, n, o);
+                                                    (V*)partial, n, o, accumulate);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sum_partials_kernel<V><<<1, THREADS, 0, st>>>((const V*)partial, nb, (V*)dot);
@@ -642,15 +663,25 @@ static int launch_spmm_kb(const L* d, const V* x, V* y, int n, long long ld, con
       return (int)cudaGetLastError();
     }
   }
-  spmm_dia_kernel<L, V, K, B><<<nb, SPMM_THREADS, 0, st>>>(d, x, y, n, ld, o);
+  spmm_dia_kernel<L, V, K, B, false><<<nb, SPMM_THREADS, 0, st>>>(d, x, y, n, ld, o);
   return (int)cudaGetLastError();
 }
 
 // the batch (spmm_batch) picks the instantiation; only fp32 legs with up to
-// four columns ever take SPMM_LEGS, so only those are built with it
+// four columns ever take SPMM_LEGS, so only those are built with it.  A
+// chained launch after the first (accumulate) takes the ACC instantiation.
 template <typename L, typename V, int K>
 static int launch_spmm_k(int nd, const L* d, const V* x, V* y, int n, long long ld,
-                         const SpmmOffsets& o, cudaStream_t st) {
+                         const SpmmOffsets& o, int accumulate, cudaStream_t st) {
+  if (accumulate) {
+    if constexpr (K <= 4) {
+      const int nb = (n + SPMM_THREADS - 1) / SPMM_THREADS;
+      spmm_dia_kernel<L, V, K, SPMM_LEGS_SHORT, true><<<nb, SPMM_THREADS, 0, st>>>(d, x, y, n, ld,
+                                                                                    o);
+      return (int)cudaGetLastError();
+    }
+    return (int)cudaErrorInvalidValue;  // a chained launch takes at most 4 columns
+  }
   if constexpr (sizeof(L) == 4 && K <= 4) {
     if (spmm_batch<L>(K, nd) == SPMM_LEGS)
       return launch_spmm_kb<L, V, K, SPMM_LEGS>(d, x, y, n, ld, o, st);
@@ -660,15 +691,15 @@ static int launch_spmm_k(int nd, const L* d, const V* x, V* y, int n, long long 
 
 template <typename L, typename V>
 static int launch_spmm(int k, const void* data, const void* X, void* Y, int n, long long ld,
-                       const SpmmOffsets& o, cudaStream_t st) {
+                       const SpmmOffsets& o, int acc, cudaStream_t st) {
   const L* d = (const L*)data;
   const V* x = (const V*)X;
   V* y = (V*)Y;
   switch (k) {
-    case 1: return launch_spmm_k<L, V, 1>(o.n, d, x, y, n, ld, o, st);
-    case 2: return launch_spmm_k<L, V, 2>(o.n, d, x, y, n, ld, o, st);
-    case 4: return launch_spmm_k<L, V, 4>(o.n, d, x, y, n, ld, o, st);
-    case 8: return launch_spmm_k<L, V, 8>(o.n, d, x, y, n, ld, o, st);
+    case 1: return launch_spmm_k<L, V, 1>(o.n, d, x, y, n, ld, o, acc, st);
+    case 2: return launch_spmm_k<L, V, 2>(o.n, d, x, y, n, ld, o, acc, st);
+    case 4: return launch_spmm_k<L, V, 4>(o.n, d, x, y, n, ld, o, acc, st);
+    case 8: return launch_spmm_k<L, V, 8>(o.n, d, x, y, n, ld, o, acc, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -677,40 +708,45 @@ extern "C" {
 
 const char* cg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// code: 0 fp32 legs / fp32 x, 1 bf16 legs / fp32 x, 2 fp64 legs / fp64 x
+// code: 0 fp32 legs / fp32 x, 1 bf16 legs / fp32 x, 2 fp64 legs / fp64 x;
+// data: this launch's ndiags legs; accumulate: 1 to add them to the y an
+// earlier group wrote (a chained launch), 0 to start from 0
 int cg_spmv_dia(int code, const void* data, const void* x, void* y, int n, int ndiags,
-                const int* offsets, void* stream) {
+                const int* offsets, int accumulate, void* stream) {
   Offsets o;
   int err = fill_offsets(&o, ndiags, offsets);
   if (err) return err;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
-    case FP32: return launch_spmv<float, float>(data, x, y, n, o, st);
-    case BF16: return launch_spmv<__nv_bfloat16, float>(data, x, y, n, o, st);
-    case FP64: return launch_spmv<double, double>(data, x, y, n, o, st);
+    case FP32: return launch_spmv<float, float>(data, x, y, n, o, accumulate, st);
+    case BF16: return launch_spmv<__nv_bfloat16, float>(data, x, y, n, o, accumulate, st);
+    case FP64: return launch_spmv<double, double>(data, x, y, n, o, accumulate, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// partial: ceil(n / 256) scratch values; dot: one value (p . A p)
+// partial: ceil(n / 256) scratch values; dot: one value (p . A p);
+// accumulate as cg_spmv_dia (the dot is of the whole y)
 int cg_spmv_dot_dia(int code, const void* data, const void* p, void* y, void* partial, void* dot,
-                    int n, int ndiags, const int* offsets, void* stream) {
+                    int n, int ndiags, const int* offsets, int accumulate, void* stream) {
   Offsets o;
   int err = fill_offsets(&o, ndiags, offsets);
   if (err) return err;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
-    case FP32: return launch_spmv_dot<float, float>(data, p, y, partial, dot, n, o, st);
-    case BF16: return launch_spmv_dot<__nv_bfloat16, float>(data, p, y, partial, dot, n, o, st);
-    case FP64: return launch_spmv_dot<double, double>(data, p, y, partial, dot, n, o, st);
+    case FP32: return launch_spmv_dot<float, float>(data, p, y, partial, dot, n, o, accumulate, st);
+    case BF16:
+      return launch_spmv_dot<__nv_bfloat16, float>(data, p, y, partial, dot, n, o, accumulate, st);
+    case FP64:
+      return launch_spmv_dot<double, double>(data, p, y, partial, dot, n, o, accumulate, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// k in {1, 2, 4, 8} columns starting at X / Y, column stride ld; code as
-// cg_spmv_dia
+// k in {1, 2, 4, 8} columns starting at X / Y, column stride ld; code and
+// accumulate as cg_spmv_dia
 int cg_spmm_dia(int code, int k, const void* data, const void* X, void* Y, int n, long long ld,
-                int ndiags, const int* offsets, void* stream) {
+                int ndiags, const int* offsets, int accumulate, void* stream) {
   if (ndiags < 1 || ndiags > MAX_DIAGS || n < 1) return (int)cudaErrorInvalidValue;
   SpmmOffsets o = {};
   o.n = ndiags;
@@ -721,9 +757,9 @@ int cg_spmm_dia(int code, int k, const void* data, const void* X, void* Y, int n
   }
   const cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
-    case FP32: return launch_spmm<float, float>(k, data, X, Y, n, ld, o, st);
-    case BF16: return launch_spmm<__nv_bfloat16, float>(k, data, X, Y, n, ld, o, st);
-    case FP64: return launch_spmm<double, double>(k, data, X, Y, n, ld, o, st);
+    case FP32: return launch_spmm<float, float>(k, data, X, Y, n, ld, o, accumulate, st);
+    case BF16: return launch_spmm<__nv_bfloat16, float>(k, data, X, Y, n, ld, o, accumulate, st);
+    case FP64: return launch_spmm<double, double>(k, data, X, Y, n, ld, o, accumulate, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,9 +5,14 @@ TwoProduct) and sums products and errors separately.  Dekker's split is only
 error-free when no multiply-add is contracted into an FMA, so these stay
 eager PyTorch ops, one elementwise kernel per line: do not ``torch.compile``
 them or fuse them into a kernel without re-deriving the error bound.
+
+``no_tf32`` keeps the dense and block products of ``ops.spmv`` and
+``ops.spmm`` in full fp32 on the card.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -41,3 +46,16 @@ def dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def kahan_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Compensated inner product; the name the solvers use for ``dot2``."""
     return dot2(a, b)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """CUDA matmuls in full fp32 inside the block (TF32 keeps about three
+    decimal digits): the port's form of the JAX package's
+    ``Precision.HIGHEST`` pins.  The previous setting comes back on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

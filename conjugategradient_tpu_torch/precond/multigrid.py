@@ -516,7 +516,7 @@ def build_hierarchy(
         )
     t0 = time.perf_counter()
     dt = dtype or np.asarray(A_h.data).dtype
-    dense = dia_to_dense(A_h)
+    dense = dia_to_dense(A_h).data
     coarse_inv = torch.from_numpy(np.linalg.inv(np.asarray(dense, dtype=np.float64)).astype(dt))
     h = MgHierarchy(levels, coarse_inv, smoother, pre, post, omega)
     t1 = time.perf_counter()

@@ -21,8 +21,18 @@ from typing import Optional
 
 import torch
 
-from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, DiaMatrix, StencilMatrix
+from conjugategradient_tpu_torch.core.formats import (
+    BsrMatrix,
+    ConstStencilMatrix,
+    CsrMatrix,
+    DenseMatrix,
+    DiaMatrix,
+    EllMatrix,
+    StencilMatrix,
+)
 from conjugategradient_tpu_torch.ops.cuda_dia import spmm_dia_cuda
+from conjugategradient_tpu_torch.ops.spmm import spmm
+from conjugategradient_tpu_torch.ops.spmv import prepare
 from conjugategradient_tpu_torch.ops.stencil import spmm_columns
 from conjugategradient_tpu_torch.solvers.cg import _safe_div
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
@@ -38,20 +48,20 @@ class MultiCGResult:
 
 def _as_multi_operator(A, device):
     """A (k, n) -> (k, n) operator: kernel #5 for a DIA matrix, the stencil
-    SpMM (kernel #1 or #3 per column) for a stencil, a transposed call for an
-    (n, k) callable."""
-    if isinstance(A, (DiaMatrix, StencilMatrix)) and not torch.is_tensor(A.data):
-        A = A.device_put(device=device)
+    SpMM (kernel #1 or #3 per column) for a stencil, ``ops.spmm`` on the
+    transposed block for every other container, a transposed call for an
+    (n, k) callable.  ``ops.spmv.prepare`` places a host container on
+    ``device`` first and sorts a COO matrix into its CSR once."""
+    A = prepare(A, device)
     if isinstance(A, DiaMatrix):
         return lambda P: spmm_dia_cuda(A, P)
     if isinstance(A, (StencilMatrix, ConstStencilMatrix)):
         return lambda P: spmm_columns(A, P)
+    if isinstance(A, (CsrMatrix, EllMatrix, BsrMatrix, DenseMatrix)):
+        return lambda P: spmm(A, P.T).T.contiguous()
     if callable(A):
         return lambda P: A(P.T).T.contiguous()
-    raise NotImplementedError(
-        f"multi-RHS SpMM of {type(A).__name__} is not ported yet "
-        "(ROADMAP queue 1: other formats and ingestion)"
-    )
+    raise TypeError(f"unsupported matrix type {type(A)}")
 
 
 def as_multi_preconditioner(h):
@@ -95,8 +105,8 @@ def cg_solve_multi(
     Per-column convergence policy (same tol and norm for all columns); the
     loop exits when every column is converged or at max_iteration.  ``A`` is
     a ``DiaMatrix`` (kernel #5 on a CUDA tensor, its twin on a CPU one), a
-    ``StencilMatrix`` or ``ConstStencilMatrix`` (``ops.stencil.spmm_columns``)
-    or an (n, k) -> (n, k) callable; ``M`` is an optional (n, k) -> (n, k)
+    ``StencilMatrix`` or ``ConstStencilMatrix`` (``ops.stencil.spmm_columns``),
+    any other container (``ops.spmm``) or an (n, k) -> (n, k) callable; ``M`` is an optional (n, k) -> (n, k)
     preconditioner (``as_multi_preconditioner`` for MGCG).  ``use_pallas`` is kept for parity and changes nothing
     (see ``ops.spmv.as_operator``).
     """

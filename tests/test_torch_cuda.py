@@ -375,9 +375,15 @@ def test_dia_kernels_raise_instead_of_falling_back(cuda):
     assert torch.equal(spmm_dia_cuda(A64, X64)[1], spmv_dia_cuda(A64, X64[1].contiguous()))
     with pytest.raises(TypeError, match="fp32 or bf16"):
         spmm_dia_acc_cuda(A64, X64)
-    wide = DiaMatrix(torch.zeros((300, 400), device=cuda), tuple(range(-150, 150)), (400, 400))
-    with pytest.raises(ValueError, match="diagonals"):
-        spmv_dia_cuda(wide, torch.zeros(400, device=cuda))
+    # more than 256 diagonals run in chained launches on #4 and #5; kernel
+    # #6 and an empty matrix refuse
+    wide = DiaMatrix(torch.ones((300, 400), device=cuda), tuple(range(-150, 150)), (400, 400))
+    x = torch.ones(400, device=cuda)
+    assert torch.equal(spmv_dia_cuda(wide, x), spmv_dia_ref(wide, x))
+    with pytest.raises(ValueError, match="1..256 diagonals"):
+        spmm_dia_acc_cuda(wide, torch.ones((2, 400), device=cuda))
+    with pytest.raises(ValueError, match="got 0"):
+        spmv_dia_cuda(DiaMatrix(torch.zeros((0, 400), device=cuda), (), (400, 400)), x)
 
 
 def test_refined_flagship_contract_on_card_matches_cpu(cuda):
@@ -991,3 +997,157 @@ def test_fmg_on_card_matches_cpu(cuda):
         h = build_hierarchy(s.A, grid, device=dev)
         x[dev] = fmg(h, torch.from_numpy(s.b).to(dev)).cpu()
     assert float((x["cuda"] - x["cpu"]).abs().max() / x["cpu"].abs().max()) <= 1e-12
+
+
+# -- kernels #4 and #5 past 256 diagonals; every format on the card ---------
+
+def _many_diagonals(case):
+    """A DIA matrix with more than 256 diagonals: a band of 300 offsets, or
+    a random 7^3- or 11^3-leg stencil on 16^3 (the 16^3 levels of the 128^3
+    and 256^3 DIA-layout hierarchies carry 343 and 1331)."""
+    rng = np.random.default_rng(len(case))
+    if case == "band 300":
+        n, offs = 4000, tuple(range(-150, 150))
+    else:
+        g, h = 16, {"16^3 x 343": 3, "16^3 x 1331": 5}[case]
+        n = g ** 3
+        offs = tuple(sorted({(a * g + b) * g + c for a in range(-h, h + 1)
+                             for b in range(-h, h + 1) for c in range(-h, h + 1)}))
+    data = rng.standard_normal((len(offs), n))
+    i = np.arange(n)
+    for k, o in enumerate(offs):
+        data[k, (i + o < 0) | (i + o >= n)] = 0.0
+    return DiaMatrix(data, offs, (n, n))
+
+
+def _in_nan_buffer(X):
+    """``X`` copied into the middle of a NaN-filled buffer: a read past
+    [0, n) leaks a NaN."""
+    pad = 8192
+    buf = torch.full((X.numel() + 2 * pad,), float("nan"), dtype=X.dtype, device=X.device)
+    Xc = buf[pad : pad + X.numel()].view(X.shape)
+    Xc.copy_(X)
+    return Xc
+
+
+@pytest.mark.parametrize("case", ["band 300", "16^3 x 343", "16^3 x 1331"])
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+def test_dia_kernels_past_256_diagonals_match_twin(cuda, case, legs):
+    A = _many_diagonals(case).device_put(legs, cuda)
+    groups = len(cuda_dia.dia_groups(A.ndiags))
+    assert groups > 1
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    gen = torch.Generator(device=cuda).manual_seed(A.ndiags)
+    x = _in_nan_buffer(torch.randn(A.n, generator=gen, device=cuda, dtype=vec))
+    cuda_dia.reset_launch_counts()
+    y, ref = spmv_dia_cuda(A, x), spmv_dia_ref(A, x)
+    yf, dot = spmv_dot_dia_cuda(A, x)
+    torch.cuda.synchronize()
+    assert spmv_dia_cuda.launches == spmv_dot_dia_cuda.launches == groups
+    assert spmv_dia_cuda.launches_by_shape == {(A.n, A.ndiags): groups}
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+    assert torch.equal(yf, y)
+    assert abs(float(dot) - float(torch.dot(x, ref))) <= rel * float((x * ref).abs().sum())
+    for k in (1, 3, 4, 8):
+        X = _in_nan_buffer(torch.randn((k, A.n), generator=gen, device=cuda, dtype=vec))
+        n0 = spmm_dia_cuda.launches
+        Y, Yr = spmm_dia_cuda(A, X), spmm_dia_ref(A, X)
+        torch.cuda.synchronize()
+        assert spmm_dia_cuda.launches - n0 == groups * len(cuda_dia.spmm_chunks(A, k))
+        assert float((Y - Yr).abs().max()) <= rel * float(Yr.abs().max()), k
+        for j in range(k):
+            assert torch.equal(Y[j], spmv_dia_cuda(A, X[j].contiguous())), (k, j)
+
+
+def test_dia_layout_mgcg_past_256_diagonals_converges(cuda):
+    """The 128^3 DIA-layout hierarchy's 16^3 level carries 343 diagonals;
+    kernel #4 refused it before its launches were chained."""
+    from conjugategradient_tpu_torch import api
+
+    g = (128, 128, 128)
+    s = generators.poisson_system(g, dtype=np.float32)
+    h = build_hierarchy(s.A, g, layout="dia", dtype=np.float32, device=cuda)
+    assert max(lvl.A.ndiags for lvl in h.levels) == 343
+    cuda_dia.reset_launch_counts()
+    res = api.solve(s.A, s.b, method="mgcg", grid=g, layout="dia", hierarchy=h, tol=1e-6,
+                    norm="rel_l2", dtype=np.float32, device=cuda)
+    torch.cuda.synchronize()
+    assert res.converged and spmv_dia_cuda.launches > 0
+    x = res.x.double().cpu().numpy()
+    A64 = s.A.astype(np.float64)
+    from conjugategradient_tpu_torch.core import oracle
+
+    b = np.asarray(s.b, np.float64)
+    assert np.linalg.norm(b - oracle.spmv(A64, x)) / np.linalg.norm(b) <= 1e-5
+
+
+def _format_cases():
+    from conjugategradient_tpu_torch.core import formats as F
+
+    A = generators.banded_sin_matrix(8192, 160)
+    csr = F.dia_to_csr(A)
+    return {"csr": csr, "ell": F.csr_to_ell(csr), "coo": F.csr_to_coo(csr),
+            "bsr": F.csr_to_bsr(csr, (8, 8)), "dense": F.csr_to_dense(csr), "dia": A}
+
+
+@pytest.mark.parametrize("fmt", ["csr", "ell", "coo", "bsr", "dense", "dia"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_format_products_on_card_match_oracle(cuda, fmt, dtype):
+    from conjugategradient_tpu_torch.core import oracle
+    from conjugategradient_tpu_torch.ops.spmm import spmm
+    from conjugategradient_tpu_torch.ops.spmv import spmv
+
+    A = _format_cases()[fmt]
+    rng = np.random.default_rng(3)
+    x, X = rng.standard_normal(A.n), rng.standard_normal((A.n, 4))
+    ref = oracle.spmv(A, x)
+    refX = np.stack([oracle.spmv(A, X[:, j]) for j in range(4)], axis=1)
+    Ad = A.device_put(dtype, cuda)
+    y = spmv(Ad, torch.from_numpy(x).to(cuda, dtype))
+    Y = spmm(Ad, torch.from_numpy(X).to(cuda, dtype))
+    assert y.device.type == Y.device.type == "cuda" and y.dtype == Y.dtype == dtype
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    assert np.abs(y.cpu().numpy() - ref).max() <= rel * np.abs(ref).max()
+    assert np.abs(Y.cpu().numpy() - refX).max() <= rel * np.abs(refX).max()
+    if fmt in ("ell", "dense", "dia"):  # cuSPARSE (CSR, COO, BSR) promises no such thing
+        assert torch.equal(spmv(Ad, torch.from_numpy(x).to(cuda, dtype)), y)
+
+
+@pytest.mark.parametrize("route", ["cg_solve", "api.solve", "api.solve block"])
+def test_host_csr_solves_on_the_card(cuda, route):
+    from conjugategradient_tpu_torch import api
+    from conjugategradient_tpu_torch.core import formats as F
+    from conjugategradient_tpu_torch.solvers.multi import cg_solve_multi
+
+    s = generators.banded_sin_system(4096, 32)
+    csr = F.dia_to_csr(s.A)
+    b = torch.from_numpy(s.b).to(cuda)
+    if route == "cg_solve":
+        res, ref = cg_solve(csr, b), cg_solve(csr, b.cpu())
+    elif route == "api.solve":
+        res, ref = api.solve(csr, b), api.solve(csr, s.b, device="cpu")
+    else:
+        B = torch.stack([b, 2 * b], 1)
+        res, ref = api.solve(csr, B), cg_solve_multi(csr, B.cpu())
+    assert res.x.device.type == "cuda"
+    its = lambda r: torch.as_tensor(r.iterations).cpu().numpy()
+    np.testing.assert_array_equal(its(res), its(ref))
+    assert float((res.x.cpu() - ref.x).abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("fmt", ["csr", "ell"])
+def test_kernel_operator_runs_kernel_4_on_the_card(cuda, fmt):
+    from conjugategradient_tpu_torch.core import formats as F
+    from conjugategradient_tpu_torch.core import oracle
+
+    A = generators.banded_sin_matrix(8192, 160)
+    csr = F.dia_to_csr(A)
+    op = cuda_dia.make_kernel_operator(csr if fmt == "csr" else F.csr_to_ell(csr), device=cuda)
+    x = np.random.default_rng(5).standard_normal(A.n)
+    cuda_dia.reset_launch_counts()
+    y = op(torch.from_numpy(x).to(cuda))
+    torch.cuda.synchronize()
+    assert spmv_dia_cuda.launches == 1
+    ref = oracle.spmv(A, x)
+    assert np.abs(y.cpu().numpy() - ref).max() <= 1e-12 * np.abs(ref).max()

@@ -213,9 +213,19 @@ def test_kernel_path_checks_raise_instead_of_falling_back():
                                                            device="meta"))
     with pytest.raises(TypeError, match="device_put"):
         spmv_dia_cuda(A, x)
+    # more than 256 diagonals pass the count check (chained launches) and
+    # stop at the device check; none at all, or more than 256 for kernel #6,
+    # stop at the count
     wide = DiaMatrix(np.zeros((300, 400), np.float32), tuple(range(-150, 150)), (400, 400))
-    with pytest.raises(ValueError, match="diagonals"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         spmv_dia_cuda(_meta(wide, torch.float32), torch.empty(400, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        spmm_dia_cuda(_meta(wide, torch.float32), torch.empty((2, 400), device="meta"))
+    with pytest.raises(ValueError, match="1..256 diagonals"):
+        cuda_dia.spmm_dia_acc_cuda(_meta(wide, torch.float32), torch.empty((2, 400), device="meta"))
+    empty = DiaMatrix(np.zeros((0, 400), np.float32), (), (400, 400))
+    with pytest.raises(ValueError, match="1 diagonals supported, got 0"):
+        spmv_dia_cuda(_meta(empty, torch.float32), torch.empty(400, device="meta"))
     with pytest.raises(TypeError, match="DiaMatrix"):
         spmv_dia_cuda(object(), x)
 
@@ -230,15 +240,16 @@ def test_device_put_and_bandwidth():
     assert P.offsets == A.offsets and P.shape == A.shape
 
 
-def test_unported_formats_raise():
+def test_unsupported_types_raise_type_error():
     from conjugategradient_tpu_torch.core.formats import StencilMatrix
 
     st = StencilMatrix(np.ones((1, 4, 4)), ((0, 0),), (4, 4))
-    # the variable-coefficient stencil SpMV is ported (kernel #3); its
-    # multi-RHS SpMM is not
+    # the variable-coefficient stencil SpMV runs (kernel #3); the spmm
+    # dispatch takes no grid stencil and a bare array is no operator, each a
+    # TypeError as in the JAX package's dispatch
     assert torch.equal(as_operator(st)(torch.arange(16.0, dtype=torch.float64)),
                        torch.arange(16.0, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: other formats and ingestion"):
+    with pytest.raises(TypeError, match="unsupported matrix type"):
         spmm(st, torch.zeros((16, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: other formats and ingestion"):
+    with pytest.raises(TypeError, match="unsupported matrix type"):
         as_operator(np.zeros((4, 4)))

@@ -75,7 +75,7 @@ def test_format_conversions_match_jax(grid):
     assert (ct.coeffs, ct.shifts, ct.grid) == (cj.coeffs, cj.shifts, cj.grid)
     assert ct.halo == cj.halo and ct.nnz == cj.nnz == stt.nnz
     np.testing.assert_array_equal(tfmt.dia_diagonal(st.A), jfmt.dia_diagonal(sj.A))
-    np.testing.assert_array_equal(tfmt.dia_to_dense(st.A), np.asarray(jfmt.dia_to_dense(sj.A).data))
+    np.testing.assert_array_equal(tfmt.dia_to_dense(st.A).data, np.asarray(jfmt.dia_to_dense(sj.A).data))
     for off in (1, -1, grid[-1], -grid[-1], grid[-1] + 1, 7 * grid[-1] - 3):
         assert tfmt._decompose_offset(off, grid) == jfmt._decompose_offset(off, grid)
     x = np.random.default_rng(0).standard_normal(st.n)
