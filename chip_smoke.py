@@ -80,6 +80,22 @@ after:
   must load as DIA, solve on #4 and, as an n x 4 block, on #5.  Every
   format's SpMV and SpMM (k = 4) against the fp64 oracle, timed beside its
   bound, and #4/#5 past 256 diagonals timed beside cuSPARSE.
+- The CG drivers.  On four paths (255^3 Poisson, 255^3 jump and 1024^2
+  Galerkin MGCG in fp32, each as ``mgcg_solve`` runs it over the
+  hierarchies built above; the flagship in fp64 through
+  ``make_kernel_operator``, kernel #4), ``cg_solve`` against
+  ``cg_solve_chunked`` (one CUDA graph per masked chunk) at chunk 1 and at
+  chunk = the path's iteration count: equal iteration counts and converged
+  flags, each within the path's true-residual bound, warm walls with the
+  capture time apart, x's bit-identity, and a profiled chunk-1 solve in
+  which the trace's graph launches ran exactly the captured step's kernel
+  launches (the wrappers count a captured launch once) once per replay.
+  Then a chunked 255^3 jump solve
+  killed after its first chunk and resumed from its checkpoint file (the
+  uninterrupted count), ``cg_solve_traced`` on the 255^3 Poisson MGCG
+  (its history against the chunked residual), the 127^3 smooth hierarchy
+  saved and loaded (``save_pytree``; the same count and x), and the
+  ``reference_workloads`` twin at ``--quick`` in fp64 (every row OK).
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -159,6 +175,7 @@ from conjugategradient_tpu_torch.ops.cuda_dia import (
     TAGS,
     dia_groups,
     k_chunks,
+    launch_counts,
     make_kernel_operator,
     spmm_dia_acc_cuda,
     spmm_dia_acc_ref,
@@ -190,11 +207,12 @@ from conjugategradient_tpu_torch.precond.multigrid import (
     build_hierarchy,
     fmg,
 )
-from conjugategradient_tpu_torch.scripts import spmm_acc_experiment
-from conjugategradient_tpu_torch.solvers.cg import cg_solve
+from conjugategradient_tpu_torch.scripts import reference_workloads, spmm_acc_experiment
+from conjugategradient_tpu_torch.solvers.cg import cg_solve, cg_solve_chunked, cg_solve_traced
 from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 from conjugategradient_tpu_torch.solvers.refine import refined_solve, refined_solve_multi
+from conjugategradient_tpu_torch.utils import PhaseTimer, load_pytree, load_state, save_pytree
 
 #: max |kernel - twin| <= KERNEL_REL * max |twin|: same leg order in fp32
 #: (or bf16 legs with fp32 accumulation), only FMA contraction differs.
@@ -1170,11 +1188,10 @@ def _wide_by_grid(prof, h):
     return {k: [round(ms, 4), n] for k, (ms, n) in sorted(out.items())}
 
 
-def _device_time_top(fn, wall_ms: float, card, top: int = 6, h=None):
-    """Run ``fn`` once under ``torch.profiler`` and print the device time by
-    kernel name (the ``top`` largest) beside the profiled wall, and the
-    device's busy share of ``wall_ms``, the same work's unprofiled wall;
-    with a hierarchy ``h``, the wide #3's device time by level too."""
+def _profile_rows(fn):
+    """Run ``fn`` once under ``torch.profiler``: (the profiler, the profiled
+    wall in ms, [(device us, launches, name)] of its device ops, largest
+    first)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
@@ -1186,6 +1203,15 @@ def _device_time_top(fn, wall_ms: float, card, top: int = 6, h=None):
     rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
+    return prof, prof_ms, rows
+
+
+def _device_time_top(fn, wall_ms: float, card, top: int = 6, h=None):
+    """Run ``fn`` once under ``torch.profiler`` and print the device time by
+    kernel name (the ``top`` largest) beside the profiled wall, and the
+    device's busy share of ``wall_ms``, the same work's unprofiled wall;
+    with a hierarchy ``h``, the wide #3's device time by level too."""
+    prof, prof_ms, rows = _profile_rows(fn)
     total_ms = sum(r[0] for r in rows) / 1e3
     wide = "" if h is None else f"; wide #3 device [ms, launches] by grid {_wide_by_grid(prof, h)}"
     print(f"profile: profiled wall {prof_ms:.3f} ms, device time {total_ms:.3f} ms in "
@@ -1686,7 +1712,8 @@ def _fmg_then_mgcg(s, grid, h, dev, card, from_zero):
 def _multigrid_kinds(dev, card, errs, count):
     """The rest of the multigrid build at full size, each path counted
     (``count``), the wide kernel #3 checked against its twin at the paths'
-    shapes first.  Returns the wide kernel's timing cases."""
+    shapes first.  Returns the wide kernel's timing cases and the 1024^2
+    Galerkin system with its hierarchy."""
     h64 = _kind_small_card_vs_cpu(dev)
     s3 = _kind_system("poisson", KIND_GRID_3D)
     h3g = _kind_hierarchy(f"Galerkin Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, dev)
@@ -1751,7 +1778,7 @@ def _multigrid_kinds(dev, card, errs, count):
     count(label, counts, fp32=False)
     return [(label, A.astype(torch.float32),
              (torch.float32, torch.bfloat16, torch.float64) if i == 0 else (torch.float32,))
-            for i, (label, A) in enumerate(wide)]
+            for i, (label, A) in enumerate(wide)], (s2, h2g)
 
 
 def _nan_buffered(X):
@@ -2128,6 +2155,247 @@ def _format_products(csr, dev, card):
           f"{time_ms(lambda: op(x), 200):.4f} ms [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# the CG drivers: cg_solve against cg_solve_chunked (one CUDA graph per
+# masked chunk), checkpoint and resume, the traced driver, hierarchy
+# persistence, the reference_workloads twin
+# ---------------------------------------------------------------------------
+
+#: a launch counter's name -> the kernel symbols it counts, as the
+#: profiler's trace names them
+KERNEL_SYMBOLS = {"spmv_const_stencil": "spmv_const_kernel", "cheb_smooth_const": "cheb_const_kernel",
+                  "spmv_stencil": "spmv_var_kernel", "spmv_stencil_wide": "spmv_var_wide_kernel",
+                  "spmv_dia": "spmv_dia_kernel", "spmv_dot_dia": "spmv_dot_dia_kernel",
+                  "spmm_dia": "spmm_dia_kernel", "spmm_dia_acc": "spmm_dia_acc_kernel"}
+#: the checkpoint path's chunk (the 255^3 jump MGCG takes 26 iterations)
+RESUME_CHUNK = 8
+#: cg_solve_traced's steps on the 255^3 Poisson MGCG (5 iterations)
+TRACED_STEPS = 8
+#: the traced history against the chunked solve's residual (fp32, the same
+#: recurrence, one reduction order)
+TRACED_AGREE = 1e-6
+
+
+class _Stop(Exception):
+    """Simulated process death inside a chunked solve."""
+
+
+def _driver_paths(h3, b3, sysj, hj, galerkin2, fsys, dev):
+    """(tag, operator, b, x0, policy, M, precise_dot, fp32, true-residual
+    check) of the four paths the drivers run: the 255^3 Poisson, 255^3 jump
+    and 1024^2 Galerkin MGCG in fp32, each as ``mgcg_solve`` runs it, and
+    the flagship in fp64 through ``make_kernel_operator`` (kernel #4)."""
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    s2, h2g = galerkin2
+    bj = torch.from_numpy(sysj.b.astype(np.float32)).to(dev).reshape(VAR_GRID)
+    b2 = torch.from_numpy(s2.b.astype(np.float32)).to(dev).reshape(KIND_GRID_2D)
+    rel_bound = lambda A, b: lambda x: _host_rel_residual(A, b, x.reshape(-1).cpu().numpy()) <= TRUE_REL
+    fpol = WORKLOADS[FLAGSHIP].policy
+    return [
+        (f"Poisson MGCG {GRID_3D}", h3.levels[0].A, b3, None, pol, as_preconditioner(h3), True, True,
+         lambda x: _true_rel_residual(h3.levels[0].A, b3, x) <= TRUE_REL),
+        (f"jump MGCG {VAR_GRID}", hj.levels[0].A, bj, None, pol, as_preconditioner(hj), True, True,
+         rel_bound(sysj.A, sysj.b)),
+        (f"Galerkin MGCG {KIND_GRID_2D}", h2g.levels[0].A, b2, None, pol, as_preconditioner(h2g), True,
+         True, rel_bound(s2.A, s2.b)),
+        ("flagship fp64 via make_kernel_operator", make_kernel_operator(fsys.A, device=dev),
+         torch.from_numpy(fsys.b).to(dev), torch.from_numpy(fsys.x0).to(dev), fpol, None, False, False,
+         lambda x: _true_l2(fsys.A, fsys.b, x.cpu().numpy()) < FLAGSHIP_CG_TRUE),
+    ]
+
+
+def _replayed_kernels(prof):
+    """{launch counter: kernels of its symbol in a profile that a CUDA graph
+    launch ran}, matched by the correlation id of each ``cudaGraphLaunch``."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    launches = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e.get("name", "")}
+    out = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launches:
+            out.update(k for k, sym in KERNEL_SYMBOLS.items() if sym in e.get("name", ""))
+    return dict(out)
+
+
+def _on_card(counted, stats):
+    """Launches that ran on the card in a chunked solve: the counted ones
+    plus the captured chunk's once more for every replay after the first
+    (a wrapper counts a captured launch once)."""
+    per = stats["launches_per_chunk"]
+    return {k: v + per.get(k, 0) * (stats["chunks"] - 1) for k, v in counted.items() if v}
+
+
+def _drivers_path(path, dev, card, count):
+    """``cg_solve`` against ``cg_solve_chunked`` at chunk 1 and at chunk =
+    the path's iteration count: equal counts and converged flags, each
+    within the path's true-residual bound; warm walls (each the second of
+    two calls) with the capture time apart, x's bit-identity, and one
+    profiled chunk-1 solve in which the trace's graph launches ran exactly
+    the captured step's launches once per replay.  Returns cg_solve's
+    result."""
+    tag, A, b, x0, pol, M, precise, fp32, bound_ok = path
+    kw = dict(policy=pol, M=M, precise_dot=precise)
+    eager = lambda: cg_solve(A, b, x0, **kw)
+    ref = eager()
+    _require(ref.converged and bound_ok(ref.x), f"drivers {tag}: cg_solve failed its bound")
+    n_it = ref.iterations
+    t = PhaseTimer()
+    eager()
+    with t.phase("eager", sync=lambda: r):
+        r = eager()
+    line = []
+    for chunk in (1, n_it):
+        cg_solve_chunked(A, b, x0, chunk=chunk, **kw)
+        stats = {}
+        with t.phase(f"graph chunk {chunk}", sync=lambda: g):
+            g = cg_solve_chunked(A, b, x0, chunk=chunk, stats=stats, **kw)
+        _require(g.iterations == n_it and g.converged == ref.converged,
+                 f"drivers {tag} chunk {chunk}: {g.iterations} iterations (converged {g.converged}), "
+                 f"cg_solve {n_it} ({ref.converged})")
+        _require(bound_ok(g.x), f"drivers {tag} chunk {chunk}: true residual over its bound")
+        line.append(f"chunk {chunk}: {stats['chunks']} replays, capture {stats['capture_s'] * 1e3:.3f} "
+                    f"ms, x bit-identical to cg_solve {bool(torch.equal(g.x, ref.x))}")
+    print(f"drivers {tag}: {n_it} iterations both ways; {'; '.join(line)}")
+    print(f"time drivers {tag}: {t.report(iterations=n_it)}; graph chunk {n_it} minus capture "
+          f"{t[f'graph chunk {n_it}'] * 1e3 - stats['capture_s'] * 1e3:.3f} ms [{card}]")
+    # the profiled solve replays a one-step graph once per iteration, so
+    # the wrappers count only the capture's launches of the loop's kernels
+    _reset_counts()
+    stats = {}
+    prof, prof_ms, rows = _profile_rows(
+        lambda: cg_solve_chunked(A, b, x0, chunk=1, stats=stats, **kw))
+    counted = {k: v for k, v in launch_counts().items() if v}
+    on_card = _on_card(counted, stats)
+    # the replays are checked exactly, by the kernels each graph launch
+    # ran: late in this script's run the trace misses a few of a solve's
+    # eager launches (its initial residual and warm-up step: 6 of 7 #1
+    # and 68 of 70 #2 on 255^3 Poisson, 35 of 40 #1 on 1024^2 Galerkin in
+    # every full run), while eight profiles of the 255^3 solve in a fresh
+    # process saw all 77; the solve's totals are printed beside the trace's
+    replayed = _replayed_kernels(prof)
+    want = {k: v * stats["chunks"] for k, v in stats["launches_per_chunk"].items()}
+    _require(stats["chunks"] == n_it and want and replayed == want,
+             f"drivers {tag}: {stats['chunks']} replays of {stats['launches_per_chunk']} launches, "
+             f"the trace's graph launches ran {replayed}")
+    seen = {k: sum(n for _, n, key in rows if KERNEL_SYMBOLS[k] in key) for k in on_card}
+    count(f"cg_solve_chunked {tag}", on_card, fp32=fp32)
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    wall = t["graph chunk 1"] * 1e3
+    print(f"profile drivers {tag} chunk 1: profiled wall {prof_ms:.3f} ms, device time "
+          f"{dev_ms:.3f} ms, busy {dev_ms / wall:.1%} of the unprofiled wall {wall:.3f} ms; "
+          f"launches: {stats['chunks']} graph replays ran {replayed} (the captured step's "
+          f"{stats['launches_per_chunk']} each); counted {counted}, so on the card {on_card}, in "
+          f"the trace {seen} [{card}]")
+    return ref
+
+
+def _resume_path(path, ref, card):
+    """The 255^3 jump MGCG chunked at RESUME_CHUNK: a callback kills the
+    first call after one chunk, a second call resumes from the file and
+    must take the uninterrupted chunked solve's count."""
+    tag, A, b, x0, pol, M, precise, _, bound_ok = path
+    kw = dict(policy=pol, M=M, precise_dot=precise, chunk=RESUME_CHUNK)
+    whole = cg_solve_chunked(A, b, x0, **kw)
+    _require(whole.iterations == ref.iterations, f"resume {tag}: {whole.iterations} iterations")
+
+    def die(state):
+        raise _Stop
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "cg_state.npz")
+        first = {}
+        try:
+            cg_solve_chunked(A, b, x0, checkpoint_path=ckpt, callback=die, stats=first, **kw)
+        except _Stop:
+            pass
+        t0 = time.perf_counter()
+        state = load_state(ckpt)
+        load_s = time.perf_counter() - t0
+        mb = os.path.getsize(ckpt) / 1e6
+        rest = {}
+        res = cg_solve_chunked(A, b, x0, checkpoint_path=ckpt, stats=rest, **kw)
+    _require(state.iteration == RESUME_CHUNK, f"resume {tag}: the file holds iteration {state.iteration}")
+    _require(res.converged and res.iterations == whole.iterations and bound_ok(res.x),
+             f"resume {tag}: {res.iterations} iterations after the resume, {whole.iterations} whole")
+    print(f"resume {tag} chunk {RESUME_CHUNK}: killed after iteration {state.iteration}, resumed to "
+          f"{res.iterations} iterations (uninterrupted {whole.iterations}); x bit-identical "
+          f"{bool(torch.equal(res.x, whole.x))}; state file {mb:.1f} MB, save {first['save_s']:.3f} s, "
+          f"load {load_s:.3f} s; the resumed call's {rest['chunks']} saves {rest['save_s']:.3f} s [{card}]")
+
+
+def _traced_path(path, ref):
+    """``cg_solve_traced`` on the 255^3 Poisson MGCG: the history's entry at
+    ``iterations - 1`` is the chunked solve's residual, the counts equal."""
+    tag, A, b, x0, pol, M, precise, _, _ = path
+    chunked = cg_solve_chunked(A, b, x0, policy=pol, M=M, precise_dot=precise, chunk=ref.iterations)
+    res, hist, (alphas, betas) = cg_solve_traced(A, b, x0, pol, M, num_steps=TRACED_STEPS,
+                                                 precise_dot=precise, with_coefficients=True)
+    n_it = res.iterations
+    h, want = float(hist[n_it - 1]), float(chunked.residual)
+    _require(n_it == chunked.iterations == ref.iterations and res.converged,
+             f"traced {tag}: {n_it} iterations, chunked {chunked.iterations}")
+    _require(abs(h - want) <= TRACED_AGREE * want,
+             f"traced {tag}: history[{n_it - 1}] {h:.6e}, chunked residual {want:.6e}")
+    print(f"traced {tag}, {TRACED_STEPS} steps: {n_it} iterations, history "
+          f"{[f'{v:.4e}' for v in hist.tolist()]} (chunked residual {want:.6e}); alphas "
+          f"{[f'{v:.6f}' for v in alphas[:n_it].tolist()]}, betas "
+          f"{[f'{v:.6f}' for v in betas[:n_it].tolist()]}")
+
+
+def _hierarchy_persistence(syss, hs, dev, card):
+    """``save_pytree`` then ``load_pytree`` of the 127^3 smooth Galerkin
+    hierarchy: the loaded one's MGCG takes the same count and the same x
+    bit for bit."""
+    b = torch.from_numpy(syss.b.astype(np.float32)).to(dev).reshape(SMOOTH_GRID)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    solve = lambda h: cg_solve(h.levels[0].A, b, policy=pol, M=as_preconditioner(h), precise_dot=True)
+    ref = solve(hs)
+    with tempfile.TemporaryDirectory() as d:
+        f = os.path.join(d, "hierarchy.npz")
+        t0 = time.perf_counter()
+        save_pytree(f, hs)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h2 = load_pytree(f, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mb = os.path.getsize(f) / 1e6
+    got = solve(h2)
+    _require(ref.converged and got.iterations == ref.iterations and torch.equal(got.x, ref.x),
+             f"hierarchy persistence: {got.iterations} iterations against {ref.iterations}, x "
+             f"bit-identical {bool(torch.equal(got.x, ref.x))}")
+    print(f"hierarchy persistence smooth {SMOOTH_GRID}: file {mb:.1f} MB, save {save_s:.3f} s, load "
+          f"{load_s:.3f} s against the host setup's {sum(hs.setup_s.values()):.3f} s; MGCG "
+          f"{got.iterations} iterations, x bit-identical [{card}]")
+
+
+def _reference_workloads_twin():
+    """The twin of ``examples/reference_workloads.py`` at ``--quick`` in
+    fp64 on the card: every row must be OK."""
+    with tempfile.TemporaryDirectory() as d:
+        f = os.path.join(d, "rows.json")
+        rc = reference_workloads.main(["--quick", "--json", f])
+        with open(f) as fh:
+            rows = json.load(fh)["rows"]
+    _require(rc == 0 and all(r["ok"] for r in rows), f"reference_workloads --quick: rc {rc}")
+    simple = next(r for r in rows if r["workload"] == "simple_cuda")
+    print(f"reference_workloads --quick: {len(rows)} rows OK; simple_cuda as measured: "
+          f"{json.dumps(simple)}")
+
+
+def _drivers(paths, syss, hs, dev, card, count):
+    """The drivers phase over ``paths`` (``_driver_paths``)."""
+    refs = [_drivers_path(p, dev, card, count) for p in paths]
+    _resume_path(paths[1], refs[1], card)
+    _traced_path(paths[0], refs[0])
+    _hierarchy_persistence(syss, hs, dev, card)
+    _reference_workloads_twin()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2314,7 +2582,6 @@ def main() -> int:
     count(f"api.solve(B, mgcg) {FACADE_GRID} k={MULTI_K}", _facade_multi_mgcg(dev, card))
     count(f"refined_solve_multi smooth 127^3 k={REFINE_MULTI_K}",
           _refine_multi(syss, hs, single_smooth, dev, card))
-    del syss, hs
 
     # -- kernel #6's path, counted: the experiment at its default shape ------
     acc_launches, acc_recs = _acc_experiment(sysj, dev)
@@ -2323,7 +2590,7 @@ def main() -> int:
     # -- the rest of the multigrid build, counted: hybrid, semicoarsening and
     # aggregation transfers (the wide kernel #3 checked first), DIA levels,
     # rbgs, W-cycle and fmg -------------------------------------------------
-    wide_cases = _multigrid_kinds(dev, card, errs, count)
+    wide_cases, galerkin2 = _multigrid_kinds(dev, card, errs, count)
 
     # -- the formats slice, counted: kernels #4 and #5 past 256 diagonals and
     # the DIA-layout MGCG over them; the reference's CSR and ELL storage;
@@ -2338,6 +2605,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _ingestion(dev, card, count)
     print(f"phase: Matrix Market ingestion in {time.perf_counter() - t0:.1f} s")
+
+    # -- the drivers, counted: cg_solve against one CUDA graph per masked
+    # chunk on four paths, checkpoint and resume, the traced driver, a
+    # saved and loaded hierarchy, the reference_workloads twin ------------
+    t0 = time.perf_counter()
+    _drivers(_driver_paths(h3, b3, sysj, hj, galerkin2, fsys, dev), syss, hs, dev, card, count)
+    del syss, hs, galerkin2
+    print(f"phase: drivers in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: times -----------------------------------------------------
     times = {}

@@ -18,7 +18,9 @@ reference's, so each counterpart is found by path:
                 chained past 256 diagonals; CSR and ELL reach it by a
                 relayout), the DIA SpMM and its single-call accumulating
                 form; the plain CSR, ELL, COO, BSR and dense products.
-- ``solvers`` — convergence policy, (preconditioned) CG, multi-RHS CG and
+- ``solvers`` — convergence policy, (preconditioned) CG with its traced
+                and chunked drivers (checkpoint/resume; one CUDA graph
+                per chunk on the card), multi-RHS CG and
                 its multigrid preconditioner, mixed-precision iterative
                 refinement (the flagship path) and the setup-time spectral
                 bounds.
@@ -30,8 +32,10 @@ reference's, so each counterpart is found by path:
 - ``api``     — ``solve(A, b, method=...)`` for the ported methods.
 - ``convert`` — carries a hierarchy or any container across from the
                 reference's fields.
+- ``utils``   — phase timers, the profiler trace scope, residual logs,
+                checkpoint/resume and tree persistence, the spy plot.
 - ``scripts`` — runnable measurements on the card (the kernel #6
-                experiment).
+                experiment) and the ``reference_workloads`` twin.
 
 This package imports ``torch``, numpy and scipy, never ``jax``.  See
 ROADMAP.md for what is ported and what is still to come.
@@ -40,4 +44,9 @@ ROADMAP.md for what is ported and what is still to come.
 __version__ = "0.1.0"
 
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, Norm  # noqa: F401
-from conjugategradient_tpu_torch.solvers.cg import CGResult, cg_solve  # noqa: F401
+from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
+    CGResult,
+    cg_solve,
+    cg_solve_chunked,
+    cg_solve_traced,
+)

@@ -63,7 +63,7 @@ from conjugategradient_tpu_torch.core.formats import (
     is_host,
     to_host,
 )
-from conjugategradient_tpu_torch.ops import _build
+from conjugategradient_tpu_torch.ops import _build, cuda_stencil
 from conjugategradient_tpu_torch.ops.cuda_stencil import _CODES, TAGS, _raise_on, _stream
 
 #: Limit of the kernels' by-value offsets struct (``csrc/dia.cu``), per
@@ -402,6 +402,15 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         fn.launches_by_dtype.clear()
     spmv_dia_cuda.launches_by_shape.clear()
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count (the stencil kernels' of
+    ``ops.cuda_stencil`` too), by the wrapper's name without ``_cuda``."""
+    fns = (cuda_stencil.spmv_const_stencil_cuda, cuda_stencil.cheb_smooth_const_cuda,
+           cuda_stencil.spmv_stencil_cuda, cuda_stencil.spmv_stencil_wide_cuda, spmv_dia_cuda,
+           spmv_dot_dia_cuda, spmm_dia_cuda, spmm_dia_acc_cuda)
+    return {fn.__name__[: -len("_cuda")]: fn.launches for fn in fns}
 
 
 # ---------------------------------------------------------------------------

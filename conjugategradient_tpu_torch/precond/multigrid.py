@@ -620,12 +620,13 @@ def _coarse_solve(h: MgHierarchy, b: torch.Tensor) -> torch.Tensor:
 
 
 def v_cycle(h: MgHierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1,
-            x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+            x0: Optional[torch.Tensor] = None, use_pallas: bool = False) -> torch.Tensor:
     """One multigrid cycle for A_level e = b, from a zero initial guess or
     ``x0``.  ``gamma`` is the cycle index: 1 a V-cycle, 2 a W-cycle (the
     coarse correction recurses twice below the top level).  On a
     grid-stencil hierarchy flat input runs grid-shaped and comes back
-    flat."""
+    flat.  ``use_pallas`` is kept for parity and changes nothing, as in
+    ``solvers.cg.cg_solve``."""
     if level == len(h.levels):
         return _coarse_solve(h, b)
     lvl = h.levels[level]
@@ -662,12 +663,12 @@ def v_cycle(h: MgHierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1,
     return _smooth(h, lvl, op, b, x, h.post, post=True, fused=fused)
 
 
-def fmg(h: MgHierarchy, b: torch.Tensor) -> torch.Tensor:
+def fmg(h: MgHierarchy, b: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
     """Full multigrid: restrict b down the hierarchy (with the V-cycle's own
     transfers), solve the coarsest grid directly, then on each level up
     prolong and run one V-cycle from that guess.  One pass gives an
     O(discretisation-accuracy) initial guess; pair it with a few MGCG
-    iterations for tighter tolerances."""
+    iterations for tighter tolerances.  ``use_pallas`` changes nothing."""
     grid_native = len(h.levels) > 0 and _grid_native(h.levels[0])
     flat_in = grid_native and tuple(b.shape) != h.levels[0].grid
     if flat_in:
@@ -688,9 +689,11 @@ def fmg(h: MgHierarchy, b: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1) if flat_in else x
 
 
-def as_preconditioner(h: MgHierarchy, gamma: int = 1) -> Callable[[torch.Tensor], torch.Tensor]:
+def as_preconditioner(h: MgHierarchy, gamma: int = 1,
+                      use_pallas: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """M(r) = one V-cycle (``gamma=1``) or W-cycle (``gamma=2``), the "Mg"
-    in MGCG (SPD by symmetric construction).
+    in MGCG (SPD by symmetric construction).  ``use_pallas`` changes
+    nothing.
 
     The coarsest solve is a dense fp32 matvec, which must not run in TF32
     (about three decimal digits): this entry point turns CUDA matmul TF32
@@ -715,9 +718,11 @@ def mgcg_solve(
     device=None,
     layout: str = "stencil",
     gamma: int = 1,
+    use_pallas: bool = False,
 ):
     """Multigrid-preconditioned CG: builds (or reuses) the hierarchy, then
     runs CG with one cycle per iteration as M (``gamma=2``: W-cycles).
+    ``use_pallas`` is kept for parity and changes nothing.
     Returns ``(CGResult, MgHierarchy)`` with a flat ``x``.  The operator is
     the fine level's (its stencil, or its DIA with ``layout="dia"``); a
     hierarchy without levels (the whole system below ``max_coarse``) runs
@@ -744,7 +749,8 @@ def mgcg_solve(
     b = place(b, tdt, dev).reshape(shape)
     if x0 is not None:
         x0 = place(x0, tdt, dev).reshape(shape)
-    result = cg_solve(A_dev, b, x0, policy, M=as_preconditioner(h, gamma), precise_dot=precise_dot)
+    result = cg_solve(A_dev, b, x0, policy, M=as_preconditioner(h, gamma), precise_dot=precise_dot,
+                      use_pallas=use_pallas)
     result = CGResult(x=result.x.reshape(-1), iterations=result.iterations,
                       residual=result.residual, converged=result.converged)
     return result, h

@@ -81,6 +81,16 @@ def prolong_grid(v: torch.Tensor, fine: GridShape) -> torch.Tensor:
     return v.contiguous()
 
 
+def restrict(r: torch.Tensor, fine: GridShape) -> torch.Tensor:
+    """Restrict a flat residual vector from ``fine`` to ``coarse_shape(fine)``."""
+    return restrict_grid(r.reshape(fine)).reshape(-1)
+
+
+def prolong(e: torch.Tensor, fine: GridShape) -> torch.Tensor:
+    """Prolong a flat coarse correction up to the flat ``fine`` grid."""
+    return prolong_grid(e.reshape(coarse_shape(fine)), fine).reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # Aggregation: coarsening for any axis size.
 # ---------------------------------------------------------------------------

@@ -1151,3 +1151,80 @@ def test_kernel_operator_runs_kernel_4_on_the_card(cuda, fmt):
     assert spmv_dia_cuda.launches == 1
     ref = oracle.spmv(A, x)
     assert np.abs(y.cpu().numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# the chunked driver: one CUDA graph per masked chunk
+# ---------------------------------------------------------------------------
+
+
+def _poisson_mgcg_63(cuda):
+    """63^3 Poisson fp32 MGCG on the card: (operator, b, policy, M)."""
+    grid = (63, 63, 63)
+    s = generators.poisson_system(grid, dtype=np.float32)
+    h = build_hierarchy(s.A, grid, smoother="chebyshev", pre=2, post=2, dtype=np.float32,
+                        coarse_operator=generators.poisson_coarse_operator(np.float32), device=cuda)
+    b = torch.from_numpy(s.b).to(cuda).reshape(grid)
+    return h.levels[0].A, b, ConvergencePolicy(tol=1e-6, norm="rel_l2"), as_preconditioner(h)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 200])
+def test_graph_chunk_matches_eager_mgcg_bitwise(cuda, chunk):
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve_chunked
+
+    A, b, pol, M = _poisson_mgcg_63(cuda)
+    ref = cg_solve(A, b, policy=pol, M=M, precise_dot=True)
+    stats = {}
+    got = cg_solve_chunked(A, b, policy=pol, M=M, precise_dot=True, chunk=chunk, stats=stats)
+    assert ref.converged and got.converged
+    assert got.iterations == ref.iterations
+    assert torch.equal(got.x, ref.x)
+    assert stats["chunks"] == -(-ref.iterations // chunk)  # one replay and one host read each
+    assert stats["capture_s"] > 0
+
+
+def test_graph_launches_per_chunk_times_replays_equal_eager(cuda):
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve_chunked
+
+    A, b, pol, M = _poisson_mgcg_63(cuda)
+    cg_solve(A, b, policy=pol, M=M)  # builds and warms everything once
+    cuda_stencil.reset_launch_counts()
+    cuda_dia.reset_launch_counts()
+    ref = cg_solve(A, b, policy=pol, M=M)
+    eager = cuda_dia.launch_counts()
+    cuda_stencil.reset_launch_counts()
+    cuda_dia.reset_launch_counts()
+    stats = {}
+    got = cg_solve_chunked(A, b, policy=pol, M=M, chunk=1, stats=stats)
+    counted = cuda_dia.launch_counts()
+    per, warm = stats["launches_per_chunk"], stats["warmup_launches"]
+    assert got.iterations == ref.iterations == stats["chunks"]
+    assert per == warm and per  # one masked step each
+    on_card = {k: v + per.get(k, 0) * (stats["chunks"] - 1) - warm.get(k, 0)
+               for k, v in counted.items()}
+    assert on_card == eager
+
+
+def test_graph_capture_over_cusparse_csr(cuda):
+    from conjugategradient_tpu_torch.core.formats import dia_to_csr
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve_chunked
+
+    s = generators.banded_sin_system(4096, 32)
+    A = dia_to_csr(s.A).device_put(device=cuda)
+    b, x0 = torch.from_numpy(s.b).to(cuda), torch.from_numpy(s.x0).to(cuda)
+    pol = ConvergencePolicy(tol=1e-8)
+    ref = cg_solve(A, b, x0, pol)
+    got = cg_solve_chunked(A, b, x0, pol, chunk=16)
+    assert got.converged and got.iterations == ref.iterations
+    assert torch.equal(got.x, ref.x)
+
+
+def test_graph_capture_failure_raises(cuda):
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve_chunked
+
+    A, b, pol, _ = _poisson_mgcg_63(cuda)
+    syncing = lambda r: r * float(r.abs().max() > 0)  # a host read inside the step
+    with pytest.raises(RuntimeError, match="capturing the masked chunk as a CUDA graph failed"):
+        cg_solve_chunked(A, b, policy=pol, M=syncing, chunk=2)
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0  # the card still works
