@@ -65,21 +65,26 @@ after:
   other checks.  The 256^3 Galerkin MGCG's profile splits the wide
   kernel's device time by level (each launch's grid and block dims in the
   trace).
-- The formats slice.  Kernels #4 and #5 (k = 4) past 256 diagonals, fp32
-  and fp64, against their twins on the 16^3 levels of the 128^3 (343
-  diagonals) and 256^3 (1331) hierarchies as DIA, in chained launches; then
+- The formats slice.  Kernels #4 and #5 (k = 4) past 256 diagonals, fp32,
+  bf16 legs and fp64, against their twins on the 16^3 levels of the 128^3
+  (343 diagonals) and 256^3 (1331) hierarchies as DIA, in chained launches
+  of the split form (each row's legs split across S threads, S printed;
+  every SpMM column the SpMV's bit for bit); then
   ``api.solve(method="mgcg", layout="dia")`` on Poisson 128^3 fp32, #4 at
-  every level (the 343-diagonal one in whole chains), beside the
-  stencil-layout solve.  The reference's own storage in fp64 with each
-  workload's policy: the flagship as CSR through ``api.solve`` (cuSPARSE's
-  product, no #4 launch; run twice, bit-identity printed) and through
-  ``make_kernel_operator`` (#4 once per iteration and once more), then an
-  n x 4 block; ``WORKLOADS["handmade_cl"]`` as diagonal-first ELL both
+  every level (the 343-diagonal one in whole chains), its warm wall and
+  device time, each level's #4 replayed from a CUDA graph beside
+  cuSPARSE's, beside the stencil-layout solve.  The reference's own
+  storage in fp64 with each workload's policy: the flagship as CSR
+  through ``api.solve`` (cuSPARSE's product, no #4 launch; run twice,
+  bit-identity printed) and through ``make_kernel_operator`` (#4 once per
+  iteration and once more), then an n x 4 block; ``WORKLOADS["handmade_cl"]`` as diagonal-first ELL both
   ways.  Matrix Market: Poisson 127^3 fp32 permuted by a seeded symmetric
   permutation must load as CSR and solve with no #4 launch; unpermuted it
   must load as DIA, solve on #4 and, as an n x 4 block, on #5.  Every
   format's SpMV and SpMM (k = 4) against the fp64 oracle, timed beside its
-  bound, and #4/#5 past 256 diagonals timed beside cuSPARSE.
+  bound, and #4/#5 past 256 diagonals timed beside cuSPARSE (both as
+  launched and replayed from CUDA graphs; the record's ``split_by_shape``
+  and ``past_256_diagonals``).
 - The CG drivers.  On four paths (255^3 Poisson, 255^3 jump and 1024^2
   Galerkin MGCG in fp32, each as ``mgcg_solve`` runs it over the
   hierarchies built above; the flagship in fp64 through
@@ -100,9 +105,9 @@ after:
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
 NaN-planted X at k = 3 and 8) are held to their twins first, and the ptxas
-report of every instantiation of #1, #2, #3, #5 and #6 must show a 0-byte
-stack frame and no spills; #6's blocks per SM and waves at its main shapes
-are printed.
+report of every instantiation of #1, #2, #3, #5, #6 and the split #4 must
+show a 0-byte stack frame and no spills; #6's blocks per SM and waves at
+its main shapes are printed.
 
 Every phase has a bound and any miss, build failure or launch failure ends
 the run with a non-zero exit before the last line.  The last line is
@@ -166,6 +171,7 @@ from conjugategradient_tpu_torch.ops.card import (
     blocks_per_sm,
     bound_ms,
     card_name,
+    dia_csr,
     dia_nnz,
     graph_ms,
     spmm_bytes,
@@ -876,7 +882,7 @@ def _dia_times(A_host, dev, card, times):
         k_ms = time_ms(lambda: spmm_dia_cuda(Ak, X), 100)
         s_ms = time_ms(lambda: [spmv_dia_cuda(Ak, X[j]) for j in range(k)], 100)
         p_ms = time_ms(lambda: spmm_dia_ref(Ak, X), 5)
-        csr = _csr(DiaMatrix(Ak.data.to(vec), Ak.offsets, Ak.shape))
+        csr = dia_csr(DiaMatrix(Ak.data.to(vec), Ak.offsets, Ak.shape))
         Xn = X.T.contiguous()
         tag = f"spmm_dia {TAGS[legs]} legs k={k}"
         lib_ms = _library(tag, lambda: csr @ Xn, spmm_dia_cuda(Ak, X).T, card, 100)
@@ -1332,21 +1338,6 @@ def _refine_multi(syss, hs, single, dev, card):
     return _counts()
 
 
-def _csr(A):
-    """A device DIA matrix as a CSR tensor with int32 indices, built on the
-    card: each row's in-range entries, offsets ascending."""
-    n = A.n
-    order = sorted(range(A.ndiags), key=lambda k: A.offsets[k])
-    offs = torch.tensor([A.offsets[k] for k in order], device=A.data.device)
-    cols = torch.arange(n, device=offs.device)[:, None] + offs[None, :]
-    keep = (cols >= 0) & (cols < n)
-    crow = torch.zeros(n + 1, dtype=torch.int64, device=offs.device)
-    crow[1:] = torch.cumsum(keep.sum(1), 0)
-    vals = A.data[order].T[keep]
-    return torch.sparse_csr_tensor(crow.int(), cols[keep].int(), vals, size=(n, n),
-                                   check_invariants=False)
-
-
 def _library(name, lib_fn, kernel_out, card, reps):
     """Time one PyTorch call (the yardstick) after checking that it computes
     what the kernel computed."""
@@ -1374,14 +1365,14 @@ def _library_and_bounds(ops, fsys, sysj, hj, dev, card, times):
     bounds["cheb_smooth_const"] = bound_ms(_cheb_bytes(n3, True, True),
                                            _cheb_flops(A1.nlegs, 2, True, True) * n3)
     A3 = hj.levels[0].A
-    csr = _csr(sysj.A.device_put(torch.float32, dev))
+    csr = dia_csr(sysj.A.device_put(torch.float32, dev))
     lib["spmv_stencil"] = _library("spmv_stencil 255^3 7 legs fp32", lambda: csr @ x.reshape(-1),
                                    spmv_stencil_cuda(A3, x).reshape(-1), card, 50)
     bounds["spmv_stencil"] = bound_ms(A3.nnz * 4 + 2 * n3 * 4, 2 * A3.nnz)
     del csr
     A = fsys.A.device_put(torch.float32, dev)
     nnz = dia_nnz(A)
-    csr = _csr(A)
+    csr = dia_csr(A)
     xf = torch.randn(A.n, device=dev)
     lib["spmv_dia"] = _library("spmv_dia band 160 fp32", lambda: csr @ xf, spmv_dia_cuda(A, xf),
                                card, 200)
@@ -1407,7 +1398,7 @@ def _acc_times(sysj, recs, dev, card, times, lib, bounds):
         A = A_host.device_put(legs, dev)
         X = torch.randn((k, A.n), device=dev)
         Xn = X.T.contiguous()
-        csr = _csr(DiaMatrix(A.data.float(), A.offsets, A.shape))
+        csr = dia_csr(DiaMatrix(A.data.float(), A.offsets, A.shape))
         if label in recs:
             acc_ms, spmm_ms = recs[label]["single_call_us"] / 1e3, recs[label]["chained_us"] / 1e3
             src = "the experiment's record"
@@ -1635,7 +1626,7 @@ def _stencil_csr(A):
     offs = tuple(sum(s * st for s, st in zip(sh, strides)) for sh in A.shifts)
     vals = A.data.reshape(A.nlegs, -1)
     vals = vals if vals.dtype == torch.float64 else vals.float()
-    return _csr(DiaMatrix(vals, offs, (A.n, A.n)))
+    return dia_csr(DiaMatrix(vals, offs, (A.n, A.n)))
 
 
 def _wide_times(cases, dev, card, times, lib, bounds):
@@ -1793,17 +1784,23 @@ def _nan_buffered(X):
 
 def _many_diag_checks(cases, dev, errs):
     """Kernels #4 (plain and fused) and #5 at k = MANY_K against their twins
-    past 256 diagonals, fp32 and fp64, on NaN-buffered vectors; each call
-    must launch once per group of ``dia_groups`` (and column chunk)."""
+    past 256 diagonals, fp32, bf16 legs and fp64, on NaN-buffered vectors;
+    each call must launch once per group of ``dia_groups`` (and column
+    chunk), by the split kernels where ``dia_plan`` splits the rows' legs,
+    and each column of the SpMM must equal the SpMV of that column bit for
+    bit.  Returns {label: the plan's S}."""
     rng = np.random.default_rng(SEED + 3)
+    splits = {}
     for label, A_host in cases:
         groups = len(dia_groups(A_host.ndiags))
-        for legs in (torch.float32, torch.float64):
+        splits[label] = cuda_dia.dia_plan(A_host.n, A_host.ndiags).split
+        for legs in (torch.float32, torch.bfloat16, torch.float64):
             A = A_host.device_put(legs, dev)
+            vec = torch.float64 if legs == torch.float64 else torch.float32
             rel = KERNEL_REL64 if legs == torch.float64 else KERNEL_REL
             tag = f"{label} {TAGS[legs]}"
-            x = _nan_buffered(torch.from_numpy(rng.standard_normal(A.n)).to(dev, legs))
-            X = _nan_buffered(torch.from_numpy(rng.standard_normal((MANY_K, A.n))).to(dev, legs))
+            x = _nan_buffered(torch.from_numpy(rng.standard_normal(A.n)).to(dev, vec))
+            X = _nan_buffered(torch.from_numpy(rng.standard_normal((MANY_K, A.n))).to(dev, vec))
             _reset_counts()
             y = spmv_dia_cuda(A, x)
             yf, dot = spmv_dot_dia_cuda(A, x)
@@ -1821,12 +1818,17 @@ def _many_diag_checks(cases, dev, errs):
             _require(torch.equal(yf, y), f"spmv_dot_dia {tag}: fused A p differs from the SpMV's")
             _require(dot_err <= rel * dot_scale, f"spmv_dot_dia {tag}: p.Ap err {dot_err:.3e}")
             _require(errY <= rel * scaleY, f"spmm_dia {tag} k={MANY_K}: max err {errY:.3e}")
+            for j in range(MANY_K):
+                _require(torch.equal(Y[j], spmv_dia_cuda(A, X[j].contiguous())),
+                         f"spmm_dia {tag}: column {j} is not the SpMV of column {j} bit for bit")
             errs["spmv_dia"] = max(errs["spmv_dia"], err)
             if legs != torch.float64:
                 errs["spmm_dia"] = max(errs["spmm_dia"], errY)
-            print(f"spmv_dia / spmm_dia {tag} ({A.ndiags} diagonals in {groups} chained groups): "
-                  f"max|kernel-twin| {err:.3e} (max|twin| {scale:.3e}), fused p.Ap err "
-                  f"{dot_err:.3e}, k={MANY_K} {errY:.3e}; launches {launches}")
+            print(f"spmv_dia / spmm_dia {tag} ({A.ndiags} diagonals in {groups} chained groups, "
+                  f"S = {splits[label]}): max|kernel-twin| {err:.3e} (max|twin| {scale:.3e}), fused "
+                  f"p.Ap err {dot_err:.3e}, k={MANY_K} {errY:.3e}, every column the SpMV's bit for "
+                  f"bit; launches {launches}")
+    return splits
 
 
 def _dia_layout_mgcg(wide_cases, dev, card, errs, count):
@@ -1836,7 +1838,9 @@ def _dia_layout_mgcg(wide_cases, dev, card, errs, count):
     hierarchy's 16^3 level as DIA (1331 diagonals); then
     ``api.solve(method="mgcg", layout="dia")``, counted: #4 at every level,
     the 343-diagonal one in chained groups, beside the stencil-layout
-    solve's iteration count.  Returns the (label, host DIA) cases."""
+    solve's iteration count; its warm wall, device time and each level's
+    #4 beside cuSPARSE.  Returns the (label, host DIA) cases and {label:
+    the split's S}."""
     g = DIA_MGCG_GRID
     s = _kind_system("poisson", g)
     h = _kind_hierarchy(f"Galerkin Poisson {g} layout dia", s, g, dev, layout="dia")
@@ -1845,7 +1849,7 @@ def _dia_layout_mgcg(wide_cases, dev, card, errs, count):
     w1331 = next(A for label, A, _ in wide_cases if A.nlegs == 1331)
     cases = [(f"{g[0]}^3 hierarchy's 16^3 level", to_host(many[0])),
              (f"{KIND_GRID_3D[0]}^3 hierarchy's 16^3 level as DIA", stencil_to_dia(to_host(w1331)))]
-    _many_diag_checks(cases, dev, errs)
+    splits = _many_diag_checks(cases, dev, errs)
     kw = dict(method="mgcg", grid=g, tol=TOL, norm="rel_l2", dtype=np.float32, device=dev,
               precise_dot=True)
     tag = f"MGCG Galerkin Poisson {g} layout dia"
@@ -1863,6 +1867,14 @@ def _dia_layout_mgcg(wide_cases, dev, card, errs, count):
     _require(n_many > 0 and n_many % len(dia_groups(DIA_MGCG_MANY)) == 0,
              f"{tag}: {n_many} launches on the {DIA_MGCG_MANY}-diagonal level, not whole chains")
     count(tag, {"spmv_dia": launches})
+    t0 = time.perf_counter()
+    api.solve(s.A, s.b, hierarchy=h, layout="dia", **kw)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"time {tag} api.solve: {res.iterations} iterations, counted run {wall * 1e3:.3f} ms, "
+          f"warm run {warm_ms:.3f} ms [{card}]")
+    _device_time_top(lambda: api.solve(s.A, s.b, hierarchy=h, layout="dia", **kw), warm_ms, card)
+    _dia_level_times(h, by_shape, dev, card)
     del h
     hs = _kind_hierarchy(f"Galerkin Poisson {g}", s, g, dev)
     _reset_counts()
@@ -1873,8 +1885,32 @@ def _dia_layout_mgcg(wide_cases, dev, card, errs, count):
     print(f"{tag}: {res.iterations} iterations (stencil layout {res_s.iterations}), rel_l2 "
           f"{float(res.residual):.3e}, true fp64 rel residual {rel:.3e}; spmv_dia launches "
           f"{launches} by (rows, diagonals) { {str(k): v for k, v in sorted(by_shape.items())} }")
-    print(f"time {tag} api.solve (counted run): {wall * 1e3:.3f} ms [{card}]")
-    return cases
+    return cases, splits
+
+
+def _dia_level_times(h, by_shape, dev, card):
+    """Kernel #4 on each level of the DIA-layout hierarchy ``h`` (fp32, as
+    the solve runs it), replayed from a CUDA graph beside cuSPARSE's CSR
+    product replayed the same way, the bound, and the level's launches in
+    one solve (``by_shape``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for lvl in h.levels:
+        A = lvl.A
+        x = torch.randn(A.n, generator=gen, device=dev, dtype=A.data.dtype)
+        csr = dia_csr(A)
+        y = spmv_dia_cuda(A, x)
+        err, scale = _max_err(csr @ x, y)
+        _require(err <= KERNEL_REL * scale, f"level {lvl.grid}: CSR differs from #4 by {err:.3e}")
+        nnz, size = dia_nnz(A), A.data.element_size()
+        nbytes = nnz * size + 2 * A.n * size
+        bound = bound_ms(nbytes, 2 * nnz)
+        k_ms, c_ms = graph_ms(lambda: spmv_dia_cuda(A, x), 200), graph_ms(lambda: csr @ x, 200)
+        plan = cuda_dia.dia_plan(A.n, A.ndiags)
+        print(f"time spmv_dia {DIA_MGCG_GRID[0]}^3 DIA level {lvl.grid} {A.ndiags} diagonals fp32 "
+              f"(S = {plan.split}, {len(plan.groups)} launches a call): graph {k_ms:.4f} ms, CSR "
+              f"graph {c_ms:.4f} ms; {nbytes / 1e6:.2f} MB, bound {bound[0]:.4f} ms by {bound[1]}, "
+              f"{bound[0] / k_ms:.1%} of it; {by_shape.get((A.n, A.ndiags), 0)} launches per solve "
+              f"[{card}]")
 
 
 def _true_l2(A, b, x):
@@ -2074,15 +2110,18 @@ def _ingestion(dev, card, count):
 def _many_diag_times(cases, dev, card):
     """Kernels #4 and #5 (k = MANY_K) past 256 diagonals, fp32 and fp64:
     kernel (as launched and from a CUDA graph), twin and cuSPARSE's CSR
-    product beside the bound (the legs inside the matrix, x and y once)."""
+    product (as launched and from a CUDA graph) beside the bound (the legs
+    inside the matrix, x and y once).  Returns {op: {shape: the graph
+    times, bound and library call}}."""
     rng = np.random.default_rng(SEED + 6)
+    out = {}
     for label, A_host in cases:
         for legs in (torch.float32, torch.float64):
             A = A_host.device_put(legs, dev)
             n, nnz, size = A.n, dia_nnz(A), A.data.element_size()
             x = torch.from_numpy(rng.standard_normal(n)).to(dev, legs)
             X = torch.from_numpy(rng.standard_normal((MANY_K, n))).to(dev, legs)
-            csr = _csr(A)
+            csr = dia_csr(A)
             tag = f"{label} {A.ndiags} diagonals {TAGS[legs]}"
             for op, k, fn, twin, lib in (
                     ("spmv_dia", 1, lambda: spmv_dia_cuda(A, x), lambda: spmv_dia_ref(A, x),
@@ -2091,12 +2130,18 @@ def _many_diag_times(cases, dev, card):
                      lambda: (csr @ X.T.contiguous()).T)):
                 k_ms, g_ms, p_ms = time_ms(fn, 200), graph_ms(fn, 200), time_ms(twin, 5)
                 lib_ms = _library(f"{op} {tag}", lib, fn(), card, 100)
+                lib_g = graph_ms(lib, 100)
                 nbytes = nnz * size + 2 * k * n * size
                 bound = bound_ms(nbytes, 2 * k * nnz)
-                print(f"time {op} {tag} k={k}: kernel {k_ms:.4f} ms (graph {g_ms:.4f}; "
-                      f"{nbytes / 1e6:.1f} MB, bound {bound[0]:.4f} ms by {bound[1]}, "
-                      f"{bound[0] / g_ms:.1%} of it from the graph), {len(dia_groups(A.ndiags))} "
-                      f"launches a call, twin {p_ms:.4f} ms, CSR {lib_ms:.4f} ms [{card}]")
+                out.setdefault(op, {})[f"{label} {TAGS[legs]}"] = dict(
+                    ms=g_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=lib_g)
+                print(f"time {op} {tag} k={k} (S = {cuda_dia.dia_plan(n, A.ndiags).split}): kernel "
+                      f"{k_ms:.4f} ms (graph {g_ms:.4f}; {nbytes / 1e6:.1f} MB, bound "
+                      f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / g_ms:.1%} of it from the "
+                      f"graph), {len(dia_groups(A.ndiags))} launches a call, twin {p_ms:.4f} ms, "
+                      f"CSR {lib_ms:.4f} ms (graph {lib_g:.4f}; the kernel's graph "
+                      f"{lib_g / g_ms:.2f}x as fast) [{card}]")
+    return out
 
 
 def _format_bytes(A, k, size):
@@ -2422,7 +2467,7 @@ def main() -> int:
             print(f"  ptxas {name}: {entry[:72]} {res}")
     for src, kernel in (("stencil", "spmv_const_kernel"), ("stencil", "cheb_const_kernel"),
                         ("stencil_var", "spmv_var_kernel"), ("stencil_var", "spmv_var_wide_kernel"),
-                        ("dia", "spmm_dia_kernel"),
+                        ("dia", "spmm_dia_kernel"), ("dia", "dia_kernel_split"),
                         ("dia", "spmm_dia_acc_kernel")):
         res = {e: r for e, r in _build.kernel_resources(src).items() if kernel in e}
         _require(bool(res), f"ptxas: no {kernel} entry in the {src} build log")
@@ -2596,7 +2641,7 @@ def main() -> int:
     # the DIA-layout MGCG over them; the reference's CSR and ELL storage;
     # Matrix Market ingestion ------------------------------------------------
     t0 = time.perf_counter()
-    many_cases = _dia_layout_mgcg(wide_cases, dev, card, errs, count)
+    many_cases, many_splits = _dia_layout_mgcg(wide_cases, dev, card, errs, count)
     print(f"phase: past 256 diagonals and the {DIA_MGCG_GRID} DIA-layout MGCG in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2658,7 +2703,7 @@ def main() -> int:
     _acc_times(sysj, acc_recs, dev, card, times, lib, bounds)
     _wide_times(wide_cases, dev, card, times, lib, bounds)
     t0 = time.perf_counter()
-    _many_diag_times(many_cases, dev, card)
+    many_times = _many_diag_times(many_cases, dev, card)
     _format_products(flagship_csr, dev, card)
     print(f"phase: times past 256 diagonals and of every format in {time.perf_counter() - t0:.1f} s")
 
@@ -2683,6 +2728,8 @@ def main() -> int:
     ]
     for r in record:
         _require(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        if r["name"] in many_times:  # past 256 diagonals: the split's S and graph times
+            r.update(split_by_shape=many_splits, past_256_diagonals=many_times[r["name"]])
     print(f"run: {time.perf_counter() - t_run:.1f} s after the build")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -39,6 +39,49 @@
 //   legs in the same order, term by term, as one pass and as the twin.  The
 //   fused p.Ap is taken by the last group's launch only.  A launch of up to
 //   MAX_DIAGS diagonals (every band-160 launch) is the single launch it was.
+//   The split form, for few rows and many diagonals (the wrapper's plan,
+//   ops/cuda_dia.py::dia_plan).  On 16^3 = 4096 rows one thread a row is 16
+//   blocks on 132 SMs, each thread walking up to 256 legs a launch one load
+//   at a time: 16^3 x 343 diagonals took 0.0237 / 0.0343 ms (fp32 / fp64,
+//   graph replays) and x 1331 0.0878 / 0.2024, 1.0-5.9x cuSPARSE's CSR
+//   product.  The split kernels (spmv_dia_kernel_split,
+//   spmv_dot_dia_kernel_split) take every launch of such a matrix:
+//   - A block is DIA_SPLIT_LANES = 32 consecutive rows as lanes (a warp, so
+//     each leg's read of the row-major legs stays one coalesced line) by S
+//     slices of the launch's legs: slice s takes legs [s * nd / S, (s + 1) *
+//     nd / S) in offsets order (no slice empty: S <= the launch's legs).  S
+//     is the largest power of two whose threads still run in one wave (1024
+//     an SM) with at least DIA_MIN_SLICE = 16 legs a slice of a full group:
+//     16 at 4096 rows, 4 at 32,768, 1 (the unsplit kernels) where the rows
+//     fill the card and at up to MAX_DIAGS diagonals.
+//   - A slice's legs go in batches of DIA_SPLIT_BYTES = 128 bytes of leg and
+//     x registers (16 fp32 or bf16 legs, 8 fp64), every load of a batch
+//     (__ldcs legs, __ldg x) issued before its first FMA; a leg whose
+//     neighbour leaves [0, n) is not read.
+//   - Slice 0 starts from y[i] when accumulate, the others from 0; the
+//     partials go to shared memory and the slice-0 thread adds slices 1 ..
+//     S-1 in slice order and writes y[i] once.  No atomics: deterministic.
+//     The sum is grouped by slice ((s_0 + s_1) + s_2) + ..., each s_u a
+//     sequential fma chain, so it differs from the twin's order by rounding
+//     (within the card tests' 1e-5 / 1e-13 of max |y|); kernel 5's split
+//     form takes the same slices, so SpMM column j is still the SpMV of
+//     column j bit for bit.
+//   - The fused p.Ap: warp 0 reduces its 32 rows' y[i] * p[i] (each product
+//     rounded on its own, __fmul_rn) in a fixed shuffle tree into one partial
+//     per block, ceil(n / 32) partials summed as the unsplit form's are.
+//   - Every launch of the chain after the first is a programmatic dependent
+//     launch (DIA_SPLIT_PDL; Hopper's griddepcontrol): launch g + 1 is
+//     scheduled while launch g runs, issues its first batch of loads (legs
+//     and x, which no launch of the chain writes) and waits for launch g to
+//     complete before it reads y.  A chain's first launch is an ordinary
+//     one, so whatever wrote x has finished.
+//   Measured (scripts/dia_tuning.py --split, graph replays; NVIDIA H100
+//   80GB HBM3, 700.00 W): 16^3 x 343 fp32 0.0046 ms, fp64 0.0054; x 1331
+//   0.0107 / 0.0187, against cuSPARSE's 0.0084 / 0.0099 and 0.0190 /
+//   0.0237; 32^3 x 343 (S = 4) 0.0178 / 0.0302 against 0.0374 / 0.0482.
+//   Slower: S = 32 (8-leg slices) 0.0070 / 0.0065 and 0.0197 / 0.0200; the
+//   same chain without programmatic launches 0.0063 / 0.0069 and 0.0196 /
+//   0.0247.
 //   Instantiations (leg type / vector and accumulator type): fp32/fp32,
 //   bf16/fp32 (half the matrix bytes, fp32 accumulate, as _cm_kernel does
 //   for a bf16 matrix) and fp64/fp64 (the refinement's device residual).
@@ -95,6 +138,14 @@
 //   to 64 registers and spilled), so the kernels of up to MAX_DIAGS
 //   diagonals are the code they were; a run-time flag read in every kernel
 //   had taken fp64 K = 8 staged past its 64-register cap into spills.
+//   Where kernel 4's plan splits the rows' legs (S > 1), every launch of the
+//   chain takes the split form instead (spmm_dia_kernel_split, K in {1, 2,
+//   4}): kernel 4's blocks, slices, order and programmatic launches, with K
+//   partials a thread (a batch is DIA_SPLIT_BYTES of leg and K columns of X
+//   registers: 6 fp32 legs at K = 4, 3 fp64) and K * S * 32 partials in
+//   shared memory (32 KB at S = 32, fp64 K = 4).  Measured (the same run as
+//   kernel 4's): 16^3 x 343 k = 4 fp32 0.0060 ms, fp64 0.0079; x 1331
+//   0.0209 / 0.0294; the unsplit chain 0.0337 / 0.0498 and 0.1518 / 0.2395.
 //
 // Kernel 6: the single-call accumulating DIA SpMM, the same Y = A X as
 //   kernel 5 with the diagonals taken in groups.  Replaces
@@ -179,6 +230,13 @@
 #endif
 #ifndef SPMM_STAGE_MINB
 #define SPMM_STAGE_MINB 4  // blocks per SM asked of ptxas for the staged form (64 registers)
+#endif
+// the split form of kernels 4 and 5 (ops/cuda_dia.py::dia_plan)
+#define DIA_SPLIT_LANES 32  // rows of a split block, one lane each: a warp
+#define DIA_SPLIT_MAX 32    // slices of a split block: at most 1024 threads
+#define DIA_SPLIT_BYTES 128  // leg and X register bytes a split thread loads before its first FMA
+#ifndef DIA_SPLIT_PDL
+#define DIA_SPLIT_PDL 1  // 1: a chained split launch is a programmatic dependent launch
 #endif
 
 struct Offsets {
@@ -373,6 +431,152 @@ __global__ void __launch_bounds__(SPMM_THREADS, SPMM_STAGE_MINB)
 spmm_dia_kernel_stage(const L* __restrict__ data, const V* __restrict__ X, V* __restrict__ Y,
                       int n, long long ld, const __grid_constant__ SpmmOffsets offs) {
   spmm_block<L, V, K, B, true, false>(data, X, Y, n, ld, offs);
+}
+
+// ---------------------------------------------------------------------------
+// the split form of kernels 4 and 5 (a matrix of more than MAX_DIAGS
+// diagonals whose rows do not fill the card)
+// ---------------------------------------------------------------------------
+
+// legs per batch of loads: DIA_SPLIT_BYTES of leg and X registers (a bf16
+// leg takes a 32-bit one), 1 to 16
+template <typename L, typename V, int K>
+__host__ __device__ constexpr int split_batch() {
+  constexpr int g = DIA_SPLIT_BYTES / (int)((sizeof(L) < 4 ? 4 : sizeof(L)) + K * sizeof(V));
+  return g < 1 ? 1 : (g > 16 ? 16 : g);
+}
+
+// a product no FMA contraction folds into the sum that follows it
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// Hopper's programmatic dependent launch: a grid lets the next launch of
+// its stream be scheduled (a no-op where that launch did not ask for it),
+// and a grid launched so waits for the grid before it to complete and
+// flush its writes (a no-op where it was not launched so)
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+// One batch of a split thread's legs [k0, min(k0 + G, hi)): the
+// coefficients and K values of X of each leg whose neighbour lies in [0, n),
+// all loads issued together; returns the mask of those legs.
+template <typename L, typename V, int K, int G>
+__device__ __forceinline__ unsigned split_load(L (&d)[G], V (&xv)[G][K], const L* __restrict__ data,
+                                               const V* __restrict__ X, int n, long long ld,
+                                               const Offsets& offs, int i, int k0, int hi) {
+  unsigned m = 0u;
+#pragma unroll
+  for (int b = 0; b < G; ++b) {
+    d[b] = L(0.0f);
+#pragma unroll
+    for (int c = 0; c < K; ++c) xv[b][c] = V(0);
+    const int j = i + (k0 + b < hi ? offs.off[k0 + b] : 0);
+    if (k0 + b < hi && (unsigned)j < (unsigned)n) {
+      m |= 1u << b;
+      d[b] = ld_leg(data + ((size_t)(k0 + b) * n + i));
+#pragma unroll
+      for (int c = 0; c < K; ++c) xv[b][c] = __ldg(X + (c * ld + j));
+    }
+  }
+  return m;
+}
+
+// One block of the split form: blockDim = (DIA_SPLIT_LANES rows as lanes,
+// S slices of this launch's legs).  Thread (lane, s) sums row i = blockIdx.x
+// * DIA_SPLIT_LANES + lane over legs [s * nd / S, (s + 1) * nd / S) in
+// offsets order with an explicit fma, K columns of stride ld, slice 0 from
+// Y when accumulate, the others from 0.  A batch of the slice's legs has
+// every load issued before its first FMA; a leg whose neighbour leaves [0,
+// n) is not read.  The partials go to shared memory, and the slice-0 thread
+// (warp 0) adds slices 1 .. S-1 in slice order and writes Y once.  DOT (K =
+// 1): warp 0 then reduces the block's y[i] * X[i] in a fixed shuffle tree
+// into partial[blockIdx.x].  No atomics: deterministic.  A chained launch
+// (accumulate) may start while the launch before it runs (DIA_SPLIT_PDL):
+// it issues its first batch's loads (legs and X, which no launch of the
+// chain writes), then waits for that launch before it reads Y.
+template <typename L, typename V, int K, bool DOT>
+__device__ __forceinline__ void split_block(const L* __restrict__ data, const V* __restrict__ X,
+                                            V* __restrict__ Y, V* __restrict__ partial, int n,
+                                            long long ld, const Offsets& offs, int accumulate) {
+  constexpr int G = split_batch<L, V, K>();
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  V* part = reinterpret_cast<V*>(split_smem);  // [S][K][DIA_SPLIT_LANES]
+  pdl_trigger();
+  const int S = blockDim.y, s = threadIdx.y, lane = threadIdx.x;
+  const int i = blockIdx.x * DIA_SPLIT_LANES + lane;
+  const bool live = i < n;
+  const int nd = offs.n;
+  // this thread's slice of the legs, in order
+  const int lo = (int)((long long)s * nd / S);
+  const int hi = (int)((long long)(s + 1) * nd / S);
+  L d[G];
+  V xv[G][K];
+  unsigned m = live ? split_load<L, V, K, G>(d, xv, data, X, n, ld, offs, i, lo, hi) : 0u;
+  if (accumulate) pdl_wait();
+  V acc[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) acc[c] = s == 0 && accumulate && live ? Y[c * ld + i] : V(0);
+  if (live) {
+#pragma unroll 1
+    for (int k0 = lo; k0 < hi; k0 += G) {
+      if (k0 != lo) m = split_load<L, V, K, G>(d, xv, data, X, n, ld, offs, i, k0, hi);
+#pragma unroll
+      for (int b = 0; b < G; ++b) {
+        if ((m >> b) & 1u) {
+          const V dv = to_acc(d[b]);
+#pragma unroll
+          for (int c = 0; c < K; ++c) acc[c] = madd(dv, xv[b][c], acc[c]);
+        }
+      }
+    }
+  }
+  if (S > 1) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) part[(s * K + c) * DIA_SPLIT_LANES + lane] = acc[c];
+    __syncthreads();
+    if (s == 0) {
+      for (int u = 1; u < S; ++u) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] += part[(u * K + c) * DIA_SPLIT_LANES + lane];
+      }
+    }
+  }
+  if (s != 0) return;
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) Y[c * ld + i] = acc[c];
+  }
+  if constexpr (DOT) {
+    static_assert(K == 1, "the fused p.Ap takes one column");
+    V prod = live ? mul_rn(acc[0], X[i]) : V(0);
+#pragma unroll
+    for (int w = DIA_SPLIT_LANES / 2; w > 0; w >>= 1) prod += __shfl_down_sync(0xffffffffu, prod, w);
+    if (lane == 0) partial[blockIdx.x] = prod;
+  }
+}
+
+template <typename L, typename V>
+__global__ void __launch_bounds__(DIA_SPLIT_LANES * DIA_SPLIT_MAX)
+spmv_dia_kernel_split(const L* __restrict__ data, const V* __restrict__ x, V* __restrict__ y,
+                      int n, const __grid_constant__ Offsets offs, int accumulate) {
+  split_block<L, V, 1, false>(data, x, y, nullptr, n, 0, offs, accumulate);
+}
+
+template <typename L, typename V>
+__global__ void __launch_bounds__(DIA_SPLIT_LANES * DIA_SPLIT_MAX)
+spmv_dot_dia_kernel_split(const L* __restrict__ data, const V* __restrict__ p, V* __restrict__ y,
+                          V* __restrict__ partial, int n, const __grid_constant__ Offsets offs,
+                          int accumulate) {
+  split_block<L, V, 1, true>(data, p, y, partial, n, 0, offs, accumulate);
+}
+
+template <typename L, typename V, int K>
+__global__ void __launch_bounds__(DIA_SPLIT_LANES * DIA_SPLIT_MAX)
+spmm_dia_kernel_split(const L* __restrict__ data, const V* __restrict__ X, V* __restrict__ Y,
+                      int n, long long ld, const __grid_constant__ Offsets offs, int accumulate) {
+  split_block<L, V, K, false>(data, X, Y, nullptr, n, ld, offs, accumulate);
 }
 
 // The group plan of kernel 6: group g holds plan legs [begin[g], begin[g+1]);
@@ -704,6 +908,64 @@ static int launch_spmm(int k, const void* data, const void* X, void* Y, int n, l
   }
 }
 
+// the split form: blocks of DIA_SPLIT_LANES rows by `split` slices, the
+// partials of K columns in dynamic shared memory (at most 32 KB: 32 slices,
+// 4 fp64 columns); a chained launch (accumulate) is a programmatic dependent
+// launch where DIA_SPLIT_PDL, so it is scheduled while the launch before it
+// runs (split_block waits for it before it reads Y)
+template <typename V, int K, typename... Params, typename... Args>
+static int launch_split(void (*kernel)(Params...), int n, int split, int accumulate,
+                        cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + DIA_SPLIT_LANES - 1) / DIA_SPLIT_LANES);
+  cfg.blockDim = dim3(DIA_SPLIT_LANES, split);
+  cfg.dynamicSmemBytes = split > 1 ? (size_t)split * K * DIA_SPLIT_LANES * sizeof(V) : 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = DIA_SPLIT_PDL && accumulate ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename L, typename V>
+static int launch_spmv_split(const void* data, const void* x, void* y, void* partial, void* dot,
+                             int n, const Offsets& o, int accumulate, int split, cudaStream_t st) {
+  const L* d = (const L*)data;
+  const V* xv = (const V*)x;
+  V* yv = (V*)y;
+  if (partial == nullptr)
+    return launch_split<V, 1>(spmv_dia_kernel_split<L, V>, n, split, accumulate, st, d, xv, yv, n,
+                              o, accumulate);
+  int err = launch_split<V, 1>(spmv_dot_dia_kernel_split<L, V>, n, split, accumulate, st, d, xv,
+                               yv, (V*)partial, n, o, accumulate);
+  if (err) return err;
+  sum_partials_kernel<V><<<1, THREADS, 0, st>>>((const V*)partial,
+                                                (n + DIA_SPLIT_LANES - 1) / DIA_SPLIT_LANES, (V*)dot);
+  return (int)cudaGetLastError();
+}
+
+template <typename L, typename V>
+static int launch_spmm_split(int k, const void* data, const void* X, void* Y, int n, long long ld,
+                             const Offsets& o, int accumulate, int split, cudaStream_t st) {
+  const L* d = (const L*)data;
+  const V* x = (const V*)X;
+  V* y = (V*)Y;
+  switch (k) {
+    case 1:
+      return launch_split<V, 1>(spmm_dia_kernel_split<L, V, 1>, n, split, accumulate, st, d, x, y,
+                                n, ld, o, accumulate);
+    case 2:
+      return launch_split<V, 2>(spmm_dia_kernel_split<L, V, 2>, n, split, accumulate, st, d, x, y,
+                                n, ld, o, accumulate);
+    case 4:
+      return launch_split<V, 4>(spmm_dia_kernel_split<L, V, 4>, n, split, accumulate, st, d, x, y,
+                                n, ld, o, accumulate);
+    default: return (int)cudaErrorInvalidValue;  // a chained launch takes at most 4 columns
+  }
+}
+
 extern "C" {
 
 const char* cg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -760,6 +1022,57 @@ int cg_spmm_dia(int code, int k, const void* data, const void* X, void* Y, int n
     case FP32: return launch_spmm<float, float>(k, data, X, Y, n, ld, o, accumulate, st);
     case BF16: return launch_spmm<__nv_bfloat16, float>(k, data, X, Y, n, ld, o, accumulate, st);
     case FP64: return launch_spmm<double, double>(k, data, X, Y, n, ld, o, accumulate, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The split form of kernel 4 (ops/cuda_dia.py::dia_plan): code, legs and
+// accumulate as cg_spmv_dia; split slices of this launch's legs, 1 <= split
+// <= min(ndiags, DIA_SPLIT_MAX); partial and dot both null (the SpMV) or
+// both set (the fused p.Ap: partial holds ceil(n / DIA_SPLIT_LANES) values)
+int cg_spmv_dia_split(int code, const void* data, const void* x, void* y, void* partial, void* dot,
+                      int n, int ndiags, const int* offsets, int accumulate, int split,
+                      void* stream) {
+  Offsets o;
+  int err = fill_offsets(&o, ndiags, offsets);
+  if (err) return err;
+  if (n < 1 || split < 1 || split > ndiags || split > DIA_SPLIT_MAX ||
+      (partial == nullptr) != (dot == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+    case FP32:
+      return launch_spmv_split<float, float>(data, x, y, partial, dot, n, o, accumulate, split, st);
+    case BF16:
+      return launch_spmv_split<__nv_bfloat16, float>(data, x, y, partial, dot, n, o, accumulate,
+                                                     split, st);
+    case FP64:
+      return launch_spmv_split<double, double>(data, x, y, partial, dot, n, o, accumulate, split,
+                                               st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The split form of kernel 5's chained launches: k in {1, 2, 4} columns of
+// stride ld; code, legs and accumulate as cg_spmm_dia, split as
+// cg_spmv_dia_split
+int cg_spmm_dia_split(int code, int k, const void* data, const void* X, void* Y, int n,
+                      long long ld, int ndiags, const int* offsets, int accumulate, int split,
+                      void* stream) {
+  Offsets o;
+  int err = fill_offsets(&o, ndiags, offsets);
+  if (err) return err;
+  if (n < 1 || split < 1 || split > ndiags || split > DIA_SPLIT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+    case FP32:
+      return launch_spmm_split<float, float>(k, data, X, Y, n, ld, o, accumulate, split, st);
+    case BF16:
+      return launch_spmm_split<__nv_bfloat16, float>(k, data, X, Y, n, ld, o, accumulate, split,
+                                                     st);
+    case FP64:
+      return launch_spmm_split<double, double>(k, data, X, Y, n, ld, o, accumulate, split, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -144,6 +144,11 @@ def _bind_dia(lib: ctypes.CDLL) -> None:
     lib.cg_spmv_dot_dia.restype = _I
     lib.cg_spmm_dia.argtypes = [_I, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _IP, _I, _P]
     lib.cg_spmm_dia.restype = _I
+    lib.cg_spmv_dia_split.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _IP, _I, _I, _P]
+    lib.cg_spmv_dia_split.restype = _I
+    lib.cg_spmm_dia_split.argtypes = [_I, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _IP, _I, _I,
+                                      _P]
+    lib.cg_spmm_dia_split.restype = _I
     lib.cg_spmm_dia_acc.argtypes = [_I, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _IP, _IP,
                                     _IP, _P]
     lib.cg_spmm_dia_acc.restype = _I

@@ -48,6 +48,21 @@ def dia_nnz(A: DiaMatrix) -> int:
     return sum(i1 - i0 for _, _, i0, i1 in _windows(A))
 
 
+def dia_csr(A: DiaMatrix) -> torch.Tensor:
+    """A device DIA matrix as a CSR tensor with int32 indices, built on the
+    card, for timing cuSPARSE's product beside a kernel: each row's in-range
+    entries, offsets ascending."""
+    n = A.n
+    order = sorted(range(A.ndiags), key=lambda k: A.offsets[k])
+    offs = torch.tensor([A.offsets[k] for k in order], device=A.data.device)
+    cols = torch.arange(n, device=offs.device)[:, None] + offs[None, :]
+    keep = (cols >= 0) & (cols < n)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=offs.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    return torch.sparse_csr_tensor(crow.int(), cols[keep].int(), A.data[order].T[keep], size=(n, n),
+                                   check_invariants=False)
+
+
 def spmm_bytes(A: DiaMatrix, k: int) -> int:
     """Bytes that Y = A X must move for k fp32 columns: each leg entry whose
     neighbour lies inside the matrix read once, X read once, Y written once."""

@@ -24,8 +24,16 @@ SpMM but not kernel #6.
 Kernels #4 and #5 take at most ``MAX_DIAGS`` diagonals a launch; a matrix
 with more runs in consecutive groups of ``A.offsets`` (``dia_groups``), one
 launch each, every launch after the first adding its legs to the y the
-previous one wrote, so each row takes its legs in the twin's order.  The
-fused p·Ap is taken by the last group's launch.  Kernel #6 keeps the limit.
+previous one wrote.  The fused p·Ap is taken by the last group's launch.
+Kernel #6 keeps the limit.  ``dia_plan`` decides each launch: where the
+rows of such a matrix do not fill the card (``dia_split``: S > 1, e.g. 16
+at 4096 rows), every launch takes the split kernels, which cut each row's
+legs of the launch into S contiguous slices (``dia_slices``), one thread
+each, added in slice order by the slice-0 thread (the fused p·Ap then has
+``dot_partials`` partials); kernel #5's chained launches take the same
+slices in the same order, so column j of an SpMM is the SpMV of column j
+bit for bit.  Elsewhere (S = 1, always up to ``MAX_DIAGS`` diagonals) each
+row takes its legs in the twin's order, one thread a row.
 
 ``make_kernel_operator``, ``spmv_ell_kernel`` and ``spmv_csr_kernel`` run a
 CSR or ELL matrix through kernel #4 by a relayout to DIA at setup, as the
@@ -50,7 +58,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,7 +72,7 @@ from conjugategradient_tpu_torch.core.formats import (
     to_host,
 )
 from conjugategradient_tpu_torch.ops import _build, cuda_stencil
-from conjugategradient_tpu_torch.ops.cuda_stencil import _CODES, TAGS, _raise_on, _stream
+from conjugategradient_tpu_torch.ops.cuda_stencil import _CODES, H100_SMS, TAGS, _raise_on, _stream
 
 #: Limit of the kernels' by-value offsets struct (``csrc/dia.cu``), per
 #: launch: band 160 has 159 diagonals; more run in chained groups
@@ -80,7 +88,19 @@ CHAINED_K = 4
 #: ``_LMAX_MULTI``).
 ACC_SPAN = 512
 ACC_LMAX = 48
-
+#: Rows of an unsplit block of kernel #4 (``THREADS``), and of a split one
+#: of #4 and #5, one lane each (``DIA_SPLIT_LANES``); the most slices a
+#: split block takes (``DIA_SPLIT_MAX``: 1024 threads), all as in
+#: ``csrc/dia.cu``
+THREADS = 256
+DIA_SPLIT_LANES = 32
+DIA_SPLIT_MAX = 32
+#: the threads of a split launch an SM holds at once (its 1024-thread
+#: blocks cap a thread at 64 registers), and the fewest legs a slice of a
+#: full group of ``MAX_DIAGS`` keeps (at 4096 rows S = 16 beat S = 32 and
+#: its 8-leg slices: ``scripts/dia_tuning.py --split``, PERF.md)
+DIA_SPLIT_THREADS_PER_SM = 1024
+DIA_MIN_SLICE = 16
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +217,59 @@ def dia_groups(ndiags: int) -> List[Tuple[int, int]]:
     return [(k0, min(k0 + MAX_DIAGS, ndiags)) for k0 in range(0, ndiags, MAX_DIAGS)]
 
 
+def dia_split(n: int, ndiags: int, sms: int = H100_SMS) -> int:
+    """S, the slices kernels #4 and #5 split each row's legs of a launch
+    into: 1 up to ``MAX_DIAGS`` diagonals (the unsplit kernels, one thread a
+    row); past it the largest power of two whose S threads a row still run
+    in one wave (every SM ``DIA_SPLIT_THREADS_PER_SM``), as long as a slice
+    of a full group keeps ``DIA_MIN_SLICE`` legs and a block of
+    ``DIA_SPLIT_LANES`` rows holds S (``DIA_SPLIT_MAX``).  S = 1 past
+    ``MAX_DIAGS`` where the rows alone fill the card."""
+    if ndiags <= MAX_DIAGS:
+        return 1
+    split = 1
+    while (n * 2 * split <= sms * DIA_SPLIT_THREADS_PER_SM
+           and 2 * split * DIA_MIN_SLICE <= MAX_DIAGS and 2 * split <= DIA_SPLIT_MAX):
+        split *= 2
+    return split
+
+
+def dia_slices(nlegs: int, split: int) -> Tuple[Tuple[int, int], ...]:
+    """The legs [lo, hi) of each slice of a launch's ``nlegs`` legs, in
+    order: ``s * nlegs // split`` to ``(s + 1) * nlegs // split``, as the
+    kernels compute them."""
+    return tuple((s * nlegs // split, (s + 1) * nlegs // split) for s in range(split))
+
+
+class DiaPlan(NamedTuple):
+    """The launches of kernels #4 and #5 for a matrix: ``split``, the
+    matrix's S (1: the unsplit kernels, one thread a row in blocks of
+    ``THREADS``; more: the split ones, blocks of ``DIA_SPLIT_LANES`` rows),
+    and per group of ``dia_groups`` its legs ``[k0, k1)`` and the slices
+    its launch takes, ``min(split, k1 - k0)``."""
+
+    split: int
+    groups: Tuple[Tuple[int, int, int], ...]
+
+
+@functools.lru_cache(maxsize=256)
+def dia_plan(n: int, ndiags: int, sms: int = H100_SMS, split: Optional[int] = None) -> DiaPlan:
+    """Kernels #4 and #5's plan for ``ndiags`` diagonals on ``n`` rows:
+    ``split`` by ``dia_split`` unless given (a given split > 1 takes the
+    split kernels past any number of diagonals)."""
+    if split is None:
+        split = dia_split(n, ndiags, sms)
+    if not 1 <= split <= DIA_SPLIT_MAX:
+        raise ValueError(f"kernels #4/#5: split must be in 1..{DIA_SPLIT_MAX}, got {split}")
+    return DiaPlan(split, tuple((k0, k1, min(split, k1 - k0)) for k0, k1 in dia_groups(ndiags)))
+
+
+def dot_partials(n: int, split: int) -> int:
+    """The fused p·Ap's partials, one per block of its last launch:
+    ``THREADS`` rows a block unsplit, ``DIA_SPLIT_LANES`` split."""
+    return -(-n // (DIA_SPLIT_LANES if split > 1 else THREADS))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -247,17 +320,11 @@ def spmv_dia_cuda(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
         return spmv_dia_ref(A, x)
     name = "spmv_dia_cuda"
     code = _check_kernel_args(name, A, x, 1)
-    y = torch.empty_like(x)
-    lib = _build.load("dia")
-    groups = dia_groups(A.ndiags)
-    for g, (k0, k1) in enumerate(groups):
-        err = lib.cg_spmv_dia(code, A.data[k0].data_ptr(), x.data_ptr(), y.data_ptr(), A.n,
-                              k1 - k0, _offsets_arg(tuple(A.offsets[k0:k1])), int(g > 0),
-                              _stream(x))
-        _raise_on(lib, err, name)
-    spmv_dia_cuda.launches += len(groups)
-    spmv_dia_cuda.launches_by_dtype[TAGS[A.data.dtype]] += len(groups)
-    spmv_dia_cuda.launches_by_shape[(A.n, A.ndiags)] += len(groups)
+    plan = dia_plan(A.n, A.ndiags)
+    y, _ = _spmv_launch(_build.load("dia"), code, A, x, plan, name)
+    spmv_dia_cuda.launches += len(plan.groups)
+    spmv_dia_cuda.launches_by_dtype[TAGS[A.data.dtype]] += len(plan.groups)
+    spmv_dia_cuda.launches_by_shape[(A.n, A.ndiags)] += len(plan.groups)
     return y
 
 
@@ -265,6 +332,35 @@ spmv_dia_cuda.launches = 0
 spmv_dia_cuda.launches_by_dtype = collections.Counter()
 #: launches by (rows, diagonals) of the matrix: a DIA-layout hierarchy's level
 spmv_dia_cuda.launches_by_shape = collections.Counter()
+
+
+def _spmv_launch(lib, code: int, A: DiaMatrix, x: torch.Tensor, plan: DiaPlan,
+                 name: str = "spmv_dia_cuda", dot: bool = False):
+    """Launch kernel #4 of ``lib`` on checked arguments by ``plan``, one
+    launch per group, every launch after the first adding to the y the
+    previous one wrote; ``dot``: the last group's launch takes the fused
+    p·Ap.  Returns ``(y, p·Ap or None)``."""
+    y = torch.empty_like(x)
+    partial = out = None
+    if dot:
+        partial = torch.empty(dot_partials(A.n, plan.split), dtype=x.dtype, device=x.device)
+        out = torch.empty((), dtype=x.dtype, device=x.device)
+    last = len(plan.groups) - 1
+    for g, (k0, k1, s) in enumerate(plan.groups):
+        offs = _offsets_arg(tuple(A.offsets[k0:k1]))
+        fused = dot and g == last
+        args = (A.data[k0].data_ptr(), x.data_ptr(), y.data_ptr())
+        if plan.split > 1:
+            err = lib.cg_spmv_dia_split(code, *args, partial.data_ptr() if fused else None,
+                                        out.data_ptr() if fused else None, A.n, k1 - k0, offs,
+                                        int(g > 0), s, _stream(x))
+        elif fused:
+            err = lib.cg_spmv_dot_dia(code, *args, partial.data_ptr(), out.data_ptr(), A.n,
+                                      k1 - k0, offs, int(g > 0), _stream(x))
+        else:
+            err = lib.cg_spmv_dia(code, *args, A.n, k1 - k0, offs, int(g > 0), _stream(x))
+        _raise_on(lib, err, name)
+    return y, out
 
 
 def spmv_dot_dia_cuda(A: DiaMatrix, p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -276,23 +372,10 @@ def spmv_dot_dia_cuda(A: DiaMatrix, p: torch.Tensor) -> Tuple[torch.Tensor, torc
         return spmv_dot_dia_ref(A, p)
     name = "spmv_dot_dia_cuda"
     code = _check_kernel_args(name, A, p, 1)
-    y = torch.empty_like(p)
-    partial = torch.empty(-(-A.n // 256), dtype=p.dtype, device=p.device)
-    dot = torch.empty((), dtype=p.dtype, device=p.device)
-    lib = _build.load("dia")
-    groups = dia_groups(A.ndiags)
-    for g, (k0, k1) in enumerate(groups):
-        offs = _offsets_arg(tuple(A.offsets[k0:k1]))
-        if g + 1 < len(groups):
-            err = lib.cg_spmv_dia(code, A.data[k0].data_ptr(), p.data_ptr(), y.data_ptr(), A.n,
-                                  k1 - k0, offs, int(g > 0), _stream(p))
-        else:
-            err = lib.cg_spmv_dot_dia(code, A.data[k0].data_ptr(), p.data_ptr(), y.data_ptr(),
-                                      partial.data_ptr(), dot.data_ptr(), A.n, k1 - k0, offs,
-                                      int(g > 0), _stream(p))
-        _raise_on(lib, err, name)
-    spmv_dot_dia_cuda.launches += len(groups)
-    spmv_dot_dia_cuda.launches_by_dtype[TAGS[A.data.dtype]] += len(groups)
+    plan = dia_plan(A.n, A.ndiags)
+    y, dot = _spmv_launch(_build.load("dia"), code, A, p, plan, name, dot=True)
+    spmv_dot_dia_cuda.launches += len(plan.groups)
+    spmv_dot_dia_cuda.launches_by_dtype[TAGS[A.data.dtype]] += len(plan.groups)
     return y, dot
 
 
@@ -330,17 +413,26 @@ def spmm_chunks(A: DiaMatrix, k: int):
     return k_chunks(k, CHAINED_K if A.ndiags > MAX_DIAGS else K_CHUNKS[0])
 
 
-def _spmm_launch(lib, code: int, A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
+def _spmm_launch(lib, code: int, A: DiaMatrix, X: torch.Tensor,
+                 plan: Optional[DiaPlan] = None) -> torch.Tensor:
     """Launch kernel #5 of ``lib`` on checked arguments, one launch per
-    column chunk and group of diagonals."""
+    column chunk and group of diagonals, by ``plan`` (default
+    ``dia_plan``): a split plan's launches take #4's slices in #4's order,
+    so column j equals ``spmv_dia_cuda`` of column j bit for bit."""
+    plan = plan or dia_plan(A.n, A.ndiags)
     Y = torch.empty_like(X)
-    groups = [(k0, k1, _offsets_arg(tuple(A.offsets[k0:k1]))) for k0, k1 in dia_groups(A.ndiags)]
+    groups = [(k0, k1, s, _offsets_arg(tuple(A.offsets[k0:k1]))) for k0, k1, s in plan.groups]
+    # a split launch takes at most CHAINED_K columns
+    chunks = spmm_chunks(A, X.shape[0]) if plan.split == 1 else k_chunks(X.shape[0], CHAINED_K)
     c0 = 0
-    for kc in spmm_chunks(A, X.shape[0]):
-        for k0, k1, offs in groups:
-            err = lib.cg_spmm_dia(code, kc, A.data[k0].data_ptr(), X[c0].data_ptr(),
-                                  Y[c0].data_ptr(), A.n, A.n, k1 - k0, offs, int(k0 > 0),
-                                  _stream(X))
+    for kc in chunks:
+        for k0, k1, s, offs in groups:
+            args = (code, kc, A.data[k0].data_ptr(), X[c0].data_ptr(), Y[c0].data_ptr(), A.n, A.n,
+                    k1 - k0, offs, int(k0 > 0))
+            if plan.split > 1:
+                err = lib.cg_spmm_dia_split(*args, s, _stream(X))
+            else:
+                err = lib.cg_spmm_dia(*args, _stream(X))
             _raise_on(lib, err, "spmm_dia_cuda")
         c0 += kc
     return Y

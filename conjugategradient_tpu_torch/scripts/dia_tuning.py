@@ -1,4 +1,5 @@
-"""Design constants of kernels #5 and #6 (the DIA SpMMs), measured on the card.
+"""Design constants of kernels #5 and #6 (the DIA SpMMs) and the split form
+of #4 and #5 past 256 diagonals, measured on the card.
 
     python -m conjugategradient_tpu_torch.scripts.dia_tuning
 
@@ -39,12 +40,23 @@ each beside #5's shipped build on the same inputs.  Each time stands beside
 its bound (each leg entry whose neighbour lies in the matrix read once, X
 read once, Y written once, at 3.35 TB/s).
 
+The split form of kernels #4 and #5 past 256 diagonals (``--split``
+runs only this part): each build of ``SPLIT_BUILDS`` (``DIA_SPLIT_PDL``:
+1 makes a chained launch a programmatic dependent launch) on each matrix
+of ``SPLIT_SHAPES`` (random legs on the full box of a 3-D stencil's shifts
+folded into DIA offsets, and a band of 300 diagonals) in fp32 and fp64,
+launched by
+``cuda_dia.dia_plan(split=S)`` for every S of ``SPLITS`` (S = 1: the
+unsplit chain) beside the plan's own S, each replayed from a CUDA graph:
+#4's SpMV and fused p·Ap and #5's chained SpMM at k = 4, beside
+cuSPARSE's CSR product of the same matrix replayed the same way.
+
 Every variant is held to the twin first (max error <= 1e-5 of max |twin|,
 1e-13 in fp64).  The launches go through the wrappers' launch helpers, not
 the wrappers, so the kernels' launch counts do not move.  The last line is
 one JSON record: ``{"card": ..., "spmm_dia": {variant: {shape: ms}},
-"spmv_dia": {shape: ms}, "spmm_dia_acc": {variant: {shape: ms}}}``.  Needs a
-CUDA device.
+"spmv_dia": {shape: ms}, "spmm_dia_acc": {variant: {shape: ms}}, "split":
+{shape: {S: {op: ms}}}}``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -59,7 +71,17 @@ from conjugategradient_tpu_torch.core import generators
 from conjugategradient_tpu_torch.core.formats import DiaMatrix
 from conjugategradient_tpu_torch.ops import _build
 from conjugategradient_tpu_torch.ops import cuda_dia as cd
-from conjugategradient_tpu_torch.ops.card import SMS, blocks_per_sm, bound_ms, card_name, dia_nnz, time_ms
+from conjugategradient_tpu_torch.ops.card import (
+    SMS,
+    blocks_per_sm,
+    bound_ms,
+    card_name,
+    dia_csr,
+    dia_nnz,
+    graph_ms,
+    time_ms,
+)
+from conjugategradient_tpu_torch.scripts.dia_times import box_dia
 
 REL, REL64 = 1e-5, 1e-13
 #: build label -> -D overrides; the first is the shipped design
@@ -92,6 +114,86 @@ ACC_BUILDS = {
 FLAGSHIP_N = 207_402
 #: kernel #6's main shape: its experiment's n, band and k
 ACC_N, ACC_BAND, ACC_K = 414_720, 160, 8
+
+
+#: the split sweep: (label, rows of a cube's side or of a band, stencil
+#: halo or band width); the splits timed at each
+SPLIT_SHAPES = (("16^3 x 343", 16, 3), ("16^3 x 1331", 16, 5), ("32^3 x 343", 32, 3),
+                ("band 300 n=4000", 4000, 300))
+SPLITS = (1, 2, 4, 8, 16, 32)
+SPLIT_K = 4
+#: the split form's builds, the shipped design first
+SPLIT_BUILDS = {"DIA_SPLIT_PDL=1 DIA_SPLIT_BYTES=128": (), "DIA_SPLIT_PDL=0": ("DIA_SPLIT_PDL=0",)}
+
+
+def _many_diagonals(label, side, width, dev):
+    """A device fp64 DIA matrix past 256 diagonals with random legs (a
+    leg's entries whose neighbour leaves [0, n) zero): the (2h + 1)^3 box of
+    a stencil on side^3 folded into offsets (``dia_times.box_dia``), or a
+    band of ``width`` diagonals on ``side`` rows."""
+    if not label.startswith("band"):
+        return box_dia(side, width).device_put(torch.float64, dev)
+    offs = tuple(range(-(width // 2), width - width // 2))
+    i = torch.arange(side, device=dev)
+    data = torch.randn((len(offs), side), device=dev, dtype=torch.float64,
+                       generator=torch.Generator(device=dev).manual_seed(width))
+    for k, o in enumerate(offs):
+        data[k, (i + o < 0) | (i + o >= side)] = 0.0
+    return DiaMatrix(data, offs, (side, side))
+
+
+def _split_sweep(dev, card, record):
+    """Kernels #4 (SpMV, fused p·Ap) and #5 (chained, k = SPLIT_K) at every
+    S of SPLITS on each SPLIT_SHAPES matrix, fp32 and fp64, held to the
+    twins, then replayed from CUDA graphs beside cuSPARSE."""
+    record["split"] = {}
+    for build, defines in SPLIT_BUILDS.items():
+        _split_build(build, _build.load("dia", defines), dev, card, record["split"])
+
+
+def _split_build(build, lib, dev, card, record):
+    """``_split_sweep``'s shapes and splits on one build of ``csrc/dia.cu``."""
+    for label, side, width in SPLIT_SHAPES:
+        A64 = _many_diagonals(label, side, width, dev)
+        for legs in (torch.float32, torch.float64):
+            A = DiaMatrix(A64.data.to(legs), A64.offsets, A64.shape)
+            g = torch.Generator(device=dev).manual_seed(7)
+            x = torch.randn(A.n, generator=g, device=dev, dtype=legs)
+            X = torch.randn((SPLIT_K, A.n), generator=g, device=dev, dtype=legs)
+            code = cd._CODES[(legs, legs)]
+            ref, refY = cd.spmv_dia_ref(A, x), cd.spmm_dia_ref(A, X)
+            rel = REL64 if legs == torch.float64 else REL
+            nnz, size = dia_nnz(A), A.data.element_size()
+            b1 = bound_ms(nnz * size + 2 * A.n * size, 2 * nnz)[0]
+            bk = bound_ms(nnz * size + 2 * SPLIT_K * A.n * size, 2 * SPLIT_K * nnz)[0]
+            csr = dia_csr(A)
+            Xt = X.T.contiguous()
+            lib_ms = (graph_ms(lambda: csr @ x, 200), graph_ms(lambda: csr @ Xt, 100))
+            tag = f"{label} {cd.TAGS[legs]}"
+            own = cd.dia_split(A.n, A.ndiags)
+            row = record.setdefault(build, {}).setdefault(tag, {"plan": own, "csr": lib_ms})
+            for s in SPLITS:
+                plan = cd.dia_plan(A.n, A.ndiags, split=s)
+                y, _ = cd._spmv_launch(lib, code, A, x, plan)
+                yd, dot = cd._spmv_launch(lib, code, A, x, plan, dot=True)
+                Y = cd._spmm_launch(lib, code, A, X, plan)
+                for what, out, want in (("spmv", y, ref), ("spmm", Y, refY)):
+                    err = float((out - want).abs().max())
+                    if not err <= rel * float(want.abs().max()):
+                        raise RuntimeError(f"split {tag} S={s} {what}: max err {err:.3e}")
+                if not (torch.equal(yd, y) and all(torch.equal(Y[j], cd._spmv_launch(
+                        lib, code, A, X[j].contiguous(), plan)[0]) for j in range(SPLIT_K))):
+                    raise RuntimeError(f"split {tag} S={s}: a column or the fused y differs")
+                ms = {"spmv": graph_ms(lambda: cd._spmv_launch(lib, code, A, x, plan), 200),
+                      "spmv_dot": graph_ms(lambda: cd._spmv_launch(lib, code, A, x, plan, dot=True),
+                                           200),
+                      f"spmm k={SPLIT_K}": graph_ms(lambda: cd._spmm_launch(lib, code, A, X, plan),
+                                                    100)}
+                row[s] = ms
+                print(f"time split [{build}] {tag} S={s}{' (the plan)' if s == own else ''}: "
+                      + ", ".join(f"{op} {v:.4f} ms" for op, v in ms.items())
+                      + f"; bound {b1:.4f} / {bk:.4f} ms; CSR {lib_ms[0]:.4f} / {lib_ms[1]:.4f} ms "
+                      f"[{card}]")
 
 
 def _threads(defines) -> int:
@@ -147,14 +249,21 @@ def _time_variants(label_fn, builds, launch, ref, nbytes, bound, shape, card, re
               f"{nbytes / 1e6:.1f} MB, {bound / ms:.1%} of it) [{card}]")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("dia_tuning: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     card = card_name()
     print(card)
-    every = list(BUILDS.values()) + list(ACC_BUILDS.values())[1:]
+    if "--split" in (sys.argv[1:] if argv is None else argv):
+        with cf.ThreadPoolExecutor(len(SPLIT_BUILDS)) as pool:
+            list(pool.map(lambda d: _build.build(["dia"], d), SPLIT_BUILDS.values()))
+        record = {"card": card}
+        _split_sweep(dev, card, record)
+        print(json.dumps(record))
+        return 0
+    every = list(BUILDS.values()) + list(ACC_BUILDS.values())[1:] + list(SPLIT_BUILDS.values())[1:]
     with cf.ThreadPoolExecutor(len(every)) as pool:
         list(pool.map(lambda d: _build.build(["dia"], d), every))
     for label, defines in BUILDS.items():
@@ -208,6 +317,7 @@ def main() -> int:
         print(f"time spmm_dia (kernel #5, shipped) {shape}: {ms5:.4f} ms ({bound / ms5:.1%} of the "
               f"bound) [{card}]")
         del ref, A, X
+    _split_sweep(dev, card, record)
     print(json.dumps(record))
     return 0
 

@@ -1004,12 +1004,13 @@ def test_fmg_on_card_matches_cpu(cuda):
 def _many_diagonals(case):
     """A DIA matrix with more than 256 diagonals: a band of 300 offsets, or
     a random 7^3- or 11^3-leg stencil on 16^3 (the 16^3 levels of the 128^3
-    and 256^3 DIA-layout hierarchies carry 343 and 1331)."""
+    and 256^3 DIA-layout hierarchies carry 343 and 1331), or the 7^3 one on
+    32^3 (32,768 rows)."""
     rng = np.random.default_rng(len(case))
     if case == "band 300":
         n, offs = 4000, tuple(range(-150, 150))
     else:
-        g, h = 16, {"16^3 x 343": 3, "16^3 x 1331": 5}[case]
+        g, h = {"16^3 x 343": (16, 3), "16^3 x 1331": (16, 5), "32^3 x 343": (32, 3)}[case]
         n = g ** 3
         offs = tuple(sorted({(a * g + b) * g + c for a in range(-h, h + 1)
                              for b in range(-h, h + 1) for c in range(-h, h + 1)}))
@@ -1058,6 +1059,97 @@ def test_dia_kernels_past_256_diagonals_match_twin(cuda, case, legs):
         assert float((Y - Yr).abs().max()) <= rel * float(Yr.abs().max()), k
         for j in range(k):
             assert torch.equal(Y[j], spmv_dia_cuda(A, X[j].contiguous())), (k, j)
+
+
+SPLIT_CASES = ["band 300", "16^3 x 343", "16^3 x 1331", "32^3 x 343"]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("legs", [torch.float32, torch.bfloat16, torch.float64])
+def test_dia_split_kernels_match_twin_and_emulation(cuda, case, legs):
+    # the split #4, its fused p.Ap and the chained #5 take the plan's S > 1;
+    # the emulation (tests/test_torch_dia_split.py) replays the same launches
+    # in fp64 on the CPU
+    from test_torch_dia_split import dia_schedule, dot_schedule
+
+    A = _many_diagonals(case).device_put(legs, cuda)
+    plan = cuda_dia.dia_plan(A.n, A.ndiags)
+    assert plan.split > 1
+    A64 = DiaMatrix(A.data.double().cpu(), A.offsets, A.shape)
+    vec = torch.float64 if legs == torch.float64 else torch.float32
+    rel = REL64 if legs == torch.float64 else REL
+    gen = torch.Generator(device=cuda).manual_seed(A.ndiags + 1)
+    x = _in_nan_buffer(torch.randn(A.n, generator=gen, device=cuda, dtype=vec))
+    y, ref = spmv_dia_cuda(A, x), spmv_dia_ref(A, x)
+    yf, dot = spmv_dot_dia_cuda(A, x)
+    torch.cuda.synchronize()
+    emu = dia_schedule(A64, x.double().cpu()[None], plan)[0]
+    _, dot_emu = dot_schedule(emu, x.double().cpu(), plan)
+    for want in (ref, emu):
+        assert float((y.double().cpu() - want.double().cpu()).abs().max()) \
+            <= rel * float(want.abs().max())
+    assert torch.equal(yf, y)
+    scale = float((x.double().cpu() * emu).abs().sum())
+    assert abs(float(dot) - float(dot_emu)) <= rel * scale
+    for k in (1, 3, 4, 8):
+        X = _in_nan_buffer(torch.randn((k, A.n), generator=gen, device=cuda, dtype=vec))
+        Y, Yr = spmm_dia_cuda(A, X), spmm_dia_ref(A, X)
+        torch.cuda.synchronize()
+        Ye = dia_schedule(A64, X.double().cpu(), plan)
+        for want in (Yr, Ye):
+            assert float((Y.double().cpu() - want.double().cpu()).abs().max()) \
+                <= rel * float(want.abs().max()), k
+        for j in range(k):
+            assert torch.equal(Y[j], spmv_dia_cuda(A, X[j].contiguous())), (k, j)
+
+
+@pytest.mark.parametrize("split", [1, 3, 32])
+@pytest.mark.parametrize("case", ["band 300", "16^3 x 1331"])
+@pytest.mark.parametrize("legs", [torch.float32, torch.float64])
+def test_dia_kernels_match_twin_under_a_forced_split(cuda, case, legs, split):
+    # any split the kernels take, the plan's or not; at S = 1 the unsplit
+    # chain
+    A = _many_diagonals(case).device_put(legs, cuda)
+    plan = cuda_dia.dia_plan(A.n, A.ndiags, split=split)
+    lib, code = _build.load("dia"), cuda_dia._CODES[(legs, legs)]
+    rel = REL64 if legs == torch.float64 else REL
+    gen = torch.Generator(device=cuda).manual_seed(split)
+    x = _in_nan_buffer(torch.randn(A.n, generator=gen, device=cuda, dtype=legs))
+    X = _in_nan_buffer(torch.randn((4, A.n), generator=gen, device=cuda, dtype=legs))
+    y, _ = cuda_dia._spmv_launch(lib, code, A, x, plan)
+    yf, dot = cuda_dia._spmv_launch(lib, code, A, x, plan, dot=True)
+    Y = cuda_dia._spmm_launch(lib, code, A, X, plan)
+    torch.cuda.synchronize()
+    ref, Yr = spmv_dia_ref(A, x), spmm_dia_ref(A, X)
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+    assert torch.equal(yf, y)
+    assert abs(float(dot) - float(torch.dot(x, ref))) <= rel * float((x * ref).abs().sum())
+    assert float((Y - Yr).abs().max()) <= rel * float(Yr.abs().max())
+    for j in range(4):
+        assert torch.equal(Y[j], cuda_dia._spmv_launch(lib, code, A, X[j].contiguous(), plan)[0])
+
+
+@pytest.mark.parametrize("case", ["16^3 x 343", "16^3 x 1331"])
+def test_dia_split_kernels_replay_from_a_graph(cuda, case):
+    # a chained split launch is a programmatic dependent launch; replayed
+    # from a CUDA graph the chain gives the eager numbers bit for bit
+    A = _many_diagonals(case).device_put(torch.float64, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(A.n, generator=gen, device=cuda, dtype=torch.float64)
+    X = torch.randn((4, A.n), generator=gen, device=cuda, dtype=torch.float64)
+    run = lambda: (spmv_dia_cuda(A, x), *spmv_dot_dia_cuda(A, x), spmm_dia_cuda(A, X))
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        x.copy_(torch.randn(A.n, generator=gen, device=cuda, dtype=torch.float64))
+        X.copy_(torch.randn((4, A.n), generator=gen, device=cuda, dtype=torch.float64))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, run()):
+            assert torch.equal(got, want)
 
 
 def test_dia_layout_mgcg_past_256_diagonals_converges(cuda):

@@ -145,6 +145,39 @@ def test_bf16_legs_within_one_ulp_of_jax_and_accumulate_fp32():
     _close(y_t.numpy(), spmv_dia_pallas(jA_same, jnp.asarray(x), interpret=True), REL32)
 
 
+#: the twins past 256 diagonals against the JAX package's chained 32-leg
+#: groups: fp32 at 2e-6 of max|ref| (the JAX package sums each group before
+#: adding its y_in, the twin leg by leg: 5.98e-7 measured at this shape),
+#: fp64 at 1e-12
+REL32_MANY, REL64_MANY = 2e-6, 1e-12
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_twins_past_256_diagonals_match_pallas_interpret(dtype):
+    """A random 10^3 stencil's 343 offsets (its 7^3 box folded flat), leg
+    entries whose neighbour leaves [0, n) zero: kernel #4's twins against
+    ``spmv_dia_pallas`` and ``spmv_dot_dia_pallas`` in interpret mode."""
+    g, n = 10, 1000
+    offs = sorted({(a * g + b) * g + c for a in range(-3, 4) for b in range(-3, 4)
+                   for c in range(-3, 4)})
+    assert len(offs) == 343 > cuda_dia.MAX_DIAGS
+    rng = np.random.default_rng(11)
+    data = rng.standard_normal((len(offs), n))
+    i = np.arange(n)
+    for k, o in enumerate(offs):
+        data[k, (i + o < 0) | (i + o >= n)] = 0.0
+    jA = JDia(data=data, offsets=tuple(offs), shape=(n, n)).device_put(dtype)
+    tA = dia_from_reference(jA).device_put(dtype, "cpu")
+    p = rng.standard_normal(n).astype(dtype)
+    rel = REL32_MANY if dtype == np.float32 else REL64_MANY
+    y_t = spmv_dia_ref(tA, torch.from_numpy(p)).numpy()
+    _close(y_t, spmv_dia_pallas(jA, jnp.asarray(p), interpret=True), rel)
+    y_j, d_j = spmv_dot_dia_pallas(jA, jnp.asarray(p), interpret=True)
+    y_f, d_t = spmv_dot_dia_ref(tA, torch.from_numpy(p))
+    _close(y_f.numpy(), y_j, rel)
+    assert abs(float(d_t) - float(d_j)) <= rel * float(np.abs(p * y_t).sum())
+
+
 @pytest.mark.parametrize("k", [1, 3, 8])
 def test_spmm_twin_matches_pallas_interpret(k):
     jA, tA = _pair("banded_700_16")

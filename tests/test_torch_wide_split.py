@@ -45,6 +45,17 @@ _SRC = (Path(cuda_stencil.__file__).parents[1] / "csrc" / "stencil_var.cu").read
 SMEM_LIMIT = 48 * 1024
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulation runs thousands of small torch ops: one intra-op thread
+    keeps the suite's parallel workers from oversubscribing the cores (with
+    every worker's default threads, a 3 s test ran for minutes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _define(name):
     return int(re.search(rf"#define {name} (\d+)", _SRC).group(1))
 
