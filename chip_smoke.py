@@ -101,6 +101,25 @@ after:
   (its history against the chunked residual), the 127^3 smooth hierarchy
   saved and loaded (``save_pytree``; the same count and x), and the
   ``reference_workloads`` twin at ``--quick`` in fp64 (every row OK).
+- The preconditioners.  ``api.solve(method="amg_cg")`` fp32 on the two
+  Poisson 127^3 Matrix Market files of the ingestion phase: in natural
+  order the setup infers the (127, 127, 127) grid and aggregates in cubes,
+  every level launches its kernel (#1 on a const level, #3 on a variable
+  one, by grid) and the outer CG runs #4 exactly iterations + 1 times;
+  permuted, greedy aggregation (``csrc/aggregate.cpp``) gives CSR levels
+  and no #1, #3 or #4 launch.  Each prints its levels, host setup by
+  phase, iterations beside plain CG's, warm wall and profile; beside them
+  ``mgcg`` on the same system and an n x 4 ``amg_cg`` block (column 0 the
+  single-RHS count).  127^3 jump diffusion as CSR through ``amg_cg`` (#3 at
+  every stencil level).  The flagship through plain CG, ``jacobi_cg``,
+  ``bjacobi_cg``, ``cheb_cg`` and ``amg_cg`` (1-D strips, DIA levels), #4
+  launched exactly as often as each route implies, and ``jacobi_cg`` /
+  ``bjacobi_cg`` on n x 4 blocks (#5).  Each AMG level's kernel timed
+  beside cuSPARSE.  31^3 card against CPU (equal fp64 counts), two greedy
+  cycles bit-identical, the C++ aggregation against the Python loop; the
+  spectrum tools (``spectrum_from_cg`` of a traced AMG-PCG run,
+  ``condition_number``, ``gershgorin_bounds``, ``power_iteration`` on the
+  card against host Lanczos, ``jacobi_eigenvalues`` of a 64 x 64 matrix).
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -129,6 +148,7 @@ beside the card's name and power limit.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import itertools
 import json
@@ -148,6 +168,7 @@ from conjugategradient_tpu_torch.core.formats import (
     CsrMatrix,
     DiaMatrix,
     StencilMatrix,
+    const_to_stencil,
     csr_to_bsr,
     csr_to_coo,
     csr_to_ell,
@@ -206,6 +227,7 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
 )
 from conjugategradient_tpu_torch.ops.spmm import spmm
 from conjugategradient_tpu_torch.ops.spmv import as_operator, prepare
+from conjugategradient_tpu_torch.precond import amg
 from conjugategradient_tpu_torch.precond.multigrid import (
     _const_bounds,
     _fused_cheb_ok,
@@ -214,6 +236,7 @@ from conjugategradient_tpu_torch.precond.multigrid import (
     fmg,
 )
 from conjugategradient_tpu_torch.scripts import reference_workloads, spmm_acc_experiment
+from conjugategradient_tpu_torch.solvers import eigen
 from conjugategradient_tpu_torch.solvers.cg import cg_solve, cg_solve_chunked, cg_solve_traced
 from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
@@ -2053,8 +2076,11 @@ def _ingestion(dev, card, count):
     seeded symmetric permutation it must load as CSR (the blowup guard sees
     ~2 M diagonals) and solve with 0 kernel #4 launches; unpermuted it must
     load as DIA and solve on kernel #4, then as an n x 4 block on #5.  Each
-    solve ``rel_l2 < TOL``, true fp64 relative residual within TRUE_REL."""
+    solve ``rel_l2 < TOL``, true fp64 relative residual within TRUE_REL.
+    Returns {"permuted" / "unpermuted": (loaded matrix, b, plain CG's
+    iterations)} for the preconditioners phase."""
     g = MTX_GRID
+    loaded = {}
     s = generators.poisson_system(g, dtype=np.float32)
     perm = np.random.default_rng(SEED).permutation(s.n)
     t0 = time.perf_counter()
@@ -2085,6 +2111,7 @@ def _ingestion(dev, card, count):
             want = 0 if kind is CsrMatrix else res.iterations + 1
             _require(launches == want, f"{tag}: {launches} spmv_dia launches, want {want}")
             size = f"{A.ndiags} diagonals" if kind is DiaMatrix else f"{A.nnz} nnz"
+            loaded[label] = (A, b, res.iterations)
             print(f"{tag}: {os.path.getsize(path) / 1e6:.1f} MB, write {w_s:.3f} s, read "
                   f"{r_s:.3f} s ({type(A).__name__}, {size}); "
                   f"api.solve(method='cg') {res.iterations} iterations, true fp64 rel residual "
@@ -2105,6 +2132,393 @@ def _ingestion(dev, card, count):
                 print(f"{tag} n x {FORMAT_K}: iterations by column {its}, spmm_dia launches "
                       f"{spmm_dia_cuda.launches}")
     print(f"Poisson {g}: symmetric permutation of the matrix {perm_s:.3f} s")
+    return loaded
+
+
+# -- the preconditioners and the spectrum tools ------------------------------
+
+#: the 31^3 card-against-CPU checks; the Jacobi-rotation matrix's order
+PRECOND_SMALL = (31, 31, 31)
+JACOBI_EIG_N = 64
+#: jacobi_eigenvalues against numpy's eigvalsh, fp64, relative to the
+#: largest |eigenvalue|
+JACOBI_EIG_REL = 1e-8
+#: the card's power iteration against host Lanczos's upper end
+POWER_ITERS = 200
+POWER_AGREE = 1e-2
+#: Lanczos steps of the spectrum probes (the JAX package's default k = 30)
+LANCZOS_K = 30
+
+
+@contextlib.contextmanager
+def _facade_amg():
+    """Collect each AMG hierarchy ``api.solve`` builds (the facade's own,
+    read afterwards for its levels and setup phases) by wrapping
+    ``precond.amg.build_amg_hierarchy`` for the block's duration."""
+    built, orig = [], amg.build_amg_hierarchy
+
+    def build(*args, **kwargs):
+        built.append(orig(*args, **kwargs))
+        return built[-1]
+
+    amg.build_amg_hierarchy = build
+    try:
+        yield built
+    finally:
+        amg.build_amg_hierarchy = orig
+
+
+def _amg_levels(h):
+    """[(level operator type, n, its size)] of an AMG hierarchy."""
+    out = []
+    for lvl in h.levels:
+        A = lvl.A
+        size = {DiaMatrix: lambda: f"{A.ndiags} diagonals", CsrMatrix: lambda: f"{A.nnz} nnz",
+                StencilMatrix: lambda: f"{A.nlegs} legs",
+                ConstStencilMatrix: lambda: f"{A.nlegs} const legs"}[type(A)]()
+        out.append((type(A).__name__, A.n, getattr(A, "grid", None), size))
+    return out
+
+
+def _amg_launches():
+    """Launches since the last reset: #1 and #3 (tuned and wide) by grid,
+    #4 in all and by (n, ndiags), #5."""
+    by3 = collections.Counter(spmv_stencil_cuda.launches_by_grid)
+    by3.update(spmv_stencil_wide_cuda.launches_by_grid)
+    return dict(const_by_grid=dict(spmv_const_stencil_cuda.launches_by_grid), var_by_grid=dict(by3),
+                spmv_dia=spmv_dia_cuda.launches, dia_by_shape=dict(spmv_dia_cuda.launches_by_shape),
+                spmm_dia=spmm_dia_cuda.launches)
+
+
+def _cycle_dia_launches(h) -> int:
+    """Kernel #4 launches of one cycle of ``h``: on each DIA level the
+    smoothers' products (degree + 1 per Chebyshev sweep), the residual and
+    the smoothed transfers' two."""
+    per = 0
+    for lvl in h.levels:
+        if isinstance(lvl.A, DiaMatrix):
+            groups = len(cuda_dia.dia_plan(lvl.A.n, lvl.A.ndiags).groups)
+            smooth = sum(s + 1 for s in (h.pre, h.post) if s > 0)
+            per += groups * (smooth + 1 + (2 if lvl.sa_c else 0))
+    return per
+
+
+def _require_level_launches(tag, h, got):
+    """Every stencil level of ``h`` launched its kernel (#1 const, #3
+    variable) at its grid."""
+    for lvl in h.levels:
+        A = lvl.A
+        if isinstance(A, ConstStencilMatrix):
+            _require(got["const_by_grid"].get(A.grid, 0) > 0, f"{tag}: no kernel #1 launch at {A.grid}")
+        elif isinstance(A, StencilMatrix):
+            _require(got["var_by_grid"].get(A.grid, 0) > 0, f"{tag}: no kernel #3 launch at {A.grid}")
+
+
+def _amg_solve(tag, A, b, dev, card, **kw):
+    """``api.solve(method="amg_cg")`` fp32 ``rel_l2 < TOL`` on the card,
+    counted from a reset: converged, true fp64 relative residual within
+    TRUE_REL, every stencil level's kernel launched; prints the levels,
+    the host setup by phase, the wall, the warm wall (the built hierarchy)
+    and its profile.  Returns (result, hierarchy, launches, warm ms)."""
+    with _facade_amg() as built:
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = api.solve(A, b, method="amg_cg", tol=TOL, norm="rel_l2", dtype=np.float32,
+                        device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = _amg_launches()
+    h = built[-1]
+    _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+    rel = _host_rel_residual(A, b, res.x.cpu().numpy())
+    _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+    _require_level_launches(tag, h, got)
+    setup = h.setup_s
+    print(f"{tag}: levels {_amg_levels(h)} + dense {h.coarse_inv.shape[0]}; host setup s "
+          f"{ {k: round(v, 3) for k, v in setup.items()} } (total {sum(setup.values()):.3f} s); "
+          f"api.solve(method='amg_cg') {res.iterations} iterations, true fp64 rel residual "
+          f"{rel:.3e}, wall {wall:.3f} s with the setup; launches: #1 by grid "
+          f"{got['const_by_grid']}, #3 by grid {got['var_by_grid']}, #4 {got['spmv_dia']} "
+          f"[{card}]")
+    A_dev = A.device_put(torch.float32, dev)
+    b_dev = torch.from_numpy(np.asarray(b, np.float32)).to(dev)
+    M = amg.amg_preconditioner(h)
+    warm = lambda: cg_solve(A_dev, b_dev, policy=ConvergencePolicy(tol=TOL, norm="rel_l2"), M=M)
+    warm_ms = time_ms(warm, 3)
+    print(f"time {tag} warm solve (hierarchy built): {warm_ms:.3f} ms [{card}]")
+    _device_time_top(warm, warm_ms, card, top=8)
+    return res, h, got, warm_ms
+
+
+def _amg_level_times(tag, h, dev, card):
+    """Each stencil and DIA level's kernel (#1, #3, #4) replayed from a CUDA
+    graph, beside its twin, its bound and cuSPARSE's CSR product of the
+    same operator replayed the same way, fp32 as the cycle runs it."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for lvl, (_, _, _, size) in zip(h.levels, _amg_levels(h)):
+        A = lvl.A
+        if isinstance(A, CsrMatrix):
+            continue
+        shape = A.grid if isinstance(A, (StencilMatrix, ConstStencilMatrix)) else (A.n,)
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        if isinstance(A, ConstStencilMatrix):
+            name, fn, ref = "spmv_const_stencil", spmv_const_stencil_cuda, spmv_const_stencil_ref
+            csr = _stencil_csr(const_to_stencil(A).device_put(torch.float32, dev))
+            nbytes, nnz = 2 * A.n * 4, A.nnz
+        elif isinstance(A, StencilMatrix):
+            name, fn, ref = "spmv_stencil", spmv_stencil_cuda, spmv_stencil_ref
+            csr = _stencil_csr(A)
+            nbytes, nnz = A.nnz * A.data.element_size() + 2 * A.n * 4, A.nnz
+        else:
+            name, fn, ref = "spmv_dia", spmv_dia_cuda, spmv_dia_ref
+            csr = dia_csr(A)
+            nnz = dia_nnz(A)
+            nbytes = nnz * A.data.element_size() + 2 * A.n * 4
+        y = fn(A, x)
+        err, scale = _max_err(y, ref(A, x))
+        _require(err <= KERNEL_REL * scale, f"{tag} level {shape}: {name} differs from its twin by {err:.3e}")
+        bound = bound_ms(nbytes, 2 * nnz)
+        k_ms = graph_ms(lambda: fn(A, x), 200)
+        c_ms = graph_ms(lambda: csr @ x.reshape(-1), 200)
+        p_ms = time_ms(lambda: ref(A, x), 20)
+        print(f"time {name} {tag} level {shape} ({size}, fp32): "
+              f"graph {k_ms:.4f} ms, twin {p_ms:.4f} ms, CSR graph {c_ms:.4f} ms; "
+              f"{nbytes / 1e6:.2f} MB, bound {bound[0]:.4f} ms by {bound[1]}, "
+              f"{bound[0] / k_ms:.1%} of it [{card}]")
+        del csr
+
+
+def _flagship_preconditioned(fsys, dev, card, count):
+    """The flagship (a DiaMatrix, fp32 ``rel_l2 < TOL``) through api.solve
+    by plain CG and by ``jacobi_cg``, ``bjacobi_cg`` (block 8), ``cheb_cg``
+    (degree 3) and ``amg_cg`` (1-D strips, DIA levels): each converged
+    within TRUE_REL, kernel #4's launches exactly the route's count; then
+    ``jacobi_cg`` and ``bjacobi_cg`` on an n x MULTI_K block (#5), column 0
+    the single-RHS count.  Returns the AMG hierarchy."""
+    A, b = fsys.A, fsys.b
+    kw = dict(tol=TOL, norm="rel_l2", dtype=np.float32, device=dev)
+    its, h = {}, None
+    for method, extra in (("cg", {}), ("jacobi_cg", {}), ("bjacobi_cg", dict(block_size=8)),
+                          ("cheb_cg", dict(degree=3)), ("amg_cg", {})):
+        with _facade_amg() as built:
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = api.solve(A, b, method=method, **kw, **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n4 = spmv_dia_cuda.launches
+        tag = f"flagship {method}"
+        _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+        rel = _host_rel_residual(A, b, res.x.cpu().numpy())
+        _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+        per_apply = 1  # the outer CG's product; the preconditioner's below
+        levels = ""
+        if method == "cheb_cg":
+            per_apply += extra["degree"] + 1
+        elif method == "amg_cg":
+            h = built[-1]
+            _require(all(isinstance(l.A, DiaMatrix) and l.blk for l in h.levels),
+                     f"{tag}: levels {_amg_levels(h)} are not all DIA strips")
+            per_apply += _cycle_dia_launches(h)
+            levels = (f"; levels {_amg_levels(h)} + dense {h.coarse_inv.shape[0]}, host setup s "
+                      f"{ {k: round(v, 3) for k, v in h.setup_s.items()} }")
+        want = per_apply * (res.iterations + 1)
+        _require(n4 == want, f"{tag}: {n4} spmv_dia launches, the route implies {want}")
+        its[method] = res.iterations
+        count(f"preconditioners: flagship api.solve(method={method!r})", {"spmv_dia": n4})
+        print(f"{tag}: {res.iterations} iterations (plain CG {its['cg']}), true fp64 rel residual "
+              f"{rel:.3e}, spmv_dia launches {n4} = {per_apply} x (iterations + 1), wall "
+              f"{wall:.3f} s with the setup{levels} [{card}]")
+    rng = np.random.default_rng(SEED + 10)
+    B = np.column_stack([b] + [rng.standard_normal(fsys.n) for _ in range(MULTI_K - 1)])
+    for method in ("jacobi_cg", "bjacobi_cg"):
+        _reset_counts()
+        res = api.solve(A, B, method=method, **kw)
+        torch.cuda.synchronize()
+        cols = res.iterations.cpu().tolist()
+        tag = f"flagship {method} n x {MULTI_K}"
+        _require(bool(res.converged.all()) and spmm_dia_cuda.launches > 0,
+                 f"{tag}: converged {res.converged.tolist()}, {spmm_dia_cuda.launches} spmm_dia launches")
+        _require(cols[0] == its[method], f"{tag}: column 0 took {cols[0]} iterations, the "
+                 f"single-RHS solve {its[method]}")
+        X = res.x.cpu().numpy()
+        rels = [_host_rel_residual(A, B[:, j], X[:, j]) for j in range(MULTI_K)]
+        _require(max(rels) <= TRUE_REL, f"{tag}: true fp64 relative residuals {rels}")
+        count(f"preconditioners: flagship api.solve(B n x {MULTI_K}, method={method!r})",
+              {"spmm_dia": spmm_dia_cuda.launches})
+        print(f"{tag}: iterations by column {cols}, spmm_dia launches {spmm_dia_cuda.launches}, "
+              f"true fp64 rel residuals {[float(f'{r:.3e}') for r in rels]}")
+    return h
+
+
+def _card_vs_cpu_amg(perm_h, dev, card):
+    """31^3 Poisson as CSR: fp64 ``amg_cg`` on the card and on the CPU take
+    equal iteration counts; two cycles of the permuted 127^3 greedy
+    hierarchy on the card give the same bits; the C++ aggregation equals
+    the Python loop on the permuted 31^3 strength graph bit for bit."""
+    g = PRECOND_SMALL
+    s = generators.poisson_system(g)
+    A = from_scipy(to_scipy(s.A))
+    kw = dict(method="amg_cg", tol=TOL, norm="rel_l2", dtype=np.float64)
+    rg, rc = api.solve(A, s.b, device=dev, **kw), api.solve(A, s.b, device="cpu", **kw)
+    dx = float((rg.x.cpu() - rc.x).abs().max() / rc.x.abs().max())
+    _require(rg.converged and rg.iterations == rc.iterations,
+             f"AMG {g} fp64: {rg.iterations} iterations on the card, {rc.iterations} on the CPU")
+    r = torch.randn(perm_h.levels[0].A.n, generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    y1, y2 = amg.amg_vcycle(perm_h, r), amg.amg_vcycle(perm_h, r)
+    _require(bool(torch.equal(y1, y2)), f"two greedy AMG cycles differ by {float((y1 - y2).abs().max()):.3e}")
+    perm = np.random.default_rng(SEED).permutation(s.n)
+    S = amg._strength_graph(to_scipy(s.A)[perm][:, perm].tocsr(), 0.0)
+    t0 = time.perf_counter()
+    native = amg._aggregate(S, impl="native")
+    t1 = time.perf_counter()
+    loop = amg._aggregate(S, impl="python")
+    t2 = time.perf_counter()
+    _require(native[1] == loop[1] and np.array_equal(native[0], loop[0]),
+             f"aggregation {g} permuted: C++ {native[1]} aggregates, Python loop {loop[1]}")
+    print(f"AMG {g} CSR fp64: card {rg.iterations} its, CPU {rc.iterations} its, max rel diff "
+          f"{dx:.3e}; two greedy 127^3 cycles on the card bit-identical; aggregation of the "
+          f"permuted {g} strength graph: C++ {t1 - t0:.4f} s, Python loop {t2 - t1:.3f} s, "
+          f"{native[1]} aggregates, bit-identical [{card}]")
+
+
+def _spectrum_tools(nat, fsys, dev, card):
+    """``spectrum_from_cg`` of a traced 127^3 AMG-PCG run; the flagship's
+    ``condition_number`` and ``gershgorin_bounds``; the card's
+    ``power_iteration`` against host Lanczos's upper end; the Jacobi
+    rotations of a 64 x 64 matrix against numpy, timed."""
+    A, b, h, its = nat
+    A_dev = A.device_put(torch.float32, dev)
+    b_dev = torch.from_numpy(np.asarray(b, np.float32)).to(dev)
+    res, _hist, (alphas, betas) = cg_solve_traced(
+        A_dev, b_dev, policy=ConvergencePolicy(tol=TOL, norm="rel_l2"), M=amg.amg_preconditioner(h),
+        num_steps=its, with_coefficients=True)
+    lo, hi, kappa = eigen.spectrum_from_cg(alphas, betas, res.iterations)
+    _require(res.iterations == its and 1.0 <= kappa < 1e3,
+             f"traced AMG-PCG: {res.iterations} iterations (counted {its}), kappa {kappa:.3e}")
+    print(f"spectrum_from_cg, Poisson {MTX_GRID} .mtx AMG-PCG traced over {its} steps: "
+          f"kappa(M^-1 A) {kappa:.4f} (Ritz [{lo:.4f}, {hi:.4f}])")
+    t0 = time.perf_counter()
+    kappa_f = eigen.condition_number(fsys.A, k=LANCZOS_K)
+    t1 = time.perf_counter()
+    g_lo, g_hi = eigen.gershgorin_bounds(fsys.A)
+    l_lo, l_hi = eigen.lanczos_bounds(lambda v: oracle.spmv(fsys.A, v), fsys.n, LANCZOS_K)
+    A64 = fsys.A.device_put(torch.float64, dev)
+    t2 = time.perf_counter()
+    lam = float(eigen.power_iteration(lambda v: spmv_dia_cuda(A64, v), fsys.n, iters=POWER_ITERS,
+                                      seed=SEED, dtype=torch.float64, device=dev))
+    t3 = time.perf_counter()
+    _require(abs(lam - l_hi) <= POWER_AGREE * l_hi,
+             f"power_iteration on the card {lam:.6e} vs Lanczos's upper end {l_hi:.6e}")
+    _require(g_lo <= l_lo and l_hi <= g_hi * (1 + 1e-12), f"Lanczos [{l_lo}, {l_hi}] outside "
+             f"Gershgorin [{g_lo}, {g_hi}]")
+    print(f"flagship spectrum: condition_number {kappa_f:.6e} (host Lanczos k = {LANCZOS_K}, "
+          f"{t1 - t0:.3f} s), gershgorin_bounds [{g_lo:.6e}, {g_hi:.6e}], Lanczos "
+          f"[{l_lo:.6e}, {l_hi:.6e}]; power_iteration on the card ({POWER_ITERS} steps, fp64, "
+          f"{t3 - t2:.3f} s) {lam:.6e}, {abs(lam - l_hi) / l_hi:.2e} from Lanczos [{card}]")
+    rng = np.random.default_rng(SEED + 11)
+    Q, _ = np.linalg.qr(rng.standard_normal((JACOBI_EIG_N, JACOBI_EIG_N)))
+    M = (Q * rng.uniform(0.5, 50.0, JACOBI_EIG_N)) @ Q.T
+    M = 0.5 * (M + M.T)
+    t0 = time.perf_counter()
+    ev = eigen.jacobi_eigenvalues(M, device=dev).cpu().numpy()
+    secs = time.perf_counter() - t0
+    ref = np.linalg.eigvalsh(M)
+    err = float(np.abs(ev - ref).max() / np.abs(ref).max())
+    _require(err <= JACOBI_EIG_REL, f"jacobi_eigenvalues {JACOBI_EIG_N} x {JACOBI_EIG_N}: {err:.3e} from eigvalsh")
+    print(f"jacobi_eigenvalues {JACOBI_EIG_N} x {JACOBI_EIG_N} fp64 on the card: {secs:.3f} s, max "
+          f"rel diff from numpy's eigvalsh {err:.3e} [{card}]")
+
+
+def _preconditioners(loaded, fsys, dev, card, count):
+    """The preconditioners and the spectrum tools on the card: Poisson
+    MTX_GRID from the ingestion phase's two Matrix Market files through
+    ``amg_cg`` (natural order: the grid inferred, cube levels on #1 and
+    #3, the outer CG on #4 exactly iterations + 1 times; permuted: greedy
+    CSR levels, no #1, #3 or #4), beside ``mgcg`` and plain CG, then an
+    n x MULTI_K block; jump diffusion at 127^3 as CSR (#3 at every stencil
+    level); the flagship by every preconditioned route; card against CPU;
+    the spectrum tools."""
+    A_nat, b_nat, plain_nat = loaded["unpermuted"]
+    tag = f"Poisson {MTX_GRID} .mtx natural order"
+    res, h_nat, got, _ = _amg_solve(tag, A_nat, b_nat, dev, card)
+    _require(h_nat.levels and h_nat.levels[0].blk_nd is not None
+             and tuple(h_nat.levels[0].blk_nd[0]) == MTX_GRID,
+             f"{tag}: the grid was not inferred: {h_nat.levels[0].blk_nd if h_nat.levels else None}")
+    _require(all(l.blk_nd is not None for l in h_nat.levels), f"{tag}: not every level in cubes")
+    want = res.iterations + 1 + (res.iterations + 1) * _cycle_dia_launches(h_nat)
+    _require(got["spmv_dia"] == want, f"{tag}: {got['spmv_dia']} spmv_dia launches, want {want}")
+    count(f"preconditioners: {tag} api.solve(method='amg_cg')",
+          {"spmv_const_stencil": sum(got["const_by_grid"].values()),
+           "spmv_stencil": sum(got["var_by_grid"].values()), "spmv_dia": got["spmv_dia"]})
+    print(f"{tag}: amg_cg {res.iterations} iterations, plain CG {plain_nat} (ingestion phase)")
+    _amg_level_times("Poisson 127^3 AMG", h_nat, dev, card)
+    t0 = time.perf_counter()
+    mg = api.solve(A_nat, b_nat, method="mgcg", grid=MTX_GRID, tol=TOL, norm="rel_l2",
+                   dtype=np.float32, device=dev)
+    torch.cuda.synchronize()
+    mg_s = time.perf_counter() - t0
+    _require(mg.converged, f"{tag} mgcg: did not converge")
+    print(f"{tag}: yardstick api.solve(method='mgcg', grid={MTX_GRID}) {mg.iterations} iterations, "
+          f"wall {mg_s:.3f} s with the setup [{card}]")
+    rng = np.random.default_rng(SEED + 12)
+    B = np.column_stack([b_nat] + [rng.standard_normal(len(b_nat)) for _ in range(MULTI_K - 1)])
+    _reset_counts()
+    t0 = time.perf_counter()
+    resB = api.solve(A_nat, B, method="amg_cg", tol=TOL, norm="rel_l2", dtype=np.float32, device=dev)
+    torch.cuda.synchronize()
+    wallB = time.perf_counter() - t0
+    gotB = _amg_launches()
+    cols = resB.iterations.cpu().tolist()
+    _require(bool(resB.converged.all()) and cols[0] == res.iterations,
+             f"{tag} n x {MULTI_K}: converged {resB.converged.tolist()}, iterations {cols}, "
+             f"single-RHS {res.iterations}")
+    XB = resB.x.cpu().numpy()
+    rels = [_host_rel_residual(A_nat, B[:, j], XB[:, j]) for j in range(MULTI_K)]
+    _require(max(rels) <= TRUE_REL, f"{tag} n x {MULTI_K}: true fp64 relative residuals {rels}")
+    _require(gotB["spmm_dia"] == max(cols) + 1 and gotB["spmv_dia"] == 0,
+             f"{tag} n x {MULTI_K}: spmm_dia {gotB['spmm_dia']}, spmv_dia {gotB['spmv_dia']}")
+    _require_level_launches(f"{tag} n x {MULTI_K}", h_nat, gotB)
+    count(f"preconditioners: {tag} api.solve(B n x {MULTI_K}, method='amg_cg')",
+          {"spmv_const_stencil": sum(gotB["const_by_grid"].values()),
+           "spmv_stencil": sum(gotB["var_by_grid"].values()), "spmm_dia": gotB["spmm_dia"]})
+    print(f"{tag} n x {MULTI_K} amg_cg: iterations by column {cols}, true fp64 rel residuals "
+          f"{[float(f'{r:.3e}') for r in rels]}, spmm_dia launches {gotB['spmm_dia']}, wall "
+          f"{wallB:.3f} s with the setup [{card}]")
+    nat = (A_nat, b_nat, h_nat, res.iterations)
+
+    A_perm, b_perm, plain_perm = loaded["permuted"]
+    tag = f"Poisson {MTX_GRID} .mtx permuted"
+    res, h_perm, got, _ = _amg_solve(tag, A_perm, b_perm, dev, card)
+    _require(all(isinstance(l.A, CsrMatrix) and l.agg_rows is not None for l in h_perm.levels),
+             f"{tag}: levels {_amg_levels(h_perm)} are not greedy CSR levels")
+    _require(not got["const_by_grid"] and not got["var_by_grid"] and got["spmv_dia"] == 0,
+             f"{tag}: stencil or DIA kernels launched: {got}")
+    print(f"{tag}: amg_cg {res.iterations} iterations, plain CG {plain_perm} (ingestion phase)")
+    del loaded
+
+    g = MTX_GRID
+    t0 = time.perf_counter()
+    sj = generators.diffusion_system(g, kind="jump", contrast=VAR_CONTRAST, seed=SEED)
+    A_j = from_scipy(to_scipy(sj.A))
+    print(f"jump diffusion {g} as CSR ({A_j.nnz} nnz): generated and converted in "
+          f"{time.perf_counter() - t0:.3f} s")
+    tag = f"jump diffusion {g} CSR"
+    res, h_j, got, _ = _amg_solve(tag, A_j, sj.b, dev, card)
+    _require(any(isinstance(l.A, StencilMatrix) for l in h_j.levels), f"{tag}: no stencil level")
+    count(f"preconditioners: {tag} api.solve(method='amg_cg')",
+          {"spmv_const_stencil": sum(got["const_by_grid"].values()),
+           "spmv_stencil": sum(got["var_by_grid"].values()), "spmv_dia": got["spmv_dia"]})
+    _amg_level_times("jump 127^3 AMG", h_j, dev, card)
+    del sj, A_j, h_j
+
+    h_f = _flagship_preconditioned(fsys, dev, card, count)
+    _amg_level_times("flagship AMG", h_f, dev, card)
+    del h_f
+    _card_vs_cpu_amg(h_perm, dev, card)
+    del h_perm
+    _spectrum_tools(nat, fsys, dev, card)
 
 
 def _many_diag_times(cases, dev, card):
@@ -2648,8 +3062,17 @@ def main() -> int:
     flagship_csr = _reference_storage(fsys, dev, card, count)
     print(f"phase: the reference's CSR and ELL storage in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    _ingestion(dev, card, count)
+    loaded = _ingestion(dev, card, count)
     print(f"phase: Matrix Market ingestion in {time.perf_counter() - t0:.1f} s")
+
+    # -- the preconditioners, counted: AMG on the two .mtx files (cube
+    # levels on #1/#3, greedy CSR levels), jump 127^3 as CSR (#3), the
+    # flagship's Jacobi, block-Jacobi, Chebyshev and AMG routes (#4, #5);
+    # card against CPU; the spectrum tools --------------------------------
+    t0 = time.perf_counter()
+    _preconditioners(loaded, fsys, dev, card, count)
+    del loaded
+    print(f"phase: preconditioners in {time.perf_counter() - t0:.1f} s")
 
     # -- the drivers, counted: cg_solve against one CUDA graph per masked
     # chunk on four paths, checkpoint and resume, the traced driver, a

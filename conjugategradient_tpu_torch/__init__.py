@@ -22,16 +22,20 @@ reference's, so each counterpart is found by path:
                 and chunked drivers (checkpoint/resume; one CUDA graph
                 per chunk on the card), multi-RHS CG and
                 its multigrid preconditioner, mixed-precision iterative
-                refinement (the flagship path) and the setup-time spectral
-                bounds.
+                refinement (the flagship path) and the eigenvalue
+                diagnostics (Jacobi rotations, power iteration, Lanczos
+                and Gershgorin bounds, the spectrum of a CG run).
 - ``precond`` — smoothers (Jacobi, Chebyshev, red-black Gauss-Seidel), the
-                fw, hybrid, semicoarsening and aggregation transfers, and
-                the multigrid hierarchy (Galerkin or rediscretized), V- and
-                W-cycles and fmg (MGCG).
+                point- and block-Jacobi and Chebyshev-polynomial
+                preconditioners, the fw, hybrid, semicoarsening and
+                aggregation transfers, the multigrid hierarchy (Galerkin or
+                rediscretized), V- and W-cycles and fmg (MGCG), and
+                smoothed-aggregation AMG for matrices with no grid (its
+                greedy aggregation in host C++, ``csrc/aggregate.cpp``).
 - ``models``  — the named workloads of the reference's drivers.
 - ``api``     — ``solve(A, b, method=...)`` for the ported methods.
-- ``convert`` — carries a hierarchy or any container across from the
-                reference's fields.
+- ``convert`` — carries a hierarchy (geometric or AMG) or any container
+                across from the reference's fields.
 - ``utils``   — phase timers, the profiler trace scope, residual logs,
                 checkpoint/resume and tree persistence, the spy plot.
 - ``scripts`` — runnable measurements on the card (the kernel #6
@@ -49,4 +53,9 @@ from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
     cg_solve,
     cg_solve_chunked,
     cg_solve_traced,
+)
+from conjugategradient_tpu_torch.precond.amg import (  # noqa: F401
+    AmgHierarchy,
+    amg_cg_solve,
+    build_amg_hierarchy,
 )

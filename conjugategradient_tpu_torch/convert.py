@@ -1,10 +1,11 @@
 """Carry state across from the JAX package's containers.
 
 ``hierarchy_from_reference`` takes the reference hierarchy as plain numpy
-arrays and Python values (the caller does ``np.asarray`` on the JAX side), and
+arrays and Python values (the caller does ``np.asarray`` on the JAX side),
 ``matrix_from_reference`` takes any JAX container (host numpy or ``jnp``
-data) by its class name and fields, so both packages can compute with the
-same state; this module never imports ``jax``.
+data) by its class name and fields, and ``amg_hierarchy_from_reference``
+takes a JAX ``AmgHierarchy`` object the same way, so both packages can
+compute with the same state; this module never imports ``jax``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from conjugategradient_tpu_torch.core.formats import (
     StencilMatrix,
     default_device,
 )
+from conjugategradient_tpu_torch.precond.amg import AmgHierarchy, AmgLevel
 from conjugategradient_tpu_torch.precond.multigrid import MgHierarchy, MgLevel
 
 
@@ -112,3 +114,30 @@ def dia_from_reference(A_ref) -> DiaMatrix:
     if type(A_ref).__name__ != "DiaMatrix":
         raise TypeError(f"not a DiaMatrix: {type(A_ref).__name__}")
     return matrix_from_reference(A_ref)
+
+
+def _on_cpu(A):
+    """A host container as the CPU tensors a level holds (a const stencil
+    as it is)."""
+    return A if isinstance(A, ConstStencilMatrix) else A.device_put(device="cpu")
+
+
+def amg_hierarchy_from_reference(h_ref, device=None) -> AmgHierarchy:
+    """The port's ``AmgHierarchy`` from a JAX ``AmgHierarchy``: each
+    level's operator, ``P`` and ``R`` through ``matrix_from_reference``, its
+    arrays (``inv_diag``, ``agg``, ``w``, ``coarse_inv``) read as numpy and
+    its static fields as Python values.  ``device=None`` places it on the
+    card when there is one."""
+    levels = []
+    for l in h_ref.levels:
+        levels.append(AmgLevel(
+            _on_cpu(matrix_from_reference(l.A)), _on_cpu(matrix_from_reference(l.P)),
+            _on_cpu(matrix_from_reference(l.R)), torch.from_numpy(np.array(l.inv_diag)),
+            tuple(float(v) for v in l.cheb_bounds), agg=_optional(l.agg), w=_optional(l.w),
+            nc=int(l.nc), sa_c=float(l.sa_c), blk=int(l.blk),
+            blk_nd=None if l.blk_nd is None else tuple(tuple(int(v) for v in t)
+                                                       for t in l.blk_nd),
+        ))
+    h = AmgHierarchy(levels, torch.from_numpy(np.array(h_ref.coarse_inv)), str(h_ref.smoother),
+                     int(h_ref.pre), int(h_ref.post), float(h_ref.omega))
+    return h.to(default_device(device))

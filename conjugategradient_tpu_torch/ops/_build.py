@@ -8,6 +8,11 @@ launch and an edited source rebuilds it.  ``build()`` starts one ``nvcc`` per
 missing library, all together, and waits for them.  The C interfaces take
 plain pointers and the stream as ``void*``; every pointer argument is
 declared ``c_void_p`` so ctypes does not cut it to 32 bits.
+
+The host C++ sources (``aggregate.cpp``, the AMG setup's greedy
+aggregation) build the same way with the host compiler (``$CXX``, else
+``g++``), which the CPU machines have too: ``build_host`` / ``load_host``.
+A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ SOURCES = {
     "stencil_var": _PKG / "csrc" / "stencil_var.cu",
     "dia": _PKG / "csrc" / "dia.cu",
 }
+HOST_SOURCES = {"aggregate": _PKG / "csrc" / "aggregate.cpp"}
 BUILD_DIR = _PKG / "_build"
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -158,7 +165,58 @@ def _bind_dia(lib: ctypes.CDLL) -> None:
     lib.cg_spmm_dia_acc_stages.restype = _I
 
 
+def _cxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``build_host`` puts the library of a host source: keyed on a
+    hash of the compiler, its flags and the source."""
+    h = hashlib.sha256(" ".join((_cxx(),) + CXX_FLAGS).encode())
+    h.update(HOST_SOURCES[name].read_bytes())
+    return BUILD_DIR / f"libcg_{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile the host C++ source ``name`` unless a build of it exists.
+    Each process writes its own temporary file and renames it into place,
+    so processes that build at once (test workers) never load a partial
+    library.  Raises ``RuntimeError`` when the compiler is missing or
+    fails."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), str(HOST_SOURCES[name])]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"host compiler {cmd[0]!r} failed to start for {name}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cmd[0]} failed for {name} (exit {proc.returncode}):\n"
+                           f"{(proc.stdout + proc.stderr)[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def _bind_aggregate(lib: ctypes.CDLL) -> None:
+    lib.cg_aggregate.argtypes = [ctypes.c_int64, _P, _P, _P, _P]
+    lib.cg_aggregate.restype = ctypes.c_int64
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of a host source, built first if needed (once
+    per process)."""
+    lib = ctypes.CDLL(str(build_host(name)))
+    _HOST_BIND[name](lib)
+    return lib
+
+
 _BIND = {"stencil": _bind_stencil, "stencil_var": _bind_stencil_var, "dia": _bind_dia}
+_HOST_BIND = {"aggregate": _bind_aggregate}
 
 
 @functools.lru_cache(maxsize=None)

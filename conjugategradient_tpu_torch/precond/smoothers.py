@@ -1,5 +1,7 @@
-"""Smoothers built from SpMV and axpy: weighted Jacobi, Chebyshev and
-red-black Gauss-Seidel."""
+"""Smoothers and simple preconditioners built from SpMV and axpy: point
+Jacobi, weighted Jacobi, Chebyshev (smoother and fixed-degree polynomial
+preconditioner) and red-black Gauss-Seidel.  The port of
+``conjugategradient_tpu/precond/smoothers.py``."""
 
 from __future__ import annotations
 
@@ -9,6 +11,11 @@ import numpy as np
 import torch
 
 Operator = Callable[[torch.Tensor], torch.Tensor]
+
+
+def jacobi_preconditioner(inv_diag: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Point-Jacobi M^{-1} r = D^{-1} r, one multiply."""
+    return lambda r: inv_diag * r
 
 
 def jacobi_smooth(
@@ -50,6 +57,60 @@ def chebyshev_smooth(
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
         rho = rho_new
     return x
+
+
+def chebyshev_preconditioner(
+    op: Operator,
+    inv_diag: torch.Tensor,
+    degree: int,
+    lam_min: float,
+    lam_max: float,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Fixed-degree Chebyshev polynomial preconditioner M r = p(D^{-1}A)
+    D^{-1} r: ``degree`` SpMVs and axpys per application, a fixed linear
+    SPD operator, so plain CG applies.  The bounds must cover the whole
+    spectrum of D^{-1}A (``chebyshev_preconditioner_for`` estimates them),
+    unlike the smoothing interval [lam_max/4, lam_max] of multigrid."""
+    if not (0.0 < lam_min < lam_max):
+        raise ValueError(f"need 0 < lam_min < lam_max, got [{lam_min}, {lam_max}]")
+
+    def M(r):
+        return chebyshev_smooth(op, inv_diag, r, torch.zeros_like(r), degree, lam_max, lam_min)
+
+    return M
+
+
+def chebyshev_preconditioner_for(A, degree: int = 3, k: int = 30, A_dev=None, dtype=None,
+                                 device=None):
+    """Estimate spec(D^{-1}A) on the host and return ``(M, (lam_min,
+    lam_max))`` for the device operator of the host container ``A``.
+
+    The bounds come from ``k``-step Lanczos on the symmetric similar
+    operator ``D^{-1/2} A D^{-1/2}`` (same spectrum as D^{-1}A), floored at
+    ``1e-3 * lam_max`` when the lower estimate is not positive and widened
+    by 0.9 / 1.1 (Ritz values are interior), the JAX package's numbers bit
+    for bit.  ``A_dev`` and ``dtype`` let a caller that already placed the
+    matrix reuse it (one device copy, M at the solver's dtype); otherwise
+    ``A`` is placed on ``device`` (``None``: the card when there is
+    one)."""
+    from conjugategradient_tpu_torch.core import oracle
+    from conjugategradient_tpu_torch.core.formats import matrix_diagonal, torch_dtype
+    from conjugategradient_tpu_torch.ops.spmv import as_operator
+    from conjugategradient_tpu_torch.solvers import eigen
+
+    d = matrix_diagonal(A)
+    if np.any(d <= 0):
+        raise ValueError("Chebyshev preconditioning needs a positive diagonal")
+    d_isqrt = 1.0 / np.sqrt(d)
+    lo, hi = eigen.lanczos_bounds(lambda v: d_isqrt * oracle.spmv(A, d_isqrt * v), A.n, k)
+    if not (lo > 0):  # Lanczos underestimate hit zero: fall back to a floor
+        lo = max(lo, 1e-3 * hi)
+    lo, hi = 0.9 * lo, 1.1 * hi
+    if A_dev is None:
+        A_dev = A.device_put(dtype, device)
+    dt = torch_dtype(dtype) if dtype is not None else A_dev.data.dtype
+    inv_d = torch.from_numpy(1.0 / d).to(device=A_dev.data.device, dtype=dt)
+    return chebyshev_preconditioner(as_operator(A_dev), inv_d, degree, lo, hi), (lo, hi)
 
 
 def parity_mask(grid) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Convergence policy, CG (while-loop, traced and chunked drivers), multi-RHS
-CG and mixed-precision refinement."""
+CG, mixed-precision refinement and the eigenvalue diagnostics."""
 
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, Norm  # noqa: F401
 from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
@@ -8,3 +8,4 @@ from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
     cg_solve_chunked,
     cg_solve_traced,
 )
+from conjugategradient_tpu_torch.solvers import eigen  # noqa: F401

@@ -6,7 +6,8 @@ bit-identical and field-for-field equal.  ``cg_solve_multi`` in fp64 runs
 the same per-column recurrence as the JAX package's, so the per-column
 iteration counts are equal, with or without the multi-RHS V-cycle.  Every
 facade method the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP item.
+naming its ROADMAP item; the preconditioned methods it has take the JAX
+facade's iteration counts.
 """
 
 import dataclasses
@@ -162,22 +163,49 @@ def test_facade_multi_rhs_routes():
     np.testing.assert_array_equal(m.iterations.numpy(), np.asarray(jm.iterations))
 
 
-UNPORTED = {
+#: each facade method's outcome on the port: ``None`` where it is ported
+#: (it must then equal the JAX facade), else the error and its message
+_FAMILIES = (NotImplementedError, "ROADMAP queue 1: solver families")
+FACADE = {
     **dict.fromkeys(("bicgstab", "gmres", "fgmres", "minres", "idr", "lsmr", "cgnr", "chebyshev",
-                     "cacg", "deflated_cg", "native", "auto"), "solver families"),
-    **dict.fromkeys(("cheb_cg", "jacobi_cg", "bjacobi_bicgstab", "amg_cg", "mg_gmres"),
-                    "preconditioners"),
-    "sharded_cg": "parallel",
+                     "cacg", "deflated_cg", "native", "auto", "bjacobi_bicgstab", "mg_gmres"),
+                    _FAMILIES),
+    **dict.fromkeys(("cheb_cg", "jacobi_cg", "amg_cg"), None),
+    "sharded_cg": (NotImplementedError, "ROADMAP queue 1: parallel"),
+    "amg_cg mesh=": (NotImplementedError, "ROADMAP queue 1: parallel"),
+    "jacobi_chebyshev": (ValueError, "no preconditioner prefix"),
 }
 
 
-@pytest.mark.parametrize("method", sorted(UNPORTED))
+@pytest.mark.parametrize("method", sorted(FACADE))
 def test_unported_facade_methods_raise(method):
-    s = tgen.tridiagonal_system(16)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {UNPORTED[method]}"):
-        api.solve(s.A, s.b, method=method, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {UNPORTED[method]}"):
-        api.solve(s.A, np.stack([s.b, s.b], 1), method=method, device="cpu")
+    """Each method the port does not have raises, naming its ROADMAP item;
+    each preconditioned method it has (single and, but for ``cheb_cg``,
+    multi-RHS) takes the JAX facade's iteration counts in fp64, and
+    ``cheb_cg`` on a block raises the JAX facade's ``ValueError``."""
+    name, _, extra = method.partition(" ")
+    kw = dict(mesh=object()) if extra == "mesh=" else {}
+    if FACADE[method] is not None:
+        err, msg = FACADE[method]
+        s = tgen.tridiagonal_system(16)
+        with pytest.raises(err, match=msg):
+            api.solve(s.A, s.b, method=name, device="cpu", **kw)
+        with pytest.raises(err, match=msg):
+            api.solve(s.A, np.stack([s.b, s.b], 1), method=name, device="cpu", **kw)
+        return
+    s, sj = tgen.poisson_system((15, 17)), jgen.poisson_system((15, 17))
+    B = np.stack([s.b, np.random.default_rng(6).standard_normal(s.n)], 1)
+    opts = dict(method=name, tol=1e-10, norm="rel_l2")
+    r, jr = api.solve(s.A, s.b, device="cpu", **opts), japi.solve(sj.A, sj.b, **opts)
+    assert r.converged and r.iterations == int(jr.iterations)
+    assert np.abs(r.x.numpy() - np.asarray(jr.x)).max() <= 1e-10
+    if name == "cheb_cg":
+        with pytest.raises(ValueError, match="does not support"):
+            api.solve(s.A, B, device="cpu", **opts)
+        return
+    r, jr = api.solve(s.A, B, device="cpu", **opts), japi.solve(sj.A, B, **opts)
+    np.testing.assert_array_equal(r.iterations.numpy(), np.asarray(jr.iterations))
+    assert np.abs(r.x.numpy() - np.asarray(jr.x)).max() <= 1e-10
 
 
 def test_facade_refuses_mesh_and_unknown_methods():

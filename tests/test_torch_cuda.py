@@ -1320,3 +1320,83 @@ def test_graph_capture_failure_raises(cuda):
         cg_solve_chunked(A, b, policy=pol, M=syncing, chunk=2)
     assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
     assert float(torch.ones(3, device=cuda).sum()) == 3.0  # the card still works
+
+
+def _amg_poisson(grid, permuted):
+    from conjugategradient_tpu_torch.core.io import from_scipy, to_scipy
+
+    s = generators.poisson_system(grid)
+    S = to_scipy(s.A)
+    if permuted:
+        perm = np.random.default_rng(3).permutation(s.n)
+        return from_scipy(S[perm][:, perm]), s.b[perm]
+    return from_scipy(S), s.b
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["cubes", "greedy"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_amg_cycle_on_card_matches_cpu(cuda, dtype, permuted):
+    """One AMG cycle at 31^3 (cube levels on #1/#3, or greedy CSR levels)
+    on the card against the same hierarchy's CPU twin; in fp64 the
+    amg_cg iteration counts are equal too."""
+    from conjugategradient_tpu_torch import api
+    from conjugategradient_tpu_torch.precond.amg import amg_vcycle, build_amg_hierarchy
+
+    A, b = _amg_poisson((31, 31, 31), permuted)
+    h_cpu = build_amg_hierarchy(A, dtype=dtype, device="cpu")
+    h_gpu = build_amg_hierarchy(A, dtype=dtype, device=cuda)
+    r = torch.from_numpy(np.asarray(b, dtype))
+    ref = amg_vcycle(h_cpu, r)
+    out = amg_vcycle(h_gpu, r.to(cuda)).cpu()
+    rel = 1e-5 if dtype == np.float32 else 1e-12
+    assert float((out - ref).abs().max()) <= rel * float(ref.abs().max())
+    if dtype == np.float64:
+        kw = dict(method="amg_cg", tol=1e-8, norm="rel_l2", dtype=dtype)
+        g, c = api.solve(A, b, device=cuda, **kw), api.solve(A, b, device="cpu", **kw)
+        assert g.converged and g.iterations == c.iterations
+
+
+def test_amg_greedy_restrict_is_deterministic(cuda):
+    """The greedy levels' restriction is a fixed-order segment sum: two
+    cycles on the card give the same bits."""
+    from conjugategradient_tpu_torch.precond.amg import amg_vcycle, build_amg_hierarchy
+
+    A, b = _amg_poisson((31, 31, 31), True)
+    h = build_amg_hierarchy(A, dtype=np.float32, device=cuda)
+    assert all(l.agg_rows is not None for l in h.levels)
+    r = torch.from_numpy(np.asarray(b, np.float32)).to(cuda)
+    assert torch.equal(amg_vcycle(h, r), amg_vcycle(h, r))
+
+
+def test_block_jacobi_apply_without_tf32(cuda):
+    """The fp32 apply on the card equals the fp64 one within fp32 rounding
+    even with TF32 allowed around it (TF32 keeps about 3 digits)."""
+    from conjugategradient_tpu_torch.precond.block_jacobi import block_jacobi_preconditioner
+
+    A = generators.banded_sin_matrix(4099, 16)
+    r = np.random.default_rng(5).standard_normal((4099, 3))
+    want = block_jacobi_preconditioner(A, 8, dtype=np.float64, device="cpu")(torch.from_numpy(r))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        M = block_jacobi_preconditioner(A, 8, dtype=np.float32, device=cuda)
+        for v in (want[:, 0], want):
+            got = M(torch.from_numpy(r[:, 0] if v.ndim == 1 else r).float().to(cuda)).double().cpu()
+            assert float((got - v).abs().max()) <= 1e-5 * float(v.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_aggregation_build_failure_raises_on_the_card(cuda, monkeypatch):
+    """No silent fallback to the Python loop where the card runs either."""
+    import scipy.sparse as sp
+
+    from conjugategradient_tpu_torch.precond import amg
+
+    monkeypatch.setenv("CXX", "/nonexistent/c++")
+    _build.load_host.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="host compiler"):
+            amg._aggregate(sp.random(50, 50, density=0.1, format="csr", random_state=0))
+    finally:
+        _build.load_host.cache_clear()

@@ -21,6 +21,8 @@ def test_port_and_smoke_script_do_not_import_jax():
         "import conjugategradient_tpu_torch\n"
         "import conjugategradient_tpu_torch.convert\n"
         "import conjugategradient_tpu_torch.precond.multigrid\n"
+        "import conjugategradient_tpu_torch.precond.amg\n"
+        "import conjugategradient_tpu_torch.precond.block_jacobi\n"
         "import conjugategradient_tpu_torch.ops.cuda_stencil\n"
         "import conjugategradient_tpu_torch.ops.cuda_dia\n"
         "import conjugategradient_tpu_torch.ops.spmm\n"
