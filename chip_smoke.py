@@ -120,6 +120,23 @@ after:
   spectrum tools (``spectrum_from_cg`` of a traced AMG-PCG run,
   ``condition_number``, ``gershgorin_bounds``, ``power_iteration`` on the
   card against host Lanczos, ``jacobi_eigenvalues`` of a 64 x 64 matrix).
+- The nonsymmetric and indefinite Krylov family, fp32 ``rel_l2`` 1e-6
+  through ``api.solve``: convection-diffusion 1023^2 at eps 0.05 by
+  ``mg_bicgstab`` (the rediscretized hierarchy, #3 at every level),
+  Jacobi-GMRES(32), ``mg_fgmres`` with inner BiCGStab and plain BiCGStab
+  (capped, and not required to converge); IDR(4)
+  through ``method="auto"`` at 255^2, eps 0.5, tol 2e-6 (auto must choose
+  idr; its true residual within 10x of the one it reports);
+  ``amg_bicgstab`` on a 511^2 convection CSR (the grid inferred, stencil
+  levels on #3, no #4); the flagship's nonsymmetric twin (n = 207,402,
+  band 160) by BiCGStab on #4, an n x 4 block on #5 (column 0 the
+  single-RHS count) and ``refined_solve(inner="bicgstab")`` to an absolute
+  fp64 ||r||_2 < 1e-8; Helmholtz 255^2 at 1.5 lambda_1 through auto
+  (MINRES, fp64; the SPD probe's card stage decides).  Every route's #4 or
+  #5 count equals what its recurrence implies, every converged route's
+  true fp64 relative residual is within 1e-5, and each prints its warm
+  wall and device busy share; then each solver in fp64 at about 63^2 on
+  the card and on the CPU, equal counts and x within 1e-9.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -2151,21 +2168,26 @@ LANCZOS_K = 30
 
 
 @contextlib.contextmanager
-def _facade_amg():
-    """Collect each AMG hierarchy ``api.solve`` builds (the facade's own,
-    read afterwards for its levels and setup phases) by wrapping
-    ``precond.amg.build_amg_hierarchy`` for the block's duration."""
-    built, orig = [], amg.build_amg_hierarchy
+def _facade_built(module, name):
+    """Collect what ``module.name`` builds (a hierarchy the facade makes,
+    read afterwards for its levels and setup phases) by wrapping it for the
+    block's duration."""
+    built, orig = [], getattr(module, name)
 
     def build(*args, **kwargs):
         built.append(orig(*args, **kwargs))
         return built[-1]
 
-    amg.build_amg_hierarchy = build
+    setattr(module, name, build)
     try:
         yield built
     finally:
-        amg.build_amg_hierarchy = orig
+        setattr(module, name, orig)
+
+
+def _facade_amg():
+    """``_facade_built`` of ``precond.amg.build_amg_hierarchy``."""
+    return _facade_built(amg, "build_amg_hierarchy")
 
 
 def _amg_levels(h):
@@ -2855,6 +2877,417 @@ def _drivers(paths, syss, hs, dev, card, count):
     _reference_workloads_twin()
 
 
+# ---------------------------------------------------------------------------
+# the nonsymmetric and indefinite Krylov family
+# ---------------------------------------------------------------------------
+
+#: convection-diffusion at full width: 1023^2 upwind, recirculating, eps
+#: 0.05 (cell Peclet 20), fp32 rel_l2 < TOL; plain BiCGStab capped and not
+#: required to converge (the JAX package's TPU run stopped unconverged at
+#: 682), Jacobi-GMRES(32) capped (it stalled past 20,000 steps at 255^2 in
+#: fp32 on the CPU; at 1023^2 it took 153 on the card)
+NONSYM_GRID = (1023, 1023)
+NONSYM_EPS = 0.05
+NONSYM_BICGSTAB_CAP = 2000
+NONSYM_GMRES_CAP = 3000
+NONSYM_RESTART = 32
+NONSYM_INNER = 8
+#: IDR(4) through method="auto": the calibration case of _auto_method
+#: (fp32's attainable accuracy there is about 2.2e-6: the port's IDR accepts
+#: convergence only on a replaced residual, see solvers/idr.py)
+IDR_GRID = (255, 255)
+IDR_EPS = 0.5
+IDR_TOL = 2e-6
+IDR_S = 4
+#: the matvecs of the IDR run whose trace gives the busy share
+IDR_WINDOW = 1000
+#: IDR's true residual against the one it reports: the drift that residual
+#: replacement bounds read 7000x in the JAX package's fp32 run without it
+IDR_DRIFT = 10.0
+#: amg_bicgstab on a bare CSR; the flagship's nonsymmetric twin
+AMG_NONSYM_GRID = (511, 511)
+TWIN_N, TWIN_BAND = 207402, 160
+#: Helmholtz 255^2 at 1.5 lambda_1, in fp64: fp32 MINRES stops at a true
+#: 2e-5 there (its recurrence passes 1e-6 first; measured on the CPU)
+HELM_GRID = (255, 255)
+HELM_SHIFT = 1.5
+#: fp64 card against CPU at about 63^2: x within this fraction of ||x||
+KRYLOV_AGREE = 1e-9
+
+
+def _lam1(grid) -> float:
+    """The smallest eigenvalue of the Dirichlet Laplacian on ``grid``."""
+    return sum(2.0 - 2.0 * np.cos(np.pi / (g + 1)) for g in grid)
+
+
+def _wall_ms(fn) -> float:
+    """Host-clock ms of one call of ``fn`` that ends in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _stencil_counts(got) -> dict:
+    """The record's counts of a route: #4 and each stencil kernel."""
+    return {k: got[k] for k in ("spmv_dia", "spmv_stencil", "spmv_stencil_wide",
+                                "spmv_const_stencil")}
+
+
+def _nonsym_route(tag, A, b, dev, card, want4, warm, true_of, require=True, window=None, **kw):
+    """One counted ``api.solve`` on the card in fp32: launches from a reset,
+    kernel #4's count against ``want4(result)``, the true fp64 relative
+    residual (``true_of(x)``) within TRUE_REL where it converged (and
+    convergence, with ``require``), the warm wall of ``warm`` and the
+    device busy share of ``warm``, or of ``window`` (a shorter run of the
+    same loop: a long solve's trace takes minutes to read).  Returns
+    (result, launches, warm ms)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = api.solve(A, b, dtype=np.float32, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _amg_launches()
+    got.update(spmv_stencil=spmv_stencil_cuda.launches,
+               spmv_stencil_wide=spmv_stencil_wide_cuda.launches,
+               spmv_const_stencil=spmv_const_stencil_cuda.launches)
+    x = res.x.cpu().numpy()
+    rel = true_of(x)
+    conv = bool(res.converged)
+    if require:
+        _require(conv, f"{tag}: did not converge in {res.iterations} iterations")
+    if conv:
+        _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+    want = want4(res)
+    _require(got["spmv_dia"] == want, f"{tag}: {got['spmv_dia']} spmv_dia launches, the route "
+             f"implies {want}")
+    warm_ms = _wall_ms(warm)
+    print(f"{tag}: {res.iterations} iterations, converged {conv}, recurrence residual "
+          f"{float(res.residual):.3e}, true fp64 rel residual {rel:.3e}, spmv_dia launches "
+          f"{got['spmv_dia']} (= the recurrence's {want}), #3 by grid {got['var_by_grid']}, #1 by "
+          f"grid {got['const_by_grid']}; wall {wall:.3f} s with the setup, warm wall "
+          f"{warm_ms:.3f} ms [{card}]")
+    if window is None:
+        _device_time_top(warm, warm_ms, card, top=4)
+    else:
+        _device_time_top(window, _wall_ms(window), card, top=4)
+    return res, got, warm_ms
+
+
+def _convection_1023(dev, card, count):
+    """Convection-diffusion NONSYM_GRID at NONSYM_EPS: mg_bicgstab (the
+    rediscretized hierarchy, #3 at every level), Jacobi-GMRES(32),
+    mg_fgmres with inner BiCGStab, plain BiCGStab; each on #4 exactly as its
+    recurrence implies."""
+    from conjugategradient_tpu_torch.precond import multigrid
+    from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
+    from conjugategradient_tpu_torch.solvers.gmres import (
+        fgmres_solve,
+        gmres_solve,
+        inner_solve_preconditioner,
+    )
+
+    g = NONSYM_GRID
+    t0 = time.perf_counter()
+    s = generators.convection_diffusion_system(g, eps=NONSYM_EPS)
+    co = generators.convection_diffusion_coarse_operator(NONSYM_EPS)
+    print(f"convection-diffusion {g} eps {NONSYM_EPS}: n {s.n}, generated in "
+          f"{time.perf_counter() - t0:.3f} s")
+    A32 = s.A.device_put(torch.float32, dev)
+    b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
+    true_of = lambda x: _host_rel_residual(s.A, s.b, x)
+    pol = lambda cap=None: ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=cap)
+    tag = f"convection {g} mg_bicgstab"
+    with _facade_built(multigrid, "build_hierarchy") as built:
+        res, got, _ = _nonsym_route(
+            tag, s.A, s.b, dev, card, lambda r: 2 * r.iterations + 1,
+            lambda: bicgstab_solve(A32, b32, policy=pol(), M=multigrid.as_preconditioner(built[0])),
+            true_of, method="mg_bicgstab", grid=g, coarse_operator=co, tol=TOL, norm="rel_l2")
+    h = built[0]
+    _require_level_launches(tag, h, got)
+    _require(all(isinstance(l.A, StencilMatrix) for l in h.levels),
+             f"{tag}: levels {[type(l.A).__name__ for l in h.levels]} are not all kernel #3's")
+    print(f"{tag}: levels {[l.grid for l in h.levels]} + dense {h.coarse_inv.shape[0]}, host "
+          f"setup s { {k: round(v, 3) for k, v in h.setup_s.items()} }")
+    count(f"nonsymmetric: {tag}", _stencil_counts(got))
+    its = {"mg_bicgstab": res.iterations}
+
+    inv = torch.from_numpy((1.0 / s.A.data[s.A.offsets.index(0)]).astype(np.float32)).to(dev)
+    tag = f"convection {g} jacobi_gmres restart {NONSYM_RESTART}"
+    res, got, _ = _nonsym_route(
+        tag, s.A, s.b, dev, card,
+        lambda r: 1 + r.iterations + 2 * r.cycles,
+        lambda: gmres_solve(A32, b32, policy=pol(NONSYM_GMRES_CAP), M=lambda r: inv * r,
+                            restart=NONSYM_RESTART),
+        true_of, method="jacobi_gmres", restart=NONSYM_RESTART, tol=TOL,
+        norm="rel_l2", max_iteration=NONSYM_GMRES_CAP)
+    count(f"nonsymmetric: {tag}", {"spmv_dia": got["spmv_dia"]})
+    its["jacobi_gmres"] = (res.iterations, bool(res.converged))
+
+    tag = f"convection {g} mg_fgmres inner bicgstab"
+    with _facade_built(multigrid, "build_hierarchy") as built:
+        res, got, _ = _nonsym_route(
+            tag, s.A, s.b, dev, card,
+            lambda r: 1 + 2 * r.cycles + r.iterations * (2 + 2 * NONSYM_INNER),
+            lambda: fgmres_solve(A32, b32, policy=pol(), M=inner_solve_preconditioner(
+                A32, "bicgstab", NONSYM_INNER, M=multigrid.as_preconditioner(built[0]))),
+            true_of, method="mg_fgmres", inner="bicgstab", grid=g, coarse_operator=co, tol=TOL,
+            norm="rel_l2")
+    _require_level_launches(tag, built[0], got)
+    count(f"nonsymmetric: {tag}", _stencil_counts(got))
+    its["mg_fgmres"] = res.iterations
+
+    tag = f"convection {g} bicgstab (capped at {NONSYM_BICGSTAB_CAP})"
+    res, got, _ = _nonsym_route(
+        tag, s.A, s.b, dev, card, lambda r: 2 * r.iterations + 1,
+        lambda: bicgstab_solve(A32, b32, policy=pol(NONSYM_BICGSTAB_CAP)), true_of,
+        require=False, method="bicgstab", tol=TOL, norm="rel_l2",
+        max_iteration=NONSYM_BICGSTAB_CAP)
+    count(f"nonsymmetric: {tag}", {"spmv_dia": got["spmv_dia"]})
+    its["bicgstab"] = (res.iterations, bool(res.converged))
+    print(f"convection {g}: iterations by route {its} [{card}]")
+
+
+def _idr_auto(dev, card, count):
+    """IDR(4) through method="auto" on IDR_GRID convection at IDR_EPS, no
+    grid: auto must choose idr, #4 run exactly once per matvec, per
+    replacement and for the initial residual, and the recurrence residual
+    must agree with the true one."""
+    from conjugategradient_tpu_torch.solvers.idr import idr_solve
+
+    s = generators.convection_diffusion_system(IDR_GRID, eps=IDR_EPS)
+    t0 = time.perf_counter()
+    chose = api._auto_method(s.A, None, dev)
+    probe_s = time.perf_counter() - t0
+    _require(chose == "idr", f"auto on convection {IDR_GRID} chose {chose!r}, not 'idr'")
+    A32 = s.A.device_put(torch.float32, dev)
+    b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
+    tag = f"convection {IDR_GRID} eps {IDR_EPS} auto -> idr"
+    pol = ConvergencePolicy(tol=IDR_TOL, norm="rel_l2")
+    res, got, _ = _nonsym_route(
+        tag, s.A, s.b, dev, card,
+        lambda r: 1 + r.iterations + r.replacements,
+        lambda: idr_solve(A32, b32, policy=pol), lambda x: _host_rel_residual(s.A, s.b, x),
+        window=lambda: idr_solve(A32, b32, policy=ConvergencePolicy(
+            tol=IDR_TOL, norm="rel_l2", max_iteration=IDR_WINDOW)),
+        method="auto", tol=IDR_TOL, norm="rel_l2")
+    true = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
+    drift = true / float(res.residual)
+    _require(drift <= IDR_DRIFT, f"{tag}: true residual {true:.3e} is {drift:.1f}x the "
+             f"recurrence's {float(res.residual):.3e}")
+    print(f"{tag}: auto's host probe {probe_s:.3f} s; {res.iterations} matvecs "
+          f"({res.iterations // (IDR_S + 1)} cycles, {res.replacements} replacements), true / "
+          f"reported residual {drift:.3f}")
+    count(f"nonsymmetric: {tag}", {"spmv_dia": got["spmv_dia"]})
+
+
+def _amg_bicgstab_csr(dev, card, count):
+    """amg_bicgstab on AMG_NONSYM_GRID convection as a bare CSR (the grid
+    inferred, the unsmoothed prolongator's cube levels on #3 or #1), the
+    outer products on cuSPARSE (no #4)."""
+    from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
+
+    s = generators.convection_diffusion_system(AMG_NONSYM_GRID, eps=NONSYM_EPS)
+    A = from_scipy(to_scipy(s.A))
+    tag = f"convection {AMG_NONSYM_GRID} CSR amg_bicgstab"
+    A32 = A.device_put(torch.float32, dev)
+    b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
+    with _facade_amg() as built:
+        res, got, _ = _nonsym_route(
+            tag, A, s.b, dev, card, lambda r: _cycle_dia_launches(built[0]) * 2 * r.iterations,
+            lambda: bicgstab_solve(A32, b32, policy=ConvergencePolicy(tol=TOL, norm="rel_l2"),
+                                   M=amg.amg_preconditioner(built[0])),
+            lambda x: _host_rel_residual(s.A, s.b, x), method="amg_bicgstab", tol=TOL,
+            norm="rel_l2")
+    h = built[0]
+    _require(h.smoother == "jacobi" and all(l.sa_c == 0.0 for l in h.levels),
+             f"{tag}: smoother {h.smoother}, sa_c {[l.sa_c for l in h.levels]}: not the "
+             "unsmoothed Jacobi hierarchy of a nonsymmetric A")
+    _require_level_launches(tag, h, got)
+    print(f"{tag}: levels {_amg_levels(h)} + dense {h.coarse_inv.shape[0]}, host setup s "
+          f"{ {k: round(v, 3) for k, v in h.setup_s.items()} }")
+    count(f"nonsymmetric: {tag}", _stencil_counts(got))
+
+
+def _flagship_twin(dev, card, count):
+    """The flagship's nonsymmetric twin: BiCGStab on #4, an n x MULTI_K
+    block through bicgstab_solve_multi on #5 (column 0 the single-RHS
+    count), refined_solve(inner="bicgstab") to an absolute fp64
+    ||r||_2 < FLAGSHIP_TOL."""
+    from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
+    from conjugategradient_tpu_torch.solvers.multi import bicgstab_solve_multi
+    from conjugategradient_tpu_torch.solvers.refine import refined_solve
+
+    t0 = time.perf_counter()
+    s = generators.nonsymmetric_banded_system(TWIN_N, TWIN_BAND)
+    print(f"nonsymmetric twin n {TWIN_N} band {TWIN_BAND}: built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    A32 = s.A.device_put(torch.float32, dev)
+    b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    true_of = lambda x: _host_rel_residual(s.A, s.b, x)
+    tag = "nonsymmetric twin bicgstab"
+    res, got, _ = _nonsym_route(tag, s.A, s.b, dev, card, lambda r: 2 * r.iterations + 1,
+                                lambda: bicgstab_solve(A32, b32, policy=pol), true_of,
+                                method="bicgstab", tol=TOL, norm="rel_l2")
+    count(f"nonsymmetric: {tag}", {"spmv_dia": got["spmv_dia"]})
+
+    rng = np.random.default_rng(SEED + 14)
+    B = np.column_stack([s.b] + [rng.standard_normal(s.n) for _ in range(MULTI_K - 1)])
+    B32 = torch.from_numpy(B.astype(np.float32)).to(dev)
+    tag = f"nonsymmetric twin bicgstab n x {MULTI_K}"
+    _reset_counts()
+    resB = api.solve(s.A, B, method="bicgstab", tol=TOL, norm="rel_l2", dtype=np.float32,
+                     device=dev)
+    torch.cuda.synchronize()
+    n4, n5 = spmv_dia_cuda.launches, spmm_dia_cuda.launches
+    cols = resB.iterations.cpu().tolist()
+    want = (2 * max(cols) + 1) * len(k_chunks(MULTI_K)) * len(dia_groups(s.A.ndiags))
+    _require(bool(resB.converged.all()), f"{tag}: converged {resB.converged.tolist()}")
+    _require(cols[0] == res.iterations, f"{tag}: column 0 took {cols[0]} iterations, the "
+             f"single-RHS solve {res.iterations}")
+    _require(n5 == want and n4 == 0, f"{tag}: spmm_dia {n5} (the recurrence implies {want}), "
+             f"spmv_dia {n4}")
+    X = resB.x.cpu().numpy()
+    rels = [_host_rel_residual(s.A, B[:, j], X[:, j]) for j in range(MULTI_K)]
+    _require(max(rels) <= TRUE_REL, f"{tag}: true fp64 relative residuals {rels}")
+    warm = lambda: bicgstab_solve_multi(A32, B32, policy=pol)
+    warm_ms = _wall_ms(warm)
+    print(f"{tag}: iterations by column {cols}, spmm_dia launches {n5} (= {want}), true fp64 "
+          f"rel residuals {[float(f'{r:.3e}') for r in rels]}, warm wall {warm_ms:.3f} ms "
+          f"[{card}]")
+    _device_time_top(warm, warm_ms, card, top=4)
+    count(f"nonsymmetric: {tag}", {"spmm_dia": n5})
+
+    tag = "nonsymmetric twin refined_solve(inner='bicgstab')"
+    _reset_counts()
+    t0 = time.perf_counter()
+    rf = refined_solve(s.A, s.b, tol=FLAGSHIP_TOL, inner="bicgstab", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n4 = spmv_dia_cuda.launches
+    r_abs = float(np.linalg.norm(s.b - oracle.spmv(s.A, rf.x)))
+    _require(rf.converged and r_abs < FLAGSHIP_TOL,
+             f"{tag}: converged {rf.converged}, true fp64 ||r||_2 {r_abs:.3e}")
+    want = 2 * rf.inner_iterations + rf.outer_iterations
+    _require(n4 == want, f"{tag}: {n4} spmv_dia launches, the passes imply {want}")
+    print(f"{tag}: {rf.outer_iterations} outer passes, {rf.inner_iterations} inner iterations, "
+          f"true fp64 ||r||_2 {r_abs:.3e}, spmv_dia launches {n4} (= {want}), wall {wall:.3f} s "
+          f"(inner {rf.timings['inner_s']:.3f} s) [{card}]")
+    count(f"nonsymmetric: {tag}", {"spmv_dia": n4})
+
+
+def _helmholtz(dev, card, count):
+    """Helmholtz HELM_GRID at HELM_SHIFT lambda_1 through method="auto",
+    which must choose minres (the second Lanczos stage of the port's probe
+    on the card), in fp64: #4 once per iteration and twice more."""
+    from conjugategradient_tpu_torch.solvers.minres import minres_solve
+
+    g = HELM_GRID
+    s = generators.helmholtz_system(g, HELM_SHIFT * _lam1(g))
+    stage2 = 4 * int(np.ceil(np.sqrt(s.n)))
+    _reset_counts()
+    t0 = time.perf_counter()
+    chose = api._auto_method(s.A, None, dev)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    probe = spmv_dia_cuda.launches
+    _require(chose == "minres", f"auto on Helmholtz {g} chose {chose!r}, not 'minres'")
+    _require(probe in (0, stage2), f"auto's probe on Helmholtz {g}: {probe} spmv_dia launches, "
+             f"neither 0 (the host stage decided) nor the card stage's {stage2}")
+    tag = f"Helmholtz {g} shift {HELM_SHIFT} lambda_1 auto -> minres (fp64)"
+    A64 = s.A.device_put(torch.float64, dev)
+    b64 = torch.from_numpy(s.b).to(dev)
+    _reset_counts()
+    res = api.solve(s.A, s.b, method="auto", tol=TOL, norm="rel_l2", device=dev)
+    torch.cuda.synchronize()
+    n4 = spmv_dia_cuda.launches
+    rel = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
+    _require(res.converged and rel <= TRUE_REL,
+             f"{tag}: converged {res.converged} in {res.iterations}, true rel {rel:.3e}")
+    # the probe again, then MINRES: a product an iteration and two more
+    want = probe + res.iterations + 2
+    _require(n4 == want, f"{tag}: {n4} spmv_dia launches, probe + recurrence imply {want}")
+    warm = lambda: minres_solve(A64, b64, policy=ConvergencePolicy(tol=TOL, norm="rel_l2"))
+    warm_ms = _wall_ms(warm)
+    print(f"{tag}: auto's probe {probe_s:.3f} s ({'the card stage' if probe else 'the host stage'} "
+          f"decided); {res.iterations} iterations, true fp64 rel "
+          f"residual {rel:.3e}, spmv_dia launches {n4} (= {probe} probe + {res.iterations + 2}), "
+          f"warm wall {warm_ms:.3f} ms [{card}]")
+    _device_time_top(warm, warm_ms, card, top=4)
+    count(f"nonsymmetric: {tag}", {"spmv_dia": n4}, fp32=False)
+
+
+#: route -> (system, api.solve keywords) of the fp64 card-against-CPU
+#: checks at about 63^2 (unpreconditioned BiCGStab, IDR and GMRES on the
+#: band: their counts on convection at 63^2 move under a one-ulp change of
+#: b, GMRES(32)'s 1459 by one between the card and the CPU)
+KRYLOV_SMALL = {
+    "bicgstab band": ("band", dict(method="bicgstab")),
+    "gmres band restart 8": ("band", dict(method="gmres", restart=8)),
+    "fgmres inner bicgstab band": ("band", dict(method="fgmres", inner="bicgstab")),
+    "minres Helmholtz": ("helmholtz", dict(method="minres")),
+    "idr band": ("band", dict(method="idr")),
+    "chebyshev Poisson": ("poisson", dict(method="chebyshev")),
+    "mg_bicgstab convection": ("cd", dict(method="mg_bicgstab", grid=(63, 63))),
+    "amg_bicgstab convection": ("cd", dict(method="amg_bicgstab")),
+    "bicgstab band n x 3": ("band", dict(method="bicgstab")),
+    "refined inner bicgstab band": ("band", dict(method="refined", inner="bicgstab",
+                                                 device_dtype=np.float64)),
+}
+
+
+def _krylov_small_system(kind):
+    g = (63, 63)
+    if kind == "band":
+        return generators.nonsymmetric_banded_system(63 * 63, 16)
+    if kind == "cd":
+        return generators.convection_diffusion_system(g, eps=1.0)
+    if kind == "helmholtz":
+        return generators.helmholtz_system(g, HELM_SHIFT * _lam1(g))
+    return generators.poisson_system(g)
+
+
+def _krylov_card_vs_cpu(dev, card):
+    """Each solver of the family in fp64 on the card and on the CPU: equal
+    counts, x within KRYLOV_AGREE of ||x||."""
+    host = lambda v: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    out = {}
+    for route, (kind, kw) in KRYLOV_SMALL.items():
+        s = _krylov_small_system(kind)
+        b = s.b if "n x" not in route else np.column_stack(
+            [s.b] + [np.random.default_rng(j).standard_normal(s.n) for j in (1, 2)])
+        refined = kw["method"] == "refined"
+        opts = dict(tol=FLAGSHIP_TOL if refined else 1e-10, norm="l2" if refined else "rel_l2",
+                    **kw)
+        rc = api.solve(s.A, b, device="cpu", **opts)
+        rg = api.solve(s.A, b, device=dev, **opts)
+        if refined:
+            its_c, its_g = (rc.outer_iterations, rc.inner_iterations), (rg.outer_iterations,
+                                                                        rg.inner_iterations)
+        else:
+            its_c, its_g = host(rc.iterations).tolist(), host(rg.iterations).tolist()
+        xc, xg = host(rc.x), host(rg.x)
+        dx = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
+        _require(bool(np.all(host(rg.converged))) and bool(np.all(host(rc.converged))),
+                 f"card vs CPU {route}: converged {host(rg.converged)} / {host(rc.converged)}")
+        _require(its_g == its_c and dx <= KRYLOV_AGREE,
+                 f"card vs CPU {route}: {its_g} / {its_c} iterations, x differs by {dx:.3e}")
+        out[route] = (its_g, float(f"{dx:.2e}"))
+    print(f"Krylov family fp64 at 63^2, card against CPU (iterations, max rel x diff): {out} "
+          f"[{card}]")
+
+
+def _nonsymmetric(dev, card, count):
+    """The nonsymmetric and indefinite Krylov family on the card."""
+    for step in (_convection_1023, _idr_auto, _amg_bicgstab_csr, _flagship_twin, _helmholtz):
+        t0 = time.perf_counter()
+        step(dev, card, count)
+        print(f"  {step.__name__.lstrip('_')}: {time.perf_counter() - t0:.1f} s")
+    _krylov_card_vs_cpu(dev, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3081,6 +3514,14 @@ def main() -> int:
     _drivers(_driver_paths(h3, b3, sysj, hj, galerkin2, fsys, dev), syss, hs, dev, card, count)
     del syss, hs, galerkin2
     print(f"phase: drivers in {time.perf_counter() - t0:.1f} s")
+
+    # -- the nonsymmetric and indefinite Krylov family, counted: convection-
+    # diffusion 1023^2 (mg_bicgstab, jacobi_gmres, mg_fgmres, bicgstab), IDR
+    # through auto, amg_bicgstab on a CSR, the flagship's nonsymmetric twin
+    # (#4, #5, refined), Helmholtz through auto; card against CPU ---------
+    t0 = time.perf_counter()
+    _nonsymmetric(dev, card, count)
+    print(f"phase: nonsymmetric in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: times -----------------------------------------------------
     times = {}

@@ -9,7 +9,8 @@ reference's, so each counterpart is found by path:
                 CSR, COO, BSR, dense) and their conversions, the DOK
                 builder, Matrix Market and scipy ingestion, the banded,
                 tridiagonal, Poisson, variable-coefficient and anisotropic
-                diffusion generators and the fp64 oracle (SpMV of every
+                diffusion, convection-diffusion, Helmholtz and nonsymmetric
+                banded generators and the fp64 oracle (SpMV of every
                 format, CG, the dense direct solve).
 - ``ops``     — BLAS-1, compensated dots, and the CUDA kernels with their
                 plain twins: the const-stencil SpMV, the fused Chebyshev
@@ -20,11 +21,14 @@ reference's, so each counterpart is found by path:
                 form; the plain CSR, ELL, COO, BSR and dense products.
 - ``solvers`` — convergence policy, (preconditioned) CG with its traced
                 and chunked drivers (checkpoint/resume; one CUDA graph
-                per chunk on the card), multi-RHS CG and
-                its multigrid preconditioner, mixed-precision iterative
-                refinement (the flagship path) and the eigenvalue
-                diagnostics (Jacobi rotations, power iteration, Lanczos
-                and Gershgorin bounds, the spectrum of a CG run).
+                per chunk on the card), multi-RHS CG and BiCGStab and
+                the multigrid preconditioner of a block, mixed-precision
+                iterative refinement (the flagship path; CG or BiCGStab
+                inside), the eigenvalue diagnostics (Jacobi rotations,
+                power iteration, Lanczos and Gershgorin bounds, the
+                spectrum of a CG run), and the nonsymmetric and indefinite
+                Krylov family: BiCGStab, GMRES and FGMRES, MINRES, IDR(s),
+                the Chebyshev iteration.
 - ``precond`` — smoothers (Jacobi, Chebyshev, red-black Gauss-Seidel), the
                 point- and block-Jacobi and Chebyshev-polynomial
                 preconditioners, the fw, hybrid, semicoarsening and

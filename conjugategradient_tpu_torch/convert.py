@@ -4,8 +4,10 @@
 arrays and Python values (the caller does ``np.asarray`` on the JAX side),
 ``matrix_from_reference`` takes any JAX container (host numpy or ``jnp``
 data) by its class name and fields, and ``amg_hierarchy_from_reference``
-takes a JAX ``AmgHierarchy`` object the same way, so both packages can
-compute with the same state; this module never imports ``jax``.
+takes a JAX ``AmgHierarchy`` object the same way, and
+``idr_shadow_from_reference`` takes the JAX package's IDR(s) shadow draw
+as a numpy array, so both packages can compute with the same state; this
+module never imports ``jax``.
 """
 
 from __future__ import annotations
@@ -89,6 +91,19 @@ _STATIC = {
     "shifts": lambda v: tuple(tuple(int(d) for d in s) for s in v),
     "coeffs": lambda v: tuple(float(c) for c in v),
 }
+
+
+def idr_shadow_from_reference(draw, device=None) -> torch.Tensor:
+    """The ``(n, s)`` shadow draw of an IDR(s) solve as a tensor on
+    ``device`` (``None``: the card when there is one), for
+    ``solvers.idr``'s ``shadow=``: ``draw`` is the JAX package's
+    ``jax.random.normal(PRNGKey(seed), (n, s), dtype)`` read as numpy, before
+    its columns are normalised.  The solver casts it to the solve's dtype
+    and normalises it as the JAX package does."""
+    a = np.array(np.asarray(draw))
+    if a.ndim != 2:
+        raise ValueError(f"the shadow draw must be (n, s), got shape {a.shape}")
+    return torch.from_numpy(a).to(default_device(device))
 
 
 def matrix_from_reference(obj):

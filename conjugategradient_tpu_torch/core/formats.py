@@ -812,7 +812,8 @@ def bsr_to_csr(bsr: BsrMatrix) -> CsrMatrix:
 
 
 def matrix_diagonal(A) -> np.ndarray:
-    """The main diagonal of any container (host numpy)."""
+    """The main diagonal of any container, host or device (host numpy)."""
+    A = to_host(A)
     if isinstance(A, DiaMatrix):
         return dia_diagonal(A)
     csr = _any_to_csr(A)
@@ -877,10 +878,11 @@ def transpose(A):
 
 
 def is_symmetric(A, tol: float = 0.0) -> bool:
-    """``max|A - A^T| <= tol`` (host-side diagnostic)."""
+    """``max|A - A^T| <= tol`` for any container, host or device (a host
+    diagnostic: a device container is copied to the host first)."""
     import scipy.sparse as sp
 
-    csr = _any_to_csr(A)
+    csr = _any_to_csr(to_host(A))
     m = sp.csr_matrix(
         (np.asarray(csr.data), np.asarray(csr.indices), np.asarray(csr.indptr)), shape=csr.shape
     )

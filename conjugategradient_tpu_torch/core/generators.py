@@ -1,10 +1,12 @@
-"""Deterministic SPD systems (numpy, host-side).
+"""Deterministic test systems (numpy, host-side).
 
 A copy of the parts of ``conjugategradient_tpu/core/generators.py`` that the
 ported slices run: the banded ``|sin(i+j)|`` and tridiagonal systems of the
 reference's drivers, the Poisson matrices of the multigrid path and the
-variable-coefficient diffusion family of the Galerkin MGCG path, and the
-anisotropic Laplacian of the semicoarsening path.  The
+variable-coefficient diffusion family of the Galerkin MGCG path, the
+anisotropic Laplacian of the semicoarsening path, and the nonsymmetric and
+indefinite systems of the Krylov family (convection-diffusion, Helmholtz,
+the nonsymmetric banded twin).  The
 same numpy code, so the systems are bit-identical to the JAX package's (the
 tests compare them element by element).
 """
@@ -21,7 +23,7 @@ from conjugategradient_tpu_torch.core.formats import DiaMatrix
 
 @dataclasses.dataclass(frozen=True)
 class LinearSystem:
-    """A = SPD matrix, b = RHS, x0 = initial guess."""
+    """A = system matrix, b = RHS, x0 = initial guess."""
 
     A: DiaMatrix
     b: np.ndarray
@@ -374,3 +376,297 @@ def anisotropic_diffusion_system(
     i = np.arange(n, dtype=np.float64)
     b = np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)
     return LinearSystem(A, b.astype(dtype), np.zeros(n, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# Nonsymmetric and indefinite workloads: convection-diffusion (upwind or
+# central, 2-D and 3-D, with its rediscretization hook), the shifted
+# Laplacian and the nonsymmetric twin of the banded |sin| matrix.
+# ---------------------------------------------------------------------------
+
+
+def convection_diffusion_rows(
+    grid_shape: Tuple[int, int],
+    lo: int,
+    hi: int,
+    eps: float = 1.0,
+    velocity="recirculating",
+    scheme: str = "upwind",
+    dtype=np.float64,
+):
+    """(offsets, data columns) for flat rows [lo, hi) of the 2-D
+    convection-diffusion operator — closed-form in the row index (the
+    recirculating field's normaliser ``sqrt(cx^2 + cy^2)`` is attained at
+    the grid corners, so no global pass is needed), like
+    ``poisson2d_rows``."""
+    ny, nx = grid_shape
+    i = np.arange(lo, hi, dtype=np.int64)
+    gx = (i % nx).astype(np.float64)
+    gy = (i // nx).astype(np.float64)
+    if velocity == "recirculating":
+        cx, cy = (nx - 1) / 2.0, (ny - 1) / 2.0
+        vx = gy - cy
+        vy = -(gx - cx)
+        speed = np.sqrt(cx * cx + cy * cy)  # max over the grid (corners)
+        if speed > 0:
+            vx, vy = vx / speed, vy / speed
+    else:
+        vx = np.full(hi - lo, float(velocity[0]))
+        vy = np.full(hi - lo, float(velocity[1]))
+    if scheme == "upwind":
+        west = -eps - np.maximum(vx, 0.0)
+        east = -eps - np.maximum(-vx, 0.0)
+        south = -eps - np.maximum(vy, 0.0)
+        north = -eps - np.maximum(-vy, 0.0)
+        diag = 4.0 * eps + np.abs(vx) + np.abs(vy)
+    elif scheme == "central":
+        west = -eps - 0.5 * vx
+        east = -eps + 0.5 * vx
+        south = -eps - 0.5 * vy
+        north = -eps + 0.5 * vy
+        diag = np.full(hi - lo, 4.0 * eps)
+    else:
+        raise ValueError(f"unknown scheme {scheme!r}")
+    x, y = i % nx, i // nx
+    data = np.zeros((5, hi - lo), dtype=dtype)
+    data[0] = np.where(y >= 1, south, 0.0)  # A[i, i-nx]
+    data[1] = np.where(x >= 1, west, 0.0)  # A[i, i-1]
+    data[2] = diag
+    data[3] = np.where(x <= nx - 2, east, 0.0)  # A[i, i+1]
+    data[4] = np.where(y <= ny - 2, north, 0.0)  # A[i, i+nx]
+    return (-nx, -1, 0, 1, nx), data
+
+
+def convection_diffusion3d_rows(
+    grid_shape: Tuple[int, int, int],
+    lo: int,
+    hi: int,
+    eps: float = 1.0,
+    velocity="recirculating",
+    scheme: str = "upwind",
+    dtype=np.float64,
+):
+    """(offsets, data columns) for flat rows [lo, hi) of the 3-D
+    convection-diffusion operator on an ``nz x ny x nx`` grid (7-point
+    layout like ``poisson3d_rows``).  The recirculating field rotates
+    about the z-axis: ``v = (y - cy, -(x - cx), 0) / corner_speed`` —
+    closed-form in the row index like the 2-D version."""
+    nz, ny, nx = grid_shape
+    i = np.arange(lo, hi, dtype=np.int64)
+    x = i % nx
+    y = (i // nx) % ny
+    z = i // (nx * ny)
+    if velocity == "recirculating":
+        cx, cy = (nx - 1) / 2.0, (ny - 1) / 2.0
+        vx = y.astype(np.float64) - cy
+        vy = -(x.astype(np.float64) - cx)
+        vz = np.zeros(hi - lo)
+        speed = np.sqrt(cx * cx + cy * cy)
+        if speed > 0:
+            vx, vy = vx / speed, vy / speed
+    else:
+        vx = np.full(hi - lo, float(velocity[0]))
+        vy = np.full(hi - lo, float(velocity[1]))
+        vz = np.full(hi - lo, float(velocity[2]))
+    if scheme == "upwind":
+        west = -eps - np.maximum(vx, 0.0)
+        east = -eps - np.maximum(-vx, 0.0)
+        south = -eps - np.maximum(vy, 0.0)
+        north = -eps - np.maximum(-vy, 0.0)
+        down = -eps - np.maximum(vz, 0.0)
+        up = -eps - np.maximum(-vz, 0.0)
+        diag = 6.0 * eps + np.abs(vx) + np.abs(vy) + np.abs(vz)
+    elif scheme == "central":
+        west, east = -eps - 0.5 * vx, -eps + 0.5 * vx
+        south, north = -eps - 0.5 * vy, -eps + 0.5 * vy
+        down, up = -eps - 0.5 * vz, -eps + 0.5 * vz
+        diag = np.full(hi - lo, 6.0 * eps)
+    else:
+        raise ValueError(f"unknown scheme {scheme!r}")
+    data = np.zeros((7, hi - lo), dtype=dtype)
+    data[0] = np.where(z >= 1, down, 0.0)
+    data[1] = np.where(y >= 1, south, 0.0)
+    data[2] = np.where(x >= 1, west, 0.0)
+    data[3] = diag
+    data[4] = np.where(x <= nx - 2, east, 0.0)
+    data[5] = np.where(y <= ny - 2, north, 0.0)
+    data[6] = np.where(z <= nz - 2, up, 0.0)
+    return (-nx * ny, -nx, -1, 0, 1, nx, nx * ny), data
+
+
+def convection_diffusion_matrix(
+    grid_shape: Tuple[int, int],
+    eps: float = 1.0,
+    velocity="recirculating",
+    scheme: str = "upwind",
+    dtype=np.float64,
+) -> DiaMatrix:
+    """Convection-diffusion ``-eps * lap(u) + v . grad(u)`` on a 2-D
+    ``ny x nx`` (5-point) or 3-D ``nz x ny x nx`` (7-point) unit-spacing
+    grid, Dirichlet boundaries, DIA layout exactly like the Poisson
+    builders.
+
+    ``velocity``: ``"recirculating"`` — the classic rotating field
+    ``v(x, y) = (y - cy, -(x - cx))`` scaled to max speed 1 (circulation
+    makes the skew part non-trivial everywhere); or a constant ``(vx, vy)``
+    tuple.  ``scheme``: ``"upwind"`` (first-order, diagonally dominant
+    M-matrix at any Peclet number — the robust default) or ``"central"``
+    (second-order; loses diagonal dominance when cell Peclet ``|v|/eps``
+    exceeds 2 — the hard GMRES/BiCGStab stress case).
+
+    The cell Peclet number ``max|v| / eps`` controls nonnormality: eps >> 1
+    is a perturbed Laplacian, eps << 1 is transport-dominated.
+    """
+    n = int(np.prod(grid_shape))
+    rows = (
+        convection_diffusion_rows
+        if len(grid_shape) == 2
+        else convection_diffusion3d_rows
+    )
+    offsets, data = rows(
+        tuple(grid_shape), 0, n, eps=eps, velocity=velocity, scheme=scheme,
+        dtype=dtype,
+    )
+    return DiaMatrix(data, offsets, (n, n))
+
+
+def convection_diffusion_coarse_operator(
+    eps: float,
+    velocity="recirculating",
+    scheme: str = "upwind",
+    dtype=np.float64,
+):
+    """Rediscretization hook for ``precond.build_hierarchy(coarse_operator=)``
+    on the convection-diffusion family.
+
+    Galerkin coarsening of an upwind transport operator is UNSTABLE past
+    cell Peclet ~1: the product operator behaves like an under-dissipated
+    higher-order scheme on the doubled mesh, the coarse-grid correction
+    amplifies, and the mg_* preconditioned solves diverge from 127x127 up
+    (measured; 63x63 still converges).  Rediscretizing every level with the
+    first-order upwind generator keeps each coarse operator an M-matrix at
+    ANY Peclet — the classic geometric-MG remedy (Trottenberg et al.,
+    *Multigrid* §7).
+
+    The per-level scaling matches this builder's fw transfer convention
+    (measured stencil-moment factors: diffusion 1/4, convection 1/2 per
+    level, identical in 1/2/3-D):
+
+        A_{l+1} = 0.5 * A_gen(eps_l / 2, v)   i.e.  eps_l = eps / 2**l,
+        cumulative scale 0.5**l
+
+    — cell Peclet doubles per level exactly as physical coarsening demands.
+    ``scheme`` defaults to upwind regardless of the fine discretization:
+    a central fine operator with upwind coarse levels is the standard
+    defect-correction pairing (the preconditioner only needs stability).
+    """
+
+    def cb(level: int, coarse_grid: Tuple[int, ...]) -> DiaMatrix:
+        A = convection_diffusion_matrix(
+            tuple(coarse_grid), eps=eps / (2.0 ** level), velocity=velocity,
+            scheme=scheme, dtype=dtype,
+        )
+        return DiaMatrix(
+            np.asarray(A.data) * np.asarray(0.5 ** level, dtype=dtype),
+            A.offsets, A.shape,
+        )
+
+    return cb
+
+
+def convection_diffusion_system(
+    grid_shape: Tuple[int, int],
+    eps: float = 0.05,
+    velocity="recirculating",
+    scheme: str = "upwind",
+    seed: int = 0,
+    dtype=np.float64,
+) -> LinearSystem:
+    """Convection-diffusion workload with the smooth Poisson-family RHS."""
+    A = convection_diffusion_matrix(
+        grid_shape, eps=eps, velocity=velocity, scheme=scheme, dtype=dtype
+    )
+    n = A.n
+    i = np.arange(n, dtype=np.float64)
+    b = np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)
+    return LinearSystem(A, b.astype(dtype), np.zeros(n, dtype=dtype))
+
+
+def helmholtz_matrix(
+    grid_shape: Tuple[int, ...], shift: float, dtype=np.float64
+) -> DiaMatrix:
+    """Shifted Laplacian ``-lap(u) - shift * u`` (Dirichlet, unit spacing):
+    symmetric, and INDEFINITE once ``shift`` exceeds the smallest Laplacian
+    eigenvalue — the canonical ``solvers.minres`` workload (a Helmholtz
+    operator at wavenumber ``k = sqrt(shift)``).  Same DIA layout as the
+    Poisson family."""
+    if len(grid_shape) == 1:
+        A = poisson1d_matrix(grid_shape[0], dtype=np.float64)
+    elif len(grid_shape) == 2:
+        A = poisson2d_matrix(grid_shape[1], grid_shape[0], dtype=np.float64)
+    else:
+        A = poisson3d_matrix(
+            grid_shape[2], grid_shape[1], grid_shape[0], dtype=np.float64
+        )
+    data = np.asarray(A.data, np.float64).copy()
+    diag_k = A.offsets.index(0)
+    data[diag_k] -= float(shift)
+    return DiaMatrix(data.astype(dtype), A.offsets, A.shape)
+
+
+def helmholtz_rows(
+    grid_shape: Tuple[int, ...], shift: float, lo: int, hi: int, dtype=np.float64
+):
+    """(offsets, data columns) for rows [lo, hi) of the shifted Laplacian —
+    the Poisson row recipes with the diagonal shifted (per-row-block form)."""
+    g = tuple(grid_shape)
+    if len(g) == 1:
+        offsets, data = tridiagonal_rows(g[0], lo, hi, diag=2.0, off=-1.0, dtype=dtype)
+    elif len(g) == 2:
+        offsets, data = poisson2d_rows(g[1], g[0], lo, hi, dtype=dtype)
+    else:
+        offsets, data = poisson3d_rows(g[2], g[1], g[0], lo, hi, dtype=dtype)
+    data[offsets.index(0)] -= shift
+    return offsets, data
+
+
+def helmholtz_system(
+    grid_shape: Tuple[int, ...], shift: float, seed: int = 0, dtype=np.float64
+) -> LinearSystem:
+    A = helmholtz_matrix(grid_shape, shift, dtype=dtype)
+    n = A.n
+    i = np.arange(n, dtype=np.float64)
+    b = np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)
+    return LinearSystem(A, b.astype(dtype), np.zeros(n, dtype=dtype))
+
+
+def nonsymmetric_banded_matrix(n: int, band: int, dtype=np.float64) -> DiaMatrix:
+    """Nonsymmetric twin of ``banded_sin_matrix``: ``a_ij = |sin(i + 2j)| / 2``
+    off the diagonal (note ``sin(i + 2j) != sin(j + 2i)``), diagonal = row-sum
+    of off-diagonal magnitudes + 1.  Row diagonal dominance puts every
+    eigenvalue in the open right half-plane (Gershgorin), so the matrix is
+    nonsingular and GMRES/BiCGStab-friendly while remaining genuinely
+    nonsymmetric at every band position.
+    """
+    if band < 2 or band % 2:
+        raise ValueError("band must be an even integer >= 2")
+    h = band // 2 - 1
+    offsets = tuple(range(-h, h + 1))
+    i = np.arange(n, dtype=np.int64)
+    data = np.zeros((len(offsets), n), dtype=dtype)
+    diag_k = offsets.index(0)
+    for k, off in enumerate(offsets):
+        if off == 0:
+            continue
+        valid = (i + off >= 0) & (i + off < n)
+        vals = 0.5 * np.abs(np.sin((i + 2 * (i + off)).astype(np.float64)))
+        data[k] = np.where(valid, vals, 0.0).astype(dtype)
+        data[diag_k] += data[k]
+    data[diag_k] += 1.0
+    return DiaMatrix(data, offsets, (n, n))
+
+
+def nonsymmetric_banded_system(n: int, band: int, dtype=np.float64) -> LinearSystem:
+    A = nonsymmetric_banded_matrix(n, band, dtype=dtype)
+    i = np.arange(n, dtype=dtype)
+    return LinearSystem(A, (10.0 * np.cos(i)).astype(dtype), np.zeros(n, dtype=dtype))

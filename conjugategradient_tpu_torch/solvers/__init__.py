@@ -1,5 +1,7 @@
 """Convergence policy, CG (while-loop, traced and chunked drivers), multi-RHS
-CG, mixed-precision refinement and the eigenvalue diagnostics."""
+CG and BiCGStab, mixed-precision refinement, the eigenvalue diagnostics,
+and the nonsymmetric and indefinite Krylov family (``bicgstab``,
+``gmres``, ``minres``, ``idr``, ``cheby``)."""
 
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, Norm  # noqa: F401
 from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401

@@ -154,6 +154,42 @@ def lanczos_bounds(apply, n: int, k: int = 20, seed: int = 0) -> Tuple[float, fl
     return float(ev[0]), float(ev[-1])
 
 
+def lanczos_ritz_bounds(op: Callable[[torch.Tensor], torch.Tensor], n: int, k: int,
+                        seed: int = 0, device=None) -> Tuple[float, float]:
+    """(lowest, highest) Ritz value of k steps of the plain three-term
+    Lanczos recurrence of a symmetric operator, run in fp64 on ``device``
+    (``None``: the card when there is one) from the ``default_rng(seed)``
+    start vector of ``lanczos_bounds``.
+
+    No reorthogonalisation, so it costs ``k`` products and O(k n) vector
+    work, and its memory stays three vectors: the lost orthogonality only
+    repeats converged Ritz values, and every Ritz value stays inside the
+    spectrum's hull (to rounding), so a negative lowest one proves that the
+    operator is indefinite.  The coefficients stay on the device until the
+    end (one host read); the tridiagonal is cut at its first breakdown
+    (``beta < 1e-14``)."""
+    from scipy.linalg import eigvalsh_tridiagonal
+
+    dev = default_device(device)
+    k = min(int(k), n)
+    q = torch.from_numpy(np.random.default_rng(seed).standard_normal(n)).to(dev)
+    q = q / torch.linalg.vector_norm(q)
+    q_prev = torch.zeros_like(q)
+    alpha = torch.empty(k, dtype=torch.float64, device=dev)
+    beta = torch.zeros(k + 1, dtype=torch.float64, device=dev)
+    for j in range(k):
+        w = op(q)
+        alpha[j] = torch.dot(q, w)
+        w = w - alpha[j] * q - beta[j] * q_prev
+        beta[j + 1] = torch.linalg.vector_norm(w)
+        q_prev, q = q, w / beta[j + 1]
+    a, b = alpha.cpu().numpy(), beta.cpu().numpy()[1:]
+    stop = np.flatnonzero(b < 1e-14)
+    m = int(stop[0]) + 1 if stop.size else k
+    ev = eigvalsh_tridiagonal(a[:m], b[: m - 1])
+    return float(ev[0]), float(ev[-1])
+
+
 def gershgorin_bounds(A: DiaMatrix) -> Tuple[float, float]:
     """Cheap inclusion bounds from the DIA data (host or device): for each
     row, [a_ii - R_i, a_ii + R_i] with R_i the off-diagonal absolute row

@@ -1,4 +1,4 @@
-"""Multi-RHS CG: solve A X = B for k right-hand sides at once.
+"""Multi-RHS CG and BiCGStab: solve A X = B for k right-hand sides at once.
 
 One SpMM pass serves k Krylov recurrences, so the matrix stream is shared by
 all columns.  Each column runs its own scalar recurrence (columnwise alphas
@@ -85,11 +85,93 @@ def as_multi_preconditioner(h):
     return M
 
 
-def bicgstab_solve_multi(*args, **kwargs):
-    """Multi-RHS BiCGStab is not ported yet."""
-    raise NotImplementedError(
-        "bicgstab_solve_multi is not ported yet (ROADMAP queue 1: solver families)"
-    )
+def _res_of(policy, rr0):
+    """Per-column residual of a ``(k, n)`` block in the policy's norm, from
+    its squared norms ``rr``."""
+
+    def res_of(R, rr):
+        if policy.norm == "l2":
+            return torch.sqrt(rr)
+        if policy.norm == "linf":
+            return torch.amax(torch.abs(R), dim=1)
+        if policy.norm == "rel_l2":
+            return torch.sqrt(rr / torch.where(rr0 == 0, torch.ones_like(rr0), rr0))
+        raise ValueError(policy.norm)
+
+    return res_of
+
+
+def bicgstab_solve_multi(
+    A,
+    B: torch.Tensor,
+    X0: Optional[torch.Tensor] = None,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+    M=None,
+    use_pallas: bool = False,
+) -> MultiCGResult:
+    """Multi-RHS BiCGStab: solve A X = B for a nonsymmetric ``A``, ``B`` of
+    shape (n, k), on ``B``'s device; the nonsymmetric twin of
+    ``cg_solve_multi``.
+
+    One SpMM serves the k recurrences per half-step (two per iteration, as
+    the single-RHS form's two products): kernel #5 for a DIA matrix,
+    ``ops.spmm`` for the other containers.  Each column runs its own scalar
+    recurrence (columnwise rho, alpha, omega), ``_safe_div`` keeps a
+    column's breakdown from poisoning the block, and a converged column
+    freezes under masked updates.  ``M`` is an optional linear (n, k) ->
+    (n, k) right preconditioner (``as_multi_preconditioner`` for the
+    V-cycle).  ``use_pallas`` is kept for parity and changes nothing.
+    """
+    n, k = B.shape
+    dtype, dev = B.dtype, B.device
+    op = _as_multi_operator(A, dev)
+    M_work = None if M is None else (lambda R: M(R.T).T.contiguous())
+    tol = torch.tensor(policy.tol, dtype=dtype, device=dev)
+    min_iter = policy.min_iteration
+    max_iter = policy.resolve_max(n)
+    cdot = lambda U, V: torch.sum(U * V, dim=1)
+    cexp = lambda s: s[:, None]
+
+    Bt = B.T.contiguous()
+    X = torch.zeros_like(Bt) if X0 is None else X0.to(dtype).T.contiguous()
+    R = Bt - op(X)
+    Rhat = R  # a fixed shadow residual per column
+    rr = cdot(R, R)
+    res_of = _res_of(policy, rr)
+    onek = torch.ones(k, dtype=dtype, device=dev)
+    Pd, V = torch.zeros_like(R), torch.zeros_like(R)
+    rho, alpha, omega = onek, onek, onek
+    it = torch.zeros(k, dtype=torch.int32, device=dev)
+    while True:
+        active = ((it < min_iter) | (res_of(R, rr) >= tol)) & (it < max_iter)
+        if not bool(active.any()):
+            break
+        rho_new = cdot(Rhat, R)
+        beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
+        Pd2 = R + cexp(beta) * (Pd - cexp(omega) * V)
+        Phat = M_work(Pd2) if M_work is not None else Pd2
+        V2 = op(Phat)
+        alpha2 = _safe_div(rho_new, cdot(Rhat, V2))
+        S = R - cexp(alpha2) * V2
+        Shat = M_work(S) if M_work is not None else S
+        T = op(Shat)
+        omega2 = _safe_div(cdot(T, S), cdot(T, T))
+        X2 = X + cexp(alpha2) * Phat + cexp(omega2) * Shat
+        R2 = S - cexp(omega2) * T
+        am = cexp(active)
+        X = torch.where(am, X2, X)
+        R2 = torch.where(am, R2, R)
+        Pd = torch.where(am, Pd2, Pd)
+        V = torch.where(am, V2, V)
+        rho = torch.where(active, rho_new, rho)
+        alpha = torch.where(active, alpha2, alpha)
+        omega = torch.where(active, omega2, omega)
+        rr = torch.where(active, cdot(R2, R2), rr)
+        R = R2
+        it = it + active.to(torch.int32)
+    res = res_of(R, rr)
+    converged = (res < tol) & (it >= min_iter)
+    return MultiCGResult(x=X.T.contiguous(), iterations=it, residual=res, converged=converged)
 
 
 def cg_solve_multi(
@@ -128,17 +210,8 @@ def cg_solve_multi(
     P = Z
     rz = cdot(R, Z)
     rr = cdot(R, R)
-    rr0 = rr
+    res_of = _res_of(policy, rr)
     it = torch.zeros(k, dtype=torch.int32, device=dev)
-
-    def res_of(R, rr):
-        if policy.norm == "l2":
-            return torch.sqrt(rr)
-        if policy.norm == "linf":
-            return torch.amax(torch.abs(R), dim=1)
-        if policy.norm == "rel_l2":
-            return torch.sqrt(rr / torch.where(rr0 == 0, torch.ones_like(rr0), rr0))
-        raise ValueError(policy.norm)
 
     def active_of(R, rr, it):
         return ((it < min_iter) | (res_of(R, rr) >= tol)) & (it < max_iter)

@@ -17,7 +17,9 @@ bf16-leg instantiation; with ``grid=`` it is MGCG on the hierarchy of
 the legs of a variable-coefficient fine operator (kernel #3's bf16-leg
 instantiation).  ``refined_solve_multi`` runs the
 multi-RHS form over ``cg_solve_multi``: kernel #5 gridless, multi-RHS MGCG
-(``as_multi_preconditioner``) with ``grid=``.
+(``as_multi_preconditioner``) with ``grid=``.  ``inner="bicgstab"`` swaps
+the inner CG for BiCGStab (``bicgstab_solve``, ``bicgstab_solve_multi``)
+on every route, for nonsymmetric systems.
 
 ``device_residual=True`` keeps the outer loop on the card too.  The JAX
 package does that in double-float (two-fp32) arithmetic, since the TPU has
@@ -51,11 +53,16 @@ from conjugategradient_tpu_torch.core.formats import (
     place,
 )
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
+from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
-from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
+from conjugategradient_tpu_torch.solvers.multi import (
+    as_multi_preconditioner,
+    bicgstab_solve_multi,
+    cg_solve_multi,
+)
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, NotConvergedError
 
-_SOLVER_FAMILIES = "ROADMAP queue 1: solver families"
+_DEFLATION = "ROADMAP queue 1: solver families, deflation"
 
 
 @dataclasses.dataclass
@@ -78,10 +85,10 @@ class RefineResult:
 def _check_inner(inner: str, deflation) -> None:
     if inner not in ("cg", "bicgstab"):
         raise ValueError(f"unknown inner {inner!r}; want cg|bicgstab")
-    if inner == "bicgstab":
-        raise NotImplementedError(f"inner='bicgstab' is not ported yet ({_SOLVER_FAMILIES})")
+    if inner == "bicgstab" and deflation is not None:
+        raise ValueError("deflation requires inner='cg' (SPD construction)")
     if deflation is not None:
-        raise NotImplementedError(f"deflation= is not ported yet ({_SOLVER_FAMILIES})")
+        raise NotImplementedError(f"deflation= is not ported yet ({_DEFLATION})")
 
 
 def _grid_operator(A: DiaMatrix, grid, device_dtype, hierarchy, smoother, matrix_dtype, device):
@@ -106,22 +113,25 @@ def _grid_operator(A: DiaMatrix, grid, device_dtype, hierarchy, smoother, matrix
 
 
 def _inner_solver(A: DiaMatrix, grid, inner_tol, device_dtype, hierarchy, smoother,
-                  matrix_dtype, device):
-    """(solve(r) -> CGResult, shape of r): the fp32 inner CG, built once.
+                  matrix_dtype, device, inner="cg"):
+    """(solve(r) -> CGResult, shape of r): the fp32 inner solve, built once:
+    CG, or BiCGStab for ``inner="bicgstab"``.
 
-    Gridless: CG on ``A.device_put(matrix_dtype or device_dtype)``.  Grid:
-    MGCG on ``_grid_operator``'s hierarchy and operator."""
+    Gridless: on ``A.device_put(matrix_dtype or device_dtype)``.  Grid:
+    preconditioned by the V-cycle over ``_grid_operator``'s hierarchy and
+    operator (MGCG, or ``mg_bicgstab``)."""
     from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner
 
     max_it = min(8 * A.n, 1_000_000)
     pol = ConvergencePolicy(tol=inner_tol, norm="rel_l2", max_iteration=max_it)
     prec = np.dtype(device_dtype) == np.float32
+    fn = bicgstab_solve if inner == "bicgstab" else cg_solve
     if grid is not None:
         h, A_dev = _grid_operator(A, grid, device_dtype, hierarchy, smoother, matrix_dtype, device)
         M = as_preconditioner(h)
-        return (lambda r: cg_solve(A_dev, r, policy=pol, M=M, precise_dot=prec)), tuple(grid)
+        return (lambda r: fn(A_dev, r, policy=pol, M=M, precise_dot=prec)), tuple(grid)
     A_dev = A.device_put(matrix_dtype or device_dtype, device)
-    return (lambda r: cg_solve(A_dev, r, policy=pol, precise_dot=prec)), (A.n,)
+    return (lambda r: fn(A_dev, r, policy=pol, precise_dot=prec)), (A.n,)
 
 
 def refined_solve(
@@ -167,7 +177,10 @@ def refined_solve(
 
     ``device_residual=True`` runs the outer loop on the card in fp64 (see
     the module docstring); it needs ``device_dtype=float32``.
-    ``inner="bicgstab"`` and ``deflation`` are not ported yet.
+    ``inner="bicgstab"`` swaps the inner Krylov method for BiCGStab, which
+    gives nonsymmetric systems the same fp64 contract (with ``grid`` the
+    inner solve is ``mg_bicgstab``; ``device_residual`` composes).
+    ``deflation`` is not ported yet.
     """
     _check_inner(inner, deflation)
     device = default_device(device)
@@ -176,7 +189,7 @@ def refined_solve(
             A, b, x0, tol=tol, norm=norm, grid=grid, inner_tol=inner_tol,
             max_outer=max_outer, device_dtype=device_dtype, hierarchy=hierarchy,
             smoother=smoother, raise_on_divergence=raise_on_divergence,
-            use_pallas=use_pallas, matrix_dtype=matrix_dtype, device=device,
+            use_pallas=use_pallas, matrix_dtype=matrix_dtype, device=device, inner=inner,
         )
 
     t_start = time.perf_counter()
@@ -184,7 +197,7 @@ def refined_solve(
     b64 = host_f64(b)
     x = np.zeros(n) if x0 is None else host_f64(x0).copy()
     solve, shape = _inner_solver(A, grid, inner_tol, device_dtype, hierarchy, smoother,
-                                 matrix_dtype, device)
+                                 matrix_dtype, device, inner)
 
     def true_residual(x):
         r = b64 - oracle.spmv(A, x)
@@ -250,6 +263,7 @@ def _refined_solve_device(
     use_pallas: Optional[bool] = None,
     matrix_dtype=None,
     device=None,
+    inner: str = "cg",
 ) -> RefineResult:
     """Device-resident refinement: the outer loop's fp64 work (residual,
     norms, scaling, update) runs on ``device`` in fp64, with ``b - A x`` on
@@ -262,7 +276,7 @@ def _refined_solve_device(
     n = A.n
     device = default_device(device)
     solve, shape = _inner_solver(A, grid, inner_tol, device_dtype, hierarchy, smoother,
-                                 matrix_dtype, device)
+                                 matrix_dtype, device, inner)
     A64 = A.device_put(torch.float64, device)
 
     t0 = time.perf_counter()
@@ -397,6 +411,7 @@ def refined_solve_multi(
     use_pallas: Optional[bool] = None,
     matrix_dtype=None,
     device=None,
+    inner: str = "cg",
 ) -> RefineMultiResult:
     """Multi-RHS iterative refinement: solve A X = B, B of shape (n, k), to
     an fp64 tolerance with fp32 multi-RHS CG inner solves on ``device``
@@ -411,8 +426,12 @@ def refined_solve_multi(
     hierarchy of the single-RHS grid path (``matrix_dtype`` narrows the same
     legs) and ``as_multi_preconditioner``.  Converged and stalled columns
     are frozen: their residual columns enter the inner solve as exact zeros
-    and their updates are masked.
+    and their updates are masked.  ``inner="bicgstab"`` runs the inner
+    solves by ``bicgstab_solve_multi`` instead (the same operator and
+    preconditioner), for nonsymmetric systems; the JAX package's
+    ``refined_solve_multi`` has no ``inner``.
     """
+    _check_inner(inner, None)
     device = default_device(device)
     n = A.n
     B64 = host_f64(B)
@@ -423,13 +442,14 @@ def refined_solve_multi(
 
     max_it = min(8 * n, 1_000_000)
     pol = ConvergencePolicy(tol=inner_tol, norm="rel_l2", max_iteration=max_it)
+    fn = bicgstab_solve_multi if inner == "bicgstab" else cg_solve_multi
     if grid is not None:
         h, A_dev = _grid_operator(A, grid, device_dtype, hierarchy, smoother, matrix_dtype, device)
         M = as_multi_preconditioner(h)
-        solve = lambda R: cg_solve_multi(A_dev, R, policy=pol, M=M)
+        solve = lambda R: fn(A_dev, R, policy=pol, M=M)
     else:
         A_dev = A.device_put(matrix_dtype or device_dtype, device)
-        solve = lambda R: cg_solve_multi(A_dev, R, policy=pol, use_pallas=bool(use_pallas))
+        solve = lambda R: fn(A_dev, R, policy=pol, use_pallas=bool(use_pallas))
 
     def spmm64(X):
         return np.stack([oracle.spmv(A, X[:, j]) for j in range(k)], axis=1)

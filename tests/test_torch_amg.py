@@ -73,10 +73,11 @@ def _case(name):
     if name == "jump 15^3 (stencil levels)":
         S = to_scipy(tgen.diffusion_system((15, 15, 15), kind="jump", contrast=1e3, seed=0).A)
         return S, S, dict(max_coarse=20), "blk_nd"
-    # nonsymmetric upwind convection-diffusion: the JAX generator's numpy
-    # output for both sides (the port has no convection generator yet)
-    S = sp.csr_matrix(jfmt.dia_to_dense(jgen.convection_diffusion_matrix((31, 31), eps=0.1)).data)
-    return S, S, dict(max_coarse=20, smoother="jacobi"), "blk_nd"
+    # nonsymmetric upwind convection-diffusion, each side from its own
+    # package's generator
+    St = to_scipy(tgen.convection_diffusion_matrix((31, 31), eps=0.1))
+    Sj = sp.csr_matrix(jfmt.dia_to_dense(jgen.convection_diffusion_matrix((31, 31), eps=0.1)).data)
+    return St, Sj, dict(max_coarse=20, smoother="jacobi"), "blk_nd"
 
 
 CASES = ["poisson 33^2 (cubes)", "poisson 33^2 permuted (greedy)",

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from conjugategradient_tpu_torch import api
 from conjugategradient_tpu_torch.core import generators
 from conjugategradient_tpu_torch.core.formats import (
     ConstStencilMatrix,
@@ -1400,3 +1401,109 @@ def test_aggregation_build_failure_raises_on_the_card(cuda, monkeypatch):
             amg._aggregate(sp.random(50, 50, density=0.1, format="csr", random_state=0))
     finally:
         _build.load_host.cache_clear()
+
+
+def _lam1(grid):
+    return sum(2.0 - 2.0 * np.cos(np.pi / (g + 1)) for g in grid)
+
+
+#: the nonsymmetric and indefinite Krylov family at about 63^2 in fp64:
+#: route -> (system, api.solve keywords).  Unpreconditioned BiCGStab, IDR
+#: and GMRES run on the nonsymmetric band: on convection at 63^2 the first
+#: two's counts move under a one-ulp change of b (on the CPU) and GMRES(32)'s
+#: 1459 moved by one between the card and the CPU, so no two summation
+#: orders could be held to one count there.
+KRYLOV_CARD = {
+    "bicgstab band": ("band", dict(method="bicgstab")),
+    "gmres band restart 8": ("band", dict(method="gmres", restart=8)),
+    "fgmres inner bicgstab band": ("band", dict(method="fgmres", inner="bicgstab")),
+    "minres helmholtz 63^2": ("helmholtz", dict(method="minres")),
+    "idr band": ("band", dict(method="idr")),
+    "chebyshev poisson 63^2": ("poisson", dict(method="chebyshev")),
+    "mg_bicgstab cd 63^2": ("cd", dict(method="mg_bicgstab", grid=(63, 63))),
+    "amg_bicgstab cd 63^2": ("cd", dict(method="amg_bicgstab")),
+    "bicgstab band n x 3": ("band", dict(method="bicgstab")),
+    "refined inner bicgstab band": ("band", dict(method="refined", inner="bicgstab",
+                                                 device_dtype=np.float64)),
+}
+
+
+def _krylov_system(kind):
+    g = (63, 63)
+    if kind == "band":
+        return generators.nonsymmetric_banded_system(63 * 63, 16)
+    if kind == "cd":
+        return generators.convection_diffusion_system(g, eps=1.0)
+    if kind == "helmholtz":
+        return generators.helmholtz_system(g, 1.5 * _lam1(g))
+    return generators.poisson_system(g)
+
+
+def _krylov_dia_launches(route, res):
+    """Kernel #4's launches (#5's for the block) that the route's recurrence
+    implies, from its result."""
+    if route.startswith("refined"):
+        return 2 * res.inner_iterations + res.outer_iterations  # an initial residual a pass
+    it = res.iterations
+    if route.startswith(("bicgstab band", "mg_bicgstab", "amg_bicgstab")) and "n x" not in route:
+        return 2 * it + 1  # two products an iteration, the initial residual
+    if route.startswith("gmres"):
+        return 1 + it + 2 * res.cycles  # per cycle its residual and the true one
+    if route.startswith("fgmres"):
+        return 1 + 2 * res.cycles + it * (1 + 1 + 2 * 8)  # + the 8-step inner BiCGStab
+    if route.startswith("minres"):
+        return it + 2
+    if route.startswith("idr"):
+        return 1 + it + res.replacements  # on schedule and at the exit
+    if route.startswith("chebyshev"):
+        return it + 1
+    return (2 * int(res.iterations.max()) + 1) * len(cuda_dia.k_chunks(3))  # the block
+
+
+@pytest.mark.parametrize("route", sorted(KRYLOV_CARD))
+def test_krylov_on_card_matches_cpu_and_launches(cuda, route):
+    """fp64 on the card and on the CPU: equal counts, x within 1e-9 of
+    ||x||, and kernel #4 (#5 for the block) launched exactly as the
+    recurrence implies; a V-cycle's stencil levels launch their kernels."""
+    kind, kw = KRYLOV_CARD[route]
+    s = _krylov_system(kind)
+    b = s.b if "n x" not in route else np.column_stack(
+        [s.b] + [np.random.default_rng(j).standard_normal(s.n) for j in (1, 2)])
+    opts = dict(tol=1e-8 if kw["method"] == "refined" else 1e-10,
+                norm="l2" if kw["method"] == "refined" else "rel_l2", **kw)
+    cpu = api.solve(s.A, b, device="cpu", **opts)
+    torch.cuda.synchronize()
+    cuda_dia.reset_launch_counts()
+    cuda_stencil.reset_launch_counts()
+    card = api.solve(s.A, b, device=cuda, **opts)
+    torch.cuda.synchronize()
+    n4, n5 = spmv_dia_cuda.launches, spmm_dia_cuda.launches
+    if kw["method"] == "refined":
+        assert card.converged and cpu.converged
+        assert (card.outer_iterations, card.inner_iterations) == (cpu.outer_iterations,
+                                                                  cpu.inner_iterations)
+        x_card, x_cpu = card.x, cpu.x
+    else:
+        assert bool(np.all(_host(card.converged))) and bool(np.all(_host(cpu.converged)))
+        np.testing.assert_array_equal(_host(card.iterations), _host(cpu.iterations))
+        x_card, x_cpu = _host(card.x), _host(cpu.x)
+    assert np.linalg.norm(x_card - x_cpu) <= 1e-9 * np.linalg.norm(x_cpu)
+    want = _krylov_dia_launches(route, card)
+    assert (n5 if "n x" in route else n4) == want, (n4, n5, want)
+    if kw["method"] == "mg_bicgstab":
+        assert spmv_stencil_cuda.launches > 0  # the variable-coefficient levels
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def test_auto_probe_runs_on_the_card(cuda):
+    """``auto``'s second Lanczos stage on the card: the 255^2 Helmholtz at
+    1.5 lambda_1 is indefinite (MINRES), at 0.5 lambda_1 SPD (CG); a
+    container already on the card is probed the same."""
+    g = (255, 255)
+    A = generators.helmholtz_matrix(g, 1.5 * _lam1(g))
+    assert api._auto_method(A, None, cuda) == "minres"
+    assert api._auto_method(A.device_put(device=cuda), None, cuda) == "minres"
+    assert api._auto_method(generators.helmholtz_matrix(g, 0.5 * _lam1(g)), None, cuda) == "cg"

@@ -28,6 +28,11 @@ def test_port_and_smoke_script_do_not_import_jax():
         "import conjugategradient_tpu_torch.ops.spmm\n"
         "import conjugategradient_tpu_torch.solvers.multi\n"
         "import conjugategradient_tpu_torch.solvers.refine\n"
+        "import conjugategradient_tpu_torch.solvers.bicgstab\n"
+        "import conjugategradient_tpu_torch.solvers.gmres\n"
+        "import conjugategradient_tpu_torch.solvers.minres\n"
+        "import conjugategradient_tpu_torch.solvers.idr\n"
+        "import conjugategradient_tpu_torch.solvers.cheby\n"
         "import conjugategradient_tpu_torch.models.workloads\n"
         "import conjugategradient_tpu_torch.api\n"
         "import conjugategradient_tpu_torch.utils\n"
