@@ -137,6 +137,29 @@ after:
   true fp64 relative residual is within 1e-5, and each prints its warm
   wall and device busy share; then each solver in fp64 at about 63^2 on
   the card and on the CPU, equal counts and x within 1e-9.
+- Least squares, s-step CG, deflation and adjoints, fp32 ``rel_l2`` 1e-6
+  unless stated: the twin's host transpose on #4 (A^T x against its twin
+  and cuSPARSE's product of the transpose's CSR, timed beside A x; the
+  record's ``transposed_dia``), CGNR and LSMR on the twin through
+  ``api.solve`` (#4 exactly 2 an iteration plus 5 and 3); LSMR through
+  ``auto`` and damped on a seeded 1,048,576 x 262,144 sparse regression
+  (cuSPARSE, no #4) against scipy's ``lsmr``: the true normal residual
+  within 1e-5 and x within 2 kappa (rho + rho_scipy), kappa by Lanczos on
+  the card; ``cacg`` (s = 4) and ``jacobi_cacg`` on the flagship and
+  ``cacg`` on Poisson 1023^2 as DIA beside ``cg`` (1 + 2s #4 launches and
+  two host reads an outer step; the true residual within 10x of the
+  reported one); ``make_deflation`` on ``outlier_system(207402, 160)``
+  (Lanczos on fp32 #4, AW on fp64 #4, setup by phase), ``deflated_cg``
+  against ``cg``, a 5-RHS sequence whose probe plus deflated products
+  beat plain CG's, ``refined_solve(deflation=)`` on the host and device
+  routes below the undeflated inner count; ``cg_solve_implicit`` on the
+  fp64 flagship and ``bicgstab_solve_implicit`` on the twin (its A^T from
+  ``dia_transpose_traced`` equal to the host transpose) against central
+  differences, the inverse demo to its goal; ``dd_dot``, ``kahan_sum`` and
+  ``promote_dot`` on 16M fp32 elements against an fp64 witness, the
+  compensated two on a cancelling input also 100x below the plain fp32
+  reduction's error; warm walls the median of 5 calls; each new route in
+  fp64 at small size on the card and the CPU.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -2913,6 +2936,8 @@ HELM_GRID = (255, 255)
 HELM_SHIFT = 1.5
 #: fp64 card against CPU at about 63^2: x within this fraction of ||x||
 KRYLOV_AGREE = 1e-9
+#: warm calls timed for a median wall (after one discarded)
+WALL_REPS = 5
 
 
 def _lam1(grid) -> float:
@@ -2929,20 +2954,34 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _wall_median_ms(fn, reps=WALL_REPS):
+    """(median, min, max) host-clock ms of ``reps`` calls of ``fn`` after
+    one discarded call: one warm call's wall moves by 2x with the host."""
+    fn()
+    walls = sorted(_wall_ms(fn) for _ in range(reps))
+    return walls[reps // 2], walls[0], walls[-1]
+
+
+def _fmt_wall(w) -> str:
+    return f"{w[0]:.3f} ms (median of {WALL_REPS}, {w[1]:.3f}-{w[2]:.3f})"
+
+
 def _stencil_counts(got) -> dict:
     """The record's counts of a route: #4 and each stencil kernel."""
     return {k: got[k] for k in ("spmv_dia", "spmv_stencil", "spmv_stencil_wide",
                                 "spmv_const_stencil")}
 
 
-def _nonsym_route(tag, A, b, dev, card, want4, warm, true_of, require=True, window=None, **kw):
+def _nonsym_route(tag, A, b, dev, card, want4, warm, true_of, require=True, window=None,
+                  median=False, **kw):
     """One counted ``api.solve`` on the card in fp32: launches from a reset,
     kernel #4's count against ``want4(result)``, the true fp64 relative
     residual (``true_of(x)``) within TRUE_REL where it converged (and
-    convergence, with ``require``), the warm wall of ``warm`` and the
-    device busy share of ``warm``, or of ``window`` (a shorter run of the
-    same loop: a long solve's trace takes minutes to read).  Returns
-    (result, launches, warm ms)."""
+    convergence, with ``require``), the warm wall of ``warm`` (one call, or
+    with ``median`` the median of WALL_REPS) and the device busy share of
+    ``warm``, or of ``window`` (a shorter run of the same loop: a long
+    solve's trace takes minutes to read).  Returns (result, launches, warm
+    ms)."""
     _reset_counts()
     t0 = time.perf_counter()
     res = api.solve(A, b, dtype=np.float32, device=dev, **kw)
@@ -2962,12 +3001,17 @@ def _nonsym_route(tag, A, b, dev, card, want4, warm, true_of, require=True, wind
     want = want4(res)
     _require(got["spmv_dia"] == want, f"{tag}: {got['spmv_dia']} spmv_dia launches, the route "
              f"implies {want}")
-    warm_ms = _wall_ms(warm)
+    if median:
+        walls = _wall_median_ms(warm)
+        warm_ms, warm_txt = walls[0], _fmt_wall(walls)
+    else:
+        warm_ms = _wall_ms(warm)
+        warm_txt = f"{warm_ms:.3f} ms"
     print(f"{tag}: {res.iterations} iterations, converged {conv}, recurrence residual "
           f"{float(res.residual):.3e}, true fp64 rel residual {rel:.3e}, spmv_dia launches "
           f"{got['spmv_dia']} (= the recurrence's {want}), #3 by grid {got['var_by_grid']}, #1 by "
           f"grid {got['const_by_grid']}; wall {wall:.3f} s with the setup, warm wall "
-          f"{warm_ms:.3f} ms [{card}]")
+          f"{warm_txt} [{card}]")
     if window is None:
         _device_time_top(warm, warm_ms, card, top=4)
     else:
@@ -3249,20 +3293,25 @@ def _krylov_small_system(kind):
     return generators.poisson_system(g)
 
 
-def _krylov_card_vs_cpu(dev, card):
-    """Each solver of the family in fp64 on the card and on the CPU: equal
-    counts, x within KRYLOV_AGREE of ||x||."""
+def _card_vs_cpu(dev, card, label, routes, system_of, agree, extra_of=None):
+    """Each route of ``routes`` (route -> (system kind, api.solve keywords))
+    in fp64 on the card and on the CPU, on ``system_of(kind) -> (A, b)``
+    (an ``"n x"`` route on b and two seeded columns): equal counts, x
+    within ``agree`` of ||x||.  ``extra_of(route, A) -> (cpu keywords, card
+    keywords)`` adds per-device arguments."""
     host = lambda v: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
     out = {}
-    for route, (kind, kw) in KRYLOV_SMALL.items():
-        s = _krylov_small_system(kind)
-        b = s.b if "n x" not in route else np.column_stack(
-            [s.b] + [np.random.default_rng(j).standard_normal(s.n) for j in (1, 2)])
+    for route, (kind, kw) in routes.items():
+        A, b = system_of(kind)
+        if "n x" in route:
+            b = np.column_stack([b] + [np.random.default_rng(j).standard_normal(b.size)
+                                       for j in (1, 2)])
         refined = kw["method"] == "refined"
         opts = dict(tol=FLAGSHIP_TOL if refined else 1e-10, norm="l2" if refined else "rel_l2",
                     **kw)
-        rc = api.solve(s.A, b, device="cpu", **opts)
-        rg = api.solve(s.A, b, device=dev, **opts)
+        cpu_kw, card_kw = extra_of(route, A) if extra_of else ({}, {})
+        rc = api.solve(A, b, device="cpu", **opts, **cpu_kw)
+        rg = api.solve(A, b, device=dev, **opts, **card_kw)
         if refined:
             its_c, its_g = (rc.outer_iterations, rc.inner_iterations), (rg.outer_iterations,
                                                                         rg.inner_iterations)
@@ -3272,11 +3321,11 @@ def _krylov_card_vs_cpu(dev, card):
         dx = float(np.linalg.norm(xg - xc) / np.linalg.norm(xc))
         _require(bool(np.all(host(rg.converged))) and bool(np.all(host(rc.converged))),
                  f"card vs CPU {route}: converged {host(rg.converged)} / {host(rc.converged)}")
-        _require(its_g == its_c and dx <= KRYLOV_AGREE,
+        _require(its_g == its_c and dx <= agree,
                  f"card vs CPU {route}: {its_g} / {its_c} iterations, x differs by {dx:.3e}")
         out[route] = (its_g, float(f"{dx:.2e}"))
-    print(f"Krylov family fp64 at 63^2, card against CPU (iterations, max rel x diff): {out} "
-          f"[{card}]")
+    print(f"{label}, card against CPU (iterations, max rel x diff): {out} [{card}]")
+    return out
 
 
 def _nonsymmetric(dev, card, count):
@@ -3285,7 +3334,635 @@ def _nonsymmetric(dev, card, count):
         t0 = time.perf_counter()
         step(dev, card, count)
         print(f"  {step.__name__.lstrip('_')}: {time.perf_counter() - t0:.1f} s")
-    _krylov_card_vs_cpu(dev, card)
+    _card_vs_cpu(dev, card, "Krylov family fp64 at 63^2", KRYLOV_SMALL,
+                 lambda kind: (lambda s: (s.A, s.b))(_krylov_small_system(kind)), KRYLOV_AGREE)
+
+
+# ---------------------------------------------------------------------------
+# least squares, s-step, deflation, adjoints
+# ---------------------------------------------------------------------------
+
+#: the sparse regression of the rectangular LSMR: LSQ_M x LSQ_N, LSQ_NNZ
+#: seeded entries a row plus the identity on the first LSQ_N rows
+#: (tests/test_lsmr.py::_overdetermined's construction at a user's size)
+LSQ_M, LSQ_N, LSQ_NNZ = 1_048_576, 262_144, 16
+LSQ_DAMP = 0.5
+#: the true ||A^T r|| / ||A^T b|| (damped: ||A^T r - damp^2 x||) every LSMR
+#: run must meet on the host in fp64
+LSQ_NORMAL_REL = 1e-5
+#: x against scipy's: ||x - x_s|| / ||x_s|| <= margin * kappa(A^T A + damp^2)
+#: * (rho + rho_s), rho the two true normal residuals above.  This follows
+#: from A^T r = (A^T A + damp^2)(x* - x): each error is at most kappa rho
+#: ||x*||.  kappa from LSQ_LANCZOS plain fp64 Lanczos steps on A^T A on the
+#: card; its Ritz values lie inside the spectrum, so the margin covers the
+#: underestimate (12.3 at a 1/16-scale copy on the host, Lanczos and eigsh)
+LSQ_LANCZOS, LSQ_KAPPA_MARGIN = 64, 2.0
+LSQ_SCIPY_TOL = 1e-10
+CACG_S = 4
+CACG_GRID = (1023, 1023)
+#: CA-CG's cap on the Poisson DIA, in multiples of cg's count there (fp32
+#: s = 4 diverges at 255^2 in both packages on the CPU)
+CACG_CAP = 2
+#: a CA-CG run's true residual within this factor of the one it reports
+CACG_HONEST = 10.0
+#: the deflation workload: the flagship's generator with four weakly
+#: coupled unknowns (generators.outlier_system)
+OUTLIER_BAND, OUTLIERS, OUTLIER_SCALE = 160, 4, 1e-3
+DEFL_K = 8
+#: right-hand sides of the solve sequence reusing one deflation
+DEFL_SEQ = 5
+#: plain CG's budget on the outlier system (64 iterations in fp32 on the CPU)
+PLAIN_CAP = 5000
+#: the implicit gradients against central differences: entries and bound
+#: (1e-8 measured on the host at the flagship; steps: 1 in b, where the
+#: loss is linear, and 1e-2 in an entry of data, with its mirror where A is
+#: symmetric)
+FD_ENTRIES, FD_REL, FD_STEP_B, FD_STEP_DATA = 4, 1e-5, 1.0, 1e-2
+IMPLICIT_TOL = 1e-13
+#: the precision helpers' length, the multiple of log2(n) eps^2 their
+#: double-float tree may lose, and their error on the cancelling input
+#: against the plain fp32 reduction's
+PREC_N = 16_777_216
+PREC_TREE, PREC_GAIN = 4.0, 1e-2
+#: fp64 card against CPU of the new routes: x within this fraction of ||x||
+LSQ_AGREE = 1e-9
+
+
+def _normal_rel(A, At, b, x, damp=0.0) -> float:
+    """||A^T (b - A x) - damp^2 x|| / ||A^T b|| in fp64 on the host."""
+    r = b - oracle.spmv(A, x)
+    return float(np.linalg.norm(oracle.spmv(At, r) - damp * damp * x)
+                 / np.linalg.norm(oracle.spmv(At, b)))
+
+
+def _transposed_dia(dev, card, count):
+    """The flagship's nonsymmetric twin and its host transpose on #4: A^T x
+    against its twin and cuSPARSE's product of the transpose's CSR, timed
+    beside A x; then CGNR and LSMR through api.solve in fp32, #4 twice an
+    iteration plus the setup products."""
+    from conjugategradient_tpu_torch.core.formats import transpose
+    from conjugategradient_tpu_torch.ops.spmv import csr_tensor
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve as _cg
+    from conjugategradient_tpu_torch.solvers.cgnr import normal_operators
+    from conjugategradient_tpu_torch.solvers.lsmr import lsmr_loop
+
+    t0 = time.perf_counter()
+    s = generators.nonsymmetric_banded_system(TWIN_N, TWIN_BAND)
+    At = transpose(s.A)
+    print(f"nonsymmetric twin n {TWIN_N} band {TWIN_BAND} and its host transpose in "
+          f"{time.perf_counter() - t0:.3f} s ({At.ndiags} diagonals, offsets {At.offsets[0]}.."
+          f"{At.offsets[-1]})")
+    A32, At32 = s.A.device_put(torch.float32, dev), At.device_put(torch.float32, dev)
+    x = torch.randn(s.n, generator=torch.Generator(device=dev).manual_seed(SEED + 15), device=dev)
+    y = spmv_dia_cuda(At32, x)
+    err, scale = _max_err(y, spmv_dia_ref(At32, x))
+    _require(err <= KERNEL_REL * scale, f"spmv_dia A^T: max err {err:.3e} vs the twin")
+    csr = csr_tensor(dia_to_csr(At).device_put(torch.float32, dev))
+    lib_ms = _library("spmv_dia A^T band 160 fp32 (the transpose's CSR)", lambda: csr @ x, y,
+                      card, 200)
+    t_ms = time_ms(lambda: spmv_dia_cuda(At32, x), 200)
+    a_ms = time_ms(lambda: spmv_dia_cuda(A32, x), 200)
+    p_ms = time_ms(lambda: spmv_dia_ref(At32, x), 10)
+    bound = bound_ms(spmm_bytes(At32, 1), 2 * dia_nnz(At32))
+    rec = dict(ms=t_ms, a_ms=a_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound[0],
+               bound_by=bound[1], max_abs_err=err)
+    print(f"time spmv_dia A^T fp32 n={s.n}: kernel {t_ms:.4f} ms beside A x {a_ms:.4f} ms (bound "
+          f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / t_ms:.1%} of it), twin {p_ms:.4f} ms, "
+          f"cuSPARSE {lib_ms:.4f} ms; max err vs twin {err:.3e} [{card}]")
+    del csr
+
+    b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    op, opT = normal_operators(s.A, b32)
+    for method, want4, warm in (
+            ("cgnr", lambda r: 2 * r.iterations + 5, lambda: _cg(lambda v: opT(op(v)), opT(b32),
+                                                                  policy=pol)),
+            ("lsmr", lambda r: 2 * r.iterations + 3, lambda: lsmr_loop(op, opT, b32, pol))):
+        tag = f"nonsymmetric twin {method}"
+        res, got, _ = _nonsym_route(tag, s.A, s.b, dev, card, want4, warm,
+                                    lambda x: _host_rel_residual(s.A, s.b, x), median=True,
+                                    method=method, tol=TOL, norm="rel_l2")
+        n4 = got["spmv_dia"]
+        xh = res.x.cpu().numpy().astype(np.float64)
+        rel, nrel = _host_rel_residual(s.A, s.b, xh), _normal_rel(s.A, At, s.b, xh)
+        _require(rel <= TRUE_REL and nrel <= TRUE_REL,
+                 f"{tag}: true fp64 ||r||/||b|| {rel:.3e}, ||A^T r||/||A^T b|| {nrel:.3e}")
+        print(f"{tag}: true fp64 ||b - A x||/||b|| {rel:.3e}, ||A^T r||/||A^T b|| {nrel:.3e} "
+              f"(BiCGStab: 5 iterations in PR 14) [{card}]")
+        count(f"least squares: {tag}", {"spmv_dia": n4})
+    return rec
+
+
+def _regression(m, n, nnz, seed):
+    """The seeded sparse regression (scipy CSR) and its b."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m, dtype=np.int64), nnz)
+    cols = rng.integers(0, n, m * nnz)
+    vals = rng.standard_normal(m * nnz)
+    S = (sp.csr_matrix((vals, (rows, cols)), shape=(m, n)) + sp.eye(m, n, format="csr")).tocsr()
+    return S, rng.standard_normal(m)
+
+
+def _rectangular_lsmr(dev, card, count):
+    """LSMR on the LSQ_M x LSQ_N regression through method="auto" (which
+    must route to lsmr) and with damp=LSQ_DAMP, both on cuSPARSE's product
+    (no #4), against scipy's lsmr on the host CSR."""
+    import scipy.sparse.linalg as sla
+
+    from conjugategradient_tpu_torch.core.formats import transpose
+    from conjugategradient_tpu_torch.ops.spmv import spmv
+    from conjugategradient_tpu_torch.solvers import lsmr as lsmr_mod
+
+    t0 = time.perf_counter()
+    S, b = _regression(LSQ_M, LSQ_N, LSQ_NNZ, SEED)
+    A = from_scipy(S)
+    At = transpose(A)
+    print(f"regression {LSQ_M} x {LSQ_N}: {A.nnz} nonzeros, built with its host transpose in "
+          f"{time.perf_counter() - t0:.3f} s")
+    A64, At64 = A.device_put(torch.float64, dev), At.device_put(torch.float64, dev)
+    lo, hi = eigen.lanczos_ritz_bounds(lambda v: spmv(At64, spmv(A64, v)), LSQ_N, LSQ_LANCZOS,
+                                       device=dev)
+    del A64, At64
+    b32 = torch.from_numpy(b.astype(np.float32)).to(dev)
+    for damp in (0.0, LSQ_DAMP):
+        tag = f"regression lsmr {'auto' if damp == 0 else f'damp {damp}'}"
+        kw = dict(method="auto", tol=TOL, norm="rel_l2")
+        if damp:
+            kw["damp"] = damp
+        with _facade_built(lsmr_mod, "lsmr_solve") as called:
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = api.solve(A, b, dtype=np.float32, device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n4 = spmv_dia_cuda.launches
+        _require(len(called) == 1 and n4 == 0,
+                 f"{tag}: lsmr called {len(called)} times, {n4} spmv_dia launches")
+        _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
+        x = res.x.cpu().numpy().astype(np.float64)
+        rho = _normal_rel(A, At, b, x, damp)
+        t0 = time.perf_counter()
+        xs = sla.lsmr(S, b, damp=damp, atol=LSQ_SCIPY_TOL, btol=LSQ_SCIPY_TOL)[0]
+        scipy_s = time.perf_counter() - t0
+        rho_s = _normal_rel(A, At, b, xs, damp)
+        kappa = (hi + damp * damp) / (lo + damp * damp)
+        dx = float(np.linalg.norm(x - xs) / np.linalg.norm(xs))
+        bound = LSQ_KAPPA_MARGIN * kappa * (rho + rho_s)
+        _require(rho <= LSQ_NORMAL_REL, f"{tag}: true normal residual {rho:.3e}")
+        _require(dx <= bound, f"{tag}: x differs from scipy's by {dx:.3e} > {bound:.3e}")
+        Ad, Atd = A.device_put(torch.float32, dev), At.device_put(torch.float32, dev)
+        warm = lambda: lsmr_mod.lsmr_loop(lambda v: spmv(Ad, v), lambda v: spmv(Atd, v), b32,
+                                          ConvergencePolicy(tol=TOL, norm="rel_l2"), damp=damp,
+                                          n_iter_scale=LSQ_M)
+        walls = _wall_median_ms(warm)
+        warm_ms = walls[0]
+        print(f"{tag}: routed to lsmr, {res.iterations} iterations, reported {float(res.residual):.3e}"
+              f", true fp64 normal residual {rho:.3e} (scipy's {rho_s:.3e} in {scipy_s:.1f} s on the"
+              f" host), x vs scipy {dx:.3e} <= {bound:.3e} (kappa(A^T A + damp^2) {kappa:.2f} by "
+              f"Lanczos); wall {wall:.3f} s with the host transpose, warm loop {_fmt_wall(walls)} "
+              f"[{card}]")
+        _device_time_top(warm, warm_ms, card, top=4)
+        del Ad, Atd
+
+
+def _cacg_route(tag, A, b, dev, card, count, true_of, cg_its, require=True, **kw):
+    """One counted CA-CG run through api.solve in fp32: outer steps and host
+    reads counted at the loop's injection points, #4 exactly 1 + 2s per
+    outer step, the true residual against the reported one."""
+    from conjugategradient_tpu_torch.solvers import cacg
+
+    outer, reads, loop = [], [], cacg.cacg_loop
+
+    def counted(op, b_, x0, policy, s, dot, gram, **kw_):
+        def gram_c(V):
+            outer.append(1)
+            return gram(V)
+
+        def dot_c(u, v):
+            reads.append(1)
+            return dot(u, v)
+
+        return loop(op, b_, x0, policy, s, dot_c, gram_c, **kw_)
+
+    cacg.cacg_loop = counted
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = api.solve(A, b, dtype=np.float32, device=dev, s=CACG_S, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cacg.cacg_loop = loop
+    n4, n_outer = spmv_dia_cuda.launches, len(outer)
+    want = 1 + 2 * CACG_S * n_outer
+    _require(n4 == want, f"{tag}: {n4} spmv_dia launches, {n_outer} outer steps imply {want}")
+    _require(len(reads) == 1 + n_outer, f"{tag}: {len(reads)} dot reads, {n_outer} outer steps")
+    true = true_of(res.x.cpu().numpy().astype(np.float64))
+    reported = float(res.residual)
+    if require:
+        _require(res.converged and true <= TRUE_REL,
+                 f"{tag}: converged {res.converged} in {res.iterations}, true rel {true:.3e}")
+    ratio = true / reported if reported > 0 else float("inf")
+    _require(1.0 / CACG_HONEST <= ratio <= CACG_HONEST,
+             f"{tag}: true residual {true:.3e} against the reported {reported:.3e}")
+    print(f"{tag}: {res.iterations} iterations (cg {cg_its}), converged {res.converged}, "
+          f"{n_outer} outer steps, spmv_dia {n4} = 1 + {2 * CACG_S} per outer step, host reads "
+          f"2 per outer step (+1), true fp64 rel residual {true:.3e} vs reported {reported:.3e}; "
+          f"wall {wall:.3f} s [{card}]")
+    count(f"least squares: {tag}", {"spmv_dia": n4})
+    return res
+
+
+def _cacg(fsys, dev, card, count):
+    """cacg (s = 4) and jacobi_cacg on the flagship beside cg; cacg on
+    Poisson CACG_GRID as DIA beside cg, capped at CACG_CAP times cg's
+    count, held to honesty where it does not converge."""
+    from conjugategradient_tpu_torch.solvers.cacg import cacg_solve
+
+    f_true = lambda x: _host_rel_residual(fsys.A, fsys.b, x)
+    _reset_counts()
+    cg = api.solve(fsys.A, fsys.b, method="cg", tol=TOL, norm="rel_l2", dtype=np.float32,
+                   device=dev)
+    print(f"flagship cg fp32: {cg.iterations} iterations, spmv_dia {spmv_dia_cuda.launches}")
+    A32 = fsys.A.device_put(torch.float32, dev)
+    b32 = torch.from_numpy(fsys.b.astype(np.float32)).to(dev)
+    for method in ("cacg", "jacobi_cacg"):
+        _cacg_route(f"flagship {method} s={CACG_S}", fsys.A, fsys.b, dev, card, count, f_true,
+                    cg.iterations, method=method, tol=TOL, norm="rel_l2")
+    warm = lambda: cacg_solve(A32, b32, policy=ConvergencePolicy(tol=TOL, norm="rel_l2"),
+                              s=CACG_S)
+    walls = _wall_median_ms(warm)
+    warm_ms = walls[0]
+    print(f"flagship cacg warm wall {_fmt_wall(walls)} [{card}]")
+    _device_time_top(warm, warm_ms, card, top=4)
+
+    p = generators.poisson_system(CACG_GRID)
+    p_true = lambda x: _host_rel_residual(p.A, p.b, x)
+    cgp = api.solve(p.A, p.b, method="cg", tol=TOL, norm="rel_l2", dtype=np.float32, device=dev)
+    print(f"Poisson {CACG_GRID} DIA cg fp32: {cgp.iterations} iterations, converged "
+          f"{cgp.converged}")
+    res = _cacg_route(f"Poisson {CACG_GRID} DIA cacg s={CACG_S} (cap {CACG_CAP}x cg)", p.A, p.b,
+                      dev, card, count, p_true, cgp.iterations, require=False, method="cacg",
+                      tol=TOL, norm="rel_l2", max_iteration=CACG_CAP * cgp.iterations)
+    if not res.converged:
+        print(f"Poisson {CACG_GRID} cacg s={CACG_S} fp32 did not converge within "
+              f"{CACG_CAP}x cg's count: reported honestly (converged=False)")
+
+
+def _deflation(dev, card, count):
+    """make_deflation on the outlier system at the flagship's size, cg
+    against deflated_cg, a DEFL_SEQ-solve sequence reusing the deflation,
+    and refined_solve(deflation=) on the host and device-residual routes."""
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve as _cg
+    from conjugategradient_tpu_torch.solvers.deflation import deflated_cg_solve, make_deflation
+
+    n = TWIN_N
+    t0 = time.perf_counter()
+    s = generators.outlier_system(n, band=OUTLIER_BAND, n_outliers=OUTLIERS, scale=OUTLIER_SCALE)
+    print(f"outlier system n {n} band {OUTLIER_BAND}, {OUTLIERS} outliers at {OUTLIER_SCALE}: "
+          f"built in {time.perf_counter() - t0:.3f} s")
+    _reset_counts()
+    t0 = time.perf_counter()
+    d = make_deflation(s.A, k=DEFL_K, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    m = max(4 * DEFL_K, 32)
+    by = dict(spmv_dia_cuda.launches_by_dtype)
+    _require(by.get("fp32", 0) == m and by.get("fp64", 0) == DEFL_K,
+             f"make_deflation: spmv_dia launches by dtype {by}, want {m} fp32 (Lanczos) and "
+             f"{DEFL_K} fp64 (AW)")
+    print(f"make_deflation k={DEFL_K} m={m}: {setup:.3f} s, by phase "
+          f"{ {k: round(v, 4) for k, v in d.setup_s.items()} }, spmv_dia {by} [{card}]")
+    count("least squares: deflation probe (fp32 Lanczos)", {"spmv_dia": by.get("fp32", 0)})
+    count("deflation AW (fp64)", {"spmv_dia": by.get("fp64", 0)}, fp32=False)
+
+    A32 = s.A.device_put(torch.float32, dev)
+    b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=PLAIN_CAP)
+    true_of = lambda b_, x: _host_rel_residual(s.A, b_, x.cpu().numpy().astype(np.float64))
+    _reset_counts()
+    plain = _cg(A32, b32, policy=pol)
+    torch.cuda.synchronize()
+    _require(spmv_dia_cuda.launches == plain.iterations + 1, "plain cg launches")
+    print(f"outlier plain cg (cap {PLAIN_CAP}): {plain.iterations} iterations, converged "
+          f"{plain.converged}{'' if plain.converged else ' (stalled at the cap)'}, true rel "
+          f"{true_of(s.b, plain.x):.3e} [{card}]")
+    tag = f"outlier deflated_cg k={DEFL_K}"
+    res, got, warm_ms = _nonsym_route(
+        tag, s.A, s.b, dev, card, lambda r: r.iterations + 3,
+        lambda: deflated_cg_solve(A32, b32, policy=pol, deflation=d),
+        lambda x: _host_rel_residual(s.A, s.b, x), median=True, method="deflated_cg",
+        deflation=d, tol=TOL, norm="rel_l2", max_iteration=PLAIN_CAP)
+    n4 = got["spmv_dia"]
+    rel = true_of(s.b, res.x)
+    plain_w = _wall_median_ms(lambda: _cg(A32, b32, policy=pol))
+    print(f"{tag}: {res.iterations} iterations against plain cg's {plain.iterations}, true fp64 "
+          f"rel {rel:.3e}; warm wall {warm_ms:.3f} ms (median) against plain cg's "
+          f"{_fmt_wall(plain_w)} [{card}]")
+    count(f"least squares: {tag}", {"spmv_dia": n4})
+
+    rng = np.random.default_rng(SEED + 15)
+    tot_plain, tot_defl, seq = 0, m, []
+    _reset_counts()
+    for _ in range(DEFL_SEQ):
+        bk = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        rp = _cg(A32, bk, policy=pol)
+        rd = deflated_cg_solve(A32, bk, policy=pol, deflation=d)
+        _require(rd.converged, "deflated sequence: a solve did not converge")
+        tot_plain += rp.iterations
+        tot_defl += rd.iterations
+        seq.append((rp.iterations, rd.iterations))
+    torch.cuda.synchronize()
+    _require(tot_defl < tot_plain, f"deflated sequence: probe {m} + deflated {tot_defl - m} "
+             f"products against plain cg's {tot_plain}")
+    print(f"outlier sequence of {DEFL_SEQ} seeded b (plain, deflated iterations) {seq}: probe {m} "
+          f"+ deflated {tot_defl - m} = {tot_defl} products against plain cg's {tot_plain} [{card}]")
+    count("least squares: outlier sequence (plain + deflated)", {"spmv_dia": spmv_dia_cuda.launches})
+
+    for dev_res in (False, True):
+        route = "device residual" if dev_res else "host residual"
+        out = {}
+        for defl in (None, d):
+            _reset_counts()
+            t0 = time.perf_counter()
+            rf = refined_solve(s.A, s.b, tol=FLAGSHIP_TOL, deflation=defl, device=dev,
+                               device_residual=dev_res)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r_abs = float(np.linalg.norm(s.b - oracle.spmv(s.A, rf.x)))
+            _require(rf.converged and r_abs < FLAGSHIP_TOL,
+                     f"refined {route} deflated={defl is not None}: converged {rf.converged}, "
+                     f"||r|| {r_abs:.3e}")
+            extra = 3 if defl is not None else 1
+            want = rf.inner_iterations + extra * rf.outer_iterations + (
+                rf.outer_iterations + 1 if dev_res else 0)
+            n4 = spmv_dia_cuda.launches
+            _require(n4 == want, f"refined {route}: {n4} spmv_dia launches, the passes imply {want}")
+            out[defl is not None] = (rf.outer_iterations, rf.inner_iterations, round(wall, 3),
+                                     float(f"{r_abs:.3e}"), n4)
+            if defl is not None:
+                by = spmv_dia_cuda.launches_by_dtype
+                count(f"least squares: outlier refined deflated, {route}",
+                      {"spmv_dia": by.get("fp32", 0)})
+                count(f"outlier refined deflated, {route}, fp64 residual",
+                      {"spmv_dia": by.get("fp64", 0)}, fp32=False)
+        _require(out[True][1] < out[False][1],
+                 f"refined {route}: deflated inner {out[True][1]} not below {out[False][1]}")
+        print(f"outlier refined_solve {route} to ||r||_2 < {FLAGSHIP_TOL}: (outer, inner, wall s, "
+              f"||r||, spmv_dia) undeflated {out[False]}, deflated {out[True]} [{card}]")
+
+
+def _adjoints(fsys, dev, card, count):
+    """cg_solve_implicit on the flagship and bicgstab_solve_implicit on the
+    twin (its A^T from dia_transpose_traced equal to formats.transpose), in
+    fp64, both against central differences; the coefficient recovery of
+    the inverse demo at its own size, held to its goal."""
+    from conjugategradient_tpu_torch.core.formats import transpose
+    from conjugategradient_tpu_torch.scripts.inverse_demo import meets_goal, recover
+    from conjugategradient_tpu_torch.solvers.diff import (
+        bicgstab_solve_implicit,
+        cg_solve_implicit,
+        dia_transpose_traced,
+    )
+
+    A = fsys.A
+    offs, shape, n = A.offsets, A.shape, A.n
+    pol = ConvergencePolicy(tol=IMPLICIT_TOL, norm="rel_l2", max_iteration=2000)
+    rng = np.random.default_rng(SEED + 15)
+    w = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    data0 = torch.from_numpy(A.data).to(dev)
+    b0 = torch.from_numpy(fsys.b).to(dev)
+    data, b = data0.clone().requires_grad_(), b0.clone().requires_grad_()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss = torch.dot(w, cg_solve_implicit(data, b, offs, shape, pol))
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    n_fwd = spmv_dia_cuda.launches
+    t0 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd = time.perf_counter() - t0
+    n_bwd = spmv_dia_cuda.launches - n_fwd
+    _require(n_fwd > 1 and n_bwd > 1 and spmv_dia_cuda.launches_by_dtype.get("fp64") ==
+             n_fwd + n_bwd, f"implicit cg: spmv_dia {n_fwd} forward, {n_bwd} backward")
+    count("implicit cg flagship fp64 (forward + adjoint)", {"spmv_dia": n_fwd + n_bwd}, fp32=False)
+
+    value = lambda d, bb: float(torch.dot(w, cg_solve_implicit(d, bb, offs, shape, pol)))
+    errs = _fd_errors(value, data0, b0, data.grad, b.grad, offs, rng, symmetric=True)
+    worst = max(e[2] for e in errs)
+    _require(worst <= FD_REL, f"implicit cg: gradients against central differences {errs}")
+    print(f"implicit cg flagship fp64: forward {fwd:.3f} s ({n_fwd} spmv_dia), backward {bwd:.3f} s "
+          f"({n_bwd}); gradients against central differences, worst rel {worst:.2e} "
+          f"{[(kind, where, float(f'{e:.1e}')) for kind, where, e in errs]} [{card}]")
+
+    s = generators.nonsymmetric_banded_system(TWIN_N, TWIN_BAND)
+    dT = dia_transpose_traced(torch.from_numpy(s.A.data).to(dev), s.A.offsets, s.n).cpu().numpy()
+    At = transpose(s.A)
+    order = np.argsort([-o for o in s.A.offsets], kind="stable")
+    _require(At.offsets == tuple(-s.A.offsets[k] for k in order)
+             and np.array_equal(dT[order], At.data),
+             "dia_transpose_traced on the card differs from formats.transpose")
+    data0 = torch.from_numpy(s.A.data).to(dev)
+    b0 = torch.from_numpy(s.b).to(dev)
+    data, bt = data0.clone().requires_grad_(), b0.clone().requires_grad_()
+    pol = ConvergencePolicy(tol=IMPLICIT_TOL, norm="rel_l2")
+    w = torch.from_numpy(rng.standard_normal(s.n)).to(dev)
+    _reset_counts()
+    x = bicgstab_solve_implicit(data, bt, s.A.offsets, s.A.shape, pol)
+    n_fwd = spmv_dia_cuda.launches
+    torch.dot(w, x).backward()
+    torch.cuda.synchronize()
+    n_bwd = spmv_dia_cuda.launches - n_fwd
+    _require(n_bwd > 1, f"implicit bicgstab: {n_bwd} spmv_dia in the adjoint")
+    count("implicit bicgstab twin fp64 (forward + adjoint)", {"spmv_dia": n_fwd + n_bwd}, fp32=False)
+    value = lambda d, bb: float(torch.dot(w, bicgstab_solve_implicit(d, bb, s.A.offsets,
+                                                                      s.A.shape, pol)))
+    errs = _fd_errors(value, data0, b0, data.grad, bt.grad, s.A.offsets, rng, symmetric=False)
+    worst = max(e[2] for e in errs)
+    _require(worst <= FD_REL, f"implicit bicgstab: gradients against central differences {errs}")
+    print(f"implicit bicgstab nonsymmetric twin fp64: A^T by dia_transpose_traced on the card equals "
+          f"formats.transpose; spmv_dia {n_fwd} forward, {n_bwd} adjoint; gradients against "
+          f"central differences, worst rel {worst:.2e} "
+          f"{[(kind, where, float(f'{e:.1e}')) for kind, where, e in errs]} [{card}]")
+
+    demo = recover(device=dev)  # the demo's own size and 400 steps
+    _require(meets_goal(demo), f"inverse demo: loss {demo['loss0']:.3e} -> {demo['loss']:.3e}, "
+             f"coefficient error {demo['coeff_err']:.3e}")
+    print(f"inverse demo fp64 (n=192, band 8, {len(demo['losses'])} Adam steps): loss "
+          f"{demo['loss0']:.3e} -> {demo['loss']:.3e}, coefficient error {demo['coeff_err']:.3e}, "
+          f"{demo['wall_s']:.3f} s [{card}]")
+
+
+def _fd_errors(value, data0, b0, grad_data, grad_b, offs, rng, symmetric):
+    """Relative differences of a solve's gradients from central differences
+    of ``value(data, b)`` (a linear loss of the solution, without grad) at
+    FD_ENTRIES seeded entries of b and FD_ENTRIES in-band entries of data:
+    with ``symmetric`` each data step moves an entry and its mirror, as a
+    symmetric A's gradient is read."""
+    n = b0.numel()
+    errs = []
+    with torch.no_grad():
+        for i in rng.choice(n, FD_ENTRIES, replace=False):
+            e = torch.zeros(n, dtype=b0.dtype, device=b0.device)
+            e[int(i)] = FD_STEP_B
+            fd = (value(data0, b0 + e) - value(data0, b0 - e)) / (2 * FD_STEP_B)
+            errs.append(("b", int(i), abs(float(grad_b[int(i)]) - fd) / abs(fd)))
+        while len(errs) < 2 * FD_ENTRIES:
+            k = int(rng.integers(0, len(offs)))
+            i = int(rng.integers(0, n))
+            j = i + offs[k]
+            if (symmetric and offs[k] == 0) or not 0 <= j < n:
+                continue
+            step = torch.zeros_like(data0)
+            step[k, i] = FD_STEP_DATA
+            an = float(grad_data[k, i])
+            if symmetric:
+                km = offs.index(-offs[k])
+                step[km, j] = FD_STEP_DATA
+                an += float(grad_data[km, j])
+            fd = (value(data0 + step, b0) - value(data0 - step, b0)) / (2 * FD_STEP_DATA)
+            errs.append(("data", (k, i), abs(an - fd) / abs(fd)))
+    return errs
+
+
+def _precision_helpers(dev, card):
+    """dd_dot, kahan_sum and promote_dot on PREC_N fp32 elements against a
+    numpy fp64 witness, within the JAX docstrings' bounds: the double-float
+    tree's final rounding to fp32 plus PREC_TREE log2(n) eps^2 of sum |a b|
+    (of sum |x|), a plain fp32 dot n eps of it.  Twice: on random data of
+    six decades, and on a cancelling input (the data and its negation
+    scaled by 1 - 2^-12, shuffled), where the exact value is about 1e-6 of
+    the terms' sum; there the compensated two must also stay PREC_GAIN
+    below the plain fp32 reduction's error (torch.dot, torch.sum), which a
+    sum without the compensation would not."""
+    from conjugategradient_tpu_torch.ops import precision
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    half = PREC_N // 2
+    a = torch.randn(PREC_N, generator=gen, device=dev) * 10.0 ** (
+        torch.rand(PREC_N, generator=gen, device=dev) * 6 - 3)
+    b = torch.randn(PREC_N, generator=gen, device=dev)
+    perm = torch.randperm(PREC_N, generator=gen, device=dev)
+    shrink = 1.0 - 2.0 ** -12
+    inputs = {"random": (a, b, a),
+              "cancelling": (torch.cat([a[:half], a[:half]])[perm],
+                             torch.cat([b[:half], -(b[:half] * shrink)])[perm],
+                             torch.cat([a[:half], -(a[:half] * shrink)])[perm])}
+    eps = float(np.finfo(np.float32).eps)
+    tree = PREC_TREE * np.log2(PREC_N) * eps * eps
+    for label, (u, v, x) in inputs.items():
+        u64, v64, x64 = (t.double().cpu().numpy() for t in (u, v, x))
+        prods = u64 * v64  # exact: fp32 x fp32 fits in fp64
+        exact_dot, mag_dot = float(np.sum(prods)), float(np.sum(np.abs(prods)))
+        exact_sum, mag_sum = float(np.sum(x64)), float(np.sum(np.abs(x64)))
+        errs, rows = {}, {}
+        for name, fn, exact, mag, bound in (
+                ("dd_dot", lambda: precision.dd_dot(u, v), exact_dot, mag_dot,
+                 eps * abs(exact_dot) + tree * mag_dot),
+                ("kahan_sum", lambda: precision.kahan_sum(x), exact_sum, mag_sum,
+                 eps * abs(exact_sum) + tree * mag_sum),
+                ("promote_dot", lambda: precision.promote_dot(u, v), exact_dot, mag_dot,
+                 PREC_N * eps * mag_dot),
+                ("torch.dot fp32", lambda: torch.dot(u, v), exact_dot, mag_dot,
+                 PREC_N * eps * mag_dot),
+                ("torch.sum fp32", lambda: torch.sum(x), exact_sum, mag_sum,
+                 PREC_N * eps * mag_sum)):
+            err = abs(float(fn()) - exact)
+            _require(err <= bound, f"{name} ({label}): error {err:.3e} against the fp64 witness, "
+                     f"bound {bound:.3e}")
+            errs[name] = err
+            rows[name] = (float(f"{err / mag:.2e}"), round(time_ms(fn, 5), 4))
+        if label == "cancelling":
+            for name, plain in (("dd_dot", "torch.dot fp32"), ("kahan_sum", "torch.sum fp32")):
+                _require(errs[name] <= PREC_GAIN * errs[plain],
+                         f"{name} ({label}): error {errs[name]:.3e} not {PREC_GAIN} of the plain "
+                         f"{plain}'s {errs[plain]:.3e}")
+        print(f"precision helpers on {PREC_N} fp32 elements, {label} (exact dot / sum|ab| "
+              f"{exact_dot / mag_dot:.1e}; error / sum|terms|, ms): {rows} [{card}]")
+
+
+#: route -> (system, api.solve keywords) of the fp64 card-against-CPU
+#: checks of this phase's routes
+LSQ_SMALL = {
+    "cgnr band": ("band", dict(method="cgnr")),
+    "lsmr band": ("band", dict(method="lsmr")),
+    "lsmr regression damped": ("regression", dict(method="auto", damp=LSQ_DAMP)),
+    "cacg Poisson": ("poisson", dict(method="cacg")),
+    "jacobi_cacg banded": ("banded", dict(method="jacobi_cacg")),
+    "deflated_cg outlier": ("outlier", dict(method="deflated_cg")),
+    "refined deflated outlier": ("outlier", dict(method="refined", device_dtype=np.float64)),
+    "refined deflated grid Poisson": ("poisson", dict(method="refined", grid=(63, 63),
+                                                      device_dtype=np.float64)),
+}
+
+
+def _lsq_small_system(kind):
+    """(A, b) of a LSQ_SMALL route."""
+    if kind == "regression":
+        S, b = _regression(4096, 1024, LSQ_NNZ, SEED)
+        return from_scipy(S), b
+    s = {"band": lambda: generators.nonsymmetric_banded_system(63 * 63, 16),
+         "banded": lambda: generators.banded_sin_system(63 * 63, 16),
+         "outlier": lambda: generators.outlier_system(4096, band=16),
+         "poisson": lambda: generators.poisson_system((63, 63))}[kind]()
+    return s.A, s.b
+
+
+def _lsq_card_vs_cpu(dev, card):
+    """Each new route in fp64 on the card and on the CPU (a deflation built
+    on the CPU, the same basis on both): equal counts, x within LSQ_AGREE;
+    the implicit gradients too."""
+    from conjugategradient_tpu_torch.solvers.deflation import make_deflation
+    from conjugategradient_tpu_torch.solvers.diff import cg_solve_implicit
+
+    def deflation(route, A):
+        if "deflated" not in route:
+            return {}, {}
+        d = make_deflation(A, k=4, m=32, dtype=np.float64, device="cpu")
+        return dict(deflation=d), dict(deflation=d.to(dev))
+
+    label = "least squares, s-step, deflation, adjoints fp64 small"
+    out = _card_vs_cpu(dev, card, label, LSQ_SMALL, _lsq_small_system, LSQ_AGREE, deflation)
+    s = generators.banded_sin_system(63 * 63, 16)
+    grads = {}
+    for where in ("cpu", dev):
+        data = torch.from_numpy(s.A.data).to(where).requires_grad_()
+        bb = torch.from_numpy(s.b).to(where).requires_grad_()
+        w = torch.from_numpy(np.random.default_rng(SEED).standard_normal(s.n)).to(where)
+        torch.dot(w, cg_solve_implicit(data, bb, s.A.offsets, s.A.shape,
+                                       ConvergencePolicy(tol=1e-12, norm="rel_l2"))).backward()
+        grads[str(where)] = (data.grad.cpu().numpy(), bb.grad.cpu().numpy())
+    (dc, bc), (dg, bg) = grads["cpu"], grads[str(dev)]
+    dgrad = max(float(np.abs(dg - dc).max() / np.abs(dc).max()),
+                float(np.abs(bg - bc).max() / np.abs(bc).max()))
+    _require(dgrad <= LSQ_AGREE, f"card vs CPU implicit cg gradients differ by {dgrad:.3e}")
+    print(f"{label}: cg_solve_implicit band gradients, card against CPU, max rel diff "
+          f"{dgrad:.2e} [{card}]")
+    return out
+
+
+def _least_squares(fsys, dev, card, count):
+    """Least squares, s-step CG, deflation and the adjoints on the card;
+    returns the transposed-DIA record of kernel #4."""
+    t0 = time.perf_counter()
+    rec = _transposed_dia(dev, card, count)
+    print(f"  transposed_dia: {time.perf_counter() - t0:.1f} s")
+    for step in (_rectangular_lsmr, _deflation):
+        t0 = time.perf_counter()
+        step(dev, card, count)
+        print(f"  {step.__name__.lstrip('_')}: {time.perf_counter() - t0:.1f} s")
+    for step in (_cacg, _adjoints):
+        t0 = time.perf_counter()
+        step(fsys, dev, card, count)
+        print(f"  {step.__name__.lstrip('_')}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _precision_helpers(dev, card)
+    _lsq_card_vs_cpu(dev, card)
+    print(f"  precision helpers, card vs CPU: {time.perf_counter() - t0:.1f} s")
+    return rec
 
 
 def main() -> int:
@@ -3523,6 +4200,15 @@ def main() -> int:
     _nonsymmetric(dev, card, count)
     print(f"phase: nonsymmetric in {time.perf_counter() - t0:.1f} s")
 
+    # -- least squares, s-step, deflation, adjoints, counted: A^T on #4 and
+    # CGNR / LSMR on the twin, the rectangular regression (cuSPARSE), CA-CG
+    # on the flagship and Poisson 1023^2, def-CG on the outlier system and
+    # its sequence, refined with deflation, the implicit adjoints, the
+    # precision helpers; card against CPU -----------------------------------
+    t0 = time.perf_counter()
+    transposed = _least_squares(fsys, dev, card, count)
+    print(f"phase: least squares, s-step, deflation, adjoints in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 6: times -----------------------------------------------------
     times = {}
     for g in TIME_SPMV_GRIDS:  # Poisson; below 2 M points from a CUDA graph
@@ -3594,6 +4280,8 @@ def main() -> int:
         _require(r["launches"] > 0, f"{r['name']}: no launch on its path")
         if r["name"] in many_times:  # past 256 diagonals: the split's S and graph times
             r.update(split_by_shape=many_splits, past_256_diagonals=many_times[r["name"]])
+        if r["name"] == "spmv_dia":  # the nonsymmetric twin's transpose, fp32
+            r["transposed_dia"] = transposed
     print(f"run: {time.perf_counter() - t_run:.1f} s after the build")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,10 +9,10 @@ reference's, so each counterpart is found by path:
                 CSR, COO, BSR, dense) and their conversions, the DOK
                 builder, Matrix Market and scipy ingestion, the banded,
                 tridiagonal, Poisson, variable-coefficient and anisotropic
-                diffusion, convection-diffusion, Helmholtz and nonsymmetric
-                banded generators and the fp64 oracle (SpMV of every
+                diffusion, convection-diffusion, Helmholtz, nonsymmetric
+                banded and outlier generators and the fp64 oracle (SpMV of every
                 format, CG, the dense direct solve).
-- ``ops``     — BLAS-1, compensated dots, and the CUDA kernels with their
+- ``ops``     — BLAS-1, compensated dots and sums, and the CUDA kernels with their
                 plain twins: the const-stencil SpMV, the fused Chebyshev
                 smoother, the variable-coefficient stencil SpMV (tuned at
                 halo 1, wide at halo 2; and its per-column SpMM), the DIA SpMV (and its fused p·Ap,
@@ -28,7 +28,9 @@ reference's, so each counterpart is found by path:
                 power iteration, Lanczos and Gershgorin bounds, the
                 spectrum of a CG run), and the nonsymmetric and indefinite
                 Krylov family: BiCGStab, GMRES and FGMRES, MINRES, IDR(s),
-                the Chebyshev iteration.
+                the Chebyshev iteration; least squares (CGNR, LSMR),
+                s-step CG, deflated CG and the implicit-adjoint
+                (differentiable) solves.
 - ``precond`` — smoothers (Jacobi, Chebyshev, red-black Gauss-Seidel), the
                 point- and block-Jacobi and Chebyshev-polynomial
                 preconditioners, the fw, hybrid, semicoarsening and
@@ -43,7 +45,8 @@ reference's, so each counterpart is found by path:
 - ``utils``   — phase timers, the profiler trace scope, residual logs,
                 checkpoint/resume and tree persistence, the spy plot.
 - ``scripts`` — runnable measurements on the card (the kernel #6
-                experiment) and the ``reference_workloads`` twin.
+                experiment), the ``reference_workloads`` twin and the
+                ``inverse_demo`` coefficient recovery.
 
 This package imports ``torch``, numpy and scipy, never ``jax``.  See
 ROADMAP.md for what is ported and what is still to come.
@@ -62,4 +65,14 @@ from conjugategradient_tpu_torch.precond.amg import (  # noqa: F401
     AmgHierarchy,
     amg_cg_solve,
     build_amg_hierarchy,
+)
+from conjugategradient_tpu_torch.solvers import (  # noqa: F401
+    Deflation,
+    bicgstab_solve_implicit,
+    cacg_solve,
+    cg_solve_implicit,
+    cgnr_solve,
+    deflated_cg_solve,
+    lsmr_solve,
+    make_deflation,
 )

@@ -36,11 +36,25 @@ The port of ``conjugategradient_tpu/api.py::solve`` for the ported methods:
   ``max_coarse=``, ``max_levels=``; Jacobi smoothing on the nonsymmetric
   bases) on ``cg``, ``bicgstab``, ``gmres``, ``fgmres``, ``minres`` and
   ``idr``
-- ``method="auto"``    — probe the matrix on the host (symmetry, then
-  definiteness by a positive diagonal and a 120-step Lanczos bound) and
-  pick: CG (``mgcg`` with a grid) for SPD, MINRES for symmetric indefinite,
-  IDR(4) (``mg_bicgstab`` with a grid) for nonsymmetric; a stalled solve
-  warns with the likely cure
+- ``method="cgnr"``    — CG on the normal equations (any nonsingular A;
+  constant memory, kappa squared: the nonsymmetric fallback;
+  ``solvers.cgnr``)
+- ``method="lsmr"``    — least squares ``min ||A x - b||`` for a
+  rectangular (over- or underdetermined) or square A, with an optional
+  Tikhonov ``damp=`` (``solvers.lsmr``)
+- ``method="cacg"`` / ``"jacobi_cacg"`` — s-step CG (``s=``, default 4):
+  two host reads per s iterations (``solvers.cacg``); ``jacobi_`` folds a
+  symmetric diagonal scaling into a ``DiaMatrix`` (the only preconditioning
+  the shift identity admits) and monitors the scaled system; any other
+  prefix is a ``ValueError``
+- ``method="deflated_cg"`` — def-CG over a Lanczos-probed deflation space
+  (``k=``, ``m=``, or a prebuilt ``deflation=`` for a solve sequence;
+  ``solvers.deflation``)
+- ``method="auto"``    — LSMR for a rectangular A; otherwise probe the
+  matrix on the host (symmetry, then definiteness by a positive diagonal
+  and a 120-step Lanczos bound) and pick: CG (``mgcg`` with a grid) for
+  SPD, MINRES for symmetric indefinite, IDR(4) (``mg_bicgstab`` with a
+  grid) for nonsymmetric; a stalled solve warns with the likely cure
 
 ``refined`` and ``mgcg`` take a ``DiaMatrix``, as in the JAX package.  An
 ``(n, k)`` right-hand side routes to the multi-RHS solvers: ``cg``
@@ -50,11 +64,11 @@ containers), ``jacobi_cg``, ``bjacobi_cg`` and ``amg_cg``, ``mgcg``
 (``refined_solve_multi``), and the BiCGStab family ``bicgstab``,
 ``jacobi_bicgstab``, ``bjacobi_bicgstab``, ``mg_bicgstab`` (Jacobi
 smoothing) and ``amg_bicgstab`` (``bicgstab_solve_multi``); ``auto`` takes
-``bicgstab`` where it would take ``idr``.  The methods still to port
-(``lsmr``, ``cgnr``, ``cacg`` with or without a prefix, ``deflated_cg``,
-``native``, ``sharded_cg``, anything with ``mesh=``, and ``auto`` on a
-rectangular matrix) raise ``NotImplementedError`` naming the ROADMAP item
-that ports them; nothing is rerouted.
+``bicgstab`` where it would take ``idr``; ``cgnr``, ``lsmr``, ``cacg`` and
+``deflated_cg`` take no block (``ValueError``, as in the JAX facade).  The
+methods still to port (``native``, ``sharded_cg`` and anything with
+``mesh=``) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them; nothing is rerouted.
 
 ``device`` says where the solve runs; ``None`` takes the card when there is
 one, as the JAX package takes its default backend.  Host numpy arrays or
@@ -64,6 +78,7 @@ results with ``.x``, ``.iterations``, ``.residual`` and ``.converged`` out.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Optional, Tuple
 
@@ -77,10 +92,6 @@ from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 _FAMILIES = "ROADMAP queue 1: solver families"
 _PARALLEL = "ROADMAP queue 1: parallel"
 _UNPORTED = {
-    "lsmr": f"{_FAMILIES}, cgnr and lsmr",
-    "cgnr": f"{_FAMILIES}, cgnr and lsmr",
-    "cacg": f"{_FAMILIES}, cacg",
-    "deflated_cg": f"{_FAMILIES}, deflation",
     "native": f"{_FAMILIES}, native",
     "sharded_cg": _PARALLEL,
 }
@@ -92,6 +103,9 @@ _NONSYM = ("bicgstab", "gmres", "fgmres", "idr")
 _MULTI = ("cg", "mgcg", "jacobi_cg", "bjacobi_cg", "amg_cg", "bicgstab", "jacobi_bicgstab",
           "bjacobi_bicgstab", "mg_bicgstab", "amg_bicgstab")
 _AMG_SETUP = ("theta", "near_null", "max_coarse", "max_levels")
+#: the single-RHS methods outside the Krylov bases (no prefix but cacg's
+#: jacobi_)
+_OTHER = ("cgnr", "lsmr", "cacg", "deflated_cg")
 
 
 def _place_matrix(A, dtype, device):
@@ -212,6 +226,10 @@ def solve(
         res, _ = mgcg_solve(A, b, grid, x0=x0, policy=policy, dtype=dtype, device=device, **kw)
         return res
     prefix, base = _split_prefix(method)
+    if base == "cacg":
+        return _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw)
+    if method in _OTHER:
+        return _solve_other(method, A, b, x0, policy, dtype, device, kw)
     if method != "cheb_cg" and (base not in _KRYLOV + ("chebyshev",)
                                 or (base == "chebyshev" and prefix is not None)):
         _refuse(method)
@@ -230,6 +248,56 @@ def solve(
                                             dtype=b_dev.dtype)
         base = "cg"
     return _run(base, A, A_dev, b_dev, x0_dev, policy, M, kw)
+
+
+def _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw):
+    """``cacg`` and ``jacobi_cacg``: ``D^-1/2 A D^-1/2 y = D^-1/2 b`` and
+    ``x = D^-1/2 y`` for the latter, its residual and tolerance those of
+    the scaled system, as in the JAX facade."""
+    from conjugategradient_tpu_torch.solvers.cacg import cacg_solve
+
+    if prefix not in (None, "jacobi"):
+        raise ValueError(
+            f"{prefix}_cacg: cacg supports only the jacobi_ prefix (symmetric diagonal "
+            "scaling — a general M breaks the s-step shift identity; use cg there)"
+        )
+    A_c, dis, b_c, x0_c = A, None, b, x0
+    if prefix == "jacobi":
+        if not isinstance(A, DiaMatrix):
+            raise TypeError("jacobi_cacg requires a DiaMatrix")
+        A_c, dis = formats.jacobi_scaled_dia(formats.to_host(A))
+        b_c = formats.host_f64(b) * dis
+        x0_c = None if x0 is None else formats.host_f64(x0) / dis
+    b_dev = place(b_c, dtype, device)
+    res = cacg_solve(_place_matrix(A_c, dtype, device), b_dev,
+                     None if x0_c is None else place(x0_c, dtype, device), policy, **kw)
+    if dis is not None:
+        res = dataclasses.replace(res, x=res.x * torch.from_numpy(dis).to(res.x))
+    return res
+
+
+def _solve_other(method, A, b, x0, policy, dtype, device, kw):
+    """``cgnr`` and ``lsmr`` (the host container: each places it and its
+    transpose), and ``deflated_cg`` (a prebuilt ``deflation=``, or one built
+    here at the solve's dtype from ``k=`` and ``m=``)."""
+    b_dev = place(b, dtype, device)
+    x0_dev = None if x0 is None else place(x0, dtype, device)
+    if method == "cgnr":
+        from conjugategradient_tpu_torch.solvers.cgnr import cgnr_solve
+
+        return cgnr_solve(A, b_dev, x0_dev, policy, **kw)
+    if method == "lsmr":
+        from conjugategradient_tpu_torch.solvers.lsmr import lsmr_solve
+
+        return lsmr_solve(A, b_dev, x0_dev, policy, **kw)
+    from conjugategradient_tpu_torch.solvers.deflation import deflated_cg_solve, make_deflation
+
+    deflation = kw.pop("deflation", None)
+    if deflation is None:
+        deflation = make_deflation(A, k=int(kw.pop("k", 8)), m=kw.pop("m", None),
+                                   dtype=b_dev.dtype, device=device)
+    return deflated_cg_solve(_place_matrix(A, dtype, device), b_dev, x0_dev, policy=policy,
+                             deflation=deflation, **kw)
 
 
 def _run(base, A, A_dev, b, x0, policy, M, kw):
@@ -288,7 +356,7 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
     prefix, base = _split_prefix(method)
     if method not in _MULTI:
         if base in _UNPORTED or (prefix is not None and base == "chebyshev") or (
-                base not in _KRYLOV + ("chebyshev",) and method != "cheb_cg"):
+                base not in _KRYLOV + _OTHER + ("chebyshev",) and method != "cheb_cg"):
             _refuse(method)
         raise ValueError(f"method {method!r} does not support (n, k) right-hand sides")
     from conjugategradient_tpu_torch.solvers.multi import (
@@ -322,11 +390,10 @@ def _solve_auto(A, b, x0, policy, grid, dtype, device, kw):
     diagnoses a stalled solve."""
     shape = getattr(A, "shape", None)
     if shape is not None and shape[0] != shape[1]:
-        raise NotImplementedError(
-            "method='auto' on a rectangular A routes to least squares (lsmr), which is not "
-            f"ported yet ({_UNPORTED['lsmr']})"
-        )
-    method = _auto_method(A, grid, device)
+        # rectangular: the only well-posed ask is least squares
+        method = "lsmr"
+    else:
+        method = _auto_method(A, grid, device)
     if method == "idr" and np.ndim(b) == 2:
         # the (n, k) block carriers have no IDR form
         method = "bicgstab"

@@ -4,10 +4,11 @@
 arrays and Python values (the caller does ``np.asarray`` on the JAX side),
 ``matrix_from_reference`` takes any JAX container (host numpy or ``jnp``
 data) by its class name and fields, and ``amg_hierarchy_from_reference``
-takes a JAX ``AmgHierarchy`` object the same way, and
+takes a JAX ``AmgHierarchy`` object the same way,
 ``idr_shadow_from_reference`` takes the JAX package's IDR(s) shadow draw
-as a numpy array, so both packages can compute with the same state; this
-module never imports ``jax``.
+as a numpy array and ``deflation_from_reference`` a JAX ``Deflation``'s
+arrays, so both packages can compute with the same state; this module
+never imports ``jax``.
 """
 
 from __future__ import annotations
@@ -104,6 +105,18 @@ def idr_shadow_from_reference(draw, device=None) -> torch.Tensor:
     if a.ndim != 2:
         raise ValueError(f"the shadow draw must be (n, s), got shape {a.shape}")
     return torch.from_numpy(a).to(default_device(device))
+
+
+def deflation_from_reference(defl, device=None):
+    """The port's ``solvers.deflation.Deflation`` from a JAX ``Deflation``:
+    its ``W``, ``AW``, ``chol_E`` and ``scale`` read as numpy arrays (dtype
+    kept) and placed on ``device`` (``None``: the card when there is one),
+    so ``deflated_cg_solve`` runs on the JAX package's own basis."""
+    from conjugategradient_tpu_torch.solvers.deflation import Deflation
+
+    dev = default_device(device)
+    put = lambda a: torch.from_numpy(np.array(np.asarray(a))).to(dev)
+    return Deflation(put(defl.W), put(defl.AW), put(defl.chol_E), put(defl.scale))
 
 
 def matrix_from_reference(obj):

@@ -640,6 +640,39 @@ def helmholtz_system(
     return LinearSystem(A, b.astype(dtype), np.zeros(n, dtype=dtype))
 
 
+def outlier_system(
+    n: int,
+    band: int = 16,
+    n_outliers: int = 4,
+    scale: float = 1e-3,
+    seed: int = 0,
+    dtype=np.float64,
+) -> LinearSystem:
+    """SPD system with a few isolated tiny eigenvalues: the banded |sin|
+    matrix under a symmetric diagonal scaling D A D with ``n_outliers``
+    entries of D set to about ``scale`` (the rest 1).
+
+    The weakly-coupled-unknown archetype (near-floating subregions, high
+    density contrast): kappa grows by about ``scale**-2`` through a handful
+    of outlier modes while the bulk spectrum stays as it was.  The
+    workload ``solvers.deflation`` targets.
+    """
+    A = banded_sin_matrix(n, band, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(n, size=n_outliers, replace=False)
+    d = np.ones(n)
+    d[idx] = scale * (1.0 + 0.5 * rng.random(n_outliers))
+    data = np.asarray(A.data, np.float64).copy()
+    i = np.arange(n)
+    for k, off in enumerate(A.offsets):
+        j = i + off
+        valid = (j >= 0) & (j < n)
+        data[k, valid] *= d[i[valid]] * d[np.clip(j, 0, n - 1)[valid]]
+    As = DiaMatrix(data.astype(dtype), A.offsets, A.shape)
+    b = rng.standard_normal(n)
+    return LinearSystem(As, b.astype(dtype), np.zeros(n, dtype=dtype))
+
+
 def nonsymmetric_banded_matrix(n: int, band: int, dtype=np.float64) -> DiaMatrix:
     """Nonsymmetric twin of ``banded_sin_matrix``: ``a_ij = |sin(i + 2j)| / 2``
     off the diagonal (note ``sin(i + 2j) != sin(j + 2i)``), diagonal = row-sum

@@ -1,7 +1,9 @@
 """Convergence policy, CG (while-loop, traced and chunked drivers), multi-RHS
 CG and BiCGStab, mixed-precision refinement, the eigenvalue diagnostics,
-and the nonsymmetric and indefinite Krylov family (``bicgstab``,
-``gmres``, ``minres``, ``idr``, ``cheby``)."""
+the nonsymmetric and indefinite Krylov family (``bicgstab``, ``gmres``,
+``minres``, ``idr``, ``cheby``), least squares (``cgnr``, ``lsmr``), s-step
+CG (``cacg``), deflated CG (``deflation``) and the differentiable solves
+(``diff``)."""
 
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, Norm  # noqa: F401
 from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
@@ -11,3 +13,15 @@ from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
     cg_solve_traced,
 )
 from conjugategradient_tpu_torch.solvers import eigen  # noqa: F401
+from conjugategradient_tpu_torch.solvers.deflation import (  # noqa: F401
+    Deflation,
+    deflated_cg_solve,
+    make_deflation,
+)
+from conjugategradient_tpu_torch.solvers.cgnr import cgnr_solve  # noqa: F401
+from conjugategradient_tpu_torch.solvers.lsmr import lsmr_solve  # noqa: F401
+from conjugategradient_tpu_torch.solvers.cacg import cacg_solve  # noqa: F401
+from conjugategradient_tpu_torch.solvers.diff import (  # noqa: F401
+    bicgstab_solve_implicit,
+    cg_solve_implicit,
+)

@@ -77,32 +77,46 @@ def _apply_M(M, r):
     return M(r)
 
 
-def _cg_init(op, b, x0, M, dot, dtype):
+def _cg_init(op, b, x0, M, dot, dtype, project=None, project_r=None):
     """Initial recurrence state (x, r, p, rz, rr) from b and the guess."""
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
     r = b - op(x)
+    if project_r is not None:
+        r = project_r(r)
     z = _apply_M(M, r)
-    p = z
+    p = z if project is None else project(z)
     rz = dot(r, z)
     rr = dot(r, r)
     return x, r, p, rz, rr
 
 
-def _make_step(op, M, dot):
+def _make_step(op, M, dot, project=None, project_r=None):
     """THE CG recurrence, written once: ``step(x, r, p, rz, rr) ->
     ((x, r, p, rz, rr), (alpha, beta))``, one unconditional iteration,
-    NaN-free at exact convergence via ``_safe_div``."""
+    NaN-free at exact convergence via ``_safe_div``.
+
+    ``project`` (optional) maps the preconditioned residual before it
+    enters the direction update: the hook deflated CG uses to keep every
+    search direction A-orthogonal to the deflation space
+    (``solvers.deflation``).  ``project_r`` (optional) re-projects the
+    residual after every update (``r - AW E^-1 W^T r``, which zeroes
+    ``W^T r``): the DEF-form stabilisation, load-bearing in fp32, whose
+    removed solution components the caller restores afterwards
+    (``deflated_cg_solve``).  Both are the identity when None, and the
+    step is then the plain recurrence, op for op."""
 
     def step(x, r, p, rz, rr):
         Ap = op(p)
         alpha = _safe_div(rz, dot(p, Ap))
         x = x + alpha * p
         r = r - alpha * Ap
+        if project_r is not None:
+            r = project_r(r)
         z = _apply_M(M, r)
         rz_new = dot(r, z)
         rr_new = dot(r, r)
         beta = _safe_div(rz_new, rz)
-        p = z + beta * p
+        p = (z if project is None else project(z)) + beta * p
         return (x, r, p, rz_new, rr_new), (alpha, beta)
 
     return step
@@ -125,6 +139,8 @@ def cg_solve(
     M: Optional[Callable] = None,
     precise_dot: bool = False,
     use_pallas: bool = False,
+    project: Optional[Callable] = None,
+    project_r: Optional[Callable] = None,
 ) -> CGResult:
     """Solve A x = b by (preconditioned) CG on ``b``'s device.
 
@@ -136,6 +152,9 @@ def cg_solve(
     (``ops.spmv.as_operator``).  fp32 with an absolute norm can underflow
     ``r`` long before the true residual is meaningful: for plain fp32 solves
     prefer ``norm="rel_l2"``, or ``solvers.refine.refined_solve``.
+    ``project`` and ``project_r`` are the deflation hooks of
+    ``_make_step``; a caller of ``project_r`` restores the deflated
+    solution components afterwards (``deflated_cg_solve`` does).
     """
     op, dot = _setup(A, b, precise_dot, use_pallas)
     dtype = b.dtype
@@ -143,13 +162,13 @@ def cg_solve(
     min_iter = policy.min_iteration
     max_iter = policy.resolve_max(b.numel())
 
-    x, r, p, rz, rr = _cg_init(op, b, x0, M, dot, dtype)
+    x, r, p, rz, rr = _cg_init(op, b, x0, M, dot, dtype, project=project, project_r=project_r)
     rr0 = rr
 
     def res_of(r, rr):
         return residual_norm(r, rr, rr0, policy.norm)
 
-    step = _make_step(op, M, dot)
+    step = _make_step(op, M, dot, project=project, project_r=project_r)
     it = 0
     while it < max_iter and (it < min_iter or bool(res_of(r, rr) >= tol)):
         (x, r, p, rz, rr), _coeffs = step(x, r, p, rz, rr)

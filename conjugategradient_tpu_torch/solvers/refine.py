@@ -19,7 +19,10 @@ instantiation).  ``refined_solve_multi`` runs the
 multi-RHS form over ``cg_solve_multi``: kernel #5 gridless, multi-RHS MGCG
 (``as_multi_preconditioner``) with ``grid=``.  ``inner="bicgstab"`` swaps
 the inner CG for BiCGStab (``bicgstab_solve``, ``bicgstab_solve_multi``)
-on every route, for nonsymmetric systems.
+on every route, for nonsymmetric systems.  ``deflation=`` (a
+``solvers.deflation.Deflation`` built once per matrix) deflates every inner
+CG solve of ``refined_solve`` on every route: ``deflated_cg_solve`` in
+place of ``cg_solve``, with the V-cycle as its M on the grid route.
 
 ``device_residual=True`` keeps the outer loop on the card too.  The JAX
 package does that in double-float (two-fp32) arithmetic, since the TPU has
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -55,15 +59,13 @@ from conjugategradient_tpu_torch.core.formats import (
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
 from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
 from conjugategradient_tpu_torch.solvers.cg import cg_solve
+from conjugategradient_tpu_torch.solvers.deflation import Deflation, deflated_cg_solve
 from conjugategradient_tpu_torch.solvers.multi import (
     as_multi_preconditioner,
     bicgstab_solve_multi,
     cg_solve_multi,
 )
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, NotConvergedError
-
-_DEFLATION = "ROADMAP queue 1: solver families, deflation"
-
 
 @dataclasses.dataclass
 class RefineResult:
@@ -87,8 +89,8 @@ def _check_inner(inner: str, deflation) -> None:
         raise ValueError(f"unknown inner {inner!r}; want cg|bicgstab")
     if inner == "bicgstab" and deflation is not None:
         raise ValueError("deflation requires inner='cg' (SPD construction)")
-    if deflation is not None:
-        raise NotImplementedError(f"deflation= is not ported yet ({_DEFLATION})")
+    if deflation is not None and not isinstance(deflation, Deflation):
+        raise TypeError("deflation must be a solvers.deflation.Deflation (make_deflation)")
 
 
 def _grid_operator(A: DiaMatrix, grid, device_dtype, hierarchy, smoother, matrix_dtype, device):
@@ -113,19 +115,22 @@ def _grid_operator(A: DiaMatrix, grid, device_dtype, hierarchy, smoother, matrix
 
 
 def _inner_solver(A: DiaMatrix, grid, inner_tol, device_dtype, hierarchy, smoother,
-                  matrix_dtype, device, inner="cg"):
+                  matrix_dtype, device, inner="cg", deflation=None):
     """(solve(r) -> CGResult, shape of r): the fp32 inner solve, built once:
-    CG, or BiCGStab for ``inner="bicgstab"``.
+    CG, BiCGStab for ``inner="bicgstab"``, or def-CG over ``deflation``.
 
     Gridless: on ``A.device_put(matrix_dtype or device_dtype)``.  Grid:
     preconditioned by the V-cycle over ``_grid_operator``'s hierarchy and
-    operator (MGCG, or ``mg_bicgstab``)."""
+    operator (MGCG, ``mg_bicgstab``, or deflated MGCG: the flat deflation
+    basis acts on the grid-shaped vectors)."""
     from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner
 
     max_it = min(8 * A.n, 1_000_000)
     pol = ConvergencePolicy(tol=inner_tol, norm="rel_l2", max_iteration=max_it)
     prec = np.dtype(device_dtype) == np.float32
     fn = bicgstab_solve if inner == "bicgstab" else cg_solve
+    if deflation is not None:
+        fn = partial(deflated_cg_solve, deflation=deflation)
     if grid is not None:
         h, A_dev = _grid_operator(A, grid, device_dtype, hierarchy, smoother, matrix_dtype, device)
         M = as_preconditioner(h)
@@ -179,8 +184,14 @@ def refined_solve(
     the module docstring); it needs ``device_dtype=float32``.
     ``inner="bicgstab"`` swaps the inner Krylov method for BiCGStab, which
     gives nonsymmetric systems the same fp64 contract (with ``grid`` the
-    inner solve is ``mg_bicgstab``; ``device_residual`` composes).
-    ``deflation`` is not ported yet.
+    inner solve is ``mg_bicgstab``; ``device_residual`` composes); it does
+    not take ``deflation``.
+
+    ``deflation`` (``solvers.deflation.make_deflation(A)`` at
+    ``device_dtype``, built once per matrix) runs every inner solve as
+    def-CG: the Galerkin initial correction and the projected recurrence,
+    on every route (host residual, device residual, grid).  For
+    fp64-tolerance solve sequences on outlier spectra.
     """
     _check_inner(inner, deflation)
     device = default_device(device)
@@ -190,6 +201,7 @@ def refined_solve(
             max_outer=max_outer, device_dtype=device_dtype, hierarchy=hierarchy,
             smoother=smoother, raise_on_divergence=raise_on_divergence,
             use_pallas=use_pallas, matrix_dtype=matrix_dtype, device=device, inner=inner,
+            deflation=deflation,
         )
 
     t_start = time.perf_counter()
@@ -197,7 +209,7 @@ def refined_solve(
     b64 = host_f64(b)
     x = np.zeros(n) if x0 is None else host_f64(x0).copy()
     solve, shape = _inner_solver(A, grid, inner_tol, device_dtype, hierarchy, smoother,
-                                 matrix_dtype, device, inner)
+                                 matrix_dtype, device, inner, deflation)
 
     def true_residual(x):
         r = b64 - oracle.spmv(A, x)
@@ -264,11 +276,14 @@ def _refined_solve_device(
     matrix_dtype=None,
     device=None,
     inner: str = "cg",
+    deflation=None,
 ) -> RefineResult:
     """Device-resident refinement: the outer loop's fp64 work (residual,
     norms, scaling, update) runs on ``device`` in fp64, with ``b - A x`` on
     kernel #4's fp64 instantiation.  The scaled fp32 residual never leaves
-    the card; the solution is read back once, at the end."""
+    the card; the solution is read back once, at the end.  A ``deflation``
+    applies to the inner solves directly (the port has no column-major
+    relayout to map its basis into)."""
     if np.dtype(device_dtype) != np.float32:
         raise ValueError("device_residual requires device_dtype=float32 "
                          "(fp32 inner solves under an fp64 outer pass)")
@@ -276,7 +291,7 @@ def _refined_solve_device(
     n = A.n
     device = default_device(device)
     solve, shape = _inner_solver(A, grid, inner_tol, device_dtype, hierarchy, smoother,
-                                 matrix_dtype, device, inner)
+                                 matrix_dtype, device, inner, deflation)
     A64 = A.device_put(torch.float64, device)
 
     t0 = time.perf_counter()

@@ -5,9 +5,9 @@ The host generators and the workload table are copies: they must be
 bit-identical and field-for-field equal.  ``cg_solve_multi`` in fp64 runs
 the same per-column recurrence as the JAX package's, so the per-column
 iteration counts are equal, with or without the multi-RHS V-cycle.  Every
-facade method the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP item; the methods it has take the JAX facade's
-iteration counts.
+facade method the port does not have yet (``native``, ``sharded_cg``,
+``mesh=``) raises ``NotImplementedError`` naming its ROADMAP item; the
+methods it has take the JAX facade's iteration counts.
 """
 
 import dataclasses
@@ -170,9 +170,10 @@ def test_facade_multi_rhs_routes():
 #: (it must then equal the JAX facade), else the error and its message
 _FAMILIES = (NotImplementedError, "ROADMAP queue 1: solver families")
 FACADE = {
-    **dict.fromkeys(("lsmr", "cgnr", "cacg", "deflated_cg", "native"), _FAMILIES),
+    "native": _FAMILIES,
     **dict.fromkeys(("cheb_cg", "jacobi_cg", "amg_cg", "bicgstab", "gmres", "fgmres", "minres",
-                     "idr", "chebyshev", "auto", "bjacobi_bicgstab", "mg_gmres"), None),
+                     "idr", "chebyshev", "auto", "bjacobi_bicgstab", "mg_gmres", "lsmr", "cgnr",
+                     "cacg", "deflated_cg"), None),
     "sharded_cg": (NotImplementedError, "ROADMAP queue 1: parallel"),
     "amg_cg mesh=": (NotImplementedError, "ROADMAP queue 1: parallel"),
     "jacobi_chebyshev": (ValueError, "no preconditioner prefix"),
@@ -180,7 +181,8 @@ FACADE = {
 
 
 #: ported methods with no (n, k) route: both facades raise ValueError
-_SINGLE_ONLY = ("cheb_cg", "gmres", "fgmres", "minres", "idr", "chebyshev", "mg_gmres")
+_SINGLE_ONLY = ("cheb_cg", "gmres", "fgmres", "minres", "idr", "chebyshev", "mg_gmres", "lsmr",
+                "cgnr", "cacg", "deflated_cg")
 
 
 @pytest.mark.parametrize("method", sorted(FACADE))
@@ -189,7 +191,8 @@ def test_unported_facade_methods_raise(method):
     each method it has takes the JAX facade's iteration counts in fp64
     (single-RHS and, where the JAX facade has one, (n, k)), and a method
     with no (n, k) route raises the JAX facade's ``ValueError`` on a
-    block.  ``idr`` takes the JAX package's shadow draw."""
+    block.  ``idr`` takes the JAX package's shadow draw, ``deflated_cg`` the
+    JAX deflation the JAX facade builds (``convert.deflation_from_reference``)."""
     name, _, extra = method.partition(" ")
     kw = dict(mesh=object()) if extra == "mesh=" else {}
     if FACADE[method] is not None:
@@ -210,6 +213,12 @@ def test_unported_facade_methods_raise(method):
         import jax
 
         extra["shadow"] = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (s.n, 4), jnp.float64))
+    if name == "deflated_cg":
+        from conjugategradient_tpu.solvers.deflation import make_deflation
+        from conjugategradient_tpu_torch.convert import deflation_from_reference
+
+        extra["deflation"] = deflation_from_reference(
+            make_deflation(sj.A, k=8, dtype=np.float64), device="cpu")
     r, jr = api.solve(s.A, s.b, device="cpu", **opts, **extra), japi.solve(sj.A, sj.b, **opts)
     assert r.converged and r.iterations == int(jr.iterations)
     assert np.abs(r.x.numpy() - np.asarray(jr.x)).max() <= 1e-10

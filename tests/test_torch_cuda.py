@@ -1507,3 +1507,115 @@ def test_auto_probe_runs_on_the_card(cuda):
     assert api._auto_method(A, None, cuda) == "minres"
     assert api._auto_method(A.device_put(device=cuda), None, cuda) == "minres"
     assert api._auto_method(generators.helmholtz_matrix(g, 0.5 * _lam1(g)), None, cuda) == "cg"
+
+
+# -- least squares, s-step CG, deflation, adjoints ---------------------------
+
+
+@pytest.mark.parametrize("legs", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, band", [(5000, 160), (4096, 602)])
+def test_transposed_dia_matches_twin(cuda, n, band, legs):
+    """A^T of a nonsymmetric band (its host transpose: negated offsets,
+    ascending) on #4 against the twin, up to and past 256 diagonals (601
+    at band 602: the chained split launches at 4096 rows)."""
+    from conjugategradient_tpu_torch.core.formats import transpose
+    from conjugategradient_tpu_torch.solvers.diff import dia_transpose_traced
+
+    A = generators.nonsymmetric_banded_matrix(n, band)
+    At = transpose(A).device_put(legs, cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(n)).to(cuda, legs)
+    cuda_dia.reset_launch_counts()
+    y = spmv_dia_cuda(At, x)
+    torch.cuda.synchronize()
+    assert spmv_dia_cuda.launches == len(cuda_dia.dia_plan(n, At.ndiags).groups)
+    ref = spmv_dia_ref(At, x)
+    rel = REL64 if legs == torch.float64 else REL
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+    # the device transpose of the adjoint solve equals the host one
+    dT = dia_transpose_traced(torch.from_numpy(A.data).to(cuda), A.offsets, n)
+    order = np.argsort([-o for o in A.offsets], kind="stable")
+    assert np.array_equal(dT.cpu().numpy()[order], transpose(A).data)
+
+
+def test_fp64_galerkin_products_on_the_card_match_the_cpu(cuda):
+    """make_deflation's AW: W's columns through #4's fp64 instantiation on
+    the card against the CPU twin, and E from it."""
+    from conjugategradient_tpu_torch.solvers.deflation import galerkin_products
+
+    s = generators.outlier_system(4096, band=16)
+    W = torch.from_numpy(np.random.default_rng(5).standard_normal((s.n, 8)).astype(np.float32))
+    cuda_dia.reset_launch_counts()
+    AW_g, E_g = galerkin_products(s.A, W.to(cuda), device=cuda)
+    torch.cuda.synchronize()
+    assert spmv_dia_cuda.launches_by_dtype["fp64"] == 8
+    AW_c, E_c = galerkin_products(s.A, W, device="cpu")
+    assert float((AW_g.cpu() - AW_c).abs().max()) <= REL64 * float(AW_c.abs().max())
+    assert np.abs(E_g - E_c).max() <= 1e-12 * np.abs(E_c).max()
+
+
+#: route -> (system, api.solve keywords) held card against CPU in fp64
+LSQ_ROUTES = {
+    "cgnr": ("band", dict(method="cgnr")),
+    "lsmr": ("band", dict(method="lsmr")),
+    "lsmr damped": ("band", dict(method="lsmr", damp=0.5)),
+    "cacg": ("poisson", dict(method="cacg", s=4)),
+    "jacobi_cacg": ("banded", dict(method="jacobi_cacg", s=4)),
+    "deflated_cg": ("outlier", dict(method="deflated_cg")),
+    "refined deflated": ("outlier", dict(method="refined", device_dtype=np.float64)),
+}
+
+
+@pytest.mark.parametrize("route", sorted(LSQ_ROUTES))
+def test_least_squares_routes_on_card_match_cpu(cuda, route):
+    """fp64 at small size: equal counts, x within 1e-9 ||x||; a deflation
+    built on the CPU and moved to the card (the same basis on both)."""
+    from conjugategradient_tpu_torch.solvers.deflation import make_deflation
+
+    kind, kw = LSQ_ROUTES[route]
+    s = {"band": lambda: generators.nonsymmetric_banded_system(4096, 16),
+         "banded": lambda: generators.banded_sin_system(4096, 16),
+         "outlier": lambda: generators.outlier_system(4096, band=16),
+         "poisson": lambda: generators.poisson_system((63, 63))}[kind]()
+    refined = kw["method"] == "refined"
+    opts = dict(tol=1e-8 if refined else 1e-10, norm="l2" if refined else "rel_l2", **kw)
+    extra = {"cpu": {}, "cuda": {}}
+    if kind == "outlier":
+        d = make_deflation(s.A, k=4, m=32, dtype=np.float64, device="cpu")
+        extra = {"cpu": dict(deflation=d), "cuda": dict(deflation=d.to(cuda))}
+    cpu = api.solve(s.A, s.b, device="cpu", **opts, **extra["cpu"])
+    cuda_dia.reset_launch_counts()
+    card = api.solve(s.A, s.b, device=cuda, **opts, **extra["cuda"])
+    torch.cuda.synchronize()
+    assert spmv_dia_cuda.launches > 0
+    if refined:
+        assert card.converged and cpu.converged
+        assert (card.outer_iterations, card.inner_iterations) == (cpu.outer_iterations,
+                                                                  cpu.inner_iterations)
+        x_card, x_cpu = card.x, cpu.x
+    else:
+        assert card.converged and cpu.converged and card.iterations == cpu.iterations
+        x_card, x_cpu = _host(card.x), _host(cpu.x)
+    assert np.linalg.norm(x_card - x_cpu) <= 1e-9 * np.linalg.norm(x_cpu)
+
+
+def test_implicit_gradients_on_card_match_cpu(cuda):
+    """cg_solve_implicit and bicgstab_solve_implicit in fp64: forward and
+    adjoint on #4, gradients against the CPU's."""
+    from conjugategradient_tpu_torch.solvers.diff import (
+        bicgstab_solve_implicit,
+        cg_solve_implicit,
+    )
+    from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy as P
+
+    for fn, s in ((cg_solve_implicit, generators.banded_sin_system(4096, 16)),
+                  (bicgstab_solve_implicit, generators.nonsymmetric_banded_system(4096, 16))):
+        grads = {}
+        for where in ("cpu", cuda):
+            data = torch.from_numpy(s.A.data).to(where).requires_grad_()
+            b = torch.from_numpy(s.b).to(where).requires_grad_()
+            x = fn(data, b, s.A.offsets, s.A.shape, P(tol=1e-12, norm="rel_l2"))
+            torch.sum(torch.sin(x)).backward()
+            grads[str(where)] = (_host(data.grad), _host(b.grad))
+        (dc, bc), (dg, bg) = grads["cpu"], grads[str(cuda)]
+        assert np.abs(dg - dc).max() <= 1e-9 * np.abs(dc).max()
+        assert np.abs(bg - bc).max() <= 1e-9 * np.abs(bc).max()

@@ -33,6 +33,12 @@ def test_port_and_smoke_script_do_not_import_jax():
         "import conjugategradient_tpu_torch.solvers.minres\n"
         "import conjugategradient_tpu_torch.solvers.idr\n"
         "import conjugategradient_tpu_torch.solvers.cheby\n"
+        "import conjugategradient_tpu_torch.solvers.cgnr\n"
+        "import conjugategradient_tpu_torch.solvers.lsmr\n"
+        "import conjugategradient_tpu_torch.solvers.cacg\n"
+        "import conjugategradient_tpu_torch.solvers.deflation\n"
+        "import conjugategradient_tpu_torch.solvers.diff\n"
+        "import conjugategradient_tpu_torch.scripts.inverse_demo\n"
         "import conjugategradient_tpu_torch.models.workloads\n"
         "import conjugategradient_tpu_torch.api\n"
         "import conjugategradient_tpu_torch.utils\n"

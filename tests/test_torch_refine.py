@@ -178,7 +178,9 @@ def test_unported_options_raise():
     # systems in tests/test_torch_krylov.py)
     bt = refined_solve(s.A, s.b, inner="bicgstab")
     assert bt.converged and np.linalg.norm(s.b - oracle.spmv(s.A, bt.x)) < 1e-8
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: solver families"):
+    # deflation= is ported (tests/test_torch_deflation.py) and takes a
+    # Deflation only
+    with pytest.raises(TypeError, match="must be a solvers.deflation.Deflation"):
         refined_solve(s.A, s.b, deflation=object())
     with pytest.raises(ValueError, match="unknown inner"):
         refined_solve(s.A, s.b, inner="gmres")
