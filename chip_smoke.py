@@ -119,7 +119,7 @@ after:
   cycles bit-identical, the C++ aggregation against the Python loop; the
   spectrum tools (``spectrum_from_cg`` of a traced AMG-PCG run,
   ``condition_number``, ``gershgorin_bounds``, ``power_iteration`` on the
-  card against host Lanczos, ``jacobi_eigenvalues`` of a 64 x 64 matrix).
+  card against host Lanczos, ``jacobi_eigenvalues`` of a 32 x 32 matrix).
 - The nonsymmetric and indefinite Krylov family, fp32 ``rel_l2`` 1e-6
   through ``api.solve``: convection-diffusion 1023^2 at eps 0.05 by
   ``mg_bicgstab`` (the rediscretized hierarchy, #3 at every level),
@@ -160,6 +160,25 @@ after:
   compensated two on a cancelling input also 100x below the plain fp32
   reduction's error; warm walls the median of 5 calls; each new route in
   fp64 at small size on the card and the CPU.
+- The eigensolvers: ``api.eigs(A, k=8, which="SM", grid=(1023, 1023),
+  spd=True)`` on Poisson 1023^2 in fp32 and fp64 (LOBPCG with the MGCG
+  hierarchy's V-cycle per column: #5 on the (3k, n) block, #1 at every
+  level), ``auto``'s probe timed apart; the fp64 values within 1e-6 of the
+  closed form, the fp32 ones within Rayleigh-quotient bounds of the fp64
+  ones, true residuals, orthonormality, the warm wall's fixed cost split
+  into the start blocks' draws on the card and their cast, A's placement
+  and the rest; the generalized problem (a mass matrix B on #5
+  too, a V-cycle M) on 511^2 in fp64 against scipy's ``eigsh(sigma=0)``;
+  Krylov-Schur Arnoldi (#4 once per matvec) at the JAX package's eigen
+  workload, convection-diffusion 511^2 eps 0.1 in fp32, LM and LR beside
+  its artifact's values, and LM at 127^2 in fp64 against ARPACK;
+  shift-invert at 63^2 (sigma = 0; inner IDR(4) on #4 with a V-cycle M at
+  the default inner_tol; the recomputed residuals one #5 block product) in
+  fp32 and fp64 against
+  ARPACK's sigma = 0; each route's #4/#5 and V-cycle launches to the count
+  its recurrence implies, warm walls the median of 3, busy shares; three
+  routes in fp64 at small size on the card and the CPU; #5 at LOBPCG's 3k
+  = 24 columns timed against its twin, cuSPARSE and the bound.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -2179,7 +2198,7 @@ def _ingestion(dev, card, count):
 
 #: the 31^3 card-against-CPU checks; the Jacobi-rotation matrix's order
 PRECOND_SMALL = (31, 31, 31)
-JACOBI_EIG_N = 64
+JACOBI_EIG_N = 32
 #: jacobi_eigenvalues against numpy's eigvalsh, fp64, relative to the
 #: largest |eigenvalue|
 JACOBI_EIG_REL = 1e-8
@@ -2432,7 +2451,7 @@ def _spectrum_tools(nat, fsys, dev, card):
     """``spectrum_from_cg`` of a traced 127^3 AMG-PCG run; the flagship's
     ``condition_number`` and ``gershgorin_bounds``; the card's
     ``power_iteration`` against host Lanczos's upper end; the Jacobi
-    rotations of a 64 x 64 matrix against numpy, timed."""
+    rotations of a 32 x 32 matrix against numpy, timed."""
     A, b, h, its = nat
     A_dev = A.device_put(torch.float32, dev)
     b_dev = torch.from_numpy(np.asarray(b, np.float32)).to(dev)
@@ -2922,7 +2941,8 @@ IDR_GRID = (255, 255)
 IDR_EPS = 0.5
 IDR_TOL = 2e-6
 IDR_S = 4
-#: the matvecs of the IDR run whose trace gives the busy share
+#: the matvecs of the IDR run whose wall is the warm wall and whose trace
+#: gives the busy share
 IDR_WINDOW = 1000
 #: IDR's true residual against the one it reports: the drift that residual
 #: replacement bounds read 7000x in the JAX package's fp32 run without it
@@ -2962,8 +2982,8 @@ def _wall_median_ms(fn, reps=WALL_REPS):
     return walls[reps // 2], walls[0], walls[-1]
 
 
-def _fmt_wall(w) -> str:
-    return f"{w[0]:.3f} ms (median of {WALL_REPS}, {w[1]:.3f}-{w[2]:.3f})"
+def _fmt_wall(w, reps=WALL_REPS) -> str:
+    return f"{w[0]:.3f} ms (median of {reps}, {w[1]:.3f}-{w[2]:.3f})"
 
 
 def _stencil_counts(got) -> dict:
@@ -3108,19 +3128,21 @@ def _idr_auto(dev, card, count):
     A32 = s.A.device_put(torch.float32, dev)
     b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
     tag = f"convection {IDR_GRID} eps {IDR_EPS} auto -> idr"
-    pol = ConvergencePolicy(tol=IDR_TOL, norm="rel_l2")
+    # the warm wall and the busy share of the first IDR_WINDOW matvecs: a
+    # warm re-run of the whole solve (17,490 matvecs) took 22.5 s; its
+    # wall with the setup below is the whole solve's
     res, got, _ = _nonsym_route(
         tag, s.A, s.b, dev, card,
         lambda r: 1 + r.iterations + r.replacements,
-        lambda: idr_solve(A32, b32, policy=pol), lambda x: _host_rel_residual(s.A, s.b, x),
-        window=lambda: idr_solve(A32, b32, policy=ConvergencePolicy(
+        lambda: idr_solve(A32, b32, policy=ConvergencePolicy(
             tol=IDR_TOL, norm="rel_l2", max_iteration=IDR_WINDOW)),
-        method="auto", tol=IDR_TOL, norm="rel_l2")
+        lambda x: _host_rel_residual(s.A, s.b, x), method="auto", tol=IDR_TOL, norm="rel_l2")
     true = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
     drift = true / float(res.residual)
     _require(drift <= IDR_DRIFT, f"{tag}: true residual {true:.3e} is {drift:.1f}x the "
              f"recurrence's {float(res.residual):.3e}")
-    print(f"{tag}: auto's host probe {probe_s:.3f} s; {res.iterations} matvecs "
+    print(f"{tag}: auto's host probe {probe_s:.3f} s; the warm wall above is of the first "
+          f"{IDR_WINDOW} matvecs; {res.iterations} matvecs "
           f"({res.iterations // (IDR_S + 1)} cycles, {res.replacements} replacements), true / "
           f"reported residual {drift:.3f}")
     count(f"nonsymmetric: {tag}", {"spmv_dia": got["spmv_dia"]})
@@ -3965,6 +3987,529 @@ def _least_squares(fsys, dev, card, count):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# eigensolvers
+# ---------------------------------------------------------------------------
+
+#: LOBPCG by the facade on the main path's grid: the k smallest pairs of
+#: poisson_system(EIG_GRID).A with the MGCG hierarchy's V-cycle as M
+EIG_GRID = (1023, 1023)
+EIG_K = 8
+#: the fp64 eigenvalues against the closed form, relative
+EIG_CLOSED = 1e-6
+#: ||X^T X - I||_max (X^T B X for the generalized problem) by dtype
+EIG_ORTH = {torch.float32: 1e-5, torch.float64: 1e-10}
+#: the true fp64 host residual within EIG_TRUE times the reported one, plus
+#: the rounding of one evaluation of A x - lambda x at a unit x in the
+#: solve's dtype (``_floor``): a reported residual under that is noise (the
+#: JAX package's fp32 Arnoldi artifact reads 3.7e-7 against a true 9.9e-7
+#: for its sixth LM pair)
+EIG_TRUE = 2.0
+EIG_REPS = 3
+#: the profiled window: iterations (LOBPCG) or restarts (Arnoldi)
+EIG_WINDOW = 2
+#: the generalized problem: A x = lambda B x, B the tridiagonal mass
+#: matrix (4/6, 1/6), a V-cycle M, fp64, against scipy's eigsh(sigma=0)
+GEN_GRID = (511, 511)
+GEN_K = 4
+GEN_WITNESS = 1e-8
+#: Arnoldi at the JAX package's eigen workload (artifacts/
+#: arnoldi_onchip_r04.json, scripts/arnoldi_onchip.py): convection-diffusion
+#: 511^2 eps 0.1 in fp32, m = 32, compensated dots; (which, k, tol).  Its
+#: free residual estimate reads under the fp32 floor of a Ritz vector summed
+#: from m basis rows: the true residuals are held to EIG_TRUE x the estimate
+#: plus _floor x sqrt(m) (the card's LR pair: 2.4e-7 reported, 1.6e-6 true)
+CD_GRID = (511, 511)
+CD_EPS = 0.1
+CD_M = 32
+CD_ROUTES = (("LM", 6, 2e-6), ("LR", 4, 1e-6))
+CD_ARTIFACT = os.path.join("artifacts", "arnoldi_onchip_r04.json")
+#: LM at ARPACK_GRID in fp64 against scipy's eigs (ARPACK): the clustered,
+#: nonnormal top of this spectrum moves its eigenvalues by up to 8e-7
+#: relative between two solvers at tol 1e-10 (the port's m = 48 against
+#: ARPACK's ncv 64, 3.5e-7; ARPACK's ncv 32, 64 and 96 among themselves,
+#: 3e-8; CPU runs), so the witness holds to ARPACK_AGREE
+ARPACK_GRID = (127, 127)
+ARPACK_AGREE = 1e-5
+ARPACK_M = 48
+#: shift-invert: sigma = 0 on convection-diffusion SI_GRID eps 0.1, inner
+#: IDR(4) on #4 preconditioned by the V-cycle of A (plain IDR takes 82,610
+#: inner matvecs at fp64 on the 127^2 operator, a CPU run), against
+#: ARPACK's sigma = 0.  At 127^2 a warm call takes 8.3 s in fp32 and 21.8 s
+#: in fp64 on the card (1,595 / 4,175 inner matvecs of ~175 eager ops each:
+#: ``_shift_invert(grid=(127, 127))``), so the smoke runs 63^2.  Both at
+#: arnoldi_eigs' default inner_tol, SI_INNER by dtype (fp32's is the port's,
+#: above the floor of its IDR exit, which accepts only a recomputed b - A x);
+#: each inverse exact to that relative level moves the values by as much,
+#: so fp32 holds to it
+SI_GRID = (63, 63)
+SI_K = 4
+SI_INNER = {torch.float32: 1e-3, torch.float64: 1e-10}
+SI_AGREE = {torch.float32: SI_INNER[torch.float32], torch.float64: 1e-9}
+SI_MAX_RESTARTS64 = 3
+#: card against CPU, fp64: values within EIG_AGREE (relative), every count
+#: equal
+EIG_AGREE = 1e-10
+EIG_SMALL = {"lobpcg Poisson 31^2 k=4 V-cycle M": ("poisson", dict(k=4, which="SM", spd=True,
+                                                                   grid=(31, 31))),
+             "arnoldi convection 16^2 LM k=4": ("cd", dict(k=4, which="LM", tol=1e-10)),
+             "arnoldi convection 16^2 sigma=0 k=3": ("cd", dict(k=3, sigma=0.0, tol=1e-10))}
+
+
+def _eig_counts():
+    """The launch counts of #4, #5 and the V-cycle's kernels."""
+    return {"spmv_dia": spmv_dia_cuda.launches, "spmm_dia": spmm_dia_cuda.launches,
+            "spmv_const_stencil": spmv_const_stencil_cuda.launches,
+            "cheb_smooth_const": cheb_smooth_const_cuda.launches,
+            "spmv_stencil": spmv_stencil_cuda.launches,
+            "spmv_stencil_wide": spmv_stencil_wide_cuda.launches}
+
+
+def _cycle_launches(h, dtype, dev):
+    """Each kernel's launches in one V-cycle of ``h`` on a flat vector."""
+    cycle = as_preconditioner(h)
+    n = h.levels[0].A.n if h.levels else h.coarse_inv.shape[0]
+    r = torch.from_numpy(np.random.default_rng(SEED).standard_normal(n))
+    _reset_counts()
+    cycle(r.to(dev, dtype))
+    torch.cuda.synchronize()
+    return {k: v for k, v in _eig_counts().items() if v}
+
+
+def _require_cycles(tag, got, per_cycle, cycles):
+    """The V-cycle kernels launched exactly ``cycles`` cycles' worth."""
+    for name, n in per_cycle.items():
+        _require(got[name] == n * cycles, f"{tag}: {got[name]} {name} launches, {cycles} "
+                 f"V-cycles of {n} imply {n * cycles}")
+    return {name: f"{got[name]} = {cycles} x {n}" for name, n in per_cycle.items()}
+
+
+def _floor(A, dtype, lam):
+    """eps(dtype) (max row sum of |A| + |lambda|), per value: the rounding
+    of one evaluation of A x - lambda x, or of x itself, in ``dtype``."""
+    rows = float(np.max(np.abs(to_scipy(A).tocsr()).sum(axis=1)))
+    return torch.finfo(dtype).eps * (rows + np.abs(np.asarray(lam)))
+
+
+def _true_pair_residuals(csr, X, lam, Bcsr=None):
+    """||A x - lambda B x||_2 in fp64 on the host, per column of X."""
+    X = np.asarray(X, np.complex128)
+    BX = X if Bcsr is None else Bcsr @ X.real + 1j * (Bcsr @ X.imag)
+    AX = csr @ X.real + 1j * (csr @ X.imag)
+    return np.linalg.norm(AX - BX * lam[None, :], axis=0)
+
+
+def _check_true(tag, true, reported, floor):
+    """Each true residual within EIG_TRUE times its reported one plus the
+    dtype's floor; returns the worst true / reported ratio."""
+    floor = np.broadcast_to(floor, true.shape)
+    bad = true > EIG_TRUE * reported + floor
+    _require(not bad.any(), f"{tag}: true residuals {true[bad]} exceed {EIG_TRUE} x the "
+             f"reported {reported[bad]} + floor {floor[bad]}")
+    return float(np.max(true / np.maximum(reported, 1e-300)))
+
+
+def _poisson_closed_form(grid, k: int) -> np.ndarray:
+    """The k smallest eigenvalues of the 2-D 5-point Laplacian (diagonal 4,
+    unit spacing): 4 sin^2(i pi / (2 (nx + 1))) + 4 sin^2(j pi / (2 (ny +
+    1)))."""
+    lx, ly = (4.0 * np.sin(np.arange(1, g + 1) * np.pi / (2 * (g + 1))) ** 2 for g in grid)
+    return np.sort(np.add.outer(lx, ly).ravel())[:k]
+
+
+def _lobpcg_facade(dev, card, count):
+    """``api.eigs(A, k=EIG_K, which="SM", grid=EIG_GRID)`` on Poisson
+    EIG_GRID in fp32 and fp64 (spd=True; ``auto``'s probe timed apart):
+    #5 launched ceil-chunks of k once and of 3k per iteration, the V-cycle
+    kernels k cycles an iteration; the fp64 values against the closed form,
+    the fp32 ones against the fp64 ones within a residual and gap bound,
+    true residuals, orthonormality; the warm wall, its fixed cost split
+    (``_lobpcg_setup_ms``), the busy share."""
+    from conjugategradient_tpu_torch.core.formats import is_symmetric
+    from conjugategradient_tpu_torch.precond import multigrid
+    from conjugategradient_tpu_torch.solvers.lobpcg import lobpcg
+
+    s = generators.poisson_system(EIG_GRID)
+    A = s.A
+    csr = to_scipy(A).tocsr()
+    exact = _poisson_closed_form(EIG_GRID, EIG_K + 4)
+    t0 = time.perf_counter()
+    sym = is_symmetric(A, tol=1e-12 * api._diag_scale(A)) and api._spd_probe(A, device=dev)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    _require(sym, f"auto's probe on Poisson {EIG_GRID}: not SPD")
+    print(f"eigs auto's probe on Poisson {EIG_GRID} (symmetry, host Lanczos, card Lanczos): "
+          f"{probe_s:.3f} s, SPD -> lobpcg; the routes below pass spd=True [{card}]")
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        tag = f"eigs lobpcg Poisson {EIG_GRID} k={EIG_K} SM V-cycle {TAGS[dt]}"
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _facade_built(multigrid, "build_hierarchy") as built:
+            r = api.eigs(A, k=EIG_K, which="SM", grid=EIG_GRID, spd=True, dtype=dt, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _eig_counts()
+        h = built[0]
+        its = r.restarts
+        _require(r.converged, f"{tag}: not converged in {its} iterations")
+        want5 = len(k_chunks(EIG_K)) + its * len(k_chunks(3 * EIG_K))
+        _require(got["spmm_dia"] == want5, f"{tag}: {got['spmm_dia']} spmm_dia launches, the "
+                 f"recurrence implies {want5}")
+        _require(got["spmv_dia"] == 0, f"{tag}: {got['spmv_dia']} spmv_dia launches")
+        per_cycle = _cycle_launches(h, dt, dev)
+        cyc = _require_cycles(tag, got, per_cycle, its * EIG_K)
+        count(f"eigensolvers: {tag}", got, fp32=dt == torch.float32)
+        lam = r.values.real
+        X = r.vectors.real
+        reported = r.residuals  # ||A x - lam x||, the facade's scaling
+        true = _true_pair_residuals(csr, X, lam)
+        ratio = _check_true(tag, true, reported, _floor(A, dt, lam))
+        orth = float(np.abs(X.T @ X - np.eye(EIG_K)).max())
+        _require(orth <= EIG_ORTH[dt], f"{tag}: ||X^T X - I||_max {orth:.3e} > {EIG_ORTH[dt]}")
+        closed = float(np.max(np.abs(lam - exact[:EIG_K]) / exact[:EIG_K]))
+        if dt == torch.float64:
+            _require(closed <= EIG_CLOSED, f"{tag}: eigenvalues {closed:.3e} from the closed "
+                     f"form, bound {EIG_CLOSED}")
+        # warm: the facade's solve on the same M; its fixed cost is the
+        # same call stopped before the first iteration
+        M = as_multi_preconditioner(h)
+        tol = 1e-5 if dt == torch.float32 else 1e-8
+        walls = _wall_median_ms(lambda: lobpcg(A, EIG_K, M=M, tol=tol, dtype=dt, device=dev),
+                                EIG_REPS)
+        fixed = _wall_median_ms(lambda: lobpcg(A, EIG_K, M=M, max_iterations=0, dtype=dt,
+                                               device=dev), EIG_REPS)
+        parts = _lobpcg_setup_ms(A, dt, dev)
+        parts["first orthonormalisation, A pass, residuals"] = fixed[0] - sum(parts.values())
+        print(f"{tag}: {its} iterations, matvecs {r.matvecs}, max reported residual "
+              f"{reported.max():.3e} (true/reported worst {ratio:.3f}), ||X^T X - I||_max "
+              f"{orth:.2e}, values {np.array2string(lam, precision=10)} (closed form max rel "
+              f"{closed:.2e}); spmm_dia launches {got['spmm_dia']} (= {len(k_chunks(EIG_K))} + "
+              f"{its} x {len(k_chunks(3 * EIG_K))}), V-cycle kernels {cyc}; host setup s "
+              f"{ {k: round(v, 3) for k, v in h.setup_s.items()} }, wall {wall:.3f} s with the "
+              f"setup; warm wall {_fmt_wall(walls, EIG_REPS)}: fixed (max_iterations=0) "
+              f"{_fmt_wall(fixed, EIG_REPS)} of which ms "
+              f"{ {k: round(v, 3) for k, v in parts.items()} }, "
+              f"{(walls[0] - fixed[0]) / its:.3f} ms an iteration; host reads an iteration: 1 "
+              f"(the loop's predicate) + 2 (the two eigh matrices) [{card}]")
+        # the busy share of a short window of the same loop: a whole
+        # solve's trace takes tens of seconds to read
+        window = lambda: lobpcg(A, EIG_K, M=M, max_iterations=EIG_WINDOW, dtype=dt, device=dev)
+        _device_time_top(window, _wall_ms(window), card, top=5)
+        out[dt] = (lam, X)
+    # fp32 against fp64: each value within |lam - theta| + min(r, r^2 /
+    # delta) of an eigenvalue, theta and r the fp64 host Rayleigh quotient
+    # and residual of its vector, delta theta's distance to the other
+    # eigenspaces (closed form); the two runs' values within the sum
+    distinct = np.unique(np.round(exact, 12))
+    bounds = {dt: _rq_bounds(csr, X, lam, distinct) for dt, (lam, X) in out.items()}
+    lam32, lam64 = out[torch.float32][0], out[torch.float64][0]
+    bound = bounds[torch.float32] + bounds[torch.float64]
+    diff = np.abs(lam32 - lam64)
+    _require(np.all(diff <= bound), f"fp32 against fp64 eigenvalues: {diff} beyond {bound}")
+    print(f"eigs lobpcg Poisson {EIG_GRID}: fp32 against fp64 eigenvalues |diff| "
+          f"{np.array2string(diff, precision=3)} within the Rayleigh-quotient bounds "
+          f"{np.array2string(bound, precision=3)} (fp32 {np.array2string(bounds[torch.float32], precision=3)}) "
+          f"[{card}]")
+
+
+def _lobpcg_setup_ms(A, dt, dev):
+    """Median host-clock ms of the parts of LOBPCG's set-up, each call as
+    ``lobpcg`` makes it: the draws of its two (n, k) start blocks on the
+    card, their cast to the solve's dtype, A's placement and block
+    operator."""
+    from conjugategradient_tpu_torch.core.formats import place
+    from conjugategradient_tpu_torch.solvers.lobpcg import _draw
+    from conjugategradient_tpu_torch.solvers.multi import _as_multi_operator
+
+    n = A.shape[0]
+    X = _draw(n, EIG_K, SEED, dev)
+    steps = {"draws": lambda: (_draw(n, EIG_K, SEED, dev), _draw(n, EIG_K, SEED + 1, dev)),
+             "their cast": lambda: (place(X, dt, dev), place(X, dt, dev)),
+             "A's placement": lambda: _as_multi_operator(A.device_put(dt, dev), dev)}
+    return {name: _wall_median_ms(fn, EIG_REPS)[0] for name, fn in steps.items()}
+
+
+def _rq_bounds(csr, X, lam, distinct):
+    """Per column x of X: |lam - theta| + min(r, r^2 / delta), theta = x.Ax
+    / x.x and r = ||A x - theta x|| / ||x|| in fp64, delta the distance from
+    theta to the nearest of ``distinct`` (the exact eigenvalues) but its
+    own: a symmetric A has an eigenvalue within it of lam."""
+    out = np.empty(len(lam))
+    for i in range(len(lam)):
+        x = X[:, i]
+        Ax = csr @ x
+        nx = float(x @ x)
+        theta = float(x @ Ax) / nx
+        r = float(np.linalg.norm(Ax - theta * x)) / np.sqrt(nx)
+        others = distinct[np.abs(distinct - theta) > 1e-9 * abs(theta)]
+        delta = float(np.min(np.abs(others - theta)))
+        out[i] = abs(lam[i] - theta) + min(r, r * r / delta)
+    return out
+
+
+def _generalized(dev, card, count):
+    """``lobpcg(A, GEN_K, B=mass, M=V-cycle)`` in fp64 on Poisson GEN_GRID:
+    A and B both on #5 (k then 3k columns each), k V-cycles an iteration;
+    against scipy's ``eigsh(A, M=B, sigma=0)``."""
+    import scipy.sparse.linalg as spla
+
+    from conjugategradient_tpu_torch.solvers.lobpcg import lobpcg
+
+    s = generators.poisson_system(GEN_GRID)
+    A, n = s.A, s.n
+    B = generators.tridiagonal_matrix(n, diag=4.0 / 6.0, off=1.0 / 6.0)
+    h = build_hierarchy(A, GEN_GRID, dtype=np.float64, device=dev)
+    M = as_multi_preconditioner(h)
+    tag = f"lobpcg generalized Poisson {GEN_GRID} B = mass (4/6, 1/6) k={GEN_K} V-cycle fp64"
+    run = lambda: lobpcg(A, GEN_K, B=B, M=M, tol=1e-8, dtype=torch.float64, device=dev)
+    _reset_counts()
+    r = run()
+    torch.cuda.synchronize()
+    got = _eig_counts()
+    its = r.iterations
+    _require(r.converged, f"{tag}: not converged in {its} iterations")
+    want5 = 2 * (len(k_chunks(GEN_K)) + its * len(k_chunks(3 * GEN_K)))
+    _require(got["spmm_dia"] == want5, f"{tag}: {got['spmm_dia']} spmm_dia launches, A and B "
+             f"passes imply {want5}")
+    cyc = _require_cycles(tag, got, _cycle_launches(h, torch.float64, dev), its * GEN_K)
+    count(f"eigensolvers: {tag}", got, fp32=False)
+    Acsr, Bcsr = to_scipy(A).tocsc(), to_scipy(B).tocsc()
+    t0 = time.perf_counter()
+    w = np.sort(spla.eigsh(Acsr, GEN_K, M=Bcsr, sigma=0, which="LM", return_eigenvectors=False))
+    scipy_s = time.perf_counter() - t0
+    lam = r.eigenvalues.cpu().numpy()
+    X = r.eigenvectors.cpu().numpy()
+    rel = float(np.max(np.abs(lam - w) / w))
+    _require(rel <= GEN_WITNESS, f"{tag}: {rel:.3e} from scipy's eigsh, bound {GEN_WITNESS}")
+    borth = float(np.abs(X.T @ (Bcsr @ X) - np.eye(GEN_K)).max())
+    _require(borth <= EIG_ORTH[torch.float64], f"{tag}: ||X^T B X - I||_max {borth:.3e}")
+    reported = r.residuals.cpu().numpy() * (np.abs(lam) + 1.0)
+    true = _true_pair_residuals(Acsr.tocsr(), X, lam, Bcsr.tocsr())
+    ratio = _check_true(tag, true, reported, _floor(A, torch.float64, lam))
+    walls = _wall_median_ms(run, EIG_REPS)
+    print(f"{tag}: {its} iterations, values {np.array2string(lam, precision=10)}, max rel "
+          f"{rel:.2e} from scipy eigsh(sigma=0) ({scipy_s:.1f} s on the host), ||X^T B X - "
+          f"I||_max {borth:.2e}, true/reported worst {ratio:.3f}; spmm_dia launches "
+          f"{got['spmm_dia']} (= 2 x ({len(k_chunks(GEN_K))} + {its} x "
+          f"{len(k_chunks(3 * GEN_K))})), V-cycle kernels {cyc}; warm wall "
+          f"{_fmt_wall(walls, EIG_REPS)}; host reads an iteration: 3 [{card}]")
+    window = lambda: lobpcg(A, GEN_K, B=B, M=M, max_iterations=EIG_WINDOW, dtype=torch.float64,
+                            device=dev)
+    _device_time_top(window, _wall_ms(window), card, top=4)
+
+
+def _as_set(vals) -> np.ndarray:
+    """Values sorted with each imaginary part's sign dropped: a k cut
+    inside a conjugate pair keeps either member."""
+    v = np.asarray(vals)
+    return np.sort_complex(v.real + 1j * np.abs(v.imag))
+
+
+def _conjugate_pairs(vals) -> bool:
+    """Every complex value has its conjugate among ``vals``, but for the
+    last wanted one (the k cut may fall inside a pair)."""
+    v = np.asarray(vals)
+    scale = max(1.0, float(np.abs(v).max()))
+    for i, x in enumerate(v[:-1]):
+        if abs(x.imag) > 1e-6 * scale and np.min(np.abs(v - np.conj(x))) > 1e-5 * scale:
+            return False
+    return True
+
+
+def _arnoldi_routes(dev, card, count):
+    """Arnoldi at the JAX package's eigen workload, fp32: LM and LR on
+    convection-diffusion CD_GRID (#4 once per matvec), beside the
+    artifact's values; LM at ARPACK_GRID in fp64 against ARPACK."""
+    import scipy.sparse.linalg as spla
+
+    from conjugategradient_tpu_torch.solvers.arnoldi import arnoldi_eigs
+
+    with open(CD_ARTIFACT) as f:
+        artifact = json.load(f)
+    A = generators.convection_diffusion_matrix(CD_GRID, eps=CD_EPS)
+    csr = to_scipy(A).tocsr()
+    for which, k, tol in CD_ROUTES:
+        tag = f"arnoldi convection {CD_GRID} eps {CD_EPS} {which} k={k} tol {tol} m={CD_M} fp32"
+        run = lambda: arnoldi_eigs(A, k=k, which=which, tol=tol, m=CD_M, precise_dot=True,
+                                   dtype=torch.float32, device=dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _eig_counts()
+        _require(r.converged, f"{tag}: not converged in {r.restarts} restarts")
+        _require(got["spmv_dia"] == r.matvecs, f"{tag}: {got['spmv_dia']} spmv_dia launches "
+                 f"for {r.matvecs} matvecs")
+        count(f"eigensolvers: {tag}", got)
+        true = _true_pair_residuals(csr, r.vectors, r.values)
+        # the Ritz vector is a sum of m fp32 basis rows: m roundings more
+        floor = _floor(A, torch.float32, r.values) * np.sqrt(CD_M)
+        ratio = _check_true(tag, true, r.residuals, floor)
+        _require(_conjugate_pairs(r.values), f"{tag}: values {r.values} not in conjugate pairs")
+        art = artifact[which]
+        ref = np.array(art["values_re"]) + 1j * np.array(art["values_im"])
+        walls = _wall_median_ms(run, EIG_REPS)
+        print(f"{tag}: {r.matvecs} matvecs, {r.restarts} restarts (the artifact's TPU run: "
+              f"{art['matvecs']}, {art['restarts']}), values {np.array2string(r.values, precision=8)} "
+              f"(artifact {np.array2string(ref, precision=8)}, max |diff| as sets "
+              f"{np.max(np.abs(_as_set(r.values) - _as_set(ref))):.2e}), "
+              f"reported {np.array2string(r.residuals, precision=2)}, true fp64 "
+              f"{np.array2string(true, precision=2)} (worst ratio {ratio:.3f}); spmv_dia "
+              f"launches {got['spmv_dia']} (= matvecs); wall {wall:.3f} s, warm wall "
+              f"{_fmt_wall(walls, EIG_REPS)}; host reads a cycle: 1 (S and beta) + 1 at the end "
+              f"[{card}]")
+        window = lambda: arnoldi_eigs(A, k=k, which=which, tol=tol, m=CD_M, precise_dot=True,
+                                      max_restarts=EIG_WINDOW, dtype=torch.float32, device=dev)
+        _device_time_top(window, _wall_ms(window), card, top=4)
+    A = generators.convection_diffusion_matrix(ARPACK_GRID, eps=CD_EPS)
+    r = arnoldi_eigs(A, k=6, which="LM", tol=1e-10, m=ARPACK_M, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    w = spla.eigs(to_scipy(A).tocsr(), k=6, which="LM", tol=1e-10, ncv=64,
+                  return_eigenvectors=False)
+    arpack_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(_as_set(r.values) - _as_set(w)) / np.abs(_as_set(w))))
+    _require(r.converged and rel <= ARPACK_AGREE,
+             f"arnoldi LM {ARPACK_GRID} fp64: converged {r.converged}, {rel:.3e} from ARPACK")
+    print(f"arnoldi convection {ARPACK_GRID} LM k=6 fp64 m={ARPACK_M}: {r.matvecs} matvecs, "
+          f"{r.restarts} restarts, max rel {rel:.2e} from ARPACK ({arpack_s:.1f} s on the host) "
+          f"[{card}]")
+
+
+def _shift_invert(dev, card, count, grid=SI_GRID):
+    """``api.eigs(CD grid, k=SI_K, sigma=0)`` in fp32 and fp64 at the
+    default inner_tol: inner IDR(4) on #4 with the V-cycle of A as its M;
+    inner_converged, ARPACK's sigma = 0 values, the recomputed residuals
+    (one #5 block product)."""
+    import scipy.sparse.linalg as spla
+
+    from conjugategradient_tpu_torch.solvers.arnoldi import _shift_apply
+
+    A = generators.convection_diffusion_matrix(grid, eps=CD_EPS)
+    csr = to_scipy(A).tocsr()
+    w = spla.eigs(csr.tocsc(), k=SI_K, sigma=0.0, return_eigenvectors=False)
+    for dt in (torch.float32, torch.float64):
+        np_dt = np.float32 if dt == torch.float32 else np.float64
+        h = build_hierarchy(A, grid, dtype=np_dt, device=dev)
+        cycle, cycles = as_preconditioner(h), [0]
+
+        def M(v):
+            cycles[0] += 1
+            return cycle(v)
+
+        kw = dict(k=SI_K, sigma=0.0, M=M, dtype=dt, device=dev)
+        tag = (f"eigs shift-invert convection {grid} eps {CD_EPS} sigma=0 k={SI_K} inner "
+               f"IDR(4) + V-cycle {TAGS[dt]}")
+        run = lambda: api.eigs(A, **kw)
+        cycles[0] = 0
+        _reset_counts()
+        r = run()
+        torch.cuda.synchronize()
+        got = _eig_counts()
+        _require(r.converged and r.inner_converged, f"{tag}: converged {r.converged}, inner "
+                 f"converged {r.inner_converged}")
+        if dt == torch.float64:
+            _require(r.restarts <= SI_MAX_RESTARTS64, f"{tag}: {r.restarts} restarts > "
+                     f"{SI_MAX_RESTARTS64}")
+        # #4: one an application of A - sigma I (each inner solve's
+        # matvecs, its replacements and its first residual), at least one a
+        # solve; #5: the one block product of the 2k' residual columns
+        _require(r.inner_matvecs > r.matvecs and got["spmv_dia"] == r.inner_matvecs,
+                 f"{tag}: {got['spmv_dia']} spmv_dia launches, {r.inner_matvecs} applications "
+                 f"of A - sigma I in {r.matvecs} inner solves")
+        want5 = len(k_chunks(2 * len(r.values)))
+        _require(got["spmm_dia"] == want5, f"{tag}: {got['spmm_dia']} spmm_dia launches, the "
+                 f"residual recompute implies {want5}")
+        cyc = _require_cycles(tag, got, _cycle_launches(h, dt, dev), cycles[0])
+        count(f"eigensolvers: {tag}", got, fp32=dt == torch.float32)
+        rel = float(np.max(np.abs(_as_set(r.values) - _as_set(w)) / np.abs(_as_set(w))))
+        _require(rel <= SI_AGREE[dt], f"{tag}: {rel:.3e} from ARPACK sigma=0, bound {SI_AGREE[dt]}")
+        true = _true_pair_residuals(csr, r.vectors, r.values)
+        _require(np.allclose(true, r.residuals, rtol=1e-3, atol=_floor(A, dt, r.values)),
+                 f"{tag}: recomputed residuals {r.residuals} against the host's {true}")
+        walls = _wall_median_ms(run, EIG_REPS)
+        print(f"{tag}: {r.matvecs} inner solves ({r.inner_matvecs} applications of A - sigma I), "
+              f"{r.restarts} restarts, values {np.array2string(r.values, precision=10)}, "
+              f"max rel {rel:.2e} from ARPACK sigma=0, residuals "
+              f"{np.array2string(r.residuals, precision=2)} (host fp64 "
+              f"{np.array2string(true, precision=2)}); spmv_dia launches {got['spmv_dia']} (= "
+              f"applications of A - sigma I), spmm_dia {got['spmm_dia']}, "
+              f"V-cycle kernels {cyc}; warm wall {_fmt_wall(walls, EIG_REPS)}; host reads: 1 a cycle + "
+              f"the inner IDR's one a cycle [{card}]")
+        # the window: one inner solve of the shifted system
+        apply, _ = _shift_apply(as_operator(A.device_put(dt, dev)), 0.0, M, SI_INNER[dt], 10000,
+                                "idr")
+        v = torch.from_numpy(np.random.default_rng(SEED).standard_normal(A.n)).to(dev, dt)
+        window = lambda: apply(v)
+        _device_time_top(window, _wall_ms(window), card, top=4)
+
+
+def _eig_card_vs_cpu(dev, card):
+    """Each route of EIG_SMALL in fp64 through ``api.eigs`` on the card and
+    on the CPU: values within EIG_AGREE, matvecs and restarts (LOBPCG's
+    iterations) equal.  LOBPCG starts both from the same host draws (its
+    default draws on the solve's device, whose stream is not the host's)."""
+    from conjugategradient_tpu_torch.solvers.lobpcg import _draw
+
+    out = {}
+    for route, (kind, kw) in EIG_SMALL.items():
+        A = (generators.poisson_system((31, 31)).A if kind == "poisson"
+             else generators.convection_diffusion_matrix((16, 16), eps=CD_EPS))
+        if kind == "poisson":
+            kw = dict(kw, X0=_draw(A.n, kw["k"], SEED), P0=_draw(A.n, kw["k"], SEED + 1))
+        rc = api.eigs(A, dtype=np.float64, device="cpu", **kw)
+        rg = api.eigs(A, dtype=np.float64, device=dev, **kw)
+        dv = float(np.max(np.abs(rg.values - rc.values) / np.abs(rc.values)))
+        _require(rg.converged and rc.converged, f"card vs CPU {route}: converged "
+                 f"{rg.converged} / {rc.converged}")
+        _require((rg.matvecs, rg.restarts) == (rc.matvecs, rc.restarts) and dv <= EIG_AGREE,
+                 f"card vs CPU {route}: matvecs, restarts {rg.matvecs, rg.restarts} / "
+                 f"{rc.matvecs, rc.restarts}, values differ by {dv:.3e}")
+        out[route] = (rg.matvecs, rg.restarts, float(f"{dv:.2e}"), rg.inner_matvecs,
+                      rc.inner_matvecs)
+    print(f"eigensolvers fp64 small, card against CPU (matvecs, restarts, max rel value diff; "
+          f"inner matvecs on the card and the CPU): {out} [{card}]")
+
+
+def _eig_spmm_times(dev, card):
+    """Kernel #5 at LOBPCG's A pass on Poisson EIG_GRID (5 diagonals, 3k =
+    24 columns), fp32 and fp64: against its twin, cuSPARSE's CSR ``A @ X``
+    and the bound."""
+    A_host = generators.poisson_system(EIG_GRID).A
+    k = 3 * EIG_K
+    for dt in (torch.float32, torch.float64):
+        A = A_host.device_put(dt, dev)
+        X = torch.from_numpy(np.random.default_rng(SEED).standard_normal((k, A.n))).to(dev, dt)
+        k_ms = time_ms(lambda: spmm_dia_cuda(A, X), 50)
+        p_ms = time_ms(lambda: spmm_dia_ref(A, X), 5)
+        err, scale = _max_err(spmm_dia_cuda(A, X), spmm_dia_ref(A, X))
+        _require(err <= (KERNEL_REL if dt == torch.float32 else KERNEL_REL64) * scale,
+                 f"spmm_dia {EIG_GRID} k={k} {TAGS[dt]}: max err {err:.3e} against the twin")
+        csr, Xn = dia_csr(A), X.T.contiguous()
+        tag = f"spmm_dia Poisson {EIG_GRID} 5 diagonals k={k} {TAGS[dt]} (LOBPCG's A pass)"
+        lib_ms = _library(tag, lambda: csr @ Xn, spmm_dia_cuda(A, X).T, card, 20)
+        nbytes = dia_nnz(A) * A.data.element_size() + 2 * k * A.n * X.element_size()
+        bound = bound_ms(nbytes, 2 * k * dia_nnz(A))
+        print(f"time {tag}: kernel {k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms "
+              f"by {bound[1]}, {bound[0] / k_ms:.1%} of it; {len(k_chunks(k))} launches), twin "
+              f"{p_ms:.4f} ms, CSR A @ X {lib_ms:.4f} ms, max err {err:.2e} [{card}]")
+        del csr, Xn
+
+
+def _eigensolvers(dev, card, count):
+    """The eigensolvers on the card: LOBPCG by the facade, generalized,
+    Arnoldi, shift-invert; card against CPU; #5 at LOBPCG's shape."""
+    for step in (_lobpcg_facade, _generalized, _arnoldi_routes, _shift_invert):
+        t0 = time.perf_counter()
+        step(dev, card, count)
+        print(f"  {step.__name__.lstrip('_')}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _eig_card_vs_cpu(dev, card)
+    _eig_spmm_times(dev, card)
+    print(f"  card vs CPU, #5 times: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4208,6 +4753,15 @@ def main() -> int:
     t0 = time.perf_counter()
     transposed = _least_squares(fsys, dev, card, count)
     print(f"phase: least squares, s-step, deflation, adjoints in {time.perf_counter() - t0:.1f} s")
+
+    # -- the eigensolvers, counted: LOBPCG through api.eigs on Poisson
+    # 1023^2 (#5, the V-cycle's kernels) in fp32 and fp64, generalized on
+    # 511^2 (#5 for A and B), Arnoldi at the JAX package's 511^2 convection
+    # workload (#4), shift-invert (inner IDR on #4, the residual block on
+    # #5); card against CPU; #5 at LOBPCG's 3k = 24 -------------------------
+    t0 = time.perf_counter()
+    _eigensolvers(dev, card, count)
+    print(f"phase: eigensolvers in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: times -----------------------------------------------------
     times = {}

@@ -26,7 +26,8 @@ reference's, so each counterpart is found by path:
                 iterative refinement (the flagship path; CG or BiCGStab
                 inside), the eigenvalue diagnostics (Jacobi rotations,
                 power iteration, Lanczos and Gershgorin bounds, the
-                spectrum of a CG run), and the nonsymmetric and indefinite
+                spectrum of a CG run), the eigensolvers (LOBPCG and
+                Krylov-Schur Arnoldi with shift-invert), and the nonsymmetric and indefinite
                 Krylov family: BiCGStab, GMRES and FGMRES, MINRES, IDR(s),
                 the Chebyshev iteration; least squares (CGNR, LSMR),
                 s-step CG, deflated CG and the implicit-adjoint
@@ -39,7 +40,9 @@ reference's, so each counterpart is found by path:
                 smoothed-aggregation AMG for matrices with no grid (its
                 greedy aggregation in host C++, ``csrc/aggregate.cpp``).
 - ``models``  — the named workloads of the reference's drivers.
-- ``api``     — ``solve(A, b, method=...)`` for the ported methods.
+- ``api``     — ``solve(A, b, method=...)`` for the ported methods and
+                ``eigs(A, k, which=...)``, the eigensolver facade (LOBPCG,
+                Krylov-Schur Arnoldi, shift-invert).
 - ``convert`` — carries a hierarchy (geometric or AMG) or any container
                 across from the reference's fields.
 - ``utils``   — phase timers, the profiler trace scope, residual logs,
@@ -49,10 +52,22 @@ reference's, so each counterpart is found by path:
                 ``inverse_demo`` coefficient recovery.
 
 This package imports ``torch``, numpy and scipy, never ``jax``.  See
-ROADMAP.md for what is ported and what is still to come.
+ROADMAP.md for what is ported and what is still to come.  The root names
+are the JAX package's (its ``native`` is still to port, ROADMAP queue 1)
+and the port's own additions after them.
 """
 
 __version__ = "0.1.0"
+
+from conjugategradient_tpu_torch.core.formats import (  # noqa: F401
+    BsrMatrix,
+    CooMatrix,
+    CsrMatrix,
+    DenseMatrix,
+    DiaMatrix,
+    EllMatrix,
+)
+from conjugategradient_tpu_torch.core.builder import DokBuilder  # noqa: F401
 
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, Norm  # noqa: F401
 from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
@@ -61,6 +76,7 @@ from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
     cg_solve_chunked,
     cg_solve_traced,
 )
+from conjugategradient_tpu_torch.api import eigs, solve  # noqa: F401
 from conjugategradient_tpu_torch.precond.amg import (  # noqa: F401
     AmgHierarchy,
     amg_cg_solve,

@@ -1,6 +1,7 @@
-"""High-level one-call API: ``solve(A, b, method=...)``.
+"""High-level one-call API: ``solve(A, b, method=...)`` and ``eigs(A, k)``.
 
-The port of ``conjugategradient_tpu/api.py::solve`` for the ported methods:
+The port of ``conjugategradient_tpu/api.py``: ``eigs`` (the eigensolver
+facade, its own docstring) and ``solve`` for the ported methods:
 
 - ``method="cg"``      — plain CG on the card, on any container of
   ``core.formats`` (DIA: kernel #4; CSR, ELL, COO, BSR and dense: the plain
@@ -106,6 +107,8 @@ _AMG_SETUP = ("theta", "near_null", "max_coarse", "max_levels")
 #: the single-RHS methods outside the Krylov bases (no prefix but cacg's
 #: jacobi_)
 _OTHER = ("cgnr", "lsmr", "cacg", "deflated_cg")
+#: the row count above which ``eigs(method="auto")`` runs no probe
+_PROBE_CAP = 4_000_000
 
 
 def _place_matrix(A, dtype, device):
@@ -475,6 +478,129 @@ def _spd_probe(A, diag=None, device=None) -> bool:
                                      device=device)
         spd = lo > -1e-10 * abs(hi)
     return spd
+
+
+def eigs(
+    A,
+    k: int = 6,
+    which: str = "LM",
+    sigma: Optional[float] = None,
+    method: str = "auto",
+    mesh=None,
+    tol: Optional[float] = None,
+    grid=None,
+    spd: Optional[bool] = None,
+    device=None,
+    **kw,
+):
+    """k eigenpairs of a sparse operator: the eigensolver facade.
+
+    Returns ``solvers.arnoldi.EigsResult`` (complex numpy values and
+    vectors, per-pair residuals, convergence flags) from every route, as
+    the JAX package's ``eigs`` does.
+
+    ``method``:
+      - ``"auto"`` (default): symmetric positive definite operators with an
+        extremal selection (LM, SM, LR, SR; no ``sigma``) go to the block
+        solver LOBPCG (multiplicity-safe, preconditionable: ``grid=`` builds
+        the MGCG hierarchy, or pass ``M=`` an (n, k) block map); everything
+        else (nonsymmetric, indefinite, LI, shift-invert) to Krylov-Schur
+        Arnoldi.  Symmetry is ``formats.is_symmetric(A, tol=1e-12 *
+        max|diag|)``; definiteness is the port's ``_spd_probe``, whose card
+        stage (the port's repair of the JAX probe) may send a large Helmholtz
+        operator to Arnoldi where the JAX package wrongly takes LOBPCG.
+      - ``"arnoldi"`` | ``"lobpcg"``: force a route.
+
+    ``spd``: the caller's word for ``auto``: ``True`` routes to LOBPCG
+    without the probe, ``False`` to Arnoldi.  Above 4,000,000 rows the probe
+    never runs: a ``RuntimeWarning`` and Arnoldi.  ``sigma``: shift-invert
+    (Arnoldi; nearest-to-sigma first; inner IDR(4) solves to ``inner_tol``,
+    1e-10 in fp64 and 1e-3 in fp32: looser than the JAX package's 1e-6,
+    which the port's inner solves do not reach in fp32; see
+    ``solvers.arnoldi``).  ``tol``
+    defaults to 1e-5 in fp32 and 1e-8 in fp64 on the LOBPCG route (whose
+    default dtype is fp32) and to 1e-8 (relative to |lambda|) on Arnoldi's.
+    ``device``: where the solve runs (``None``: the card when there is
+    one).  The other keywords go to ``lobpcg`` or ``arnoldi_eigs``.
+    ``mesh=`` (the distributed twins) raises ``NotImplementedError``.
+    """
+    from conjugategradient_tpu_torch.solvers.arnoldi import EigsResult, arnoldi_eigs
+
+    if method not in ("auto", "arnoldi", "lobpcg"):
+        raise ValueError(f"unknown eigs method {method!r}; want auto|arnoldi|lobpcg")
+    if which not in ("LM", "SM", "LR", "SR", "LI"):
+        raise ValueError(f"unknown which={which!r}; want LM|SM|LR|SR|LI")
+    if mesh is not None:
+        raise NotImplementedError(f"mesh-distributed eigensolves are not ported yet ({_PARALLEL})")
+    device = default_device(device)
+    if method == "auto":
+        # LOBPCG selects by ALGEBRAIC extremes, so it needs SPD, not just
+        # symmetry: on a symmetric indefinite operator LM/SM would return
+        # the wrong end (the most negative Helmholtz mode for SM)
+        eligible = sigma is None and which != "LI"
+        is_matrix = hasattr(A, "shape") and not callable(A)
+        if spd is not None:
+            sym = eligible and bool(spd)
+        elif eligible and is_matrix and A.shape[0] <= _PROBE_CAP:
+            A_host = formats.to_host(A)
+            sym = (formats.is_symmetric(A_host, tol=1e-12 * _diag_scale(A_host))
+                   and _spd_probe(A_host, device=device))
+        else:
+            if eligible and is_matrix:
+                warnings.warn(
+                    f"eigs(method='auto'): n={A.shape[0]} exceeds the {_PROBE_CAP}-row "
+                    "structure-probe cap; routing to Arnoldi.  Pass spd=True (or "
+                    "method='lobpcg') for the symmetric block solver.",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            sym = False
+        method = "lobpcg" if sym else "arnoldi"
+
+    if method == "lobpcg":
+        from conjugategradient_tpu_torch.solvers.lobpcg import lobpcg
+
+        dt = formats.torch_dtype(kw.get("dtype", torch.float32))
+        if tol is None:
+            # fp32's attainable residual is ~2e-6 relative on the Poisson
+            # LM end (the JAX package's measurement); 1e-5 keeps a margin
+            tol = 1e-8 if dt == torch.float64 else 1e-5
+        largest = which in ("LM", "LR")
+        M = kw.pop("M", None)
+        if M is None and grid is not None and not largest:
+            # the smallest pairs of an SPD grid operator: the MGCG
+            # hierarchy's V-cycle, one a column
+            from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy
+            from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner
+
+            np_dtype = torch.empty(0, dtype=dt).numpy().dtype
+            M = as_multi_preconditioner(build_hierarchy(A, tuple(grid), dtype=np_dtype,
+                                                        device=device))
+        res = lobpcg(A, k, M=M, largest=largest, tol=tol, device=device, **kw)
+        vals = res.eigenvalues.to("cpu", torch.float64).numpy()
+        # ascending from LOBPCG; most wanted first, as Arnoldi orders
+        order = np.argsort(-vals if largest else vals, kind="stable")
+        vecs = res.eigenvectors.to("cpu", torch.float64).numpy()[:, order]
+        lam = vals[order]
+        return EigsResult(
+            values=lam.astype(np.complex128),
+            vectors=vecs.astype(np.complex128),
+            residuals=res.residuals.to("cpu", torch.float64).numpy()[order] * (np.abs(lam) + 1.0),
+            matvecs=int(res.iterations) * 3 * k,
+            restarts=int(res.iterations),
+            converged=bool(res.converged),
+        )
+
+    if tol is None:
+        tol = 1e-8  # relative to |lambda|, arnoldi_eigs' own default
+    return arnoldi_eigs(A, k, which=which, sigma=sigma, tol=tol, device=device, **kw)
+
+
+def _diag_scale(A) -> float:
+    try:
+        return float(np.max(np.abs(_diagonal(A))))
+    except Exception:
+        return 1.0
 
 
 def _to_csr(A) -> formats.CsrMatrix:

@@ -6,8 +6,9 @@ arrays and Python values (the caller does ``np.asarray`` on the JAX side),
 data) by its class name and fields, and ``amg_hierarchy_from_reference``
 takes a JAX ``AmgHierarchy`` object the same way,
 ``idr_shadow_from_reference`` takes the JAX package's IDR(s) shadow draw
-as a numpy array and ``deflation_from_reference`` a JAX ``Deflation``'s
-arrays, so both packages can compute with the same state; this module
+as a numpy array, ``lobpcg_draws_from_reference`` its LOBPCG start block
+and first search directions, and ``deflation_from_reference`` a JAX
+``Deflation``'s arrays, so both packages can compute with the same state; this module
 never imports ``jax``.
 """
 
@@ -105,6 +106,23 @@ def idr_shadow_from_reference(draw, device=None) -> torch.Tensor:
     if a.ndim != 2:
         raise ValueError(f"the shadow draw must be (n, s), got shape {a.shape}")
     return torch.from_numpy(a).to(default_device(device))
+
+
+def lobpcg_draws_from_reference(X0, P0, device=None):
+    """``(X0, P0)`` of a LOBPCG solve as tensors on ``device`` (``None``:
+    the card when there is one), for ``solvers.lobpcg``'s ``X0=`` and
+    ``P0=``: the JAX package's ``jax.random.normal(PRNGKey(seed), (n, k),
+    dtype)`` and ``jax.random.normal(PRNGKey(seed + 1), (n, k), dtype)``
+    read as numpy.  The solver casts them to the solve's dtype."""
+    out = []
+    for name, draw in (("X0", X0), ("P0", P0)):
+        a = np.array(np.asarray(draw))
+        if a.ndim != 2:
+            raise ValueError(f"{name} must be (n, k), got shape {a.shape}")
+        out.append(torch.from_numpy(a).to(default_device(device)))
+    if out[0].shape != out[1].shape:
+        raise ValueError(f"X0 {tuple(out[0].shape)} and P0 {tuple(out[1].shape)} differ in shape")
+    return tuple(out)
 
 
 def deflation_from_reference(defl, device=None):

@@ -8,7 +8,9 @@ paths (``jacobi_eigenvalues``, ``power_iteration``) run on a tensor's
 device, the card when the caller gives none; JAX's ``PRNGKey`` stream
 cannot be reproduced, so ``power_iteration`` starts from a seeded
 ``torch.Generator`` and only its eigenvalue is the JAX package's.
-LOBPCG and Arnoldi are still to port (ROADMAP queue 1: solver families).
+The eigensolvers are ``solvers.lobpcg`` (block, symmetric) and
+``solvers.arnoldi`` (Krylov-Schur, nonsymmetric, shift-invert), behind
+``api.eigs``.
 """
 
 from __future__ import annotations

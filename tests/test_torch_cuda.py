@@ -1619,3 +1619,84 @@ def test_implicit_gradients_on_card_match_cpu(cuda):
         (dc, bc), (dg, bg) = grads["cpu"], grads[str(cuda)]
         assert np.abs(dg - dc).max() <= 1e-9 * np.abs(dc).max()
         assert np.abs(bg - bc).max() <= 1e-9 * np.abs(bc).max()
+
+
+# ---------------------------------------------------------------------------
+# the eigensolvers
+# ---------------------------------------------------------------------------
+
+
+def test_lobpcg_and_arnoldi_on_card_match_cpu(cuda):
+    """fp64 LOBPCG (a V-cycle M, 31^2 Poisson, k = 4, both from the same
+    host draws) and Arnoldi (16^2 convection, LM k = 4) through api.eigs:
+    equal counts, values within 1e-10, #5 and #4 launched on the card."""
+    from conjugategradient_tpu_torch.solvers.lobpcg import _draw
+
+    A = generators.poisson_system((31, 31)).A
+    kw = dict(k=4, which="SM", spd=True, grid=(31, 31), dtype=np.float64,
+              X0=_draw(A.n, 4, 0), P0=_draw(A.n, 4, 1))
+    cpu = api.eigs(A, device="cpu", **kw)
+    cuda_dia.reset_launch_counts()
+    card = api.eigs(A, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert spmm_dia_cuda.launches == 1 + card.restarts * 2  # k then 3k = 12 columns
+    assert card.converged and cpu.converged and card.restarts == cpu.restarts
+    assert np.max(np.abs(card.values - cpu.values) / np.abs(cpu.values)) <= 1e-10
+    A = generators.convection_diffusion_matrix((16, 16), eps=0.1)
+    cpu = api.eigs(A, k=4, tol=1e-10, device="cpu")
+    cuda_dia.reset_launch_counts()
+    card = api.eigs(A, k=4, tol=1e-10, device=cuda)
+    torch.cuda.synchronize()
+    assert spmv_dia_cuda.launches == card.matvecs
+    assert card.converged and (card.matvecs, card.restarts) == (cpu.matvecs, cpu.restarts)
+    assert np.max(np.abs(card.values - cpu.values) / np.abs(cpu.values)) <= 1e-10
+
+
+@pytest.mark.parametrize("legs", [torch.float32, torch.float64])
+def test_lobpcg_block_pass_on_kernel5(cuda, legs):
+    """LOBPCG's A pass: kernel #5 on 3k = 24 rows of a 127^2 Poisson DIA
+    (three launches of 8 columns) against its twin."""
+    A = generators.poisson_system((127, 127)).A.device_put(legs, cuda)
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal((24, A.n))).to(cuda, legs)
+    cuda_dia.reset_launch_counts()
+    Y = spmm_dia_cuda(A, X)
+    torch.cuda.synchronize()
+    assert spmm_dia_cuda.launches == 3
+    ref = spmm_dia_ref(A, X)
+    rel = REL64 if legs == torch.float64 else REL
+    assert float((Y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+def test_lobpcg_keeps_tf32_off(cuda, monkeypatch):
+    """With TF32 allowed globally, an fp32 LOBPCG's Gram, whitening and
+    Rayleigh-Ritz products still run in full fp32 (``no_tf32``): with a
+    V-cycle M (13 iterations on the CPU) its vectors stay orthonormal to
+    1e-5 and its residual reaches 1e-5.  The same run with the pin taken
+    out (TF32 on those products) misses one or the other, so the check
+    sees TF32; the global setting comes back."""
+    import contextlib
+    import sys
+
+    import conjugategradient_tpu_torch.solvers.lobpcg  # noqa: F401
+
+    lob = sys.modules["conjugategradient_tpu_torch.solvers.lobpcg"]
+
+    A = generators.poisson_system((63, 63)).A
+    M = as_multi_preconditioner(build_hierarchy(A, (63, 63), dtype=np.float32, device=cuda))
+
+    def run():
+        r = lob.lobpcg(A, 4, M=M, tol=1e-5, max_iterations=200, device=cuda)
+        X = r.eigenvectors.double()
+        return r, float((X.T @ X - torch.eye(4, dtype=torch.float64, device=cuda)).abs().max())
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pinned, orth = run()
+        assert torch.backends.cuda.matmul.allow_tf32
+        monkeypatch.setattr(lob, "no_tf32", contextlib.nullcontext)
+        unpinned, orth_tf32 = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert pinned.converged and orth <= 1e-5
+    assert not unpinned.converged or orth_tf32 > 1e-4, (unpinned.iterations, orth_tf32)

@@ -38,6 +38,8 @@ def test_port_and_smoke_script_do_not_import_jax():
         "import conjugategradient_tpu_torch.solvers.cacg\n"
         "import conjugategradient_tpu_torch.solvers.deflation\n"
         "import conjugategradient_tpu_torch.solvers.diff\n"
+        "import conjugategradient_tpu_torch.solvers.lobpcg\n"
+        "import conjugategradient_tpu_torch.solvers.arnoldi\n"
         "import conjugategradient_tpu_torch.scripts.inverse_demo\n"
         "import conjugategradient_tpu_torch.models.workloads\n"
         "import conjugategradient_tpu_torch.api\n"
