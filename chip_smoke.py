@@ -106,7 +106,7 @@ after:
   order the setup infers the (127, 127, 127) grid and aggregates in cubes,
   every level launches its kernel (#1 on a const level, #3 on a variable
   one, by grid) and the outer CG runs #4 exactly iterations + 1 times;
-  permuted, greedy aggregation (``csrc/aggregate.cpp``) gives CSR levels
+  permuted, greedy aggregation (``native.aggregate``) gives CSR levels
   and no #1, #3 or #4 launch.  Each prints its levels, host setup by
   phase, iterations beside plain CG's, warm wall and profile; beside them
   ``mgcg`` on the same system and an n x 4 ``amg_cg`` block (column 0 the
@@ -119,13 +119,13 @@ after:
   cycles bit-identical, the C++ aggregation against the Python loop; the
   spectrum tools (``spectrum_from_cg`` of a traced AMG-PCG run,
   ``condition_number``, ``gershgorin_bounds``, ``power_iteration`` on the
-  card against host Lanczos, ``jacobi_eigenvalues`` of a 32 x 32 matrix).
+  card against host Lanczos, ``jacobi_eigenvalues`` of a 16 x 16 matrix).
 - The nonsymmetric and indefinite Krylov family, fp32 ``rel_l2`` 1e-6
   through ``api.solve``: convection-diffusion 1023^2 at eps 0.05 by
   ``mg_bicgstab`` (the rediscretized hierarchy, #3 at every level),
   Jacobi-GMRES(32), ``mg_fgmres`` with inner BiCGStab and plain BiCGStab
   (capped, and not required to converge); IDR(4)
-  through ``method="auto"`` at 255^2, eps 0.5, tol 2e-6 (auto must choose
+  through ``method="auto"`` at 127^2, eps 0.5, tol 2e-6 (auto must choose
   idr; its true residual within 10x of the one it reports);
   ``amg_bicgstab`` on a 511^2 convection CSR (the grid inferred, stencil
   levels on #3, no #4); the flagship's nonsymmetric twin (n = 207,402,
@@ -163,7 +163,7 @@ after:
 - The eigensolvers: ``api.eigs(A, k=8, which="SM", grid=(1023, 1023),
   spd=True)`` on Poisson 1023^2 in fp32 and fp64 (LOBPCG with the MGCG
   hierarchy's V-cycle per column: #5 on the (3k, n) block, #1 at every
-  level), ``auto``'s probe timed apart; the fp64 values within 1e-6 of the
+  level), ``auto``'s probe timed apart on 511^2; the fp64 values within 1e-6 of the
   closed form, the fp32 ones within Rayleigh-quotient bounds of the fp64
   ones, true residuals, orthonormality, the warm wall's fixed cost split
   into the start blocks' draws on the card and their cast, A's placement
@@ -179,11 +179,29 @@ after:
   its recurrence implies, warm walls the median of 3, busy shares; three
   routes in fp64 at small size on the card and the CPU; #5 at LOBPCG's 3k
   = 24 columns timed against its twin, cuSPARSE and the bound.
+- The host kit and the batched solves.  ``native.available()`` (csrkit
+  built, its OpenMP threads printed); csrkit's COO -> CSR, CSR -> DIA and
+  CSR -> ELL on the HandmadeCL (n = 345,678) and flagship CSRs equal to
+  the port's numpy conversions, each timed beside numpy's;
+  ``api.solve(method="native")`` on Poisson 127^3 fp64 (capped) with
+  ``oracle.cg``'s count.  Batched kernel #4 and its fused p.Ap against the
+  twin and, member by member, bit-equal to the single kernel: the flagship
+  band at k = 1, 3, 8 in fp32 and fp64, 16^3 x 343 chained (split
+  launches) at k = 4, a ragged n; each timed against its bound, k single
+  launches and cuSPARSE's product of the members' block-diagonal CSR.
+  ``cg_solve_batched`` on 8 flagship members (data x (1 + 0.1 j)) in fp32:
+  each member's count equals ``cg_solve``'s, one fused batched launch an
+  iteration, warm wall beside 8 sequential solves and the busy share.
+  ``torch.func.vmap(torch.func.grad)`` through ``cg_solve_implicit`` (4
+  flagship members, fp64) and ``bicgstab_solve_implicit`` (4 members of
+  the twin) within 1e-10 of a loop of single gradients, on the batched #4
+  only.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
 NaN-planted X at k = 3 and 8) are held to their twins first, and the ptxas
-report of every instantiation of #1, #2, #3, #5, #6 and the split #4 must
+report of every instantiation of #1, #2, #3, #5, #6, the split #4 and the
+batched #4 must
 show a 0-byte stack frame and no spills; #6's blocks per SM and waves at
 its main shapes are printed.
 
@@ -512,6 +530,16 @@ KERNELS = {
     "spmv_stencil_wide": dict(
         route="cuda", source="conjugategradient_tpu_torch/csrc/stencil_var.cu",
         replaces="conjugategradient_tpu/ops/pallas_stencil.py:177",
+    ),
+    # kernel #4 batched over k members of one sparsity: what jax.vmap makes of
+    # _cm_kernel's pallas_call (:257) under the vmapped solves
+    "spmv_dia_batched": dict(
+        route="cuda", source="conjugategradient_tpu_torch/csrc/dia.cu",
+        replaces="conjugategradient_tpu/ops/pallas_spmv.py:193",
+    ),
+    "spmv_dot_dia_batched": dict(
+        route="cuda", source="conjugategradient_tpu_torch/csrc/dia.cu",
+        replaces="conjugategradient_tpu/ops/pallas_spmv.py:193",
     ),
 }
 
@@ -2056,7 +2084,7 @@ def _reference_storage(fsys, dev, card, count):
     the CSR solve run twice (bit-identity printed), then an n x 4 block
     whose column 0 takes the single solve's count.  The HandmadeCL workload
     as diagonal-first ELL (``csr_to_ell``) both ways.  Returns the flagship
-    CSR."""
+    CSR and HandmadeCL's."""
     pol = WORKLOADS[FLAGSHIP].policy
     kw = dict(method="cg", tol=pol.tol, norm=pol.norm, min_iteration=pol.min_iteration,
               max_iteration=pol.max_iteration, device=dev)
@@ -2105,7 +2133,8 @@ def _reference_storage(fsys, dev, card, count):
     hw = WORKLOADS[HANDMADE]
     hsys = hw.build(dtype=np.float64)
     t0 = time.perf_counter()
-    ell = csr_to_ell(dia_to_csr(hsys.A))
+    hcsr = dia_to_csr(hsys.A)
+    ell = csr_to_ell(hcsr)
     conv = time.perf_counter() - t0
     _require(np.array_equal(ell.cols[:, 0], np.arange(hsys.n)), "HandmadeCL ELL: diagonal not first")
     tag = f"HandmadeCL ELL (n {hsys.n}, k {ell.k})"
@@ -2127,7 +2156,7 @@ def _reference_storage(fsys, dev, card, count):
     print(f"{tag}: csr_to_ell(dia_to_csr) {conv:.3f} s; api.solve {res.iterations} iterations, "
           f"true max|r| {linf:.3e}, wall {wall * 1e3:.3f} ms; via make_kernel_operator "
           f"{res_k.iterations} iterations, true max|r| {linf_k:.3e} [{card}]")
-    return csr
+    return csr, hcsr
 
 
 def _ingestion(dev, card, count):
@@ -2198,7 +2227,7 @@ def _ingestion(dev, card, count):
 
 #: the 31^3 card-against-CPU checks; the Jacobi-rotation matrix's order
 PRECOND_SMALL = (31, 31, 31)
-JACOBI_EIG_N = 32
+JACOBI_EIG_N = 16
 #: jacobi_eigenvalues against numpy's eigvalsh, fp64, relative to the
 #: largest |eigenvalue|
 JACOBI_EIG_REL = 1e-8
@@ -2936,8 +2965,10 @@ NONSYM_RESTART = 32
 NONSYM_INNER = 8
 #: IDR(4) through method="auto": the calibration case of _auto_method
 #: (fp32's attainable accuracy there is about 2.2e-6: the port's IDR accepts
-#: convergence only on a replaced residual, see solvers/idr.py)
-IDR_GRID = (255, 255)
+#: convergence only on a replaced residual, see solvers/idr.py), cut from
+#: 255^2 (17,490 matvecs, 36-52 s of the run) to 127^2 to keep the run
+#: inside its time limit
+IDR_GRID = (127, 127)
 IDR_EPS = 0.5
 IDR_TOL = 2e-6
 IDR_S = 4
@@ -3994,6 +4025,9 @@ def _least_squares(fsys, dev, card, count):
 #: LOBPCG by the facade on the main path's grid: the k smallest pairs of
 #: poisson_system(EIG_GRID).A with the MGCG hierarchy's V-cycle as M
 EIG_GRID = (1023, 1023)
+#: the grid of auto's probe, timed apart: cut from EIG_GRID (21.6 s of host
+#: symmetry and Lanczos on 1M rows) to keep the run inside its time limit
+EIG_PROBE_GRID = (511, 511)
 EIG_K = 8
 #: the fp64 eigenvalues against the closed form, relative
 EIG_CLOSED = 1e-6
@@ -4119,7 +4153,8 @@ def _poisson_closed_form(grid, k: int) -> np.ndarray:
 
 def _lobpcg_facade(dev, card, count):
     """``api.eigs(A, k=EIG_K, which="SM", grid=EIG_GRID)`` on Poisson
-    EIG_GRID in fp32 and fp64 (spd=True; ``auto``'s probe timed apart):
+    EIG_GRID in fp32 and fp64 (spd=True; ``auto``'s probe timed apart, on
+    EIG_PROBE_GRID):
     #5 launched ceil-chunks of k once and of 3k per iteration, the V-cycle
     kernels k cycles an iteration; the fp64 values against the closed form,
     the fp32 ones against the fp64 ones within a residual and gap bound,
@@ -4133,12 +4168,13 @@ def _lobpcg_facade(dev, card, count):
     A = s.A
     csr = to_scipy(A).tocsr()
     exact = _poisson_closed_form(EIG_GRID, EIG_K + 4)
+    P = generators.poisson_system(EIG_PROBE_GRID).A
     t0 = time.perf_counter()
-    sym = is_symmetric(A, tol=1e-12 * api._diag_scale(A)) and api._spd_probe(A, device=dev)
+    sym = is_symmetric(P, tol=1e-12 * api._diag_scale(P)) and api._spd_probe(P, device=dev)
     torch.cuda.synchronize()
     probe_s = time.perf_counter() - t0
-    _require(sym, f"auto's probe on Poisson {EIG_GRID}: not SPD")
-    print(f"eigs auto's probe on Poisson {EIG_GRID} (symmetry, host Lanczos, card Lanczos): "
+    _require(sym, f"auto's probe on Poisson {EIG_PROBE_GRID}: not SPD")
+    print(f"eigs auto's probe on Poisson {EIG_PROBE_GRID} (symmetry, host Lanczos, card Lanczos): "
           f"{probe_s:.3f} s, SPD -> lobpcg; the routes below pass spd=True [{card}]")
     out = {}
     for dt in (torch.float32, torch.float64):
@@ -4510,6 +4546,321 @@ def _eigensolvers(dev, card, count):
     print(f"  card vs CPU, #5 times: {time.perf_counter() - t0:.1f} s")
 
 
+# -- the host kit (native) and the batched solves ------------------------------
+
+#: api.solve(method="native") on Poisson MTX_GRID in fp64 to rel_l2
+#: NATIVE_TOL, capped (plain CG stalls on systems like the flagship's and
+#: would run n iterations: never uncapped here)
+NATIVE_TOL = 1e-6
+NATIVE_CAP = 2000
+#: batched kernel #4's checks: (label, host DiaMatrix, k values,
+#: dtypes); the flagship band (fp32 and fp64, k in 1, 3, 8), the 16^3 x 343
+#: chain (split launches), a ragged n
+BATCH_KS = (1, 3, 8)
+#: the record's shape of the batched kernels: the sweep's (k = 8, fp32)
+BATCH_MAIN = "flagship n=207402 band=160"
+BATCH_CHAIN_K = 4
+BATCH_RAGGED = (5003, 32)
+#: the batched sweep: k flagship members (data x (1 + 0.1 j)) in fp32
+BATCH_SWEEP_K = 8
+#: the batched gradients: k members of the implicit phase's fp64 systems;
+#: against the loop of single gradients, relative to the largest entry
+BATCH_GRAD_K = 4
+BATCH_GRAD_REL = 1e-10
+
+
+def _same_arrays(tag, got, want, fields):
+    for f in fields:
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        _require(a.shape == b.shape and np.array_equal(a, b), f"{tag}: {f} differs from numpy's")
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _native(csrs, card):
+    """The host kit (``native``): it must have built (its OpenMP threads and,
+    where the compiler refused ``-fopenmp``, why, printed); csrkit's
+    COO -> CSR, CSR -> DIA and CSR -> ELL on the HandmadeCL and flagship
+    CSRs equal the port's numpy conversions exactly, each timed beside the
+    numpy one; ``api.solve(method="native")`` on Poisson MTX_GRID fp64 takes
+    ``oracle.cg``'s count (within 1), its true residual meets the tol."""
+    from conjugategradient_tpu_torch import native
+    from conjugategradient_tpu_torch.core import formats
+
+    _require(native.available(), "native: the host kit did not build")
+    log = _build.host_library_path("csrkit").with_suffix(".log")  # the build without flags
+    why = f": {log.read_text()[-600:]!r}" if log.exists() else ""
+    print(f"native: csrkit built by {os.environ.get('CXX') or 'g++'}, OpenMP threads "
+          f"{native.threads()} (0: built without OpenMP{why}; OMP_NUM_THREADS "
+          f"{os.environ.get('OMP_NUM_THREADS')}, os.cpu_count() {os.cpu_count()})")
+    for label, csr in csrs:
+        coo = csr_to_coo(csr)
+        rows = []
+        for name, kit, ref, fields in (
+                ("coo_to_csr", native.coo_to_csr, formats.coo_to_csr,
+                 ("data", "indices", "indptr", "row_ids")),
+                ("csr_to_dia", native.csr_to_dia, formats.csr_to_dia, ("data", "offsets")),
+                ("csr_to_ell", native.csr_to_ell, formats.csr_to_ell, ("data", "cols"))):
+            arg = coo if name == "coo_to_csr" else csr
+            got, kit_s = _timed(lambda: kit(arg))
+            want, np_s = _timed(lambda: ref(arg))
+            _same_arrays(f"native {name} {label}", got, want, fields)
+            rows.append(f"{name} {kit_s:.3f} s (numpy {np_s:.3f} s, {np_s / kit_s:.1f}x)")
+            del got, want
+        print(f"native {label} ({csr.nnz} nnz): {'; '.join(rows)}; each equal to numpy's "
+              f"[host of {card}]")
+        del coo
+    s = generators.poisson_system(MTX_GRID)
+    kw = dict(tol=NATIVE_TOL, norm="rel_l2", max_iteration=NATIVE_CAP)
+    res, wall = _timed(lambda: api.solve(s.A, s.b, method="native", **kw))
+    ref, o_wall = _timed(lambda: oracle.cg(s.A, s.b, raise_on_divergence=False, **kw))
+    tag = f"api.solve(method='native') Poisson {MTX_GRID} fp64 rel_l2 {NATIVE_TOL}"
+    _require(res.converged and ref.converged, f"{tag}: converged {res.converged}, oracle "
+             f"{ref.converged}")
+    _require(abs(res.iterations - ref.iterations) <= 1,
+             f"{tag}: {res.iterations} iterations, oracle.cg {ref.iterations}")
+    rel = _host_rel_residual(s.A, s.b, res.x)
+    _require(rel < NATIVE_TOL, f"{tag}: true fp64 relative residual {rel:.3e}")
+    print(f"{tag}: {res.iterations} iterations (oracle.cg {ref.iterations}), true fp64 rel "
+          f"residual {rel:.3e}, wall {wall:.3f} s with the CSR conversion (oracle.cg on the DIA "
+          f"{o_wall:.3f} s) [host of {card}]")
+
+
+def _members(A_dev, k):
+    """k members of one sparsity on the card: A's legs times (1 + 0.1 j)."""
+    scale = 1 + 0.1 * torch.arange(k, device=A_dev.data.device, dtype=A_dev.data.dtype)
+    return (A_dev.data[None] * scale[:, None, None]).contiguous()
+
+
+def _block_diag_csr(data, offsets):
+    """The block-diagonal CSR of k DIA members (one cuSPARSE product
+    computes every member's A x): built on the card from the first
+    member's structure."""
+    k, nd, n = data.shape
+    csr0 = dia_csr(DiaMatrix(data[0], offsets, (n, n)))
+    crow, col = csr0.crow_indices().long(), csr0.col_indices().long()
+    nnz = int(crow[-1])
+    order = sorted(range(nd), key=lambda q: offsets[q])
+    cols = torch.arange(n, device=data.device)[:, None] + torch.tensor(
+        [offsets[q] for q in order], device=data.device)[None, :]
+    keep = (cols >= 0) & (cols < n)
+    vals = torch.cat([data[j][order].T[keep] for j in range(k)])
+    crows = torch.cat([crow[:-1] + j * nnz for j in range(k)] + [crow[-1:] + (k - 1) * nnz])
+    cidx = torch.cat([col + j * n for j in range(k)])
+    return torch.sparse_csr_tensor(crows.int(), cidx.int(), vals, size=(k * n, k * n),
+                                   check_invariants=False)
+
+
+def _batched_kernel_checks(fsys, dev, card, errs, times):
+    """Batched kernel #4 (and its fused p.Ap) against its twin and, member
+    by member, against ``spmv_dia_cuda`` (``spmv_dot_dia_cuda``) bit for
+    bit: the flagship band at k in BATCH_KS in fp32 and fp64, the 16^3 x
+    343 chain (split launches) at BATCH_CHAIN_K, a ragged n; each timed
+    against its bound (k members' legs, x and y once), k single #4
+    launches, the twin and one cuSPARSE product of the members' block-
+    diagonal CSR.  ``times`` gets the record's shape (flagship, k = 8,
+    fp32)."""
+    from conjugategradient_tpu_torch.ops.cuda_dia import (
+        spmv_dia_batched_cuda,
+        spmv_dia_batched_ref,
+        spmv_dot_dia_batched_cuda,
+        spmv_dot_dia_batched_ref,
+    )
+
+    rng = np.random.default_rng(SEED + 17)
+    g = 16
+    chain_offs = tuple(sorted({(a * g + b) * g + c for a in range(-3, 4) for b in range(-3, 4)
+                               for c in range(-3, 4)}))
+    n3 = g ** 3
+    chain_data = rng.standard_normal((len(chain_offs), n3))
+    i = np.arange(n3)
+    for q, o in enumerate(chain_offs):
+        chain_data[q, (i + o < 0) | (i + o >= n3)] = 0.0
+    cases = [(BATCH_MAIN, fsys.A, BATCH_KS, (torch.float32, torch.float64)),
+             (f"16^3 x {len(chain_offs)} chained", DiaMatrix(chain_data, chain_offs, (n3, n3)),
+              (BATCH_CHAIN_K,), (torch.float32, torch.float64)),
+             (f"ragged n={BATCH_RAGGED[0]} band={BATCH_RAGGED[1]}",
+              generators.banded_sin_matrix(*BATCH_RAGGED), (3,), (torch.float32, torch.float64))]
+    for label, A_host, ks, dtypes in cases:
+        for dt in dtypes:
+            A = A_host.device_put(dt, dev)
+            rel = KERNEL_REL64 if dt == torch.float64 else KERNEL_REL
+            plan = cuda_dia.dia_plan(A.n, A.ndiags)
+            for k in ks:
+                tag = f"batched spmv_dia {label} {TAGS[dt]} k={k}"
+                data = _members(A, k)
+                x = torch.from_numpy(rng.standard_normal((k, A.n))).to(dev, dt)
+                y = spmv_dia_batched_cuda(data, A.offsets, x)
+                yf, dots = spmv_dot_dia_batched_cuda(data, A.offsets, x)
+                ref, ref_dots = spmv_dot_dia_batched_ref(data, A.offsets, x)
+                torch.cuda.synchronize()
+                err, scale = _max_err(y, ref)
+                _require(err <= rel * scale, f"{tag}: max err {err:.3e} > {rel}*{scale:.3e}")
+                dot_err = float((dots - ref_dots).abs().max())
+                dot_scale = float((x.abs() * ref.abs()).sum(1).max())
+                _require(torch.equal(yf, y) and dot_err <= rel * dot_scale,
+                         f"{tag}: fused y or p.Ap (err {dot_err:.3e}) off")
+                for j in range(k):
+                    Aj = DiaMatrix(data[j], A.offsets, A.shape)
+                    yj, dj = spmv_dot_dia_cuda(Aj, x[j])
+                    _require(torch.equal(y[j], spmv_dia_cuda(Aj, x[j])) and torch.equal(yf[j], yj)
+                             and torch.equal(dots[j], dj),
+                             f"{tag}: member {j} differs from the single kernel's")
+                name = "spmv_dia_batched"
+                if dt == torch.float32:
+                    errs[name] = max(errs[name], err)
+                    errs["spmv_dot_dia_batched"] = max(errs["spmv_dot_dia_batched"], err,
+                                                       dot_err / dot_scale * scale)
+                short = A.n * A.ndiags < 2_000_000
+                timer = graph_ms if short else time_ms
+                reps = 200
+                singles = [DiaMatrix(data[j], A.offsets, A.shape) for j in range(k)]
+                # in turns (batched, fused, k singles, twice): a first
+                # window after the host's checks may run at a lower clock
+                runs = [timer(fn, reps) for _ in range(2) for fn in (
+                    lambda: spmv_dia_batched_cuda(data, A.offsets, x),
+                    lambda: spmv_dot_dia_batched_cuda(data, A.offsets, x),
+                    lambda: [spmv_dia_cuda(singles[j], x[j]) for j in range(k)])]
+                k_ms, f_ms, s_ms = runs[3:]
+                p_ms = time_ms(lambda: spmv_dia_batched_ref(data, A.offsets, x), 3)
+                pf_ms = time_ms(lambda: spmv_dot_dia_batched_ref(data, A.offsets, x), 3)
+                bd = _block_diag_csr(data, A.offsets)
+                xs = x.reshape(-1)
+                lib_ms = _library(tag, lambda: bd @ xs, y.reshape(-1), card, reps)
+                del bd
+                nnz = dia_nnz(A)
+                esz = data.element_size()
+                nbytes = k * (nnz * esz + 2 * A.n * esz)
+                bound = bound_ms(nbytes, 2 * k * nnz)
+                bound_f = bound_ms(nbytes, 2 * k * nnz + 2 * k * A.n)
+                key = ("spmv_dia_batched", label, TAGS[dt], k)
+                times[key] = (k_ms, p_ms, lib_ms, bound)
+                times[("spmv_dot_dia_batched",) + key[1:]] = (f_ms, pf_ms, lib_ms, bound_f)
+                print(f"{tag} (split {plan.split}, {len(plan.groups)} launch"
+                      f"{'es' if len(plan.groups) > 1 else ''}): members bit-equal to "
+                      f"spmv_dia_cuda / spmv_dot_dia_cuda, max|kernel-twin| {err:.3e} (max|twin| "
+                      f"{scale:.3e}), p.Ap err {dot_err:.3e}; kernel {k_ms:.4f} ms"
+                      f"{' (graph)' if short else ''} ({nbytes / 1e6:.1f} MB, bound "
+                      f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / k_ms:.1%} of it), fused "
+                      f"{f_ms:.4f} ms, {k} single #4 launches {s_ms:.4f} ms (the first turn "
+                      f"{runs[0]:.4f} / {runs[1]:.4f} / {runs[2]:.4f}), twin {p_ms:.4f} ms "
+                      f"(fused {pf_ms:.4f}), block-diagonal CSR {lib_ms:.4f} ms [{card}]")
+                del data, x, y, yf, ref, singles
+            del A
+
+
+def _batched_sweep(fsys, dev, card, count):
+    """``cg_solve_batched`` on BATCH_SWEEP_K flagship members (data x (1 +
+    0.1 j)) in fp32 to rel_l2 TOL: each member converged with
+    ``cg_solve``'s count on that member and a true fp64 relative residual
+    within TRUE_REL; one fused batched #4 launch an iteration and one
+    batched SpMV for the initial residual; the warm wall beside the k
+    sequential ``cg_solve``s, and the busy share."""
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve_batched
+
+    k = BATCH_SWEEP_K
+    A = fsys.A.device_put(torch.float32, dev)
+    data = _members(A, k)
+    b = torch.from_numpy(fsys.b.astype(np.float32)).to(dev)
+    B = b.expand(k, -1).contiguous()
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    tag = f"cg_solve_batched flagship fp32 k={k} (data x (1 + 0.1 j)) rel_l2 {TOL}"
+    _reset_counts()
+    res = cg_solve_batched(data, A.offsets, A.shape, B, policy=pol)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    its = res.iterations.tolist()
+    _require(bool(res.converged.all()), f"{tag}: converged {res.converged.tolist()}, its {its}")
+    _require(got["spmv_dot_dia_batched"] == max(its) and got["spmv_dia_batched"] == 1
+             and got["spmv_dia"] == 0,
+             f"{tag}: launches {got}, the recurrence implies {max(its)} fused + 1")
+    count(f"batched: {tag}", {"spmv_dia_batched": got["spmv_dia_batched"],
+                              "spmv_dot_dia_batched": got["spmv_dot_dia_batched"]})
+    singles = [DiaMatrix(data[j], A.offsets, A.shape) for j in range(k)]
+    single_its = [cg_solve(singles[j], b, policy=pol).iterations for j in range(k)]
+    _require(single_its == its, f"{tag}: iterations {its}, cg_solve per member {single_its}")
+    rels = []
+    for j in range(k):
+        Aj = DiaMatrix(fsys.A.data * (1 + 0.1 * j), fsys.A.offsets, fsys.A.shape)
+        rels.append(_host_rel_residual(Aj, fsys.b, res.x[j].double().cpu().numpy()))
+    _require(max(rels) <= TRUE_REL, f"{tag}: true fp64 relative residuals {rels}")
+    batched = lambda: cg_solve_batched(data, A.offsets, A.shape, B, policy=pol)
+    loop = lambda: [cg_solve(singles[j], b, policy=pol) for j in range(k)]
+    w_b, w_l = _wall_median_ms(batched), _wall_median_ms(loop)
+    print(f"{tag}: iterations {its} (cg_solve per member the same), true fp64 rel residuals max "
+          f"{max(rels):.3e}; launches {got['spmv_dot_dia_batched']} fused batched + "
+          f"{got['spmv_dia_batched']} batched; warm wall {_fmt_wall(w_b)} against {k} sequential "
+          f"cg_solve {_fmt_wall(w_l)} ({w_l[0] / w_b[0]:.2f}x) [{card}]")
+    _device_time_top(batched, w_b[0], card, top=5)
+
+
+def _batched_gradients(fsys, dev, card, count):
+    """``torch.func.vmap(torch.func.grad(loss))`` over ``cg_solve_implicit``
+    on BATCH_GRAD_K members of the implicit phase's fp64 flagship, and over
+    ``bicgstab_solve_implicit`` on members of its nonsymmetric twin: each
+    member's gradients within BATCH_GRAD_REL of a loop of single gradients;
+    the forward and adjoint solves on the batched #4 (no single #4
+    launch)."""
+    from conjugategradient_tpu_torch.solvers.diff import (
+        bicgstab_solve_implicit,
+        cg_solve_implicit,
+    )
+
+    k = BATCH_GRAD_K
+    rng = np.random.default_rng(SEED + 18)
+    twin = generators.nonsymmetric_banded_system(TWIN_N, TWIN_BAND)
+    for label, fn, s, pol in (
+            ("cg_solve_implicit flagship", cg_solve_implicit, fsys,
+             ConvergencePolicy(tol=IMPLICIT_TOL, norm="rel_l2", max_iteration=2000)),
+            ("bicgstab_solve_implicit twin", bicgstab_solve_implicit, twin,
+             ConvergencePolicy(tol=IMPLICIT_TOL, norm="rel_l2"))):
+        A = s.A.device_put(torch.float64, dev)
+        offs, shape = A.offsets, A.shape
+        datas = _members(A, k)
+        bs = torch.from_numpy(np.stack([s.b] * k)).to(dev)
+        w = torch.from_numpy(rng.standard_normal(A.n)).to(dev)
+        loss = lambda d, b: torch.dot(w, fn(d, b, offs, shape, pol))
+        tag = f"vmap(grad) {label} fp64 k={k}"
+        _reset_counts()
+        t0 = time.perf_counter()
+        gd, gb = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))(datas, bs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        _require(got["spmv_dia"] == 0 and got["spmm_dia"] == 0 and got["spmv_dia_batched"] > 0,
+                 f"{tag}: launches {got}")
+        count(f"batched: {tag}", {"spmv_dia_batched": got["spmv_dia_batched"],
+                                  "spmv_dot_dia_batched": got["spmv_dot_dia_batched"]},
+              fp32=False)
+        t0 = time.perf_counter()
+        worst = 0.0
+        for j in range(k):
+            d1, b1 = torch.func.grad(loss, argnums=(0, 1))(datas[j], bs[j])
+            for got_g, want in ((gd[j], d1), (gb[j], b1)):
+                worst = max(worst, float((got_g - want).abs().max() / want.abs().max()))
+        loop = time.perf_counter() - t0
+        _require(worst <= BATCH_GRAD_REL, f"{tag}: gradients {worst:.3e} from the loop's")
+        print(f"{tag}: gradients within {worst:.2e} of {k} single gradients; launches batched "
+              f"{got['spmv_dia_batched']} + fused {got['spmv_dot_dia_batched']}; wall {wall:.3f} s "
+              f"(the loop {loop:.3f} s) [{card}]")
+
+
+def _native_and_batched(csrs, fsys, dev, card, errs, times, count):
+    """The host kit, batched #4 against its twin and the single kernel, the
+    batched CG sweep and the batched gradients."""
+    for step, args in ((_native, (csrs, card)),
+                       (_batched_kernel_checks, (fsys, dev, card, errs, times)),
+                       (_batched_sweep, (fsys, dev, card, count)),
+                       (_batched_gradients, (fsys, dev, card, count))):
+        t0 = time.perf_counter()
+        step(*args)
+        print(f"  {step.__name__.lstrip('_')}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4537,6 +4888,7 @@ def main() -> int:
     for src, kernel in (("stencil", "spmv_const_kernel"), ("stencil", "cheb_const_kernel"),
                         ("stencil_var", "spmv_var_kernel"), ("stencil_var", "spmv_var_wide_kernel"),
                         ("dia", "spmm_dia_kernel"), ("dia", "dia_kernel_split"),
+                        ("dia", "dia_batched_kernel"),
                         ("dia", "spmm_dia_acc_kernel")):
         res = {e: r for e, r in _build.kernel_resources(src).items() if kernel in e}
         _require(bool(res), f"ptxas: no {kernel} entry in the {src} build log")
@@ -4714,7 +5066,7 @@ def main() -> int:
     print(f"phase: past 256 diagonals and the {DIA_MGCG_GRID} DIA-layout MGCG in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    flagship_csr = _reference_storage(fsys, dev, card, count)
+    flagship_csr, handmade_csr = _reference_storage(fsys, dev, card, count)
     print(f"phase: the reference's CSR and ELL storage in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     loaded = _ingestion(dev, card, count)
@@ -4763,6 +5115,17 @@ def main() -> int:
     _eigensolvers(dev, card, count)
     print(f"phase: eigensolvers in {time.perf_counter() - t0:.1f} s")
 
+    # -- the host kit and the batched solves, counted: csrkit's conversions
+    # against numpy's and api.solve(method="native"); batched #4 against its
+    # twin and the single kernel; the batched CG sweep on the flagship (#4
+    # batched, fused); vmap(grad) through both implicit solves ------------
+    t0 = time.perf_counter()
+    batched_times = {}
+    _native_and_batched((("HandmadeCL", handmade_csr), ("flagship", flagship_csr)), fsys, dev,
+                        card, errs, batched_times, count)
+    del handmade_csr
+    print(f"phase: native and batched in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 6: times -----------------------------------------------------
     times = {}
     for g in TIME_SPMV_GRIDS:  # Poisson; below 2 M points from a CUDA graph
@@ -4804,6 +5167,9 @@ def main() -> int:
     _dia_times(fsys.A, dev, card, times)
     _var_times(hj, dev, card, times)
     lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card, times)
+    times.update(batched_times)
+    for name in ("spmv_dia_batched", "spmv_dot_dia_batched"):
+        _, _, lib[name], bounds[name] = times[(name, BATCH_MAIN, "fp32", BATCH_SWEEP_K)]
     _acc_times(sysj, acc_recs, dev, card, times, lib, bounds)
     _wide_times(wide_cases, dev, card, times, lib, bounds)
     t0 = time.perf_counter()
@@ -4822,7 +5188,10 @@ def main() -> int:
                   "spmm_dia": ("spmm_dia", 4, "fp32"),
                   "spmv_stencil": ("spmv_stencil", "255^3 7 legs", "fp32"),
                   "spmm_dia_acc": ("spmm_dia_acc", ACC_MAIN),
-                  "spmv_stencil_wide": ("spmv_stencil_wide", "128^3 81 legs", "fp32")}
+                  "spmv_stencil_wide": ("spmv_stencil_wide", "128^3 81 legs", "fp32"),
+                  "spmv_dia_batched": ("spmv_dia_batched", BATCH_MAIN, "fp32", BATCH_SWEEP_K),
+                  "spmv_dot_dia_batched": ("spmv_dot_dia_batched", BATCH_MAIN, "fp32",
+                                           BATCH_SWEEP_K)}
     record = [
         dict(name=name, **meta, launches=launches[name], launches_by_path=by_path[name],
              max_abs_err=errs[name], ms=times[main_shape[name]][0],

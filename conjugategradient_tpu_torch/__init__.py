@@ -6,8 +6,8 @@ rewritten by hand for Hopper (``csrc/``).  The layout mirrors the
 reference's, so each counterpart is found by path:
 
 - ``core``    — numpy host containers (DIA, stencil, const stencil, ELL,
-                CSR, COO, BSR, dense) and their conversions, the DOK
-                builder, Matrix Market and scipy ingestion, the banded,
+                CSR, COO, BSR, dense) and their conversions, the row-block
+                partition math, the DOK builder, Matrix Market and scipy ingestion, the banded,
                 tridiagonal, Poisson, variable-coefficient and anisotropic
                 diffusion, convection-diffusion, Helmholtz, nonsymmetric
                 banded and outlier generators and the fp64 oracle (SpMV of every
@@ -31,20 +31,26 @@ reference's, so each counterpart is found by path:
                 Krylov family: BiCGStab, GMRES and FGMRES, MINRES, IDR(s),
                 the Chebyshev iteration; least squares (CGNR, LSMR),
                 s-step CG, deflated CG and the implicit-adjoint
-                (differentiable) solves.
+                (differentiable) solves, batched CG and BiCGStab over k
+                systems of one sparsity (``torch.func.vmap`` of the implicit
+                solves).
 - ``precond`` — smoothers (Jacobi, Chebyshev, red-black Gauss-Seidel), the
                 point- and block-Jacobi and Chebyshev-polynomial
                 preconditioners, the fw, hybrid, semicoarsening and
                 aggregation transfers, the multigrid hierarchy (Galerkin or
                 rediscretized), V- and W-cycles and fmg (MGCG), and
                 smoothed-aggregation AMG for matrices with no grid (its
-                greedy aggregation in host C++, ``csrc/aggregate.cpp``).
+                greedy aggregation in the host kit, ``native``).
 - ``models``  — the named workloads of the reference's drivers.
 - ``api``     — ``solve(A, b, method=...)`` for the ported methods and
                 ``eigs(A, k, which=...)``, the eigensolver facade (LOBPCG,
                 Krylov-Schur Arnoldi, shift-invert).
 - ``convert`` — carries a hierarchy (geometric or AMG) or any container
                 across from the reference's fields.
+- ``native``  — the host C++ kit (``csrc/csrkit.cpp``, OpenMP): COO/CSR/
+                DIA/ELL conversions, halo ranges, the banded generator, a
+                CSR CG (``method="native"``) and the greedy aggregation,
+                each with its numpy fallback where no compiler exists.
 - ``utils``   — phase timers, the profiler trace scope, residual logs,
                 checkpoint/resume and tree persistence, the spy plot.
 - ``scripts`` — runnable measurements on the card (the kernel #6
@@ -53,8 +59,7 @@ reference's, so each counterpart is found by path:
 
 This package imports ``torch``, numpy and scipy, never ``jax``.  See
 ROADMAP.md for what is ported and what is still to come.  The root names
-are the JAX package's (its ``native`` is still to port, ROADMAP queue 1)
-and the port's own additions after them.
+are the JAX package's and the port's own additions after them.
 """
 
 __version__ = "0.1.0"
@@ -77,6 +82,7 @@ from conjugategradient_tpu_torch.solvers.cg import (  # noqa: F401
     cg_solve_traced,
 )
 from conjugategradient_tpu_torch.api import eigs, solve  # noqa: F401
+from conjugategradient_tpu_torch import native  # noqa: F401
 from conjugategradient_tpu_torch.precond.amg import (  # noqa: F401
     AmgHierarchy,
     amg_cg_solve,

@@ -13,6 +13,9 @@ facade, its own docstring) and ``solve`` for the ported methods:
   tolerance (``device_residual=True`` keeps the outer loop on the card;
   ``inner="bicgstab"`` for nonsymmetric systems)
 - ``method="oracle"``  — the fp64 numpy CPU oracle, on any host container
+- ``method="native"``  — the OpenMP C++ CG of the host kit (``native.cg``)
+  on the matrix as CSR, fp64 on the CPU by definition: host numpy out, as
+  the JAX facade's
 - ``method="bicgstab"`` — nonsymmetric systems, short recurrence
   (``solvers.bicgstab``)
 - ``method="gmres"``   — nonsymmetric systems, restarted GMRES
@@ -66,10 +69,10 @@ containers), ``jacobi_cg``, ``bjacobi_cg`` and ``amg_cg``, ``mgcg``
 ``jacobi_bicgstab``, ``bjacobi_bicgstab``, ``mg_bicgstab`` (Jacobi
 smoothing) and ``amg_bicgstab`` (``bicgstab_solve_multi``); ``auto`` takes
 ``bicgstab`` where it would take ``idr``; ``cgnr``, ``lsmr``, ``cacg`` and
-``deflated_cg`` take no block (``ValueError``, as in the JAX facade).  The
-methods still to port (``native``, ``sharded_cg`` and anything with
-``mesh=``) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them; nothing is rerouted.
+``deflated_cg`` take no block, nor do ``oracle`` and ``native``
+(``ValueError``, as in the JAX facade).  The methods still to port
+(``sharded_cg`` and anything with ``mesh=``) raise ``NotImplementedError``
+naming the ROADMAP item that ports them; nothing is rerouted.
 
 ``device`` says where the solve runs; ``None`` takes the card when there is
 one, as the JAX package takes its default backend.  Host numpy arrays or
@@ -90,12 +93,8 @@ from conjugategradient_tpu_torch.core import formats, oracle
 from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, place
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
-_FAMILIES = "ROADMAP queue 1: solver families"
 _PARALLEL = "ROADMAP queue 1: parallel"
-_UNPORTED = {
-    "native": f"{_FAMILIES}, native",
-    "sharded_cg": _PARALLEL,
-}
+_UNPORTED = {"sharded_cg": _PARALLEL}
 _PREFIXES = ("jacobi_", "bjacobi_", "amg_", "mg_")
 #: the bases a prefix may precondition
 _KRYLOV = ("cg", "bicgstab", "gmres", "fgmres", "minres", "idr")
@@ -107,6 +106,8 @@ _AMG_SETUP = ("theta", "near_null", "max_coarse", "max_levels")
 #: the single-RHS methods outside the Krylov bases (no prefix but cacg's
 #: jacobi_)
 _OTHER = ("cgnr", "lsmr", "cacg", "deflated_cg")
+#: the fp64 host solvers: no block, no prefix
+_HOST = ("oracle", "native")
 #: the row count above which ``eigs(method="auto")`` runs no probe
 _PROBE_CAP = 4_000_000
 
@@ -212,6 +213,14 @@ def solve(
         return oracle.cg(
             A, b, x0, tol=tol, norm=norm, min_iteration=min_iteration,
             max_iteration=max_iteration, raise_on_divergence=False,
+        )
+    if method == "native":
+        from conjugategradient_tpu_torch import native
+
+        return native.cg(
+            _to_csr(formats.to_host(A)), formats.host_f64(b),
+            None if x0 is None else formats.host_f64(x0), tol=tol, norm=norm,
+            min_iteration=min_iteration, max_iteration=max_iteration, raise_on_divergence=False,
         )
     if method == "refined":
         if not isinstance(A, DiaMatrix):
@@ -359,7 +368,7 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
     prefix, base = _split_prefix(method)
     if method not in _MULTI:
         if base in _UNPORTED or (prefix is not None and base == "chebyshev") or (
-                base not in _KRYLOV + _OTHER + ("chebyshev",) and method != "cheb_cg"):
+                base not in _KRYLOV + _OTHER + _HOST + ("chebyshev",) and method != "cheb_cg"):
             _refuse(method)
         raise ValueError(f"method {method!r} does not support (n, k) right-hand sides")
     from conjugategradient_tpu_torch.solvers.multi import (

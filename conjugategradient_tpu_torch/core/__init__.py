@@ -3,8 +3,8 @@
 The containers (``formats``): ``DiaMatrix``, ``StencilMatrix`` and
 ``ConstStencilMatrix`` (the kernels' formats), and ``EllMatrix``,
 ``CsrMatrix``, ``CooMatrix``, ``BsrMatrix`` and ``DenseMatrix`` with their
-conversions; ``DokBuilder`` (``builder``) and Matrix Market and scipy
-ingestion (``io``).
+conversions; ``DokBuilder`` (``builder``), Matrix Market and scipy
+ingestion (``io``) and the row-block partition math (``partition``).
 """
 
 from conjugategradient_tpu_torch.core.builder import DokBuilder  # noqa: F401
@@ -36,3 +36,4 @@ from conjugategradient_tpu_torch.core.io import (  # noqa: F401
     save_vector_market,
     to_scipy,
 )
+from conjugategradient_tpu_torch.core.partition import RowBlockPartition, partition_dia  # noqa: F401

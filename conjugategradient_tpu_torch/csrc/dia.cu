@@ -88,6 +88,22 @@
 //   Fused p.Ap: each block reduces its rows' y[i] * p[i] in a fixed tree into
 //   one partial; a one-block second kernel sums the partials in a fixed
 //   order, so the result is deterministic run to run.
+//   Batched form (spmv_dia_batched_kernel, spmv_dot_dia_batched_kernel and
+//   their split forms): k matrices of one sparsity, legs (k, ndiags, n)
+//   contiguous per member, x and y (k, n), one offsets tuple.  It is what
+//   jax.vmap makes of _cm_kernel's pallas_call (a new grid axis over the
+//   members) under the JAX package's vmap of cg_solve and of the implicit
+//   solves (ops/cuda_dia.py::spmv_dia_batched_cuda; solvers/cg.py::
+//   cg_solve_batched, solvers/bicgstab.py::bicgstab_solve_batched).
+//   Bound: device-memory bandwidth, k times the single product's bytes.
+//   Design: grid y takes the member (k <= 65535), so one launch covers all
+//   k members and small members still fill the card; each member's blocks
+//   run the single kernel's code (spmv_block, dot_block, split_block) on that
+//   member's arrays, in the single launch's plan (groups, S, slices), so
+//   member j equals spmv_dia_cuda (spmv_dot_dia_cuda) on member j bit for
+//   bit.  The fused p.Ap leaves k rows of partials, and one block a member
+//   sums its row in sum_partials_kernel's order.  fp32 and fp64 only: no
+//   batched path of the JAX package streams bf16 legs.
 //
 // Kernel 5: DIA SpMM for K right-hand sides held as (K, n), each column
 //   contiguous.  Replaces pallas_spmv.py::_cm_kernel_multi (:421,
@@ -265,20 +281,28 @@ __device__ __forceinline__ V row_sum(const L* __restrict__ data, const V* __rest
   return acc;
 }
 
+// one block's rows of y = A x (continued from y when accumulate)
 template <typename L, typename V>
-__global__ void __launch_bounds__(THREADS)
-spmv_dia_kernel(const L* __restrict__ data, const V* __restrict__ x, V* __restrict__ y, int n,
-                Offsets offs, int accumulate) {
+__device__ __forceinline__ void spmv_block(const L* __restrict__ data, const V* __restrict__ x,
+                                           V* __restrict__ y, int n, const Offsets& offs,
+                                           int accumulate) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i < n) y[i] = row_sum(data, x, n, offs, i, accumulate ? y[i] : V(0));
 }
 
-// y = A p (continued from y when accumulate) and one partial of p . y per
-// block (fixed-order tree)
 template <typename L, typename V>
 __global__ void __launch_bounds__(THREADS)
-spmv_dot_dia_kernel(const L* __restrict__ data, const V* __restrict__ p, V* __restrict__ y,
-                    V* __restrict__ partial, int n, Offsets offs, int accumulate) {
+spmv_dia_kernel(const L* __restrict__ data, const V* __restrict__ x, V* __restrict__ y, int n,
+                Offsets offs, int accumulate) {
+  spmv_block(data, x, y, n, offs, accumulate);
+}
+
+// one block's rows of y = A p (continued from y when accumulate) and its
+// partial of p . y (fixed-order tree) into *partial
+template <typename L, typename V>
+__device__ __forceinline__ void dot_block(const L* __restrict__ data, const V* __restrict__ p,
+                                          V* __restrict__ y, V* __restrict__ partial, int n,
+                                          const Offsets& offs, int accumulate) {
   __shared__ V s[THREADS];
   const int i = blockIdx.x * THREADS + threadIdx.x;
   V prod = 0;
@@ -293,13 +317,20 @@ spmv_dot_dia_kernel(const L* __restrict__ data, const V* __restrict__ p, V* __re
     if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) partial[blockIdx.x] = s[0];
+  if (threadIdx.x == 0) *partial = s[0];
 }
 
-// one block: strided fixed-order sums of the partials, then a fixed tree
-template <typename V>
+template <typename L, typename V>
 __global__ void __launch_bounds__(THREADS)
-sum_partials_kernel(const V* __restrict__ partial, int m, V* __restrict__ out) {
+spmv_dot_dia_kernel(const L* __restrict__ data, const V* __restrict__ p, V* __restrict__ y,
+                    V* __restrict__ partial, int n, Offsets offs, int accumulate) {
+  dot_block(data, p, y, partial + blockIdx.x, n, offs, accumulate);
+}
+
+// one block: strided fixed-order sums of m partials, then a fixed tree
+template <typename V>
+__device__ __forceinline__ void sum_block(const V* __restrict__ partial, int m,
+                                          V* __restrict__ out) {
   __shared__ V s[THREADS];
   V acc = 0;
   for (int b = threadIdx.x; b < m; b += THREADS) acc += partial[b];
@@ -310,6 +341,43 @@ sum_partials_kernel(const V* __restrict__ partial, int m, V* __restrict__ out) {
     __syncthreads();
   }
   if (threadIdx.x == 0) *out = s[0];
+}
+
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+sum_partials_kernel(const V* __restrict__ partial, int m, V* __restrict__ out) {
+  sum_block(partial, m, out);
+}
+
+// Kernel 4 batched: blockIdx.y is the member, whose legs start dstride
+// elements after the previous member's and whose x and y are rows of (k,
+// n); each member's block runs spmv_dia_kernel's (spmv_dot_dia_kernel's)
+// code on its own arrays, so member j equals the single launch on member j
+// bit for bit, and its p.Ap partials are summed by one block of
+// sum_partials_batched_kernel each, in sum_partials_kernel's order
+template <typename L, typename V>
+__global__ void __launch_bounds__(THREADS)
+spmv_dia_batched_kernel(const L* __restrict__ data, const V* __restrict__ x, V* __restrict__ y,
+                        int n, long long dstride, Offsets offs, int accumulate) {
+  const long long m = blockIdx.y;
+  spmv_block(data + m * dstride, x + m * n, y + m * n, n, offs, accumulate);
+}
+
+template <typename L, typename V>
+__global__ void __launch_bounds__(THREADS)
+spmv_dot_dia_batched_kernel(const L* __restrict__ data, const V* __restrict__ p,
+                            V* __restrict__ y, V* __restrict__ partial, int n, long long dstride,
+                            Offsets offs, int accumulate) {
+  const long long m = blockIdx.y;
+  dot_block(data + m * dstride, p + m * n, y + m * n, partial + m * gridDim.x + blockIdx.x, n, offs,
+            accumulate);
+}
+
+// one block per member: its m partials into out[member]
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+sum_partials_batched_kernel(const V* __restrict__ partial, int m, V* __restrict__ out) {
+  sum_block(partial + (long long)blockIdx.x * m, m, out + blockIdx.x);
 }
 
 // kernel 5's legs: the offsets, and the least and greatest offset clamped
@@ -570,6 +638,30 @@ spmv_dot_dia_kernel_split(const L* __restrict__ data, const V* __restrict__ p, V
                           V* __restrict__ partial, int n, const __grid_constant__ Offsets offs,
                           int accumulate) {
   split_block<L, V, 1, true>(data, p, y, partial, n, 0, offs, accumulate);
+}
+
+// the split form of kernel 4 batched: blockIdx.y is the member, as in
+// spmv_dia_batched_kernel; each member's blocks run split_block on its own
+// arrays, its p.Ap partials in its own row of gridDim.x
+template <typename L, typename V>
+__global__ void __launch_bounds__(DIA_SPLIT_LANES * DIA_SPLIT_MAX)
+spmv_dia_batched_kernel_split(const L* __restrict__ data, const V* __restrict__ x,
+                              V* __restrict__ y, int n, long long dstride,
+                              const __grid_constant__ Offsets offs, int accumulate) {
+  const long long m = blockIdx.y;
+  split_block<L, V, 1, false>(data + m * dstride, x + m * n, y + m * n, nullptr, n, 0, offs,
+                              accumulate);
+}
+
+template <typename L, typename V>
+__global__ void __launch_bounds__(DIA_SPLIT_LANES * DIA_SPLIT_MAX)
+spmv_dot_dia_batched_kernel_split(const L* __restrict__ data, const V* __restrict__ p,
+                                  V* __restrict__ y, V* __restrict__ partial, int n,
+                                  long long dstride, const __grid_constant__ Offsets offs,
+                                  int accumulate) {
+  const long long m = blockIdx.y;
+  split_block<L, V, 1, true>(data + m * dstride, p + m * n, y + m * n, partial + m * gridDim.x, n,
+                             0, offs, accumulate);
 }
 
 template <typename L, typename V, int K>
@@ -908,16 +1000,18 @@ static int launch_spmm(int k, const void* data, const void* X, void* Y, int n, l
   }
 }
 
-// the split form: blocks of DIA_SPLIT_LANES rows by `split` slices, the
-// partials of K columns in dynamic shared memory (at most 32 KB: 32 slices,
-// 4 fp64 columns); a chained launch (accumulate) is a programmatic dependent
-// launch where DIA_SPLIT_PDL, so it is scheduled while the launch before it
-// runs (split_block waits for it before it reads Y)
+// the split form: blocks of DIA_SPLIT_LANES rows by `split` slices (by
+// `batch` members, grid y), the partials of K columns in dynamic shared
+// memory (at most 32 KB: 32 slices, 4 fp64 columns); a chained launch
+// (accumulate) is a programmatic dependent launch where DIA_SPLIT_PDL, so it
+// is scheduled while the launch before it runs (split_block waits for it
+// before it reads Y)
 template <typename V, int K, typename... Params, typename... Args>
-static int launch_split(void (*kernel)(Params...), int n, int split, int accumulate,
+static int launch_split(void (*kernel)(Params...), int n, int batch, int split, int accumulate,
                         cudaStream_t st, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + DIA_SPLIT_LANES - 1) / DIA_SPLIT_LANES);
+  cfg.gridDim.y = batch;
   cfg.blockDim = dim3(DIA_SPLIT_LANES, split);
   cfg.dynamicSmemBytes = split > 1 ? (size_t)split * K * DIA_SPLIT_LANES * sizeof(V) : 0;
   cfg.stream = st;
@@ -936,9 +1030,9 @@ static int launch_spmv_split(const void* data, const void* x, void* y, void* par
   const V* xv = (const V*)x;
   V* yv = (V*)y;
   if (partial == nullptr)
-    return launch_split<V, 1>(spmv_dia_kernel_split<L, V>, n, split, accumulate, st, d, xv, yv, n,
-                              o, accumulate);
-  int err = launch_split<V, 1>(spmv_dot_dia_kernel_split<L, V>, n, split, accumulate, st, d, xv,
+    return launch_split<V, 1>(spmv_dia_kernel_split<L, V>, n, 1, split, accumulate, st, d, xv, yv,
+                              n, o, accumulate);
+  int err = launch_split<V, 1>(spmv_dot_dia_kernel_split<L, V>, n, 1, split, accumulate, st, d, xv,
                                yv, (V*)partial, n, o, accumulate);
   if (err) return err;
   sum_partials_kernel<V><<<1, THREADS, 0, st>>>((const V*)partial,
@@ -954,16 +1048,51 @@ static int launch_spmm_split(int k, const void* data, const void* X, void* Y, in
   V* y = (V*)Y;
   switch (k) {
     case 1:
-      return launch_split<V, 1>(spmm_dia_kernel_split<L, V, 1>, n, split, accumulate, st, d, x, y,
-                                n, ld, o, accumulate);
+      return launch_split<V, 1>(spmm_dia_kernel_split<L, V, 1>, n, 1, split, accumulate, st, d,
+                                x, y, n, ld, o, accumulate);
     case 2:
-      return launch_split<V, 2>(spmm_dia_kernel_split<L, V, 2>, n, split, accumulate, st, d, x, y,
-                                n, ld, o, accumulate);
+      return launch_split<V, 2>(spmm_dia_kernel_split<L, V, 2>, n, 1, split, accumulate, st, d,
+                                x, y, n, ld, o, accumulate);
     case 4:
-      return launch_split<V, 4>(spmm_dia_kernel_split<L, V, 4>, n, split, accumulate, st, d, x, y,
-                                n, ld, o, accumulate);
+      return launch_split<V, 4>(spmm_dia_kernel_split<L, V, 4>, n, 1, split, accumulate, st, d,
+                                x, y, n, ld, o, accumulate);
     default: return (int)cudaErrorInvalidValue;  // a chained launch takes at most 4 columns
   }
+}
+
+// kernel 4 batched over k members (grid y): split 0 takes the unsplit
+// kernels, split >= 1 the split ones with that many slices; partial null the
+// SpMV, else the fused p.Ap (k rows of partials, then one block a member)
+template <typename L, typename V>
+static int launch_spmv_batched(int k, const void* data, long long dstride, const void* x, void* y,
+                               void* partial, void* dot, int n, const Offsets& o, int accumulate,
+                               int split, cudaStream_t st) {
+  const L* d = (const L*)data;
+  const V* xv = (const V*)x;
+  V* yv = (V*)y;
+  V* pv = (V*)partial;
+  int nb, err;
+  if (split == 0) {
+    nb = blocks_of(n);
+    const dim3 grid(nb, k);
+    if (pv == nullptr)
+      spmv_dia_batched_kernel<L, V><<<grid, THREADS, 0, st>>>(d, xv, yv, n, dstride, o, accumulate);
+    else
+      spmv_dot_dia_batched_kernel<L, V><<<grid, THREADS, 0, st>>>(d, xv, yv, pv, n, dstride, o,
+                                                                  accumulate);
+    err = (int)cudaGetLastError();
+  } else {
+    nb = (n + DIA_SPLIT_LANES - 1) / DIA_SPLIT_LANES;
+    if (pv == nullptr)
+      err = launch_split<V, 1>(spmv_dia_batched_kernel_split<L, V>, n, k, split, accumulate, st, d,
+                               xv, yv, n, dstride, o, accumulate);
+    else
+      err = launch_split<V, 1>(spmv_dot_dia_batched_kernel_split<L, V>, n, k, split, accumulate,
+                               st, d, xv, yv, pv, n, dstride, o, accumulate);
+  }
+  if (err || pv == nullptr) return err;
+  sum_partials_batched_kernel<V><<<k, THREADS, 0, st>>>(pv, nb, (V*)dot);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -1073,6 +1202,34 @@ int cg_spmm_dia_split(int code, int k, const void* data, const void* X, void* Y,
                                                      st);
     case FP64:
       return launch_spmm_split<double, double>(k, data, X, Y, n, ld, o, accumulate, split, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 4 batched: k members of one sparsity (1 <= k <= 65535), member m's
+// legs of this launch at data + m * dstride elements, its x and y at m * n;
+// code 0 (fp32) or 2 (fp64); accumulate as cg_spmv_dia; split 0 the unsplit
+// kernels, else the split ones with split slices (as cg_spmv_dia_split);
+// partial and dot both null (the SpMV) or both set (the fused p.Ap: partial
+// holds k * ceil(n / 256) values unsplit, k * ceil(n / DIA_SPLIT_LANES)
+// split; dot k values)
+int cg_spmv_dia_batched(int code, int k, const void* data, long long dstride, const void* x,
+                        void* y, void* partial, void* dot, int n, int ndiags, const int* offsets,
+                        int accumulate, int split, void* stream) {
+  Offsets o;
+  int err = fill_offsets(&o, ndiags, offsets);
+  if (err) return err;
+  if (n < 1 || k < 1 || k > 65535 || split < 0 || split > ndiags || split > DIA_SPLIT_MAX ||
+      (partial == nullptr) != (dot == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+    case FP32:
+      return launch_spmv_batched<float, float>(k, data, dstride, x, y, partial, dot, n, o,
+                                               accumulate, split, st);
+    case FP64:
+      return launch_spmv_batched<double, double>(k, data, dstride, x, y, partial, dot, n, o,
+                                                 accumulate, split, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,10 +9,15 @@ missing library, all together, and waits for them.  The C interfaces take
 plain pointers and the stream as ``void*``; every pointer argument is
 declared ``c_void_p`` so ctypes does not cut it to 32 bits.
 
-The host C++ sources (``aggregate.cpp``, the AMG setup's greedy
-aggregation) build the same way with the host compiler (``$CXX``, else
-``g++``), which the CPU machines have too: ``build_host`` / ``load_host``.
-A failed build raises; nothing falls back.
+The host C++ source (``csrkit.cpp``, the host kit of ``native``: format
+conversions, an OpenMP CSR CG, the AMG setup's greedy aggregation) builds
+the same way with the host compiler (``$CXX``, else ``g++``), which the
+CPU machines have too: ``build_host`` / ``load_host``, with the source's
+own flags (``HOST_FLAGS``: ``-fopenmp``) and again without them where the
+compiler refuses them (no OpenMP).  A failed build raises; nothing falls
+back.  Where ``$CXX`` is unset and no ``g++`` is on the path,
+``build_host`` raises ``NoHostCompiler``: ``native`` then runs its numpy
+fallbacks, as the JAX package's kit does without a compiler.
 """
 
 from __future__ import annotations
@@ -33,7 +38,11 @@ SOURCES = {
     "stencil_var": _PKG / "csrc" / "stencil_var.cu",
     "dia": _PKG / "csrc" / "dia.cu",
 }
-HOST_SOURCES = {"aggregate": _PKG / "csrc" / "aggregate.cpp"}
+HOST_SOURCES = {"csrkit": _PKG / "csrc" / "csrkit.cpp"}
+#: each host source's own flags, dropped on a second try where the compiler
+#: refuses them (never ``-march=native``: the library runs where it was built,
+#: but its arithmetic must not depend on the build host)
+HOST_FLAGS = {"csrkit": ("-fopenmp",)}
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 NVCC_FLAGS = (
@@ -156,6 +165,9 @@ def _bind_dia(lib: ctypes.CDLL) -> None:
     lib.cg_spmm_dia_split.argtypes = [_I, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _IP, _I, _I,
                                       _P]
     lib.cg_spmm_dia_split.restype = _I
+    lib.cg_spmv_dia_batched.argtypes = [_I, _I, _P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I,
+                                        _IP, _I, _I, _P]
+    lib.cg_spmv_dia_batched.restype = _I
     lib.cg_spmm_dia_acc.argtypes = [_I, _I, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _IP, _IP,
                                     _IP, _P]
     lib.cg_spmm_dia_acc.restype = _I
@@ -165,45 +177,93 @@ def _bind_dia(lib: ctypes.CDLL) -> None:
     lib.cg_spmm_dia_acc_stages.restype = _I
 
 
+class NoHostCompiler(RuntimeError):
+    """``$CXX`` is unset and no ``g++`` is on the path."""
+
+
 def _cxx() -> str:
-    return os.environ.get("CXX") or "g++"
+    cxx = os.environ.get("CXX")
+    if cxx:
+        return cxx
+    if shutil.which("g++") is None:
+        raise NoHostCompiler("no host C++ compiler: set CXX or put g++ on PATH")
+    return "g++"
 
 
-def host_library_path(name: str) -> Path:
-    """Where ``build_host`` puts the library of a host source: keyed on a
-    hash of the compiler, its flags and the source."""
-    h = hashlib.sha256(" ".join((_cxx(),) + CXX_FLAGS).encode())
+def host_library_path(name: str, extra: Tuple[str, ...] = ()) -> Path:
+    """Where ``build_host`` puts the library of a host source built with
+    ``extra`` flags: keyed on a hash of the compiler, its flags and the
+    source."""
+    h = hashlib.sha256(" ".join((_cxx(),) + CXX_FLAGS + extra).encode())
     h.update(HOST_SOURCES[name].read_bytes())
     return BUILD_DIR / f"libcg_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_host(name: str) -> Path:
-    """Compile the host C++ source ``name`` unless a build of it exists.
-    Each process writes its own temporary file and renames it into place,
-    so processes that build at once (test workers) never load a partial
-    library.  Raises ``RuntimeError`` when the compiler is missing or
-    fails."""
-    out = host_library_path(name)
+def _compile_host(name: str, extra: Tuple[str, ...]) -> Tuple[Path, str]:
+    """Compile ``name`` with ``extra`` flags unless a build of it exists:
+    ``(library, "")``, or ``(library, the compiler's output)`` on a
+    failure.  Each process writes its own temporary file and renames it
+    into place, so processes that build at once (test workers) never load
+    a partial library."""
+    out = host_library_path(name, extra)
     if out.exists():
-        return out
+        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), str(HOST_SOURCES[name])]
+    cmd = [_cxx(), *CXX_FLAGS, *extra, "-o", str(tmp), str(HOST_SOURCES[name])]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
         raise RuntimeError(f"host compiler {cmd[0]!r} failed to start for {name}: {e}") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{cmd[0]} failed for {name} (exit {proc.returncode}):\n"
-                           f"{(proc.stdout + proc.stderr)[-4000:]}")
+        return out, f"{cmd[0]} exit {proc.returncode}:\n{(proc.stdout + proc.stderr)[-4000:]}"
     os.replace(tmp, out)
+    return out, ""
+
+
+def build_host(name: str) -> Path:
+    """Compile the host C++ source ``name`` with its ``HOST_FLAGS`` unless a
+    build of it exists, and without them where the compiler refuses them;
+    the refusal is kept beside that library as ``.log``.  Raises
+    ``NoHostCompiler`` when there is no compiler, ``RuntimeError`` when it
+    fails to start or fails both ways."""
+    extra = HOST_FLAGS.get(name, ())
+    out, err = _compile_host(name, extra)
+    if err and extra:
+        out, err2 = _compile_host(name, ())
+        if not err2:
+            out.with_suffix(".log").write_text(f"refused {' '.join(extra)}: {err}\n")
+        err = err2 and f"with {' '.join(extra)}: {err}\nwithout: {err2}"
+    if err:
+        raise RuntimeError(f"host build of {name} failed ({err})")
     return out
 
 
-def _bind_aggregate(lib: ctypes.CDLL) -> None:
-    lib.cg_aggregate.argtypes = [ctypes.c_int64, _P, _P, _P, _P]
-    lib.cg_aggregate.restype = ctypes.c_int64
+def _bind_csrkit(lib: ctypes.CDLL) -> None:
+    i64, i32, f64 = ctypes.c_int64, ctypes.c_int32, ctypes.c_double
+    lib.csrkit_coo_to_csr.argtypes = [i64, i64] + [_P] * 7
+    lib.csrkit_coo_to_csr.restype = i64
+    lib.csrkit_spmv.argtypes = [i64] + [_P] * 5
+    lib.csrkit_spmv.restype = None
+    lib.csrkit_halo_ranges.argtypes = [i64] + [_P] * 6
+    lib.csrkit_halo_ranges.restype = None
+    lib.csrkit_diag_census.argtypes = [i64, _P, _P, _P]
+    lib.csrkit_diag_census.restype = i64
+    lib.csrkit_csr_to_dia.argtypes = [i64, _P, _P, _P, i64, _P, _P]
+    lib.csrkit_csr_to_dia.restype = i32
+    lib.csrkit_csr_to_ell.argtypes = [i64, _P, _P, _P, i64, _P, _P]
+    lib.csrkit_csr_to_ell.restype = i32
+    lib.csrkit_banded_sin_dia.argtypes = [i64, i64, _P]
+    lib.csrkit_banded_sin_dia.restype = None
+    lib.csrkit_cg.argtypes = [i64] + [_P] * 5 + [f64, i32, i64, i64, ctypes.POINTER(f64)]
+    lib.csrkit_cg.restype = i64
+    lib.csrkit_version.argtypes = []
+    lib.csrkit_version.restype = i32
+    lib.csrkit_threads.argtypes = []
+    lib.csrkit_threads.restype = i32
+    lib.csrkit_aggregate.argtypes = [i64, _P, _P, _P, _P]
+    lib.csrkit_aggregate.restype = i64
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,7 +276,7 @@ def load_host(name: str) -> ctypes.CDLL:
 
 
 _BIND = {"stencil": _bind_stencil, "stencil_var": _bind_stencil_var, "dia": _bind_dia}
-_HOST_BIND = {"aggregate": _bind_aggregate}
+_HOST_BIND = {"csrkit": _bind_csrkit}
 
 
 @functools.lru_cache(maxsize=None)

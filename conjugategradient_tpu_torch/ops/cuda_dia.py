@@ -6,6 +6,12 @@ Three kernels of ``csrc/dia.cu`` (design notes at the top of that file):
   offsets and any number of diagonals, and ``spmv_dot_dia_cuda``, its fused
   form that also returns p·(A p) (kernel #4, replaces
   ``conjugategradient_tpu/ops/pallas_spmv.py::_cm_kernel``);
+- ``spmv_dia_batched_cuda`` and ``spmv_dot_dia_batched_cuda`` — kernel #4
+  over k matrices of one sparsity: legs ``(k, ndiags, n)``, x ``(k, n)``,
+  one offsets tuple; one launch per group covers every member (what
+  ``jax.vmap`` makes of ``_cm_kernel``), member j equal to
+  ``spmv_dia_cuda`` (``spmv_dot_dia_cuda``) on member j bit for bit, fp32
+  and fp64;
 - ``spmm_dia_cuda`` — Y = A X for k right-hand sides held as ``(k, n)``,
   one coefficient stream for all k (kernel #5, replaces
   ``_cm_kernel_multi``): the library path of every multi-RHS solve;
@@ -108,14 +114,17 @@ DIA_MIN_SLICE = 16
 # ---------------------------------------------------------------------------
 
 
-def _windows(A: DiaMatrix):
+def _leg_windows(offsets, n: int):
     """(k, offset, i0, i1): rows [i0, i1) of leg k whose neighbour
     i + offset lies inside [0, n)."""
-    n = A.n
-    for k, off in enumerate(A.offsets):
+    for k, off in enumerate(offsets):
         i0, i1 = max(0, -off), min(n, n - off)
         if i0 < i1:
             yield k, off, i0, i1
+
+
+def _windows(A: DiaMatrix):
+    return _leg_windows(A.offsets, A.n)
 
 
 def spmv_dia_ref(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -133,6 +142,27 @@ def spmv_dot_dia_ref(A: DiaMatrix, p: torch.Tensor) -> Tuple[torch.Tensor, torch
     """``(A p, p · A p)``."""
     y = spmv_dia_ref(A, p)
     return y, torch.dot(p.to(y.dtype), y)
+
+
+def spmv_dia_batched_ref(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
+    """y[j] = A_j x[j] for k members of one sparsity, legs ``data`` of
+    shape ``(k, ndiags, n)`` on ``offsets``, ``x`` of shape ``(k, n)``:
+    ``spmv_dia_ref``'s slice passes on every member at once, so member j
+    equals ``spmv_dia_ref`` on member j bit for bit."""
+    acc = torch.promote_types(data.dtype, x.dtype)
+    y = torch.zeros(x.shape, dtype=acc, device=x.device)
+    for k, off, i0, i1 in _leg_windows(offsets, x.shape[-1]):
+        y[:, i0:i1] += data[:, k, i0:i1].to(acc) * x[:, i0 + off : i1 + off].to(acc)
+    return y
+
+
+def spmv_dot_dia_batched_ref(data: torch.Tensor, offsets,
+                             p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(A_j p[j], p[j] · A_j p[j])`` for every member j: the ``(k, n)``
+    products and the ``(k,)`` dots, each dot ``spmv_dot_dia_ref``'s."""
+    y = spmv_dia_batched_ref(data, offsets, p)
+    pv = p.to(y.dtype)
+    return y, torch.stack([torch.dot(pv[j], y[j]) for j in range(y.shape[0])])
 
 
 def spmm_dia_ref(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
@@ -383,6 +413,102 @@ spmv_dot_dia_cuda.launches = 0
 spmv_dot_dia_cuda.launches_by_dtype = collections.Counter()
 
 
+#: the batched kernel's instantiations (no bf16 legs) and its most members
+#: (grid y)
+_BATCHED_CODES = {(torch.float32, torch.float32): 0, (torch.float64, torch.float64): 2}
+MAX_MEMBERS = 65535
+
+
+def _check_batched_args(name: str, data: torch.Tensor, offsets, x: torch.Tensor) -> int:
+    """Raise on anything the batched kernels do not take; return the
+    instantiation code."""
+    if not (torch.is_tensor(data) and torch.is_tensor(x)):
+        raise TypeError(f"{name}: data and x must be torch tensors")
+    if data.ndim != 3 or x.ndim != 2:
+        raise ValueError(f"{name}: data must be (k, ndiags, n) and x (k, n), got "
+                         f"{tuple(data.shape)} and {tuple(x.shape)}")
+    k, nd, n = data.shape
+    if tuple(x.shape) != (k, n) or nd != len(offsets) or nd < 1:
+        raise ValueError(f"{name}: data {tuple(data.shape)}, {len(offsets)} offsets and x "
+                         f"{tuple(x.shape)} do not agree")
+    if not 1 <= k <= MAX_MEMBERS or n >= 2**31:
+        raise ValueError(f"{name}: k = {k} members (1..{MAX_MEMBERS}) and n = {n} rows (< 2^31)")
+    code = _BATCHED_CODES.get((data.dtype, x.dtype))
+    if code is None:
+        raise TypeError(f"{name}: no kernel for {data.dtype} legs with a {x.dtype} vector; "
+                        "supported: fp32/fp32 and fp64/fp64")
+    if not (data.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors only")
+    for t in (data, x):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name}: the kernel needs CUDA tensors on one device, got {t.device}")
+    return code
+
+
+def _batched_launch(code: int, data: torch.Tensor, offsets, x: torch.Tensor, name: str,
+                    dot: bool = False):
+    """Launch batched kernel #4 by ``dia_plan`` of one member, one launch
+    per group, as ``_spmv_launch`` launches the single kernel: every member
+    takes the single launch's groups, split and slices.  Returns ``(y,
+    dots or None)`` and the launches made."""
+    lib = _build.load("dia")
+    k, nd, n = data.shape
+    plan = dia_plan(n, nd)
+    y = torch.empty_like(x)
+    partial = out = None
+    if dot:
+        partial = torch.empty((k, dot_partials(n, plan.split)), dtype=x.dtype, device=x.device)
+        out = torch.empty(k, dtype=x.dtype, device=x.device)
+    last = len(plan.groups) - 1
+    for g, (k0, k1, s) in enumerate(plan.groups):
+        fused = dot and g == last
+        err = lib.cg_spmv_dia_batched(
+            code, k, data[0, k0].data_ptr(), nd * n, x.data_ptr(), y.data_ptr(),
+            partial.data_ptr() if fused else None, out.data_ptr() if fused else None, n, k1 - k0,
+            _offsets_arg(tuple(offsets[k0:k1])), int(g > 0), s if plan.split > 1 else 0,
+            _stream(x))
+        _raise_on(lib, err, name)
+    return (y, out), len(plan.groups)
+
+
+def spmv_dia_batched_cuda(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
+    """y[j] = A_j x[j] for k members of one sparsity (legs ``(k, ndiags,
+    n)``, ``x`` of shape ``(k, n)``): batched kernel #4 for a CUDA tensor,
+    one launch per group of diagonals for all members; the twin for a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return spmv_dia_batched_ref(data, offsets, x)
+    name = "spmv_dia_batched_cuda"
+    code = _check_batched_args(name, data, offsets, x)
+    (y, _), launches = _batched_launch(code, data, tuple(offsets), x, name)
+    spmv_dia_batched_cuda.launches += launches
+    spmv_dia_batched_cuda.launches_by_dtype[TAGS[data.dtype]] += launches
+    return y
+
+
+spmv_dia_batched_cuda.launches = 0
+spmv_dia_batched_cuda.launches_by_dtype = collections.Counter()
+
+
+def spmv_dot_dia_batched_cuda(data: torch.Tensor, offsets,
+                              p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, dots)``: y[j] = A_j p[j] and dots[j] = p[j] · y[j], ``(k,)`` on
+    the card, one matrix pass for both; each member's dot summed in
+    ``spmv_dot_dia_cuda``'s fixed order.  The twin for a CPU tensor."""
+    if p.device.type == "cpu":
+        return spmv_dot_dia_batched_ref(data, offsets, p)
+    name = "spmv_dot_dia_batched_cuda"
+    code = _check_batched_args(name, data, offsets, p)
+    (y, dots), launches = _batched_launch(code, data, tuple(offsets), p, name, dot=True)
+    spmv_dot_dia_batched_cuda.launches += launches
+    spmv_dot_dia_batched_cuda.launches_by_dtype[TAGS[data.dtype]] += launches
+    return y, dots
+
+
+spmv_dot_dia_batched_cuda.launches = 0
+spmv_dot_dia_batched_cuda.launches_by_dtype = collections.Counter()
+
+
 def k_chunks(k: int, widest: int = K_CHUNKS[0]):
     """The column chunks one SpMM of k columns launches, largest first, none
     wider than ``widest``."""
@@ -490,7 +616,8 @@ spmm_dia_acc_cuda.launches_by_dtype = collections.Counter()
 
 def reset_launch_counts() -> None:
     """Set every DIA kernel's launch count to 0."""
-    for fn in (spmv_dia_cuda, spmv_dot_dia_cuda, spmm_dia_cuda, spmm_dia_acc_cuda):
+    for fn in (spmv_dia_cuda, spmv_dot_dia_cuda, spmv_dia_batched_cuda, spmv_dot_dia_batched_cuda,
+               spmm_dia_cuda, spmm_dia_acc_cuda):
         fn.launches = 0
         fn.launches_by_dtype.clear()
     spmv_dia_cuda.launches_by_shape.clear()
@@ -501,7 +628,8 @@ def launch_counts() -> dict:
     ``ops.cuda_stencil`` too), by the wrapper's name without ``_cuda``."""
     fns = (cuda_stencil.spmv_const_stencil_cuda, cuda_stencil.cheb_smooth_const_cuda,
            cuda_stencil.spmv_stencil_cuda, cuda_stencil.spmv_stencil_wide_cuda, spmv_dia_cuda,
-           spmv_dot_dia_cuda, spmm_dia_cuda, spmm_dia_acc_cuda)
+           spmv_dot_dia_cuda, spmv_dia_batched_cuda, spmv_dot_dia_batched_cuda, spmm_dia_cuda,
+           spmm_dia_acc_cuda)
     return {fn.__name__[: -len("_cuda")]: fn.launches for fn in fns}
 
 

@@ -7,7 +7,7 @@ for Matrix Market files, permuted meshes and graph Laplacians.
   so every host array of the hierarchy is the JAX package's bit for bit:
   strength-of-connection filter, aggregation (N-D cubes over a grid
   inferred from the banded offsets, 1-D strips on a band, or greedy over
-  the strength graph by ``csrc/aggregate.cpp``), the near-null tentative
+  the strength graph by ``native.aggregate``), the near-null tentative
   prolongator, the Jacobi-smoothed ``P = (I - 4/(3 lam_max) D^{-1}A) P0``
   and the Galerkin ``A_c = P^T A P``, each level's operator relaid out to a
   grid stencil, a DIA band or kept CSR.  ``AmgHierarchy.setup_s`` splits
@@ -55,7 +55,6 @@ from conjugategradient_tpu_torch.core.formats import (
     torch_dtype,
 )
 from conjugategradient_tpu_torch.core.io import from_scipy, to_scipy
-from conjugategradient_tpu_torch.ops import _build
 from conjugategradient_tpu_torch.ops.precision import no_tf32
 from conjugategradient_tpu_torch.ops.spmv import spmv, spmv_csr
 from conjugategradient_tpu_torch.precond.smoothers import chebyshev_smooth, jacobi_smooth
@@ -232,7 +231,7 @@ def _infer_grid(
 
 def _aggregate_python(indptr, indices, data) -> Tuple[np.ndarray, int]:
     """Vanek's three passes as a Python loop: the twin of
-    ``csrc/aggregate.cpp``."""
+    ``native.aggregate`` (``csrkit_aggregate``)."""
     n = len(indptr) - 1
     agg = np.full(n, -1, dtype=np.int64)
     n_agg = 0
@@ -271,8 +270,12 @@ def _aggregate(S: sp.csr_matrix, impl: str = "native") -> Tuple[np.ndarray, int]
     is untouched; pass 2 attaches leftovers to their most strongly
     connected aggregate; pass 3 groups what remains into fresh aggregates.
     Returns (aggregate id per node, number of aggregates).  ``impl="native"``
-    runs ``csrc/aggregate.cpp`` (built by ``ops._build.build_host``; a
-    failed build raises), ``"python"`` the loop it is tested against."""
+    runs ``native.aggregate`` (the host kit, built by
+    ``ops._build.build_host``; a failed build raises, and only where there
+    is no host compiler does the Python loop run), ``"python"`` the loop
+    it is tested against."""
+    from conjugategradient_tpu_torch import native
+
     n = S.shape[0]
     indptr, indices, data = S.indptr, S.indices, np.abs(S.data)
     if impl == "python":
@@ -286,10 +289,8 @@ def _aggregate(S: sp.csr_matrix, impl: str = "native") -> Tuple[np.ndarray, int]
         raise ValueError("malformed strength graph: indptr, indices and data disagree")
     if ix.size and (ix.min() < 0 or ix.max() >= n):
         raise ValueError("malformed strength graph: a column index is out of range")
-    out = np.empty(n, dtype=np.int64)
-    lib = _build.load_host("aggregate")
-    n_agg = lib.cg_aggregate(n, ip.ctypes.data, ix.ctypes.data, ad.ctypes.data, out.ctypes.data)
-    return out, int(n_agg)
+    out = native.aggregate(ip, ix, ad)
+    return _aggregate_python(indptr, indices, data) if out is None else out
 
 
 def _tentative(agg: np.ndarray, n_agg: int, z: np.ndarray) -> sp.csr_matrix:

@@ -26,7 +26,16 @@ from typing import Callable, Optional
 import torch
 
 from conjugategradient_tpu_torch.ops.blas import residual_norm
-from conjugategradient_tpu_torch.solvers.cg import CGResult, _apply_M, _safe_div, _setup
+from conjugategradient_tpu_torch.ops.cuda_dia import spmv_dia_batched_cuda
+from conjugategradient_tpu_torch.solvers.cg import (
+    CGResult,
+    _apply_M,
+    _safe_div,
+    _setup,
+    block_residual,
+    check_batched,
+    columns_dot,
+)
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 
@@ -143,3 +152,86 @@ def bicgstab_solve_traced(
     result = CGResult(x=state[0], iterations=iterations, residual=res,
                       converged=bool(res < tol) and iterations >= policy.min_iteration)
     return result, history
+
+
+def bicgstab_block(op: Callable, B: torch.Tensor, X: Optional[torch.Tensor],
+                   policy: ConvergencePolicy, M: Optional[Callable] = None):
+    """THE per-row BiCGStab of a ``(k, n)`` block, shared by
+    ``bicgstab_solve_multi`` and ``bicgstab_solve_batched``: ``op`` maps a
+    ``(k, n)`` block row by row, ``M`` is an optional ``(k, n) -> (k, n)``
+    right preconditioner, ``X`` the start (``None``: zeros).  Each row runs
+    its own rho, alpha and omega (``_safe_div`` keeps a row's breakdown
+    from poisoning the block) and its own ``max_iteration``; a converged row
+    freezes under masked updates, and the host reads one device scalar per
+    iteration.  Returns ``(X, iterations, residual, converged)``, each with
+    the leading k axis."""
+    k, n = B.shape
+    dtype, dev = B.dtype, B.device
+    tol = torch.tensor(policy.tol, dtype=dtype, device=dev)
+    min_iter = policy.min_iteration
+    max_iter = policy.resolve_max(n)
+    cdot = columns_dot
+    cexp = lambda s: s[:, None]
+
+    X = torch.zeros_like(B) if X is None else X
+    R = B - op(X)
+    Rhat = R  # a fixed shadow residual per row
+    rr = cdot(R, R)
+    res_of = block_residual(policy, rr)
+    onek = torch.ones(k, dtype=dtype, device=dev)
+    Pd, V = torch.zeros_like(R), torch.zeros_like(R)
+    rho, alpha, omega = onek, onek, onek
+    it = torch.zeros(k, dtype=torch.int32, device=dev)
+    while True:
+        active = ((it < min_iter) | (res_of(R, rr) >= tol)) & (it < max_iter)
+        if not bool(active.any()):
+            break
+        rho_new = cdot(Rhat, R)
+        beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
+        Pd2 = R + cexp(beta) * (Pd - cexp(omega) * V)
+        Phat = M(Pd2) if M is not None else Pd2
+        V2 = op(Phat)
+        alpha2 = _safe_div(rho_new, cdot(Rhat, V2))
+        S = R - cexp(alpha2) * V2
+        Shat = M(S) if M is not None else S
+        T = op(Shat)
+        omega2 = _safe_div(cdot(T, S), cdot(T, T))
+        X2 = X + cexp(alpha2) * Phat + cexp(omega2) * Shat
+        R2 = S - cexp(omega2) * T
+        am = cexp(active)
+        X = torch.where(am, X2, X)
+        R2 = torch.where(am, R2, R)
+        Pd = torch.where(am, Pd2, Pd)
+        V = torch.where(am, V2, V)
+        rho = torch.where(active, rho_new, rho)
+        alpha = torch.where(active, alpha2, alpha)
+        omega = torch.where(active, omega2, omega)
+        rr = torch.where(active, cdot(R2, R2), rr)
+        R = R2
+        it = it + active.to(torch.int32)
+    res = res_of(R, rr)
+    return X, it, res, (res < tol) & (it >= min_iter)
+
+
+def bicgstab_solve_batched(
+    data: torch.Tensor,
+    offsets,
+    shape,
+    B: torch.Tensor,
+    X0: Optional[torch.Tensor] = None,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+) -> CGResult:
+    """Solve ``A_j x_j = b_j`` for k nonsymmetric DIA systems of one
+    sparsity by BiCGStab, the counterpart of ``jax.vmap`` over
+    ``bicgstab_solve``: ``cg_solve_batched``'s contract (``data`` ``(k,
+    ndiags, n)``, ``B`` and ``X0`` ``(k, n)``, a ``CGResult`` with the
+    leading k axis), two batched kernel #4 launches an iteration
+    (``ops.cuda_dia.spmv_dia_batched_cuda``) and one host read.  The
+    implicit adjoint runs it on the transposed legs of
+    ``solvers.diff.dia_transpose_traced`` and the negated offsets."""
+    check_batched(data, offsets, shape, B)
+    offsets = tuple(int(o) for o in offsets)
+    X0 = None if X0 is None else X0.to(B.dtype).expand_as(B).contiguous()
+    X, it, res, converged = bicgstab_block(lambda P: spmv_dia_batched_cuda(data, offsets, P),
+                                           B, X0, policy)
+    return CGResult(x=X, iterations=it, residual=res, converged=converged)

@@ -34,7 +34,11 @@ import torch
 from conjugategradient_tpu_torch.core.formats import is_host
 from conjugategradient_tpu_torch.ops.blas import dot as _dot
 from conjugategradient_tpu_torch.ops.blas import residual_norm
-from conjugategradient_tpu_torch.ops.cuda_dia import launch_counts
+from conjugategradient_tpu_torch.ops.cuda_dia import (
+    launch_counts,
+    spmv_dia_batched_cuda,
+    spmv_dot_dia_batched_cuda,
+)
 from conjugategradient_tpu_torch.ops.spmv import as_operator
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, NotConvergedError
 
@@ -42,7 +46,9 @@ from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy, NotCon
 @dataclasses.dataclass(frozen=True)
 class CGResult:
     """Solve outcome.  ``converged=False`` means max_iteration was exhausted;
-    ``raise_if_diverged()`` turns that into an exception."""
+    ``raise_if_diverged()`` turns that into an exception.  A batched solve
+    (``cg_solve_batched``) carries a leading k axis in every field:
+    iterations, residual and converged are then ``(k,)`` tensors."""
 
     x: torch.Tensor
     iterations: int
@@ -50,10 +56,11 @@ class CGResult:
     converged: bool
 
     def raise_if_diverged(self) -> "CGResult":
-        if not self.converged:
+        if not bool(torch.as_tensor(self.converged).all()):
+            res = torch.as_tensor(self.residual)
+            shown = f"{float(res):.3e}" if res.ndim == 0 else str(res.tolist())
             raise NotConvergedError(
-                f"CG did not converge within {self.iterations} iterations "
-                f"(residual={float(self.residual):.3e})"
+                f"CG did not converge within {self.iterations} iterations (residual={shown})"
             )
         return self
 
@@ -412,3 +419,124 @@ def cg_solve_chunked(
     x, r, p, rz, rr, _ = bufs
     return CGResult(x=x, iterations=int(it_f), residual=residual_norm(r, rr, rr0, policy.norm),
                     converged=bool(done))
+
+
+# ---------------------------------------------------------------------------
+# (k, n) blocks: k recurrences at once, one per row
+# ---------------------------------------------------------------------------
+
+
+def columns_dot(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """The ``(k,)`` dots of the rows of two ``(k, n)`` blocks."""
+    return torch.sum(U * V, dim=1)
+
+
+def block_residual(policy: ConvergencePolicy, rr0: torch.Tensor) -> Callable:
+    """``res_of(R, rr)``: the ``(k,)`` residuals of a ``(k, n)`` block in
+    the policy's norm from its squared norms ``rr`` (a row whose ``rr0`` is
+    0 takes 1 for it)."""
+
+    def res_of(R, rr):
+        if policy.norm == "l2":
+            return torch.sqrt(rr)
+        if policy.norm == "linf":
+            return torch.amax(torch.abs(R), dim=1)
+        if policy.norm == "rel_l2":
+            return torch.sqrt(rr / torch.where(rr0 == 0, torch.ones_like(rr0), rr0))
+        raise ValueError(policy.norm)
+
+    return res_of
+
+
+def cg_block(op: Callable, op_dot: Callable, B: torch.Tensor, X: Optional[torch.Tensor],
+             policy: ConvergencePolicy, M: Optional[Callable] = None):
+    """THE per-row CG of a ``(k, n)`` block, shared by ``cg_solve_multi``
+    and ``cg_solve_batched``: ``op(X) -> A X`` (the initial residual) and
+    ``op_dot(P) -> (A P, the (k,) dots p . Ap)`` row by row, ``M`` an optional ``(k, n) -> (k, n)`` preconditioner, ``X``
+    the start (``None``: zeros).  Each row runs its own scalars and
+    ``max_iteration``; a row that has converged (or run out) freezes under
+    masked updates (``torch.where``: exact) until every row is done, and the
+    host reads one device scalar per iteration (whether any row is still
+    active).  Returns ``(X, iterations, residual, converged)``, each with
+    the leading k axis."""
+    n, dev = B.shape[1], B.device
+    tol = torch.tensor(policy.tol, dtype=B.dtype, device=dev)
+    min_iter = policy.min_iteration
+    max_iter = policy.resolve_max(n)
+    cexp = lambda s: s[:, None]
+
+    X = torch.zeros_like(B) if X is None else X
+    R = B - op(X)
+    Z = M(R) if M is not None else R
+    P = Z
+    rz = columns_dot(R, Z)
+    rr = columns_dot(R, R)
+    res_of = block_residual(policy, rr)
+    it = torch.zeros(B.shape[0], dtype=torch.int32, device=dev)
+
+    def active_of(R, rr, it):
+        return ((it < min_iter) | (res_of(R, rr) >= tol)) & (it < max_iter)
+
+    while True:
+        active = active_of(R, rr, it)
+        if not bool(active.any()):
+            break
+        AP, pap = op_dot(P)
+        zero = torch.zeros_like(rz)
+        alpha = torch.where(active, _safe_div(rz, pap), zero)
+        X = X + cexp(alpha) * P
+        R2 = R - cexp(alpha) * AP
+        Z2 = M(R2) if M is not None else R2
+        rz2 = columns_dot(R2, Z2)
+        rr2 = columns_dot(R2, R2)
+        beta = torch.where(active, _safe_div(rz2, rz), zero)
+        P = torch.where(cexp(active), Z2 + cexp(beta) * P, P)
+        rz = torch.where(active, rz2, rz)
+        rr = torch.where(active, rr2, rr)
+        R = torch.where(cexp(active), R2, R)
+        it = it + active.to(torch.int32)
+    res = res_of(R, rr)
+    return X, it, res, (res < tol) & (it >= min_iter)
+
+
+def check_batched(data: torch.Tensor, offsets, shape, B: torch.Tensor) -> None:
+    """Raise unless ``data`` ``(k, ndiags, n)`` on ``offsets`` and ``B``
+    ``(k, n)`` make k square DIA systems of ``shape``."""
+    if data.ndim != 3 or B.ndim != 2:
+        raise ValueError(f"batched solve: data must be (k, ndiags, n) and B (k, n), got "
+                         f"{tuple(data.shape)} and {tuple(B.shape)}")
+    k, nd, n = data.shape
+    if tuple(shape) != (n, n) or tuple(B.shape) != (k, n) or nd != len(offsets):
+        raise ValueError(f"batched solve: data {tuple(data.shape)}, {len(offsets)} offsets, shape "
+                         f"{tuple(shape)} and B {tuple(B.shape)} do not agree")
+
+
+def cg_solve_batched(
+    data: torch.Tensor,
+    offsets,
+    shape,
+    B: torch.Tensor,
+    X0: Optional[torch.Tensor] = None,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+) -> CGResult:
+    """Solve ``A_j x_j = b_j`` for k DIA systems of one sparsity by CG, the
+    counterpart of ``jax.vmap(lambda d, b: cg_solve(DiaMatrix(d, offsets,
+    shape), b, policy=policy))``.
+
+    ``data`` is ``(k, ndiags, n)`` (member j's legs ``data[j]`` on
+    ``offsets``), ``B`` and ``X0`` ``(k, n)``, all on one device.  Each
+    iteration runs one batched kernel #4 launch with the fused p.Ap
+    (``ops.cuda_dia.spmv_dot_dia_batched_cuda``, its twin on a CPU tensor;
+    the initial residual takes one ``spmv_dia_batched_cuda``) and one host
+    read; each member keeps its own scalars and its own count and freezes
+    once it has converged, as the JAX ``while_loop`` under vmap does
+    (``cg_block``).  Returns a ``CGResult`` whose fields carry the
+    leading k axis: x ``(k, n)``; iterations (int32), residual and
+    converged ``(k,)``."""
+    check_batched(data, offsets, shape, B)
+    offsets = tuple(int(o) for o in offsets)
+    X0 = None if X0 is None else X0.to(B.dtype).expand_as(B).contiguous()
+    X, it, res, converged = cg_block(lambda X: spmv_dia_batched_cuda(data, offsets, X),
+                                     lambda P: spmv_dot_dia_batched_cuda(data, offsets, P),
+                                     B, X0, policy)
+    return CGResult(x=X, iterations=it, residual=res, converged=converged)

@@ -23,9 +23,19 @@ device (per-diagonal rolls and masks, equal to ``formats.transpose``).  On
 a CUDA ``data`` both solves run kernel #4.  The backward pass is not
 itself differentiable (no double backward).
 
-``torch.func.vmap`` cannot batch these functions: the solvers read one
-scalar to the host per iteration, which a batching transform cannot trace.
-Under vmap they raise; solve a batch in a Python loop instead.
+Both batch under ``torch.func.vmap``, forward and backward, as the JAX
+package's ``custom_vjp``s batch under ``jax.vmap``: each Function's vmap
+rule (``_batched_solve``) solves the whole batch at once, ``data`` and
+``b`` batched by ``cg_solve_batched`` / ``bicgstab_solve_batched`` on the
+batched kernel #4, ``b`` alone by ``cg_solve_multi`` /
+``bicgstab_solve_multi`` on kernel #5 (one matrix, k columns), ``data``
+alone by the same batched solvers with ``b`` broadcast.  The backward
+pass solves its adjoint through the same Function, so under
+``torch.func.vmap(torch.func.grad(loss))`` the k adjoint solves batch too
+(the solvers read a scalar to the host every iteration, which a batching
+transform cannot trace, so no solve runs on a batched tensor).
+``_project_onto_diagonals`` and ``dia_transpose_traced`` take a leading
+batch axis.
 """
 
 from __future__ import annotations
@@ -36,38 +46,61 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from conjugategradient_tpu_torch.core.formats import DiaMatrix
-from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
-from conjugategradient_tpu_torch.solvers.cg import cg_solve
+from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve, bicgstab_solve_batched
+from conjugategradient_tpu_torch.solvers.cg import cg_solve, cg_solve_batched
+from conjugategradient_tpu_torch.solvers.multi import bicgstab_solve_multi, cg_solve_multi
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
-_VMAP = ("the implicit-adjoint solves cannot run under torch.func.vmap: the solvers read a "
-         "scalar to the host every iteration; solve each member of the batch in a loop "
-         "(ROADMAP: diff's vmap gap)")
-
-
 def _project_onto_diagonals(lam: torch.Tensor, x: torch.Tensor, offsets, n: int) -> torch.Tensor:
-    """dL/d data[k, i] = -lam[i] * x[i + off_k]: the projection of
-    -lam x^T onto the stored diagonals (shared by both adjoints)."""
+    """dL/d data[..., k, i] = -lam[..., i] * x[..., i + off_k]: the
+    projection of -lam x^T onto the stored diagonals (shared by both
+    adjoints), for ``(n,)`` vectors or a ``(k, n)`` batch."""
     i = torch.arange(n, device=x.device)
     rows = []
     for off in offsets:
         valid = (i + off >= 0) & (i + off < n)
-        rows.append(torch.where(valid, -lam * torch.roll(x, -off), 0.0))
-    return torch.stack(rows)
+        rows.append(torch.where(valid, -lam * torch.roll(x, -off, dims=-1), 0.0))
+    return torch.stack(rows, dim=-2)
 
 
 def dia_transpose_traced(data: torch.Tensor, offsets, n: int) -> torch.Tensor:
     """DIA transpose on the device: ``A[i, i+off] = data[k, i]`` becomes
     ``A^T[i, i-off] = data[k, i-off]``, per-diagonal rolls and masks
-    (differentiable).  Returns the transposed data, row k holding offset
-    ``-offsets[k]``: ``formats.transpose``'s data with its rows in this
-    order."""
+    (differentiable); ``(ndiags, n)`` legs or a ``(k, ndiags, n)`` batch.
+    Returns the transposed data, row k holding offset ``-offsets[k]``:
+    ``formats.transpose``'s data with its rows in this order."""
     i = torch.arange(n, device=data.device)
     rows = []
     for k, off in enumerate(offsets):
         valid = (i - off >= 0) & (i - off < n)
-        rows.append(torch.where(valid, torch.roll(data[k], off), 0.0))
-    return torch.stack(rows)
+        rows.append(torch.where(valid, torch.roll(data[..., k, :], off, dims=-1), 0.0))
+    return torch.stack(rows, dim=-2)
+
+
+_SINGLE = {"cg": cg_solve, "bicgstab": bicgstab_solve}
+_BATCHED = {"cg": cg_solve_batched, "bicgstab": bicgstab_solve_batched}
+_MULTI = {"cg": cg_solve_multi, "bicgstab": bicgstab_solve_multi}
+
+
+def _solve(kind: str, data, b, offsets, shape, policy) -> torch.Tensor:
+    """x = A^-1 b for one DIA system by ``kind``'s solver."""
+    A = DiaMatrix(data.contiguous(), offsets, shape)
+    return _SINGLE[kind](A, b.contiguous(), policy=policy).x
+
+
+def _batched_solve(kind: str, info, in_dims, data, b, offsets, shape, policy):
+    """The vmap rule of the implicit solves: ``(x, 0)`` with x ``(k, n)``
+    for the batch dimensions ``in_dims`` of ``data`` and ``b``."""
+    d_dim, b_dim = in_dims[:2]
+    if d_dim is None and b_dim is None:
+        return _solve(kind, data, b, offsets, shape, policy), None
+    if d_dim is None:  # one matrix, k right-hand sides: kernel #5
+        A = DiaMatrix(data.contiguous(), offsets, shape)
+        B = b.movedim(b_dim, -1).contiguous()
+        return _MULTI[kind](A, B, policy=policy).x.T, 0
+    data = data.movedim(d_dim, 0).contiguous()
+    B = b.movedim(b_dim, 0) if b_dim is not None else b.expand(info.batch_size, -1)
+    return _BATCHED[kind](data, offsets, shape, B.contiguous(), policy=policy).x, 0
 
 
 class CgSolveImplicit(torch.autograd.Function):
@@ -76,7 +109,7 @@ class CgSolveImplicit(torch.autograd.Function):
 
     @staticmethod
     def forward(data, b, offsets, shape, policy):
-        return cg_solve(DiaMatrix(data.contiguous(), offsets, shape), b, policy=policy).x
+        return _solve("cg", data, b, offsets, shape, policy)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -88,14 +121,14 @@ class CgSolveImplicit(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         data, x = ctx.saved_tensors
-        A = DiaMatrix(data.contiguous(), ctx.offsets, ctx.shape)
-        # adjoint solve: A lambda = g (A symmetric)
-        lam = cg_solve(A, g.contiguous(), policy=ctx.policy).x
+        # adjoint solve: A lambda = g (A symmetric), through the Function so
+        # that it batches under vmap
+        lam = CgSolveImplicit.apply(data, g, ctx.offsets, ctx.shape, ctx.policy)
         return _project_onto_diagonals(lam, x, ctx.offsets, ctx.shape[0]), lam, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        raise NotImplementedError(_VMAP)
+    def vmap(info, in_dims, data, b, offsets, shape, policy):
+        return _batched_solve("cg", info, in_dims, data, b, offsets, shape, policy)
 
 
 class BicgstabSolveImplicit(torch.autograd.Function):
@@ -105,7 +138,7 @@ class BicgstabSolveImplicit(torch.autograd.Function):
 
     @staticmethod
     def forward(data, b, offsets, shape, policy):
-        return bicgstab_solve(DiaMatrix(data.contiguous(), offsets, shape), b, policy=policy).x
+        return _solve("bicgstab", data, b, offsets, shape, policy)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -118,14 +151,15 @@ class BicgstabSolveImplicit(torch.autograd.Function):
     def backward(ctx, g):
         data, x = ctx.saved_tensors
         n = ctx.shape[0]
-        AT = DiaMatrix(dia_transpose_traced(data, ctx.offsets, n).contiguous(),
-                       tuple(-o for o in ctx.offsets), ctx.shape)
-        lam = bicgstab_solve(AT, g.contiguous(), policy=ctx.policy).x
+        # adjoint solve: A^T lambda = g, through the Function on the
+        # transposed legs so that it batches under vmap
+        lam = BicgstabSolveImplicit.apply(dia_transpose_traced(data, ctx.offsets, n), g,
+                                          tuple(-o for o in ctx.offsets), ctx.shape, ctx.policy)
         return _project_onto_diagonals(lam, x, ctx.offsets, n), lam, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        raise NotImplementedError(_VMAP)
+    def vmap(info, in_dims, data, b, offsets, shape, policy):
+        return _batched_solve("bicgstab", info, in_dims, data, b, offsets, shape, policy)
 
 
 def cg_solve_implicit(

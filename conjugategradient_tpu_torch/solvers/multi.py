@@ -34,7 +34,8 @@ from conjugategradient_tpu_torch.ops.cuda_dia import spmm_dia_cuda
 from conjugategradient_tpu_torch.ops.spmm import spmm
 from conjugategradient_tpu_torch.ops.spmv import prepare
 from conjugategradient_tpu_torch.ops.stencil import spmm_columns
-from conjugategradient_tpu_torch.solvers.cg import _safe_div
+from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_block
+from conjugategradient_tpu_torch.solvers.cg import cg_block, columns_dot
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 
@@ -85,22 +86,6 @@ def as_multi_preconditioner(h):
     return M
 
 
-def _res_of(policy, rr0):
-    """Per-column residual of a ``(k, n)`` block in the policy's norm, from
-    its squared norms ``rr``."""
-
-    def res_of(R, rr):
-        if policy.norm == "l2":
-            return torch.sqrt(rr)
-        if policy.norm == "linf":
-            return torch.amax(torch.abs(R), dim=1)
-        if policy.norm == "rel_l2":
-            return torch.sqrt(rr / torch.where(rr0 == 0, torch.ones_like(rr0), rr0))
-        raise ValueError(policy.norm)
-
-    return res_of
-
-
 def bicgstab_solve_multi(
     A,
     B: torch.Tensor,
@@ -122,55 +107,10 @@ def bicgstab_solve_multi(
     (n, k) right preconditioner (``as_multi_preconditioner`` for the
     V-cycle).  ``use_pallas`` is kept for parity and changes nothing.
     """
-    n, k = B.shape
-    dtype, dev = B.dtype, B.device
-    op = _as_multi_operator(A, dev)
+    op = _as_multi_operator(A, B.device)
     M_work = None if M is None else (lambda R: M(R.T).T.contiguous())
-    tol = torch.tensor(policy.tol, dtype=dtype, device=dev)
-    min_iter = policy.min_iteration
-    max_iter = policy.resolve_max(n)
-    cdot = lambda U, V: torch.sum(U * V, dim=1)
-    cexp = lambda s: s[:, None]
-
-    Bt = B.T.contiguous()
-    X = torch.zeros_like(Bt) if X0 is None else X0.to(dtype).T.contiguous()
-    R = Bt - op(X)
-    Rhat = R  # a fixed shadow residual per column
-    rr = cdot(R, R)
-    res_of = _res_of(policy, rr)
-    onek = torch.ones(k, dtype=dtype, device=dev)
-    Pd, V = torch.zeros_like(R), torch.zeros_like(R)
-    rho, alpha, omega = onek, onek, onek
-    it = torch.zeros(k, dtype=torch.int32, device=dev)
-    while True:
-        active = ((it < min_iter) | (res_of(R, rr) >= tol)) & (it < max_iter)
-        if not bool(active.any()):
-            break
-        rho_new = cdot(Rhat, R)
-        beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
-        Pd2 = R + cexp(beta) * (Pd - cexp(omega) * V)
-        Phat = M_work(Pd2) if M_work is not None else Pd2
-        V2 = op(Phat)
-        alpha2 = _safe_div(rho_new, cdot(Rhat, V2))
-        S = R - cexp(alpha2) * V2
-        Shat = M_work(S) if M_work is not None else S
-        T = op(Shat)
-        omega2 = _safe_div(cdot(T, S), cdot(T, T))
-        X2 = X + cexp(alpha2) * Phat + cexp(omega2) * Shat
-        R2 = S - cexp(omega2) * T
-        am = cexp(active)
-        X = torch.where(am, X2, X)
-        R2 = torch.where(am, R2, R)
-        Pd = torch.where(am, Pd2, Pd)
-        V = torch.where(am, V2, V)
-        rho = torch.where(active, rho_new, rho)
-        alpha = torch.where(active, alpha2, alpha)
-        omega = torch.where(active, omega2, omega)
-        rr = torch.where(active, cdot(R2, R2), rr)
-        R = R2
-        it = it + active.to(torch.int32)
-    res = res_of(R, rr)
-    converged = (res < tol) & (it >= min_iter)
+    X = None if X0 is None else X0.to(B.dtype).T.contiguous()
+    X, it, res, converged = bicgstab_block(op, B.T.contiguous(), X, policy, M_work)
     return MultiCGResult(x=X.T.contiguous(), iterations=it, residual=res, converged=converged)
 
 
@@ -192,48 +132,13 @@ def cg_solve_multi(
     preconditioner (``as_multi_preconditioner`` for MGCG).  ``use_pallas`` is kept for parity and changes nothing
     (see ``ops.spmv.as_operator``).
     """
-    n, k = B.shape
-    dtype = B.dtype
-    dev = B.device
-    op = _as_multi_operator(A, dev)
+    op = _as_multi_operator(A, B.device)
     M_work = None if M is None else (lambda R: M(R.T).T.contiguous())
-    tol = torch.tensor(policy.tol, dtype=dtype, device=dev)
-    min_iter = policy.min_iteration
-    max_iter = policy.resolve_max(n)
-    cdot = lambda U, V: torch.sum(U * V, dim=1)
-    cexp = lambda s: s[:, None]
+    X = None if X0 is None else X0.to(B.dtype).T.contiguous()
 
-    Bt = B.T.contiguous()
-    X = torch.zeros_like(Bt) if X0 is None else X0.to(dtype).T.contiguous()
-    R = Bt - op(X)
-    Z = M_work(R) if M_work is not None else R
-    P = Z
-    rz = cdot(R, Z)
-    rr = cdot(R, R)
-    res_of = _res_of(policy, rr)
-    it = torch.zeros(k, dtype=torch.int32, device=dev)
-
-    def active_of(R, rr, it):
-        return ((it < min_iter) | (res_of(R, rr) >= tol)) & (it < max_iter)
-
-    while True:
-        active = active_of(R, rr, it)
-        if not bool(active.any()):
-            break
+    def op_dot(P):
         AP = op(P)
-        zero = torch.zeros_like(rz)
-        alpha = torch.where(active, _safe_div(rz, cdot(P, AP)), zero)
-        X = X + cexp(alpha) * P
-        R2 = R - cexp(alpha) * AP
-        Z2 = M_work(R2) if M_work is not None else R2
-        rz2 = cdot(R2, Z2)
-        rr2 = cdot(R2, R2)
-        beta = torch.where(active, _safe_div(rz2, rz), zero)
-        P = torch.where(cexp(active), Z2 + cexp(beta) * P, P)
-        rz = torch.where(active, rz2, rz)
-        rr = torch.where(active, rr2, rr)
-        R = torch.where(cexp(active), R2, R)
-        it = it + active.to(torch.int32)
-    res = res_of(R, rr)
-    converged = (res < tol) & (it >= min_iter)
+        return AP, columns_dot(P, AP)
+
+    X, it, res, converged = cg_block(op, op_dot, B.T.contiguous(), X, policy, M_work)
     return MultiCGResult(x=X.T.contiguous(), iterations=it, residual=res, converged=converged)

@@ -5,8 +5,8 @@ The host generators and the workload table are copies: they must be
 bit-identical and field-for-field equal.  ``cg_solve_multi`` in fp64 runs
 the same per-column recurrence as the JAX package's, so the per-column
 iteration counts are equal, with or without the multi-RHS V-cycle.  Every
-facade method the port does not have yet (``native``, ``sharded_cg``,
-``mesh=``) raises ``NotImplementedError`` naming its ROADMAP item; the
+facade method the port does not have yet (``sharded_cg``, ``mesh=``)
+raises ``NotImplementedError`` naming its ROADMAP item; the
 methods it has take the JAX facade's iteration counts.
 """
 
@@ -168,10 +168,8 @@ def test_facade_multi_rhs_routes():
 
 #: each facade method's outcome on the port: ``None`` where it is ported
 #: (it must then equal the JAX facade), else the error and its message
-_FAMILIES = (NotImplementedError, "ROADMAP queue 1: solver families")
 FACADE = {
-    "native": _FAMILIES,
-    **dict.fromkeys(("cheb_cg", "jacobi_cg", "amg_cg", "bicgstab", "gmres", "fgmres", "minres",
+    **dict.fromkeys(("native", "cheb_cg", "jacobi_cg", "amg_cg", "bicgstab", "gmres", "fgmres", "minres",
                      "idr", "chebyshev", "auto", "bjacobi_bicgstab", "mg_gmres", "lsmr", "cgnr",
                      "cacg", "deflated_cg"), None),
     "sharded_cg": (NotImplementedError, "ROADMAP queue 1: parallel"),
@@ -181,7 +179,7 @@ FACADE = {
 
 
 #: ported methods with no (n, k) route: both facades raise ValueError
-_SINGLE_ONLY = ("cheb_cg", "gmres", "fgmres", "minres", "idr", "chebyshev", "mg_gmres", "lsmr",
+_SINGLE_ONLY = ("native", "cheb_cg", "gmres", "fgmres", "minres", "idr", "chebyshev", "mg_gmres", "lsmr",
                 "cgnr", "cacg", "deflated_cg")
 
 
@@ -221,7 +219,7 @@ def test_unported_facade_methods_raise(method):
             make_deflation(sj.A, k=8, dtype=np.float64), device="cpu")
     r, jr = api.solve(s.A, s.b, device="cpu", **opts, **extra), japi.solve(sj.A, sj.b, **opts)
     assert r.converged and r.iterations == int(jr.iterations)
-    assert np.abs(r.x.numpy() - np.asarray(jr.x)).max() <= 1e-10
+    assert np.abs(np.asarray(r.x) - np.asarray(jr.x)).max() <= 1e-10
     if name in _SINGLE_ONLY:
         with pytest.raises(ValueError, match="does not support"):
             api.solve(s.A, B, device="cpu", **opts)

@@ -1700,3 +1700,99 @@ def test_lobpcg_keeps_tf32_off(cuda, monkeypatch):
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert pinned.converged and orth <= 1e-5
     assert not unpinned.converged or orth_tf32 > 1e-4, (unpinned.iterations, orth_tf32)
+
+
+# -- batched kernel #4 (k members of one sparsity); the host kit ------------
+
+BATCHED_CASES = ["banded", "ragged", "poisson3d", "band 300", "16^3 x 343", "16^3 x 1331"]
+
+
+def _batched_members(case, k, dtype, device):
+    """k members of one sparsity: a case's legs times (1 + 0.1 j), stacked
+    (k, ndiags, n) on the card, and a (k, n) x."""
+    A = _many_diagonals(case) if case in SPLIT_CASES else _dia(case, torch.float64)
+    base = torch.as_tensor(A.data, dtype=torch.float64).cpu()
+    data = torch.stack([base * (1 + 0.1 * j) for j in range(k)]).to(device, dtype).contiguous()
+    x = torch.from_numpy(np.random.default_rng(k).standard_normal((k, A.n))).to(device, dtype)
+    return data, tuple(A.offsets), x
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", BATCHED_CASES)
+def test_batched_dia_kernel_members_equal_the_single_kernel(cuda, case, dtype, k):
+    """Member j of the batched #4 (and of its fused p.Ap) is ``spmv_dia_cuda``
+    (``spmv_dot_dia_cuda``) on member j bit for bit, past 256 diagonals
+    too (the chained and split launches of the single plan), and within
+    the single kernel's tolerance of the twin; one launch per group."""
+    data, offs, x = _batched_members(case, k, dtype, cuda)
+    n = x.shape[1]
+    groups = len(cuda_dia.dia_plan(n, len(offs)).groups)
+    cuda_dia.reset_launch_counts()
+    y = cuda_dia.spmv_dia_batched_cuda(data, offs, x)
+    yf, dots = cuda_dia.spmv_dot_dia_batched_cuda(data, offs, x)
+    torch.cuda.synchronize()
+    assert cuda_dia.spmv_dia_batched_cuda.launches == groups
+    assert cuda_dia.spmv_dot_dia_batched_cuda.launches_by_dtype[cuda_dia.TAGS[dtype]] == groups
+    assert torch.equal(y, yf) and dots.shape == (k,)
+    ref = cuda_dia.spmv_dia_batched_ref(data, offs, x)
+    rel = REL64 if dtype == torch.float64 else REL
+    assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+    for j in range(k):
+        A = DiaMatrix(data[j], offs, (n, n))
+        assert torch.equal(y[j], spmv_dia_cuda(A, x[j]))
+        yj, dj = spmv_dot_dia_cuda(A, x[j])
+        assert torch.equal(yf[j], yj) and torch.equal(dots[j], dj)
+
+
+def test_batched_dia_kernel_reads_nothing_outside_and_refuses(cuda):
+    """x carved out of a NaN buffer: NaN exactly where the twin has it;
+    bf16 legs, mixed dtypes, a shape mismatch and CPU legs raise."""
+    data, offs, x = _batched_members("ragged", 3, torch.float32, cuda)
+    xc = _in_nan_buffer(x)
+    xc[:, 0] = float("nan")
+    y = cuda_dia.spmv_dia_batched_cuda(data, offs, xc)
+    ref = cuda_dia.spmv_dia_batched_ref(data, offs, xc)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(y), nan) and 0 < int(nan.sum()) < nan.numel()
+    with pytest.raises(TypeError, match="no kernel"):
+        cuda_dia.spmv_dia_batched_cuda(data.to(torch.bfloat16), offs, x)
+    with pytest.raises(TypeError, match="no kernel"):
+        cuda_dia.spmv_dia_batched_cuda(data, offs, x.double())
+    with pytest.raises(ValueError, match="do not agree"):
+        cuda_dia.spmv_dia_batched_cuda(data, offs[1:], x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_dia.spmv_dia_batched_cuda(data.cpu(), offs, x)
+
+
+def test_batched_cg_members_equal_single_solves_on_the_card(cuda):
+    """``cg_solve_batched`` on the card: each member's count equals
+    ``cg_solve`` on that member, one fused batched launch an iteration."""
+    from conjugategradient_tpu_torch.solvers.cg import cg_solve_batched
+
+    s = generators.banded_sin_system(4096, 32)
+    k = 4
+    data = torch.stack([torch.from_numpy(s.A.data) * (1 + 0.1 * j) for j in range(k)])
+    data = data.to(cuda, torch.float32).contiguous()
+    B = torch.from_numpy(np.stack([s.b] * k)).to(cuda, torch.float32)
+    pol = ConvergencePolicy(tol=1e-6, norm="rel_l2")
+    cuda_dia.reset_launch_counts()
+    res = cg_solve_batched(data, s.A.offsets, s.A.shape, B, policy=pol)
+    torch.cuda.synchronize()
+    its = res.iterations.tolist()
+    assert bool(res.converged.all())
+    assert cuda_dia.spmv_dot_dia_batched_cuda.launches == max(its)
+    assert cuda_dia.spmv_dia_batched_cuda.launches == 1
+    for j in range(k):
+        single = cg_solve(DiaMatrix(data[j], s.A.offsets, s.A.shape), B[j], policy=pol)
+        assert single.iterations == its[j]
+
+
+def test_native_kit_is_built_on_the_card_machine(cuda):
+    """The kit builds where the card is; where its compiler refuses
+    ``-fopenmp`` it runs serially and the refusal is kept beside it."""
+    from conjugategradient_tpu_torch import native
+
+    assert native.available()
+    if native.threads() == 0:
+        assert "-fopenmp" in _build.host_library_path("csrkit").with_suffix(".log").read_text()

@@ -464,40 +464,29 @@ def test_products_per_route_match_the_recurrence(route, monkeypatch):
     assert r.converged and len(calls) == want(r)
 
 
-#: the methods the family's slice left to later slices: ``None`` where a
-#: later slice ported it (a single right-hand side then solves, as in the
-#: JAX facade, and a block raises the JAX facade's ``ValueError``), else
-#: the ROADMAP item named by the ``NotImplementedError``
-UNPORTED = {
-    "lsmr": None, "cgnr": None, "cacg": None, "jacobi_cacg": None, "deflated_cg": None,
-    "native": "native",
-}
+#: the methods the family's slice left to later slices, each ported since:
+#: a single right-hand side solves, as in the JAX facade, and a block
+#: raises the JAX facade's ``ValueError``
+UNPORTED = ("lsmr", "cgnr", "cacg", "jacobi_cacg", "deflated_cg", "native")
 
 
 @pytest.mark.parametrize("method", sorted(UNPORTED))
 def test_methods_still_to_port_raise(method):
     s = tgen.tridiagonal_system(16)
     B = np.stack([s.b, s.b], 1)
-    if UNPORTED[method] is None:
-        # past n iterations (CGNR and LSMR square kappa); a small probe for
-        # deflated_cg (k = 4 of m = 8 Lanczos steps on 16 unknowns), each
-        # package from its own start vector, so x is held to the direct
-        # solve here and to the JAX package in the slice's own test files
-        kw = dict(tol=1e-10, norm="rel_l2", max_iteration=2000)
-        if method == "deflated_cg":
-            kw.update(k=4, m=8)
-        r = api.solve(s.A, s.b, method=method, device="cpu", **kw)
-        jr = japi.solve(jgen.tridiagonal_system(16).A, s.b, method=method, **kw)
-        assert r.converged and bool(jr.converged)
-        x_true = oracle.direct_solve(s.A, s.b)
-        assert np.abs(r.x.numpy() - x_true).max() <= 1e-7 * np.abs(x_true).max()
-        with pytest.raises(ValueError, match="does not support"):
-            api.solve(s.A, B, method=method, device="cpu")
-        return
-    msg = f"ROADMAP queue 1: solver families, {UNPORTED[method]}"
-    with pytest.raises(NotImplementedError, match=msg):
-        api.solve(s.A, s.b, method=method, device="cpu")
-    with pytest.raises(NotImplementedError, match=msg):
+    # past n iterations (CGNR and LSMR square kappa); a small probe for
+    # deflated_cg (k = 4 of m = 8 Lanczos steps on 16 unknowns), each
+    # package from its own start vector, so x is held to the direct solve
+    # here and to the JAX package in the slice's own test files
+    kw = dict(tol=1e-10, norm="rel_l2", max_iteration=2000)
+    if method == "deflated_cg":
+        kw.update(k=4, m=8)
+    r = api.solve(s.A, s.b, method=method, device="cpu", **kw)
+    jr = japi.solve(jgen.tridiagonal_system(16).A, s.b, method=method, **kw)
+    assert r.converged and bool(jr.converged)
+    x_true = oracle.direct_solve(s.A, s.b)
+    assert np.abs(np.asarray(r.x) - x_true).max() <= 1e-7 * np.abs(x_true).max()
+    with pytest.raises(ValueError, match="does not support"):
         api.solve(s.A, B, method=method, device="cpu")
 
 

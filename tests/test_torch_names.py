@@ -4,9 +4,9 @@ is found at the port's mirrored path.
 Each JAX ``__init__`` is read with ``ast`` (nothing of it is imported, so
 no ``jax``), for each package the port mirrors: the root, ``core``,
 ``ops``, ``solvers``, ``precond``, ``models`` and ``utils``.  The JAX
-package's ``parallel`` and ``native`` packages have no counterpart yet
-(ROADMAP queue 1: parallel; native).  EXEMPT lists the only names allowed
-to be missing, each with its reason.
+package's ``parallel`` package has no counterpart yet (ROADMAP queue 1:
+parallel).  EXEMPT lists the only names allowed to be missing, each with
+its reason.
 """
 
 import ast
@@ -21,9 +21,6 @@ PACKAGES = ["", "core", "ops", "solvers", "precond", "models", "utils"]
 
 #: (package, name) -> why the port does not have it
 EXEMPT = {
-    ("", "native"): "ROADMAP queue 1: native (the host C++ loader), still to port",
-    ("core", "RowBlockPartition"): "ROADMAP queue 1: parallel, still to port",
-    ("core", "partition_dia"): "ROADMAP queue 1: parallel, still to port",
     ("ops", "dd"): "ROADMAP: not to port (TPU double-float arithmetic)",
     ("ops", "pallas_spmv"): "ROADMAP: not to port (the Pallas kernels' module)",
 }
