@@ -196,6 +196,23 @@ after:
   flagship members, fp64) and ``bicgstab_solve_implicit`` (4 members of
   the twin) within 1e-10 of a loop of single gradients, on the batched #4
   only.
+- The row-block-sharded CG, four shards on the one card (``make_mesh(4,
+  devices=["cuda:0"] * 4)``: what sharding costs, not multi-GPU speed).
+  ``make_distributed_system`` of the flagship per block (207,402 rows
+  padded to 207,404) bit-equal to ``pad_system`` of the full build;
+  ``sharded_cg_solve`` by cg, cg1, pipelined and cacg (s = 4) on 4 shards
+  and on 1, fp64 at the workload's policy (pipelined and cacg at the
+  policies of PAR_PIPE64 and PAR_CACG64) and fp32 at rel_l2 1e-6 from x0
+  = 0: each count within 2 of the single-device solver's at the same
+  policy, kernel #4 once per shard per product (to the count the
+  recurrence implies), the true fp64 ``||r||_2`` below 1e-7 and within 4x
+  scipy's textbook CG (fp64), the true relative residual below 1e-5
+  (fp32); warm medians of 5 of the 4-shard, 1-shard and ``cg_solve``
+  solves with their busy shares (no cuSPARSE kernel on the DIA path) and
+  the halo bytes; ``api.solve(mesh=)`` by jacobi_cg, cacg and jacobi_cacg;
+  sharded def-CG on the outlier system beside single-device def-CG;
+  ``sharded_cg_solve_general`` on the flagship as CSR and HandmadeCL as
+  ELL, their hops and routes.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -227,6 +244,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import os
@@ -262,6 +280,7 @@ from conjugategradient_tpu_torch.core.io import (
     save_matrix_market,
     to_scipy,
 )
+from conjugategradient_tpu_torch.core.partition import pad_system
 from conjugategradient_tpu_torch.models.workloads import WORKLOADS
 from conjugategradient_tpu_torch.ops import _build, cuda_dia, cuda_stencil
 from conjugategradient_tpu_torch.ops.card import (
@@ -288,6 +307,7 @@ from conjugategradient_tpu_torch.ops.cuda_dia import (
     spmv_dia_cuda,
     spmv_dia_ref,
     spmv_dot_dia_cuda,
+    spmv_dot_dia_ref,
 )
 from conjugategradient_tpu_torch.ops.cuda_stencil import (
     cheb_geometry,
@@ -303,6 +323,15 @@ from conjugategradient_tpu_torch.ops.cuda_stencil import (
     wide_view,
 )
 from conjugategradient_tpu_torch.ops.spmm import spmm
+from conjugategradient_tpu_torch.parallel import (
+    Shards,
+    make_mesh,
+    make_sharded_cg,
+    make_sharded_cg_general,
+    sharded_cg_solve,
+)
+from conjugategradient_tpu_torch.parallel.halo import exchange_bytes, extend_rows
+from conjugategradient_tpu_torch.parallel.multihost import make_distributed_system
 from conjugategradient_tpu_torch.ops.spmv import as_operator, prepare
 from conjugategradient_tpu_torch.precond import amg
 from conjugategradient_tpu_torch.precond.multigrid import (
@@ -2084,7 +2113,7 @@ def _reference_storage(fsys, dev, card, count):
     the CSR solve run twice (bit-identity printed), then an n x 4 block
     whose column 0 takes the single solve's count.  The HandmadeCL workload
     as diagonal-first ELL (``csr_to_ell``) both ways.  Returns the flagship
-    CSR and HandmadeCL's."""
+    CSR, HandmadeCL's and (iterations, scipy's witness at that count)."""
     pol = WORKLOADS[FLAGSHIP].policy
     kw = dict(method="cg", tol=pol.tol, norm=pol.norm, min_iteration=pol.min_iteration,
               max_iteration=pol.max_iteration, device=dev)
@@ -2112,6 +2141,7 @@ def _reference_storage(fsys, dev, card, count):
     _require(r_k < FLAGSHIP_CG_TRUE, f"{tag} via make_kernel_operator: true ||r||_2 {r_k:.3e}")
     t0 = time.perf_counter()
     r_w = _textbook_cg_true_l2(csr, fsys, res.iterations)
+    witness = (res.iterations, r_w)
     floor = _eval_floor(fsys.A, fsys.b, res.x.cpu().numpy())
     _require(max(r_true, r_k) <= CG_ORDER_SPREAD * r_w,
              f"{tag}: true ||r||_2 {r_true:.3e} (CSR) / {r_k:.3e} (#4) over {CG_ORDER_SPREAD}x "
@@ -2156,7 +2186,7 @@ def _reference_storage(fsys, dev, card, count):
     print(f"{tag}: csr_to_ell(dia_to_csr) {conv:.3f} s; api.solve {res.iterations} iterations, "
           f"true max|r| {linf:.3e}, wall {wall * 1e3:.3f} ms; via make_kernel_operator "
           f"{res_k.iterations} iterations, true max|r| {linf_k:.3e} [{card}]")
-    return csr, hcsr
+    return csr, hcsr, witness
 
 
 def _ingestion(dev, card, count):
@@ -3609,6 +3639,8 @@ def _cacg_route(tag, A, b, dev, card, count, true_of, cg_its, require=True, **kw
     finally:
         cacg.cacg_loop = loop
     n4, n_outer = spmv_dia_cuda.launches, len(outer)
+    _require(res.outer_steps == n_outer,
+             f"{tag}: the result says {res.outer_steps} outer steps, the loop made {n_outer}")
     want = 1 + 2 * CACG_S * n_outer
     _require(n4 == want, f"{tag}: {n4} spmv_dia launches, {n_outer} outer steps imply {want}")
     _require(len(reads) == 1 + n_outer, f"{tag}: {len(reads)} dot reads, {n_outer} outer steps")
@@ -4861,6 +4893,400 @@ def _native_and_batched(csrs, fsys, dev, card, errs, times, count):
         print(f"  {step.__name__.lstrip('_')}: {time.perf_counter() - t0:.1f} s")
 
 
+#: the parallel phase: the flagship row-block-sharded over PAR_SHARDS shards
+#: of one card (and over 1), by every variant of sharded CG (cacg at s =
+#: PAR_S); a sharded count against the single-device count: a psum adds
+#: the shards' partials in another order than one dot
+PAR_SHARDS = 4
+PAR_S = 4
+PAR_VARIANTS = ("cg", "cg1", "pipelined", "cacg")
+PAR_COUNT_SPREAD = 2
+#: every policy of the phase stops here, so that a stall fails in seconds
+PAR_CAP = 2000
+#: fp64 CA-CG's policy, apart from the workload's: the s-step loop monitors
+#: the true residual (its residual replacement), which stalls at 1.8e-8 to
+#: 6.0e-8 on the flagship in fp64 (FLAGSHIP_CG_TRUE), above the workload's
+#: 1e-8, so it ends at FLAGSHIP_CG_TRUE; and without the workload's 200
+#: minimum iterations, which carry the s-step recurrence past convergence
+#: until its monomial basis breaks down (on the CPU at a 4094-row cut of the
+#: flagship: residual 2.8e146 after 756 iterations).  Capped, so that a
+#: stall fails in seconds
+PAR_CACG64 = ConvergencePolicy(tol=FLAGSHIP_CG_TRUE, norm="l2", max_iteration=PAR_CAP)
+#: fp64 pipelined CG's, from x0 = 0: its u and w recurrences drift from
+#: M r and A u, so it keeps its accuracy neither past convergence (the
+#: workload's 200 minimum iterations) nor from the workload's x0 (i/100, up
+#: to 2074), whose rounding its recurrences carry: the phase prints that
+#: solve, capped at PAR_PIPE_X0_CAP iterations, beside the held one.  The
+#: JAX package's sharded pipelined CG and a textbook numpy one stall there
+#: too (tests/pipelined_witness.py, on the CPU).  rel_l2 1e-12, not 1e-10:
+#: at 1e-10 the true ||r||_2 (1.2e-7) misses FLAGSHIP_CG_TRUE
+PAR_PIPE64 = ConvergencePolicy(tol=1e-12, norm="rel_l2", max_iteration=PAR_CAP)
+PAR_PIPE_X0_CAP = 300
+#: max |x_4 - x_1| / max |x_1| between the 4-shard and the 1-shard solution
+#: of one variant: fp64 1e-9 (measured up to 5.3e-12 on the card, cg1),
+#: fp32 TRUE_REL (measured up to 8.6e-7, pipelined)
+PAR_X_AGREE = {torch.float64: 1e-9, torch.float32: TRUE_REL}
+
+
+def _k4_launches() -> int:
+    """Kernel #4's launches since the last reset, plain and fused."""
+    return spmv_dia_cuda.launches + spmv_dot_dia_cuda.launches
+
+
+def _par_want(variant, num, its, outer) -> int:
+    """Kernel #4's launches the recurrence implies: one a shard per product
+    (cg: the initial residual and one fused product an iteration; cg1 and
+    pipelined: two at the start and one an iteration; cacg: the initial
+    residual and 2s a shard per outer step)."""
+    if variant == "cg":
+        return num * (its + 1)
+    if variant in ("cg1", "pipelined"):
+        return num * (its + 2)
+    return num * (1 + 2 * PAR_S * outer)
+
+
+def _par_profile(tag, fn, wall_ms, card):
+    """One profiled run of ``fn``: the device busy share of ``wall_ms`` and
+    the top kernels; no cuSPARSE kernel may run on the DIA path."""
+    _, prof_ms, rows = _profile_rows(fn)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    names = [k for _, _, k in rows]
+    _require(not any("csr" in k.lower() or "cusparse" in k.lower() for k in names),
+             f"{tag}: a cuSPARSE kernel ran on the DIA path: {names}")
+    print(f"profile {tag}: device time {total_ms:.3f} ms in {sum(r[1] for r in rows)} device ops, "
+          f"busy {total_ms / wall_ms:.1%} of the warm wall {wall_ms:.3f} ms (profiled wall "
+          f"{prof_ms:.3f} ms); top {[(k[:48], round(us / 1e3, 3), n) for us, n, k in rows[:5]]} "
+          f"[{card}]")
+    return total_ms / wall_ms
+
+
+def _pad_csr(csr: CsrMatrix, mult: int) -> CsrMatrix:
+    """``csr`` with identity rows appended up to a multiple of ``mult`` (the
+    rows ``core.partition.pad_system`` appends to a DIA)."""
+    n = csr.n
+    extra = -(-n // mult) * mult - n
+    if not extra:
+        return csr
+    rows = np.arange(n, n + extra, dtype=np.int32)
+    return CsrMatrix(np.concatenate([csr.data, np.ones(extra, csr.data.dtype)]),
+                     np.concatenate([csr.indices, rows]),
+                     np.concatenate([csr.indptr, csr.indptr[-1] + np.arange(1, extra + 1)])
+                     .astype(np.int32),
+                     np.concatenate([csr.row_ids, rows]), (n + extra, n + extra))
+
+
+def _par_assembly(fsys, mesh, dev):
+    """``make_distributed_system`` of the flagship on the mesh: every shard's
+    block equal to ``pad_system`` of the full build, bit for bit."""
+    t0 = time.perf_counter()
+    A, b, x0, n = make_distributed_system(FLAGSHIP, mesh)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    padded, _ = pad_system(fsys, mesh.size)
+    n_local = padded.n // mesh.size
+    for i in range(mesh.size):
+        rows = slice(i * n_local, (i + 1) * n_local)
+        for got, want, what in ((A.data.parts[i], padded.A.data[:, rows], "A"),
+                                (b.parts[i], padded.b[rows], "b"), (x0.parts[i], padded.x0[rows], "x0")):
+            _require(got.device == dev and torch.equal(got.cpu(), torch.from_numpy(want)),
+                     f"make_distributed_system: shard {i}'s {what} differs from pad_system's")
+    print(f"make_distributed_system({FLAGSHIP!r}) on {mesh.size} shards of {dev}: n {n} padded to "
+          f"{A.n}, {n_local} rows a shard, {A.ndiags} diagonals, every block bit-equal to "
+          f"pad_system of the full build; {built:.3f} s")
+    return A, b, x0, padded
+
+
+def _par_variants(fsys, sharded, dev, card, count, witness=None):
+    """Every variant on PAR_SHARDS shards and on 1, fp64 at the workload's
+    policy and x0 (PAR_PIPE64 from x0 = 0 for pipelined, PAR_CACG64 for
+    cacg) and fp32 at rel_l2 TOL from x0 = 0 (as the smoke's other fp32
+    flagship routes):
+    counts within PAR_COUNT_SPREAD of the
+    single-device solver's (cg_solve; cacg_solve for cacg), kernel #4's
+    launches as the recurrence implies, the true residual within the
+    bounds the smoke holds plain CG to, the shard counts' x against each
+    other."""
+    from conjugategradient_tpu_torch.solvers.cacg import cacg_solve
+
+    A4, b4, x04, padded = sharded
+    n = fsys.n
+    pol32 = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=PAR_CAP)
+    pol64 = dataclasses.replace(WORKLOADS[FLAGSHIP].policy, max_iteration=PAR_CAP)
+    pols = {torch.float64: dict(cg=pol64, cg1=pol64, pipelined=PAR_PIPE64, cacg=PAR_CACG64),
+            torch.float32: dict.fromkeys(PAR_VARIANTS, pol32)}
+    meshes = {PAR_SHARDS: make_mesh(PAR_SHARDS, devices=[dev] * PAR_SHARDS),
+              1: make_mesh(1, devices=[dev])}
+    ref = {}  # (dtype, variant) -> the single-device count at the variant's policy
+    # the workload's x0 where the policy is the workload's (or cacg's), else 0
+    from_x0 = lambda dt, variant: dt == torch.float64 and variant != "pipelined"  # noqa: E731
+    for dt, by_variant in pols.items():
+        A_dev = fsys.A.device_put(dt, dev)
+        b_dev = torch.from_numpy(fsys.b).to(dev, dt)
+        for variant, pol in by_variant.items():
+            x0_dev = torch.from_numpy(fsys.x0 if from_x0(dt, variant) else 0 * fsys.x0).to(dev, dt)
+            single = (cacg_solve(A_dev, b_dev, x0_dev, pol, s=PAR_S) if variant == "cacg"
+                      else cg_solve(A_dev, b_dev, x0_dev, pol))
+            _require(single.converged, f"single device {variant} {TAGS[dt]}: {single.iterations}")
+            ref[(dt, variant)] = single.iterations
+    t0 = time.perf_counter()
+    n_cg = ref[(torch.float64, "cg")]
+    reused = witness is not None and witness[0] == n_cg  # the storage phase's, at its count
+    witness = witness[1] if reused else _textbook_cg_true_l2(dia_to_csr(fsys.A), fsys, n_cg)
+    print(f"parallel: single-device counts (cg_solve; cacg_solve s={PAR_S} for cacg) "
+          f"{ {f'{v} {TAGS[dt]}': its for (dt, v), its in ref.items()} }; scipy's textbook CG "
+          f"witness at {n_cg} iterations {witness:.3e} ("
+          f"{'the storage phase' if reused else f'{time.perf_counter() - t0:.1f} s'})")
+    xs = {}
+    for dt, by_variant in pols.items():
+        for num, mesh in meshes.items():
+            for variant, pol in by_variant.items():
+                tag = f"sharded_cg {FLAGSHIP} {num} shard(s) {variant} {TAGS[dt]}"
+                x0 = from_x0(dt, variant)
+                if num == PAR_SHARDS:  # the per-block assembly, padded
+                    args = (A4, b4, x04 if x0 else None)
+                else:
+                    args = (fsys.A, fsys.b, fsys.x0 if x0 else None)
+                _reset_counts()
+                t0 = time.perf_counter()
+                res = sharded_cg_solve(*args, pol, mesh, dtype=dt, variant=variant, s=PAR_S)
+                outer = res.outer_steps if variant == "cacg" else 0
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                x = res.x[:n].cpu().numpy().astype(np.float64)
+                want_its = ref[(dt, variant)]
+                _require(res.converged and abs(res.iterations - want_its) <= PAR_COUNT_SPREAD,
+                         f"{tag}: converged {res.converged} in {res.iterations} iterations, the "
+                         f"single-device solver {want_its}")
+                _require(res.x.device == dev and bool(np.isfinite(x).all()), f"{tag}: bad x")
+                if num == PAR_SHARDS:
+                    _require(not bool(res.x[n:].any()), f"{tag}: the padded rows of x are not 0")
+                k4 = _k4_launches()
+                want = _par_want(variant, num, res.iterations, outer)
+                _require(k4 == want, f"{tag}: {k4} kernel #4 launches, the recurrence implies "
+                         f"{want}")
+                if dt == torch.float64:
+                    true = _true_l2(fsys.A, fsys.b, x)
+                    _require(true <= FLAGSHIP_CG_TRUE and true <= CG_ORDER_SPREAD * witness,
+                             f"{tag}: true ||r||_2 {true:.3e} (bound {FLAGSHIP_CG_TRUE}, "
+                             f"{CG_ORDER_SPREAD}x the witness {witness:.3e})")
+                    what = f"true fp64 ||r||_2 {true:.3e} ({true / witness:.3f}x the witness)"
+                else:
+                    true = _host_rel_residual(fsys.A, fsys.b, x)
+                    _require(true <= TRUE_REL, f"{tag}: true fp64 relative residual {true:.3e}")
+                    what = f"true fp64 rel residual {true:.3e}"
+                xs[(dt, num, variant)] = x
+                count(tag, {"spmv_dia": k4}, fp32=dt == torch.float32)
+                print(f"{tag}: {res.iterations} iterations (single device {want_its}), {what}, "
+                      f"kernel #4 {k4} launches = the recurrence's {want}"
+                      f"{f' ({outer} outer steps)' if variant == 'cacg' else ''}, wall "
+                      f"{wall * 1e3:.3f} ms [{card}]")
+    pol = dataclasses.replace(pol64, min_iteration=0, max_iteration=PAR_PIPE_X0_CAP)
+    res = sharded_cg_solve(A4, b4, x04, pol, meshes[PAR_SHARDS], variant="pipelined")
+    x = res.x[:n].cpu().numpy()
+    print(f"sharded_cg pipelined fp64 from the workload's x0 at its tolerance (not held): "
+          f"converged {res.converged} in {res.iterations} iterations, recurrence residual "
+          f"{float(res.residual):.3e}, true ||r||_2 {_true_l2(fsys.A, fsys.b, x):.3e} [{card}]")
+    for (dt, num, variant), x in xs.items():
+        if num == PAR_SHARDS:
+            x1 = xs[(dt, 1, variant)]
+            dx = np.abs(x - x1).max() / np.abs(x1).max()
+            _require(dx <= PAR_X_AGREE[dt], f"sharded_cg {variant} {TAGS[dt]}: {PAR_SHARDS} shards "
+                     f"against 1, max |dx| / max |x| {dx:.3e} > {PAR_X_AGREE[dt]}")
+            print(f"sharded_cg {variant} {TAGS[dt]}: {PAR_SHARDS} shards against 1, max |dx| / "
+                  f"max |x| {dx:.3e} <= {PAR_X_AGREE[dt]}")
+    return meshes
+
+
+def _par_times(fsys, sharded, meshes, dev, card):
+    """Warm medians of WALL_REPS of the 4-shard, 1-shard and cg_solve
+    solves of the flagship (the cg variant), fp32 at rel_l2 TOL from x0 = 0
+    and fp64 at the workload's policy, each with its device busy share;
+    halo bytes an iteration."""
+    A4, b4, x04, _ = sharded
+    for dt, pol in ((torch.float32, ConvergencePolicy(tol=TOL, norm="rel_l2")),
+                    (torch.float64, WORKLOADS[FLAGSHIP].policy)):
+        A_dev = fsys.A.device_put(dt, dev)
+        b_dev = torch.from_numpy(fsys.b).to(dev, dt)
+        x0_dev = torch.from_numpy(fsys.x0).to(dev, dt)
+        data4 = Shards.map(lambda t: t.to(dt), A4.data)
+        b4d, x04d = Shards.map(lambda t: t.to(dt), b4), Shards.map(lambda t: t.to(dt), x04)
+        if dt == torch.float32:  # from x0 = 0, as the fp32 solves above
+            x0_dev, x04d = torch.zeros_like(x0_dev), Shards.map(torch.zeros_like, x04d)
+        solve4 = make_sharded_cg(A4, meshes[PAR_SHARDS], pol)
+        solve1 = make_sharded_cg(fsys.A, meshes[1], pol)
+        data1 = Shards([A_dev.data], meshes[1])
+        b1, x01 = Shards([b_dev], meshes[1]), Shards([x0_dev], meshes[1])
+        runs = {f"{PAR_SHARDS} shards": lambda: solve4(data4, b4d, x04d),
+                "1 shard": lambda: solve1(data1, b1, x01),
+                "cg_solve": lambda: cg_solve(A_dev, b_dev, x0_dev, pol)}
+        its = {k: fn().iterations for k, fn in runs.items()}
+        for k, fn in runs.items():
+            walls = _wall_median_ms(fn)
+            busy = _par_profile(f"flagship {k} {TAGS[dt]}", fn, walls[0], card)
+            print(f"time flagship {k} {TAGS[dt]} ({its[k]} iterations): warm wall "
+                  f"{_fmt_wall(walls)}, {walls[0] / its[k]:.4f} ms an iteration, device busy "
+                  f"{busy:.1%} [{card}]")
+        _par_shard_kernel(data4, A4.offsets, dev, card)
+        hb = exchange_bytes(A4.offsets, A4.n, PAR_SHARDS, dt.itemsize)
+        print(f"halo bytes {TAGS[dt]}: {hb} bytes an iteration between {PAR_SHARDS} shards "
+              f"({hb // (2 * PAR_SHARDS * dt.itemsize)} rows each way a shard), two psums an "
+              f"iteration (cg) [{card}]")
+    print(f"parallel: {PAR_SHARDS} shards on one card measure what sharding costs (halo copies, "
+          f"psums on one device, {PAR_SHARDS}x the launches of smaller products), not multi-GPU "
+          f"speed")
+
+
+def _par_shard_kernel(data4, offsets, dev, card):
+    """Kernel #4's fused form on one shard's extended DIA (its rows with
+    zero halo rows, as ``parallel.halo.HaloDia`` launches it), timed
+    against its bound, its twin and cuSPARSE's product of the same
+    matrix."""
+    h = max(abs(o) for o in offsets)
+    ext = extend_rows(data4.parts[1], h)
+    L = ext.shape[1]
+    A = DiaMatrix(ext, tuple(offsets), (L, L))
+    rng = np.random.default_rng(SEED + 18)
+    p = torch.from_numpy(rng.standard_normal(L)).to(dev, ext.dtype)
+    y, dot = spmv_dot_dia_cuda(A, p)
+    y_ref, dot_ref = spmv_dot_dia_ref(A, p)
+    rel = KERNEL_REL64 if ext.dtype == torch.float64 else KERNEL_REL
+    err, scale = _max_err(y, y_ref)
+    _require(err <= rel * scale, f"shard #4: max err {err:.3e} against the twin")
+    # the fused dot (the partial p.Ap of every sharded cg alpha) sums its
+    # blocks' partials in its own order: bounded against sum |p * y|
+    dot_err = abs(float(dot) - float(dot_ref))
+    dot_scale = float((p * y_ref).abs().sum())
+    _require(dot_err <= rel * dot_scale,
+             f"shard #4: p.Ap {float(dot)!r} against the twin's {float(dot_ref)!r}, err "
+             f"{dot_err:.3e} > {rel} x sum|p*y| {dot_scale:.3e}")
+    k_ms = time_ms(lambda: spmv_dot_dia_cuda(A, p), 200)
+    t_ms = time_ms(lambda: spmv_dot_dia_ref(A, p), 5)
+    csr = dia_csr(A)
+    lib_ms = _library(f"spmv_dia one shard {TAGS[ext.dtype]}", lambda: csr @ p, y, card, 200)
+    nbytes = dia_nnz(A) * ext.element_size() + 2 * L * p.element_size()
+    bound = bound_ms(nbytes, 2 * dia_nnz(A))
+    print(f"time spmv_dot_dia on one of {PAR_SHARDS} shards' extended DIA ({L} rows, "
+          f"{A.ndiags} diagonals) {TAGS[ext.dtype]}: y max err {err:.3e}, p.Ap err {dot_err:.3e} "
+          f"(of sum|p*y| {dot_scale:.3e}); kernel {k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; "
+          f"bound {bound[0]:.4f} ms by {bound[1]}, {bound[0] / k_ms:.1%} of it), twin {t_ms:.4f} "
+          f"ms, CSR {lib_ms:.4f} ms [{card}]")
+
+
+def _par_facade(fsys, sharded, meshes, dev, card, count):
+    """api.solve(..., mesh=) by jacobi_cg, cacg and jacobi_cacg on the padded
+    flagship in fp32 from x0 = 0: the single-device facade's count within
+    PAR_COUNT_SPREAD, the true residual within TRUE_REL."""
+    padded = sharded[3]
+    kw = dict(tol=TOL, norm="rel_l2", dtype=np.float32)
+    for method in ("jacobi_cg", "cacg", "jacobi_cacg"):
+        tag = f"api.solve(method={method!r}, mesh={PAR_SHARDS} shards) flagship fp32"
+        single = api.solve(fsys.A, fsys.b, method=method, device=dev, **kw)
+        _reset_counts()
+        res = api.solve(padded.A, padded.b, method=method, mesh=meshes[PAR_SHARDS], **kw)
+        torch.cuda.synchronize()
+        k4 = _k4_launches()
+        rel = _host_rel_residual(fsys.A, fsys.b, res.x[:fsys.n].cpu().numpy().astype(np.float64))
+        _require(res.converged and abs(res.iterations - single.iterations) <= PAR_COUNT_SPREAD
+                 and rel <= TRUE_REL, f"{tag}: converged {res.converged} in {res.iterations} "
+                 f"(single device {single.iterations}), true rel {rel:.3e}")
+        _require(k4 > 0 and k4 % PAR_SHARDS == 0, f"{tag}: {k4} kernel #4 launches")
+        count(tag, {"spmv_dia": k4})
+        print(f"{tag}: {res.iterations} iterations (single device {single.iterations}), true fp64 "
+              f"rel residual {rel:.3e}, kernel #4 {k4} launches [{card}]")
+
+
+def _par_deflation(meshes, dev, card, count):
+    """Sharded def-CG on the outlier system of the deflation phase (padded,
+    the deflation's basis padded with zero rows) in fp32: the single-device
+    def-CG count within PAR_COUNT_SPREAD."""
+    from conjugategradient_tpu_torch.solvers.deflation import deflated_cg_solve, make_deflation
+
+    s = generators.outlier_system(TWIN_N, band=OUTLIER_BAND, n_outliers=OUTLIERS,
+                                  scale=OUTLIER_SCALE)
+    d = make_deflation(s.A, k=DEFL_K, device=dev)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=PLAIN_CAP)
+    single = deflated_cg_solve(s.A.device_put(torch.float32, dev),
+                               torch.from_numpy(s.b.astype(np.float32)).to(dev), policy=pol,
+                               deflation=d)
+    padded, n = pad_system(s, PAR_SHARDS)
+    extra = padded.n - n
+    d_pad = dataclasses.replace(d, W=F.pad(d.W, (0, 0, 0, extra)), AW=F.pad(d.AW, (0, 0, 0, extra)))
+    tag = f"sharded def-CG outlier n {n} k={DEFL_K} on {PAR_SHARDS} shards fp32"
+    _reset_counts()
+    res = sharded_cg_solve(padded.A, padded.b, policy=pol, mesh=meshes[PAR_SHARDS],
+                           dtype=np.float32, deflation=d_pad)
+    torch.cuda.synchronize()
+    k4 = _k4_launches()
+    rel = _host_rel_residual(s.A, s.b, res.x[:n].cpu().numpy().astype(np.float64))
+    _require(res.converged and abs(res.iterations - single.iterations) <= PAR_COUNT_SPREAD
+             and rel <= TRUE_REL, f"{tag}: converged {res.converged} in {res.iterations} "
+             f"(single device {single.iterations}), true rel {rel:.3e}")
+    want = PAR_SHARDS * (res.iterations + 3)
+    _require(k4 == want, f"{tag}: {k4} kernel #4 launches, the recurrence implies {want}")
+    count(tag, {"spmv_dia": k4})
+    print(f"{tag}: {res.iterations} iterations (single-device def-CG {single.iterations}), true "
+          f"fp64 rel residual {rel:.3e}, kernel #4 {k4} launches = {PAR_SHARDS} x (iterations + "
+          f"3) [{card}]")
+
+
+def _par_general(csrs, fsys, meshes, dev, card):
+    """sharded_cg_solve_general on the flagship as CSR and HandmadeCL as ELL
+    (each padded to the shard count), fp64 at each workload's policy: the
+    hops, the route, the true residual within the workload's bound."""
+    hw = WORKLOADS[HANDMADE]
+    hsys = hw.build(dtype=np.float64)
+    fpol = WORKLOADS[FLAGSHIP].policy
+    for label, csr, s, pol, ell in (("flagship CSR", csrs["flagship"], fsys, fpol, False),
+                                    ("HandmadeCL ELL", csrs["HandmadeCL"], hsys, hw.policy, True)):
+        t0 = time.perf_counter()
+        A = _pad_csr(csr, PAR_SHARDS)
+        if ell:
+            A = csr_to_ell(A)
+        extra = A.n - s.n
+        b = np.concatenate([s.b, np.zeros(extra)])
+        x0 = np.concatenate([s.x0, np.zeros(extra)])
+        solve, inputs = make_sharded_cg_general(A, meshes[PAR_SHARDS], pol)
+        setup = time.perf_counter() - t0
+        tag = f"sharded_cg_solve_general {label} (n {A.n}) on {PAR_SHARDS} shards fp64"
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = solve(*inputs, b, x0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _require(_k4_launches() == 0, f"{tag}: launched kernel #4")
+        x = res.x[:s.n].cpu().numpy()
+        r = s.b - oracle.spmv(s.A, x)
+        if pol.norm == "linf":
+            true, bound = float(np.abs(r).max()), pol.tol
+        else:
+            true, bound = float(np.linalg.norm(r)), FLAGSHIP_CG_TRUE
+        _require(res.converged and true < bound, f"{tag}: converged {res.converged} in "
+                 f"{res.iterations}, true {pol.norm} residual {true:.3e} (bound {bound})")
+        print(f"{tag}: hops {solve.hops}, {solve.route}; {res.iterations} iterations, true "
+              f"{pol.norm} residual {true:.3e}; setup {setup:.3f} s, solve {wall * 1e3:.3f} ms "
+              f"(cuSPARSE / gather products, no kernel of the port) [{card}]")
+
+
+def _parallel(csrs, fsys, dev, card, count, witness=None):
+    """The row-block-sharded CG on one card: the per-block assembly, every
+    variant on PAR_SHARDS shards and on 1, the warm times, the facade's
+    mesh routes, sharded def-CG, the CSR/ELL solver; each step's seconds."""
+    mesh = make_mesh(PAR_SHARDS, devices=[dev] * PAR_SHARDS)
+    t0 = time.perf_counter()
+    sharded = _par_assembly(fsys, mesh, dev)
+    print(f"  assembly: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    meshes = _par_variants(fsys, sharded, dev, card, count, witness)
+    print(f"  variants: {time.perf_counter() - t0:.1f} s")
+    for step, args in ((_par_times, (fsys, sharded, meshes, dev, card)),
+                       (_par_facade, (fsys, sharded, meshes, dev, card, count)),
+                       (_par_deflation, (meshes, dev, card, count)),
+                       (_par_general, (dict(csrs), fsys, meshes, dev, card))):
+        t0 = time.perf_counter()
+        step(*args)
+        print(f"  {step.__name__[len('_par_'):]}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5066,7 +5492,7 @@ def main() -> int:
     print(f"phase: past 256 diagonals and the {DIA_MGCG_GRID} DIA-layout MGCG in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    flagship_csr, handmade_csr = _reference_storage(fsys, dev, card, count)
+    flagship_csr, handmade_csr, witness = _reference_storage(fsys, dev, card, count)
     print(f"phase: the reference's CSR and ELL storage in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     loaded = _ingestion(dev, card, count)
@@ -5123,8 +5549,17 @@ def main() -> int:
     batched_times = {}
     _native_and_batched((("HandmadeCL", handmade_csr), ("flagship", flagship_csr)), fsys, dev,
                         card, errs, batched_times, count)
-    del handmade_csr
     print(f"phase: native and batched in {time.perf_counter() - t0:.1f} s")
+
+    # -- the row-block-sharded CG, counted: the flagship assembled block by
+    # block on 4 shards of the card, sharded_cg_solve by cg, cg1, pipelined
+    # and cacg on 4 shards and 1 (#4 once a shard per product), the warm
+    # times, api.solve(mesh=), sharded def-CG, the CSR/ELL solver ---------
+    t0 = time.perf_counter()
+    _parallel((("HandmadeCL", handmade_csr), ("flagship", flagship_csr)), fsys, dev, card, count,
+              witness)
+    del handmade_csr
+    print(f"phase: parallel in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: times -----------------------------------------------------
     times = {}

@@ -51,6 +51,10 @@ reference's, so each counterpart is found by path:
                 DIA/ELL conversions, halo ranges, the banded generator, a
                 CSR CG (``method="native"``) and the greedy aggregation,
                 each with its numpy fallback where no compiler exists.
+- ``parallel`` — row-block-sharded CG over a mesh of devices (a device
+                may repeat: several shards on one card): the mesh, its
+                collectives, the halo products on kernel #4, sharded CG
+                (DIA; CSR/ELL with exact halos) and per-block assembly.
 - ``utils``   — phase timers, the profiler trace scope, residual logs,
                 checkpoint/resume and tree persistence, the spy plot.
 - ``scripts`` — runnable measurements on the card (the kernel #6

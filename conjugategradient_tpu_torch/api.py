@@ -70,9 +70,20 @@ containers), ``jacobi_cg``, ``bjacobi_cg`` and ``amg_cg``, ``mgcg``
 smoothing) and ``amg_bicgstab`` (``bicgstab_solve_multi``); ``auto`` takes
 ``bicgstab`` where it would take ``idr``; ``cgnr``, ``lsmr``, ``cacg`` and
 ``deflated_cg`` take no block, nor do ``oracle`` and ``native``
-(``ValueError``, as in the JAX facade).  The methods still to port
-(``sharded_cg`` and anything with ``mesh=``) raise ``NotImplementedError``
-naming the ROADMAP item that ports them; nothing is rerouted.
+(``ValueError``, as in the JAX facade).
+
+``mesh=`` (a ``parallel.mesh.Mesh``; several shards may share one card)
+runs the row-block-sharded solvers of ``parallel``, as the JAX facade
+does: ``cg`` and ``method="sharded_cg"`` on a ``DiaMatrix`` take
+``parallel.sharded_cg_solve`` (kernel #4 on every shard; ``variant=``
+``"cg1"``, ``"pipelined"``, ``"cacg"``), on a CSR or ELL matrix
+``parallel.sharded_cg_solve_general`` (exact halos); ``jacobi_cg`` adds the
+shard-local point Jacobi; ``cacg`` and ``jacobi_cacg`` run the sharded
+s-step CG.  ``sharded_cg`` without a mesh spans every CUDA device (the
+solve's device when that is not the card).  Every other method with
+``mesh=`` (``mgcg``, ``refined``, ``amg_*``, the nonsymmetric bases, (n, k)
+blocks) and ``eigs(mesh=)`` raise ``NotImplementedError`` naming ROADMAP's
+parallel item; nothing is rerouted.
 
 ``device`` says where the solve runs; ``None`` takes the card when there is
 one, as the JAX package takes its default backend.  Host numpy arrays or
@@ -94,7 +105,6 @@ from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, 
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 _PARALLEL = "ROADMAP queue 1: parallel"
-_UNPORTED = {"sharded_cg": _PARALLEL}
 _PREFIXES = ("jacobi_", "bjacobi_", "amg_", "mg_")
 #: the bases a prefix may precondition
 _KRYLOV = ("cg", "bicgstab", "gmres", "fgmres", "minres", "idr")
@@ -129,18 +139,14 @@ def _split_prefix(method: str):
 
 
 def _refuse(method: str):
-    """Raise ``NotImplementedError`` for a JAX-facade method the port does
-    not have yet (a prefix on an unported base included), ``ValueError``
-    for a prefix on ``chebyshev`` (as the JAX facade does) or an unknown
-    method."""
+    """Raise ``ValueError`` for a prefix on ``chebyshev`` (as the JAX
+    facade does) or an unknown method."""
     prefix, base = _split_prefix(method)
     if prefix is not None and base == "chebyshev":
         raise ValueError(
             "chebyshev takes no preconditioner prefix (fold scaling into "
             "the operator and its bounds instead)"
         )
-    if base in _UNPORTED:
-        raise NotImplementedError(f"method={method!r} is not ported yet ({_UNPORTED[base]})")
     raise ValueError(f"unknown method {base!r}")
 
 
@@ -202,13 +208,15 @@ def solve(
     policy = ConvergencePolicy(
         tol=tol, norm=norm, min_iteration=min_iteration, max_iteration=max_iteration
     )
-    if "mesh" in kw or "axes" in kw:
-        raise NotImplementedError(f"mesh-distributed solves are not ported yet ({_PARALLEL})")
+    if "axes" in kw:
+        raise NotImplementedError(f"GSPMD-partitioned solves are not ported yet ({_PARALLEL})")
     device = default_device(device)
     if method == "auto":
         return _solve_auto(A, b, x0, policy, grid, dtype, device, kw)
     if np.ndim(b) == 2:
         return _solve_multi(A, b, x0, method, policy, grid, dtype, device, **kw)
+    if "mesh" in kw or method == "sharded_cg":
+        return _solve_mesh(A, b, x0, method, policy, dtype, device, kw)
     if method == "oracle":
         return oracle.cg(
             A, b, x0, tol=tol, norm=norm, min_iteration=min_iteration,
@@ -262,10 +270,48 @@ def solve(
     return _run(base, A, A_dev, b_dev, x0_dev, policy, M, kw)
 
 
-def _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw):
+def _jacobi_M_local(r, aux):
+    """Shard-local point Jacobi, the ``M_local`` of ``jacobi_cg`` with
+    ``mesh=``: ``aux`` is the shard's rows of 1/diag(A)."""
+    return aux * r
+
+
+def _solve_mesh(A, b, x0, method, policy, dtype, device, kw):
+    """The ``mesh=`` routes (and ``sharded_cg`` without one): ``cg`` and
+    ``sharded_cg`` (DIA: ``sharded_cg_solve``; CSR/ELL:
+    ``sharded_cg_solve_general``), ``jacobi_cg`` (a shard-local Jacobi
+    ``M_local``), ``cacg`` and ``jacobi_cacg`` (``variant="cacg"``); any
+    other method raises ``NotImplementedError``."""
+    from conjugategradient_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = kw.pop("mesh", None)
+    if mesh is None:
+        mesh = make_mesh(devices=None if device.type == "cuda" else [device])
+    prefix, base = _split_prefix(method)
+    if base == "cacg":
+        return _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw, mesh=mesh)
+    if method == "jacobi_cg":
+        kw.setdefault("M_local", _jacobi_M_local)
+        kw.setdefault("M_aux", 1.0 / _diagonal(A))
+    elif method not in ("cg", "sharded_cg"):
+        raise NotImplementedError(f"method={method!r} with mesh= is not ported yet ({_PARALLEL})")
+    if isinstance(A, DiaMatrix):
+        from conjugategradient_tpu_torch.parallel.sharded_cg import sharded_cg_solve
+
+        return sharded_cg_solve(A, b, x0, policy, mesh=mesh, dtype=dtype, **kw)
+    if isinstance(A, (formats.CsrMatrix, formats.EllMatrix)):
+        from conjugategradient_tpu_torch.parallel.sharded_general import sharded_cg_solve_general
+
+        return sharded_cg_solve_general(formats.to_host(A), b, x0, policy, mesh=mesh,
+                                        dtype=dtype, **kw)
+    raise TypeError("sharded_cg requires a DiaMatrix, CsrMatrix or EllMatrix")
+
+
+def _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw, mesh=None):
     """``cacg`` and ``jacobi_cacg``: ``D^-1/2 A D^-1/2 y = D^-1/2 b`` and
     ``x = D^-1/2 y`` for the latter, its residual and tolerance those of
-    the scaled system, as in the JAX facade."""
+    the scaled system, as in the JAX facade; with ``mesh`` the sharded
+    s-step CG (``sharded_cg_solve(variant="cacg")``, a ``DiaMatrix``)."""
     from conjugategradient_tpu_torch.solvers.cacg import cacg_solve
 
     if prefix not in (None, "jacobi"):
@@ -280,6 +326,17 @@ def _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw):
         A_c, dis = formats.jacobi_scaled_dia(formats.to_host(A))
         b_c = formats.host_f64(b) * dis
         x0_c = None if x0 is None else formats.host_f64(x0) / dis
+    if mesh is not None:
+        if not isinstance(A_c, DiaMatrix):
+            raise TypeError("cacg with mesh= requires a DiaMatrix (the matrix-powers halo "
+                            "kernel is banded DIA); convert or use method='sharded_cg'")
+        from conjugategradient_tpu_torch.parallel.sharded_cg import sharded_cg_solve
+
+        res = sharded_cg_solve(A_c, b_c, x0_c, policy, mesh=mesh, dtype=dtype, variant="cacg",
+                               **kw)
+        if dis is not None:
+            res = dataclasses.replace(res, x=res.x * torch.from_numpy(dis).to(res.x))
+        return res
     b_dev = place(b_c, dtype, device)
     res = cacg_solve(_place_matrix(A_c, dtype, device), b_dev,
                      None if x0_c is None else place(x0_c, dtype, device), policy, **kw)
@@ -366,9 +423,12 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
         return refined_solve_multi(A, B, X0, tol=policy.tol, norm=policy.norm, grid=grid,
                                    device=device, **kw)
     prefix, base = _split_prefix(method)
+    if "mesh" in kw:
+        raise NotImplementedError(f"mesh-distributed (n, k) blocks are not ported yet ({_PARALLEL})")
     if method not in _MULTI:
-        if base in _UNPORTED or (prefix is not None and base == "chebyshev") or (
-                base not in _KRYLOV + _OTHER + _HOST + ("chebyshev",) and method != "cheb_cg"):
+        if (prefix is not None and base == "chebyshev") or (
+                base not in _KRYLOV + _OTHER + _HOST + ("chebyshev", "sharded_cg")
+                and method != "cheb_cg"):
             _refuse(method)
         raise ValueError(f"method {method!r} does not support (n, k) right-hand sides")
     from conjugategradient_tpu_torch.solvers.multi import (
@@ -531,7 +591,8 @@ def eigs(
     default dtype is fp32) and to 1e-8 (relative to |lambda|) on Arnoldi's.
     ``device``: where the solve runs (``None``: the card when there is
     one).  The other keywords go to ``lobpcg`` or ``arnoldi_eigs``.
-    ``mesh=`` (the distributed twins) raises ``NotImplementedError``.
+    ``mesh=`` (the distributed twins) raises ``NotImplementedError``
+    (ROADMAP queue 1: parallel).
     """
     from conjugategradient_tpu_torch.solvers.arnoldi import EigsResult, arnoldi_eigs
 

@@ -6,7 +6,8 @@ reference's drivers, the Poisson matrices of the multigrid path and the
 variable-coefficient diffusion family of the Galerkin MGCG path, the
 anisotropic Laplacian of the semicoarsening path, and the nonsymmetric and
 indefinite systems of the Krylov family (convection-diffusion, Helmholtz,
-the nonsymmetric banded twin).  The
+the nonsymmetric banded twin), and the per-row-block generators
+(``b_rows``, ``x0_rows``, ``system_rows``) behind the sharded assembly.  The
 same numpy code, so the systems are bit-identical to the JAX package's (the
 tests compare them element by element).
 """
@@ -703,3 +704,101 @@ def nonsymmetric_banded_system(n: int, band: int, dtype=np.float64) -> LinearSys
     A = nonsymmetric_banded_matrix(n, band, dtype=dtype)
     i = np.arange(n, dtype=dtype)
     return LinearSystem(A, (10.0 * np.cos(i)).astype(dtype), np.zeros(n, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# Per-row-block generation: every generator above is a closed form in the row
+# index, so any [lo, hi) slab of A's DIA data, b and x0 can be produced
+# without touching the rest (the reference instead uploads shards sliced from
+# one host-resident global system, ``ConjugateGradientParallelGpu.cs:358-379``,
+# which caps it at host memory).
+# ---------------------------------------------------------------------------
+
+
+def b_rows(kind: str, lo: int, hi: int, n: int, dtype=np.float64, seed: int = 0) -> np.ndarray:
+    """RHS recipe values for rows [lo, hi) (kinds as in ``banded_sin_system``
+    plus ``poisson`` = the smooth Poisson-workload RHS)."""
+    i = np.arange(lo, hi, dtype=dtype)
+    if kind == "cos10":
+        return 10.0 * np.cos(i)
+    if kind == "one_plus":
+        return 1.0 + 0.1 * i
+    if kind == "asin":
+        return np.arcsin(i / n)
+    if kind == "i2/2":
+        return 0.5 * i * i
+    if kind == "poisson":
+        return (np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)).astype(dtype)
+    raise ValueError(f"unknown b kind {kind!r}")
+
+
+def x0_rows(kind: str, lo: int, hi: int, dtype=np.float64) -> np.ndarray:
+    i = np.arange(lo, hi, dtype=dtype)
+    if kind == "i/100":
+        return i / 100.0
+    if kind == "i/10":
+        return i / 10.0
+    if kind == "zeros":
+        return np.zeros(hi - lo, dtype=dtype)
+    raise ValueError(f"unknown x0 kind {kind!r}")
+
+
+def system_rows(
+    builder: str,
+    lo: int,
+    hi: int,
+    n: int,
+    band: int = 0,
+    grid=None,
+    b_kind: str = "cos10",
+    x0_kind: str = "zeros",
+    dtype=np.float64,
+    param: float | None = None,
+):
+    """(offsets, A-data columns, b, x0) for rows [lo, hi) of a named workload
+    family: the block callback behind ``parallel.multihost
+    .make_distributed_system``.  ``param``: the family's scalar knob —
+    the Helmholtz shift (default 0.05) or the convection-diffusion eps
+    (default 0.05)."""
+    if builder == "banded_sin":
+        offsets, data = banded_sin_rows(n, band, lo, hi, dtype=dtype)
+    elif builder == "tridiagonal":
+        offsets, data = tridiagonal_rows(n, lo, hi, dtype=dtype)
+        b_kind = "i2/2"
+    elif builder == "poisson":
+        g = tuple(grid)
+        if len(g) == 1:
+            offsets, data = tridiagonal_rows(g[0], lo, hi, diag=2.0, off=-1.0, dtype=dtype)
+        elif len(g) == 2:
+            offsets, data = poisson2d_rows(g[1], g[0], lo, hi, dtype=dtype)
+        elif len(g) == 3:
+            offsets, data = poisson3d_rows(g[2], g[1], g[0], lo, hi, dtype=dtype)
+        else:
+            raise ValueError("poisson grid must be 1-3D")
+        b_kind = "poisson"
+        x0_kind = "zeros"
+    elif builder == "helmholtz":
+        offsets, data = helmholtz_rows(
+            tuple(grid), 0.05 if param is None else param, lo, hi, dtype=dtype
+        )
+        b_kind = "poisson"
+        x0_kind = "zeros"
+    elif builder == "convection_diffusion":
+        rows_fn = (
+            convection_diffusion_rows
+            if len(tuple(grid)) == 2
+            else convection_diffusion3d_rows
+        )
+        offsets, data = rows_fn(
+            tuple(grid), lo, hi, eps=0.05 if param is None else param, dtype=dtype
+        )
+        b_kind = "poisson"
+        x0_kind = "zeros"
+    else:
+        raise ValueError(f"unknown builder {builder!r}")
+    return (
+        offsets,
+        data,
+        b_rows(b_kind, lo, hi, n, dtype=dtype),
+        x0_rows(x0_kind, lo, hi, dtype=dtype),
+    )

@@ -50,10 +50,12 @@ class Workload:
         return self.n if self.grid is None or self.n else int(np.prod(self.grid))
 
     def build_rows(self, lo: int, hi: int, dtype=None):
-        """Per-row-block generation serves the multi-host path only."""
-        raise NotImplementedError(
-            "Workload.build_rows (row-block generation for the multi-host path) is not "
-            "ported yet (ROADMAP queue 1: parallel)"
+        """(offsets, A-data columns, b, x0) for rows [lo, hi) only: the
+        per-row-block path behind ``parallel.multihost
+        .make_distributed_system`` (no host holds the global system)."""
+        return generators.system_rows(
+            self.builder, lo, hi, self.size, band=self.band, grid=self.grid,
+            b_kind=self.b_kind, x0_kind=self.x0_kind, dtype=dtype or np.float64,
         )
 
 

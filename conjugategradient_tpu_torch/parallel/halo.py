@@ -1,0 +1,264 @@
+"""Halo exchange and per-shard DIA products on kernel #4.
+
+The port of ``conjugategradient_tpu/parallel/halo.py``.  The reference
+stages boundary slices of the search direction device -> host -> device,
+one neighbour pair at a time (``P2Host``/``P2Device``,
+``Mgcg/cuBlas/MgcgGpu/Mgcg.cu:88-113``, orchestrated by ``SyncP``,
+``ConjugateGradientParallelGpu.cs:384-419``).  The JAX package makes the
+same motion two cyclic ``ppermute`` shifts; here each is
+``parallel.mesh.ppermute``: the boundary slab copied to the neighbour
+shard's device.  The functions take and return ``parallel.mesh.Shards``
+(the mesh travels with them, so the JAX package's ``axis`` and
+``num_shards`` arguments are gone).
+
+The local product is kernel #4 (``ops.cuda_dia.spmv_dia_cuda``, its twin on
+a CPU tensor): each shard's rows become a square DIA over ``n_local +
+2*halo`` rows whose ``halo`` first and last rows are zero
+(``extend_rows``), applied to the halo-padded vector; the local rows are the
+middle of the result, and the padded rows of the result are exactly zero,
+so the fused ``spmv_dot_dia_cuda`` returns the shard's p.Ap (for a finite
+p).  That costs ``2*halo`` extra rows a shard (158 of 51,851 on the flagship
+at four shards) and no change to the kernel.
+
+Ring wraparound: the shifts are cyclic, so the first and last shards
+receive wrapped values in their halos.  DIA stores structural zeros
+wherever ``i + offset`` leaves ``[0, n)``, so wrapped values are multiplied
+by zero (``tests/test_torch_parallel.py`` holds the wraparound case to the
+JAX package bit for bit).  The all-gather product pads the gathered vector
+with zeros instead, as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from conjugategradient_tpu_torch.core.formats import DiaMatrix
+from conjugategradient_tpu_torch.ops.cuda_dia import spmv_dia_cuda, spmv_dot_dia_cuda
+from conjugategradient_tpu_torch.parallel.mesh import Shards, all_gather, ppermute
+
+
+def extend_rows(data: torch.Tensor, halo: int) -> torch.Tensor:
+    """(ndiags, n_local) legs as (ndiags, n_local + 2*halo) with ``halo``
+    zero rows on each side: the square DIA kernel #4 takes."""
+    return F.pad(data, (halo, halo)).contiguous()
+
+
+def _square(data: torch.Tensor, offsets) -> DiaMatrix:
+    L = data.shape[1]
+    return DiaMatrix(data, tuple(offsets), (L, L))
+
+
+def halo_exchange(p: Shards, halo: int) -> Shards:
+    """Each shard's p padded with its neighbours' boundary slices:
+    ``[left neighbour's tail | p | right neighbour's head]``, of
+    ``n_local + 2*halo`` rows."""
+    if halo == 0:
+        return p
+    left, right = exchange_halos(p, halo)
+    return Shards.map(lambda l_, p_, r_: torch.cat([l_, p_, r_]), left, p, right)
+
+
+def spmv_dia_local(data_local: Shards, offsets: Tuple[int, ...], p_padded: Shards,
+                   halo: int) -> Shards:
+    """Local rows of y = A p from the halo-padded p (``halo_exchange``):
+    kernel #4 on each shard's extended DIA (``extend_rows``), the middle
+    ``n_local`` rows kept.  ``data_local`` holds each shard's rows of the
+    global DIA data (row-indexed, so no rebasing)."""
+    n_local = data_local.shape[1]
+    return Shards.map(
+        lambda d, p: spmv_dia_cuda(_square(extend_rows(d, halo), offsets), p)[halo:halo + n_local],
+        data_local, p_padded)
+
+
+def exchange_halos(p: Shards, halo: int) -> Tuple[Shards, Shards]:
+    """The two neighbour slices, apart: ``(left, right)`` with left the
+    left neighbour's last ``halo`` rows and right the right neighbour's
+    first ``halo`` rows."""
+    left = ppermute(Shards.map(lambda t: t[-halo:], p), 1)
+    right = ppermute(Shards.map(lambda t: t[:halo], p), -1)
+    return left, right
+
+
+def spmv_dia_local_overlap(data_local: Shards, offsets: Tuple[int, ...], p: Shards,
+                           halo: int) -> Shards:
+    """The JAX package's halo-overlap SpMV, whose dataflow lets XLA run the
+    permutes under the interior rows.  The port's copies are stream-ordered
+    device copies of ``2*halo`` rows, and kernel #4 takes every row of a
+    shard in one launch, so this is ``spmv_dia_local`` on
+    ``halo_exchange``: the same values, bit for bit."""
+    return spmv_dia_local(data_local, offsets, halo_exchange(p, halo), halo)
+
+
+def extend_dia_data(data_local: Shards, H: int) -> Shards:
+    """(ndiags, n_local + 2H) legs extended with the neighbours' boundary
+    rows: the static half of the matrix-powers kernel, exchanged once per
+    solve."""
+    if H == 0:
+        return data_local
+    left = ppermute(Shards.map(lambda d: d[:, -H:], data_local), 1)
+    right = ppermute(Shards.map(lambda d: d[:, :H], data_local), -1)
+    return Shards.map(lambda l_, d, r_: torch.cat([l_, d, r_], dim=1).contiguous(),
+                      left, data_local, right)
+
+
+def dia_basis_powers(data_ext: Shards, offsets: Tuple[int, ...], p: Shards, r: Shards, s: int,
+                     halo: int) -> Shards:
+    """The matrix-powers kernel: each shard's (2s+1, n_local) CA-CG basis
+    rows ``[p, Ap, ..., A^s p, r, Ar, ..., A^{s-1} r]`` from one widened
+    exchange (width H = s*halo, both vectors' slabs in one message each
+    way) instead of one exchange per product.
+
+    With the legs extended by ``extend_dia_data``, each product of the
+    extended vector (kernel #4 on the (ndiags, n_local + 2H) DIA) is exact
+    on a region that shrinks by ``halo`` rows a product, so after s products
+    the middle ``n_local`` rows are still exact.  Requires H <= n_local."""
+    H = s * halo
+    n_local = p.shape[0]
+    tails = ppermute(Shards.map(lambda a, b: torch.stack([a[-H:], b[-H:]]), p, r), 1)
+    heads = ppermute(Shards.map(lambda a, b: torch.stack([a[:H], b[:H]]), p, r), -1)
+
+    def local(d, p_, r_, lefts, rights):
+        A = _square(d, offsets)
+        rows = []
+        for j, (v, k) in enumerate(((p_, s), (r_, s - 1))):
+            rows.append(v)
+            cur = torch.cat([lefts[j], v, rights[j]])
+            for _ in range(k):
+                cur = spmv_dia_cuda(A, cur)
+                rows.append(cur[H:H + n_local])
+        return torch.stack(rows)
+
+    return Shards.map(local, data_ext, p, r, tails, heads)
+
+
+def ring_gather(p: Shards, hops: int) -> Shards:
+    """Multi-hop block collection: each shard's ``[p of shard i-hops | ... |
+    p | ... | p of shard i+hops]``, ``(2*hops + 1) * n_local`` rows, one
+    cyclic shift each way per hop.  Consumers index it as ``global_col -
+    (shard_offset - hops * n_local)``; wraparound at the global edges is
+    harmless when ``hops`` comes from ``core.partition.halo_hops``."""
+    if hops == 0:
+        return p
+    lefts, rights = [], []
+    cl = cr = p
+    for _ in range(hops):
+        cl = ppermute(cl, 1)  # after h hops: p of shard i-h
+        cr = ppermute(cr, -1)  # after h hops: p of shard i+h
+        lefts.append(cl)
+        rights.append(cr)
+    return Shards.map(lambda *vs: torch.cat(vs), *reversed(lefts), p, *rights)
+
+
+def _gathered_window(g: torch.Tensor, row0: int, n_local: int, B: int) -> torch.Tensor:
+    """Rows [row0 - B, row0 + n_local + B) of the zero-padded global g."""
+    return F.pad(g, (B, B))[row0:row0 + n_local + 2 * B]
+
+
+def spmv_dia_allgather(data_local: Shards, offsets: Tuple[int, ...], p: Shards) -> Shards:
+    """The all-gather SpMV for ``bandwidth > n_local``: the global p on every
+    shard (one ``all_gather``), each shard's window of it zero-padded at the
+    global edges, and kernel #4 on the shard's extended DIA.  O(n) traffic
+    per product instead of O(halo): ``make_sharded_cg`` takes it only where
+    the halo does not fit a shard."""
+    n_local = data_local.shape[1]
+    B = max((abs(o) for o in offsets), default=0)
+    g = all_gather(p)
+    rows0 = list(range(0, n_local * p.mesh.size, n_local))
+    return Shards.map(
+        lambda d, g_, row0: spmv_dia_cuda(_square(extend_rows(d, B), offsets),
+                                          _gathered_window(g_, row0, n_local, B))[B:B + n_local],
+        data_local, g, Shards(rows0, p.mesh))
+
+
+def exchange_bytes(offsets, n: int, num: int, itemsize: int) -> int:
+    """Bytes one sharded DIA product moves between ``num`` shards of an
+    n-row matrix: ``2 * halo`` rows a shard on the halo route, the other
+    shards' rows on the all-gather route (bandwidth past ``n / num``)."""
+    n_local = n // num
+    halo = max((abs(o) for o in offsets), default=0)
+    rows = num * (num - 1) * n_local if halo > n_local else num * 2 * halo
+    return rows * itemsize
+
+
+class HaloDia:
+    """The sharded DIA product of ``make_sharded_cg``: each shard's extended
+    DIA (``extend_rows``) built once, and two halo-padded buffers a shard
+    that alternate as the search direction's storage.
+
+    ``op(p)`` fills the padded rows of a buffer (the neighbours' slabs by
+    ``ppermute``, or the gathered window on the all-gather route) and runs
+    kernel #4 once per shard; ``spmv_dot(p)`` runs the fused form and
+    returns the local p.Ap partials too.  ``fresh()`` hands out the middle
+    rows of the buffer that does not hold the last operand: a solver that
+    writes its next direction there (``torch.mul(..., out=)``) saves the
+    copy of p into the buffer.  Any other operand is copied in.
+    ``halo_bytes`` is what one product moves between shards."""
+
+    def __init__(self, data: Shards, offsets: Tuple[int, ...], halo: int, allgather: bool):
+        self.offsets = tuple(offsets)
+        self.n_local = n = data.shape[1]
+        self.allgather = allgather
+        self.halo = H = max((abs(o) for o in offsets), default=0) if allgather else halo
+        self.mesh = data.mesh
+        self.mats = Shards.map(lambda d: _square(extend_rows(d, H), offsets), data)
+        self._bufs = None
+        self._last = 0
+        self.halo_bytes = exchange_bytes(self.offsets, n * self.mesh.size, self.mesh.size,
+                                         data.dtype.itemsize)
+
+    def _buffers(self, like: Shards):
+        if self._bufs is None or self._bufs[0].dtype != like.dtype:
+            L = self.n_local + 2 * self.halo
+            self._bufs = [Shards.map(lambda p: torch.zeros(L, dtype=p.dtype, device=p.device),
+                                     like) for _ in range(2)]
+        return self._bufs
+
+    def _middle(self, buf: Shards) -> Shards:
+        H, n = self.halo, self.n_local
+        return Shards.map(lambda b: b[H:H + n], buf)
+
+    def fresh(self, like: Shards) -> Shards:
+        """Middle rows of the buffer not holding the last operand."""
+        return self._middle(self._buffers(like)[1 - self._last])
+
+    def _fill(self, p: Shards) -> Shards:
+        bufs = self._buffers(p)
+        H, n = self.halo, self.n_local
+        held = [k for k in (0, 1)
+                if all(q.data_ptr() == b.data_ptr() + H * b.element_size() and q.shape[0] == n
+                       for q, b in zip(p.parts, bufs[k].parts))]
+        k = held[0] if held else 1 - self._last
+        buf = bufs[k]
+        self._last = k
+        if not held:
+            for q, b in zip(p.parts, buf.parts):
+                b[H:H + n].copy_(q)
+        if self.allgather:
+            g = all_gather(p)
+            for i, (g_, b) in enumerate(zip(g.parts, buf.parts)):
+                lo = i * n - H
+                a, z = max(lo, 0), min(lo + n + 2 * H, g_.shape[0])
+                # the middle is p itself; the rest of the window, and zeros
+                # beyond the global edges (written once, at allocation)
+                b[a - lo:H].copy_(g_[a:i * n])
+                b[H + n:z - lo].copy_(g_[(i + 1) * n:z])
+        elif H:
+            left, right = exchange_halos(p, H)
+            for l_, r_, b in zip(left.parts, right.parts, buf.parts):
+                b[:H].copy_(l_)
+                b[H + n:].copy_(r_)
+        return buf
+
+    def __call__(self, p: Shards) -> Shards:
+        H, n = self.halo, self.n_local
+        return Shards.map(lambda A, b: spmv_dia_cuda(A, b)[H:H + n], self.mats, self._fill(p))
+
+    def spmv_dot(self, p: Shards) -> Tuple[Shards, Shards]:
+        """``(A p, local p.Ap)``: the fused kernel #4 on each shard."""
+        H, n = self.halo, self.n_local
+        out = Shards.map(spmv_dot_dia_cuda, self.mats, self._fill(p))
+        return (Shards([y[H:H + n] for y, _ in out.parts], self.mesh),
+                Shards([d for _, d in out.parts], self.mesh))

@@ -1,0 +1,212 @@
+"""Device meshes, row-sharded values and the collectives between shards.
+
+The port of ``conjugategradient_tpu/parallel/mesh.py``.  The JAX package's
+mesh is single-controller: one process drives every local device, and its
+solvers run one SPMD program under ``shard_map``.  The port keeps the single
+controller and writes the SPMD program out:
+
+- ``Mesh`` is a 1-D sequence of torch devices with a named axis
+  (``mesh.shape[axis]`` as in JAX).  A mesh may repeat a device: four shards
+  on one card (``make_mesh(4, devices=["cuda:0"] * 4)``) run the sharded
+  algorithm with its collectives on one H100, and the same code spans
+  ``cuda:0..3`` on a four-card host.
+- ``Shards`` is a row-sharded value: one tensor per mesh position, on that
+  position's device.  Arithmetic between ``Shards`` (and with Python
+  numbers) acts shard by shard; a replicated scalar is a ``Shards`` of 0-d
+  tensors.  Nothing in it reaches another shard.
+- The collectives are the only way across shards: ``psum``/``pmax`` (the
+  partials combined in shard order on the first shard's device, in their
+  dtype, the result copied back to every shard's device), ``ppermute`` (a
+  cyclic neighbour shift, each slab copied to the receiving shard's device)
+  and ``all_gather``.  A process-group communicator can take their place
+  without touching the solvers.
+
+Left out: ``specs_for_grid`` (the GSPMD carriers' sharding specs; they come
+with ``parallel.gspmd``) and ``factory_cache``/``_stable_key``, which cache
+jitted programs: eager PyTorch traces nothing, so a rebuilt solver costs only
+its setup.  For the same reason the solver factories
+(``sharded_cg.make_sharded_cg``, ``sharded_general.make_sharded_cg_general``)
+take no ``donate=``: there is no compiled program to hand buffers to.
+"""
+
+from __future__ import annotations
+
+import operator
+from typing import Callable, Optional, Sequence
+
+import torch
+
+
+class Mesh:
+    """A 1-D mesh: ``devices`` (torch devices, a device may repeat) along the
+    axis ``axis``; ``shape[axis]`` is the number of shards."""
+
+    def __init__(self, devices: Sequence, axis: str = "x"):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        self.axis = axis
+        self.shape = {axis: len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r})"
+
+
+def make_mesh(num_devices: Optional[int] = None, axis: str = "x", devices=None) -> Mesh:
+    """1-D mesh over the first ``num_devices`` devices (all by default).
+
+    By default the devices are the visible CUDA devices, one shard each;
+    asking for more shards than devices raises, as the JAX package does.
+    ``devices=`` gives the list explicitly, and may repeat a device
+    (``["cuda:0"] * 4``: four shards on one card; ``["cpu"] * 8`` in the CPU
+    tests); ``num_devices`` then takes its first entries."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if num_devices is not None:
+        if num_devices > len(devices):
+            raise ValueError(f"requested {num_devices} devices, have {len(devices)}")
+        devices = devices[:num_devices]
+    return Mesh(devices, axis)
+
+
+def _part(v, i: int):
+    return v.parts[i] if isinstance(v, Shards) else v
+
+
+class Shards:
+    """A row-sharded value: ``parts[i]`` lives on ``mesh.devices[i]``.
+
+    Arithmetic (``+``, ``-``, ``*``; ``@`` from the left) and ``map`` act
+    shard by shard; operands are ``Shards`` of the same mesh or Python
+    numbers.  ``shape``, ``dtype`` and ``device`` are those of the first
+    part (the parts of a row-sharded vector have one shape)."""
+
+    __slots__ = ("parts", "mesh")
+
+    def __init__(self, parts, mesh: Mesh):
+        parts = tuple(parts)
+        if len(parts) != mesh.size:
+            raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size} devices")
+        self.parts = parts
+        self.mesh = mesh
+
+    @staticmethod
+    def map(fn: Callable, *args) -> "Shards":
+        """``fn`` on each shard's parts of ``args`` (``Shards`` or values
+        passed to every shard)."""
+        mesh = next(a.mesh for a in args if isinstance(a, Shards))
+        return Shards([fn(*(_part(a, i) for a in args)) for i in range(mesh.size)], mesh)
+
+    def _bin(self, other, op):
+        return Shards.map(op, self, other)
+
+    def __add__(self, other):
+        return self._bin(other, operator.add)
+
+    def __sub__(self, other):
+        return self._bin(other, operator.sub)
+
+    def __mul__(self, other):
+        return self._bin(other, operator.mul)
+
+    def __rmul__(self, other):
+        return Shards.map(operator.mul, other, self)
+
+    def __rmatmul__(self, other: torch.Tensor):
+        """``other @ part`` on each shard, ``other`` (a small host-side
+        coefficient row, say) copied to each shard's device."""
+        return Shards([other.to(p.device) @ p for p in self.parts], self.mesh)
+
+    def __bool__(self):
+        raise TypeError("a Shards value has no truth value: read one part (parts[0])")
+
+    def reshape(self, *shape) -> "Shards":
+        return Shards.map(lambda p: p.reshape(*shape), self)
+
+    @property
+    def shape(self):
+        return self.parts[0].shape
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    @property
+    def device(self):
+        return self.parts[0].device
+
+    def gather(self) -> torch.Tensor:
+        """The global value on the first shard's device (row blocks
+        concatenated in shard order)."""
+        dev = self.mesh.devices[0]
+        return torch.cat([p.to(dev) for p in self.parts])
+
+
+def shard_rows(mesh: Mesh, a, dtype=None, dim: int = -1) -> Shards:
+    """A global array (numpy or tensor) split into equal row blocks along
+    ``dim`` (the last: a vector's rows, a DIA ``data``'s columns), block i
+    placed on ``mesh.devices[i]`` as a contiguous tensor of ``dtype``
+    (``None``: kept)."""
+    t = a if torch.is_tensor(a) else torch.as_tensor(a)
+    if dtype is not None:
+        from conjugategradient_tpu_torch.core.formats import torch_dtype
+
+        dtype = torch_dtype(dtype)
+    num = mesh.size
+    n = t.shape[dim]
+    if n % num:
+        raise ValueError(f"n={n} not divisible by {num} shards; pad_system first")
+    blocks = torch.chunk(t, num, dim=dim)
+    return Shards([b.to(device=d, dtype=dtype).contiguous() for b, d in zip(blocks, mesh.devices)],
+                  mesh)
+
+
+def replicate(mesh: Mesh, a, dtype=None) -> Shards:
+    """The same value on every shard's device (one copy per device)."""
+    t = a if torch.is_tensor(a) else torch.as_tensor(a)
+    return Shards([t.to(device=d, dtype=dtype) for d in mesh.devices], mesh)
+
+
+# ---------------------------------------------------------------------------
+# the collectives: the only code that reads another shard's part
+# ---------------------------------------------------------------------------
+
+
+def _combine(x: Shards, fn) -> Shards:
+    dev = x.mesh.devices[0]
+    total = x.parts[0]
+    for p in x.parts[1:]:
+        total = fn(total, p.to(dev))
+    return Shards([total.to(d) for d in x.mesh.devices], x.mesh)
+
+
+def psum(x: Shards) -> Shards:
+    """Sum over the mesh axis: the partials added in shard order on the first
+    shard's device in their dtype, the sum on every shard's device."""
+    return _combine(x, torch.add)
+
+
+def pmax(x: Shards) -> Shards:
+    """Maximum over the mesh axis, on every shard's device."""
+    return _combine(x, torch.maximum)
+
+
+def ppermute(x: Shards, shift: int) -> Shards:
+    """Cyclic neighbour shift: shard i receives the part of shard
+    ``(i - shift) % num`` (``shift=1``: each sends right), copied to its
+    device."""
+    num = x.mesh.size
+    return Shards([x.parts[(i - shift) % num].to(d) for i, d in enumerate(x.mesh.devices)],
+                  x.mesh)
+
+
+def all_gather(x: Shards) -> Shards:
+    """Every shard's part concatenated in shard order, on every shard's
+    device (``jax.lax.all_gather(..., tiled=True)``)."""
+    g = x.gather()
+    return Shards([g.to(d) for d in x.mesh.devices], x.mesh)

@@ -40,6 +40,7 @@ diagonal scaling into A instead (``api.solve(method="jacobi_cacg")``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -65,6 +66,14 @@ def _shift_matrix(s: int, dtype) -> np.ndarray:
     return B
 
 
+@dataclasses.dataclass(frozen=True)
+class CACGResult(CGResult):
+    """A ``CGResult`` with the number of outer steps taken: one basis, one
+    Gram reduction and one residual replacement each."""
+
+    outer_steps: int = 0
+
+
 def cacg_loop(
     op,
     b: torch.Tensor,
@@ -73,18 +82,22 @@ def cacg_loop(
     s: int,
     dot: Callable,
     gram: Callable,
+    n_global: Optional[int] = None,
     basis: Optional[Callable] = None,
-) -> CGResult:
+) -> CACGResult:
     """The s-step recurrence with injected reductions: ``dot(u, v)`` the
     scalar product (a 0-d tensor), ``gram(V)`` the ``(m, m)`` Gram ``V V^T``
     (``gram64``: accumulated in fp64).  ``op`` and the vectors may be
     grid-shaped; the basis flattens internally.  ``basis`` optionally
     replaces the default 2s-1 ``op`` applications: ``(p, r) -> (2s+1, n)``.
-    The coordinate scalars are host fp64 (see the module docstring)."""
+    ``n_global`` is the system's row count where the vectors are row-sharded
+    (``parallel.sharded_cg``: ``dot`` and ``gram`` then psum, ``basis``
+    stacks each shard's rows), for ``policy.resolve_max``.  The coordinate
+    scalars are host fp64 (see the module docstring)."""
     dtype, shape, dev = b.dtype, b.shape, b.device
     dt = np.dtype(np.float64)
     zero = dt.type(0)
-    n = b.numel()
+    n = b.numel() if n_global is None else n_global
     m = 2 * s + 1
     tol = dt.type(policy.tol)
     min_iter = policy.min_iteration
@@ -125,8 +138,9 @@ def cacg_loop(
         # makes tol_sq = 0 under rel_l2; stop at once, as cg does
         return (it < min_iter or (rr >= tol_sq and rr > 0)) and it < max_iter
 
-    p, rr, it = r, rr0, 0  # p_0 = r_0 seeds the first basis
+    p, rr, it, outer = r, rr0, 0, 0  # p_0 = r_0 seeds the first basis
     while active(rr, it):
+        outer += 1
         V = build(p, r)
         G = gram(V).double().cpu().numpy()  # the outer step's one reduction
         # inner coordinates: x' = 0 (the s-step correction), r' = e_r (the
@@ -163,8 +177,8 @@ def cacg_loop(
     with np.errstate(divide="ignore", invalid="ignore"):
         res = dt.type(np.sqrt(rr / rr0) if policy.norm == "rel_l2" else np.sqrt(rr))
     converged = bool(res < tol) and it >= min_iter
-    return CGResult(x=x, iterations=it, residual=torch.tensor(res, dtype=dtype, device=dev),
-                    converged=converged)
+    return CACGResult(x=x, iterations=it, residual=torch.tensor(res, dtype=dtype, device=dev),
+                      converged=converged, outer_steps=outer)
 
 
 def cacg_solve(
@@ -174,7 +188,7 @@ def cacg_solve(
     policy: ConvergencePolicy = ConvergencePolicy(),
     s: int = 4,
     use_pallas: bool = False,
-) -> CGResult:
+) -> CACGResult:
     """Solve SPD ``A x = b`` by s-step CG on ``b``'s device (a host ``A``
     placed there first).  Iterate for iterate equal to ``cg_solve`` in exact
     arithmetic; the outer step that crosses the tolerance finishes its

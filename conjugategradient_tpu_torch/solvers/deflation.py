@@ -34,9 +34,12 @@ Differences from the JAX package:
   (the JAX package's ``jax.random`` stream cannot be reproduced); pass
   ``v0`` to start from a given vector instead.
 - ``Deflation.map_basis`` exists only for the JAX package's column-major
-  Pallas layout, which the port does not have, and is left out; the
-  sharded fields (``psum_axis``, ``with_axis``) raise, naming ROADMAP's
-  parallel item.
+  Pallas layout, which the port does not have, and is left out.
+- A sharded deflation (``parallel.sharded_cg.shard_deflation``) holds W and
+  AW as ``parallel.mesh.Shards`` of row blocks and the k x k factor and
+  scale on every shard's device; ``with_axis`` then makes the (k,) Galerkin
+  contraction a ``psum`` over the mesh, and the coarse solve runs on every
+  shard, as under the JAX package's ``shard_map``.
 """
 
 from __future__ import annotations
@@ -54,7 +57,23 @@ from conjugategradient_tpu_torch.ops.spmv import as_operator
 from conjugategradient_tpu_torch.solvers.cg import CGResult, cg_solve
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
-_PARALLEL = "ROADMAP queue 1: parallel"
+
+def _contract(U: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``U^T v`` with TF32 off."""
+    with no_tf32():
+        return U.T @ v.reshape(-1)
+
+
+def _coarse(chol_E: torch.Tensor, scale: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``E^-1 c`` through the equilibrated Cholesky factor."""
+    y = torch.cholesky_solve((scale * c)[:, None], chol_E, upper=False)
+    return scale * y[:, 0]
+
+
+def _lift(U: torch.Tensor, c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``U c`` in ``like``'s shape, TF32 off."""
+    with no_tf32():
+        return (U @ c).reshape(like.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,16 +96,23 @@ class Deflation:
     psum_axis: Optional[str] = None
     setup_s: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
-    def __post_init__(self):
-        if self.psum_axis is not None:
-            raise NotImplementedError(f"a sharded deflation is not ported yet ({_PARALLEL})")
-
     @property
     def k(self) -> int:
         return self.W.shape[1]
 
     def with_axis(self, axis: Optional[str]) -> "Deflation":
-        raise NotImplementedError(f"a sharded deflation is not ported yet ({_PARALLEL})")
+        """Shard-local view: with ``psum_axis`` set the (k,) Galerkin
+        contraction is psum'd over the mesh, so every hook works on
+        row-sharded vectors of a deflation whose W and AW are
+        ``parallel.mesh.Shards`` (``parallel.sharded_cg.shard_deflation``);
+        the k x k solve runs on every shard."""
+        if axis is not None:
+            from conjugategradient_tpu_torch.parallel.mesh import Shards
+
+            if not isinstance(self.W, Shards):
+                raise TypeError("with_axis needs a sharded deflation "
+                                "(parallel.sharded_cg.shard_deflation)")
+        return dataclasses.replace(self, psum_axis=axis)
 
     def to(self, device) -> "Deflation":
         """The same deflation with its tensors on ``device``."""
@@ -95,16 +121,21 @@ class Deflation:
 
     # -- the three pieces def-CG needs; vectors may be grid-shaped --------
 
-    def _coeffs(self, U: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """``E^-1 U^T v`` through the equilibrated factor."""
-        with no_tf32():
-            c = U.T @ v.reshape(-1)
-        y = torch.cholesky_solve((self.scale * c)[:, None], self.chol_E, upper=False)
-        return self.scale * y[:, 0]
+    def _coeffs(self, U, v):
+        """``E^-1 U^T v`` through the equilibrated factor (psum'd over the
+        mesh when sharded)."""
+        if self.psum_axis is None:
+            return _coarse(self.chol_E, self.scale, _contract(U, v))
+        from conjugategradient_tpu_torch.parallel.mesh import Shards, psum
 
-    def _span(self, U: torch.Tensor, c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        with no_tf32():
-            return (U @ c).reshape(like.shape)
+        return Shards.map(_coarse, self.chol_E, self.scale, psum(Shards.map(_contract, U, v)))
+
+    def _span(self, U, c, like):
+        if self.psum_axis is None:
+            return _lift(U, c, like)
+        from conjugategradient_tpu_torch.parallel.mesh import Shards
+
+        return Shards.map(_lift, U, c, like)
 
     def galerkin_correct(self, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         """x + W E^-1 W^T r: the coarse solve that zeroes W^T r."""

@@ -5,9 +5,11 @@ The host generators and the workload table are copies: they must be
 bit-identical and field-for-field equal.  ``cg_solve_multi`` in fp64 runs
 the same per-column recurrence as the JAX package's, so the per-column
 iteration counts are equal, with or without the multi-RHS V-cycle.  Every
-facade method the port does not have yet (``sharded_cg``, ``mesh=``)
-raises ``NotImplementedError`` naming its ROADMAP item; the
-methods it has take the JAX facade's iteration counts.
+facade route the port does not have yet (the ``mesh=`` routes but
+``cg``/``sharded_cg``/``jacobi_cg``/``cacg``) raises
+``NotImplementedError`` naming its ROADMAP item; the methods it has take
+the JAX facade's iteration counts (``sharded_cg`` on 8-shard meshes on both
+sides).
 """
 
 import dataclasses
@@ -81,8 +83,12 @@ def test_every_workload_field_equals_jax():
         _same_system(twl.build(name), jwl.build(name))
     with pytest.raises(KeyError, match="unknown workload"):
         twl.get("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-        twl.get("cublas_flagship").build_rows(0, 10)
+    for name in ("cublas_flagship", "simple_cuda", "viennacl_large"):
+        got = twl.get(name).build_rows(1000, 1037)
+        want = jwl.WORKLOADS[name].build_rows(1000, 1037)
+        assert got[0] == want[0]
+        for a, b in zip(got[1:], want[1:]):
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
 
 
 @pytest.mark.parametrize("norm", ["l2", "rel_l2", "linf"])
@@ -172,7 +178,7 @@ FACADE = {
     **dict.fromkeys(("native", "cheb_cg", "jacobi_cg", "amg_cg", "bicgstab", "gmres", "fgmres", "minres",
                      "idr", "chebyshev", "auto", "bjacobi_bicgstab", "mg_gmres", "lsmr", "cgnr",
                      "cacg", "deflated_cg"), None),
-    "sharded_cg": (NotImplementedError, "ROADMAP queue 1: parallel"),
+    "sharded_cg": None,
     "amg_cg mesh=": (NotImplementedError, "ROADMAP queue 1: parallel"),
     "jacobi_chebyshev": (ValueError, "no preconditioner prefix"),
 }
@@ -180,7 +186,7 @@ FACADE = {
 
 #: ported methods with no (n, k) route: both facades raise ValueError
 _SINGLE_ONLY = ("native", "cheb_cg", "gmres", "fgmres", "minres", "idr", "chebyshev", "mg_gmres", "lsmr",
-                "cgnr", "cacg", "deflated_cg")
+                "cgnr", "cacg", "deflated_cg", "sharded_cg")
 
 
 @pytest.mark.parametrize("method", sorted(FACADE))
@@ -202,11 +208,20 @@ def test_unported_facade_methods_raise(method):
             api.solve(s.A, np.stack([s.b, s.b], 1), method=name, device="cpu", **kw)
         return
     s, sj = tgen.poisson_system((15, 17)), jgen.poisson_system((15, 17))
+    extra, jextra = {}, {}
+    if name == "sharded_cg":
+        # 255 rows padded to 256 for the 8-shard meshes of both facades
+        from conjugategradient_tpu.core.partition import pad_system as j_pad
+        from conjugategradient_tpu.parallel import make_mesh as j_mesh
+        from conjugategradient_tpu_torch.core.partition import pad_system
+        from conjugategradient_tpu_torch.parallel import make_mesh
+
+        (s, _), (sj, _) = pad_system(s, 8), j_pad(sj, 8)
+        extra["mesh"], jextra["mesh"] = make_mesh(8, devices=["cpu"] * 8), j_mesh(8)
     B = np.stack([s.b, np.random.default_rng(6).standard_normal(s.n)], 1)
     opts = dict(method=name, tol=1e-10, norm="rel_l2")
     if name == "mg_gmres":
         opts["grid"] = (15, 17)
-    extra = {}
     if name == "idr":
         import jax
 
@@ -217,7 +232,8 @@ def test_unported_facade_methods_raise(method):
 
         extra["deflation"] = deflation_from_reference(
             make_deflation(sj.A, k=8, dtype=np.float64), device="cpu")
-    r, jr = api.solve(s.A, s.b, device="cpu", **opts, **extra), japi.solve(sj.A, sj.b, **opts)
+    r, jr = api.solve(s.A, s.b, device="cpu", **opts, **extra), japi.solve(sj.A, sj.b, **opts,
+                                                                           **jextra)
     assert r.converged and r.iterations == int(jr.iterations)
     assert np.abs(np.asarray(r.x) - np.asarray(jr.x)).max() <= 1e-10
     if name in _SINGLE_ONLY:
@@ -240,7 +256,7 @@ def test_unported_facade_methods_raise(method):
 def test_facade_refuses_mesh_and_unknown_methods():
     s = tgen.tridiagonal_system(16)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-        api.solve(s.A, s.b, method="cg", mesh=object())
+        api.solve(s.A, s.b, method="mgcg", grid=(16,), mesh=object())
     with pytest.raises(ValueError, match="unknown method"):
         api.solve(s.A, s.b, method="nope", device="cpu")
     with pytest.raises(TypeError, match="DiaMatrix"):

@@ -122,6 +122,7 @@ def test_two_host_reads_and_2s_products_per_outer_step(poisson, monkeypatch):
     assert -(-r.iterations // s) <= n_outer
     assert len(reads) == 1 + n_outer  # r0.r0, then one per outer step
     assert len(prods) == 1 + 2 * s * n_outer
+    assert r.outer_steps == n_outer  # the result reports the steps it took
 
 
 def test_injected_basis_replaces_the_operator_products(poisson):

@@ -1796,3 +1796,66 @@ def test_native_kit_is_built_on_the_card_machine(cuda):
     assert native.available()
     if native.threads() == 0:
         assert "-fopenmp" in _build.host_library_path("csrkit").with_suffix(".log").read_text()
+
+
+def _shard_padded(p, i, n_local, halo, num, pad=4096):
+    """Shard i's halo-padded p (cyclic neighbours' slabs, as
+    ``parallel.halo.HaloDia`` fills it) carved out of a NaN-filled buffer."""
+    L = n_local + 2 * halo
+    buf = torch.full((L + 2 * pad,), float("nan"), device=p.device, dtype=p.dtype)
+    pp = buf[pad:pad + L]
+    blocks = p.view(num, n_local)
+    pp[:halo] = blocks[(i - 1) % num, -halo:]
+    pp[halo:halo + n_local] = blocks[i]
+    pp[halo + n_local:] = blocks[(i + 1) % num, :halo]
+    return pp
+
+
+@pytest.mark.parametrize("legs", [torch.float32, torch.float64])
+def test_shard_local_dia_kernel_equals_global_rows(cuda, legs):
+    """Kernel #4 on each shard's extended DIA (zero halo rows) over a
+    NaN-carved padded p: its middle rows equal the global product's rows bit
+    for bit (one launch plan, up to 256 diagonals), its halo rows are zero,
+    and the fused p.Ap is the shard's rows' dot."""
+    from conjugategradient_tpu_torch.parallel.halo import extend_rows
+
+    s = generators.banded_sin_system(4096, 160)
+    num, h = 4, s.A.bandwidth
+    n_local = s.n // num
+    A = s.A.device_put(legs, cuda)
+    p = torch.from_numpy(np.random.default_rng(21).standard_normal(s.n)).to(cuda, legs)
+    y = cuda_dia.spmv_dia_cuda(A, p)
+    for i in range(num):
+        rows = slice(i * n_local, (i + 1) * n_local)
+        ext = extend_rows(A.data[:, rows], h)
+        Ai = DiaMatrix(ext, s.A.offsets, (ext.shape[1],) * 2)
+        pp = _shard_padded(p, i, n_local, h, num)
+        yi = cuda_dia.spmv_dia_cuda(Ai, pp)
+        assert torch.equal(yi[h:h + n_local], y[rows])
+        assert not bool(yi[:h].any()) and not bool(yi[h + n_local:].any())
+        yd, d = cuda_dia.spmv_dot_dia_cuda(Ai, pp)
+        assert torch.equal(yd, yi)
+        terms = p[rows].double() * y[rows].double()
+        # the fused dot sums in its own order: bounded against sum |terms|
+        bound = (REL if legs == torch.float32 else REL64) * float(terms.abs().sum())
+        assert abs(float(d) - float(terms.sum())) <= bound
+
+
+def test_four_shards_on_one_card_take_the_one_shard_count(cuda):
+    """``sharded_cg_solve`` with four shards on cuda:0: the 1-shard fp64
+    count, x within 1e-10 of it, kernel #4 once per shard per product (the
+    initial residual on the plain launch, every iteration on the fused
+    one)."""
+    from conjugategradient_tpu_torch.parallel import make_mesh, sharded_cg_solve
+
+    s = generators.banded_sin_system(4096, 160)
+    pol = ConvergencePolicy(tol=1e-10, norm="rel_l2")
+    one = sharded_cg_solve(s.A, s.b, s.x0, pol, make_mesh(1, devices=[cuda]))
+    cuda_dia.reset_launch_counts()
+    four = sharded_cg_solve(s.A, s.b, s.x0, pol, make_mesh(4, devices=[cuda] * 4))
+    torch.cuda.synchronize()
+    assert one.converged and four.converged and four.iterations == one.iterations
+    assert four.x.device == cuda
+    assert float((four.x - one.x).abs().max() / one.x.abs().max()) <= 1e-10
+    assert cuda_dia.spmv_dia_cuda.launches == 4
+    assert cuda_dia.spmv_dot_dia_cuda.launches == 4 * four.iterations

@@ -9,7 +9,8 @@ the same basis; ``deflated_cg_solve`` over a JAX deflation carried across
 (``convert.deflation_from_reference``): the JAX count and x; the port's own
 deflation cutting iterations, amortising over a sequence and composing
 with a Jacobi M; ``refined_solve(deflation=)`` on the host, device-residual
-and grid routes; the facade; the refusals."""
+and grid routes; the facade, sharded def-CG (``with_axis``) on 8-shard
+meshes; the refusals."""
 
 import numpy as np
 import pytest
@@ -246,5 +247,18 @@ def test_facade_deflated_cg_and_the_refusals(outlier, jdef64):
     with pytest.raises(ValueError, match="not positive definite"):
         make_deflation(formats.DiaMatrix(data, (0,), (256, 256)), k=4, m=16, dtype=np.float64,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
+    # with_axis: sharded def-CG on 8-shard meshes, against the JAX package's
+    from conjugategradient_tpu.parallel import make_mesh as j_mesh
+    from conjugategradient_tpu.parallel.sharded_cg import sharded_cg_solve as j_sharded
+    from conjugategradient_tpu_torch.parallel import make_mesh
+    from conjugategradient_tpu_torch.parallel.sharded_cg import sharded_cg_solve
+
+    pol = dict(tol=1e-10, norm="rel_l2", max_iteration=5000)
+    rs = sharded_cg_solve(s.A, s.b, policy=ConvergencePolicy(**pol),
+                          mesh=make_mesh(8, devices=["cpu"] * 8),
+                          deflation=deflation_from_reference(jd, "cpu"))
+    jrs = j_sharded(sj.A, sj.b, policy=JPolicy(**pol), mesh=j_mesh(8), deflation=jd)
+    assert rs.converged and rs.iterations == int(jrs.iterations) == r.iterations
+    assert _rel(rs.x, jrs.x) <= X_REL
+    with pytest.raises(TypeError, match="sharded deflation"):
         make_deflation(s.A, k=2, m=8, dtype=np.float64, device="cpu").with_axis("x")
