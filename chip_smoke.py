@@ -21,20 +21,22 @@ after:
   an n x 4 block.  The counts show the DIA SpMV ran in each of its three
   instantiations and as often as the iteration counts imply, and that the
   DIA SpMM ran.
-- The variable-coefficient path: ``diffusion_system((255,)*3, kind="jump",
-  contrast=1e3)`` -> ``build_hierarchy`` (Galerkin: 255^3 with 7 legs, then
-  127^3 .. 15^3 with 27 legs each, dense 7^3) -> ``api.solve(method="mgcg")``
-  in fp32; then ``diffusion_system((255,)*3, kind="smooth")`` ->
+- The variable-coefficient path: ``diffusion_system((127,)*3, kind="jump",
+  contrast=1e3)`` -> ``build_hierarchy`` (Galerkin: 127^3 with 7 legs, then
+  27-leg levels, dense) -> ``api.solve(method="mgcg")`` in fp32 (cut from
+  255^3, whose hierarchy's host setup took 71-90 s; the 255^3 jump
+  system's fine level stays kernel #3's main shape, with no hierarchy);
+  then ``diffusion_system((127,)*3, kind="smooth")`` ->
   ``refined_solve(grid=, matrix_dtype=torch.bfloat16)`` to an absolute
   ||r||_2 < 1e-8, host and device residual.  The counts show the
   variable-coefficient SpMV ran at every level, and on its bf16-leg
   instantiation as often as the iteration counts imply.
-- The multi-RHS grid path: ``cg_solve_multi`` on the 255^3 jump system's DIA
+- The multi-RHS grid path: ``cg_solve_multi`` on the 127^3 jump system's DIA
   (the DIA SpMM at the CG level) with ``as_multi_preconditioner`` over its
   hierarchy, k = 4, column 0 the system's b (its iteration count must equal
   the single-RHS solve's); ``api.solve(B, method="mgcg")`` on 63^3 Poisson,
   card against CPU; ``refined_solve_multi(grid=, matrix_dtype=bf16)`` on the
-  255^3 smooth system, k = 2 (column 0's counts must equal the single-RHS
+  127^3 smooth system, k = 2 (column 0's counts must equal the single-RHS
   host route's).
 - The default dtype: ``api.solve(method="mgcg")`` with dtype=None on the
   generators' fp64 Poisson systems at 127^3 and on the 1-D grid (262143,)
@@ -85,7 +87,7 @@ after:
   bound, and #4/#5 past 256 diagonals timed beside cuSPARSE (both as
   launched and replayed from CUDA graphs; the record's ``split_by_shape``
   and ``past_256_diagonals``).
-- The CG drivers.  On four paths (255^3 Poisson, 255^3 jump and 1024^2
+- The CG drivers.  On four paths (255^3 Poisson, 127^3 jump and 1024^2
   Galerkin MGCG in fp32, each as ``mgcg_solve`` runs it over the
   hierarchies built above; the flagship in fp64 through
   ``make_kernel_operator``, kernel #4), ``cg_solve`` against
@@ -95,7 +97,7 @@ after:
   capture time apart, x's bit-identity, and a profiled chunk-1 solve in
   which the trace's graph launches ran exactly the captured step's kernel
   launches (the wrappers count a captured launch once) once per replay.
-  Then a chunked 255^3 jump solve
+  Then a chunked 127^3 jump solve
   killed after its first chunk and resumed from its checkpoint file (the
   uninterrupted count), ``cg_solve_traced`` on the 255^3 Poisson MGCG
   (its history against the chunked residual), the 127^3 smooth hierarchy
@@ -213,6 +215,28 @@ after:
   sharded def-CG on the outlier system beside single-device def-CG;
   ``sharded_cg_solve_general`` on the flagship as CSR and HandmadeCL as
   ELL, their hops and routes.
+- The sharded multigrid, on the same 4 shards and on 1:
+  ``shard_mgcg_solve`` on Poisson 256^3 (the Galerkin hierarchy the
+  facade builds for an even grid, shared with the MGCG above: hybrid
+  levels with halo0 1 and 2, aggregation levels with halo0 2 and 3 on the
+  wide kernel #3 a shard, the 16^3 level in the replicated tail) by cg,
+  cg1 and pipelined, and on 1024^2 Galerkin with the Chebyshev and rbgs
+  smoothers: each count within 2 of ``mgcg_solve``'s on the same
+  hierarchy, the true fp64 relative residual below 1e-5, kernel #3 once a
+  shard per sharded-level product and the tail's launches once (to the
+  count the recurrence and the V-cycle imply), the 4-shard x within 1e-5
+  of the 1-shard x; ``shard_multi_mgcg_solve`` on 1024^2 at k = 4 against
+  ``cg_solve_multi``, each column's true residual below 1e-5;
+  ``sharded_cg_multi_solve`` on the flagship padded to 4 | n, k = 4, cg
+  and bicgstab (kernel #5 once a shard per block product);
+  ``api.solve(mesh=)``: mgcg on 1023^2 (replicated: ``mgcg_solve``'s x bit
+  for bit) and 256^3 (sharded), refined on 1024^2 to ||r||_2 < 1e-8 (the
+  fp64 residual on kernel #4 once a shard per pass), (n, k) mgcg and cg;
+  kernel #3 on one shard's extended 256^3 slab (its local rows against #3
+  on the global rows and the twin) and #5 on one shard's flagship DIA at k
+  = 4 (against the twin and #4 a column), each timed beside its bound and
+  cuSPARSE; warm medians of the 4-shard, 1-shard and ``mgcg_solve`` 256^3
+  solves with their busy shares.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -250,6 +274,7 @@ import json
 import os
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -326,11 +351,15 @@ from conjugategradient_tpu_torch.ops.spmm import spmm
 from conjugategradient_tpu_torch.parallel import (
     Shards,
     make_mesh,
+    make_shard_mgcg,
     make_sharded_cg,
     make_sharded_cg_general,
+    shard_multi_mgcg_solve,
     sharded_cg_solve,
 )
 from conjugategradient_tpu_torch.parallel.halo import exchange_bytes, extend_rows
+from conjugategradient_tpu_torch.parallel.shard_mgcg import _const_legs
+from conjugategradient_tpu_torch.parallel.shard_multi import sharded_cg_multi_solve
 from conjugategradient_tpu_torch.parallel.multihost import make_distributed_system
 from conjugategradient_tpu_torch.ops.spmv import as_operator, prepare
 from conjugategradient_tpu_torch.precond import amg
@@ -340,11 +369,16 @@ from conjugategradient_tpu_torch.precond.multigrid import (
     as_preconditioner,
     build_hierarchy,
     fmg,
+    mgcg_solve,
 )
 from conjugategradient_tpu_torch.scripts import reference_workloads, spmm_acc_experiment
 from conjugategradient_tpu_torch.solvers import eigen
 from conjugategradient_tpu_torch.solvers.cg import cg_solve, cg_solve_chunked, cg_solve_traced
-from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner, cg_solve_multi
+from conjugategradient_tpu_torch.solvers.multi import (
+    as_multi_preconditioner,
+    bicgstab_solve_multi,
+    cg_solve_multi,
+)
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 from conjugategradient_tpu_torch.solvers.refine import refined_solve, refined_solve_multi
 from conjugategradient_tpu_torch.utils import PhaseTimer, load_pytree, load_state, save_pytree
@@ -433,6 +467,12 @@ VAR_GRID = (255, 255, 255)
 #: 255^3 smooth hierarchy's setup, host residual route and k = 2 block took
 #: ~220 s of host time on the H100 machine's CPU)
 SMOOTH_GRID = (127, 127, 127)
+#: the jump field's MGCG paths (fp32 MGCG, its k = 4 block, the chunked and
+#: resumed drivers): cut from 255^3 to 127^3 when the sharded multigrid
+#: joined the run (the 255^3 jump hierarchy's host setup took 71-90 s, most
+#: of it power iteration); the 255^3 jump system stays for kernel #3's main
+#: shape (its fine level, no hierarchy), #5 and #6
+JUMP_MG_GRID = (127, 127, 127)
 VAR_CONTRAST = 1e3
 VAR_SMALL = (31, 31, 31)
 #: kernel #3's small check shapes: (label, grid) of diffusion operators
@@ -453,12 +493,11 @@ VAR_HAND = [("13 legs (10, 18, 66)", SHIFTS27[:13], (10, 18, 66)),
 WALLS_BEFORE_MS = {
     "MGCG 2-D 1023^2 solve": "42.8 / 31.1",
     "MGCG 3-D 255^3 solve": "53.8 / 42.7",
-    "MGCG jump 255^3 warm solve": "361.1 / 432.6",
-    "multi-RHS MGCG jump 255^3 k=4": "810.2 / 1606.9",
 }
 
 #: the rest of the multigrid build, at full size: Poisson 256^3 (hybrid
-#: fine level, Galerkin levels of 81 legs at |shift| 2; and rediscretized,
+#: fine level, Galerkin levels of 81 to 1331 legs at |shift| 2 to 5; and
+#: rediscretized,
 #: every level const), Poisson 1024^2 (2-D hybrid: stencil levels, DIA
 #: levels, the rbgs smoother), anisotropic 1024^2 (semicoarsening) and the
 #: reference's simple_cuda tridiagonal n = 65,536 (aggregation)
@@ -1100,11 +1139,12 @@ def _host_rel_residual(A, b, x) -> float:
 
 
 def _var_mgcg(sysj, hj, dev, card):
-    """``api.solve(method="mgcg")`` on the 255^3 jump system over its
-    Galerkin hierarchy, counted (kernel #3 at every level), timed in a warm
-    run, then profiled.  Returns kernel #3's launch count, the counted result
+    """``api.solve(method="mgcg")`` on the jump system over its Galerkin
+    hierarchy, counted (kernel #3 at every level), timed in a warm run,
+    then profiled.  Returns kernel #3's launch count, the counted result
     and the warm wall (ms)."""
-    kw = dict(method="mgcg", grid=VAR_GRID, tol=TOL, norm="rel_l2", dtype=np.float32, device=dev,
+    grid = hj.levels[0].grid
+    kw = dict(method="mgcg", grid=grid, tol=TOL, norm="rel_l2", dtype=np.float32, device=dev,
               hierarchy=hj, precise_dot=True)
     torch.cuda.synchronize()
     cuda_stencil.reset_launch_counts()
@@ -1115,7 +1155,7 @@ def _var_mgcg(sysj, hj, dev, card):
     launches = spmv_stencil_cuda.launches
     by_grid = dict(spmv_stencil_cuda.launches_by_grid)
     by_dtype = dict(spmv_stencil_cuda.launches_by_dtype)
-    tag = f"MGCG jump {VAR_GRID}"
+    tag = f"MGCG jump {grid}"
     _require(res.converged, f"{tag}: did not converge in {res.iterations} iterations")
     _require(tuple(res.x.shape) == (sysj.n,) and bool(torch.isfinite(res.x).all()), f"{tag}: bad x")
     rel = _host_rel_residual(sysj.A, sysj.b, res.x.cpu().numpy())
@@ -1183,13 +1223,14 @@ def _var_refine_routes(syss, hs, dev, card) -> int:
     return total, results["host residual"], device_wall_ms
 
 
-def _var_times(hj, dev, card, times):
-    """Kernel #3 vs its twin at the path's shapes: the 255^3 fine level
-    (7 legs; fp32, bf16 and fp64 legs) and the 127^3 Galerkin level (27
-    legs; fp32 and bf16), with GB/s from all leg bytes + x + y and the
-    share of the bound (the leg entries whose neighbour lies in the grid)."""
-    for label, A32, dtypes in (("255^3 7 legs", hj.levels[0].A, LEG_DTYPES),
-                               ("127^3 27 legs", hj.levels[1].A, (torch.float32, torch.bfloat16))):
+def _var_times(A7, A27, dev, card, times):
+    """Kernel #3 vs its twin at the path's shapes: the 255^3 jump fine
+    level (7 legs; fp32, bf16 and fp64 legs) and a 127^3 level of 27 legs
+    (fp32 and bf16; built on the card), with GB/s from all leg bytes + x + y
+    and the share of the bound (the leg entries whose neighbour lies in the
+    grid)."""
+    for label, A32, dtypes in (("255^3 7 legs", A7, LEG_DTYPES),
+                               ("127^3 27 legs", A27, (torch.float32, torch.bfloat16))):
         for legs in dtypes:
             A = A32.astype(legs)
             vec = torch.float64 if legs == torch.float64 else torch.float32
@@ -1366,7 +1407,7 @@ def _device_time_top(fn, wall_ms: float, card, top: int = 6, h=None):
 
 
 def _multi_mgcg(sysj, hj, single, dev, card):
-    """Multi-RHS MGCG on the 255^3 jump system: ``cg_solve_multi`` on its
+    """Multi-RHS MGCG on the jump system: ``cg_solve_multi`` on its
     fp32 DIA (kernel #5 at the CG level) with ``as_multi_preconditioner``
     over its hierarchy (kernel #3 per column at every level), k = MULTI_K,
     column 0 the system's b; counted, then the whole solve profiled.
@@ -1386,7 +1427,7 @@ def _multi_mgcg(sysj, hj, single, dev, card):
     counts = _counts()
     by_grid = dict(spmv_stencil_cuda.launches_by_grid)
     its = res.iterations.tolist()
-    tag = f"multi-RHS MGCG jump {VAR_GRID} k={MULTI_K}"
+    tag = f"multi-RHS MGCG jump {hj.levels[0].grid} k={MULTI_K}"
     _require(bool(res.converged.all()), f"{tag}: converged {res.converged.tolist()}, its {its}")
     _require(its[0] == single.iterations,
              f"{tag}: column 0 took {its[0]} iterations, the single-RHS solve {single.iterations}")
@@ -1487,7 +1528,7 @@ def _library(name, lib_fn, kernel_out, card, reps):
     return ms
 
 
-def _library_and_bounds(ops, fsys, sysj, hj, dev, card, times):
+def _library_and_bounds(ops, fsys, sysj, A3, dev, card, times):
     """For the main shape of kernels #1-#5: the library call's time and the
     bound.  #1 at 255^3 (cuDNN ``conv3d``), #2 degree-2 pre-smooth at 255^3
     (no library call), #3 the 255^3 jump fine level (cuSPARSE CSR SpMV), #4
@@ -1503,7 +1544,6 @@ def _library_and_bounds(ops, fsys, sysj, hj, dev, card, times):
     lib["cheb_smooth_const"] = None
     bounds["cheb_smooth_const"] = bound_ms(_cheb_bytes(n3, True, True),
                                            _cheb_flops(A1.nlegs, 2, True, True) * n3)
-    A3 = hj.levels[0].A
     csr = dia_csr(sysj.A.device_put(torch.float32, dev))
     lib["spmv_stencil"] = _library("spmv_stencil 255^3 7 legs fp32", lambda: csr @ x.reshape(-1),
                                    spmv_stencil_cuda(A3, x).reshape(-1), card, 50)
@@ -1619,6 +1659,43 @@ def _kind_hierarchy(label, s, grid, dev, dtype=np.float32, **kw):
           f"+ dense {h.coarse_inv.shape[0]}; host setup s "
           f"{ {k: round(v, 3) for k, v in h.setup_s.items()} } (total {total:.3f} s)")
     return h
+
+
+def _hierarchy_on_thread(label, s, grid):
+    """``_kind_hierarchy`` on a host thread: ``build_hierarchy`` runs on
+    the host (scipy's sparse products release the GIL) while the card runs
+    the phases before the hierarchy's first use.  Returns ``join(dev)``,
+    which waits for the thread, places the hierarchy on ``dev`` and prints
+    it as ``_kind_hierarchy`` does, with the seconds the caller waited."""
+    box = {}
+
+    def build():
+        try:
+            t0 = time.perf_counter()
+            box["h"] = build_hierarchy(s.A, grid, dtype=np.float32, device="cpu")
+            box["s"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised by join
+            box["err"] = e
+
+    thread = threading.Thread(target=build, name=f"hierarchy {label}", daemon=True)
+    thread.start()
+
+    def join(dev):
+        t0 = time.perf_counter()
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        waited = time.perf_counter() - t0
+        h = box["h"].to(dev)
+        torch.cuda.synchronize()
+        print(f"hierarchy {label}: levels (grid, transfer, operator, legs, max |shift|) "
+              f"{_describe(h)} + dense {h.coarse_inv.shape[0]}; host setup s "
+              f"{ {k: round(v, 3) for k, v in h.setup_s.items()} } (total {box['s']:.3f} s on a "
+              f"host thread beside the earlier phases; waited for {waited:.3f} s, upload "
+              f"{time.perf_counter() - t0 - waited:.3f} s)")
+        return h
+
+    return join
 
 
 def _kind_counts():
@@ -1839,14 +1916,30 @@ def _fmg_then_mgcg(s, grid, h, dev, card, from_zero):
     return counts
 
 
-def _multigrid_kinds(dev, card, errs, count):
+def _level_on_card(grid, shifts, dev, seed):
+    """A variable-coefficient level of ``grid`` on ``shifts`` built on the
+    card: legs drawn in [0.5, 1.5), zero where the neighbour leaves the
+    grid (the layout of a Galerkin level, without the host setup)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    legs = torch.rand((len(shifts),) + tuple(grid), generator=gen, device=dev) + 0.5
+    for k, sh in enumerate(shifts):
+        for ax, d in enumerate(sh):
+            if d:
+                legs[k].narrow(ax, grid[ax] - d if d > 0 else 0, abs(d)).zero_()
+    return StencilMatrix(legs, tuple(tuple(s) for s in shifts), tuple(grid))
+
+
+def _multigrid_kinds(galerkin3, dev, card, errs, count):
     """The rest of the multigrid build at full size, each path counted
     (``count``), the wide kernel #3 checked against its twin at the paths'
-    shapes first.  Returns the wide kernel's timing cases and the 1024^2
-    Galerkin system with its hierarchy."""
+    shapes first.  Returns the wide kernel's timing cases, the 1024^2
+    Galerkin system with its hierarchy, and the 256^3 Poisson system with
+    its Galerkin hierarchy (the sharded multigrid's 3-D case).
+    ``galerkin3``: the 256^3 system and the ``join`` of its hierarchy's
+    thread (``_hierarchy_on_thread``)."""
     h64 = _kind_small_card_vs_cpu(dev)
-    s3 = _kind_system("poisson", KIND_GRID_3D)
-    h3g = _kind_hierarchy(f"Galerkin Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, dev)
+    s3, join = galerkin3
+    h3g = join(dev)
     s2 = _kind_system("poisson", KIND_GRID_2D)
     h2g = _kind_hierarchy(f"Galerkin Poisson {KIND_GRID_2D}", s2, KIND_GRID_2D, dev)
     st = _kind_system("tridiagonal", (KIND_TRIDIAG,))
@@ -1864,11 +1957,9 @@ def _multigrid_kinds(dev, card, errs, count):
                  f"wide case {label}: {A.nlegs} legs, halo {A.halo}")
     _wide_kernel_checks([(label, A.astype(torch.float32)) for label, A in wide], dev, errs)
 
-    res = {}
-    for label, s, grid, h, kw in (
-            (f"MGCG Galerkin Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, h3g, {}),
-            (f"MGCG Galerkin Poisson {KIND_GRID_2D}", s2, KIND_GRID_2D, h2g, {})):
-        counts, res[label] = _kind_mgcg(label, s, grid, h, dev, card, **kw)
+    for label, s, grid, h in ((f"MGCG Galerkin Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, h3g),
+                              (f"MGCG Galerkin Poisson {KIND_GRID_2D}", s2, KIND_GRID_2D, h2g)):
+        counts, _ = _kind_mgcg(label, s, grid, h, dev, card)
         count(label, counts)
     h3r = _kind_hierarchy(f"rediscretized Poisson {KIND_GRID_3D}", s3, KIND_GRID_3D, dev,
                           coarse_operator=generators.poisson_coarse_operator(np.float32))
@@ -1908,7 +1999,7 @@ def _multigrid_kinds(dev, card, errs, count):
     count(label, counts, fp32=False)
     return [(label, A.astype(torch.float32),
              (torch.float32, torch.bfloat16, torch.float64) if i == 0 else (torch.float32,))
-            for i, (label, A) in enumerate(wide)], (s2, h2g)
+            for i, (label, A) in enumerate(wide)], (s2, h2g), (s3, h3g)
 
 
 def _nan_buffered(X):
@@ -2749,7 +2840,7 @@ KERNEL_SYMBOLS = {"spmv_const_stencil": "spmv_const_kernel", "cheb_smooth_const"
                   "spmv_stencil": "spmv_var_kernel", "spmv_stencil_wide": "spmv_var_wide_kernel",
                   "spmv_dia": "spmv_dia_kernel", "spmv_dot_dia": "spmv_dot_dia_kernel",
                   "spmm_dia": "spmm_dia_kernel", "spmm_dia_acc": "spmm_dia_acc_kernel"}
-#: the checkpoint path's chunk (the 255^3 jump MGCG takes 26 iterations)
+#: the checkpoint path's chunk (shorter than the jump MGCG's count)
 RESUME_CHUNK = 8
 #: cg_solve_traced's steps on the 255^3 Poisson MGCG (5 iterations)
 TRACED_STEPS = 8
@@ -2764,19 +2855,20 @@ class _Stop(Exception):
 
 def _driver_paths(h3, b3, sysj, hj, galerkin2, fsys, dev):
     """(tag, operator, b, x0, policy, M, precise_dot, fp32, true-residual
-    check) of the four paths the drivers run: the 255^3 Poisson, 255^3 jump
+    check) of the four paths the drivers run: the 255^3 Poisson, 127^3 jump
     and 1024^2 Galerkin MGCG in fp32, each as ``mgcg_solve`` runs it, and
     the flagship in fp64 through ``make_kernel_operator`` (kernel #4)."""
     pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
     s2, h2g = galerkin2
-    bj = torch.from_numpy(sysj.b.astype(np.float32)).to(dev).reshape(VAR_GRID)
+    gj = hj.levels[0].grid
+    bj = torch.from_numpy(sysj.b.astype(np.float32)).to(dev).reshape(gj)
     b2 = torch.from_numpy(s2.b.astype(np.float32)).to(dev).reshape(KIND_GRID_2D)
     rel_bound = lambda A, b: lambda x: _host_rel_residual(A, b, x.reshape(-1).cpu().numpy()) <= TRUE_REL
     fpol = WORKLOADS[FLAGSHIP].policy
     return [
         (f"Poisson MGCG {GRID_3D}", h3.levels[0].A, b3, None, pol, as_preconditioner(h3), True, True,
          lambda x: _true_rel_residual(h3.levels[0].A, b3, x) <= TRUE_REL),
-        (f"jump MGCG {VAR_GRID}", hj.levels[0].A, bj, None, pol, as_preconditioner(hj), True, True,
+        (f"jump MGCG {gj}", hj.levels[0].A, bj, None, pol, as_preconditioner(hj), True, True,
          rel_bound(sysj.A, sysj.b)),
         (f"Galerkin MGCG {KIND_GRID_2D}", h2g.levels[0].A, b2, None, pol, as_preconditioner(h2g), True,
          True, rel_bound(s2.A, s2.b)),
@@ -2876,7 +2968,7 @@ def _drivers_path(path, dev, card, count):
 
 
 def _resume_path(path, ref, card):
-    """The 255^3 jump MGCG chunked at RESUME_CHUNK: a callback kills the
+    """The jump MGCG chunked at RESUME_CHUNK: a callback kills the
     first call after one chunk, a second call resumes from the file and
     must take the uninterrupted chunked solve's count."""
     tag, A, b, x0, pol, M, precise, _, bound_ok = path
@@ -5287,6 +5379,411 @@ def _parallel(csrs, fsys, dev, card, count, witness=None):
         print(f"  {step.__name__[len('_par_'):]}: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the sharded multigrid: shard_mgcg, shard_multi, the GSPMD carriers
+# ---------------------------------------------------------------------------
+
+SMG_SHARDS = 4
+SMG_K = 4
+#: the facade's replicated odd grid and the (n, k) facade's grid
+SMG_ODD = (1023, 1023)
+SMG_BLOCK_GRID = (512, 512)
+
+
+def _k3_launches() -> int:
+    """Kernel #3's launches since the last reset, tuned and wide."""
+    return spmv_stencil_cuda.launches + spmv_stencil_wide_cuda.launches
+
+
+def _smg_tail_products(h, plan) -> int:
+    """Kernel #3's launches one replicated-tail cycle makes for one column:
+    the single-device ``v_cycle`` once, on the first shard's device, over
+    the tail's variable-coefficient levels, counted as ``ShardPlan`` counts
+    a sharded level's products (its constant levels run #1 and #2)."""
+    sweeps = lambda n: 0 if n <= 0 else {"chebyshev": 1 + n, "rbgs": 2 * n}.get(h.smoother, n)
+    return sum(sweeps(h.pre) + sweeps(h.post) + 1 + (2 if l.transfer == "agg" and l.sa_smooth else 0)
+               for l in h.levels[plan.n_sharded:] if isinstance(l.A, StencilMatrix))
+
+
+def _smg_want(variant, its, cols, plan, num, tail=0) -> int:
+    """Kernel #3's launches a sharded MGCG implies: one a shard a column
+    per sharded-level product.  The outer loop's products: the initial
+    residual and one an iteration (cg), two at the start (cg1, pipelined);
+    one V-cycle at the start and one an iteration, each
+    ``plan.products_per_cycle`` sharded products and ``tail`` launches of
+    the replicated tail a column (``_smg_tail_products``)."""
+    products = its + (1 if variant == "cg" else 2)
+    return num * cols * (products + (its + 1) * plan.products_per_cycle) + cols * (its + 1) * tail
+
+
+def _smg_plan(tag, solve, outer_halo):
+    plan = solve.plan
+    print(f"{tag}: n_sharded {plan.n_sharded}; sharded levels (grid, local extent, halo0, "
+          f"transfer) {list(plan.levels)}; replicated tail {list(plan.tail)} + dense "
+          f"{plan.coarse}; {plan.products_per_cycle} sharded products a V-cycle; halo bytes an "
+          f"iteration: {outer_halo} (the outer product's slabs) + {plan.halo_bytes_per_cycle} "
+          f"(the V-cycle's level slabs) + {plan.cc_bytes_per_cycle} (the cc transfers' "
+          f"1-element pairs)")
+
+
+def _smg_check(tag, s, x, rel_bound=TRUE_REL):
+    _require(tuple(x.shape) == (s.n,) and bool(torch.isfinite(x).all()), f"{tag}: bad x")
+    rel = _host_rel_residual(s.A, s.b, x.cpu().numpy())
+    _require(rel <= rel_bound, f"{tag}: true fp64 relative residual {rel:.3e} > {rel_bound}")
+    return rel
+
+
+def _smg_solves(tag, s, grid, h, meshes, variants, dev, card, count, pol):
+    """``make_shard_mgcg`` over ``h`` by each (shards, variant), counted:
+    converged, the count within 2 of ``mgcg_solve``'s on the same
+    hierarchy, the true residual within TRUE_REL, kernel #3 launched once a
+    shard per sharded-level product.  Returns the solvers, their results
+    and the single-device result."""
+    t0 = time.perf_counter()
+    b_dev = torch.from_numpy(s.b).to(dev, torch.float32)
+    single = mgcg_solve(s.A, b_dev, grid, policy=pol, hierarchy=h)[0]
+    torch.cuda.synchronize()
+    print(f"mgcg_solve {tag}: {single.iterations} iterations in {time.perf_counter() - t0:.3f} s")
+    out = {}
+    for num, variant in variants:
+        t_set = time.perf_counter()
+        solve, (b, x0) = make_shard_mgcg(s, grid, meshes[num], pol, hierarchy=h,
+                                         dtype=np.float32, variant=variant)
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t_set
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = solve(b, x0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _k3_launches()
+        want = _smg_want(variant, res.iterations, 1, solve.plan, num,
+                         _smg_tail_products(h, solve.plan))
+        path = f"shard_mgcg {tag} {num} shard(s) {variant}"
+        _require(res.converged and abs(res.iterations - single.iterations) <= 2,
+                 f"{path}: {res.iterations} iterations (converged {res.converged}) against "
+                 f"mgcg_solve's {single.iterations}")
+        _require(got == want, f"{path}: kernel #3 launched {got} times, the recurrence implies {want}")
+        t_chk = time.perf_counter()
+        rel = _smg_check(path, s, res.x)
+        t_chk = time.perf_counter() - t_chk
+        count(path, {"spmv_stencil": spmv_stencil_cuda.launches,
+                     "spmv_stencil_wide": spmv_stencil_wide_cuda.launches})
+        wide = {str(g): v for g, v in sorted(spmv_stencil_wide_cuda.launches_by_grid.items(),
+                                             reverse=True)}
+        print(f"{path}: {res.iterations} iterations (mgcg_solve {single.iterations}), rel_l2 "
+              f"{float(res.residual):.3e}, true fp64 rel residual {rel:.3e}; kernel #3 launches "
+              f"{got} = {want} implied (wide #3 by grid {wide}); setup {t_set:.3f} s, first call "
+              f"{wall:.3f} s, host residual check {t_chk:.3f} s [{card}]")
+        out[(num, variant)] = (solve, b, x0, res)
+    if (SMG_SHARDS, "cg") in out:
+        solve = out[(SMG_SHARDS, "cg")][0]
+        _smg_plan(f"shard_mgcg {tag} {SMG_SHARDS} shards", solve, solve.operators[0].halo_bytes)
+    return out, single, b_dev
+
+
+def _smg_times(tag, s, grid, h, out, single_b, pol, card):
+    """Warm medians of WALL_REPS: the 4-shard and 1-shard cg solves and the
+    single-device mgcg_solve, each with its device busy share."""
+    runs = {f"{SMG_SHARDS} shards": out[(SMG_SHARDS, "cg")],
+            "1 shard": out[(1, "cg")]}
+    fns = {k: (lambda v=v: v[0](v[1], v[2])) for k, v in runs.items()}
+    fns["mgcg_solve"] = lambda: mgcg_solve(s.A, single_b, grid, policy=pol, hierarchy=h)
+    res = {}
+    for k, fn in fns.items():
+        walls = _wall_median_ms(fn)
+        busy = _par_profile(f"shard_mgcg {tag} {k}", fn, walls[0], card)
+        res[k] = walls[0]
+        print(f"time shard_mgcg {tag} {k}: warm wall {_fmt_wall(walls)}, device busy {busy:.1%} "
+              f"[{card}]")
+    return res
+
+
+def _smg_slab_kernel(s, h, solve, dev, card, times):
+    """Kernel #3 on one shard's extended slab (shard 1 of SMG_SHARDS of the
+    256^3 fine level, its legs as the solve holds them): its local rows
+    against #3 on the global grid's rows, against the twin, and timed
+    beside its bound and cuSPARSE's CSR product of the same rows."""
+    op = solve.operators[1]
+    A = op.mats.parts[1]
+    H, n0 = op.halo, op.local[0]
+    lvl = h.levels[0]
+    A_glob = StencilMatrix(_const_legs(lvl.A, 0, lvl.grid[0], torch.float32, dev), lvl.A.shifts,
+                           lvl.grid)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    x = torch.randn(lvl.grid, generator=gen, device=dev)
+    x_ext = x[n0 - H:2 * n0 + H].contiguous()
+    y = spmv_stencil_cuda(A, x_ext)
+    y_glob = spmv_stencil_cuda(A_glob, x)[n0:2 * n0]
+    mid = y[H:H + n0]
+    same = torch.equal(mid, y_glob)
+    if not same:
+        scale = spmv_stencil_ref(StencilMatrix(A.data.abs(), A.shifts, A.grid), x_ext.abs())[H:H + n0]
+        _require(bool(((mid - y_glob).abs() <= KERNEL_REL * scale).all()),
+                 "shard slab #3: local rows differ from the global rows beyond KERNEL_REL")
+    ref = spmv_stencil_ref(A, x_ext)
+    err, scale = _max_err(y, ref)
+    _require(err <= KERNEL_REL * scale, f"shard slab #3: max err {err:.3e} against the twin")
+    k_ms = time_ms(lambda: spmv_stencil_cuda(A, x_ext), 50)
+    p_ms = time_ms(lambda: spmv_stencil_ref(A, x_ext), 3)
+    csr = _stencil_csr(A)
+    lib_ms = _library("spmv_stencil one shard slab", lambda: csr @ x_ext.reshape(-1),
+                      y.reshape(-1), card, 50)
+    del csr
+    n = x_ext.numel()
+    nbytes = A.nnz * 4 + 2 * n * 4
+    bound = bound_ms(nbytes, 2 * A.nnz)
+    times["shard slab"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                               library_ms=lib_ms)
+    print(f"time spmv_stencil on one of {SMG_SHARDS} shards' extended slab {tuple(A.grid)} x "
+          f"{A.nlegs} legs fp32: local rows {'bit-equal to' if same else 'within KERNEL_REL of'} "
+          f"#3 on the global grid's rows, max err against the twin {err:.3e}; kernel {k_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms by {bound[1]}, {bound[0] / k_ms:.1%} "
+          f"of it), twin {p_ms:.4f} ms, CSR {lib_ms:.4f} ms [{card}]")
+    del A_glob, x, x_ext, y, y_glob, ref
+    return err
+
+
+def _smg_dia_kernel(padded, dev, card, times):
+    """Kernel #5 on one shard's extended DIA of the padded flagship at k =
+    SMG_K: against its twin, each column against #4, timed beside its
+    bound and cuSPARSE's CSR product."""
+    n_local = padded.n // SMG_SHARDS
+    hb = max(abs(o) for o in padded.A.offsets)
+    data = torch.from_numpy(padded.A.data[:, n_local:2 * n_local]).to(dev, torch.float32)
+    ext = extend_rows(data, hb)
+    L = ext.shape[1]
+    A = DiaMatrix(ext, tuple(padded.A.offsets), (L, L))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    X = torch.randn((SMG_K, L), generator=gen, device=dev)
+    Y = spmm_dia_cuda(A, X)
+    ref = spmm_dia_ref(A, X)
+    err, scale = _max_err(Y, ref)
+    _require(err <= KERNEL_REL * scale, f"shard DIA #5: max err {err:.3e} against the twin")
+    for j in range(SMG_K):
+        _require(torch.equal(Y[j], spmv_dia_cuda(A, X[j].contiguous())),
+                 f"shard DIA #5: column {j} differs from kernel #4's product")
+    k_ms = time_ms(lambda: spmm_dia_cuda(A, X), 200)
+    p_ms = time_ms(lambda: spmm_dia_ref(A, X), 5)
+    csr = dia_csr(A)
+    lib_ms = _library(f"spmm_dia one shard k={SMG_K}", lambda: (csr @ X.T).T, Y, card, 200)
+    nbytes = spmm_bytes(A, SMG_K)
+    bound = bound_ms(nbytes, 2 * dia_nnz(A) * SMG_K)
+    times["shard dia"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                              library_ms=lib_ms)
+    print(f"time spmm_dia on one of {SMG_SHARDS} shards' extended DIA ({L} rows, {A.ndiags} "
+          f"diagonals) k={SMG_K} fp32: max err against the twin {err:.3e}, every column #4's bit "
+          f"for bit; kernel {k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms by "
+          f"{bound[1]}, {bound[0] / k_ms:.1%} of it), twin {p_ms:.4f} ms, CSR {lib_ms:.4f} ms "
+          f"[{card}]")
+    return err
+
+
+def _smg_block_flagship(fsys, meshes, dev, card, count):
+    """``sharded_cg_multi_solve`` on the flagship padded to SMG_SHARDS, k =
+    SMG_K, fp32 cg and bicgstab: counts within 2 of the one-device block
+    solvers', kernel #5 once a shard per block product.  Returns the padded
+    system."""
+    padded, _ = pad_system(fsys, SMG_SHARDS)
+    rng = np.random.default_rng(SEED + 21)
+    B = np.concatenate([padded.b[:, None], rng.standard_normal((padded.n, SMG_K - 1))], axis=1)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    A_dev = padded.A.device_put(torch.float32, dev)
+    B_dev = torch.from_numpy(B).to(dev, torch.float32)
+    for method, one in (("cg", cg_solve_multi), ("bicgstab", bicgstab_solve_multi)):
+        ref = one(A_dev, B_dev, policy=pol)
+        spmm_dia_cuda.launches = 0
+        r = sharded_cg_multi_solve(padded.A, B, policy=pol, mesh=meshes[SMG_SHARDS],
+                                   dtype=np.float32, method=method)
+        torch.cuda.synchronize()
+        its, its1 = r.iterations.cpu().numpy(), ref.iterations.cpu().numpy()
+        top = int(its.max())
+        want = SMG_SHARDS * (1 + (1 if method == "cg" else 2) * top)
+        path = f"sharded_cg_multi_solve flagship {SMG_SHARDS} shards {method} k={SMG_K}"
+        _require(bool(r.converged.all()) and np.abs(its - its1).max() <= 2,
+                 f"{path}: iterations {its.tolist()} against {its1.tolist()}")
+        _require(spmm_dia_cuda.launches == want,
+                 f"{path}: kernel #5 launched {spmm_dia_cuda.launches} times, {want} implied")
+        count(path, {"spmm_dia": spmm_dia_cuda.launches})
+        rels = [float(np.linalg.norm(B[:, j] - oracle.spmv(padded.A, r.x[:, j].cpu().double()
+                                                          .numpy())) / np.linalg.norm(B[:, j]))
+                for j in range(SMG_K)]
+        _require(max(rels) <= TRUE_REL, f"{path}: true residuals {rels}")
+        print(f"{path}: iterations by column {its.tolist()} (one device {its1.tolist()}), true fp64 "
+              f"rel residuals {[f'{v:.2e}' for v in rels]}; kernel #5 launches "
+              f"{spmm_dia_cuda.launches} = {want} implied [{card}]")
+    return padded, B
+
+
+def _smg_facade(s3, h3, s2, h2, padded, Bf, meshes, dev, card, count):
+    """``api.solve(..., mesh=)``: mgcg on the odd 1023^2 (replicated: the
+    single-device solve bit for bit), on 256^3 (sharded), refined on 1024^2
+    to ||r||_2 < 1e-8 (the fp64 residual on #4 per shard), the (n, k) mgcg
+    and cg routes."""
+    mesh = meshes[SMG_SHARDS]
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    opts = dict(tol=TOL, norm="rel_l2", dtype=np.float32, device=dev)
+    so = generators.poisson_system(SMG_ODD)
+    _reset_counts()
+    r = api.solve(so.A, so.b, method="mgcg", grid=SMG_ODD, mesh=mesh, **opts)
+    counted = {"spmv_const_stencil": spmv_const_stencil_cuda.launches,
+               "cheb_smooth_const": cheb_smooth_const_cuda.launches}
+    ref = mgcg_solve(so.A, so.b, SMG_ODD, policy=pol, dtype=np.float32, device=dev)[0]
+    path = f"api.solve(method='mgcg', mesh={SMG_SHARDS} shards) {SMG_ODD}"
+    _require(r.iterations == ref.iterations and torch.equal(r.x, ref.x),
+             f"{path}: {r.iterations} iterations, x not mgcg_solve's")
+    count(path, counted)
+    print(f"{path}: replicated (1023 does not divide the mesh), {r.iterations} iterations, x "
+          f"bit-identical to mgcg_solve's; launches {counted}")
+    _reset_counts()
+    r = api.solve(s3.A, s3.b, method="mgcg", grid=KIND_GRID_3D, mesh=mesh, hierarchy=h3, **opts)
+    counted = {"spmv_stencil": spmv_stencil_cuda.launches,
+               "spmv_stencil_wide": spmv_stencil_wide_cuda.launches}
+    single = mgcg_solve(s3.A, s3.b, KIND_GRID_3D, policy=pol, hierarchy=h3)[0]
+    _require(r.converged and abs(r.iterations - single.iterations) <= 2,
+             f"facade mgcg {KIND_GRID_3D} mesh: {r.iterations} against {single.iterations}")
+    rel = _smg_check("facade mgcg 256^3", s3, r.x)
+    path = f"api.solve(method='mgcg', mesh={SMG_SHARDS} shards) {KIND_GRID_3D}"
+    count(path, counted)
+    print(f"{path}: sharded, {r.iterations} iterations (mgcg_solve {single.iterations}), true fp64 "
+          f"rel residual {rel:.3e}, kernel #3 launches {sum(counted.values())}")
+    cuda_dia.reset_launch_counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rr = api.solve(s2.A, s2.b, method="refined", grid=KIND_GRID_2D, mesh=mesh, tol=1e-8,
+                   hierarchy=h2)
+    wall = time.perf_counter() - t0
+    k4 = spmv_dia_cuda.launches_by_dtype.get("fp64", 0)
+    counted = {"spmv_dia": spmv_dia_cuda.launches, "spmv_stencil": spmv_stencil_cuda.launches,
+               "spmv_stencil_wide": spmv_stencil_wide_cuda.launches}
+    true = float(np.linalg.norm(s2.b - oracle.spmv(s2.A, rr.x)))
+    one = refined_solve(s2.A, s2.b, grid=KIND_GRID_2D, tol=1e-8, hierarchy=h2,
+                        device_residual=True, device=dev)
+    _require(rr.converged and true < 1e-8 and abs(rr.outer_iterations - one.outer_iterations) <= 1,
+             f"facade refined mesh: {rr.outer_iterations} passes (one device "
+             f"{one.outer_iterations}), true ||r||_2 {true:.3e}")
+    _require(k4 == SMG_SHARDS * (rr.outer_iterations + 1),
+             f"facade refined mesh: fp64 kernel #4 launched {k4} times, "
+             f"{SMG_SHARDS * (rr.outer_iterations + 1)} implied")
+    path = f"api.solve(method='refined', mesh={SMG_SHARDS} shards) {KIND_GRID_2D}"
+    count(path, counted)
+    print(f"{path}: {rr.outer_iterations} outer passes (refined_solve device_residual "
+          f"{one.outer_iterations}), {rr.inner_iterations} inner iterations, true ||r||_2 "
+          f"{true:.3e}; fp64 kernel #4 launches {k4} = {SMG_SHARDS} x (passes + 1); wall "
+          f"{wall:.3f} s [{card}]")
+    sb = generators.poisson_system(SMG_BLOCK_GRID)
+    B = np.random.default_rng(SEED + 22).standard_normal((sb.n, SMG_K))
+    _reset_counts()
+    r = api.solve(sb.A, B, method="mgcg", grid=SMG_BLOCK_GRID, mesh=mesh, **opts)
+    path = f"api.solve(B n x {SMG_K}, method='mgcg', mesh={SMG_SHARDS} shards) {SMG_BLOCK_GRID}"
+    count(path, {"spmv_stencil": spmv_stencil_cuda.launches,
+                 "spmv_stencil_wide": spmv_stencil_wide_cuda.launches})
+    one = api.solve(sb.A, B, method="mgcg", grid=SMG_BLOCK_GRID, **opts)
+    its, its1 = r.iterations.cpu().numpy(), one.iterations.cpu().numpy()
+    _require(bool(r.converged.all()) and np.abs(its - its1).max() <= 2,
+             f"{path}: {its.tolist()} against {its1.tolist()}")
+    print(f"{path}: iterations by column {its.tolist()} (one device {its1.tolist()})")
+    spmm_dia_cuda.launches = 0
+    r = api.solve(padded.A, Bf, method="cg", mesh=mesh, **opts)
+    path = f"api.solve(B n x {SMG_K}, method='cg', mesh={SMG_SHARDS} shards) flagship"
+    _require(bool(r.converged.all()) and spmm_dia_cuda.launches > 0, f"{path}: failed")
+    count(path, {"spmm_dia": spmm_dia_cuda.launches})
+    print(f"{path}: iterations by column {r.iterations.cpu().numpy().tolist()}, kernel #5 "
+          f"launches {spmm_dia_cuda.launches}")
+
+
+def _smg_columns(s):
+    """SMG_K right-hand sides in the Poisson generator's family: column j
+    is ``sin(f_j i + j) + 0.25 cos(1.3 i)`` over the flat index i, column 0
+    the system's own b (f_0 = 0.37).  Like b, their solutions are not
+    dominated by the smoothest modes, so an fp32 solve can reach TRUE_REL
+    (seeded normal columns sat at 1.3-2.2e-5 on 1024^2 on one device too);
+    their counts differ, so columns freeze at different iterations."""
+    i = np.arange(s.n, dtype=np.float64)
+    return np.stack([np.sin(f * i + j) + 0.25 * np.cos(1.3 * i)
+                     for j, f in enumerate((0.37, 0.53, 0.71, 0.89)[:SMG_K])], axis=1)
+
+
+def _sharded_multigrid(poisson3, galerkin2, fsys, dev, card, count, errs, times):
+    """The sharded multigrid on one card: shard_mgcg_solve on
+    Poisson 256^3 (cg, cg1, pipelined on SMG_SHARDS shards, cg on 1) and
+    1024^2 (Chebyshev and rbgs), the multi-RHS MGCG, the flat block solver
+    on the flagship, the facade's mesh routes, kernels #3 and #5 at the
+    shards' shapes, the warm times; each step's seconds."""
+    s3, h3 = poisson3
+    s2, h2 = galerkin2
+    meshes = {n: make_mesh(n, devices=[dev] * n) for n in (SMG_SHARDS, 1)}
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    t0 = time.perf_counter()
+    out3, single3, b3 = _smg_solves("Galerkin Poisson 256^3", s3, KIND_GRID_3D, h3, meshes,
+                                    ((SMG_SHARDS, "cg"), (SMG_SHARDS, "cg1"),
+                                     (SMG_SHARDS, "pipelined"), (1, "cg")), dev, card, count, pol)
+    x4, x1 = out3[(SMG_SHARDS, "cg")][3].x, out3[(1, "cg")][3].x
+    dx = float((x4 - x1).abs().max() / x1.abs().max())
+    bound = PAR_X_AGREE[torch.float32]
+    _require(dx <= bound, f"shard_mgcg 256^3: 4-shard x against 1-shard x {dx:.3e} > {bound}")
+    print(f"shard_mgcg Galerkin Poisson 256^3: {SMG_SHARDS}-shard x within {dx:.3e} of the 1-shard "
+          f"x (bound {bound})")
+    print(f"  256^3 solves: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out2, _, _ = _smg_solves("Galerkin Poisson 1024^2", s2, KIND_GRID_2D, h2, meshes,
+                             ((SMG_SHARDS, "cg"),), dev, card, count, pol)
+    hr = _kind_hierarchy(f"Galerkin Poisson {KIND_GRID_2D} rbgs", s2, KIND_GRID_2D, dev,
+                         smoother="rbgs")
+    _smg_solves("Galerkin Poisson 1024^2 rbgs", s2, KIND_GRID_2D, hr, meshes,
+                ((SMG_SHARDS, "cg"),), dev, card, count, pol)
+    del hr
+    B2 = _smg_columns(s2)
+    _reset_counts()
+    r = shard_multi_mgcg_solve(s2, B2, KIND_GRID_2D, mesh=meshes[SMG_SHARDS], policy=pol,
+                               hierarchy=h2, dtype=np.float32)
+    torch.cuda.synchronize()
+    got = _k3_launches()
+    counted = {"spmv_stencil": spmv_stencil_cuda.launches,
+               "spmv_stencil_wide": spmv_stencil_wide_cuda.launches}
+    ref = cg_solve_multi(h2.levels[0].A, torch.from_numpy(B2).to(dev, torch.float32), policy=pol,
+                         M=as_multi_preconditioner(h2))
+    its, its1 = r.iterations.cpu().numpy(), ref.iterations.cpu().numpy()
+    path = f"shard_multi_mgcg Galerkin Poisson 1024^2 {SMG_SHARDS} shards k={SMG_K}"
+    _require(bool(r.converged.all()) and np.abs(its - its1).max() <= 2,
+             f"{path}: {its.tolist()} against cg_solve_multi's {its1.tolist()}")
+    rels, rels1 = ([_host_rel_residual(s2.A, B2[:, j], X[:, j].cpu().double().numpy())
+                    for j in range(SMG_K)] for X in (r.x, ref.x))
+    _require(max(rels) <= TRUE_REL and max(rels1) <= TRUE_REL,
+             f"{path}: true residuals {rels}, the one-device block solve's {rels1}")
+    plan2 = out2[(SMG_SHARDS, "cg")][0].plan
+    want = _smg_want("cg", int(its.max()), SMG_K, plan2, SMG_SHARDS, _smg_tail_products(h2, plan2))
+    _require(got == want, f"{path}: kernel #3 launched {got} times, {want} implied")
+    count(path, counted)
+    print(f"{path}: iterations by column {its.tolist()} (cg_solve_multi {its1.tolist()}), true "
+          f"fp64 rel residuals {[f'{v:.2e}' for v in rels]} (one device "
+          f"{[f'{v:.2e}' for v in rels1]}); kernel #3 launches {got} = {want} implied [{card}]")
+    print(f"  1024^2 solves: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    padded, Bf = _smg_block_flagship(fsys, meshes, dev, card, count)
+    print(f"  flagship blocks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _smg_facade(s3, h3, s2, h2, padded, Bf, meshes, dev, card, count)
+    print(f"  facade: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs["spmv_stencil"] = max(errs["spmv_stencil"],
+                               _smg_slab_kernel(s3, h3, out3[(SMG_SHARDS, "cg")][0], dev, card,
+                                                times))
+    errs["spmm_dia"] = max(errs["spmm_dia"], _smg_dia_kernel(padded, dev, card, times))
+    solve4, _, _, res4 = out3[(SMG_SHARDS, "cg")]
+    tail = _smg_tail_products(h3, solve4.plan)
+    want = _smg_want("cg", res4.iterations, 1, solve4.plan, SMG_SHARDS, tail)
+    times["shard slab"]["launches_per_solve"] = want
+    print(f"kernel #3 launches per 256^3 {SMG_SHARDS}-shard cg solve: {want} = {SMG_SHARDS} x "
+          f"((iterations + 1) x (1 + {solve4.plan.products_per_cycle})) on the shards + (iterations "
+          f"+ 1) x {tail} in the tail, iterations {res4.iterations}")
+    walls = _smg_times("Galerkin Poisson 256^3", s3, KIND_GRID_3D, h3, out3, b3, pol, card)
+    print(f"  kernels and times: {time.perf_counter() - t0:.1f} s")
+    print(f"sharded multigrid: {SMG_SHARDS} shards on one card measure what sharding costs (halo "
+          f"copies, psums on one device, the unfused smoothing, {SMG_SHARDS}x the launches of "
+          f"smaller products), not multi-GPU speed: warm 256^3 walls {walls}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5325,6 +5822,12 @@ def main() -> int:
         print(f"ptxas {kernel}: {len(res)} instantiations, all with a 0-byte stack frame and 0 "
               f"spill bytes, {min(regs)}-{max(regs)} registers")
     _acc_geometry(card)
+
+    # the 256^3 Galerkin hierarchy's host setup (115-137 s, most of it
+    # scipy's sparse products) runs on a host thread beside the phases
+    # before its first use (the rest of the multigrid build)
+    s3g = _kind_system("poisson", KIND_GRID_3D)
+    galerkin3 = (s3g, _hierarchy_on_thread(f"Galerkin Poisson {KIND_GRID_3D}", s3g, KIND_GRID_3D))
 
     torch.manual_seed(SEED)  # the kernel-#3 checks and times draw from the default generator
     rng = torch.Generator(device=dev).manual_seed(SEED)
@@ -5374,8 +5877,13 @@ def main() -> int:
     _small_refine_card_vs_cpu(dev)
 
     # kernel #3 (three instantiations) vs its twin: small diffusion
-    # operators, then the 255^3 jump fine level and its 127^3 27-leg level
-    sysj, hj = _var_hierarchy("jump", dev)
+    # operators, then the 255^3 jump fine level and a 127^3 27-leg level
+    t0 = time.perf_counter()
+    sysj = generators.diffusion_system(VAR_GRID, kind="jump", contrast=VAR_CONTRAST, seed=SEED)
+    A3j = dia_to_stencil(sysj.A, VAR_GRID).device_put(torch.float32, dev)
+    w27 = _level_on_card((127, 127, 127), SHIFTS27, dev, SEED + 44)
+    print(f"jump {VAR_GRID}: system and fine level in {time.perf_counter() - t0:.3f} s (no "
+          f"hierarchy: the jump MGCG paths run at {JUMP_MG_GRID})")
     cases = []
     for label, g in VAR_CHECK_GRIDS:
         A_h = generators.diffusion_system(g, kind="jump", contrast=VAR_CONTRAST, seed=SEED).A
@@ -5384,8 +5892,7 @@ def main() -> int:
     for label, shifts, g in VAR_HAND:
         legs = torch.rand((len(shifts),) + g, generator=gen, device=dev) * 2 - 1
         cases.append((f"hand-made {label}", StencilMatrix(legs, shifts, g)))
-    cases += [("3-D 255^3 7 legs (jump)", hj.levels[0].A),
-              ("127^3 27-leg Galerkin level (jump)", hj.levels[1].A)]
+    cases += [("3-D 255^3 7 legs (jump)", A3j), ("127^3 27 legs (built on the card)", w27)]
     _var_kernel_checks(cases, dev, errs)
     del cases
     _spmm_jump_check(sysj, dev, errs)
@@ -5461,16 +5968,17 @@ def main() -> int:
 
     # -- the variable-coefficient path, counted: jump MGCG, smooth refined ---
     walls = {}
-    var_mgcg, single_jump, walls["MGCG jump 255^3 warm solve"] = _var_mgcg(sysj, hj, dev, card)
-    count("MGCG jump 255^3", {"spmv_stencil": var_mgcg})
+    sysjm, hj = _var_hierarchy("jump", dev, JUMP_MG_GRID)
+    var_mgcg, single_jump, walls["MGCG jump warm solve"] = _var_mgcg(sysjm, hj, dev, card)
+    count(f"MGCG jump {JUMP_MG_GRID}", {"spmv_stencil": var_mgcg})
     syss, hs = _var_hierarchy("smooth", dev, SMOOTH_GRID)
     var_refine, single_smooth, _ = _var_refine_routes(syss, hs, dev, card)
     count("refined smooth 127^3 bf16 legs, host + device residual", {"spmv_stencil": var_refine})
 
-    # -- the multi-RHS grid path, counted: 255^3 jump MGCG (reusing its
-    # hierarchy), the 63^3 facade, the 255^3 smooth refined solve ------------
-    multi_counts, walls["multi-RHS MGCG jump 255^3 k=4"] = _multi_mgcg(sysj, hj, single_jump, dev, card)
-    count(f"multi-RHS MGCG jump 255^3 k={MULTI_K}", multi_counts)
+    # -- the multi-RHS grid path, counted: the jump MGCG (reusing its
+    # hierarchy), the 63^3 facade, the 127^3 smooth refined solve ------------
+    multi_counts, walls["multi-RHS MGCG jump k=4"] = _multi_mgcg(sysjm, hj, single_jump, dev, card)
+    count(f"multi-RHS MGCG jump {JUMP_MG_GRID} k={MULTI_K}", multi_counts)
     count(f"api.solve(B, mgcg) {FACADE_GRID} k={MULTI_K}", _facade_multi_mgcg(dev, card))
     count(f"refined_solve_multi smooth 127^3 k={REFINE_MULTI_K}",
           _refine_multi(syss, hs, single_smooth, dev, card))
@@ -5482,7 +5990,10 @@ def main() -> int:
     # -- the rest of the multigrid build, counted: hybrid, semicoarsening and
     # aggregation transfers (the wide kernel #3 checked first), DIA levels,
     # rbgs, W-cycle and fmg -------------------------------------------------
-    wide_cases, galerkin2 = _multigrid_kinds(dev, card, errs, count)
+    t0 = time.perf_counter()
+    wide_cases, galerkin2, poisson3 = _multigrid_kinds(galerkin3, dev, card, errs, count)
+    del galerkin3, s3g
+    print(f"phase: the rest of the multigrid build in {time.perf_counter() - t0:.1f} s")
 
     # -- the formats slice, counted: kernels #4 and #5 past 256 diagonals and
     # the DIA-layout MGCG over them; the reference's CSR and ELL storage;
@@ -5511,8 +6022,8 @@ def main() -> int:
     # chunk on four paths, checkpoint and resume, the traced driver, a
     # saved and loaded hierarchy, the reference_workloads twin ------------
     t0 = time.perf_counter()
-    _drivers(_driver_paths(h3, b3, sysj, hj, galerkin2, fsys, dev), syss, hs, dev, card, count)
-    del syss, hs, galerkin2
+    _drivers(_driver_paths(h3, b3, sysjm, hj, galerkin2, fsys, dev), syss, hs, dev, card, count)
+    del syss, hs
     print(f"phase: drivers in {time.perf_counter() - t0:.1f} s")
 
     # -- the nonsymmetric and indefinite Krylov family, counted: convection-
@@ -5561,6 +6072,17 @@ def main() -> int:
     del handmade_csr
     print(f"phase: parallel in {time.perf_counter() - t0:.1f} s")
 
+    # -- the sharded multigrid, counted: shard_mgcg_solve on 256^3 (cg,
+    # cg1, pipelined on 4 shards, cg on 1) and 1024^2 (Chebyshev, rbgs),
+    # the multi-RHS MGCG, the flagship's block solves (#5 a shard), the
+    # facade's mesh routes (the replicated 1023^2, refined on #4 fp64 a
+    # shard), #3 and #5 at the shards' shapes, warm times ----------------
+    t0 = time.perf_counter()
+    shard_times = {}
+    _sharded_multigrid(poisson3, galerkin2, fsys, dev, card, count, errs, shard_times)
+    del poisson3, galerkin2
+    print(f"phase: sharded multigrid in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 6: times -----------------------------------------------------
     times = {}
     for g in TIME_SPMV_GRIDS:  # Poisson; below 2 M points from a CUDA graph
@@ -5600,8 +6122,8 @@ def main() -> int:
     _device_time_top(solve3, walls["MGCG 3-D 255^3 solve"], card)
     print(f"time plain CG 2-D solve: {time_ms(plain, 3):.3f} ms [{card}]")
     _dia_times(fsys.A, dev, card, times)
-    _var_times(hj, dev, card, times)
-    lib, bounds = _library_and_bounds(ops, fsys, sysj, hj, dev, card, times)
+    _var_times(A3j, w27, dev, card, times)
+    lib, bounds = _library_and_bounds(ops, fsys, sysj, A3j, dev, card, times)
     times.update(batched_times)
     for name in ("spmv_dia_batched", "spmv_dot_dia_batched"):
         _, _, lib[name], bounds[name] = times[(name, BATCH_MAIN, "fp32", BATCH_SWEEP_K)]
@@ -5640,6 +6162,10 @@ def main() -> int:
             r.update(split_by_shape=many_splits, past_256_diagonals=many_times[r["name"]])
         if r["name"] == "spmv_dia":  # the nonsymmetric twin's transpose, fp32
             r["transposed_dia"] = transposed
+        if r["name"] == "spmv_stencil":  # one shard's extended 256^3 slab
+            r["shard_slab"] = shard_times["shard slab"]
+        if r["name"] == "spmm_dia":  # one shard's extended flagship DIA, k = 4
+            r["shard_dia"] = shard_times["shard dia"]
     print(f"run: {time.perf_counter() - t_run:.1f} s after the build")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -79,11 +79,19 @@ does: ``cg`` and ``method="sharded_cg"`` on a ``DiaMatrix`` take
 ``"cg1"``, ``"pipelined"``, ``"cacg"``), on a CSR or ELL matrix
 ``parallel.sharded_cg_solve_general`` (exact halos); ``jacobi_cg`` adds the
 shard-local point Jacobi; ``cacg`` and ``jacobi_cacg`` run the sharded
-s-step CG.  ``sharded_cg`` without a mesh spans every CUDA device (the
-solve's device when that is not the card).  Every other method with
-``mesh=`` (``mgcg``, ``refined``, ``amg_*``, the nonsymmetric bases, (n, k)
-blocks) and ``eigs(mesh=)`` raise ``NotImplementedError`` naming ROADMAP's
-parallel item; nothing is rerouted.
+s-step CG; ``mgcg`` takes ``parallel.gspmd_mgcg_solve`` (the sharded
+V-cycle on kernel #3 where the grid divides the mesh, the single-device
+MGCG on the mesh's first device where it does not); ``refined`` with
+``mesh=`` or ``axes=`` takes ``parallel.gspmd.gspmd_refined_solve`` (the
+fp64 outer residual on kernel #4 per shard; ``grid=`` required).  (n, k)
+blocks with ``mesh=``: ``cg``, ``sharded_cg`` and ``bicgstab`` take
+``parallel.shard_multi.sharded_cg_multi_solve`` (kernel #5 per shard),
+``mgcg`` ``shard_multi_mgcg_solve``, any other method ``ValueError``.
+``sharded_cg`` without a mesh spans every CUDA device (the solve's device
+when that is not the card).  ``axes=`` takes one mesh axis.  Every other
+method with ``mesh=`` (``amg_*``, the nonsymmetric bases) and
+``eigs(mesh=)`` raise ``NotImplementedError`` naming ROADMAP's parallel
+item; nothing is rerouted.
 
 ``device`` says where the solve runs; ``None`` takes the card when there is
 one, as the JAX package takes its default backend.  Host numpy arrays or
@@ -208,15 +216,16 @@ def solve(
     policy = ConvergencePolicy(
         tol=tol, norm=norm, min_iteration=min_iteration, max_iteration=max_iteration
     )
-    if "axes" in kw:
-        raise NotImplementedError(f"GSPMD-partitioned solves are not ported yet ({_PARALLEL})")
+    if "axes" in kw and method not in ("refined", "mgcg"):
+        raise NotImplementedError(
+            f"axes= (GSPMD partitioning) with method={method!r} is not ported yet ({_PARALLEL})")
     device = default_device(device)
     if method == "auto":
         return _solve_auto(A, b, x0, policy, grid, dtype, device, kw)
     if np.ndim(b) == 2:
         return _solve_multi(A, b, x0, method, policy, grid, dtype, device, **kw)
-    if "mesh" in kw or method == "sharded_cg":
-        return _solve_mesh(A, b, x0, method, policy, dtype, device, kw)
+    if "mesh" in kw or "axes" in kw or method == "sharded_cg":
+        return _solve_mesh(A, b, x0, method, policy, grid, dtype, device, kw)
     if method == "oracle":
         return oracle.cg(
             A, b, x0, tol=tol, norm=norm, min_iteration=min_iteration,
@@ -276,17 +285,38 @@ def _jacobi_M_local(r, aux):
     return aux * r
 
 
-def _solve_mesh(A, b, x0, method, policy, dtype, device, kw):
+def _solve_mesh(A, b, x0, method, policy, grid, dtype, device, kw):
     """The ``mesh=`` routes (and ``sharded_cg`` without one): ``cg`` and
     ``sharded_cg`` (DIA: ``sharded_cg_solve``; CSR/ELL:
     ``sharded_cg_solve_general``), ``jacobi_cg`` (a shard-local Jacobi
-    ``M_local``), ``cacg`` and ``jacobi_cacg`` (``variant="cacg"``); any
-    other method raises ``NotImplementedError``."""
+    ``M_local``), ``cacg`` and ``jacobi_cacg`` (``variant="cacg"``),
+    ``mgcg`` (``gspmd_mgcg_solve``) and ``refined``
+    (``gspmd_refined_solve``, with ``axes=`` too); any other method raises
+    ``NotImplementedError``."""
     from conjugategradient_tpu_torch.parallel.mesh import make_mesh
 
     mesh = kw.pop("mesh", None)
     if mesh is None:
         mesh = make_mesh(devices=None if device.type == "cuda" else [device])
+    if method == "refined":
+        if not isinstance(A, DiaMatrix):
+            raise TypeError("refined solve requires a DiaMatrix")
+        if grid is None:
+            raise TypeError("refined solve over a mesh requires grid=")
+        from conjugategradient_tpu_torch.parallel.gspmd import gspmd_refined_solve
+
+        return gspmd_refined_solve(A, b, grid, mesh=mesh, x0=x0, tol=policy.tol,
+                                   norm=policy.norm, **kw)
+    if method == "mgcg":
+        if grid is None:
+            raise ValueError("mgcg requires grid=")
+        if not isinstance(A, DiaMatrix):
+            raise TypeError("mgcg requires a DiaMatrix")
+        from conjugategradient_tpu_torch.core.generators import LinearSystem
+        from conjugategradient_tpu_torch.parallel.gspmd import gspmd_mgcg_solve
+
+        system = LinearSystem(A, b, np.zeros(A.n) if x0 is None else x0)
+        return gspmd_mgcg_solve(system, grid, mesh=mesh, policy=policy, dtype=dtype, **kw)
     prefix, base = _split_prefix(method)
     if base == "cacg":
         return _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw, mesh=mesh)
@@ -424,7 +454,7 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
                                    device=device, **kw)
     prefix, base = _split_prefix(method)
     if "mesh" in kw:
-        raise NotImplementedError(f"mesh-distributed (n, k) blocks are not ported yet ({_PARALLEL})")
+        return _solve_multi_mesh(A, B, X0, method, policy, grid, dtype, kw)
     if method not in _MULTI:
         if (prefix is not None and base == "chebyshev") or (
                 base not in _KRYLOV + _OTHER + _HOST + ("chebyshev", "sharded_cg")
@@ -454,6 +484,33 @@ def _solve_multi(A, B, X0, method, policy, grid, dtype, device, **kw):
     A_dev = _place_matrix(A, dtype, device)
     solver = bicgstab_solve_multi if base == "bicgstab" else cg_solve_multi
     return solver(A_dev, B_dev, X0_dev, policy, M=M, **kw)
+
+
+def _solve_multi_mesh(A, B, X0, method, policy, grid, dtype, kw):
+    """(n, k) blocks with ``mesh=``: the flat-band sharded block CG and
+    BiCGStab (one halo pair and one (k,) psum per dot whatever k is) and
+    the sharded multi-RHS MGCG, as the JAX facade routes them."""
+    mesh = kw.pop("mesh")
+    if method in ("sharded_cg", "cg", "bicgstab"):
+        from conjugategradient_tpu_torch.parallel.shard_multi import sharded_cg_multi_solve
+
+        return sharded_cg_multi_solve(A, B, X0, policy, mesh=mesh, dtype=dtype,
+                                      method="bicgstab" if method == "bicgstab" else "cg", **kw)
+    if method == "mgcg":
+        from conjugategradient_tpu_torch.core.generators import LinearSystem
+        from conjugategradient_tpu_torch.parallel.shard_multi import shard_multi_mgcg_solve
+
+        if grid is None:
+            raise ValueError("mgcg requires grid=")
+        if not isinstance(A, DiaMatrix):
+            raise TypeError("mgcg requires a DiaMatrix")
+        system = LinearSystem(A, np.zeros(A.n), np.zeros(A.n))
+        return shard_multi_mgcg_solve(system, B, grid, mesh=mesh, policy=policy, dtype=dtype,
+                                      X0=X0, **kw)
+    raise ValueError(
+        f"method {method!r} with mesh= does not support (n, k) right-hand sides; use "
+        "cg/bicgstab/mgcg or solve columns separately"
+    )
 
 
 def _solve_auto(A, b, x0, policy, grid, dtype, device, kw):

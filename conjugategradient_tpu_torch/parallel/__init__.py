@@ -1,8 +1,9 @@
 """Row-block-sharded solves over a mesh of devices (a mesh may repeat a
 device): the port of ``conjugategradient_tpu/parallel``'s mesh, halo,
-sharded CG (DIA and CSR/ELL) and the single-process half of ``multihost``.
-The mesh-sharded multigrid, AMG, nonsymmetric and GSPMD carriers are still
-to port (ROADMAP queue 1: parallel)."""
+sharded CG (DIA and CSR/ELL), the sharded multigrid (``shard_mgcg``,
+``shard_multi``), the GSPMD carriers as explicit collectives (``gspmd``)
+and the single-process half of ``multihost``.  The mesh-sharded AMG and
+nonsymmetric carriers are still to port (ROADMAP queue 1: parallel)."""
 
 from conjugategradient_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from conjugategradient_tpu_torch.parallel.halo import (  # noqa: F401
@@ -21,6 +22,19 @@ from conjugategradient_tpu_torch.parallel.sharded_cg import (  # noqa: F401
 from conjugategradient_tpu_torch.parallel.sharded_general import (  # noqa: F401
     make_sharded_cg_general,
     sharded_cg_solve_general,
+)
+from conjugategradient_tpu_torch.parallel.shard_mgcg import (  # noqa: F401
+    make_shard_mgcg,
+    shard_mgcg_solve,
+)
+from conjugategradient_tpu_torch.parallel.shard_multi import (  # noqa: F401
+    make_shard_multi_mgcg,
+    shard_multi_mgcg_solve,
+)
+from conjugategradient_tpu_torch.parallel.gspmd import (  # noqa: F401
+    gspmd_mgcg_solve,
+    make_gspmd_mgcg,
+    shard_system,
 )
 # the port's own: the mesh and the row-sharded value its solvers take
 from conjugategradient_tpu_torch.parallel.mesh import Mesh, Shards  # noqa: F401, E402

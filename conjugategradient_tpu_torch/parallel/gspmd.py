@@ -1,0 +1,250 @@
+"""The GSPMD carriers: MGCG and fp64 refinement over a mesh, as explicit
+collectives.
+
+The port of ``conjugategradient_tpu/parallel/gspmd.py``.  The JAX package
+writes the whole MGCG program on global shapes, declares the data's
+sharding, and lets XLA's SPMD partitioner derive the per-device program:
+every level whose grid divides the mesh runs sharded, the rest replicated.
+PyTorch has no SPMD partitioner, so the port carries those semantics with
+the explicit pieces of ``parallel.shard_mgcg``:
+
+- the levels that ``parallel.mesh.specs_for_grid`` shards (axis 0 divides
+  the mesh) and that ``shard_mgcg._shardable`` can carry (an even local
+  extent, agg/hyb transfers, or semicoarsening that leaves axis 0 alone)
+  run on row blocks: ``HaloStencil`` products on kernel #3 and the sharded
+  transfers;
+- the levels below run in the replicated tail (the single-device
+  ``v_cycle`` once, on the mesh's first device);
+- when the fine grid does not divide the mesh (every odd 2^k - 1 grid) GSPMD
+  replicates everything, and the port runs ``precond.multigrid.mgcg_solve``
+  once on the mesh's first device: on one card exactly the single-device
+  solve (kernels #1, #2, #3).
+
+``axes`` takes one name, the mesh's axis: the JAX package's 2-D block
+partitions over a 2-D mesh (``axes=("x", "y")``) raise
+``NotImplementedError`` (ROADMAP queue 1: parallel).
+
+``gspmd_refined_solve`` has no double-float arithmetic: the JAX package's
+``ops.dd`` stands in for fp64 on the TPU, and the H100 has fp64.  Its outer
+fp64 residual runs per shard on the fine DIA through ``parallel.halo.
+HaloDia`` (kernel #4's fp64 instantiation), its inner solve is
+``make_gspmd_mgcg`` in fp32, and ``solvers.refine.run_device_refinement``
+drives the passes, reading three scalars each, the solution gathered once
+at the end.
+
+Left out: ``make_gspmd_mg_nonsym`` and ``gspmd_mg_nonsym_solve`` (they wait
+for the sharded nonsymmetric slice, ROADMAP queue 1: parallel), and the
+``_jit_*`` caches of compiled programs, which eager PyTorch does not need.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, torch_dtype
+from conjugategradient_tpu_torch.core.generators import LinearSystem
+from conjugategradient_tpu_torch.ops.spmv import spmv_dia
+from conjugategradient_tpu_torch.parallel.halo import HaloDia
+from conjugategradient_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    make_mesh,
+    pmax,
+    psum,
+    shard_rows,
+    specs_for_grid,
+)
+from conjugategradient_tpu_torch.parallel.shard_mgcg import _shardable, make_shard_mgcg
+from conjugategradient_tpu_torch.precond.amg import _np_dtype
+from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy, mgcg_solve
+from conjugategradient_tpu_torch.solvers.cg import CGResult
+from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
+
+_PARALLEL = "ROADMAP queue 1: parallel"
+
+
+def _one_axis(axes, axis=None) -> str:
+    axes = (axis,) if axis is not None else tuple(axes)
+    if len(axes) != 1:
+        raise NotImplementedError(
+            f"axes={axes}: 2-D block partitions over a 2-D mesh are not ported yet ({_PARALLEL})")
+    return axes[0]
+
+
+def shard_system(system: LinearSystem, mesh: Mesh, axis: str = "x", dtype=None):
+    """``(A, b, x0)`` placed on the mesh: A's DIA data, b and x0 as row
+    blocks (``Shards``) where the length divides the mesh axis, else the
+    whole value on the mesh's first device (the JAX package replicates
+    it; here the replicated solve runs there)."""
+    num = mesh.shape[axis]
+    dt = torch_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
+
+    def put(v, dim):
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        if t.shape[dim] % num == 0:
+            return shard_rows(mesh, t, dt, dim=dim)
+        return t.to(device=mesh.devices[0], dtype=dt)
+
+    A = DiaMatrix(put(system.A.data, -1), system.A.offsets, system.A.shape)
+    return A, put(system.b, 0), put(system.x0, 0)
+
+
+def _shard_hierarchy_and_fine(h, grid, mesh: Mesh, axis: str) -> bool:
+    """Whether the solve runs sharded: the fine grid shards under
+    ``specs_for_grid`` and ``shard_mgcg._shardable`` can carry its level
+    (otherwise the whole solve replicates, as GSPMD's does).  The JAX
+    function places the hierarchy and returns the fine operator as well;
+    here ``make_shard_mgcg`` splits the hierarchy at its deepest shardable
+    level (``_shardable`` on one axis is the same divisibility rule) and
+    places the sharded levels and the tail."""
+    return (bool(h.levels) and specs_for_grid(tuple(grid), mesh, (axis,)).sharded
+            and _shardable(h.levels[0], mesh.shape[axis]))
+
+
+def make_gspmd_mgcg(
+    system: LinearSystem,
+    grid,
+    mesh: Mesh,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+    axes=("x",),
+    smoother: str = "chebyshev",
+    pre: int = 2,
+    post: int = 2,
+    dtype=None,
+    hierarchy=None,
+    axis: str = None,
+):
+    """Build the mesh-partitioned MGCG solver.
+
+    Returns ``(solve, (b, x0))``: ``solve(b, x0) -> CGResult`` with a flat
+    global x on the mesh's first device, and the system's vectors placed
+    for it.  Where the fine grid shards (``specs_for_grid`` over ``axes``,
+    one axis name), ``solve`` is ``shard_mgcg``'s over the sharded levels
+    and the replicated tail; otherwise it is ``mgcg_solve`` on the mesh's
+    first device.  ``solve.n_sharded`` is the split (0: replicated).  The
+    hierarchy is built on the mesh's first device unless given."""
+    ax = _one_axis(axes, axis)
+    grid = tuple(grid)
+    dt = _np_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
+    h = hierarchy or build_hierarchy(system.A, grid, smoother=smoother, pre=pre, post=post,
+                                     dtype=dt, layout="stencil", device=mesh.devices[0])
+    if _shard_hierarchy_and_fine(h, grid, mesh, ax):
+        solve, inputs = make_shard_mgcg(system, grid, mesh, policy, axis=ax, dtype=dt, hierarchy=h)
+        solve.n_sharded = solve.plan.n_sharded
+        return solve, inputs
+
+    dev = mesh.devices[0]
+
+    def place(v):
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        return t.to(device=dev, dtype=torch_dtype(dt))
+
+    def solve(b, x0) -> CGResult:
+        return mgcg_solve(system.A, place(b), grid, x0=place(x0), policy=policy, hierarchy=h)[0]
+
+    solve.n_sharded = 0
+    return solve, (place(system.b), place(system.x0))
+
+
+def gspmd_mgcg_solve(
+    system: LinearSystem,
+    grid,
+    mesh: Optional[Mesh] = None,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+    **kw,
+) -> CGResult:
+    """One-call convenience: place, solve (``mesh``: every visible CUDA
+    device by default)."""
+    if mesh is None:
+        mesh = make_mesh()
+    solve, (b, x0) = make_gspmd_mgcg(system, grid, mesh, policy, **kw)
+    return solve(b, x0)
+
+
+def gspmd_refined_solve(
+    A: DiaMatrix,
+    b,
+    grid,
+    mesh: Optional[Mesh] = None,
+    axes=("x",),
+    x0=None,
+    tol: float = 1e-8,
+    norm: str = "l2",
+    inner_tol: float = 1e-5,
+    max_outer: int = 40,
+    hierarchy=None,
+    smoother: str = "chebyshev",
+    raise_on_divergence: bool = False,
+):
+    """fp64-tolerance refinement over a mesh: the reference's absolute-1e-8
+    contract (``Mgcg/cuBlas/Mgcg/MgcgMain.cs:29``) at distributed scale.
+
+    Two pieces over the same mesh, so nothing reshards between them: the
+    fp64 outer pass (residual, its norm squared and max-abs, the scaling
+    and the update) on the mesh's row blocks, with ``b - A x`` on kernel #4
+    per shard (``HaloDia`` over the host fp64 DIA ``A``), and the fp32
+    inner solve ``make_gspmd_mgcg``.  Per outer pass three scalars reach
+    the host (r.r and max|r| in one read, and the inner count); the
+    solution is gathered once, at the end.  Where the fine grid does not
+    shard, both run on the mesh's first device (kernel #4 on the whole
+    DIA).  Returns ``solvers.refine.RefineResult``."""
+    from conjugategradient_tpu_torch.solvers.refine import run_device_refinement
+
+    if mesh is None:
+        mesh = make_mesh()
+    ax = _one_axis(axes)
+    grid = tuple(grid)
+    n = A.n
+    b64 = b if torch.is_tensor(b) else np.asarray(b, dtype=np.float64)
+    x64 = np.zeros(n) if x0 is None else x0
+    inner_policy = ConvergencePolicy(tol=inner_tol, norm="rel_l2",
+                                     max_iteration=min(8 * n, 1_000_000))
+    system = LinearSystem(A=A, b=b64, x0=x64)
+    solve_inner, _ = make_gspmd_mgcg(system, grid, mesh, inner_policy, axes=(ax,),
+                                     smoother=smoother, dtype=np.float32, hierarchy=hierarchy)
+    f64 = torch.float64
+
+    if solve_inner.n_sharded:
+        num = mesh.shape[ax]
+        op = HaloDia(shard_rows(mesh, A.data, f64, dim=1), tuple(A.offsets), A.bandwidth,
+                     A.bandwidth > n // num)
+        local = (grid[0] // num,) + grid[1:]
+        zero32 = Shards([torch.zeros(local, dtype=torch.float32, device=d) for d in mesh.devices],
+                        mesh)
+
+        def resid(b_, x_):
+            r = b_ - op(x_)
+            mx = pmax(Shards.map(lambda t: t.abs().max(), r)).parts[0]
+            rr = psum(Shards.map(torch.dot, r, r)).parts[0]
+            s = torch.where(mx > 0, mx, torch.ones_like(mx))
+            return (r / s).to(torch.float32).reshape(local), rr, mx
+
+        def update(x_, r32, s):
+            d = solve_inner.shards(r32, zero32)
+            return x_ + s * d.x.reshape(-1).to(f64), d.iterations
+
+        b_dev, x_dev = shard_rows(mesh, b64, f64), shard_rows(mesh, x64, f64)
+    else:
+        dev = mesh.devices[0]
+        A64 = A.device_put(f64, dev)
+        zero32 = torch.zeros(grid, dtype=torch.float32, device=dev)
+
+        def resid(b_, x_):
+            r = b_ - spmv_dia(A64, x_)
+            mx = torch.max(torch.abs(r))
+            s = torch.where(mx > 0, mx, torch.ones_like(mx))
+            return (r / s).to(torch.float32).reshape(grid), torch.dot(r, r), mx
+
+        def update(x_, r32, s):
+            d = solve_inner(r32, zero32)
+            return x_ + s * d.x.reshape(-1).to(f64), d.iterations
+
+        place = lambda v: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(
+            device=dev, dtype=f64).reshape(n)
+        b_dev, x_dev = place(b64), place(x64)
+
+    return run_device_refinement(resid, update, b_dev, x_dev, tol=tol, norm=norm,
+                                 max_outer=max_outer, raise_on_divergence=raise_on_divergence)

@@ -26,17 +26,34 @@ wherever ``i + offset`` leaves ``[0, n)``, so wrapped values are multiplied
 by zero (``tests/test_torch_parallel.py`` holds the wraparound case to the
 JAX package bit for bit).  The all-gather product pads the gathered vector
 with zeros instead, as the JAX package's does.
+
+``HaloDia`` takes k columns as well, a shard's ``(k, n_local)`` block:
+one halo pair moves the ``(k, halo)`` slabs of every column, and kernel #5
+(``spmm_dia_cuda``) takes the extended block in one call.
+
+The grid-stencil counterpart (``HaloStencil``, ``spmv_stencil_shard``: the
+port of ``conjugategradient_tpu/parallel/shard_mgcg.py::spmv_stencil_shard``)
+moves the same pattern from DIA rows to grid rows: each shard holds an
+axis-0 block ``(g0/num, *rest)`` of the grid, its legs extended by ``halo0``
+zero grid rows each side, and kernel #3 (``ops.cuda_stencil.
+spmv_stencil_cuda``, tuned or wide by ``var_route``) runs on the extended
+slab; the local rows are the middle of its result.  The wrapped halos at
+the global edges meet the legs' structural zeros, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import copy
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from conjugategradient_tpu_torch.core.formats import DiaMatrix
-from conjugategradient_tpu_torch.ops.cuda_dia import spmv_dia_cuda, spmv_dot_dia_cuda
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, StencilMatrix
+from conjugategradient_tpu_torch.ops.cuda_dia import spmm_dia_cuda, spmv_dia_cuda, spmv_dot_dia_cuda
+from conjugategradient_tpu_torch.ops.cuda_stencil import spmv_stencil_cuda
+from conjugategradient_tpu_torch.ops.stencil import spmm_columns
 from conjugategradient_tpu_torch.parallel.mesh import Shards, all_gather, ppermute
 
 
@@ -73,12 +90,12 @@ def spmv_dia_local(data_local: Shards, offsets: Tuple[int, ...], p_padded: Shard
         data_local, p_padded)
 
 
-def exchange_halos(p: Shards, halo: int) -> Tuple[Shards, Shards]:
-    """The two neighbour slices, apart: ``(left, right)`` with left the
-    left neighbour's last ``halo`` rows and right the right neighbour's
-    first ``halo`` rows."""
-    left = ppermute(Shards.map(lambda t: t[-halo:], p), 1)
-    right = ppermute(Shards.map(lambda t: t[:halo], p), -1)
+def exchange_halos(p: Shards, halo: int, dim: int = -1) -> Tuple[Shards, Shards]:
+    """The two neighbour slices along ``dim`` (a vector's rows), apart:
+    ``(left, right)`` with left the left neighbour's last ``halo`` rows and
+    right the right neighbour's first ``halo`` rows."""
+    left = ppermute(Shards.map(lambda t: t.narrow(dim, t.shape[dim] - halo, halo), p), 1)
+    right = ppermute(Shards.map(lambda t: t.narrow(dim, 0, halo), p), -1)
     return left, right
 
 
@@ -183,7 +200,62 @@ def exchange_bytes(offsets, n: int, num: int, itemsize: int) -> int:
     return rows * itemsize
 
 
-class HaloDia:
+class _HaloBuffers:
+    """Two halo-padded buffers a shard that alternate as operand storage,
+    the rows along ``dim``: each shard's ``local`` extents (from ``dim``
+    on) with ``halo`` rows more on each side of the first.  ``_take(p)``
+    copies ``p`` into the middle of the buffer not holding the last
+    operand, unless ``p`` lies in a buffer's middle already (``fresh()``
+    hands those out), and ``_exchange`` fills the halo rows from the ring
+    neighbours (one ``ppermute`` pair, every leading column's slab
+    together).  A product never overwrites its own operand; a caller that
+    keeps a vector in a buffer must not share the operator."""
+
+    def __init__(self, mesh, halo: int, local: Tuple[int, ...]):
+        self.mesh = mesh
+        self.halo = halo
+        self.local = tuple(local)
+        self._bufs = None
+        self._last = 0
+
+    def _buffers(self, like: Shards):
+        d = len(self.local)
+        shape = tuple(like.shape[:-d]) + (self.local[0] + 2 * self.halo,) + self.local[1:]
+        if (self._bufs is None or self._bufs[0].dtype != like.dtype
+                or tuple(self._bufs[0].shape) != shape):
+            self._bufs = [Shards.map(lambda p: torch.zeros(shape, dtype=p.dtype, device=p.device),
+                                     like) for _ in range(2)]
+        return self._bufs
+
+    def _middle(self, buf: Shards) -> Shards:
+        return Shards.map(lambda b: b.narrow(-len(self.local), self.halo, self.local[0]), buf)
+
+    def fresh(self, like: Shards) -> Shards:
+        """Middle rows of the buffer not holding the last operand."""
+        return self._middle(self._buffers(like)[1 - self._last])
+
+    def _take(self, p: Shards) -> Shards:
+        bufs = self._buffers(p)
+        mids = [self._middle(b) for b in bufs]
+        held = [k for k in (0, 1)
+                if all(q.data_ptr() == m.data_ptr() and q.shape == m.shape
+                       and q.stride() == m.stride() for q, m in zip(p.parts, mids[k].parts))]
+        k = held[0] if held else 1 - self._last
+        self._last = k
+        if not held:
+            for q, m in zip(p.parts, mids[k].parts):
+                m.copy_(q)
+        return bufs[k]
+
+    def _exchange(self, p: Shards, buf: Shards) -> None:
+        H, n, dim = self.halo, self.local[0], -len(self.local)
+        left, right = exchange_halos(p, H, dim)
+        for l_, r_, b in zip(left.parts, right.parts, buf.parts):
+            b.narrow(dim, 0, H).copy_(l_)
+            b.narrow(dim, H + n, H).copy_(r_)
+
+
+class HaloDia(_HaloBuffers):
     """The sharded DIA product of ``make_sharded_cg``: each shard's extended
     DIA (``extend_rows``) built once, and two halo-padded buffers a shard
     that alternate as the search direction's storage.
@@ -195,66 +267,45 @@ class HaloDia:
     rows of the buffer that does not hold the last operand: a solver that
     writes its next direction there (``torch.mul(..., out=)``) saves the
     copy of p into the buffer.  Any other operand is copied in.
-    ``halo_bytes`` is what one product moves between shards."""
+    ``halo_bytes`` is what one product moves between shards (times k for
+    a block).
+
+    A shard's ``(k, n_local)`` block of k columns takes ``(k, n_local +
+    2*halo)`` buffers, its halo slabs of all k columns in one pair, and
+    kernel #5 on the extended DIA, one call a shard (``spmm_dia_cuda``)."""
 
     def __init__(self, data: Shards, offsets: Tuple[int, ...], halo: int, allgather: bool):
         self.offsets = tuple(offsets)
         self.n_local = n = data.shape[1]
         self.allgather = allgather
-        self.halo = H = max((abs(o) for o in offsets), default=0) if allgather else halo
-        self.mesh = data.mesh
+        H = max((abs(o) for o in offsets), default=0) if allgather else halo
+        super().__init__(data.mesh, H, (n,))
         self.mats = Shards.map(lambda d: _square(extend_rows(d, H), offsets), data)
-        self._bufs = None
-        self._last = 0
         self.halo_bytes = exchange_bytes(self.offsets, n * self.mesh.size, self.mesh.size,
                                          data.dtype.itemsize)
 
-    def _buffers(self, like: Shards):
-        if self._bufs is None or self._bufs[0].dtype != like.dtype:
-            L = self.n_local + 2 * self.halo
-            self._bufs = [Shards.map(lambda p: torch.zeros(L, dtype=p.dtype, device=p.device),
-                                     like) for _ in range(2)]
-        return self._bufs
-
-    def _middle(self, buf: Shards) -> Shards:
-        H, n = self.halo, self.n_local
-        return Shards.map(lambda b: b[H:H + n], buf)
-
-    def fresh(self, like: Shards) -> Shards:
-        """Middle rows of the buffer not holding the last operand."""
-        return self._middle(self._buffers(like)[1 - self._last])
-
     def _fill(self, p: Shards) -> Shards:
-        bufs = self._buffers(p)
+        buf = self._take(p)
         H, n = self.halo, self.n_local
-        held = [k for k in (0, 1)
-                if all(q.data_ptr() == b.data_ptr() + H * b.element_size() and q.shape[0] == n
-                       for q, b in zip(p.parts, bufs[k].parts))]
-        k = held[0] if held else 1 - self._last
-        buf = bufs[k]
-        self._last = k
-        if not held:
-            for q, b in zip(p.parts, buf.parts):
-                b[H:H + n].copy_(q)
         if self.allgather:
-            g = all_gather(p)
+            g = all_gather(p, dim=-1)
             for i, (g_, b) in enumerate(zip(g.parts, buf.parts)):
                 lo = i * n - H
-                a, z = max(lo, 0), min(lo + n + 2 * H, g_.shape[0])
+                a, z = max(lo, 0), min(lo + n + 2 * H, g_.shape[-1])
                 # the middle is p itself; the rest of the window, and zeros
                 # beyond the global edges (written once, at allocation)
-                b[a - lo:H].copy_(g_[a:i * n])
-                b[H + n:z - lo].copy_(g_[(i + 1) * n:z])
+                b[..., a - lo:H].copy_(g_[..., a:i * n])
+                b[..., H + n:z - lo].copy_(g_[..., (i + 1) * n:z])
         elif H:
-            left, right = exchange_halos(p, H)
-            for l_, r_, b in zip(left.parts, right.parts, buf.parts):
-                b[:H].copy_(l_)
-                b[H + n:].copy_(r_)
+            self._exchange(p, buf)
         return buf
 
     def __call__(self, p: Shards) -> Shards:
+        """The local rows of A p (a vector: kernel #4) or A P (a ``(k,
+        n_local)`` block: kernel #5), one launch a shard."""
         H, n = self.halo, self.n_local
-        return Shards.map(lambda A, b: spmv_dia_cuda(A, b)[H:H + n], self.mats, self._fill(p))
+        fn = spmv_dia_cuda if p.parts[0].dim() == 1 else spmm_dia_cuda
+        return Shards.map(lambda A, b: fn(A, b)[..., H:H + n], self.mats, self._fill(p))
 
     def spmv_dot(self, p: Shards) -> Tuple[Shards, Shards]:
         """``(A p, local p.Ap)``: the fused kernel #4 on each shard."""
@@ -262,3 +313,76 @@ class HaloDia:
         out = Shards.map(spmv_dot_dia_cuda, self.mats, self._fill(p))
         return (Shards([y[H:H + n] for y, _ in out.parts], self.mesh),
                 Shards([d for _, d in out.parts], self.mesh))
+
+
+# ---------------------------------------------------------------------------
+# grid stencils: axis-0 row blocks on kernel #3
+# ---------------------------------------------------------------------------
+
+
+def extend_grid_rows(legs: torch.Tensor, halo0: int) -> torch.Tensor:
+    """A shard's ``(L, n0, *rest)`` legs as ``(L, n0 + 2*halo0, *rest)``
+    with ``halo0`` zero grid rows on each side: the slab kernel #3 takes."""
+    if halo0 == 0:
+        return legs.contiguous()
+    pad = [0, 0] * (legs.dim() - 2) + [halo0, halo0]
+    return F.pad(legs, pad).contiguous()
+
+
+class HaloStencil(_HaloBuffers):
+    """The sharded stencil product of the sharded V-cycle: each shard's
+    axis-0 block of the legs extended once (``extend_grid_rows``), and two
+    halo-padded buffers a shard.
+
+    ``op(x)`` takes a ``Shards`` of grid blocks ``(n0, *rest)``, or of k
+    columns ``(k, n0, *rest)``; it copies the block into the middle of a
+    buffer unless it lives there already (``fresh``, as ``HaloDia``'s),
+    fills the ``halo0`` rows each side from the neighbours (one
+    ``ppermute`` pair, the slabs of every column together), and runs
+    kernel #3 on the extended slab once a shard (once a column a shard for
+    a block, as ``ops.stencil.spmm_columns`` does); the local rows are the
+    middle of the result.  ``sibling()`` gives an operator over the same
+    extended legs with buffers of its own, for a second user.
+    ``halo_bytes`` is what one product of one column moves between
+    shards."""
+
+    def __init__(self, legs: Shards, shifts, halo0: int):
+        local = tuple(legs.shape[1:])  # (n0, *rest)
+        super().__init__(legs.mesh, int(halo0), local)
+        H = self.halo
+        self.shifts = tuple(tuple(int(v) for v in s) for s in shifts)
+        ext = (local[0] + 2 * H,) + local[1:]
+        self.mats = Shards.map(
+            lambda d: StencilMatrix(extend_grid_rows(d, H), self.shifts, ext), legs)
+        self.halo_bytes = self.mesh.size * 2 * H * math.prod(local[1:]) * legs.dtype.itemsize
+
+    def sibling(self) -> "HaloStencil":
+        """The same operator (the same extended legs) with buffers of its
+        own."""
+        twin = copy.copy(self)
+        twin._bufs, twin._last = None, 0
+        return twin
+
+    def _fill(self, x: Shards) -> Shards:
+        buf = self._take(x)
+        if self.halo:
+            self._exchange(x, buf)
+        return buf
+
+    def __call__(self, x: Shards) -> Shards:
+        H, n0, d = self.halo, self.local[0], len(self.local)
+
+        def local(A, b):
+            y = spmv_stencil_cuda(A, b) if b.dim() == d else spmm_columns(A, b)
+            return y.narrow(-d, H, n0)
+
+        return Shards.map(local, self.mats, self._fill(x))
+
+
+def spmv_stencil_shard(legs: Shards, shifts, x: Shards, halo0: int) -> Shards:
+    """Local rows of a stencil SpMV on axis-0 row blocks: each shard's
+    ``(n0, *rest)`` block of x (and ``(L, n0, *rest)`` block of the legs),
+    one ``ppermute`` pair of ``halo0``-row slabs, kernel #3 on the extended
+    slab.  The one-call form of ``HaloStencil`` (which builds the extended
+    legs once for many products)."""
+    return HaloStencil(legs, shifts, halo0)(x)

@@ -20,9 +20,16 @@ controller and writes the SPMD program out:
   cyclic neighbour shift, each slab copied to the receiving shard's device)
   and ``all_gather``.  A process-group communicator can take their place
   without touching the solvers.
+- Torch functions take ``Shards`` too (``__torch_function__``):
+  ``torch.where(mask, a, b)``, ``torch.zeros_like(a)`` and the like run
+  shard by shard, a plain tensor among their arguments standing for a
+  replicated value (copied to each shard's device).  So a recurrence
+  written for tensors (``solvers.cg.cg_block``, the smoothers) runs on row
+  blocks unchanged, its dots and norms handed in as collectives.
 
-Left out: ``specs_for_grid`` (the GSPMD carriers' sharding specs; they come
-with ``parallel.gspmd``) and ``factory_cache``/``_stable_key``, which cache
+``specs_for_grid`` keeps the JAX package's divisibility rule, and returns
+the split a carrier needs (``GridSplit``) in place of PartitionSpecs.
+Left out: ``factory_cache``/``_stable_key``, which cache
 jitted programs: eager PyTorch traces nothing, so a rebuilt solver costs only
 its setup.  For the same reason the solver factories
 (``sharded_cg.make_sharded_cg``, ``sharded_general.make_sharded_cg_general``)
@@ -32,7 +39,7 @@ take no ``donate=``: there is no compiled program to hand buffers to.
 from __future__ import annotations
 
 import operator
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,17 +81,39 @@ def make_mesh(num_devices: Optional[int] = None, axis: str = "x", devices=None) 
     return Mesh(devices, axis)
 
 
-def _part(v, i: int):
-    return v.parts[i] if isinstance(v, Shards) else v
+def _part(v, i: int, device=None):
+    """Shard i's view of ``v``: its part of a ``Shards``, a plain tensor (a
+    replicated value) on ``device``, anything else as it is; lists and
+    tuples element by element."""
+    if isinstance(v, Shards):
+        return v.parts[i]
+    if device is not None and torch.is_tensor(v):
+        return v.to(device)
+    if isinstance(v, (list, tuple)):
+        return type(v)(_part(u, i, device) for u in v)
+    return v
+
+
+def _mesh_of(args):
+    for a in args:
+        if isinstance(a, Shards):
+            return a.mesh
+        if isinstance(a, (list, tuple)):
+            m = _mesh_of(a)
+            if m is not None:
+                return m
+    return None
 
 
 class Shards:
     """A row-sharded value: ``parts[i]`` lives on ``mesh.devices[i]``.
 
-    Arithmetic (``+``, ``-``, ``*``; ``@`` from the left) and ``map`` act
-    shard by shard; operands are ``Shards`` of the same mesh or Python
-    numbers.  ``shape``, ``dtype`` and ``device`` are those of the first
-    part (the parts of a row-sharded vector have one shape)."""
+    Arithmetic (``+``, ``-``, ``*``, ``/``; ``@`` from the left), ``map``
+    and torch functions act shard by shard; operands are
+    ``Shards`` of the same mesh, Python numbers, or plain tensors (a
+    replicated value, copied to each shard's device).  ``shape``, ``dtype``
+    and ``device`` are those of the first part (the parts of a row-sharded
+    vector have one shape)."""
 
     __slots__ = ("parts", "mesh")
 
@@ -99,8 +128,22 @@ class Shards:
     def map(fn: Callable, *args) -> "Shards":
         """``fn`` on each shard's parts of ``args`` (``Shards`` or values
         passed to every shard)."""
-        mesh = next(a.mesh for a in args if isinstance(a, Shards))
-        return Shards([fn(*(_part(a, i) for a in args)) for i in range(mesh.size)], mesh)
+        mesh = _mesh_of(args)
+        return Shards([fn(*(_part(a, i, d) for a in args)) for i, d in enumerate(mesh.devices)],
+                      mesh)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        """A torch function of ``Shards`` arguments, run on each shard's
+        parts: a ``Shards`` of its results (a tuple of ``Shards`` where it
+        returns a tuple)."""
+        kwargs = kwargs or {}
+        mesh = _mesh_of(list(args) + list(kwargs.values()))
+        outs = [func(*_part(tuple(args), i, d), **{k: _part(v, i, d) for k, v in kwargs.items()})
+                for i, d in enumerate(mesh.devices)]
+        if isinstance(outs[0], tuple):
+            return tuple(Shards([o[j] for o in outs], mesh) for j in range(len(outs[0])))
+        return Shards(outs, mesh)
 
     def _bin(self, other, op):
         return Shards.map(op, self, other)
@@ -117,6 +160,9 @@ class Shards:
     def __rmul__(self, other):
         return Shards.map(operator.mul, other, self)
 
+    def __truediv__(self, other):
+        return self._bin(other, operator.truediv)
+
     def __rmatmul__(self, other: torch.Tensor):
         """``other @ part`` on each shard, ``other`` (a small host-side
         coefficient row, say) copied to each shard's device."""
@@ -127,6 +173,18 @@ class Shards:
 
     def reshape(self, *shape) -> "Shards":
         return Shards.map(lambda p: p.reshape(*shape), self)
+
+    @property
+    def T(self) -> "Shards":
+        return Shards.map(lambda p: p.T, self)
+
+    def contiguous(self) -> "Shards":
+        return Shards.map(lambda p: p.contiguous(), self)
+
+    def to(self, *args, **kwargs) -> "Shards":
+        """Each part's ``.to`` (a dtype cast; a device move would leave the
+        mesh)."""
+        return Shards.map(lambda p: p.to(*args, **kwargs), self)
 
     @property
     def shape(self):
@@ -140,11 +198,15 @@ class Shards:
     def device(self):
         return self.parts[0].device
 
-    def gather(self) -> torch.Tensor:
+    def gather(self, dim: int = 0) -> torch.Tensor:
         """The global value on the first shard's device (row blocks
-        concatenated in shard order)."""
+        concatenated in shard order along ``dim``)."""
         dev = self.mesh.devices[0]
-        return torch.cat([p.to(dev) for p in self.parts])
+        return torch.cat([p.to(dev) for p in self.parts], dim=dim)
+
+    def cpu(self) -> torch.Tensor:
+        """The gathered global value on the host."""
+        return self.gather().cpu()
 
 
 def shard_rows(mesh: Mesh, a, dtype=None, dim: int = -1) -> Shards:
@@ -205,8 +267,41 @@ def ppermute(x: Shards, shift: int) -> Shards:
                   x.mesh)
 
 
-def all_gather(x: Shards) -> Shards:
-    """Every shard's part concatenated in shard order, on every shard's
-    device (``jax.lax.all_gather(..., tiled=True)``)."""
-    g = x.gather()
+def all_gather(x: Shards, dim: int = 0) -> Shards:
+    """Every shard's part concatenated in shard order along ``dim``, on
+    every shard's device (``jax.lax.all_gather(..., tiled=True)``)."""
+    g = x.gather(dim)
     return Shards([g.to(d) for d in x.mesh.devices], x.mesh)
+
+
+# ---------------------------------------------------------------------------
+# the divisibility rule of the GSPMD carriers
+# ---------------------------------------------------------------------------
+
+
+class GridSplit(NamedTuple):
+    """How a grid lies on a mesh: ``names[ax]`` is the mesh axis that grid
+    axis ``ax`` shards over (``None``: replicated), ``local`` the extent
+    one shard holds."""
+
+    names: Tuple[Optional[str], ...]
+    local: Tuple[int, ...]
+
+    @property
+    def sharded(self) -> bool:
+        return any(self.names)
+
+
+def specs_for_grid(g, mesh: Mesh, axes) -> GridSplit:
+    """The JAX package's rule: the leading ``len(axes)`` grid axes that
+    divide their mesh axes shard, the others replicate (NamedSharding
+    requires even divisibility).  Shared by ``parallel.gspmd`` and, when it
+    is ported, ``precond.distributed``.  The JAX function returns the
+    (data, vector) PartitionSpecs; torch has none, so this returns the
+    split they describe (``GridSplit``): the sharded axes, and the local
+    extent, which is the global one on every replicated axis."""
+    g = tuple(int(n) for n in g)
+    names = [ax if g[i] % mesh.shape[ax] == 0 else None for i, ax in enumerate(tuple(axes)[:len(g)])]
+    names += [None] * (len(g) - len(names))
+    local = tuple(n // mesh.shape[ax] if ax else n for n, ax in zip(g, names))
+    return GridSplit(tuple(names), local)

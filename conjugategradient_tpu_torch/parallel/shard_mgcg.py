@@ -1,0 +1,518 @@
+"""Explicit-collective MGCG: the V-cycle itself sharded over a mesh.
+
+The port of ``conjugategradient_tpu/parallel/shard_mgcg.py``, the JAX
+package's distributed form of MGCG, on the single-controller mesh of
+``parallel.mesh`` (a mesh may repeat a device: four shards on one card):
+
+- each *sharded* level runs on axis-0 row blocks of its grid; its stencil
+  product is ``parallel.halo.HaloStencil``: one ``ppermute`` pair of
+  ``halo0``-row slabs, kernel #3 on each shard's extended slab
+  (``spmv_stencil_cuda``, tuned or wide by ``var_route``; its twin on a CPU
+  tensor).  Constant-coefficient levels are expanded to legs
+  (``const_to_stencil``'s values, built on each shard's device), so the
+  ring's wraparound at the global edges lands on structural zeros;
+- the smoothers (Chebyshev, Jacobi, red-black Gauss-Seidel) are the
+  single-device ones over the sharded operator: they run unfused (kernel
+  #2 smooths only the replicated tail's 3-D constant levels, as the JAX
+  package fuses nothing on sharded levels); rbgs masks are parity of
+  global indices, so each shard takes its rows of the host mask;
+- aggregation transfers are shard-local (a shard whose local extent is
+  even owns whole aggregates), semicoarsening that leaves axis 0 alone is
+  too, and the hybrid fw/cell-centred transfers exchange one boundary
+  element along axis 0 per restrict or prolong (a 1-element ``ppermute``
+  pair, zeroed at the global boundary);
+- the levels below ``n_sharded`` are the replicated tail: the restricted
+  residual is gathered once onto the first shard's device, the
+  single-device ``precond.multigrid.v_cycle`` runs there once (kernels #1,
+  #2, #3 and the dense coarse inverse), and each shard gets its rows of
+  the correction back.  On four shards of one card the coarse cycle runs
+  once, not four times; on distinct cards the result is the same.
+
+The outer loop is ``parallel.sharded_cg.sharded_cg_loop`` (``variant``
+``cg``, ``cg1`` or ``pipelined``) over its own ``HaloStencil`` of the fine
+level, whose search direction lives in the product's halo buffer.
+
+Sharding constraint, as in the JAX package: a level shards where its axis
+0 divides the mesh with an even local extent, its halo fits one hop, and
+its transfer is ``agg`` or ``hyb``, or ``semi*`` leaving axis 0 alone
+(``_shardable``); odd 2^k - 1 grids take ``parallel.gspmd``.  Left out:
+the JAX factory's ``lower_args``/``jitted`` (the compiled program's
+handles for HLO inspection); the solve carries ``plan`` instead (the split,
+each sharded level's local extent and halo, the tail's grids and the
+bytes a cycle moves between shards).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from conjugategradient_tpu_torch.core.formats import ConstStencilMatrix, StencilMatrix, torch_dtype
+from conjugategradient_tpu_torch.ops.precision import no_tf32
+from conjugategradient_tpu_torch.parallel.halo import HaloStencil
+from conjugategradient_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    make_mesh,
+    ppermute,
+    replicate,
+    shard_rows,
+)
+from conjugategradient_tpu_torch.parallel.sharded_cg import sharded_cg_loop
+from conjugategradient_tpu_torch.precond import transfer
+from conjugategradient_tpu_torch.precond.amg import _np_dtype
+from conjugategradient_tpu_torch.precond.multigrid import (
+    _SA_W,
+    MgHierarchy,
+    _semi_mask,
+    build_hierarchy,
+    v_cycle,
+)
+from conjugategradient_tpu_torch.precond.smoothers import (
+    chebyshev_smooth,
+    jacobi_smooth,
+    redblack_gs_smooth,
+    redblack_gs_smooth_reversed,
+)
+from conjugategradient_tpu_torch.solvers.cg import CGResult
+from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
+
+GridShape = Tuple[int, ...]
+
+
+# ---------------------------------------------------------------------------
+# transfers on the trailing d (grid) dims of a block: a vector's (n0, *rest)
+# or k columns' (k, n0, *rest); axis 0 of the grid is dim -d
+# ---------------------------------------------------------------------------
+
+
+def _per_axis(v: torch.Tensor, fns) -> torch.Tensor:
+    """``fns[ax]`` (a function of the last axis, or ``None``) along grid
+    axis ax of the trailing ``len(fns)`` dims, axis by axis in order."""
+    d = len(fns)
+    for ax, fn in enumerate(fns):
+        if fn is not None:
+            v = transfer._along(fn, v, ax - d)
+    return v.contiguous()
+
+
+def _restrict_agg(v, d: int):
+    return _per_axis(v, [transfer._restrict_agg_axis] * d)
+
+
+def _prolong_agg(e, fine: GridShape):
+    return _per_axis(e, [lambda t, n=n: transfer._prolong_agg_axis(t, n) for n in fine])
+
+
+def _restrict_partial(v, mask):
+    kinds = transfer.partial_kinds(tuple(v.shape[-len(mask):]), mask)
+    return _per_axis(v, [None if k == "id" else transfer._RESTRICT[k] for k in kinds])
+
+
+def _prolong_partial(e, fine: GridShape, mask):
+    kinds = transfer.partial_kinds(tuple(fine), mask)
+    return _per_axis(e, [None if k == "id" else (lambda t, k=k, n=n: transfer._PROLONG[k](t, n))
+                         for k, n in zip(kinds, fine)])
+
+
+def _restrict_fw(v, d: int):
+    return _per_axis(v, [transfer._restrict_axis] * d)
+
+
+def _prolong_fw(e, fine: GridShape):
+    return _per_axis(e, [lambda t, n=n: transfer._prolong_axis(t, n) for n in fine])
+
+
+def _cc0_halo(v: Shards, d: int) -> Tuple[Shards, Shards]:
+    """(left, right): the ring neighbours' edge slabs (one element along
+    grid axis 0), zeroed at the global boundary as the unsharded
+    cell-centred transfers pad with zeros."""
+    num = v.mesh.size
+    if num == 1:
+        z = Shards.map(lambda t: torch.zeros_like(t.narrow(-d, 0, 1)), v)
+        return z, z
+    left = ppermute(Shards.map(lambda t: t.narrow(-d, t.shape[-d] - 1, 1), v), 1)
+    right = ppermute(Shards.map(lambda t: t.narrow(-d, 0, 1), v), -1)
+    left = Shards([torch.zeros_like(t) if i == 0 else t for i, t in enumerate(left.parts)], v.mesh)
+    right = Shards([torch.zeros_like(t) if i == num - 1 else t
+                    for i, t in enumerate(right.parts)], v.mesh)
+    return left, right
+
+
+def _restrict_cc0_shard(v: Shards, d: int) -> Shards:
+    """Cell-centred restriction along the sharded grid axis 0:
+    ``rc[J] = (3 v[2J] + 3 v[2J+1] + v[2J-1] + v[2J+2]) / 8`` on the local
+    block, the two boundary terms from one 1-element ``ppermute`` pair."""
+    left, right = _cc0_halo(v, d)
+
+    def local(t, l_, r_):
+        t = torch.movedim(t, -d, -1)
+        a, b = t[..., 0::2], t[..., 1::2]
+        lft = torch.cat([torch.movedim(l_, -d, -1), b[..., :-1]], dim=-1)  # v[2J-1]
+        rgt = torch.cat([a[..., 1:], torch.movedim(r_, -d, -1)], dim=-1)  # v[2J+2]
+        return torch.movedim((3.0 * (a + b) + lft + rgt) / 8.0, -1, -d)
+
+    return Shards.map(local, v, left, right)
+
+
+def _prolong_cc0_shard(e: Shards, d: int) -> Shards:
+    """Cell-centred prolongation along the sharded grid axis 0 (the
+    transpose of ``_restrict_cc0_shard`` up to the 1/2 scaling)."""
+    left, right = _cc0_halo(e, d)
+
+    def local(t, l_, r_):
+        t = torch.movedim(t, -d, -1)
+        lf = torch.cat([torch.movedim(l_, -d, -1), t[..., :-1]], dim=-1)  # ec[J-1]
+        rt = torch.cat([t[..., 1:], torch.movedim(r_, -d, -1)], dim=-1)  # ec[J+1]
+        even = (3.0 * t + lf) / 4.0
+        odd = (3.0 * t + rt) / 4.0
+        out = torch.stack([even, odd], dim=-1).reshape(t.shape[:-1] + (2 * t.shape[-1],))
+        return torch.movedim(out, -1, -d)
+
+    return Shards.map(local, e, left, right)
+
+
+def restrict_hybrid_shard(v: Shards, global_grid: GridShape) -> Shards:
+    """Hybrid fw/cc restriction on axis-0 row blocks of ``global_grid``:
+    only axis 0 crosses shards (a sharded axis is even, hence
+    cell-centred); the other axes run the local per-axis operators."""
+    d = len(global_grid)
+    kinds = transfer.hybrid_kinds(tuple(global_grid))
+    if kinds[0] == "cc":
+        v = _restrict_cc0_shard(v, d)
+        first = [None]
+    else:  # an odd axis 0: one shard only
+        first = [transfer._restrict_axis]
+    fns = first + [transfer._RESTRICT[k] for k in kinds[1:]]
+    return Shards.map(lambda t: _per_axis(t, fns), v)
+
+
+def prolong_hybrid_shard(e: Shards, global_grid: GridShape) -> Shards:
+    """Hybrid fw/cc prolongation onto axis-0 row blocks of
+    ``global_grid``."""
+    d = len(global_grid)
+    kinds = transfer.hybrid_kinds(tuple(global_grid))
+    if kinds[0] == "cc":
+        e = _prolong_cc0_shard(e, d)
+        first = [None]
+    else:
+        first = [lambda t: transfer._prolong_axis(t, global_grid[0])]
+    fns = first + [lambda t, k=k, n=n: transfer._PROLONG[k](t, n)
+                   for k, n in zip(kinds[1:], global_grid[1:])]
+    return Shards.map(lambda t: _per_axis(t, fns), e)
+
+
+# ---------------------------------------------------------------------------
+# the split of a hierarchy
+# ---------------------------------------------------------------------------
+
+
+def _halo0(lvl) -> int:
+    return max((abs(s[0]) for s in lvl.A.shifts), default=0)
+
+
+def _shardable(lvl, num: int) -> bool:
+    """A level runs sharded iff its axis 0 splits evenly with an even local
+    extent (aggregates and cc pairs must not straddle shards), its stencil
+    halo fits one neighbour hop, and its transfers are aggregation or
+    hybrid (vertex-centred full weighting needs odd axes, which never
+    divide an even mesh), or semicoarsening that leaves axis 0 alone (the
+    axis-0 transfer is then the identity, fully shard-local, and the local
+    extent need not be even).  Axis-0-coarsening semi levels fall to the
+    replicated tail."""
+    g0 = lvl.grid[0]
+    if g0 % num:
+        return False
+    n_local = g0 // num
+    if _halo0(lvl) > n_local:
+        return False
+    if lvl.transfer.startswith("semi"):
+        return num == 1 or not _semi_mask(lvl.transfer)[0]
+    if num > 1 and lvl.transfer not in ("agg", "hyb"):
+        return False
+    return num == 1 or n_local % 2 == 0
+
+
+def _const_legs(cst: ConstStencilMatrix, r0: int, r1: int, dtype, device) -> torch.Tensor:
+    """Rows [r0, r1) of axis 0 of ``const_to_stencil(cst)``'s legs, built on
+    ``device``: each coefficient where the neighbour lies in the grid, 0
+    where it leaves it (the same values, computed in fp64 and cast)."""
+    g = tuple(cst.grid)
+    d = len(g)
+    legs = torch.empty((cst.nlegs, r1 - r0) + g[1:], dtype=torch.float64, device=device)
+    for k, (sh, c) in enumerate(zip(cst.shifts, cst.coeffs)):
+        valid = torch.ones((r1 - r0,) + g[1:], dtype=torch.bool, device=device)
+        for ax, s in enumerate(sh):
+            idx = (torch.arange(r0, r1, device=device) if ax == 0
+                   else torch.arange(g[ax], device=device)) + s
+            shape = [1] * d
+            shape[ax] = -1
+            valid &= ((idx >= 0) & (idx < g[ax])).reshape(shape)
+        legs[k] = torch.where(valid, torch.tensor(float(c), dtype=torch.float64, device=device),
+                              torch.zeros((), dtype=torch.float64, device=device))
+    return legs.to(dtype).contiguous()
+
+
+@dataclasses.dataclass
+class ShardLevel:
+    """One sharded level: ``op`` its V-cycle product (``HaloStencil``), the
+    shard blocks of ``inv_diag`` (a replicated scalar on a constant level),
+    ``weight`` and ``mask`` (``None`` where the level has none), and the
+    level's global grid, Chebyshev bounds, transfer kind and SA flag."""
+
+    op: HaloStencil
+    inv_diag: Shards
+    weight: Optional[Shards]
+    mask: Optional[Shards]
+    grid: GridShape
+    bounds: Tuple[float, float]
+    kind: str
+    sa_smooth: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """What a sharded V-cycle runs: ``n_sharded`` levels on row blocks (each
+    with its global grid, local extent, halo and kind), the tail's level
+    grids (replicated, on the first shard's device, then the dense
+    inverse of ``coarse``), the sharded-level products of one cycle (each
+    one launch a shard a column), and the bytes a cycle moves between
+    shards for one column: each sharded-level product's slabs and the cc
+    transfers' 1-element pairs."""
+
+    n_sharded: int
+    levels: Tuple[Tuple[GridShape, GridShape, int, str], ...]
+    tail: Tuple[GridShape, ...]
+    coarse: int
+    products_per_cycle: int
+    halo_bytes_per_cycle: int
+    cc_bytes_per_cycle: int
+
+
+def _shard_levels(h: MgHierarchy, n_sharded: int, mesh: Mesh, dt) -> Tuple[ShardLevel, ...]:
+    """Place the first ``n_sharded`` levels of ``h`` on the mesh as
+    row blocks; constant levels expanded to legs."""
+    num = mesh.size
+    dt = torch_dtype(dt)
+    out = []
+    for lvl in h.levels[:n_sharded]:
+        g = tuple(lvl.grid)
+        n0 = g[0] // num
+        if isinstance(lvl.A, ConstStencilMatrix):
+            legs = Shards([_const_legs(lvl.A, i * n0, (i + 1) * n0, dt, d)
+                           for i, d in enumerate(mesh.devices)], mesh)
+        else:
+            legs = shard_rows(mesh, lvl.A.data, dt, dim=1)
+        invd = lvl.inv_diag
+        inv = (replicate(mesh, invd, dt) if invd.ndim == 0
+               else shard_rows(mesh, invd.reshape(g), dt, dim=0))
+        weight = None if lvl.weight is None else shard_rows(mesh, lvl.weight.reshape(g), dt, dim=0)
+        mask = None if lvl.mask is None else shard_rows(mesh, lvl.mask.reshape(g), None, dim=0)
+        out.append(ShardLevel(HaloStencil(legs, lvl.A.shifts, _halo0(lvl)), inv, weight, mask, g,
+                              tuple(lvl.cheb_bounds), lvl.transfer, lvl.sa_smooth))
+    return tuple(out)
+
+
+def _plan(levels, rep_h: MgHierarchy, itemsize: int, smoother: str, pre: int, post: int) -> ShardPlan:
+    """The ``ShardPlan`` of a split hierarchy (bytes of one column)."""
+    # products a level runs per cycle: pre and post smoothing (Chebyshev:
+    # 1 + degree; Jacobi: 1 a sweep; rbgs: 2 a sweep), the residual, and
+    # the SA transfers' two
+    def products(sweeps):
+        if sweeps <= 0:
+            return 0
+        return {"chebyshev": 1 + sweeps, "rbgs": 2 * sweeps}.get(smoother, sweeps)
+
+    halo = cc = count = 0
+    for L in levels:
+        n = products(pre) + products(post) + 1 + (2 if L.kind == "agg" and L.sa_smooth else 0)
+        count += n
+        halo += n * L.op.halo_bytes
+        if L.kind == "hyb" and transfer.hybrid_kinds(L.grid)[0] == "cc" and L.op.mesh.size > 1:
+            rest = math.prod(L.grid[1:])
+            coarse_rest = math.prod(transfer.hybrid_coarse_shape(L.grid)[1:])
+            cc += 2 * L.op.mesh.size * (rest + coarse_rest) * itemsize
+    return ShardPlan(
+        n_sharded=len(levels),
+        levels=tuple((L.grid, L.op.local, L.op.halo, L.kind) for L in levels),
+        tail=tuple(tuple(lvl.grid) for lvl in rep_h.levels),
+        coarse=int(rep_h.coarse_inv.shape[0]), products_per_cycle=count,
+        halo_bytes_per_cycle=halo, cc_bytes_per_cycle=cc)
+
+
+def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre: int, post: int,
+                          dt, hierarchy: Optional[MgHierarchy]):
+    """Shared setup of the explicit-collective MGCG paths: build (or take)
+    the hierarchy on the mesh's first device, split it at the deepest
+    shardable level, and place the sharded levels on the mesh.
+
+    Returns ``(h, n_sharded, levels, rep_h)``: the hierarchy, the split,
+    the ``ShardLevel``s and the replicated tail (an ``MgHierarchy`` of the
+    remaining levels and the coarse inverse, on the first shard's
+    device)."""
+    grid = tuple(grid)
+    h = hierarchy or build_hierarchy(A_dia, grid, smoother=smoother, pre=pre, post=post,
+                                     dtype=dt, layout="stencil", device=mesh.devices[0])
+    if not h.levels or not isinstance(h.levels[0].A, (StencilMatrix, ConstStencilMatrix)):
+        raise ValueError("make_shard_mgcg needs a stencil-layout hierarchy with >= 1 level")
+    num = mesh.shape[axis]
+    n_sharded = 0
+    for lvl in h.levels:
+        if not _shardable(lvl, num):
+            break
+        n_sharded += 1
+    if n_sharded == 0:
+        raise ValueError(
+            f"fine grid {grid} axis 0 does not shard over {num} devices "
+            "(need even local extents and agg/hyb transfers, or "
+            "semicoarsening that leaves axis 0 alone — reorder axes so the "
+            "coarsened/strong axes trail); use parallel.gspmd"
+        )
+    levels = _shard_levels(h, n_sharded, mesh, dt)
+    rep_h = MgHierarchy(list(h.levels[n_sharded:]), h.coarse_inv, h.smoother, h.pre, h.post,
+                        h.omega)
+    return h, n_sharded, levels, rep_h
+
+
+def make_vcycle(h: MgHierarchy, levels, rep_h: MgHierarchy, d: int):
+    """The sharded V-cycle ``M(r)`` over ``levels`` and the replicated tail
+    ``rep_h``: ``r`` a ``Shards`` of axis-0 blocks whose trailing ``d`` dims
+    are the grid (a leading column axis rides along: each column runs the
+    single-RHS cycle, the tail one column at a time)."""
+    n_sharded = len(levels)
+
+    def smooth(L: ShardLevel, b, x, sweeps, post=False):
+        if sweeps <= 0:
+            return x
+        if h.smoother == "chebyshev":
+            lo, hi = L.bounds
+            return chebyshev_smooth(L.op, L.inv_diag, b, x, sweeps, hi, lo)
+        if h.smoother == "rbgs":
+            fn = redblack_gs_smooth_reversed if post else redblack_gs_smooth
+            return fn(L.op, L.inv_diag, b, x, sweeps, L.mask)
+        return jacobi_smooth(L.op, L.inv_diag, b, x, sweeps, h.omega)
+
+    def tail(r: Shards) -> Shards:
+        mesh = r.mesh
+        r_g = r.gather(-d)
+        with no_tf32():  # the dense coarse product in full fp32
+            if r_g.dim() == d:
+                e_g = v_cycle(rep_h, r_g)
+            else:
+                e_g = torch.stack([v_cycle(rep_h, c) for c in r_g.reshape((-1,) + r_g.shape[-d:])])
+                e_g = e_g.reshape(r_g.shape)
+        n0 = r.shape[-d]
+        return Shards([e_g.narrow(-d, i * n0, n0).to(dv) for i, dv in enumerate(mesh.devices)],
+                      mesh)
+
+    def cycle(level: int, r: Shards) -> Shards:
+        if level == n_sharded:
+            return tail(r)
+        L = levels[level]
+        op = L.op
+        x = torch.zeros_like(r)
+        x = smooth(L, r, x, h.pre)
+        res = r - op(x)
+        local = tuple(r.shape[-d:])
+        if L.kind == "agg" and L.sa_smooth:
+            c = _SA_W / L.bounds[1]
+            rc = Shards.map(lambda t: _restrict_agg(t, d), L.weight * (res - c * op(L.inv_diag * res)))
+            ec = cycle(level + 1, rc)
+            w = L.weight * Shards.map(lambda t: _prolong_agg(t, local), ec)
+            x = x + (w - c * (L.inv_diag * op(w)))
+        elif L.kind == "agg":
+            # plain weighted aggregation (sa_smooth=False): the transfers of
+            # the unsmoothed P the coarse Galerkin products were built from
+            rc = Shards.map(lambda t: _restrict_agg(t, d), L.weight * res)
+            ec = cycle(level + 1, rc)
+            x = x + L.weight * Shards.map(lambda t: _prolong_agg(t, local), ec)
+        elif L.kind == "hyb":
+            ec = cycle(level + 1, restrict_hybrid_shard(res, L.grid))
+            x = x + prolong_hybrid_shard(ec, L.grid)
+        elif L.kind.startswith("semi"):
+            # axis 0 unmasked (_shardable): the partial transfers are local
+            smask = _semi_mask(L.kind)
+            ec = cycle(level + 1, Shards.map(lambda t: _restrict_partial(t, smask), res))
+            x = x + Shards.map(lambda t: _prolong_partial(t, local, smask), ec)
+        else:  # full weighting: one shard only
+            ec = cycle(level + 1, Shards.map(lambda t: _restrict_fw(t, d), res))
+            x = x + Shards.map(lambda t: _prolong_fw(t, local), ec)
+        return smooth(L, r, x, h.post, post=True)
+
+    return lambda r: cycle(0, r)
+
+
+def make_shard_mgcg(
+    system,
+    grid,
+    mesh: Mesh,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+    axis: str = "x",
+    smoother: str = "chebyshev",
+    pre: int = 2,
+    post: int = 2,
+    dtype=None,
+    hierarchy: Optional[MgHierarchy] = None,
+    variant: str = "cg",
+):
+    """Build an explicit-collective MGCG solver over a 1-D mesh.
+
+    Returns ``(solve, (b, x0))`` with ``solve(b, x0) -> CGResult`` (a flat
+    global x on the mesh's first device) and ``b``, ``x0`` the system's
+    vectors placed as ``Shards`` of axis-0 grid blocks; ``solve`` takes such
+    ``Shards`` (or global arrays, split here).  ``system`` is a
+    ``core.generators.LinearSystem`` (host fp64 DIA ``A``, ``b``, ``x0``);
+    ``dtype`` (default ``A.data``'s) is the solve's, and the hierarchy's
+    when it is built here (on the mesh's first device).  ``variant``
+    selects the outer loop's communication structure (``sharded_cg_loop``:
+    ``"cg"``, ``"cg1"`` or ``"pipelined"``).  ``solve.plan`` is the
+    ``ShardPlan``; ``solve.operators`` the outer loop's ``HaloStencil``
+    and each sharded level's; ``solve.shards(b, x0)`` returns x as the
+    ``Shards`` of grid blocks, ungathered."""
+    if variant not in ("cg", "cg1", "pipelined"):
+        raise ValueError(f"variant {variant!r}: the V-cycle preconditions cg|cg1|pipelined")
+    grid = tuple(grid)
+    dt = _np_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
+    h, n_sharded, levels, rep_h = _prep_shard_hierarchy(system.A, grid, mesh, axis, smoother, pre,
+                                                        post, dt, hierarchy)
+    M = make_vcycle(h, levels, rep_h, len(grid))
+    op0 = levels[0].op.sibling()  # the outer loop's own buffers
+    n = int(np.prod(grid))
+
+    def place(v):
+        if isinstance(v, Shards):
+            return v
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        return shard_rows(mesh, t.reshape(grid), dt, dim=0)
+
+    def solve_shards(b, x0) -> CGResult:
+        return sharded_cg_loop(op0, M, place(b), place(x0), policy, n, variant=variant)
+
+    def solve(b, x0) -> CGResult:
+        res = solve_shards(b, x0)
+        return dataclasses.replace(res, x=res.x.gather().reshape(-1))
+
+    solve.shards = solve_shards
+    itemsize = torch.empty(0, dtype=levels[0].inv_diag.dtype).element_size()
+    solve.plan = _plan(levels, rep_h, itemsize, h.smoother, h.pre, h.post)
+    solve.operators = (op0,) + tuple(L.op for L in levels)
+    return solve, (place(system.b), place(system.x0))
+
+
+def shard_mgcg_solve(
+    system,
+    grid,
+    mesh: Optional[Mesh] = None,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+    **kw,
+) -> CGResult:
+    """One-call convenience: build, place, solve (``mesh``: every visible
+    CUDA device by default)."""
+    if mesh is None:
+        mesh = make_mesh()
+    solve, (b, x0) = make_shard_mgcg(system, grid, mesh, policy, **kw)
+    return solve(b, x0)

@@ -35,6 +35,7 @@ from conjugategradient_tpu_torch.solvers.cg import (
     block_residual,
     check_batched,
     columns_dot,
+    columns_linf,
 )
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -155,7 +156,9 @@ def bicgstab_solve_traced(
 
 
 def bicgstab_block(op: Callable, B: torch.Tensor, X: Optional[torch.Tensor],
-                   policy: ConvergencePolicy, M: Optional[Callable] = None):
+                   policy: ConvergencePolicy, M: Optional[Callable] = None,
+                   dot: Callable = columns_dot, linf: Callable = columns_linf,
+                   n_global: Optional[int] = None):
     """THE per-row BiCGStab of a ``(k, n)`` block, shared by
     ``bicgstab_solve_multi`` and ``bicgstab_solve_batched``: ``op`` maps a
     ``(k, n)`` block row by row, ``M`` is an optional ``(k, n) -> (k, n)``
@@ -164,20 +167,21 @@ def bicgstab_block(op: Callable, B: torch.Tensor, X: Optional[torch.Tensor],
     from poisoning the block) and its own ``max_iteration``; a converged row
     freezes under masked updates, and the host reads one device scalar per
     iteration.  Returns ``(X, iterations, residual, converged)``, each with
-    the leading k axis."""
-    k, n = B.shape
+    the leading k axis.  ``dot``, ``linf`` and ``n_global`` are
+    ``cg_block``'s sharded hooks."""
+    k, n = B.shape[0], (B.shape[1] if n_global is None else n_global)
     dtype, dev = B.dtype, B.device
     tol = torch.tensor(policy.tol, dtype=dtype, device=dev)
     min_iter = policy.min_iteration
     max_iter = policy.resolve_max(n)
-    cdot = columns_dot
+    cdot = dot
     cexp = lambda s: s[:, None]
 
     X = torch.zeros_like(B) if X is None else X
     R = B - op(X)
     Rhat = R  # a fixed shadow residual per row
     rr = cdot(R, R)
-    res_of = block_residual(policy, rr)
+    res_of = block_residual(policy, rr, linf)
     onek = torch.ones(k, dtype=dtype, device=dev)
     Pd, V = torch.zeros_like(R), torch.zeros_like(R)
     rho, alpha, omega = onek, onek, onek

@@ -431,16 +431,22 @@ def columns_dot(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     return torch.sum(U * V, dim=1)
 
 
-def block_residual(policy: ConvergencePolicy, rr0: torch.Tensor) -> Callable:
+def columns_linf(R: torch.Tensor) -> torch.Tensor:
+    """The ``(k,)`` max-abs norms of the rows of a ``(k, n)`` block."""
+    return torch.amax(torch.abs(R), dim=1)
+
+
+def block_residual(policy: ConvergencePolicy, rr0: torch.Tensor,
+                   linf: Callable = columns_linf) -> Callable:
     """``res_of(R, rr)``: the ``(k,)`` residuals of a ``(k, n)`` block in
     the policy's norm from its squared norms ``rr`` (a row whose ``rr0`` is
-    0 takes 1 for it)."""
+    0 takes 1 for it); ``linf`` gives the max-abs norms."""
 
     def res_of(R, rr):
         if policy.norm == "l2":
             return torch.sqrt(rr)
         if policy.norm == "linf":
-            return torch.amax(torch.abs(R), dim=1)
+            return linf(R)
         if policy.norm == "rel_l2":
             return torch.sqrt(rr / torch.where(rr0 == 0, torch.ones_like(rr0), rr0))
         raise ValueError(policy.norm)
@@ -449,17 +455,28 @@ def block_residual(policy: ConvergencePolicy, rr0: torch.Tensor) -> Callable:
 
 
 def cg_block(op: Callable, op_dot: Callable, B: torch.Tensor, X: Optional[torch.Tensor],
-             policy: ConvergencePolicy, M: Optional[Callable] = None):
-    """THE per-row CG of a ``(k, n)`` block, shared by ``cg_solve_multi``
-    and ``cg_solve_batched``: ``op(X) -> A X`` (the initial residual) and
-    ``op_dot(P) -> (A P, the (k,) dots p . Ap)`` row by row, ``M`` an optional ``(k, n) -> (k, n)`` preconditioner, ``X``
-    the start (``None``: zeros).  Each row runs its own scalars and
+             policy: ConvergencePolicy, M: Optional[Callable] = None,
+             dot: Callable = columns_dot, linf: Callable = columns_linf,
+             n_global: Optional[int] = None):
+    """THE per-row CG of a ``(k, n)`` block, shared by ``cg_solve_multi``,
+    ``cg_solve_batched`` and the sharded block solvers of
+    ``parallel.shard_multi``: ``op(X) -> A X`` (the initial residual) and
+    ``op_dot(P) -> (A P, the (k,) dots p . Ap)`` row by row, ``M`` an
+    optional ``(k, n) -> (k, n)`` preconditioner, ``X`` the start
+    (``None``: zeros).  Each row runs its own scalars and
     ``max_iteration``; a row that has converged (or run out) freezes under
     masked updates (``torch.where``: exact) until every row is done, and the
     host reads one device scalar per iteration (whether any row is still
     active).  Returns ``(X, iterations, residual, converged)``, each with
-    the leading k axis."""
-    n, dev = B.shape[1], B.device
+    the leading k axis.
+
+    The sharded hooks, the JAX package's ``psum_axis``/``n_global``: the
+    block may be a ``parallel.mesh.Shards`` of row blocks, ``dot`` and
+    ``linf`` then give the ``(k,)`` column dots and max-abs norms through
+    one ``psum``/``pmax`` each (a plain tensor on the first shard's
+    device), and ``n_global`` is the system's size for ``resolve_max``."""
+    dev = B.device
+    n = B.shape[1] if n_global is None else n_global
     tol = torch.tensor(policy.tol, dtype=B.dtype, device=dev)
     min_iter = policy.min_iteration
     max_iter = policy.resolve_max(n)
@@ -469,9 +486,9 @@ def cg_block(op: Callable, op_dot: Callable, B: torch.Tensor, X: Optional[torch.
     R = B - op(X)
     Z = M(R) if M is not None else R
     P = Z
-    rz = columns_dot(R, Z)
-    rr = columns_dot(R, R)
-    res_of = block_residual(policy, rr)
+    rz = dot(R, Z)
+    rr = dot(R, R)
+    res_of = block_residual(policy, rr, linf)
     it = torch.zeros(B.shape[0], dtype=torch.int32, device=dev)
 
     def active_of(R, rr, it):
@@ -487,8 +504,8 @@ def cg_block(op: Callable, op_dot: Callable, B: torch.Tensor, X: Optional[torch.
         X = X + cexp(alpha) * P
         R2 = R - cexp(alpha) * AP
         Z2 = M(R2) if M is not None else R2
-        rz2 = columns_dot(R2, Z2)
-        rr2 = columns_dot(R2, R2)
+        rz2 = dot(R2, Z2)
+        rr2 = dot(R2, R2)
         beta = torch.where(active, _safe_div(rz2, rz), zero)
         P = torch.where(cexp(active), Z2 + cexp(beta) * P, P)
         rz = torch.where(active, rz2, rz)

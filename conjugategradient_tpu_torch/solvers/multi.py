@@ -35,7 +35,7 @@ from conjugategradient_tpu_torch.ops.spmm import spmm
 from conjugategradient_tpu_torch.ops.spmv import prepare
 from conjugategradient_tpu_torch.ops.stencil import spmm_columns
 from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_block
-from conjugategradient_tpu_torch.solvers.cg import cg_block, columns_dot
+from conjugategradient_tpu_torch.solvers.cg import cg_block, columns_dot, columns_linf
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
 
@@ -93,10 +93,12 @@ def bicgstab_solve_multi(
     policy: ConvergencePolicy = ConvergencePolicy(),
     M=None,
     use_pallas: bool = False,
+    psum_axis: Optional[str] = None,
+    n_global: Optional[int] = None,
 ) -> MultiCGResult:
     """Multi-RHS BiCGStab: solve A X = B for a nonsymmetric ``A``, ``B`` of
     shape (n, k), on ``B``'s device; the nonsymmetric twin of
-    ``cg_solve_multi``.
+    ``cg_solve_multi``, whose ``psum_axis`` and ``n_global`` it takes.
 
     One SpMM serves the k recurrences per half-step (two per iteration, as
     the single-RHS form's two products): kernel #5 for a DIA matrix,
@@ -107,11 +109,27 @@ def bicgstab_solve_multi(
     (n, k) right preconditioner (``as_multi_preconditioner`` for the
     V-cycle).  ``use_pallas`` is kept for parity and changes nothing.
     """
-    op = _as_multi_operator(A, B.device)
+    op, hooks = _block_setup(A, B, psum_axis, n_global)
     M_work = None if M is None else (lambda R: M(R.T).T.contiguous())
     X = None if X0 is None else X0.to(B.dtype).T.contiguous()
-    X, it, res, converged = bicgstab_block(op, B.T.contiguous(), X, policy, M_work)
+    X, it, res, converged = bicgstab_block(op, B.T.contiguous(), X, policy, M_work, **hooks)
     return MultiCGResult(x=X.T.contiguous(), iterations=it, residual=res, converged=converged)
+
+
+def _block_setup(A, B, psum_axis, n_global):
+    """(op, the block loop's sharded hooks): with ``psum_axis`` the
+    shards' own operator and the (k,) dots and max-abs norms through one
+    ``psum``/``pmax`` each; otherwise ``_as_multi_operator`` and no
+    hooks."""
+    if psum_axis is None:
+        return _as_multi_operator(A, B.device), {}
+    from conjugategradient_tpu_torch.parallel.mesh import Shards, pmax, psum
+
+    if not isinstance(B, Shards) or B.mesh.axis != psum_axis:
+        raise ValueError(f"psum_axis={psum_axis!r} takes B as Shards of a mesh over that axis")
+    hooks = dict(dot=lambda U, V: psum(Shards.map(columns_dot, U, V)).parts[0],
+                 linf=lambda R: pmax(Shards.map(columns_linf, R)).parts[0], n_global=n_global)
+    return A, hooks
 
 
 def cg_solve_multi(
@@ -121,6 +139,8 @@ def cg_solve_multi(
     policy: ConvergencePolicy = ConvergencePolicy(),
     M=None,
     use_pallas: bool = False,
+    psum_axis: Optional[str] = None,
+    n_global: Optional[int] = None,
 ) -> MultiCGResult:
     """Solve A X = B, ``B`` of shape (n, k), on ``B``'s device.
 
@@ -131,14 +151,24 @@ def cg_solve_multi(
     any other container (``ops.spmm``) or an (n, k) -> (n, k) callable; ``M`` is an optional (n, k) -> (n, k)
     preconditioner (``as_multi_preconditioner`` for MGCG).  ``use_pallas`` is kept for parity and changes nothing
     (see ``ops.spmv.as_operator``).
+
+    ``psum_axis`` runs the same loop on row shards, as the JAX package's
+    does inside ``shard_map``: ``B`` (and ``X0``) are then
+    ``parallel.mesh.Shards`` of (n_local, k) row blocks of a mesh over that
+    axis, ``A`` the shards' operator on the loop's ``(k, n_local)`` layout
+    (with its halo collectives inside: ``parallel.halo.HaloDia``), and
+    every per-column dot is ONE (k,) ``psum`` (the max-abs norm one
+    ``pmax``).  ``n_global`` is the system's size for the max-iteration
+    policy.  See ``parallel.shard_multi.sharded_cg_multi_solve``.
     """
-    op = _as_multi_operator(A, B.device)
+    op, hooks = _block_setup(A, B, psum_axis, n_global)
+    dot = hooks.get("dot", columns_dot)
     M_work = None if M is None else (lambda R: M(R.T).T.contiguous())
     X = None if X0 is None else X0.to(B.dtype).T.contiguous()
 
     def op_dot(P):
         AP = op(P)
-        return AP, columns_dot(P, AP)
+        return AP, dot(P, AP)
 
-    X, it, res, converged = cg_block(op, op_dot, B.T.contiguous(), X, policy, M_work)
+    X, it, res, converged = cg_block(op, op_dot, B.T.contiguous(), X, policy, M_work, **hooks)
     return MultiCGResult(x=X.T.contiguous(), iterations=it, residual=res, converged=converged)

@@ -1859,3 +1859,79 @@ def test_four_shards_on_one_card_take_the_one_shard_count(cuda):
     assert float((four.x - one.x).abs().max() / one.x.abs().max()) <= 1e-10
     assert cuda_dia.spmv_dia_cuda.launches == 4
     assert cuda_dia.spmv_dot_dia_cuda.launches == 4 * four.iterations
+
+
+def test_shard_slab_stencil_kernel_equals_global_rows(cuda):
+    """Kernel #3 on each shard's extended slab (zero halo grid rows, the
+    neighbours' rows filled in, NaN-poisoned buffer halos before the
+    exchange): the middle rows equal kernel #3 on the global grid's rows,
+    bit for bit on the tuned kernel (a 5-point Poisson level, 4 shards of
+    128^2) and within REL of Σ|leg·x| on the wide one (a 21-leg halo-2
+    Galerkin level, whose legs may split across threads differently)."""
+    from conjugategradient_tpu_torch.parallel import make_mesh
+    from conjugategradient_tpu_torch.parallel.halo import HaloStencil
+    from conjugategradient_tpu_torch.parallel.mesh import shard_rows
+
+    grid = (128, 128)
+    h = build_hierarchy(generators.poisson_system(grid).A, grid, dtype=np.float32, device=cuda,
+                        max_coarse=64, const_detect=False)
+    m = make_mesh(4, devices=[cuda] * 4)
+    rng = np.random.default_rng(23)
+    for lvl in h.levels[:2]:
+        A = lvl.A
+        x = torch.from_numpy(rng.standard_normal(lvl.grid)).to(cuda, torch.float32)
+        want = cuda_stencil.spmv_stencil_cuda(A, x)
+        op = HaloStencil(shard_rows(m, A.data, dim=1), A.shifts, max(abs(s[0]) for s in A.shifts))
+        xs = shard_rows(m, x, dim=0)
+        for buf in op._buffers(xs):
+            for t in buf.parts:
+                t.fill_(float("nan"))
+        got = op(xs).gather()
+        if cuda_stencil.var_route(A) == "narrow":
+            assert torch.equal(got, want)
+        else:
+            scale = cuda_stencil.spmv_stencil_ref(
+                StencilMatrix(A.data.abs(), A.shifts, A.grid), x.abs())
+            assert bool(((got - want).abs() <= REL * scale).all())
+        assert torch.equal(torch.isfinite(got), torch.ones_like(got, dtype=torch.bool))
+
+
+def test_shard_dia_block_kernel_equals_twin_and_columns(cuda):
+    """Kernel #5 on a shard's extended DIA at k = 4: equal to its twin
+    within REL, and each column equal to kernel #4 on that column."""
+    from conjugategradient_tpu_torch.parallel.halo import extend_rows
+
+    s = generators.banded_sin_system(4096, 160)
+    n_local, hb = s.n // 4, s.A.bandwidth
+    A = s.A.device_put(torch.float32, cuda)
+    ext = extend_rows(A.data[:, n_local:2 * n_local], hb)
+    Ai = DiaMatrix(ext, s.A.offsets, (ext.shape[1],) * 2)
+    X = torch.from_numpy(np.random.default_rng(24).standard_normal((4, ext.shape[1]))).to(
+        cuda, torch.float32)
+    Y = cuda_dia.spmm_dia_cuda(Ai, X)
+    ref = cuda_dia.spmm_dia_ref(Ai, X)
+    assert float((Y - ref).abs().max()) <= REL * float(ref.abs().max())
+    for j in range(4):
+        assert torch.equal(Y[j], cuda_dia.spmv_dia_cuda(Ai, X[j].contiguous()))
+
+
+def test_four_shard_mgcg_on_the_card_takes_the_cpu_count(cuda):
+    """``shard_mgcg_solve`` with four shards on cuda:0 against the same
+    solve on four CPU shards, fp64: counts within one, x close, kernel #3
+    launched on the card."""
+    from conjugategradient_tpu_torch.parallel import make_mesh, shard_mgcg_solve
+
+    grid = (128, 64)
+    s = generators.poisson_system(grid)
+    pol = ConvergencePolicy(tol=1e-10, norm="rel_l2", max_iteration=200)
+    cpu = shard_mgcg_solve(s, grid, make_mesh(4, devices=["cpu"] * 4), pol,
+                           hierarchy=build_hierarchy(s.A, grid, device="cpu", max_coarse=128))
+    cuda_stencil.reset_launch_counts()
+    card = shard_mgcg_solve(s, grid, make_mesh(4, devices=[cuda] * 4), pol,
+                            hierarchy=build_hierarchy(s.A, grid, device=cuda, max_coarse=128))
+    torch.cuda.synchronize()
+    assert cpu.converged and card.converged and abs(card.iterations - cpu.iterations) <= 1
+    assert card.x.device == cuda
+    assert float((card.x.cpu() - cpu.x).abs().max() / cpu.x.abs().max()) <= 1e-8
+    assert (cuda_stencil.spmv_stencil_cuda.launches
+            + cuda_stencil.spmv_stencil_wide_cuda.launches) > 0

@@ -5,8 +5,8 @@ Each JAX ``__init__`` is read with ``ast`` (nothing of it is imported, so
 no ``jax``), for each package the port mirrors: the root, ``core``,
 ``ops``, ``solvers``, ``precond``, ``models``, ``utils`` and ``parallel``.
 EXEMPT lists the only names allowed to be missing, each with its reason:
-the ``parallel`` names of the mesh-sharded multigrid, AMG and GSPMD
-carriers wait for ROADMAP queue 1 item 6c.
+the ``parallel`` names of the mesh-sharded AMG wait for ROADMAP queue 1
+item 6c.
 """
 
 import ast
@@ -24,10 +24,7 @@ _6C = "ROADMAP queue 1: parallel, item 6c"
 EXEMPT = {
     ("ops", "dd"): "ROADMAP: not to port (TPU double-float arithmetic)",
     ("ops", "pallas_spmv"): "ROADMAP: not to port (the Pallas kernels' module)",
-    **{("parallel", name): _6C for name in (
-        "make_shard_mgcg", "shard_mgcg_solve", "make_shard_multi_mgcg", "shard_multi_mgcg_solve",
-        "build_sharded_amg", "sharded_amg_solve", "gspmd_mgcg_solve", "make_gspmd_mgcg",
-        "shard_system")},
+    **{("parallel", name): _6C for name in ("build_sharded_amg", "sharded_amg_solve")},
 }
 
 
