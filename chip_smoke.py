@@ -237,6 +237,27 @@ after:
   = 4 (against the twin and #4 a column), each timed beside its bound and
   cuSPARSE; warm medians of the 4-shard, 1-shard and ``mgcg_solve`` 256^3
   solves with their busy shares.
+- The sharded nonsymmetric family and the distributed AMG, on the same 4
+  shards, on 1 and on one device through ``api.solve`` (``mesh=``):
+  convection-diffusion 1024^2 at eps 0.05 by bicgstab (fp64: fp32
+  BiCGStab breaks down there), jacobi_gmres(32), idr(4) and, over the
+  rediscretized Jacobi hierarchy, mg_bicgstab and mg_gmres (the sharded
+  V-cycle, #3 a shard at every level); MINRES on Helmholtz 256^2 at 1.5
+  lambda_1 (fp64); LSMR and the Chebyshev block loop (check_every 16) on
+  the flagship padded to 4 | n (#4 a shard on A, A^T and the extended
+  DIA); amg_cg and amg_bicgstab on the preconditioners phase's 127^3
+  natural hierarchy (per-shard CSR blocks on cuSPARSE, the replicated
+  tail), and amg_cg with a tail that keeps its 15^3 stencil level (#3).
+  Each run converged with the true fp64 relative residual below 1e-5 and
+  its #1/#3/#4 launches as the recurrence and its V-cycles imply; the
+  counts within 2 of each other and the 4-shard x within 1e-5 (fp32) /
+  1e-9 (fp64) of the 1-shard x, but on BiCGStab and IDR, whose counts
+  rounding decides on this operator: those are held to the one-device
+  solves from b changed by one ulp (the counts within 10% of that range,
+  the x within 4x its x spread); #4 on one shard of the convection and on
+  one shard's Chebyshev-block extended DIA against its twin, timed beside
+  its bound and cuSPARSE; warm medians of the mg_bicgstab solves and the
+  busy shares of their 3-iteration windows.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -357,7 +378,13 @@ from conjugategradient_tpu_torch.parallel import (
     shard_multi_mgcg_solve,
     sharded_cg_solve,
 )
-from conjugategradient_tpu_torch.parallel.halo import exchange_bytes, extend_rows
+from conjugategradient_tpu_torch.parallel.halo import (
+    HaloDia,
+    exchange_bytes,
+    extend_dia_data,
+    extend_rows,
+)
+from conjugategradient_tpu_torch.parallel.mesh import shard_rows
 from conjugategradient_tpu_torch.parallel.shard_mgcg import _const_legs
 from conjugategradient_tpu_torch.parallel.shard_multi import sharded_cg_multi_solve
 from conjugategradient_tpu_torch.parallel.multihost import make_distributed_system
@@ -2653,7 +2680,8 @@ def _preconditioners(loaded, fsys, dev, card, count):
     CSR levels, no #1, #3 or #4), beside ``mgcg`` and plain CG, then an
     n x MULTI_K block; jump diffusion at 127^3 as CSR (#3 at every stencil
     level); the flagship by every preconditioned route; card against CPU;
-    the spectrum tools."""
+    the spectrum tools.  Returns the natural-order system, its hierarchy
+    and count (the sharded AMG reuses them)."""
     A_nat, b_nat, plain_nat = loaded["unpermuted"]
     tag = f"Poisson {MTX_GRID} .mtx natural order"
     res, h_nat, got, _ = _amg_solve(tag, A_nat, b_nat, dev, card)
@@ -2733,6 +2761,7 @@ def _preconditioners(loaded, fsys, dev, card, count):
     _card_vs_cpu_amg(h_perm, dev, card)
     del h_perm
     _spectrum_tools(nat, fsys, dev, card)
+    return nat
 
 
 def _many_diag_times(cases, dev, card):
@@ -5784,6 +5813,471 @@ def _sharded_multigrid(poisson3, galerkin2, fsys, dev, card, count, errs, times)
           f"smaller products), not multi-GPU speed: warm 256^3 walls {walls}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded nonsymmetric family and the distributed AMG
+# ---------------------------------------------------------------------------
+
+SNS_SHARDS = 4
+#: convection-diffusion at NONSYM_EPS on the even grid: 4 | n, and the
+#: rediscretized hierarchy's hybrid levels shard (an odd grid replicates)
+SNS_GRID = (1024, 1024)
+#: every policy of the phase stops here (IDR's count is matvecs)
+SNS_CAP = PAR_CAP
+#: Helmholtz at HELM_SHIFT lambda_1, fp64 (fp32 MINRES stalls above TOL)
+SNS_HELM = (256, 256)
+SNS_CHECK = 16
+#: warm calls timed for a median wall (after one discarded)
+SNS_REPS = 3
+#: iterations of the capped run of the same solve whose trace gives the
+#: busy share (a 4-shard mg_bicgstab solve is ~36,600 device ops, 14 s to
+#: trace)
+SNS_WINDOW = 3
+#: a route whose count rounding decides (plain BiCGStab and IDR on the
+#: convection) is held to its witness, the one-device solves from b and
+#: from b changed by one ulp in one entry, then in another: its SNS_SHARDS-
+#: and 1-shard counts within SNS_WITNESS_MARGIN of the range of the
+#: witness's counts (readings on the card: BiCGStab 799 and 755 against
+#: 755, 786 and 755; IDR 355 and 350 against 350, 355 and 320), and the
+#: SNS_SHARDS-shard x within SNS_WITNESS_X times the witness's own x spread
+#: (the largest max |x_w - x| / max |x| of a changed b's solve against b's)
+#: of the 1-shard x.  Each converged solve carries an error of the size the
+#: witness pairs sample; two such errors differ by up to their sum, and a
+#: solve stops anywhere within a factor of ~2 below the tolerance
+SNS_WITNESS_MARGIN = 0.10
+SNS_WITNESS_X = 4.0
+#: min_local of the AMG route whose replicated tail keeps stencil levels: on
+#: SNS_SHARDS shards of the MTX_GRID natural hierarchy level 0 (512,096 rows
+#: a shard) shards, level 1 (79,507 rows, 19,877 a shard) tops the tail as
+#: CSR and level 2 (15^3) runs there on kernel #3
+SNS_AMG_MIN_LOCAL = 32768
+
+
+def _sns_counted(fn):
+    """``fn()`` from a reset: (result, {kernel: launches}, wall s)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"spmv_dia": spmv_dia_cuda.launches, "spmv_stencil": spmv_stencil_cuda.launches,
+           "spmv_stencil_wide": spmv_stencil_wide_cuda.launches,
+           "spmv_const_stencil": spmv_const_stencil_cuda.launches}
+    return res, got, wall
+
+
+def _k3(got) -> int:
+    """Kernel #3's launches in a ``_sns_counted`` record, tuned and wide."""
+    return got["spmv_stencil"] + got["spmv_stencil_wide"]
+
+
+def _sns_route(tag, runs, want, true_of, dtype, count, spread=PAR_COUNT_SPREAD, witness=None):
+    """One route on SNS_SHARDS shards, on 1 and on one device (``runs``: key
+    -> call; SNS_SHARDS, 1, "one"): each converged with the true fp64
+    relative residual (``true_of(x)``) within TRUE_REL, the counts within
+    ``spread`` of each other, the 4-shard x within PAR_X_AGREE[dtype] of the
+    1-shard x, and every run's launches those ``want(result, key)``
+    implies.  ``witness`` (a call returning the one-device ``(count, x)``
+    from b changed by one ulp in one entry, then in another) marks a route
+    whose count rounding decides: its counts and x are held to the
+    witness's instead (SNS_WITNESS_MARGIN, SNS_WITNESS_X).  Returns the
+    results."""
+    out = {}
+    for key, fn in runs.items():
+        res, got, wall = _sns_counted(fn)
+        path = f"{tag} {key} shard{'s' if key != 1 else ''}" if key != "one" else f"{tag} one device"
+        rel = true_of(res.x.reshape(-1).cpu().double().numpy())
+        _require(bool(res.converged) and rel <= TRUE_REL,
+                 f"{path}: converged {res.converged} in {res.iterations}, true rel {rel:.3e}")
+        implied = want(res, key)
+        seen = {k: (_k3(got) if k == "#3" else got[k]) for k in implied}
+        _require(seen == implied, f"{path}: launches {seen}, the recurrence implies {implied}")
+        if key == SNS_SHARDS:
+            count(f"sharded nonsymmetric: {path}", got, fp32=dtype == torch.float32)
+        out[key] = res
+        print(f"{path}: {res.iterations} iterations, true fp64 rel residual {rel:.3e}, launches "
+              f"{ {k: v for k, v in got.items() if v} } (implied {implied}), wall {wall:.3f} s")
+    its = {k: r.iterations for k, r in out.items()}
+    x4, x1 = (out[k].x.reshape(-1) for k in (SNS_SHARDS, 1))
+    dx = float((x4 - x1).abs().max() / x1.abs().max())
+    if witness is not None:
+        w = witness()
+        seen = [its["one"]] + [c for c, _ in w]
+        lo = int(np.floor((1 - SNS_WITNESS_MARGIN) * min(seen)))
+        hi = int(np.ceil((1 + SNS_WITNESS_MARGIN) * max(seen)))
+        x_one = out["one"].x.reshape(-1).double().cpu().numpy()
+        spread = max(float(np.abs(xw - x_one).max() / np.abs(x_one).max()) for _, xw in w)
+        limit = max(PAR_X_AGREE[dtype], SNS_WITNESS_X * spread)
+        _require(all(lo <= its[k] <= hi for k in (SNS_SHARDS, 1)),
+                 f"{tag}: counts {its} outside [{lo}, {hi}], the witness's {seen} widened by "
+                 f"{SNS_WITNESS_MARGIN:.0%}")
+        _require(dx <= limit, f"{tag}: 4-shard x against 1-shard x {dx:.3e} > {limit:.3e} "
+                 f"({SNS_WITNESS_X} x the witness's x spread {spread:.3e})")
+        print(f"{tag}: counts {its} within [{lo}, {hi}] (the one-device counts from b and from b "
+              f"changed by one ulp {seen}, widened by {SNS_WITNESS_MARGIN:.0%}); "
+              f"{SNS_SHARDS}-shard x within {dx:.3e} of the 1-shard x (bound {limit:.3e}: "
+              f"{SNS_WITNESS_X} x the witness's x spread {spread:.3e}; rounding decides this "
+              f"route's count)")
+        return out
+    _require(max(its.values()) - min(its.values()) <= spread,
+             f"{tag}: counts {its} spread past {spread}")
+    _require(dx <= PAR_X_AGREE[dtype], f"{tag}: 4-shard x against 1-shard x {dx:.3e}")
+    print(f"{tag}: counts {its} (spread {spread}), {SNS_SHARDS}-shard x within {dx:.3e} of the "
+          f"1-shard x (bound {PAR_X_AGREE[dtype]})")
+    return out
+
+
+def _sns_shard_kernel(tag, A: DiaMatrix, card):
+    """Kernel #4 on one shard's extended DIA ``A`` (as a route launched it)
+    against its twin, timed beside its bound, the twin and cuSPARSE's
+    product of the same matrix."""
+    L = A.n
+    rng = np.random.default_rng(SEED + 20)
+    p = torch.from_numpy(rng.standard_normal(L)).to(A.data.device, A.data.dtype)
+    y = spmv_dia_cuda(A, p)
+    err, scale = _max_err(y, spmv_dia_ref(A, p))
+    rel = KERNEL_REL64 if A.data.dtype == torch.float64 else KERNEL_REL
+    _require(err <= rel * scale, f"{tag}: kernel #4 max err {err:.3e} against the twin")
+    k_ms = time_ms(lambda: spmv_dia_cuda(A, p), 200)
+    t_ms = time_ms(lambda: spmv_dia_ref(A, p), 5)
+    csr = dia_csr(A)
+    lib_ms = _library(f"spmv_dia {tag}", lambda: csr @ p, y, card, 200)
+    nnz = dia_nnz(A)
+    nbytes = nnz * A.data.element_size() + 2 * L * p.element_size()
+    bound = bound_ms(nbytes, 2 * nnz)
+    print(f"time spmv_dia on {tag} ({L} rows, {A.ndiags} diagonals) {TAGS[A.data.dtype]}: max err "
+          f"{err:.3e}; kernel {k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms by "
+          f"{bound[1]}, {bound[0] / k_ms:.1%} of it), twin {t_ms:.4f} ms, CSR {lib_ms:.4f} ms "
+          f"[{card}]")
+
+
+def _amg_cycle_launches(h) -> dict:
+    """Kernel launches one V-cycle of ``h`` (``amg.amg_vcycle``) implies:
+    each level visited once, its products on its operator's kernel (#1 a
+    constant stencil, #3 a variable one, #4 a DIA; a CSR level's run on
+    cuSPARSE): the pre- and post-smoothing (Jacobi: one a sweep;
+    Chebyshev: one more), the residual, and the smoothed restriction and
+    prolongation's one each where the level composes them; a DIA product
+    past 256 diagonals is its plan's chained launches."""
+    out = {"spmv_dia": 0, "#3": 0, "spmv_const_stencil": 0}
+    sweeps = lambda k: 0 if k <= 0 else (k + 1 if h.smoother == "chebyshev" else k)
+    for lvl in h.levels:
+        A = lvl.A
+        key = ("spmv_const_stencil" if isinstance(A, ConstStencilMatrix) else
+               "#3" if isinstance(A, StencilMatrix) else "spmv_dia" if isinstance(A, DiaMatrix)
+               else None)
+        if key is None:
+            continue
+        composed = lvl.blk_nd is not None or bool(lvl.blk) or lvl.agg is not None
+        per = sweeps(h.pre) + sweeps(h.post) + 1 + (2 if lvl.sa_c and composed else 0)
+        if key == "spmv_dia":
+            per *= len(cuda_dia.dia_plan(A.n, A.ndiags).groups)
+        out[key] += per
+    return out
+
+
+def _sns_walls(tag, runs, windows, card):
+    """Warm medians of SNS_REPS of each run, and the device busy share and
+    device ops of its window (``windows[key]``: the same solve capped at
+    SNS_WINDOW iterations; ``_par_profile`` against the window's own
+    warm wall)."""
+    walls = {}
+    for key, fn in runs.items():
+        w = _wall_median_ms(fn, reps=SNS_REPS)
+        win = windows[key]
+        win()
+        busy = _par_profile(f"{tag} {key} ({SNS_WINDOW}-iteration window)", win, _wall_ms(win),
+                            card)
+        walls[key] = w[0]
+        print(f"time {tag} {key}: warm wall {_fmt_wall(w, SNS_REPS)}; its {SNS_WINDOW}-iteration "
+              f"window's device busy {busy:.1%} [{card}]")
+    return walls
+
+
+def _sns_convection(dev, card, count):
+    """Convection-diffusion SNS_GRID at NONSYM_EPS in fp32: bicgstab,
+    jacobi_gmres, idr, and mg_bicgstab / mg_gmres over the rediscretized
+    hierarchy (Jacobi smoothing), sharded through api.solve(mesh=)."""
+    from conjugategradient_tpu_torch.parallel.gspmd import make_gspmd_mg_nonsym
+    from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner
+    from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
+    from conjugategradient_tpu_torch.solvers.gmres import gmres_solve
+
+    g = SNS_GRID
+    t0 = time.perf_counter()
+    s = generators.convection_diffusion_system(g, eps=NONSYM_EPS)
+    co = generators.convection_diffusion_coarse_operator(NONSYM_EPS)
+    meshes = {k: make_mesh(k, devices=[dev] * k) for k in (SNS_SHARDS, 1)}
+    true_of = lambda x: _host_rel_residual(s.A, s.b, x)
+    opts = dict(tol=TOL, norm="rel_l2", max_iteration=SNS_CAP, dtype=np.float32)
+    print(f"convection-diffusion {g} eps {NONSYM_EPS}: n {s.n}, generated in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    def facade(method, **kw):
+        kw = {**opts, **kw}
+        runs = {k: (lambda m=m: api.solve(s.A, s.b, method=method, mesh=m, **kw))
+                for k, m in meshes.items()}
+        runs["one"] = lambda: api.solve(s.A, s.b, method=method, device=dev, **kw)
+        return runs
+
+    def ulp_witness(method, **kw):
+        """The one-device ``(count, x)`` from b with one entry moved by one
+        ulp (entry 7 up, entry n/2 down): the spread rounding alone makes."""
+        kw = {**opts, **kw}
+
+        def run():
+            out = []
+            for i, sign in ((7, 1.0), (s.n // 2, -1.0)):
+                b = s.b.astype(kw["dtype"])
+                b[i] = np.nextafter(b[i], sign * np.inf)
+                r = api.solve(s.A, b, method=method, device=dev, **kw)
+                _require(bool(r.converged), f"{method} witness: {r.iterations} iterations")
+                out.append((r.iterations, r.x.reshape(-1).double().cpu().numpy()))
+            return out
+        return run
+
+    k4 = lambda per: (lambda r, k: {"spmv_dia": (1 if k == "one" else k) * per(r)})
+    t0 = time.perf_counter()
+    # BiCGStab and IDR amplify rounding on this transport-dominated operator
+    # (on the CPU at 64^2 in fp32: one device 732, 808 and 924 iterations
+    # from b and two one-ulp changes of it; 813 and 951 on 1 and 4 shards):
+    # their counts and x are held to the witness's (SNS_WITNESS_MARGIN).
+    # Plain BiCGStab runs in fp64: in fp32 it does not converge here, the
+    # port's (NaN after 947 iterations on one device on the CPU, after 829
+    # on 4 shards of the card), the JAX package's (NaN after 1429) and a
+    # textbook numpy loop's (residual up to 9.8e13, NaN after 1059) alike
+    # (tests/bicgstab_fp32_witness.py, on the CPU); fp64 converges in 748 /
+    # 773 / 764 (one device, 1 and 4 shards, the CPU)
+    tag = f"convection {g} bicgstab (fp64)"
+    _sns_route(tag, facade("bicgstab", dtype=np.float64), k4(lambda r: 1 + 2 * r.iterations),
+               true_of, torch.float64, count, witness=ulp_witness("bicgstab", dtype=np.float64))
+    tag = f"convection {g} jacobi_gmres restart {NONSYM_RESTART}"
+    _sns_route(tag, facade("jacobi_gmres", restart=NONSYM_RESTART),
+               k4(lambda r: 1 + r.iterations + 2 * r.cycles), true_of, torch.float32, count)
+    tag = f"convection {g} idr s={IDR_S}"
+    _sns_route(tag, facade("idr", s=IDR_S),
+               k4(lambda r: 1 + r.iterations + r.replacements), true_of, torch.float32, count,
+               witness=ulp_witness("idr", s=IDR_S))
+    print(f"  plain routes: {time.perf_counter() - t0:.1f} s")
+    # kernel #4 at the shape those routes launched it: one shard's rows with
+    # zero halo rows (parallel.halo.HaloDia), fp32
+    data4 = shard_rows(meshes[SNS_SHARDS], s.A.data, torch.float32)
+    halo_op = HaloDia(data4, tuple(s.A.offsets), s.A.bandwidth, False)
+    _sns_shard_kernel(f"one of {SNS_SHARDS} shards of convection {g}", halo_op.mats.parts[1], card)
+    del data4, halo_op
+
+    t0 = time.perf_counter()
+    h = build_hierarchy(s.A, g, smoother="jacobi", coarse_operator=co, dtype=np.float32, device=dev)
+    torch.cuda.synchronize()
+    print(f"convection {g} hierarchy (Jacobi, rediscretized): levels {[l.grid for l in h.levels]} "
+          f"+ dense {h.coarse_inv.shape[0]}, {time.perf_counter() - t0:.3f} s")
+    A32 = s.A.device_put(torch.float32, dev)
+    b32 = torch.from_numpy(s.b.astype(np.float32)).to(dev)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=SNS_CAP)
+    M1 = as_preconditioner(h)
+    walls = {}
+    for method, one in (("bicgstab", lambda: bicgstab_solve(A32, b32, policy=pol, M=M1)),
+                        ("gmres", lambda: gmres_solve(A32, b32, policy=pol, M=M1,
+                                                      restart=NONSYM_RESTART))):
+        tag = f"convection {g} mg_{method}"
+        plans = {}
+        runs = {}
+        t1 = time.perf_counter()
+        for k, m in meshes.items():
+            solve, (bk, xk) = make_gspmd_mg_nonsym(s.A, s.b, g, m, pol, method=method, hierarchy=h,
+                                                   dtype=np.float32, restart=NONSYM_RESTART)
+            _require(solve.n_sharded >= 1, f"{tag} {k}: the V-cycle did not shard")
+            plans[k] = solve.plan
+            runs[k] = lambda solve=solve, bk=bk, xk=xk: solve(bk, xk)
+        runs["one"] = one
+        print(f"{tag}: make_gspmd_mg_nonsym on {SNS_SHARDS} shards and 1 in "
+              f"{time.perf_counter() - t1:.3f} s")
+        tail = _smg_tail_products(h, plans[SNS_SHARDS])
+
+        def want(r, k, method=method):
+            cyc = getattr(r, "cycles", 0)
+            products = 1 + (2 * r.iterations if method == "bicgstab" else r.iterations + 2 * cyc)
+            vcycles = 2 * r.iterations if method == "bicgstab" else r.iterations + cyc
+            if k == "one":  # the outer product on #4, every level's on #3
+                whole = _smg_tail_products(h, dataclasses.replace(plans[1], n_sharded=0))
+                return {"spmv_dia": products, "#3": vcycles * whole}
+            plan = plans[k]
+            return {"spmv_dia": 0, "#3": k * (products + vcycles * plan.products_per_cycle)
+                    + vcycles * _smg_tail_products(h, plan)}
+
+        out = _sns_route(tag, runs, want, true_of, torch.float32, count)
+        print(f"{tag}: {SNS_SHARDS}-shard split: n_sharded {plans[SNS_SHARDS].n_sharded}, sharded "
+              f"levels {list(plans[SNS_SHARDS].levels)}, tail {list(plans[SNS_SHARDS].tail)}, "
+              f"{plans[SNS_SHARDS].products_per_cycle} sharded products a V-cycle, {tail} tail "
+              f"#3 launches a V-cycle; {out[SNS_SHARDS].iterations} iterations")
+        if method == "bicgstab":
+            polw = dataclasses.replace(pol, max_iteration=SNS_WINDOW)
+            windows = {"one": lambda: bicgstab_solve(A32, b32, policy=polw, M=M1)}
+            for k, m in meshes.items():
+                solve, (bk, xk) = make_gspmd_mg_nonsym(s.A, s.b, g, m, polw, hierarchy=h,
+                                                       dtype=np.float32)
+                windows[k] = lambda solve=solve, bk=bk, xk=xk: solve(bk, xk)
+            t1 = time.perf_counter()
+            walls = _sns_walls(tag, {k: runs[k] for k in windows}, windows, card)
+            print(f"{tag}: warm walls and traces in {time.perf_counter() - t1:.1f} s")
+    print(f"  multigrid routes: {time.perf_counter() - t0:.1f} s")
+    return walls
+
+
+def _sns_helmholtz(dev, card, count):
+    """MINRES on Helmholtz SNS_HELM at HELM_SHIFT lambda_1 in fp64."""
+    g = SNS_HELM
+    s = generators.helmholtz_system(g, HELM_SHIFT * _lam1(g))
+    opts = dict(method="minres", tol=TOL, norm="rel_l2", max_iteration=SNS_CAP)
+    runs = {k: (lambda k=k: api.solve(s.A, s.b, mesh=make_mesh(k, devices=[dev] * k), **opts))
+            for k in (SNS_SHARDS, 1)}
+    runs["one"] = lambda: api.solve(s.A, s.b, device=dev, **opts)
+    _sns_route(f"Helmholtz {g} shift {HELM_SHIFT} lambda_1 minres (fp64)", runs,
+               lambda r, k: {"spmv_dia": (1 if k == "one" else k) * (r.iterations + 2)},
+               lambda x: _host_rel_residual(s.A, s.b, x), torch.float64, count)
+
+
+def _sns_flagship(fsys, dev, card, count):
+    """LSMR and the extended-region Chebyshev block loop (check_every
+    SNS_CHECK) on the flagship padded to SNS_SHARDS | n, fp32."""
+    from conjugategradient_tpu_torch.core.formats import transpose
+    from conjugategradient_tpu_torch.parallel.shard_nonsym import (
+        make_sharded_nonsym,
+        sharded_lsmr_solve,
+    )
+    padded, _ = pad_system(fsys, SNS_SHARDS)
+    A = padded.A
+    meshes = {k: make_mesh(k, devices=[dev] * k) for k in (SNS_SHARDS, 1)}
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=SNS_CAP)
+    At = transpose(A)
+    true_of = lambda x: max(_host_rel_residual(A, padded.b, x),
+                            _normal_rel(A, At, padded.b, x))
+    runs = {k: (lambda m=m: sharded_lsmr_solve(A, padded.b, policy=pol, mesh=m, dtype=np.float32))
+            for k, m in meshes.items()}
+    runs["one"] = lambda: api.solve(A, padded.b, method="lsmr", tol=TOL, norm="rel_l2",
+                                    max_iteration=SNS_CAP, dtype=np.float32, device=dev)
+    _sns_route(f"flagship padded to {A.n} lsmr", runs,
+               lambda r, k: {"spmv_dia": (1 if k == "one" else k) * (2 * r.iterations + 3)},
+               true_of, torch.float32, count)
+    # estimate_bounds's Lanczos (k = 40, widened by 0.1 each side) on the
+    # card's products: the host oracle's took 27.9 s at this size
+    t0 = time.perf_counter()
+    A64 = A.device_put(torch.float64, dev)
+    lo_e, hi_e = eigen.lanczos_bounds(
+        lambda v: spmv_dia_cuda(A64, torch.from_numpy(v).to(dev)).cpu().numpy(), A.n, k=40)
+    lo, hi = max(lo_e * 0.9, 1e-12 * hi_e), hi_e * 1.1
+    del A64
+    print(f"flagship padded: Chebyshev bounds [{lo:.6g}, {hi:.6g}] by Lanczos on the card's "
+          f"products in {time.perf_counter() - t0:.3f} s")
+    runs = {}
+    for k, m in meshes.items():
+        solve = make_sharded_nonsym(A, m, pol, method="chebyshev", bounds=(lo, hi),
+                                    check_every=SNS_CHECK)
+        _require(solve.route == "chebyshev block", f"chebyshev on {k} shards: route {solve.route}")
+        runs[k] = lambda solve=solve: solve(A.data.astype(np.float32),
+                                            padded.b.astype(np.float32),
+                                            np.zeros(A.n, np.float32))
+    runs["one"] = lambda: api.solve(A, padded.b, method="chebyshev", bounds=(lo, hi),
+                                    check_every=SNS_CHECK, tol=TOL, norm="rel_l2",
+                                    max_iteration=SNS_CAP, dtype=np.float32, device=dev)
+    _sns_route(f"flagship padded to {A.n} chebyshev block, check_every {SNS_CHECK}", runs,
+               lambda r, k: {"spmv_dia": (1 if k == "one" else k) * (r.iterations + 1)},
+               lambda x: _host_rel_residual(A, padded.b, x), torch.float32, count)
+    # kernel #4 at the block loop's shape: one shard's legs extended by the
+    # neighbours' check_every * halo rows (sharded_chebyshev_block_loop)
+    ext = extend_dia_data(shard_rows(meshes[SNS_SHARDS], A.data, torch.float32),
+                          SNS_CHECK * A.bandwidth).parts[1]
+    _sns_shard_kernel(f"one of {SNS_SHARDS} shards' Chebyshev-block extended DIA (check_every "
+                      f"{SNS_CHECK})", DiaMatrix(ext, tuple(A.offsets), (ext.shape[1],) * 2), card)
+
+
+def _sns_amg(nat, dev, card, count):
+    """amg_cg and amg_bicgstab with mesh= on the preconditioners phase's
+    MTX_GRID natural hierarchy (passed as hierarchy=): the sharded levels'
+    products on cuSPARSE a shard, the replicated tail on its levels'
+    kernels; each placed hierarchy built once for both methods.  Then
+    amg_cg with SNS_AMG_MIN_LOCAL on SNS_SHARDS shards, whose tail keeps a
+    stencil level on kernel #3.  Every run's launches are those its
+    V-cycles imply (``_amg_cycle_launches``)."""
+    from conjugategradient_tpu_torch.parallel.shard_amg import build_sharded_amg, make_sharded_amg
+    from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
+
+    A, b, h, _ = nat
+    n = A.n
+    meshes = {k: make_mesh(k, devices=[dev] * k) for k in (SNS_SHARDS, 1)}
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=SNS_CAP)
+
+    def place(k, **kw):
+        t0 = time.perf_counter()
+        sh = build_sharded_amg(h, meshes[k], **kw)
+        torch.cuda.synchronize()
+        print(f"build_sharded_amg {MTX_GRID} on {k} shard(s) {kw}: {len(sh.metas)} sharded levels "
+              f"(hops, all-gather of A/R/P: "
+              f"{[(mt.hops_A, mt.ag_A, mt.hops_R, mt.ag_R, mt.hops_P, mt.ag_P) for mt in sh.metas]}),"
+              f" tail {[type(l.A).__name__ + str(l.A.n) for l in sh.tail.levels]} + dense "
+              f"{sh.tail.coarse_inv.shape[0]}, padded to {sh.n_pad}; host setup "
+              f"{time.perf_counter() - t0:.3f} s [{card}]")
+        return sh
+
+    placed = {k: place(k) for k in meshes}
+    A_dev = A.device_put(torch.float32, dev)
+    b_dev = torch.from_numpy(np.asarray(b, np.float32)).to(dev)
+    M1 = amg.amg_preconditioner(h)
+    one_cycle = _amg_cycle_launches(h)
+
+    def route(method, placements, tag):
+        runs, tails = {}, {}
+        for k, sh in placements.items():
+            solve, _, n_pad = make_sharded_amg(h, n, meshes[k], pol, method=method, sharded=sh)
+            bp = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+            bp[:n] = b_dev
+            runs[k] = lambda solve=solve, bp=bp: _amg_unpad(solve(bp, torch.zeros_like(bp)), n)
+            tails[k] = _amg_cycle_launches(sh.tail)
+        runs["one"] = ((lambda: cg_solve(A_dev, b_dev, policy=pol, M=M1)) if method == "cg"
+                       else (lambda: bicgstab_solve(A_dev, b_dev, policy=pol, M=M1)))
+
+        def want(r, k):
+            # cycles: cg one at the start and one an iteration, bicgstab two
+            # an iteration; one device adds the outer products on #4
+            cycles = r.iterations + 1 if method == "cg" else 2 * r.iterations
+            per = one_cycle if k == "one" else tails[k]
+            outer = (r.iterations + 1 if method == "cg" else 1 + 2 * r.iterations) \
+                if k == "one" else 0
+            return {"spmv_dia": cycles * per["spmv_dia"] + outer, "#3": cycles * per["#3"],
+                    "spmv_const_stencil": cycles * per["spmv_const_stencil"]}
+
+        print(f"{tag}: a V-cycle's launches, one device {one_cycle}, each placement's tail "
+              f"{tails}")
+        _sns_route(tag, runs, want, lambda x: _host_rel_residual(A, b, x), torch.float32, count)
+
+    for method in ("cg", "bicgstab"):
+        route(method, placed, f"Poisson {MTX_GRID} .mtx natural amg_{method}")
+    deep = place(SNS_SHARDS, min_local=SNS_AMG_MIN_LOCAL)
+    _require(_amg_cycle_launches(deep.tail)["#3"] > 0,
+             f"min_local {SNS_AMG_MIN_LOCAL}: the tail keeps no stencil level")
+    route("cg", {SNS_SHARDS: deep, 1: placed[1]},
+          f"Poisson {MTX_GRID} .mtx natural amg_cg min_local {SNS_AMG_MIN_LOCAL}")
+
+
+def _amg_unpad(res, n):
+    return dataclasses.replace(res, x=res.x[:n])
+
+
+def _sharded_nonsym(nat, fsys, dev, card, count):
+    """The sharded nonsymmetric family and the distributed AMG on
+    SNS_SHARDS shards of the card and on 1, beside one device; each step's
+    seconds."""
+    walls = {}
+    for step, args in ((_sns_convection, (dev, card, count)),
+                       (_sns_helmholtz, (dev, card, count)),
+                       (_sns_flagship, (fsys, dev, card, count)),
+                       (_sns_amg, (nat, dev, card, count))):
+        t0 = time.perf_counter()
+        walls[step.__name__] = step(*args)
+        print(f"  {step.__name__[len('_sns_'):]}: {time.perf_counter() - t0:.1f} s")
+    print(f"sharded nonsymmetric: {SNS_SHARDS} shards on one card measure what sharding costs, "
+          f"not multi-GPU speed: warm mg_bicgstab walls {walls['_sns_convection']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6014,7 +6508,7 @@ def main() -> int:
     # flagship's Jacobi, block-Jacobi, Chebyshev and AMG routes (#4, #5);
     # card against CPU; the spectrum tools --------------------------------
     t0 = time.perf_counter()
-    _preconditioners(loaded, fsys, dev, card, count)
+    nat = _preconditioners(loaded, fsys, dev, card, count)
     del loaded
     print(f"phase: preconditioners in {time.perf_counter() - t0:.1f} s")
 
@@ -6082,6 +6576,17 @@ def main() -> int:
     _sharded_multigrid(poisson3, galerkin2, fsys, dev, card, count, errs, shard_times)
     del poisson3, galerkin2
     print(f"phase: sharded multigrid in {time.perf_counter() - t0:.1f} s")
+
+    # -- the sharded nonsymmetric family and the distributed AMG, counted:
+    # convection 1024^2 by bicgstab, jacobi_gmres, idr, mg_bicgstab and
+    # mg_gmres (the sharded V-cycle, #3 a shard), MINRES on Helmholtz
+    # 256^2, LSMR and the Chebyshev block loop on the padded flagship (#4 a
+    # shard), amg_cg and amg_bicgstab on the 127^3 natural hierarchy; each
+    # on 4 shards, on 1 and on one device ---------------------------------
+    t0 = time.perf_counter()
+    _sharded_nonsym(nat, fsys, dev, card, count)
+    del nat
+    print(f"phase: sharded nonsymmetric in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: times -----------------------------------------------------
     times = {}

@@ -87,11 +87,27 @@ fp64 outer residual on kernel #4 per shard; ``grid=`` required).  (n, k)
 blocks with ``mesh=``: ``cg``, ``sharded_cg`` and ``bicgstab`` take
 ``parallel.shard_multi.sharded_cg_multi_solve`` (kernel #5 per shard),
 ``mgcg`` ``shard_multi_mgcg_solve``, any other method ``ValueError``.
-``sharded_cg`` without a mesh spans every CUDA device (the solve's device
-when that is not the card).  ``axes=`` takes one mesh axis.  Every other
-method with ``mesh=`` (``amg_*``, the nonsymmetric bases) and
-``eigs(mesh=)`` raise ``NotImplementedError`` naming ROADMAP's parallel
-item; nothing is rerouted.
+The nonsymmetric bases ``bicgstab``, ``gmres``, ``fgmres``, ``minres``,
+``chebyshev`` and ``idr`` with ``mesh=`` take
+``parallel.shard_nonsym.sharded_nonsym_solve`` (kernel #4 a shard;
+BiCGStab's two collectives an iteration; Chebyshev's extended-region block
+loop, its bounds by host Lanczos when not given), ``jacobi_`` and
+``bjacobi_`` as shard-local preconditioners (``block_size`` must divide the
+shard length), ``mg_bicgstab``/``gmres``/``fgmres``/``idr``
+``parallel.gspmd.gspmd_mg_nonsym_solve`` (``grid=`` and a ``DiaMatrix``:
+the sharded V-cycle on kernel #3 where the grid divides the mesh, the
+single-device solve on its first device where it does not); ``fgmres``
+refuses ``inner=``; ``lsmr`` takes ``sharded_lsmr_solve`` (a square-banded
+``DiaMatrix``, A^T a second row-sharded DIA); ``amg_cg``, ``amg_bicgstab``,
+``amg_gmres``, ``amg_fgmres`` and ``amg_minres``
+``parallel.shard_amg.sharded_amg_solve`` (any container; the sharded levels'
+products on cuSPARSE a shard, the replicated tail on the hierarchy's
+kernels).  ``sharded_cg`` without a mesh spans every CUDA device (the
+solve's device when that is not the card).  ``axes=`` takes one mesh axis
+(``refined``, ``mgcg``, ``mg_*``).  A method with no sharded route raises
+``TypeError``; 2-D ``axes=`` and ``eigs(mesh=)`` raise
+``NotImplementedError`` naming ROADMAP's parallel item; nothing is
+rerouted.
 
 ``device`` says where the solve runs; ``None`` takes the card when there is
 one, as the JAX package takes its default backend.  Host numpy arrays or
@@ -216,9 +232,11 @@ def solve(
     policy = ConvergencePolicy(
         tol=tol, norm=norm, min_iteration=min_iteration, max_iteration=max_iteration
     )
-    if "axes" in kw and method not in ("refined", "mgcg"):
+    if "axes" in kw and method not in ("refined", "mgcg") and not method.startswith("mg_"):
         raise NotImplementedError(
-            f"axes= (GSPMD partitioning) with method={method!r} is not ported yet ({_PARALLEL})")
+            f"axes= (GSPMD partitioning) with method={method!r}: the port partitions refined, "
+            f"mgcg and mg_* over one mesh axis; other methods and 2-D block partitions are not "
+            f"ported ({_PARALLEL})")
     device = default_device(device)
     if method == "auto":
         return _solve_auto(A, b, x0, policy, grid, dtype, device, kw)
@@ -280,8 +298,9 @@ def solve(
 
 
 def _jacobi_M_local(r, aux):
-    """Shard-local point Jacobi, the ``M_local`` of ``jacobi_cg`` with
-    ``mesh=``: ``aux`` is the shard's rows of 1/diag(A)."""
+    """Shard-local point Jacobi, the ``M_local`` of ``jacobi_cg`` and the
+    nonsymmetric ``jacobi_`` bases with ``mesh=``: ``aux`` is the shard's
+    rows of 1/diag(A)."""
     return aux * r
 
 
@@ -290,9 +309,11 @@ def _solve_mesh(A, b, x0, method, policy, grid, dtype, device, kw):
     ``sharded_cg`` (DIA: ``sharded_cg_solve``; CSR/ELL:
     ``sharded_cg_solve_general``), ``jacobi_cg`` (a shard-local Jacobi
     ``M_local``), ``cacg`` and ``jacobi_cacg`` (``variant="cacg"``),
-    ``mgcg`` (``gspmd_mgcg_solve``) and ``refined``
-    (``gspmd_refined_solve``, with ``axes=`` too); any other method raises
-    ``NotImplementedError``."""
+    ``mgcg`` (``gspmd_mgcg_solve``), ``refined`` (``gspmd_refined_solve``,
+    with ``axes=`` too), the ``amg_`` prefix (``sharded_amg_solve``), the
+    nonsymmetric bases (``_solve_mesh_nonsym``) and ``lsmr``
+    (``sharded_lsmr_solve``); any other method raises ``TypeError``."""
+    from conjugategradient_tpu_torch.parallel import shard_amg, shard_nonsym
     from conjugategradient_tpu_torch.parallel.mesh import make_mesh
 
     mesh = kw.pop("mesh", None)
@@ -318,13 +339,35 @@ def _solve_mesh(A, b, x0, method, policy, grid, dtype, device, kw):
         system = LinearSystem(A, b, np.zeros(A.n) if x0 is None else x0)
         return gspmd_mgcg_solve(system, grid, mesh=mesh, policy=policy, dtype=dtype, **kw)
     prefix, base = _split_prefix(method)
+    if base == "chebyshev" and prefix is not None:
+        _refuse(method)
     if base == "cacg":
         return _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw, mesh=mesh)
+    if prefix == "amg":
+        # row-sharded SA levels with exact-hop ring gathers (the all-gather
+        # window where those cover most of the ring) and the replicated
+        # tail, the cycle the M of the sharded Krylov loops
+        if base not in shard_amg.METHODS:
+            raise ValueError(f"{method} with mesh= is not supported")
+        return shard_amg.sharded_amg_solve(A, b, x0, policy, method=base, mesh=mesh, dtype=dtype,
+                                           **kw)[0]
+    if base in shard_nonsym.METHODS:
+        return _solve_mesh_nonsym(A, b, x0, prefix, base, policy, grid, dtype, mesh, kw)
+    if method == "lsmr":
+        # A and A^T on kernel #4 a shard, two scalar psums an iteration;
+        # a rectangular system must be square-padded by the caller (zero
+        # rows and columns are neutral in LSMR)
+        if not isinstance(A, DiaMatrix):
+            raise TypeError(
+                "lsmr with mesh= needs a square-banded DiaMatrix (rectangular input: embed it "
+                "in a square band — zero rows/columns are neutral in LSMR — or solve unsharded)")
+        return shard_nonsym.sharded_lsmr_solve(A, b, x0, policy, mesh=mesh, dtype=dtype, **kw)
     if method == "jacobi_cg":
         kw.setdefault("M_local", _jacobi_M_local)
         kw.setdefault("M_aux", 1.0 / _diagonal(A))
     elif method not in ("cg", "sharded_cg"):
-        raise NotImplementedError(f"method={method!r} with mesh= is not ported yet ({_PARALLEL})")
+        # as the JAX facade, whose single-device solvers take no mesh keyword
+        raise TypeError(f"method={method!r} has no sharded route: it takes no mesh=")
     if isinstance(A, DiaMatrix):
         from conjugategradient_tpu_torch.parallel.sharded_cg import sharded_cg_solve
 
@@ -335,6 +378,54 @@ def _solve_mesh(A, b, x0, method, policy, grid, dtype, device, kw):
         return sharded_cg_solve_general(formats.to_host(A), b, x0, policy, mesh=mesh,
                                         dtype=dtype, **kw)
     raise TypeError("sharded_cg requires a DiaMatrix, CsrMatrix or EllMatrix")
+
+
+def _solve_mesh_nonsym(A, b, x0, prefix, base, policy, grid, dtype, mesh, kw):
+    """The row-block-sharded nonsymmetric bases (``parallel.shard_nonsym``)
+    with the JAX facade's preconditioning: ``jacobi_`` and ``bjacobi_`` as
+    shard-local ``M_local`` (block Jacobi only where ``block_size`` divides
+    the shard length), ``mg_`` through ``gspmd_mg_nonsym_solve`` (the
+    sharded V-cycle where the grid shards, the single-device solve on the
+    mesh's first device where it does not), and ``chebyshev``'s bounds by
+    host Lanczos when not given."""
+    from conjugategradient_tpu_torch.parallel.shard_nonsym import sharded_nonsym_solve
+
+    if prefix == "mg":
+        from conjugategradient_tpu_torch.parallel.gspmd import MG_NONSYM, gspmd_mg_nonsym_solve
+
+        if base not in MG_NONSYM:
+            raise ValueError(f"mg_{base} with mesh= is not supported")
+        if grid is None:
+            raise ValueError(f"mg_{base} requires grid=")
+        if not isinstance(A, DiaMatrix):
+            raise TypeError(f"mg_{base} requires a DiaMatrix")
+        return gspmd_mg_nonsym_solve(A, b, grid, mesh=mesh, policy=policy, method=base, x0=x0,
+                                     dtype=dtype, **kw)
+    if base == "fgmres" and "inner" in kw:
+        raise ValueError(
+            "fgmres with mesh= does not take inner=: a global inner Krylov solve needs its own "
+            "collectives; pass a shard-local fixed-budget M_local to "
+            "parallel.shard_nonsym.sharded_nonsym_solve instead")
+    if prefix == "jacobi":
+        kw.update(M_local=_jacobi_M_local, M_aux=1.0 / _diagonal(A))
+    elif prefix == "bjacobi":
+        from conjugategradient_tpu_torch.precond.block_jacobi import (
+            block_jacobi_aux,
+            block_jacobi_M_local,
+        )
+
+        bs = int(kw.pop("block_size", 8))
+        n_local = A.n // mesh.shape[kw.get("axis", "x")]
+        if n_local % bs:
+            raise ValueError(
+                f"bjacobi with mesh= needs block_size ({bs}) to divide the shard length "
+                f"({n_local}) so blocks stay shard-local")
+        kw.update(M_local=block_jacobi_M_local, M_aux=block_jacobi_aux(formats.to_host(A), bs))
+    if base == "chebyshev" and "bounds" not in kw:
+        from conjugategradient_tpu_torch.solvers.cheby import estimate_bounds
+
+        kw["bounds"] = estimate_bounds(A)
+    return sharded_nonsym_solve(A, b, x0, policy, method=base, mesh=mesh, dtype=dtype, **kw)
 
 
 def _solve_cacg(A, b, x0, prefix, policy, dtype, device, kw, mesh=None):

@@ -1,5 +1,5 @@
-"""The GSPMD carriers: MGCG and fp64 refinement over a mesh, as explicit
-collectives.
+"""The GSPMD carriers: MGCG, the multigrid-preconditioned nonsymmetric
+solves and fp64 refinement over a mesh, as explicit collectives.
 
 The port of ``conjugategradient_tpu/parallel/gspmd.py``.  The JAX package
 writes the whole MGCG program on global shapes, declares the data's
@@ -20,6 +20,16 @@ the explicit pieces of ``parallel.shard_mgcg``:
   once on the mesh's first device: on one card exactly the single-device
   solve (kernels #1, #2, #3).
 
+``make_gspmd_mg_nonsym`` carries ``mg_bicgstab``, ``mg_gmres``,
+``mg_fgmres`` and ``mg_idr`` (Jacobi smoothing by default, the
+rediscretized ``coarse_operator=`` levels that convection needs) the same
+way: where the fine grid shards (an even 2^k grid, whose hybrid
+cell-centred transfers keep every level dividing the mesh), the sharded
+Krylov loop of ``parallel.shard_nonsym`` runs with the sharded V-cycle of
+``shard_mgcg.make_shard_vcycle`` as its right preconditioner; where it
+does not (every odd fw grid), the single-device solve runs on the mesh's
+first device, its product the fine level's stencil (kernel #1 or #3).
+
 ``axes`` takes one name, the mesh's axis: the JAX package's 2-D block
 partitions over a 2-D mesh (``axes=("x", "y")``) raise
 ``NotImplementedError`` (ROADMAP queue 1: parallel).
@@ -32,19 +42,19 @@ HaloDia`` (kernel #4's fp64 instantiation), its inner solve is
 drives the passes, reading three scalars each, the solution gathered once
 at the end.
 
-Left out: ``make_gspmd_mg_nonsym`` and ``gspmd_mg_nonsym_solve`` (they wait
-for the sharded nonsymmetric slice, ROADMAP queue 1: parallel), and the
-``_jit_*`` caches of compiled programs, which eager PyTorch does not need.
+Left out: the ``_jit_*`` caches of compiled programs, which eager PyTorch
+does not need.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from conjugategradient_tpu_torch.core.formats import DiaMatrix, torch_dtype
+from conjugategradient_tpu_torch.core.formats import DiaMatrix, dia_to_stencil, to_host, torch_dtype
 from conjugategradient_tpu_torch.core.generators import LinearSystem
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
 from conjugategradient_tpu_torch.parallel.halo import HaloDia
@@ -57,9 +67,18 @@ from conjugategradient_tpu_torch.parallel.mesh import (
     shard_rows,
     specs_for_grid,
 )
-from conjugategradient_tpu_torch.parallel.shard_mgcg import _shardable, make_shard_mgcg
+from conjugategradient_tpu_torch.parallel.shard_mgcg import (
+    _shardable,
+    make_shard_mgcg,
+    make_shard_vcycle,
+)
+from conjugategradient_tpu_torch.parallel.shard_nonsym import run_sharded_loop
 from conjugategradient_tpu_torch.precond.amg import _np_dtype
-from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy, mgcg_solve
+from conjugategradient_tpu_torch.precond.multigrid import (
+    as_preconditioner,
+    build_hierarchy,
+    mgcg_solve,
+)
 from conjugategradient_tpu_torch.solvers.cg import CGResult
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -162,6 +181,128 @@ def gspmd_mgcg_solve(
         mesh = make_mesh()
     solve, (b, x0) = make_gspmd_mgcg(system, grid, mesh, policy, **kw)
     return solve(b, x0)
+
+
+#: the Krylov bases of the multigrid-preconditioned nonsymmetric carrier
+MG_NONSYM = ("bicgstab", "gmres", "fgmres", "idr")
+
+
+def _single_device_nonsym(method: str, A, b, x0, policy, M, restart: int, shadow=None):
+    """The single-device ``method`` solve with ``M``: the replicated
+    carrier."""
+    if method == "bicgstab":
+        from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
+
+        return bicgstab_solve(A, b, x0, policy, M=M)
+    if method == "idr":
+        from conjugategradient_tpu_torch.solvers.idr import idr_solve
+
+        return idr_solve(A, b, x0, policy, M=M, shadow=shadow)
+    from conjugategradient_tpu_torch.solvers.gmres import fgmres_solve, gmres_solve
+
+    fn = gmres_solve if method == "gmres" else fgmres_solve
+    return fn(A, b, x0, policy, M=M, restart=restart)
+
+
+def make_gspmd_mg_nonsym(
+    A: DiaMatrix,
+    b,
+    grid,
+    mesh: Mesh,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+    method: str = "bicgstab",
+    axes=("x",),
+    smoother: str = "jacobi",
+    pre: int = 2,
+    post: int = 2,
+    dtype=None,
+    hierarchy=None,
+    coarse_operator=None,
+    restart: int = 32,
+    x0=None,
+    shadow=None,
+    **build_kw,
+):
+    """The mesh-partitioned multigrid-preconditioned nonsymmetric solve:
+    BiCGStab, GMRES, FGMRES or IDR with the V-cycle as right
+    preconditioner (the distributed ``mg_bicgstab`` and kin).
+
+    Returns ``(solve, (b, x0))`` with the inputs placed, as
+    ``make_gspmd_mgcg``: ``solve(b, x0) -> CGResult`` with a flat global
+    x on the mesh's first device.  Where the fine grid shards (an even 2^k
+    grid: hybrid cell-centred transfers, every level halving and dividing
+    the mesh), the loop is ``shard_nonsym.run_sharded_loop`` on axis-0
+    grid blocks, its product the fine level's ``HaloStencil`` (kernel #3 a
+    shard) and its ``M`` ``shard_mgcg.make_shard_vcycle``; ``solve.plan``
+    is the split.  Otherwise (every odd fw grid, where GSPMD replicates)
+    it is the single-device solve on the mesh's first device over the
+    fine level's stencil, ``solve.n_sharded`` 0.  ``smoother`` defaults to
+    Jacobi, robust at any Peclet number (Chebyshev's bounds come from a
+    symmetrized operator); ``coarse_operator`` rediscretizes the coarse
+    levels, as convection-dominated operators need.  ``shadow`` is IDR's
+    global ``(n, s)`` draw (default: the port's seeded one; the JAX
+    package's, carried across by ``convert.idr_shadow_from_reference``,
+    gives its iterates)."""
+    if method not in MG_NONSYM:
+        raise ValueError(f"unknown method {method!r}; want {'|'.join(MG_NONSYM)}")
+    ax = _one_axis(axes)
+    grid = tuple(grid)
+    n = int(np.prod(grid))
+    dt = _np_dtype(dtype if dtype is not None else np.asarray(A.data).dtype)
+    tdt = torch_dtype(dt)
+    dev = mesh.devices[0]
+    h = hierarchy or build_hierarchy(A, grid, smoother=smoother, pre=pre, post=post, dtype=dt,
+                                     layout="stencil", coarse_operator=coarse_operator,
+                                     device=dev, **build_kw)
+    as_tensor = lambda v: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+    x0 = np.zeros(n) if x0 is None else x0
+
+    if _shard_hierarchy_and_fine(h, grid, mesh, ax):
+        M = make_shard_vcycle(A, grid, mesh, ax, dtype=dt, hierarchy=h)
+
+        def place(v):
+            return v if isinstance(v, Shards) else shard_rows(mesh, as_tensor(v).reshape(grid),
+                                                              dt, dim=0)
+
+        def solve(b_, x0_) -> CGResult:
+            res = run_sharded_loop(method, M.op, M, place(b_), place(x0_), policy, n,
+                                   restart=restart, shadow=shadow)
+            return dataclasses.replace(res, x=res.x.gather().reshape(-1))
+
+        solve.n_sharded = M.plan.n_sharded
+        solve.plan = M.plan
+        return solve, (place(b), place(x0))
+
+    A0 = (h.levels[0].A if h.levels
+          else dia_to_stencil(to_host(A), grid).device_put(tdt, dev))
+    M = as_preconditioner(h)
+
+    def place(v):
+        return as_tensor(v).to(device=dev, dtype=tdt).reshape(grid)
+
+    def solve(b_, x0_) -> CGResult:
+        res = _single_device_nonsym(method, A0, place(b_), place(x0_), policy, M, restart,
+                                    shadow)
+        return dataclasses.replace(res, x=res.x.reshape(-1))
+
+    solve.n_sharded = 0
+    return solve, (place(b), place(x0))
+
+
+def gspmd_mg_nonsym_solve(
+    A: DiaMatrix,
+    b,
+    grid,
+    mesh: Optional[Mesh] = None,
+    policy: ConvergencePolicy = ConvergencePolicy(),
+    **kw,
+) -> CGResult:
+    """One-call convenience for the multigrid-preconditioned nonsymmetric
+    solve over a mesh (every visible CUDA device by default)."""
+    if mesh is None:
+        mesh = make_mesh()
+    solve, (b_dev, x0_dev) = make_gspmd_mg_nonsym(A, b, grid, mesh, policy, **kw)
+    return solve(b_dev, x0_dev)
 
 
 def gspmd_refined_solve(

@@ -171,6 +171,24 @@ class Shards:
     def __bool__(self):
         raise TypeError("a Shards value has no truth value: read one part (parts[0])")
 
+    def __getitem__(self, idx) -> "Shards":
+        """Each part indexed alike: a stacked basis's ``V[k]`` or ``V[:k]``
+        (its leading axis is the basis index; the rows stay sharded)."""
+        return Shards.map(lambda p: p[idx], self)
+
+    def __setitem__(self, idx, value) -> None:
+        """``part[idx] = value``'s part on each shard, in place."""
+        for i, p in enumerate(self.parts):
+            p[idx] = _part(value, i, p.device)
+
+    def new_zeros(self, shape) -> "Shards":
+        """Zeros of ``shape`` (a local shape) on each shard, in its dtype."""
+        return Shards.map(lambda p: p.new_zeros(shape), self)
+
+    def numel(self) -> int:
+        """The elements of one part (the local size, as ``shape`` is)."""
+        return self.parts[0].numel()
+
     def reshape(self, *shape) -> "Shards":
         return Shards.map(lambda p: p.reshape(*shape), self)
 

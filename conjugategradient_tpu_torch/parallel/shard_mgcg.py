@@ -31,6 +31,8 @@ package's distributed form of MGCG, on the single-controller mesh of
 The outer loop is ``parallel.sharded_cg.sharded_cg_loop`` (``variant``
 ``cg``, ``cg1`` or ``pipelined``) over its own ``HaloStencil`` of the fine
 level, whose search direction lives in the product's halo buffer.
+``make_shard_vcycle`` is the cycle alone, the right preconditioner that
+the sharded nonsymmetric loops take (``parallel.gspmd.make_gspmd_mg_nonsym``).
 
 Sharding constraint, as in the JAX package: a level shards where its axis
 0 divides the mesh with an even local extent, its halo fits one hop, and
@@ -345,9 +347,10 @@ def _plan(levels, rep_h: MgHierarchy, itemsize: int, smoother: str, pre: int, po
 
 
 def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre: int, post: int,
-                          dt, hierarchy: Optional[MgHierarchy]):
-    """Shared setup of the explicit-collective MGCG paths: build (or take)
-    the hierarchy on the mesh's first device, split it at the deepest
+                          dt, hierarchy: Optional[MgHierarchy], **build_kw):
+    """Shared setup of the explicit-collective multigrid paths: build (or
+    take) the hierarchy on the mesh's first device (``build_kw`` to
+    ``build_hierarchy``: ``coarse_operator=``), split it at the deepest
     shardable level, and place the sharded levels on the mesh.
 
     Returns ``(h, n_sharded, levels, rep_h)``: the hierarchy, the split,
@@ -356,7 +359,8 @@ def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre
     device)."""
     grid = tuple(grid)
     h = hierarchy or build_hierarchy(A_dia, grid, smoother=smoother, pre=pre, post=post,
-                                     dtype=dt, layout="stencil", device=mesh.devices[0])
+                                     dtype=dt, layout="stencil", device=mesh.devices[0],
+                                     **build_kw)
     if not h.levels or not isinstance(h.levels[0].A, (StencilMatrix, ConstStencilMatrix)):
         raise ValueError("make_shard_mgcg needs a stencil-layout hierarchy with >= 1 level")
     num = mesh.shape[axis]
@@ -446,6 +450,46 @@ def make_vcycle(h: MgHierarchy, levels, rep_h: MgHierarchy, d: int):
     return lambda r: cycle(0, r)
 
 
+def make_shard_vcycle(
+    A_dia,
+    grid,
+    mesh: Mesh,
+    axis: str = "x",
+    smoother: str = "chebyshev",
+    pre: int = 2,
+    post: int = 2,
+    dtype=None,
+    hierarchy: Optional[MgHierarchy] = None,
+    **build_kw,
+):
+    """The sharded V-cycle as a right preconditioner: ``M(r)`` on a
+    ``Shards`` of axis-0 grid blocks (``(n0 / num, *rest)`` a shard), the
+    sharded levels on ``HaloStencil`` (kernel #3 a shard) and the
+    replicated tail once on the mesh's first device.  What MGCG takes as
+    its ``M`` and the sharded nonsymmetric loops take as theirs
+    (``parallel.gspmd.make_gspmd_mg_nonsym``: Jacobi smoothing, the
+    rediscretized ``coarse_operator=`` levels, hybrid cell-centred
+    transfers on even grids).  ``A_dia`` is the host fp64 DIA; ``dtype``
+    (default its data's) is the cycle's and the hierarchy's when it is
+    built here (``build_kw`` to ``build_hierarchy``).
+
+    ``M.plan`` is the ``ShardPlan`` (the one split computation of the
+    sharded paths), ``M.op`` the fine level's ``HaloStencil`` with buffers
+    of its own (the outer loop's product), ``M.hierarchy`` the
+    hierarchy."""
+    grid = tuple(grid)
+    dt = _np_dtype(dtype if dtype is not None else np.asarray(A_dia.data).dtype)
+    h, _, levels, rep_h = _prep_shard_hierarchy(A_dia, grid, mesh, axis, smoother, pre, post, dt,
+                                                hierarchy, **build_kw)
+    M = make_vcycle(h, levels, rep_h, len(grid))
+    itemsize = torch.empty(0, dtype=levels[0].inv_diag.dtype).element_size()
+    M.plan = _plan(levels, rep_h, itemsize, h.smoother, h.pre, h.post)
+    M.op = levels[0].op.sibling()
+    M.levels = levels
+    M.hierarchy = h
+    return M
+
+
 def make_shard_mgcg(
     system,
     grid,
@@ -477,10 +521,8 @@ def make_shard_mgcg(
         raise ValueError(f"variant {variant!r}: the V-cycle preconditions cg|cg1|pipelined")
     grid = tuple(grid)
     dt = _np_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
-    h, n_sharded, levels, rep_h = _prep_shard_hierarchy(system.A, grid, mesh, axis, smoother, pre,
-                                                        post, dt, hierarchy)
-    M = make_vcycle(h, levels, rep_h, len(grid))
-    op0 = levels[0].op.sibling()  # the outer loop's own buffers
+    M = make_shard_vcycle(system.A, grid, mesh, axis, smoother, pre, post, dt, hierarchy)
+    op0 = M.op  # the outer loop's own buffers
     n = int(np.prod(grid))
 
     def place(v):
@@ -497,9 +539,8 @@ def make_shard_mgcg(
         return dataclasses.replace(res, x=res.x.gather().reshape(-1))
 
     solve.shards = solve_shards
-    itemsize = torch.empty(0, dtype=levels[0].inv_diag.dtype).element_size()
-    solve.plan = _plan(levels, rep_h, itemsize, h.smoother, h.pre, h.post)
-    solve.operators = (op0,) + tuple(L.op for L in levels)
+    solve.plan = M.plan
+    solve.operators = (op0,) + tuple(L.op for L in M.levels)
     return solve, (place(system.b), place(system.x0))
 
 

@@ -666,11 +666,15 @@ def _coarse_solve(h: AmgHierarchy, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(h.coarse_inv, b)
 
 
-def amg_vcycle(h: AmgHierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1) -> torch.Tensor:
+def amg_vcycle(h: AmgHierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1,
+               finest: bool = True) -> torch.Tensor:
     """One V- (``gamma=1``) or W- (``gamma=2``) cycle for ``A_level e = b``
     from a zero guess, on ``b``'s device.  Inter-level vectors are flat
     ``(n,)``; a stencil level with cube transfers runs grid-shaped inside,
-    its ``inv_diag`` and ``w`` grid-shaped, one reshape at entry and exit."""
+    its ``inv_diag`` and ``w`` grid-shaped, one reshape at entry and exit.
+    A W-cycle repeats the coarse correction on every level but the finest;
+    ``finest=False`` says that ``h``'s level 0 is not the finest (a
+    replicated tail below sharded levels), so it repeats there too."""
     if level == len(h.levels):
         return _coarse_solve(h, b)
     lvl = h.levels[level]
@@ -687,7 +691,7 @@ def amg_vcycle(h: AmgHierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1)
     restrict, prolong = _transfers(lvl, A, op, invd, w, grid_mode)
     bl = b.reshape(A.grid) if grid_mode else b
     x = _smooth(h, lvl, op, bl, torch.zeros_like(bl), h.pre, invd)
-    for _ in range(gamma if level > 0 else 1):
+    for _ in range(gamma if level > 0 or not finest else 1):
         rc = restrict(bl - op(x))
         ec = amg_vcycle(h, rc, level + 1, gamma)
         x = x + prolong(ec)

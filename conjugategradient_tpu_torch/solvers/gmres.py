@@ -132,9 +132,11 @@ def gmres_loop(
         """One GMRES(m) restart cycle from ``x``: (x, steps taken)."""
         r = b_flat - op(x)
         beta = torch.sqrt(dot(r, r))
-        V = torch.zeros((m + 1, r.numel()), dtype=dtype, device=dev)
+        # r.new_zeros: a row-sharded r (parallel.mesh.Shards) gives each
+        # shard its rows of the basis
+        V = r.new_zeros((m + 1, r.numel()))
         V[0] = _safe_div(one, beta) * r
-        Z = torch.zeros((m, r.numel()), dtype=dtype, device=dev) if flexible else None
+        Z = r.new_zeros((m, r.numel())) if flexible else None
         R = np.eye(m, dtype=dt)  # rotated Hessenberg; frozen columns keep e_j
         g = np.zeros(m + 1, dtype=dt)
         g[0] = dt.type(beta.item())

@@ -96,6 +96,7 @@ def idr_loop(
     trace_cycles: Optional[int] = None,
     replace_every: int = 8,
     shadow: Optional[torch.Tensor] = None,
+    shadow_rows=None,
 ):
     """The IDR(s) recurrence with injectable reductions (``dot``,
     ``matdot(Pt, v)`` for the ``(s, n) @ (n,)`` shadow product, ``pmax_abs``,
@@ -104,6 +105,9 @@ def idr_loop(
     ``replace_every``: every that many cycles the recurrence residual is
     recomputed as ``b - A x`` (0 disables; see the module docstring).
     ``shadow``: the ``(n, s)`` draw (see ``shadow_space``).
+    ``shadow_rows``: the ready ``(s, n)`` rows ``P^T`` in ``b``'s layout,
+    which then replace ``shadow_space``'s (the row-sharded loop passes its
+    shards' rows of the global draw).
 
     ``trace_cycles``: run that many masked cycles with no host read
     (converged cycles freeze, selected by ``torch.where``) and return
@@ -120,7 +124,7 @@ def idr_loop(
         dot = lambda u, v: torch.dot(u.reshape(-1), v.reshape(-1))
     if pmax_abs is None:
         pmax_abs = lambda r: torch.max(torch.abs(r))
-    Pt = shadow_space(b.numel(), s, seed, dtype, dev, shadow)
+    Pt = shadow_space(b.numel(), s, seed, dtype, dev, shadow) if shadow_rows is None else shadow_rows
     if matdot is None:
         def pdot(v):
             with no_tf32():
@@ -185,7 +189,7 @@ def idr_loop(
             r = b - op(x)
         return x, r, om_new
 
-    U = torch.zeros((s,) + tuple(shape), dtype=dtype, device=dev)
+    U = b.new_zeros((s,) + tuple(shape))
     G = torch.zeros_like(U)
     Ms = torch.eye(s, dtype=dtype, device=dev)
     om = torch.ones((), dtype=dtype, device=dev)

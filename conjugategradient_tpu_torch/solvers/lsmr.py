@@ -59,9 +59,14 @@ def lsmr_loop(
     policy: ConvergencePolicy,
     damp: float = 0.0,
     n_iter_scale: Optional[int] = None,
+    nrm=None,
 ):
     """The LSMR recurrence.  Its only reductions are the norms beta and
-    alpha, read to the host together once per iteration.
+    alpha, read to the host together once per iteration.  ``nrm`` is the
+    2-norm (default: over the tensor), the JAX package's hook: the
+    row-sharded twin (``parallel.shard_nonsym.sharded_lsmr_loop``) passes a
+    ``psum``'d norm and shard-local operators, so the two norms are its only
+    collectives.
 
     Returns ``(x, iterations, residual, converged, normar0)``: ``x`` solves
     the (possibly damped) problem against ``b_eff``, ``residual`` is the
@@ -70,6 +75,7 @@ def lsmr_loop(
     """
     if policy.norm == "linf":
         raise ValueError("lsmr monitors ||A^T r||; use norm='l2' or 'rel_l2'")
+    nrm = nrm or _norm
     dtype, dev = b_eff.dtype, b_eff.device
     dt = _host_dtype(dtype)
     zero, one_h = dt.type(0), dt.type(1)
@@ -83,10 +89,10 @@ def lsmr_loop(
         return torch.stack(scalars).cpu().numpy()  # one transfer for all
 
     # --- Golub-Kahan init ---------------------------------------------------
-    beta_t = _norm(b_eff)
+    beta_t = nrm(b_eff)
     u = b_eff * _safe_div(one, beta_t)
     v_un = opT(u)
-    alpha_t = _norm(v_un)
+    alpha_t = nrm(v_un)
     v = v_un * _safe_div(one, alpha_t)
     beta, alpha = read(beta_t, alpha_t)
 
@@ -109,10 +115,10 @@ def lsmr_loop(
     while it < max_iter and (it < min_iter or res_of(zetabar) >= tol):
         # bidiagonalization step (raw alpha_k, not the rotated alphabar)
         u_un = op(v) - float(alpha) * u
-        beta_t = _norm(u_un)
+        beta_t = nrm(u_un)
         u = u_un * _safe_div(one, beta_t)
         v_un = opT(u) - beta_t * v
-        alpha_t = _norm(v_un)
+        alpha_t = nrm(v_un)
         v_new = v_un * _safe_div(one, alpha_t)
         beta, alpha_new = read(beta_t, alpha_t)
 
@@ -148,7 +154,7 @@ def lsmr_loop(
     # the true optimality residual of the (possibly damped, possibly
     # shifted) problem the loop solved: A^T (b_eff - A x) - damp^2 x, which
     # |zetabar| tracks until the recurrence drifts
-    res = _norm(opT(b_eff - op(x)) - float(dampj * dampj) * x)
+    res = nrm(opT(b_eff - op(x)) - float(dampj * dampj) * x)
     if policy.norm == "rel_l2":
         res = res / float(normar0 if normar0 != 0 else one_h)
     converged = bool(res_of(zetabar) < tol) and it >= min_iter

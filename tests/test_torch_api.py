@@ -4,12 +4,12 @@ port against the JAX package's, on the CPU.
 The host generators and the workload table are copies: they must be
 bit-identical and field-for-field equal.  ``cg_solve_multi`` in fp64 runs
 the same per-column recurrence as the JAX package's, so the per-column
-iteration counts are equal, with or without the multi-RHS V-cycle.  Every
-facade route the port does not have yet (the ``mesh=`` routes but
-``cg``/``sharded_cg``/``jacobi_cg``/``cacg``) raises
-``NotImplementedError`` naming its ROADMAP item; the methods it has take
-the JAX facade's iteration counts (``sharded_cg`` on 8-shard meshes on both
-sides).
+iteration counts are equal, with or without the multi-RHS V-cycle.  The
+facade's methods take the JAX facade's iteration counts (``sharded_cg``
+and ``amg_cg`` with ``mesh=`` on 8-shard meshes on both sides, the
+replicated ``mg_bicgstab`` on 2-shard ones); what the port does not have
+raises its error, a route still to port ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 import dataclasses
@@ -179,7 +179,7 @@ FACADE = {
                      "idr", "chebyshev", "auto", "bjacobi_bicgstab", "mg_gmres", "lsmr", "cgnr",
                      "cacg", "deflated_cg"), None),
     "sharded_cg": None,
-    "amg_cg mesh=": (NotImplementedError, "ROADMAP queue 1: parallel"),
+    "amg_cg mesh=": None,
     "jacobi_chebyshev": (ValueError, "no preconditioner prefix"),
 }
 
@@ -216,6 +216,14 @@ def test_unported_facade_methods_raise(method):
         return
     s, sj = tgen.poisson_system((15, 17)), jgen.poisson_system((15, 17))
     extra, jextra = {}, {}
+    if kw:
+        # "amg_cg mesh=": the sharded AMG pads the 255 rows to 256 inside,
+        # on both sides
+        from conjugategradient_tpu.parallel import make_mesh as j_mesh
+        from conjugategradient_tpu_torch.parallel import make_mesh
+
+        extra.update(mesh=make_mesh(8, devices=["cpu"] * 8), dtype=np.float64)
+        jextra["mesh"] = j_mesh(8)
     if name == "sharded_cg":
         # 255 rows padded to 256 for the 8-shard meshes of both facades
         from conjugategradient_tpu.core.partition import pad_system as j_pad
@@ -243,11 +251,14 @@ def test_unported_facade_methods_raise(method):
                                                                            **jextra)
     assert r.converged and r.iterations == int(jr.iterations)
     assert np.abs(np.asarray(r.x) - np.asarray(jr.x)).max() <= 1e-10
-    if name in _SINGLE_ONLY:
+    if name in _SINGLE_ONLY or kw:
+        # a method with no (n, k) route, or (mesh=) no sharded block
+        # carrier: both facades raise ValueError
+        mesh_kw, jmesh_kw = (extra, jextra) if kw else ({}, {})
         with pytest.raises(ValueError, match="does not support"):
-            api.solve(s.A, B, device="cpu", **opts)
+            api.solve(s.A, B, device="cpu", **opts, **mesh_kw)
         with pytest.raises(ValueError, match="does not support"):
-            japi.solve(sj.A, B, **opts)
+            japi.solve(sj.A, B, **opts, **jmesh_kw)
         return
     r, jr = api.solve(s.A, B, device="cpu", **opts), japi.solve(sj.A, B, **opts)
     if name == "bicgstab":
@@ -261,9 +272,18 @@ def test_unported_facade_methods_raise(method):
 
 
 def test_facade_refuses_mesh_and_unknown_methods():
+    """mg_bicgstab with mesh= on the odd 1-D grid is the replicated
+    single-device solve at the JAX facade's count; axes= with cg, an
+    unknown method and refined on a non-DIA still raise."""
+    from conjugategradient_tpu.parallel import make_mesh as j_mesh
+    from conjugategradient_tpu_torch.parallel import make_mesh
+
     s = tgen.tridiagonal_system(16)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-        api.solve(s.A, s.b, method="mg_bicgstab", grid=(16,), mesh=object())
+    opts = dict(method="mg_bicgstab", grid=(16,), tol=1e-10, norm="rel_l2")
+    r = api.solve(s.A, s.b, mesh=make_mesh(2, devices=["cpu"] * 2), dtype=np.float64, **opts)
+    jr = japi.solve(jgen.tridiagonal_system(16).A, s.b, mesh=j_mesh(2), **opts)
+    assert r.converged and r.iterations == int(jr.iterations)
+    assert np.abs(r.x.numpy() - np.asarray(jr.x)).max() <= 1e-10
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
         api.solve(s.A, s.b, method="cg", axes=("x",), device="cpu")
     with pytest.raises(ValueError, match="unknown method"):

@@ -1935,3 +1935,65 @@ def test_four_shard_mgcg_on_the_card_takes_the_cpu_count(cuda):
     assert float((card.x.cpu() - cpu.x).abs().max() / cpu.x.abs().max()) <= 1e-8
     assert (cuda_stencil.spmv_stencil_cuda.launches
             + cuda_stencil.spmv_stencil_wide_cuda.launches) > 0
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "idr", "minres", "lsmr", "chebyshev"])
+def test_four_shard_nonsym_on_one_card_takes_the_one_shard_count(cuda, method):
+    """``parallel.shard_nonsym`` with four shards on cuda:0 against one
+    shard, fp64: counts within 2 (IDR: 2 cycles of 5 matvecs), x within
+    1e-9 of the 1-shard x, kernel #4 once a shard a product (the count the
+    recurrence implies)."""
+    from conjugategradient_tpu_torch.parallel import make_mesh
+    from conjugategradient_tpu_torch.parallel import shard_nonsym as sn
+    from conjugategradient_tpu_torch.solvers.cheby import estimate_bounds
+
+    pol = ConvergencePolicy(tol=1e-10, norm="rel_l2", max_iteration=4000)
+    if method == "minres":
+        s = generators.helmholtz_system((64, 64), shift=0.05)
+    elif method == "chebyshev":
+        s = generators.poisson_system((64, 64))
+    else:
+        s = generators.nonsymmetric_banded_system(4096, 16)
+    kw = dict(bounds=estimate_bounds(s.A), check_every=4) if method == "chebyshev" else {}
+    res = {}
+    for num in (1, 4):
+        m = make_mesh(num, devices=[cuda] * num)
+        cuda_dia.reset_launch_counts()
+        if method == "lsmr":
+            r = sn.sharded_lsmr_solve(s.A, s.b, policy=pol, mesh=m)
+        else:
+            r = sn.sharded_nonsym_solve(s.A, s.b, policy=pol, method=method, mesh=m, **kw)
+        torch.cuda.synchronize()
+        per = {"bicgstab": 1 + 2 * r.iterations, "minres": r.iterations + 2,
+               "lsmr": 2 * r.iterations + 3, "chebyshev": r.iterations + 1,
+               "idr": 1 + r.iterations + getattr(r, "replacements", 0)}[method]
+        assert r.converged and r.x.device == cuda
+        assert cuda_dia.spmv_dia_cuda.launches == num * per
+        res[num] = r
+    assert abs(res[4].iterations - res[1].iterations) <= (10 if method == "idr" else 2)
+    assert float((res[4].x - res[1].x).abs().max() / res[1].x.abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("legs", [torch.float32, torch.float64])
+def test_extended_region_dia_kernel_equals_global_rows(cuda, legs):
+    """The Chebyshev block loop's product: kernel #4 on a shard's DIA
+    extended by the neighbours' H = 4 x halo boundary rows
+    (``halo.extend_dia_data``) over the vector extended the same way; its
+    exact region, the rows at least one bandwidth inside the extension,
+    equals kernel #4 on the global rows bit for bit."""
+    from conjugategradient_tpu_torch.parallel import make_mesh
+    from conjugategradient_tpu_torch.parallel.halo import _square, extend_dia_data
+    from conjugategradient_tpu_torch.parallel.mesh import shard_rows
+
+    s = generators.banded_sin_system(4096, 160)
+    num, hb = 4, s.A.bandwidth
+    n_local, H = s.n // num, 4 * hb
+    A = s.A.device_put(legs, cuda)
+    p = torch.from_numpy(np.random.default_rng(25).standard_normal(s.n)).to(cuda, legs)
+    y = cuda_dia.spmv_dia_cuda(A, p)
+    m = make_mesh(num, devices=[cuda] * num)
+    ext = extend_dia_data(shard_rows(m, A.data), H)
+    for i in (1, 2):  # interior shards: both extensions are real rows
+        lo = i * n_local - H
+        yi = cuda_dia.spmv_dia_cuda(_square(ext.parts[i], s.A.offsets), p[lo:lo + n_local + 2 * H])
+        assert torch.equal(yi[hb:-hb], y[lo + hb:lo + n_local + 2 * H - hb])

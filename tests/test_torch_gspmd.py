@@ -15,12 +15,27 @@ arrays from the port's numpy generators, fp64.
   port's single-device ``mgcg_solve`` bit for bit;
 - ``gspmd_refined_solve`` takes the JAX package's outer count within one
   pass and reaches ``||b - A x||_2 < tol``;
-- ``api.solve(..., mesh=)`` routes ``mgcg``, ``refined`` and (n, k)
-  ``cg``/``bicgstab``/``mgcg`` as the JAX facade does, with its counts;
-  ``amg_*``, the nonsymmetric bases, ``eigs(mesh=)`` and 2-D ``axes``
-  still raise ``NotImplementedError`` naming ROADMAP's parallel item.
+- ``gspmd_mg_nonsym_solve`` on the even 32^2 convection grid (a 64-row
+  coarsest level, so the V-cycle has levels) is sharded: the sharded loop
+  of ``parallel.shard_nonsym`` with the sharded V-cycle.  Under
+  BiCGStab, GMRES(20), FGMRES(20) and IDR(4) (the JAX draw carried
+  across) it takes the JAX GSPMD program's count exactly and its x within
+  X_REL (the JAX program runs the single-device four-dot BiCGStab, the
+  port the two-collective one: the same iterates in exact arithmetic).
+  On the odd 31^2 grid it is the single-device ``mg_bicgstab`` (the
+  port's ``bicgstab_solve`` on the fine stencil with
+  ``as_preconditioner``) bit for bit;
+- ``api.solve(..., mesh=)`` routes ``mgcg``, ``refined``, (n, k)
+  ``cg``/``bicgstab``/``mgcg``, the nonsymmetric bases, ``mg_*`` and
+  ``amg_*`` as the JAX facade does, with its counts; ``eigs(mesh=)`` and
+  2-D ``axes`` still raise ``NotImplementedError`` naming ROADMAP's
+  parallel item.
 """
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -37,7 +52,12 @@ from conjugategradient_tpu_torch import api
 from conjugategradient_tpu_torch.core import generators as tgen
 from conjugategradient_tpu_torch.core import oracle
 from conjugategradient_tpu_torch.parallel import gspmd_mgcg_solve, make_mesh, shard_system
-from conjugategradient_tpu_torch.parallel.gspmd import gspmd_refined_solve, make_gspmd_mgcg
+from conjugategradient_tpu_torch.parallel.gspmd import (
+    gspmd_mg_nonsym_solve,
+    gspmd_refined_solve,
+    make_gspmd_mg_nonsym,
+    make_gspmd_mgcg,
+)
 from conjugategradient_tpu_torch.parallel.mesh import Shards, specs_for_grid
 from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy, mgcg_solve
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
@@ -45,6 +65,11 @@ from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 X_REL = 1e-10
 POL = dict(tol=1e-10, norm="rel_l2", max_iteration=500)
 EVEN, ODD = (64, 32), (63, 31)
+#: the mg_* carrier's grids, eps, policy, coarsest size and restart
+MG_EVEN, MG_ODD, MG_EPS = (32, 32), (31, 31), 0.05
+MG_POL = dict(tol=1e-9, norm="rel_l2", max_iteration=500)
+MG_KW = dict(max_coarse=64)
+MG_RESTART = 20
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -139,7 +164,9 @@ def test_gspmd_refined_reaches_the_fp64_tolerance(grid):
 def test_facade_mesh_routes_match_the_jax_facade():
     s = tgen.poisson_system(EVEN)
     m, jm = _mesh(4), j_mesh(4)
-    opts = dict(tol=1e-10, norm="rel_l2")
+    # POL's policy: the JAX facade's mgcg is then the program
+    # test_gspmd_mgcg_even_grid_is_sharded_and_matches_jax compiled
+    opts = dict(POL)
     r = api.solve(s.A, s.b, method="mgcg", grid=EVEN, mesh=m, dtype=np.float64, **opts)
     jr = japi.solve(_jA(s.A), s.b, method="mgcg", grid=EVEN, mesh=jm, **opts)
     assert r.iterations == int(jr.iterations) and _rel(r.x.numpy(), jr.x) <= X_REL
@@ -159,12 +186,101 @@ def test_facade_mesh_routes_match_the_jax_facade():
         assert _rel(r.x.numpy(), jr.x) <= X_REL
 
 
-def test_facade_routes_still_to_port_raise():
+@pytest.fixture(scope="module")
+def mg_case():
+    """The 32^2 convection system and the JAX GSPMD mg_* solve on 4 devices
+    of it by method (one JAX program each)."""
+    cb = tgen.convection_diffusion_coarse_operator(eps=MG_EPS)
+    s = tgen.convection_diffusion_system(MG_EVEN, eps=MG_EPS)
+    jcb = jgen.convection_diffusion_coarse_operator(eps=MG_EPS)
+    jax_mg = functools.cache(lambda method: jgspmd.gspmd_mg_nonsym_solve(
+        _jA(s.A), s.b, MG_EVEN, mesh=j_mesh(4), policy=JPolicy(**MG_POL), method=method,
+        coarse_operator=jcb, restart=MG_RESTART, **MG_KW))
+    return cb, s, jax_mg
+
+
+def test_gspmd_mg_bicgstab_even_grid_is_sharded(mg_case):
+    cb, s, jax_mg = mg_case
+    jr = jax_mg("bicgstab")
+    solve, (b, x0) = make_gspmd_mg_nonsym(s.A, s.b, MG_EVEN, _mesh(4), ConvergencePolicy(**MG_POL),
+                                          coarse_operator=cb, **MG_KW)
+    assert solve.n_sharded >= 1 and isinstance(b, Shards)
+    r = solve(b, x0)
+    assert r.converged and bool(jr.converged)
+    assert r.iterations == int(jr.iterations)
+    assert _rel(r.x.numpy(), jr.x) <= X_REL
+
+
+def test_gspmd_mg_bicgstab_odd_grid_is_the_single_device_solve():
+    from conjugategradient_tpu_torch.precond.multigrid import as_preconditioner
+    from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
+
+    cb = tgen.convection_diffusion_coarse_operator(eps=MG_EPS)
+    s = tgen.convection_diffusion_system(MG_ODD, eps=MG_EPS)
+    pol = ConvergencePolicy(**MG_POL)
+    h = build_hierarchy(s.A, MG_ODD, smoother="jacobi", coarse_operator=cb, device="cpu", **MG_KW)
+    solve, _ = make_gspmd_mg_nonsym(s.A, s.b, MG_ODD, _mesh(4), pol, hierarchy=h)
+    assert solve.n_sharded == 0
+    r = gspmd_mg_nonsym_solve(s.A, s.b, MG_ODD, mesh=_mesh(4), policy=pol, hierarchy=h)
+    one = bicgstab_solve(h.levels[0].A, torch.from_numpy(s.b).reshape(MG_ODD), policy=pol,
+                         M=as_preconditioner(h))
+    assert r.converged and r.iterations == one.iterations
+    assert torch.equal(r.x, one.x.reshape(-1))
+
+
+@pytest.mark.parametrize("method", ["gmres", "fgmres", "idr"])
+def test_gspmd_mg_nonsym_variants_on_the_even_grid(mg_case, method):
+    """The sharded V-cycle under GMRES(20), FGMRES(20) and IDR(4) on 4
+    shards (IDR from the JAX package's draw): the JAX GSPMD count exactly,
+    x within X_REL of its x and 1e-6 of the direct solve."""
+    cb, s, jax_mg = mg_case
+    jr = jax_mg(method)
+    extra = {}
+    if method == "idr":
+        extra["shadow"] = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (s.n, 4),
+                                                       jnp.float64))
+    r = gspmd_mg_nonsym_solve(s.A, s.b, MG_EVEN, mesh=_mesh(4), policy=ConvergencePolicy(**MG_POL),
+                              method=method, coarse_operator=cb, restart=MG_RESTART, **MG_KW,
+                              **extra)
+    assert r.converged and bool(jr.converged) and r.iterations == int(jr.iterations)
+    assert _rel(r.x.numpy(), jr.x) <= X_REL
+    assert _rel(r.x.numpy(), oracle.direct_solve(s.A, s.b)) <= 1e-6
+
+
+def test_gspmd_mg_nonsym_refusals():
+    s = tgen.convection_diffusion_system(MG_EVEN, eps=MG_EPS)
+    with pytest.raises(ValueError, match="unknown method"):
+        gspmd_mg_nonsym_solve(s.A, s.b, MG_EVEN, mesh=_mesh(4), method="minres")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
+        gspmd_mg_nonsym_solve(s.A, s.b, MG_EVEN, mesh=_mesh(4), axes=("x", "y"))
+
+
+def test_facade_routes_still_to_port_raise(mg_case):
+    """The sharded routes take the JAX facade's counts exactly (bicgstab
+    and gmres on the band, mg_bicgstab, amg_cg); eigs(mesh=) and 2-D axes=
+    still raise."""
     s = tgen.poisson_system(EVEN)
-    m = _mesh(4)
-    for method in ("amg_cg", "bicgstab", "gmres", "mg_bicgstab"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-            api.solve(s.A, s.b, method=method, grid=EVEN, mesh=m)
+    m, jm = _mesh(4), j_mesh(4)
+    band = tgen.banded_sin_system(512, 16)
+    opts = dict(tol=1e-10, norm="rel_l2")
+    for method in ("bicgstab", "gmres"):
+        r = api.solve(band.A, band.b, method=method, mesh=m, dtype=np.float64, **opts)
+        jr = japi.solve(_jA(band.A), band.b, method=method, mesh=jm, **opts)
+        assert r.converged and r.iterations == int(jr.iterations), method
+        assert _rel(r.x.numpy(), jr.x) <= X_REL, method
+    cb, sc, jax_mg = mg_case
+    jr = jax_mg("bicgstab")
+    r = api.solve(sc.A, sc.b, method="mg_bicgstab", grid=MG_EVEN, mesh=m, coarse_operator=cb,
+                  dtype=np.float64, **MG_POL, **MG_KW)
+    assert r.converged and r.iterations == int(jr.iterations)
+    assert _rel(r.x.numpy(), jr.x) <= X_REL
+    from conjugategradient_tpu_torch.core.formats import dia_to_csr
+
+    csr = dia_to_csr(band.A)
+    r = api.solve(csr, band.b, method="amg_cg", mesh=m, dtype=np.float64, tol=1e-8, norm="rel_l2")
+    jr = japi.solve(jformats.dia_to_csr(_jA(band.A)), band.b, method="amg_cg", mesh=jm, tol=1e-8,
+                    norm="rel_l2")
+    assert r.converged and r.iterations == int(jr.iterations)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
         api.solve(s.A, s.b, method="mgcg", grid=EVEN, mesh=m, axes=("x", "y"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):

@@ -4,9 +4,7 @@ is found at the port's mirrored path.
 Each JAX ``__init__`` is read with ``ast`` (nothing of it is imported, so
 no ``jax``), for each package the port mirrors: the root, ``core``,
 ``ops``, ``solvers``, ``precond``, ``models``, ``utils`` and ``parallel``.
-EXEMPT lists the only names allowed to be missing, each with its reason:
-the ``parallel`` names of the mesh-sharded AMG wait for ROADMAP queue 1
-item 6c.
+EXEMPT lists the only names allowed to be missing, each with its reason.
 """
 
 import ast
@@ -19,12 +17,10 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG = ROOT / "conjugategradient_tpu"
 PACKAGES = ["", "core", "ops", "solvers", "precond", "models", "utils", "parallel"]
 
-_6C = "ROADMAP queue 1: parallel, item 6c"
 #: (package, name) -> why the port does not have it
 EXEMPT = {
     ("ops", "dd"): "ROADMAP: not to port (TPU double-float arithmetic)",
     ("ops", "pallas_spmv"): "ROADMAP: not to port (the Pallas kernels' module)",
-    **{("parallel", name): _6C for name in ("build_sharded_amg", "sharded_amg_solve")},
 }
 
 
