@@ -80,9 +80,9 @@ after:
   through ``api.solve`` (cuSPARSE's product, no #4 launch; run twice,
   bit-identity printed) and through ``make_kernel_operator`` (#4 once per
   iteration and once more), then an n x 4 block; ``WORKLOADS["handmade_cl"]`` as diagonal-first ELL both
-  ways.  Matrix Market: Poisson 127^3 fp32 permuted by a seeded symmetric
-  permutation must load as CSR and solve with no #4 launch; unpermuted it
-  must load as DIA, solve on #4 and, as an n x 4 block, on #5.  Every
+  ways.  Matrix Market: Poisson 63^3 fp32 permuted by a seeded symmetric
+  permutation must load as CSR and solve with no #4 launch; Poisson 127^3
+  unpermuted must load as DIA, solve on #4 and, as an n x 4 block, on #5.  Every
   format's SpMV and SpMM (k = 4) against the fp64 oracle, timed beside its
   bound, and #4/#5 past 256 diagonals timed beside cuSPARSE (both as
   launched and replayed from CUDA graphs; the record's ``split_by_shape``
@@ -104,7 +104,7 @@ after:
   saved and loaded (``save_pytree``; the same count and x), and the
   ``reference_workloads`` twin at ``--quick`` in fp64 (every row OK).
 - The preconditioners.  ``api.solve(method="amg_cg")`` fp32 on the two
-  Poisson 127^3 Matrix Market files of the ingestion phase: in natural
+  Poisson Matrix Market files of the ingestion phase: in natural
   order the setup infers the (127, 127, 127) grid and aggregates in cubes,
   every level launches its kernel (#1 on a const level, #3 on a variable
   one, by grid) and the outer CG runs #4 exactly iterations + 1 times;
@@ -144,7 +144,7 @@ after:
   and cuSPARSE's product of the transpose's CSR, timed beside A x; the
   record's ``transposed_dia``), CGNR and LSMR on the twin through
   ``api.solve`` (#4 exactly 2 an iteration plus 5 and 3); LSMR through
-  ``auto`` and damped on a seeded 1,048,576 x 262,144 sparse regression
+  ``auto`` and damped on a seeded 524,288 x 131,072 sparse regression
   (cuSPARSE, no #4) against scipy's ``lsmr``: the true normal residual
   within 1e-5 and x within 2 kappa (rho + rho_scipy), kappa by Lanczos on
   the card; ``cacg`` (s = 4) and ``jacobi_cacg`` on the flagship and
@@ -162,15 +162,15 @@ after:
   compensated two on a cancelling input also 100x below the plain fp32
   reduction's error; warm walls the median of 5 calls; each new route in
   fp64 at small size on the card and the CPU.
-- The eigensolvers: ``api.eigs(A, k=8, which="SM", grid=(1023, 1023),
-  spd=True)`` on Poisson 1023^2 in fp32 and fp64 (LOBPCG with the MGCG
+- The eigensolvers: ``api.eigs(A, k=8, which="SM", grid=(511, 511),
+  spd=True)`` on Poisson 511^2 in fp32 and fp64 (LOBPCG with the MGCG
   hierarchy's V-cycle per column: #5 on the (3k, n) block, #1 at every
   level), ``auto``'s probe timed apart on 511^2; the fp64 values within 1e-6 of the
   closed form, the fp32 ones within Rayleigh-quotient bounds of the fp64
   ones, true residuals, orthonormality, the warm wall's fixed cost split
   into the start blocks' draws on the card and their cast, A's placement
   and the rest; the generalized problem (a mass matrix B on #5
-  too, a V-cycle M) on 511^2 in fp64 against scipy's ``eigsh(sigma=0)``;
+  too, a V-cycle M) on 255^2 in fp64 against scipy's ``eigsh(sigma=0)``;
   Krylov-Schur Arnoldi (#4 once per matvec) at the JAX package's eigen
   workload, convection-diffusion 511^2 eps 0.1 in fp32, LM and LR beside
   its artifact's values, and LM at 127^2 in fp64 against ARPACK;
@@ -183,8 +183,9 @@ after:
   = 24 columns timed against its twin, cuSPARSE and the bound.
 - The host kit and the batched solves.  ``native.available()`` (csrkit
   built, its OpenMP threads printed); csrkit's COO -> CSR, CSR -> DIA and
-  CSR -> ELL on the HandmadeCL (n = 345,678) and flagship CSRs equal to
-  the port's numpy conversions, each timed beside numpy's;
+  CSR -> ELL on the flagship CSR equal to the port's numpy conversions,
+  each timed beside numpy's, and on the HandmadeCL CSR (n = 345,678) the
+  CSR back and the CSR's products;
   ``api.solve(method="native")`` on Poisson 127^3 fp64 (capped) with
   ``oracle.cg``'s count.  Batched kernel #4 and its fused p.Ap against the
   twin and, member by member, bit-equal to the single kernel: the flagship
@@ -258,6 +259,24 @@ after:
   one shard's Chebyshev-block extended DIA against its twin, timed beside
   its bound and cuSPARSE; warm medians of the mg_bicgstab solves and the
   busy shares of their 3-iteration windows.
+- Rung 5, on 4 shards of the card: Poisson 511^3 fp32 identity-padded to
+  512 x 511 x 511 (133,432,831 real rows) and assembled slab by slab
+  (``parallel.rung5.make_rung5_system``; the assembly's peak host bytes,
+  by ``tracemalloc``, below two shards' slabs of legs and b), its
+  hierarchy probed on the shards (``precond.distributed.
+  build_hierarchy_probed``: #3 a shard a probe, a power-iteration step and
+  a Rayleigh quotient, to the count the code implies; its device-to-host
+  reads), MGCG with the padded plane masked (``make_rung5_mgcg(n_real=)``):
+  converged, the true fp64 relative residual on the real rows below 1e-5
+  (computed on the card by shard), the padded plane exactly 0, #3 as the
+  recurrence implies, the warm median of 5 and the busy share; #3 on one
+  shard's extended (130, 511, 511) x 7 slab against its twin, timed beside
+  its bound and cuSPARSE (the record's ``rung5_slab``); the probed build
+  against the host ``build_hierarchy(sa_smooth_levels=0)`` at 127^3 (the
+  same levels and transfers, legs within 1e-5, MGCG counts within 1, both
+  setup times); the rediscretized convection 256^3 eps 0.05
+  (``build_hierarchy_redisc``, Jacobi) by mg BiCGStab to rel_l2 1e-5:
+  converged, the true residual, #3 as implied, the warm wall.
 
 Kernels #1 (every pattern and the run-time one, 1-D to 3-D, fp32 and fp64,
 NaN-carved x), #5 (fp32, bf16 and fp64 legs) and #6 (fp32 and bf16 legs,
@@ -297,6 +316,7 @@ import sys
 import tempfile
 import threading
 import time
+import tracemalloc
 
 import numpy as np
 import torch
@@ -378,10 +398,12 @@ from conjugategradient_tpu_torch.parallel import (
     shard_multi_mgcg_solve,
     sharded_cg_solve,
 )
+from conjugategradient_tpu_torch.parallel import rung5
 from conjugategradient_tpu_torch.parallel.halo import (
     HaloDia,
     exchange_bytes,
     extend_dia_data,
+    extend_grid_rows,
     extend_rows,
 )
 from conjugategradient_tpu_torch.parallel.mesh import shard_rows
@@ -390,6 +412,10 @@ from conjugategradient_tpu_torch.parallel.shard_multi import sharded_cg_multi_so
 from conjugategradient_tpu_torch.parallel.multihost import make_distributed_system
 from conjugategradient_tpu_torch.ops.spmv import as_operator, prepare
 from conjugategradient_tpu_torch.precond import amg
+from conjugategradient_tpu_torch.precond.distributed import (
+    build_hierarchy_probed,
+    build_hierarchy_redisc,
+)
 from conjugategradient_tpu_torch.precond.multigrid import (
     _const_bounds,
     _fused_cheb_ok,
@@ -399,6 +425,7 @@ from conjugategradient_tpu_torch.precond.multigrid import (
     mgcg_solve,
 )
 from conjugategradient_tpu_torch.scripts import reference_workloads, spmm_acc_experiment
+from conjugategradient_tpu_torch.scripts.probed_setup_bench import probed_vs_host
 from conjugategradient_tpu_torch.solvers import eigen
 from conjugategradient_tpu_torch.solvers.cg import cg_solve, cg_solve_chunked, cg_solve_traced
 from conjugategradient_tpu_torch.solvers.multi import (
@@ -575,6 +602,10 @@ DIA_MGCG_MANY = 343
 MANY_K = 4
 HANDMADE = "handmade_cl"
 MTX_GRID = (127, 127, 127)
+#: the permuted Matrix Market file's grid: cut from MTX_GRID (its greedy
+#: AMG took 40.6 s of host setup at 127^3) to keep the run inside its
+#: time limit with the rung-5 phase
+MTX_PERM_GRID = (63, 63, 63)
 BSR_BLOCK = (8, 8)
 DENSE_N = 8192
 FORMAT_K = 4
@@ -2308,24 +2339,25 @@ def _reference_storage(fsys, dev, card, count):
 
 
 def _ingestion(dev, card, count):
-    """Poisson MTX_GRID fp32 through Matrix Market files: permuted by a
-    seeded symmetric permutation it must load as CSR (the blowup guard sees
-    ~2 M diagonals) and solve with 0 kernel #4 launches; unpermuted it must
-    load as DIA and solve on kernel #4, then as an n x 4 block on #5.  Each
-    solve ``rel_l2 < TOL``, true fp64 relative residual within TRUE_REL.
-    Returns {"permuted" / "unpermuted": (loaded matrix, b, plain CG's
-    iterations)} for the preconditioners phase."""
-    g = MTX_GRID
+    """Poisson fp32 through Matrix Market files: MTX_PERM_GRID permuted by
+    a seeded symmetric permutation must load as CSR (the blowup guard sees
+    ~n diagonals) and solve with 0 kernel #4 launches; MTX_GRID unpermuted
+    must load as DIA and solve on kernel #4, then as an n x 4 block on #5.
+    Each solve ``rel_l2 < TOL``, true fp64 relative residual within
+    TRUE_REL.  Returns {"permuted" / "unpermuted": (loaded matrix, b, plain
+    CG's iterations)} for the preconditioners phase."""
     loaded = {}
-    s = generators.poisson_system(g, dtype=np.float32)
-    perm = np.random.default_rng(SEED).permutation(s.n)
+    s = generators.poisson_system(MTX_GRID, dtype=np.float32)
+    sp_ = generators.poisson_system(MTX_PERM_GRID, dtype=np.float32)
+    perm = np.random.default_rng(SEED).permutation(sp_.n)
     t0 = time.perf_counter()
-    permuted = from_scipy(to_scipy(s.A)[perm][:, perm])
+    permuted = from_scipy(to_scipy(sp_.A)[perm][:, perm])
     perm_s = time.perf_counter() - t0
     kw = dict(method="cg", tol=TOL, norm="rel_l2", dtype=np.float32, device=dev, precise_dot=True)
     with tempfile.TemporaryDirectory() as d:
-        for label, A_file, b, kind in (("permuted", permuted, s.b[perm], CsrMatrix),
-                                       ("unpermuted", s.A, s.b, DiaMatrix)):
+        for label, g, A_file, b, kind in (
+                ("permuted", MTX_PERM_GRID, permuted, sp_.b[perm], CsrMatrix),
+                ("unpermuted", MTX_GRID, s.A, s.b, DiaMatrix)):
             path = os.path.join(d, f"poisson_{label}.mtx")
             t0 = time.perf_counter()
             save_matrix_market(path, A_file)
@@ -2367,23 +2399,27 @@ def _ingestion(dev, card, count):
                       {"spmm_dia": spmm_dia_cuda.launches})
                 print(f"{tag} n x {FORMAT_K}: iterations by column {its}, spmm_dia launches "
                       f"{spmm_dia_cuda.launches}")
-    print(f"Poisson {g}: symmetric permutation of the matrix {perm_s:.3f} s")
+    print(f"Poisson {MTX_PERM_GRID}: symmetric permutation of the matrix {perm_s:.3f} s")
     return loaded
 
 
 # -- the preconditioners and the spectrum tools ------------------------------
 
 #: the 31^3 card-against-CPU checks; the Jacobi-rotation matrix's order
+#: (cut from 16, 8.8 s on the card, to keep the run inside its time limit)
 PRECOND_SMALL = (31, 31, 31)
-JACOBI_EIG_N = 16
+JACOBI_EIG_N = 12
 #: jacobi_eigenvalues against numpy's eigvalsh, fp64, relative to the
 #: largest |eigenvalue|
 JACOBI_EIG_REL = 1e-8
 #: the card's power iteration against host Lanczos's upper end
 POWER_ITERS = 200
 POWER_AGREE = 1e-2
-#: Lanczos steps of the spectrum probes (the JAX package's default k = 30)
-LANCZOS_K = 30
+#: Lanczos steps of the spectrum probes: the JAX package's default k = 30
+#: cut to 15 (the two host Lanczos runs on the flagship took 17.2 s each)
+#: to keep the run inside its time limit; 15 steps put the upper end 0.09%
+#: below 200 power-iteration steps' (a CPU run)
+LANCZOS_K = 15
 
 
 @contextlib.contextmanager
@@ -2594,8 +2630,8 @@ def _flagship_preconditioned(fsys, dev, card, count):
 
 def _card_vs_cpu_amg(perm_h, dev, card):
     """31^3 Poisson as CSR: fp64 ``amg_cg`` on the card and on the CPU take
-    equal iteration counts; two cycles of the permuted 127^3 greedy
-    hierarchy on the card give the same bits; the C++ aggregation equals
+    equal iteration counts; two cycles of the permuted MTX_PERM_GRID
+    greedy hierarchy on the card give the same bits; the C++ aggregation equals
     the Python loop on the permuted 31^3 strength graph bit for bit."""
     g = PRECOND_SMALL
     s = generators.poisson_system(g)
@@ -2619,7 +2655,7 @@ def _card_vs_cpu_amg(perm_h, dev, card):
     _require(native[1] == loop[1] and np.array_equal(native[0], loop[0]),
              f"aggregation {g} permuted: C++ {native[1]} aggregates, Python loop {loop[1]}")
     print(f"AMG {g} CSR fp64: card {rg.iterations} its, CPU {rc.iterations} its, max rel diff "
-          f"{dx:.3e}; two greedy 127^3 cycles on the card bit-identical; aggregation of the "
+          f"{dx:.3e}; two greedy {MTX_PERM_GRID} cycles on the card bit-identical; aggregation of the "
           f"permuted {g} strength graph: C++ {t1 - t0:.4f} s, Python loop {t2 - t1:.3f} s, "
           f"{native[1]} aggregates, bit-identical [{card}]")
 
@@ -2731,7 +2767,7 @@ def _preconditioners(loaded, fsys, dev, card, count):
     nat = (A_nat, b_nat, h_nat, res.iterations)
 
     A_perm, b_perm, plain_perm = loaded["permuted"]
-    tag = f"Poisson {MTX_GRID} .mtx permuted"
+    tag = f"Poisson {MTX_PERM_GRID} .mtx permuted"
     res, h_perm, got, _ = _amg_solve(tag, A_perm, b_perm, dev, card)
     _require(all(isinstance(l.A, CsrMatrix) and l.agg_rows is not None for l in h_perm.levels),
              f"{tag}: levels {_amg_levels(h_perm)} are not greedy CSR levels")
@@ -3548,8 +3584,10 @@ def _nonsymmetric(dev, card, count):
 
 #: the sparse regression of the rectangular LSMR: LSQ_M x LSQ_N, LSQ_NNZ
 #: seeded entries a row plus the identity on the first LSQ_N rows
-#: (tests/test_lsmr.py::_overdetermined's construction at a user's size)
-LSQ_M, LSQ_N, LSQ_NNZ = 1_048_576, 262_144, 16
+#: (tests/test_lsmr.py::_overdetermined's construction at a user's size;
+#: cut from 1,048,576 x 262,144, whose host build and two scipy solves took
+#: most of a 52.5-s step, to keep the run inside its time limit)
+LSQ_M, LSQ_N, LSQ_NNZ = 524_288, 131_072, 16
 LSQ_DAMP = 0.5
 #: the true ||A^T r|| / ||A^T b|| (damped: ||A^T r - damp^2 x||) every LSMR
 #: run must meet on the host in fp64
@@ -4175,10 +4213,14 @@ def _least_squares(fsys, dev, card, count):
 # eigensolvers
 # ---------------------------------------------------------------------------
 
-#: LOBPCG by the facade on the main path's grid: the k smallest pairs of
-#: poisson_system(EIG_GRID).A with the MGCG hierarchy's V-cycle as M
-EIG_GRID = (1023, 1023)
-#: the grid of auto's probe, timed apart: cut from EIG_GRID (21.6 s of host
+#: LOBPCG by the facade: the k smallest pairs of poisson_system(EIG_GRID).A
+#: with the MGCG hierarchy's V-cycle as M; cut from the main path's 1023^2
+#: (31.6 s for the step there) to keep the run inside its time limit with
+#: the rung-5 phase.  Kernel #5 at LOBPCG's A pass stays timed at
+#: EIG_SPMM_GRID
+EIG_GRID = (511, 511)
+EIG_SPMM_GRID = (1023, 1023)
+#: the grid of auto's probe, timed apart: cut from 1023^2 (21.6 s of host
 #: symmetry and Lanczos on 1M rows) to keep the run inside its time limit
 EIG_PROBE_GRID = (511, 511)
 EIG_K = 8
@@ -4196,8 +4238,10 @@ EIG_REPS = 3
 #: the profiled window: iterations (LOBPCG) or restarts (Arnoldi)
 EIG_WINDOW = 2
 #: the generalized problem: A x = lambda B x, B the tridiagonal mass
-#: matrix (4/6, 1/6), a V-cycle M, fp64, against scipy's eigsh(sigma=0)
-GEN_GRID = (511, 511)
+#: matrix (4/6, 1/6), a V-cycle M, fp64, against scipy's eigsh(sigma=0);
+#: cut from 511^2 (12.3 s, 8.1 of them scipy's eigsh on the host) to keep
+#: the run inside its time limit
+GEN_GRID = (255, 255)
 GEN_K = 4
 GEN_WITNESS = 1e-8
 #: Arnoldi at the JAX package's eigen workload (artifacts/
@@ -4662,10 +4706,10 @@ def _eig_card_vs_cpu(dev, card):
 
 
 def _eig_spmm_times(dev, card):
-    """Kernel #5 at LOBPCG's A pass on Poisson EIG_GRID (5 diagonals, 3k =
-    24 columns), fp32 and fp64: against its twin, cuSPARSE's CSR ``A @ X``
-    and the bound."""
-    A_host = generators.poisson_system(EIG_GRID).A
+    """Kernel #5 at LOBPCG's A pass on Poisson EIG_SPMM_GRID (5 diagonals,
+    3k = 24 columns), fp32 and fp64: against its twin, cuSPARSE's CSR
+    ``A @ X`` and the bound."""
+    A_host = generators.poisson_system(EIG_SPMM_GRID).A
     k = 3 * EIG_K
     for dt in (torch.float32, torch.float64):
         A = A_host.device_put(dt, dev)
@@ -4674,9 +4718,9 @@ def _eig_spmm_times(dev, card):
         p_ms = time_ms(lambda: spmm_dia_ref(A, X), 5)
         err, scale = _max_err(spmm_dia_cuda(A, X), spmm_dia_ref(A, X))
         _require(err <= (KERNEL_REL if dt == torch.float32 else KERNEL_REL64) * scale,
-                 f"spmm_dia {EIG_GRID} k={k} {TAGS[dt]}: max err {err:.3e} against the twin")
+                 f"spmm_dia {EIG_SPMM_GRID} k={k} {TAGS[dt]}: max err {err:.3e} against the twin")
         csr, Xn = dia_csr(A), X.T.contiguous()
-        tag = f"spmm_dia Poisson {EIG_GRID} 5 diagonals k={k} {TAGS[dt]} (LOBPCG's A pass)"
+        tag = f"spmm_dia Poisson {EIG_SPMM_GRID} 5 diagonals k={k} {TAGS[dt]} (LOBPCG's A pass)"
         lib_ms = _library(tag, lambda: csr @ Xn, spmm_dia_cuda(A, X).T, card, 20)
         nbytes = dia_nnz(A) * A.data.element_size() + 2 * k * A.n * X.element_size()
         bound = bound_ms(nbytes, 2 * k * dia_nnz(A))
@@ -4706,6 +4750,13 @@ def _eigensolvers(dev, card, count):
 #: would run n iterations: never uncapped here)
 NATIVE_TOL = 1e-6
 NATIVE_CAP = 2000
+#: the CSR whose conversions are timed beside numpy's and held to them bit
+#: for bit; the other (HandmadeCL, whose numpy conversions took 22.5 s) is
+#: converted by csrkit alone: its COO -> CSR must give the CSR back, its
+#: DIA and ELL products the CSR's within NATIVE_PRODUCT_REL (fp64 sums in
+#: another order)
+NATIVE_NUMPY = "flagship"
+NATIVE_PRODUCT_REL = 1e-12
 #: batched kernel #4's checks: (label, host DiaMatrix, k values,
 #: dtypes); the flagship band (fp32 and fp64, k in 1, 3, 8), the 16^3 x 343
 #: chain (split launches), a ragged n
@@ -4737,9 +4788,10 @@ def _timed(fn):
 def _native(csrs, card):
     """The host kit (``native``): it must have built (its OpenMP threads and,
     where the compiler refused ``-fopenmp``, why, printed); csrkit's
-    COO -> CSR, CSR -> DIA and CSR -> ELL on the HandmadeCL and flagship
-    CSRs equal the port's numpy conversions exactly, each timed beside the
-    numpy one; ``api.solve(method="native")`` on Poisson MTX_GRID fp64 takes
+    COO -> CSR, CSR -> DIA and CSR -> ELL on the NATIVE_NUMPY CSR equal the
+    port's numpy conversions exactly, each timed beside the numpy one, and
+    on the other CSR give the CSR back and its products
+    (NATIVE_PRODUCT_REL); ``api.solve(method="native")`` on Poisson MTX_GRID fp64 takes
     ``oracle.cg``'s count (within 1), its true residual meets the tol."""
     from conjugategradient_tpu_torch import native
     from conjugategradient_tpu_torch.core import formats
@@ -4753,6 +4805,10 @@ def _native(csrs, card):
     for label, csr in csrs:
         coo = csr_to_coo(csr)
         rows = []
+        numpy_too = label == NATIVE_NUMPY
+        if not numpy_too:
+            x = np.random.default_rng(SEED + 52).standard_normal(csr.n)
+            y = to_scipy(csr) @ x
         for name, kit, ref, fields in (
                 ("coo_to_csr", native.coo_to_csr, formats.coo_to_csr,
                  ("data", "indices", "indptr", "row_ids")),
@@ -4760,12 +4816,22 @@ def _native(csrs, card):
                 ("csr_to_ell", native.csr_to_ell, formats.csr_to_ell, ("data", "cols"))):
             arg = coo if name == "coo_to_csr" else csr
             got, kit_s = _timed(lambda: kit(arg))
-            want, np_s = _timed(lambda: ref(arg))
-            _same_arrays(f"native {name} {label}", got, want, fields)
-            rows.append(f"{name} {kit_s:.3f} s (numpy {np_s:.3f} s, {np_s / kit_s:.1f}x)")
-            del got, want
-        print(f"native {label} ({csr.nnz} nnz): {'; '.join(rows)}; each equal to numpy's "
-              f"[host of {card}]")
+            if numpy_too:
+                want, np_s = _timed(lambda: ref(arg))
+                _same_arrays(f"native {name} {label}", got, want, fields)
+                rows.append(f"{name} {kit_s:.3f} s (numpy {np_s:.3f} s, {np_s / kit_s:.1f}x)")
+                del want
+            elif name == "coo_to_csr":  # the round trip: the CSR back
+                _same_arrays(f"native {name} {label}", got, csr, fields)
+                rows.append(f"{name} {kit_s:.3f} s (the CSR back)")
+            else:  # the converted product against scipy's CSR product
+                err = float(np.abs(oracle.spmv(got, x) - y).max() / np.abs(y).max())
+                _require(err <= NATIVE_PRODUCT_REL, f"native {name} {label}: its product is "
+                                                    f"{err:.3e} from the CSR's")
+                rows.append(f"{name} {kit_s:.3f} s (product {err:.1e} from the CSR's)")
+            del got
+        same = "; each equal to numpy's" if numpy_too else ""
+        print(f"native {label} ({csr.nnz} nnz): {'; '.join(rows)}{same} [host of {card}]")
         del coo
     s = generators.poisson_system(MTX_GRID)
     kw = dict(tol=NATIVE_TOL, norm="rel_l2", max_iteration=NATIVE_CAP)
@@ -6278,6 +6344,327 @@ def _sharded_nonsym(nat, fsys, dev, card, count):
           f"not multi-GPU speed: warm mg_bicgstab walls {walls['_sns_convection']}")
 
 
+# ---------------------------------------------------------------------------
+# rung 5: Poisson 511^3 assembled slab by slab onto four shards of the card,
+# its hierarchy probed on the shards, MGCG; the probed build against the host
+# build; rediscretized convection; kernel #3 on one rung-5 shard's slab
+# ---------------------------------------------------------------------------
+
+R5_SHARDS = 4
+#: padded to 512 x 511 x 511 on four shards: 133,432,831 real rows
+R5_GRID = (511, 511, 511)
+#: the probed build against the host build (whose setup takes 5.7-11.3 s
+#: on the H100 machines' hosts at 127^3)
+R5_BUILD_GRID = (127, 127, 127)
+#: fp32 probed legs, inv_diag and coarse inverse against the host build's
+#: (its Galerkin products in fp64, cast): max |diff| <= this x max |host|
+R5_LEG_REL = 1e-5
+R5_INV_REL = 1e-3
+R5_CONV_GRID = (256, 256, 256)
+R5_CONV_EPS = 0.05
+R5_CONV_TOL = 1e-5
+#: its true fp64 relative residual: fp32 BiCGStab's recurrence residual
+#: drifts from the true one (9.612e-6 against 9.633e-6 on an H100), so the
+#: bound sits at twice the tolerance
+R5_CONV_TRUE = 2 * R5_CONV_TOL
+R5_CONV_REPS = 3
+R5_SLAB_REPS = 20
+
+
+def _r5_true_rel(x: Shards, legs64, b64, shifts, real0: int) -> float:
+    """The true fp64 relative residual ||b - A x|| / ||b|| on the real rows
+    (axis-0 rows below ``real0``), computed on the card shard by shard:
+    each shard's x with one neighbour plane each side (zero at the global
+    edges) in fp64, ``legs64(i)`` / ``b64(i)`` its fp64 legs and b, the
+    product by kernel #3's plain twin on the extended slab."""
+    num, n0 = x.mesh.size, x.shape[0]
+    rr = bb = 0.0
+    for i, dv in enumerate(x.mesh.devices):
+        rows = min(n0, real0 - i * n0)
+        if rows <= 0:
+            continue
+        zero = torch.zeros_like(x.parts[i][:1])
+        xe = torch.cat([x.parts[i - 1][-1:].to(dv) if i else zero, x.parts[i],
+                        x.parts[i + 1][:1].to(dv) if i + 1 < num else zero]).double()
+        legs = extend_grid_rows(legs64(i), 1)
+        y = spmv_stencil_ref(StencilMatrix(legs, shifts, tuple(xe.shape)), xe)[1:-1]
+        b = b64(i)
+        r = (b - y)[:rows]
+        rr += float((r * r).sum())
+        bb += float((b[:rows] * b[:rows]).sum())
+        del xe, legs, y, r
+    return float(np.sqrt(rr / bb))
+
+
+def _r5_levels(h) -> list:
+    """(grid, legs, transfer, where) of every level of a ``ShardHierarchy``."""
+    out = [(L.grid, len(L.op.shifts), L.kind, f"sharded, {L.op.local[0]} rows a shard, halo "
+            f"{L.op.halo}") for L in h.levels]
+    out += [(L.grid, len(L.A.shifts), L.transfer, "replicated") for L in h.tail.levels]
+    return out
+
+
+def _r5_tail_products(h, smoother_sweeps) -> int:
+    """Kernel #3's launches of one replicated-tail cycle: each tail level's
+    products (its smoothing, the residual), once on the first device."""
+    return sum(smoother_sweeps(h.pre) + smoother_sweeps(h.post) + 1 for _ in h.tail.levels)
+
+
+def _r5_sweeps(h):
+    return lambda n: 0 if n <= 0 else {"chebyshev": 1 + n}.get(h.smoother, n)
+
+
+def _r5_poisson(mesh, dev, card, count):
+    """(a): 511^3 Poisson MGCG on four shards of the card."""
+    tag = f"rung 5 Poisson {R5_GRID}"
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    A, b, x0, padded, n_real = rung5.make_rung5_system(R5_GRID, mesh, dtype=np.float32)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    _, peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    n = int(np.prod(padded))
+    n_local = n // R5_SHARDS
+    global_bytes = (len(A.shifts) + 1) * n * 4
+    two_slabs = 2 * (len(A.shifts) + 1) * n_local * 4
+    g0 = -(-R5_GRID[0] // R5_SHARDS) * R5_SHARDS
+    _require(n_real == int(np.prod(R5_GRID)) and padded == (g0,) + R5_GRID[1:],
+             f"{tag}: padded {padded}, {n_real} real rows")
+    _require(peak < two_slabs, f"{tag}: the assembly's peak host bytes {peak} >= two shards' "
+                                f"slabs {two_slabs}")
+    print(f"{tag}: padded to {padded} on {R5_SHARDS} shards of the card, {n_real:,} real rows; "
+          f"assembled slab by slab in {t_asm:.3f} s, peak host bytes {peak:,} (tracemalloc) "
+          f"against {global_bytes:,} for the global legs + b and {two_slabs:,} for two shards' "
+          f"slabs [{card}]")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    h = build_hierarchy_probed(A, mesh)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    got, want = _k3_launches(), sum(s * p for _, s, p in h.setup_products)
+    _require(got == want, f"{tag} probed setup: {got} kernel #3 launches, the code implies {want}")
+    count(f"{tag} probed setup", {"spmv_stencil": spmv_stencil_cuda.launches,
+                                  "spmv_stencil_wide": spmv_stencil_wide_cuda.launches})
+    _require(len(h.levels) >= 1, f"{tag}: no sharded level")
+    print(f"{tag} probed setup on the card: {t_setup:.3f} s (by phase "
+          f"{ {k: round(v, 3) for k, v in h.setup_s.items()} }); levels (grid, legs, transfer, "
+          f"where) {_r5_levels(h)} + dense {h.coarse_inv.shape[0]}; kernel #3 launches {got} = "
+          f"{want} implied (shards x (probes + power iterations + 2) a level: "
+          f"{[(g, s, p) for g, s, p in h.setup_products]}); device-to-host reads "
+          f"{h.host_reads} [{card}]")
+    print(f"{tag} probed setup's near-null choice, per coarsened level (grid, Rayleigh quotient "
+          f"of the constant, of the checkerboard, transfer; fp32 on the card): "
+          f"{[(g, f'{q1:.9e}', f'{q2:.9e}', k) for g, q1, q2, k in h.near_null]} [{card}]")
+
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    _require(h.real0 == R5_GRID[0], f"{tag}: the hierarchy's real rows {h.real0}")
+    solve = rung5.make_rung5_mgcg(pol, h)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = solve(b, x0)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    _require(res.converged, f"{tag}: MGCG did not converge in {res.iterations} iterations")
+    got = _k3_launches()
+    want = _smg_want("cg", res.iterations, 1, solve.plan, R5_SHARDS,
+                     _r5_tail_products(h, _r5_sweeps(h)))
+    _require(got == want, f"{tag} MGCG: {got} kernel #3 launches, the recurrence implies {want}")
+    count(f"{tag} MGCG", {"spmv_stencil": spmv_stencil_cuda.launches,
+                          "spmv_stencil_wide": spmv_stencil_wide_cuda.launches})
+    real0, n0 = R5_GRID[0], padded[0] // R5_SHARDS
+    pad = res.x.parts[-1][real0 - (R5_SHARDS - 1) * n0:]
+    _require(bool((pad == 0).all()), f"{tag}: the padded plane of x is not exactly 0")
+    t0 = time.perf_counter()
+    rel = _r5_true_rel(res.x, lambda i: A.data.parts[i].double(),
+                       lambda i: _r5_poisson_b64(R5_GRID, i, n0, dev),
+                       A.shifts, real0)
+    t_chk = time.perf_counter() - t0
+    _require(rel <= TRUE_REL, f"{tag}: true fp64 relative residual {rel:.3e} > {TRUE_REL}")
+    print(f"{tag} MGCG (rung5.make_rung5_mgcg, the padded plane masked): {res.iterations} "
+          f"iterations, rel_l2 {float(res.residual):.3e}, true fp64 relative residual on the real "
+          f"rows {rel:.3e} (on the card by shard, {t_chk:.3f} s), padded plane exactly 0; kernel "
+          f"#3 launches {got} = {want} implied ({solve.plan.products_per_cycle} sharded products "
+          f"a V-cycle); first call {t_first:.3f} s [{card}]")
+    fn = lambda: solve(b, x0)
+    walls = _wall_median_ms(fn)
+    busy = _par_profile(f"{tag} MGCG", fn, walls[0], card)
+    print(f"time {tag} MGCG on {R5_SHARDS} shards: warm wall {_fmt_wall(walls)}, device busy "
+          f"{busy:.1%}, {res.iterations} iterations; setup {t_setup:.3f} s, assembly {t_asm:.3f} s "
+          f"[{card}]")
+    return h, A
+
+
+def _r5_poisson_b64(grid, i, n0, dev) -> torch.Tensor:
+    """Shard i's rows of the rung-5 Poisson right-hand side in fp64 on the
+    card: ``poisson_rhs_slab``'s closed form (0 on the padded plane)."""
+    lo = i * n0
+    d = len(grid)
+    strides = np.cumprod((1,) + tuple(grid[:0:-1]))[::-1]
+    idx = torch.zeros((), dtype=torch.float64, device=dev)
+    for ax in range(d):
+        n_ax = n0 if ax == 0 else grid[ax]
+        t = torch.arange(n_ax, device=dev, dtype=torch.float64) + (lo if ax == 0 else 0)
+        idx = idx + (t * float(strides[ax])).reshape([-1 if k == ax else 1 for k in range(d)])
+    vals = torch.sin(0.37 * idx + SEED) + 0.25 * torch.cos(1.3 * idx)
+    real = (torch.arange(n0, device=dev) + lo < grid[0]).reshape((-1,) + (1,) * (d - 1))
+    return torch.where(real, vals, torch.zeros((), dtype=torch.float64, device=dev))
+
+
+def _r5_slab_kernel(h, dev, card, times):
+    """(d): kernel #3 on one of the four shards' extended fine slabs of the
+    rung-5 hierarchy (the legs the solve holds), against its twin, timed
+    beside its bound and cuSPARSE's CSR product of the same slab."""
+    op = h.levels[0].op
+    A = op.mats.parts[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    x = torch.randn(A.grid, generator=gen, device=dev)
+    y = spmv_stencil_cuda(A, x)
+    ref = spmv_stencil_ref(A, x)
+    err, scale = _max_err(y, ref)
+    _require(err <= KERNEL_REL * scale, f"rung-5 slab #3: max err {err:.3e} against the twin")
+    del ref
+    k_ms = time_ms(lambda: spmv_stencil_cuda(A, x), R5_SLAB_REPS)
+    p_ms = time_ms(lambda: spmv_stencil_ref(A, x), 3)
+    csr = _stencil_csr(A)
+    lib_ms = _library("spmv_stencil rung-5 shard slab", lambda: csr @ x.reshape(-1),
+                      y.reshape(-1), card, R5_SLAB_REPS)
+    del csr
+    nbytes = A.nnz * 4 + 2 * x.numel() * 4
+    bound = bound_ms(nbytes, 2 * A.nnz)
+    times["rung5 slab"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                               library_ms=lib_ms, shape=list(A.grid), legs=A.nlegs)
+    print(f"time spmv_stencil on one of {R5_SHARDS} shards' extended rung-5 slab "
+          f"{tuple(A.grid)} x {A.nlegs} legs fp32: max err against the twin {err:.3e}; kernel "
+          f"{k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms by {bound[1]}, "
+          f"{bound[0] / k_ms:.1%} of it), twin {p_ms:.4f} ms, CSR {lib_ms:.4f} ms [{card}]")
+    return err
+
+
+def _r5_build_vs_host(mesh, dev, card, count):
+    """(b): the probed build against the port's host build
+    (``build_hierarchy(sa_smooth_levels=0, layout="stencil")``) on one
+    grid, fp32 (``scripts.probed_setup_bench.probed_vs_host``): the same
+    level grids and transfers, legs within R5_LEG_REL, both setup times,
+    both MGCG counts within one."""
+    grid = R5_BUILD_GRID
+    tag = f"rung 5 probed vs host build {grid}"
+    out = probed_vs_host(grid, mesh, ConvergencePolicy(tol=TOL, norm="rel_l2"))
+    hp, hh, res_p, res_h = out["h"], out["host_h"], out["res"], out["host_res"]
+    probed = [(L.grid, L.kind, L.op.shifts,
+               torch.cat([m.data[:, L.op.halo:L.op.halo + L.op.local[0]] for m in L.op.mats.parts],
+                         dim=1), L.inv_diag.gather(0), L.bounds) for L in hp.levels]
+    probed += [(L.grid, L.transfer, L.A.shifts, L.A.data, L.inv_diag, L.cheb_bounds)
+               for L in hp.tail.levels]
+    _require([(g, k) for g, k, *_ in probed] == [(L.grid, L.transfer) for L in hh.levels],
+             f"{tag}: levels {[(g, k) for g, k, *_ in probed]} against the host's "
+             f"{[(L.grid, L.transfer) for L in hh.levels]}")
+    rows = []
+    for (g, k, shifts, legs, inv, bounds), L in zip(probed, hh.levels):
+        host = dict(zip(L.A.shifts, L.A.data))
+        mine = dict(zip(shifts, legs))
+        scale = max(float(v.abs().max()) for v in host.values())
+        _require(set(host) <= set(mine), f"{tag} {g}: probed legs lack {set(host) - set(mine)}")
+        extra = max((float(mine[s].abs().max()) for s in set(mine) - set(host)), default=0.0)
+        d_leg = max(float((mine[s] - host[s].to(mine[s].device)).abs().max()) for s in host)
+        d_inv = float((inv.reshape(-1) - L.inv_diag.reshape(-1).to(inv.device)).abs().max())
+        _require(max(d_leg, extra) <= R5_LEG_REL * scale,
+                 f"{tag} {g}: legs differ by {d_leg:.3e}, extra legs up to {extra:.3e}")
+        _require(d_inv <= R5_LEG_REL * float(L.inv_diag.abs().max()), f"{tag} {g}: inv_diag "
+                                                                      f"differs by {d_inv:.3e}")
+        rows.append((g, k, len(mine), len(host), f"{d_leg:.2e}", f"{d_inv:.2e}",
+                     tuple(round(v, 5) for v in bounds), tuple(round(v, 5) for v in L.cheb_bounds)))
+    d_ci = float((hp.coarse_inv - hh.coarse_inv.to(hp.coarse_inv.device)).abs().max())
+    _require(d_ci <= R5_INV_REL * float(hh.coarse_inv.abs().max()),
+             f"{tag}: coarse inverses differ by {d_ci:.3e}")
+    _require(res_p.converged and res_h.converged
+             and abs(res_p.iterations - res_h.iterations) <= 1,
+             f"{tag}: probed MGCG {res_p.iterations} iterations against the host build's "
+             f"{res_h.iterations}")
+    print(f"{tag} (padded {out['padded']}, fp32, {R5_SHARDS} shards): probed setup "
+          f"{out['setup_s']:.3f} s on the card against the host build's {out['host_setup_s']:.3f}"
+          f" s (by phase { {k: round(v, 3) for k, v in hh.setup_s.items()} }); levels (grid, "
+          f"transfer, legs probed, legs host, max |leg diff|, max |inv_diag diff|, probed bounds, "
+          f"host bounds) {rows}; coarse inverse diff {d_ci:.3e}; near-null quotients "
+          f"{[(g, f'{q1:.6e}', f'{q2:.6e}', k) for g, q1, q2, k in hp.near_null]}; MGCG "
+          f"{res_p.iterations} iterations on the probed hierarchy, {res_h.iterations} on the "
+          f"host's [{card}]")
+    return out["setup_s"], out["host_setup_s"]
+
+
+def _r5_convection(mesh, dev, card, count):
+    """(c): rediscretized convection 256^3 by mg BiCGStab on four shards."""
+    grid = R5_CONV_GRID
+    tag = f"rung 5 convection {grid} eps {R5_CONV_EPS}"
+    t0 = time.perf_counter()
+    A, b, x0 = rung5.make_convection_system(grid, mesh, eps=R5_CONV_EPS, dtype=np.float32)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    slab = generators.convection_diffusion_level_slab(R5_CONV_EPS, dtype=np.float32)
+    _reset_counts()
+    t0 = time.perf_counter()
+    h = build_hierarchy_redisc(grid, mesh, slab, smoother="jacobi", dtype=np.float32)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    got, want = _k3_launches(), sum(s * p for _, s, p in h.setup_products)
+    _require(got == want, f"{tag} redisc setup: {got} kernel #3 launches, the code implies {want}")
+    count(f"{tag} redisc setup", {"spmv_stencil": spmv_stencil_cuda.launches,
+                                  "spmv_stencil_wide": spmv_stencil_wide_cuda.launches})
+    pol = ConvergencePolicy(tol=R5_CONV_TOL, norm="rel_l2")
+    solve = rung5.make_rung5_mg_nonsym(pol, h, "bicgstab")
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = solve(b, x0)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    _require(res.converged, f"{tag}: mg BiCGStab did not converge in {res.iterations} iterations")
+    its = res.iterations
+    got = _k3_launches()
+    want = (R5_SHARDS * (1 + 2 * its + 2 * its * solve.plan.products_per_cycle)
+            + 2 * its * _r5_tail_products(h, _r5_sweeps(h)))
+    _require(got == want, f"{tag}: {got} kernel #3 launches, the recurrence implies {want}")
+    count(f"{tag} mg BiCGStab", {"spmv_stencil": spmv_stencil_cuda.launches,
+                                 "spmv_stencil_wide": spmv_stencil_wide_cuda.launches})
+    slab64 = generators.convection_diffusion_level_slab(R5_CONV_EPS, dtype=np.float64)
+    n0 = grid[0] // R5_SHARDS
+    rel = _r5_true_rel(
+        res.x, lambda i: torch.from_numpy(slab64(0, grid, i * n0, (i + 1) * n0)).to(dev),
+        lambda i: torch.from_numpy(generators.convection_diffusion_rhs_slab(
+            grid, i * n0, (i + 1) * n0, dtype=np.float64)).to(dev), A.shifts, grid[0])
+    _require(rel <= R5_CONV_TRUE, f"{tag}: true fp64 relative residual {rel:.3e} > "
+                                  f"{R5_CONV_TRUE}")
+    fn = lambda: solve(b, x0)
+    walls = _wall_median_ms(fn, R5_CONV_REPS)
+    print(f"{tag} (rung5.make_rung5_mg_nonsym BiCGStab, build_hierarchy_redisc Jacobi, levels "
+          f"{_r5_levels(h)} + dense {h.coarse_inv.shape[0]}): {its} iterations, rel_l2 "
+          f"{float(res.residual):.3e}, true fp64 relative residual {rel:.3e}; kernel #3 launches "
+          f"{got} = {want} implied; assembly {t_asm:.3f} s, setup {t_setup:.3f} s, first call "
+          f"{t_first:.3f} s, warm wall {_fmt_wall(walls, R5_CONV_REPS)} [{card}]")
+
+
+def _rung5(dev, card, count, errs, times):
+    """The rung-5 phase: (a) 511^3 Poisson MGCG on four shards of the card
+    (slab-by-slab assembly, the probed setup, the masked MGCG), (d) kernel
+    #3 on one of its shards' slabs, (b) the probed build against the host
+    build, (c) the rediscretized 256^3 convection by mg BiCGStab."""
+    mesh = make_mesh(R5_SHARDS, devices=[dev] * R5_SHARDS)
+    t0 = time.perf_counter()
+    h, A = _r5_poisson(mesh, dev, card, count)
+    print(f"phase: rung 5 (a) in {time.perf_counter() - t0:.1f} s")
+    errs["spmv_stencil"] = max(errs["spmv_stencil"], _r5_slab_kernel(h, dev, card, times))
+    del h, A
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _r5_build_vs_host(mesh, dev, card, count)
+    print(f"phase: rung 5 (b) in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _r5_convection(mesh, dev, card, count)
+    print(f"phase: rung 5 (c) in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6538,8 +6925,8 @@ def main() -> int:
     print(f"phase: least squares, s-step, deflation, adjoints in {time.perf_counter() - t0:.1f} s")
 
     # -- the eigensolvers, counted: LOBPCG through api.eigs on Poisson
-    # 1023^2 (#5, the V-cycle's kernels) in fp32 and fp64, generalized on
-    # 511^2 (#5 for A and B), Arnoldi at the JAX package's 511^2 convection
+    # 511^2 (#5, the V-cycle's kernels) in fp32 and fp64, generalized on
+    # 255^2 (#5 for A and B), Arnoldi at the JAX package's 511^2 convection
     # workload (#4), shift-invert (inner IDR on #4, the residual block on
     # #5); card against CPU; #5 at LOBPCG's 3k = 24 -------------------------
     t0 = time.perf_counter()
@@ -6587,6 +6974,16 @@ def main() -> int:
     _sharded_nonsym(nat, fsys, dev, card, count)
     del nat
     print(f"phase: sharded nonsymmetric in {time.perf_counter() - t0:.1f} s")
+
+    # -- rung 5, counted: Poisson 511^3 assembled slab by slab onto 4 shards
+    # of the card, its hierarchy probed on the shards (#3 a shard a probe),
+    # MGCG; #3 on one rung-5 shard's slab; the probed build against the
+    # host build at 127^3; the rediscretized convection 256^3 by mg
+    # BiCGStab (#3 a shard) ---------------------------------------------
+    t0 = time.perf_counter()
+    r5_times = {}
+    _rung5(dev, card, count, errs, r5_times)
+    print(f"phase: rung 5 in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: times -----------------------------------------------------
     times = {}
@@ -6667,8 +7064,9 @@ def main() -> int:
             r.update(split_by_shape=many_splits, past_256_diagonals=many_times[r["name"]])
         if r["name"] == "spmv_dia":  # the nonsymmetric twin's transpose, fp32
             r["transposed_dia"] = transposed
-        if r["name"] == "spmv_stencil":  # one shard's extended 256^3 slab
+        if r["name"] == "spmv_stencil":  # one shard's extended 256^3 and 511^3 slabs
             r["shard_slab"] = shard_times["shard slab"]
+            r["rung5_slab"] = r5_times["rung5 slab"]
         if r["name"] == "spmm_dia":  # one shard's extended flagship DIA, k = 4
             r["shard_dia"] = shard_times["shard dia"]
     print(f"run: {time.perf_counter() - t_run:.1f} s after the build")

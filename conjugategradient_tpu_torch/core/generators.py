@@ -6,8 +6,10 @@ reference's drivers, the Poisson matrices of the multigrid path and the
 variable-coefficient diffusion family of the Galerkin MGCG path, the
 anisotropic Laplacian of the semicoarsening path, and the nonsymmetric and
 indefinite systems of the Krylov family (convection-diffusion, Helmholtz,
-the nonsymmetric banded twin), and the per-row-block generators
-(``b_rows``, ``x0_rows``, ``system_rows``) behind the sharded assembly.  The
+the nonsymmetric banded twin), the per-row-block generators
+(``b_rows``, ``x0_rows``, ``system_rows``) behind the sharded assembly,
+and the per-slab convection generators behind the rung-5 assembly
+(``convection_diffusion_level_slab``, ``convection_diffusion_rhs_slab``).  The
 same numpy code, so the systems are bit-identical to the JAX package's (the
 tests compare them element by element).
 """
@@ -573,6 +575,55 @@ def convection_diffusion_coarse_operator(
         )
 
     return cb
+
+
+def convection_diffusion_level_slab(
+    eps: float,
+    velocity="recirculating",
+    scheme: str = "upwind",
+    dtype=np.float32,
+):
+    """Per-slab assembly callback for sharded rediscretized hierarchies
+    (``precond.distributed.build_hierarchy_redisc``): returns
+    ``slab(level, grid_l, lo0, hi0) -> (nlegs, hi0-lo0, *grid_l[1:])``
+    stencil legs for axis-0 planes [lo0, hi0) of hierarchy level ``level``.
+
+    Level ``l`` carries the calibrated rediscretization
+    (``convection_diffusion_coarse_operator``): ``0.5**l *
+    A_gen(eps / 2**l, v)``.  Leg order is sorted unit shifts, the DIA
+    offset order of the rows builders and ``dia_to_stencil``'s order
+    (``parallel.rung5.unit_shifts``).  Closed form in the row index, so no
+    host holds a whole level."""
+
+    def slab(level: int, grid_l, lo0: int, hi0: int) -> np.ndarray:
+        grid_l = tuple(grid_l)
+        rows = (
+            convection_diffusion_rows
+            if len(grid_l) == 2
+            else convection_diffusion3d_rows
+        )
+        stride = int(np.prod(grid_l[1:]))
+        _offs, data = rows(
+            grid_l, lo0 * stride, hi0 * stride, eps=eps / (2.0 ** level),
+            velocity=velocity, scheme=scheme, dtype=dtype,
+        )
+        data = data * np.asarray(0.5 ** level, dtype=dtype)
+        return data.reshape((data.shape[0], hi0 - lo0) + grid_l[1:])
+
+    return slab
+
+
+def convection_diffusion_rhs_slab(
+    grid, lo0: int, hi0: int, dtype=np.float32, seed: int = 0
+) -> np.ndarray:
+    """Axis-0 slab [lo0, hi0) of ``convection_diffusion_system``'s
+    right-hand side (closed form in the flat index; the convection twin of
+    ``parallel.rung5.poisson_rhs_slab``)."""
+    grid = tuple(grid)
+    stride = int(np.prod(grid[1:]))
+    i = np.arange(lo0 * stride, hi0 * stride, dtype=np.float64)
+    b = np.sin(0.37 * i + seed) + 0.25 * np.cos(1.3 * i)
+    return b.astype(dtype).reshape((hi0 - lo0,) + grid[1:])
 
 
 def convection_diffusion_system(

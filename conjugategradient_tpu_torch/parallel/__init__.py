@@ -3,9 +3,9 @@ device): the port of ``conjugategradient_tpu/parallel``'s mesh, halo,
 sharded CG (DIA and CSR/ELL), the sharded nonsymmetric family
 (``shard_nonsym``), the sharded multigrid (``shard_mgcg``, ``shard_multi``),
 the distributed AMG (``shard_amg``), the GSPMD carriers as explicit
-collectives (``gspmd``) and the single-process half of ``multihost``.
-``rung5`` and ``precond.distributed`` are still to port (ROADMAP queue 1:
-parallel)."""
+collectives (``gspmd``), the single-process half of ``multihost`` and
+rung 5 (``rung5``: systems assembled slab by slab onto the shards, solved
+over the hierarchies ``precond.distributed`` builds on them)."""
 
 from conjugategradient_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from conjugategradient_tpu_torch.parallel.halo import (  # noqa: F401

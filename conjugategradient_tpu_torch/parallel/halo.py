@@ -39,11 +39,15 @@ zero grid rows each side, and kernel #3 (``ops.cuda_stencil.
 spmv_stencil_cuda``, tuned or wide by ``var_route``) runs on the extended
 slab; the local rows are the middle of its result.  The wrapped halos at
 the global edges meet the legs' structural zeros, as in the JAX package.
+Legs assembled inside such extended slabs in the first place
+(``zero_halo_slab``, a ``SlabStencil``'s) are taken as they are by
+``HaloStencil.from_slabs``.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -329,6 +333,17 @@ def extend_grid_rows(legs: torch.Tensor, halo0: int) -> torch.Tensor:
     return F.pad(legs, pad).contiguous()
 
 
+def zero_halo_slab(nlegs: int, local, halo0: int, dtype, device):
+    """A shard's legs allocated inside a zeroed slab: ``(slab, legs)``, the
+    slab ``(nlegs, n0 + 2*halo0, *rest)`` and the legs its middle rows
+    ``(nlegs, n0, *rest)`` (a view), which an assembly fills.
+    ``HaloStencil.from_slabs`` takes such slabs as its extended legs, with
+    no second copy."""
+    local = tuple(int(n) for n in local)
+    slab = torch.zeros((nlegs, local[0] + 2 * halo0) + local[1:], dtype=dtype, device=device)
+    return slab, slab.narrow(1, halo0, local[0])
+
+
 class HaloStencil(_HaloBuffers):
     """The sharded stencil product of the sharded V-cycle: each shard's
     axis-0 block of the legs extended once (``extend_grid_rows``), and two
@@ -341,20 +356,32 @@ class HaloStencil(_HaloBuffers):
     ``ppermute`` pair, the slabs of every column together), and runs
     kernel #3 on the extended slab once a shard (once a column a shard for
     a block, as ``ops.stencil.spmm_columns`` does); the local rows are the
-    middle of the result.  ``sibling()`` gives an operator over the same
-    extended legs with buffers of its own, for a second user.
+    middle of the result.  ``from_slabs`` takes legs extended already
+    (``zero_halo_slab``'s slabs) as they are.  ``sibling()`` gives an
+    operator over the same extended legs with buffers of its own, for a
+    second user.
     ``halo_bytes`` is what one product of one column moves between
     shards."""
 
     def __init__(self, legs: Shards, shifts, halo0: int):
-        local = tuple(legs.shape[1:])  # (n0, *rest)
-        super().__init__(legs.mesh, int(halo0), local)
-        H = self.halo
+        H = int(halo0)
+        self._setup(Shards.map(lambda d: extend_grid_rows(d, H), legs), shifts, H)
+
+    @classmethod
+    def from_slabs(cls, slabs: Shards, shifts, halo0: int) -> "HaloStencil":
+        """The product over legs extended already: each shard's ``(L, n0 +
+        2*halo0, *rest)`` slab, zero in its ``halo0`` first and last grid
+        rows, taken as it is."""
+        op = cls.__new__(cls)
+        op._setup(slabs, shifts, int(halo0))
+        return op
+
+    def _setup(self, slabs: Shards, shifts, H: int):
+        ext = tuple(slabs.shape[1:])
+        super().__init__(slabs.mesh, H, (ext[0] - 2 * H,) + ext[1:])
         self.shifts = tuple(tuple(int(v) for v in s) for s in shifts)
-        ext = (local[0] + 2 * H,) + local[1:]
-        self.mats = Shards.map(
-            lambda d: StencilMatrix(extend_grid_rows(d, H), self.shifts, ext), legs)
-        self.halo_bytes = self.mesh.size * 2 * H * math.prod(local[1:]) * legs.dtype.itemsize
+        self.mats = Shards.map(lambda d: StencilMatrix(d, self.shifts, ext), slabs)
+        self.halo_bytes = self.mesh.size * 2 * H * math.prod(ext[1:]) * slabs.dtype.itemsize
 
     def sibling(self) -> "HaloStencil":
         """The same operator (the same extended legs) with buffers of its
@@ -386,3 +413,20 @@ def spmv_stencil_shard(legs: Shards, shifts, x: Shards, halo0: int) -> Shards:
     slab.  The one-call form of ``HaloStencil`` (which builds the extended
     legs once for many products)."""
     return HaloStencil(legs, shifts, halo0)(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabStencil(StencilMatrix):
+    """A grid stencil assembled onto the shards (``parallel.rung5``):
+    ``data`` is a ``Shards`` of axis-0 blocks ``(nlegs, g0 / num, *rest)``,
+    each the middle rows of its shard's zeroed slab in ``slabs``, ``halo0``
+    grid rows wider on each side (``zero_halo_slab``); ``op()`` is the
+    sharded product over those slabs themselves.  ``real0`` is axis 0's
+    real extent: the rows from it on are identity padding."""
+
+    slabs: Shards
+    halo0: int
+    real0: int
+
+    def op(self) -> HaloStencil:
+        return HaloStencil.from_slabs(self.slabs, self.shifts, self.halo0)

@@ -313,8 +313,8 @@ class GridSplit(NamedTuple):
 def specs_for_grid(g, mesh: Mesh, axes) -> GridSplit:
     """The JAX package's rule: the leading ``len(axes)`` grid axes that
     divide their mesh axes shard, the others replicate (NamedSharding
-    requires even divisibility).  Shared by ``parallel.gspmd`` and, when it
-    is ported, ``precond.distributed``.  The JAX function returns the
+    requires even divisibility).  Shared by ``parallel.gspmd`` and
+    ``precond.distributed``.  The JAX function returns the
     (data, vector) PartitionSpecs; torch has none, so this returns the
     split they describe (``GridSplit``): the sharded axes, and the local
     extent, which is the global one on every replicated axis."""

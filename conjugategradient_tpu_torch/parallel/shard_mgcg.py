@@ -276,6 +276,39 @@ class ShardLevel:
     sa_smooth: bool
 
 
+@dataclasses.dataclass
+class ShardHierarchy:
+    """A hierarchy built on the mesh, already split and placed: ``levels``
+    the sharded levels (``ShardLevel``, each over the builder's slabs of
+    legs in its ``HaloStencil``), ``tail`` the replicated levels and the
+    coarse inverse on the mesh's first device (an ``MgHierarchy``, which
+    also holds the cycle's smoother settings), ``grid`` the fine grid,
+    ``mesh`` the mesh, ``real0`` the fine grid's real extent of axis 0 (the
+    rows from it on are identity padding).  What ``precond.distributed``'s
+    builders return and ``make_shard_vcycle(hierarchy=)`` takes as it is:
+    nothing is gathered or copied.  ``setup_s`` splits the builder's
+    host-clock seconds by phase, ``host_reads`` counts its device-to-host
+    reads, ``setup_products`` lists each level's (grid, shards, stencil
+    products) of the setup and ``near_null`` each coarsened level's (grid,
+    constant's Rayleigh quotient, checkerboard's, transfer) as read."""
+
+    levels: Tuple[ShardLevel, ...]
+    tail: MgHierarchy
+    grid: GridShape
+    mesh: Mesh
+    real0: int
+    setup_s: dict = dataclasses.field(default_factory=dict)
+    host_reads: int = 0
+    setup_products: Tuple[Tuple[GridShape, int, int], ...] = ()
+    near_null: Tuple[Tuple[GridShape, float, float, str], ...] = ()
+
+    coarse_inv = property(lambda self: self.tail.coarse_inv)
+    smoother = property(lambda self: self.tail.smoother)
+    pre = property(lambda self: self.tail.pre)
+    post = property(lambda self: self.tail.post)
+    omega = property(lambda self: self.tail.omega)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
     """What a sharded V-cycle runs: ``n_sharded`` levels on row blocks (each
@@ -356,8 +389,17 @@ def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre
     Returns ``(h, n_sharded, levels, rep_h)``: the hierarchy, the split,
     the ``ShardLevel``s and the replicated tail (an ``MgHierarchy`` of the
     remaining levels and the coarse inverse, on the first shard's
-    device)."""
+    device).  A ``ShardHierarchy`` is that split already: it is returned
+    as it is."""
     grid = tuple(grid)
+    if isinstance(hierarchy, ShardHierarchy):
+        if tuple(hierarchy.mesh.devices) != tuple(mesh.devices) or hierarchy.grid != grid:
+            raise ValueError(f"the hierarchy was built for {hierarchy.grid} on "
+                             f"{hierarchy.mesh}, not {grid} on {mesh}")
+        if not hierarchy.levels:
+            raise ValueError(f"fine grid {grid}: no level of the hierarchy shards over "
+                             f"{mesh.size} devices")
+        return hierarchy, len(hierarchy.levels), hierarchy.levels, hierarchy.tail
     h = hierarchy or build_hierarchy(A_dia, grid, smoother=smoother, pre=pre, post=post,
                                      dtype=dt, layout="stencil", device=mesh.devices[0],
                                      **build_kw)
@@ -455,9 +497,9 @@ def make_shard_vcycle(
     grid,
     mesh: Mesh,
     axis: str = "x",
-    smoother: str = "chebyshev",
-    pre: int = 2,
-    post: int = 2,
+    smoother: Optional[str] = None,
+    pre: Optional[int] = None,
+    post: Optional[int] = None,
     dtype=None,
     hierarchy: Optional[MgHierarchy] = None,
     **build_kw,
@@ -471,14 +513,32 @@ def make_shard_vcycle(
     rediscretized ``coarse_operator=`` levels, hybrid cell-centred
     transfers on even grids).  ``A_dia`` is the host fp64 DIA; ``dtype``
     (default its data's) is the cycle's and the hierarchy's when it is
-    built here (``build_kw`` to ``build_hierarchy``).
+    built here (``build_kw`` to ``build_hierarchy``); ``smoother``, ``pre``
+    and ``post`` are the hierarchy's (None: chebyshev, 2, 2 when it is
+    built here).  A ``ShardHierarchy`` (``precond.distributed``'s
+    builders) is taken as it is, its sharded levels and tail already
+    placed, with its own smoother settings and dtype: ``A_dia`` is then
+    unused, and a ``smoother``, ``pre``, ``post`` or ``dtype`` that
+    differs from the hierarchy's raises.
 
     ``M.plan`` is the ``ShardPlan`` (the one split computation of the
     sharded paths), ``M.op`` the fine level's ``HaloStencil`` with buffers
     of its own (the outer loop's product), ``M.hierarchy`` the
     hierarchy."""
     grid = tuple(grid)
-    dt = _np_dtype(dtype if dtype is not None else np.asarray(A_dia.data).dtype)
+    if isinstance(hierarchy, ShardHierarchy):
+        given = dict(smoother=smoother, pre=pre, post=post,
+                     dtype=None if dtype is None else torch_dtype(dtype))
+        own = dict(smoother=hierarchy.smoother, pre=hierarchy.pre, post=hierarchy.post,
+                   dtype=hierarchy.coarse_inv.dtype)
+        clash = {k: v for k, v in given.items() if v is not None and v != own[k]}
+        if clash:
+            raise ValueError(f"{clash} differ from the given hierarchy's {own}")
+        dt = None
+    else:
+        dt = _np_dtype(dtype if dtype is not None else np.asarray(A_dia.data).dtype)
+        smoother = "chebyshev" if smoother is None else smoother
+        pre, post = (2 if pre is None else pre), (2 if post is None else post)
     h, _, levels, rep_h = _prep_shard_hierarchy(A_dia, grid, mesh, axis, smoother, pre, post, dt,
                                                 hierarchy, **build_kw)
     M = make_vcycle(h, levels, rep_h, len(grid))

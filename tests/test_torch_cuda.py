@@ -1997,3 +1997,46 @@ def test_extended_region_dia_kernel_equals_global_rows(cuda, legs):
         lo = i * n_local - H
         yi = cuda_dia.spmv_dia_cuda(_square(ext.parts[i], s.A.offsets), p[lo:lo + n_local + 2 * H])
         assert torch.equal(yi[hb:-hb], y[lo + hb:lo + n_local + 2 * H - hb])
+
+
+def test_probed_hierarchy_on_the_card_equals_the_cpu_build(cuda):
+    """``precond.distributed.build_hierarchy_probed`` on four shards of
+    cuda:0 against the same build on four CPU shards, fp64: the same level
+    grids, transfers and leg sets, legs and ``inv_diag`` within 1e-12, the
+    coarse inverse within 1e-10, kernel #3 once a shard per setup product;
+    then the masked rung-5 MGCG on both: the same count, the padded plane
+    exactly 0."""
+    from conjugategradient_tpu_torch.parallel import make_mesh, rung5
+    from conjugategradient_tpu_torch.precond.distributed import build_hierarchy_probed
+
+    grid = (62, 40, 48)  # padded to 64 rows of axis 0, 16 a shard
+    pol = ConvergencePolicy(tol=1e-10, norm="rel_l2", max_iteration=200)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = make_mesh(4, devices=[dev] * 4)
+        A, b, x0, padded, n_real = rung5.make_rung5_system(grid, m, dtype=np.float64)
+        cuda_stencil.reset_launch_counts()
+        h = build_hierarchy_probed(A, m, max_coarse=500)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launched = (cuda_stencil.spmv_stencil_cuda.launches
+                        + cuda_stencil.spmv_stencil_wide_cuda.launches)
+            assert launched == sum(shards * n for _, shards, n in h.setup_products)
+        res = rung5.make_rung5_mgcg(pol, h)(b, x0)
+        out[str(dev)] = (h, res)
+    (hc, rc), (hg, rg) = out["cpu"], out[str(cuda)]
+    assert len(hg.levels) == len(hc.levels) >= 2
+    assert len(hg.tail.levels) == len(hc.tail.levels)
+    for Lg, Lc in zip(hg.levels, hc.levels):
+        assert (Lg.grid, Lg.kind, Lg.op.shifts) == (Lc.grid, Lc.kind, Lc.op.shifts)
+        for mg, mc in zip(Lg.op.mats.parts, Lc.op.mats.parts):
+            assert float((mg.data.cpu() - mc.data).abs().max()) <= 1e-12
+        assert float((Lg.inv_diag.gather(0).cpu() - Lc.inv_diag.gather(0)).abs().max()) <= 1e-12
+    for Lg, Lc in zip(hg.tail.levels, hc.tail.levels):
+        assert (Lg.grid, Lg.transfer, Lg.A.shifts) == (Lc.grid, Lc.transfer, Lc.A.shifts)
+        assert float((Lg.A.data.cpu() - Lc.A.data).abs().max()) <= 1e-12
+    assert float((hg.coarse_inv.cpu() - hc.coarse_inv).abs().max()) <= 1e-10
+    assert rc.converged and rg.converged and rg.iterations == rc.iterations
+    xg = rg.x.gather().cpu()
+    assert bool((xg[grid[0]:] == 0).all())
+    assert float((xg - rc.x.gather()).abs().max() / rc.x.gather().abs().max()) <= 1e-9

@@ -5,6 +5,9 @@ Each JAX ``__init__`` is read with ``ast`` (nothing of it is imported, so
 no ``jax``), for each package the port mirrors: the root, ``core``,
 ``ops``, ``solvers``, ``precond``, ``models``, ``utils`` and ``parallel``.
 EXEMPT lists the only names allowed to be missing, each with its reason.
+Two JAX modules that no ``__init__`` re-exports, ``parallel/rung5.py`` and
+``precond/distributed.py``, are held whole (MODULES): the port's modules
+have every top-level function and class of theirs.
 """
 
 import ast
@@ -46,6 +49,21 @@ def test_port_has_every_public_name(package):
     assert names, f"no names read from the JAX {package or 'root'} __init__"
     missing = [n for n in names if not hasattr(port, n) and (package, n) not in EXEMPT]
     assert not missing, f"{package or 'root'}: the port lacks {missing}"
+
+
+#: JAX modules no ``__init__`` re-exports, held whole: every top-level
+#: function and class of the JAX module, private ones too, is in the port's
+MODULES = ["parallel/rung5.py", "precond/distributed.py"]
+
+
+@pytest.mark.parametrize("path", MODULES)
+def test_port_module_has_every_top_level_function(path):
+    tree = ast.parse((JAX_PKG / path).read_text())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert names, f"no functions read from the JAX {path}"
+    port = importlib.import_module("conjugategradient_tpu_torch." + path[:-3].replace("/", "."))
+    missing = [n for n in names if not callable(getattr(port, n, None))]
+    assert not missing, f"{path}: the port lacks {missing}"
 
 
 def test_exemptions_are_exactly_the_missing_names():
