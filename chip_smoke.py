@@ -259,6 +259,20 @@ after:
   one shard's Chebyshev-block extended DIA against its twin, timed beside
   its bound and cuSPARSE; warm medians of the mg_bicgstab solves and the
   busy shares of their 3-iteration windows.
+- The eigensolvers over a mesh and the 2-D block partitions, on 4 shards of
+  the card: ``api.eigs(mesh=)`` by LOBPCG on Poisson 1024^2 k = 8 in fp32
+  (the sharded V-cycle as M; #5 once a shard a pass; the values within
+  their Rayleigh-quotient bounds of the closed form and of the one-device
+  eigs), ``gspmd_arnoldi_eigs`` LM k = 6 on convection 512^2 (#4 once a
+  shard a matvec; against the one-device run); then on a (2, 2) mesh of
+  the card beside the 1-D 4 shards: ``gspmd_mgcg`` on Poisson 256^3 and
+  ``api.solve(method="mg_bicgstab", axes=("x", "y"))`` on convection
+  1024^2 (the 1-D counts), ``gspmd_refined_solve`` on jump 512^2 (a true
+  fp64 ||r||_2 under 1e-10, the outer residual on #3 in fp64 a block),
+  ``build_hierarchy_probed(axes=("x", "y"))`` on 256^3 by plain
+  aggregation (legs bit-equal to the 1-D build's, the same MGCG count); #3 on the extended 2-D blocks
+  and #5 on a 1024^2 shard at k = 8 against their twins, timed (the
+  record's ``block_2d`` and ``eig_shard``); warm walls and busy shares.
 - Rung 5, on 4 shards of the card: Poisson 511^3 fp32 identity-padded to
   512 x 511 x 511 (133,432,831 real rows) and assembled slab by slab
   (``parallel.rung5.make_rung5_system``; the assembly's peak host bytes,
@@ -406,7 +420,7 @@ from conjugategradient_tpu_torch.parallel.halo import (
     extend_grid_rows,
     extend_rows,
 )
-from conjugategradient_tpu_torch.parallel.mesh import shard_rows
+from conjugategradient_tpu_torch.parallel.mesh import Mesh, shard_rows
 from conjugategradient_tpu_torch.parallel.shard_mgcg import _const_legs
 from conjugategradient_tpu_torch.parallel.shard_multi import sharded_cg_multi_solve
 from conjugategradient_tpu_torch.parallel.multihost import make_distributed_system
@@ -6665,6 +6679,479 @@ def _rung5(dev, card, count, errs, times):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the eigensolvers over a mesh and the 2-D block partitions
+# ---------------------------------------------------------------------------
+
+M2_SHARDS = 4
+#: LOBPCG through api.eigs(mesh=) on Poisson M2_EIG_GRID in fp32, M the
+#: sharded V-cycle on each shard's (k, n / 4) rows
+M2_EIG_GRID = (1024, 1024)
+M2_EIG_K = 8
+#: gspmd_arnoldi_eigs LM on convection-diffusion M2_ARN_GRID eps CD_EPS in
+#: fp32 at the eigensolvers phase's tol.  The top of this nonnormal
+#: spectrum is a cluster (moduli 3.1137-3.1241, a CPU run) in which two
+#: fp32 runs of different rounding converge to different Ritz pairs (the
+#: 4-shard and the one-device sets 8.2e-2 apart as sets on the card, each
+#: pair with a true residual at its bound), so the runs are held to each
+#: other by the largest modulus, relative (M2_ARN_AGREE: the cluster's
+#: moduli span 3.3e-3 of it; the card's two runs 2.5e-3 apart, the CPU's
+#: 2.6e-5), and each to its true residuals.  m = 48: at CD_M = 32 neither the
+#: one-device nor the 4-shard fp32 run reaches 2e-6 at 512^2 in 60 restarts
+#: (CPU runs: 3.4e-5 and 1.5e-5 relative; the 4-shard run on the card too),
+#: at 48 both do (749 and 664 matvecs on the CPU)
+M2_ARN_GRID = (512, 512)
+M2_ARN_K = 6
+M2_ARN_M = 48
+M2_ARN_TOL = 2e-6
+M2_ARN_AGREE = 1e-2
+#: the (2, 2) mesh of the 2-D block partitions
+M2_DIMS = (2, 2)
+#: gspmd_refined_solve on jump diffusion M2_REF_GRID to a true fp64 ||r||_2
+M2_REF_GRID = (512, 512)
+M2_REF_TOL = 1e-10
+#: PR 19's and PR 20's 4-shard 1-D counts, printed beside this run's
+M2_1D_BEFORE = {"gspmd_mgcg Poisson 256^3": 5, "mg_bicgstab convection 1024^2": 11}
+M2_REPS = 3
+#: mg_bicgstab's profiled window: one iteration (a 3-iteration window's
+#: 11,257 device ops took 10.4 s to trace and read on the card)
+M2_WINDOW = 1
+#: the probed builds compared on 256^3 by plain aggregation: 27 probes a
+#: level, where the hybrid transfers' cell-centred levels take 125 (8.8 and
+#: 9.3 s a build on the card, against the phase's 90-s budget)
+M2_PROBED_KIND = "agg"
+
+
+def _m2_mesh(dev) -> Mesh:
+    return Mesh([[dev] * M2_DIMS[1]] * M2_DIMS[0], ("x", "y"))
+
+
+def _m2_lobpcg(dev, card, count):
+    """``api.eigs(mesh=)`` by LOBPCG on Poisson M2_EIG_GRID, k = M2_EIG_K,
+    the sharded V-cycle as M: #5 four times per pass (once a shard), the
+    values against the closed form and the one-device ``lobpcg`` (the
+    one-device block V-cycle) within their Rayleigh-quotient bounds, true
+    residuals, warm walls of both."""
+    from conjugategradient_tpu_torch.solvers.lobpcg import gspmd_lobpcg, lobpcg
+
+    k, g = M2_EIG_K, M2_EIG_GRID
+    s = generators.poisson_system(g)
+    A = s.A
+    csr = to_scipy(A).tocsr()
+    exact = _poisson_closed_form(g, k + 4)
+    distinct = np.unique(np.round(exact, 12))
+    m4 = make_mesh(M2_SHARDS, devices=[dev] * M2_SHARDS)
+    tag = f"eigs lobpcg on {M2_SHARDS} shards Poisson {g} k={k} SM sharded V-cycle fp32"
+    _reset_counts()
+    t0 = time.perf_counter()
+    r = api.eigs(A, k=k, which="SM", grid=g, mesh=m4, spd=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _eig_counts()
+    its = r.restarts
+    _require(r.converged, f"{tag}: not converged in {its} iterations")
+    per_shard = len(k_chunks(k)) + its * len(k_chunks(3 * k))
+    _require(got["spmm_dia"] == M2_SHARDS * per_shard,
+             f"{tag}: {got['spmm_dia']} spmm_dia launches, {M2_SHARDS} x {per_shard} implied")
+    _require(got["spmv_stencil"] + got["spmv_stencil_wide"] > 0, f"{tag}: no V-cycle #3 launch")
+    count(f"mesh eigensolvers: {tag}", got)
+    lam, X = r.values.real, r.vectors.real
+    true = _true_pair_residuals(csr, X, lam)
+    ratio = _check_true(tag, true, r.residuals, _floor(A, torch.float32, lam))
+    bound = _rq_bounds(csr, X, lam, distinct)
+    closed = np.abs(lam - exact[:k])
+    _require(np.all(closed <= bound + 1e-12 * exact[:k]),
+             f"{tag}: |values - closed form| {closed} beyond the Rayleigh-quotient bounds {bound}")
+    M = api._eig_vcycle(A, g, torch.float32, dev, m4)
+    M1 = api._eig_vcycle(A, g, torch.float32, dev, None)
+    t1 = time.perf_counter()
+    r1 = lobpcg(A, k, M=M1, tol=1e-5, device=dev)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t1
+    _require(r1.converged, f"{tag}: the one-device lobpcg did not converge")
+    lam1 = r1.eigenvalues.double().cpu().numpy()
+    bound1 = _rq_bounds(csr, r1.eigenvectors.double().cpu().numpy(), lam1, distinct)
+    diff = np.abs(lam - lam1)
+    _require(np.all(diff <= bound + bound1), f"{tag}: against the one-device lobpcg {diff} beyond "
+             f"{bound + bound1}")
+    w4 = _wall_ms(lambda: gspmd_lobpcg(A, k, m4, M=M, tol=1e-5))
+    w1 = _wall_ms(lambda: lobpcg(A, k, M=M1, tol=1e-5, device=dev))
+    print(f"{tag}: {its} iterations (one-device lobpcg {r1.iterations}), values "
+          f"{np.array2string(lam, precision=8)}, |values - closed form| max "
+          f"{closed.max():.3e} within the Rayleigh-quotient bounds (max {bound.max():.3e}), "
+          f"against the one-device values max {diff.max():.3e}; true residuals worst "
+          f"{true.max():.3e} (true/reported {ratio:.3f}); spmm_dia launches {got['spmm_dia']} = "
+          f"{M2_SHARDS} x {per_shard} ({per_shard} a shard), V-cycle #3 launches "
+          f"{got['spmv_stencil']} tuned + {got['spmv_stencil_wide']} wide; wall with the setup "
+          f"{wall:.3f} s (one-device lobpcg's first call {wall1:.3f} s); warm gspmd_lobpcg "
+          f"{w4:.3f} ms, one-device lobpcg {w1:.3f} ms on the same M [{card}]")
+
+
+def _m2_arnoldi(dev, card, count):
+    """``gspmd_arnoldi_eigs`` LM on convection-diffusion M2_ARN_GRID: #4 four
+    times a matvec (once a shard), both runs' true residuals, the largest
+    modulus against the one-device ``arnoldi_eigs``'s at the same m and tol
+    (M2_ARN_AGREE), warm walls."""
+    from conjugategradient_tpu_torch.solvers.arnoldi import arnoldi_eigs, gspmd_arnoldi_eigs
+
+    g = M2_ARN_GRID
+    A = generators.convection_diffusion_matrix(g, eps=CD_EPS)
+    csr = to_scipy(A).tocsr()
+    m4 = make_mesh(M2_SHARDS, devices=[dev] * M2_SHARDS)
+    kw = dict(k=M2_ARN_K, which="LM", tol=M2_ARN_TOL, m=M2_ARN_M, precise_dot=True,
+              dtype=torch.float32)
+    tag = (f"gspmd_arnoldi_eigs on {M2_SHARDS} shards convection {g} eps {CD_EPS} LM "
+           f"k={M2_ARN_K} tol {M2_ARN_TOL} m={M2_ARN_M} fp32")
+    _reset_counts()
+    r = gspmd_arnoldi_eigs(A, mesh=m4, **kw)
+    torch.cuda.synchronize()
+    got = _eig_counts()
+    _require(r.converged, f"{tag}: not converged in {r.restarts} restarts")
+    _require(got["spmv_dia"] == M2_SHARDS * r.matvecs,
+             f"{tag}: {got['spmv_dia']} spmv_dia launches for {r.matvecs} matvecs on "
+             f"{M2_SHARDS} shards")
+    count(f"mesh eigensolvers: {tag}", got)
+    true = _true_pair_residuals(csr, r.vectors, r.values)
+    ratio = _check_true(tag, true, r.residuals,
+                        _floor(A, torch.float32, r.values) * np.sqrt(M2_ARN_M))
+    t0 = time.perf_counter()
+    r1 = arnoldi_eigs(A, device=dev, **kw)
+    torch.cuda.synchronize()
+    first1 = (time.perf_counter() - t0) * 1e3
+    _require(r1.converged, f"{tag}: the one-device run did not converge")
+    true1 = _true_pair_residuals(csr, r1.vectors, r1.values)
+    _check_true(f"{tag} (one device)", true1, r1.residuals,
+                _floor(A, torch.float32, r1.values) * np.sqrt(M2_ARN_M))
+    diff = float(np.max(np.abs(_as_set(r.values) - _as_set(r1.values))))
+    scale = float(np.max(np.abs(r1.values)))
+    top = abs(float(np.max(np.abs(r.values))) - scale)
+    _require(top <= M2_ARN_AGREE * scale, f"{tag}: largest modulus {top:.3e} from the one-device "
+             f"run's {scale:.6f}")
+    w4 = _wall_ms(lambda: gspmd_arnoldi_eigs(A, mesh=m4, **kw))
+    w1 = _wall_ms(lambda: arnoldi_eigs(A, device=dev, **kw))
+    print(f"{tag}: {r.matvecs} matvecs, {r.restarts} restarts (one device {r1.matvecs}, "
+          f"{r1.restarts}), values {np.array2string(r.values, precision=7)} (one device "
+          f"{np.array2string(r1.values, precision=7)}), max |diff| as sets {diff:.2e}, largest "
+          f"moduli {top:.2e} apart (of {scale:.6f}); true fp64 residuals worst {true.max():.2e} "
+          f"(true/reported {ratio:.3f}); spmv_dia launches {got['spmv_dia']} = {M2_SHARDS} x "
+          f"{r.matvecs}; warm walls {w4:.3f} ms on {M2_SHARDS} shards, {w1:.3f} ms on one "
+          f"device (its first call {first1:.3f} ms) [{card}]")
+
+
+def _m2_solve_pair(tag, runs, true_of, count, card, fp32=True):
+    """The 1-D and 2-D runs of one route, each counted from a reset: both
+    converged, equal counts, true residuals; returns the results."""
+    out = {}
+    for name, fn in runs.items():
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _eig_counts()
+        _require(bool(res.converged), f"{tag} {name}: not converged")
+        true = true_of(res)
+        count(f"2-D blocks: {tag} {name}", got, fp32=fp32)
+        out[name] = (res, got, wall, true)
+        nz = {k: v for k, v in got.items() if v}
+        print(f"{tag} {name}: {_its(res)} iterations, true residual {true:.3e}, first call "
+              f"{wall:.3f} s; launches {nz} [{card}]")
+    return out
+
+
+def _its(res):
+    return getattr(res, "outer_iterations", None) or res.iterations
+
+
+def _m2_mgcg(poisson3, dev, card, count):
+    """``make_gspmd_mgcg`` on Poisson 256^3 (its Galerkin hierarchy) over
+    the 1-D 4-shard mesh and the (2, 2) mesh: the same count, x within
+    PAR_X_AGREE, warm walls and the 2-D solve's busy share."""
+    from conjugategradient_tpu_torch.parallel.gspmd import make_gspmd_mgcg
+
+    s3, h3 = poisson3
+    g = KIND_GRID_3D
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    meshes = {"1-D (4,)": (make_mesh(M2_SHARDS, devices=[dev] * M2_SHARDS), ("x",)),
+              "2-D (2, 2)": (_m2_mesh(dev), ("x", "y"))}
+    solves, made = {}, {}
+    for name, (mesh, axes) in meshes.items():
+        t0 = time.perf_counter()
+        solve, (b, x0) = make_gspmd_mgcg(s3, g, mesh, pol, axes=axes, hierarchy=h3,
+                                         dtype=np.float32)
+        torch.cuda.synchronize()
+        made[name] = round(time.perf_counter() - t0, 3)
+        _require(solve.n_sharded >= 1, f"gspmd_mgcg 256^3 {name}: did not shard")
+        solves[name] = (solve, b, x0)
+    tag = f"gspmd_mgcg Galerkin Poisson {g}"
+    out = _m2_solve_pair(tag, {k: (lambda v=v: v[0](v[1], v[2])) for k, v in solves.items()},
+                         lambda r: _host_rel_residual(s3.A, s3.b, r.x.double().cpu().numpy()),
+                         count, card)
+    (r1, _, _, t1), (r2, _, _, t2) = out["1-D (4,)"], out["2-D (2, 2)"]
+    _require(max(t1, t2) <= TRUE_REL, f"{tag}: true residuals {t1:.3e}, {t2:.3e}")
+    _require(r2.iterations == r1.iterations, f"{tag}: 2-D {r2.iterations} iterations, 1-D "
+             f"{r1.iterations}")
+    dx = float((r2.x - r1.x).abs().max() / r1.x.abs().max())
+    _require(dx <= PAR_X_AGREE[torch.float32], f"{tag}: 2-D x {dx:.3e} from the 1-D x")
+    walls = {k: _wall_median_ms(lambda v=v: v[0](v[1], v[2]), M2_REPS) for k, v in solves.items()}
+    solve2, b2, x02 = solves["2-D (2, 2)"]
+    busy = _par_profile(f"{tag} 2-D (2, 2)", lambda: solve2(b2, x02), walls["2-D (2, 2)"][0], card)
+    plan = solve2.plan
+    print(f"{tag}: 2-D {r2.iterations} iterations = 1-D {r1.iterations} (PR 19's 1-D: "
+          f"{M2_1D_BEFORE['gspmd_mgcg Poisson 256^3']}), x within {dx:.3e}; 2-D plan: sharded "
+          f"levels {list(plan.levels)}, tail {list(plan.tail)}, halo bytes a cycle "
+          f"{plan.halo_bytes_per_cycle}, cc bytes {plan.cc_bytes_per_cycle}; warm walls "
+          f"{ {k: _fmt_wall(w, M2_REPS) for k, w in walls.items()} }, 2-D busy {busy:.1%}; "
+          f"make_gspmd_mgcg s (placing the levels) {made} [{card}]")
+    return solve2
+
+
+def _m2_mg_bicgstab(dev, card, count):
+    """``api.solve(method="mg_bicgstab", mesh=, axes=)`` on convection
+    SNS_GRID eps NONSYM_EPS over the 1-D and the (2, 2) mesh: the same
+    count, true residuals, warm walls on one hierarchy and the 2-D
+    3-iteration window's busy share."""
+    from conjugategradient_tpu_torch.parallel.gspmd import make_gspmd_mg_nonsym
+
+    g = SNS_GRID
+    s = generators.convection_diffusion_system(g, eps=NONSYM_EPS)
+    co = generators.convection_diffusion_coarse_operator(NONSYM_EPS)
+    meshes = {"1-D (4,)": (make_mesh(M2_SHARDS, devices=[dev] * M2_SHARDS), ("x",)),
+              "2-D (2, 2)": (_m2_mesh(dev), ("x", "y"))}
+    opts = dict(method="mg_bicgstab", grid=g, coarse_operator=co, tol=TOL, norm="rel_l2",
+                max_iteration=SNS_CAP, dtype=np.float32)
+    tag = f"api.solve mg_bicgstab convection {g} eps {NONSYM_EPS}"
+    out = _m2_solve_pair(tag, {k: (lambda v=v: api.solve(s.A, s.b, mesh=v[0], axes=v[1], **opts))
+                               for k, v in meshes.items()},
+                         lambda r: _host_rel_residual(s.A, s.b, r.x.double().cpu().numpy()),
+                         count, card)
+    (r1, _, _, t1), (r2, _, _, t2) = out["1-D (4,)"], out["2-D (2, 2)"]
+    _require(max(t1, t2) <= TRUE_REL, f"{tag}: true residuals {t1:.3e}, {t2:.3e}")
+    _require(r2.iterations == r1.iterations, f"{tag}: 2-D {r2.iterations} iterations, 1-D "
+             f"{r1.iterations}")
+    h = build_hierarchy(s.A, g, smoother="jacobi", coarse_operator=co, dtype=np.float32,
+                        device=dev)
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2", max_iteration=SNS_CAP)
+    walls, windows = {}, {}
+    for name, (mesh, axes) in meshes.items():
+        solve, (b, x0) = make_gspmd_mg_nonsym(s.A, s.b, g, mesh, pol, axes=axes, hierarchy=h,
+                                              dtype=np.float32)
+        walls[name] = _wall_median_ms(lambda: solve(b, x0), M2_REPS)
+        win, (bw, xw) = make_gspmd_mg_nonsym(s.A, s.b, g, mesh,
+                                             dataclasses.replace(pol, max_iteration=M2_WINDOW),
+                                             axes=axes, hierarchy=h, dtype=np.float32)
+        windows[name] = (win, bw, xw)
+    win, bw, xw = windows["2-D (2, 2)"]
+    run = lambda: win(bw, xw)
+    busy = _par_profile(f"{tag} 2-D (2, 2) {M2_WINDOW}-iteration window", run, _wall_ms(run), card)
+    print(f"{tag}: 2-D {r2.iterations} iterations = 1-D {r1.iterations} (PR 20's 1-D: "
+          f"{M2_1D_BEFORE['mg_bicgstab convection 1024^2']}); warm walls "
+          f"{ {k: _fmt_wall(w, M2_REPS) for k, w in walls.items()} }, the 2-D window's busy "
+          f"{busy:.1%} [{card}]")
+
+
+def _m2_refined(dev, card, count):
+    """``gspmd_refined_solve`` on jump diffusion M2_REF_GRID over the 1-D
+    and the (2, 2) mesh (the 2-D outer residual on kernel #3 in fp64 a
+    shard, the 1-D on #4): a true fp64 ||r||_2 under M2_REF_TOL, outer
+    counts within 1."""
+    from conjugategradient_tpu_torch.parallel.gspmd import gspmd_refined_solve
+
+    g = M2_REF_GRID
+    s = generators.diffusion_system(g, kind="jump")
+    h = build_hierarchy(s.A, g, smoother="chebyshev", layout="stencil", dtype=np.float32,
+                        device=dev)
+    meshes = {"1-D (4,)": (make_mesh(M2_SHARDS, devices=[dev] * M2_SHARDS), ("x",)),
+              "2-D (2, 2)": (_m2_mesh(dev), ("x", "y"))}
+    tag = f"gspmd_refined_solve jump diffusion {g} tol {M2_REF_TOL}"
+    true_of = lambda r: float(np.linalg.norm(s.b - oracle.spmv(s.A, r.x)))
+    out = _m2_solve_pair(tag, {k: (lambda v=v: gspmd_refined_solve(
+        s.A, s.b, g, mesh=v[0], axes=v[1], tol=M2_REF_TOL, hierarchy=h))
+        for k, v in meshes.items()}, true_of, count, card, fp32=False)
+    (r1, g1, _, t1), (r2, g2, _, t2) = out["1-D (4,)"], out["2-D (2, 2)"]
+    _require(max(t1, t2) < M2_REF_TOL, f"{tag}: true ||r||_2 {t1:.3e}, {t2:.3e}")
+    _require(abs(r2.outer_iterations - r1.outer_iterations) <= 1,
+             f"{tag}: outer passes {r2.outer_iterations} (2-D) against {r1.outer_iterations}")
+    _require(g2["spmv_dia"] == 0 and g1["spmv_dia"] == M2_SHARDS * (r1.outer_iterations + 1),
+             f"{tag}: #4 launches {g1['spmv_dia']} (1-D), {g2['spmv_dia']} (2-D)")
+    print(f"{tag}: outer {r2.outer_iterations} (2-D) / {r1.outer_iterations} (1-D), inner "
+          f"{r2.inner_iterations} / {r1.inner_iterations}, true ||r||_2 {t2:.3e} / {t1:.3e}; the "
+          f"2-D fp64 outer residual on #3 ({M2_SHARDS} x {r2.outer_iterations + 1} of its "
+          f"{g2['spmv_stencil']} launches), no #4 [{card}]")
+
+
+def _m2_legs(op) -> torch.Tensor:
+    """A sharded level's global legs from its ``HaloStencil``: each shard's
+    block of its extended legs, gathered."""
+    blocks = Shards([op._narrowed(m.data, range(len(op.halos))) for m in op.mats.parts], op.mesh)
+    return blocks.gather_grid(len(op.local))
+
+
+def _m2_probed(poisson3, dev, card, count):
+    """``build_hierarchy_probed`` on Poisson 256^3 fp32 over the 1-D and the
+    (2, 2) mesh: the same levels, transfers and shifts, legs bit for bit,
+    the same tail; MGCG on each at the same count."""
+    s3 = poisson3[0]
+    g = KIND_GRID_3D
+    st = dia_to_stencil(s3.A, g)
+    A32 = StencilMatrix(torch.from_numpy(st.data.astype(np.float32)), st.shifts, g)
+    meshes = {"1-D (4,)": (make_mesh(M2_SHARDS, devices=[dev] * M2_SHARDS), ("x",)),
+              "2-D (2, 2)": (_m2_mesh(dev), ("x", "y"))}
+    hs, secs = {}, {}
+    for name, (mesh, axes) in meshes.items():
+        _reset_counts()
+        t0 = time.perf_counter()
+        hs[name] = build_hierarchy_probed(A32, mesh, axes=axes, transfer_kind=M2_PROBED_KIND)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        count(f"2-D blocks: probed setup Poisson {g} {name}", _eig_counts())
+    h1, h2 = hs["1-D (4,)"], hs["2-D (2, 2)"]
+    tag = f"build_hierarchy_probed Poisson {g} fp32 transfer_kind={M2_PROBED_KIND!r}"
+    _require([(L.grid, L.kind, L.op.shifts) for L in h1.levels]
+             == [(L.grid, L.kind, L.op.shifts) for L in h2.levels]
+             and [L.grid for L in h1.tail.levels] == [L.grid for L in h2.tail.levels],
+             f"{tag}: the 2-D levels differ from the 1-D build's")
+    for L1, L2 in zip(h1.levels, h2.levels):
+        _require(torch.equal(_m2_legs(L1.op), _m2_legs(L2.op)),
+                 f"{tag}: level {L1.grid}'s 2-D legs differ from the 1-D build's")
+    for L1, L2 in zip(h1.tail.levels, h2.tail.levels):
+        _require(torch.equal(L1.A.data, L2.A.data), f"{tag}: tail {L1.grid} differs")
+    pol = ConvergencePolicy(tol=TOL, norm="rel_l2")
+    its = {}
+    for name, (mesh, _axes) in meshes.items():
+        solve, (b, x0) = make_shard_mgcg(s3, g, mesh, pol, hierarchy=hs[name], dtype=np.float32)
+        res = solve(b, x0)
+        _require(res.converged, f"{tag} {name}: MGCG did not converge")
+        its[name] = res.iterations
+    _require(its["2-D (2, 2)"] == its["1-D (4,)"], f"{tag}: MGCG counts {its}")
+    print(f"{tag}: levels {[(L.grid, L.kind, len(L.op.shifts)) for L in h2.levels]} + tail "
+          f"{[L.grid for L in h2.tail.levels]}, legs bit-equal to the 1-D build's; setup s "
+          f"{ {k: round(v, 3) for k, v in secs.items()} }; MGCG iterations {its} [{card}]")
+
+
+def _m2_stencil_time(label, A, x, card, times, rel=KERNEL_REL):
+    """Kernel #3 on one extended block against its twin, timed beside its
+    bound and cuSPARSE's CSR product of the same block."""
+    y = spmv_stencil_cuda(A, x)
+    err, scale = _max_err(y, spmv_stencil_ref(A, x))
+    _require(err <= rel * scale, f"{label}: max err {err:.3e} against the twin")
+    k_ms = time_ms(lambda: spmv_stencil_cuda(A, x), 50)
+    p_ms = time_ms(lambda: spmv_stencil_ref(A, x), 3)
+    csr = _stencil_csr(A)
+    lib_ms = _library(label, lambda: csr @ x.reshape(-1), y.reshape(-1), card, 50)
+    del csr
+    item = A.data.dtype.itemsize
+    nbytes = A.nnz * item + 2 * x.numel() * item
+    bound = bound_ms(nbytes, 2 * A.nnz)
+    times[label] = dict(shape=list(A.grid), legs=A.nlegs, dtype=TAGS[A.data.dtype], ms=k_ms,
+                        plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
+                        max_abs_err=err)
+    print(f"time spmv_stencil {label} {tuple(A.grid)} x {A.nlegs} legs {TAGS[A.data.dtype]}: max "
+          f"err against the twin {err:.3e}; kernel {k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; bound "
+          f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / k_ms:.1%} of it), twin {p_ms:.4f} ms, "
+          f"CSR {lib_ms:.4f} ms [{card}]")
+    return err
+
+
+def _m2_kernels(solve2, dev, card, errs, times):
+    """Kernel #3 on the extended 2-D blocks the new paths run (256^3's
+    (130, 130, 256) x 7 fp32, its local block against #3 on the global
+    grid's; jump 512^2's (258, 258) fp64; convection 1024^2's (514, 514)
+    beside its 1-D (258, 1024) slab) and #5 on a Poisson 1024^2 shard at
+    k = M2_EIG_K, each against its twin and timed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    op = solve2.operators[0]
+    A = op.mats.parts[3]  # the shard at (1, 1)
+    (H0, H1), (n0, n1) = op.halos, op.local[:2]
+    lvl_grid = tuple(KIND_GRID_3D)
+    x = torch.randn(lvl_grid, generator=gen, device=dev)
+    xp = F.pad(x, (0, 0, H1, H1, H0, H0))
+    x_ext = xp[n0:2 * n0 + 2 * H0, n1:2 * n1 + 2 * H1].contiguous()
+    legs_g = Shards([op._narrowed(m.data, range(2)) for m in op.mats.parts], op.mesh)
+    A_glob = StencilMatrix(legs_g.gather_grid(3), op.shifts, lvl_grid)
+    y_glob = spmv_stencil_cuda(A_glob, x)[n0:, n1:]
+    mid = spmv_stencil_cuda(A, x_ext)[H0:H0 + n0, H1:H1 + n1]
+    _require(torch.equal(mid, y_glob), "2-D block #3: local block differs from the global rows")
+    del A_glob, y_glob, legs_g, xp
+    err = _m2_stencil_time("one (2, 2) block of Poisson 256^3", A, x_ext, card, times)
+    errs["spmv_stencil"] = max(errs["spmv_stencil"], err)
+    for label, s, g, dt, halo, rel in (
+            ("one (2, 2) block of jump 512^2", generators.diffusion_system(M2_REF_GRID, kind="jump"),
+             M2_REF_GRID, torch.float64, (1, 1), KERNEL_REL64),
+            ("one (2, 2) block of convection 1024^2",
+             generators.convection_diffusion_system(SNS_GRID, eps=NONSYM_EPS), SNS_GRID,
+             torch.float32, (1, 1), KERNEL_REL),
+            ("one 4-shard slab of convection 1024^2",
+             generators.convection_diffusion_system(SNS_GRID, eps=NONSYM_EPS), SNS_GRID,
+             torch.float32, 1, KERNEL_REL)):
+        st = dia_to_stencil(s.A, g)
+        legs = torch.from_numpy(st.data).to(dev, dt)
+        # the (1, 1) block of a (2, 2) mesh, or the second of four slabs
+        blk = legs[:, g[0] // 4:g[0] // 2] if halo == 1 else legs[:, g[0] // 2:, g[1] // 2:]
+        ext = extend_grid_rows(blk, halo)
+        Ab = StencilMatrix(ext, st.shifts, tuple(ext.shape[1:]))
+        xb = torch.randn(Ab.grid, generator=gen, device=dev, dtype=dt)
+        err = _m2_stencil_time(label, Ab, xb, card, times, rel)
+        if dt == torch.float32:
+            errs["spmv_stencil"] = max(errs["spmv_stencil"], err)
+        del legs, blk, ext, Ab, xb
+    # #5 on one shard of Poisson 1024^2 at k = M2_EIG_K: LOBPCG's A pass
+    s = generators.poisson_system(M2_EIG_GRID)
+    n_local = s.n // M2_SHARDS
+    hb = s.A.bandwidth
+    data = torch.from_numpy(s.A.data[:, n_local:2 * n_local]).to(dev, torch.float32)
+    ext = extend_rows(data, hb)
+    L = ext.shape[1]
+    A5 = DiaMatrix(ext, tuple(s.A.offsets), (L, L))
+    k = M2_EIG_K
+    X = torch.randn((k, L), generator=gen, device=dev)
+    Y = spmm_dia_cuda(A5, X)
+    err, scale = _max_err(Y, spmm_dia_ref(A5, X))
+    _require(err <= KERNEL_REL * scale, f"eig shard #5: max err {err:.3e} against the twin")
+    for j in range(k):
+        _require(torch.equal(Y[j], spmv_dia_cuda(A5, X[j].contiguous())),
+                 f"eig shard #5: column {j} differs from kernel #4's product")
+    errs["spmm_dia"] = max(errs["spmm_dia"], err)
+    k_ms = time_ms(lambda: spmm_dia_cuda(A5, X), 200)
+    p_ms = time_ms(lambda: spmm_dia_ref(A5, X), 5)
+    csr = dia_csr(A5)
+    lib_ms = _library(f"spmm_dia Poisson 1024^2 shard k={k}", lambda: (csr @ X.T).T, Y, card, 200)
+    nbytes = spmm_bytes(A5, k)
+    bound = bound_ms(nbytes, 2 * dia_nnz(A5) * k)
+    times["eig shard"] = dict(rows=L, diagonals=A5.ndiags, k=k, ms=k_ms, plain_ms=p_ms,
+                              bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
+                              max_abs_err=err)
+    print(f"time spmm_dia on one of {M2_SHARDS} shards' extended DIA of Poisson 1024^2 ({L} rows, "
+          f"{A5.ndiags} diagonals) k={k} fp32: max err against the twin {err:.3e}, every column "
+          f"#4's bit for bit; kernel {k_ms:.4f} ms ({nbytes / 1e6:.1f} MB; bound {bound[0]:.4f} ms "
+          f"by {bound[1]}, {bound[0] / k_ms:.1%} of it), twin {p_ms:.4f} ms, CSR {lib_ms:.4f} ms "
+          f"[{card}]")
+
+
+def _mesh_eigs_and_blocks(poisson3, dev, card, count, errs, times):
+    """The mesh eigensolvers (LOBPCG through ``api.eigs(mesh=)``,
+    ``gspmd_arnoldi_eigs``) on four shards of the card, then the 2-D block
+    partitions on a (2, 2) mesh of it beside the 1-D four-shard runs
+    (``gspmd_mgcg`` 256^3, ``mg_bicgstab`` 1024^2, ``gspmd_refined_solve``
+    512^2 jump, the probed build 256^3), then the kernels at the new
+    shapes; each step's seconds."""
+    steps = (("mesh LOBPCG", lambda: _m2_lobpcg(dev, card, count)),
+             ("mesh Arnoldi", lambda: _m2_arnoldi(dev, card, count)),
+             ("2-D MGCG", lambda: _m2_mgcg(poisson3, dev, card, count)),
+             ("2-D mg_bicgstab", lambda: _m2_mg_bicgstab(dev, card, count)),
+             ("2-D refined", lambda: _m2_refined(dev, card, count)),
+             ("2-D probed build", lambda: _m2_probed(poisson3, dev, card, count)))
+    out = {}
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        out[name] = fn()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _m2_kernels(out["2-D MGCG"], dev, card, errs, times)
+    print(f"  kernels at the new shapes: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6961,8 +7448,20 @@ def main() -> int:
     t0 = time.perf_counter()
     shard_times = {}
     _sharded_multigrid(poisson3, galerkin2, fsys, dev, card, count, errs, shard_times)
-    del poisson3, galerkin2
+    del galerkin2
     print(f"phase: sharded multigrid in {time.perf_counter() - t0:.1f} s")
+
+    # -- the eigensolvers over a mesh and the 2-D block partitions, counted:
+    # api.eigs(mesh=) by LOBPCG on Poisson 1024^2 (#5 a shard, the sharded
+    # V-cycle's #3), gspmd_arnoldi_eigs on convection 512^2 (#4 a shard);
+    # on a (2, 2) mesh beside the 1-D 4 shards: gspmd_mgcg 256^3,
+    # mg_bicgstab 1024^2, gspmd_refined_solve 512^2 jump (#3 fp64 a block),
+    # the probed build 256^3; #3 and #5 at the new shapes ----------------
+    t0 = time.perf_counter()
+    m2_times = {}
+    _mesh_eigs_and_blocks(poisson3, dev, card, count, errs, m2_times)
+    del poisson3
+    print(f"phase: mesh eigensolvers and 2-D blocks in {time.perf_counter() - t0:.1f} s")
 
     # -- the sharded nonsymmetric family and the distributed AMG, counted:
     # convection 1024^2 by bicgstab, jacobi_gmres, idr, mg_bicgstab and
@@ -7067,8 +7566,11 @@ def main() -> int:
         if r["name"] == "spmv_stencil":  # one shard's extended 256^3 and 511^3 slabs
             r["shard_slab"] = shard_times["shard slab"]
             r["rung5_slab"] = r5_times["rung5 slab"]
+        if r["name"] == "spmv_stencil":  # the extended 2-D blocks (and a 1-D slab beside one)
+            r["block_2d"] = {k: v for k, v in m2_times.items() if k != "eig shard"}
         if r["name"] == "spmm_dia":  # one shard's extended flagship DIA, k = 4
             r["shard_dia"] = shard_times["shard dia"]
+            r["eig_shard"] = m2_times["eig shard"]  # LOBPCG's A pass, Poisson 1024^2, k = 8
     print(f"run: {time.perf_counter() - t_run:.1f} s after the build")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

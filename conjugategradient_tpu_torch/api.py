@@ -128,7 +128,6 @@ from conjugategradient_tpu_torch.core import formats, oracle
 from conjugategradient_tpu_torch.core.formats import DiaMatrix, default_device, place
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
-_PARALLEL = "ROADMAP queue 1: parallel"
 _PREFIXES = ("jacobi_", "bjacobi_", "amg_", "mg_")
 #: the bases a prefix may precondition
 _KRYLOV = ("cg", "bicgstab", "gmres", "fgmres", "minres", "idr")
@@ -140,6 +139,8 @@ _AMG_SETUP = ("theta", "near_null", "max_coarse", "max_levels")
 #: the single-RHS methods outside the Krylov bases (no prefix but cacg's
 #: jacobi_)
 _OTHER = ("cgnr", "lsmr", "cacg", "deflated_cg")
+#: the bases the JAX facade's mesh route sends to the sharded nonsymmetric loops
+_NONSYM_MESH = ("bicgstab", "gmres", "fgmres", "minres", "idr")
 #: the fp64 host solvers: no block, no prefix
 _HOST = ("oracle", "native")
 #: the row count above which ``eigs(method="auto")`` runs no probe
@@ -232,11 +233,11 @@ def solve(
     policy = ConvergencePolicy(
         tol=tol, norm=norm, min_iteration=min_iteration, max_iteration=max_iteration
     )
-    if "axes" in kw and method not in ("refined", "mgcg") and not method.startswith("mg_"):
-        raise NotImplementedError(
-            f"axes= (GSPMD partitioning) with method={method!r}: the port partitions refined, "
-            f"mgcg and mg_* over one mesh axis; other methods and 2-D block partitions are not "
-            f"ported ({_PARALLEL})")
+    if "axes" in kw and not _takes_axes(method, b, kw):
+        if method not in _HOST:  # the JAX facade's host solves ignore it
+            raise TypeError(f"method={method!r} got an unexpected keyword argument 'axes': the "
+                            "GSPMD partitions are refined's, and mgcg's and mg_*'s with mesh=")
+        kw.pop("axes")
     device = default_device(device)
     if method == "auto":
         return _solve_auto(A, b, x0, policy, grid, dtype, device, kw)
@@ -295,6 +296,18 @@ def solve(
                                             dtype=b_dev.dtype)
         base = "cg"
     return _run(base, A, A_dev, b_dev, x0_dev, policy, M, kw)
+
+
+def _takes_axes(method: str, b, kw) -> bool:
+    """Whether ``method`` takes ``axes=`` as the JAX facade routes it: the
+    mesh-partitioned refinement (with or without ``mesh=``), and with
+    ``mesh=`` the GSPMD MGCG and multigrid-preconditioned nonsymmetric
+    carriers, on one right-hand side."""
+    if method == "refined":
+        return True
+    prefix, base = _split_prefix(method)
+    return ("mesh" in kw and np.ndim(b) == 1
+            and (method == "mgcg" or (prefix == "mg" and base in _NONSYM_MESH)))
 
 
 def _jacobi_M_local(r, aux):
@@ -739,8 +752,13 @@ def eigs(
     default dtype is fp32) and to 1e-8 (relative to |lambda|) on Arnoldi's.
     ``device``: where the solve runs (``None``: the card when there is
     one).  The other keywords go to ``lobpcg`` or ``arnoldi_eigs``.
-    ``mesh=`` (the distributed twins) raises ``NotImplementedError``
-    (ROADMAP queue 1: parallel).
+    ``mesh=`` (a 1-D ``parallel.mesh.Mesh``): the distributed twins,
+    ``gspmd_lobpcg`` and ``gspmd_arnoldi_eigs``, row-sharded over it; with
+    ``grid=`` on LOBPCG's smallest end ``M`` is the sharded V-cycle
+    (``parallel.shard_mgcg.make_shard_vcycle``) on each shard's ``(k, n /
+    num)`` rows, where the grid shards (the single-device block V-cycle on
+    the mesh's first device where it does not).  ``device`` is then the
+    mesh's first.
     """
     from conjugategradient_tpu_torch.solvers.arnoldi import EigsResult, arnoldi_eigs
 
@@ -748,9 +766,7 @@ def eigs(
         raise ValueError(f"unknown eigs method {method!r}; want auto|arnoldi|lobpcg")
     if which not in ("LM", "SM", "LR", "SR", "LI"):
         raise ValueError(f"unknown which={which!r}; want LM|SM|LR|SR|LI")
-    if mesh is not None:
-        raise NotImplementedError(f"mesh-distributed eigensolves are not ported yet ({_PARALLEL})")
-    device = default_device(device)
+    device = default_device(device) if mesh is None else mesh.devices[0]
     if method == "auto":
         # LOBPCG selects by ALGEBRAIC extremes, so it needs SPD, not just
         # symmetry: on a symmetric indefinite operator LM/SM would return
@@ -788,13 +804,13 @@ def eigs(
         if M is None and grid is not None and not largest:
             # the smallest pairs of an SPD grid operator: the MGCG
             # hierarchy's V-cycle, one a column
-            from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy
-            from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner
+            M = _eig_vcycle(A, tuple(grid), dt, device, mesh)
+        if mesh is not None:
+            from conjugategradient_tpu_torch.solvers.lobpcg import gspmd_lobpcg
 
-            np_dtype = torch.empty(0, dtype=dt).numpy().dtype
-            M = as_multi_preconditioner(build_hierarchy(A, tuple(grid), dtype=np_dtype,
-                                                        device=device))
-        res = lobpcg(A, k, M=M, largest=largest, tol=tol, device=device, **kw)
+            res = gspmd_lobpcg(A, k, mesh, axis=mesh.axis, M=M, largest=largest, tol=tol, **kw)
+        else:
+            res = lobpcg(A, k, M=M, largest=largest, tol=tol, device=device, **kw)
         vals = res.eigenvalues.to("cpu", torch.float64).numpy()
         # ascending from LOBPCG; most wanted first, as Arnoldi orders
         order = np.argsort(-vals if largest else vals, kind="stable")
@@ -811,7 +827,37 @@ def eigs(
 
     if tol is None:
         tol = 1e-8  # relative to |lambda|, arnoldi_eigs' own default
+    if mesh is not None:
+        from conjugategradient_tpu_torch.solvers.arnoldi import gspmd_arnoldi_eigs
+
+        return gspmd_arnoldi_eigs(A, k, mesh=mesh, axis=mesh.axis, which=which, sigma=sigma,
+                                  tol=tol, **kw)
     return arnoldi_eigs(A, k, which=which, sigma=sigma, tol=tol, device=device, **kw)
+
+
+def _eig_vcycle(A, grid, dt, device, mesh):
+    """LOBPCG's multigrid ``M`` for ``eigs(grid=)``: the block V-cycle of the
+    MGCG hierarchy on ``device`` (``(n, k)`` columns); over a mesh the
+    sharded V-cycle on each shard's ``(k, n / num)`` rows where the grid
+    shards, else the block V-cycle on the first device, the rows gathered
+    there and split back (as GSPMD replicates a grid that does not
+    divide)."""
+    from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy
+    from conjugategradient_tpu_torch.solvers.multi import as_multi_preconditioner
+
+    np_dtype = torch.empty(0, dtype=dt).numpy().dtype
+    if mesh is not None:
+        from conjugategradient_tpu_torch.parallel.mesh import shard_rows
+        from conjugategradient_tpu_torch.parallel.shard_mgcg import make_shard_vcycle
+
+        try:
+            V = make_shard_vcycle(A, grid, mesh, mesh.axis, dtype=np_dtype)
+        except ValueError:  # no level shards: the replicated cycle
+            Mb = as_multi_preconditioner(build_hierarchy(A, grid, dtype=np_dtype, device=device))
+            return lambda R: shard_rows(mesh, Mb(R.gather(1).T).T, dim=1)
+        local = (grid[0] // mesh.size,) + grid[1:]
+        return lambda R: V(R.reshape((R.shape[0],) + local)).reshape(R.shape[0], -1)
+    return as_multi_preconditioner(build_hierarchy(A, grid, dtype=np_dtype, device=device))
 
 
 def _diag_scale(A) -> float:

@@ -8,11 +8,11 @@ every level whose grid divides the mesh runs sharded, the rest replicated.
 PyTorch has no SPMD partitioner, so the port carries those semantics with
 the explicit pieces of ``parallel.shard_mgcg``:
 
-- the levels that ``parallel.mesh.specs_for_grid`` shards (axis 0 divides
-  the mesh) and that ``shard_mgcg._shardable`` can carry (an even local
-  extent, agg/hyb transfers, or semicoarsening that leaves axis 0 alone)
-  run on row blocks: ``HaloStencil`` products on kernel #3 and the sharded
-  transfers;
+- the levels that ``parallel.mesh.specs_for_grid`` shards (each sharded
+  axis divides the mesh) and that ``shard_mgcg._shardable`` can carry
+  (even local extents, agg/hyb transfers, or semicoarsening that leaves
+  the sharded axes alone) run on blocks: ``HaloStencil`` products on
+  kernel #3 and the sharded transfers;
 - the levels below run in the replicated tail (the single-device
   ``v_cycle`` once, on the mesh's first device);
 - when the fine grid does not divide the mesh (every odd 2^k - 1 grid) GSPMD
@@ -30,14 +30,21 @@ Krylov loop of ``parallel.shard_nonsym`` runs with the sharded V-cycle of
 does not (every odd fw grid), the single-device solve runs on the mesh's
 first device, its product the fine level's stencil (kernel #1 or #3).
 
-``axes`` takes one name, the mesh's axis: the JAX package's 2-D block
-partitions over a 2-D mesh (``axes=("x", "y")``) raise
-``NotImplementedError`` (ROADMAP queue 1: parallel).
+``axes`` names the mesh's axes, one per sharded grid axis: ``("x",)`` over
+a 1-D mesh shards axis-0 row blocks, ``("x", "y")`` over a 2-D mesh the
+JAX package's 2-D block partition (grid axes 0 and 1 over the mesh's two
+axes; each sharded level's ``HaloStencil`` exchanges faces on both axes,
+the cell-centred transfers cross shards on both).  A level that shards
+on one axis but not the other goes to the replicated tail, where GSPMD
+would replicate only that axis: the result is the same to reduction
+rounding.
 
 ``gspmd_refined_solve`` has no double-float arithmetic: the JAX package's
 ``ops.dd`` stands in for fp64 on the TPU, and the H100 has fp64.  Its outer
-fp64 residual runs per shard on the fine DIA through ``parallel.halo.
-HaloDia`` (kernel #4's fp64 instantiation), its inner solve is
+fp64 residual runs per shard: on the fine DIA through ``parallel.halo.
+HaloDia`` (kernel #4's fp64 instantiation) over row blocks, and on the fine
+stencil through a 2-D ``HaloStencil`` (kernel #3's fp64 instantiation)
+over 2-D blocks, whose rows are not contiguous.  Its inner solve is
 ``make_gspmd_mgcg`` in fp32, and ``solvers.refine.run_device_refinement``
 drives the passes, reading three scalars each, the solution gathered once
 at the end.
@@ -49,7 +56,7 @@ does not need.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,13 +64,14 @@ import torch
 from conjugategradient_tpu_torch.core.formats import DiaMatrix, dia_to_stencil, to_host, torch_dtype
 from conjugategradient_tpu_torch.core.generators import LinearSystem
 from conjugategradient_tpu_torch.ops.spmv import spmv_dia
-from conjugategradient_tpu_torch.parallel.halo import HaloDia
+from conjugategradient_tpu_torch.parallel.halo import HaloDia, HaloStencil
 from conjugategradient_tpu_torch.parallel.mesh import (
     Mesh,
     Shards,
     make_mesh,
     pmax,
     psum,
+    shard_blocks,
     shard_rows,
     specs_for_grid,
 )
@@ -82,15 +90,10 @@ from conjugategradient_tpu_torch.precond.multigrid import (
 from conjugategradient_tpu_torch.solvers.cg import CGResult
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
-_PARALLEL = "ROADMAP queue 1: parallel"
-
-
-def _one_axis(axes, axis=None) -> str:
-    axes = (axis,) if axis is not None else tuple(axes)
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"axes={axes}: 2-D block partitions over a 2-D mesh are not ported yet ({_PARALLEL})")
-    return axes[0]
+def _mesh_axes(mesh: Mesh, axes, axis=None) -> Tuple[str, ...]:
+    """The carriers' ``axes`` (``axis``: the JAX signature's one-name
+    alias), checked against the mesh's own names."""
+    return mesh.check_axes((axis,) if axis is not None else axes)
 
 
 def shard_system(system: LinearSystem, mesh: Mesh, axis: str = "x", dtype=None):
@@ -111,16 +114,16 @@ def shard_system(system: LinearSystem, mesh: Mesh, axis: str = "x", dtype=None):
     return A, put(system.b, 0), put(system.x0, 0)
 
 
-def _shard_hierarchy_and_fine(h, grid, mesh: Mesh, axis: str) -> bool:
+def _shard_hierarchy_and_fine(h, grid, mesh: Mesh, axes) -> bool:
     """Whether the solve runs sharded: the fine grid shards under
-    ``specs_for_grid`` and ``shard_mgcg._shardable`` can carry its level
-    (otherwise the whole solve replicates, as GSPMD's does).  The JAX
-    function places the hierarchy and returns the fine operator as well;
-    here ``make_shard_mgcg`` splits the hierarchy at its deepest shardable
-    level (``_shardable`` on one axis is the same divisibility rule) and
-    places the sharded levels and the tail."""
-    return (bool(h.levels) and specs_for_grid(tuple(grid), mesh, (axis,)).sharded
-            and _shardable(h.levels[0], mesh.shape[axis]))
+    ``specs_for_grid`` and ``shard_mgcg._shardable`` can carry its level on
+    every axis of the mesh (otherwise the whole solve replicates, as
+    GSPMD's does).  The JAX function places the hierarchy and returns the
+    fine operator as well; here ``make_shard_mgcg`` splits the hierarchy at
+    its deepest shardable level and places the sharded levels and the
+    tail."""
+    return (bool(h.levels) and specs_for_grid(tuple(grid), mesh, axes).sharded
+            and _shardable(h.levels[0], mesh.dims))
 
 
 def make_gspmd_mgcg(
@@ -145,13 +148,14 @@ def make_gspmd_mgcg(
     and the replicated tail; otherwise it is ``mgcg_solve`` on the mesh's
     first device.  ``solve.n_sharded`` is the split (0: replicated).  The
     hierarchy is built on the mesh's first device unless given."""
-    ax = _one_axis(axes, axis)
+    axes = _mesh_axes(mesh, axes, axis)
     grid = tuple(grid)
     dt = _np_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
     h = hierarchy or build_hierarchy(system.A, grid, smoother=smoother, pre=pre, post=post,
                                      dtype=dt, layout="stencil", device=mesh.devices[0])
-    if _shard_hierarchy_and_fine(h, grid, mesh, ax):
-        solve, inputs = make_shard_mgcg(system, grid, mesh, policy, axis=ax, dtype=dt, hierarchy=h)
+    if _shard_hierarchy_and_fine(h, grid, mesh, axes):
+        solve, inputs = make_shard_mgcg(system, grid, mesh, policy, axis=mesh.axis, dtype=dt,
+                                        hierarchy=h)
         solve.n_sharded = solve.plan.n_sharded
         return solve, inputs
 
@@ -231,8 +235,8 @@ def make_gspmd_mg_nonsym(
     ``make_gspmd_mgcg``: ``solve(b, x0) -> CGResult`` with a flat global
     x on the mesh's first device.  Where the fine grid shards (an even 2^k
     grid: hybrid cell-centred transfers, every level halving and dividing
-    the mesh), the loop is ``shard_nonsym.run_sharded_loop`` on axis-0
-    grid blocks, its product the fine level's ``HaloStencil`` (kernel #3 a
+    the mesh), the loop is ``shard_nonsym.run_sharded_loop`` on the grid
+    blocks of ``axes``, its product the fine level's ``HaloStencil`` (kernel #3 a
     shard) and its ``M`` ``shard_mgcg.make_shard_vcycle``; ``solve.plan``
     is the split.  Otherwise (every odd fw grid, where GSPMD replicates)
     it is the single-device solve on the mesh's first device over the
@@ -245,7 +249,7 @@ def make_gspmd_mg_nonsym(
     gives its iterates)."""
     if method not in MG_NONSYM:
         raise ValueError(f"unknown method {method!r}; want {'|'.join(MG_NONSYM)}")
-    ax = _one_axis(axes)
+    axes = _mesh_axes(mesh, axes)
     grid = tuple(grid)
     n = int(np.prod(grid))
     dt = _np_dtype(dtype if dtype is not None else np.asarray(A.data).dtype)
@@ -257,17 +261,17 @@ def make_gspmd_mg_nonsym(
     as_tensor = lambda v: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
     x0 = np.zeros(n) if x0 is None else x0
 
-    if _shard_hierarchy_and_fine(h, grid, mesh, ax):
-        M = make_shard_vcycle(A, grid, mesh, ax, dtype=dt, hierarchy=h)
+    if _shard_hierarchy_and_fine(h, grid, mesh, axes):
+        M = make_shard_vcycle(A, grid, mesh, mesh.axis, dtype=dt, hierarchy=h)
 
         def place(v):
-            return v if isinstance(v, Shards) else shard_rows(mesh, as_tensor(v).reshape(grid),
-                                                              dt, dim=0)
+            return v if isinstance(v, Shards) else shard_blocks(mesh, as_tensor(v).reshape(grid),
+                                                                (0, 1), dt)
 
         def solve(b_, x0_) -> CGResult:
             res = run_sharded_loop(method, M.op, M, place(b_), place(x0_), policy, n,
                                    restart=restart, shadow=shadow)
-            return dataclasses.replace(res, x=res.x.gather().reshape(-1))
+            return dataclasses.replace(res, x=res.x.gather_grid(len(grid)).reshape(-1))
 
         solve.n_sharded = M.plan.n_sharded
         solve.plan = M.plan
@@ -325,9 +329,11 @@ def gspmd_refined_solve(
 
     Two pieces over the same mesh, so nothing reshards between them: the
     fp64 outer pass (residual, its norm squared and max-abs, the scaling
-    and the update) on the mesh's row blocks, with ``b - A x`` on kernel #4
-    per shard (``HaloDia`` over the host fp64 DIA ``A``), and the fp32
-    inner solve ``make_gspmd_mgcg``.  Per outer pass three scalars reach
+    and the update) on the mesh's blocks, with ``b - A x`` on kernel #4
+    per shard over row blocks (``HaloDia`` over the host fp64 DIA ``A``)
+    or on kernel #3 per shard over the 2-D blocks of ``axes=("x", "y")``
+    (a ``HaloStencil`` of A's fine stencil in fp64), and the fp32 inner
+    solve ``make_gspmd_mgcg``.  Per outer pass three scalars reach
     the host (r.r and max|r| in one read, and the inner count); the
     solution is gathered once, at the end.  Where the fine grid does not
     shard, both run on the mesh's first device (kernel #4 on the whole
@@ -336,7 +342,7 @@ def gspmd_refined_solve(
 
     if mesh is None:
         mesh = make_mesh()
-    ax = _one_axis(axes)
+    axes = _mesh_axes(mesh, axes)
     grid = tuple(grid)
     n = A.n
     b64 = b if torch.is_tensor(b) else np.asarray(b, dtype=np.float64)
@@ -344,30 +350,42 @@ def gspmd_refined_solve(
     inner_policy = ConvergencePolicy(tol=inner_tol, norm="rel_l2",
                                      max_iteration=min(8 * n, 1_000_000))
     system = LinearSystem(A=A, b=b64, x0=x64)
-    solve_inner, _ = make_gspmd_mgcg(system, grid, mesh, inner_policy, axes=(ax,),
+    solve_inner, _ = make_gspmd_mgcg(system, grid, mesh, inner_policy, axes=axes,
                                      smoother=smoother, dtype=np.float32, hierarchy=hierarchy)
     f64 = torch.float64
+    as_tensor = lambda v: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+    read_x = None
 
     if solve_inner.n_sharded:
-        num = mesh.shape[ax]
-        op = HaloDia(shard_rows(mesh, A.data, f64, dim=1), tuple(A.offsets), A.bandwidth,
-                     A.bandwidth > n // num)
-        local = (grid[0] // num,) + grid[1:]
+        if mesh.ndim == 1:
+            # row blocks: the fine DIA on kernel #4 a shard
+            op = HaloDia(shard_rows(mesh, A.data, f64, dim=1), tuple(A.offsets), A.bandwidth,
+                         A.bandwidth > n // mesh.size)
+            local = (grid[0] // mesh.size,) + grid[1:]
+            place = lambda v: shard_rows(mesh, as_tensor(v), f64)
+        else:
+            # 2-D blocks: the fine stencil on kernel #3 a shard (fp64)
+            st = dia_to_stencil(to_host(A), grid)
+            halos = tuple(max(abs(s_[a]) for s_ in st.shifts) for a in range(2))
+            op = HaloStencil(shard_blocks(mesh, st.data, (1, 2), f64), st.shifts, halos)
+            local = op.local
+            place = lambda v: shard_blocks(mesh, as_tensor(v).reshape(grid), (0, 1), f64)
+            read_x = lambda x_: x_.gather_grid(len(grid)).reshape(-1).cpu().numpy()
         zero32 = Shards([torch.zeros(local, dtype=torch.float32, device=d) for d in mesh.devices],
                         mesh)
 
         def resid(b_, x_):
             r = b_ - op(x_)
             mx = pmax(Shards.map(lambda t: t.abs().max(), r)).parts[0]
-            rr = psum(Shards.map(torch.dot, r, r)).parts[0]
+            rr = psum(Shards.map(lambda t: torch.dot(t.reshape(-1), t.reshape(-1)), r)).parts[0]
             s = torch.where(mx > 0, mx, torch.ones_like(mx))
             return (r / s).to(torch.float32).reshape(local), rr, mx
 
         def update(x_, r32, s):
             d = solve_inner.shards(r32, zero32)
-            return x_ + s * d.x.reshape(-1).to(f64), d.iterations
+            return x_ + s * d.x.reshape(x_.shape).to(f64), d.iterations
 
-        b_dev, x_dev = shard_rows(mesh, b64, f64), shard_rows(mesh, x64, f64)
+        b_dev, x_dev = place(b64), place(x64)
     else:
         dev = mesh.devices[0]
         A64 = A.device_put(f64, dev)
@@ -383,9 +401,9 @@ def gspmd_refined_solve(
             d = solve_inner(r32, zero32)
             return x_ + s * d.x.reshape(-1).to(f64), d.iterations
 
-        place = lambda v: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(
-            device=dev, dtype=f64).reshape(n)
+        place = lambda v: as_tensor(v).to(device=dev, dtype=f64).reshape(n)
         b_dev, x_dev = place(b64), place(x64)
 
     return run_device_refinement(resid, update, b_dev, x_dev, tol=tol, norm=norm,
-                                 max_outer=max_outer, raise_on_divergence=raise_on_divergence)
+                                 max_outer=max_outer, raise_on_divergence=raise_on_divergence,
+                                 to_host=read_x)

@@ -37,8 +37,13 @@ moves the same pattern from DIA rows to grid rows: each shard holds an
 axis-0 block ``(g0/num, *rest)`` of the grid, its legs extended by ``halo0``
 zero grid rows each side, and kernel #3 (``ops.cuda_stencil.
 spmv_stencil_cuda``, tuned or wide by ``var_route``) runs on the extended
-slab; the local rows are the middle of its result.  The wrapped halos at
-the global edges meet the legs' structural zeros, as in the JAX package.
+slab; the local rows are the middle of its result.  Over a 2-D mesh each
+shard holds a 2-D block ``(g0/px, g1/py, *rest)``, its legs extended on
+axes 0 and 1; the exchange runs axis 0 along the mesh's first axis, then
+axis 1 along its second over the axis-0-extended rows, so the corner
+values that 9- and 27-point stencils read arrive with the faces.  The
+wrapped halos at the global edges meet the legs' structural zeros, as in
+the JAX package.
 Legs assembled inside such extended slabs in the first place
 (``zero_halo_slab``, a ``SlabStencil``'s) are taken as they are by
 ``HaloStencil.from_slabs``.
@@ -51,6 +56,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -204,35 +210,53 @@ def exchange_bytes(offsets, n: int, num: int, itemsize: int) -> int:
     return rows * itemsize
 
 
-class _HaloBuffers:
-    """Two halo-padded buffers a shard that alternate as operand storage,
-    the rows along ``dim``: each shard's ``local`` extents (from ``dim``
-    on) with ``halo`` rows more on each side of the first.  ``_take(p)``
-    copies ``p`` into the middle of the buffer not holding the last
-    operand, unless ``p`` lies in a buffer's middle already (``fresh()``
-    hands those out), and ``_exchange`` fills the halo rows from the ring
-    neighbours (one ``ppermute`` pair, every leading column's slab
-    together).  A product never overwrites its own operand; a caller that
-    keeps a vector in a buffer must not share the operator."""
+def _halo_tuple(halo) -> Tuple[int, ...]:
+    return (int(halo),) if isinstance(halo, (int, np.integer)) else tuple(int(h) for h in halo)
 
-    def __init__(self, mesh, halo: int, local: Tuple[int, ...]):
+
+class _HaloBuffers:
+    """Two halo-padded buffers a shard that alternate as operand storage:
+    each shard's ``local`` extents (the trailing dims) with ``halos[a]``
+    rows more on each side of the a-th of them.  ``_take(p)`` copies ``p``
+    into the middle of the buffer not holding the last operand, unless
+    ``p`` lies in a buffer's middle already (``fresh()`` hands those out),
+    and ``_exchange`` fills the halo rows from the neighbours: one
+    ``ppermute`` pair an axis, every leading column's slab together.  One
+    halo axis runs over the flat ring of the mesh; two (grid blocks on a
+    2-D mesh) run axis 0 along the mesh's first axis, then axis 1 along its
+    second over the rows axis 0 extended, so the corner values arrive too.
+    ``halo`` is the first axis's width.  A product never overwrites its own
+    operand; a caller that keeps a vector in a buffer must not share the
+    operator."""
+
+    def __init__(self, mesh, halos, local: Tuple[int, ...]):
         self.mesh = mesh
-        self.halo = halo
+        self.halos = _halo_tuple(halos)
+        self.halo = self.halos[0]
         self.local = tuple(local)
         self._bufs = None
         self._last = 0
 
     def _buffers(self, like: Shards):
         d = len(self.local)
-        shape = tuple(like.shape[:-d]) + (self.local[0] + 2 * self.halo,) + self.local[1:]
+        nb = len(self.halos)
+        ext = tuple(n + 2 * h for n, h in zip(self.local, self.halos)) + self.local[nb:]
+        shape = tuple(like.shape[:-d]) + ext
         if (self._bufs is None or self._bufs[0].dtype != like.dtype
                 or tuple(self._bufs[0].shape) != shape):
             self._bufs = [Shards.map(lambda p: torch.zeros(shape, dtype=p.dtype, device=p.device),
                                      like) for _ in range(2)]
         return self._bufs
 
+    def _narrowed(self, b: torch.Tensor, axes) -> torch.Tensor:
+        """``b`` cut to the middle on the halo axes in ``axes``."""
+        d0 = -len(self.local)
+        for a in axes:
+            b = b.narrow(d0 + a, self.halos[a], self.local[a])
+        return b
+
     def _middle(self, buf: Shards) -> Shards:
-        return Shards.map(lambda b: b.narrow(-len(self.local), self.halo, self.local[0]), buf)
+        return Shards.map(lambda b: self._narrowed(b, range(len(self.halos))), buf)
 
     def fresh(self, like: Shards) -> Shards:
         """Middle rows of the buffer not holding the last operand."""
@@ -251,12 +275,21 @@ class _HaloBuffers:
                 m.copy_(q)
         return bufs[k]
 
-    def _exchange(self, p: Shards, buf: Shards) -> None:
-        H, n, dim = self.halo, self.local[0], -len(self.local)
-        left, right = exchange_halos(p, H, dim)
-        for l_, r_, b in zip(left.parts, right.parts, buf.parts):
-            b.narrow(dim, 0, H).copy_(l_)
-            b.narrow(dim, H + n, H).copy_(r_)
+    def _exchange(self, buf: Shards) -> None:
+        d0 = -len(self.local)
+        ring = len(self.halos) == 1
+        for a, H in enumerate(self.halos):
+            if H == 0:
+                continue
+            dim, n = d0 + a, self.local[a]
+            # the axes before a extended already, those after it not yet
+            v = Shards.map(lambda b: self._narrowed(b, range(a + 1, len(self.halos))), buf)
+            along = None if ring else a
+            left = ppermute(Shards.map(lambda t: t.narrow(dim, n, H), v), 1, along)
+            right = ppermute(Shards.map(lambda t: t.narrow(dim, H, H), v), -1, along)
+            for l_, r_, t in zip(left.parts, right.parts, v.parts):
+                t.narrow(dim, 0, H).copy_(l_)
+                t.narrow(dim, H + n, H).copy_(r_)
 
 
 class HaloDia(_HaloBuffers):
@@ -301,7 +334,7 @@ class HaloDia(_HaloBuffers):
                 b[..., a - lo:H].copy_(g_[..., a:i * n])
                 b[..., H + n:z - lo].copy_(g_[..., (i + 1) * n:z])
         elif H:
-            self._exchange(p, buf)
+            self._exchange(buf)
         return buf
 
     def __call__(self, p: Shards) -> Shards:
@@ -324,64 +357,81 @@ class HaloDia(_HaloBuffers):
 # ---------------------------------------------------------------------------
 
 
-def extend_grid_rows(legs: torch.Tensor, halo0: int) -> torch.Tensor:
+def extend_grid_rows(legs: torch.Tensor, halo0) -> torch.Tensor:
     """A shard's ``(L, n0, *rest)`` legs as ``(L, n0 + 2*halo0, *rest)``
-    with ``halo0`` zero grid rows on each side: the slab kernel #3 takes."""
-    if halo0 == 0:
+    with ``halo0`` zero grid rows on each side: the slab kernel #3 takes.
+    A pair ``(h0, h1)`` extends a 2-D block on axes 0 and 1."""
+    H = _halo_tuple(halo0)
+    if not any(H):
         return legs.contiguous()
-    pad = [0, 0] * (legs.dim() - 2) + [halo0, halo0]
+    pad = []
+    for dim in range(legs.dim() - 1, 0, -1):
+        h = H[dim - 1] if dim - 1 < len(H) else 0
+        pad += [h, h]
     return F.pad(legs, pad).contiguous()
 
 
-def zero_halo_slab(nlegs: int, local, halo0: int, dtype, device):
+def zero_halo_slab(nlegs: int, local, halo0, dtype, device):
     """A shard's legs allocated inside a zeroed slab: ``(slab, legs)``, the
     slab ``(nlegs, n0 + 2*halo0, *rest)`` and the legs its middle rows
-    ``(nlegs, n0, *rest)`` (a view), which an assembly fills.
+    ``(nlegs, n0, *rest)`` (a view), which an assembly fills.  A pair
+    ``(h0, h1)`` pads a 2-D block on axes 0 and 1.
     ``HaloStencil.from_slabs`` takes such slabs as its extended legs, with
     no second copy."""
     local = tuple(int(n) for n in local)
-    slab = torch.zeros((nlegs, local[0] + 2 * halo0) + local[1:], dtype=dtype, device=device)
-    return slab, slab.narrow(1, halo0, local[0])
+    H = _halo_tuple(halo0)
+    ext = tuple(n + 2 * h for n, h in zip(local, H)) + local[len(H):]
+    slab = torch.zeros((nlegs,) + ext, dtype=dtype, device=device)
+    legs = slab
+    for a, h in enumerate(H):
+        legs = legs.narrow(1 + a, h, local[a])
+    return slab, legs
 
 
 class HaloStencil(_HaloBuffers):
     """The sharded stencil product of the sharded V-cycle: each shard's
-    axis-0 block of the legs extended once (``extend_grid_rows``), and two
+    block of the legs extended once (``extend_grid_rows``), and two
     halo-padded buffers a shard.
 
-    ``op(x)`` takes a ``Shards`` of grid blocks ``(n0, *rest)``, or of k
-    columns ``(k, n0, *rest)``; it copies the block into the middle of a
+    The blocks are axis-0 row blocks ``(n0, *rest)`` over a 1-D mesh
+    (``halo0`` an int), or 2-D blocks ``(n0, n1, *rest)`` over a 2-D mesh
+    (``halo0`` the pair of halos of axes 0 and 1), each extended on its
+    sharded axes.  ``op(x)`` takes a ``Shards`` of such blocks, or of k
+    columns ``(k, n0, ...)``; it copies the block into the middle of a
     buffer unless it lives there already (``fresh``, as ``HaloDia``'s),
-    fills the ``halo0`` rows each side from the neighbours (one
-    ``ppermute`` pair, the slabs of every column together), and runs
-    kernel #3 on the extended slab once a shard (once a column a shard for
-    a block, as ``ops.stencil.spmm_columns`` does); the local rows are the
-    middle of the result.  ``from_slabs`` takes legs extended already
-    (``zero_halo_slab``'s slabs) as they are.  ``sibling()`` gives an
-    operator over the same extended legs with buffers of its own, for a
-    second user.
-    ``halo_bytes`` is what one product of one column moves between
-    shards."""
+    fills the halos from the neighbours (one ``ppermute`` pair an axis,
+    axis 1 over the axis-0-extended rows so the corners reach 9- and
+    27-point stencils), and runs kernel #3 on the extended block once a
+    shard (once a column a shard for a block, as ``ops.stencil.
+    spmm_columns`` does); the local block is the middle of the result.
+    ``from_slabs`` takes legs extended already (``zero_halo_slab``'s
+    slabs) as they are.  ``sibling()`` gives an operator over the same
+    extended legs with buffers of its own, for a second user.
+    ``halo_bytes`` is what one product of one column moves between shards,
+    both axes counted."""
 
-    def __init__(self, legs: Shards, shifts, halo0: int):
-        H = int(halo0)
+    def __init__(self, legs: Shards, shifts, halo0):
+        H = _halo_tuple(halo0)
         self._setup(Shards.map(lambda d: extend_grid_rows(d, H), legs), shifts, H)
 
     @classmethod
-    def from_slabs(cls, slabs: Shards, shifts, halo0: int) -> "HaloStencil":
+    def from_slabs(cls, slabs: Shards, shifts, halo0) -> "HaloStencil":
         """The product over legs extended already: each shard's ``(L, n0 +
-        2*halo0, *rest)`` slab, zero in its ``halo0`` first and last grid
-        rows, taken as it is."""
+        2*halo0, *rest)`` slab (extended on both axes of a 2-D block), zero
+        in its halos, taken as it is."""
         op = cls.__new__(cls)
-        op._setup(slabs, shifts, int(halo0))
+        op._setup(slabs, shifts, _halo_tuple(halo0))
         return op
 
-    def _setup(self, slabs: Shards, shifts, H: int):
+    def _setup(self, slabs: Shards, shifts, H: Tuple[int, ...]):
         ext = tuple(slabs.shape[1:])
-        super().__init__(slabs.mesh, H, (ext[0] - 2 * H,) + ext[1:])
+        local = tuple(n - 2 * h for n, h in zip(ext, H)) + ext[len(H):]
+        super().__init__(slabs.mesh, H, local)
         self.shifts = tuple(tuple(int(v) for v in s) for s in shifts)
         self.mats = Shards.map(lambda d: StencilMatrix(d, self.shifts, ext), slabs)
-        self.halo_bytes = self.mesh.size * 2 * H * math.prod(ext[1:]) * slabs.dtype.itemsize
+        face = lambda a: math.prod(ext[b] if b < a else local[b] for b in range(len(ext)) if b != a)
+        self.halo_bytes = (self.mesh.size * sum(2 * h * face(a) for a, h in enumerate(H))
+                           * slabs.dtype.itemsize)
 
     def sibling(self) -> "HaloStencil":
         """The same operator (the same extended legs) with buffers of its
@@ -392,16 +442,15 @@ class HaloStencil(_HaloBuffers):
 
     def _fill(self, x: Shards) -> Shards:
         buf = self._take(x)
-        if self.halo:
-            self._exchange(x, buf)
+        self._exchange(buf)
         return buf
 
     def __call__(self, x: Shards) -> Shards:
-        H, n0, d = self.halo, self.local[0], len(self.local)
+        d = len(self.local)
 
         def local(A, b):
             y = spmv_stencil_cuda(A, b) if b.dim() == d else spmm_columns(A, b)
-            return y.narrow(-d, H, n0)
+            return self._narrowed(y, range(len(self.halos)))
 
         return Shards.map(local, self.mats, self._fill(x))
 

@@ -6,10 +6,13 @@ solvers run one SPMD program under ``shard_map``.  The port keeps the single
 controller and writes the SPMD program out:
 
 - ``Mesh`` is a 1-D sequence of torch devices with a named axis
-  (``mesh.shape[axis]`` as in JAX).  A mesh may repeat a device: four shards
-  on one card (``make_mesh(4, devices=["cuda:0"] * 4)``) run the sharded
-  algorithm with its collectives on one H100, and the same code spans
-  ``cuda:0..3`` on a four-card host.
+  (``mesh.shape[axis]`` as in JAX), or a 2-D arrangement of them with two
+  axis names (``Mesh([[d] * 2] * 2, ("x", "y"))``: JAX's
+  ``Mesh(devices.reshape(2, 2), ("x", "y"))``), its shards in row-major
+  (x, y) order.  A mesh may repeat a device: four shards on one card
+  (``make_mesh(4, devices=["cuda:0"] * 4)``) run the sharded algorithm with
+  its collectives on one H100, and the same code spans ``cuda:0..3`` on a
+  four-card host.
 - ``Shards`` is a row-sharded value: one tensor per mesh position, on that
   position's device.  Arithmetic between ``Shards`` (and with Python
   numbers) acts shard by shard; a replicated scalar is a ``Shards`` of 0-d
@@ -17,8 +20,9 @@ controller and writes the SPMD program out:
 - The collectives are the only way across shards: ``psum``/``pmax`` (the
   partials combined in shard order on the first shard's device, in their
   dtype, the result copied back to every shard's device), ``ppermute`` (a
-  cyclic neighbour shift, each slab copied to the receiving shard's device)
-  and ``all_gather``.  A process-group communicator can take their place
+  cyclic neighbour shift, each slab copied to the receiving shard's device;
+  on a 2-D mesh along one of its axes, inside each row or column) and
+  ``all_gather``.  A process-group communicator can take their place
   without touching the solvers.
 - Torch functions take ``Shards`` too (``__torch_function__``):
   ``torch.where(mask, a, b)``, ``torch.zeros_like(a)`` and the like run
@@ -28,7 +32,9 @@ controller and writes the SPMD program out:
   blocks unchanged, its dots and norms handed in as collectives.
 
 ``specs_for_grid`` keeps the JAX package's divisibility rule, and returns
-the split a carrier needs (``GridSplit``) in place of PartitionSpecs.
+the split a carrier needs (``GridSplit``) in place of PartitionSpecs.  A
+grid sharded over a mesh lies in blocks: axis 0 over a 1-D mesh, axes 0
+and 1 over a 2-D one (``shard_blocks``, ``Shards.gather_grid``).
 Left out: ``factory_cache``/``_stable_key``, which cache
 jitted programs: eager PyTorch traces nothing, so a rebuilt solver costs only
 its setup.  For the same reason the solver factories
@@ -45,22 +51,60 @@ import torch
 
 
 class Mesh:
-    """A 1-D mesh: ``devices`` (torch devices, a device may repeat) along the
-    axis ``axis``; ``shape[axis]`` is the number of shards."""
+    """A mesh of torch devices (a device may repeat).  1-D: ``devices`` a
+    sequence along the axis ``axis``, ``shape[axis]`` the number of shards.
+    2-D: ``devices`` rows of equal length (a nested sequence or a 2-D
+    array) and ``axis`` a pair of names, ``shape`` each axis's size.
+    ``devices`` is the flat tuple in row-major order, ``dims`` the sizes in
+    axis order, ``axes`` the names, and ``axis`` the one name of a 1-D mesh
+    (the pair of a 2-D one)."""
 
-    def __init__(self, devices: Sequence, axis: str = "x"):
-        self.devices = tuple(torch.device(d) for d in devices)
+    def __init__(self, devices: Sequence, axis="x"):
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        if len(names) == 1:
+            flat, dims = list(devices), None
+        elif len(names) == 2:
+            rows = [list(r) for r in devices]
+            if not rows or any(len(r) != len(rows[0]) for r in rows):
+                raise ValueError("a 2-D mesh needs rows of devices of one length")
+            flat, dims = [d for r in rows for d in r], (len(rows), len(rows[0]))
+        else:
+            raise ValueError(f"a mesh has one or two axes, not {names}")
+        self.devices = tuple(torch.device(d) for d in flat)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
-        self.axis = axis
-        self.shape = {axis: len(self.devices)}
+        self.dims = dims or (len(self.devices),)
+        self.axes = names
+        self.axis = names[0] if len(names) == 1 else names
+        self.shape = dict(zip(names, self.dims))
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def ndim(self) -> int:
+        return len(self.dims)
+
+    def coords(self, i: int) -> Tuple[int, ...]:
+        """Shard ``i``'s position along each mesh axis."""
+        return (i,) if self.ndim == 1 else divmod(i, self.dims[1])
+
+    def index(self, coords) -> int:
+        """The flat shard index at ``coords``."""
+        return coords[0] if self.ndim == 1 else coords[0] * self.dims[1] + coords[1]
+
+    def check_axes(self, axes) -> Tuple[str, ...]:
+        """``axes`` (one name per sharded grid axis) as a tuple: the mesh's
+        own names in order, which is what the block carriers run."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if axes != self.axes:
+            raise ValueError(f"axes={axes}: the carriers shard the leading grid axes over the "
+                             f"mesh's own axes {self.axes}, in order")
+        return axes
+
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r})"
+        return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r}, dims={self.dims})"
 
 
 def make_mesh(num_devices: Optional[int] = None, axis: str = "x", devices=None) -> Mesh:
@@ -216,11 +260,24 @@ class Shards:
     def device(self):
         return self.parts[0].device
 
-    def gather(self, dim: int = 0) -> torch.Tensor:
-        """The global value on the first shard's device (row blocks
-        concatenated in shard order along ``dim``)."""
+    def gather(self, dim=0) -> torch.Tensor:
+        """The global value on the first shard's device: row blocks
+        concatenated in shard order along ``dim``, or, with a pair of dims
+        on a 2-D mesh, blocks concatenated along ``dim[1]`` within each row
+        of the mesh and the rows along ``dim[0]``."""
         dev = self.mesh.devices[0]
-        return torch.cat([p.to(dev) for p in self.parts], dim=dim)
+        parts = [p.to(dev) for p in self.parts]
+        if isinstance(dim, int):
+            return torch.cat(parts, dim=dim)
+        per = self.mesh.dims[1]
+        rows = [torch.cat(parts[i:i + per], dim=dim[1]) for i in range(0, len(parts), per)]
+        return torch.cat(rows, dim=dim[0])
+
+    def gather_grid(self, d: int) -> torch.Tensor:
+        """The global grid of grid blocks whose trailing ``d`` dims are the
+        grid (``shard_blocks``'s layout), on the first shard's device."""
+        dims = tuple(range(-d, -d + self.mesh.ndim))
+        return self.gather(dims[0] if len(dims) == 1 else dims)
 
     def cpu(self) -> torch.Tensor:
         """The gathered global value on the host."""
@@ -246,6 +303,25 @@ def shard_rows(mesh: Mesh, a, dtype=None, dim: int = -1) -> Shards:
                   mesh)
 
 
+def shard_blocks(mesh: Mesh, a, dims=(0, 1), dtype=None) -> Shards:
+    """A global grid array (numpy or tensor) split into blocks: along
+    ``dims[0]`` over a 1-D mesh (``shard_rows``), along ``dims[0]`` and
+    ``dims[1]`` over the two axes of a 2-D mesh, block (i, j) on the shard
+    at (i, j), each a contiguous tensor of ``dtype`` (``None``: kept)."""
+    t = a if torch.is_tensor(a) else torch.as_tensor(a)
+    if dtype is not None:
+        from conjugategradient_tpu_torch.core.formats import torch_dtype
+
+        dtype = torch_dtype(dtype)
+    blocks = [t]
+    for dim, num in zip(tuple(dims), mesh.dims):
+        if t.shape[dim] % num:
+            raise ValueError(f"extent {t.shape[dim]} of dim {dim} not divisible by {num} shards")
+        blocks = [c for blk in blocks for c in torch.chunk(blk, num, dim=dim)]
+    return Shards([b.to(device=d, dtype=dtype).contiguous() for b, d in zip(blocks, mesh.devices)],
+                  mesh)
+
+
 def replicate(mesh: Mesh, a, dtype=None) -> Shards:
     """The same value on every shard's device (one copy per device)."""
     t = a if torch.is_tensor(a) else torch.as_tensor(a)
@@ -266,23 +342,34 @@ def _combine(x: Shards, fn) -> Shards:
 
 
 def psum(x: Shards) -> Shards:
-    """Sum over the mesh axis: the partials added in shard order on the first
-    shard's device in their dtype, the sum on every shard's device."""
+    """Sum over every shard of the mesh: the partials added in shard order
+    (row-major on a 2-D mesh) on the first shard's device in their dtype,
+    the sum on every shard's device."""
     return _combine(x, torch.add)
 
 
 def pmax(x: Shards) -> Shards:
-    """Maximum over the mesh axis, on every shard's device."""
+    """Maximum over every shard of the mesh, on every shard's device."""
     return _combine(x, torch.maximum)
 
 
-def ppermute(x: Shards, shift: int) -> Shards:
+def ppermute(x: Shards, shift: int, axis=None) -> Shards:
     """Cyclic neighbour shift: shard i receives the part of shard
     ``(i - shift) % num`` (``shift=1``: each sends right), copied to its
-    device."""
-    num = x.mesh.size
-    return Shards([x.parts[(i - shift) % num].to(d) for i, d in enumerate(x.mesh.devices)],
-                  x.mesh)
+    device.  ``axis`` (a 2-D mesh's axis name or index) shifts along that
+    axis alone: inside each row (axis 1) or each column (axis 0) of the
+    mesh.  ``None``: the flat ring of every shard."""
+    mesh = x.mesh
+    if axis is None:
+        src = [(i - shift) % mesh.size for i in range(mesh.size)]
+    else:
+        a = mesh.axes.index(axis) if isinstance(axis, str) else int(axis)
+        src = []
+        for i in range(mesh.size):
+            c = list(mesh.coords(i))
+            c[a] = (c[a] - shift) % mesh.dims[a]
+            src.append(mesh.index(c))
+    return Shards([x.parts[j].to(d) for j, d in zip(src, mesh.devices)], mesh)
 
 
 def all_gather(x: Shards, dim: int = 0) -> Shards:

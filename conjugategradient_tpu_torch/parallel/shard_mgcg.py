@@ -4,9 +4,10 @@ The port of ``conjugategradient_tpu/parallel/shard_mgcg.py``, the JAX
 package's distributed form of MGCG, on the single-controller mesh of
 ``parallel.mesh`` (a mesh may repeat a device: four shards on one card):
 
-- each *sharded* level runs on axis-0 row blocks of its grid; its stencil
-  product is ``parallel.halo.HaloStencil``: one ``ppermute`` pair of
-  ``halo0``-row slabs, kernel #3 on each shard's extended slab
+- each *sharded* level runs on blocks of its grid: axis-0 row blocks over
+  a 1-D mesh, 2-D blocks of axes 0 and 1 over a 2-D mesh; its stencil
+  product is ``parallel.halo.HaloStencil``: one ``ppermute`` pair of halo
+  slabs a sharded axis, kernel #3 on each shard's extended block
   (``spmv_stencil_cuda``, tuned or wide by ``var_route``; its twin on a CPU
   tensor).  Constant-coefficient levels are expanded to legs
   (``const_to_stencil``'s values, built on each shard's device), so the
@@ -15,16 +16,16 @@ package's distributed form of MGCG, on the single-controller mesh of
   single-device ones over the sharded operator: they run unfused (kernel
   #2 smooths only the replicated tail's 3-D constant levels, as the JAX
   package fuses nothing on sharded levels); rbgs masks are parity of
-  global indices, so each shard takes its rows of the host mask;
-- aggregation transfers are shard-local (a shard whose local extent is
-  even owns whole aggregates), semicoarsening that leaves axis 0 alone is
-  too, and the hybrid fw/cell-centred transfers exchange one boundary
-  element along axis 0 per restrict or prolong (a 1-element ``ppermute``
-  pair, zeroed at the global boundary);
+  global indices, so each shard takes its block of the host mask;
+- aggregation transfers are shard-local (a shard whose local extents are
+  even owns whole aggregates), semicoarsening that leaves the sharded axes
+  alone is too, and the hybrid fw/cell-centred transfers exchange one
+  boundary element along each sharded axis per restrict or prolong (a
+  1-element ``ppermute`` pair an axis, zeroed at the global boundary);
 - the levels below ``n_sharded`` are the replicated tail: the restricted
   residual is gathered once onto the first shard's device, the
   single-device ``precond.multigrid.v_cycle`` runs there once (kernels #1,
-  #2, #3 and the dense coarse inverse), and each shard gets its rows of
+  #2, #3 and the dense coarse inverse), and each shard gets its block of
   the correction back.  On four shards of one card the coarse cycle runs
   once, not four times; on distinct cards the result is the same.
 
@@ -34,10 +35,13 @@ level, whose search direction lives in the product's halo buffer.
 ``make_shard_vcycle`` is the cycle alone, the right preconditioner that
 the sharded nonsymmetric loops take (``parallel.gspmd.make_gspmd_mg_nonsym``).
 
-Sharding constraint, as in the JAX package: a level shards where its axis
-0 divides the mesh with an even local extent, its halo fits one hop, and
-its transfer is ``agg`` or ``hyb``, or ``semi*`` leaving axis 0 alone
-(``_shardable``); odd 2^k - 1 grids take ``parallel.gspmd``.  Left out:
+Sharding constraint, as in the JAX package: a level shards where each
+sharded axis divides the mesh with an even local extent, its halo fits
+one hop, and its transfer is ``agg`` or ``hyb``, or ``semi*`` leaving the
+sharded axes alone (``_shardable``); odd 2^k - 1 grids take
+``parallel.gspmd``.  A level where any sharded axis stops dividing goes
+to the replicated tail (GSPMD would replicate only that axis; the result
+is the same to reduction rounding).  Left out:
 the JAX factory's ``lower_args``/``jitted`` (the compiled program's
 handles for HLO inspection); the solve carries ``plan`` instead (the split,
 each sharded level's local extent and halo, the tail's grids and the
@@ -62,7 +66,7 @@ from conjugategradient_tpu_torch.parallel.mesh import (
     make_mesh,
     ppermute,
     replicate,
-    shard_rows,
+    shard_blocks,
 )
 from conjugategradient_tpu_torch.parallel.sharded_cg import sharded_cg_loop
 from conjugategradient_tpu_torch.precond import transfer
@@ -129,83 +133,95 @@ def _prolong_fw(e, fine: GridShape):
     return _per_axis(e, [lambda t, n=n: transfer._prolong_axis(t, n) for n in fine])
 
 
-def _cc0_halo(v: Shards, d: int) -> Tuple[Shards, Shards]:
-    """(left, right): the ring neighbours' edge slabs (one element along
-    grid axis 0), zeroed at the global boundary as the unsharded
-    cell-centred transfers pad with zeros."""
-    num = v.mesh.size
+def _cc_halo(v: Shards, d: int, ax: int = 0) -> Tuple[Shards, Shards]:
+    """(left, right): the neighbours' edge slabs (one element along grid
+    axis ``ax``, a sharded axis: axis 0 over the flat ring of a 1-D mesh,
+    axis ``ax`` along the same axis of a 2-D one), zeroed at the global
+    boundary as the unsharded cell-centred transfers pad with zeros."""
+    mesh = v.mesh
+    dim = ax - d
+    pos = [mesh.coords(i)[ax] for i in range(mesh.size)]
+    num = mesh.dims[ax]
     if num == 1:
-        z = Shards.map(lambda t: torch.zeros_like(t.narrow(-d, 0, 1)), v)
+        z = Shards.map(lambda t: torch.zeros_like(t.narrow(dim, 0, 1)), v)
         return z, z
-    left = ppermute(Shards.map(lambda t: t.narrow(-d, t.shape[-d] - 1, 1), v), 1)
-    right = ppermute(Shards.map(lambda t: t.narrow(-d, 0, 1), v), -1)
-    left = Shards([torch.zeros_like(t) if i == 0 else t for i, t in enumerate(left.parts)], v.mesh)
-    right = Shards([torch.zeros_like(t) if i == num - 1 else t
-                    for i, t in enumerate(right.parts)], v.mesh)
+    along = None if mesh.ndim == 1 else ax
+    left = ppermute(Shards.map(lambda t: t.narrow(dim, t.shape[dim] - 1, 1), v), 1, along)
+    right = ppermute(Shards.map(lambda t: t.narrow(dim, 0, 1), v), -1, along)
+    left = Shards([torch.zeros_like(t) if p == 0 else t for p, t in zip(pos, left.parts)], mesh)
+    right = Shards([torch.zeros_like(t) if p == num - 1 else t
+                    for p, t in zip(pos, right.parts)], mesh)
     return left, right
 
 
-def _restrict_cc0_shard(v: Shards, d: int) -> Shards:
-    """Cell-centred restriction along the sharded grid axis 0:
+def _restrict_cc_shard(v: Shards, d: int, ax: int = 0) -> Shards:
+    """Cell-centred restriction along the sharded grid axis ``ax``:
     ``rc[J] = (3 v[2J] + 3 v[2J+1] + v[2J-1] + v[2J+2]) / 8`` on the local
     block, the two boundary terms from one 1-element ``ppermute`` pair."""
-    left, right = _cc0_halo(v, d)
+    left, right = _cc_halo(v, d, ax)
+    dim = ax - d
 
     def local(t, l_, r_):
-        t = torch.movedim(t, -d, -1)
+        t = torch.movedim(t, dim, -1)
         a, b = t[..., 0::2], t[..., 1::2]
-        lft = torch.cat([torch.movedim(l_, -d, -1), b[..., :-1]], dim=-1)  # v[2J-1]
-        rgt = torch.cat([a[..., 1:], torch.movedim(r_, -d, -1)], dim=-1)  # v[2J+2]
-        return torch.movedim((3.0 * (a + b) + lft + rgt) / 8.0, -1, -d)
+        lft = torch.cat([torch.movedim(l_, dim, -1), b[..., :-1]], dim=-1)  # v[2J-1]
+        rgt = torch.cat([a[..., 1:], torch.movedim(r_, dim, -1)], dim=-1)  # v[2J+2]
+        return torch.movedim((3.0 * (a + b) + lft + rgt) / 8.0, -1, dim)
 
     return Shards.map(local, v, left, right)
 
 
-def _prolong_cc0_shard(e: Shards, d: int) -> Shards:
-    """Cell-centred prolongation along the sharded grid axis 0 (the
-    transpose of ``_restrict_cc0_shard`` up to the 1/2 scaling)."""
-    left, right = _cc0_halo(e, d)
+def _prolong_cc_shard(e: Shards, d: int, ax: int = 0) -> Shards:
+    """Cell-centred prolongation along the sharded grid axis ``ax`` (the
+    transpose of ``_restrict_cc_shard`` up to the 1/2 scaling)."""
+    left, right = _cc_halo(e, d, ax)
+    dim = ax - d
 
     def local(t, l_, r_):
-        t = torch.movedim(t, -d, -1)
-        lf = torch.cat([torch.movedim(l_, -d, -1), t[..., :-1]], dim=-1)  # ec[J-1]
-        rt = torch.cat([t[..., 1:], torch.movedim(r_, -d, -1)], dim=-1)  # ec[J+1]
+        t = torch.movedim(t, dim, -1)
+        lf = torch.cat([torch.movedim(l_, dim, -1), t[..., :-1]], dim=-1)  # ec[J-1]
+        rt = torch.cat([t[..., 1:], torch.movedim(r_, dim, -1)], dim=-1)  # ec[J+1]
         even = (3.0 * t + lf) / 4.0
         odd = (3.0 * t + rt) / 4.0
         out = torch.stack([even, odd], dim=-1).reshape(t.shape[:-1] + (2 * t.shape[-1],))
-        return torch.movedim(out, -1, -d)
+        return torch.movedim(out, -1, dim)
 
     return Shards.map(local, e, left, right)
 
 
-def restrict_hybrid_shard(v: Shards, global_grid: GridShape) -> Shards:
-    """Hybrid fw/cc restriction on axis-0 row blocks of ``global_grid``:
-    only axis 0 crosses shards (a sharded axis is even, hence
-    cell-centred); the other axes run the local per-axis operators."""
+def _hybrid_shard(v: Shards, global_grid: GridShape, cc_shard, fns) -> Shards:
+    """A hybrid transfer on the blocks of ``global_grid``, axis by axis in
+    order (the unsharded operator's order): a sharded cell-centred axis by
+    ``cc_shard`` (its 1-element ``ppermute`` pair), every other axis by its
+    local per-axis function ``fns[ax]`` (a sharded fw axis is odd, hence on
+    one shard)."""
     d = len(global_grid)
     kinds = transfer.hybrid_kinds(tuple(global_grid))
-    if kinds[0] == "cc":
-        v = _restrict_cc0_shard(v, d)
-        first = [None]
-    else:  # an odd axis 0: one shard only
-        first = [transfer._restrict_axis]
-    fns = first + [transfer._RESTRICT[k] for k in kinds[1:]]
-    return Shards.map(lambda t: _per_axis(t, fns), v)
+    nb = v.mesh.ndim
+    for ax in range(d):
+        if ax < nb and kinds[ax] == "cc":
+            v = cc_shard(v, d, ax)
+        else:
+            v = Shards.map(lambda t, ax=ax: transfer._along(fns[ax], t, ax - d), v)
+    return v.contiguous()
+
+
+def restrict_hybrid_shard(v: Shards, global_grid: GridShape) -> Shards:
+    """Hybrid fw/cc restriction on the blocks of ``global_grid`` (axis-0
+    row blocks over a 1-D mesh, 2-D blocks over a 2-D one): only the
+    sharded axes cross shards (a sharded axis is even, hence
+    cell-centred); the other axes run the local per-axis operators."""
+    kinds = transfer.hybrid_kinds(tuple(global_grid))
+    return _hybrid_shard(v, global_grid, _restrict_cc_shard,
+                         [transfer._RESTRICT[k] for k in kinds])
 
 
 def prolong_hybrid_shard(e: Shards, global_grid: GridShape) -> Shards:
-    """Hybrid fw/cc prolongation onto axis-0 row blocks of
-    ``global_grid``."""
-    d = len(global_grid)
+    """Hybrid fw/cc prolongation onto the blocks of ``global_grid``."""
     kinds = transfer.hybrid_kinds(tuple(global_grid))
-    if kinds[0] == "cc":
-        e = _prolong_cc0_shard(e, d)
-        first = [None]
-    else:
-        first = [lambda t: transfer._prolong_axis(t, global_grid[0])]
-    fns = first + [lambda t, k=k, n=n: transfer._PROLONG[k](t, n)
-                   for k, n in zip(kinds[1:], global_grid[1:])]
-    return Shards.map(lambda t: _per_axis(t, fns), e)
+    return _hybrid_shard(e, global_grid, _prolong_cc_shard,
+                         [lambda t, k=k, n=n: transfer._PROLONG[k](t, n)
+                          for k, n in zip(kinds, global_grid)])
 
 
 # ---------------------------------------------------------------------------
@@ -213,47 +229,57 @@ def prolong_hybrid_shard(e: Shards, global_grid: GridShape) -> Shards:
 # ---------------------------------------------------------------------------
 
 
-def _halo0(lvl) -> int:
-    return max((abs(s[0]) for s in lvl.A.shifts), default=0)
+def _halos(lvl, nb: int) -> Tuple[int, ...]:
+    """The stencil's reach along each of the ``nb`` sharded grid axes."""
+    return tuple(max((abs(s[a]) for s in lvl.A.shifts), default=0) for a in range(nb))
 
 
-def _shardable(lvl, num: int) -> bool:
-    """A level runs sharded iff its axis 0 splits evenly with an even local
-    extent (aggregates and cc pairs must not straddle shards), its stencil
-    halo fits one neighbour hop, and its transfers are aggregation or
-    hybrid (vertex-centred full weighting needs odd axes, which never
-    divide an even mesh), or semicoarsening that leaves axis 0 alone (the
-    axis-0 transfer is then the identity, fully shard-local, and the local
-    extent need not be even).  Axis-0-coarsening semi levels fall to the
-    replicated tail."""
-    g0 = lvl.grid[0]
-    if g0 % num:
+def _shardable(lvl, dims) -> bool:
+    """A level runs sharded iff each sharded axis (``dims``: the shards
+    along grid axes 0, 1, ...; an int for axis 0 alone) splits evenly with
+    an even local extent (aggregates and cc pairs must not straddle
+    shards), its stencil halo fits one neighbour hop, and its transfers are
+    aggregation or hybrid (vertex-centred full weighting needs odd axes,
+    which never divide an even mesh), or semicoarsening that leaves every
+    split axis alone (its transfer is then the identity there, fully
+    shard-local, and the local extent need not be even).  Semi levels that
+    coarsen a split axis fall to the replicated tail."""
+    dims = (dims,) if isinstance(dims, int) else tuple(dims)
+    g = lvl.grid
+    if any(g[a] % num for a, num in enumerate(dims)):
         return False
-    n_local = g0 // num
-    if _halo0(lvl) > n_local:
+    local = [g[a] // num for a, num in enumerate(dims)]
+    if any(h > n for h, n in zip(_halos(lvl, len(dims)), local)):
         return False
+    split = [a for a, num in enumerate(dims) if num > 1]
     if lvl.transfer.startswith("semi"):
-        return num == 1 or not _semi_mask(lvl.transfer)[0]
-    if num > 1 and lvl.transfer not in ("agg", "hyb"):
+        mask = _semi_mask(lvl.transfer)
+        return not any(mask[a] for a in split)
+    if split and lvl.transfer not in ("agg", "hyb"):
         return False
-    return num == 1 or n_local % 2 == 0
+    return all(local[a] % 2 == 0 for a in split)
 
 
-def _const_legs(cst: ConstStencilMatrix, r0: int, r1: int, dtype, device) -> torch.Tensor:
-    """Rows [r0, r1) of axis 0 of ``const_to_stencil(cst)``'s legs, built on
-    ``device``: each coefficient where the neighbour lies in the grid, 0
-    where it leaves it (the same values, computed in fp64 and cast)."""
+def _const_legs(cst: ConstStencilMatrix, r0, r1, dtype, device) -> torch.Tensor:
+    """The block [r0, r1) of ``const_to_stencil(cst)``'s legs (ints: rows
+    of axis 0; tuples: ranges of the leading axes), built on ``device``:
+    each coefficient where the neighbour lies in the grid, 0 where it
+    leaves it (the same values, computed in fp64 and cast)."""
     g = tuple(cst.grid)
     d = len(g)
-    legs = torch.empty((cst.nlegs, r1 - r0) + g[1:], dtype=torch.float64, device=device)
+    lo = (r0,) if isinstance(r0, int) else tuple(r0)
+    hi = (r1,) if isinstance(r1, int) else tuple(r1)
+    lo = lo + (0,) * (d - len(lo))
+    hi = hi + tuple(g[len(hi):])
+    shape = tuple(b - a for a, b in zip(lo, hi))
+    legs = torch.empty((cst.nlegs,) + shape, dtype=torch.float64, device=device)
     for k, (sh, c) in enumerate(zip(cst.shifts, cst.coeffs)):
-        valid = torch.ones((r1 - r0,) + g[1:], dtype=torch.bool, device=device)
+        valid = torch.ones(shape, dtype=torch.bool, device=device)
         for ax, s in enumerate(sh):
-            idx = (torch.arange(r0, r1, device=device) if ax == 0
-                   else torch.arange(g[ax], device=device)) + s
-            shape = [1] * d
-            shape[ax] = -1
-            valid &= ((idx >= 0) & (idx < g[ax])).reshape(shape)
+            idx = torch.arange(lo[ax], hi[ax], device=device) + s
+            view = [1] * d
+            view[ax] = -1
+            valid &= ((idx >= 0) & (idx < g[ax])).reshape(view)
         legs[k] = torch.where(valid, torch.tensor(float(c), dtype=torch.float64, device=device),
                               torch.zeros((), dtype=torch.float64, device=device))
     return legs.to(dtype).contiguous()
@@ -311,8 +337,9 @@ class ShardHierarchy:
 
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
-    """What a sharded V-cycle runs: ``n_sharded`` levels on row blocks (each
-    with its global grid, local extent, halo and kind), the tail's level
+    """What a sharded V-cycle runs: ``n_sharded`` levels on blocks (each
+    with its global grid, local extent, halo (a pair over a 2-D mesh) and
+    kind), the tail's level
     grids (replicated, on the first shard's device, then the dense
     inverse of ``coarse``), the sharded-level products of one cycle (each
     one launch a shard a column), and the bytes a cycle moves between
@@ -328,28 +355,57 @@ class ShardPlan:
     cc_bytes_per_cycle: int
 
 
+def block_range(mesh: Mesh, i: int, local: GridShape):
+    """(lo, hi): the global index range of shard ``i``'s block along each
+    sharded grid axis (axis 0 over a 1-D mesh; 0 and 1 over a 2-D one)."""
+    c = mesh.coords(i)
+    lo = tuple(c[a] * local[a] for a in range(mesh.ndim))
+    return lo, tuple(v + local[a] for a, v in enumerate(lo))
+
+
 def _shard_levels(h: MgHierarchy, n_sharded: int, mesh: Mesh, dt) -> Tuple[ShardLevel, ...]:
     """Place the first ``n_sharded`` levels of ``h`` on the mesh as
-    row blocks; constant levels expanded to legs."""
-    num = mesh.size
+    blocks (axis-0 rows over a 1-D mesh, 2-D blocks over a 2-D one);
+    constant levels expanded to legs."""
+    nb = mesh.ndim
     dt = torch_dtype(dt)
+    vdims, ldims = tuple(range(nb)), tuple(range(1, nb + 1))
     out = []
     for lvl in h.levels[:n_sharded]:
         g = tuple(lvl.grid)
-        n0 = g[0] // num
+        local = tuple(g[a] // mesh.dims[a] for a in range(nb))
         if isinstance(lvl.A, ConstStencilMatrix):
-            legs = Shards([_const_legs(lvl.A, i * n0, (i + 1) * n0, dt, d)
+            legs = Shards([_const_legs(lvl.A, *block_range(mesh, i, local), dt, d)
                            for i, d in enumerate(mesh.devices)], mesh)
         else:
-            legs = shard_rows(mesh, lvl.A.data, dt, dim=1)
+            legs = shard_blocks(mesh, lvl.A.data, ldims, dt)
         invd = lvl.inv_diag
         inv = (replicate(mesh, invd, dt) if invd.ndim == 0
-               else shard_rows(mesh, invd.reshape(g), dt, dim=0))
-        weight = None if lvl.weight is None else shard_rows(mesh, lvl.weight.reshape(g), dt, dim=0)
-        mask = None if lvl.mask is None else shard_rows(mesh, lvl.mask.reshape(g), None, dim=0)
-        out.append(ShardLevel(HaloStencil(legs, lvl.A.shifts, _halo0(lvl)), inv, weight, mask, g,
-                              tuple(lvl.cheb_bounds), lvl.transfer, lvl.sa_smooth))
+               else shard_blocks(mesh, invd.reshape(g), vdims, dt))
+        weight = None if lvl.weight is None else shard_blocks(mesh, lvl.weight.reshape(g), vdims,
+                                                              dt)
+        mask = None if lvl.mask is None else shard_blocks(mesh, lvl.mask.reshape(g), vdims)
+        out.append(ShardLevel(HaloStencil(legs, lvl.A.shifts, _halos(lvl, nb)), inv, weight, mask,
+                              g, tuple(lvl.cheb_bounds), lvl.transfer, lvl.sa_smooth))
     return tuple(out)
+
+
+def _cc_bytes(grid: GridShape, mesh: Mesh, itemsize: int) -> int:
+    """Bytes one restrict and one prolong of a hybrid level move between
+    shards: each sharded cell-centred axis's 1-element pair, its face the
+    block as the transfer finds it (the axes before it already transferred,
+    coarse on the way down and fine on the way up)."""
+    kinds = transfer.hybrid_kinds(tuple(grid))
+    coarse = transfer.hybrid_coarse_shape(tuple(grid))
+    local = lambda g, a: g[a] // mesh.dims[a] if a < mesh.ndim else g[a]
+    total = 0
+    for ax in range(mesh.ndim):
+        if kinds[ax] != "cc" or mesh.dims[ax] == 1:
+            continue
+        down = math.prod(local(coarse if b < ax else grid, b) for b in range(len(grid)) if b != ax)
+        up = math.prod(local(grid if b < ax else coarse, b) for b in range(len(grid)) if b != ax)
+        total += 2 * mesh.size * (down + up) * itemsize
+    return total
 
 
 def _plan(levels, rep_h: MgHierarchy, itemsize: int, smoother: str, pre: int, post: int) -> ShardPlan:
@@ -367,13 +423,12 @@ def _plan(levels, rep_h: MgHierarchy, itemsize: int, smoother: str, pre: int, po
         n = products(pre) + products(post) + 1 + (2 if L.kind == "agg" and L.sa_smooth else 0)
         count += n
         halo += n * L.op.halo_bytes
-        if L.kind == "hyb" and transfer.hybrid_kinds(L.grid)[0] == "cc" and L.op.mesh.size > 1:
-            rest = math.prod(L.grid[1:])
-            coarse_rest = math.prod(transfer.hybrid_coarse_shape(L.grid)[1:])
-            cc += 2 * L.op.mesh.size * (rest + coarse_rest) * itemsize
+        if L.kind == "hyb":
+            cc += _cc_bytes(L.grid, L.op.mesh, itemsize)
     return ShardPlan(
         n_sharded=len(levels),
-        levels=tuple((L.grid, L.op.local, L.op.halo, L.kind) for L in levels),
+        levels=tuple((L.grid, L.op.local, L.op.halos if len(L.op.halos) > 1 else L.op.halo,
+                      L.kind) for L in levels),
         tail=tuple(tuple(lvl.grid) for lvl in rep_h.levels),
         coarse=int(rep_h.coarse_inv.shape[0]), products_per_cycle=count,
         halo_bytes_per_cycle=halo, cc_bytes_per_cycle=cc)
@@ -405,15 +460,14 @@ def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre
                                      **build_kw)
     if not h.levels or not isinstance(h.levels[0].A, (StencilMatrix, ConstStencilMatrix)):
         raise ValueError("make_shard_mgcg needs a stencil-layout hierarchy with >= 1 level")
-    num = mesh.shape[axis]
     n_sharded = 0
     for lvl in h.levels:
-        if not _shardable(lvl, num):
+        if not _shardable(lvl, mesh.dims):
             break
         n_sharded += 1
     if n_sharded == 0:
         raise ValueError(
-            f"fine grid {grid} axis 0 does not shard over {num} devices "
+            f"fine grid {grid} does not shard over the mesh's {mesh.dims} devices "
             "(need even local extents and agg/hyb transfers, or "
             "semicoarsening that leaves axis 0 alone — reorder axes so the "
             "coarsened/strong axes trail); use parallel.gspmd"
@@ -426,7 +480,7 @@ def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre
 
 def make_vcycle(h: MgHierarchy, levels, rep_h: MgHierarchy, d: int):
     """The sharded V-cycle ``M(r)`` over ``levels`` and the replicated tail
-    ``rep_h``: ``r`` a ``Shards`` of axis-0 blocks whose trailing ``d`` dims
+    ``rep_h``: ``r`` a ``Shards`` of grid blocks whose trailing ``d`` dims
     are the grid (a leading column axis rides along: each column runs the
     single-RHS cycle, the tail one column at a time)."""
     n_sharded = len(levels)
@@ -444,16 +498,14 @@ def make_vcycle(h: MgHierarchy, levels, rep_h: MgHierarchy, d: int):
 
     def tail(r: Shards) -> Shards:
         mesh = r.mesh
-        r_g = r.gather(-d)
+        r_g = r.gather_grid(d)
         with no_tf32():  # the dense coarse product in full fp32
             if r_g.dim() == d:
                 e_g = v_cycle(rep_h, r_g)
             else:
                 e_g = torch.stack([v_cycle(rep_h, c) for c in r_g.reshape((-1,) + r_g.shape[-d:])])
                 e_g = e_g.reshape(r_g.shape)
-        n0 = r.shape[-d]
-        return Shards([e_g.narrow(-d, i * n0, n0).to(dv) for i, dv in enumerate(mesh.devices)],
-                      mesh)
+        return shard_blocks(mesh, e_g, tuple(range(-d, -d + mesh.ndim)))
 
     def cycle(level: int, r: Shards) -> Shards:
         if level == n_sharded:
@@ -502,12 +554,15 @@ def make_shard_vcycle(
     post: Optional[int] = None,
     dtype=None,
     hierarchy: Optional[MgHierarchy] = None,
+    axes=None,
     **build_kw,
 ):
     """The sharded V-cycle as a right preconditioner: ``M(r)`` on a
-    ``Shards`` of axis-0 grid blocks (``(n0 / num, *rest)`` a shard), the
-    sharded levels on ``HaloStencil`` (kernel #3 a shard) and the
-    replicated tail once on the mesh's first device.  What MGCG takes as
+    ``Shards`` of grid blocks (``(n0 / num, *rest)`` a shard over a 1-D
+    mesh, ``(n0 / px, n1 / py, *rest)`` over a 2-D one; ``axes``, when
+    given, must name the mesh's axes), the sharded levels on
+    ``HaloStencil`` (kernel #3 a shard) and the replicated tail once on
+    the mesh's first device.  What MGCG takes as
     its ``M`` and the sharded nonsymmetric loops take as theirs
     (``parallel.gspmd.make_gspmd_mg_nonsym``: Jacobi smoothing, the
     rediscretized ``coarse_operator=`` levels, hybrid cell-centred
@@ -526,6 +581,8 @@ def make_shard_vcycle(
     of its own (the outer loop's product), ``M.hierarchy`` the
     hierarchy."""
     grid = tuple(grid)
+    if axes is not None:
+        mesh.check_axes(axes)
     if isinstance(hierarchy, ShardHierarchy):
         given = dict(smoother=smoother, pre=pre, post=post,
                      dtype=None if dtype is None else torch_dtype(dtype))
@@ -563,11 +620,13 @@ def make_shard_mgcg(
     hierarchy: Optional[MgHierarchy] = None,
     variant: str = "cg",
 ):
-    """Build an explicit-collective MGCG solver over a 1-D mesh.
+    """Build an explicit-collective MGCG solver over a mesh (axis-0 row
+    blocks over a 1-D mesh, 2-D blocks over a 2-D one; ``axis`` is unused,
+    the JAX signature's).
 
     Returns ``(solve, (b, x0))`` with ``solve(b, x0) -> CGResult`` (a flat
     global x on the mesh's first device) and ``b``, ``x0`` the system's
-    vectors placed as ``Shards`` of axis-0 grid blocks; ``solve`` takes such
+    vectors placed as ``Shards`` of grid blocks; ``solve`` takes such
     ``Shards`` (or global arrays, split here).  ``system`` is a
     ``core.generators.LinearSystem`` (host fp64 DIA ``A``, ``b``, ``x0``);
     ``dtype`` (default ``A.data``'s) is the solve's, and the hierarchy's
@@ -589,14 +648,14 @@ def make_shard_mgcg(
         if isinstance(v, Shards):
             return v
         t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
-        return shard_rows(mesh, t.reshape(grid), dt, dim=0)
+        return shard_blocks(mesh, t.reshape(grid), (0, 1), dt)
 
     def solve_shards(b, x0) -> CGResult:
         return sharded_cg_loop(op0, M, place(b), place(x0), policy, n, variant=variant)
 
     def solve(b, x0) -> CGResult:
         res = solve_shards(b, x0)
-        return dataclasses.replace(res, x=res.x.gather().reshape(-1))
+        return dataclasses.replace(res, x=res.x.gather_grid(len(grid)).reshape(-1))
 
     solve.shards = solve_shards
     solve.plan = M.plan

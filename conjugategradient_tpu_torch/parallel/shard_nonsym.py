@@ -63,6 +63,7 @@ from conjugategradient_tpu_torch.parallel.mesh import (
     pmax,
     ppermute,
     psum,
+    shard_blocks,
     shard_rows,
 )
 from conjugategradient_tpu_torch.parallel.sharded_cg import (
@@ -189,7 +190,13 @@ def sharded_idr_loop(op, M, b: Shards, x0: Shards, policy: ConvergencePolicy, n_
     # the global draw, its columns normalised over every row, and each
     # shard's rows of it: the sharded iterates are the one-device ones up to
     # the order of the psum'd partials
-    Pt = shard_rows(b.mesh, shadow_space(n_global, s, seed, b.dtype, b.device, shadow))
+    P = shadow_space(n_global, s, seed, b.dtype, b.device, shadow)
+    mesh = b.mesh
+    if mesh.ndim == 1:
+        Pt = shard_rows(mesh, P)
+    else:  # 2-D grid blocks: each shard's block of the shadow's grid, flat
+        grid = tuple(n * k for n, k in zip(b.shape, mesh.dims)) + tuple(b.shape[mesh.ndim:])
+        Pt = shard_blocks(mesh, P.reshape((s,) + grid), (1, 2)).reshape(s, -1)
     return idr_loop(op, M, b, x0, policy, s=s, seed=seed, angle=angle, dot=_dot, matdot=_matdot,
                     pmax_abs=_pmax_abs, n_global=n_global, replace_every=replace_every,
                     shadow_rows=Pt)

@@ -31,12 +31,14 @@ straight into the coarse legs it determines (every leg entry comes from
 exactly one probe), so the peak is one fine-sized apply.  Everything that
 depends on a global index (the coset masks, the checkerboard candidate,
 the power iteration's start vector, the leg scatter) offsets a shard's
-axis-0 index by its first global row.  Structurally zero legs are pruned
+indices by its block's origin: its first global row over a 1-D mesh, its
+first row and column over a 2-D one (``axes=("x", "y")``: 2-D blocks,
+the JAX package's block partition).  Structurally zero legs are pruned
 by the exact ``> 0`` test on their global maxima.
 
 A level is built sharded when ``parallel.shard_mgcg``'s V-cycle can carry
-it (its axis 0 divides the mesh into even local extents its halo fits in,
-``_shardable``): the JAX package's ``specs_for_grid`` rule, narrowed to
+it (each sharded axis divides the mesh into even local extents its halo
+fits in, ``_shardable``): the JAX package's ``specs_for_grid`` rule, narrowed to
 what the explicit-collective cycle runs.  From the first level that is not,
 the levels are built replicated on the mesh's first device, as GSPMD
 replicates a level that does not divide (its products kernel #3 on the
@@ -87,23 +89,25 @@ def _box_shifts(extents: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
 
 
 # ---------------------------------------------------------------------------
-# global indices on a shard's block: axis 0 offset by the shard's first row
+# global indices on a shard's block: offset by the block's origin
 # ---------------------------------------------------------------------------
 
 
-def _iota(local: GridShape, ax: int, row0: int, device) -> torch.Tensor:
+def _iota(local: GridShape, ax: int, origin, device) -> torch.Tensor:
     """The global index along axis ``ax`` of a shard's block ``local``
-    whose axis 0 starts at global row ``row0``, broadcastable to it."""
-    i = torch.arange(local[ax], device=device) + (row0 if ax == 0 else 0)
+    whose origin is ``origin`` (an int: the first row of axis 0; a tuple:
+    the first index of each leading axis), broadcastable to it."""
+    org = (origin,) if isinstance(origin, int) else tuple(origin)
+    i = torch.arange(local[ax], device=device) + (org[ax] if ax < len(org) else 0)
     shape = [1] * len(local)
     shape[ax] = local[ax]
     return i.reshape(shape)
 
 
-def _iota_mod(local: GridShape, periods: Tuple[int, ...], row0: int = 0, device=None):
-    """Per axis, the global index mod its period on the block (``local``
-    rows from ``row0``)."""
-    return [_iota(local, ax, row0, device) % periods[ax] for ax in range(len(local))]
+def _iota_mod(local: GridShape, periods: Tuple[int, ...], origin=0, device=None):
+    """Per axis, the global index mod its period on the block ``local`` at
+    ``origin``."""
+    return [_iota(local, ax, origin, device) % periods[ax] for ax in range(len(local))]
 
 
 def _coset_mask(iotas, c: Tuple[int, ...]) -> torch.Tensor:
@@ -114,44 +118,54 @@ def _coset_mask(iotas, c: Tuple[int, ...]) -> torch.Tensor:
     return m
 
 
-def _checkerboard(local: GridShape, dtype, row0: int = 0, device=None) -> torch.Tensor:
+def _checkerboard(local: GridShape, dtype, origin=0, device=None) -> torch.Tensor:
     """The alternating candidate on the block: +1 where the global indices
     sum to an even number, -1 elsewhere."""
     par = None
     for ax in range(len(local)):
-        i = _iota(local, ax, row0, device)
+        i = _iota(local, ax, origin, device)
         par = i if par is None else par + i
     par = par.expand(tuple(local))
     one = torch.ones((), dtype=dtype, device=device)
     return torch.where(par % 2 == 0, one, -one)
 
 
+def _origins(mesh: Mesh, local: GridShape):
+    """Each shard's block origin on the leading ``mesh.ndim`` axes."""
+    return [tuple(c * n for c, n in zip(mesh.coords(i), local)) for i in range(mesh.size)]
+
+
+def _halos(shifts, nb: int) -> Tuple[int, ...]:
+    return tuple(max(abs(s[a]) for s in shifts) for a in range(nb))
+
+
 class _Level:
     """A level under construction: its legs (a ``Shards`` over the mesh
     when sharded, over the first device alone when replicated), shifts,
     global grid and the product over them.  A sharded level comes with
-    ``slabs``, the zero-haloed slabs its legs are the middle rows of
-    (``zero_halo_slab``), and its product is ``HaloStencil.from_slabs``
-    over them; a replicated one runs kernel #3 on the whole grid."""
+    ``slabs``, the zero-haloed slabs its legs are the middle of
+    (``zero_halo_slab``, extended on every sharded axis), and its product
+    is ``HaloStencil.from_slabs`` over them; a replicated one runs kernel
+    #3 on the whole grid."""
 
     def __init__(self, legs: Shards, shifts, grid: GridShape, slabs: Optional[Shards] = None):
         self.legs, self.shifts, self.grid = legs, tuple(shifts), tuple(grid)
         self.sharded = slabs is not None
         self.mesh = legs.mesh
         self.local = tuple(legs.shape[1:])
-        self.rows0 = [i * self.local[0] for i in range(self.mesh.size)]
+        self.origins = _origins(self.mesh, self.local)
         d = len(self.grid)
         self.center = self.shifts.index((0,) * d)
-        self.halo0 = max(abs(s[0]) for s in self.shifts)
         if self.sharded:
-            self.op = HaloStencil.from_slabs(slabs, self.shifts, self.halo0)
+            halos = _halos(self.shifts, self.mesh.ndim)
+            self.op = HaloStencil.from_slabs(slabs, self.shifts, halos)
         else:
             A = StencilMatrix(legs.parts[0], self.shifts, self.grid)
             self.op = lambda x: Shards.map(lambda t: spmv_stencil_cuda(A, t), x)
 
     def fill(self, fn) -> Shards:
-        """``fn(row0, device)`` on each shard: a ``Shards`` of its blocks."""
-        return Shards([fn(r0, dv) for r0, dv in zip(self.rows0, self.mesh.devices)], self.mesh)
+        """``fn(origin, device)`` on each shard: a ``Shards`` of its blocks."""
+        return Shards([fn(o, dv) for o, dv in zip(self.origins, self.mesh.devices)], self.mesh)
 
 
 def _pdot(u: Shards, v: Shards) -> torch.Tensor:
@@ -184,8 +198,8 @@ def _near_null_dev(L: _Level):
     (constant, checkerboard): the device twin of ``multigrid._near_null``.
     Two 0-d tensors on the first device; the caller picks on the host."""
     dt = L.legs.dtype
-    ones = L.fill(lambda r0, dv: torch.ones(L.local, dtype=dt, device=dv))
-    alt = L.fill(lambda r0, dv: _checkerboard(L.local, dt, r0, dv))
+    ones = L.fill(lambda o, dv: torch.ones(L.local, dtype=dt, device=dv))
+    alt = L.fill(lambda o, dv: _checkerboard(L.local, dt, o, dv))
 
     def q(z):
         return _pdot(z, L.op(z)) / _pdot(z, z)
@@ -202,10 +216,10 @@ def _lam_max_dev(L: _Level, inv_diag: Shards, iters: int = 30) -> torch.Tensor:
     g = L.grid
     dt = L.legs.dtype
 
-    def start(r0, dv):
+    def start(org, dv):
         idx = None
         for ax in range(len(g)):
-            i = _iota(L.local, ax, r0, dv)
+            i = _iota(L.local, ax, org, dv)
             idx = i if idx is None else idx * g[ax] + i
         return torch.sin(0.7 * idx.expand(L.local).to(dt)) + 0.1
 
@@ -253,11 +267,11 @@ def _probe_coarse(L: _Level, W: Optional[Shards], kind: str = "agg") -> Shards:
     d = len(fine)
     gc, periods, extents = _probe_geometry(fine, kind)
     box = _box_shifts(extents)
-    num = L.mesh.size
-    local_c = (gc[0] // num,) + tuple(gc[1:])
-    crow0 = [i * local_c[0] for i in range(num)]
+    mesh = L.mesh
+    local_c = tuple(n // mesh.dims[a] if a < mesh.ndim else n for a, n in enumerate(gc))
+    corigins = _origins(mesh, local_c)
     dt = L.legs.dtype
-    iotas = [_iota_mod(local_c, periods, r0, dv) for r0, dv in zip(crow0, L.mesh.devices)]
+    iotas = [_iota_mod(local_c, periods, o, dv) for o, dv in zip(corigins, mesh.devices)]
     out = Shards([torch.zeros((len(box),) + local_c, dtype=dt, device=dv)
                   for dv in L.mesh.devices], L.mesh)
     for c in product(*[range(p) for p in periods]):
@@ -267,8 +281,8 @@ def _probe_coarse(L: _Level, W: Optional[Shards], kind: str = "agg") -> Shards:
         else:
             v = W * Shards.map(lambda t: _prolong_agg(t, L.local), e0)
             y = Shards.map(lambda t: _restrict_agg(t, d), W * L.op(v))
-        for o, y_, r0 in zip(out.parts, y.parts, crow0):
-            offs = (r0,) + (0,) * (d - 1)
+        for o, y_, org in zip(out.parts, y.parts, corigins):
+            offs = org + (0,) * (d - len(org))
             for k, s in enumerate(box):
                 sl = tuple(slice((c[ax] - s[ax] - offs[ax]) % periods[ax], None, periods[ax])
                            for ax in range(d))
@@ -281,25 +295,27 @@ def _specs_for(g: GridShape, mesh: Mesh, axes: Tuple[str, ...]):
     return specs_for_grid(g, mesh, axes)
 
 
-def _carried(g: GridShape, halo0: int, mesh: Mesh, axes: Tuple[str, ...]) -> bool:
-    """Whether a level of grid ``g`` (agg or hyb transfers, axis-0 halo
-    ``halo0``) is built sharded: its axis 0 shards (``_specs_for``) and the
-    sharded V-cycle carries it (``shard_mgcg._shardable``: an even local
-    extent, the halo within it; any split on one shard)."""
-    num = mesh.size
-    if num > 1 and not _specs_for(g, mesh, axes).names[0]:
-        return False
-    n0 = g[0] // num
-    return halo0 <= n0 and (num == 1 or n0 % 2 == 0)
+def _carried(g: GridShape, halos, mesh: Mesh, axes: Tuple[str, ...]) -> bool:
+    """Whether a level of grid ``g`` (agg or hyb transfers, ``halos`` its
+    reach along each sharded axis) is built sharded: each axis the mesh
+    splits shards (``_specs_for``) and the sharded V-cycle carries it
+    (``shard_mgcg._shardable``: an even local extent, the halo within it;
+    any split on one shard)."""
+    names = _specs_for(g, mesh, axes).names
+    for a, num in enumerate(mesh.dims):
+        n = g[a] // num
+        if (num > 1 and (not names[a] or n % 2)) or halos[a] > n:
+            return False
+    return True
 
 
 def _first(mesh: Mesh) -> Mesh:
-    return Mesh(mesh.devices[:1], mesh.axis)
+    return Mesh(mesh.devices[:1], mesh.axes[0])
 
 
 def _as_tensor(legs) -> torch.Tensor:
     if isinstance(legs, Shards):
-        return legs.gather(1)
+        return legs.gather_grid(legs.parts[0].dim() - 1)
     return legs if torch.is_tensor(legs) else torch.from_numpy(np.asarray(legs))
 
 
@@ -308,19 +324,20 @@ def _place(legs, shifts, g: GridShape, mesh: Mesh, axes, dt) -> _Level:
     copied into a zero-haloed slab on its device (``zero_halo_slab``; a
     global array is split first), so its ``HaloStencil`` copies nothing
     more; otherwise the global legs on the first device."""
-    halo0 = max(abs(s[0]) for s in shifts)
-    if not _carried(g, halo0, mesh, axes):
+    halos = _halos(shifts, mesh.ndim)
+    if not _carried(g, halos, mesh, axes):
         t = _as_tensor(legs).to(device=mesh.devices[0], dtype=dt).contiguous()
         return _Level(Shards([t], _first(mesh)), shifts, g)
-    n0 = g[0] // mesh.size
-    if isinstance(legs, Shards) and legs.mesh.size == mesh.size:
+    local = tuple(n // mesh.dims[a] if a < mesh.ndim else n for a, n in enumerate(g))
+    if isinstance(legs, Shards) and legs.mesh.dims == mesh.dims:
         blocks = legs.parts
     else:
-        t = _as_tensor(legs)
-        blocks = [t[:, i * n0:(i + 1) * n0] for i in range(mesh.size)]
+        blocks = [_as_tensor(legs)]
+        for a, num in enumerate(mesh.dims):
+            blocks = [c for blk in blocks for c in torch.chunk(blk, num, dim=1 + a)]
     slabs, mids = [], []
     for b, dv in zip(blocks, mesh.devices):
-        slab, mid = zero_halo_slab(len(shifts), (n0,) + tuple(g[1:]), halo0, dt, dv)
+        slab, mid = zero_halo_slab(len(shifts), local, halos, dt, dv)
         mid.copy_(b)
         slabs.append(slab)
         mids.append(mid)
@@ -332,7 +349,7 @@ def _fine_level(A: StencilMatrix, g: GridShape, mesh: Mesh, axes, dt) -> _Level:
     this mesh keeps the assembly's slabs (no second copy of the fine
     legs); anything else is placed (``_place``)."""
     if (isinstance(A, SlabStencil) and A.data.mesh.devices == mesh.devices
-            and _carried(g, A.halo0, mesh, axes)):
+            and A.data.mesh.dims == mesh.dims and _carried(g, (A.halo0,), mesh, axes)):
         return _Level(A.data, A.shifts, g, A.slabs)
     return _place(A.data, A.shifts, g, mesh, axes, dt)
 
@@ -353,9 +370,9 @@ def _level_coarsen(L: _Level, z_is_ones: bool, kind: str):
         return None, None, _probe_coarse(L, None, kind="hyb")
     dt = L.legs.dtype
     if z_is_ones:
-        z = L.fill(lambda r0, dv: torch.ones(L.local, dtype=dt, device=dv))
+        z = L.fill(lambda o, dv: torch.ones(L.local, dtype=dt, device=dv))
     else:
-        z = L.fill(lambda r0, dv: _checkerboard(L.local, dt, r0, dv))
+        z = L.fill(lambda o, dv: _checkerboard(L.local, dt, o, dv))
     W, z_c = _agg_weights_dev(z, L.local)
     return W, z_c, _probe_coarse(L, W)
 
@@ -433,9 +450,11 @@ def build_hierarchy_probed(
     sa_smooth_levels=0)`` produces (the same transfers and coarse legs to
     fp round-off, the same pruned leg sets), but no host holds a level:
     only O(levels) scalars and the coarsest level are read back.  Requires
-    fine extent <= 1 per axis (the probing window).  ``A.data`` is a
-    ``Shards`` of axis-0 blocks over ``mesh`` (``parallel.rung5``), or a
-    global array, split here; a ``SlabStencil``'s slabs become the fine
+    fine extent <= 1 per axis (the probing window).  ``axes`` names the
+    mesh's axes: ``("x",)`` builds on axis-0 row blocks of a 1-D mesh,
+    ``("x", "y")`` on 2-D blocks of a 2-D mesh.  ``A.data`` is a
+    ``Shards`` of blocks over ``mesh`` (``parallel.rung5``'s axis-0
+    slabs), or a global array, split here; a ``SlabStencil``'s slabs become the fine
     level's as they are, and its ``real0`` the hierarchy's.  Returns a
     ``ShardHierarchy``: the levels the sharded V-cycle carries stay on the
     shards, the rest (coarse levels that stop dividing the mesh) on its
@@ -449,10 +468,7 @@ def build_hierarchy_probed(
         raise ValueError(f"unsupported smoother {smoother!r} (rbgs needs host masks)")
     if transfer_kind not in ("auto", "hyb", "agg"):
         raise ValueError(f"unknown transfer_kind {transfer_kind!r} (probed setup)")
-    axes = tuple(axes)
-    if axes[:1] != (mesh.axis,) or len(axes) > 1:
-        raise NotImplementedError(f"axes={axes}: one axis, the mesh's ({mesh.axis!r}) "
-                                  "(ROADMAP queue 1: parallel)")
+    axes = mesh.check_axes(axes)
 
     def _pick(gg, geom_ok=True):
         """``geom_ok``: the constant is the near-null candidate, required
@@ -522,7 +538,7 @@ def build_hierarchy_probed(
     # coarsest: tiny; read it, invert densely.  Assembled dense straight
     # from the legs: on very small grids distinct shifts can alias one
     # flat DIA offset, so no DIA round trip
-    legs_h = reads(L.legs.gather(1))
+    legs_h = reads(_as_tensor(L.legs))
     return _finish(levels, tail, legs_h, L.shifts, g, dt, mesh, smoother, pre, post, omega,
                    A.grid, real0, setup, reads, products, near_null)
 
@@ -550,7 +566,8 @@ def build_hierarchy_redisc(
     ``generators.convection_diffusion_coarse_operator``): the probed
     builder would reproduce the divergent Galerkin coarse operators.
     ``slab_fn(level, grid_l, lo0, hi0) -> (nlegs, hi0-lo0, *grid_l[1:])``
-    gives host legs for axis-0 planes [lo0, hi0) of level ``level`` (e.g.
+    gives host legs for axis-0 planes [lo0, hi0) of level ``level`` (over
+    a 2-D mesh each block takes its columns of its planes) (e.g.
     ``generators.convection_diffusion_level_slab(eps)``, which carries the
     calibrated per-level scaling).  Transfers are the geometric hybrid
     fw/cc family; even (2^k) grids halve cleanly and divide the mesh.  Leg
@@ -559,10 +576,7 @@ def build_hierarchy_redisc(
     build's.  Returns a ``ShardHierarchy`` as ``build_hierarchy_probed``."""
     if smoother not in ("jacobi", "chebyshev"):
         raise ValueError(f"unsupported smoother {smoother!r}")
-    axes = tuple(axes)
-    if axes[:1] != (mesh.axis,) or len(axes) > 1:
-        raise NotImplementedError(f"axes={axes}: one axis, the mesh's ({mesh.axis!r}) "
-                                  "(ROADMAP queue 1: parallel)")
+    axes = mesh.check_axes(axes)
     g = tuple(int(n) for n in grid)
     d = len(g)
     shifts = unit_shifts(d)
@@ -571,15 +585,18 @@ def build_hierarchy_redisc(
     reads = _Reads()
 
     def assemble(level, gg, sharded_so_far) -> _Level:
-        sharded = sharded_so_far and _carried(gg, 1, mesh, axes)
+        sharded = sharded_so_far and _carried(gg, (1,) * mesh.ndim, mesh, axes)
         if not sharded:
             t = torch.from_numpy(np.ascontiguousarray(slab_fn(level, gg, 0, gg[0])))
             return _Level(Shards([t.to(mesh.devices[0], dt)], _first(mesh)), shifts, gg)
-        n0 = gg[0] // mesh.size
+        local = tuple(n // mesh.dims[a] if a < mesh.ndim else n for a, n in enumerate(gg))
         slabs, mids = [], []
-        for i, dv in enumerate(mesh.devices):
-            slab, mid = zero_halo_slab(len(shifts), (n0,) + gg[1:], 1, dt, dv)
-            mid.copy_(torch.from_numpy(np.asarray(slab_fn(level, gg, i * n0, (i + 1) * n0))))
+        for org, dv in zip(_origins(mesh, local), mesh.devices):
+            slab, mid = zero_halo_slab(len(shifts), local, (1,) * mesh.ndim, dt, dv)
+            legs = np.asarray(slab_fn(level, gg, org[0], org[0] + local[0]))
+            if mesh.ndim == 2:  # the generator gives whole planes: this block's columns
+                legs = legs[:, :, org[1]:org[1] + local[1]]
+            mid.copy_(torch.from_numpy(np.ascontiguousarray(legs)))
             slabs.append(slab)
             mids.append(mid)
         return _Level(Shards(mids, mesh), shifts, gg, Shards(slabs, mesh))

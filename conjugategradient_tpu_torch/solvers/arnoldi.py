@@ -42,10 +42,18 @@ sigma I`` (convection-diffusion eps 0.1, sigma 0, a V-cycle M, CPU runs:
 127^2).  Under its floor an inner solve runs to ``inner_max_iteration``
 and can diverge, which raises ``FloatingPointError``.
 
+The mesh twin (``gspmd_arnoldi_eigs``, ``arnoldi_eigs(basis_sharding=(mesh,
+axis))``) holds the ``(m+1, n)`` basis as ``Shards`` of ``(m+1, n / num)``
+row blocks of a 1-D mesh of ``parallel.mesh``: the expansion's product is
+kernel #4 on each shard's extended DIA (``parallel.halo.HaloDia``), CGS2's
+projections and the norms are ``psum``s of the shards' local ``V[:j+1] @
+w`` and dots, the restart contraction and the final ``Y^T V`` stay local,
+and ``v0`` is the same host draw, split.  Under ``sigma=`` the inner
+IDR(4), BiCGStab or GMRES(40) are ``parallel.shard_nonsym``'s sharded
+loops.  The host Schur work is the one-device code.
+
 Left out: the JAX package's ``_EXPAND_CACHE`` / ``_APPLY_CACHE`` LRUs of
-jitted expansions (PyTorch compiles nothing, so there is nothing to reuse),
-and the mesh twin (``basis_sharding=``, ``gspmd_arnoldi_eigs``), not ported
-yet.
+jitted expansions (PyTorch compiles nothing, so there is nothing to reuse).
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from conjugategradient_tpu_torch.core.formats import default_device, torch_dtype
 from conjugategradient_tpu_torch.ops.blas import dot as _dot
 from conjugategradient_tpu_torch.ops.precision import no_tf32
 from conjugategradient_tpu_torch.ops.spmv import as_operator, prepare
+from conjugategradient_tpu_torch.parallel.mesh import Shards
 from conjugategradient_tpu_torch.solvers.bicgstab import bicgstab_solve
 from conjugategradient_tpu_torch.solvers.cg import _safe_div
 from conjugategradient_tpu_torch.solvers.gmres import gmres_solve
@@ -67,7 +76,6 @@ from conjugategradient_tpu_torch.solvers.idr import idr_solve
 from conjugategradient_tpu_torch.solvers.multi import _as_multi_operator
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
-_PARALLEL = "ROADMAP queue 1: parallel"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +152,8 @@ def _shift_apply(op0, sigma, M, inner_tol, inner_max_iteration, inner_method):
     default: sigma inside the spectrum's hull makes the shifted operator
     indefinite, where the JAX package measured BiCGStab breaking down and
     GMRES(40) stagnating (16^2 convection, eps 0.1, sigma 0.05) while
-    IDR(4) converged every solve."""
+    IDR(4) converged every solve.  A ``Shards`` ``v`` (the mesh twin) runs
+    ``parallel.shard_nonsym``'s sharded loop of the same method."""
     if inner_method not in ("idr", "bicgstab", "gmres"):
         raise ValueError(f"unknown inner_method {inner_method!r}")
     pol = ConvergencePolicy(tol=float(inner_tol), norm="rel_l2",
@@ -156,7 +165,12 @@ def _shift_apply(op0, sigma, M, inner_tol, inner_max_iteration, inner_method):
         return op0(u) - sigma * u
 
     def apply(v):
-        if inner_method == "idr":
+        if isinstance(v, Shards):
+            from conjugategradient_tpu_torch.parallel.shard_nonsym import run_sharded_loop
+
+            res = run_sharded_loop(inner_method, shifted, M, v, torch.zeros_like(v), pol,
+                                   v.numel() * v.mesh.size, restart=40, s=4)
+        elif inner_method == "idr":
             res = idr_solve(shifted, v, policy=pol, M=M, s=4)
         elif inner_method == "gmres":
             res = gmres_solve(shifted, v, policy=pol, M=M, restart=40)
@@ -167,11 +181,13 @@ def _shift_apply(op0, sigma, M, inner_tol, inner_max_iteration, inner_method):
     return apply, applied
 
 
-def _expand(apply_op, V, S, p: int, m: int, precise_dot: bool):
+def _expand(apply_op, V, S, p: int, m: int, proj, dot):
     """The Arnoldi expansion from basis row ``p`` to ``m`` in place on
     ``V`` (m+1, n) and ``S`` (m, m): one ``apply_op`` a step, CGS2 against
-    ``V[:j+1]``.  Returns ``(beta, ok)``: the last step's subdiagonal (a
-    0-d device tensor) and whether every inner solve converged."""
+    ``V[:j+1]`` (``proj(Vj, w)`` is ``Vj @ w``, ``dot`` the inner product:
+    over a mesh their psum'd forms).  Returns ``(beta, ok)``: the last
+    step's subdiagonal (a 0-d device tensor) and whether every inner solve
+    converged."""
     eps = torch.finfo(V.dtype).eps
     ok = True
     wn = torch.zeros((), dtype=V.dtype, device=V.device)
@@ -179,12 +195,12 @@ def _expand(apply_op, V, S, p: int, m: int, precise_dot: bool):
         w, w_ok = apply_op(V[j])
         ok = ok and w_ok
         Vj = V[: j + 1]
-        h1 = Vj @ w
+        h1 = proj(Vj, w)
         w = w - h1 @ Vj
-        h2 = Vj @ w
+        h2 = proj(Vj, w)
         w = w - h2 @ Vj
         h = h1 + h2
-        wn = torch.sqrt(_dot(w, w, precise=precise_dot))
+        wn = torch.sqrt(dot(w, w))
         # lucky-breakdown guard: after CGS2 the leftover w is rounding
         # noise whenever v_j's image lies in the basis span (wn ~ eps
         # ||A v_j||, never exactly 0; normalising it injects a garbage
@@ -200,6 +216,38 @@ def _expand(apply_op, V, S, p: int, m: int, precise_dot: bool):
         if j + 1 < m:
             S[j + 1, j] = wn
     return wn, ok
+
+
+def _sharded_basis(A, n: int, m: int, dt, basis_sharding, is_callable_op, precise_dot):
+    """The mesh twin's pieces: ``(mesh, op, rows, proj, dot, V)`` with
+    ``op`` kernel #4 on each shard's extended DIA (``HaloDia``; a callable
+    ``A`` takes ``Shards`` itself), ``rows`` a host (r, n) or (n,) array
+    split into row blocks, ``proj``/``dot`` the psum'd CGS2 products and
+    ``V`` the zero basis as ``Shards`` of (m+1, n / num)."""
+    from conjugategradient_tpu_torch.core.formats import DiaMatrix
+    from conjugategradient_tpu_torch.parallel.halo import HaloDia
+    from conjugategradient_tpu_torch.parallel.mesh import psum, shard_rows
+
+    mesh, axis = basis_sharding
+    if mesh.ndim != 1 or axis != mesh.axis:
+        raise ValueError(f"basis_sharding row-shards over a 1-D mesh's axis, not {axis!r} of "
+                         f"{mesh}")
+    if n % mesh.size:
+        raise ValueError(f"n={n} rows do not divide over {mesh.size} shards")
+    n_local = n // mesh.size
+    if is_callable_op:
+        op = A
+    elif isinstance(A, DiaMatrix):
+        data = shard_rows(mesh, A.data, dt, dim=1)
+        op = HaloDia(data, tuple(A.offsets), A.bandwidth, A.bandwidth > n_local)
+    else:
+        raise TypeError("basis_sharding= needs a DiaMatrix or a callable on Shards")
+    rows = lambda a: shard_rows(mesh, torch.from_numpy(np.asarray(a)), dt, dim=-1)
+    proj = lambda Vj, w: psum(Shards.map(torch.matmul, Vj, w)).parts[0]
+    ldot = lambda a, b: _dot(a, b, precise=precise_dot)
+    dot = lambda u, v: psum(Shards.map(ldot, u, v)).parts[0]
+    V = Shards([torch.zeros((m + 1, n_local), dtype=dt, device=d) for d in mesh.devices], mesh)
+    return mesh, op, rows, proj, dot, V
 
 
 def arnoldi_eigs(
@@ -244,11 +292,12 @@ def arnoldi_eigs(
     package runs under x64); ``device``: where it runs (``None``: the card
     when there is one).  A single-vector Krylov space finds a degenerate
     eigenvalue once: for clustered symmetric spectra use ``lobpcg``.  May
-    return FEWER than k pairs (see ``EigsResult``).  ``basis_sharding`` is
-    the mesh twin's and raises ``NotImplementedError``.
+    return FEWER than k pairs (see ``EigsResult``).  ``basis_sharding``:
+    ``(mesh, axis)``, the port's ``NamedSharding(mesh, P(None, axis))``:
+    the basis row-sharded over a 1-D mesh (the module docstring), ``A`` a
+    ``DiaMatrix`` (or a callable on ``Shards``), ``device`` the mesh's
+    first.
     """
-    if basis_sharding is not None:
-        raise NotImplementedError(f"basis_sharding is not ported yet ({_PARALLEL})")
     if n is None:
         if hasattr(A, "n"):
             n = int(A.n)
@@ -268,13 +317,29 @@ def arnoldi_eigs(
     if dtype is None:
         dtype = getattr(A, "dtype", None) or torch.float64
     dt = torch_dtype(dtype)
-    dev = default_device(device)
     eps = float(torch.finfo(dt).eps)
-    if is_callable_op:
-        op_plain = A
+    rng = np.random.default_rng(seed)
+    v0 = rng.standard_normal(n)
+    v0 /= np.linalg.norm(v0)
+    if basis_sharding is not None:
+        mesh, op_plain, rows, proj, dot, V = _sharded_basis(A, n, m, dt, basis_sharding,
+                                                            is_callable_op, precise_dot)
+        dev = mesh.devices[0]
+        V[0] = rows(v0)
+        gather = lambda X: X.gather(1)
     else:
-        A = prepare(A.device_put(dt, dev) if hasattr(A, "device_put") else A, dev)
-        op_plain = as_operator(A)
+        dev = default_device(device)
+        if is_callable_op:
+            op_plain = A
+        else:
+            A = prepare(A.device_put(dt, dev) if hasattr(A, "device_put") else A, dev)
+            op_plain = as_operator(A)
+        rows = lambda a: torch.from_numpy(np.asarray(a)).to(dev, dt)
+        proj = lambda Vj, w: Vj @ w
+        dot = lambda u, v: _dot(u, v, precise=precise_dot)
+        V = torch.zeros((m + 1, n), dtype=dt, device=dev)
+        V[0] = rows(v0)
+        gather = lambda X: X
 
     inner_ok = True
     applied = [0]
@@ -287,12 +352,6 @@ def arnoldi_eigs(
                                          inner_method)
     else:
         apply_op = lambda v: (op_plain(v), True)
-
-    rng = np.random.default_rng(seed)
-    v0 = rng.standard_normal(n)
-    v0 /= np.linalg.norm(v0)
-    V = torch.zeros((m + 1, n), dtype=dt, device=dev)
-    V[0] = torch.from_numpy(v0).to(V)
     S = torch.zeros((m, m), dtype=dt, device=dev)
 
     # restart thickness: the k wanted plus half the discarded space (pure
@@ -313,7 +372,7 @@ def arnoldi_eigs(
     with no_tf32():
         for restarts in range(1, max_restarts + 1):
             p = 0 if restarts == 1 else p_cur
-            beta, ok_c = _expand(apply_op, V, S, p, m, precise_dot)
+            beta, ok_c = _expand(apply_op, V, S, p, m, proj, dot)
             matvecs += m - p
             # one read a cycle: S and beta together
             SB = torch.cat([S.reshape(-1), beta.reshape(1)]).to("cpu", torch.float64).numpy()
@@ -337,10 +396,10 @@ def arnoldi_eigs(
                 mm = (tiny[0] + 1) if tiny else m
                 if mm < k and deflations < 8:
                     deflations += 1
-                    w = torch.from_numpy(rng.standard_normal(n)).to(V)
+                    w = rows(rng.standard_normal(n))
                     for _ in range(2):  # CGS2 against the invariant block
-                        w = w - (V[:mm] @ w) @ V[:mm]
-                    w = w / torch.sqrt(_dot(w, w, precise=precise_dot))
+                        w = w - proj(V[:mm], w) @ V[:mm]
+                    w = w / torch.sqrt(dot(w, w))
                     V[mm] = w
                     p_cur = mm
                     if restarts < max_restarts:
@@ -380,22 +439,22 @@ def arnoldi_eigs(
                 p_cur = m - 1
                 if abs(T[p_cur, p_cur - 1]) > 0:
                     p_cur -= 1
-            Q1 = torch.from_numpy(np.ascontiguousarray(Q[:, :p_cur])).to(V)  # (m, p)
+            Q1 = torch.from_numpy(np.ascontiguousarray(Q[:, :p_cur])).to(dev, dt)  # (m, p)
             Vp = Q1.T @ V[:m]  # (p, n) contraction on the card
-            vm = V[m].clone()  # the residual direction continues the basis
-            V.zero_()
+            vm = torch.clone(V[m])  # the residual direction continues the basis
+            V[:] = 0
             V[:p_cur] = Vp
             V[p_cur] = vm
             S_new = np.zeros((m, m))
             S_new[:p_cur, :p_cur] = T[:p_cur, :p_cur]
             S_new[p_cur, :p_cur] = beta_f * Q[m - 1, :p_cur]  # coupling row b^T
-            S = torch.from_numpy(S_new).to(V)
+            S = torch.from_numpy(S_new).to(dev, dt)
 
         # assemble the eigenpairs: x_i = V_mm^T y_i, two real matmuls
         Yw = Y[:, wanted]  # (mm, k') complex
-        Yr = torch.from_numpy(np.ascontiguousarray(Yw.real)).to(V)
-        Yi = torch.from_numpy(np.ascontiguousarray(Yw.imag)).to(V)
-        XrXi = torch.cat([Yr.T @ V[:mm], Yi.T @ V[:mm]]).to("cpu", torch.float64).numpy()
+        Yr = torch.from_numpy(np.ascontiguousarray(Yw.real)).to(dev, dt)
+        Yi = torch.from_numpy(np.ascontiguousarray(Yw.imag)).to(dev, dt)
+        XrXi = gather(torch.cat([Yr.T @ V[:mm], Yi.T @ V[:mm]])).to("cpu", torch.float64).numpy()
     kw_n = len(wanted)
     X = (XrXi[:kw_n] + 1j * XrXi[kw_n:]).T.astype(np.complex128)  # (n, k')
     nrm = np.linalg.norm(X, axis=0)
@@ -410,12 +469,16 @@ def arnoldi_eigs(
         # and imaginary columns as one block product, one read
         with np.errstate(divide="ignore", invalid="ignore"):
             vals = sigma + 1.0 / theta[wanted]
-        cols = torch.from_numpy(np.concatenate([X.real.T, X.imag.T], axis=0)).to(V)  # (2k', n)
+        cols = np.concatenate([X.real.T, X.imag.T], axis=0)  # (2k', n)
         with no_tf32():
-            if is_callable_op:
-                AXc = torch.stack([A(c) for c in cols])
+            if basis_sharding is not None and is_callable_op:
+                AXc = torch.stack([A(rows(c)).gather() for c in cols])
+            elif basis_sharding is not None:  # kernel #5 on each shard
+                AXc = op_plain(rows(cols)).gather(1)
+            elif is_callable_op:
+                AXc = torch.stack([A(c) for c in rows(cols)])
             else:
-                AXc = _as_multi_operator(A, dev)(cols.contiguous())
+                AXc = _as_multi_operator(A, dev)(rows(cols).contiguous())
         AX = AXc.to("cpu", torch.float64).numpy()
         Ax_c = AX[:kw_n].astype(np.complex128) + 1j * AX[kw_n:]
         resid = np.linalg.norm(Ax_c - vals[:, None] * X.T, axis=1).astype(np.float64)
@@ -431,6 +494,21 @@ def arnoldi_eigs(
     )
 
 
-def gspmd_arnoldi_eigs(A, k: int = 6, mesh=None, *args, **kw) -> EigsResult:
-    """The mesh-distributed twin of ``arnoldi_eigs``: not ported yet."""
-    raise NotImplementedError(f"gspmd_arnoldi_eigs is not ported yet ({_PARALLEL})")
+def gspmd_arnoldi_eigs(A, k: int = 6, mesh=None, axis: str = "x", dtype=None,
+                       **kw) -> EigsResult:
+    """Mesh-distributed Krylov-Schur Arnoldi: ``arnoldi_eigs`` with the
+    basis and A's DIA data row-sharded over ``axis`` of a 1-D ``mesh``
+    (``basis_sharding=(mesh, axis)``; the module docstring).  The
+    expansion's product is kernel #4 a shard; the ``m x m`` Schur work
+    stays on the host.  The one-device trajectory up to the order of the
+    psum'd partials.  ``A`` must be a ``DiaMatrix``; ``dtype`` defaults to
+    its data's."""
+    from conjugategradient_tpu_torch.core.formats import DiaMatrix
+
+    if mesh is None:
+        raise ValueError("gspmd_arnoldi_eigs needs a mesh")
+    if not isinstance(A, DiaMatrix):
+        raise TypeError("gspmd_arnoldi_eigs requires a DiaMatrix")
+    if dtype is None:
+        dtype = A.data.dtype if torch.is_tensor(A.data) else np.asarray(A.data).dtype
+    return arnoldi_eigs(A, k, dtype=dtype, basis_sharding=(mesh, axis), **kw)

@@ -51,7 +51,14 @@ start from different blocks (pass ``X0``/``P0`` to start both alike).  On
 the host the draws cost more than the rest of the solve: two (n, k) fp64
 draws took 0.56-0.62 s of a 0.80 s fp32 call at n = 1,046,529, k = 8 on
 an H100 machine's host (``PERF.md``).
-``gspmd_lobpcg`` (the mesh twin) is not ported yet.
+``gspmd_lobpcg`` is the mesh twin, on the single-controller mesh of
+``parallel.mesh``: A's (and B's) DIA data row-sharded, the ``(k, n)``
+blocks as ``Shards`` of ``(k, n / num)`` rows, the A and B passes kernel
+#5 on each shard's extended DIA (``parallel.halo.HaloDia``), every Gram
+product and row norm the ``psum`` of the shards' local ones (under
+``no_tf32``), and the small eigendecompositions once, on the first
+shard's host side, replicated: the one-device trajectory up to the order
+of the partials.
 """
 
 from __future__ import annotations
@@ -66,7 +73,6 @@ from conjugategradient_tpu_torch.core.formats import default_device, place, torc
 from conjugategradient_tpu_torch.ops.precision import no_tf32
 from conjugategradient_tpu_torch.solvers.multi import _as_multi_operator
 
-_PARALLEL = "ROADMAP queue 1: parallel"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +95,15 @@ def _eigh(G: torch.Tensor):
     return w.to(G.device), E.to(G.device)
 
 
-def _spectral_orth(S: torch.Tensor, delta: float, BS: Optional[torch.Tensor]):
+def _local_gram(S, T):
+    return S @ T.T
+
+
+def _local_rowdot(a, b):
+    return torch.sum(a * b, dim=1)
+
+
+def _spectral_orth(S, delta: float, BS, gram=_local_gram, rowdot=_local_rowdot):
     """Whitened rows Q (the span of ``S``'s rows) with the near-null
     directions hard-zeroed: ``(Q, BQ, good)``.
 
@@ -97,13 +111,15 @@ def _spectral_orth(S: torch.Tensor, delta: float, BS: Optional[torch.Tensor]):
     as a dependent direction, not a small eigenvalue of G: the JAX package
     observed late corruption of converged pairs otherwise).  ``BS`` switches
     to the B inner product: G = S (B S)^T, Q B-orthonormal, and BQ the same
-    combination of B S rows, so no second B pass."""
+    combination of B S rows, so no second B pass.  ``gram(S, T)`` is ``S
+    T^T`` and ``rowdot(a, b)`` the row-wise dots (over a mesh: the psum of
+    the shards' local ones)."""
     BS_ = S if BS is None else BS
-    norms = torch.sqrt(torch.sum(S * BS_, dim=1))
+    norms = torch.sqrt(rowdot(S, BS_))
     scale = torch.where(norms > 0, norms, torch.ones_like(norms))[:, None]
     S = S / scale
     BS_ = BS_ / scale
-    G = S @ BS_.T
+    G = gram(S, BS_)
     G = 0.5 * (G + G.T)
     w, E = _eigh(G)
     good = w > delta * torch.max(w)
@@ -172,25 +188,43 @@ def lobpcg(
     P = place(_draw(n, k, seed + 1, dev) if P0 is None else P0, dt, dev)
     if tuple(P.shape) != (n, k):
         raise ValueError(f"P0 must be (n, k) = ({n}, {k}), got {tuple(P.shape)}")
+    lam, X, it, res = _lobpcg_rows(op, opB, X0.T.contiguous(), P.T.contiguous(), k,
+                                   None if M is None else (lambda R: M(R.T).T.contiguous()),
+                                   tol, max_iterations, dt, largest)
+    order = torch.argsort(lam)
+    return LobpcgResult(
+        eigenvalues=lam[order],
+        eigenvectors=X[order].T,
+        iterations=it,
+        residuals=res[order],
+        converged=bool(torch.max(res) < tol),
+    )
+
+
+def _lobpcg_rows(op, opB, X0r, P, k: int, M_rows, tol: float, max_iterations: int, dt,
+                 largest: bool, gram=_local_gram, rowdot=_local_rowdot):
+    """The LOBPCG loop on ``(k, n)`` row blocks (tensors, or ``Shards`` of
+    row blocks with ``gram``/``rowdot`` the psum'd forms): ``(lam, X, it,
+    res)``, unsorted."""
     # Gram eigenvalues of unit rows below ~eps^2 are cancellation noise;
     # sqrt(eps)-scaled thresholds bound the whitening's amplification
     delta = 5e-7 if dt == torch.float32 else 1e-12
     sign = -1.0 if largest else 1.0
-    X0r, P = X0.T.contiguous(), P.T.contiguous()
+    orth = lambda S, BS: _spectral_orth(S, delta, BS, gram, rowdot)
 
     with no_tf32():
-        X, BX, _ = _spectral_orth(X0r, delta, None if opB is None else opB(X0r))
+        X, BX, _ = orth(X0r, None if opB is None else opB(X0r))
         AX = op(X)
-        lam = torch.sum(X * AX, dim=1)
+        lam = rowdot(X, AX)
         R = AX - BX * lam[:, None]
-        res = torch.sqrt(torch.sum(R * R, dim=1)) / (torch.abs(lam) + 1.0)
+        res = torch.sqrt(rowdot(R, R)) / (torch.abs(lam) + 1.0)
         it = 0
         while it < max_iterations and bool(torch.max(res) >= tol):
-            W = R if M is None else M(R.T).T.contiguous()
+            W = R if M_rows is None else M_rows(R)
             S = torch.cat([X, W, P], dim=0)
-            Q, BQ, good = _spectral_orth(S, delta, None if opB is None else opB(S))
+            Q, BQ, good = orth(S, None if opB is None else opB(S))
             AQ = op(Q)  # the one A pass of the iteration, width 3k
-            H = Q @ AQ.T
+            H = gram(Q, AQ)
             H = 0.5 * (H + H.T)
             # park the dropped directions above every true Ritz value
             big = torch.trace(torch.abs(H)) + 1.0
@@ -204,22 +238,92 @@ def lobpcg(
             BXn = X_new if opB is None else C1t @ BQ
             # the update's part outside span(X), in the B inner product
             # when generalized (X is B-orthonormal)
-            P = X_new - (X_new @ BX.T) @ X
-            lam = torch.sum(X_new * AXn, dim=1)
+            P = X_new - gram(X_new, BX) @ X
+            lam = rowdot(X_new, AXn)
             R = AXn - BXn * lam[:, None]
-            res = torch.sqrt(torch.sum(R * R, dim=1)) / (torch.abs(lam) + 1.0)
+            res = torch.sqrt(rowdot(R, R)) / (torch.abs(lam) + 1.0)
             X, BX = X_new, BXn
             it += 1
+    return lam, X, it, res
+
+
+def gspmd_lobpcg(
+    A,
+    k: int,
+    mesh,
+    axis: str = "x",
+    M: Optional[Callable] = None,
+    dtype=torch.float32,
+    seed: int = 0,
+    B=None,
+    X0=None,
+    P0=None,
+    **kw,
+) -> LobpcgResult:
+    """Mesh-distributed LOBPCG: ``lobpcg`` over the row blocks of a 1-D
+    mesh (``axis`` its name).
+
+    ``A`` (and ``B``) must be a ``DiaMatrix``: its data is row-sharded
+    (``parallel.mesh.shard_rows``) and each A or B pass is kernel #5 on
+    every shard's extended DIA (``parallel.halo.HaloDia``), one halo pair a
+    pass.  The ``(k, n)`` blocks live as ``Shards`` of ``(k, n / num)``
+    rows; every Gram product and row norm is the ``psum`` of the shards'
+    local ones, and the ``3k x 3k`` eigendecompositions run once and are
+    replicated.  ``M`` (optional) maps a ``Shards`` of ``(k, n / num)``
+    residual rows to the same (a sharded V-cycle, say).  The start is the
+    port's draw on the mesh's first device (``X0``/``P0``, ``(n, k)``,
+    override it, as in ``lobpcg``), so the trajectory is ``lobpcg``'s on
+    that device up to the order of the partials.  ``kw``: ``tol``,
+    ``max_iterations``, ``largest``.  ``eigenvectors`` come back gathered
+    on the first device.  A row count that does not divide the mesh raises
+    ``ValueError`` (the JAX package's ``NamedSharding`` refuses it)."""
+    from conjugategradient_tpu_torch.core.formats import DiaMatrix
+    from conjugategradient_tpu_torch.parallel.halo import HaloDia
+    from conjugategradient_tpu_torch.parallel.mesh import Shards, psum, shard_rows
+
+    if not isinstance(A, DiaMatrix):
+        raise TypeError("gspmd_lobpcg requires a DiaMatrix")
+    if B is not None and not isinstance(B, DiaMatrix):
+        raise TypeError("gspmd_lobpcg requires a DiaMatrix B")
+    if mesh.ndim != 1 or axis != mesh.axis:
+        raise ValueError(f"gspmd_lobpcg row-shards over a 1-D mesh's axis, not {axis!r} of "
+                         f"{mesh}")
+    n, num = A.shape[0], mesh.size
+    if n % num:
+        raise ValueError(f"n={n} rows do not divide over {num} shards")
+    dt = torch_dtype(dtype)
+    dev = mesh.devices[0]
+
+    def halo_op(C):
+        n_local = n // num
+        data = shard_rows(mesh, np.asarray(C.data), dt, dim=1)
+        return HaloDia(data, tuple(C.offsets), C.bandwidth, C.bandwidth > n_local)
+
+    op = halo_op(A)
+    opB = None if B is None else halo_op(B)
+    X0 = place(_draw(n, k, seed, dev) if X0 is None else X0, dt, dev)
+    P = place(_draw(n, k, seed + 1, dev) if P0 is None else P0, dt, dev)
+    if tuple(X0.shape) != (n, k) or tuple(P.shape) != (n, k):
+        raise ValueError(f"X0 and P0 must be (n, k) = ({n}, {k})")
+    rows = lambda Z: shard_rows(mesh, Z.T, dt, dim=1)
+
+    def gram(S, T):
+        return psum(Shards.map(_local_gram, S, T)).parts[0]
+
+    def rowdot(a, b):
+        return psum(Shards.map(_local_rowdot, a, b)).parts[0]
+
+    tol = kw.pop("tol", 1e-6)
+    lam, X, it, res = _lobpcg_rows(op, opB, rows(X0), rows(P), k, M, tol,
+                                   kw.pop("max_iterations", 200), dt, kw.pop("largest", False),
+                                   gram, rowdot)
+    if kw:
+        raise TypeError(f"gspmd_lobpcg got unexpected keyword arguments {sorted(kw)}")
     order = torch.argsort(lam)
     return LobpcgResult(
         eigenvalues=lam[order],
-        eigenvectors=X[order].T,
+        eigenvectors=X.gather(1)[order].T,
         iterations=it,
         residuals=res[order],
         converged=bool(torch.max(res) < tol),
     )
-
-
-def gspmd_lobpcg(A, k: int, mesh, *args, **kw) -> LobpcgResult:
-    """The mesh-distributed twin of ``lobpcg``: not ported yet."""
-    raise NotImplementedError(f"gspmd_lobpcg is not ported yet ({_PARALLEL})")

@@ -328,6 +328,7 @@ def run_device_refinement(
     norm: str,
     max_outer: int,
     raise_on_divergence: bool = False,
+    to_host=None,
 ) -> RefineResult:
     """THE device-resident refinement outer loop.
 
@@ -337,8 +338,10 @@ def run_device_refinement(
     inner_its)``: the inner solve and the fp64 update.  Per pass the host
     reads three scalars: rr and mx in one transfer, and the inner iteration
     count, which the port's Python-loop CG already holds as a host integer.
-    The solution is read back once, at the end.  Stall rule: two consecutive
-    passes that cut the residual by less than 10% declare ``stalled``.
+    The solution is read back once, at the end (``to_host(x)``, the flat
+    fp64 numpy solution; default ``x.reshape(-1).cpu()``).  Stall rule: two
+    consecutive passes that cut the residual by less than 10% declare
+    ``stalled``.
     """
 
     def res_of(rr, mx, rr0):
@@ -360,7 +363,7 @@ def run_device_refinement(
     def finish(x, outer, res, converged, stalled=False):
         exec_s = time.perf_counter() - t_loop0
         t0 = time.perf_counter()
-        x_host = x.reshape(-1).cpu().numpy()
+        x_host = x.reshape(-1).cpu().numpy() if to_host is None else to_host(x)
         output_s = time.perf_counter() - t0
         if raise_on_divergence and not converged:
             raise NotConvergedError(

@@ -284,7 +284,10 @@ def test_facade_refuses_mesh_and_unknown_methods():
     jr = japi.solve(jgen.tridiagonal_system(16).A, s.b, mesh=j_mesh(2), **opts)
     assert r.converged and r.iterations == int(jr.iterations)
     assert np.abs(r.x.numpy() - np.asarray(jr.x)).max() <= 1e-10
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
+    # axes= with a method that takes none: the JAX facade's TypeError
+    with pytest.raises(TypeError, match="axes"):
+        japi.solve(jgen.tridiagonal_system(16).A, s.b, method="cg", axes=("x",))
+    with pytest.raises(TypeError, match="axes"):
         api.solve(s.A, s.b, method="cg", axes=("x",), device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         api.solve(s.A, s.b, method="nope", device="cpu")

@@ -23,6 +23,7 @@ from conjugategradient_tpu import api as japi
 from conjugategradient_tpu.core import formats as jfmt
 from conjugategradient_tpu.core import generators as jgen
 from conjugategradient_tpu.solvers.arnoldi import arnoldi_eigs as j_arnoldi
+from conjugategradient_tpu.solvers.arnoldi import gspmd_arnoldi_eigs as j_gspmd_arnoldi_eigs
 from conjugategradient_tpu_torch import api
 from conjugategradient_tpu_torch.core import formats as tfmt
 from conjugategradient_tpu_torch.core import generators as tgen
@@ -157,10 +158,15 @@ def test_validation_errors():
         arnoldi_eigs(TCD, k=4, m=5)
     with pytest.raises(ValueError, match="unknown inner_method"):
         arnoldi_eigs(TCD, k=2, sigma=0.1, inner_method="cg", device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        arnoldi_eigs(TCD, k=2, basis_sharding=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    from conjugategradient_tpu_torch.parallel import make_mesh
+
+    m3 = make_mesh(3, devices=["cpu"] * 3)  # 256 rows do not divide over 3 shards
+    with pytest.raises(ValueError, match="divide"):
+        arnoldi_eigs(TCD, k=2, basis_sharding=(m3, m3.axis))
+    with pytest.raises(ValueError, match="needs a mesh"):
         gspmd_arnoldi_eigs(TCD, k=2)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        j_gspmd_arnoldi_eigs(JCD, k=2)
 
 
 @pytest.mark.parametrize("which", ["LM", "SM"])
@@ -259,8 +265,12 @@ def test_eigs_refusals_and_probe_cap():
         api.eigs(TCD, method="dense")
     with pytest.raises(ValueError, match="unknown which"):
         api.eigs(TCD, which="XX")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        api.eigs(TCD, mesh=object())
+    from conjugategradient_tpu_torch.parallel import make_mesh
+
+    r = api.eigs(TCD, k=2, mesh=make_mesh(2, devices=["cpu"] * 2))
+    one = api.eigs(TCD, k=2, device="cpu")
+    assert r.converged and (r.matvecs, r.restarts) == (one.matvecs, one.restarts)
+    assert np.abs(np.sort_complex(r.values) - np.sort_complex(one.values)).max() < 1e-10
     for eigs in (japi.eigs, lambda A, **kw: api.eigs(A, device="cpu", **kw)):
         with warnings.catch_warnings(record=True) as w:
             warnings.simplefilter("always")

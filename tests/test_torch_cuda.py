@@ -2040,3 +2040,97 @@ def test_probed_hierarchy_on_the_card_equals_the_cpu_build(cuda):
     xg = rg.x.gather().cpu()
     assert bool((xg[grid[0]:] == 0).all())
     assert float((xg - rc.x.gather()).abs().max() / rc.x.gather().abs().max()) <= 1e-9
+
+
+# -- 2-D block partitions and the mesh eigensolvers ------------------------
+
+
+def _block_case(case, device):
+    """(legs, shifts, grid, dtype) of a 2-D block case: a random 9-point 2-D
+    stencil (corners), the 5-point jump operator in fp64 and a random
+    27-point 3-D stencil, whose diagonal legs read the corner halos."""
+    rng = np.random.default_rng(31)
+    if case == "jump 64^2 fp64":
+        s = generators.diffusion_system((64, 64), kind="jump")
+        st = dia_to_stencil(s.A, (64, 64))
+        return torch.from_numpy(st.data).to(device), st.shifts, (64, 64), torch.float64
+    grid = (64, 64) if case == "9-point 64^2" else (32, 32, 16)
+    shifts = tuple(itertools.product(*[(-1, 0, 1)] * len(grid)))
+    legs = rng.standard_normal((len(shifts),) + grid)
+    for k, sh in enumerate(shifts):  # structural zeros where the neighbour leaves the grid
+        for ax, s_ in enumerate(sh):
+            idx = [slice(None)] * (1 + len(grid))
+            idx[1 + ax] = 0 if s_ < 0 else -1
+            if s_:
+                legs[k][tuple(idx[1:])] = 0.0
+    return torch.from_numpy(legs).to(device, torch.float32), shifts, grid, torch.float32
+
+
+@pytest.mark.parametrize("case", ["9-point 64^2", "jump 64^2 fp64", "27-point 32^2 x 16"])
+def test_block_2d_stencil_kernel_equals_global_rows(cuda, case):
+    """Kernel #3 on each block of a (2, 2) mesh of the card, extended on
+    axes 0 and 1 (NaN-poisoned buffer halos before the exchange): each
+    local block equals kernel #3 on the global grid's block (bit for bit
+    on the tuned kernel, within REL of sum |leg x| on the wide one), and
+    each extended block's product its twin within REL (REL64 in fp64)."""
+    from conjugategradient_tpu_torch.parallel.halo import HaloStencil
+    from conjugategradient_tpu_torch.parallel.mesh import Mesh, shard_blocks
+
+    legs, shifts, grid, dt = _block_case(case, cuda)
+    A = StencilMatrix(legs, shifts, grid)
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(grid)).to(cuda, dt)
+    want = cuda_stencil.spmv_stencil_cuda(A, x)
+    m = Mesh([[cuda] * 2] * 2, ("x", "y"))
+    op = HaloStencil(shard_blocks(m, legs, (1, 2)), shifts, (1, 1))
+    xs = shard_blocks(m, x, (0, 1))
+    for buf in op._buffers(xs):
+        for t in buf.parts:
+            t.fill_(float("nan"))
+    got = op(xs).gather_grid(len(grid))
+    rel = REL64 if dt == torch.float64 else REL
+    if all(cuda_stencil.var_route(B) == "narrow" for B in (A,) + op.mats.parts):
+        assert torch.equal(got, want)
+    else:  # the wide kernel may split a point's legs across threads differently
+        scale = cuda_stencil.spmv_stencil_ref(StencilMatrix(legs.abs(), shifts, grid), x.abs())
+        assert bool(((got - want).abs() <= rel * scale).all())
+    for Ab, buf in zip(op.mats.parts, op._bufs[op._last].parts):
+        y = cuda_stencil.spmv_stencil_cuda(Ab, buf)
+        ref = cuda_stencil.spmv_stencil_ref(Ab, buf)
+        assert float((y - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+def test_sharded_lobpcg_keeps_tf32_off(cuda, monkeypatch):
+    """``gspmd_lobpcg`` on 4 shards of the card with the sharded V-cycle as
+    M and TF32 allowed globally: its psum'd Gram and row-norm products run
+    in full fp32 (``no_tf32``), so its vectors stay orthonormal to 1e-5
+    and its residual reaches 1e-5; with the pin taken out one or the
+    other misses."""
+    import contextlib
+    import sys
+
+    from conjugategradient_tpu_torch.parallel import make_mesh
+
+    import conjugategradient_tpu_torch.solvers.lobpcg  # noqa: F401
+
+    lob = sys.modules["conjugategradient_tpu_torch.solvers.lobpcg"]
+    grid = (64, 64)
+    A = generators.poisson_system(grid).A
+    m = make_mesh(4, devices=[cuda] * 4)
+    M = api._eig_vcycle(A, grid, torch.float32, cuda, m)
+
+    def run():
+        r = lob.gspmd_lobpcg(A, 4, m, M=M, tol=1e-5, max_iterations=200)
+        X = r.eigenvectors.double()
+        return r, float((X.T @ X - torch.eye(4, dtype=torch.float64, device=cuda)).abs().max())
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pinned, orth = run()
+        assert torch.backends.cuda.matmul.allow_tf32
+        monkeypatch.setattr(lob, "no_tf32", contextlib.nullcontext)
+        unpinned, orth_tf32 = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert pinned.converged and orth <= 1e-5
+    assert not unpinned.converged or orth_tf32 > 1e-4, (unpinned.iterations, orth_tf32)

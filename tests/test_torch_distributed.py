@@ -235,8 +235,29 @@ def test_refusals():
     wide = StencilMatrix(A.data, tuple((2 * s[0], s[1]) for s in A.shifts), A.grid)
     with pytest.raises(ValueError, match="extent"):
         dist.build_hierarchy_probed(wide, mesh)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="own axes"):
         dist.build_hierarchy_probed(A, mesh, axes=("x", "y"))
+    # over a (1, 2) mesh the 2-D blocks split axis 1 (the 1-D build's odd
+    # 7-row blocks do not carry its levels, so they build replicated): every
+    # level's global legs equal the 1-D build's
+    from conjugategradient_tpu_torch.parallel.mesh import Mesh, Shards
+
+    def every_level(h):
+        out = []
+        for L in h.levels:
+            op = L.op
+            blocks = Shards([op._narrowed(m.data, range(len(op.halos))) for m in op.mats.parts],
+                            op.mesh)
+            out.append((L.grid, L.kind, op.shifts, blocks.gather_grid(len(L.grid))))
+        return out + [(L.grid, L.transfer, L.A.shifts, L.A.data) for L in h.tail.levels]
+
+    h1 = dist.build_hierarchy_probed(A, mesh, max_coarse=40)
+    h2 = dist.build_hierarchy_probed(A, Mesh([["cpu"] * 2], ("x", "y")), axes=("x", "y"),
+                                     max_coarse=40)
+    assert len(h2.levels) >= 1
+    l1, l2 = every_level(h1), every_level(h2)
+    assert [v[:3] for v in l1] == [v[:3] for v in l2] and len(l1) >= 1
+    assert all(torch.equal(a[3], b[3]) for a, b in zip(l1, l2))
     slab = generators.convection_diffusion_level_slab(0.05, dtype=np.float64)
     with pytest.raises(ValueError, match="unsupported smoother"):
         dist.build_hierarchy_redisc((16, 16), mesh, slab, smoother="rbgs")

@@ -28,8 +28,9 @@ arrays from the port's numpy generators, fp64.
 - ``api.solve(..., mesh=)`` routes ``mgcg``, ``refined``, (n, k)
   ``cg``/``bicgstab``/``mgcg``, the nonsymmetric bases, ``mg_*`` and
   ``amg_*`` as the JAX facade does, with its counts; ``eigs(mesh=)`` and
-  2-D ``axes`` still raise ``NotImplementedError`` naming ROADMAP's
-  parallel item.
+  2-D ``axes`` run (``tests/test_torch_mesh_eigs.py`` and
+  ``tests/test_torch_gspmd_2d.py`` hold them to the JAX package): here
+  each against the port's one-device or 1-D run.
 """
 
 import functools
@@ -58,7 +59,7 @@ from conjugategradient_tpu_torch.parallel.gspmd import (
     make_gspmd_mg_nonsym,
     make_gspmd_mgcg,
 )
-from conjugategradient_tpu_torch.parallel.mesh import Shards, specs_for_grid
+from conjugategradient_tpu_torch.parallel.mesh import Mesh, Shards, specs_for_grid
 from conjugategradient_tpu_torch.precond.multigrid import build_hierarchy, mgcg_solve
 from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 
@@ -84,6 +85,10 @@ def _one_thread():
 
 def _mesh(k):
     return make_mesh(k, devices=["cpu"] * k)
+
+
+def _mesh2(px, py):
+    return Mesh([["cpu"] * py] * px, ("x", "y"))
 
 
 def _jA(A):
@@ -125,8 +130,12 @@ def test_gspmd_mgcg_even_grid_is_sharded_and_matches_jax():
     jr = jgspmd.gspmd_mgcg_solve(_jsys(s), EVEN, mesh=j_mesh(4), policy=JPolicy(**POL))
     assert r.converged and bool(jr.converged)
     assert r.iterations == int(jr.iterations) and _rel(r.x.numpy(), jr.x) <= X_REL
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-        make_gspmd_mgcg(s, EVEN, _mesh(4), axes=("x", "y"))
+    # axes=("x", "y") over a (2, 2) mesh: 2-D blocks, the same count and x
+    solve2, (b2, x02) = make_gspmd_mgcg(s, EVEN, _mesh2(2, 2), ConvergencePolicy(**POL),
+                                        axes=("x", "y"))
+    assert solve2.n_sharded >= 1 and tuple(b2.shape) == (EVEN[0] // 2, EVEN[1] // 2)
+    r2 = solve2(b2, x02)
+    assert r2.iterations == r.iterations and _rel(r2.x.numpy(), jr.x) <= X_REL
 
 
 def test_gspmd_mgcg_odd_grid_is_the_single_device_solve():
@@ -251,7 +260,13 @@ def test_gspmd_mg_nonsym_refusals():
     s = tgen.convection_diffusion_system(MG_EVEN, eps=MG_EPS)
     with pytest.raises(ValueError, match="unknown method"):
         gspmd_mg_nonsym_solve(s.A, s.b, MG_EVEN, mesh=_mesh(4), method="minres")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
+    cb = tgen.convection_diffusion_coarse_operator(eps=MG_EPS)
+    kw = dict(policy=ConvergencePolicy(**MG_POL), coarse_operator=cb, **MG_KW)
+    r2 = gspmd_mg_nonsym_solve(s.A, s.b, MG_EVEN, mesh=_mesh2(2, 2), axes=("x", "y"), **kw)
+    r1 = gspmd_mg_nonsym_solve(s.A, s.b, MG_EVEN, mesh=_mesh(4), **kw)
+    assert r2.converged and r2.iterations == r1.iterations
+    assert _rel(r2.x.numpy(), r1.x.numpy()) <= X_REL
+    with pytest.raises(ValueError, match="own axes"):
         gspmd_mg_nonsym_solve(s.A, s.b, MG_EVEN, mesh=_mesh(4), axes=("x", "y"))
 
 
@@ -281,9 +296,12 @@ def test_facade_routes_still_to_port_raise(mg_case):
     jr = japi.solve(jformats.dia_to_csr(_jA(band.A)), band.b, method="amg_cg", mesh=jm, tol=1e-8,
                     norm="rel_l2")
     assert r.converged and r.iterations == int(jr.iterations)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-        api.solve(s.A, s.b, method="mgcg", grid=EVEN, mesh=m, axes=("x", "y"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-        api.eigs(s.A, k=2, mesh=m)
+    a = api.solve(s.A, s.b, method="mgcg", grid=EVEN, mesh=_mesh2(2, 2), axes=("x", "y"),
+                  **opts)
+    b = api.solve(s.A, s.b, method="mgcg", grid=EVEN, mesh=m, **opts)
+    assert a.converged and a.iterations == b.iterations and _rel(a.x.numpy(), b.x.numpy()) <= X_REL
+    e = api.eigs(s.A, k=2, which="SM", grid=EVEN, mesh=m, spd=True, dtype=torch.float64)
+    one = api.eigs(s.A, k=2, which="SM", grid=EVEN, spd=True, dtype=torch.float64, device="cpu")
+    assert e.converged and np.abs(e.values - one.values).max() <= 1e-8 * abs(one.values[0])
     with pytest.raises(ValueError, match="does not support"):
         api.solve(s.A, np.ones((s.n, 2)), method="jacobi_cg", mesh=m)

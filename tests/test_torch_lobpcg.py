@@ -162,7 +162,8 @@ def test_fp32_path():
 
 def test_placements_callable_and_refusals():
     """An (n, j) block callable is the container it multiplies by; a
-    callable A needs X0; ``gspmd_lobpcg`` names its ROADMAP item."""
+    callable A needs X0; ``gspmd_lobpcg`` runs the same trajectory over 4
+    shards and refuses a non-DIA A as the JAX package does."""
     A = tgen.poisson1d_matrix(64)
     X0, P0 = _draws(64, 2)
     kw = dict(X0=X0, P0=P0, dtype=torch.float64, device="cpu", tol=1e-9)
@@ -173,5 +174,11 @@ def test_placements_callable_and_refusals():
     np.testing.assert_allclose(r3.eigenvalues.numpy(), r1.eigenvalues.numpy(), rtol=1e-12)
     with pytest.raises(ValueError, match="X0 is required"):
         lobpcg(lambda X: X, 2)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        gspmd_lobpcg(A, 2, None)
+    from conjugategradient_tpu_torch.parallel import make_mesh
+
+    r4 = gspmd_lobpcg(A, 2, make_mesh(4, devices=["cpu"] * 4), **{k: v for k, v in kw.items()
+                                                                  if k != "device"})
+    assert r4.iterations == r1.iterations
+    np.testing.assert_allclose(r4.eigenvalues.numpy(), r1.eigenvalues.numpy(), rtol=1e-12)
+    with pytest.raises(TypeError, match="DiaMatrix"):
+        gspmd_lobpcg(tfmt.dia_to_stencil(A, (64,)), 2, make_mesh(4, devices=["cpu"] * 4))
