@@ -216,6 +216,18 @@ after:
   sharded def-CG on the outlier system beside single-device def-CG;
   ``sharded_cg_solve_general`` on the flagship as CSR and HandmadeCL as
   ELL, their hops and routes.
+- The multi-process mesh (``parallel.multihost``, ``parallel.comm``): one
+  NCCL rank in this process (``initialize_distributed`` at world size 1,
+  ``global_mesh`` over 4 shards of the card), the flagship's fp64 sharded
+  CG with the parallel phase's count and x bit for bit; then the port's
+  launcher (``scripts/multiprocess_demo.py``) with two ranks x 2 shards of
+  the card over Gloo (NCCL refuses two ranks on one GPU; Gloo stages the
+  CUDA parts through host buffers): ``viennacl_large`` by fp64 sharded CG
+  (#4 a shard), each rank's own blocks against the fp64 oracle, and
+  rung-5 Poisson 255^3 by probed MGCG (#3 a shard) against the same MGCG
+  on a one-process 4-shard mesh here: the same count, the owned x blocks
+  bit for bit, each rank's #3/#4 launches as the recurrences imply, the
+  walls and the communicator's seconds.
 - The sharded multigrid, on the same 4 shards and on 1:
   ``shard_mgcg_solve`` on Poisson 256^3 (the Galerkin hierarchy the
   facade builds for an even grid, shared with the MGCG above: hybrid
@@ -326,11 +338,14 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import threading
 import time
 import tracemalloc
+import types
 
 import numpy as np
 import torch
@@ -1482,8 +1497,8 @@ def _multi_mgcg(sysj, hj, single, dev, card):
     """Multi-RHS MGCG on the jump system: ``cg_solve_multi`` on its
     fp32 DIA (kernel #5 at the CG level) with ``as_multi_preconditioner``
     over its hierarchy (kernel #3 per column at every level), k = MULTI_K,
-    column 0 the system's b; counted, then the whole solve profiled.
-    Column 0 must take the single-RHS solve's iterations and agree with its
+    column 0 the system's b; counted (the whole solve's profile was cut to
+    make room for the multi-process phase).  Column 0 must take the single-RHS solve's iterations and agree with its
     solution.  Returns the launch counts and the counted wall (ms)."""
     rng = np.random.default_rng(SEED)
     B = np.column_stack([sysj.b] + [rng.standard_normal(sysj.n) for _ in range(MULTI_K - 1)])
@@ -1519,7 +1534,6 @@ def _multi_mgcg(sysj, hj, single, dev, card):
           f"launches {counts}, kernel #3 by grid "
           f"{ {str(k): v for k, v in sorted(by_grid.items(), reverse=True)} }")
     print(f"time {tag}: counted run {wall_ms:.3f} ms [{card}]")
-    _device_time_top(lambda: cg_solve_multi(A_dev, B_dev, policy=policy, M=M), wall_ms, card)
     return counts, wall_ms
 
 
@@ -2871,16 +2885,20 @@ def _format_products(csr, dev, card):
     """Every plain format's SpMV and SpMM (k = FORMAT_K) on the card in fp64
     against the fp64 oracle, each timed (the solvers' operator: a COO
     matrix sorted into its CSR once) beside its bound: the flagship as CSR,
-    ELL and COO, Poisson DIA_MGCG_GRID as BSR_BLOCK blocks, banded_sin at
-    DENSE_N rows as dense; and the flagship's CSR through kernel #4
-    (``make_kernel_operator``).  No format here is a TPU kernel: the JAX
-    package runs them by XLA."""
-    bsr = csr_to_bsr(dia_to_csr(generators.poisson_system(DIA_MGCG_GRID).A), BSR_BLOCK)
-    cases = [("CSR flagship", csr), ("ELL flagship", csr_to_ell(csr)),
-             ("COO flagship", csr_to_coo(csr)), (f"BSR {BSR_BLOCK} Poisson {DIA_MGCG_GRID}", bsr),
-             (f"dense banded_sin n={DENSE_N}", dia_to_dense(generators.banded_sin_matrix(DENSE_N, 160)))]
+    ELL and COO, Poisson DIA_MGCG_GRID as BSR_BLOCK blocks (its oracle
+    product taken on the CSR it was blocked from, which the oracle would
+    otherwise rebuild from the blocks for every product), banded_sin at DENSE_N rows as dense; and
+    the flagship's CSR through kernel #4 (``make_kernel_operator``).  No
+    format here is a TPU kernel: the JAX package runs them by XLA."""
+    poisson = dia_to_csr(generators.poisson_system(DIA_MGCG_GRID).A)
+    dense = dia_to_dense(generators.banded_sin_matrix(DENSE_N, 160))
+    # (label, the container on the card, the container the oracle multiplies)
+    ell, coo = csr_to_ell(csr), csr_to_coo(csr)
+    cases = [("CSR flagship", csr, csr), ("ELL flagship", ell, ell), ("COO flagship", coo, coo),
+             (f"BSR {BSR_BLOCK} Poisson {DIA_MGCG_GRID}", csr_to_bsr(poisson, BSR_BLOCK), poisson),
+             (f"dense banded_sin n={DENSE_N}", dense, dense)]
     rng = np.random.default_rng(SEED + 7)
-    for label, A_host in cases:
+    for label, A_host, A_ref in cases:
         # the container the solvers run: a COO matrix as its row-sorted CSR
         # (the bytes are the CSR's)
         A_mm = prepare(A_host, dev)
@@ -2888,8 +2906,8 @@ def _format_products(csr, dev, card):
         x, X = torch.from_numpy(x_h).to(dev), torch.from_numpy(X_h).to(dev)
         op = as_operator(A_mm)
         y, Y = op(x), spmm(A_mm, X)
-        ref = oracle.spmv(A_host, x_h)
-        refY = np.column_stack([oracle.spmv(A_host, X_h[:, j]) for j in range(FORMAT_K)])
+        ref = oracle.spmv(A_ref, x_h)
+        refY = np.column_stack([oracle.spmv(A_ref, X_h[:, j]) for j in range(FORMAT_K)])
         e1 = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
         eK = float(np.abs(Y.cpu().numpy() - refY).max() / np.abs(refY).max())
         _require(e1 <= FORMAT_REL64 and eK <= FORMAT_REL64,
@@ -3479,41 +3497,44 @@ def _flagship_twin(dev, card, count):
 def _helmholtz(dev, card, count):
     """Helmholtz HELM_GRID at HELM_SHIFT lambda_1 through method="auto",
     which must choose minres (the second Lanczos stage of the port's probe
-    on the card), in fp64: #4 once per iteration and twice more."""
+    on the card), in fp64: the probe's #4 launches (none where its host
+    stage decides) and then #4 once per iteration and twice more.  (The
+    probe's separate run and the warm solve's profile were cut to make room
+    for the multi-process phase.)"""
     from conjugategradient_tpu_torch.solvers.minres import minres_solve
 
     g = HELM_GRID
     s = generators.helmholtz_system(g, HELM_SHIFT * _lam1(g))
     stage2 = 4 * int(np.ceil(np.sqrt(s.n)))
-    _reset_counts()
-    t0 = time.perf_counter()
-    chose = api._auto_method(s.A, None, dev)
-    torch.cuda.synchronize()
-    probe_s = time.perf_counter() - t0
-    probe = spmv_dia_cuda.launches
-    _require(chose == "minres", f"auto on Helmholtz {g} chose {chose!r}, not 'minres'")
-    _require(probe in (0, stage2), f"auto's probe on Helmholtz {g}: {probe} spmv_dia launches, "
-             f"neither 0 (the host stage decided) nor the card stage's {stage2}")
     tag = f"Helmholtz {g} shift {HELM_SHIFT} lambda_1 auto -> minres (fp64)"
     A64 = s.A.device_put(torch.float64, dev)
     b64 = torch.from_numpy(s.b).to(dev)
+    chose, auto = [], api._auto_method
+    api._auto_method = lambda *a, **k: chose.append(auto(*a, **k)) or chose[-1]  # what it picks
     _reset_counts()
-    res = api.solve(s.A, s.b, method="auto", tol=TOL, norm="rel_l2", device=dev)
+    t0 = time.perf_counter()
+    try:
+        res = api.solve(s.A, s.b, method="auto", tol=TOL, norm="rel_l2", device=dev)
+    finally:
+        api._auto_method = auto
     torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
     n4 = spmv_dia_cuda.launches
+    _require(chose == ["minres"], f"auto on Helmholtz {g} chose {chose}, not 'minres'")
     rel = _host_rel_residual(s.A, s.b, res.x.cpu().numpy())
     _require(res.converged and rel <= TRUE_REL,
              f"{tag}: converged {res.converged} in {res.iterations}, true rel {rel:.3e}")
-    # the probe again, then MINRES: a product an iteration and two more
-    want = probe + res.iterations + 2
-    _require(n4 == want, f"{tag}: {n4} spmv_dia launches, probe + recurrence imply {want}")
+    # the probe, then MINRES: a product an iteration and two more
+    probe = n4 - (res.iterations + 2)
+    _require(probe in (0, stage2), f"{tag}: {n4} spmv_dia launches, MINRES's {res.iterations + 2}"
+             f" and a probe of {probe}: neither 0 (the host stage decided) nor the card stage's "
+             f"{stage2}")
     warm = lambda: minres_solve(A64, b64, policy=ConvergencePolicy(tol=TOL, norm="rel_l2"))
     warm_ms = _wall_ms(warm)
-    print(f"{tag}: auto's probe {probe_s:.3f} s ({'the card stage' if probe else 'the host stage'} "
-          f"decided); {res.iterations} iterations, true fp64 rel "
-          f"residual {rel:.3e}, spmv_dia launches {n4} (= {probe} probe + {res.iterations + 2}), "
-          f"warm wall {warm_ms:.3f} ms [{card}]")
-    _device_time_top(warm, warm_ms, card, top=4)
+    print(f"{tag}: {res.iterations} iterations, true fp64 rel residual {rel:.3e}, spmv_dia "
+          f"launches {n4} (= {probe} probe ({'the card stage' if probe else 'the host stage'} "
+          f"decided) + {res.iterations + 2}), facade {solve_s:.3f} s with the probe, warm wall "
+          f"{warm_ms:.3f} ms [{card}]")
     count(f"nonsymmetric: {tag}", {"spmv_dia": n4}, fp32=False)
 
 
@@ -3632,8 +3653,9 @@ PLAIN_CAP = 5000
 #: the implicit gradients against central differences: entries and bound
 #: (1e-8 measured on the host at the flagship; steps: 1 in b, where the
 #: loss is linear, and 1e-2 in an entry of data, with its mirror where A is
-#: symmetric)
-FD_ENTRIES, FD_REL, FD_STEP_B, FD_STEP_DATA = 4, 1e-5, 1.0, 1e-2
+#: symmetric); 2 entries of each, cut from 4 to make room for the
+#: multi-process phase
+FD_ENTRIES, FD_REL, FD_STEP_B, FD_STEP_DATA = 2, 1e-5, 1.0, 1e-2
 IMPLICIT_TOL = 1e-13
 #: the precision helpers' length, the multiple of log2(n) eps^2 their
 #: double-float tree may lose, and their error on the cancelling input
@@ -5206,7 +5228,8 @@ def _par_variants(fsys, sharded, dev, card, count, witness=None):
     single-device solver's (cg_solve; cacg_solve for cacg), kernel #4's
     launches as the recurrence implies, the true residual within the
     bounds the smoke holds plain CG to, the shard counts' x against each
-    other."""
+    other.  Returns the meshes and the fp64 cg solve's (iterations, x) on
+    PAR_SHARDS shards (the multi-process phase's reference)."""
     from conjugategradient_tpu_torch.solvers.cacg import cacg_solve
 
     A4, b4, x04, padded = sharded
@@ -5276,6 +5299,8 @@ def _par_variants(fsys, sharded, dev, card, count, witness=None):
                     _require(true <= TRUE_REL, f"{tag}: true fp64 relative residual {true:.3e}")
                     what = f"true fp64 rel residual {true:.3e}"
                 xs[(dt, num, variant)] = x
+                if (dt, num, variant) == (torch.float64, PAR_SHARDS, "cg"):
+                    cg64 = (res.iterations, res.x.cpu())
                 count(tag, {"spmv_dia": k4}, fp32=dt == torch.float32)
                 print(f"{tag}: {res.iterations} iterations (single device {want_its}), {what}, "
                       f"kernel #4 {k4} launches = the recurrence's {want}"
@@ -5295,14 +5320,15 @@ def _par_variants(fsys, sharded, dev, card, count, witness=None):
                      f"against 1, max |dx| / max |x| {dx:.3e} > {PAR_X_AGREE[dt]}")
             print(f"sharded_cg {variant} {TAGS[dt]}: {PAR_SHARDS} shards against 1, max |dx| / "
                   f"max |x| {dx:.3e} <= {PAR_X_AGREE[dt]}")
-    return meshes
+    return meshes, cg64
 
 
 def _par_times(fsys, sharded, meshes, dev, card):
     """Warm medians of WALL_REPS of the 4-shard, 1-shard and cg_solve
     solves of the flagship (the cg variant), fp32 at rel_l2 TOL from x0 = 0
-    and fp64 at the workload's policy, each with its device busy share;
-    halo bytes an iteration."""
+    and fp64 at the workload's policy, the fp32 4-shard one with its device
+    busy share (one profiled run; cut from a profile of each, to make room
+    for the multi-process phase); halo bytes an iteration."""
     A4, b4, x04, _ = sharded
     for dt, pol in ((torch.float32, ConvergencePolicy(tol=TOL, norm="rel_l2")),
                     (torch.float64, WORKLOADS[FLAGSHIP].policy)):
@@ -5323,10 +5349,10 @@ def _par_times(fsys, sharded, meshes, dev, card):
         its = {k: fn().iterations for k, fn in runs.items()}
         for k, fn in runs.items():
             walls = _wall_median_ms(fn)
-            busy = _par_profile(f"flagship {k} {TAGS[dt]}", fn, walls[0], card)
+            busy = "" if (k, dt) != (f"{PAR_SHARDS} shards", torch.float32) else (
+                f", device busy {_par_profile(f'flagship {k} {TAGS[dt]}', fn, walls[0], card):.1%}")
             print(f"time flagship {k} {TAGS[dt]} ({its[k]} iterations): warm wall "
-                  f"{_fmt_wall(walls)}, {walls[0] / its[k]:.4f} ms an iteration, device busy "
-                  f"{busy:.1%} [{card}]")
+                  f"{_fmt_wall(walls)}, {walls[0] / its[k]:.4f} ms an iteration{busy} [{card}]")
         _par_shard_kernel(data4, A4.offsets, dev, card)
         hb = exchange_bytes(A4.offsets, A4.n, PAR_SHARDS, dt.itemsize)
         print(f"halo bytes {TAGS[dt]}: {hb} bytes an iteration between {PAR_SHARDS} shards "
@@ -5471,13 +5497,14 @@ def _par_general(csrs, fsys, meshes, dev, card):
 def _parallel(csrs, fsys, dev, card, count, witness=None):
     """The row-block-sharded CG on one card: the per-block assembly, every
     variant on PAR_SHARDS shards and on 1, the warm times, the facade's
-    mesh routes, sharded def-CG, the CSR/ELL solver; each step's seconds."""
+    mesh routes, sharded def-CG, the CSR/ELL solver; each step's seconds.
+    Returns the fp64 cg solve's (iterations, x) on PAR_SHARDS shards."""
     mesh = make_mesh(PAR_SHARDS, devices=[dev] * PAR_SHARDS)
     t0 = time.perf_counter()
     sharded = _par_assembly(fsys, mesh, dev)
     print(f"  assembly: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    meshes = _par_variants(fsys, sharded, dev, card, count, witness)
+    meshes, cg64 = _par_variants(fsys, sharded, dev, card, count, witness)
     print(f"  variants: {time.perf_counter() - t0:.1f} s")
     for step, args in ((_par_times, (fsys, sharded, meshes, dev, card)),
                        (_par_facade, (fsys, sharded, meshes, dev, card, count)),
@@ -5486,6 +5513,182 @@ def _parallel(csrs, fsys, dev, card, count, witness=None):
         t0 = time.perf_counter()
         step(*args)
         print(f"  {step.__name__[len('_par_'):]}: {time.perf_counter() - t0:.1f} s")
+    return cg64
+
+
+# ---------------------------------------------------------------------------
+# the multi-process mesh: torch.distributed behind the collectives
+# ---------------------------------------------------------------------------
+
+#: the two-process run: viennacl_large by sharded CG (fp64, the JAX demo's
+#: policy) and rung-5 Poisson MP_GRID^3 by probed MGCG (fp32) on 2 ranks x
+#: 2 shards of the one card over Gloo (NCCL refuses two ranks on one GPU)
+MP_PROCS = 2
+MP_LOCAL = 2
+MP_WORKLOAD = "viennacl_large"
+MP_GRID = 255
+#: the launcher's limit (its workers are killed past it), seconds
+MP_TIMEOUT = 240
+#: owned x blocks against the one-process run where they are not bit-equal
+MP_X_REL = 1e-6
+
+
+def _mp_nccl_world1(cg64, dev, card, count):
+    """(a): one rank over NCCL in this process, the flagship assembled on
+    its 4 shards of the card and solved by fp64 sharded CG at the parallel
+    phase's policy: its count and x equal that phase's (no process group)
+    bit for bit, kernel #4 as the recurrence implies."""
+    import torch.distributed as dist
+
+    from conjugategradient_tpu_torch.parallel import multihost
+    from conjugategradient_tpu_torch.scripts.multiprocess_demo import free_port
+
+    tag = f"multi-process: NCCL world 1, sharded CG {FLAGSHIP} fp64 on {PAR_SHARDS} shards"
+    t0 = time.perf_counter()
+    multihost.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, strict=True)
+    try:
+        _require(dist.get_backend() == "nccl", f"{tag}: backend {dist.get_backend()}")
+        mesh = multihost.global_mesh(devices=[dev] * PAR_SHARDS)
+        _require(mesh.comm is not None and mesh.owned == range(PAR_SHARDS), f"{tag}: {mesh}")
+        A, b, x0, n = make_distributed_system(FLAGSHIP, mesh)
+        pol = dataclasses.replace(WORKLOADS[FLAGSHIP].policy, max_iteration=PAR_CAP)
+        solve = make_sharded_cg(A, mesh, pol)
+        t_init = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = solve(A.data, b, x0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k4 = _k4_launches()
+        its, x_ref = cg64
+        x = torch.cat(res.x.parts).cpu()
+        _require(res.converged and res.iterations == its and torch.equal(x, x_ref),
+                 f"{tag}: {res.iterations} iterations against {its} without a process group, x "
+                 f"bit-equal {torch.equal(x, x_ref)}")
+        want = _par_want("cg", PAR_SHARDS, res.iterations, 0)
+        _require(k4 == want, f"{tag}: {k4} kernel #4 launches, the recurrence implies {want}")
+        count(tag, {"spmv_dia": k4}, fp32=False)
+        print(f"{tag}: {res.iterations} iterations and x bit-equal to the mesh without a process "
+              f"group; kernel #4 {k4} launches = {want} implied; init + assembly {t_init:.3f} s, "
+              f"solve {wall * 1e3:.3f} ms, of it {mesh.comm.seconds * 1e3:.3f} ms in "
+              f"{mesh.comm.calls} communicator calls [{card}]")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mp_plan(rec):
+    """The one field of a ``ShardPlan`` that ``_smg_want`` reads, from a
+    ``run_mgcg`` record."""
+    return types.SimpleNamespace(products_per_cycle=rec["products_per_cycle"])
+
+
+def _mp_setup_want(setup_products, num, owned) -> int:
+    """Kernel #3's launches of a probed setup on a process owning ``owned``
+    of ``num`` shards: its shards' part of each sharded level's probes, the
+    replicated levels' whole."""
+    return sum(p * (owned if s == num else s) for _, s, p in setup_products)
+
+
+def _mp_two_ranks(dev, card, count):
+    """(b): the port's launcher with two ranks on the card over Gloo (CUDA
+    parts staged through host buffers): viennacl_large by sharded CG and
+    rung-5 MP_GRID^3 by probed MGCG, each worker's own shards held to the
+    fp64 oracle (CG) and converged (MGCG); then the same MGCG on a
+    one-process 4-shard mesh here: the same count and the owned x blocks
+    bit for bit (else within MP_X_REL), each worker's #3 and #4 launches as
+    the recurrences imply, the walls and the communicator's seconds."""
+    from conjugategradient_tpu_torch.scripts import multiprocess_demo as mp
+
+    num = MP_PROCS * MP_LOCAL
+    tag = f"multi-process: {MP_PROCS} ranks x {MP_LOCAL} shards of the card over gloo"
+    out = tempfile.mkdtemp(prefix="multiprocess_")
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "conjugategradient_tpu_torch.scripts.multiprocess_demo",
+           "--procs", str(MP_PROCS), "--local-devices", str(MP_LOCAL), "--device", "cuda",
+           "--backend", "gloo", "--workload", MP_WORKLOAD, "--mgcg", "--grid", str(MP_GRID),
+           "--reps", "2", "--out", out, "--timeout", str(MP_TIMEOUT)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=MP_TIMEOUT + 60)
+    t_launch = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"  {line}")
+    _require(proc.returncode == 0 and '"verdict": "OK"' in proc.stdout,
+             f"{tag}: the launcher exited {proc.returncode}: {proc.stderr[-3000:]}")
+    recs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(MP_PROCS)]
+    shutil.rmtree(out, ignore_errors=True)
+
+    # the one-process reference: the same MGCG on 4 shards of the card here
+    mesh = make_mesh(num, devices=[dev] * num)
+    ref = mp.run_mgcg(mesh, MP_GRID, reps=2)
+    _require(ref["converged"], f"{tag}: the one-process MGCG did not converge")
+    k3 = lambda c: c["spmv_stencil"] + c["spmv_stencil_wide"]  # noqa: E731
+    want1 = _smg_want("cg", ref["iterations"], 1, _mp_plan(ref), num,
+                      ref["tail_products"])
+    _require(k3(ref["counts"]) == want1, f"{tag}: the one-process MGCG launched #3 "
+             f"{k3(ref['counts'])} times, the recurrence implies {want1}")
+    x_ref = ref["x"]
+    worst, bits = 0.0, True
+    walls = []
+    for r, rec in enumerate(recs):
+        cg, mg = rec["cg"], rec["mgcg"]
+        _require(rec["ok"] and cg["ok"] and mg["converged"] and rec["world"] == MP_PROCS
+                 and rec["owned"] == list(range(r * MP_LOCAL, (r + 1) * MP_LOCAL)),
+                 f"{tag}: rank {r}: {rec['owned']}, ok {rec['ok']}")
+        want4 = _par_want("cg", MP_LOCAL, cg["iterations"], 0)
+        _require(cg["counts"]["spmv_dia"] == want4, f"{tag}: rank {r} CG launched #4 "
+                 f"{cg['counts']['spmv_dia']} times, the recurrence implies {want4}")
+        _require(mg["iterations"] == ref["iterations"] and mg["products_per_cycle"] ==
+                 ref["products_per_cycle"] and mg["tail_products"] == ref["tail_products"],
+                 f"{tag}: rank {r} MGCG {mg['iterations']} iterations against the one-process "
+                 f"{ref['iterations']}")
+        want3 = _smg_want("cg", mg["iterations"], 1, _mp_plan(mg), MP_LOCAL,
+                          mg["tail_products"])
+        _require(k3(mg["counts"]) == want3, f"{tag}: rank {r} MGCG launched #3 "
+                 f"{k3(mg['counts'])} times, the recurrence implies {want3}")
+        want_setup = _mp_setup_want(mg["setup_products"], num, MP_LOCAL)
+        _require(k3(mg["setup_counts"]) == want_setup, f"{tag}: rank {r} probed setup launched "
+                 f"#3 {k3(mg['setup_counts'])} times, the code implies {want_setup}")
+        for i, part in zip(rec["owned"], mg["x"]):
+            bits = bits and torch.equal(part, x_ref[i])
+            worst = max(worst, float((part - x_ref[i]).abs().max() / x_ref[i].abs().max()))
+        count(f"{tag}: rank {r} sharded CG {MP_WORKLOAD} fp64",
+              {"spmv_dia": cg["counts"]["spmv_dia"]}, fp32=False)
+        count(f"{tag}: rank {r} rung-5 {MP_GRID}^3 probed setup + MGCG fp32",
+              {"spmv_stencil": mg["setup_counts"]["spmv_stencil"] + mg["counts"]["spmv_stencil"],
+               "spmv_stencil_wide": (mg["setup_counts"]["spmv_stencil_wide"]
+                                     + mg["counts"]["spmv_stencil_wide"])})
+        walls.append(mg["solve_s"][-1])
+        print(f"{tag}: rank {r} shards {rec['owned']}: CG {cg['iterations']} iterations (own "
+              f"shards against the fp64 oracle {cg['worst_rel_err']:.3e}), #4 {want4} launches "
+              f"as implied; assembly {cg['assembly_s']:.3f} s, solve {cg['solve_s']:.3f} s, "
+              f"communicator {cg['comm_s']:.3f} s. MGCG {mg['iterations']} iterations, #3 "
+              f"{k3(mg['counts'])} launches and setup #3 {k3(mg['setup_counts'])} as implied; "
+              f"assembly {mg['assembly_s']:.3f} s, probed setup {mg['setup_s']:.3f} s, warm solve "
+              f"{mg['solve_s'][-1]:.3f} s of it {mg['comm_s'][-1]:.3f} s in the communicator "
+              f"(first solve {mg['solve_s'][0]:.3f} s) [{card}]")
+    _require(bits or worst <= MP_X_REL, f"{tag}: owned x blocks differ from the one-process run's "
+             f"by {worst:.3e} > {MP_X_REL}")
+    gap = max(walls) - ref["solve_s"][-1]
+    comm = max(rec["mgcg"]["comm_s"][-1] for rec in recs)
+    print(f"{tag}: rung-5 {MP_GRID}^3 MGCG {ref['iterations']} iterations on both meshes, owned x "
+          f"blocks {'bit-equal' if bits else f'within {worst:.3e}'} to the one-process 4-shard "
+          f"run's; warm wall {max(walls):.3f} s on two processes against "
+          f"{ref['solve_s'][-1]:.3f} s on one (probed setup {ref['setup_s']:.3f} s, assembly "
+          f"{ref['assembly_s']:.3f} s): "
+          f"the gap {gap:.3f} s, communicator {comm:.3f} s ({comm / gap if gap > 0 else 0:.1%} of "
+          f"it); the launcher {t_launch:.1f} s [{card}]")
+
+
+def _multi_process(cg64, dev, card, count):
+    """The multi-process mesh: (a) NCCL at world size 1 in this process,
+    (b) two Gloo ranks on the one card; each step's seconds."""
+    for step, args in ((_mp_nccl_world1, (cg64, dev, card, count)),
+                       (_mp_two_ranks, (dev, card, count))):
+        t0 = time.perf_counter()
+        step(*args)
+        print(f"  {step.__name__[len('_mp_'):]}: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -7435,10 +7638,20 @@ def main() -> int:
     # and cacg on 4 shards and 1 (#4 once a shard per product), the warm
     # times, api.solve(mesh=), sharded def-CG, the CSR/ELL solver ---------
     t0 = time.perf_counter()
-    _parallel((("HandmadeCL", handmade_csr), ("flagship", flagship_csr)), fsys, dev, card, count,
-              witness)
+    cg64 = _parallel((("HandmadeCL", handmade_csr), ("flagship", flagship_csr)), fsys, dev, card,
+                     count, witness)
     del handmade_csr
     print(f"phase: parallel in {time.perf_counter() - t0:.1f} s")
+
+    # -- the multi-process mesh, counted: one NCCL rank in this process on
+    # the flagship's 4 shards (the parallel phase's fp64 CG bit for bit),
+    # then the launcher's two Gloo ranks on the card: viennacl_large by
+    # sharded CG (#4 a shard) and rung-5 Poisson 255^3 by probed MGCG (#3 a
+    # shard) against a one-process 4-shard run here -------------------------
+    t0 = time.perf_counter()
+    _multi_process(cg64, dev, card, count)
+    del cg64
+    print(f"phase: multi-process in {time.perf_counter() - t0:.1f} s")
 
     # -- the sharded multigrid, counted: shard_mgcg_solve on 256^3 (cg,
     # cg1, pipelined on 4 shards, cg on 1) and 1024^2 (Chebyshev, rbgs),

@@ -766,7 +766,7 @@ def eigs(
         raise ValueError(f"unknown eigs method {method!r}; want auto|arnoldi|lobpcg")
     if which not in ("LM", "SM", "LR", "SR", "LI"):
         raise ValueError(f"unknown which={which!r}; want LM|SM|LR|SR|LI")
-    device = default_device(device) if mesh is None else mesh.devices[0]
+    device = default_device(device) if mesh is None else mesh.local_devices[0]
     if method == "auto":
         # LOBPCG selects by ALGEBRAIC extremes, so it needs SPD, not just
         # symmetry: on a symmetric indefinite operator LM/SM would return

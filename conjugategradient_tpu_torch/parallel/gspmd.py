@@ -93,6 +93,7 @@ from conjugategradient_tpu_torch.solvers.policy import ConvergencePolicy
 def _mesh_axes(mesh: Mesh, axes, axis=None) -> Tuple[str, ...]:
     """The carriers' ``axes`` (``axis``: the JAX signature's one-name
     alias), checked against the mesh's own names."""
+    mesh.one_process("the GSPMD carriers")
     return mesh.check_axes((axis,) if axis is not None else axes)
 
 
@@ -101,6 +102,7 @@ def shard_system(system: LinearSystem, mesh: Mesh, axis: str = "x", dtype=None):
     blocks (``Shards``) where the length divides the mesh axis, else the
     whole value on the mesh's first device (the JAX package replicates
     it; here the replicated solve runs there)."""
+    mesh.one_process("shard_system")
     num = mesh.shape[axis]
     dt = torch_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
 
@@ -108,7 +110,7 @@ def shard_system(system: LinearSystem, mesh: Mesh, axis: str = "x", dtype=None):
         t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
         if t.shape[dim] % num == 0:
             return shard_rows(mesh, t, dt, dim=dim)
-        return t.to(device=mesh.devices[0], dtype=dt)
+        return t.to(device=mesh.local_devices[0], dtype=dt)
 
     A = DiaMatrix(put(system.A.data, -1), system.A.offsets, system.A.shape)
     return A, put(system.b, 0), put(system.x0, 0)
@@ -152,14 +154,14 @@ def make_gspmd_mgcg(
     grid = tuple(grid)
     dt = _np_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
     h = hierarchy or build_hierarchy(system.A, grid, smoother=smoother, pre=pre, post=post,
-                                     dtype=dt, layout="stencil", device=mesh.devices[0])
+                                     dtype=dt, layout="stencil", device=mesh.local_devices[0])
     if _shard_hierarchy_and_fine(h, grid, mesh, axes):
         solve, inputs = make_shard_mgcg(system, grid, mesh, policy, axis=mesh.axis, dtype=dt,
                                         hierarchy=h)
         solve.n_sharded = solve.plan.n_sharded
         return solve, inputs
 
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
 
     def place(v):
         t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
@@ -254,7 +256,7 @@ def make_gspmd_mg_nonsym(
     n = int(np.prod(grid))
     dt = _np_dtype(dtype if dtype is not None else np.asarray(A.data).dtype)
     tdt = torch_dtype(dt)
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
     h = hierarchy or build_hierarchy(A, grid, smoother=smoother, pre=pre, post=post, dtype=dt,
                                      layout="stencil", coarse_operator=coarse_operator,
                                      device=dev, **build_kw)
@@ -371,8 +373,8 @@ def gspmd_refined_solve(
             local = op.local
             place = lambda v: shard_blocks(mesh, as_tensor(v).reshape(grid), (0, 1), f64)
             read_x = lambda x_: x_.gather_grid(len(grid)).reshape(-1).cpu().numpy()
-        zero32 = Shards([torch.zeros(local, dtype=torch.float32, device=d) for d in mesh.devices],
-                        mesh)
+        zero32 = Shards([torch.zeros(local, dtype=torch.float32, device=d)
+                         for d in mesh.local_devices], mesh)
 
         def resid(b_, x_):
             r = b_ - op(x_)
@@ -387,7 +389,7 @@ def gspmd_refined_solve(
 
         b_dev, x_dev = place(b64), place(x64)
     else:
-        dev = mesh.devices[0]
+        dev = mesh.local_devices[0]
         A64 = A.device_put(f64, dev)
         zero32 = torch.zeros(grid, dtype=torch.float32, device=dev)
 

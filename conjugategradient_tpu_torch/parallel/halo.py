@@ -7,9 +7,9 @@ one neighbour pair at a time (``P2Host``/``P2Device``,
 ``ConjugateGradientParallelGpu.cs:384-419``).  The JAX package makes the
 same motion two cyclic ``ppermute`` shifts; here each is
 ``parallel.mesh.ppermute``: the boundary slab copied to the neighbour
-shard's device.  The functions take and return ``parallel.mesh.Shards``
-(the mesh travels with them, so the JAX package's ``axis`` and
-``num_shards`` arguments are gone).
+shard's device, or sent to the process that owns it.  The functions take
+and return ``parallel.mesh.Shards`` (the mesh travels with them, so the
+JAX package's ``axis`` and ``num_shards`` arguments are gone).
 
 The local product is kernel #4 (``ops.cuda_dia.spmv_dia_cuda``, its twin on
 a CPU tensor): each shard's rows become a square DIA over ``n_local +
@@ -193,7 +193,7 @@ def spmv_dia_allgather(data_local: Shards, offsets: Tuple[int, ...], p: Shards) 
     n_local = data_local.shape[1]
     B = max((abs(o) for o in offsets), default=0)
     g = all_gather(p)
-    rows0 = list(range(0, n_local * p.mesh.size, n_local))
+    rows0 = [i * n_local for i in p.mesh.owned]
     return Shards.map(
         lambda d, g_, row0: spmv_dia_cuda(_square(extend_rows(d, B), offsets),
                                           _gathered_window(g_, row0, n_local, B))[B:B + n_local],
@@ -326,7 +326,7 @@ class HaloDia(_HaloBuffers):
         H, n = self.halo, self.n_local
         if self.allgather:
             g = all_gather(p, dim=-1)
-            for i, (g_, b) in enumerate(zip(g.parts, buf.parts)):
+            for i, g_, b in zip(self.mesh.owned, g.parts, buf.parts):
                 lo = i * n - H
                 a, z = max(lo, 0), min(lo + n + 2 * H, g_.shape[-1])
                 # the middle is p itself; the rest of the window, and zeros

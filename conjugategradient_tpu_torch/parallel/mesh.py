@@ -22,8 +22,22 @@ controller and writes the SPMD program out:
   dtype, the result copied back to every shard's device), ``ppermute`` (a
   cyclic neighbour shift, each slab copied to the receiving shard's device;
   on a 2-D mesh along one of its axes, inside each row or column) and
-  ``all_gather``.  A process-group communicator can take their place
-  without touching the solvers.
+  ``all_gather``.
+- A mesh may span processes (``parallel.multihost.global_mesh``): it then
+  holds a ``parallel.comm.Communicator``, and each process owns a
+  contiguous block of the shards, process-major (rank r the flat indices
+  ``[r * L, (r + 1) * L)``, as JAX orders a global mesh's devices).  A
+  ``Shards`` holds the owned parts only; ``mesh.shards()`` pairs each with
+  its global index, which is what decides a block's rows.  The collectives
+  keep their meaning and their sums: ``psum``/``pmax`` gather every owned
+  partial (no per-process pre-sum) and combine them left to right in
+  global shard order, so the sums equal the one-process mesh's bit for bit;
+  ``ppermute`` sends the slabs whose receiver another process owns point to
+  point; ``all_gather`` and ``Shards.gather`` give every process the
+  global value.  The solvers run unchanged: every process runs the same
+  program on its own shards, and the replicated work (a tail, a
+  predicate) on its first device.  On a mesh of one process the owned
+  block is every shard, and nothing changes.
 - Torch functions take ``Shards`` too (``__torch_function__``):
   ``torch.where(mask, a, b)``, ``torch.zeros_like(a)`` and the like run
   shard by shard, a plain tensor among their arguments standing for a
@@ -57,9 +71,14 @@ class Mesh:
     array) and ``axis`` a pair of names, ``shape`` each axis's size.
     ``devices`` is the flat tuple in row-major order, ``dims`` the sizes in
     axis order, ``axes`` the names, and ``axis`` the one name of a 1-D mesh
-    (the pair of a 2-D one)."""
+    (the pair of a 2-D one).
 
-    def __init__(self, devices: Sequence, axis="x"):
+    ``comm`` (a ``parallel.comm.Communicator``) spreads the mesh over its
+    processes: ``devices`` is then every process's, rank by rank, and this
+    process owns the flat indices ``owned`` (a range), on
+    ``local_devices``.  Without one, one process owns every shard."""
+
+    def __init__(self, devices: Sequence, axis="x", comm=None):
         names = (axis,) if isinstance(axis, str) else tuple(axis)
         if len(names) == 1:
             flat, dims = list(devices), None
@@ -77,6 +96,31 @@ class Mesh:
         self.axes = names
         self.axis = names[0] if len(names) == 1 else names
         self.shape = dict(zip(names, self.dims))
+        self.comm = comm
+        world, rank = (comm.world, comm.rank) if comm is not None else (1, 0)
+        if len(self.devices) % world:
+            raise ValueError(f"{len(self.devices)} shards do not split over {world} processes")
+        per = len(self.devices) // world
+        self.owned = range(rank * per, (rank + 1) * per)
+        self.local_devices = self.devices[rank * per:(rank + 1) * per]
+
+    def shards(self):
+        """``(global index, device)`` of each shard this process owns."""
+        return list(zip(self.owned, self.local_devices))
+
+    @property
+    def layout(self):
+        """What two meshes must share for a ``Shards`` of one to serve the
+        other: the devices, the dims and the owned block."""
+        return self.devices, self.dims, self.owned
+
+    def one_process(self, route: str) -> None:
+        """Raise for ``route`` on a mesh that spans processes: the routes
+        not yet held across processes (ROADMAP queue 1, item 6d)."""
+        if self.comm is not None:
+            raise NotImplementedError(
+                f"{route} runs on a one-process mesh; across processes it waits for ROADMAP "
+                "queue 1, item 6d (the sharded CG on DIA, rung 5 and shard_mgcg are ported)")
 
     @property
     def size(self) -> int:
@@ -104,7 +148,8 @@ class Mesh:
         return axes
 
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r}, dims={self.dims})"
+        tail = "" if self.comm is None else f", owned={self.owned}, {self.comm}"
+        return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r}, dims={self.dims}{tail})"
 
 
 def make_mesh(num_devices: Optional[int] = None, axis: str = "x", devices=None) -> Mesh:
@@ -150,7 +195,9 @@ def _mesh_of(args):
 
 
 class Shards:
-    """A row-sharded value: ``parts[i]`` lives on ``mesh.devices[i]``.
+    """A row-sharded value: ``parts[k]`` is the part of global shard
+    ``mesh.owned[k]`` and lives on ``mesh.local_devices[k]`` (on a mesh of
+    one process, ``parts[i]`` on ``mesh.devices[i]``).
 
     Arithmetic (``+``, ``-``, ``*``, ``/``; ``@`` from the left), ``map``
     and torch functions act shard by shard; operands are
@@ -163,8 +210,8 @@ class Shards:
 
     def __init__(self, parts, mesh: Mesh):
         parts = tuple(parts)
-        if len(parts) != mesh.size:
-            raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size} devices")
+        if len(parts) != len(mesh.owned):
+            raise ValueError(f"{len(parts)} parts for the {len(mesh.owned)} owned shards of {mesh}")
         self.parts = parts
         self.mesh = mesh
 
@@ -173,8 +220,8 @@ class Shards:
         """``fn`` on each shard's parts of ``args`` (``Shards`` or values
         passed to every shard)."""
         mesh = _mesh_of(args)
-        return Shards([fn(*(_part(a, i, d) for a in args)) for i, d in enumerate(mesh.devices)],
-                      mesh)
+        return Shards([fn(*(_part(a, k, d) for a in args))
+                       for k, d in enumerate(mesh.local_devices)], mesh)
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -184,7 +231,7 @@ class Shards:
         kwargs = kwargs or {}
         mesh = _mesh_of(list(args) + list(kwargs.values()))
         outs = [func(*_part(tuple(args), i, d), **{k: _part(v, i, d) for k, v in kwargs.items()})
-                for i, d in enumerate(mesh.devices)]
+                for i, d in enumerate(mesh.local_devices)]
         if isinstance(outs[0], tuple):
             return tuple(Shards([o[j] for o in outs], mesh) for j in range(len(outs[0])))
         return Shards(outs, mesh)
@@ -264,12 +311,16 @@ class Shards:
         """The global value on the first shard's device: row blocks
         concatenated in shard order along ``dim``, or, with a pair of dims
         on a 2-D mesh, blocks concatenated along ``dim[1]`` within each row
-        of the mesh and the rows along ``dim[0]``."""
-        dev = self.mesh.devices[0]
-        parts = [p.to(dev) for p in self.parts]
+        of the mesh and the rows along ``dim[0]``.  On a mesh that spans
+        processes a collective: every process gets the global value, on its
+        first device."""
+        mesh = self.mesh
+        dev = mesh.local_devices[0]
+        parts = ([p.to(dev) for p in self.parts] if mesh.comm is None
+                 else mesh.comm.all_gather_parts(self.parts, dev))
         if isinstance(dim, int):
             return torch.cat(parts, dim=dim)
-        per = self.mesh.dims[1]
+        per = mesh.dims[1]
         rows = [torch.cat(parts[i:i + per], dim=dim[1]) for i in range(0, len(parts), per)]
         return torch.cat(rows, dim=dim[0])
 
@@ -288,7 +339,7 @@ def shard_rows(mesh: Mesh, a, dtype=None, dim: int = -1) -> Shards:
     """A global array (numpy or tensor) split into equal row blocks along
     ``dim`` (the last: a vector's rows, a DIA ``data``'s columns), block i
     placed on ``mesh.devices[i]`` as a contiguous tensor of ``dtype``
-    (``None``: kept)."""
+    (``None``: kept); of a mesh that spans processes, the owned blocks."""
     t = a if torch.is_tensor(a) else torch.as_tensor(a)
     if dtype is not None:
         from conjugategradient_tpu_torch.core.formats import torch_dtype
@@ -299,7 +350,7 @@ def shard_rows(mesh: Mesh, a, dtype=None, dim: int = -1) -> Shards:
     if n % num:
         raise ValueError(f"n={n} not divisible by {num} shards; pad_system first")
     blocks = torch.chunk(t, num, dim=dim)
-    return Shards([b.to(device=d, dtype=dtype).contiguous() for b, d in zip(blocks, mesh.devices)],
+    return Shards([blocks[i].to(device=d, dtype=dtype).contiguous() for i, d in mesh.shards()],
                   mesh)
 
 
@@ -307,7 +358,8 @@ def shard_blocks(mesh: Mesh, a, dims=(0, 1), dtype=None) -> Shards:
     """A global grid array (numpy or tensor) split into blocks: along
     ``dims[0]`` over a 1-D mesh (``shard_rows``), along ``dims[0]`` and
     ``dims[1]`` over the two axes of a 2-D mesh, block (i, j) on the shard
-    at (i, j), each a contiguous tensor of ``dtype`` (``None``: kept)."""
+    at (i, j), each a contiguous tensor of ``dtype`` (``None``: kept); of a
+    mesh that spans processes, the owned blocks."""
     t = a if torch.is_tensor(a) else torch.as_tensor(a)
     if dtype is not None:
         from conjugategradient_tpu_torch.core.formats import torch_dtype
@@ -318,14 +370,15 @@ def shard_blocks(mesh: Mesh, a, dims=(0, 1), dtype=None) -> Shards:
         if t.shape[dim] % num:
             raise ValueError(f"extent {t.shape[dim]} of dim {dim} not divisible by {num} shards")
         blocks = [c for blk in blocks for c in torch.chunk(blk, num, dim=dim)]
-    return Shards([b.to(device=d, dtype=dtype).contiguous() for b, d in zip(blocks, mesh.devices)],
+    return Shards([blocks[i].to(device=d, dtype=dtype).contiguous() for i, d in mesh.shards()],
                   mesh)
 
 
 def replicate(mesh: Mesh, a, dtype=None) -> Shards:
-    """The same value on every shard's device (one copy per device)."""
+    """The same value on every owned shard's device (one copy per
+    device)."""
     t = a if torch.is_tensor(a) else torch.as_tensor(a)
-    return Shards([t.to(device=d, dtype=dtype) for d in mesh.devices], mesh)
+    return Shards([t.to(device=d, dtype=dtype) for d in mesh.local_devices], mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -334,17 +387,21 @@ def replicate(mesh: Mesh, a, dtype=None) -> Shards:
 
 
 def _combine(x: Shards, fn) -> Shards:
-    dev = x.mesh.devices[0]
-    total = x.parts[0]
-    for p in x.parts[1:]:
+    mesh = x.mesh
+    dev = mesh.local_devices[0]
+    parts = x.parts if mesh.comm is None else mesh.comm.all_gather_parts(x.parts, dev)
+    total = parts[0]
+    for p in parts[1:]:
         total = fn(total, p.to(dev))
-    return Shards([total.to(d) for d in x.mesh.devices], x.mesh)
+    return Shards([total.to(d) for d in mesh.local_devices], mesh)
 
 
 def psum(x: Shards) -> Shards:
     """Sum over every shard of the mesh: the partials added in shard order
     (row-major on a 2-D mesh) on the first shard's device in their dtype,
-    the sum on every shard's device."""
+    the sum on every shard's device.  Across processes every partial is
+    gathered and each process adds them all in that order on its first
+    device: the same sum, bit for bit."""
     return _combine(x, torch.add)
 
 
@@ -358,7 +415,8 @@ def ppermute(x: Shards, shift: int, axis=None) -> Shards:
     ``(i - shift) % num`` (``shift=1``: each sends right), copied to its
     device.  ``axis`` (a 2-D mesh's axis name or index) shifts along that
     axis alone: inside each row (axis 1) or each column (axis 0) of the
-    mesh.  ``None``: the flat ring of every shard."""
+    mesh.  ``None``: the flat ring of every shard.  Across processes the
+    slabs whose receiver another process owns go point to point."""
     mesh = x.mesh
     if axis is None:
         src = [(i - shift) % mesh.size for i in range(mesh.size)]
@@ -369,6 +427,8 @@ def ppermute(x: Shards, shift: int, axis=None) -> Shards:
             c = list(mesh.coords(i))
             c[a] = (c[a] - shift) % mesh.dims[a]
             src.append(mesh.index(c))
+    if mesh.comm is not None:
+        return Shards(mesh.comm.ppermute(x.parts, src, mesh.owned, mesh.local_devices), mesh)
     return Shards([x.parts[j].to(d) for j, d in zip(src, mesh.devices)], mesh)
 
 
@@ -376,7 +436,7 @@ def all_gather(x: Shards, dim: int = 0) -> Shards:
     """Every shard's part concatenated in shard order along ``dim``, on
     every shard's device (``jax.lax.all_gather(..., tiled=True)``)."""
     g = x.gather(dim)
-    return Shards([g.to(d) for d in x.mesh.devices], x.mesh)
+    return Shards([g.to(d) for d in x.mesh.local_devices], x.mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -114,13 +114,13 @@ def _assemble(mesh: Mesh, axis: str, padded: GridShape, real0: int, shifts, legs
     axis-0 blocks, slab by slab: ``legs_fn(lo, hi)`` / ``b_fn(lo, hi)``
     make shard i's host slab, which is copied into its device's
     zero-haloed leg slab (halo 1) or vector and dropped before the next
-    shard's is made."""
+    shard's is made; a process makes its owned shards' alone."""
     num = mesh.shape[axis]
     n0 = padded[0] // num
     local = (n0,) + tuple(padded[1:])
     dt = torch_dtype(dtype)
     slabs, legs, bs, x0s = [], [], [], []
-    for i, dev in enumerate(mesh.devices):
+    for i, dev in mesh.shards():
         lo, hi = i * n0, (i + 1) * n0
         host = legs_fn(lo, hi)
         slab, mid = zero_halo_slab(len(shifts), local, 1, dt, dev)
@@ -215,7 +215,7 @@ def _fine(hierarchy):
     n0 = grid[0] // mesh.size
     bcast = (n0,) + (1,) * (len(grid) - 1)
     keep = Shards([(torch.arange(n0, device=dv) + i * n0 < hierarchy.real0).reshape(bcast)
-                   for i, dv in enumerate(mesh.devices)], mesh)
+                   for i, dv in mesh.shards()], mesh)
     return M.op, lambda r: torch.where(keep, M(r), 0.0), n, M.plan
 
 

@@ -178,6 +178,7 @@ def build_sharded_amg(h: AmgHierarchy, mesh: Mesh, axis: str = "x",
     ``min_local`` rows a shard are sharded (identity-padded, their
     products per-shard CSR blocks), the rest replicate in the tail.  The
     blocks are in the hierarchy's dtype."""
+    mesh.one_process("the sharded AMG")
     num = mesh.shape[axis]
     dt = h.coarse_inv.dtype
     np_dt = _np_dtype(dt)
@@ -208,7 +209,7 @@ def build_sharded_amg(h: AmgHierarchy, mesh: Mesh, axis: str = "x",
         metas.append(_LevelMeta(m_l // num, m_c // num, *meta, cheb_bounds=tuple(bounds)))
 
     # the replicated tail, its top padded to the gather size
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
     m_t = padded[t]
     if t == len(levels_h):
         ci = h.coarse_inv.cpu()
@@ -247,7 +248,7 @@ def _tail_cycle(tail: AmgHierarchy, b: Shards, gamma: int, finest: bool) -> Shar
     with no_tf32():  # the dense coarse product in full fp32
         e = amg_vcycle(tail, b.gather(), gamma=gamma, finest=finest)
     n = b.shape[0]
-    return Shards([e[i * n:(i + 1) * n].to(d) for i, d in enumerate(mesh.devices)], mesh)
+    return Shards([e[i * n:(i + 1) * n].to(d) for i, d in mesh.shards()], mesh)
 
 
 def make_sharded_vcycle(sh: ShardedAmg, h: AmgHierarchy, gamma: int = 1):
@@ -318,7 +319,7 @@ def make_sharded_amg(
         def op(p: Shards) -> Shards:
             y = spmv(A_top, p.gather())
             k = p.shape[0]
-            return Shards([y[i * k:(i + 1) * k].to(d) for i, d in enumerate(mesh.devices)], mesh)
+            return Shards([y[i * k:(i + 1) * k].to(d) for i, d in mesh.shards()], mesh)
 
     M = make_sharded_vcycle(sh, h, gamma=gamma)
 
@@ -363,7 +364,7 @@ def sharded_amg_solve(
         if method in ("bicgstab", "gmres", "fgmres"):
             setup_kw.setdefault("smoother", "jacobi")
         dt = _np_dtype(dtype) if dtype is not None else b_h.dtype
-        hierarchy = build_amg_hierarchy(A, dtype=dt, device=mesh.devices[0], **setup_kw)
+        hierarchy = build_amg_hierarchy(A, dtype=dt, device=mesh.local_devices[0], **setup_kw)
     h = hierarchy
     tdt = h.coarse_inv.dtype if dtype is None else torch_dtype(dtype)
     n = b_h.shape[0]

@@ -27,7 +27,9 @@ package's distributed form of MGCG, on the single-controller mesh of
   single-device ``precond.multigrid.v_cycle`` runs there once (kernels #1,
   #2, #3 and the dense coarse inverse), and each shard gets its block of
   the correction back.  On four shards of one card the coarse cycle runs
-  once, not four times; on distinct cards the result is the same.
+  once, not four times; on distinct cards the result is the same.  Over
+  processes the gather is collective, every process runs the tail on its
+  first device (the same inputs, the same bits) and keeps its own blocks.
 
 The outer loop is ``parallel.sharded_cg.sharded_cg_loop`` (``variant``
 ``cg``, ``cg1`` or ``pipelined``) over its own ``HaloStencil`` of the fine
@@ -140,7 +142,7 @@ def _cc_halo(v: Shards, d: int, ax: int = 0) -> Tuple[Shards, Shards]:
     boundary as the unsharded cell-centred transfers pad with zeros."""
     mesh = v.mesh
     dim = ax - d
-    pos = [mesh.coords(i)[ax] for i in range(mesh.size)]
+    pos = [mesh.coords(i)[ax] for i in mesh.owned]
     num = mesh.dims[ax]
     if num == 1:
         z = Shards.map(lambda t: torch.zeros_like(t.narrow(dim, 0, 1)), v)
@@ -376,7 +378,7 @@ def _shard_levels(h: MgHierarchy, n_sharded: int, mesh: Mesh, dt) -> Tuple[Shard
         local = tuple(g[a] // mesh.dims[a] for a in range(nb))
         if isinstance(lvl.A, ConstStencilMatrix):
             legs = Shards([_const_legs(lvl.A, *block_range(mesh, i, local), dt, d)
-                           for i, d in enumerate(mesh.devices)], mesh)
+                           for i, d in mesh.shards()], mesh)
         else:
             legs = shard_blocks(mesh, lvl.A.data, ldims, dt)
         invd = lvl.inv_diag
@@ -448,7 +450,7 @@ def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre
     as it is."""
     grid = tuple(grid)
     if isinstance(hierarchy, ShardHierarchy):
-        if tuple(hierarchy.mesh.devices) != tuple(mesh.devices) or hierarchy.grid != grid:
+        if hierarchy.mesh.layout != mesh.layout or hierarchy.grid != grid:
             raise ValueError(f"the hierarchy was built for {hierarchy.grid} on "
                              f"{hierarchy.mesh}, not {grid} on {mesh}")
         if not hierarchy.levels:
@@ -456,7 +458,7 @@ def _prep_shard_hierarchy(A_dia, grid, mesh: Mesh, axis: str, smoother: str, pre
                              f"{mesh.size} devices")
         return hierarchy, len(hierarchy.levels), hierarchy.levels, hierarchy.tail
     h = hierarchy or build_hierarchy(A_dia, grid, smoother=smoother, pre=pre, post=post,
-                                     dtype=dt, layout="stencil", device=mesh.devices[0],
+                                     dtype=dt, layout="stencil", device=mesh.local_devices[0],
                                      **build_kw)
     if not h.levels or not isinstance(h.levels[0].A, (StencilMatrix, ConstStencilMatrix)):
         raise ValueError("make_shard_mgcg needs a stencil-layout hierarchy with >= 1 level")
@@ -625,7 +627,8 @@ def make_shard_mgcg(
     the JAX signature's).
 
     Returns ``(solve, (b, x0))`` with ``solve(b, x0) -> CGResult`` (a flat
-    global x on the mesh's first device) and ``b``, ``x0`` the system's
+    global x on the mesh's first device; on a mesh that spans processes,
+    the ``Shards`` of this process's grid blocks) and ``b``, ``x0`` the system's
     vectors placed as ``Shards`` of grid blocks; ``solve`` takes such
     ``Shards`` (or global arrays, split here).  ``system`` is a
     ``core.generators.LinearSystem`` (host fp64 DIA ``A``, ``b``, ``x0``);
@@ -655,6 +658,8 @@ def make_shard_mgcg(
 
     def solve(b, x0) -> CGResult:
         res = solve_shards(b, x0)
+        if mesh.comm is not None:
+            return res
         return dataclasses.replace(res, x=res.x.gather_grid(len(grid)).reshape(-1))
 
     solve.shards = solve_shards

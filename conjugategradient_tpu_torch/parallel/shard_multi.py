@@ -94,6 +94,7 @@ def make_shard_multi_mgcg(
     (``place(X)`` on the solve places another (n, k) block).  ``system``
     gives ``A`` (host fp64 DIA); the hierarchy is built on the mesh's first
     device unless given.  ``solve.plan`` is the V-cycle's ``ShardPlan``."""
+    mesh.one_process("make_shard_multi_mgcg")
     grid = tuple(grid)
     d = len(grid)
     dt = _np_dtype(dtype if dtype is not None else np.asarray(system.A.data).dtype)
@@ -179,6 +180,7 @@ def sharded_cg_multi_solve(
         raise TypeError("sharded_cg_multi_solve wants a DiaMatrix")
     if mesh is None:
         mesh = make_mesh(axis=axis)
+    mesh.one_process("sharded_cg_multi_solve")
     num = mesh.shape[axis]
     n = A.n
     if n % num:

@@ -371,6 +371,7 @@ def make_sharded_nonsym(
         raise TypeError(f"the sharded nonsymmetric solvers take a DiaMatrix, got {type(A).__name__}")
     if method == "chebyshev" and bounds is None:
         raise ValueError("chebyshev requires bounds=(lo, hi)")
+    mesh.one_process("make_sharded_nonsym")
     num = mesh.shape[axis]
     n = A.n
     if n % num:
@@ -425,6 +426,7 @@ def make_sharded_lsmr(
     with both DIA data arrays as ``Shards`` or global arrays."""
     from conjugategradient_tpu_torch.core.formats import transpose
 
+    mesh.one_process("make_sharded_lsmr")
     num = mesh.shape[axis]
     n = A.n
     if n % num:

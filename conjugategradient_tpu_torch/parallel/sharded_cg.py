@@ -288,7 +288,7 @@ def _shards(mesh: Mesh, a, dtype, dim: int = -1) -> Shards:
     """``a`` (a global array, or ``Shards`` of this mesh) as ``Shards`` of
     ``dtype`` (``None``: kept)."""
     if isinstance(a, Shards):
-        if a.mesh.devices != mesh.devices:
+        if a.mesh.layout != mesh.layout:
             raise ValueError(f"Shards of {a.mesh} on a solve over {mesh}")
         return a if dtype is None else Shards.map(lambda t: t.to(torch_dtype(dtype)), a)
     return shard_rows(mesh, a, dtype, dim=dim)
@@ -324,7 +324,9 @@ def make_sharded_cg(
     ``Deflation`` (built on the full system; ``shard_deflation`` splits
     it).  Each argument may be a ``Shards`` of this mesh or a global array
     (split here); the solve runs in b's dtype.  ``x`` of the result is the
-    global solution on the mesh's first device.
+    global solution on the mesh's first device; on a mesh that spans
+    processes, the ``Shards`` of this process's blocks of it (what the JAX
+    factory's global array holds on each host).
 
     ``A`` gives the structure only (offsets, shape); its ``data`` is the
     solve's argument, as in the JAX package.  Requires
@@ -374,7 +376,7 @@ def make_sharded_cg(
             # the final Galerkin correction restores the span{W} components
             # that project_r kept out of the recurrence
             res = dataclasses.replace(res, x=d.galerkin_correct(res.x, b - op(res.x)))
-        return dataclasses.replace(res, x=res.x.gather())
+        return res if mesh.comm is not None else dataclasses.replace(res, x=res.x.gather())
 
     return solve
 

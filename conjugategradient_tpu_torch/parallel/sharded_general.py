@@ -127,7 +127,7 @@ def _blocks(mesh: Mesh, triplets, n_local: int, n_cols: int) -> Shards:
     ``CsrMatrix`` of ``(n_local, n_cols)`` on each shard."""
     data, cols, rows = triplets
     out = []
-    for s, dev in enumerate(mesh.devices):
+    for s, dev in mesh.shards():
         indptr = np.zeros(n_local + 1, dtype=np.int32)
         indptr[1:] = np.cumsum(np.bincount(rows[s], minlength=n_local))
         out.append(CsrMatrix(data[s], cols[s], indptr, rows[s], (n_local, n_cols))
@@ -151,6 +151,7 @@ def make_sharded_cg_general(
     them), ``b`` and ``x0`` ``Shards`` or global arrays; ``solve.hops`` and
     ``solve.route`` (``"ring"`` or ``"all-gather"``) say how it exchanges.  Requires
     ``A.n % num_shards == 0``."""
+    mesh.one_process("make_sharded_cg_general")
     num = mesh.shape[axis]
     n = A.n
     if n % num:
@@ -178,9 +179,9 @@ def make_sharded_cg_general(
             for off, cnt in zip(part.offsets, part.counts):
                 cols[off:off + cnt] += hops * n_local - off
         data = np.asarray(A.data)
+        spans = [(part.offsets[i], part.counts[i], d) for i, d in mesh.shards()]
         inputs = (Shards([EllMatrix(data[o:o + c], cols[o:o + c], (n_local, window))
-                          .device_put(device=d)
-                          for o, c, d in zip(part.offsets, part.counts, mesh.devices)], mesh),)
+                          .device_put(device=d) for o, c, d in spans], mesh),)
 
         def local_op(ell):
             return lambda p: Shards.map(spmv_ell, ell, gathered(p))

@@ -131,8 +131,8 @@ def _checkerboard(local: GridShape, dtype, origin=0, device=None) -> torch.Tenso
 
 
 def _origins(mesh: Mesh, local: GridShape):
-    """Each shard's block origin on the leading ``mesh.ndim`` axes."""
-    return [tuple(c * n for c, n in zip(mesh.coords(i), local)) for i in range(mesh.size)]
+    """Each owned shard's block origin on the leading ``mesh.ndim`` axes."""
+    return [tuple(c * n for c, n in zip(mesh.coords(i), local)) for i in mesh.owned]
 
 
 def _halos(shifts, nb: int) -> Tuple[int, ...]:
@@ -165,7 +165,8 @@ class _Level:
 
     def fill(self, fn) -> Shards:
         """``fn(origin, device)`` on each shard: a ``Shards`` of its blocks."""
-        return Shards([fn(o, dv) for o, dv in zip(self.origins, self.mesh.devices)], self.mesh)
+        return Shards([fn(o, dv) for o, dv in zip(self.origins, self.mesh.local_devices)],
+                      self.mesh)
 
 
 def _pdot(u: Shards, v: Shards) -> torch.Tensor:
@@ -225,7 +226,7 @@ def _lam_max_dev(L: _Level, inv_diag: Shards, iters: int = 30) -> torch.Tensor:
 
     v = L.fill(start)
     v = v / _pdot(v, v).sqrt()
-    lam = torch.zeros((), dtype=dt, device=L.mesh.devices[0])
+    lam = torch.zeros((), dtype=dt, device=L.mesh.local_devices[0])
     for _ in range(iters):
         w = inv_diag * L.op(v)
         lam = _pdot(w, v)
@@ -271,9 +272,9 @@ def _probe_coarse(L: _Level, W: Optional[Shards], kind: str = "agg") -> Shards:
     local_c = tuple(n // mesh.dims[a] if a < mesh.ndim else n for a, n in enumerate(gc))
     corigins = _origins(mesh, local_c)
     dt = L.legs.dtype
-    iotas = [_iota_mod(local_c, periods, o, dv) for o, dv in zip(corigins, mesh.devices)]
+    iotas = [_iota_mod(local_c, periods, o, dv) for o, dv in zip(corigins, mesh.local_devices)]
     out = Shards([torch.zeros((len(box),) + local_c, dtype=dt, device=dv)
-                  for dv in L.mesh.devices], L.mesh)
+                  for dv in mesh.local_devices], mesh)
     for c in product(*[range(p) for p in periods]):
         e0 = Shards([_coset_mask(io, c).expand(local_c).to(dt) for io in iotas], L.mesh)
         if kind == "hyb":
@@ -310,7 +311,9 @@ def _carried(g: GridShape, halos, mesh: Mesh, axes: Tuple[str, ...]) -> bool:
 
 
 def _first(mesh: Mesh) -> Mesh:
-    return Mesh(mesh.devices[:1], mesh.axes[0])
+    """This process's first device alone: where the replicated levels live
+    (every process holds them, as JAX replicates them on every device)."""
+    return Mesh(mesh.local_devices[:1], mesh.axes[0])
 
 
 def _as_tensor(legs) -> torch.Tensor:
@@ -326,17 +329,18 @@ def _place(legs, shifts, g: GridShape, mesh: Mesh, axes, dt) -> _Level:
     more; otherwise the global legs on the first device."""
     halos = _halos(shifts, mesh.ndim)
     if not _carried(g, halos, mesh, axes):
-        t = _as_tensor(legs).to(device=mesh.devices[0], dtype=dt).contiguous()
+        t = _as_tensor(legs).to(device=mesh.local_devices[0], dtype=dt).contiguous()
         return _Level(Shards([t], _first(mesh)), shifts, g)
     local = tuple(n // mesh.dims[a] if a < mesh.ndim else n for a, n in enumerate(g))
-    if isinstance(legs, Shards) and legs.mesh.dims == mesh.dims:
+    if isinstance(legs, Shards) and legs.mesh.layout == mesh.layout:
         blocks = legs.parts
     else:
         blocks = [_as_tensor(legs)]
         for a, num in enumerate(mesh.dims):
             blocks = [c for blk in blocks for c in torch.chunk(blk, num, dim=1 + a)]
+        blocks = [blocks[i] for i in mesh.owned]
     slabs, mids = [], []
-    for b, dv in zip(blocks, mesh.devices):
+    for b, dv in zip(blocks, mesh.local_devices):
         slab, mid = zero_halo_slab(len(shifts), local, halos, dt, dv)
         mid.copy_(b)
         slabs.append(slab)
@@ -348,8 +352,8 @@ def _fine_level(A: StencilMatrix, g: GridShape, mesh: Mesh, axes, dt) -> _Level:
     """The fine level: a ``SlabStencil`` the sharded V-cycle carries on
     this mesh keeps the assembly's slabs (no second copy of the fine
     legs); anything else is placed (``_place``)."""
-    if (isinstance(A, SlabStencil) and A.data.mesh.devices == mesh.devices
-            and A.data.mesh.dims == mesh.dims and _carried(g, (A.halo0,), mesh, axes)):
+    if (isinstance(A, SlabStencil) and A.data.mesh.layout == mesh.layout
+            and _carried(g, (A.halo0,), mesh, axes)):
         return _Level(A.data, A.shifts, g, A.slabs)
     return _place(A.data, A.shifts, g, mesh, axes, dt)
 
@@ -411,7 +415,8 @@ def _finish(levels, tail, legs_h, shifts, g, dt, mesh, smoother, pre, post, omeg
     t0 = time.perf_counter()
     dense_c = _legs_to_dense(legs_h, shifts, g)
     coarse_inv = torch.from_numpy(np.linalg.inv(dense_c.astype(np.float64)).astype(legs_h.dtype))
-    rep_h = MgHierarchy(tail, coarse_inv.to(mesh.devices[0], dt), smoother, pre, post, omega)
+    rep_h = MgHierarchy(tail, coarse_inv.to(mesh.local_devices[0], dt), smoother, pre, post,
+                        omega)
     setup["coarse_inv"] = time.perf_counter() - t0
     return ShardHierarchy(tuple(levels), rep_h, tuple(grid), mesh, int(real0), setup_s=setup,
                           host_reads=reads.n, setup_products=tuple(products),
@@ -588,10 +593,10 @@ def build_hierarchy_redisc(
         sharded = sharded_so_far and _carried(gg, (1,) * mesh.ndim, mesh, axes)
         if not sharded:
             t = torch.from_numpy(np.ascontiguousarray(slab_fn(level, gg, 0, gg[0])))
-            return _Level(Shards([t.to(mesh.devices[0], dt)], _first(mesh)), shifts, gg)
+            return _Level(Shards([t.to(mesh.local_devices[0], dt)], _first(mesh)), shifts, gg)
         local = tuple(n // mesh.dims[a] if a < mesh.ndim else n for a, n in enumerate(gg))
         slabs, mids = [], []
-        for org, dv in zip(_origins(mesh, local), mesh.devices):
+        for org, dv in zip(_origins(mesh, local), mesh.local_devices):
             slab, mid = zero_halo_slab(len(shifts), local, (1,) * mesh.ndim, dt, dv)
             legs = np.asarray(slab_fn(level, gg, org[0], org[0] + local[0]))
             if mesh.ndim == 2:  # the generator gives whole planes: this block's columns

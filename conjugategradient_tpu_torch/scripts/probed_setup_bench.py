@@ -57,7 +57,7 @@ def probed(grid, mesh, dtype=np.float32) -> dict:
     """The rung-5 Poisson system on ``grid`` assembled onto ``mesh`` in
     ``dtype`` and its probed hierarchy: ``A``, ``b``, ``x0``, ``padded``,
     ``h`` and the host-clock seconds ``assembly_s``, ``setup_s``."""
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
     (A, b, x0, padded, _), t_asm = _timed(
         lambda: rung5.make_rung5_system(grid, mesh, dtype=dtype), dev)
     h, t_setup = _timed(lambda: build_hierarchy_probed(A, mesh), dev)
@@ -70,7 +70,7 @@ def probed_vs_host(grid, mesh, policy, dtype=np.float32) -> dict:
     mesh's first device: ``host_h``, ``host_setup_s``) and MGCG under
     ``policy`` over the same shards on each hierarchy (``res``,
     ``host_res``; ``solve_s`` the probed solve's first call)."""
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
     out = probed(grid, mesh, dtype)
     A, padded = out["A"], out["padded"]
     legs64 = rung5.poisson_stencil_slab(grid, 0, padded[0], np.float64)

@@ -232,6 +232,7 @@ def _sharded_basis(A, n: int, m: int, dt, basis_sharding, is_callable_op, precis
     if mesh.ndim != 1 or axis != mesh.axis:
         raise ValueError(f"basis_sharding row-shards over a 1-D mesh's axis, not {axis!r} of "
                          f"{mesh}")
+    mesh.one_process("arnoldi_eigs(basis_sharding=)")
     if n % mesh.size:
         raise ValueError(f"n={n} rows do not divide over {mesh.size} shards")
     n_local = n // mesh.size
@@ -246,7 +247,8 @@ def _sharded_basis(A, n: int, m: int, dt, basis_sharding, is_callable_op, precis
     proj = lambda Vj, w: psum(Shards.map(torch.matmul, Vj, w)).parts[0]
     ldot = lambda a, b: _dot(a, b, precise=precise_dot)
     dot = lambda u, v: psum(Shards.map(ldot, u, v)).parts[0]
-    V = Shards([torch.zeros((m + 1, n_local), dtype=dt, device=d) for d in mesh.devices], mesh)
+    V = Shards([torch.zeros((m + 1, n_local), dtype=dt, device=d) for d in mesh.local_devices],
+               mesh)
     return mesh, op, rows, proj, dot, V
 
 
@@ -324,7 +326,7 @@ def arnoldi_eigs(
     if basis_sharding is not None:
         mesh, op_plain, rows, proj, dot, V = _sharded_basis(A, n, m, dt, basis_sharding,
                                                             is_callable_op, precise_dot)
-        dev = mesh.devices[0]
+        dev = mesh.local_devices[0]
         V[0] = rows(v0)
         gather = lambda X: X.gather(1)
     else:

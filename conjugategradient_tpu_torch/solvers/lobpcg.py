@@ -288,11 +288,12 @@ def gspmd_lobpcg(
     if mesh.ndim != 1 or axis != mesh.axis:
         raise ValueError(f"gspmd_lobpcg row-shards over a 1-D mesh's axis, not {axis!r} of "
                          f"{mesh}")
+    mesh.one_process("gspmd_lobpcg")
     n, num = A.shape[0], mesh.size
     if n % num:
         raise ValueError(f"n={n} rows do not divide over {num} shards")
     dt = torch_dtype(dtype)
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
 
     def halo_op(C):
         n_local = n // num

@@ -2134,3 +2134,40 @@ def test_sharded_lobpcg_keeps_tf32_off(cuda, monkeypatch):
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert pinned.converged and orth <= 1e-5
     assert not unpinned.converged or orth_tf32 > 1e-4, (unpinned.iterations, orth_tf32)
+
+
+def test_multiprocess_mesh_on_the_card_equals_the_one_process_mesh(cuda, tmp_path):
+    """The sharded CG (fp64, kernel #4 a shard) on 4 shards of cuda:0 over
+    a process group: one NCCL rank in this process, then two ranks x 2
+    shards over Gloo through the port's launcher (NCCL refuses two ranks on
+    one GPU; Gloo stages the CUDA parts through host buffers).  Both take
+    the count and the x of the mesh without a process group, bit for bit."""
+    import subprocess
+    import sys
+
+    import torch.distributed as dist
+
+    from conjugategradient_tpu_torch.parallel import make_mesh, multihost
+    from conjugategradient_tpu_torch.scripts import multiprocess_demo as demo
+
+    workload = "ladder_dense_1k"
+    ref = demo.run_cg(make_mesh(4, devices=[cuda] * 4), workload)
+    assert ref["ok"]
+    multihost.initialize_distributed(f"127.0.0.1:{demo.free_port()}", 1, 0, strict=True)
+    try:
+        assert dist.get_backend() == "nccl"
+        nccl = demo.run_cg(multihost.global_mesh(devices=[cuda] * 4), workload)
+    finally:
+        dist.destroy_process_group()
+    assert nccl["iterations"] == ref["iterations"]
+    assert all(torch.equal(a, b) for a, b in zip(nccl["x"], ref["x"]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "conjugategradient_tpu_torch.scripts.multiprocess_demo",
+         "--procs", "2", "--local-devices", "2", "--device", "cuda", "--backend", "gloo",
+         "--workload", workload, "--out", str(tmp_path), "--timeout", "300"],
+        capture_output=True, text=True, timeout=360)
+    assert proc.returncode == 0 and '"verdict": "OK"' in proc.stdout, proc.stderr[-3000:]
+    recs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    assert all(r["cg"]["iterations"] == ref["iterations"] for r in recs)
+    owned = [p for r in recs for p in r["cg"]["x"]]
+    assert len(owned) == 4 and all(torch.equal(a, b) for a, b in zip(owned, ref["x"]))

@@ -45,6 +45,10 @@ def test_port_and_smoke_script_do_not_import_jax():
         "import conjugategradient_tpu_torch.api\n"
         "import conjugategradient_tpu_torch.utils\n"
         "import conjugategradient_tpu_torch.scripts.reference_workloads\n"
+        "import conjugategradient_tpu_torch.parallel.comm\n"
+        "import conjugategradient_tpu_torch.parallel.multihost\n"
+        "import conjugategradient_tpu_torch.scripts.multiprocess_demo\n"
+        "import conjugategradient_tpu_torch.scripts.smoke_times\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "bad += sorted(m for m in sys.modules if m == 'conjugategradient_tpu' or m.startswith('conjugategradient_tpu.'))\n"

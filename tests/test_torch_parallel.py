@@ -368,11 +368,48 @@ def test_make_distributed_system_per_block_bit_equal():
 
 
 def test_multihost_helpers_degrade_to_local():
+    import torch.distributed as dist
+
+    from conjugategradient_tpu_torch.scripts.multiprocess_demo import free_port
+
     multihost.initialize_distributed()  # a no-op for one process
-    assert multihost.host_count() == 1
+    assert multihost.host_count() == 1 and not dist.is_initialized()
     assert multihost.global_mesh(devices=["cpu"] * 8).shape["x"] == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
-        multihost.initialize_distributed("localhost:1234", 2, 0)
+    # an explicit world of one joins a group; a second call is harmless
+    try:
+        multihost.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        multihost.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+        assert multihost.host_count() == 1
+        m = multihost.global_mesh(devices=["cpu"] * 4)
+        assert m.comm is not None and m.size == 4 and m.owned == range(4)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_initialize_distributed_failures(monkeypatch):
+    """strict=True with nothing to join raises; a coordinator no process
+    serves re-raises when it was given, and warns and goes on solo when it
+    came from torchrun's environment."""
+    import torch.distributed as dist
+
+    from conjugategradient_tpu_torch.scripts.multiprocess_demo import free_port
+
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="strict=True"):
+        multihost.initialize_distributed(strict=True)
+    port = free_port()  # nobody listens there: rank 1 cannot reach rank 0
+    with pytest.raises(Exception):
+        multihost.initialize_distributed(f"127.0.0.1:{port}", 2, 1, timeout=0.5)
+    assert not dist.is_initialized()
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)), ("WORLD_SIZE", "2"),
+                 ("RANK", "1")):
+        monkeypatch.setenv(k, v)
+    with pytest.warns(UserWarning, match="continuing single-process"):
+        multihost.initialize_distributed(timeout=0.5)
+    assert not dist.is_initialized() and multihost.host_count() == 1
 
 
 ROW_CASES = [
